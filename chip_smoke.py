@@ -7,19 +7,33 @@ Run from the root of a checkout, with no arguments:
 
 Phases, each printing one JSON object per line:
 
-1. build   — compile every CUDA kernel of the serve path from csrc/ (one
-             nvcc per source, all at once) and print the seconds it took.
+1. build   — compile every CUDA kernel of the serve and train paths from
+             csrc/ (one nvcc per source, all at once) and print the
+             seconds it took.
 2. kernels — at full width, on seeded inputs with ragged lengths and one
              all-masked row, hold each kernel against its plain PyTorch
-             version (max abs error <= 1e-4 in float32, TF32 off) and time
-             both with CUDA events.
-3. serve   — the main path: the seqToseq NMT generation model at full
+             version (forward outputs and residuals: max abs error <= 1e-4
+             in float32, TF32 off; gradients against autograd of the plain
+             version: <= 1e-4 * max(1, max |plain|)) and time both with
+             CUDA events from a cold L2.
+3. serve   — a main path: the seqToseq NMT generation model at full
              width (vocab 30000, dim 512, random weights from seed 1)
              behind build_engine(slots=64, prompt_tokens=32,
              fused_step=True), answering 128 seeded requests. The kernel
              launch counters are zeroed just before the requests and read
              just after. The same requests then go through the unfused
-             decode step, and a small prefill is checked against the CPU.
+             decode step, and a small prefill is checked against the CPU;
+             one more serve runs under torch.profiler.
+4. train   — the other main path: Trainer(nmt_config(vocab=30000,
+             dim=512, batch_size=64)) on the card, random weights from
+             seed 1, 8 Adam steps on nmt_batch(B=64, T=32, seed=1), the
+             launch counters zeroed just before and read just after (2, 2,
+             1 and 1 launches per step of the four training kernels); the
+             loss must fall. Then one B = 4 step against the same step on
+             the CPU (loss and every gradient within 1e-3 * max(1,
+             max |grad|)), a pass-00000 save restored into a fresh Trainer
+             (parameters and Adam slots equal), and one step under
+             torch.profiler.
 
 Then the per-kernel line ({"kernels": [...]}), the card's name and power
 limit as nvidia-smi reports them, and as the last line
@@ -44,7 +58,10 @@ import numpy as np
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 TOL = 1e-4                 # f32, sums over K of 512..1536 terms in another order
+TRAIN_TOL = 1e-3           # a whole train step: the card against the CPU plain versions
 FULL = dict(vocab=30000, dim=512, max_length=32, slots=64, prompt_tokens=32)
+TRAIN = dict(batch=64, T=32, steps=8, cpu_batch=4)
+TRAIN_KERNELS = ("gru_fwd_train", "gru_bwd", "attention_gru_fwd_train", "attention_gru_bwd")
 N_REQUESTS = 128
 # the JAX package's allowance for argmax near-ties between two decode
 # paths (SLOT_PARITY_TOL in paddle_tpu/graph/decode_step.py)
@@ -154,8 +171,123 @@ def phase_kernels(torch, dev):
                   + 2.0 * B * E * 3 * D + 6.0 * B * D * D)  # pallas_attention_gru._flops
     results["attention_gru_fwd"] = dict(cases=cases, shape=dict(Td=1, Te=Te, B=B, D=D, E=E),
                                         bytes=nbytes, flops=flops)
+    phase_train_kernels(torch, dev, rng, t, lengths, results)
     emit({"phase": "kernels", "cases": {k: r["cases"] for k, r in results.items()}})
     return results
+
+
+def _err(got, ref):
+    return max(float((a - b).abs().max()) for a, b in zip(got, ref))
+
+
+def _grad_err(got, ref):
+    """Largest gradient error over its tolerance scale max(1, max |plain|)."""
+    return max(float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+               for a, b in zip(got, ref))
+
+
+def phase_train_kernels(torch, dev, rng, t, lengths, results):
+    """Kernels 2, 3, 5 and 6 at the train path's full widths: GRU T = 32,
+    B = 64, H = 512 (forward and reversed); attention-GRU Td = Te = 32,
+    B = 64, D = 512, E = 1024."""
+    from paddle_tpu_torch.ops import fused_attention_gru as fa
+    from paddle_tpu_torch.ops import fused_gru as fg
+
+    T, B, H = TRAIN["T"], TRAIN["batch"], FULL["dim"]
+    x3 = t(rng.randn(B, T, 3 * H) * 0.5).transpose(0, 1)   # as the layer passes it
+    w = t(rng.randn(H, 3 * H) / np.sqrt(H))
+    mask = t((np.arange(T)[:, None] < lengths(T)[None, :]))
+    dy = t(rng.randn(T, B, H))
+    fwd_cases, bwd_cases = [], []
+    for reverse in (False, True):
+        got = fg._launch_fwd(x3, mask, w, reverse, fg.KERNEL_ACTS, residuals=True)
+        ref = fg.gru_forward_reference(x3, mask, w, reverse, residuals=True)
+        torch.cuda.synchronize()
+        err = _err(got, ref)
+        assert all(torch.isfinite(a).all() for a in got) and err <= TOL, ("gru_fwd_train", reverse, err)
+        fwd_cases.append({"reverse": reverse, "max_abs_err": err,
+                          "ms": time_ms(torch, lambda: fg._launch_fwd(
+                              x3, mask, w, reverse, fg.KERNEL_ACTS, residuals=True)),
+                          "plain_ms": time_ms(torch, lambda: fg.gru_forward_reference(
+                              x3, mask, w, reverse, residuals=True), reps=5)})
+        _, saved, hprev = got
+        leaves = [x3.detach().requires_grad_(), w.detach().requires_grad_()]
+        kg = torch.autograd.grad(fg.fused_gru(leaves[0], mask, leaves[1], reverse), leaves, dy)
+        plain = [x3.detach().requires_grad_(), w.detach().requires_grad_()]
+        ys_plain = fg.gru_forward_reference(plain[0], mask, plain[1], reverse)
+        pg = torch.autograd.grad(ys_plain, plain, dy, retain_graph=True)
+        torch.cuda.synchronize()
+        err, rel = _err(kg, pg), _grad_err(kg, pg)
+        assert all(torch.isfinite(g).all() for g in kg) and rel <= TOL, ("gru_bwd", reverse, rel)
+        bwd_cases.append({"reverse": reverse, "max_abs_err": err, "err_over_scale": rel,
+                          "ms": time_ms(torch, lambda: fg._launch_bwd(
+                              dy, saved, hprev, mask, w, reverse)),
+                          "plain_ms": time_ms(torch, lambda: torch.autograd.grad(
+                              ys_plain, plain, dy, retain_graph=True), reps=5)})
+    results["gru_fwd_train"] = dict(
+        cases=fwd_cases, shape=dict(T=T, B=B, H=H),
+        bytes=4.0 * (T * B * 3 * H + T * B + H * 3 * H + T * B * H      # x3, mask, w, ys
+                     + T * B * 3 * H + T * B * H),                       # acts, hprev
+        flops=T * (6.0 * B * H * H + 14.0 * B * H))        # kernel_flops.gru_fwd_flops
+    results["gru_bwd"] = dict(
+        cases=bwd_cases, shape=dict(T=T, B=B, H=H),
+        bytes=4.0 * (T * B * H + T * B * 3 * H + T * B * H + T * B + H * 3 * H  # dy, acts, hprev, mask, w
+                     + T * B * 3 * H + H * 3 * H),                              # dx3, dw
+        flops=T * (12.0 * B * H * H + 25.0 * B * H))       # kernel_flops.gru_bwd_flops
+
+    Td, Te, D, E = TRAIN["T"], FULL["prompt_tokens"], FULL["dim"], 2 * FULL["dim"]
+    r = lambda *shape: t(rng.randn(*shape) * 0.3)
+    em = t((np.arange(Te)[:, None] < lengths(Te)[None, :])[:, :, None])
+    args = [r(B, Te, D).transpose(0, 1), r(B, Te, E).transpose(0, 1), em,
+            r(Td, B, 3 * D), t((np.arange(Td)[:, None] < lengths(Td)[None, :])[:, :, None]),
+            r(B, D), t(rng.randn(D, D) / np.sqrt(D)), r(1, D), r(1, D),
+            t(rng.randn(E, 3 * D) / np.sqrt(E)), t(rng.randn(D, 3 * D) / np.sqrt(D))]
+    dy = t(rng.randn(Td, B, D))
+    got = fa._launch_fwd(*args, fa.KERNEL_ACTS, residuals=True)
+    ref = fa.attention_gru_reference(*args, residuals=True)
+    torch.cuda.synchronize()
+    err = _err(got, ref)
+    assert all(torch.isfinite(a).all() for a in got) and err <= TOL, ("attention_gru_fwd_train", err)
+    fwd_case = {"Td": Td, "max_abs_err": err,
+                "ms": time_ms(torch, lambda: fa._launch_fwd(*args, fa.KERNEL_ACTS, residuals=True)),
+                "plain_ms": time_ms(torch, lambda: fa.attention_gru_reference(
+                    *args, residuals=True), reps=5)}
+    ep, ev, _, _, dmask, _, wa, ba, v, wctx, wg = args
+    _, hprev, saved, alpha, _ = got
+    diff = (0, 1, 3, 5, 6, 7, 8, 9, 10)                   # not the masks
+    leaves = [a.detach().requires_grad_(i in diff) for i, a in enumerate(args)]
+    kg = torch.autograd.grad(fa.fused_attention_gru(*leaves), [leaves[i] for i in diff], dy)
+    plain = [a.detach().requires_grad_(i in diff) for i, a in enumerate(args)]
+    ys_plain = fa.attention_gru_reference(*plain)
+    pg = torch.autograd.grad(ys_plain, [plain[i] for i in diff], dy, retain_graph=True)
+    torch.cuda.synchronize()
+    err, rel = _err(kg, pg), _grad_err(kg, pg)
+    assert all(torch.isfinite(g).all() for g in kg) and rel <= TOL, ("attention_gru_bwd", rel)
+    bwd_case = {"Td": Td, "max_abs_err": err, "err_over_scale": rel,
+                "ms": time_ms(torch, lambda: fa._launch_bwd(
+                    dy, ep, ev, dmask, hprev, saved, alpha, wa, ba, v, wctx, wg)),
+                "plain_ms": time_ms(torch, lambda: torch.autograd.grad(
+                    ys_plain, [plain[i] for i in diff], dy, retain_graph=True), reps=5)}
+    weights = D * D + 2 * D + E * 3 * D + D * 3 * D
+    att = 2.0 * B * D * D + 4.0 * B * Te * D + 2.0 * B * Te * E
+    step_fwd = att + 2.0 * B * E * 3 * D + 6.0 * B * D * D   # pallas_attention_gru._flops
+    results["attention_gru_fwd_train"] = dict(
+        cases=[fwd_case], shape=dict(Td=Td, Te=Te, B=B, D=D, E=E),
+        bytes=4.0 * (Te * B * (D + E + 1) + Td * B * (3 * D + 1) + B * D + weights
+                     + Td * B * (D + D + 3 * D + Te + E)),   # ys, hprev, acts, alpha, ctx
+        flops=Td * step_fwd)
+    # the backward kernel's own work per step: the GRU backward (drh, dh_prev:
+    # 6 B D^2), m recomputed (2 B D^2), d_ctx (6 B D E), dalpha (2 B Te E),
+    # the tanh backward (about 8 B Te D) and d_m . wa^T plus its dWa share
+    # (4 B D^2). pallas_attention_gru._flops(bwd=True), three forwards,
+    # also counts dW_ctx, dW_gru and d_enc_vec, which run outside the kernel.
+    step_bwd = B * (12.0 * D * D + 6.0 * D * E + 2.0 * Te * E + 8.0 * Te * D)
+    results["attention_gru_bwd"] = dict(
+        cases=[bwd_case], shape=dict(Td=Td, Te=Te, B=B, D=D, E=E),
+        bytes=4.0 * (Td * B * D + Te * B * (D + E) + Td * B + weights     # dy, ep, ev, dmask, weights
+                     + Td * B * (D + 3 * D + Te)                            # hprev, acts, alpha
+                     + Td * B * (3 * D + E) + B * D + Te * B * D + D * D + 2 * D),  # outputs
+        flops=Td * step_bwd, flops_jax_count=3.0 * Td * step_fwd)
 
 
 def run_requests(engine, prompts):
@@ -197,6 +329,7 @@ def phase_serve(torch, dev, kernels):
         [(r.rid, r.outcome, r.error) for r in fused if r.outcome != "ok" or not r.tokens]
     assert prefills > 0 and launches["gru_fwd"] == 2 * prefills, (launches, prefills)
     assert launches["attention_gru_fwd"] >= microsteps > 0, (launches, microsteps)
+    assert not any(launches[n] for n in TRAIN_KERNELS), launches
     tokens = sum(len(r.tokens) for r in fused)
 
     unfused_engine = build_engine(machine, params, slots=FULL["slots"],
@@ -239,18 +372,24 @@ def phase_serve(torch, dev, kernels):
 
 def phase_profile(torch, machine, params, prompts):
     """Where the serve time goes: the same requests once more under
-    torch.profiler, device time summed by kernel, and the device's busy
-    share of the wall time (kernel time over wall; copies are listed too)."""
-    from torch.profiler import ProfilerActivity, profile
-
+    torch.profiler."""
     from paddle_tpu_torch.serving.frontend import build_engine
 
     engine = build_engine(machine, params, slots=FULL["slots"],
                           prompt_tokens=FULL["prompt_tokens"], fused_step=True).start()
+    profiled(torch, "profile", lambda: run_requests(engine, prompts))
+
+
+def profiled(torch, phase, fn):
+    """Run ``fn`` once under torch.profiler and emit the device time summed
+    by kernel and the device's busy share of the wall time (kernel time
+    over wall; copies are listed too)."""
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_requests(engine, prompts)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = []
@@ -264,9 +403,82 @@ def phase_profile(torch, machine, params, prompts):
             rows.append((e.key, dev_us / 1e3, e.count))
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(ms for _, ms, _ in rows) if rows else None   # None: not measured
-    emit({"phase": "profile", "wall_s": wall, "device_ms": busy_ms,
+    emit({"phase": phase, "wall_s": wall, "device_ms": busy_ms,
           "device_busy_share": busy_ms / 1e3 / wall if rows else None,
+          "device_events": sum(c for _, _, c in rows),
           "top": [{"name": n[:80], "ms": ms, "count": c} for n, ms, c in rows[:12]]})
+
+
+def phase_train(torch, dev, kernels):
+    """The NMT train step on the card: 8 Adam steps through Trainer, the
+    launch counts of that run, a B = 4 step against the CPU, a checkpoint
+    round trip, and one profiled step."""
+    import shutil
+
+    from paddle_tpu_torch.flagship import nmt_batch, nmt_config
+    from paddle_tpu_torch.graph import GradientMachine
+    from paddle_tpu_torch.trainer import Trainer
+
+    tc = nmt_config(vocab=FULL["vocab"], dim=FULL["dim"], batch_size=TRAIN["batch"])
+    trainer = Trainer(tc, seed=1)                           # device=None: the card
+    batch = nmt_batch(vocab=FULL["vocab"], B=TRAIN["batch"], T=TRAIN["T"], seed=1, device=dev)
+    target_tokens = int(batch["target_language_word"].seq_lengths.sum())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for k in kernels:
+        k.launches = 0
+    losses, step_s = [], []
+    for _ in range(TRAIN["steps"]):
+        t0 = time.perf_counter()
+        loss = trainer.train_one_batch(batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    launches = {k.symbol: k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated(dev)
+    n = TRAIN["steps"]
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    want = {"gru_fwd_train": 2 * n, "gru_bwd": 2 * n, "attention_gru_fwd_train": n,
+            "attention_gru_bwd": n, "gru_fwd": 0, "attention_gru_fwd": 0}
+    assert launches == want, (launches, want)
+    step_ms = 1e3 * statistics.median(step_s[1:])
+
+    # one B = 4 step on the card against the same step on the CPU
+    params_cpu = {k: v.cpu() for k, v in trainer.params.items()}
+    small = dict(vocab=FULL["vocab"], B=TRAIN["cpu_batch"], T=TRAIN["T"], seed=2)
+    loss_g, grads_g, _, _ = trainer.gm.grad_fn()(trainer.params, nmt_batch(device=dev, **small))
+    cpu = GradientMachine(tc.model_config, device="cpu")
+    loss_c, grads_c, _, _ = cpu.grad_fn()(params_cpu, nmt_batch(device="cpu", **small))
+    loss_err = abs(float(loss_g) - float(loss_c)) / max(1.0, abs(float(loss_c)))
+    grad_err = {n_: float((grads_g[n_].cpu() - g).abs().max()) / max(1.0, float(g.abs().max()))
+                for n_, g in grads_c.items()}
+    assert loss_err <= TRAIN_TOL and max(grad_err.values()) <= TRAIN_TOL, (loss_err, grad_err)
+
+    # pass-00000 saved and restored into a fresh Trainer
+    save_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_ckpt")
+    shutil.rmtree(save_dir, ignore_errors=True)
+    trainer.save_dir = save_dir
+    path = trainer.save(0)
+    fresh = Trainer(tc, seed=2)
+    fresh.restore(path)
+    assert fresh.opt_state.step == trainer.opt_state.step == n
+    for name, p in trainer.params.items():
+        assert torch.equal(fresh.params[name], p), name
+        for slot, v in trainer.opt_state.slots[name].items():
+            assert torch.equal(fresh.opt_state.slots[name][slot], v), (name, slot)
+    shutil.rmtree(save_dir, ignore_errors=True)
+
+    train = {"phase": "train", "params": sum(p.numel() for p in trainer.params.values()),
+             "batch": TRAIN["batch"], "T": TRAIN["T"], "steps": n,
+             "step_ms": step_ms, "step_ms_all": [1e3 * x for x in step_s],
+             "target_tokens_per_step": target_tokens,
+             "target_tokens_per_s": target_tokens / (step_ms / 1e3),
+             "peak_memory_bytes": peak, "losses": losses, "kernel_launches": launches,
+             "cpu_step_loss_rel_err": loss_err, "cpu_step_grad_max_err_over_scale":
+             max(grad_err.values()), "checkpoint_roundtrip": "equal"}
+    emit(train)
+    profiled(torch, "train_profile", lambda: trainer.train_one_batch(batch))
+    return train
 
 
 def main() -> int:
@@ -276,28 +488,40 @@ def main() -> int:
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from paddle_tpu_torch.device import resolve_device
-    from paddle_tpu_torch.ops.fused_attention_gru import ATTENTION_GRU_FWD
-    from paddle_tpu_torch.ops.fused_gru import GRU_FWD
+    from paddle_tpu_torch.ops import fused_attention_gru as fa
+    from paddle_tpu_torch.ops import fused_gru as fg
 
     dev = resolve_device(None)                       # also turns TF32 off
-    kernels = [GRU_FWD, ATTENTION_GRU_FWD]
+    kernels = list(fg.KERNELS) + list(fa.KERNELS)
     phase_build(kernels)
     k = phase_kernels(torch, dev)
     serve = phase_serve(torch, dev, kernels)
+    train = phase_train(torch, dev, kernels)
 
     meta = {
         "gru_fwd": ("paddle_tpu_torch/csrc/gru_fwd.cu",
                     "paddle_tpu/ops/pallas_gru.py:75 (_fwd_kernel_light; pallas_call :178)"),
+        "gru_fwd_train": ("paddle_tpu_torch/csrc/gru_fwd.cu",
+                          "paddle_tpu/ops/pallas_gru.py:57 (_fwd_kernel; pallas_call :178)"),
+        "gru_bwd": ("paddle_tpu_torch/csrc/gru_bwd.cu",
+                    "paddle_tpu/ops/pallas_gru.py:91 (_bwd_kernel; pallas_call :206)"),
         "attention_gru_fwd": ("paddle_tpu_torch/csrc/attention_gru_fwd.cu",
                               "paddle_tpu/ops/pallas_attention_gru.py:285 "
                               "(_fwd_kernel_light; pallas_call :266)"),
+        "attention_gru_fwd_train": ("paddle_tpu_torch/csrc/attention_gru_fwd.cu",
+                                    "paddle_tpu/ops/pallas_attention_gru.py:199 "
+                                    "(_fwd_kernel; pallas_call :266)"),
+        "attention_gru_bwd": ("paddle_tpu_torch/csrc/attention_gru_bwd.cu",
+                              "paddle_tpu/ops/pallas_attention_gru.py:298 "
+                              "(_bwd_kernel; pallas_call :415)"),
     }
     rows = []
     for name, r in k.items():
-        main_case = r["cases"][0]                     # forward / Td = 1: the serve shapes
+        main_case = r["cases"][0]     # forward / Td = 1 (serve); not reversed (train)
         b_ms, b_by = bound(r["bytes"], r["flops"])
         err = max(c["max_abs_err"] for c in r["cases"])
-        launches = serve["kernel_launches"][name]
+        # each kernel's launches are counted on its own main path
+        launches = (train if name in TRAIN_KERNELS else serve)["kernel_launches"][name]
         rows.append({
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1], "launches": launches,
@@ -306,9 +530,9 @@ def main() -> int:
             "library_note": "no single PyTorch call computes this function "
                             "(torch.nn.GRU applies the reset gate after the "
                             "recurrent product, a different cell)",
+            "main_path": "train" if name in TRAIN_KERNELS else "serve",
             "max_err": err, "kernel_ms": main_case["ms"], "bytes": r["bytes"],
             "flops": r["flops"], "shape": r["shape"],
-            "launches_per_request": launches / N_REQUESTS,
         })
     emit({"kernels": rows})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

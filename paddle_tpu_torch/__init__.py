@@ -6,15 +6,21 @@ kernels written by hand for Hopper (``csrc/``). The JAX package beside
 this one is the reference the port is held against; nothing here
 imports it.
 
-This slice runs the seqToseq NMT continuous-batching greedy server:
+The ported slices serve the seqToseq NMT model with continuous-batching
+greedy decoding and train it:
 
-- ``paddle_tpu_torch.flagship`` — ``nmt_gen_config`` builds the model;
-- ``paddle_tpu_torch.graph`` — ``GradientMachine(model_config, device)``;
+- ``paddle_tpu_torch.flagship`` — ``nmt_gen_config`` / ``nmt_config``
+  build the model, ``nmt_batch`` a training batch;
+- ``paddle_tpu_torch.graph`` — ``GradientMachine(model_config, device)``:
+  forward, loss and gradients;
 - ``paddle_tpu_torch.serving.frontend.build_engine`` — the engine over
   :class:`~paddle_tpu_torch.serving.torch_backend.TorchDecodeBackend`;
+- ``paddle_tpu_torch.trainer.Trainer`` — the train step (gradients, the
+  ``paddle_tpu_torch.optimizer.Updater``, state) and the ``pass-N``
+  checkpoint;
 - ``paddle_tpu_torch.ops.fused_gru`` / ``fused_attention_gru`` — the
-  encoder GRU and the fused decode step, each a CUDA kernel beside its
-  plain PyTorch version.
+  encoder GRU and the fused decoder, each a set of CUDA kernels (inference
+  forward, training forward, backward) beside its plain PyTorch version.
 
 Entry points run on the card unless the caller passes ``device="cpu"``
 (see :func:`paddle_tpu_torch.device.resolve_device`).

@@ -132,3 +132,29 @@ def nmt_gen_batch(vocab=30000, B=8, T=32, seed=0, device: DeviceLike = None):
     lengths = rng.randint(max(T // 2, 1), T + 1, (B,)).astype(np.int32)
     return {"source_language_word": make_seq(None, lengths, ids=ids,
                                              device=resolve_device(device))}
+
+
+def nmt_batch(vocab=30000, B=8, T=32, seed=0, device: DeviceLike = None):
+    """A training batch for :func:`nmt_config`: source words, target words
+    and the next-word labels, from ``seed`` with the JAX package's numpy
+    draws (``paddle_tpu.flagship.nmt_batch``), so both packages see the
+    same batch."""
+    from paddle_tpu_torch.graph import make_seq
+    from paddle_tpu_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    rng = np.random.RandomState(seed)
+
+    def seq():
+        ids = rng.randint(2, vocab, (B, T)).astype(np.int32)
+        lengths = rng.randint(max(T // 2, 1), T + 1, (B,)).astype(np.int32)
+        return ids, lengths
+
+    src, src_len = seq()
+    trg, trg_len = seq()
+    nxt = np.roll(trg, -1, axis=1)
+    return {
+        "source_language_word": make_seq(None, src_len, ids=src, device=dev),
+        "target_language_word": make_seq(None, trg_len, ids=trg, device=dev),
+        "target_language_next_word": make_seq(None, trg_len, ids=nxt, device=dev),
+    }

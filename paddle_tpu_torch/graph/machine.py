@@ -1,13 +1,16 @@
-"""GradientMachine — parameters + forward over a model, on one device.
+"""GradientMachine — parameters, forward, loss and gradients over a model,
+on one device.
 
-This slice ports construction, ``init_params`` and ``forward`` (inference
-and the serving engine's gen-capture prefill). Loss and gradients come
-with the training slice.
+Port of ``paddle_tpu/graph/machine.py``: ``forward`` walks the layer graph,
+``loss_fn`` sums the cost layers' batch means, and ``grad_fn`` returns
+dense gradients of every parameter from ``torch.autograd`` (static
+parameters get zeros). Sparse row gradients, bf16 compute and meshes are
+later slices.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -26,6 +29,23 @@ class GradientMachine:
     """``device=None`` means the CUDA card (``RuntimeError`` without one);
     ``device="cpu"`` runs every kernel's plain version. ``compute_dtype``
     other than float32 (a bf16 model) is not ported yet and raises."""
+
+    # layer types whose output is a differentiable per-sample cost: only
+    # these contribute to the training loss
+    COST_TYPES = frozenset({
+        "multi-class-cross-entropy",
+        "multi_class_cross_entropy_with_selfnorm",
+        "square_error",
+        "multi_binary_label_cross_entropy",
+        "soft_binary_class_cross_entropy",
+        "rank-cost",
+        "huber",
+        "lambda_cost",
+        "ctc",
+        "crf",
+        "nce",
+        "hsigmoid",
+    })
 
     def __init__(self, model: ModelConfig, device: DeviceLike = None,
                  compute_dtype=None):
@@ -46,14 +66,72 @@ class GradientMachine:
 
     def forward(self, params: Params, in_args: Dict[str, Argument],
                 pass_type: str = "test",
-                gen_capture: Optional[dict] = None) -> Tuple[Dict[str, Argument], Dict]:
+                gen_capture: Optional[dict] = None,
+                generator: Optional[torch.Generator] = None,
+                ) -> Tuple[Dict[str, Argument], Dict]:
         """Run the graph; returns (all layer outputs, state updates).
 
-        ``gen_capture``: a dict sink making generator groups capture their
-        prepared decode inputs instead of running the beam loop — the
-        serving engine's prefill seam (graph/decode_step.py)."""
+        A test or gen pass runs under ``torch.no_grad()``; a train pass
+        records the autograd graph. ``gen_capture``: a dict sink making
+        generator groups capture their prepared decode inputs instead of
+        running the beam loop — the serving engine's prefill seam
+        (graph/decode_step.py). ``generator``: the random bits of a train
+        pass (dropout)."""
         ctx = LayerContext(params=params, model=self.model, pass_type=pass_type,
-                           gen_capture=gen_capture)
-        with torch.no_grad():
+                           generator=generator, gen_capture=gen_capture)
+        if pass_type == "train":
             self.network.forward(ctx, in_args)
+        else:
+            with torch.no_grad():
+                self.network.forward(ctx, in_args)
         return ctx.outputs, {}
+
+    def output_args(self, outputs: Dict[str, Argument]) -> Dict[str, Argument]:
+        return {n: outputs[n] for n in self.network.output_layer_names}
+
+    # --------------------------------------------------------------- loss
+
+    def cost_layer_names(self):
+        layer_map = self.network.layer_map
+        return [n for n in self.network.output_layer_names
+                if n in layer_map and layer_map[n].type in self.COST_TYPES]
+
+    def total_cost(self, outputs: Dict[str, Argument]) -> Tensor:
+        """Mean per-sample cost summed across the cost-layer outputs, so
+        gradients are per-sample means."""
+        names = self.cost_layer_names()
+        if not names:
+            raise ValueError("no cost outputs among output layers")
+        total = None
+        for name in names:
+            c = torch.mean(outputs[name].value[:, 0])
+            total = c if total is None else total + c
+        return total
+
+    def loss_fn(self, params: Params, in_args: Dict[str, Argument],
+                generator: Optional[torch.Generator] = None, pass_type: str = "train"):
+        outputs, state_updates = self.forward(params, in_args, pass_type,
+                                              generator=generator)
+        return self.total_cost(outputs), (outputs, state_updates)
+
+    def grad_fn(self) -> Callable:
+        """Returns f(params, in_args, generator=None) -> (loss, grads,
+        outputs, state_updates). The loss is a detached scalar tensor;
+        gradients are dense, keyed like ``params``."""
+
+        def f(params: Params, in_args: Dict[str, Argument],
+              generator: Optional[torch.Generator] = None):
+            leaves = {}
+            for n, p in params.items():
+                cfg = self.param_configs.get(n)
+                leaves[n] = p.detach().requires_grad_(cfg is None or not cfg.is_static)
+            loss, (outputs, state_updates) = self.loss_fn(leaves, in_args, generator)
+            names = [n for n, p in leaves.items() if p.requires_grad]
+            got = torch.autograd.grad(loss, [leaves[n] for n in names], allow_unused=True)
+            got = dict(zip(names, got))
+            # static and unused parameters get zeros
+            grads = {n: got[n] if got.get(n) is not None else torch.zeros_like(p)
+                     for n, p in params.items()}
+            return loss.detach(), grads, outputs, state_updates
+
+        return f

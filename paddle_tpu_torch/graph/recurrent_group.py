@@ -1,11 +1,24 @@
-"""Recurrent-group executor — the part serving needs.
+"""Recurrent-group executor.
 
-This slice runs a generator group in gen-capture mode only: the serving
-engine's prefill runs the graph up to the group (encoder outputs as static
-links, memory boots per sample), and the decode loop is the engine's, one
+Training and evaluation (``_forward_scan``, the JAX package's one
+``lax.scan`` over the padded time axis) run as a Python loop over time:
+in-links become per-step slices of [B, T, D], memories become carries
+(masked, so padding passes the state through), out-links are the stacked
+step outputs, and autograd differentiates through the loop. As in the JAX
+package, pure per-row layers that only feed the out-links (the NMT vocab
+projection) run once after the loop on the stacked rows (the epilogue),
+time-parallel projections of plain in-links run once before it (the
+prologue), and a training group that is exactly the attention-GRU decoder
+template runs as the fused decoder kernels (:mod:`~paddle_tpu_torch.graph.
+fused_decoder`). Nested groups and sequence-valued memories are a later
+slice and raise.
+
+A generator group runs in gen-capture mode only: the serving engine's
+prefill runs the graph up to the group (encoder outputs as static links,
+memory boots per sample), and the decode loop is the engine's, one
 slot-batched step at a time (:mod:`paddle_tpu_torch.graph.decode_step`).
-Beam search (a generator forward without ``gen_capture``) and the training
-scan of a recurrent group are later slices and raise here.
+Beam search (a generator forward without ``gen_capture``) is a later slice
+and raises.
 """
 
 from __future__ import annotations
@@ -15,7 +28,8 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from paddle_tpu_torch.graph.argument import Argument
-from paddle_tpu_torch.layers.base import LayerContext, forward_layer, register_layer
+from paddle_tpu_torch.layers.base import (LayerContext, TimeMajorLogits, forward_layer,
+                                         register_layer)
 from paddle_tpu_torch.ops.activations import apply_activation
 from paddle_tpu_torch.proto import LayerConfig, SubModelConfig
 
@@ -41,10 +55,9 @@ def forward_recurrent_group(network, cfg: LayerConfig, ctx: LayerContext) -> Non
     if sub is None:
         raise KeyError(f"no sub-model named {cfg.name!r}")
     if sub.generator is None:
-        raise NotImplementedError(
-            f"recurrent group {cfg.name!r}: the training scan is not ported "
-            "yet (the train-step slice of paddle_tpu_torch)")
-    _generate(network, cfg, sub, ctx)
+        _forward_scan(network, cfg, sub, ctx)
+    else:
+        _generate(network, cfg, sub, ctx)
 
 
 def _resolve_outer(sub: SubModelConfig, name: str) -> str:
@@ -86,14 +99,20 @@ def _memory_boot(network, mem, ctx: LayerContext, batch: int, dtype,
 
 
 def _run_submodel_step(network, sub: SubModelConfig, ctx: LayerContext,
-                       fed: Dict[str, Argument]) -> Dict[str, Argument]:
-    """Run the sub-model's layers once with pre-fed agent outputs."""
+                       fed: Dict[str, Argument], skip: frozenset = frozenset(),
+                       mixed_prologue: Optional[Dict[str, Any]] = None,
+                       ) -> Dict[str, Argument]:
+    """Run the sub-model's layers once with pre-fed agent outputs.
+    ``skip`` names epilogue layers hoisted out of the loop;
+    ``mixed_prologue`` maps a mixed layer to (skipped input indices,
+    precomputed [B, out] slice) for projections hoisted before it."""
     step_ctx = LayerContext(params=ctx.params, model=ctx.model,
-                            pass_type=ctx.pass_type, parent=ctx)
+                            pass_type=ctx.pass_type, generator=ctx.generator,
+                            parent=ctx, mixed_prologue=mixed_prologue)
     step_ctx.outputs.update(fed)
     for name in sub.layer_names:
         lcfg = network.layer_map[name]
-        if lcfg.name in step_ctx.outputs:
+        if lcfg.name in step_ctx.outputs or lcfg.name in skip:
             continue
         if lcfg.type == "recurrent_layer_group":
             raise NotImplementedError("nested recurrent groups are not ported yet")
@@ -101,6 +120,269 @@ def _run_submodel_step(network, sub: SubModelConfig, ctx: LayerContext,
                for ic in lcfg.inputs]
         forward_layer(lcfg, ins, step_ctx)
     return step_ctx.outputs
+
+
+# layer types that are pure per-row functions of their inputs (no
+# sequence/time semantics, no randomness): safe to apply once to the
+# stacked [T*B, D] rows after the loop instead of once per step
+_HOISTABLE_TYPES = frozenset({"fc", "mixed", "addto", "slope_intercept", "concat"})
+
+
+def _plan_epilogue(network, sub: SubModelConfig):
+    """Split the step graph into (inside, epilogue), as the JAX package does.
+
+    Layers that only feed the group's out-links (never a memory, never
+    another inside layer) and are pure per-row ops run ONCE on the stacked
+    step outputs: the NMT decoder's vocab projection becomes one
+    [T*B, D] x [D, V] product instead of T weight reads. Returns
+    (epilogue: ordered layer names, frontier: inside outputs the epilogue
+    reads), or None when nothing can be hoisted."""
+    layer_map = network.layer_map
+    names = [n for n in sub.layer_names if n in layer_map]
+    name_set = set(names)
+    if any(layer_map[n].type == "recurrent_layer_group" for n in names):
+        return None
+    consumers: Dict[str, set] = {n: set() for n in names}
+    for n in names:
+        for ic in layer_map[n].inputs:
+            if ic.input_layer_name in consumers:
+                consumers[ic.input_layer_name].add(n)
+    # everything a memory reads must stay inside (the carry depends on it)
+    must_inside = set()
+    stack = [m.layer_name for m in sub.memories if m.layer_name in name_set]
+    while stack:
+        n = stack.pop()
+        if n in must_inside:
+            continue
+        must_inside.add(n)
+        stack.extend(ic.input_layer_name for ic in layer_map[n].inputs
+                     if ic.input_layer_name in name_set)
+    out_names = {l.layer_name for l in sub.out_links}
+
+    def hoistable(n):
+        lc = layer_map[n]
+        return lc.type in _HOISTABLE_TYPES and lc.drop_rate == 0.0 and n not in must_inside
+
+    # reverse-topological growth: a layer joins the epilogue when every
+    # step-graph consumer already did (out-link layers also have the
+    # implicit "out" consumer, which the epilogue serves)
+    epilogue: List[str] = []
+    in_epi: set = set()
+    for n in reversed(names):
+        if not hoistable(n):
+            continue
+        if not consumers[n] and n not in out_names:
+            continue  # dead layer: leave it alone
+        if all(c in in_epi for c in consumers[n]):
+            in_epi.add(n)
+            epilogue.append(n)
+    epilogue.reverse()
+    if not any(n in out_names for n in epilogue):
+        return None  # hoisting pays only when an out-link moves out
+    frontier: List[str] = []
+    for n in epilogue:
+        for ic in layer_map[n].inputs:
+            src = ic.input_layer_name
+            if src not in in_epi and src not in frontier:
+                frontier.append(src)
+    return epilogue, frontier
+
+
+def _plan_prologue(network, sub: SubModelConfig, epilogue: frozenset):
+    """Projection prologue, the input-side dual of the epilogue: the
+    weight-bearing projections (fc / trans_fc) of a mixed layer whose
+    source is a plain in-link are time-parallel, so they run once before
+    the loop as one [T, B, D] x [D, out] product and the step's mixed
+    layer starts its sum from the precomputed slice. Returns
+    {mixed_layer_name: (input_index, ...)}; epilogue layers are excluded."""
+    layer_map = network.layer_map
+    in_links = {l.link_name for l in sub.in_links if not l.has_subseq}
+    plan = {}
+    for n in sub.layer_names:
+        lc = layer_map.get(n)
+        if lc is None or lc.type != "mixed" or n in epilogue:
+            continue
+        idxs = tuple(idx for idx, ic in enumerate(lc.inputs)
+                     if ic.proj_conf is not None
+                     and ic.proj_conf.type in ("fc", "trans_fc")
+                     and ic.input_layer_name in in_links)
+        if idxs:
+            plan[n] = idxs
+    return plan
+
+
+def _forward_scan(network, cfg: LayerConfig, sub: SubModelConfig, ctx: LayerContext) -> None:
+    """The training/evaluation loop of a flat recurrent group."""
+    if not sub.in_links:
+        raise ValueError(f"recurrent group {cfg.name} has no sequence inputs")
+    if any(link.has_subseq for link in sub.in_links):
+        raise NotImplementedError(
+            f"recurrent group {cfg.name!r}: nested (sub-sequence) groups are not "
+            "ported yet (the hierarchical-RNN slice of paddle_tpu_torch)")
+    if any(mem.is_sequence for mem in sub.memories):
+        raise NotImplementedError(
+            f"recurrent group {cfg.name!r}: sequence-valued memories are not "
+            "ported yet (the hierarchical-RNN slice of paddle_tpu_torch)")
+    first = _scope_lookup(ctx, sub.in_links[0].layer_name)
+    if not first.is_seq:
+        raise ValueError(f"in-link {sub.in_links[0].layer_name!r} is not a sequence")
+    lengths = first.seq_lengths
+    B, T = first.batch_size, first.max_len
+    mask_bt = first.seq_mask()
+
+    xs_vals: Dict[str, Tensor] = {}
+    xs_ids: Dict[str, Tensor] = {}
+    for link in sub.in_links:
+        arg = _scope_lookup(ctx, link.layer_name)
+        if arg.value is not None:
+            xs_vals[link.link_name] = arg.value.transpose(0, 1)      # [T, B, ...]
+        if arg.ids is not None:
+            xs_ids[link.link_name] = arg.ids.transpose(0, 1)
+    statics: Dict[str, Argument] = {
+        link.link_name: _scope_lookup(ctx, link.layer_name) for link in sub.static_links}
+
+    memories = list(sub.memories)
+    ref = first.value if first.value is not None else first.ids
+    carry_dtype = first.value.dtype if first.value is not None else torch.float32
+    carries = [_memory_boot(network, mem, ctx, B, carry_dtype, sub, ref.device)
+               for mem in memories]
+    out_links = list(sub.out_links)
+
+    plan = _plan_epilogue(network, sub)
+    if plan is not None:
+        seq_feeds = {l.link_name for l in sub.static_links if l.has_subseq}
+        if any(f in seq_feeds for f in plan[1]):
+            plan = None
+    epilogue, frontier = plan if plan is not None else ([], [])
+    # loop-invariant static feeds are rebuilt after the loop, not stacked
+    dyn_frontier = [f for f in frontier if f not in statics]
+    skip = frozenset(epilogue)
+    inside_out_links = [l for l in out_links if l.layer_name not in skip]
+
+    pro_plan = _plan_prologue(network, sub, skip)
+    pro_feeds: Dict[str, Tensor] = {}
+    if pro_plan:
+        from paddle_tpu_torch.layers.core import apply_projection
+
+        for lname, idxs in pro_plan.items():
+            lc = network.layer_map[lname]
+            acc = None
+            for idx in idxs:
+                ic = lc.inputs[idx]
+                y = apply_projection(ic.proj_conf, ic,
+                                     Argument(value=xs_vals[ic.input_layer_name]), ctx)
+                acc = y if acc is None else acc + y
+            pro_feeds[lname] = acc                                    # [T, B, out]
+
+    # a training group that is exactly the attention-GRU decoder template
+    # runs as the fused decoder kernels; any other group takes the loop
+    # below, which is a different graph, not a fallback
+    fused_ys = None
+    if ctx.is_training:
+        from paddle_tpu_torch.graph import fused_decoder
+
+        fplan = fused_decoder.match_decoder(network, sub, ctx, statics, skip, pro_plan)
+        if fplan is not None:
+            gname = fplan["gru"].name
+            if (all(f == gname for f in dyn_frontier)
+                    and all(l.layer_name == gname for l in inside_out_links)):
+                fused_ys = fused_decoder.run_fused_decoder(
+                    network, sub, ctx, statics, fplan, pro_feeds, carries[0], mask_bt)
+
+    if fused_ys is not None:
+        # the (ys, frontier) the loop would give: masked out-link streams,
+        # raw frontier values for the epilogue
+        m3 = mask_bt.transpose(0, 1)[:, :, None].to(fused_ys.dtype)
+        ys = [fused_ys * m3 for _ in inside_out_links]
+        frs = [(fused_ys, None) for _ in dyn_frontier]
+    else:
+        ys_t: List[List[Tensor]] = [[None] * T for _ in inside_out_links]
+        fr_t = [([None] * T, [None] * T) for _ in dyn_frontier]
+        mask_tb = mask_bt.transpose(0, 1)
+        for t in (range(T - 1, -1, -1) if sub.reversed else range(T)):
+            fed: Dict[str, Argument] = {}
+            for link in sub.in_links:
+                name = link.link_name
+                fed[name] = Argument(
+                    value=xs_vals[name][t] if name in xs_vals else None,
+                    ids=xs_ids[name][t] if name in xs_ids else None)
+            fed.update(statics)
+            for mem, carry in zip(memories, carries):
+                fed[mem.link_name] = _memory_feed_arg(mem, carry)
+            mixed_pro = {lname: (pro_plan[lname], x[t]) for lname, x in pro_feeds.items()}
+            outs = _run_submodel_step(network, sub, ctx, fed, skip=skip,
+                                      mixed_prologue=mixed_pro)
+            m = mask_tb[t][:, None]
+            new_carries = []
+            for mem, old in zip(memories, carries):
+                out_arg = outs[mem.layer_name]
+                is_int = old.dtype in (torch.int32, torch.int64)
+                new = out_arg.ids if is_int else out_arg.value
+                keep = (m > 0) if new.dim() == 2 else (mask_tb[t] > 0)
+                new_carries.append(torch.where(keep, new.to(old.dtype), old))
+            carries = new_carries
+            for i, l in enumerate(inside_out_links):
+                v = outs[l.layer_name].value
+                ys_t[i][t] = v * m.to(v.dtype)
+            # frontier values for the epilogue stay UNMASKED (the out-link
+            # mask is applied after the epilogue)
+            for i, f in enumerate(dyn_frontier):
+                fr_t[i][0][t], fr_t[i][1][t] = outs[f].value, outs[f].ids
+        ys = [torch.stack(y) for y in ys_t]
+        frs = [(None if vs[0] is None else torch.stack(vs),
+                None if ids[0] is None else torch.stack(ids)) for vs, ids in fr_t]
+
+    for link, y in zip(inside_out_links, ys):
+        ctx.outputs[link.link_name] = Argument(value=y.transpose(0, 1), seq_lengths=lengths)
+    if epilogue:
+        _run_epilogue(network, ctx, epilogue, dyn_frontier, frs, statics, out_links,
+                      B, T, mask_bt, lengths)
+    # the group layer itself exposes the first out-link (its logits too, so
+    # a cost wired to the group name keeps the fused cross-entropy)
+    if out_links:
+        ctx.outputs[cfg.name] = ctx.outputs[out_links[0].link_name]
+        if out_links[0].link_name in ctx.logits:
+            ctx.logits[cfg.name] = ctx.logits[out_links[0].link_name]
+
+
+def _run_epilogue(network, ctx, epilogue, dyn_frontier, frs, statics,
+                  out_links, B, T, mask_bt, lengths):
+    """Apply the hoisted per-row layers once to the stacked loop outputs."""
+    epi_ctx = LayerContext(params=ctx.params, model=ctx.model, pass_type=ctx.pass_type)
+    for name, (v, ids) in zip(dyn_frontier, frs):
+        # [T, B, ...] -> rows [T*B, ...]
+        epi_ctx.outputs[name] = Argument(
+            value=None if v is None else v.reshape((-1,) + tuple(v.shape[2:])),
+            ids=None if ids is None else ids.reshape((-1,) + tuple(ids.shape[2:])))
+
+    def tile(x):
+        # a loop-invariant [B, ...] feed, repeated for each of the T rows
+        if x is None:
+            return None
+        return x[None].expand((T,) + tuple(x.shape)).reshape((-1,) + tuple(x.shape[1:]))
+
+    for name, arg in statics.items():
+        if name not in epi_ctx.outputs:
+            epi_ctx.outputs[name] = Argument(value=tile(arg.value), ids=tile(arg.ids))
+    for name in epilogue:
+        lcfg = network.layer_map[name]
+        ins = [network._lookup_input(epi_ctx, ic.input_layer_name, ic.input_layer_argument)
+               for ic in lcfg.inputs]
+        forward_layer(lcfg, ins, epi_ctx)
+    hoisted = {l.layer_name for l in out_links} & set(epilogue)
+    mask = mask_bt[..., None]
+    for link in out_links:
+        if link.layer_name not in hoisted:
+            continue
+        flat = epi_ctx.outputs[link.layer_name].value                  # [T*B, D]
+        y = flat.reshape((T, B) + tuple(flat.shape[1:])).transpose(0, 1)
+        ctx.outputs[link.link_name] = Argument(value=y * mask.to(y.dtype),
+                                               seq_lengths=lengths)
+        z = epi_ctx.logits.get(link.layer_name)
+        if z is not None:
+            # the hoisted layer's pre-softmax logits, kept in their flat
+            # [T*B, V] row order for the fused cross-entropy
+            ctx.logits[link.link_name] = TimeMajorLogits(z, T, B)
 
 
 def _memory_feed_arg(mem, carry: Tensor) -> Argument:

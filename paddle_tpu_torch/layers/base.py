@@ -2,15 +2,17 @@
 
 A layer is a function ``(LayerConfig, [Argument], LayerContext) ->
 Argument`` registered by the type string the config DSL emits, as in the
-JAX package. This slice runs inference only: dropout and error clipping
-act in training, so a forward here leaves them out (error clipping is the
-identity in a forward pass) and a training pass raises.
+JAX package; gradients come from ``torch.autograd`` through the whole
+forward. The shared tail of a layer (bias, activation, dropout after the
+activation) lives here, with per-layer error clipping of the backward
+signal (identity in the forward).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 import torch
 
@@ -26,6 +28,17 @@ LayerFn = Callable[[LayerConfig, List[Argument], "LayerContext"], Argument]
 layer_registry: Registry[LayerFn] = Registry("layer type")
 
 
+class TimeMajorLogits(NamedTuple):
+    """Pre-softmax logits of a HOISTED recurrent out-link, kept in the
+    vocab projection's flat [T*B, V] row order instead of the transposed
+    [B, T, V] view; the fused cross-entropy reduces over V on this layout
+    and transposes only the [T, B] per-step costs."""
+
+    flat: Tensor   # [T*B, V]
+    T: int
+    B: int
+
+
 def register_layer(*type_names: str):
     return layer_registry.register(*type_names)
 
@@ -36,8 +49,20 @@ class LayerContext:
 
     params: Dict[str, Tensor]
     model: ModelConfig
-    pass_type: str = "test"                     # test | gen (train: later slice)
+    pass_type: str = "test"                     # train | test | gen
+    # random bits of the pass (dropout): an explicit generator on the
+    # parameters' device; None outside training
+    generator: Optional[torch.Generator] = None
     outputs: Dict[str, Argument] = field(default_factory=dict)
+    # pre-softmax logits side-table (layer name -> pre-activation tensor,
+    # or a TimeMajorLogits for a hoisted recurrent out-link): published by
+    # finalize_output for a plain softmax without dropout, so the
+    # cross-entropy can take log-softmax from the logits
+    logits: Dict[str, Any] = field(default_factory=dict)
+    # recurrent-group prologue hoisting (graph/recurrent_group.py
+    # _plan_prologue): mixed layer name -> (skipped input indices,
+    # precomputed [B, out] slice); set only on per-step contexts
+    mixed_prologue: Optional[Dict[str, Any]] = None
     # enclosing scope for recurrent-group steps: group-ENTRY resolution
     # (static links, memory boot layers) may walk up this chain; ordinary
     # layer-input lookup deliberately cannot
@@ -47,6 +72,10 @@ class LayerContext:
     # inputs (static-link Arguments, unexpanded memory boots) here and
     # skips the beam-search loop — the serving engine's prefill path
     gen_capture: Optional[Dict[str, Any]] = None
+
+    @property
+    def is_training(self) -> bool:
+        return self.pass_type == "train"
 
     def param(self, name: str) -> Tensor:
         try:
@@ -65,20 +94,51 @@ def input_mask(arg: Argument) -> Optional[Tensor]:
 
 def finalize_output(cfg: LayerConfig, value: Tensor, ctx: LayerContext,
                     mask: Optional[Tensor] = None) -> Tensor:
-    """Shared bias + activation tail of a layer forward."""
+    """Shared bias + activation + dropout tail of a layer forward."""
     if cfg.bias_parameter_name:
         value = value + ctx.param(cfg.bias_parameter_name)
-    return apply_activation(cfg.active_type, value, mask)
+    # dropout after softmax would leave the probabilities the only honest
+    # source, so the logits view is published only for dropout-free layers
+    if cfg.active_type == "softmax" and not cfg.drop_rate:
+        ctx.logits[cfg.name] = value
+    value = apply_activation(cfg.active_type, value, mask)
+    if cfg.drop_rate > 0.0 and ctx.is_training:
+        if ctx.generator is None:
+            raise ValueError(f"layer {cfg.name!r} has dropout but the training "
+                             "pass was given no torch.Generator")
+        keep = 1.0 - cfg.drop_rate
+        draw = torch.rand(value.shape, generator=ctx.generator, device=value.device,
+                          dtype=value.dtype)
+        # inverted dropout: scale at train time, as the reference does
+        # (Layer.cpp forwardDropOut divides by 1 - drop_rate)
+        value = torch.where(draw < keep, value / keep, torch.zeros_like(value))
+    return value
+
+
+class _ClipError(torch.autograd.Function):
+    """Identity forward; the backward clips the gradient to [-t, t] (the
+    reference's per-layer error clipping, ExtraAttr(error_clipping_threshold))."""
+
+    @staticmethod
+    def forward(ctx, x, t):
+        ctx.t = t
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.clamp(-ctx.t, ctx.t), None
 
 
 def forward_layer(cfg: LayerConfig, inputs: List[Argument], ctx: LayerContext) -> Argument:
-    if ctx.pass_type == "train":
-        raise NotImplementedError(
-            "training is not ported yet: the train step, with dropout and "
-            "the backward kernels, is the next slice of paddle_tpu_torch")
     fn = layer_registry.get(cfg.type)
     with layer_scope(f"{cfg.name}({cfg.type})"):
         out = fn(cfg, inputs, ctx)
+    if (cfg.error_clipping_threshold > 0 and out.value is not None
+            and out.value.requires_grad):
+        out = dataclasses.replace(
+            out, value=_ClipError.apply(out.value, float(cfg.error_clipping_threshold)))
+        # a published logits view would bypass the clip
+        ctx.logits.pop(cfg.name, None)
     ctx.outputs[cfg.name] = out
     return out
 

@@ -1,8 +1,9 @@
 """Core layers: data, fc, mixed (table/fc/identity projections), concat.
 
 Sequence inputs are padded [B, T, D] and the matmuls batch over B*T, as
-in the JAX package. Projections and operators outside this slice raise
-``NotImplementedError``.
+in the JAX package; a projection applies as well to a time-major stacked
+[T, B, D] input (the recurrent group's prologue). Projections and
+operators outside this slice raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -66,9 +67,14 @@ def mixed_layer(cfg: LayerConfig, inputs: List[Argument], ctx: LayerContext) -> 
     if cfg.operator_confs:
         raise NotImplementedError(
             f"mixed layer {cfg.name!r}: operators are not ported yet")
-    acc: Optional[Tensor] = None
-    for in_cfg, arg in zip(cfg.inputs, inputs):
-        if in_cfg.proj_conf is None:
+    # inside a recurrent-group step, projections of plain scan inputs may
+    # have been hoisted before the loop: the sum then starts from the
+    # precomputed slice and skips those inputs
+    pro = ctx.mixed_prologue.get(cfg.name) if ctx.mixed_prologue else None
+    skip_idx = frozenset(pro[0]) if pro else frozenset()
+    acc: Optional[Tensor] = pro[1] if pro else None
+    for i, (in_cfg, arg) in enumerate(zip(cfg.inputs, inputs)):
+        if in_cfg.proj_conf is None or i in skip_idx:
             continue
         y = apply_projection(in_cfg.proj_conf, in_cfg, arg, ctx)
         acc = y if acc is None else acc + y

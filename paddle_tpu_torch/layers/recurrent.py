@@ -5,9 +5,11 @@ the 3*size x-projection, the weight [size, 3*size] is split
 [update, reset | candidate], and the bias is 3*size.
 
 ``gated_recurrent`` always goes through :func:`~paddle_tpu_torch.ops.
-fused_gru.fused_gru`: on the card that launches the GRU kernel (the
-``settings(pallas_rnn=...)`` switch is a TPU choice and chooses nothing
-here), on the CPU it runs the kernel's plain version.
+fused_gru.fused_gru`: on the card that launches the GRU kernels (the
+training forward and backward when a gradient is wanted, the light forward
+otherwise; the ``settings(pallas_rnn=...)`` switch is a TPU choice and
+chooses nothing here), on the CPU it runs the kernels' plain version and
+autograd through it gives the gradients.
 """
 
 from __future__ import annotations

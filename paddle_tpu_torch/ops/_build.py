@@ -9,7 +9,8 @@ minutes):
 The libraries land in ``build/paddle_tpu_torch/`` beside the package,
 named by a hash of the sources and flags, so an edited source is rebuilt
 and an unchanged one is loaded as it is. :func:`build` compiles several
-sources at once, one ``nvcc`` process each.
+sources at once, one ``nvcc`` process each; entry points that share a
+source (a kernel and its training variant) share its library.
 
 Every C entry point takes its pointers and the stream as ``void*``,
 launches on the stream it is given (PyTorch's current stream) and returns
@@ -35,7 +36,7 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "paddle_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "atb_gemm.cuh")
 
 PTR = ctypes.c_void_p
 I64 = ctypes.c_longlong
@@ -101,39 +102,47 @@ class CudaKernel:
 
 
 def build(kernels: List[CudaKernel]) -> Dict[str, float]:
-    """Compile every kernel not yet built, one nvcc each, all at once.
+    """Compile every source not yet built, one nvcc each, all at once, and
+    bind every kernel to its source's library.
 
     Returns {source: seconds} for the sources compiled by this call."""
     with _LOCK:
-        todo = [k for k in kernels if k._fn is None]
-        for k in list(todo):
-            if os.path.isfile(k.library_path()):
-                k._bind(k.library_path())
-                todo.remove(k)
+        by_lib: Dict[str, List[CudaKernel]] = {}
+        for k in kernels:
+            if k._fn is None:
+                by_lib.setdefault(k.library_path(), []).append(k)
+        todo = {}
+        for out, ks in by_lib.items():
+            if os.path.isfile(out):
+                for k in ks:
+                    k._bind(out)
+            else:
+                todo[out] = ks
         if not todo:
             return {}
         os.makedirs(BUILD_DIR, exist_ok=True)
         nvcc = nvcc_path()
         procs = []
         t0 = time.perf_counter()
-        for k in todo:
-            out = k.library_path()
+        for out, ks in todo.items():
             tmp = f"{out}.{os.getpid()}.tmp"
-            cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp, k.source_path]
-            procs.append((k, out, tmp, subprocess.Popen(
+            cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp, ks[0].source_path]
+            procs.append((ks, out, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
         seconds: Dict[str, float] = {}
         failed = []
-        for k, out, tmp, proc in procs:
+        for ks, out, tmp, proc in procs:
             log, _ = proc.communicate()
-            seconds[k.source] = time.perf_counter() - t0
-            k.build_log = log
+            seconds[ks[0].source] = time.perf_counter() - t0
+            for k in ks:
+                k.build_log = log
             if proc.returncode != 0:
-                failed.append(f"{k.source} (nvcc exit {proc.returncode}):\n{log}")
+                failed.append(f"{ks[0].source} (nvcc exit {proc.returncode}):\n{log}")
                 continue
             os.replace(tmp, out)
-            k._bind(out)
+            for k in ks:
+                k._bind(out)
         if failed:
             raise RuntimeError("kernel build failed: " + "\n".join(failed))
         return seconds

@@ -1,9 +1,12 @@
-"""The fused attention-GRU decoder loop: CUDA kernel 2 and its plain version.
+"""The fused attention-GRU decoder loop: CUDA kernels 4-6 and their plain versions.
 
-Port of the forward of ``paddle_tpu/ops/pallas_attention_gru.py``
-(``fused_attention_gru``, inference kernel ``_fwd_kernel_light``) and of its
-one-step form ``attention_gru_step``, which is the serve decode step. Per
-decoder step:
+Port of ``paddle_tpu/ops/pallas_attention_gru.py``: ``fused_attention_gru``
+with its inference kernel (``_fwd_kernel_light`` ->
+``csrc/attention_gru_fwd.cu::attention_gru_fwd``), its training forward
+that also saves the residuals (``_fwd_kernel`` -> ``attention_gru_fwd_train``)
+and its backward (``_bwd_kernel`` -> ``csrc/attention_gru_bwd.cu``), and
+the one-step form ``attention_gru_step``, which is the serve decode step.
+Per decoder step:
 
     m     = h @ wa + ba
     s     = sum_D tanh(ep + m) * v            [Te, B], -1e30 where em = 0
@@ -13,10 +16,18 @@ decoder step:
     h'    = GRU(h, din) with wg [D, 3D]
 
 The output stream is the raw h'; the carry is h' where dmask = 1 and h
-where dmask = 0. :func:`fused_attention_gru` launches
-``csrc/attention_gru_fwd.cu`` for CUDA tensors and raises on anything that
-kernel does not take; for CPU tensors it runs
-:func:`attention_gru_reference`.
+where dmask = 0. :func:`fused_attention_gru` launches the kernels for CUDA
+tensors and raises on anything they do not take: the training pair (a
+``torch.autograd.Function``) when grad mode is on and an input requires a
+gradient, the light forward otherwise. For CPU tensors it runs
+:func:`attention_gru_reference`, and autograd through it gives the
+gradients.
+
+The backward kernel computes the kernel's own outputs of the JAX package
+(d_din = dxw, the d_ctx stream, dh0, d_enc_proj, dWa, dba, dv); dW_ctx,
+dW_gru and d_enc_vec are products of those streams, taken with
+``torch.matmul`` / ``torch.einsum`` as the JAX package leaves them to XLA.
+The masks get no gradient.
 """
 
 from __future__ import annotations
@@ -26,24 +37,38 @@ from typing import Tuple
 import torch
 
 from paddle_tpu_torch.ops._build import I32, I64, PTR, CudaKernel, check, ptr
-from paddle_tpu_torch.ops.fused_gru import KERNEL_ACTS, gru_cell
+from paddle_tpu_torch.ops.fused_gru import KERNEL_ACTS, _last_dim_contiguous, gru_cell
 
 Tensor = torch.Tensor
 
-ATTENTION_GRU_FWD = CudaKernel(
-    "attention_gru_fwd.cu", "attention_gru_fwd",
-    [PTR, I64, I64,            # ep, its time and batch strides
+_FWD_ARGS = [PTR, I64, I64,            # ep, its time and batch strides
+             PTR, I64, I64,            # ev
+             PTR, I64, I64,            # em
+             PTR, PTR, PTR,            # xw, dmask, h0
+             PTR, PTR, PTR,            # wa, ba, v
+             PTR, PTR, PTR]            # wctx, wg, ys
+_DIMS = [I32, I32, I32, I32, I32]      # Td, B, Te, D, E
+ATTENTION_GRU_FWD = CudaKernel("attention_gru_fwd.cu", "attention_gru_fwd", _FWD_ARGS + _DIMS)
+ATTENTION_GRU_FWD_TRAIN = CudaKernel(
+    "attention_gru_fwd.cu", "attention_gru_fwd_train",
+    _FWD_ARGS + [PTR, PTR, PTR, PTR] + _DIMS)  # hprev, acts, alpha, ctxs
+ATTENTION_GRU_BWD = CudaKernel(
+    "attention_gru_bwd.cu", "attention_gru_bwd",
+    [PTR, I64, I64,            # dy, its time and batch strides
+     PTR, I64, I64,            # ep
      PTR, I64, I64,            # ev
-     PTR, I64, I64,            # em
-     PTR, PTR, PTR,            # xw, dmask, h0
-     PTR, PTR, PTR,            # wa, ba, v
-     PTR, PTR, PTR,            # wctx, wg, ys
-     I32, I32, I32, I32, I32],  # Td, B, Te, D, E
-)
+     PTR, PTR, PTR, PTR,       # dmask, hprev, acts, alpha
+     PTR, PTR, PTR, PTR, PTR,  # wa, ba, v, wctx, wg
+     PTR, PTR, PTR,            # dxw, dctx, dh0
+     PTR, I64, I64,            # dep, its time and batch strides
+     PTR, PTR, PTR,            # dwa, dba, dv
+     PTR, PTR] + _DIMS)        # scratch: d_m rows, dv partials
+KERNELS = (ATTENTION_GRU_FWD, ATTENTION_GRU_FWD_TRAIN, ATTENTION_GRU_BWD)
 
 
-def _step(h, ep, ev, em, xw_t, wa, ba, v, wctx, wg, acts):
-    """One decoder step of the plain version; h [B, D] -> h' [B, D]."""
+def _step(h, ep, ev, em, xw_t, wa, ba, v, wctx, wg, acts, residuals=False):
+    """One decoder step of the plain version; h [B, D] -> h' [B, D], or
+    (h', u, r, c, alpha [Te, B], ctx [B, E]) with ``residuals``."""
     D = h.shape[-1]
     m = h @ wa + ba.reshape(1, D)                               # [B, D]
     s = torch.sum(torch.tanh(ep + m[None]) * v.reshape(1, 1, D), dim=-1)
@@ -54,35 +79,36 @@ def _step(h, ep, ev, em, xw_t, wa, ba, v, wctx, wg, acts):
     alpha = torch.where(valid, alpha, torch.zeros_like(alpha))
     ctx = torch.sum(alpha[:, :, None] * ev, dim=0)              # [B, E]
     din = ctx @ wctx + xw_t                                     # [B, 3D]
-    return gru_cell(din, h, wg, acts)
+    if not residuals:
+        return gru_cell(din, h, wg, acts)
+    return gru_cell(din, h, wg, acts, gates=True) + (alpha, ctx)
 
 
 def attention_gru_reference(ep, ev, em, xw, dmask, h0, wa, ba, v, wctx, wg,
-                            acts: Tuple[str, str] = KERNEL_ACTS) -> Tensor:
-    """Plain PyTorch version of the kernel (shapes as :func:`fused_attention_gru`)."""
+                            acts: Tuple[str, str] = KERNEL_ACTS, residuals: bool = False):
+    """Plain PyTorch version of the kernels (shapes as :func:`fused_attention_gru`).
+
+    ``residuals=True`` also returns what ``attention_gru_fwd_train`` saves:
+    (ys, hprev [Td, B, D], acts = [u | r | c] [Td, B, 3D], alpha
+    [Td, B, Te], ctx [Td, B, E])."""
     h = h0
-    ys = []
+    ys, saved = [], []
     for t in range(xw.shape[0]):
-        h_new = _step(h, ep, ev, em, xw[t], wa, ba, v, wctx, wg, acts)
+        out = _step(h, ep, ev, em, xw[t], wa, ba, v, wctx, wg, acts, residuals)
+        h_new = out[0] if residuals else out
+        if residuals:
+            u, r, c, alpha, ctx = out[1:]
+            saved.append((h, torch.cat([u, r, c], dim=-1), alpha.transpose(0, 1), ctx))
         ys.append(h_new)
         dm = dmask[t]
         h = dm * h_new + (1.0 - dm) * h
-    return torch.stack(ys)
+    ys = torch.stack(ys)
+    if not residuals:
+        return ys
+    return (ys,) + tuple(torch.stack(z) for z in zip(*saved))
 
 
-def fused_attention_gru(ep, ev, em, xw, dmask, h0, wa, ba, v, wctx, wg,
-                        acts: Tuple[str, str] = KERNEL_ACTS) -> Tensor:
-    """Raw per-step GRU outputs [Td, B, D] of the decoder loop.
-
-    ep [Te, B, D] encoder projection; ev [Te, B, E] encoder states;
-    em [Te, B, 1] encoder validity (these three may be any time/batch
-    strides, such as transposed views of batch-major buffers); xw
-    [Td, B, 3D] word-side inputs with every bias folded in; dmask
-    [Td, B, 1]; h0 [B, D]; wa [D, D]; ba [1, D]; v [1, D]; wctx [E, 3D];
-    wg [D, 3D]."""
-    if ep.device.type == "cpu":
-        return attention_gru_reference(ep, ev, em, xw, dmask, h0, wa, ba, v,
-                                       wctx, wg, acts)
+def _check_operands(ep, ev, em, xw, dmask, h0, wa, ba, v, wctx, wg, acts):
     Te, B, D = ep.shape
     E = ev.shape[2]
     Td = xw.shape[0]
@@ -101,18 +127,110 @@ def fused_attention_gru(ep, ev, em, xw, dmask, h0, wa, ba, v, wctx, wg,
     check(v, "v", (1, D), dev)
     check(wctx, "wctx", (E, 3 * D), dev)
     check(wg, "wg", (D, 3 * D), dev)
+    return Td, B, Te, D, E, dev
+
+
+def _launch_fwd(ep, ev, em, xw, dmask, h0, wa, ba, v, wctx, wg, acts, residuals):
+    Td, B, Te, D, E, dev = _check_operands(ep, ev, em, xw, dmask, h0, wa, ba, v,
+                                           wctx, wg, acts)
     ys = torch.empty((Td, B, D), device=dev)
-    ATTENTION_GRU_FWD.launch(
+    args = [ptr(ep), ep.stride(0), ep.stride(1),
+            ptr(ev), ev.stride(0), ev.stride(1),
+            ptr(em), em.stride(0), em.stride(1),
+            ptr(xw), ptr(dmask), ptr(h0),
+            ptr(wa), ptr(ba), ptr(v),
+            ptr(wctx), ptr(wg), ptr(ys)]
+    if not residuals:
+        ATTENTION_GRU_FWD.launch(dev, *args, Td, B, Te, D, E)
+        return ys
+    saved = (torch.empty((Td, B, D), device=dev), torch.empty((Td, B, 3 * D), device=dev),
+             torch.empty((Td, B, Te), device=dev), torch.empty((Td, B, E), device=dev))
+    ATTENTION_GRU_FWD_TRAIN.launch(dev, *args, *[ptr(z) for z in saved], Td, B, Te, D, E)
+    return (ys,) + saved
+
+
+def _launch_bwd(dy, ep, ev, dmask, hprev, saved, alpha, wa, ba, v, wctx, wg):
+    """The backward kernel's outputs: dxw, dctx, dh0, dep, dwa, dba, dv."""
+    Te, B, D = ep.shape
+    E = ev.shape[2]
+    Td = dy.shape[0]
+    dev = ep.device
+    dy = _last_dim_contiguous(dy)
+    check(dy, "dy", (Td, B, D), dev, contiguous=False)
+    check(hprev, "hprev", (Td, B, D), dev)
+    check(saved, "acts", (Td, B, 3 * D), dev)
+    check(alpha, "alpha", (Td, B, Te), dev)
+    dxw = torch.empty((Td, B, 3 * D), device=dev)
+    dctx = torch.empty((Td, B, E), device=dev)
+    dh0 = torch.empty((B, D), device=dev)
+    dep = torch.empty((B, Te, D), device=dev).transpose(0, 1)
+    dwa = torch.empty((D, D), device=dev)
+    dba = torch.empty((1, D), device=dev)
+    dv = torch.empty((1, D), device=dev)
+    dm_rows = torch.empty((Td, B, D), device=dev)
+    dv_part = torch.empty((B, D), device=dev)
+    ATTENTION_GRU_BWD.launch(
         dev,
+        ptr(dy), dy.stride(0), dy.stride(1),
         ptr(ep), ep.stride(0), ep.stride(1),
         ptr(ev), ev.stride(0), ev.stride(1),
-        ptr(em), em.stride(0), em.stride(1),
-        ptr(xw), ptr(dmask), ptr(h0),
-        ptr(wa), ptr(ba), ptr(v),
-        ptr(wctx), ptr(wg), ptr(ys),
+        ptr(dmask), ptr(hprev), ptr(saved), ptr(alpha),
+        ptr(wa), ptr(ba), ptr(v), ptr(wctx), ptr(wg),
+        ptr(dxw), ptr(dctx), ptr(dh0),
+        ptr(dep), dep.stride(0), dep.stride(1),
+        ptr(dwa), ptr(dba), ptr(dv),
+        ptr(dm_rows), ptr(dv_part),
         Td, B, Te, D, E,
     )
-    return ys
+    return dxw, dctx, dh0, dep, dwa, dba, dv
+
+
+class _FusedAttentionGRU(torch.autograd.Function):
+    """The training pair on the card: attention_gru_fwd_train, then
+    attention_gru_bwd plus the three stream products."""
+
+    @staticmethod
+    def forward(ctx, ep, ev, em, xw, dmask, h0, wa, ba, v, wctx, wg, acts):
+        ys, hprev, saved, alpha, ctxs = _launch_fwd(ep, ev, em, xw, dmask, h0, wa, ba, v,
+                                                    wctx, wg, acts, residuals=True)
+        ctx.save_for_backward(ep, ev, dmask, hprev, saved, alpha, ctxs, wa, ba, v, wctx, wg)
+        return ys
+
+    @staticmethod
+    def backward(ctx, dy):
+        ep, ev, dmask, hprev, saved, alpha, ctxs, wa, ba, v, wctx, wg = ctx.saved_tensors
+        D, E = ep.shape[2], ev.shape[2]
+        dxw, dctx, dh0, dep, dwa, dba, dv = _launch_bwd(
+            dy, ep, ev, dmask, hprev, saved, alpha, wa, ba, v, wctx, wg)
+        dxw2 = dxw.reshape(-1, 3 * D)
+        hp2 = hprev.reshape(-1, D)
+        r2 = saved.reshape(-1, 3 * D)[:, D: 2 * D]
+        dwctx = ctxs.reshape(-1, E).t() @ dxw2
+        dwg = torch.cat([hp2.t() @ dxw2[:, : 2 * D], (r2 * hp2).t() @ dxw2[:, 2 * D:]], dim=1)
+        # d_ev[te, b, :] = sum_td alpha[td, b, te] * d_ctx[td, b, :]
+        dev_ = torch.einsum("tbe,tbd->ebd", alpha, dctx)
+        return dep, dev_, None, dxw, None, dh0, dwa, dba, dv, dwctx, dwg, None
+
+
+def fused_attention_gru(ep, ev, em, xw, dmask, h0, wa, ba, v, wctx, wg,
+                        acts: Tuple[str, str] = KERNEL_ACTS) -> Tensor:
+    """Raw per-step GRU outputs [Td, B, D] of the decoder loop.
+
+    ep [Te, B, D] encoder projection; ev [Te, B, E] encoder states;
+    em [Te, B, 1] encoder validity (these three may be any time/batch
+    strides, such as transposed views of batch-major buffers); xw
+    [Td, B, 3D] word-side inputs with every bias folded in; dmask
+    [Td, B, 1]; h0 [B, D]; wa [D, D]; ba [1, D]; v [1, D]; wctx [E, 3D];
+    wg [D, 3D]."""
+    if ep.device.type == "cpu":
+        return attention_gru_reference(ep, ev, em, xw, dmask, h0, wa, ba, v,
+                                       wctx, wg, acts)
+    operands = (ep, ev, em, xw, dmask, h0, wa, ba, v, wctx, wg)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
+        _check_operands(*operands, acts)
+        return _FusedAttentionGRU.apply(ep, ev, em.detach(), xw, dmask.detach(), h0,
+                                        wa, ba, v, wctx, wg, tuple(acts))
+    return _launch_fwd(*operands, acts, residuals=False)
 
 
 def attention_gru_step(h_prev, ep, ev, em, xw_t, wa, ba, v, wctx, wg,

@@ -1,0 +1,104 @@
+"""Trainer — the single-batch train step and the pass loop, on one device.
+
+Port of the core of ``paddle_tpu/trainer/trainer.py``: a train step is
+``_one_batch_step`` (gradients from the machine, then the optimizer
+update, then the state updates), run eagerly. Batches come from the
+caller as dicts of :class:`~paddle_tpu_torch.graph.Argument` (for the
+NMT model, :func:`paddle_tpu_torch.flagship.nmt_batch`); data providers,
+the ``paddle train`` command line, meshes and the sharded checkpoint
+format are later slices.
+
+    trainer = Trainer(nmt_config(vocab=30000, dim=512, batch_size=64))
+    loss = trainer.train_one_batch(nmt_batch(B=64, T=32, seed=1, device=trainer.device))
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterable, List, Optional
+
+import torch
+
+from paddle_tpu_torch.device import DeviceLike
+from paddle_tpu_torch.graph.argument import Argument
+from paddle_tpu_torch.graph.machine import GradientMachine
+from paddle_tpu_torch.optimizer.updater import Updater
+from paddle_tpu_torch.trainer import checkpoint as ckpt
+from paddle_tpu_torch.utils.logging import logger
+
+Batch = Dict[str, Argument]
+
+
+class Trainer:
+    """``config`` is a TrainerConfig (``model_config`` + ``opt_config``).
+    ``device=None`` trains on the card, ``device="cpu"`` on the CPU with
+    the kernels' plain versions. Parameters are drawn from ``seed``, and
+    dropout draws from a ``torch.Generator`` seeded with ``seed`` as well.
+    ``params`` and ``opt_state`` are plain attributes: assign both to start
+    from other parameters."""
+
+    def __init__(self, config, device: DeviceLike = None, seed: int = 1,
+                 save_dir: Optional[str] = None, log_period: int = 100):
+        self.config = config
+        self.gm = GradientMachine(config.model_config, device)
+        self.device = self.gm.device
+        self.updater = Updater(config.opt_config, config.model_config)
+        self.params = self.gm.init_params(seed)
+        self.opt_state = self.updater.init_state(self.params)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(int(seed))
+        self.save_dir = save_dir
+        self.log_period = max(1, int(log_period))
+        self._grad_fn = self.gm.grad_fn()
+
+    @staticmethod
+    def batch_size(batch: Batch) -> int:
+        return next(iter(batch.values())).batch_size
+
+    def train_one_batch(self, batch: Batch) -> torch.Tensor:
+        """One step: gradients, then the update, then the state updates.
+        Returns the batch's loss as a (device) scalar tensor."""
+        loss, grads, _outputs, state_updates = self._grad_fn(self.params, batch,
+                                                             self.generator)
+        self.params, self.opt_state = self.updater(self.params, grads, self.opt_state,
+                                                   self.batch_size(batch))
+        self.params.update(state_updates)
+        return loss
+
+    def train(self, num_passes: int, batches: Iterable[Batch]) -> List[float]:
+        """``num_passes`` passes over ``batches`` (iterated once per pass);
+        logs AvgCost (the mean per-sample cost since the last log) every
+        ``log_period`` batches and saves each pass when ``save_dir`` is
+        set. Returns each pass's mean per-sample cost."""
+        pass_costs = []
+        for pass_id in range(num_passes):
+            total = window = 0.0
+            samples = window_samples = 0
+            for batch_id, batch in enumerate(batches):
+                n = self.batch_size(batch)
+                cost = float(self.train_one_batch(batch)) * n
+                total, window = total + cost, window + cost
+                samples, window_samples = samples + n, window_samples + n
+                if (batch_id + 1) % self.log_period == 0:
+                    logger.info("Pass %d, Batch %d, AvgCost %f", pass_id, batch_id + 1,
+                                window / max(window_samples, 1))
+                    window, window_samples = 0.0, 0
+            pass_costs.append(total / max(samples, 1))
+            logger.info("Pass %d done, AvgCost %f", pass_id, pass_costs[-1])
+            if self.save_dir:
+                self.save(pass_id)
+        return pass_costs
+
+    def save(self, pass_id: int) -> str:
+        if not self.save_dir:
+            raise ValueError("Trainer.save needs save_dir")
+        return ckpt.save_checkpoint(self.save_dir, pass_id, self.params, self.opt_state)
+
+    def restore(self, path: str) -> Dict:
+        """Load parameters and optimizer state from a pass directory;
+        returns its meta."""
+        params, opt_state, meta = ckpt.load_checkpoint(
+            path, self.opt_state, device=self.device, expected_params=self.params)
+        self.params = params
+        if opt_state is not None:
+            self.opt_state = opt_state
+        return meta

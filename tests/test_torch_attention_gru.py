@@ -61,3 +61,38 @@ def test_strided_encoder_views_give_the_same_step():
     got = tag.attention_gru_step(h0, ep_v, ev_v, em, xw[0], wa, ba, v, wctx, wg)
     np.testing.assert_allclose(got.numpy(), base.numpy(), **TOL)
     assert tag.ATTENTION_GRU_FWD.launches == 0
+
+
+# ------------------------------------------------------------ training path
+
+
+@pytest.mark.parametrize("Td", [1, 4])
+def test_training_residuals_match_pallas_kernel(Td):
+    """h_prev, (u, r, c), alpha and ctx as the training kernel saves them,
+    against ``_run_fwd(..., residuals=True)``."""
+    args = _inputs(Td + 10, Td)
+    ref = jag._run_fwd(*[jnp.asarray(a) for a in args], ACTS, True, residuals=True)
+    got = tag.attention_gru_reference(*[torch.from_numpy(a) for a in args], residuals=True)
+    for name, a, b in zip(("ys", "hprev", "acts", "alpha", "ctx"), got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name, **TOL)
+
+
+@pytest.mark.parametrize("Td", [1, 4])
+def test_gradients_match_pallas_backward(Td):
+    """All nine gradients from autograd through the plain version against
+    jax.grad through the Pallas custom-VJP (``_bwd_kernel`` in interpret
+    mode); tolerance 1e-4, the JAX package's own kernel-vs-reference bound
+    (tests/test_fused_decoder.py)."""
+    import jax
+
+    args = _inputs(Td + 20, Td)
+    cot = np.random.RandomState(Td).randn(Td, 3, 8).astype(np.float32)
+    diff = (0, 1, 3, 5, 6, 7, 8, 9, 10)              # not the masks
+    jg = jax.grad(lambda *a: jnp.sum(jag.fused_attention_gru(*a, ACTS, True) * cot),
+                  diff)(*[jnp.asarray(a) for a in args])
+    leaves = [torch.from_numpy(a).requires_grad_(i in diff) for i, a in enumerate(args)]
+    (tag.fused_attention_gru(*leaves) * torch.from_numpy(cot)).sum().backward()
+    names = ("dep", "dev", "dxw", "dh0", "dwa", "dba", "dv", "dwctx", "dwg")
+    for name, i, b in zip(names, diff, jg):
+        np.testing.assert_allclose(leaves[i].grad.numpy(), np.asarray(b),
+                                   rtol=1e-4, atol=1e-4, err_msg=name)

@@ -31,7 +31,7 @@ COPIES = (
     "serving/backend.py", "serving/draft.py", "serving/engine.py",
     "observability/__init__.py", "observability/metrics.py", "observability/spans.py",
     "observability/serving.py", "observability/analyze.py",
-    "resilience/__init__.py", "resilience/faultinject.py",
+    "resilience/__init__.py", "resilience/faultinject.py", "resilience/manifest.py",
     "utils/concurrency.py", "utils/logging.py", "utils/error.py", "utils/registry.py",
 )
 # the one deliberate change to a copy: the port never puts compat/ on sys.path
@@ -110,14 +110,34 @@ def test_wrapper_checks_refuse_what_the_kernels_do_not_take():
 
 def test_kernel_builds_are_keyed_by_their_sources():
     from paddle_tpu_torch.ops import _build
-    from paddle_tpu_torch.ops.fused_attention_gru import ATTENTION_GRU_FWD
-    from paddle_tpu_torch.ops.fused_gru import GRU_FWD
+    from paddle_tpu_torch.ops import fused_attention_gru as fa
+    from paddle_tpu_torch.ops import fused_gru as fg
 
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
-    paths = {k.library_path() for k in (GRU_FWD, ATTENTION_GRU_FWD)}
-    assert len(paths) == 2
+    kernels = fg.KERNELS + fa.KERNELS
+    assert len({k.symbol for k in kernels}) == 6
+    # a kernel and its training variant share one source and its library
+    paths = {k.library_path() for k in kernels}
+    assert {os.path.basename(p).split("-")[0] for p in paths} == {
+        "gru_fwd", "gru_bwd", "attention_gru_fwd", "attention_gru_bwd"}
+    assert fg.GRU_FWD.library_path() == fg.GRU_FWD_TRAIN.library_path()
     for p in paths:
         assert p.startswith(os.path.join(REPO, "build", "paddle_tpu_torch") + os.sep)
-    for k in (GRU_FWD, ATTENTION_GRU_FWD):
+    for k in kernels:
         assert os.path.isfile(k.source_path)
         assert k.argtypes[-1] is _build.PTR                # the stream
+    for header in _build.HEADERS:
+        assert os.path.isfile(os.path.join(_build.CSRC_DIR, header))
+
+
+def test_training_wrappers_take_the_plain_version_on_the_cpu():
+    """On a CPU tensor the wrappers run the plain version, with autograd,
+    and launch nothing."""
+    from paddle_tpu_torch.ops import fused_attention_gru as fa
+    from paddle_tpu_torch.ops import fused_gru as fg
+
+    before = [k.launches for k in fg.KERNELS + fa.KERNELS]
+    x3 = torch.randn(3, 2, 12, requires_grad=True)
+    fg.fused_gru(x3, torch.ones(3, 2), torch.randn(4, 12)).sum().backward()
+    assert x3.grad is not None
+    assert [k.launches for k in fg.KERNELS + fa.KERNELS] == before

@@ -7,7 +7,9 @@ machine with the card and no JAX run them without it:
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 
 Tolerance 1e-4 absolute in float32 with TF32 off (sums over K terms taken
-in another order than the plain version's matmuls).
+in another order than the plain version's matmuls); gradients 1e-4 times
+max(1, max |plain gradient|), since a weight gradient sums over every
+(step, row) pair as well.
 """
 
 import numpy as np
@@ -75,6 +77,99 @@ def test_attention_kernel_matches_plain_version(dev, Td, Te, B, D, E):
     assert float((step - ref[0]).abs().max()) <= TOL
 
 
+def _grad_tol(ref):
+    return TOL * max(1.0, float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("T,B,H", [(7, 5, 40), (1, 2, 8), (3, 2, 600), (2, 2, 2100)])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_gru_training_kernels_match_plain_version(dev, T, B, H, reverse):
+    """H = 2100 puts the backward's shared memory (6 H floats) above 48 KB."""
+    from paddle_tpu_torch.ops import fused_gru as fg
+
+    rng = np.random.RandomState(T * 1000 + H + reverse)
+    x3 = _t(rng.randn(B, T, 3 * H) * 0.5, dev).transpose(0, 1)
+    w = _t(rng.randn(H, 3 * H) / np.sqrt(H), dev)
+    lens = rng.randint(1, T + 1, B)
+    lens[-1] = 0                                      # a fully masked row
+    mask = _t(np.arange(T)[:, None] < lens[None, :], dev)
+    dy = _t(rng.randn(T, B, H), dev)
+
+    got = fg._launch_fwd(x3, mask, w, reverse, fg.KERNEL_ACTS, residuals=True)
+    ref = fg.gru_forward_reference(x3, mask, w, reverse, residuals=True)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("ys", "acts", "hprev"), got, ref):
+        assert float((a - b).abs().max()) <= TOL, name
+
+    before = (fg.GRU_FWD_TRAIN.launches, fg.GRU_BWD.launches)
+    leaves = [x3.detach().requires_grad_(), w.detach().requires_grad_()]
+    (fg.fused_gru(leaves[0], mask, leaves[1], reverse=reverse) * dy).sum().backward()
+    assert (fg.GRU_FWD_TRAIN.launches, fg.GRU_BWD.launches) == (before[0] + 1, before[1] + 1)
+    plain = [x3.detach().requires_grad_(), w.detach().requires_grad_()]
+    (fg.gru_forward_reference(plain[0], mask, plain[1], reverse) * dy).sum().backward()
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dx3", "dw"), leaves, plain):
+        assert torch.isfinite(a.grad).all(), name
+        assert float((a.grad - b.grad).abs().max()) <= _grad_tol(b.grad), name
+
+
+@pytest.mark.parametrize("Td,Te,B,D,E", [(3, 37, 4, 24, 40), (1, 1, 2, 8, 8),
+                                         (2, 24, 3, 520, 1040)])
+def test_attention_training_kernels_match_plain_version(dev, Td, Te, B, D, E):
+    """(2, 24, 3, 520, 1040) puts the backward's shared memory above 48 KB."""
+    from paddle_tpu_torch.ops import fused_attention_gru as fa
+
+    rng = np.random.RandomState(Td * 100 + D)
+    r = lambda *s: _t(rng.randn(*s) * 0.3, dev)
+    lens = rng.randint(1, Te + 1, B)
+    lens[-1] = 0                                      # an all-masked row
+    em = _t((np.arange(Te)[:, None] < lens[None, :])[:, :, None], dev)
+    ep = r(B, Te, D).transpose(0, 1)                  # strided, as the decoder passes it
+    ev = r(B, Te, E).transpose(0, 1)
+    dmask = _t(rng.rand(Td, B, 1) > 0.3, dev)
+    args = [ep, ev, em, r(Td, B, 3 * D), dmask, r(B, D),
+            r(D, D), r(1, D), r(1, D), r(E, 3 * D), r(D, 3 * D)]
+    dy = _t(rng.randn(Td, B, D), dev)
+
+    got = fa._launch_fwd(*args, fa.KERNEL_ACTS, residuals=True)
+    ref = fa.attention_gru_reference(*args, residuals=True)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("ys", "hprev", "acts", "alpha", "ctx"), got, ref):
+        assert torch.isfinite(a).all(), name
+        assert float((a - b).abs().max()) <= TOL, name
+
+    diff = (0, 1, 3, 5, 6, 7, 8, 9, 10)               # not the masks
+    names = ("dep", "dev", "dxw", "dh0", "dwa", "dba", "dv", "dwctx", "dwg")
+
+    def grads(fn):
+        leaves = [a.detach().requires_grad_(i in diff) for i, a in enumerate(args)]
+        (fn(*leaves) * dy).sum().backward()
+        return [leaves[i].grad for i in diff]
+
+    before = (fa.ATTENTION_GRU_FWD_TRAIN.launches, fa.ATTENTION_GRU_BWD.launches)
+    gk = grads(fa.fused_attention_gru)
+    assert (fa.ATTENTION_GRU_FWD_TRAIN.launches, fa.ATTENTION_GRU_BWD.launches) == \
+        (before[0] + 1, before[1] + 1)
+    gr = grads(fa.attention_gru_reference)
+    torch.cuda.synchronize()
+    for name, a, b in zip(names, gk, gr):
+        assert torch.isfinite(a).all(), name
+        assert float((a - b).abs().max()) <= _grad_tol(b), name
+
+
+def test_inference_keeps_the_light_kernels(dev):
+    """Without a gradient to take, the layers launch kernels 1 and 4."""
+    from paddle_tpu_torch.ops import fused_gru as fg
+
+    x3 = torch.zeros(2, 3, 12, device=dev, requires_grad=True)
+    mask = torch.ones(2, 3, device=dev)
+    w = torch.zeros(4, 12, device=dev)
+    before = (fg.GRU_FWD.launches, fg.GRU_FWD_TRAIN.launches)
+    with torch.no_grad():
+        fg.fused_gru(x3, mask, w)
+    assert (fg.GRU_FWD.launches, fg.GRU_FWD_TRAIN.launches) == (before[0] + 1, before[1])
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     from paddle_tpu_torch.ops.fused_gru import fused_gru
 
@@ -87,3 +182,5 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         fused_gru(x3, mask, w.cpu())
     with pytest.raises(ValueError, match="activations"):
         fused_gru(x3, mask, w, acts=("relu", "sigmoid"))
+    with pytest.raises(ValueError, match="float32"):             # the training path too
+        fused_gru(x3.double().requires_grad_(), mask, w.double())

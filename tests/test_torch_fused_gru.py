@@ -101,3 +101,49 @@ def test_gated_recurrent_layer_matches_jax_scan():
     tp = params_from_numpy({k: np.asarray(v) for k, v in jp.items()}, "cpu")
     got = tm.forward(tp, {"w": make_seq(None, lens, ids=ids, device="cpu")})[0][out_name].value
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
+# ------------------------------------------------------------ training path
+
+
+@pytest.mark.parametrize("reversed_", [False, True])
+def test_training_residuals_match_pallas_kernel(reversed_):
+    """The residuals the training kernel saves (u, r, c and h_prev, at each
+    step's own time index) against ``_run_fwd(..., residuals=True)``; the
+    JAX package flips a reversed sequence outside the kernel."""
+    x, w, bias, mask = _inputs(4)
+    x3 = x + bias
+    flip = (lambda a: a[::-1]) if reversed_ else (lambda a: a)
+    ys, acts, hprev = pg._run_fwd(jnp.asarray(flip(x3).copy()),
+                                  jnp.asarray(flip(mask).copy())[:, :, None],
+                                  jnp.asarray(w), tg.KERNEL_ACTS, True, residuals=True)
+    got = tg.gru_forward_reference(torch.from_numpy(x3), torch.from_numpy(mask),
+                                   torch.from_numpy(w), reverse=reversed_, residuals=True)
+    for name, a, b in zip(("ys", "acts", "hprev"), got, (ys, acts, hprev)):
+        np.testing.assert_allclose(a.numpy(), flip(np.asarray(b)), err_msg=name, **TOL)
+
+
+@pytest.mark.parametrize("reversed_", [False, True])
+def test_gradients_match_pallas_backward(reversed_):
+    """dx3 and dW from autograd through the plain version against jax.grad
+    through the Pallas custom-VJP (``_bwd_kernel`` in interpret mode), with
+    an empty row and ragged lengths."""
+    import jax
+
+    x, w, bias, mask = _inputs(5)
+    cot = np.random.RandomState(6).randn(*x.shape[:2], w.shape[0]).astype(np.float32)
+    cfg = types.SimpleNamespace(size=16, reversed=reversed_,
+                                active_type="tanh", active_gate_type="sigmoid")
+
+    def jloss(x3, w_):
+        ys = pg.gru_layer_forward(cfg, x3, jnp.asarray(mask), w_, None, interpret=True)
+        return jnp.sum(ys * cot)
+
+    jdx, jdw = jax.grad(jloss, (0, 1))(jnp.asarray(x + bias), jnp.asarray(w))
+    x3 = torch.from_numpy(x + bias).requires_grad_()
+    wt = torch.from_numpy(w).requires_grad_()
+    ys = tg.fused_gru(x3, torch.from_numpy(mask), wt, reverse=reversed_)
+    (ys * torch.from_numpy(cot)).sum().backward()
+    np.testing.assert_allclose(x3.grad.numpy(), np.asarray(jdx), **TOL)
+    np.testing.assert_allclose(wt.grad.numpy(), np.asarray(jdw), **TOL)
+    assert not x3.grad.numpy()[:, -1].any()          # the empty row gets nothing
