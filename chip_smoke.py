@@ -34,6 +34,22 @@ Phases, each printing one JSON object per line:
              max |grad|)), a pass-00000 save restored into a fresh Trainer
              (parameters and Adam slots equal), and one step under
              torch.profiler.
+5. lstm_kernels — kernels 7a, 7b and 8 at the LSTM classifier's full
+             width (T = 64, B = 256, H = 512), forward and reversed, with
+             the default activations and with (relu, sigmoid, tanh), held
+             to their plain versions as in phase 2 and timed the same way.
+6. lstm_train — the third main path: Trainer(flagship_config(
+             dict_dim=10000, emb_dim=256, hidden=512, classes=2)) with
+             batch size 256, random weights from seed 1, 8 Adam steps on
+             example_batch(B=256, T=64, seed=1); the counters zeroed just
+             before and read just after (1 lstm_fwd_train and 1 lstm_bwd
+             per step, no lstm_fwd); the loss must fall. Then a B = 4 step
+             against the CPU and one step under torch.profiler.
+7. lstm_test — the fourth: Trainer.test over 4 seeded batches of 256
+             between zeroed counters (4 lstm_fwd, no training kernel); the
+             test cost and classification_error of a B = 4 batch against
+             the CPU's, and classification_error on the training batch no
+             higher after the 8 steps than before them.
 
 Then the per-kernel line ({"kernels": [...]}), the card's name and power
 limit as nvidia-smi reports them, and as the last line
@@ -62,6 +78,10 @@ TRAIN_TOL = 1e-3           # a whole train step: the card against the CPU plain 
 FULL = dict(vocab=30000, dim=512, max_length=32, slots=64, prompt_tokens=32)
 TRAIN = dict(batch=64, T=32, steps=8, cpu_batch=4)
 TRAIN_KERNELS = ("gru_fwd_train", "gru_bwd", "attention_gru_fwd_train", "attention_gru_bwd")
+LSTM_KERNELS = ("lstm_fwd", "lstm_fwd_train", "lstm_bwd")
+# the LSTM classifier as bench.py trains it (bench_lstm_classifier)
+LSTM = dict(dict_dim=10000, emb_dim=256, hidden=512, classes=2, batch=256, T=64,
+            steps=8, cpu_batch=4, test_batches=4)
 N_REQUESTS = 128
 # the JAX package's allowance for argmax near-ties between two decode
 # paths (SLOT_PARITY_TOL in paddle_tpu/graph/decode_step.py)
@@ -329,7 +349,7 @@ def phase_serve(torch, dev, kernels):
         [(r.rid, r.outcome, r.error) for r in fused if r.outcome != "ok" or not r.tokens]
     assert prefills > 0 and launches["gru_fwd"] == 2 * prefills, (launches, prefills)
     assert launches["attention_gru_fwd"] >= microsteps > 0, (launches, microsteps)
-    assert not any(launches[n] for n in TRAIN_KERNELS), launches
+    assert not any(launches[n] for n in TRAIN_KERNELS + LSTM_KERNELS), launches
     tokens = sum(len(r.tokens) for r in fused)
 
     unfused_engine = build_engine(machine, params, slots=FULL["slots"],
@@ -439,7 +459,8 @@ def phase_train(torch, dev, kernels):
     n = TRAIN["steps"]
     assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
     want = {"gru_fwd_train": 2 * n, "gru_bwd": 2 * n, "attention_gru_fwd_train": n,
-            "attention_gru_bwd": n, "gru_fwd": 0, "attention_gru_fwd": 0}
+            "attention_gru_bwd": n, "gru_fwd": 0, "attention_gru_fwd": 0,
+            **{name: 0 for name in LSTM_KERNELS}}
     assert launches == want, (launches, want)
     step_ms = 1e3 * statistics.median(step_s[1:])
 
@@ -481,6 +502,181 @@ def phase_train(torch, dev, kernels):
     return train
 
 
+def lstm_bytes_flops(T, B, H):
+    """Bytes each input read and each output written once, and operations
+    (kernel_flops.lstm_fwd_flops / lstm_bwd_flops), of kernels 7a, 7b and 8."""
+    light = 4.0 * (T * B * 4 * H + T * B + H * 4 * H + 3 * H + T * B * H)  # x4, mask, w, peep, ys
+    residuals = 4.0 * (T * B * 4 * H + 2 * T * B * H)                     # acts, hprev, cprev
+    fwd_flops = T * (8.0 * B * H * H + 21.0 * B * H)
+    bwd_bytes = 4.0 * (T * B * H + T * B * 4 * H + 2 * T * B * H + T * B + H * 4 * H + 3 * H
+                       + T * B * 4 * H + H * 4 * H + 3 * H)   # dy, acts, h/cprev, mask, w, peep; dx4, dw, dpeep
+    return {"lstm_fwd": (light, fwd_flops), "lstm_fwd_train": (light + residuals, fwd_flops),
+            "lstm_bwd": (bwd_bytes, T * (16.0 * B * H * H + 40.0 * B * H))}
+
+
+def phase_lstm_kernels(torch, dev):
+    """Kernels 7a, 7b and 8 at the classifier's full width, forward and
+    reversed, default activations and (relu, sigmoid, tanh)."""
+    from paddle_tpu_torch.ops import fused_lstm as fl
+
+    rng = np.random.RandomState(3)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+    T, B, H = LSTM["T"], LSTM["batch"], LSTM["hidden"]
+    x4 = t(rng.randn(B, T, 4 * H) * 0.5).transpose(0, 1)    # as the layer passes it
+    w = t(rng.randn(H, 4 * H) / np.sqrt(H))
+    peep = t(rng.randn(3, H) * 0.1)
+    lens = rng.randint(T // 2, T + 1, B)
+    lens[5] = 0                                               # one all-masked row
+    mask = t(np.arange(T)[:, None] < lens[None, :])
+    dy = t(rng.randn(T, B, H))
+    cases = {name: [] for name in LSTM_KERNELS}
+    for acts in (fl.DEFAULT_ACTS, ("relu", "sigmoid", "tanh")):
+        for reverse in (False, True):
+            key = {"acts": list(acts), "reverse": reverse}
+            light = fl.fused_lstm(x4, mask, w, peep, reverse, acts)
+            got = fl._launch_fwd(x4, mask, w, peep, reverse, acts, residuals=True)
+            ref = fl.lstm_forward_reference(x4, mask, w, peep, reverse, acts, residuals=True)
+            torch.cuda.synchronize()
+            err = float((light - ref[0]).abs().max())
+            assert torch.isfinite(light).all() and err <= TOL, ("lstm_fwd", key, err)
+            cases["lstm_fwd"].append({**key, "max_abs_err": err})
+            err = _err(got, ref)
+            assert all(torch.isfinite(a).all() for a in got) and err <= TOL, ("lstm_fwd_train", key, err)
+            cases["lstm_fwd_train"].append({**key, "max_abs_err": err})
+            _, saved, hprev, cprev = got
+            leaves = [a.detach().requires_grad_() for a in (x4, w, peep)]
+            kg = torch.autograd.grad(fl.fused_lstm(*leaves[:1], mask, *leaves[1:], reverse, acts),
+                                     leaves, dy)
+            plain = [a.detach().requires_grad_() for a in (x4, w, peep)]
+            ys_plain = fl.lstm_forward_reference(plain[0], mask, plain[1], plain[2], reverse, acts)
+            pg = torch.autograd.grad(ys_plain, plain, dy, retain_graph=True)
+            torch.cuda.synchronize()
+            err, rel = _err(kg, pg), _grad_err(kg, pg)
+            assert all(torch.isfinite(g).all() for g in kg) and rel <= TOL, ("lstm_bwd", key, rel)
+            cases["lstm_bwd"].append({**key, "max_abs_err": err, "err_over_scale": rel})
+            if acts != fl.DEFAULT_ACTS:
+                continue
+            # time the default activations, both directions, from a cold L2
+            cases["lstm_fwd"][-1].update(
+                ms=time_ms(torch, lambda: fl._launch_fwd(x4, mask, w, peep, reverse, acts, False)),
+                plain_ms=time_ms(torch, lambda: fl.lstm_forward_reference(
+                    x4, mask, w, peep, reverse, acts), reps=5))
+            cases["lstm_fwd_train"][-1].update(
+                ms=time_ms(torch, lambda: fl._launch_fwd(x4, mask, w, peep, reverse, acts, True)),
+                plain_ms=time_ms(torch, lambda: fl.lstm_forward_reference(
+                    x4, mask, w, peep, reverse, acts, residuals=True), reps=5))
+            cases["lstm_bwd"][-1].update(
+                ms=time_ms(torch, lambda: fl._launch_bwd(dy, saved, hprev, cprev, mask, w, peep,
+                                                         reverse, acts)),
+                plain_ms=time_ms(torch, lambda: torch.autograd.grad(
+                    ys_plain, plain, dy, retain_graph=True), reps=5))
+    emit({"phase": "lstm_kernels", "cases": cases})
+    sizes = lstm_bytes_flops(T, B, H)
+    return {name: dict(cases=cases[name], shape=dict(T=T, B=B, H=H),
+                       bytes=sizes[name][0], flops=sizes[name][1]) for name in LSTM_KERNELS}
+
+
+def phase_lstm_train(torch, dev, kernels):
+    """The LSTM classifier's train step on the card: 8 Adam steps through
+    Trainer with the launch counts of that run, a B = 4 step against the
+    CPU, and one profiled step. Returns the trainer and its batch for the
+    test phase, with the training batch's classification_error before the
+    steps."""
+    from paddle_tpu_torch.flagship import example_batch, flagship_config
+    from paddle_tpu_torch.graph import GradientMachine
+    from paddle_tpu_torch.trainer import Trainer
+
+    widths = {k: LSTM[k] for k in ("dict_dim", "emb_dim", "hidden", "classes")}
+    tc = flagship_config(**widths)
+    tc.opt_config.batch_size = LSTM["batch"]
+    trainer = Trainer(tc, seed=1)                           # device=None: the card
+    batch = example_batch(LSTM["dict_dim"], B=LSTM["batch"], T=LSTM["T"], seed=1, device=dev)
+    err_key = next(e.name for e in tc.model_config.evaluators) + ".classification_error"
+    err_before = trainer.test([batch])[err_key]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for k in kernels:
+        k.launches = 0
+    losses, step_s = [], []
+    for _ in range(LSTM["steps"]):
+        t0 = time.perf_counter()
+        loss = trainer.train_one_batch(batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    launches = {k.symbol: k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated(dev)
+    n = LSTM["steps"]
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    want = {k.symbol: 0 for k in kernels}
+    want.update(lstm_fwd_train=n, lstm_bwd=n)
+    assert launches == want, (launches, want)
+    step_ms = 1e3 * statistics.median(step_s[1:])
+
+    # one B = 4 step on the card against the same step on the CPU
+    params_cpu = {k: v.cpu() for k, v in trainer.params.items()}
+    small = dict(dict_dim=LSTM["dict_dim"], B=LSTM["cpu_batch"], T=LSTM["T"], seed=2)
+    loss_g, grads_g, _, _ = trainer.gm.grad_fn()(trainer.params, example_batch(device=dev, **small))
+    cpu = GradientMachine(tc.model_config, device="cpu")
+    loss_c, grads_c, _, _ = cpu.grad_fn()(params_cpu, example_batch(device="cpu", **small))
+    loss_err = abs(float(loss_g) - float(loss_c)) / max(1.0, abs(float(loss_c)))
+    grad_err = {n_: float((grads_g[n_].cpu() - g).abs().max()) / max(1.0, float(g.abs().max()))
+                for n_, g in grads_c.items()}
+    assert loss_err <= TRAIN_TOL and max(grad_err.values()) <= TRAIN_TOL, (loss_err, grad_err)
+
+    tokens = LSTM["batch"] * LSTM["T"]                    # B * T per step, as bench.py counts
+    train = {"phase": "lstm_train", "params": sum(p.numel() for p in trainer.params.values()),
+             "batch": LSTM["batch"], "T": LSTM["T"], "steps": n,
+             "step_ms": step_ms, "step_ms_all": [1e3 * x for x in step_s],
+             "tokens_per_step": tokens, "tokens_per_s": tokens / (step_ms / 1e3),
+             "valid_tokens_per_step": int(batch["words"].seq_lengths.sum()),
+             "peak_memory_bytes": peak, "losses": losses, "kernel_launches": launches,
+             "cpu_step_loss_rel_err": loss_err,
+             "cpu_step_grad_max_err_over_scale": max(grad_err.values())}
+    emit(train)
+    profiled(torch, "lstm_train_profile", lambda: trainer.train_one_batch(batch))
+    return train, trainer, batch, err_key, err_before
+
+
+def phase_lstm_test(torch, dev, kernels, trainer, batch, err_key, err_before):
+    """Trainer.test on the card: launches, a B = 4 batch against the CPU,
+    and the training batch's classification_error after the steps."""
+    from paddle_tpu_torch.flagship import example_batch
+    from paddle_tpu_torch.trainer import Trainer
+
+    batches = [example_batch(LSTM["dict_dim"], B=LSTM["batch"], T=LSTM["T"], seed=10 + i,
+                             device=dev) for i in range(LSTM["test_batches"])]
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    results = trainer.test(batches)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.symbol: k.launches for k in kernels}
+    want = {k.symbol: 0 for k in kernels}
+    want.update(lstm_fwd=LSTM["test_batches"])
+    assert launches == want, (launches, want)
+    assert np.isfinite(results["cost"]), results
+
+    small = dict(dict_dim=LSTM["dict_dim"], B=LSTM["cpu_batch"], T=LSTM["T"], seed=3)
+    on_card = trainer.test([example_batch(device=dev, **small)])
+    cpu = Trainer(trainer.config, device="cpu")
+    cpu.params = {k: v.cpu() for k, v in trainer.params.items()}
+    on_cpu = cpu.test([example_batch(device="cpu", **small)])
+    cost_err = abs(on_card["cost"] - on_cpu["cost"]) / abs(on_cpu["cost"])
+    assert cost_err <= TOL and on_card[err_key] == on_cpu[err_key], (on_card, on_cpu)
+
+    err_after = trainer.test([batch])[err_key]
+    assert err_after <= err_before, (err_before, err_after)
+    test = {"phase": "lstm_test", "batches": LSTM["test_batches"], "batch": LSTM["batch"],
+            "wall_s": wall, "results": results, "kernel_launches": launches,
+            "cpu_cost_rel_err": cost_err, "cpu_classification_error": on_cpu[err_key],
+            "train_batch_error_before": err_before, "train_batch_error_after": err_after}
+    emit(test)
+    return test
+
+
 def main() -> int:
     import torch
 
@@ -490,13 +686,17 @@ def main() -> int:
     from paddle_tpu_torch.device import resolve_device
     from paddle_tpu_torch.ops import fused_attention_gru as fa
     from paddle_tpu_torch.ops import fused_gru as fg
+    from paddle_tpu_torch.ops import fused_lstm as fl
 
     dev = resolve_device(None)                       # also turns TF32 off
-    kernels = list(fg.KERNELS) + list(fa.KERNELS)
+    kernels = list(fg.KERNELS) + list(fa.KERNELS) + list(fl.KERNELS)
     phase_build(kernels)
     k = phase_kernels(torch, dev)
+    k.update(phase_lstm_kernels(torch, dev))
     serve = phase_serve(torch, dev, kernels)
     train = phase_train(torch, dev, kernels)
+    lstm_train, trainer, batch, err_key, err_before = phase_lstm_train(torch, dev, kernels)
+    lstm_test = phase_lstm_test(torch, dev, kernels, trainer, batch, err_key, err_before)
 
     meta = {
         "gru_fwd": ("paddle_tpu_torch/csrc/gru_fwd.cu",
@@ -514,23 +714,36 @@ def main() -> int:
         "attention_gru_bwd": ("paddle_tpu_torch/csrc/attention_gru_bwd.cu",
                               "paddle_tpu/ops/pallas_attention_gru.py:298 "
                               "(_bwd_kernel; pallas_call :415)"),
+        "lstm_fwd": ("paddle_tpu_torch/csrc/lstm_fwd.cu",
+                     "paddle_tpu/ops/pallas_lstm.py:179 (_fwd_kernel_light; pallas_call :307)"),
+        "lstm_fwd_train": ("paddle_tpu_torch/csrc/lstm_fwd.cu",
+                           "paddle_tpu/ops/pallas_lstm.py:155 (_fwd_kernel; pallas_call :307)"),
+        "lstm_bwd": ("paddle_tpu_torch/csrc/lstm_bwd.cu",
+                     "paddle_tpu/ops/pallas_lstm.py:201 (_bwd_kernel; pallas_call :341)"),
     }
+    gru_note = ("no single PyTorch call computes this function (torch.nn.GRU applies the "
+                "reset gate after the recurrent product, a different cell)")
+    lstm_note = ("no single PyTorch call computes this function (torch.nn.LSTM has no "
+                 "peepholes and fixes the activations)")
+    # each kernel's launches are counted on its own main path
+    paths = {"serve": serve, "train": train, "lstm_train": lstm_train, "lstm_test": lstm_test}
+    path_of = {name: ("train" if name in TRAIN_KERNELS else
+                      "lstm_test" if name == "lstm_fwd" else
+                      "lstm_train" if name in LSTM_KERNELS else "serve") for name in k}
     rows = []
     for name, r in k.items():
-        main_case = r["cases"][0]     # forward / Td = 1 (serve); not reversed (train)
+        main_case = r["cases"][0]     # forward / Td = 1 (serve); not reversed (train); default acts
         b_ms, b_by = bound(r["bytes"], r["flops"])
         err = max(c["max_abs_err"] for c in r["cases"])
-        # each kernel's launches are counted on its own main path
-        launches = (train if name in TRAIN_KERNELS else serve)["kernel_launches"][name]
+        launches = paths[path_of[name]]["kernel_launches"][name]
+        assert launches > 0, (name, path_of[name])
         rows.append({
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1], "launches": launches,
             "max_abs_err": err, "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "library_note": "no single PyTorch call computes this function "
-                            "(torch.nn.GRU applies the reset gate after the "
-                            "recurrent product, a different cell)",
-            "main_path": "train" if name in TRAIN_KERNELS else "serve",
+            "library_note": lstm_note if name in LSTM_KERNELS else gru_note,
+            "main_path": path_of[name],
             "max_err": err, "kernel_ms": main_case["ms"], "bytes": r["bytes"],
             "flops": r["flops"], "shape": r["shape"],
         })

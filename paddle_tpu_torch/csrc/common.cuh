@@ -6,6 +6,7 @@
 
 // The activation pair the GRU kernels take: act_gate = sigmoid,
 // act_in = tanh (the config DSL's defaults for gated_recurrent/gru_step).
+// The LSTM kernels take any of act_f32's four in each slot.
 __device__ __forceinline__ float sigmoid_f32(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
@@ -26,4 +27,64 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
+}
+
+// The activations the LSTM kernels take in each of their three slots, by
+// the codes the Python wrapper passes: 0 tanh, 1 sigmoid, 2 relu, 3 linear.
+__device__ __forceinline__ float act_f32(int kind, float x) {
+  switch (kind) {
+    case 0: return tanhf(x);
+    case 1: return sigmoid_f32(x);
+    case 2: return fmaxf(x, 0.0f);
+    default: return x;
+  }
+}
+
+// Its derivative from the saved post-activation value y = act(x).
+__device__ __forceinline__ float dact_f32(int kind, float y) {
+  switch (kind) {
+    case 0: return 1.0f - y * y;
+    case 1: return y * (1.0f - y);
+    case 2: return y > 0.0f ? 1.0f : 0.0f;
+    default: return 1.0f;
+  }
+}
+
+// Asynchronous 4-byte copies from device to shared memory (cp.async), for
+// staging a weight slice while the previous one is in use: issue copies,
+// close the group with cp_async_commit(), and cp_async_wait<N>() until at
+// most N of this thread's groups are still in flight.
+__device__ __forceinline__ void cp_async4(float* smem_dst, const float* gmem_src) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(gmem_src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Launch `kernel` on a grid whose x dimension is one thread-block cluster of
+// `cluster_x` blocks (the blocks of a cluster share their shared memory).
+template <typename... KArgs, typename... Args>
+inline cudaError_t launch_cluster(void (*kernel)(KArgs...), dim3 grid, dim3 block,
+                                  size_t smem, cudaStream_t stream, int cluster_x,
+                                  Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster_x;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
 }

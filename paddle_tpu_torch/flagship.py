@@ -1,10 +1,14 @@
-"""The seqToseq NMT model builders of the port.
+"""The model builders of the port: the seqToseq NMT model and the LSTM
+text classifier.
 
 :func:`gru_encoder_decoder` is this package's copy of
 ``demo/seqToseq/seqToseq_net.py`` (bidirectional GRU encoder, Bahdanau
-attention, GRU decoder), written against
-``paddle_tpu_torch.trainer_config_helpers``, so the same DSL builds the
-same ``ModelConfig`` as the JAX package's ``flagship.nmt_config``.
+attention, GRU decoder), and :func:`flagship_config` the JAX package's
+stacked-LSTM classifier (``paddle_tpu.flagship.flagship_config``), both
+written against ``paddle_tpu_torch.trainer_config_helpers``, so the same
+DSL builds the same ``ModelConfig`` as the JAX package's builders. The
+batch builders draw from numpy with the JAX package's draws, so both
+packages see the same batch.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ from paddle_tpu_torch.device import DeviceLike
 from paddle_tpu_torch.trainer_config_helpers import (
     AdamOptimizer,
     GeneratedInput,
+    MaxPooling,
     ParamAttr,
     SoftmaxActivation,
     StaticInput,
@@ -25,16 +30,19 @@ from paddle_tpu_torch.trainer_config_helpers import (
     concat_layer,
     data_layer,
     embedding_layer,
+    fc_layer,
     first_seq,
     full_matrix_projection,
     gru_step_layer,
     memory,
     mixed_layer,
     outputs,
+    pooling_layer,
     recurrent_group,
     settings,
     simple_attention,
     simple_gru,
+    simple_lstm,
 )
 
 
@@ -157,4 +165,41 @@ def nmt_batch(vocab=30000, B=8, T=32, seed=0, device: DeviceLike = None):
         "source_language_word": make_seq(None, src_len, ids=src, device=dev),
         "target_language_word": make_seq(None, trg_len, ids=trg, device=dev),
         "target_language_next_word": make_seq(None, trg_len, ids=nxt, device=dev),
+    }
+
+
+def flagship_config(dict_dim=1000, emb_dim=64, hidden=64, classes=2):
+    """The stacked-LSTM text classifier (the sentiment-demo shape): word
+    embedding, ``simple_lstm`` (the ``lstm_transform`` projection and one
+    ``lstmemory``), max pooling over time, a softmax fc and
+    ``classification_cost`` with its ``classification_error`` evaluator.
+    Batch size 32 and Adam at lr 1e-3, as the JAX package's builder; set
+    ``opt_config.batch_size`` for another batch."""
+    with fresh_context() as ctx:
+        settings(batch_size=32, learning_rate=1e-3, learning_method=AdamOptimizer())
+        words = data_layer(name="words", size=dict_dim)
+        emb = embedding_layer(input=words, size=emb_dim, param_attr=ParamAttr(name="emb"))
+        lstm = simple_lstm(input=emb, size=hidden)
+        pool = pooling_layer(input=lstm, pooling_type=MaxPooling())
+        output = fc_layer(input=pool, size=classes, act=SoftmaxActivation(), name="output")
+        label = data_layer(name="label", size=classes)
+        outputs(classification_cost(input=output, label=label))
+        return ctx.finalize()
+
+
+def example_batch(dict_dim=1000, B=8, T=32, classes=2, seed=0, device: DeviceLike = None):
+    """A classifier batch from ``seed``: word ids [B, T] with lengths in
+    [T // 2, T] and one label per row (``paddle_tpu.flagship.example_batch``'s
+    draws)."""
+    from paddle_tpu_torch.device import resolve_device
+    from paddle_tpu_torch.graph import make_ids, make_seq
+
+    dev = resolve_device(device)
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, dict_dim, (B, T)).astype(np.int32)
+    lengths = rng.randint(T // 2, T + 1, (B,)).astype(np.int32)
+    labels = rng.randint(0, classes, (B,)).astype(np.int32)
+    return {
+        "words": make_seq(None, lengths, ids=ids, device=dev),
+        "label": make_ids(labels, device=dev),
     }

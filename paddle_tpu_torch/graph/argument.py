@@ -69,6 +69,10 @@ def _tensor(x, dtype=None, device: DeviceLike = None) -> Tensor:
     return torch.as_tensor(x, dtype=dtype, device=device)
 
 
+def make_ids(ids, device: DeviceLike = None) -> Argument:
+    return Argument(ids=_tensor(ids, torch.int32, device))
+
+
 def make_seq(value, lengths, ids=None, device: DeviceLike = None) -> Argument:
     return Argument(
         value=None if value is None else _tensor(value, device=device),

@@ -1,15 +1,21 @@
-"""GRU layers: gated_recurrent (the whole sequence) and gru_step (one step).
+"""Recurrent layers: lstmemory and gated_recurrent (the whole sequence),
+gru_step (one step).
 
-Layout contract (from config_parser GatedRecurrentLayer): the input is
-the 3*size x-projection, the weight [size, 3*size] is split
-[update, reset | candidate], and the bias is 3*size.
+Layout contracts (from config_parser LstmLayer/GatedRecurrentLayer):
+- lstmemory: the input is the 4*size x-projection, the recurrent weight
+  [size, 4*size], the bias 7*size = 4 gate biases + 3 peephole vectors,
+  gate order [candidate, input, forget, output];
+- gated_recurrent: the input is the 3*size x-projection, the weight
+  [size, 3*size] is split [update, reset | candidate], and the bias is
+  3*size.
 
-``gated_recurrent`` always goes through :func:`~paddle_tpu_torch.ops.
-fused_gru.fused_gru`: on the card that launches the GRU kernels (the
-training forward and backward when a gradient is wanted, the light forward
-otherwise; the ``settings(pallas_rnn=...)`` switch is a TPU choice and
-chooses nothing here), on the CPU it runs the kernels' plain version and
-autograd through it gives the gradients.
+``lstmemory`` and ``gated_recurrent`` always go through their fused ops
+(:func:`~paddle_tpu_torch.ops.fused_lstm.fused_lstm`,
+:func:`~paddle_tpu_torch.ops.fused_gru.fused_gru`): on the card that
+launches the kernels (the training forward and backward when a gradient
+is wanted, the light forward otherwise; the ``settings(pallas_rnn=...)``
+switch is a TPU choice and chooses nothing here), on the CPU it runs the
+kernels' plain version and autograd through it gives the gradients.
 """
 
 from __future__ import annotations
@@ -21,12 +27,44 @@ import torch
 from paddle_tpu_torch.graph.argument import Argument
 from paddle_tpu_torch.layers.base import LayerContext, register_layer
 from paddle_tpu_torch.ops.fused_gru import fused_gru, gru_cell
+from paddle_tpu_torch.ops.fused_lstm import fused_lstm
 from paddle_tpu_torch.proto import LayerConfig
 
 Tensor = torch.Tensor
 
 
-def _acts(cfg: LayerConfig):
+def _time_major_mask(a: Argument, x: Tensor) -> Tensor:
+    pos = torch.arange(x.shape[1], device=x.device)[:, None]
+    return (pos < a.seq_lengths[None, :]).to(x.dtype)           # [T, B]
+
+
+def _weights(cfg: LayerConfig, ctx: LayerContext, gates: int):
+    size = cfg.size
+    w = ctx.param(cfg.inputs[0].input_parameter_name).reshape(size, gates * size)
+    bias = (ctx.param(cfg.bias_parameter_name).reshape(-1)
+            if cfg.bias_parameter_name else None)
+    return w, bias
+
+
+@register_layer("lstmemory")
+def lstmemory_layer(cfg: LayerConfig, inputs: List[Argument], ctx: LayerContext) -> Argument:
+    a = inputs[0]
+    H = cfg.size
+    w, bias = _weights(cfg, ctx, 4)
+    x = a.value                                                 # [B, T, 4H]
+    if bias is not None:
+        x = x + bias[:4 * H]
+        peep = bias[4 * H:7 * H].reshape(3, H)
+    else:
+        peep = x.new_zeros(3, H)
+    acts = (cfg.active_type or "tanh", cfg.active_gate_type or "sigmoid",
+            cfg.active_state_type or "sigmoid")
+    ys = fused_lstm(x.transpose(0, 1), _time_major_mask(a, x), w, peep,
+                    reverse=cfg.reversed, acts=acts)
+    return Argument(value=ys.transpose(0, 1), seq_lengths=a.seq_lengths)
+
+
+def _gru_acts(cfg: LayerConfig):
     return (cfg.active_type or "tanh", cfg.active_gate_type or "sigmoid")
 
 
@@ -35,33 +73,22 @@ def gru_cell_step(cfg: LayerConfig, x3: Tensor, h_prev: Tensor, w: Tensor,
     """x3 [B, 3*size] x-projection, w [size, 3*size], bias [3*size] or None."""
     if bias is not None:
         x3 = x3 + bias
-    return gru_cell(x3, h_prev, w, _acts(cfg))
-
-
-def _weights(cfg: LayerConfig, ctx: LayerContext):
-    size = cfg.size
-    w = ctx.param(cfg.inputs[0].input_parameter_name).reshape(size, 3 * size)
-    bias = (ctx.param(cfg.bias_parameter_name).reshape(-1)
-            if cfg.bias_parameter_name else None)
-    return w, bias
+    return gru_cell(x3, h_prev, w, _gru_acts(cfg))
 
 
 @register_layer("gated_recurrent")
 def gated_recurrent_layer(cfg: LayerConfig, inputs: List[Argument], ctx: LayerContext) -> Argument:
     a = inputs[0]
-    w, bias = _weights(cfg, ctx)
+    w, bias = _weights(cfg, ctx, 3)
     x = a.value if bias is None else a.value + bias             # [B, T, 3H]
-    T = x.shape[1]
-    pos = torch.arange(T, device=x.device)[:, None]
-    mask = (pos < a.seq_lengths[None, :]).to(x.dtype)           # [T, B]
-    ys = fused_gru(x.transpose(0, 1), mask, w, reverse=cfg.reversed,
-                   acts=_acts(cfg))
+    ys = fused_gru(x.transpose(0, 1), _time_major_mask(a, x), w, reverse=cfg.reversed,
+                   acts=_gru_acts(cfg))
     return Argument(value=ys.transpose(0, 1), seq_lengths=a.seq_lengths)
 
 
 @register_layer("gru_step")
 def gru_step_layer(cfg: LayerConfig, inputs: List[Argument], ctx: LayerContext) -> Argument:
     # inputs: [x-projection 3*size, previous output]
-    w, bias = _weights(cfg, ctx)
+    w, bias = _weights(cfg, ctx, 3)
     h = gru_cell_step(cfg, inputs[0].value, inputs[1].value, w, bias)
     return Argument(value=h, seq_lengths=inputs[0].seq_lengths)

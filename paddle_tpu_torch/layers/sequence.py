@@ -1,7 +1,8 @@
-"""Sequence layers of this slice: average (pooling), seqlastins, expand.
+"""Sequence layers of the ported slices: max and average (pooling),
+seqlastins, expand.
 
 Masked reductions and gathers on padded [B, T, D], as in the JAX package.
-Nested (sub-sequence) inputs are not ported yet.
+Nested (sub-sequence) inputs and ``output_max_index`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -23,6 +24,22 @@ def _flat_seq(cfg: LayerConfig, a: Argument) -> None:
             f"{cfg.name}: nested sequences are not ported yet")
     if not a.is_seq:
         raise ValueError(f"{cfg.name}: input is not a sequence")
+
+
+@register_layer("max")
+def max_layer(cfg: LayerConfig, inputs: List[Argument], ctx: LayerContext) -> Argument:
+    a = inputs[0]
+    _flat_seq(cfg, a)
+    if cfg.output_max_index:
+        raise NotImplementedError(f"{cfg.name}: output_max_index is not ported yet")
+    x = a.value                                            # [B, T, D]
+    valid = a.seq_mask(x.dtype)[..., None] > 0
+    # torch.amax, not torch.max(dim): like jnp.max it splits the gradient
+    # evenly among tied maxima
+    out = torch.amax(torch.where(valid, x, torch.full_like(x, torch.finfo(x.dtype).min)),
+                     dim=1)
+    out = torch.where(a.seq_lengths[:, None] > 0, out, torch.zeros_like(out))
+    return Argument(value=finalize_output(cfg, out, ctx))
 
 
 @register_layer("average")

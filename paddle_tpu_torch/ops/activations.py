@@ -1,6 +1,7 @@
 """Activation functions, registered by the names the config DSL emits.
 
-This slice ports the five the seqToseq serve graph uses. ``sequence_softmax``
+The port has the seqToseq graphs' five and ``relu``, which the LSTM
+kernels take in each of their activation slots. ``sequence_softmax``
 normalizes over the *time* axis of a padded sequence using the validity
 mask, as the JAX package's does.
 """
@@ -24,7 +25,8 @@ def identity(x: Tensor) -> Tensor:
 
 
 for _name, _fn in (("", identity), ("linear", identity),
-                   ("sigmoid", torch.sigmoid), ("tanh", torch.tanh)):
+                   ("sigmoid", torch.sigmoid), ("tanh", torch.tanh),
+                   ("relu", torch.relu)):
     activation_registry.register_obj(_name, lambda x, mask=None, _f=_fn: _f(x))
 
 

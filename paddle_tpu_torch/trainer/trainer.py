@@ -2,18 +2,23 @@
 
 Port of the core of ``paddle_tpu/trainer/trainer.py``: a train step is
 ``_one_batch_step`` (gradients from the machine, then the optimizer
-update, then the state updates), run eagerly. Batches come from the
+update, then the state updates), run eagerly, and a test pass is
+``test()`` (the averaged parameters, a forward without gradients, the mean
+per-sample cost and the configured evaluators). Batches come from the
 caller as dicts of :class:`~paddle_tpu_torch.graph.Argument` (for the
-NMT model, :func:`paddle_tpu_torch.flagship.nmt_batch`); data providers,
-the ``paddle train`` command line, meshes and the sharded checkpoint
-format are later slices.
+NMT model :func:`paddle_tpu_torch.flagship.nmt_batch`, for the LSTM text
+classifier :func:`~paddle_tpu_torch.flagship.example_batch`); data
+providers, the ``paddle train`` command line, meshes, asynchronous and
+sharded checkpoints are later slices.
 
     trainer = Trainer(nmt_config(vocab=30000, dim=512, batch_size=64))
     loss = trainer.train_one_batch(nmt_batch(B=64, T=32, seed=1, device=trainer.device))
+    results = trainer.test([nmt_batch(B=64, T=32, seed=2, device=trainer.device)])
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Iterable, List, Optional
 
 import torch
@@ -23,6 +28,7 @@ from paddle_tpu_torch.graph.argument import Argument
 from paddle_tpu_torch.graph.machine import GradientMachine
 from paddle_tpu_torch.optimizer.updater import Updater
 from paddle_tpu_torch.trainer import checkpoint as ckpt
+from paddle_tpu_torch.trainer.evaluators import EvaluatorChain
 from paddle_tpu_torch.utils.logging import logger
 
 Batch = Dict[str, Argument]
@@ -88,6 +94,28 @@ class Trainer:
                 self.save(pass_id)
         return pass_costs
 
+    def test(self, batches: Iterable[Batch]) -> Dict[str, float]:
+        """One test pass over ``batches`` with the averaged parameters: a
+        forward without gradients per batch, the mean per-sample cost, and
+        the model's evaluators fed on the host. Returns ``{"cost": ...,
+        "<evaluator>.<metric>": ...}`` as the JAX package's ``test()``."""
+        params = self.updater.averaged_params(self.params, self.opt_state)
+        evaluators = EvaluatorChain(self.config.model_config)
+        evaluators.start()
+        total, samples = 0.0, 0
+        for batch in batches:
+            n = self.batch_size(batch)
+            outputs, _ = self.gm.forward(params, batch, pass_type="test")
+            total += float(self.gm.total_cost(outputs)) * n
+            samples += n
+            # the evaluators read their inputs through numpy
+            evaluators.eval_batch({name: _on_host(outputs[name])
+                                   for name in evaluators.needed_layers if name in outputs})
+        results = {"cost": total / max(samples, 1)}
+        results.update(evaluators.results())
+        logger.info("Test: AvgCost %f  %s", results["cost"], evaluators.summary())
+        return results
+
     def save(self, pass_id: int) -> str:
         if not self.save_dir:
             raise ValueError("Trainer.save needs save_dir")
@@ -102,3 +130,9 @@ class Trainer:
         if opt_state is not None:
             self.opt_state = opt_state
         return meta
+
+
+def _on_host(a: Argument) -> Argument:
+    return Argument(**{f.name: None if getattr(a, f.name) is None
+                       else getattr(a, f.name).detach().cpu()
+                       for f in dataclasses.fields(a)})

@@ -32,6 +32,7 @@ COPIES = (
     "observability/__init__.py", "observability/metrics.py", "observability/spans.py",
     "observability/serving.py", "observability/analyze.py",
     "resilience/__init__.py", "resilience/faultinject.py", "resilience/manifest.py",
+    "trainer/evaluators.py",
     "utils/concurrency.py", "utils/logging.py", "utils/error.py", "utils/registry.py",
 )
 # the one deliberate change to a copy: the port never puts compat/ on sys.path
@@ -112,15 +113,17 @@ def test_kernel_builds_are_keyed_by_their_sources():
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import fused_attention_gru as fa
     from paddle_tpu_torch.ops import fused_gru as fg
+    from paddle_tpu_torch.ops import fused_lstm as fl
 
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
-    kernels = fg.KERNELS + fa.KERNELS
-    assert len({k.symbol for k in kernels}) == 6
+    kernels = fg.KERNELS + fa.KERNELS + fl.KERNELS
+    assert len({k.symbol for k in kernels}) == 9
     # a kernel and its training variant share one source and its library
     paths = {k.library_path() for k in kernels}
     assert {os.path.basename(p).split("-")[0] for p in paths} == {
-        "gru_fwd", "gru_bwd", "attention_gru_fwd", "attention_gru_bwd"}
+        "gru_fwd", "gru_bwd", "attention_gru_fwd", "attention_gru_bwd", "lstm_fwd", "lstm_bwd"}
     assert fg.GRU_FWD.library_path() == fg.GRU_FWD_TRAIN.library_path()
+    assert fl.LSTM_FWD.library_path() == fl.LSTM_FWD_TRAIN.library_path()
     for p in paths:
         assert p.startswith(os.path.join(REPO, "build", "paddle_tpu_torch") + os.sep)
     for k in kernels:
@@ -135,9 +138,17 @@ def test_training_wrappers_take_the_plain_version_on_the_cpu():
     and launch nothing."""
     from paddle_tpu_torch.ops import fused_attention_gru as fa
     from paddle_tpu_torch.ops import fused_gru as fg
+    from paddle_tpu_torch.ops import fused_lstm as fl
 
-    before = [k.launches for k in fg.KERNELS + fa.KERNELS]
+    kernels = fg.KERNELS + fa.KERNELS + fl.KERNELS
+    before = [k.launches for k in kernels]
     x3 = torch.randn(3, 2, 12, requires_grad=True)
     fg.fused_gru(x3, torch.ones(3, 2), torch.randn(4, 12)).sum().backward()
     assert x3.grad is not None
-    assert [k.launches for k in fg.KERNELS + fa.KERNELS] == before
+    x4 = torch.randn(3, 2, 16, requires_grad=True)
+    peep = torch.randn(3, 4, requires_grad=True)
+    fl.fused_lstm(x4, torch.ones(3, 2), torch.randn(4, 16), peep).sum().backward()
+    assert x4.grad is not None and peep.grad is not None
+    with torch.no_grad():
+        fl.fused_lstm(x4, torch.ones(3, 2), torch.randn(4, 16), peep, reverse=True)
+    assert [k.launches for k in kernels] == before

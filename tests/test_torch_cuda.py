@@ -6,6 +6,7 @@ machine with the card and no JAX run them without it:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 
+Kernels 1-8 (GRU, attention GRU, LSTM; inference, training and backward).
 Tolerance 1e-4 absolute in float32 with TF32 off (sums over K terms taken
 in another order than the plain version's matmuls); gradients 1e-4 times
 max(1, max |plain gradient|), since a weight gradient sums over every
@@ -157,9 +158,79 @@ def test_attention_training_kernels_match_plain_version(dev, Td, Te, B, D, E):
         assert float((a - b).abs().max()) <= _grad_tol(b), name
 
 
+LSTM_ACTS = [("tanh", "sigmoid", "sigmoid"), ("relu", "sigmoid", "tanh"),
+             ("linear", "sigmoid", "linear")]
+
+
+@pytest.mark.parametrize("acts", LSTM_ACTS)
+@pytest.mark.parametrize("T,B,H", [(7, 5, 40), (1, 1, 8), (3, 2, 600), (4, 40, 130)])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_lstm_kernels_match_plain_version(dev, T, B, H, reverse, acts):
+    """Kernels 7a, 7b and 8. H = 600 puts both kernels' shared memory
+    above 48 KB and the forward on its 16-row tiles (32 rows below); H =
+    130 runs clusters of three blocks, and B = 40 two row tiles of the
+    forward and three of the backward; the last row is all masked."""
+    from paddle_tpu_torch.ops import fused_lstm as fl
+
+    rng = np.random.RandomState(T * 1000 + H + reverse)
+    # batch-major storage read through a time-major view, as the layer does
+    x4 = _t(rng.randn(B, T, 4 * H) * 0.5, dev).transpose(0, 1)
+    w = _t(rng.randn(H, 4 * H) / np.sqrt(H), dev)
+    peep = _t(rng.randn(3, H) * 0.1, dev)
+    lens = rng.randint(1, T + 1, B)
+    lens[-1] = 0
+    mask = _t(np.arange(T)[:, None] < lens[None, :], dev)
+    dy = _t(rng.randn(T, B, H), dev)
+
+    before = fl.LSTM_FWD.launches
+    ys = fl.fused_lstm(x4, mask, w, peep, reverse=reverse, acts=acts)
+    assert fl.LSTM_FWD.launches == before + 1
+    got = fl._launch_fwd(x4, mask, w, peep, reverse, acts, residuals=True)
+    ref = fl.lstm_forward_reference(x4, mask, w, peep, reverse, acts, residuals=True)
+    torch.cuda.synchronize()
+    assert float((ys - ref[0]).abs().max()) <= TOL
+    for name, a, b in zip(("ys", "acts", "hprev", "cprev"), got, ref):
+        assert torch.isfinite(a).all(), name
+        assert float((a - b).abs().max()) <= TOL, name
+
+    def grads(fn):
+        leaves = [a.detach().requires_grad_() for a in (x4, w, peep)]
+        (fn(leaves[0], mask, leaves[1], leaves[2], reverse=reverse, acts=acts) * dy).sum().backward()
+        return [a.grad for a in leaves]
+
+    before = (fl.LSTM_FWD_TRAIN.launches, fl.LSTM_BWD.launches)
+    gk = grads(fl.fused_lstm)
+    assert (fl.LSTM_FWD_TRAIN.launches, fl.LSTM_BWD.launches) == (before[0] + 1, before[1] + 1)
+    gr = grads(fl.lstm_forward_reference)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dx4", "dw", "dpeep"), gk, gr):
+        assert torch.isfinite(a).all(), name
+        assert float((a - b).abs().max()) <= _grad_tol(b), name
+    assert not gk[0][:, -1].any()                     # the masked row gets nothing
+
+
+def test_lstm_kernels_are_deterministic(dev):
+    """No atomics: two backward runs give bit-equal gradients."""
+    from paddle_tpu_torch.ops import fused_lstm as fl
+
+    rng = np.random.RandomState(5)
+    T, B, H = 6, 40, 96
+    x4 = _t(rng.randn(T, B, 4 * H) * 0.5, dev)
+    w = _t(rng.randn(H, 4 * H) / np.sqrt(H), dev)
+    peep = _t(rng.randn(3, H) * 0.1, dev)
+    mask = _t(np.arange(T)[:, None] < rng.randint(1, T + 1, B)[None, :], dev)
+    dy = _t(rng.randn(T, B, H), dev)
+    _, saved, hprev, cprev = fl._launch_fwd(x4, mask, w, peep, False, fl.DEFAULT_ACTS, True)
+    one = fl._launch_bwd(dy, saved, hprev, cprev, mask, w, peep, False, fl.DEFAULT_ACTS)
+    two = fl._launch_bwd(dy, saved, hprev, cprev, mask, w, peep, False, fl.DEFAULT_ACTS)
+    for a, b in zip(one, two):
+        assert torch.equal(a, b)
+
+
 def test_inference_keeps_the_light_kernels(dev):
-    """Without a gradient to take, the layers launch kernels 1 and 4."""
+    """Without a gradient to take, the layers launch kernels 1, 4 and 7a."""
     from paddle_tpu_torch.ops import fused_gru as fg
+    from paddle_tpu_torch.ops import fused_lstm as fl
 
     x3 = torch.zeros(2, 3, 12, device=dev, requires_grad=True)
     mask = torch.ones(2, 3, device=dev)
@@ -168,6 +239,27 @@ def test_inference_keeps_the_light_kernels(dev):
     with torch.no_grad():
         fg.fused_gru(x3, mask, w)
     assert (fg.GRU_FWD.launches, fg.GRU_FWD_TRAIN.launches) == (before[0] + 1, before[1])
+
+    x4 = torch.zeros(2, 3, 16, device=dev, requires_grad=True)
+    w4 = torch.zeros(4, 16, device=dev, requires_grad=True)
+    peep = torch.zeros(3, 4, device=dev)
+    before = [k.launches for k in fl.KERNELS]
+    with torch.no_grad():
+        fl.fused_lstm(x4, mask, w4, peep)
+    assert [k.launches for k in fl.KERNELS] == [before[0] + 1, before[1], before[2]]
+
+
+def test_lstm_test_pass_launches_only_the_light_kernel(dev):
+    """Trainer.test on the card: one lstm_fwd per batch, no training kernel."""
+    from paddle_tpu_torch.flagship import example_batch, flagship_config
+    from paddle_tpu_torch.ops import fused_lstm as fl
+    from paddle_tpu_torch.trainer import Trainer
+
+    trainer = Trainer(flagship_config(dict_dim=50, emb_dim=8, hidden=16), seed=1)
+    before = [k.launches for k in fl.KERNELS]
+    out = trainer.test([example_batch(50, B=4, T=6, seed=s, device=dev) for s in range(3)])
+    assert np.isfinite(out["cost"])
+    assert [k.launches for k in fl.KERNELS] == [before[0] + 3, before[1], before[2]]
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
@@ -184,3 +276,25 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         fused_gru(x3, mask, w, acts=("relu", "sigmoid"))
     with pytest.raises(ValueError, match="float32"):             # the training path too
         fused_gru(x3.double().requires_grad_(), mask, w.double())
+
+
+def test_lstm_wrapper_raises_on_what_the_kernels_do_not_take(dev):
+    from paddle_tpu_torch.ops.fused_lstm import fused_lstm
+
+    x4 = torch.zeros(2, 3, 16, device=dev)
+    mask = torch.ones(2, 3, device=dev)
+    w = torch.zeros(4, 16, device=dev)
+    peep = torch.zeros(3, 4, device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        fused_lstm(x4.double(), mask, w, peep)
+    with pytest.raises(ValueError, match="is on"):
+        fused_lstm(x4, mask, w, peep.cpu())
+    with pytest.raises(ValueError, match="activations"):
+        fused_lstm(x4, mask, w, peep, acts=("tanh", "softmax", "tanh"))
+    with pytest.raises(ValueError, match="last dimension"):
+        fused_lstm(torch.zeros(2, 16, 3, device=dev).transpose(1, 2), mask, w, peep)
+    with pytest.raises(ValueError, match="H <= 1024"):
+        fused_lstm(torch.zeros(1, 1, 4100, device=dev), torch.ones(1, 1, device=dev),
+                   torch.zeros(1025, 4100, device=dev), torch.zeros(3, 1025, device=dev))
+    with pytest.raises(ValueError, match="float32"):             # the training path too
+        fused_lstm(x4.double().requires_grad_(), mask, w.double(), peep.double())

@@ -1,0 +1,145 @@
+"""The port's LSTM kernel reference against the JAX package's Pallas kernels.
+
+``paddle_tpu.ops.pallas_lstm`` run by the Pallas interpreter on the CPU
+(``_run_fwd(..., interpret=True)`` for the forward and its residuals,
+``fused_lstm(..., interpret=True)``'s custom VJP for the backward kernel)
+and ``paddle_tpu_torch.ops.fused_lstm.lstm_forward_reference`` (the plain
+version the CUDA kernels are held against on the card) get the same
+seeded numpy inputs. Tolerances: atol = rtol = 2e-5 forward, the JAX
+recurrent tests' own bound for float32 sums taken in another order;
+rtol 5e-4 / atol 5e-5 for the gradients, tests/test_pallas_lstm.py's bound
+for the machine-level gradients (dW sums over every step and row).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import paddle_tpu.graph  # noqa: F401  (break the layers<->graph import cycle)
+from paddle_tpu.ops import pallas_lstm as pk
+from paddle_tpu_torch.ops import fused_lstm as tl
+
+torch.set_num_threads(1)
+TOL = dict(rtol=2e-5, atol=2e-5)
+GRAD_TOL = dict(rtol=5e-4, atol=5e-5)
+ACTS = [("tanh", "sigmoid", "tanh"), ("tanh", "sigmoid", "sigmoid"),
+        ("relu", "sigmoid", "tanh"), ("linear", "linear", "linear")]
+
+
+def _inputs(seed, T=5, B=4, H=16, with_bias=True):
+    """x4 with the gate biases folded in, w, peep (zeros without a bias) and
+    a [T, B] mask with ragged lengths, one empty row and one full row."""
+    rng = np.random.RandomState(seed)
+    x4 = (rng.randn(T, B, 4 * H) * 0.5).astype(np.float32)
+    w = (rng.randn(H, 4 * H) / np.sqrt(H)).astype(np.float32)
+    if with_bias:
+        bias = (rng.randn(7 * H) * 0.1).astype(np.float32)
+        x4 = x4 + bias[:4 * H]
+        peep = bias[4 * H:].reshape(3, H).copy()
+    else:
+        peep = np.zeros((3, H), np.float32)
+    lengths = rng.randint(1, T + 1, B)
+    lengths[-1] = 0                                   # an empty sequence
+    lengths[0] = T                                    # a full one
+    mask = (np.arange(T)[:, None] < lengths[None, :]).astype(np.float32)
+    return x4, w, peep, mask
+
+
+def _flip(reversed_):
+    """The JAX package flips a reversed sequence outside the kernel."""
+    return (lambda a: a[::-1].copy()) if reversed_ else (lambda a: a)
+
+
+@pytest.mark.parametrize("acts", ACTS)
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("reversed_", [False, True])
+def test_forward_and_residuals_match_pallas_kernel(reversed_, with_bias, acts):
+    """ys and the residuals the training kernel saves (a, i, f, o; h_prev;
+    c_prev, each at its step's own time index) against
+    ``_run_fwd(..., residuals=True)`` in interpret mode."""
+    x4, w, peep, mask = _inputs(0, with_bias=with_bias)
+    flip = _flip(reversed_)
+    want = pk._run_fwd(jnp.asarray(flip(x4)), jnp.asarray(flip(mask))[:, :, None],
+                       jnp.asarray(w), jnp.asarray(peep), acts, True, residuals=True)
+    got = tl.lstm_forward_reference(torch.from_numpy(x4), torch.from_numpy(mask),
+                                    torch.from_numpy(w), torch.from_numpy(peep),
+                                    reverse=reversed_, acts=acts, residuals=True)
+    for name, a, b in zip(("ys", "acts", "hprev", "cprev"), got, want):
+        np.testing.assert_allclose(a.numpy(), flip(np.asarray(b)), err_msg=name, **TOL)
+    ys = got[0].numpy()
+    assert not ys[:, -1].any()                        # the empty row emits zeros
+    light = tl.lstm_forward_reference(torch.from_numpy(x4), torch.from_numpy(mask),
+                                      torch.from_numpy(w), torch.from_numpy(peep),
+                                      reverse=reversed_, acts=acts)
+    np.testing.assert_array_equal(light.numpy(), ys)
+
+
+@pytest.mark.parametrize("reversed_", [False, True])
+def test_reversed_row_stays_at_zero_until_it_starts(reversed_):
+    """A short row matches the same row run alone, in either direction."""
+    x4, w, peep, mask = _inputs(1, T=6)
+    args = lambda x, m: (torch.from_numpy(x), torch.from_numpy(m), torch.from_numpy(w),
+                         torch.from_numpy(peep))
+    ys = tl.lstm_forward_reference(*args(x4, mask), reverse=reversed_).numpy()
+    n = int(mask[:, 1].sum())
+    alone = tl.lstm_forward_reference(*args(x4[:n, 1:2].copy(), mask[:n, 1:2].copy()),
+                                      reverse=reversed_).numpy()
+    np.testing.assert_allclose(ys[:n, 1:2], alone, **TOL)
+    assert not ys[n:, 1].any()
+
+
+@pytest.mark.parametrize("acts", [("tanh", "sigmoid", "sigmoid"), ("relu", "sigmoid", "tanh"),
+                                  ("linear", "linear", "linear")])
+@pytest.mark.parametrize("reversed_", [False, True])
+def test_gradients_match_pallas_backward(reversed_, acts):
+    """dx4, dW and dpeep from autograd through the plain version against
+    ``jax.vjp`` of the Pallas custom VJP (``_bwd_kernel`` in interpret
+    mode), with ragged lengths and an empty row."""
+    x4, w, peep, mask = _inputs(2)
+    cot = np.random.RandomState(3).randn(x4.shape[0], x4.shape[1], w.shape[0]).astype(np.float32)
+    jmask = jnp.asarray(mask)
+
+    def jys(x, w_, p):
+        if reversed_:
+            return jnp.flip(pk.fused_lstm(jnp.flip(x, 0), jnp.flip(jmask, 0), w_, p, acts, True), 0)
+        return pk.fused_lstm(x, jmask, w_, p, acts, True)
+
+    _, vjp = jax.vjp(jys, jnp.asarray(x4), jnp.asarray(w), jnp.asarray(peep))
+    want = vjp(jnp.asarray(cot))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (x4, w, peep)]
+    ys = tl.fused_lstm(leaves[0], torch.from_numpy(mask), leaves[1], leaves[2],
+                       reverse=reversed_, acts=acts)
+    (ys * torch.from_numpy(cot)).sum().backward()
+    for name, leaf, b in zip(("dx4", "dw", "dpeep"), leaves, want):
+        np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(b), err_msg=name, **GRAD_TOL)
+    assert not leaves[0].grad.numpy()[:, -1].any()   # the empty row gets nothing
+
+
+def test_fused_lstm_takes_the_plain_version_on_the_cpu():
+    x4, w, peep, mask = _inputs(4)
+    before = [k.launches for k in tl.KERNELS]
+    got = tl.fused_lstm(torch.from_numpy(x4), torch.from_numpy(mask), torch.from_numpy(w),
+                        torch.from_numpy(peep), reverse=True)
+    want = tl.lstm_forward_reference(torch.from_numpy(x4), torch.from_numpy(mask),
+                                     torch.from_numpy(w), torch.from_numpy(peep), reverse=True)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert [k.launches for k in tl.KERNELS] == before
+
+
+def test_empty_sequence_axis():
+    """T = 0: no steps, empty outputs of the right shapes."""
+    x4 = torch.zeros(0, 3, 8)
+    ys, acts, hprev, cprev = tl.lstm_forward_reference(
+        x4, torch.zeros(0, 3), torch.zeros(2, 8), torch.zeros(3, 2), residuals=True)
+    assert ys.shape == (0, 3, 2) and acts.shape == (0, 3, 8)
+    assert hprev.shape == cprev.shape == (0, 3, 2)
+
+
+def test_the_wrapper_refuses_unknown_activations():
+    with pytest.raises(ValueError, match="activations"):
+        tl._act_codes(("tanh", "softmax", "tanh"))
+    with pytest.raises(ValueError, match="activations"):
+        tl._act_codes(("tanh", "sigmoid"))
+    assert tl._act_codes(("relu", "sigmoid", "linear")) == (2, 1, 3)
