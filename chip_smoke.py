@@ -51,6 +51,34 @@ Phases, each printing one JSON object per line:
              the CPU's, and classification_error on the training batch no
              higher after the 8 steps than before them.
 
+8. conv_kernels — kernel 9 at the nine distinct (M, K, N) of ResNet-50's
+             1x1 stride-1 convs at B = 64, 224² (taken from the model
+             config), with and without a bias: y within 1e-4 of the plain
+             version, s and q within 1e-5 of Σ|y| and Σy² per channel, the
+             gradients of all three (random cotangents on y, s and q)
+             within 1e-4 * max(1, max |plain|) of autograd through the
+             plain version; kernel, plain version and torch.addmm (the
+             product alone) timed from a cold L2.
+9. resnet_train — the fifth: Trainer(resnet_config(50, 224, 1000)) with
+             conv_stats_mode="pallas", random weights from seed 1, 8
+             Momentum steps on make_image_batch(64, 224, 1000, seed=1); the
+             counters zeroed just before and read just after (exactly 30
+             conv1x1_stats per step, no other kernel); the loss must fall.
+             A B = 2 step against the CPU: in float64 (the plain path)
+             loss, every gradient and every state update within 1e-9 of
+             scale; in float32 ("pallas") loss and state updates within
+             1e-3 of scale, and the gradients no further from the CPU's
+             float64 ones than 3x the CPU's own float32 gradients are,
+             plus 1e-3 (the model's gradients jump at the scale of
+             float32 rounding, see phase_resnet_train). One step
+             under torch.profiler (copy and transpose kernels counted),
+             then the same 8 steps with conv_stats_mode="" (no kernel 9),
+             again with "" and again with "pallas" (the A/B in turns; one
+             "" step profiled).
+10. resnet_test — the sixth: Trainer.test over 2 batches of 64 with no
+             kernel 9 launch; a B = 2 batch's cost (1e-4 relative) and
+             classification_error (equal) against the CPU.
+
 Then the per-kernel line ({"kernels": [...]}), the card's name and power
 limit as nvidia-smi reports them, and as the last line
 {"ok": true, "device": {...}}. Any failure raises, so the exit code is not
@@ -82,6 +110,11 @@ LSTM_KERNELS = ("lstm_fwd", "lstm_fwd_train", "lstm_bwd")
 # the LSTM classifier as bench.py trains it (bench_lstm_classifier)
 LSTM = dict(dict_dim=10000, emb_dim=256, hidden=512, classes=2, batch=256, T=64,
             steps=8, cpu_batch=4, test_batches=4)
+# ResNet-50 as bench.py trains it (bench_resnet50), with the demo's batch
+RESNET = dict(layer_num=50, img_size=224, classes=1000, batch=64, steps=8, cpu_batch=2,
+              test_batches=2, launches_per_step=30)
+CONV_STATS_TOL = 1e-5      # s and q against Σ|y| and Σy²: sums over up to 207,936 rows
+F64_TOL = 1e-9             # a float64 step: the card's convolutions against the CPU's
 N_REQUESTS = 128
 # the JAX package's allowance for argmax near-ties between two decode
 # paths (SLOT_PARITY_TOL in paddle_tpu/graph/decode_step.py)
@@ -400,10 +433,10 @@ def phase_profile(torch, machine, params, prompts):
     profiled(torch, "profile", lambda: run_requests(engine, prompts))
 
 
-def profiled(torch, phase, fn):
+def profiled(torch, phase, fn, top: int = 12):
     """Run ``fn`` once under torch.profiler and emit the device time summed
     by kernel and the device's busy share of the wall time (kernel time
-    over wall; copies are listed too)."""
+    over wall; copies are listed too). Returns the (name, ms, count) rows."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -426,7 +459,8 @@ def profiled(torch, phase, fn):
     emit({"phase": phase, "wall_s": wall, "device_ms": busy_ms,
           "device_busy_share": busy_ms / 1e3 / wall if rows else None,
           "device_events": sum(c for _, _, c in rows),
-          "top": [{"name": n[:80], "ms": ms, "count": c} for n, ms, c in rows[:12]]})
+          "top": [{"name": n[:80], "ms": ms, "count": c} for n, ms, c in rows[:top]]})
+    return rows
 
 
 def phase_train(torch, dev, kernels):
@@ -458,9 +492,9 @@ def phase_train(torch, dev, kernels):
     peak = torch.cuda.max_memory_allocated(dev)
     n = TRAIN["steps"]
     assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
-    want = {"gru_fwd_train": 2 * n, "gru_bwd": 2 * n, "attention_gru_fwd_train": n,
-            "attention_gru_bwd": n, "gru_fwd": 0, "attention_gru_fwd": 0,
-            **{name: 0 for name in LSTM_KERNELS}}
+    want = {k.symbol: 0 for k in kernels}
+    want.update(gru_fwd_train=2 * n, gru_bwd=2 * n, attention_gru_fwd_train=n,
+                attention_gru_bwd=n)
     assert launches == want, (launches, want)
     step_ms = 1e3 * statistics.median(step_s[1:])
 
@@ -677,6 +711,253 @@ def phase_lstm_test(torch, dev, kernels, trainer, batch, err_key, err_before):
     return test
 
 
+def conv_shapes():
+    """The (M, K, N) of every 1x1 stride-1 conv of ResNet-50 at the main
+    path's batch, with how often each occurs per step."""
+    from collections import Counter
+
+    from paddle_tpu_torch.flagship import resnet_config
+
+    tc = resnet_config(RESNET["layer_num"], RESNET["img_size"], RESNET["classes"])
+    count = Counter()
+    for layer in tc.model_config.layers:
+        cc = layer.inputs[0].conv_conf if layer.type == "exconv" else None
+        if cc is not None and cc.filter_size == 1 and cc.stride == 1:
+            count[(RESNET["batch"] * cc.img_size ** 2, cc.channels, layer.num_filters)] += 1
+    assert sum(count.values()) == RESNET["launches_per_step"], count
+    return count
+
+
+def conv_bytes_flops(M, K, N, bias):
+    """Bytes each input read and each output written once (x, w, b; y, s,
+    q) and operations (the product, the bias, Σy and Σy²) of one launch."""
+    nbytes = 4.0 * (M * K + N * K + (N if bias else 0) + M * N + 2 * N)
+    return nbytes, 2.0 * M * K * N + (4.0 if bias else 3.0) * M * N
+
+
+def phase_conv_kernels(torch, dev):
+    """Kernel 9 at the nine shapes of the ResNet-50 train step."""
+    from paddle_tpu_torch.ops import fused_conv1x1_bn as fc
+
+    rng = np.random.RandomState(9)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+    shapes = conv_shapes()
+    cases = []
+    for (M, K, N), per_step in sorted(shapes.items()):
+        x = t(rng.randn(M, K))
+        w = t(rng.randn(N, K) / np.sqrt(K))
+        b = t(rng.randn(N) * 0.1)
+        for bias in (None, b):
+            y, s, q = fc.conv1x1_stats(x, w, bias)
+            yr, sr, qr = fc.conv1x1_stats_reference(x, w, bias)
+            torch.cuda.synchronize()
+            err = float((y - yr).abs().max())
+            s_err = float(((s - sr).abs() / yr.abs().sum(0)).max())
+            q_err = float(((q - qr).abs() / qr).max())
+            key = {"M": M, "K": K, "N": N, "bias": bias is not None}
+            assert torch.isfinite(y).all() and err <= TOL, ("conv1x1_stats", key, err)
+            assert s_err <= CONV_STATS_TOL and q_err <= CONV_STATS_TOL, (key, s_err, q_err)
+            cts = [t(rng.randn(*a.shape)) for a in (y, s, q)]
+            ops = (x, w) if bias is None else (x, w, bias)
+            leaves = [a.detach().requires_grad_() for a in ops]
+            kg = torch.autograd.grad(fc.conv1x1_stats(*leaves), leaves, cts)
+            plain = [a.detach().requires_grad_() for a in ops]
+            pg = torch.autograd.grad(fc.conv1x1_stats_reference(*plain), plain, cts)
+            torch.cuda.synchronize()
+            rel = _grad_err(kg, pg)
+            assert all(torch.isfinite(g).all() for g in kg) and rel <= TOL, (key, rel)
+            del kg, pg, leaves, plain, cts
+            case = {**key, "per_step": per_step, "max_abs_err": err, "s_err_over_scale": s_err,
+                    "q_err_over_scale": q_err, "grad_err_over_scale": rel}
+            if bias is None:                         # ResNet's convs have no bias
+                nbytes, flops = conv_bytes_flops(M, K, N, False)
+                case.update(
+                    ms=time_ms(torch, lambda: fc.conv1x1_stats(x, w)),
+                    plain_ms=time_ms(torch, lambda: fc.conv1x1_stats_reference(x, w)),
+                    library_ms=time_ms(torch, lambda: torch.addmm(b, x, w.t())),
+                    bytes=nbytes, flops=flops, bound_ms=bound(nbytes, flops)[0])
+            cases.append(case)
+    emit({"phase": "conv_kernels", "cases": cases})
+    timed = [c for c in cases if "ms" in c]
+    step = lambda k: sum(c[k] * c["per_step"] for c in timed)
+    nbytes, flops = step("bytes"), step("flops")
+    return {"conv1x1_stats": dict(
+        cases=cases, shape={"per_step": {f"{c['M']}x{c['K']}x{c['N']}": c["per_step"]
+                                         for c in timed}},
+        bytes=nbytes, flops=flops, per_step=dict(ms=step("ms"), plain_ms=step("plain_ms"),
+                                                 library_ms=step("library_ms"),
+                                                 bound_ms=step("bound_ms")))}
+
+
+def count_copies(rows):
+    """Device events of a profiled step that copy or transpose a tensor."""
+    keys = ("copy", "transpose", "nchwtonhwc", "nhwctonchw")
+    hits = [(n, ms, c) for n, ms, c in rows if any(k in n.lower() for k in keys)]
+    return {"events": sum(c for _, _, c in hits), "ms": sum(ms for _, ms, _ in hits),
+            "kinds": [{"name": n[:80], "ms": ms, "count": c} for n, ms, c in hits]}
+
+
+def resnet_steps(torch, dev, kernels, mode):
+    """8 Momentum steps of ResNet-50 in ``mode``, from seed 1, between
+    zeroed counters; returns the trainer, its batch and the run's numbers."""
+    from paddle_tpu_torch.flagship import make_image_batch, resnet_config
+    from paddle_tpu_torch.trainer import Trainer
+
+    tc = resnet_config(RESNET["layer_num"], RESNET["img_size"], RESNET["classes"])
+    tc.opt_config.conv_stats_mode = mode
+    trainer = Trainer(tc, seed=1)                           # device=None: the card
+    batch = make_image_batch(RESNET["batch"], RESNET["img_size"], RESNET["classes"], seed=1,
+                             device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for k in kernels:
+        k.launches = 0
+    losses, step_s = [], []
+    for _ in range(RESNET["steps"]):
+        t0 = time.perf_counter()
+        loss = trainer.train_one_batch(batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    launches = {k.symbol: k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated(dev)
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], (mode, losses)
+    step_ms = 1e3 * statistics.median(step_s[1:])
+    return trainer, batch, {
+        "conv_stats_mode": mode, "step_ms": step_ms, "step_ms_all": [1e3 * x for x in step_s],
+        "images_per_s": RESNET["batch"] / (step_ms / 1e3), "peak_memory_bytes": peak,
+        "losses": losses, "kernel_launches": launches}
+
+
+def phase_resnet_train(torch, dev, kernels):
+    """ResNet-50's train step on the card with kernel 9, a B = 2 step against
+    the CPU, a profiled step, then the same steps without kernel 9."""
+    from paddle_tpu_torch.flagship import make_image_batch
+    from paddle_tpu_torch.graph import Argument, GradientMachine
+
+    trainer, batch, run = resnet_steps(torch, dev, kernels, "pallas")
+    n = RESNET["steps"]
+    want = {k.symbol: 0 for k in kernels}
+    want["conv1x1_stats"] = RESNET["launches_per_step"] * n
+    assert run["kernel_launches"] == want, (run["kernel_launches"], want)
+
+    # one B = 2 step on the card against the same step on the CPU. ResNet-50's
+    # float32 gradients are discontinuous at the scale of float32 rounding
+    # (rounding carries pre-ReLU values across 0: a 1e-8 relative change of
+    # the input moves some float64 gradients by ~3e-3 of their scale), so
+    # every gradient is held in float64 (the plain path: kernel 9 takes
+    # float32 only), and the float32 "pallas" step's loss and state updates
+    # at 1e-3; its gradients may sit no further from the CPU's float64 ones
+    # than the CPU's own float32 gradients do (3x, plus 1e-3).
+    params_cpu = {k: v.cpu() for k, v in trainer.params.items()}
+    cfg = trainer.config.model_config
+    small = dict(B=RESNET["cpu_batch"], img_size=RESNET["img_size"],
+                 classes=RESNET["classes"], seed=2)
+
+    def step(machine, params, wide):
+        batch = make_image_batch(device=machine.device, **small)
+        if wide:
+            params = {k: v.double() for k, v in params.items()}
+            batch["input"] = Argument(value=batch["input"].value.double())
+        loss, grads, _, su = machine.grad_fn()(params, batch)
+        return float(loss), {k: v.cpu() for k, v in grads.items()}, \
+            {k: v.cpu() for k, v in su.items()}
+
+    rel = lambda a, b: float((a.double() - b.double()).abs().max()) / max(
+        1.0, float(b.abs().max()))
+    gap = lambda a, b: max(rel(a[n_], b[n_]) for n_ in b)
+    card32 = step(trainer.gm, trainer.params, False)
+    cpu32 = step(GradientMachine(cfg, device="cpu", conv_stats_mode="pallas"), params_cpu, False)
+    card64 = step(GradientMachine(cfg, device=dev), trainer.params, True)
+    cpu64 = step(GradientMachine(cfg, device="cpu"), params_cpu, True)
+    assert sorted(card32[2]) == sorted(cpu32[2]) and len(cpu32[2]) == 106, sorted(cpu32[2])
+    rel_loss = lambda a, b: abs(a[0] - b[0]) / max(1.0, abs(b[0]))
+    check = {
+        "f64_loss_rel_err": rel_loss(card64, cpu64),
+        "f64_grad_max_err_over_scale": gap(card64[1], cpu64[1]),
+        "f64_state_update_max_err_over_scale": gap(card64[2], cpu64[2]),
+        "f32_loss_rel_err": rel_loss(card32, cpu32),
+        "f32_state_update_max_err_over_scale": gap(card32[2], cpu32[2]),
+        "f32_grad_max_err_over_scale": gap(card32[1], cpu32[1]),
+        "f32_card_grad_gap_to_cpu_f64": gap(card32[1], cpu64[1]),
+        "f32_cpu_grad_gap_to_cpu_f64": gap(cpu32[1], cpu64[1]),
+    }
+    assert all(check[k] <= F64_TOL for k in check if k.startswith("f64")), check
+    assert check["f32_loss_rel_err"] <= TRAIN_TOL, check
+    assert check["f32_state_update_max_err_over_scale"] <= TRAIN_TOL, check
+    assert check["f32_card_grad_gap_to_cpu_f64"] <= (
+        3.0 * check["f32_cpu_grad_gap_to_cpu_f64"] + TRAIN_TOL), check
+    del card32, cpu32, card64, cpu64
+
+    rows = profiled(torch, "resnet_train_profile", lambda: trainer.train_one_batch(batch),
+                    top=24)
+    copies = count_copies(rows)
+    del trainer
+    # the A/B of the fused statistics, in turns after the run above:
+    # "", "" (one step of it profiled), "pallas"
+    ab = [run]
+    for mode in ("", "", "pallas"):
+        other, _, again = resnet_steps(torch, dev, kernels, mode)
+        want = {k.symbol: 0 for k in kernels}
+        want["conv1x1_stats"] = RESNET["launches_per_step"] * n if mode else 0
+        assert again["kernel_launches"] == want, (mode, again["kernel_launches"])
+        if not mode and len(ab) == 1:
+            plain_rows = profiled(torch, "resnet_plain_profile",
+                                  lambda: other.train_one_batch(batch), top=24)
+        ab.append(again)
+        del other
+    train = {"phase": "resnet_train", "params": sum(p.numel() for p in params_cpu.values()),
+             "batch": RESNET["batch"], "img_size": RESNET["img_size"], "steps": n, **run,
+             "launches_per_step": run["kernel_launches"]["conv1x1_stats"] / n,
+             "copy_transpose_per_step": copies,
+             "cpu_step": check,
+             "ab_step_ms": [(r["conv_stats_mode"], r["step_ms"]) for r in ab],
+             "ab_peak_memory_bytes": [(r["conv_stats_mode"], r["peak_memory_bytes"]) for r in ab],
+             "without_kernel9": ab[1],
+             "without_kernel9_copy_transpose_per_step": count_copies(plain_rows)}
+    emit(train)
+    return train, params_cpu
+
+
+def phase_resnet_test(torch, dev, kernels, params_cpu):
+    """Trainer.test on the card after the steps: launches, and a B = 2
+    batch against the CPU."""
+    from paddle_tpu_torch.flagship import make_image_batch, resnet_config
+    from paddle_tpu_torch.trainer import Trainer
+
+    tc = resnet_config(RESNET["layer_num"], RESNET["img_size"], RESNET["classes"])
+    tc.opt_config.conv_stats_mode = "pallas"
+    trainer = Trainer(tc, seed=1)
+    trainer.params = {k: v.to(dev) for k, v in params_cpu.items()}
+    shape = dict(img_size=RESNET["img_size"], classes=RESNET["classes"])
+    batches = [make_image_batch(RESNET["batch"], seed=20 + i, device=dev, **shape)
+               for i in range(RESNET["test_batches"])]
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    results = trainer.test(batches)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.symbol: k.launches for k in kernels}
+    assert launches == {k.symbol: 0 for k in kernels}, launches
+    assert np.isfinite(results["cost"]), results
+
+    small = dict(B=RESNET["cpu_batch"], seed=3, **shape)
+    on_card = trainer.test([make_image_batch(device=dev, **small)])
+    cpu = Trainer(tc, device="cpu")
+    cpu.params = params_cpu
+    on_cpu = cpu.test([make_image_batch(device="cpu", **small)])
+    err_key = next(e.name for e in tc.model_config.evaluators) + ".classification_error"
+    cost_err = abs(on_card["cost"] - on_cpu["cost"]) / abs(on_cpu["cost"])
+    assert cost_err <= TOL and on_card[err_key] == on_cpu[err_key], (on_card, on_cpu)
+    test = {"phase": "resnet_test", "batches": RESNET["test_batches"], "batch": RESNET["batch"],
+            "wall_s": wall, "results": results, "kernel_launches": launches,
+            "cpu_cost_rel_err": cost_err, "cpu_classification_error": on_cpu[err_key]}
+    emit(test)
+    return test
+
+
 def main() -> int:
     import torch
 
@@ -685,18 +966,23 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from paddle_tpu_torch.device import resolve_device
     from paddle_tpu_torch.ops import fused_attention_gru as fa
+    from paddle_tpu_torch.ops import fused_conv1x1_bn as fc
     from paddle_tpu_torch.ops import fused_gru as fg
     from paddle_tpu_torch.ops import fused_lstm as fl
 
     dev = resolve_device(None)                       # also turns TF32 off
-    kernels = list(fg.KERNELS) + list(fa.KERNELS) + list(fl.KERNELS)
+    kernels = list(fg.KERNELS) + list(fa.KERNELS) + list(fl.KERNELS) + list(fc.KERNELS)
     phase_build(kernels)
     k = phase_kernels(torch, dev)
     k.update(phase_lstm_kernels(torch, dev))
+    k.update(phase_conv_kernels(torch, dev))
     serve = phase_serve(torch, dev, kernels)
     train = phase_train(torch, dev, kernels)
     lstm_train, trainer, batch, err_key, err_before = phase_lstm_train(torch, dev, kernels)
     lstm_test = phase_lstm_test(torch, dev, kernels, trainer, batch, err_key, err_before)
+    del trainer, batch
+    resnet_train, resnet_params = phase_resnet_train(torch, dev, kernels)
+    resnet_test = phase_resnet_test(torch, dev, kernels, resnet_params)
 
     meta = {
         "gru_fwd": ("paddle_tpu_torch/csrc/gru_fwd.cu",
@@ -720,19 +1006,28 @@ def main() -> int:
                            "paddle_tpu/ops/pallas_lstm.py:155 (_fwd_kernel; pallas_call :307)"),
         "lstm_bwd": ("paddle_tpu_torch/csrc/lstm_bwd.cu",
                      "paddle_tpu/ops/pallas_lstm.py:201 (_bwd_kernel; pallas_call :341)"),
+        "conv1x1_stats": ("paddle_tpu_torch/csrc/conv1x1_bn.cu",
+                          "paddle_tpu/ops/pallas_conv1x1_bn.py:115 (_kernel; pallas_call :159)"),
     }
     gru_note = ("no single PyTorch call computes this function (torch.nn.GRU applies the "
                 "reset gate after the recurrent product, a different cell)")
     lstm_note = ("no single PyTorch call computes this function (torch.nn.LSTM has no "
                  "peepholes and fixes the activations)")
+    conv_note = ("torch.addmm(b, x, w.t()) at each shape, summed over a step's 30 launches: "
+                 "the product alone, since no single PyTorch call also returns the column "
+                 "statistics")
     # each kernel's launches are counted on its own main path
-    paths = {"serve": serve, "train": train, "lstm_train": lstm_train, "lstm_test": lstm_test}
+    paths = {"serve": serve, "train": train, "lstm_train": lstm_train, "lstm_test": lstm_test,
+             "resnet_train": resnet_train, "resnet_test": resnet_test}
     path_of = {name: ("train" if name in TRAIN_KERNELS else
                       "lstm_test" if name == "lstm_fwd" else
-                      "lstm_train" if name in LSTM_KERNELS else "serve") for name in k}
+                      "lstm_train" if name in LSTM_KERNELS else
+                      "resnet_train" if name == "conv1x1_stats" else "serve") for name in k}
     rows = []
     for name, r in k.items():
         main_case = r["cases"][0]     # forward / Td = 1 (serve); not reversed (train); default acts
+        # kernel 9 runs at nine shapes: its row is one train step's 30 launches
+        times = r.get("per_step", main_case)
         b_ms, b_by = bound(r["bytes"], r["flops"])
         err = max(c["max_abs_err"] for c in r["cases"])
         launches = paths[path_of[name]]["kernel_launches"][name]
@@ -740,12 +1035,15 @@ def main() -> int:
         rows.append({
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1], "launches": launches,
-            "max_abs_err": err, "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "library_note": lstm_note if name in LSTM_KERNELS else gru_note,
+            "max_abs_err": err, "ms": times["ms"], "plain_ms": times["plain_ms"],
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": times.get("library_ms"),
+            "library_note": (conv_note if name == "conv1x1_stats" else
+                             lstm_note if name in LSTM_KERNELS else gru_note),
             "main_path": path_of[name],
-            "max_err": err, "kernel_ms": main_case["ms"], "bytes": r["bytes"],
+            "max_err": err, "kernel_ms": times["ms"], "bytes": r["bytes"],
             "flops": r["flops"], "shape": r["shape"],
+            **({"timed_over": "one train step (30 launches)",
+                "launches_per_step": launches / RESNET["steps"]} if "per_step" in r else {}),
         })
     emit({"kernels": rows})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

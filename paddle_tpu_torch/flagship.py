@@ -1,10 +1,11 @@
-"""The model builders of the port: the seqToseq NMT model and the LSTM
-text classifier.
+"""The model builders of the port: the seqToseq NMT model, the LSTM text
+classifier and ResNet.
 
 :func:`gru_encoder_decoder` is this package's copy of
 ``demo/seqToseq/seqToseq_net.py`` (bidirectional GRU encoder, Bahdanau
 attention, GRU decoder), and :func:`flagship_config` the JAX package's
-stacked-LSTM classifier (``paddle_tpu.flagship.flagship_config``), both
+stacked-LSTM classifier (``paddle_tpu.flagship.flagship_config``) and
+:func:`resnet_config` a copy of ``demo/model_zoo/resnet/resnet.py``, all
 written against ``paddle_tpu_torch.trainer_config_helpers``, so the same
 DSL builds the same ``ModelConfig`` as the JAX package's builders. The
 batch builders draw from numpy with the JAX package's draws, so both
@@ -19,12 +20,19 @@ from paddle_tpu_torch.config.builder import fresh_context
 from paddle_tpu_torch.device import DeviceLike
 from paddle_tpu_torch.trainer_config_helpers import (
     AdamOptimizer,
+    AvgPooling,
     GeneratedInput,
+    L2Regularization,
+    LinearActivation,
     MaxPooling,
+    MomentumOptimizer,
     ParamAttr,
+    ReluActivation,
     SoftmaxActivation,
     StaticInput,
     TanhActivation,
+    addto_layer,
+    batch_norm_layer,
     beam_search,
     classification_cost,
     concat_layer,
@@ -34,6 +42,8 @@ from paddle_tpu_torch.trainer_config_helpers import (
     first_seq,
     full_matrix_projection,
     gru_step_layer,
+    img_conv_layer,
+    img_pool_layer,
     memory,
     mixed_layer,
     outputs,
@@ -202,4 +212,78 @@ def example_batch(dict_dim=1000, B=8, T=32, classes=2, seed=0, device: DeviceLik
     return {
         "words": make_seq(None, lengths, ids=ids, device=dev),
         "label": make_ids(labels, device=dev),
+    }
+
+
+RESNET_STAGE_BLOCKS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
+
+
+def _conv_bn(name, input, filter_size, num_filters, stride, padding, channels=None, act=None):
+    """conv (no bias) + batch norm; ReLU unless ``act`` says otherwise."""
+    conv = img_conv_layer(name=name, input=input, filter_size=filter_size,
+                          num_filters=num_filters, num_channels=channels, stride=stride,
+                          padding=padding, act=LinearActivation(), bias_attr=False)
+    return batch_norm_layer(name=name + "_bn", input=conv, act=act or ReluActivation())
+
+
+def _bottleneck(name, input, mid_filters, out_filters, stride=1, project=False):
+    """1x1 -> 3x3 -> 1x1 bottleneck with an identity or projection shortcut."""
+    if project:
+        shortcut = _conv_bn(name + "_proj", input, 1, out_filters, stride, 0,
+                            act=LinearActivation())
+    else:
+        shortcut = input
+    path = _conv_bn(name + "_a", input, 1, mid_filters, stride, 0)
+    path = _conv_bn(name + "_b", path, 3, mid_filters, 1, 1)
+    path = _conv_bn(name + "_c", path, 1, out_filters, 1, 0, act=LinearActivation())
+    return addto_layer(name=name + "_sum", input=[shortcut, path], act=ReluActivation())
+
+
+def _stage(name, input, blocks, mid_filters, out_filters, first_stride):
+    tmp = _bottleneck(name + "_1", input, mid_filters, out_filters, stride=first_stride,
+                      project=True)
+    for i in range(2, blocks + 1):
+        tmp = _bottleneck(f"{name}_{i}", tmp, mid_filters, out_filters)
+    return tmp
+
+
+def resnet_config(layer_num=50, img_size=224, classes=1000):
+    """ResNet-50/101/152 for ImageNet: this package's copy of
+    ``demo/model_zoo/resnet/resnet.py`` (the JAX package's
+    ``flagship.resnet_config`` parses that file), with the demo's settings:
+    batch size 64, Momentum 0.9 at lr 0.01/64, L2 0.0001*64. Its data
+    provider is not part of the port yet: batches come from
+    :func:`make_image_batch`."""
+    stage_blocks = RESNET_STAGE_BLOCKS[layer_num]
+    with fresh_context() as ctx:
+        settings(batch_size=64, learning_rate=0.01 / 64.0,
+                 learning_method=MomentumOptimizer(0.9),
+                 regularization=L2Regularization(0.0001 * 64))
+        img = data_layer(name="input", size=img_size * img_size * 3)
+        tmp = _conv_bn("conv1", img, 7, 64, 2, 3, channels=3)
+        tmp = img_pool_layer(name="pool1", input=tmp, pool_size=3, stride=2, padding=1,
+                             pool_type=MaxPooling())
+        widths = [(64, 256), (128, 512), (256, 1024), (512, 2048)]
+        for s, ((mid, out_w), blocks) in enumerate(zip(widths, stage_blocks), start=2):
+            tmp = _stage(f"res{s}", tmp, blocks, mid, out_w, first_stride=1 if s == 2 else 2)
+        tmp = img_pool_layer(name="global_pool", input=tmp, pool_size=tmp.img_size, stride=1,
+                             pool_type=AvgPooling())
+        output = fc_layer(name="output", input=tmp, size=classes, act=SoftmaxActivation())
+        lbl = data_layer(name="label", size=classes)
+        outputs(classification_cost(input=output, label=lbl))
+        return ctx.finalize()
+
+
+def make_image_batch(B, img_size, classes, seed=0, device: DeviceLike = None):
+    """Images [B, 3 * img_size²] (flat NCHW) and labels from ``seed``, with
+    the draws of ``paddle_tpu.flagship.make_image_batch``."""
+    from paddle_tpu_torch.device import resolve_device
+    from paddle_tpu_torch.graph import make_dense, make_ids
+
+    dev = resolve_device(device)
+    rng = np.random.RandomState(seed)
+    return {
+        "input": make_dense(rng.randn(B, 3 * img_size * img_size).astype(np.float32),
+                            device=dev),
+        "label": make_ids(rng.randint(0, classes, (B,)).astype(np.int32), device=dev),
     }

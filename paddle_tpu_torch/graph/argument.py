@@ -69,6 +69,10 @@ def _tensor(x, dtype=None, device: DeviceLike = None) -> Tensor:
     return torch.as_tensor(x, dtype=dtype, device=device)
 
 
+def make_dense(value, device: DeviceLike = None) -> Argument:
+    return Argument(value=_tensor(value, device=device))
+
+
 def make_ids(ids, device: DeviceLike = None) -> Argument:
     return Argument(ids=_tensor(ids, torch.int32, device))
 

@@ -28,7 +28,9 @@ Params = Dict[str, Tensor]
 class GradientMachine:
     """``device=None`` means the CUDA card (``RuntimeError`` without one);
     ``device="cpu"`` runs every kernel's plain version. ``compute_dtype``
-    other than float32 (a bf16 model) is not ported yet and raises."""
+    other than float32 (a bf16 model) is not ported yet and raises.
+    ``conv_s2d`` and ``conv_stats_mode`` are the OptimizationConfig fields
+    of the same names (layers/vision.py)."""
 
     # layer types whose output is a differentiable per-sample cost: only
     # these contribute to the training loss
@@ -48,11 +50,22 @@ class GradientMachine:
     })
 
     def __init__(self, model: ModelConfig, device: DeviceLike = None,
-                 compute_dtype=None):
+                 compute_dtype=None, conv_s2d: bool = False,
+                 conv_stats_mode: str = ""):
         float32_only(compute_dtype, "compute dtype")
         self.model = model
         self.device = resolve_device(device)
         self.dtype = torch.float32
+        # stem conv space-to-depth rewrite (layers/vision.py)
+        self.conv_s2d = bool(conv_s2d)
+        # fused 1x1-conv + BN-statistics mode ("gram" | "pallas" | "")
+        self.conv_stats_mode = str(conv_stats_mode or "")
+        if self.conv_stats_mode not in ("", "gram", "pallas"):
+            # an unknown value would silently disable the feature and
+            # poison the very A/B measurement the knob exists for
+            raise ValueError(
+                f"conv_stats_mode must be '', 'gram' or 'pallas', "
+                f"got {conv_stats_mode!r}")
         self.network = Network(model)
         self.param_configs: Dict[str, ParameterConfig] = {p.name: p for p in model.parameters}
 
@@ -78,13 +91,14 @@ class GradientMachine:
         (graph/decode_step.py). ``generator``: the random bits of a train
         pass (dropout)."""
         ctx = LayerContext(params=params, model=self.model, pass_type=pass_type,
-                           generator=generator, gen_capture=gen_capture)
+                           generator=generator, gen_capture=gen_capture,
+                           conv_s2d=self.conv_s2d, conv_stats_mode=self.conv_stats_mode)
         if pass_type == "train":
             self.network.forward(ctx, in_args)
         else:
             with torch.no_grad():
                 self.network.forward(ctx, in_args)
-        return ctx.outputs, {}
+        return ctx.outputs, ctx.state_updates
 
     def output_args(self, outputs: Dict[str, Argument]) -> Dict[str, Argument]:
         return {n: outputs[n] for n in self.network.output_layer_names}

@@ -54,6 +54,28 @@ class LayerContext:
     # parameters' device; None outside training
     generator: Optional[torch.Generator] = None
     outputs: Dict[str, Argument] = field(default_factory=dict)
+    # static parameter name -> its new value (batch norm's moving mean and
+    # variance in a training pass); GradientMachine.forward returns them
+    # and the trainer assigns them after the update
+    state_updates: Dict[str, Tensor] = field(default_factory=dict)
+    # OptimizationConfig.conv_s2d: few-channel 7x7/s2 stem convs rewrite
+    # to a space-to-depth 4x4/s1 conv (layers/vision.py _stem_s2d_conv)
+    conv_s2d: bool = False
+    # OptimizationConfig.conv_stats_mode: 1x1 convs publish their output's
+    # per-channel (sum, sumsq, rows) into `conv_stats` — from input-side
+    # Gram algebra ("gram") or from kernel 9's epilogue ("pallas",
+    # ops/fused_conv1x1_bn.py); "" = off
+    conv_stats_mode: str = ""
+    # NHWC side-table (layer name -> contiguous [B, H, W, C] tensor): the
+    # conv family publishes its output here and prefers consuming it, so a
+    # chain of conv/pool/batch_norm/addto never builds the flat NCHW value
+    # (layers/vision.py ImageArgument builds it only for a consumer that
+    # reads it)
+    nhwc: Dict[str, Tensor] = field(default_factory=dict)
+    # fused conv + BN statistics side-table (producer layer name -> (sum
+    # [C], sumsq [C], rows)): a downstream batch_norm in a training pass
+    # takes these instead of reducing the activation again
+    conv_stats: Dict[str, Any] = field(default_factory=dict)
     # pre-softmax logits side-table (layer name -> pre-activation tensor,
     # or a TimeMajorLogits for a hoisted recurrent out-link): published by
     # finalize_output for a plain softmax without dropout, so the
@@ -102,6 +124,11 @@ def finalize_output(cfg: LayerConfig, value: Tensor, ctx: LayerContext,
     if cfg.active_type == "softmax" and not cfg.drop_rate:
         ctx.logits[cfg.name] = value
     value = apply_activation(cfg.active_type, value, mask)
+    return apply_dropout(cfg, value, ctx)
+
+
+def apply_dropout(cfg: LayerConfig, value: Tensor, ctx: LayerContext) -> Tensor:
+    """The layer's dropout in a training pass; identity otherwise."""
     if cfg.drop_rate > 0.0 and ctx.is_training:
         if ctx.generator is None:
             raise ValueError(f"layer {cfg.name!r} has dropout but the training "
@@ -135,10 +162,13 @@ def forward_layer(cfg: LayerConfig, inputs: List[Argument], ctx: LayerContext) -
         out = fn(cfg, inputs, ctx)
     if (cfg.error_clipping_threshold > 0 and out.value is not None
             and out.value.requires_grad):
-        out = dataclasses.replace(
-            out, value=_ClipError.apply(out.value, float(cfg.error_clipping_threshold)))
-        # a published logits view would bypass the clip
+        fields = {f.name: getattr(out, f.name) for f in dataclasses.fields(Argument)}
+        fields["value"] = _ClipError.apply(out.value, float(cfg.error_clipping_threshold))
+        out = Argument(**fields)
+        # a published NHWC, logits or statistics view would bypass the clip
+        ctx.nhwc.pop(cfg.name, None)
         ctx.logits.pop(cfg.name, None)
+        ctx.conv_stats.pop(cfg.name, None)
     ctx.outputs[cfg.name] = out
     return out
 

@@ -1,4 +1,4 @@
-"""Core layers: data, fc, mixed (table/fc/identity projections), concat.
+"""Core layers: data, fc, mixed (table/fc/identity projections), addto, concat.
 
 Sequence inputs are padded [B, T, D] and the matmuls batch over B*T, as
 in the JAX package; a projection applies as well to a time-major stacked
@@ -21,6 +21,7 @@ from paddle_tpu_torch.layers.base import (
     register_layer,
     with_seq_meta,
 )
+from paddle_tpu_torch.ops.activations import apply_activation, is_elementwise
 from paddle_tpu_torch.proto import LayerConfig, LayerInputConfig, ProjectionConfig
 
 Tensor = torch.Tensor
@@ -78,6 +79,29 @@ def mixed_layer(cfg: LayerConfig, inputs: List[Argument], ctx: LayerContext) -> 
             continue
         y = apply_projection(in_cfg.proj_conf, in_cfg, arg, ctx)
         acc = y if acc is None else acc + y
+    meta = first_seq_meta(inputs)
+    return with_seq_meta(meta, finalize_output(cfg, acc, ctx, input_mask(meta)))
+
+
+@register_layer("addto")
+def addto_layer(cfg: LayerConfig, inputs: List[Argument], ctx: LayerContext) -> Argument:
+    # NHWC fast path: a residual junction between conv-family layers (the
+    # ResNet shortcut) stays in the published layout (LayerContext.nhwc)
+    from paddle_tpu_torch.layers.vision import _publish_nhwc
+
+    nh = [ctx.nhwc.get(ic.input_layer_name) for ic in cfg.inputs]
+    if (all(x is not None for x in nh)
+            and len({tuple(x.shape) for x in nh}) == 1
+            and not cfg.bias_parameter_name
+            and cfg.drop_rate == 0.0
+            and is_elementwise(cfg.active_type)):
+        acc = nh[0]
+        for x in nh[1:]:
+            acc = acc + x
+        return _publish_nhwc(ctx, cfg, apply_activation(cfg.active_type, acc))
+    acc = inputs[0].value
+    for a in inputs[1:]:
+        acc = acc + a.value
     meta = first_seq_meta(inputs)
     return with_seq_meta(meta, finalize_output(cfg, acc, ctx, input_mask(meta)))
 

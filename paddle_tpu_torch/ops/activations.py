@@ -24,10 +24,20 @@ def identity(x: Tensor) -> Tensor:
     return x
 
 
+# strictly elementwise activations: they commute with any layout
+# permutation, so the vision layers may apply them to the NHWC view
+ELEMENTWISE_ACTS = set()
+
+
+def is_elementwise(name: str) -> bool:
+    return name in ELEMENTWISE_ACTS
+
+
 for _name, _fn in (("", identity), ("linear", identity),
                    ("sigmoid", torch.sigmoid), ("tanh", torch.tanh),
                    ("relu", torch.relu)):
     activation_registry.register_obj(_name, lambda x, mask=None, _f=_fn: _f(x))
+    ELEMENTWISE_ACTS.add(_name)
 
 
 def softmax(x: Tensor, mask: Optional[Tensor] = None) -> Tensor:

@@ -7,7 +7,8 @@ update, then the state updates), run eagerly, and a test pass is
 per-sample cost and the configured evaluators). Batches come from the
 caller as dicts of :class:`~paddle_tpu_torch.graph.Argument` (for the
 NMT model :func:`paddle_tpu_torch.flagship.nmt_batch`, for the LSTM text
-classifier :func:`~paddle_tpu_torch.flagship.example_batch`); data
+classifier :func:`~paddle_tpu_torch.flagship.example_batch`, for ResNet
+:func:`~paddle_tpu_torch.flagship.make_image_batch`); data
 providers, the ``paddle train`` command line, meshes, asynchronous and
 sharded checkpoints are later slices.
 
@@ -45,7 +46,9 @@ class Trainer:
     def __init__(self, config, device: DeviceLike = None, seed: int = 1,
                  save_dir: Optional[str] = None, log_period: int = 100):
         self.config = config
-        self.gm = GradientMachine(config.model_config, device)
+        opt = config.opt_config
+        self.gm = GradientMachine(config.model_config, device,
+                                  conv_s2d=opt.conv_s2d, conv_stats_mode=opt.conv_stats_mode)
         self.device = self.gm.device
         self.updater = Updater(config.opt_config, config.model_config)
         self.params = self.gm.init_params(seed)

@@ -1,0 +1,127 @@
+"""Kernel 9's plain version and its backward against the JAX package, on the CPU.
+
+``conv1x1_stats_reference`` (y = x·wᵀ + b with the column sums s and q of
+y and y²) is held against the JAX package's Pallas kernel
+``pallas_conv1x1_bn.conv1x1_stats`` run in interpret mode, in float32 at
+the shapes tests/test_conv_stats.py runs it: y within 1e-5 of its scale
+max(1, max |y|), s and q within 1e-5 of theirs (Σ|y| and Σy² per channel).
+Both are sums over up to 1024 (y) and 2048 (s, q) terms in another order,
+whose float32 rounding reaches ~1e-5 of the largest |y| at K = 1024.
+Shapes the TPU gate refuses (N = 64, ragged M) are held against numpy in
+float64. The backward (``_Conv1x1Stats``, the JAX ``_bwd`` in
+torch.matmul) is held against ``jax.vjp`` of the interpreted kernel at
+rtol 1e-4 and an absolute 1e-5 of each gradient's scale (dw sums 512 rows
+of x·g, so an entry near 0 carries the rounding of terms ~10^4 times
+larger), and against autograd through the plain version.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu.ops import pallas_conv1x1_bn as pcb
+from paddle_tpu_torch.ops import fused_conv1x1_bn as fc
+
+torch.set_num_threads(1)
+
+
+def _inputs(M, K, N, seed):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(M, K).astype(np.float32)
+    w = (rng.randn(K, N) * 0.1).astype(np.float32)      # the JAX function's [K, N]
+    b = (rng.randn(N) * 0.1).astype(np.float32)
+    return x, w, b
+
+
+def _port(x, w, b):
+    """The port's operands: w as the conv parameter is stored, [N, K]."""
+    return (torch.from_numpy(x), torch.from_numpy(np.ascontiguousarray(w.T)),
+            None if b is None else torch.from_numpy(b))
+
+
+def _scale(a):
+    return max(1.0, float(np.abs(a).max()))
+
+
+def _assert_stats(y, s, q, y_ref, s_ref, q_ref):
+    y_ref = np.asarray(y_ref, np.float64)
+    np.testing.assert_allclose(y, y_ref, rtol=0, atol=1e-5 * _scale(y_ref))
+    np.testing.assert_array_less(np.abs(s - np.asarray(s_ref)), 1e-5 * np.abs(y_ref).sum(0) + 1e-30)
+    np.testing.assert_array_less(np.abs(q - np.asarray(q_ref)), 1e-5 * (y_ref ** 2).sum(0) + 1e-30)
+
+
+@pytest.mark.parametrize("M,K,N", [(512, 64, 256), (1024, 256, 128), (2048, 1024, 512),
+                                   (896, 128, 128)])
+def test_plain_version_matches_the_interpreted_kernel(M, K, N):
+    x, w, b = _inputs(M, K, N, seed=M + N)
+    assert pcb.supported(M, K, N, 4)
+    jy, js, jq = pcb.conv1x1_stats(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), True)
+    y, s, q = fc.conv1x1_stats_reference(*_port(x, w, b))
+    _assert_stats(y.numpy(), s.numpy(), q.numpy(), np.asarray(jy), np.asarray(js),
+                  np.asarray(jq))
+
+
+@pytest.mark.parametrize("M,K,N", [(1000, 64, 64), (37, 5, 3), (203, 24, 64)])
+@pytest.mark.parametrize("bias", [False, True])
+def test_plain_version_matches_numpy_where_the_tpu_gate_refuses(M, K, N, bias):
+    x, w, b = _inputs(M, K, N, seed=M)
+    assert not pcb.supported(M, K, N, 4)
+    b = b if bias else None
+    y64 = x.astype(np.float64) @ w.astype(np.float64)
+    if bias:
+        y64 = y64 + b
+    y, s, q = fc.conv1x1_stats_reference(*_port(x, w, b))
+    _assert_stats(y.numpy(), s.numpy(), q.numpy(), y64, y64.sum(0), (y64 ** 2).sum(0))
+
+
+def test_backward_matches_jax_vjp_of_the_interpreted_kernel():
+    M, K, N = 512, 64, 256
+    x, w, b = _inputs(M, K, N, seed=0)
+    rng = np.random.RandomState(1)
+    dy = rng.randn(M, N).astype(np.float32)
+    ds = rng.randn(N).astype(np.float32)
+    dq = (rng.randn(N) * 0.1).astype(np.float32)
+    _, vjp = jax.vjp(lambda x, w, b: pcb.conv1x1_stats(x, w, b, True),
+                     jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+    jdx, jdw, jdb = vjp((jnp.asarray(dy), jnp.asarray(ds), jnp.asarray(dq)))
+
+    leaves = [t.requires_grad_() for t in _port(x, w, b)]
+    outs = fc.conv1x1_stats(*leaves)
+    dx, dw, db = torch.autograd.grad(outs, leaves, [torch.from_numpy(a) for a in (dy, ds, dq)])
+    for got, want in ((dx, jdx), (dw, np.asarray(jdw).T), (db, jdb)):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5 * _scale(want))
+
+
+@pytest.mark.parametrize("bias", [False, True])
+def test_backward_matches_autograd_through_the_plain_version(bias):
+    M, K, N = 203, 24, 64
+    x, w, b = _inputs(M, K, N, seed=2)
+    b = b if bias else None
+    rng = np.random.RandomState(3)
+    cts = [torch.from_numpy(rng.randn(*s).astype(np.float32)) for s in ((M, N), (N,), (N,))]
+    leaves = [t.requires_grad_() for t in _port(x, w, b) if t is not None]
+    got = torch.autograd.grad(fc.conv1x1_stats(*leaves, *([] if bias else [None])), leaves, cts)
+    plain = [t.detach().clone().requires_grad_() for t in leaves]
+    want = torch.autograd.grad(fc.conv1x1_stats_reference(*plain, *([] if bias else [None])),
+                               plain, cts)
+    for g, r in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), r.numpy(), rtol=1e-5, atol=1e-5)
+
+
+def test_the_autograd_path_is_the_kernels_backward(monkeypatch):
+    """Under autograd the CPU path goes through ``_Conv1x1Stats`` (the
+    backward the card uses), without it through the plain version."""
+    seen = []
+    orig = fc._Conv1x1Stats.apply
+    monkeypatch.setattr(fc._Conv1x1Stats, "apply", lambda *a: seen.append(1) or orig(*a))
+    x, w, _ = _port(*_inputs(16, 8, 4, seed=4))
+    fc.conv1x1_stats(x, w)
+    assert seen == []
+    fc.conv1x1_stats(x, w.requires_grad_())
+    assert seen == [1]
+    with torch.no_grad():
+        fc.conv1x1_stats(x, w)
+    assert seen == [1]

@@ -112,16 +112,18 @@ def test_wrapper_checks_refuse_what_the_kernels_do_not_take():
 def test_kernel_builds_are_keyed_by_their_sources():
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import fused_attention_gru as fa
+    from paddle_tpu_torch.ops import fused_conv1x1_bn as fc
     from paddle_tpu_torch.ops import fused_gru as fg
     from paddle_tpu_torch.ops import fused_lstm as fl
 
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
-    kernels = fg.KERNELS + fa.KERNELS + fl.KERNELS
-    assert len({k.symbol for k in kernels}) == 9
+    kernels = fg.KERNELS + fa.KERNELS + fl.KERNELS + fc.KERNELS
+    assert len({k.symbol for k in kernels}) == 10
     # a kernel and its training variant share one source and its library
     paths = {k.library_path() for k in kernels}
     assert {os.path.basename(p).split("-")[0] for p in paths} == {
-        "gru_fwd", "gru_bwd", "attention_gru_fwd", "attention_gru_bwd", "lstm_fwd", "lstm_bwd"}
+        "gru_fwd", "gru_bwd", "attention_gru_fwd", "attention_gru_bwd", "lstm_fwd", "lstm_bwd",
+        "conv1x1_bn"}
     assert fg.GRU_FWD.library_path() == fg.GRU_FWD_TRAIN.library_path()
     assert fl.LSTM_FWD.library_path() == fl.LSTM_FWD_TRAIN.library_path()
     for p in paths:
@@ -137,10 +139,11 @@ def test_training_wrappers_take_the_plain_version_on_the_cpu():
     """On a CPU tensor the wrappers run the plain version, with autograd,
     and launch nothing."""
     from paddle_tpu_torch.ops import fused_attention_gru as fa
+    from paddle_tpu_torch.ops import fused_conv1x1_bn as fc
     from paddle_tpu_torch.ops import fused_gru as fg
     from paddle_tpu_torch.ops import fused_lstm as fl
 
-    kernels = fg.KERNELS + fa.KERNELS + fl.KERNELS
+    kernels = fg.KERNELS + fa.KERNELS + fl.KERNELS + fc.KERNELS
     before = [k.launches for k in kernels]
     x3 = torch.randn(3, 2, 12, requires_grad=True)
     fg.fused_gru(x3, torch.ones(3, 2), torch.randn(4, 12)).sum().backward()
@@ -151,4 +154,33 @@ def test_training_wrappers_take_the_plain_version_on_the_cpu():
     assert x4.grad is not None and peep.grad is not None
     with torch.no_grad():
         fl.fused_lstm(x4, torch.ones(3, 2), torch.randn(4, 16), peep, reverse=True)
+    x = torch.randn(6, 4, requires_grad=True)
+    y, s, q = fc.conv1x1_stats(x, torch.randn(3, 4), torch.randn(3))
+    (y.sum() + s.sum() + q.sum()).backward()
+    assert x.grad is not None
+    fc.conv1x1_stats(x.detach(), torch.randn(3, 4))
     assert [k.launches for k in kernels] == before
+
+
+def test_conv1x1_stats_refuses_what_the_kernel_does_not_take():
+    """Kernel 9's wrapper checks its operands on every device and never
+    copies: a non-contiguous or float64 x, a w of another width, a 4-D x
+    and an empty shape all raise."""
+    from paddle_tpu_torch.ops.fused_conv1x1_bn import conv1x1_stats
+
+    x, w = torch.randn(8, 4), torch.randn(3, 4)
+    conv1x1_stats(x, w)
+    with pytest.raises(ValueError, match="contiguous"):
+        conv1x1_stats(torch.randn(4, 8).t(), w)
+    with pytest.raises(ValueError, match="float32"):
+        conv1x1_stats(x.double(), w)
+    with pytest.raises(ValueError, match="shape"):
+        conv1x1_stats(x, torch.randn(3, 5))
+    with pytest.raises(ValueError, match="shape"):
+        conv1x1_stats(x, w, torch.randn(4))
+    with pytest.raises(ValueError, match=r"x \[M, K\]"):
+        conv1x1_stats(x.reshape(2, 2, 2, 4), w)
+    with pytest.raises(ValueError, match="M <="):
+        conv1x1_stats(torch.randn(0, 4), w)
+    with pytest.raises(ValueError, match="contiguous"):
+        conv1x1_stats(torch.randn(4, 8).t().requires_grad_(), w)

@@ -6,11 +6,13 @@ machine with the card and no JAX run them without it:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 
-Kernels 1-8 (GRU, attention GRU, LSTM; inference, training and backward).
-Tolerance 1e-4 absolute in float32 with TF32 off (sums over K terms taken
-in another order than the plain version's matmuls); gradients 1e-4 times
-max(1, max |plain gradient|), since a weight gradient sums over every
-(step, row) pair as well.
+Kernels 1-8 (GRU, attention GRU, LSTM; inference, training and backward)
+and kernel 9 (the 1x1 conv with batch-norm statistics). Tolerance 1e-4
+absolute in float32 with TF32 off (sums over K terms taken in another
+order than the plain version's matmuls); gradients 1e-4 times max(1,
+max |plain gradient|), since a weight gradient sums over every (step, row)
+pair as well. Kernel 9's y is held to 1e-4 of max(1, max |y|) (sums of
+up to 2048 products), its s and q to 1e-5 of Σ|y| and Σy² per channel.
 """
 
 import numpy as np
@@ -298,3 +300,83 @@ def test_lstm_wrapper_raises_on_what_the_kernels_do_not_take(dev):
                    torch.zeros(1025, 4100, device=dev), torch.zeros(3, 1025, device=dev))
     with pytest.raises(ValueError, match="float32"):             # the training path too
         fused_lstm(x4.double().requires_grad_(), mask, w.double(), peep.double())
+
+
+def _conv_inputs(M, K, N, dev, seed=0):
+    rng = np.random.RandomState(seed + M + K + N)
+    x = _t(rng.randn(M, K), dev)
+    w = _t(rng.randn(N, K) / np.sqrt(K), dev)
+    b = _t(rng.randn(N) * 0.1, dev)
+    return x, w, b
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 1, 1), (37, 5, 3), (1000, 64, 64), (3136, 2048, 512)])
+@pytest.mark.parametrize("bias", [False, True])
+def test_conv1x1_stats_kernel_matches_plain_version(dev, M, K, N, bias):
+    from paddle_tpu_torch.ops import fused_conv1x1_bn as fc
+
+    x, w, b = _conv_inputs(M, K, N, dev)
+    b = b if bias else None
+    before = fc.CONV1X1_STATS.launches
+    y, s, q = fc.conv1x1_stats(x, w, b)
+    assert fc.CONV1X1_STATS.launches == before + 1
+    yr, sr, qr = fc.conv1x1_stats_reference(x, w, b)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all()
+    assert float((y - yr).abs().max()) <= TOL * max(1.0, float(yr.abs().max()))
+    assert ((s - sr).abs() <= 1e-5 * yr.abs().sum(0) + 1e-30).all()
+    assert ((q - qr).abs() <= 1e-5 * qr + 1e-30).all()
+    # the backward: random cotangents on y, s and q, against autograd
+    # through the plain version
+    rng = np.random.RandomState(M)
+    cts = [_t(rng.randn(*t.shape), dev) for t in (y, s, q)]
+    leaves = [t.detach().requires_grad_() for t in (x, w, b) if t is not None]
+    kg = torch.autograd.grad(fc.conv1x1_stats(*leaves, *([] if bias else [None])), leaves, cts)
+    plain = [t.detach().requires_grad_() for t in leaves]
+    pg = torch.autograd.grad(fc.conv1x1_stats_reference(*plain, *([] if bias else [None])),
+                             plain, cts)
+    torch.cuda.synchronize()
+    for a, r in zip(kg, pg):
+        assert float((a - r).abs().max()) <= _grad_tol(r)
+
+
+def test_conv1x1_stats_kernel_is_deterministic(dev):
+    """No atomics: two launches give bit-equal y, s and q."""
+    from paddle_tpu_torch.ops import fused_conv1x1_bn as fc
+
+    x, w, b = _conv_inputs(20000, 256, 64, dev, seed=1)
+    one, two = fc.conv1x1_stats(x, w, b), fc.conv1x1_stats(x, w, b)
+    for a, r in zip(one, two):
+        assert torch.equal(a, r)
+
+
+def test_conv1x1_stats_wrapper_raises_on_what_the_kernel_does_not_take(dev):
+    from paddle_tpu_torch.ops.fused_conv1x1_bn import conv1x1_stats
+
+    x, w, b = _conv_inputs(64, 8, 16, dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        conv1x1_stats(x.t().contiguous().t(), w, b)
+    with pytest.raises(ValueError, match="float32"):
+        conv1x1_stats(x.double(), w, b)
+    with pytest.raises(ValueError, match="is on"):
+        conv1x1_stats(x, w.cpu(), b)
+    with pytest.raises(ValueError, match="shape"):
+        conv1x1_stats(x, w[:, :4].contiguous(), b)
+
+
+def test_resnet_step_launches_kernel9_for_every_1x1_stride1_conv(dev):
+    """A training step of a small ResNet in "pallas" mode launches kernel 9
+    once per 1x1 stride-1 conv; its test pass launches none."""
+    from paddle_tpu_torch.flagship import make_image_batch, resnet_config
+    from paddle_tpu_torch.ops import fused_conv1x1_bn as fc
+    from paddle_tpu_torch.trainer import Trainer
+
+    tc = resnet_config(50, 32, 16)
+    tc.opt_config.conv_stats_mode = "pallas"
+    trainer = Trainer(tc, seed=1)
+    batch = make_image_batch(4, 32, 16, seed=1, device=dev)
+    before = fc.CONV1X1_STATS.launches
+    loss = trainer.train_one_batch(batch)
+    assert fc.CONV1X1_STATS.launches == before + 30 and torch.isfinite(loss)
+    out = trainer.test([batch])
+    assert fc.CONV1X1_STATS.launches == before + 30 and np.isfinite(out["cost"])
