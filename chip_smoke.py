@@ -78,6 +78,33 @@ Phases, each printing one JSON object per line:
 10. resnet_test — the sixth: Trainer.test over 2 batches of 64 with no
              kernel 9 launch; a B = 2 batch's cost (1e-4 relative) and
              classification_error (equal) against the CPU.
+11. attn_kernels — kernels 10, 11 and 12 (flash attention, dQ, dK/dV) on
+             strided views of a fused [B, T, 3, H, D] qkv tensor: the main
+             path's shape (B = 8, H = 8, T = 2048, D = 64) causal with full
+             lengths, the same non-causal with ragged lengths (one of them
+             1, one 0), T = 1000 (a ragged last tile), D = 32 and D = 128.
+             out and the gradients within 1e-4 * max(1, max |plain|), lse
+             within 1e-4 on rows that see a key and -1e30 on the others;
+             two launches of 11 and of 12 bit-equal; kernel, plain version
+             and torch's scaled_dot_product_attention (forward, and its
+             backward by autograd against 11 + 12) timed from a cold L2 at
+             the main path's shape.
+12. lm_train — the seventh: Trainer(long_context_config(vocab=500,
+             seq_len=2048, dim=512, heads=8, blocks=2, batch_size=8)),
+             random weights from seed 1, 8 Adam steps on lm_batch(500, 8,
+             2048, seed=1); the counters zeroed just before and read just
+             after (exactly 2 launches of each of kernels 10, 11 and 12 per
+             step, no other kernel); the loss must fall. Then a B = 2,
+             T = 256 step against the CPU: the loss within 1e-3; ReLU gates
+             on which the card and the CPU in float64 disagree all within
+             1e-6 of 0 (of the largest |pre-activation|), and every gradient
+             within 1e-3 of scale of the CPU's float64 step taken with the
+             card's gates (see lm_cpu_step). One step under torch.profiler,
+             its device time summed by kernel family.
+13. lm_test — the eighth: Trainer.test over 2 batches of 8 x 2048 between
+             zeroed counters (2 launches of kernel 10 a batch, none of 11
+             or 12); a B = 2, T = 256 batch's cost (1e-4 relative) and
+             classification_error (equal) against the CPU.
 
 Then the per-kernel line ({"kernels": [...]}), the card's name and power
 limit as nvidia-smi reports them, and as the last line
@@ -115,6 +142,12 @@ RESNET = dict(layer_num=50, img_size=224, classes=1000, batch=64, steps=8, cpu_b
               test_batches=2, launches_per_step=30)
 CONV_STATS_TOL = 1e-5      # s and q against Σ|y| and Σy²: sums over up to 207,936 rows
 F64_TOL = 1e-9             # a float64 step: the card's convolutions against the CPU's
+ATTN_KERNELS = ("flash_attn_fwd", "flash_attn_dq", "flash_attn_dkv")
+GATE_EPS = 1e-6            # a ReLU gate within float32 rounding of 0 may flip (lm_cpu_step)
+# the long-context LM of demo/long_context at its documented 2048-token
+# context, with the head dim (64) of benchmarks/attn_bench.py
+LM = dict(vocab=500, seq_len=2048, dim=512, heads=8, blocks=2, batch=8, steps=8,
+          cpu_batch=2, cpu_T=256, test_batches=2)
 N_REQUESTS = 128
 # the JAX package's allowance for argmax near-ties between two decode
 # paths (SLOT_PARITY_TOL in paddle_tpu/graph/decode_step.py)
@@ -456,11 +489,12 @@ def profiled(torch, phase, fn, top: int = 12):
             rows.append((e.key, dev_us / 1e3, e.count))
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(ms for _, ms, _ in rows) if rows else None   # None: not measured
-    emit({"phase": phase, "wall_s": wall, "device_ms": busy_ms,
-          "device_busy_share": busy_ms / 1e3 / wall if rows else None,
-          "device_events": sum(c for _, _, c in rows),
+    summary = {"phase": phase, "wall_s": wall, "device_ms": busy_ms,
+               "device_busy_share": busy_ms / 1e3 / wall if rows else None,
+               "device_events": sum(c for _, _, c in rows)}
+    emit({**summary,
           "top": [{"name": n[:80], "ms": ms, "count": c} for n, ms, c in rows[:top]]})
-    return rows
+    return rows, summary
 
 
 def phase_train(torch, dev, kernels):
@@ -889,8 +923,8 @@ def phase_resnet_train(torch, dev, kernels):
         3.0 * check["f32_cpu_grad_gap_to_cpu_f64"] + TRAIN_TOL), check
     del card32, cpu32, card64, cpu64
 
-    rows = profiled(torch, "resnet_train_profile", lambda: trainer.train_one_batch(batch),
-                    top=24)
+    rows, _ = profiled(torch, "resnet_train_profile", lambda: trainer.train_one_batch(batch),
+                       top=24)
     copies = count_copies(rows)
     del trainer
     # the A/B of the fused statistics, in turns after the run above:
@@ -902,8 +936,8 @@ def phase_resnet_train(torch, dev, kernels):
         want["conv1x1_stats"] = RESNET["launches_per_step"] * n if mode else 0
         assert again["kernel_launches"] == want, (mode, again["kernel_launches"])
         if not mode and len(ab) == 1:
-            plain_rows = profiled(torch, "resnet_plain_profile",
-                                  lambda: other.train_one_batch(batch), top=24)
+            plain_rows, _ = profiled(torch, "resnet_plain_profile",
+                                     lambda: other.train_one_batch(batch), top=24)
         ab.append(again)
         del other
     train = {"phase": "resnet_train", "params": sum(p.numel() for p in params_cpu.values()),
@@ -958,6 +992,278 @@ def phase_resnet_test(torch, dev, kernels, params_cpu):
     return test
 
 
+def visible_pairs(lens, T, causal, H):
+    """(query, key) pairs the mask lets through, over every batch row and head."""
+    L = np.minimum(np.maximum(np.asarray(lens, np.int64), 0), T)
+    per_row = L * (L + 1) // 2 + (T - L) * L if causal else T * L
+    return int(H * per_row.sum())
+
+
+def attn_bytes_flops(B, T, H, D, pairs):
+    """Bytes each input read and each output written once, and operations
+    (2 per multiply-add of the products over the visible pairs: q.k and p.v
+    forward; q.k, dout.v and ds.k for dq; q.k, dout.v, p^T.dout and ds^T.q
+    for dk, dv) of kernels 10, 11 and 12."""
+    x, stat = 4.0 * B * T * H * D, 4.0 * B * H * T
+    return {"flash_attn_fwd": (4 * x + stat + 4 * B, 4.0 * pairs * D),      # q, k, v; out, lse
+            "flash_attn_dq": (5 * x + 2 * stat + 4 * B, 6.0 * pairs * D),   # + dout, delta; dq
+            "flash_attn_dkv": (6 * x + 2 * stat + 4 * B, 8.0 * pairs * D)}  # ...; dk, dv
+
+
+def phase_attn_kernels(torch, dev):
+    """Kernels 10, 11 and 12 against their plain versions at the LM's shape
+    and four others; timings at the LM's shape."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.RandomState(10)
+    B, T, H, D = LM["batch"], LM["seq_len"], LM["heads"], LM["dim"] // LM["heads"]
+    cases = [dict(B=B, T=T, H=H, D=D, causal=True, ragged=False),
+             dict(B=B, T=T, H=H, D=D, causal=False, ragged=True),
+             dict(B=2, T=1000, H=4, D=64, causal=True, ragged=True),
+             dict(B=4, T=1024, H=8, D=32, causal=True, ragged=True),
+             dict(B=2, T=1024, H=4, D=128, causal=True, ragged=True)]
+    out_cases = {name: [] for name in ATTN_KERNELS}
+    sizes = None
+    for i, c in enumerate(cases):
+        b, t, h, d = c["B"], c["T"], c["H"], c["D"]
+        qkv = torch.from_numpy(rng.randn(b, t, 3, h, d).astype(np.float32)).to(dev)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]     # as the layer passes them
+        do = torch.from_numpy(rng.randn(b, t, h, d).astype(np.float32)).to(dev)
+        lens = rng.randint(2, t + 1, b) if c["ragged"] else np.full(b, t)
+        if c["ragged"]:
+            lens[1 % b], lens[-1] = 1, 0
+        lengths = torch.from_numpy(lens.astype(np.int32)).to(dev)
+        causal = c["causal"]
+        key = {**c, "lengths": lens.tolist() if c["ragged"] else "full"}
+
+        out, lse = fa._launch_fwd(q, k, v, lengths, causal, True)
+        light, _ = fa._launch_fwd(q, k, v, lengths, causal, False)
+        ref, ref_lse = fa.flash_forward_reference(q, k, v, lengths, causal)
+        torch.cuda.synchronize()
+        seen = lengths > 0
+        err = float((out - ref).abs().max())
+        lse_err = float((lse - ref_lse)[seen].abs().max())
+        scale = max(1.0, float(ref.abs().max()))
+        assert torch.isfinite(out).all() and err <= TOL * scale, (key, err)
+        assert lse_err <= TOL and bool((lse[~seen] == -1e30).all()), (key, lse_err)
+        assert torch.equal(light, out), key
+        out_cases["flash_attn_fwd"].append({**key, "max_abs_err": err, "lse_max_abs_err": lse_err})
+
+        delta = torch.sum(do * ref, dim=-1).transpose(1, 2).contiguous()
+        args = (q, k, v, do, ref_lse, delta, lengths, causal)
+        dq, (dk, dv) = fa._launch_dq(*args), fa._launch_dkv(*args)
+        dq2, (dk2, dv2) = fa._launch_dq(*args), fa._launch_dkv(*args)
+        want = (fa.flash_dq_reference(*args),) + fa.flash_dkv_reference(*args)
+        torch.cuda.synchronize()
+        same = torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2)
+        assert same, ("flash backward not deterministic", key)
+        errs = [float((a - w).abs().max()) for a, w in zip((dq, dk, dv), want)]
+        rel = [e / max(1.0, float(w.abs().max())) for e, w in zip(errs, want)]
+        assert all(torch.isfinite(a).all() for a in (dq, dk, dv)) and max(rel) <= TOL, (key, rel)
+        out_cases["flash_attn_dq"].append({**key, "max_abs_err": errs[0],
+                                           "err_over_scale": rel[0], "bit_equal_launches": same})
+        out_cases["flash_attn_dkv"].append({**key, "max_abs_err": max(errs[1:]),
+                                            "err_over_scale": max(rel[1:]),
+                                            "bit_equal_launches": same})
+        del ref, want, dq2, dk2, dv2
+        if i:
+            continue
+        # the LM's shape: kernel, plain version and PyTorch's attention
+        sizes = attn_bytes_flops(b, t, h, d, visible_pairs(lens, t, causal, h))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib = [a.transpose(1, 2).contiguous().requires_grad_() for a in (q, k, v)]
+        lib_out = sdpa(*lib, is_causal=True)
+        lib_do = do.transpose(1, 2).contiguous()
+        lib_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(lib_out, lib, lib_do,
+                                                                retain_graph=True))
+        out_cases["flash_attn_fwd"][-1].update(
+            ms=time_ms(torch, lambda: fa._launch_fwd(q, k, v, lengths, causal, True)),
+            light_ms=time_ms(torch, lambda: fa._launch_fwd(q, k, v, lengths, causal, False)),
+            plain_ms=time_ms(torch, lambda: fa.flash_forward_reference(q, k, v, lengths, causal),
+                             reps=5),
+            library_ms=time_ms(torch, lambda: sdpa(*lib, is_causal=True)))
+        out_cases["flash_attn_dq"][-1].update(
+            ms=time_ms(torch, lambda: fa._launch_dq(*args)),
+            plain_ms=time_ms(torch, lambda: fa.flash_dq_reference(*args), reps=5),
+            library_ms=lib_bwd_ms)
+        out_cases["flash_attn_dkv"][-1].update(
+            ms=time_ms(torch, lambda: fa._launch_dkv(*args)),
+            plain_ms=time_ms(torch, lambda: fa.flash_dkv_reference(*args), reps=5),
+            library_ms=lib_bwd_ms)
+        del lib, lib_out, lib_do
+    emit({"phase": "attn_kernels", "cases": out_cases})
+    shape = {k_: cases[0][k_] for k_ in ("B", "T", "H", "D", "causal")}
+    return {name: dict(cases=out_cases[name], shape=shape, bytes=sizes[name][0],
+                       flops=sizes[name][1]) for name in ATTN_KERNELS}
+
+
+FAMILIES = (("flash attention (kernels 10-12)", ("flash_",)),
+            ("products (cuBLAS)", ("gemm", "cutlass", "xmma", "gemv")),
+            ("reductions (softmax, cross-entropy, sums)", ("reduce", "softmax")),
+            ("copies and fills", ("copy", "memcpy", "memset", "fill", "transpose", "cat")),
+            ("elementwise (activations, residuals, Adam)", ("",)))
+
+
+def by_family(rows):
+    """Device ms and events of a profile's rows, summed by kernel family."""
+    out = {name: {"ms": 0.0, "count": 0} for name, _ in FAMILIES}
+    for n, ms, c in rows:
+        name = next(f for f, keys in FAMILIES if any(k in n.lower() for k in keys))
+        out[name]["ms"] += ms
+        out[name]["count"] += c
+    return out
+
+
+def lm_cpu_step(trainer, params_cpu, tc):
+    """A B = 2, T = 256 step on the card against the same step on the CPU.
+
+    The loss is held to TRAIN_TOL. The gradients cannot always be: a ReLU
+    gate of an FFN whose pre-activation lies within float32 rounding of 0
+    (|x| ~ 1e-8 among 10^6 of them) opens on one device and stays shut on
+    the other, which moves that unit's bias gradient by one token's
+    gradient, ~1% of scale, and the CPU's own float32 step differs from its
+    float64 one the same way. So the gates on which the card and the CPU in
+    float64 disagree must all lie within GATE_EPS of 0 (of the largest
+    |pre-activation|), and every gradient is held to TRAIN_TOL against the
+    CPU's float64 step taken with the card's gates. The plain comparisons,
+    card and CPU float32 against the CPU in float64, are reported."""
+    import torch
+
+    from paddle_tpu_torch.flagship import lm_batch
+    from paddle_tpu_torch.graph import GradientMachine
+    from paddle_tpu_torch.layers import core
+
+    small = dict(vocab=LM["vocab"], B=LM["cpu_batch"], T=LM["cpu_T"], seed=2)
+    loss_g, grads_g, outs_g, _ = trainer.gm.grad_fn()(
+        trainer.params, lm_batch(device=trainer.device, **small))
+    relu = [l.name for l in tc.model_config.layers if l.active_type == "relu"]   # the FFNs
+    gates = {n: outs_g[n].value.detach().cpu() > 0 for n in relu}
+    cpu = GradientMachine(tc.model_config, device="cpu")
+    batch = lm_batch(device="cpu", **small)
+    p64 = {k: v.double() for k, v in params_cpu.items()}
+    loss32, grads32, _, _ = cpu.grad_fn()(params_cpu, batch)
+    loss64, grads64, outs64, _ = cpu.grad_fn()(p64, batch)
+
+    finalize = core.finalize_output
+
+    def card_gates(cfg, value, ctx, mask=None):     # relu(x) = x * [x > 0], the card's [.]
+        if cfg.name not in gates:
+            return finalize(cfg, value, ctx, mask)
+        return (value + ctx.param(cfg.bias_parameter_name)) * gates[cfg.name].double()
+
+    core.finalize_output = card_gates
+    try:
+        _, grads_gated, _, _ = cpu.grad_fn()(p64, batch)
+    finally:
+        core.finalize_output = finalize
+    source = {l.name: l.inputs[0].input_layer_name for l in tc.model_config.layers if l.inputs}
+    flips = {}
+    for n in relu:
+        pre = outs64[source[n]].value.detach() @ p64[f"_{n}.w0"] + p64[f"_{n}.wbias"]
+        differ = gates[n] != (pre > 0)
+        flips[n] = {"count": int(differ.sum()),
+                    "max_abs_pre": float(pre[differ].abs().max()) if differ.any() else 0.0,
+                    "pre_scale": float(pre.abs().max())}
+    rel = lambda a, b: float((a.double().cpu() - b).abs().max()) / max(1.0, float(b.abs().max()))
+    gap = lambda got, want: max(rel(got[n_], want[n_]) for n_ in want)
+    check = {"loss_rel_err": abs(float(loss_g) - float(loss64)) / max(1.0, abs(float(loss64))),
+             "grad_max_err_over_scale_same_gates": gap(grads_g, grads_gated),
+             "gate_flips": flips,
+             "card_grad_gap_to_cpu_f64": gap(grads_g, grads64),
+             "cpu_f32_grad_gap_to_cpu_f64": gap(grads32, grads64),
+             "card_grad_gap_to_cpu_f32": gap(grads_g, grads32)}
+    assert check["loss_rel_err"] <= TRAIN_TOL, check
+    assert all(f["max_abs_pre"] <= GATE_EPS * f["pre_scale"] for f in flips.values()), check
+    assert check["grad_max_err_over_scale_same_gates"] <= TRAIN_TOL, check
+    return check
+
+
+def phase_lm_train(torch, dev, kernels):
+    """The long-context LM's train step on the card: 8 Adam steps through
+    Trainer with the launch counts of that run, a B = 2, T = 256 step
+    against the CPU, and one profiled step."""
+    from paddle_tpu_torch.flagship import lm_batch, long_context_config
+    from paddle_tpu_torch.trainer import Trainer
+
+    tc = long_context_config(vocab=LM["vocab"], seq_len=LM["seq_len"], dim=LM["dim"],
+                             heads=LM["heads"], blocks=LM["blocks"], batch_size=LM["batch"])
+    trainer = Trainer(tc, seed=1)                           # device=None: the card
+    batch = lm_batch(LM["vocab"], B=LM["batch"], T=LM["seq_len"], seed=1, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for k in kernels:
+        k.launches = 0
+    losses, step_s = [], []
+    for _ in range(LM["steps"]):
+        t0 = time.perf_counter()
+        loss = trainer.train_one_batch(batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    launches = {k.symbol: k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated(dev)
+    n = LM["steps"]
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    want = {k.symbol: 0 for k in kernels}
+    want.update({name: LM["blocks"] * n for name in ATTN_KERNELS})
+    assert launches == want, (launches, want)
+    step_ms = 1e3 * statistics.median(step_s[1:])
+
+    params_cpu = {k: v.cpu() for k, v in trainer.params.items()}
+    cpu_step = lm_cpu_step(trainer, params_cpu, tc)
+
+    rows, prof = profiled(torch, "lm_train_profile", lambda: trainer.train_one_batch(batch),
+                          top=24)
+    tokens = LM["batch"] * LM["seq_len"]                  # B * T target tokens per step
+    train = {"phase": "lm_train", "params": sum(p.numel() for p in params_cpu.values()),
+             "batch": LM["batch"], "T": LM["seq_len"], "steps": n,
+             "step_ms": step_ms, "step_ms_all": [1e3 * x for x in step_s],
+             "target_tokens_per_step": tokens, "target_tokens_per_s": tokens / (step_ms / 1e3),
+             "peak_memory_bytes": peak, "losses": losses, "kernel_launches": launches,
+             "cpu_step": cpu_step,
+             "profiled_step": {**prof, "by_family": by_family(rows),
+                               "host_gap_ms": 1e3 * prof["wall_s"] - (prof["device_ms"] or 0.0)}}
+    emit(train)
+    return train, trainer
+
+
+def phase_lm_test(torch, dev, kernels, trainer):
+    """Trainer.test on the card after the steps: launches, and a B = 2,
+    T = 256 batch against the CPU."""
+    from paddle_tpu_torch.flagship import lm_batch
+    from paddle_tpu_torch.trainer import Trainer
+
+    batches = [lm_batch(LM["vocab"], B=LM["batch"], T=LM["seq_len"], seed=10 + i, device=dev)
+               for i in range(LM["test_batches"])]
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    results = trainer.test(batches)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.symbol: k.launches for k in kernels}
+    want = {k.symbol: 0 for k in kernels}
+    want["flash_attn_fwd"] = LM["blocks"] * LM["test_batches"]
+    assert launches == want, (launches, want)
+    assert np.isfinite(results["cost"]), results
+
+    small = dict(vocab=LM["vocab"], B=LM["cpu_batch"], T=LM["cpu_T"], seed=3)
+    on_card = trainer.test([lm_batch(device=dev, **small)])
+    cpu = Trainer(trainer.config, device="cpu")
+    cpu.params = {k: v.cpu() for k, v in trainer.params.items()}
+    on_cpu = cpu.test([lm_batch(device="cpu", **small)])
+    err_key = next(e.name for e in trainer.config.model_config.evaluators) + \
+        ".classification_error"
+    cost_err = abs(on_card["cost"] - on_cpu["cost"]) / abs(on_cpu["cost"])
+    assert cost_err <= TOL and on_card[err_key] == on_cpu[err_key], (on_card, on_cpu)
+    test = {"phase": "lm_test", "batches": LM["test_batches"], "batch": LM["batch"],
+            "T": LM["seq_len"], "wall_s": wall, "results": results, "kernel_launches": launches,
+            "cpu_cost_rel_err": cost_err, "cpu_classification_error": on_cpu[err_key]}
+    emit(test)
+    return test
+
+
 def main() -> int:
     import torch
 
@@ -969,13 +1275,16 @@ def main() -> int:
     from paddle_tpu_torch.ops import fused_conv1x1_bn as fc
     from paddle_tpu_torch.ops import fused_gru as fg
     from paddle_tpu_torch.ops import fused_lstm as fl
+    from paddle_tpu_torch.ops import flash_attention as fl_attn
 
     dev = resolve_device(None)                       # also turns TF32 off
-    kernels = list(fg.KERNELS) + list(fa.KERNELS) + list(fl.KERNELS) + list(fc.KERNELS)
+    kernels = (list(fg.KERNELS) + list(fa.KERNELS) + list(fl.KERNELS) + list(fc.KERNELS)
+               + list(fl_attn.KERNELS))
     phase_build(kernels)
     k = phase_kernels(torch, dev)
     k.update(phase_lstm_kernels(torch, dev))
     k.update(phase_conv_kernels(torch, dev))
+    k.update(phase_attn_kernels(torch, dev))
     serve = phase_serve(torch, dev, kernels)
     train = phase_train(torch, dev, kernels)
     lstm_train, trainer, batch, err_key, err_before = phase_lstm_train(torch, dev, kernels)
@@ -983,6 +1292,10 @@ def main() -> int:
     del trainer, batch
     resnet_train, resnet_params = phase_resnet_train(torch, dev, kernels)
     resnet_test = phase_resnet_test(torch, dev, kernels, resnet_params)
+    del resnet_params
+    lm_train, lm_trainer = phase_lm_train(torch, dev, kernels)
+    lm_test = phase_lm_test(torch, dev, kernels, lm_trainer)
+    del lm_trainer
 
     meta = {
         "gru_fwd": ("paddle_tpu_torch/csrc/gru_fwd.cu",
@@ -1008,6 +1321,13 @@ def main() -> int:
                      "paddle_tpu/ops/pallas_lstm.py:201 (_bwd_kernel; pallas_call :341)"),
         "conv1x1_stats": ("paddle_tpu_torch/csrc/conv1x1_bn.cu",
                           "paddle_tpu/ops/pallas_conv1x1_bn.py:115 (_kernel; pallas_call :159)"),
+        "flash_attn_fwd": ("paddle_tpu_torch/csrc/flash_attn_fwd.cu",
+                           "paddle_tpu/ops/pallas_attention.py:56 (_fwd_kernel; pallas_call :173)"),
+        "flash_attn_dq": ("paddle_tpu_torch/csrc/flash_attn_bwd.cu",
+                          "paddle_tpu/ops/pallas_attention.py:91 (_dq_kernel; pallas_call :202)"),
+        "flash_attn_dkv": ("paddle_tpu_torch/csrc/flash_attn_bwd.cu",
+                           "paddle_tpu/ops/pallas_attention.py:121 "
+                           "(_dkv_kernel; pallas_call :215)"),
     }
     gru_note = ("no single PyTorch call computes this function (torch.nn.GRU applies the "
                 "reset gate after the recurrent product, a different cell)")
@@ -1016,16 +1336,26 @@ def main() -> int:
     conv_note = ("torch.addmm(b, x, w.t()) at each shape, summed over a step's 30 launches: "
                  "the product alone, since no single PyTorch call also returns the column "
                  "statistics")
+    attn_notes = {
+        "flash_attn_fwd": ("torch.nn.functional.scaled_dot_product_attention(q, k, v, "
+                           "is_causal=True) in [B, H, T, D] at full lengths"),
+        "flash_attn_dq": ("the backward of scaled_dot_product_attention(q, k, v, is_causal=True) "
+                          "by autograd (dq, dk and dv together), against kernels 11 + 12"),
+    }
+    attn_notes["flash_attn_dkv"] = attn_notes["flash_attn_dq"]
     # each kernel's launches are counted on its own main path
     paths = {"serve": serve, "train": train, "lstm_train": lstm_train, "lstm_test": lstm_test,
-             "resnet_train": resnet_train, "resnet_test": resnet_test}
+             "resnet_train": resnet_train, "resnet_test": resnet_test, "lm_train": lm_train,
+             "lm_test": lm_test}
     path_of = {name: ("train" if name in TRAIN_KERNELS else
                       "lstm_test" if name == "lstm_fwd" else
                       "lstm_train" if name in LSTM_KERNELS else
-                      "resnet_train" if name == "conv1x1_stats" else "serve") for name in k}
+                      "resnet_train" if name == "conv1x1_stats" else
+                      "lm_train" if name in ATTN_KERNELS else "serve") for name in k}
     rows = []
     for name, r in k.items():
-        main_case = r["cases"][0]     # forward / Td = 1 (serve); not reversed (train); default acts
+        # forward / Td = 1 (serve); not reversed (train); default acts; the LM's shape
+        main_case = r["cases"][0]
         # kernel 9 runs at nine shapes: its row is one train step's 30 launches
         times = r.get("per_step", main_case)
         b_ms, b_by = bound(r["bytes"], r["flops"])
@@ -1038,6 +1368,7 @@ def main() -> int:
             "max_abs_err": err, "ms": times["ms"], "plain_ms": times["plain_ms"],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": times.get("library_ms"),
             "library_note": (conv_note if name == "conv1x1_stats" else
+                             attn_notes[name] if name in ATTN_KERNELS else
                              lstm_note if name in LSTM_KERNELS else gru_note),
             "main_path": path_of[name],
             "max_err": err, "kernel_ms": times["ms"], "bytes": r["bytes"],

@@ -1,11 +1,12 @@
 """The model builders of the port: the seqToseq NMT model, the LSTM text
-classifier and ResNet.
+classifier, ResNet and the long-context causal LM.
 
 :func:`gru_encoder_decoder` is this package's copy of
 ``demo/seqToseq/seqToseq_net.py`` (bidirectional GRU encoder, Bahdanau
 attention, GRU decoder), and :func:`flagship_config` the JAX package's
 stacked-LSTM classifier (``paddle_tpu.flagship.flagship_config``) and
-:func:`resnet_config` a copy of ``demo/model_zoo/resnet/resnet.py``, all
+:func:`resnet_config` a copy of ``demo/model_zoo/resnet/resnet.py`` and
+:func:`long_context_config` one of ``demo/long_context/trainer_config.py``, all
 written against ``paddle_tpu_torch.trainer_config_helpers``, so the same
 DSL builds the same ``ModelConfig`` as the JAX package's builders. The
 batch builders draw from numpy with the JAX package's draws, so both
@@ -46,6 +47,7 @@ from paddle_tpu_torch.trainer_config_helpers import (
     img_pool_layer,
     memory,
     mixed_layer,
+    multi_head_attention_layer,
     outputs,
     pooling_layer,
     recurrent_group,
@@ -286,4 +288,54 @@ def make_image_batch(B, img_size, classes, seed=0, device: DeviceLike = None):
         "input": make_dense(rng.randn(B, 3 * img_size * img_size).astype(np.float32),
                             device=dev),
         "label": make_ids(rng.randint(0, classes, (B,)).astype(np.int32), device=dev),
+    }
+
+
+def long_context_config(vocab=500, seq_len=256, dim=64, heads=4, blocks=2, batch_size=8):
+    """The long-context causal LM: this package's copy of
+    ``demo/long_context/trainer_config.py`` on one device (no mesh), with
+    its ``get_config_arg`` knobs as arguments. A token embedding, then
+    ``blocks`` norm-free blocks of causal multi-head attention and a ReLU
+    FFN with ``addto`` residuals, a softmax head and
+    ``classification_cost``; Adam at lr 1e-3. ``seq_len`` is the demo
+    provider's, and shapes nothing here: batches come from
+    :func:`lm_batch`."""
+    with fresh_context() as ctx:
+        settings(batch_size=batch_size, learning_rate=1e-3,
+                 learning_method=AdamOptimizer(), mesh_shape=None, dtype="float32")
+        words = data_layer(name="words", size=vocab)
+        x = embedding_layer(input=words, size=dim, param_attr=ParamAttr(name="tok_emb"))
+        for i in range(blocks):
+            att = multi_head_attention_layer(input=x, num_heads=heads, causal=True,
+                                             seq_parallel="", name=f"block{i}_att")
+            x = addto_layer(input=[x, att], name=f"block{i}_res1", bias_attr=False)
+            ffn = fc_layer(input=x, size=4 * dim, act=ReluActivation(), name=f"block{i}_ffn1")
+            ffn = fc_layer(input=ffn, size=dim, act=LinearActivation(), name=f"block{i}_ffn2")
+            x = addto_layer(input=[x, ffn], name=f"block{i}_res2", bias_attr=False)
+        logits = fc_layer(input=x, size=vocab, act=SoftmaxActivation(), name="lm_head")
+        next_words = data_layer(name="next_words", size=vocab)
+        outputs(classification_cost(input=logits, label=next_words))
+        return ctx.finalize()
+
+
+def lm_batch(vocab=500, B=8, T=256, seed=0, device: DeviceLike = None):
+    """A batch of the demo provider's planted-bigram language
+    (``demo/long_context/dataprovider.py``), drawn with numpy from ``seed``:
+    each successor lies in the 8-token window starting at (7 * token) %
+    vocab. ``words`` are the first T tokens of each row, ``next_words`` the
+    T that follow them; both full length."""
+    from paddle_tpu_torch.device import resolve_device
+    from paddle_tpu_torch.graph import make_seq
+
+    dev = resolve_device(device)
+    rng = np.random.RandomState(seed)
+    toks = np.empty((B, T + 1), np.int64)
+    toks[:, 0] = rng.randint(vocab, size=B)
+    offsets = rng.randint(8, size=(B, T))
+    for t in range(T):
+        toks[:, t + 1] = ((toks[:, t] * 7) % vocab + offsets[:, t]) % vocab
+    lengths = np.full((B,), T, np.int32)
+    return {
+        "words": make_seq(None, lengths, ids=toks[:, :-1].astype(np.int32), device=dev),
+        "next_words": make_seq(None, lengths, ids=toks[:, 1:].astype(np.int32), device=dev),
     }

@@ -1,0 +1,217 @@
+"""Length-masked, optionally causal flash attention: CUDA kernels 10, 11 and
+12 and their plain versions.
+
+Port of ``paddle_tpu/ops/pallas_attention.py``: the forward with its
+log-sum-exp (``_fwd_kernel`` -> ``csrc/flash_attn_fwd.cu::flash_attn_fwd``)
+and the FlashAttention-2 backward in two kernels (``_dq_kernel`` ->
+``csrc/flash_attn_bwd.cu::flash_attn_dq``, ``_dkv_kernel`` ->
+``flash_attn_dkv``). Semantics are exactly the Pallas kernels': scale
+1/sqrt(D) (on q in the forward, on q.k in the backward, as there); a key is
+visible to a query when it lies before the row's length and, with
+``causal``, not after the query; a query that sees no key gets out = 0 and
+lse = -1e30; the backward recomputes p = exp(s - lse) where visible (0
+elsewhere) and ds = p (dp - delta) scale with delta = sum(dout * out).
+
+Layout: q, k, v, out and their gradients are [B, T, H, D] (the
+``sequence_parallel`` layout; the kernels read any batch, time and head
+strides, so the multi-head layer's views of its fused qkv projection cost
+no copy); lse and delta are [B, H, T], as the Pallas kernels hold them.
+
+:func:`flash_attention` launches the kernels for a CUDA tensor and raises on
+anything they do not take: the forward with lse and the two backward
+kernels (a ``torch.autograd.Function``) when grad mode is on and an input
+requires a gradient, the forward alone otherwise. For a CPU tensor the same
+function runs the plain versions, which materialise [B, H, T, T].
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from paddle_tpu_torch.ops._build import I32, I64, PTR, CudaKernel, check, ptr
+from paddle_tpu_torch.ops.fused_gru import _last_dim_contiguous
+
+Tensor = torch.Tensor
+
+_NEG = -1e30
+MAX_D = 256                          # the kernels' register and shared-memory tiles
+MAX_GRID = 65535                     # heads and batch rows are grid dimensions
+
+_QKV = [PTR, I64, I64, I64] * 3      # q, k, v with their batch, time and head strides
+_STRIDED = [PTR, I64, I64, I64]
+_SHAPE = [I32, I32, I32, I32, I32]   # B, T, H, D, causal
+FLASH_ATTN_FWD = CudaKernel(
+    "flash_attn_fwd.cu", "flash_attn_fwd",
+    _QKV + [PTR] + _STRIDED + [PTR] + _SHAPE)             # lengths; out; lse (or null)
+FLASH_ATTN_DQ = CudaKernel(
+    "flash_attn_bwd.cu", "flash_attn_dq",
+    _QKV + _STRIDED + [PTR, PTR, PTR] + _STRIDED + _SHAPE)   # dout; lse, delta, lengths; dq
+FLASH_ATTN_DKV = CudaKernel(
+    "flash_attn_bwd.cu", "flash_attn_dkv",
+    _QKV + _STRIDED + [PTR, PTR, PTR] + _STRIDED * 2 + _SHAPE)   # ...; dk, dv
+KERNELS = (FLASH_ATTN_FWD, FLASH_ATTN_DQ, FLASH_ATTN_DKV)
+
+
+def _visible(lengths: Tensor, Tq: int, Tk: int, causal: bool) -> Tensor:
+    """[B, 1, Tq, Tk] mask: key < length and, with ``causal``, key <= query."""
+    kv = torch.arange(Tk, device=lengths.device)
+    m = kv[None, None, None, :] < lengths.long()[:, None, None, None]
+    if causal:
+        q = torch.arange(Tq, device=lengths.device)
+        m = m & (kv[None, :] <= q[:, None])[None, None]
+    return m
+
+
+def flash_forward_reference(q: Tensor, k: Tensor, v: Tensor, lengths: Tensor,
+                            causal: bool) -> Tuple[Tensor, Tensor]:
+    """Plain PyTorch version of kernel 10: q, k, v [B, T, H, D], lengths [B]
+    -> (out [B, T, H, D], lse [B, H, T]). The Pallas kernel's online softmax
+    over one tile of every key."""
+    T, D = q.shape[1], q.shape[3]
+    scale = 1.0 / math.sqrt(D)
+    msk = _visible(lengths, T, T, causal)
+    s = torch.einsum("bqhd,bkhd->bhqk", q * scale, k)
+    s = torch.where(msk, s, torch.full_like(s, _NEG))
+    m = torch.amax(s, dim=-1)
+    p = torch.where(msk, torch.exp(s - m[..., None]), torch.zeros_like(s))
+    l = torch.sum(p, dim=-1)
+    l_safe = torch.clamp(l, min=1e-20)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v) / l_safe.transpose(1, 2)[..., None]
+    lse = torch.where(l > 0, m + torch.log(l_safe), torch.full_like(m, _NEG))
+    return out, lse
+
+
+def _scores_backward(q, k, v, dout, lse, delta, lengths, causal):
+    """p and ds [B, H, T, T] of the Pallas backward kernels."""
+    T, D = q.shape[1], q.shape[3]
+    scale = 1.0 / math.sqrt(D)
+    msk = _visible(lengths, T, T, causal)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    p = torch.where(msk, torch.exp(s - lse[..., None]), torch.zeros_like(s))
+    dp = torch.einsum("bqhd,bkhd->bhqk", dout, v)
+    return p, p * (dp - delta[..., None]) * scale
+
+
+def flash_dq_reference(q: Tensor, k: Tensor, v: Tensor, dout: Tensor, lse: Tensor,
+                       delta: Tensor, lengths: Tensor, causal: bool) -> Tensor:
+    """Plain PyTorch version of kernel 11: dq [B, T, H, D] = sum_k ds k."""
+    _, ds = _scores_backward(q, k, v, dout, lse, delta, lengths, causal)
+    return torch.einsum("bhqk,bkhd->bqhd", ds, k)
+
+
+def flash_dkv_reference(q: Tensor, k: Tensor, v: Tensor, dout: Tensor, lse: Tensor,
+                        delta: Tensor, lengths: Tensor, causal: bool) -> Tuple[Tensor, Tensor]:
+    """Plain PyTorch version of kernel 12: dk = sum_q ds q, dv = sum_q p dout."""
+    p, ds = _scores_backward(q, k, v, dout, lse, delta, lengths, causal)
+    return (torch.einsum("bhqk,bqhd->bkhd", ds, q),
+            torch.einsum("bhqk,bqhd->bkhd", p, dout))
+
+
+def _check_operands(q: Tensor, k: Tensor, v: Tensor, lengths: Tensor) -> Tuple[int, int, int, int]:
+    if q.dim() != 4:
+        raise ValueError(f"flash attention takes q, k, v [B, T, H, D], got {tuple(q.shape)}")
+    B, T, H, D = q.shape
+    dev = q.device
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        check(t, name, (B, T, H, D), dev, contiguous=False)
+    if lengths.shape != (B,) or lengths.device != dev or lengths.dtype != torch.int32:
+        raise ValueError(f"lengths must be int32 [{B}] on {dev}, got {lengths.dtype} "
+                         f"{tuple(lengths.shape)} on {lengths.device}")
+    if not (1 <= D <= MAX_D) or T < 1 or not (1 <= H <= MAX_GRID) or not (1 <= B <= MAX_GRID):
+        raise ValueError(f"the flash kernels take 1 <= D <= {MAX_D}, T >= 1 and "
+                         f"1 <= B, H <= {MAX_GRID}; got B={B}, T={T}, H={H}, D={D}")
+    return B, T, H, D
+
+
+def _strided(t: Tensor):
+    return [ptr(t), t.stride(0), t.stride(1), t.stride(2)]
+
+
+def _launch_fwd(q, k, v, lengths, causal, with_lse):
+    B, T, H, D = _check_operands(q, k, v, lengths)
+    out = torch.empty((B, T, H, D), device=q.device)
+    lse = torch.empty((B, H, T), device=q.device) if with_lse else None
+    FLASH_ATTN_FWD.launch(q.device, *_strided(q), *_strided(k), *_strided(v), ptr(lengths),
+                          *_strided(out), None if lse is None else ptr(lse),
+                          B, T, H, D, int(bool(causal)))
+    return out, lse
+
+
+def _check_backward(q, k, v, dout, lse, delta, lengths):
+    B, T, H, D = _check_operands(q, k, v, lengths)
+    check(dout, "dout", (B, T, H, D), q.device, contiguous=False)
+    check(lse, "lse", (B, H, T), q.device)
+    check(delta, "delta", (B, H, T), q.device)
+    return [*_strided(q), *_strided(k), *_strided(v), *_strided(dout),
+            ptr(lse), ptr(delta), ptr(lengths)], (B, T, H, D)
+
+
+def _launch_dq(q, k, v, dout, lse, delta, lengths, causal):
+    args, (B, T, H, D) = _check_backward(q, k, v, dout, lse, delta, lengths)
+    dq = torch.empty((B, T, H, D), device=q.device)
+    FLASH_ATTN_DQ.launch(q.device, *args, *_strided(dq), B, T, H, D, int(bool(causal)))
+    return dq
+
+
+def _launch_dkv(q, k, v, dout, lse, delta, lengths, causal):
+    args, (B, T, H, D) = _check_backward(q, k, v, dout, lse, delta, lengths)
+    dk, dv = (torch.empty((B, T, H, D), device=q.device) for _ in range(2))
+    FLASH_ATTN_DKV.launch(q.device, *args, *_strided(dk), *_strided(dv),
+                          B, T, H, D, int(bool(causal)))
+    return dk, dv
+
+
+def _forward(q, k, v, lengths, causal, with_lse):
+    if q.device.type == "cpu":
+        out, lse = flash_forward_reference(q, k, v, lengths, causal)
+        return out, (lse if with_lse else None)
+    return _launch_fwd(q, k, v, lengths, causal, with_lse)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Kernel 10 with lse saved, then kernels 11 and 12 (the plain versions
+    on the CPU); delta = sum(dout * out) in plain torch between them, as the
+    JAX package computes it outside its kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, lengths, causal):
+        out, lse = _forward(q, k, v, lengths, causal, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse, lengths)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse, lengths = ctx.saved_tensors
+        dout = _last_dim_contiguous(dout)
+        delta = torch.sum(dout * out, dim=-1).transpose(1, 2).contiguous()   # [B, H, T]
+        if q.device.type == "cpu":
+            dq = flash_dq_reference(q, k, v, dout, lse, delta, lengths, ctx.causal)
+            dk, dv = flash_dkv_reference(q, k, v, dout, lse, delta, lengths, ctx.causal)
+        else:
+            dq = _launch_dq(q, k, v, dout, lse, delta, lengths, ctx.causal)
+            dk, dv = _launch_dkv(q, k, v, dout, lse, delta, lengths, ctx.causal)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q: Tensor, k: Tensor, v: Tensor, lengths: Optional[Tensor] = None,
+                    causal: bool = False) -> Tensor:
+    """Attention over [B, T, H, D] q, k, v (any batch, time and head strides,
+    the last dimension contiguous) with keys masked at or past ``lengths``
+    [B] (full length when None) and, with ``causal``, past the query ->
+    out [B, T, H, D] (contiguous). Outputs at padded query rows attend to
+    the row's valid keys; a row of length 0 gives zeros."""
+    B, T = q.shape[0], q.shape[1]
+    if lengths is None:
+        lengths = torch.full((B,), T, dtype=torch.int32, device=q.device)
+    elif lengths.dtype != torch.int32:
+        lengths = lengths.to(torch.int32)
+    causal = bool(causal)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        if q.device.type != "cpu":
+            _check_operands(q, k, v, lengths)
+        return _FlashAttention.apply(q, k, v, lengths, causal)
+    return _forward(q, k, v, lengths, causal, with_lse=False)[0]

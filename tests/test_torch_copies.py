@@ -113,19 +113,21 @@ def test_kernel_builds_are_keyed_by_their_sources():
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import fused_attention_gru as fa
     from paddle_tpu_torch.ops import fused_conv1x1_bn as fc
+    from paddle_tpu_torch.ops import flash_attention as fl_attn
     from paddle_tpu_torch.ops import fused_gru as fg
     from paddle_tpu_torch.ops import fused_lstm as fl
 
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
-    kernels = fg.KERNELS + fa.KERNELS + fl.KERNELS + fc.KERNELS
-    assert len({k.symbol for k in kernels}) == 10
+    kernels = fg.KERNELS + fa.KERNELS + fl.KERNELS + fc.KERNELS + fl_attn.KERNELS
+    assert len({k.symbol for k in kernels}) == 13
     # a kernel and its training variant share one source and its library
     paths = {k.library_path() for k in kernels}
     assert {os.path.basename(p).split("-")[0] for p in paths} == {
         "gru_fwd", "gru_bwd", "attention_gru_fwd", "attention_gru_bwd", "lstm_fwd", "lstm_bwd",
-        "conv1x1_bn"}
+        "conv1x1_bn", "flash_attn_fwd", "flash_attn_bwd"}
     assert fg.GRU_FWD.library_path() == fg.GRU_FWD_TRAIN.library_path()
     assert fl.LSTM_FWD.library_path() == fl.LSTM_FWD_TRAIN.library_path()
+    assert fl_attn.FLASH_ATTN_DQ.library_path() == fl_attn.FLASH_ATTN_DKV.library_path()
     for p in paths:
         assert p.startswith(os.path.join(REPO, "build", "paddle_tpu_torch") + os.sep)
     for k in kernels:
@@ -142,8 +144,9 @@ def test_training_wrappers_take_the_plain_version_on_the_cpu():
     from paddle_tpu_torch.ops import fused_conv1x1_bn as fc
     from paddle_tpu_torch.ops import fused_gru as fg
     from paddle_tpu_torch.ops import fused_lstm as fl
+    from paddle_tpu_torch.ops.flash_attention import KERNELS as FLASH_KERNELS, flash_attention
 
-    kernels = fg.KERNELS + fa.KERNELS + fl.KERNELS + fc.KERNELS
+    kernels = fg.KERNELS + fa.KERNELS + fl.KERNELS + fc.KERNELS + FLASH_KERNELS
     before = [k.launches for k in kernels]
     x3 = torch.randn(3, 2, 12, requires_grad=True)
     fg.fused_gru(x3, torch.ones(3, 2), torch.randn(4, 12)).sum().backward()
@@ -159,6 +162,11 @@ def test_training_wrappers_take_the_plain_version_on_the_cpu():
     (y.sum() + s.sum() + q.sum()).backward()
     assert x.grad is not None
     fc.conv1x1_stats(x.detach(), torch.randn(3, 4))
+    q = torch.randn(2, 5, 3, 4, requires_grad=True)
+    flash_attention(q, q, q, causal=True).sum().backward()
+    assert q.grad is not None
+    with torch.no_grad():
+        flash_attention(q, q, q, lengths=torch.tensor([5, 0]))
     assert [k.launches for k in kernels] == before
 
 

@@ -6,13 +6,16 @@ machine with the card and no JAX run them without it:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 
-Kernels 1-8 (GRU, attention GRU, LSTM; inference, training and backward)
-and kernel 9 (the 1x1 conv with batch-norm statistics). Tolerance 1e-4
+Kernels 1-8 (GRU, attention GRU, LSTM; inference, training and backward),
+kernel 9 (the 1x1 conv with batch-norm statistics) and kernels 10-12
+(flash attention, its dQ and its dK/dV). Tolerance 1e-4
 absolute in float32 with TF32 off (sums over K terms taken in another
 order than the plain version's matmuls); gradients 1e-4 times max(1,
 max |plain gradient|), since a weight gradient sums over every (step, row)
 pair as well. Kernel 9's y is held to 1e-4 of max(1, max |y|) (sums of
 up to 2048 products), its s and q to 1e-5 of Σ|y| and Σy² per channel.
+The flash kernels' out and gradients are held to 1e-4 of max(1, max
+|plain|), lse to 1e-4 absolute on rows that see a key.
 """
 
 import numpy as np
@@ -380,3 +383,121 @@ def test_resnet_step_launches_kernel9_for_every_1x1_stride1_conv(dev):
     assert fc.CONV1X1_STATS.launches == before + 30 and torch.isfinite(loss)
     out = trainer.test([batch])
     assert fc.CONV1X1_STATS.launches == before + 30 and np.isfinite(out["cost"])
+
+
+FLASH_CASES = [(2, 100, 3, 16, True), (2, 100, 3, 16, False), (1, 1, 1, 8, True),
+               (3, 257, 2, 64, True), (3, 257, 2, 64, False), (2, 75, 2, 24, True),
+               (2, 130, 2, 128, True), (1, 70, 1, 256, False), (1, 70, 1, 256, True)]
+
+
+def _flash_inputs(dev, B, T, H, D, seed):
+    """q, k, v as strided views of one [B, T, 3, H, D] tensor (as the layer
+    passes them), dout, and lengths with a 0 and a 1 where B allows."""
+    rng = np.random.RandomState(seed)
+    qkv = _t(rng.randn(B, T, 3, H, D), dev)
+    lens = rng.randint(1, T + 1, B)
+    if B > 1:
+        lens[-1] = 0
+    if B > 2:
+        lens[1] = 1
+    lengths = torch.from_numpy(lens.astype(np.int32)).to(dev)
+    return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], _t(rng.randn(B, T, H, D), dev), lengths
+
+
+@pytest.mark.parametrize("B,T,H,D,causal", FLASH_CASES)
+def test_flash_kernels_match_plain_versions(dev, B, T, H, D, causal):
+    """Kernels 10, 11 and 12 against their plain versions on the same
+    inputs; the light forward (no lse) gives the same bits as the training
+    one. T = 1, 75, 100, 257 leave a ragged last tile; D = 24 is no power
+    of two; D = 128 and 256 take the smaller row tiles and shared memory
+    above 48 KB."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do, lengths = _flash_inputs(dev, B, T, H, D, seed=T * 10 + D + causal)
+    out, lse = fa._launch_fwd(q, k, v, lengths, causal, True)
+    light, none = fa._launch_fwd(q, k, v, lengths, causal, False)
+    ref_out, ref_lse = fa.flash_forward_reference(q, k, v, lengths, causal)
+    torch.cuda.synchronize()
+    assert none is None and torch.equal(light, out)
+    assert torch.isfinite(out).all()
+    assert float((out - ref_out).abs().max()) <= _grad_tol(ref_out)
+    seen = lengths > 0
+    assert float((lse - ref_lse)[seen].abs().max()) <= TOL
+    assert (lse[~seen] == -1e30).all() and not out[~seen].any()
+
+    delta = torch.sum(do * ref_out, dim=-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, ref_lse, delta, lengths, causal)
+    dq = fa._launch_dq(*args)
+    dk, dv = fa._launch_dkv(*args)
+    want = (fa.flash_dq_reference(*args),) + fa.flash_dkv_reference(*args)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        assert torch.isfinite(a).all(), name
+        assert float((a - b).abs().max()) <= _grad_tol(b), name
+
+
+def test_flash_attention_autograd_launches_each_kernel_once(dev):
+    """Through autograd: one launch of each of kernels 10, 11 and 12, and
+    the gradients of the plain forward's autograd within tolerance."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do, lengths = _flash_inputs(dev, 3, 200, 2, 32, seed=7)
+    before = [kern.launches for kern in fa.KERNELS]
+
+    def grads(fn):
+        leaves = [a.detach().requires_grad_() for a in (q, k, v)]
+        (fn(*leaves, lengths, True) * do).sum().backward()
+        return [a.grad for a in leaves]
+
+    got = grads(lambda q_, k_, v_, l_, c_: fa.flash_attention(q_, k_, v_, lengths=l_, causal=c_))
+    assert [kern.launches for kern in fa.KERNELS] == [b + 1 for b in before]
+    want = grads(lambda *a: fa.flash_forward_reference(*a)[0])
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert float((a - b).abs().max()) <= _grad_tol(b), name
+
+
+def test_flash_backward_is_deterministic(dev):
+    """No atomics: two launches of kernels 11 and 12 give equal bits."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do, lengths = _flash_inputs(dev, 2, 300, 2, 64, seed=9)
+    out, lse = fa._launch_fwd(q, k, v, lengths, True, True)
+    delta = torch.sum(do * out, dim=-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, lse, delta, lengths, True)
+    assert torch.equal(fa._launch_dq(*args), fa._launch_dq(*args))
+    for a, b in zip(fa._launch_dkv(*args), fa._launch_dkv(*args)):
+        assert torch.equal(a, b)
+
+
+def test_full_attention_dispatches_to_the_flash_kernels(dev):
+    """Self-attention shapes on the card launch kernel 10; offsets or
+    Tq != Tk take the plain path and launch nothing."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.parallel import full_attention
+
+    q, k, v, _, lengths = _flash_inputs(dev, 2, 64, 2, 16, seed=3)
+    before = fa.FLASH_ATTN_FWD.launches
+    with torch.no_grad():
+        out = full_attention(q, k, v, lengths=lengths, causal=True)
+        assert fa.FLASH_ATTN_FWD.launches == before + 1
+        full_attention(q, k, v, lengths=lengths, causal=True, q_offset=8)
+        full_attention(q[:, :32], k, v, lengths=lengths, causal=True)
+    assert fa.FLASH_ATTN_FWD.launches == before + 1
+    plain = full_attention(q.cpu(), k.cpu(), v.cpu(), lengths=lengths.cpu(), causal=True)
+    live = lengths.cpu() > 0
+    assert float((out.cpu() - plain)[live].abs().max()) <= TOL
+
+
+def test_flash_wrapper_raises_on_what_the_kernels_do_not_take(dev):
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    q = torch.zeros(2, 8, 2, 300, device=dev)
+    with pytest.raises(ValueError, match="D <= 256"):
+        fa.flash_attention(q, q, q)
+    q = torch.zeros(2, 8, 2, 16, device=dev, dtype=torch.float64)
+    with pytest.raises(ValueError, match="float32"):
+        fa.flash_attention(q, q, q)
+    t = torch.zeros(2, 8, 16, 2, device=dev).transpose(2, 3)
+    with pytest.raises(ValueError, match="last dimension"):
+        fa.flash_attention(t, t, t)

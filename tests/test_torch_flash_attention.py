@@ -1,0 +1,199 @@
+"""The port's flash-attention plain versions and ``full_attention`` against
+the JAX package, on the CPU.
+
+``paddle_tpu.ops.pallas_attention`` run by the Pallas interpreter
+(``_run_fwd`` / ``_run_bwd(..., interpret=True)`` for kernels 10, 11 and
+12, ``flash_attention(..., interpret=True)``'s custom VJP for the whole
+function) and ``paddle_tpu_torch.ops.flash_attention``'s plain versions
+(what the CUDA kernels are held against on the card) get the same seeded
+numpy inputs, with lengths [T, T - 77, 0] so that a row sees no key.
+Tolerances: out 2e-5 absolute (tests/test_pallas_attention.py's flash-vs-XLA
+bound); lse to float32 rounding on rows that see a key and exactly -1e30 on
+the row that sees none; gradients 1e-4 of max(1, max |JAX|) (sums over 256
+keys or queries in another order).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu.ops import pallas_attention as pa
+from paddle_tpu.parallel.sequence_parallel import full_attention as jax_full_attention
+from paddle_tpu_torch.ops import flash_attention as fa
+from paddle_tpu_torch.parallel import sequence_parallel as sp
+
+torch.set_num_threads(1)
+B, T, H, D = 3, 256, 2, 32
+LENGTHS = np.array([T, T - 77, 0], np.int32)
+OUT_ATOL = 2e-5
+GRAD_TOL = 1e-4
+
+
+def _inputs(seed, n=4, shape=(B, T, H, D)):
+    rng = np.random.RandomState(seed)
+    return [rng.randn(*shape).astype(np.float32) for _ in range(n)]
+
+
+def _bhtd(a):
+    return jnp.asarray(np.ascontiguousarray(np.transpose(a, (0, 2, 1, 3))))
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _close_to_scale(got, want, what):
+    want = np.asarray(want)
+    err = float(np.abs(np.asarray(got) - want).max()) / max(1.0, float(np.abs(want).max()))
+    assert err <= GRAD_TOL, (what, err)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_forward_reference_matches_the_pallas_kernel(causal):
+    """Kernel 10's plain version against ``_run_fwd`` in interpret mode:
+    out, and lse with -1e30 where no key is visible."""
+    q, k, v, _ = _inputs(0)
+    want_out, want_lse = pa._run_fwd(_bhtd(q), _bhtd(k), _bhtd(v), jnp.asarray(LENGTHS),
+                                     causal, pa.BLOCK_Q, pa.BLOCK_K, True)
+    out, lse = fa.flash_forward_reference(_t(q), _t(k), _t(v), _t(LENGTHS), causal)
+    assert out.shape == (B, T, H, D) and lse.shape == (B, H, T)
+    np.testing.assert_allclose(out.numpy(), np.transpose(np.asarray(want_out), (0, 2, 1, 3)),
+                               atol=OUT_ATOL, rtol=0)
+    want_lse = np.asarray(want_lse)
+    np.testing.assert_allclose(lse.numpy()[:2], want_lse[:2], rtol=1e-6, atol=1e-6)
+    assert (lse.numpy()[2] == np.float32(-1e30)).all() and (want_lse[2] == np.float32(-1e30)).all()
+    assert not out.numpy()[2].any()                  # the row that sees no key
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_backward_references_match_the_pallas_kernels(causal):
+    """Kernels 11 and 12's plain versions against ``_run_bwd`` in interpret
+    mode, both given the Pallas forward's out and lse."""
+    q, k, v, do = _inputs(1)
+    jq, jk, jv, jdo = (_bhtd(a) for a in (q, k, v, do))
+    jlen = jnp.asarray(LENGTHS)
+    out, lse = pa._run_fwd(jq, jk, jv, jlen, causal, pa.BLOCK_Q, pa.BLOCK_K, True)
+    want = pa._run_bwd(jq, jk, jv, jdo, out, lse, jlen, causal, pa.BLOCK_Q, pa.BLOCK_K, True)
+    out_t = _t(np.transpose(np.asarray(out), (0, 2, 1, 3)))
+    delta = torch.sum(_t(do) * out_t, dim=-1).transpose(1, 2).contiguous()
+    args = (_t(q), _t(k), _t(v), _t(do), _t(np.asarray(lse)), delta, _t(LENGTHS), causal)
+    dq = fa.flash_dq_reference(*args)
+    dk, dv = fa.flash_dkv_reference(*args)
+    for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        _close_to_scale(got.numpy(), np.transpose(np.asarray(w), (0, 2, 1, 3)), name)
+    # keys past the length and the row of length 0 get nothing
+    assert not dk.numpy()[1, T - 77:].any() and not dv.numpy()[2].any()
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_autograd_matches_jax_grad_of_the_pallas_custom_vjp(causal):
+    """The port's ``flash_attention`` (the plain versions on the CPU, through
+    its ``torch.autograd.Function``) against ``jax.grad`` of
+    ``flash_attention(..., interpret=True)``, on strided views of one fused
+    [B, T, 3, H, D] tensor as the multi-head layer passes them."""
+    q, k, v, cot = _inputs(2)
+    jlen = jnp.asarray(LENGTHS)
+
+    def jloss(q_, k_, v_):
+        o = pa.flash_attention(q_, k_, v_, lengths=jlen, causal=causal, interpret=True)
+        return jnp.sum(o * jnp.asarray(cot)), o
+
+    (_, jout), jgrads = jax.value_and_grad(jloss, argnums=(0, 1, 2), has_aux=True)(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    qkv = torch.from_numpy(np.stack([q, k, v], axis=2)).requires_grad_()
+    before = [kern.launches for kern in fa.KERNELS]
+    out = fa.flash_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2],
+                             lengths=_t(LENGTHS), causal=causal)
+    (out * _t(cot)).sum().backward()
+    assert [kern.launches for kern in fa.KERNELS] == before   # the CPU launches nothing
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout), atol=OUT_ATOL, rtol=0)
+    for i, name in enumerate(("dq", "dk", "dv")):
+        _close_to_scale(qkv.grad[:, :, i].numpy(), jgrads[i], name)
+
+
+def test_without_gradients_the_forward_alone_runs():
+    """Under no_grad (the test pass) the same output, with no lse kept; the
+    default lengths are full."""
+    q, k, v, _ = _inputs(3)
+    with torch.no_grad():
+        out = fa.flash_attention(_t(q), _t(k), _t(v), causal=True)
+    full = torch.full((B,), T, dtype=torch.int32)
+    want, _ = fa.flash_forward_reference(_t(q), _t(k), _t(v), full, True)
+    np.testing.assert_array_equal(out.numpy(), want.numpy())
+    ref = jax_full_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=OUT_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("Tq,Tk,q_offset,kv_offset,causal", [
+    (256, 256, 0, 0, False), (256, 256, 0, 0, True), (64, 256, 192, 0, True),
+    (128, 96, 0, 32, True), (100, 150, 50, 0, False), (96, 96, 64, 64, True)])
+def test_full_attention_matches_the_jax_package(monkeypatch, Tq, Tk, q_offset, kv_offset,
+                                                causal):
+    """The plain path (the JAX XLA branch) with offsets, Tq != Tk and ragged
+    lengths, forward and gradients; on the CPU it never reaches the flash
+    function."""
+    rng = np.random.RandomState(Tq + Tk + q_offset)
+    q = rng.randn(B, Tq, H, D).astype(np.float32)
+    k, v = (rng.randn(B, Tk, H, D).astype(np.float32) for _ in range(2))
+    cot = rng.randn(B, Tq, H, D).astype(np.float32)
+    lens = np.array([Tk + kv_offset, kv_offset + Tk // 2, 0], np.int32)
+    jlen = jnp.asarray(lens)
+
+    def jloss(q_, k_, v_):
+        o = jax_full_attention(q_, k_, v_, lengths=jlen, causal=causal,
+                               q_offset=q_offset, kv_offset=kv_offset)
+        return jnp.sum(o * jnp.asarray(cot)), o
+
+    (_, jout), jgrads = jax.value_and_grad(jloss, argnums=(0, 1, 2), has_aux=True)(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    leaves = [_t(a).requires_grad_() for a in (q, k, v)]
+    calls = []
+    monkeypatch.setattr(sp, "flash_attention", lambda *a, **kw: calls.append(1))
+    out = sp.full_attention(*leaves, lengths=_t(lens), causal=causal,
+                            q_offset=q_offset, kv_offset=kv_offset)
+    assert calls == []
+    (out * _t(cot)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout), atol=OUT_ATOL, rtol=0)
+    for leaf, g, name in zip(leaves, jgrads, ("dq", "dk", "dv")):
+        _close_to_scale(leaf.grad.numpy(), g, name)
+
+
+def test_flash_and_plain_paths_differ_only_where_no_key_is_visible():
+    """At full-size rows the flash function and the plain path agree; at a
+    row that sees no key flash gives zeros and the plain path the uniform
+    softmax over -1e30 (the layer masks such rows)."""
+    q, k, v, _ = _inputs(4)
+    lens = _t(LENGTHS)
+    flash = fa.flash_attention(_t(q), _t(k), _t(v), lengths=lens, causal=True)
+    plain = sp.full_attention(_t(q), _t(k), _t(v), lengths=lens, causal=True)
+    np.testing.assert_allclose(flash[:2].numpy(), plain[:2].numpy(), atol=OUT_ATOL, rtol=0)
+    assert not flash[2].numpy().any()
+    np.testing.assert_allclose(plain[2].numpy(), np.broadcast_to(v[2].mean(0), (T, H, D)),
+                               atol=1e-5)
+
+
+def test_the_wrapper_refuses_what_the_kernels_do_not_take():
+    """The operand checks the card's path runs before a launch."""
+    q = torch.zeros(2, 5, 3, 8)
+    lens = torch.full((2,), 5, dtype=torch.int32)
+    assert fa._check_operands(q, q, q, lens) == (2, 5, 3, 8)
+    strided = torch.zeros(2, 5, 3, 3, 8)[:, :, 1]      # a qkv view
+    assert fa._check_operands(strided, strided, strided, lens) == (2, 5, 3, 8)
+    with pytest.raises(ValueError, match="float32"):
+        fa._check_operands(q.double(), q, q, lens)
+    with pytest.raises(ValueError, match="shape"):
+        fa._check_operands(q, torch.zeros(2, 6, 3, 8), q, lens)
+    with pytest.raises(ValueError, match="last dimension"):
+        t = torch.zeros(2, 5, 8, 3).transpose(2, 3)
+        fa._check_operands(t, t, t, lens)
+    with pytest.raises(ValueError, match="lengths"):
+        fa._check_operands(q, q, q, lens.long())
+    with pytest.raises(ValueError, match="lengths"):
+        fa._check_operands(q, q, q, lens[:1])
+    with pytest.raises(ValueError, match="D <= 256"):
+        wide = torch.zeros(1, 2, 1, 257)
+        fa._check_operands(wide, wide, wide, torch.ones(1, dtype=torch.int32))
+    with pytest.raises(ValueError, match=r"\[B, T, H, D\]"):
+        fa._check_operands(q[0], q[0], q[0], lens)
