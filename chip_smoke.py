@@ -61,7 +61,9 @@ Phases, each printing one JSON object per line:
              gradients of all three (random cotangents on y, s and q)
              within 1e-4 * max(1, max |plain|) of autograd through the
              plain version; kernel, plain version and torch.addmm (the
-             product alone) timed from a cold L2.
+             product alone) timed from a cold L2, each shape's ratio to
+             addmm and to its tensor-core bound, and the same summed over
+             a train step's 30 launches.
 9. resnet_train — the fifth: Trainer(resnet_config(50, 224, 1000)) with
              conv_stats_mode="pallas", random weights from seed 1, 8
              Momentum steps on make_image_batch(64, 224, 1000, seed=1); the
@@ -93,7 +95,8 @@ Phases, each printing one JSON object per line:
              two launches of 11 and of 12 bit-equal; kernel, plain version
              and torch's scaled_dot_product_attention (forward, and its
              backward by autograd against 11 + 12) timed from a cold L2 at
-             the main path's shape.
+             the main path's shape; kernel 10's ratio to SDPA's forward and
+             to its tensor-core bound.
 12. lm_train — the seventh: Trainer(long_context_config(vocab=500,
              seq_len=2048, dim=512, heads=8, blocks=2, batch_size=8)),
              random weights from seed 1, 8 Adam steps on lm_batch(500, 8,
@@ -116,9 +119,10 @@ the layers' eager routes too (gated_recurrent, lstmemory, full_attention:
 the EAGER_ROUTES of the ops modules) and fails if any layer took its eager
 computation instead of a kernel.
 
-Then the per-kernel line ({"kernels": [...]}; rows 11 and 12 also carry
-bound_tc_ms, the bound of their design: three TF32 products per product at
-495 TFLOP/s, or the bytes), the card's name and power
+Then the per-kernel line ({"kernels": [...]}; rows 9-12, the kernels on
+the tensor cores, also carry bound_tc_ms, the bound of their design: three
+TF32 products per product at 495 TFLOP/s, or the bytes), the card's name
+and power
 limit as nvidia-smi reports them, and as the last line
 {"ok": true, "device": {...}}. Any failure raises, so the exit code is not
 0 and no result line is printed; without a CUDA device, or without the
@@ -140,8 +144,8 @@ import numpy as np
 # and the float32 rate outside the tensor cores (the kernels' arithmetic)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
-# the dense TF32 tensor-core rate: kernels 11 and 12 run each product as
-# three TF32 products (the float32-accurate split)
+# the dense TF32 tensor-core rate: kernels 9-12 run each product as three
+# TF32 products (the float32-accurate split)
 PEAK_TF32_FLOPS = 495e12
 TOL = 1e-4                 # f32, sums over K of 512..1536 terms in another order
 TRAIN_TOL = 1e-3           # a whole train step: the card against the CPU plain versions
@@ -158,6 +162,7 @@ RESNET = dict(layer_num=50, img_size=224, classes=1000, batch=64, steps=8, cpu_b
 CONV_STATS_TOL = 1e-5      # s and q against Σ|y| and Σy²: sums over up to 207,936 rows
 F64_TOL = 1e-9             # a float64 step: the card's convolutions against the CPU's
 ATTN_KERNELS = ("flash_attn_fwd", "flash_attn_dq", "flash_attn_dkv")
+TC_KERNELS = ("conv1x1_stats",) + ATTN_KERNELS     # on the tensor cores
 GATE_EPS = 1e-6            # a ReLU gate within float32 rounding of 0 may flip (lm_cpu_step)
 # the long-context LM of demo/long_context at its documented 2048-token
 # context, with the head dim (64) of benchmarks/attn_bench.py
@@ -176,6 +181,12 @@ def emit(obj) -> None:
 def bound(nbytes: float, flops: float):
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def bound_tc(nbytes: float, flops: float) -> float:
+    """The bound of a tensor-core design: the bytes, or three TF32 products
+    per float32 product at the TF32 rate (kernels 9-12)."""
+    return 1e3 * max(nbytes / PEAK_BYTES_PER_S, 3.0 * flops / PEAK_TF32_FLOPS)
 
 
 def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
@@ -883,18 +894,21 @@ def phase_conv_kernels(torch, dev):
                     ms=time_ms(torch, lambda: fc.conv1x1_stats(x, w)),
                     plain_ms=time_ms(torch, lambda: fc.conv1x1_stats_reference(x, w)),
                     library_ms=time_ms(torch, lambda: torch.addmm(b, x, w.t())),
-                    bytes=nbytes, flops=flops, bound_ms=bound(nbytes, flops)[0])
+                    bytes=nbytes, flops=flops, bound_ms=bound(nbytes, flops)[0],
+                    bound_tc_ms=bound_tc(nbytes, flops))
+                case.update(over_library=case["ms"] / case["library_ms"],
+                            over_bound_tc=case["ms"] / case["bound_tc_ms"])
             cases.append(case)
-    emit({"phase": "conv_kernels", "cases": cases})
     timed = [c for c in cases if "ms" in c]
     step = lambda k: sum(c[k] * c["per_step"] for c in timed)
-    nbytes, flops = step("bytes"), step("flops")
+    per_step = {k: step(k) for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_tc_ms")}
+    per_step.update(over_library=per_step["ms"] / per_step["library_ms"],
+                    over_bound_tc=per_step["ms"] / per_step["bound_tc_ms"])
+    emit({"phase": "conv_kernels", "cases": cases, "per_step": per_step})
     return {"conv1x1_stats": dict(
         cases=cases, shape={"per_step": {f"{c['M']}x{c['K']}x{c['N']}": c["per_step"]
                                          for c in timed}},
-        bytes=nbytes, flops=flops, per_step=dict(ms=step("ms"), plain_ms=step("plain_ms"),
-                                                 library_ms=step("library_ms"),
-                                                 bound_ms=step("bound_ms")))}
+        bytes=step("bytes"), flops=step("flops"), per_step=per_step)}
 
 
 def count_copies(rows):
@@ -1150,12 +1164,16 @@ def phase_attn_kernels(torch, dev):
         lib_do = do.transpose(1, 2).contiguous()
         lib_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(lib_out, lib, lib_do,
                                                                 retain_graph=True))
-        out_cases["flash_attn_fwd"][-1].update(
+        fwd = out_cases["flash_attn_fwd"][-1]
+        fwd.update(
             ms=time_ms(torch, lambda: fa._launch_fwd(q, k, v, lengths, causal, True)),
             light_ms=time_ms(torch, lambda: fa._launch_fwd(q, k, v, lengths, causal, False)),
             plain_ms=time_ms(torch, lambda: fa.flash_forward_reference(q, k, v, lengths, causal),
                              reps=5),
-            library_ms=time_ms(torch, lambda: sdpa(*lib, is_causal=True)))
+            library_ms=time_ms(torch, lambda: sdpa(*lib, is_causal=True)),
+            bound_tc_ms=bound_tc(*sizes["flash_attn_fwd"]))
+        fwd.update(over_library=fwd["ms"] / fwd["library_ms"],
+                   over_bound_tc=fwd["ms"] / fwd["bound_tc_ms"])
         out_cases["flash_attn_dq"][-1].update(
             ms=time_ms(torch, lambda: fa._launch_dq(*args)),
             plain_ms=time_ms(torch, lambda: fa.flash_dq_reference(*args), reps=5),
@@ -1431,12 +1449,13 @@ def main() -> int:
         # kernel 9 runs at nine shapes: its row is one train step's 30 launches
         times = r.get("per_step", main_case)
         b_ms, b_by = bound(r["bytes"], r["flops"])
+        if "per_step" in r:                     # each launch's bound, summed over the step
+            b_ms = times["bound_ms"]
         err = max(c["max_abs_err"] for c in r["cases"])
         launches = paths[path_of[name]]["kernel_launches"][name]
         assert launches > 0, (name, path_of[name])
-        if name in ("flash_attn_dq", "flash_attn_dkv"):
-            extra = {"bound_tc_ms": 1e3 * max(r["bytes"] / PEAK_BYTES_PER_S,
-                                              3.0 * r["flops"] / PEAK_TF32_FLOPS)}
+        if name in TC_KERNELS:
+            extra = {"bound_tc_ms": times.get("bound_tc_ms", bound_tc(r["bytes"], r["flops"]))}
         else:
             extra = {}
         rows.append({

@@ -12,167 +12,420 @@
 //             the product is x . w^T and no transposed copy is made
 //   b [N]     or null (ResNet's convs have no bias)
 //
-// What bounds it: at ResNet-50's shapes (M = 4,096 .. 207,936 rows, K and N
-// 64 .. 2048) 2.0-6.8 GFLOP against 35-266 MB a launch, so mostly the float32
-// rate (67 TFLOP/s, ~0.1 ms); the widest stage-2 shapes sit near the ridge,
-// where the bytes count as much (3.35 TB/s, ~0.08 ms).
+// What bounds it on an H100: at ResNet-50's shapes (M = 4,096 .. 207,936
+// rows, K and N 64 .. 2048) 1.7-6.8 GFLOP against 35-266 MB a launch. On the
+// CUDA cores (67 TFLOP/s float32) operations bound every shape; the first
+// design, a register-tiled SGEMM there, ran a train step's 30 launches at
+// 2.2-2.7x that bound and lost to cuBLAS's. On the tensor cores, with the
+// three TF32 products of the float32-accurate split (flash_mma.cuh) at 495
+// TFLOP/s, the stage-2 shapes (K or N = 64, 207,936 rows) are bound by their
+// bytes (3.35 TB/s) and the rest by operations: 1.57 ms a step together.
 //
-// Design. The TPU kernel walks a sequential grid and keeps sum and sumsq in
-// one resident output block; on Hopper the blocks run in parallel, so:
-//  1. conv1x1_stats_tile: a register-tiled SGEMM on the CUDA cores. One block
-//     of 256 threads owns a 128 x 64 tile of y and walks K in slices of 16,
-//     both operand slices staged in shared memory (transposed, so a thread
-//     reads its 8 rows and 4 columns as float4s), the next slice prefetched
-//     into registers while the current one is multiplied. Each thread holds
-//     8 x 4 outputs. The epilogue adds b, stores the tile, and reduces the
-//     tile's column sums and sums of squares over its 128 rows through
-//     shared memory in a fixed order into one partial row per tile:
-//     part[tile, 0, n] and part[tile, 1, n].
-//  2. conv1x1_stats_reduce: sums the partials over the tiles, 32 columns a
-//     block, each of 32 warps a fixed subset of tiles, then the 32 warp sums
-//     in order. No atomics anywhere, so two launches give the same bits.
-// Ragged edges (M, N and K not multiples of the tile) are masked; rows past M
-// add nothing to the statistics. Tensor cores, wgmma and TMA are later work.
+// Design:
+//  1. conv1x1_split_w: w is split once per launch into big and small halves
+//     (TF32 big = w rounded, small = w - big), stored as [2][N][Kp] in
+//     scratch with K zero-padded to Kp, a multiple of 32.
+//  2. conv1x1_stats_tile: persistent blocks of two warpgroups. Block (p, nt)
+//     owns the columns [nt BN, nt BN + BN) and walks the row tiles p, p + P,
+//     ... of 128 rows. Per tile and per slice of 32 features, thread 0 fills
+//     one stage of a ring in shared memory, STAGES - 1 slices ahead: the x
+//     tile [128][32] and both halves of w [BN][32], by TMA with the 128-byte
+//     swizzle, completing on the stage's mbarrier; it refills a stage once
+//     both warpgroups have released it. Each warpgroup owns 64 rows of the
+//     tile: it reads its A fragments of x from
+//     the stage (conflict-free through the swizzle), splits them in
+//     registers, and issues wgmma m64nBNk8 TF32 with A from registers and B
+//     from the stage's w halves: small(x) big(w) + big(x) small(w) +
+//     big(x) big(w) per 8 features. The tensor core truncates as it
+//     accumulates, so each slice is summed apart (12 passes) and added to
+//     the tile's accumulator with rounded float32 adds. The epilogue stages
+//     the tile through shared memory, adds b, writes y with coalesced
+//     16-byte stores, and adds the stored values and their squares into
+//     per-thread column sums that stay in registers across the block's row
+//     tiles. At the end the block sums its threads' column sums in a fixed
+//     order into one partial row: part[p, 0 | 1, n].
+//  3. conv1x1_stats_reduce sums the partials over p, 32 columns a block,
+//     each of 32 warps a fixed subset of p, then the warp sums in order.
+// No atomics anywhere, so two launches give the same bits. Ragged edges
+// (M, N and K not multiples of the tile) are zeros in the stages and masked
+// in the epilogue; rows past M add nothing to the statistics. Where TMA
+// cannot read x (K % 4 != 0, or x not 16-byte aligned) warp 0 fills the
+// same swizzled stage with 4-byte cp.async copies instead.
+#include <cuda.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "flash_mma.cuh"
 
 namespace {
 
-constexpr int kBM = 128;                 // rows of y per block
-constexpr int kBN = 64;                  // columns of y per block
-constexpr int kBK = 16;                  // depth of one staged slice
-constexpr int kTM = 8;                   // rows per thread
-constexpr int kTN = 4;                   // columns per thread
-constexpr int kThreads = (kBM / kTM) * (kBN / kTN);   // 256
-constexpr int kPad = 4;                  // keeps float4 alignment, spreads banks
+constexpr int kBM = 128;                 // rows of y per tile
+constexpr int kBK = 32;                  // features per stage: one 128-byte swizzle row
+// Two warpgroups of 64 rows each, and no warp of its own for the loads: a
+// wgmma kernel's registers are allotted per warpgroup, so a third one (even
+// for one producer warp) cut every thread to 168 registers and spilled the
+// BN = 128 accumulators (ptxas: 227 registers without it).
+constexpr int kThreads = 256;
 constexpr int kReduceWarps = 32;
 
-static_assert(kBM * kBK == 2 * 4 * kThreads, "two float4 of x per thread");
-static_assert(kBN * kBK == 4 * kThreads, "one float4 of w per thread");
+template <int BN>
+struct Geo {
+  static constexpr int STAGES = BN == 128 ? 3 : 5;
+  static constexpr int X_BYTES = kBM * kBK * 4;             // 16 KB
+  static constexpr int W_BYTES = BN * kBK * 4;              // one half of w
+  static constexpr int STAGE_BYTES = X_BYTES + 2 * W_BYTES;
+  static constexpr int LDY = BN + 8;                        // staged y rows, see epilogue
+  static constexpr int Y_BYTES = 2 * 64 * LDY * 4;
+  static constexpr int CPR = BN / 4;                        // 16-byte chunks in a row
+  static constexpr int RPP = 128 / CPR;                     // rows a warpgroup reads per pass
+  static constexpr int SMEM = 1024 + STAGES * STAGE_BYTES + Y_BYTES + 2 * STAGES * 8;
+  static_assert(STAGE_BYTES % 1024 == 0 && W_BYTES % 1024 == 0, "swizzle atoms");
+  static_assert(2 * RPP * 2 * BN * 4 <= Y_BYTES, "the final reduction fits the staging");
+};
 
-__device__ __forceinline__ float4 load4(const float* __restrict__ p, long long row,
-                                        long long rows, int k, int K, bool vec) {
-  float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  if (row >= rows) return v;
-  const float* r = p + row * K;
-  if (vec) {                             // K % 4 == 0 and 16-byte aligned rows
-    if (k < K) v = *reinterpret_cast<const float4*>(r + k);
-  } else {
-    if (k + 0 < K) v.x = r[k + 0];
-    if (k + 1 < K) v.y = r[k + 1];
-    if (k + 2 < K) v.z = r[k + 2];
-    if (k + 3 < K) v.w = r[k + 3];
-  }
-  return v;
+// ---- mbarriers, TMA, wgmma (PTX ISA 8.0, sm_90a) ----
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__global__ void __launch_bounds__(kThreads)
-conv1x1_stats_tile(const float* __restrict__ x, const float* __restrict__ w,
+__device__ __forceinline__ void bar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void bar_expect(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Waits for the phase of `bar` with this parity to complete. A phase that
+// never completes is a fault of the kernel: trap (the launch fails) after
+// ~2^26 polls, seconds, rather than hold the card.
+__device__ __forceinline__ void bar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  for (int polls = 0; !done; ++polls) {
+    if (polls == (1 << 26)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// The calling thread's earlier cp.async copies arrive on `bar` when they
+// land (the barrier's count includes this arrival).
+__device__ __forceinline__ void bar_arrive_cp_async(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// The wgmma descriptor of a K-major tile [rows][32] float32 with the
+// 128-byte swizzle (as TMA writes it), based at a 1024-byte boundary:
+// leading offset unused (1), stride 8 rows x 128 bytes, layout SW128.
+__device__ __forceinline__ uint64_t desc_sw128(const void* tile) {
+  const uint64_t a = smem_addr(tile);
+  return ((a & 0x3ffff) >> 4) | (1ull << 16) | (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit_and_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of r across the wgmma
+// issue and wait (the tensor core writes it asynchronously).
+__device__ __forceinline__ void fence_operand(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+
+// d (+)= a . b: wgmma m64nNk8 TF32, A [64 x 8] from registers (per warp the
+// mma.m16n8k8 A fragment of its 16 rows), B [8 x N] from shared memory
+// (K-major, desc_b); scale_d = 0 overwrites d. d holds, per n-tile j, the
+// C fragment (rows g, g + 8 of the warp's 16; columns 8j + 2t, 8j + 2t + 1).
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], const unsigned (&a)[4],
+                                          uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], const unsigned (&a)[4],
+                                           uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[BN / 2], const unsigned (&a)[4],
+                                           uint64_t desc_b, int scale_d) {
+  if constexpr (BN == 128) {
+    wgmma_n128(d, a, desc_b, scale_d);
+  } else {
+    wgmma_n64(d, a, desc_b, scale_d);
+  }
+}
+
+// ---- the kernels ----
+
+__global__ void conv1x1_split_w(const float* __restrict__ w, float* __restrict__ ws, int N,
+                                int K, int Kp) {
+  const long long total = static_cast<long long>(N) * Kp;
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < total;
+       i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long n = i / Kp;
+    const int k = static_cast<int>(i % Kp);
+    unsigned big, small;
+    flash_mma::split(k < K ? w[n * K + k] : 0.0f, big, small);
+    ws[i] = __uint_as_float(big);
+    ws[total + i] = __uint_as_float(small);
+  }
+}
+
+template <int BN>
+__global__ void __launch_bounds__(kThreads, 1)
+conv1x1_stats_tile(const __grid_constant__ CUtensorMap x_map,
+                   const __grid_constant__ CUtensorMap w_map, const float* __restrict__ x,
                    const float* __restrict__ b, float* __restrict__ y,
                    float* __restrict__ part, int M, int K, int N, int vec) {
-  __shared__ __align__(16) float xs[kBK][kBM + kPad];
-  __shared__ __align__(16) float ws[kBK][kBN + kPad];
-  __shared__ float red[2][kBM / kTM][kBN];
+  using G = Geo<BN>;
+  constexpr int S = G::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  float* ystage = reinterpret_cast<float*>(base + S * G::STAGE_BYTES);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + S * G::STAGE_BYTES + G::Y_BYTES);
+  uint64_t* empty = full + S;
+  auto xs = [&](int s) { return reinterpret_cast<float*>(base + s * G::STAGE_BYTES); };
+  auto wbig = [&](int s) { return base + s * G::STAGE_BYTES + G::X_BYTES; };
+  auto wsmall = [&](int s) { return base + s * G::STAGE_BYTES + G::X_BYTES + G::W_BYTES; };
 
   const int tid = threadIdx.x;
-  const int tx = tid % (kBN / kTN);      // columns n0 + 4 tx .. + 3
-  const int ty = tid / (kBN / kTN);      // rows    m0 + 8 ty .. + 7
-  const long long m0 = static_cast<long long>(blockIdx.y) * kBM;
-  const int n0 = blockIdx.x * kBN;
-  const bool v = vec != 0;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int P = gridDim.x;
+  const int p = blockIdx.x;
+  const int n0 = blockIdx.y * BN;
+  const int m_tiles = (M + kBM - 1) / kBM;
+  const int KC = (K + kBK - 1) / kBK;
 
-  // this thread's share of each slice: x rows lr, lr + 64 and w row lr,
-  // all at depth offset lc (four threads cover a row's 16 values)
-  const int lr = tid / (kBK / 4);
-  const int lc = (tid % (kBK / 4)) * 4;
-
-  float acc[kTM][kTN];
-#pragma unroll
-  for (int i = 0; i < kTM; ++i)
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.0f;
-
-  float4 xa, xb, wa;
-  auto fetch = [&](int k0) {
-    xa = load4(x, m0 + lr, M, k0 + lc, K, v);
-    xb = load4(x, m0 + lr + kBM / 2, M, k0 + lc, K, v);
-    wa = load4(w, n0 + lr, N, k0 + lc, K, v);
-  };
-  auto stage = [&]() {
-    xs[lc + 0][lr] = xa.x; xs[lc + 1][lr] = xa.y; xs[lc + 2][lr] = xa.z; xs[lc + 3][lr] = xa.w;
-    xs[lc + 0][lr + kBM / 2] = xb.x; xs[lc + 1][lr + kBM / 2] = xb.y;
-    xs[lc + 2][lr + kBM / 2] = xb.z; xs[lc + 3][lr + kBM / 2] = xb.w;
-    ws[lc + 0][lr] = wa.x; ws[lc + 1][lr] = wa.y; ws[lc + 2][lr] = wa.z; ws[lc + 3][lr] = wa.w;
-  };
-
-  fetch(0);
-  stage();
-  __syncthreads();
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    const bool more = k0 + kBK < K;
-    if (more) fetch(k0 + kBK);           // in flight while this slice multiplies
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&xs[kk][ty * kTM]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&xs[kk][ty * kTM + 4]);
-      const float4 bv = *reinterpret_cast<const float4*>(&ws[kk][tx * kTN]);
-      const float a[kTM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bb[kTN] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < kTM; ++i)
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(a[i], bb[j], acc[i][j]);
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      bar_init(&full[s], vec ? 1 : 33);   // the expect_tx arrival (+ 32 cp.async ones)
+      bar_init(&empty[s], kThreads);
     }
-    __syncthreads();
-    if (more) {
-      stage();
-      __syncthreads();
-    }
-  }
-
-  // epilogue: bias, store, and this thread's column sums over its rows
-  const int nc = n0 + tx * kTN;
-  float bias[kTN], cs[kTN], cq[kTN];
-#pragma unroll
-  for (int j = 0; j < kTN; ++j) {
-    bias[j] = (b != nullptr && nc + j < N) ? b[nc + j] : 0.0f;
-    cs[j] = 0.0f;
-    cq[j] = 0.0f;
-  }
-  const bool vec_store = (N % 4 == 0) && (nc + kTN <= N);
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const long long row = m0 + ty * kTM + i;
-    if (row >= M) break;
-    float o[kTN];
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      o[j] = acc[i][j] + bias[j];
-      cs[j] += o[j];
-      cq[j] = fmaf(o[j], o[j], cq[j]);
-    }
-    float* dst = y + row * N + nc;
-    if (vec_store) {
-      *reinterpret_cast<float4*>(dst) = make_float4(o[0], o[1], o[2], o[3]);
-    } else {
-#pragma unroll
-      for (int j = 0; j < kTN; ++j)
-        if (nc + j < N) dst[j] = o[j];
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < kTN; ++j) {
-    red[0][ty][tx * kTN + j] = cs[j];
-    red[1][ty][tx * kTN + j] = cq[j];
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  if (tid < 2 * kBN) {
-    const int stat = tid / kBN, col = tid % kBN;
-    if (n0 + col < N) {
-      float total = 0.0f;
-#pragma unroll
-      for (int r = 0; r < kBM / kTM; ++r) total += red[stat][r][col];
-      part[(static_cast<long long>(blockIdx.y) * 2 + stat) * N + n0 + col] = total;
+
+  // Fill the stage of slice j (the block's j-th slice in the consumers'
+  // order): TMA by thread 0, or x by warp 0's 4-byte copies.
+  const int my_tiles = (m_tiles - p + P - 1) / P;
+  const int total = my_tiles * KC;
+  auto produce = [&](int j) {
+    const int s = j % S;
+    const int mt = p + (j / KC) * P, kc = j % KC;
+    if (tid == 0) {
+      bar_expect(&full[s], vec ? G::STAGE_BYTES : 2 * G::W_BYTES);
+      if (vec) tma_load_2d(xs(s), &x_map, kc * kBK, mt * kBM, &full[s]);
+      tma_load_3d(wbig(s), &w_map, kc * kBK, n0, 0, &full[s]);
+      tma_load_3d(wsmall(s), &w_map, kc * kBK, n0, 1, &full[s]);
     }
+    if (!vec) {
+      // the swizzled image TMA would write: 16-byte chunk c of row r at
+      // chunk c ^ (r % 8)
+      float* dst = xs(s);
+      for (int e = lane; e < kBM * kBK; e += 32) {
+        const int r = e / kBK, c = e % kBK;
+        const long long row = static_cast<long long>(mt) * kBM + r;
+        const int col = kc * kBK + c;
+        const bool ok = row < M && col < K;
+        flash_mma::cp_async4z(dst + r * kBK + (((c >> 2) ^ (r & 7)) << 2) + (c & 3),
+                              ok ? x + row * K + col : x, ok);
+      }
+      bar_arrive_cp_async(&full[s]);
+    }
+  };
+  if (warp == 0)
+    for (int j = 0; j < S - 1 && j < total; ++j) produce(j);
+
+  const int wg = warp / 4;                // rows [64 wg, 64 wg + 64) of a tile
+  const int wtid = tid % 128;
+  const int g = lane / 4, t = lane % 4;
+  const int ra = 64 * wg + 16 * (warp % 4) + g;   // A rows ra, ra + 8; ra % 8 == g
+  const int cc = wtid % G::CPR;           // epilogue: columns n0 + 4 cc .. + 3
+  const int r0 = wtid / G::CPR;           // and rows r0, r0 + RPP, ...
+  float bias[4], cs[4], cq[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int n = n0 + 4 * cc + e;
+    bias[e] = (b != nullptr && n < N) ? b[n] : 0.0f;
+    cs[e] = 0.0f;
+    cq[e] = 0.0f;
+  }
+  const bool vec_store = N % 4 == 0 && n0 + 4 * cc + 4 <= N;
+  float* st = ystage + wg * 64 * G::LDY;
+
+  float acc[BN / 2], slice[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) slice[i] = 0.0f;
+  int it = 0;
+  for (int mt = p; mt < m_tiles; mt += P) {
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
+    for (int kc = 0; kc < KC; ++kc, ++it) {
+      // refill the stage slice it - 1 used, once every thread released it
+      if (warp == 0 && it + S - 1 < total) {
+        if (it > 0) bar_wait(&empty[(it - 1) % S], ((it - 1) / S) & 1);
+        produce(it + S - 1);
+      }
+      const int s = it % S;
+      bar_wait(&full[s], (it / S) & 1);
+      const float* xt = xs(s);
+      flash_mma::FragA a[kBK / 8];
+#pragma unroll
+      for (int ks = 0; ks < kBK / 8; ++ks) {
+        // columns 8 ks + t and 8 ks + t + 4: chunks 2 ks and 2 ks + 1
+        const float* lo = xt + ra * kBK + t;
+        const float* hi = lo + 8 * kBK;
+        const int c0 = ((2 * ks) ^ g) << 2, c1 = ((2 * ks + 1) ^ g) << 2;
+        a[ks].set(lo[c0], hi[c0], lo[c1], hi[c1]);
+      }
+      const uint64_t db = desc_sw128(wbig(s)), dsm = desc_sw128(wsmall(s));
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) fence_operand(slice[i]);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kBK / 8; ++ks) {   // 8 features = 32 bytes = 2 descriptor units
+        wgmma_tf32<BN>(slice, a[ks].small, db + 2 * ks, ks > 0);
+        wgmma_tf32<BN>(slice, a[ks].big, dsm + 2 * ks, 1);
+        wgmma_tf32<BN>(slice, a[ks].big, db + 2 * ks, 1);
+      }
+      wgmma_commit_and_wait();
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) fence_operand(slice[i]);
+      bar_arrive(&empty[s]);
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] += slice[i];
+    }
+
+    // epilogue: the warpgroup's 64 rows through shared memory. LDY = 8
+    // (mod 32) makes the 8-byte fragment stores conflict-free; each thread
+    // then reads 16-byte chunks of consecutive columns.
+    named_sync(1 + wg, 128);              // the previous tile's reads are done
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      float* p0 = st + (ra - 64 * wg) * G::LDY + 8 * j + 2 * t;
+      *reinterpret_cast<float2*>(p0) = make_float2(acc[4 * j], acc[4 * j + 1]);
+      *reinterpret_cast<float2*>(p0 + 8 * G::LDY) = make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+    }
+    named_sync(1 + wg, 128);
+    const long long row0 = static_cast<long long>(mt) * kBM + 64 * wg;
+#pragma unroll 4
+    for (int r = r0; r < 64; r += G::RPP) {
+      if (row0 + r >= M) break;
+      const float4 v4 = *reinterpret_cast<const float4*>(st + r * G::LDY + 4 * cc);
+      const float v[4] = {v4.x + bias[0], v4.y + bias[1], v4.z + bias[2], v4.w + bias[3]};
+      float* dst = y + (row0 + r) * N + n0 + 4 * cc;
+      if (vec_store) {
+        *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          cs[e] += v[e];
+          cq[e] = fmaf(v[e], v[e], cq[e]);
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (n0 + 4 * cc + e < N) {
+            dst[e] = v[e];
+            cs[e] += v[e];
+            cq[e] = fmaf(v[e], v[e], cq[e]);
+          }
+        }
+      }
+    }
+  }
+
+  // the block's partial row: the 2 RPP column sums of each column in order
+  named_sync(3, kThreads);              // both warpgroups are done with the staging
+  float* red = ystage;                    // [2 RPP][2][BN]
+  const int idx = wg * G::RPP + r0;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    red[(idx * 2 + 0) * BN + 4 * cc + e] = cs[e];
+    red[(idx * 2 + 1) * BN + 4 * cc + e] = cq[e];
+  }
+  named_sync(3, kThreads);
+  for (int c = tid; c < 2 * BN; c += kThreads) {
+    const int stat = c / BN, col = c % BN;
+    if (n0 + col >= N) continue;
+    float total = 0.0f;
+    for (int i = 0; i < 2 * G::RPP; ++i) total += red[(i * 2 + stat) * BN + col];
+    part[(static_cast<long long>(p) * 2 + stat) * N + n0 + col] = total;
   }
 }
 
@@ -202,28 +455,104 @@ conv1x1_stats_reduce(const float* __restrict__ part, float* __restrict__ s,
   }
 }
 
+// ---- host side ----
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, fetched through the runtime's entry-point query
+// (no -lcuda).
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A float32 tensor map with the 128-byte swizzle and zero fill out of bounds:
+// dims innermost first, strides (bytes) of the outer dims, box per dim.
+bool tensor_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
+                const cuuint64_t* strides, const cuuint32_t* box) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  const cuuint32_t ones[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rank, const_cast<void*>(ptr), dims,
+                strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int BN>
+int launch_tile(const float* x, const float* wsplit, const float* b, float* y, float* part,
+                int M, int K, int N, int Kp, int vec, int* blocks, cudaStream_t st) {
+  using G = Geo<BN>;
+  CUtensorMap x_map = {}, w_map = {};
+  if (vec) {
+    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(M)};
+    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K) * 4};
+    const cuuint32_t box[2] = {kBK, kBM};
+    if (!tensor_map(&x_map, x, 2, dims, strides, box))
+      return static_cast<int>(cudaErrorNotSupported);
+  }
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(Kp), static_cast<cuuint64_t>(N), 2};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(Kp) * 4,
+                                 static_cast<cuuint64_t>(N) * Kp * 4};
+  const cuuint32_t box[3] = {kBK, BN, 1};
+  if (!tensor_map(&w_map, wsplit, 3, dims, strides, box))
+    return static_cast<int>(cudaErrorNotSupported);
+
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int m_tiles = (M + kBM - 1) / kBM;
+  const int n_tiles = (N + BN - 1) / BN;
+  int P = sms / n_tiles;
+  P = P < 1 ? 1 : (P > m_tiles ? m_tiles : P);
+  *blocks = P;
+  cudaError_t err = allow_smem(conv1x1_stats_tile<BN>, G::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  conv1x1_stats_tile<BN><<<dim3(P, n_tiles), kThreads, G::SMEM, st>>>(
+      x_map, w_map, x, b, y, part, M, K, N, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// Launch both kernels on `stream`. part is scratch of ceil(M / 128) * 2 * N
-// floats; vec != 0 promises K % 4 == 0 and 16-byte aligned x and w. Returns
-// cudaGetLastError().
+// Launch the three kernels on `stream`. part is scratch of ceil(M / 128) *
+// 2 * N floats, wsplit of 2 * N * Kp (Kp = K rounded up to a multiple of
+// 32); vec != 0 promises K % 4 == 0 and a 16-byte aligned x (TMA reads it).
+// Returns cudaGetLastError(), or the error of a step that failed.
 extern "C" int conv1x1_stats(const void* x, const void* w, const void* b, void* y,
-                             void* s, void* q, void* part, int M, int K, int N,
+                             void* s, void* q, void* part, void* wsplit, int M, int K, int N,
                              int vec, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int tiles = (M + kBM - 1) / kBM;
-  if (M > 0 && N > 0) {
-    const dim3 grid((N + kBN - 1) / kBN, tiles);   // n fastest: a row tile's
-    conv1x1_stats_tile<<<grid, kThreads, 0, st>>>(  // blocks run together, x from L2
-        static_cast<const float*>(x), static_cast<const float*>(w),
-        static_cast<const float*>(b), static_cast<float*>(y), static_cast<float*>(part),
-        M, K, N, vec);
-  }
-  if (N > 0) {
-    const dim3 grid((2 * N + 31) / 32);
-    conv1x1_stats_reduce<<<grid, dim3(32, kReduceWarps), 0, st>>>(
-        static_cast<const float*>(part), static_cast<float*>(s), static_cast<float*>(q),
-        tiles, N);
-  }
+  const int Kp = (K + kBK - 1) / kBK * kBK;
+  float* ws = static_cast<float*>(wsplit);
+  const long long nkp = static_cast<long long>(N) * Kp;
+  const int split_blocks = static_cast<int>(nkp / 256 + 1 < 1024 ? nkp / 256 + 1 : 1024);
+  conv1x1_split_w<<<split_blocks, 256, 0, st>>>(static_cast<const float*>(w), ws, N, K, Kp);
+  int tiles = 0;
+  const int err =
+      (N <= 64 ? launch_tile<64> : launch_tile<128>)(
+          static_cast<const float*>(x), ws, static_cast<const float*>(b),
+          static_cast<float*>(y), static_cast<float*>(part), M, K, N, Kp, vec, &tiles, st);
+  if (err != 0) return err;
+  const dim3 grid((2 * N + 31) / 32);
+  conv1x1_stats_reduce<<<grid, dim3(32, kReduceWarps), 0, st>>>(
+      static_cast<const float*>(part), static_cast<float*>(s), static_cast<float*>(q), tiles,
+      N);
   return static_cast<int>(cudaGetLastError());
 }

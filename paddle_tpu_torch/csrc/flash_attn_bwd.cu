@@ -73,28 +73,13 @@ namespace {
 
 using flash::Operand;
 using flash::Output;
+using flash_mma::Cfg;
 using flash_mma::FragA;
 using flash_mma::FragB;
 using flash_mma::kThreads;
 using flash_mma::kWarps;
 
 constexpr float kLog2e = 1.4426950408889634f;
-
-// The geometry of one instantiation: DMAX features (a multiple of 16), WF
-// warps per row strip (splitting the accumulator features), BC streamed
-// rows.
-template <int DMAX_, int WF_, int BC_>
-struct Cfg {
-  static constexpr int DMAX = DMAX_;
-  static constexpr int WF = WF_;
-  static constexpr int BC = BC_;
-  static constexpr int LD = DMAX + 4;         // see flash_mma.cuh, "Banks"
-  static constexpr int BR = 16 * (kWarps / WF);
-  static constexpr int DACC = DMAX / WF;      // accumulator features per warp
-  static constexpr int NA = DACC / 8;         // accumulator n-tiles per warp
-  static constexpr int NS = BC / 8;           // score n-tiles per warp
-  static constexpr int KS = DMAX / 8;         // score k-steps
-};
 
 // s[j] = own[r0 .. r0 + 16) . x[8j .. 8j + 8)^T over the DMAX features
 // (zeros past D): the warp's score tile.
@@ -146,34 +131,6 @@ __device__ __forceinline__ void accumulate(float (&acc)[C::NA][4], const float (
 }
 
 template <class C>
-__device__ __forceinline__ void zero(float (&acc)[C::NA][4]) {
-#pragma unroll
-  for (int n = 0; n < C::NA; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
-}
-
-// acc (C layout: rows r0 + g (+ 8), features f0 + 8n + 2t (+ 1)) into the
-// rows t < T and features d < D of one (batch, head) of dst.
-template <class C>
-__device__ __forceinline__ void store_acc(float* dst, long long st, const float (&acc)[C::NA][4],
-                                          int r0, int f0, int T, int D, int g, int t) {
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = r0 + g + 8 * half;
-    if (row >= T) continue;
-    float* out = dst + row * st;
-#pragma unroll
-    for (int n = 0; n < C::NA; ++n)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int d = f0 + 8 * n + 2 * t + e;
-        if (d < D) out[d] = acc[n][2 * half + e];
-      }
-  }
-}
-
-template <class C>
 __global__ void __launch_bounds__(kThreads)
 flash_dq_kernel(Operand q, Operand k, Operand v, Operand dout, const float* __restrict__ lse,
                 const float* __restrict__ delta, const int* __restrict__ lengths, Output dq,
@@ -218,7 +175,7 @@ flash_dq_kernel(Operand q, Operand k, Operand v, Operand dout, const float* __re
   }
   const float scale2 = scale * kLog2e;
   float acc[C::NA][4];
-  zero<C>(acc);
+  flash_mma::zero<C>(acc);
 
   for (int it = 0; it < tiles; ++it) {
     const int k0 = it * BC;
@@ -255,7 +212,7 @@ flash_dq_kernel(Operand q, Operand k, Operand v, Operand dout, const float* __re
     accumulate<C>(acc, s, ks, f0, g, t);                  // dq += ds k
     __syncthreads();                      // the stage is refilled next iteration
   }
-  store_acc<C>(dq.head(b, h), dq.st, acc, q0 + r0, f0, T, D, g, t);
+  flash_mma::store_acc<C>(dq.head(b, h), dq.st, acc, q0 + r0, f0, T, D, g, t);
 }
 
 template <class C>
@@ -287,8 +244,8 @@ flash_dkv_kernel(Operand q, Operand k, Operand v, Operand dout, const float* __r
   const float scale2 = scale * kLog2e;
 
   float acc_k[C::NA][4], acc_v[C::NA][4];
-  zero<C>(acc_k);
-  zero<C>(acc_v);
+  flash_mma::zero<C>(acc_k);
+  flash_mma::zero<C>(acc_v);
   if (k0 < len) {                         // else every key of the tile is masked
     const int first = causal ? k0 / BC : 0;
     const int tiles = (T + BC - 1) / BC;
@@ -346,8 +303,8 @@ flash_dkv_kernel(Operand q, Operand k, Operand v, Operand dout, const float* __r
       __syncthreads();
     }
   }
-  store_acc<C>(dk.head(b, h), dk.st, acc_k, k0 + r0, f0, T, D, g, t);
-  store_acc<C>(dv.head(b, h), dv.st, acc_v, k0 + r0, f0, T, D, g, t);
+  flash_mma::store_acc<C>(dk.head(b, h), dk.st, acc_k, k0 + r0, f0, T, D, g, t);
+  flash_mma::store_acc<C>(dv.head(b, h), dv.st, acc_v, k0 + r0, f0, T, D, g, t);
 }
 
 template <class C>

@@ -18,116 +18,284 @@
 //
 // What bounds it on an H100: at B = 8, H = 8, T = 2048, D = 64, causal, the
 // function moves 134.7 MB (0.040 ms at 3.35 TB/s) and does 2 B H T^2 D =
-// 34.4 GFLOP (0.513 ms at the 67 TFLOP/s float32 rate): operations bound it,
-// and float32 keeps it off the tensor cores.
+// 34.4 GFLOP (0.513 ms at the 67 TFLOP/s float32 rate of the CUDA cores).
+// The first design ran both products there, with both operands in shared
+// memory and each key tile loaded between two barriers: 1.72-1.82 ms, 1.4x
+// PyTorch's scaled_dot_product_attention.
 //
-// Design (FlashAttention-2's split, as the JAX package's): one block of 128
-// threads per (query tile of R = 16 RM rows, head, batch row); the query tile
-// is pre-scaled into shared memory, and 64-key tiles of k and v are staged
-// through shared memory one after the other. The register tiles and products
-// are flash_attn.cuh's. Key tiles wholly at or past the length, and (causal)
-// past the tile's last query, are skipped: their p is 0 and alpha 1, so
-// skipping them changes no bit. Blocks are launched heaviest first (the last
-// query tiles see the most keys under a causal mask). No atomics: two
-// launches give equal bits.
+// What this design does about it (FlashAttention-2's split, as the JAX
+// package's, on flash_mma.cuh's tensor-core machinery):
+// - Both products run on the tensor cores, mma.sync m16n8k8 TF32 with the
+//   3-pass split, which keeps float32 accuracy: 3 x 34.4 GFLOP at 495
+//   TFLOP/s bounds it at 0.208 ms.
+// - A block of 4 warps owns BR query rows; a warp owns a strip of 16 (and,
+//   at D = 128 and 256, WF = 2: half the output features; two warps
+//   recompute the strip's scores). The query tile is pre-scaled and split once per block:
+//   up to DMAX = 64 each warp keeps its strip's big and small A fragments in
+//   registers (64 at D = 64); beyond, the block keeps both halves in shared
+//   memory.
+// - Per key tile of BC rows a warp computes the score tile [16 x BC] in
+//   C fragments, takes the online softmax on them in registers (a row is
+//   the 4 lanes of a quad: 2 shuffles per reduction), and feeds p as the A
+//   operand of p . v straight from the accumulators (k permuted,
+//   flash_mma.cuh). The tensor core truncates as it accumulates, so each
+//   tile's p . v is summed apart and added to o with rounded float32 adds.
+// - Key and value tiles go through a 2-stage cp.async ring (16-byte copies
+//   where the operands allow): tile i + 1 loads while tile i is used.
+// - Key tiles wholly at or past the length, or (causal) past the tile's
+//   last query, are skipped, and a warp skips a tile past its strip's last
+//   query: their p is 0 and alpha 1, so skipping them changes no bit.
+//   Blocks are launched heaviest first (the last query tiles see the most
+//   keys under a causal mask). No atomics: two launches give equal bits.
 
 #include "flash_attn.cuh"
+#include "flash_mma.cuh"
 
 namespace {
 
 using flash::Operand;
 using flash::Output;
+using flash_mma::Cfg;
+using flash_mma::FragA;
+using flash_mma::FragB;
+using flash_mma::kThreads;
 
-template <int RM, int DMAX>
-__global__ void __launch_bounds__(flash::kThreads)
-flash_fwd_kernel(Operand q, Operand k, Operand v, const int* __restrict__ lengths, Output out,
-                 float* __restrict__ lse, int T, int H, int D, int causal, float scale) {
-  constexpr int R = 16 * RM;
-  constexpr int C = flash::kC;
-  constexpr int LD = flash::Dims<DMAX>::LD;
-  constexpr int NJD = flash::Dims<DMAX>::NJD;
-  extern __shared__ float smem[];
-  float* sq = smem;                       // [R][LD], pre-scaled
-  float* sk = sq + R * LD;                // [C][LD]
-  float* sv = sk + C * LD;                // [C][LD]
+// The query strip's split A fragments: in registers up to DMAX = 64, else
+// read from the block's split tile in shared memory.
+template <class C>
+struct QStrip {
+  static constexpr bool kInRegisters = C::DMAX <= 64;
+  FragA reg[kInRegisters ? C::KS : 1];
+  const unsigned* big;
+  const unsigned* small;
+  int r0, g, t;
 
-  const int iq = gridDim.x - 1 - blockIdx.x;   // heaviest tiles first
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int q0 = iq * R;
-  const int len = flash::clamp_length(lengths, b, T);
-  const int lane = threadIdx.x % 32;
-  const int cg = lane % 8;
-  const int r0 = (threadIdx.x / 32) * 4 * RM + (lane / 8) * RM;
-
-  flash::load_tile<DMAX>(sq, q.head(b, h), q.st, q0, R, T, D, scale);
-  float o[RM][NJD], m[RM], l[RM];
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    m[i] = flash::kNeg;
-    l[i] = 0.0f;
-#pragma unroll
-    for (int jd = 0; jd < NJD; ++jd) o[i][jd] = 0.0f;
-  }
-  const int kend = causal ? min(len, q0 + R) : len;   // keys [0, kend) can be visible
-  const int tiles = (kend + C - 1) / C;
-  for (int it = 0; it < tiles; ++it) {
-    const int k0 = it * C;
-    __syncthreads();                      // the previous tile is no longer read
-    flash::load_tile<DMAX>(sk, k.head(b, h), k.st, k0, C, T, D, 1.0f);
-    flash::load_tile<DMAX>(sv, v.head(b, h), v.st, k0, C, T, D, 1.0f);
-    __syncthreads();
-    float s[RM][flash::kNJ];
-    flash::score_tile<RM, DMAX>(s, sq, sk, r0, cg);
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const int qp = q0 + r0 + i;
-      float mx = flash::kNeg;
-#pragma unroll
-      for (int j = 0; j < flash::kNJ; ++j) {
-        if (!flash::visible(qp, k0 + cg + 8 * j, len, causal)) s[i][j] = flash::kNeg;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], flash::row_max(mx));
-      const float alpha = expf(m[i] - m_new);
-      float ps = 0.0f;
-#pragma unroll
-      for (int j = 0; j < flash::kNJ; ++j) {
-        s[i][j] = flash::visible(qp, k0 + cg + 8 * j, len, causal) ? expf(s[i][j] - m_new) : 0.0f;
-        ps += s[i][j];
-      }
-      l[i] = l[i] * alpha + flash::row_sum(ps);
-      m[i] = m_new;
-#pragma unroll
-      for (int jd = 0; jd < NJD; ++jd) o[i][jd] *= alpha;
+  __device__ __forceinline__ void get(FragA& a, int ks) const {
+    if constexpr (kInRegisters) {
+      a = reg[ks];
+    } else {
+      flash_mma::load_a_split<C::LD>(a, big, small, r0, 8 * ks, g, t);
     }
-    flash::accumulate_tile<RM, DMAX>(o, s, sv, lane, cg);
   }
+};
 
+// s[j] = q strip . k[8j .. 8j + 8)^T over the DMAX features (zeros past D).
+template <class C>
+__device__ __forceinline__ void score_tile(float (&s)[C::NS][4], const QStrip<C>& q,
+                                           const float* kt, int g, int t) {
 #pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const float l_safe = fmaxf(l[i], 1e-20f);
+  for (int j = 0; j < C::NS; ++j)
 #pragma unroll
-    for (int jd = 0; jd < NJD; ++jd) o[i][jd] = o[i][jd] / l_safe;
-    const int qp = q0 + r0 + i;
-    if (lse != nullptr && cg == 0 && qp < T)
-      lse[(static_cast<long long>(b) * H + h) * T + qp] =
-          l[i] > 0.0f ? m[i] + logf(l_safe) : flash::kNeg;
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+#pragma unroll
+  for (int ks = 0; ks < C::KS; ++ks) {
+    FragA a;
+    q.get(a, ks);
+#pragma unroll
+    for (int j = 0; j < C::NS; ++j) {
+      FragB b;
+      flash_mma::load_b_cols<C::LD>(b, kt, 8 * j, 8 * ks, g, t);
+      if constexpr (C::KS > 8) {
+        flash_mma::mma3_apart(s[j], a, b);
+      } else {
+        flash_mma::mma3(s[j], a, b);
+      }
+    }
   }
-  flash::store_rows<RM, DMAX>(out.head(b, h), out.st, o, q0, r0, cg, T, D);
 }
 
-template <int RM, int DMAX>
+// o += p . v over the tile's BC keys, v's features [f0, f0 + DACC); p in
+// C layout (a_from_c), one A fragment at a time. The tile is summed apart
+// and added to o with rounded float32 adds, 8 n-tiles at a time: at
+// DACC = 128 a 32-float partial sum beside the 64-float o, which fits the
+// registers (a 64-float one spilled).
+template <class C>
+__device__ __forceinline__ void accumulate(float (&o)[C::NA][4], const float (&p)[C::NS][4],
+                                           const float* vt, int f0, int g, int t) {
+  constexpr int NB = C::NA < 8 ? C::NA : 8;
+#pragma unroll
+  for (int n0 = 0; n0 < C::NA; n0 += NB) {
+    float part[NB][4];
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[n][e] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < C::NS; ++j) {
+      FragA a;
+      flash_mma::a_from_c(a, p[j]);
+#pragma unroll
+      for (int n = 0; n < NB; ++n) {
+        FragB b;
+        flash_mma::load_b_rows<C::LD>(b, vt, 8 * j, f0 + 8 * (n0 + n), g, t);
+        flash_mma::mma3(part[n], a, b);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n0 + n][e] += part[n][e];
+  }
+}
+
+// A row's reduction over the 4 lanes of its quad (the lanes that share g).
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(flash::kFull, v, 1));
+  return fmaxf(v, __shfl_xor_sync(flash::kFull, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(flash::kFull, v, 1);
+  return v + __shfl_xor_sync(flash::kFull, v, 2);
+}
+
+template <class C>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_kernel(Operand q, Operand k, Operand v, const int* __restrict__ lengths, Output out,
+                 float* __restrict__ lse, int T, int H, int D, int causal, float scale,
+                 int vec) {
+  constexpr int LD = C::LD, BR = C::BR, BC = C::BC;
+  constexpr bool kQReg = QStrip<C>::kInRegisters;
+  extern __shared__ __align__(16) float smem[];
+  float* sq = smem;                                    // [BR][LD]: q, then its big half
+  unsigned* sq_small = reinterpret_cast<unsigned*>(sq + BR * LD);   // [BR][LD] unless kQReg
+  float* sk = sq + (kQReg ? 1 : 2) * BR * LD;          // [2][BC][LD]
+  float* sv = sk + 2 * BC * LD;                        // [2][BC][LD]
+
+  const int iq = gridDim.x - 1 - blockIdx.x;           // heaviest tiles first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int q0 = iq * BR;
+  const int len = flash::clamp_length(lengths, b, T);
+  const int warp = threadIdx.x / 32;
+  const int g = (threadIdx.x % 32) / 4;
+  const int t = threadIdx.x % 4;
+  const int r0 = (warp / C::WF) * 16;                  // the warp's strip in the tile
+  const int f0 = (warp % C::WF) * C::DACC;
+  const float* kh = k.head(b, h);
+  const float* vh = v.head(b, h);
+
+  QStrip<C> qs;
+  qs.big = reinterpret_cast<const unsigned*>(sq);
+  qs.small = sq_small;
+  qs.r0 = r0;
+  qs.g = g;
+  qs.t = t;
+  const int kend = causal ? min(len, q0 + BR) : len;   // keys [0, kend) can be visible
+  const int tiles = kend > 0 ? (kend + BC - 1) / BC : 0;
+  if (tiles > 0) {                                     // else out = 0, lse = -1e30
+    flash_mma::load_tile_async<C::DMAX, BR>(sq, q.head(b, h), q.st, q0, T, D, vec);
+    cp_async_commit();
+    flash_mma::load_tile_async<C::DMAX, BC>(sk, kh, k.st, 0, T, D, vec);
+    flash_mma::load_tile_async<C::DMAX, BC>(sv, vh, v.st, 0, T, D, vec);
+    cp_async_commit();
+    cp_async_wait<1>();                                // q has landed
+    __syncthreads();
+    if constexpr (kQReg) {
+#pragma unroll
+      for (int ks = 0; ks < C::KS; ++ks) {
+        const float* p = sq + (r0 + g) * LD + 8 * ks + t;
+        qs.reg[ks].set(p[0] * scale, p[8 * LD] * scale, p[4] * scale, p[8 * LD + 4] * scale);
+      }
+    } else {
+      unsigned* big = reinterpret_cast<unsigned*>(sq);
+      for (int e = threadIdx.x; e < BR * C::DMAX; e += kThreads) {
+        const int i = (e / C::DMAX) * LD + e % C::DMAX;
+        flash_mma::split(sq[i] * scale, big[i], sq_small[i]);
+      }
+    }
+  }
+
+  float o[C::NA][4], m[2], l[2];
+  flash_mma::zero<C>(o);
+  m[0] = m[1] = flash::kNeg;
+  l[0] = l[1] = 0.0f;
+
+  for (int it = 0; it < tiles; ++it) {
+    const int k0 = it * BC;
+    const int stage = it & 1;
+    if (it + 1 < tiles) {
+      const int nxt = (stage ^ 1) * BC * LD;
+      flash_mma::load_tile_async<C::DMAX, BC>(sk + nxt, kh, k.st, k0 + BC, T, D, vec);
+      flash_mma::load_tile_async<C::DMAX, BC>(sv + nxt, vh, v.st, k0 + BC, T, D, vec);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();                                   // the stage (and the split q) is in
+    // the strip sees no key of this tile: p = 0 and alpha = 1
+    if (!causal || k0 <= q0 + r0 + 15) {
+      const float* kt = sk + stage * BC * LD;
+      const float* vt = sv + stage * BC * LD;
+      float s[C::NS][4];
+      score_tile<C>(s, qs, kt, g, t);
+      // every key of the tile visible to every query of the strip
+      const bool all = k0 + BC <= len && (!causal || k0 + BC - 1 <= q0 + r0);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int qp = q0 + r0 + g + 8 * half;
+        float mx = flash::kNeg;
+#pragma unroll
+        for (int j = 0; j < C::NS; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& x = s[j][2 * half + e];
+            if (!all && !flash::visible(qp, k0 + 8 * j + 2 * t + e, len, causal))
+              x = flash::kNeg;
+            mx = fmaxf(mx, x);
+          }
+        const float m_new = fmaxf(m[half], quad_max(mx));
+        const float alpha = expf(m[half] - m_new);
+        float ps = 0.0f;
+#pragma unroll
+        for (int j = 0; j < C::NS; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& x = s[j][2 * half + e];
+            x = all || flash::visible(qp, k0 + 8 * j + 2 * t + e, len, causal)
+                    ? expf(x - m_new) : 0.0f;
+            ps += x;
+          }
+        l[half] = l[half] * alpha + quad_sum(ps);
+        m[half] = m_new;
+#pragma unroll
+        for (int n = 0; n < C::NA; ++n) {
+          o[n][2 * half] *= alpha;
+          o[n][2 * half + 1] *= alpha;
+        }
+      }
+      accumulate<C>(o, s, vt, f0, g, t);
+    }
+    __syncthreads();                                   // the stage is refilled next
+  }
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const float l_safe = fmaxf(l[half], 1e-20f);
+#pragma unroll
+    for (int n = 0; n < C::NA; ++n) {
+      o[n][2 * half] = o[n][2 * half] / l_safe;
+      o[n][2 * half + 1] = o[n][2 * half + 1] / l_safe;
+    }
+    const int qp = q0 + r0 + g + 8 * half;
+    if (lse != nullptr && t == 0 && warp % C::WF == 0 && qp < T)
+      lse[(static_cast<long long>(b) * H + h) * T + qp] =
+          l[half] > 0.0f ? m[half] + logf(l_safe) : flash::kNeg;
+  }
+  flash_mma::store_acc<C>(out.head(b, h), out.st, o, q0 + r0, f0, T, D, g, t);
+}
+
+template <class C>
 int launch(Operand q, Operand k, Operand v, const int* lengths, Output out, float* lse, int B,
-           int T, int H, int D, int causal, cudaStream_t stream) {
-  constexpr int R = 16 * RM;
-  const size_t smem =
-      static_cast<size_t>(R + 2 * flash::kC) * flash::Dims<DMAX>::LD * sizeof(float);
-  cudaError_t err = allow_smem(flash_fwd_kernel<RM, DMAX>, smem);
+           int T, int H, int D, int causal, int vec, cudaStream_t stream) {
+  const int q_tiles = QStrip<C>::kInRegisters ? 1 : 2;
+  const size_t smem = static_cast<size_t>(q_tiles * C::BR + 4 * C::BC) * C::LD * sizeof(float);
+  cudaError_t err = allow_smem(flash_fwd_kernel<C>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((T + R - 1) / R, H, B);
-  flash_fwd_kernel<RM, DMAX><<<grid, flash::kThreads, smem, stream>>>(
-      q, k, v, lengths, out, lse, T, H, D, causal, flash::softmax_scale(D));
+  const dim3 grid((T + C::BR - 1) / C::BR, H, B);
+  flash_fwd_kernel<C><<<grid, kThreads, smem, stream>>>(
+      q, k, v, lengths, out, lse, T, H, D, causal, flash::softmax_scale(D), vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -150,12 +318,16 @@ extern "C" int flash_attn_fwd(const void* q, long long q_sb, long long q_st, lon
   const int* len = static_cast<const int*>(lengths);
   float* l = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FLASH_FWD(RM, DMAX) launch<RM, DMAX>(oq, okk, ov, len, oo, l, B, T, H, D, causal, s)
-  if (D <= 16) return FLASH_FWD(4, 16);
-  if (D <= 32) return FLASH_FWD(4, 32);
-  if (D <= 64) return FLASH_FWD(4, 64);
-  if (D <= 128) return FLASH_FWD(4, 128);
-  if (D <= 256) return FLASH_FWD(2, 256);
+  const int vec = flash_mma::rows_16b_aligned(q, q_sb, q_st, q_sh, D) &&
+                  flash_mma::rows_16b_aligned(k, k_sb, k_st, k_sh, D) &&
+                  flash_mma::rows_16b_aligned(v, v_sb, v_st, v_sh, D);
+#define FLASH_FWD(DMAX, WF, BC) \
+  launch<Cfg<DMAX, WF, BC>>(oq, okk, ov, len, oo, l, B, T, H, D, causal, vec, s)
+  if (D <= 16) return FLASH_FWD(16, 1, 64);
+  if (D <= 32) return FLASH_FWD(32, 1, 64);
+  if (D <= 64) return FLASH_FWD(64, 1, 64);
+  if (D <= 128) return FLASH_FWD(128, 2, 32);
+  if (D <= 256) return FLASH_FWD(256, 2, 32);
 #undef FLASH_FWD
   return static_cast<int>(cudaErrorInvalidValue);
 }

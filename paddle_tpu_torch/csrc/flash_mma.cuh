@@ -1,6 +1,7 @@
-// Tensor-core helpers of the flash-attention backward kernels
-// (flash_attn_bwd.cu): float32-accurate products on mma.sync TF32 by the
-// 3-pass split, and the cp.async tile loads that feed them.
+// Tensor-core helpers of the flash-attention kernels (flash_attn_fwd.cu,
+// flash_attn_bwd.cu): float32-accurate products on mma.sync TF32 by the
+// 3-pass split, the cp.async tile loads that feed them, and the geometry
+// and output stores the kernels share. conv1x1_bn.cu takes the split.
 //
 // The product. mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 takes
 // A [16 x 8] and B [8 x 8] as TF32 (10-bit mantissa; the tensor core
@@ -104,6 +105,23 @@ __device__ __forceinline__ void load_a(FragA& a, const float* s, int r0, int c0,
   a.set(p[0], p[8 * LD], p[4], p[8 * LD + 4]);
 }
 
+// A [16 x 8] from a tile already split into its big and small halves
+// (bits, row-major, leading dimension LD), as load_a.
+template <int LD>
+__device__ __forceinline__ void load_a_split(FragA& a, const unsigned* big,
+                                             const unsigned* small, int r0, int c0, int g,
+                                             int t) {
+  const int o = (r0 + g) * LD + c0 + t;
+  a.big[0] = big[o];
+  a.big[1] = big[o + 8 * LD];
+  a.big[2] = big[o + 4];
+  a.big[3] = big[o + 8 * LD + 4];
+  a.small[0] = small[o];
+  a.small[1] = small[o + 8 * LD];
+  a.small[2] = small[o + 4];
+  a.small[3] = small[o + 8 * LD + 4];
+}
+
 // B [8 x 8] with element (k, n) = s[n0 + n][c0 + k]: the transposed
 // streamed tile of a score product (k runs over features).
 template <int LD>
@@ -195,6 +213,50 @@ __device__ __forceinline__ void load_stat_async(float* dst, const float* src, in
 inline bool rows_16b_aligned(const void* p, long long sb, long long st, long long sh, int D) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0 && sb % 4 == 0 && st % 4 == 0 &&
          sh % 4 == 0 && D % 4 == 0;
+}
+
+// The geometry of one instantiation: DMAX features (a multiple of 16), WF
+// warps per row strip (splitting the accumulator features), BC streamed
+// rows.
+template <int DMAX_, int WF_, int BC_>
+struct Cfg {
+  static constexpr int DMAX = DMAX_;
+  static constexpr int WF = WF_;
+  static constexpr int BC = BC_;
+  static constexpr int LD = DMAX + 4;         // see "Banks" above
+  static constexpr int BR = 16 * (kWarps / WF);
+  static constexpr int DACC = DMAX / WF;      // accumulator features per warp
+  static constexpr int NA = DACC / 8;         // accumulator n-tiles per warp
+  static constexpr int NS = BC / 8;           // score n-tiles per warp
+  static constexpr int KS = DMAX / 8;         // score k-steps
+};
+
+template <class C>
+__device__ __forceinline__ void zero(float (&acc)[C::NA][4]) {
+#pragma unroll
+  for (int n = 0; n < C::NA; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+}
+
+// acc (C layout: rows r0 + g (+ 8), features f0 + 8n + 2t (+ 1)) into the
+// rows t < T and features d < D of one (batch, head) of dst.
+template <class C>
+__device__ __forceinline__ void store_acc(float* dst, long long st, const float (&acc)[C::NA][4],
+                                          int r0, int f0, int T, int D, int g, int t) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = r0 + g + 8 * half;
+    if (row >= T) continue;
+    float* out = dst + row * st;
+#pragma unroll
+    for (int n = 0; n < C::NA; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int d = f0 + 8 * n + 2 * t + e;
+        if (d < D) out[d] = acc[n][2 * half + e];
+      }
+  }
 }
 
 }  // namespace flash_mma

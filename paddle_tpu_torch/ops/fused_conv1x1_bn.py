@@ -34,11 +34,13 @@ Tensor = torch.Tensor
 CONV1X1_STATS = CudaKernel(
     "conv1x1_bn.cu", "conv1x1_stats",
     [PTR, PTR, PTR,                  # x, w, b (null: no bias)
-     PTR, PTR, PTR, PTR,             # y, s, q; scratch: per-tile partial sums
+     PTR, PTR, PTR,                  # y, s, q
+     PTR, PTR,                       # scratch: per-block partial sums, w's TF32 halves
      I32, I32, I32, I32])            # M, K, N, vec
 KERNELS = (CONV1X1_STATS,)
-TILE_M = 128                         # rows of y per block: one partial row per tile
-MAX_M = 65535 * TILE_M               # the grid's second dimension
+TILE_M = 128                         # rows of y per tile: at most one partial row per tile
+TILE_K = 32                          # the kernel pads w's halves to a multiple of this
+MAX_M = 65535 * TILE_M
 
 
 def conv1x1_stats_reference(x: Tensor, w: Tensor, b: Optional[Tensor] = None):
@@ -72,9 +74,10 @@ def _launch(x: Tensor, w: Tensor, b: Optional[Tensor], M: int, K: int, N: int):
     s = torch.empty((N,), device=dev)
     q = torch.empty((N,), device=dev)
     part = torch.empty((-(-M // TILE_M), 2, N), device=dev)
-    vec = int(K % 4 == 0 and ptr(x) % 16 == 0 and ptr(w) % 16 == 0)
+    wsplit = torch.empty((2, N, -(-K // TILE_K) * TILE_K), device=dev)
+    vec = int(K % 4 == 0 and ptr(x) % 16 == 0)       # TMA reads x; else 4-byte copies
     CONV1X1_STATS.launch(dev, ptr(x), ptr(w), None if b is None else ptr(b),
-                         ptr(y), ptr(s), ptr(q), ptr(part), M, K, N, vec)
+                         ptr(y), ptr(s), ptr(q), ptr(part), ptr(wsplit), M, K, N, vec)
     return y, s, q
 
 

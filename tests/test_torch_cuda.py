@@ -316,7 +316,8 @@ def _conv_inputs(M, K, N, dev, seed=0):
     return x, w, b
 
 
-@pytest.mark.parametrize("M,K,N", [(1, 1, 1), (37, 5, 3), (1000, 64, 64), (3136, 2048, 512)])
+@pytest.mark.parametrize("M,K,N", [(1, 1, 1), (37, 5, 3), (1000, 64, 64), (3136, 2048, 512),
+                                   (513, 130, 200)])
 @pytest.mark.parametrize("bias", [False, True])
 def test_conv1x1_stats_kernel_matches_plain_version(dev, M, K, N, bias):
     from paddle_tpu_torch.ops import fused_conv1x1_bn as fc
@@ -344,6 +345,54 @@ def test_conv1x1_stats_kernel_matches_plain_version(dev, M, K, N, bias):
     torch.cuda.synchronize()
     for a, r in zip(kg, pg):
         assert float((a - r).abs().max()) <= _grad_tol(r)
+
+
+@pytest.mark.parametrize("M,K,N", [(1000, 64, 64), (777, 256, 130)])
+def test_conv1x1_stats_kernel_takes_an_unaligned_x(dev, M, K, N):
+    """x one float past a 16-byte boundary: the kernel's producer fills its
+    stages with 4-byte copies in place of TMA, and the results match."""
+    from paddle_tpu_torch.ops import fused_conv1x1_bn as fc
+
+    x, w, b = _conv_inputs(M, K, N, dev, seed=3)
+    buf = torch.empty(M * K + 1, device=dev)
+    xu = buf[1:].view(M, K)
+    xu.copy_(x)
+    assert xu.data_ptr() % 16 != 0
+    y, s, q = fc.conv1x1_stats(xu, w, b)
+    yr, sr, qr = fc.conv1x1_stats_reference(x, w, b)
+    torch.cuda.synchronize()
+    assert float((y - yr).abs().max()) <= TOL * max(1.0, float(yr.abs().max()))
+    assert ((s - sr).abs() <= 1e-5 * yr.abs().sum(0) + 1e-30).all()
+    assert ((q - qr).abs() <= 1e-5 * qr + 1e-30).all()
+    for a, r in zip((y, s, q), fc.conv1x1_stats(x, w, b)):
+        assert torch.equal(a, r)
+
+
+# The nine (M, K, N) of ResNet-50's 1x1 stride-1 convs at 224² and batch 64
+# (chip_smoke.conv_shapes), the main path's shapes of kernel 9.
+RESNET_CONV_SHAPES = [(4096, 512, 2048), (4096, 2048, 512), (14400, 256, 1024),
+                      (14400, 1024, 256), (53824, 128, 512), (53824, 512, 128),
+                      (207936, 64, 64), (207936, 64, 256), (207936, 256, 64)]
+
+
+@pytest.mark.parametrize("M,K,N", RESNET_CONV_SHAPES)
+def test_conv1x1_stats_kernel_at_resnet_shapes(dev, M, K, N):
+    """Kernel 9 at the ResNet-50 train step's shapes, with and without a
+    bias, against its plain version; two launches give equal bits."""
+    from paddle_tpu_torch.ops import fused_conv1x1_bn as fc
+
+    x, w, b = _conv_inputs(M, K, N, dev, seed=5)
+    for bias in (None, b):
+        y, s, q = fc.conv1x1_stats(x, w, bias)
+        yr, sr, qr = fc.conv1x1_stats_reference(x, w, bias)
+        torch.cuda.synchronize()
+        assert torch.isfinite(y).all()
+        assert float((y - yr).abs().max()) <= TOL * max(1.0, float(yr.abs().max()))
+        assert ((s - sr).abs() <= 1e-5 * yr.abs().sum(0) + 1e-30).all()
+        assert ((q - qr).abs() <= 1e-5 * qr + 1e-30).all()
+        del yr, sr, qr
+        for a, r in zip((y, s, q), fc.conv1x1_stats(x, w, bias)):
+            assert torch.equal(a, r)
 
 
 def test_conv1x1_stats_kernel_is_deterministic(dev):
@@ -654,3 +703,30 @@ def test_flash_backward_kernels_across_shapes(dev, D, T, causal):
     for name, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
         assert torch.isfinite(a).all(), name
         assert float((a - b).abs().max()) <= _grad_tol(b), name
+
+
+@pytest.mark.parametrize("D", [1, 16, 40, 64, 128, 256])
+@pytest.mark.parametrize("T", [1, 63, 65, 1000])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_forward_kernel_across_shapes(dev, D, T, causal):
+    """Kernel 10 against its plain version at every head-dim tile (D = 1
+    and 40 take the 4-byte copies and a zero-padded k-step; D = 128 and 256
+    keep the split query tile in shared memory, D = 256 splits the output
+    features across warps), ragged last tiles, lengths with a 0 and a 1,
+    q, k, v as strided views of one qkv tensor; the light launch (no lse)
+    and a second launch give equal bits."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    B, H = (3, 2) if T < 1000 else (3, 1)
+    q, k, v, _, lengths = _flash_inputs(dev, B, T, H, D, seed=D * 5 + T + causal)
+    out, lse = fa._launch_fwd(q, k, v, lengths, causal, True)
+    out2, lse2 = fa._launch_fwd(q, k, v, lengths, causal, True)
+    light, _ = fa._launch_fwd(q, k, v, lengths, causal, False)
+    ref_out, ref_lse = fa.flash_forward_reference(q, k, v, lengths, causal)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2) and torch.equal(lse, lse2) and torch.equal(light, out)
+    assert torch.isfinite(out).all()
+    assert float((out - ref_out).abs().max()) <= _grad_tol(ref_out)
+    seen = lengths > 0
+    assert float((lse - ref_lse)[seen].abs().max()) <= TOL
+    assert (lse[~seen] == -1e30).all() and not out[~seen].any()
