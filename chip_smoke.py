@@ -19,6 +19,9 @@ Phases, each printing one JSON object per line:
              (act_in, act_gate) = (relu, sigmoid), (linear, tanh),
              (tanh, relu) and (sigmoid, linear), each of the four
              activations in each slot, held to 1e-4 of max(1, max |plain|).
+             Kernels 5 and 6 (the persistent attention-GRU training grids)
+             also at Te = 128, m (a residual of 5) against h_prev . wa + ba,
+             two launches of each bit-equal, and the grid barrier timed.
 3. serve   — a main path: the seqToseq NMT generation model at full
              width (vocab 30000, dim 512, random weights from seed 1)
              behind build_engine(slots=64, prompt_tokens=32,
@@ -35,8 +38,9 @@ Phases, each printing one JSON object per line:
              loss must fall. Then one B = 4 step against the same step on
              the CPU (loss and every gradient within 1e-3 * max(1,
              max |grad|)), a pass-00000 save restored into a fresh Trainer
-             (parameters and Adam slots equal), and one step under
-             torch.profiler.
+             (parameters and Adam slots equal), one step on a batch of
+             sources and targets 128 long (Te = 128, through kernels 5 and 6),
+             and one step under torch.profiler.
 5. lstm_kernels — kernels 7a, 7b and 8 at the LSTM classifier's full
              width (T = 64, B = 256, H = 512), forward and reversed, with
              the default activations and with (relu, sigmoid, tanh), held
@@ -115,13 +119,16 @@ Phases, each printing one JSON object per line:
              classification_error (equal) against the CPU.
 
 Every main path (3, 4, 6, 7, 9, 10, 12, 13) runs between zeroed counts of
-the layers' eager routes too (gated_recurrent, lstmemory, full_attention:
-the EAGER_ROUTES of the ops modules) and fails if any layer took its eager
-computation instead of a kernel.
+the layers' eager routes too (gated_recurrent, lstmemory, full_attention,
+and the attention decoder group's loop: the EAGER_ROUTES of the ops
+modules) and fails if any layer took its eager computation instead of a
+kernel.
 
 Then the per-kernel line ({"kernels": [...]}; rows 9-12, the kernels on
 the tensor cores, also carry bound_tc_ms, the bound of their design: three
-TF32 products per product at 495 TFLOP/s, or the bytes), the card's name
+TF32 products per product at 495 TFLOP/s, or the bytes; rows 5 and 6
+carry design_bound_ms, bound_ms plus their grid barriers at the measured
+barrier time), the card's name
 and power
 limit as nvidia-smi reports them, and as the last line
 {"ok": true, "device": {...}}. Any failure raises, so the exit code is not
@@ -211,11 +218,11 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
 def zero_counts(kernels):
     """Set every kernel's launch count and every layer family's eager-route
     count to 0: just before a main path runs."""
-    from paddle_tpu_torch.ops import flash_attention, fused_gru, fused_lstm
+    from paddle_tpu_torch.ops import flash_attention, fused_attention_gru, fused_gru, fused_lstm
 
     for k in kernels:
         k.launches = 0
-    for family in (fused_gru, fused_lstm, flash_attention):
+    for family in (fused_gru, fused_lstm, flash_attention, fused_attention_gru):
         family.EAGER_ROUTES = 0
 
 
@@ -223,10 +230,11 @@ def read_counts(kernels):
     """Launches by kernel and eager routes by layer family, just after a main
     path ran: every path of this script runs configs the kernels take, so a
     layer that took its eager computation fails the run."""
-    from paddle_tpu_torch.ops import flash_attention, fused_gru, fused_lstm
+    from paddle_tpu_torch.ops import flash_attention, fused_attention_gru, fused_gru, fused_lstm
 
     routes = {"gated_recurrent": fused_gru.EAGER_ROUTES, "lstmemory": fused_lstm.EAGER_ROUTES,
-              "full_attention": flash_attention.EAGER_ROUTES}
+              "full_attention": flash_attention.EAGER_ROUTES,
+              "attention_decoder": fused_attention_gru.EAGER_ROUTES}
     assert not any(routes.values()), ("eager routes on a main path", routes)
     return {k.symbol: k.launches for k in kernels}, routes
 
@@ -364,7 +372,10 @@ def _grad_err(got, ref):
 def phase_train_kernels(torch, dev, rng, t, lengths, results):
     """Kernels 2, 3, 5 and 6 at the train path's full widths: GRU T = 32,
     B = 64, H = 512 (forward and reversed); attention-GRU Td = Te = 32,
-    B = 64, D = 512, E = 1024."""
+    B = 64, D = 512, E = 1024, and the same at Te = 128. Kernels 5 and 6
+    also report their grid (blocks, shared memory a block, grid barriers a
+    launch), their time per decoder step and the grid barrier's own time,
+    and their design bound: the bound plus their barriers."""
     from paddle_tpu_torch.ops import fused_attention_gru as fa
     from paddle_tpu_torch.ops import fused_gru as fg
 
@@ -411,6 +422,66 @@ def phase_train_kernels(torch, dev, rng, t, lengths, results):
         flops=T * (12.0 * B * H * H + 25.0 * B * H))       # kernel_flops.gru_bwd_flops
 
     Td, Te, D, E = TRAIN["T"], FULL["prompt_tokens"], FULL["dim"], 2 * FULL["dim"]
+    barrier_us = grid_barrier_us(torch, dev, fa.grid_plan(B, Te, D, E, fa.card_sms(dev)))
+    cases = [attention_train_case(torch, fa, rng, t, lengths, Td, te, B, D, E, barrier_us)
+             for te in (Te, LONG_TE)]
+    weights = D * D + 2 * D + E * 3 * D + D * 3 * D
+    att = 2.0 * B * D * D + 4.0 * B * Te * D + 2.0 * B * Te * E
+    step_fwd = att + 2.0 * B * E * 3 * D + 6.0 * B * D * D   # pallas_attention_gru._flops
+    fwd_bytes = 4.0 * (Te * B * (D + E + 1) + Td * B * (3 * D + 1) + B * D + weights
+                       + Td * B * (D + D + 3 * D + Te + E + D))   # ys, hprev, acts, alpha, ctx, m
+    # the backward kernel's own work per step: the GRU backward (drh, dh_prev:
+    # 6 B D^2), d_ctx (6 B D E), dalpha (2 B Te E), the tanh backward (about
+    # 8 B Te D), d_m . wa^T (2 B D^2) and dWa's share (2 B D^2).
+    # pallas_attention_gru._flops(bwd=True), three forwards, also counts
+    # dW_ctx, dW_gru and d_enc_vec, which run outside the kernel.
+    step_bwd = B * (10.0 * D * D + 6.0 * D * E + 2.0 * Te * E + 8.0 * Te * D)
+    bwd_bytes = 4.0 * (Td * B * D + Te * B * (D + E) + Td * B + weights   # dy, ep, ev, dmask, weights
+                       + Td * B * (D + 3 * D + Te + D)                     # hprev, acts, alpha, m
+                       + Td * B * (3 * D + E) + B * D + Te * B * D + D * D + 2 * D)  # outputs
+    n_fwd, n_bwd = fa.grid_barriers(Td)
+    for name, i, nbytes, flops, n_bar in (
+            ("attention_gru_fwd_train", 0, fwd_bytes, Td * step_fwd, n_fwd),
+            ("attention_gru_bwd", 1, bwd_bytes, Td * step_bwd, n_bwd)):
+        bound_ms = bound(nbytes, flops)[0]
+        results[name] = dict(
+            cases=[c[i] for c in cases], shape=dict(Td=Td, Te=Te, B=B, D=D, E=E),
+            bytes=nbytes, flops=flops, barrier_us=barrier_us,
+            design_bound_ms=bound_ms + n_bar * barrier_us * 1e-3)
+    results["attention_gru_bwd"]["flops_jax_count"] = 3.0 * Td * step_fwd
+
+
+# a training batch whose longest source is 128 tokens: past the first
+# design's backward (its shared memory held Te x D floats per row)
+LONG_TE = 128
+
+
+def grid_barrier_us(torch, dev, plan) -> float:
+    """One grid barrier of kernels 5 and 6 in µs: the median over three
+    launches of 10,000 barriers, on the main path's grid (its blocks, one
+    to an SM, held there by the forward's shared memory)."""
+    from paddle_tpu_torch.ops._build import I32, PTR, CudaKernel
+
+    bench = CudaKernel("attention_gru_fwd_train.cu", "grid_barrier_bench", [PTR, I32, I32, I32])
+    counter = torch.empty(1, dtype=torch.int32, device=dev)
+    run = lambda iters: bench.launch(dev, counter.data_ptr(), iters, plan["blocks"],
+                                     plan["fwd_smem_bytes"])
+    run(1000)
+    times = []
+    for _ in range(3):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        run(10000)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) * 1e3 / 10000)
+    return statistics.median(times)
+
+
+def attention_train_case(torch, fa, rng, t, lengths, Td, Te, B, D, E, barrier_us):
+    """Kernels 5 and 6 at one shape against their plain versions (the
+    residuals and the gradients), two launches of each bit-equal, both
+    timed, with the grid each launches."""
     r = lambda *shape: t(rng.randn(*shape) * 0.3)
     em = t((np.arange(Te)[:, None] < lengths(Te)[None, :])[:, :, None])
     args = [r(B, Te, D).transpose(0, 1), r(B, Te, E).transpose(0, 1), em,
@@ -418,51 +489,50 @@ def phase_train_kernels(torch, dev, rng, t, lengths, results):
             r(B, D), t(rng.randn(D, D) / np.sqrt(D)), r(1, D), r(1, D),
             t(rng.randn(E, 3 * D) / np.sqrt(E)), t(rng.randn(D, 3 * D) / np.sqrt(D))]
     dy = t(rng.randn(Td, B, D))
+    key = {"Td": Td, "Te": Te, "B": B, "D": D, "E": E}
     got = fa._launch_fwd(*args, fa.KERNEL_ACTS, residuals=True)
+    again = fa._launch_fwd(*args, fa.KERNEL_ACTS, residuals=True)
     ref = fa.attention_gru_reference(*args, residuals=True)
     torch.cuda.synchronize()
     err = _err(got, ref)
-    assert all(torch.isfinite(a).all() for a in got) and err <= TOL, ("attention_gru_fwd_train", err)
-    fwd_case = {"Td": Td, "max_abs_err": err,
-                "ms": time_ms(torch, lambda: fa._launch_fwd(*args, fa.KERNEL_ACTS, residuals=True)),
-                "plain_ms": time_ms(torch, lambda: fa.attention_gru_reference(
-                    *args, residuals=True), reps=5)}
+    assert all(torch.isfinite(a).all() for a in got) and err <= TOL, ("attention_gru_fwd_train", key, err)
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), ("attention_gru_fwd_train", key)
     ep, ev, _, _, dmask, _, wa, ba, v, wctx, wg = args
-    _, hprev, saved, alpha, _ = got
+    _, hprev, saved, alpha, _, m = got
+    m_err = float((m - (hprev @ wa + ba)).abs().max())
+    assert m_err <= TOL, ("attention_gru_fwd_train m", key, m_err)
+    plan = fa.grid_plan(B, Te, D, E, fa.card_sms(args[0].device))
+    n_fwd, n_bwd = fa.grid_barriers(Td)
+    fwd_ms = time_ms(torch, lambda: fa._launch_fwd(*args, fa.KERNEL_ACTS, residuals=True))
+    fwd_case = {**key, "max_abs_err": max(err, m_err), "ms": fwd_ms,
+                "plain_ms": time_ms(torch, lambda: fa.attention_gru_reference(
+                    *args, residuals=True), reps=5),
+                "per_step_us": 1e3 * fwd_ms / Td, "grid_barriers": n_fwd,
+                "blocks": plan["blocks"], "smem_bytes_per_block": plan["fwd_smem_bytes"],
+                "barrier_us": barrier_us}
     diff = (0, 1, 3, 5, 6, 7, 8, 9, 10)                   # not the masks
-    leaves = [a.detach().requires_grad_(i in diff) for i, a in enumerate(args)]
-    kg = torch.autograd.grad(fa.fused_attention_gru(*leaves), [leaves[i] for i in diff], dy)
+
+    def kernel_grads():
+        leaves = [a.detach().requires_grad_(i in diff) for i, a in enumerate(args)]
+        return torch.autograd.grad(fa.fused_attention_gru(*leaves), [leaves[i] for i in diff], dy)
+
+    kg, kg2 = kernel_grads(), kernel_grads()
     plain = [a.detach().requires_grad_(i in diff) for i, a in enumerate(args)]
     ys_plain = fa.attention_gru_reference(*plain)
     pg = torch.autograd.grad(ys_plain, [plain[i] for i in diff], dy, retain_graph=True)
     torch.cuda.synchronize()
     err, rel = _err(kg, pg), _grad_err(kg, pg)
-    assert all(torch.isfinite(g).all() for g in kg) and rel <= TOL, ("attention_gru_bwd", rel)
-    bwd_case = {"Td": Td, "max_abs_err": err, "err_over_scale": rel,
-                "ms": time_ms(torch, lambda: fa._launch_bwd(
-                    dy, ep, ev, dmask, hprev, saved, alpha, wa, ba, v, wctx, wg)),
+    assert all(torch.isfinite(g).all() for g in kg) and rel <= TOL, ("attention_gru_bwd", key, rel)
+    assert all(torch.equal(a, b) for a, b in zip(kg, kg2)), ("attention_gru_bwd", key)
+    bwd_ms = time_ms(torch, lambda: fa._launch_bwd(
+        dy, ep, ev, dmask, hprev, saved, alpha, m, wa, v, wctx, wg))
+    bwd_case = {**key, "max_abs_err": err, "err_over_scale": rel, "ms": bwd_ms,
                 "plain_ms": time_ms(torch, lambda: torch.autograd.grad(
-                    ys_plain, [plain[i] for i in diff], dy, retain_graph=True), reps=5)}
-    weights = D * D + 2 * D + E * 3 * D + D * 3 * D
-    att = 2.0 * B * D * D + 4.0 * B * Te * D + 2.0 * B * Te * E
-    step_fwd = att + 2.0 * B * E * 3 * D + 6.0 * B * D * D   # pallas_attention_gru._flops
-    results["attention_gru_fwd_train"] = dict(
-        cases=[fwd_case], shape=dict(Td=Td, Te=Te, B=B, D=D, E=E),
-        bytes=4.0 * (Te * B * (D + E + 1) + Td * B * (3 * D + 1) + B * D + weights
-                     + Td * B * (D + D + 3 * D + Te + E)),   # ys, hprev, acts, alpha, ctx
-        flops=Td * step_fwd)
-    # the backward kernel's own work per step: the GRU backward (drh, dh_prev:
-    # 6 B D^2), m recomputed (2 B D^2), d_ctx (6 B D E), dalpha (2 B Te E),
-    # the tanh backward (about 8 B Te D) and d_m . wa^T plus its dWa share
-    # (4 B D^2). pallas_attention_gru._flops(bwd=True), three forwards,
-    # also counts dW_ctx, dW_gru and d_enc_vec, which run outside the kernel.
-    step_bwd = B * (12.0 * D * D + 6.0 * D * E + 2.0 * Te * E + 8.0 * Te * D)
-    results["attention_gru_bwd"] = dict(
-        cases=[bwd_case], shape=dict(Td=Td, Te=Te, B=B, D=D, E=E),
-        bytes=4.0 * (Td * B * D + Te * B * (D + E) + Td * B + weights     # dy, ep, ev, dmask, weights
-                     + Td * B * (D + 3 * D + Te)                            # hprev, acts, alpha
-                     + Td * B * (3 * D + E) + B * D + Te * B * D + D * D + 2 * D),  # outputs
-        flops=Td * step_bwd, flops_jax_count=3.0 * Td * step_fwd)
+                    ys_plain, [plain[i] for i in diff], dy, retain_graph=True), reps=5),
+                "per_step_us": 1e3 * bwd_ms / Td, "grid_barriers": n_bwd,
+                "blocks": plan["blocks"], "smem_bytes_per_block": plan["bwd_smem_bytes"],
+                "dep_in_smem": bool(plan["bwd_dep_in_smem"]), "barrier_us": barrier_us}
+    return fwd_case, bwd_case
 
 
 def run_requests(engine, prompts):
@@ -644,6 +714,15 @@ def phase_train(torch, dev, kernels):
             assert torch.equal(fresh.opt_state.slots[name][slot], v), (name, slot)
     shutil.rmtree(save_dir, ignore_errors=True)
 
+    # a batch of 128-token sources: the decoder route takes kernels 5 and 6
+    long_batch = nmt_batch(vocab=FULL["vocab"], B=TRAIN["batch"], T=LONG_TE, seed=3, device=dev)
+    zero_counts(kernels)
+    long_loss = float(trainer.train_one_batch(long_batch))
+    torch.cuda.synchronize()
+    long_launches, _ = read_counts(kernels)
+    assert np.isfinite(long_loss), long_loss
+    assert long_launches["attention_gru_fwd_train"] == long_launches["attention_gru_bwd"] == 1
+
     train = {"phase": "train", "params": sum(p.numel() for p in trainer.params.values()),
              "batch": TRAIN["batch"], "T": TRAIN["T"], "steps": n,
              "step_ms": step_ms, "step_ms_all": [1e3 * x for x in step_s],
@@ -651,7 +730,8 @@ def phase_train(torch, dev, kernels):
              "target_tokens_per_s": target_tokens / (step_ms / 1e3),
              "peak_memory_bytes": peak, "losses": losses, "kernel_launches": launches, "eager_routes": routes,
              "cpu_step_loss_rel_err": loss_err, "cpu_step_grad_max_err_over_scale":
-             max(grad_err.values()), "checkpoint_roundtrip": "equal"}
+             max(grad_err.values()), "checkpoint_roundtrip": "equal",
+             "long_source_step": {"T": LONG_TE, "loss": long_loss}}
     emit(train)
     profiled(torch, "train_profile", lambda: trainer.train_one_batch(batch))
     return train
@@ -1397,7 +1477,7 @@ def main() -> int:
         "attention_gru_fwd": ("paddle_tpu_torch/csrc/attention_gru_fwd.cu",
                               "paddle_tpu/ops/pallas_attention_gru.py:285 "
                               "(_fwd_kernel_light; pallas_call :266)"),
-        "attention_gru_fwd_train": ("paddle_tpu_torch/csrc/attention_gru_fwd.cu",
+        "attention_gru_fwd_train": ("paddle_tpu_torch/csrc/attention_gru_fwd_train.cu",
                                     "paddle_tpu/ops/pallas_attention_gru.py:199 "
                                     "(_fwd_kernel; pallas_call :266)"),
         "attention_gru_bwd": ("paddle_tpu_torch/csrc/attention_gru_bwd.cu",
@@ -1456,6 +1536,10 @@ def main() -> int:
         assert launches > 0, (name, path_of[name])
         if name in TC_KERNELS:
             extra = {"bound_tc_ms": times.get("bound_tc_ms", bound_tc(r["bytes"], r["flops"]))}
+        elif "design_bound_ms" in r:              # kernels 5 and 6: the bound plus their barriers
+            extra = {"design_bound_ms": r["design_bound_ms"], "barrier_us": r["barrier_us"],
+                     "grid_barriers": main_case["grid_barriers"], "blocks": main_case["blocks"],
+                     "smem_bytes_per_block": main_case["smem_bytes_per_block"]}
         else:
             extra = {}
         rows.append({

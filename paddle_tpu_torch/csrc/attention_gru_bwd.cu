@@ -7,199 +7,390 @@
 // d_enc_vec are large time-parallel products of the streams, left to the
 // caller as in the JAX package.
 //
-// Per decoder step, walked t = Td-1 .. 0 for batch row b, with DH the
-// gradient carried into the step's carry, dm = dmask[t, b] and the
-// residuals (h_prev, u, r, c, alpha) of attention_gru_fwd_train:
+// Per decoder step, walked t = Td-1 .. 0 for all batch rows at once, with
+// DH [B, D] the gradient carried into the step's carry, dm = dmask[t] and
+// the residuals (h_prev, u, r, c, alpha) of attention_gru_fwd_train:
 //   dh'    = dy[t] + dm * DH                (the output stream is the raw h')
 //   d_din  = [du u(1-u) | drh h_prev r(1-r) | dcand]      (GRU backward, as gru_bwd)
-//   d_ctx  = d_din . Wctx^T                                [E]
-//   m      = h_prev . Wa + ba;   comb = tanh(ep + m)       (recomputed) [Te, D]
+//            drh = dcand . Wg[:, 2D:]^T
+//   d_ctx  = d_din . Wctx^T                                [B, E]
+//   comb   = tanh(ep + m)        (m = h_prev . Wa + ba, saved by the forward)
 //   dalpha = ev . d_ctx;         ds = alpha (dalpha - sum alpha dalpha)
 //   dtanh  = (1 - comb^2) * ds * v          d_enc_proj += dtanh
 //   d_m    = sum_Te dtanh;       dv += sum_Te comb * ds
-//   DH     = dh' u + drh r + dg . Wg^T + d_m . Wa^T + (1 - dm) * DH
+//   DH     = dh' u + drh r + d_din[:, :2D] . Wg[:, :2D]^T + d_m . Wa^T + (1 - dm) DH
 // and over every (t, b): dWa = h_prev^T . d_m, dba = sum d_m, dv = sum of
 // the rows' partials.
 //
-// What bounds it on an H100: per step and row the block reads Wctx, Wg and
-// Wa (10.5 MB at D = 512, E = 1024) from L2, so as the forward the L2 read
-// rate limits it; the function's own bytes (about 70 MB at Td = Te = 32,
-// B = 64) and its 33 GFLOP (pallas_attention_gru._flops(bwd=True), some
-// 0.5 ms at the 67 TFLOP/s float32 rate) are far below that.
+// What bounds it on an H100: its float32 operations (Td B (10 D^2 + 6 D E
+// + 2 Te E + 8 Te D): 12 GFLOP at Td = Te = 32, B = 64, D = 512, E = 1024,
+// 0.18 ms at 67 TFLOP/s) over its bytes (about 70 MB); the reversed time
+// loop is sequential, and every step needs all B rows of the one after.
 //
-// What the design does about that: one thread block per batch row keeps the
-// carried gradient, every per-step intermediate and the row's whole
-// d_enc_proj accumulator [Te, D] (64 KB at Te = 32, D = 512) in shared
-// memory, and writes the accumulator once at the end. Products with a
-// transposed weight give each warp one weight row at a time (coalesced,
-// summed with shuffles); products with a weight give each thread a column.
-// dWa, dba and dv sum over every row and step: the block streams its d_m
-// [Td, B, D] to device memory and writes its dv partial once, and the tiled
-// contraction of atb_gemm.cuh reduces them afterwards — deterministic, no
-// atomics, and no weight-gradient work on the sequential loop.
+// What the design does about that: one persistent block on each SM (a
+// cooperative launch). The per-step products take the weights transposed,
+// so a block owns ROWS: unit group g (hidden units k = 4g .. 4g+3) is rows
+// k of wg and wa, e-group e (8 rows of wctx) its rows 8e .. 8e+7; 80 KB at
+// D = 512, E = 1024 in shared memory for the whole launch. Products cover
+// all B rows at once in float32 FMA (persistent_grid.cuh). m = h_prev . wa
+// + ba, which the first design recomputed on the sequential loop, is the
+// forward's own m, saved for every step: Td x B x D floats of memory in
+// place of Td more products in this launch and a column slice of wa in
+// every block. Five phases a step, the first four ending in a grid
+// barrier; d_din, d_ctx and d_m pass between blocks through L2 in their
+// output buffers (dxw, dctx, dm_rows):
+//   1  dh' and the update-gate and candidate parts of d_din, owned units;
+//   2  drh = dcand . Wg[:, 2D:]^T and the reset-gate part, owned units;
+//   3  d_ctx = d_din . Wctx^T for the owned rows e;
+//   4  per (batch row, part of D) item: dalpha, the softmax and tanh
+//      backward, that item's d_enc_proj [Te, part] (accumulated in shared
+//      memory when it fits, else in place in dep: each element has one
+//      owner, so there are no atomics), d_m and the dv partial;
+//   5  DH for the owned units, which phase 1 of the next step reads on the
+//      same block: no barrier between them.
+// dWa, dba and dv sum over every row and step. dWa = h_prev^T . d_m over
+// all Td * B rows is a last phase of the launch, in tiles of 32 x 64 over
+// the blocks, right after the loop (the d_m rows of every step are complete
+// then): the first design's separate contraction (atb_gemm.cuh) took it
+// on 64 blocks, a block summing 2048 rows one 16-row slice after another.
+// dba and dv collect per-row partials in the attention phase's items, and
+// atb sums those over the B rows after the launch. Every sum runs in a
+// fixed order; two launches give the same bits.
 
 #include "atb_gemm.cuh"
 #include "common.cuh"
+#include "persistent_grid.cuh"
 
 namespace {
 
-constexpr int kThreads = 512;
+using namespace pgrid;
 
-__global__ void __launch_bounds__(kThreads)
+// The shared memory of a block, in floats: per unit group W2 [D][4]
+// (wg[k, 2D:] transposed), W5 [3D][4] (wg[k, :2D] then wa[k, :],
+// transposed) and the state DH, dhn, drh and the product's output, each
+// [B][4]; per e-group W3 [3D][8] (wctx rows, transposed); then the d_ctx
+// product's output [B][8], v [D], one row of d_ctx [E], the score
+// gradients [Te rounded up to 4], the dv and dba partials [2][ipb][plen]
+// and, when dep_smem, the d_enc_proj accumulators [ipb][Te][plen]. After
+// the loop the dWa tiles reuse it from the start (kDwaStage floats at
+// least).
+constexpr int kTk = 32, kTd = 64, kTn = 32;     // a dWa tile: 32 rows k x 64 columns d
+constexpr long long kDwaStage = static_cast<long long>(kTn) * (kTk + kTd);
+
+inline size_t bwd_smem_floats(int B, int Te, int D, int E, const Plan& p, bool dep_smem) {
+  const long long te4 = (Te + 3) / 4 * 4;
+  const long long items = static_cast<long long>(p.ipb) * p.plen;
+  const long long n = p.gpb * (16LL * D + 16LL * B) + p.epb * 24LL * D + 8LL * B + D + E + te4
+                      + 2 * items + (dep_smem ? items * Te : 0);
+  return static_cast<size_t>(n > kDwaStage ? n : kDwaStage);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
 attention_gru_bwd_kernel(const float* __restrict__ dy, long long dy_st, long long dy_sb,
                          const float* __restrict__ ep, long long ep_st, long long ep_sb,
                          const float* __restrict__ ev, long long ev_st, long long ev_sb,
                          const float* __restrict__ dmask,
                          const float* __restrict__ hprev, const float* __restrict__ acts,
-                         const float* __restrict__ alpha,
-                         const float* __restrict__ wa, const float* __restrict__ ba,
+                         const float* __restrict__ alpha, const float* __restrict__ m_all,
+                         const float* __restrict__ wa,
                          const float* __restrict__ v, const float* __restrict__ wctx,
                          const float* __restrict__ wg,
-                         float* __restrict__ dxw, float* __restrict__ dctx,
-                         float* __restrict__ dh0,
-                         float* __restrict__ dep, long long dep_st, long long dep_sb,
-                         float* __restrict__ dm_rows, float* __restrict__ dv_part,
-                         int Td, int B, int Te, int D, int E) {
-  extern __shared__ float smem[];
-  float* dep_acc = smem;          // [Te * D] this row's d_enc_proj
-  float* DH = dep_acc + Te * D;   // [D]  gradient carried into the step's carry
-  float* dhn = DH + D;            // [D]  gradient of the step's h'
-  float* ddin = dhn + D;          // [3D] d_din = [dgu | dgr | dcand]
-  float* drh = ddin + 3 * D;      // [D]  gradient of r * h_prev
-  float* hp = drh + D;            // [D]  h_prev
-  float* m = hp + D;              // [D]  attention transform
-  float* dmv = m + D;             // [D]  d_m
-  float* dvacc = dmv + D;         // [D]  this row's dv partial
-  float* dc = dvacc + D;          // [E]  d_ctx
-  float* ds = dc + E;             // [Te] dalpha, then the score gradient
-  const int b = blockIdx.x;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
+                         float* dxw, float* dctx, float* dh0,
+                         float* dep, long long dep_st, long long dep_sb,
+                         float* dwa, float* dm_rows, float* dv_part, unsigned* counter,
+                         int Td, int B, int Te, int D, int E, int gpb, int epb, int parts,
+                         int plen, int ipb, int dep_smem) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nblk = gridDim.x;
+  const int groups = (D + kUnits - 1) / kUnits;
+  const int egroups = (E + kERows - 1) / kERows;
   const long long D3 = 3LL * D;
+  const size_t per_group = 16LL * D + 16LL * B;
+  float* W3base = smem + gpb * per_group;
+  float* out3 = W3base + epb * 24LL * D;          // [B][8]
+  float* v_s = out3 + 8LL * B;
+  float* dc_s = v_s + D;                         // [E]
+  float* ds_s = dc_s + E;                        // [Te]
+  float* dv_s = ds_s + (Te + 3) / 4 * 4;         // [ipb][plen]
+  float* dba_s = dv_s + static_cast<long long>(ipb) * plen;   // [ipb][plen]
+  float* dep_s = dba_s + static_cast<long long>(ipb) * plen;  // [ipb][Te][plen]
+  GridBarrier bar{counter, 0};
+  // unit group gl's regions
+  auto W2 = [&](int gl) { return smem + gl * per_group; };
+  auto W5 = [&](int gl) { return W2(gl) + 4LL * D; };
+  auto DH = [&](int gl) { return W2(gl) + 16LL * D; };
+  auto DHN = [&](int gl) { return DH(gl) + 4LL * B; };
+  auto DRH = [&](int gl) { return DH(gl) + 8LL * B; };
+  auto OUT = [&](int gl) { return DH(gl) + 12LL * B; };
 
-  for (int i = threadIdx.x; i < Te * D; i += blockDim.x) dep_acc[i] = 0.0f;
-  for (int j = threadIdx.x; j < D; j += blockDim.x) {
-    DH[j] = 0.0f;
-    dvacc[j] = 0.0f;
+  // the weight slices, zeroed accumulators
+  for (int gl = 0; gl < gpb; ++gl) {
+    const int g = blockIdx.x + gl * nblk;
+    if (g >= groups) break;
+    const int k0 = kUnits * g;
+    float* w2 = W2(gl);
+    float* w5 = W5(gl);
+    for (int i = tid; i < 4 * D; i += kThreads) {
+      const int j = i / 4, k = k0 + i % 4;
+      w2[i] = k < D ? wg[k * D3 + 2 * D + j] : 0.0f;
+    }
+    for (int i = tid; i < 12 * D; i += kThreads) {
+      const int j = i / 4, k = k0 + i % 4;
+      w5[i] = k >= D ? 0.0f
+              : j < 2 * D ? wg[k * D3 + j]
+                          : wa[static_cast<long long>(k) * D + j - 2 * D];
+    }
+    for (int i = tid; i < 4 * B; i += kThreads) DH(gl)[i] = 0.0f;
+  }
+  for (int el = 0; el < epb; ++el) {
+    const int eg = blockIdx.x + el * nblk;
+    if (eg >= egroups) break;
+    float* w3 = W3base + el * 24LL * D;
+    for (int i = tid; i < 24 * D; i += kThreads) {
+      const int j = i / 8, e = kERows * eg + i % 8;
+      w3[i] = e < E ? wctx[static_cast<long long>(e) * D3 + j] : 0.0f;
+    }
+  }
+  for (int d = tid; d < D; d += kThreads) v_s[d] = v[d];
+  for (int il = 0; il < ipb; ++il) {
+    const int item = blockIdx.x + il * nblk;
+    if (item >= B * parts) break;
+    const int b = item / parts, d0 = (item % parts) * plen;
+    const int d1 = min(D, d0 + plen);
+    for (int d = d0 + tid; d < d1; d += kThreads) {
+      dv_s[il * plen + d - d0] = 0.0f;
+      dba_s[il * plen + d - d0] = 0.0f;
+      for (int te = 0; te < Te; ++te) {
+        if (dep_smem) {
+          dep_s[(static_cast<long long>(il) * Te + te) * plen + d - d0] = 0.0f;
+        } else {
+          dep[te * dep_st + b * dep_sb + d] = 0.0f;
+        }
+      }
+    }
   }
   __syncthreads();
 
   for (int t = Td - 1; t >= 0; --t) {
-    const long long row = static_cast<long long>(t) * B + b;
-    const float dm = dmask[row];
-    const float* a = acts + row * D3;            // [u | r | c]
-    const float* al = alpha + row * Te;
-    const float* dyt = dy + t * dy_st + b * dy_sb;
+    const long long tB = static_cast<long long>(t) * B;
+    float* dxw_t = dxw + tB * D3;
 
-    // GRU cell: dh', the update-gate and candidate gradients
-    for (int j = threadIdx.x; j < D; j += blockDim.x) {
-      const float h = hprev[row * D + j];
-      const float d = dyt[j] + dm * DH[j];
-      const float u = a[j], c = a[2 * D + j];
-      hp[j] = h;
-      dhn[j] = d;
-      ddin[j] = d * (h - c) * u * (1.0f - u);
-      ddin[2 * D + j] = d * (1.0f - u) * (1.0f - c * c);
+    // 1: dh', the update-gate and candidate gradients of the owned units
+    for (int gl = 0; gl < gpb; ++gl) {
+      const int g = blockIdx.x + gl * nblk;
+      if (g >= groups) break;
+      const float* dh = DH(gl);
+      float* dhn = DHN(gl);
+      for (int i = tid; i < 4 * B; i += kThreads) {
+        const int b = i / 4, k = kUnits * g + i % 4;
+        if (k >= D) continue;
+        const long long row = tB + b;
+        const float dm = dmask[row];
+        const float h = hprev[row * D + k];
+        const float u = acts[row * D3 + k], c = acts[row * D3 + 2 * D + k];
+        const float d = dy[t * dy_st + b * dy_sb + k] + dm * dh[i];
+        dhn[i] = d;
+        __stcg(dxw + row * D3 + k, d * (h - c) * u * (1.0f - u));
+        __stcg(dxw + row * D3 + 2 * D + k, d * (1.0f - u) * (1.0f - c * c));
+      }
+    }
+    bar.sync();
+
+    // 2: drh = dcand . wg[:, 2D:]^T and the reset-gate gradient
+    for (int gl = 0; gl < gpb; ++gl) {
+      const int g = blockIdx.x + gl * nblk;
+      if (g >= groups) break;
+      block_product<4>(DRH(gl), 4, B, dxw_t + 2 * D, D3, D, W2(gl));
     }
     __syncthreads();
-
-    // drh[k] = sum_j dcand[j] * wg[k, 2D + j]: one warp per row k of wg
-    for (int k = warp; k < D; k += nwarps) {
-      const float* wk = wg + k * D3 + 2 * D;
-      float part = 0.0f;
-      for (int j = lane; j < D; j += 32) part = fmaf(ddin[2 * D + j], wk[j], part);
-      part = warp_sum(part);
-      if (lane == 0) drh[k] = part;
+    for (int gl = 0; gl < gpb; ++gl) {
+      const int g = blockIdx.x + gl * nblk;
+      if (g >= groups) break;
+      const float* drh = DRH(gl);
+      for (int i = tid; i < 4 * B; i += kThreads) {
+        const int b = i / 4, k = kUnits * g + i % 4;
+        if (k >= D) continue;
+        const long long row = tB + b;
+        const float r = acts[row * D3 + D + k];
+        __stcg(dxw + row * D3 + D + k, drh[i] * hprev[row * D + k] * r * (1.0f - r));
+      }
     }
-    // attention transform m = h_prev . wa + ba (thread per column)
-    for (int j = threadIdx.x; j < D; j += blockDim.x) {
-      float acc = 0.0f;
+    bar.sync();
+
+    // 3: d_ctx = d_din . wctx^T for the owned rows of wctx
+    for (int el = 0; el < epb; ++el) {
+      const int eg = blockIdx.x + el * nblk;
+      if (eg >= egroups) break;
+      block_product<8>(out3, 8, B, dxw_t, D3, 3 * D, W3base + el * 24LL * D);
+      __syncthreads();
+      for (int i = tid; i < 8 * B; i += kThreads) {
+        const int b = i / 8, e = kERows * eg + i % 8;
+        if (e < E) __stcg(dctx + (tB + b) * E + e, out3[i]);
+      }
+      __syncthreads();
+    }
+    bar.sync();
+
+    // 4: per (row, part of D): dalpha, the softmax and tanh backward
+    for (int il = 0; il < ipb; ++il) {
+      const int item = blockIdx.x + il * nblk;
+      if (item >= B * parts) break;
+      const int b = item / parts, d0 = (item % parts) * plen;
+      const int d1 = min(D, d0 + plen);
+      const long long row = tB + b;
+      for (int e = tid; e < E; e += kThreads) dc_s[e] = __ldcg(dctx + row * E + e);
+      __syncthreads();
+      warp_dots<8>(ds_s, ev + b * ev_sb, ev_st, Te, E,
+                [&](float x, int e) { return x * dc_s[e]; });
+      __syncthreads();
+      // masked softmax backward; padded positions have alpha = 0
+      if (warp == 0) {
+        const float* al = alpha + row * Te;
+        float dot = 0.0f;
+        for (int te = lane; te < Te; te += 32) dot += al[te] * ds_s[te];
+        dot = warp_sum(dot);
+        for (int te = lane; te < Te; te += 32) ds_s[te] = al[te] * (ds_s[te] - dot);
+      }
+      __syncthreads();
+      for (int d = d0 + tid; d < d1; d += kThreads) {
+        const float md = m_all[row * D + d], vd = v_s[d];
+        const float* epb = ep + b * ep_sb + d;
+        float* acc = dep_smem ? dep_s + static_cast<long long>(il) * Te * plen + d - d0
+                              : dep + b * dep_sb + d;
+        const long long acc_st = dep_smem ? plen : dep_st;
+        float dsum = 0.0f, dvs = 0.0f;
+        for (int te0 = 0; te0 < Te; te0 += 16) {   // sixteen loads in flight
+          float x[16];
+#pragma unroll
+          for (int u = 0; u < 16; ++u) x[u] = te0 + u < Te ? epb[(te0 + u) * ep_st] : 0.0f;
+#pragma unroll
+          for (int u = 0; u < 16; ++u) {
+            const int te = te0 + u;
+            if (te >= Te) break;
+            const float cmb = tanhf(x[u] + md);
+            const float dt = (1.0f - cmb * cmb) * ds_s[te] * vd;
+            acc[te * acc_st] += dt;
+            dsum += dt;
+            dvs = fmaf(cmb, ds_s[te], dvs);
+          }
+        }
+        __stcg(dm_rows + row * D + d, dsum);
+        dv_s[il * plen + d - d0] += dvs;
+        dba_s[il * plen + d - d0] += dsum;
+      }
+      __syncthreads();
+    }
+    bar.sync();
+
+    // 5: DH = dh' u + drh r + d_din[:, :2D] . wg[k, :2D] + d_m . wa[k, :] + (1 - dm) DH
+    for (int gl = 0; gl < gpb; ++gl) {
+      const int g = blockIdx.x + gl * nblk;
+      if (g >= groups) break;
+      block_product<4>(OUT(gl), 4, B, dxw_t, D3, 2 * D, W5(gl),
+                       dm_rows + tB * D, D, D, W5(gl) + 8LL * D);
+    }
+    __syncthreads();
+    for (int gl = 0; gl < gpb; ++gl) {
+      const int g = blockIdx.x + gl * nblk;
+      if (g >= groups) break;
+      float* dh = DH(gl);
+      const float* dhn = DHN(gl);
+      const float* drh = DRH(gl);
+      const float* out = OUT(gl);
+      for (int i = tid; i < 4 * B; i += kThreads) {
+        const int b = i / 4, k = kUnits * g + i % 4;
+        if (k >= D) continue;
+        const long long row = tB + b;
+        const float dm = dmask[row];
+        dh[i] = dhn[i] * acts[row * D3 + k] + drh[i] * acts[row * D3 + D + k] + out[i]
+                + (1.0f - dm) * dh[i];
+      }
+    }
+    __syncthreads();
+  }
+
+  for (int gl = 0; gl < gpb; ++gl) {
+    const int g = blockIdx.x + gl * nblk;
+    if (g >= groups) break;
+    const float* dh = DH(gl);
+    for (int i = tid; i < 4 * B; i += kThreads) {
+      const int b = i / 4, k = kUnits * g + i % 4;
+      if (k < D) dh0[static_cast<long long>(b) * D + k] = dh[i];
+    }
+  }
+  for (int il = 0; il < ipb; ++il) {
+    const int item = blockIdx.x + il * nblk;
+    if (item >= B * parts) break;
+    const int b = item / parts, d0 = (item % parts) * plen;
+    const int d1 = min(D, d0 + plen);
+    for (int d = d0 + tid; d < d1; d += kThreads) {
+      dv_part[static_cast<long long>(b) * D + d] = dv_s[il * plen + d - d0];
+      dv_part[(static_cast<long long>(B) + b) * D + d] = dba_s[il * plen + d - d0];
+      if (dep_smem) {
+        for (int te = 0; te < Te; ++te)
+          dep[te * dep_st + b * dep_sb + d] =
+              dep_s[(static_cast<long long>(il) * Te + te) * plen + d - d0];
+      }
+    }
+  }
+
+  // dWa = h_prev^T . d_m over the N = Td * B rows: tiles of 32 rows k x 64
+  // columns d over the blocks, each thread 2 x 4 sums; 32 rows n at a time
+  // staged in shared memory (now free), the next 32 loaded meanwhile
+  const int N = Td * B;
+  const int tiles_d = (D + kTd - 1) / kTd;
+  const int tiles = (D + kTk - 1) / kTk * tiles_d;
+  float* hs = smem;                 // [kTn][kTk]
+  float* ms = smem + kTn * kTk;     // [kTn][kTd]
+  const int kk = (tid / 16) * 2, dd = (tid % 16) * 4;
+  for (int tile = blockIdx.x; tile < tiles; tile += nblk) {
+    const int k0 = (tile / tiles_d) * kTk, c0 = (tile % tiles_d) * kTd;
+    float acc[2][4] = {};
+    float ph[4], pm[8];
+    auto fetch = [&](int n0) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int i = tid + q * kThreads, n = n0 + i / kTk, k = k0 + i % kTk;
+        ph[q] = n < N && k < D ? hprev[static_cast<long long>(n) * D + k] : 0.0f;
+      }
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int i = tid + q * kThreads, n = n0 + i / kTd, d = c0 + i % kTd;
+        pm[q] = n < N && d < D ? __ldcg(dm_rows + static_cast<long long>(n) * D + d) : 0.0f;
+      }
+    };
+    fetch(0);
+    for (int n0 = 0; n0 < N; n0 += kTn) {
+      __syncthreads();
+#pragma unroll
+      for (int q = 0; q < 4; ++q) hs[tid + q * kThreads] = ph[q];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) ms[tid + q * kThreads] = pm[q];
+      __syncthreads();
+      if (n0 + kTn < N) fetch(n0 + kTn);
 #pragma unroll 8
-      for (int k = 0; k < D; ++k) acc = fmaf(hp[k], wa[static_cast<long long>(k) * D + j], acc);
-      m[j] = acc + ba[j];
-    }
-    __syncthreads();
-
-    // reset-gate gradient; d_din is complete
-    for (int j = threadIdx.x; j < D; j += blockDim.x) {
-      const float r = a[D + j];
-      ddin[D + j] = drh[j] * hp[j] * r * (1.0f - r);
-    }
-    __syncthreads();
-    for (int j = threadIdx.x; j < 3 * D; j += blockDim.x) dxw[row * D3 + j] = ddin[j];
-
-    // d_ctx[e] = sum_j d_din[j] * wctx[e, j]: one warp per row e of wctx
-    for (int e = warp; e < E; e += nwarps) {
-      const float* we = wctx + e * D3;
-      float part = 0.0f;
-      for (int j = lane; j < 3 * D; j += 32) part = fmaf(ddin[j], we[j], part);
-      part = warp_sum(part);
-      if (lane == 0) {
-        dc[e] = part;
-        dctx[row * E + e] = part;
+      for (int n = 0; n < kTn; ++n) {
+        const float h0v = hs[n * kTk + kk], h1v = hs[n * kTk + kk + 1];
+        const float4 mv = *reinterpret_cast<const float4*>(ms + n * kTd + dd);
+        const float m4[4] = {mv.x, mv.y, mv.z, mv.w};
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          acc[0][c] = fmaf(h0v, m4[c], acc[0][c]);
+          acc[1][c] = fmaf(h1v, m4[c], acc[1][c]);
+        }
       }
     }
-    __syncthreads();
-
-    // dalpha[te] = ev[te, b, :] . d_ctx: one warp per encoder position
-    for (int te = warp; te < Te; te += nwarps) {
-      const float* evt = ev + te * ev_st + b * ev_sb;
-      float part = 0.0f;
-      for (int e = lane; e < E; e += 32) part = fmaf(evt[e], dc[e], part);
-      part = warp_sum(part);
-      if (lane == 0) ds[te] = part;
-    }
-    __syncthreads();
-
-    // masked softmax backward (warp 0); padded positions have alpha = 0
-    if (warp == 0) {
-      float dot = 0.0f;
-      for (int te = lane; te < Te; te += 32) dot += al[te] * ds[te];
-      dot = warp_sum(dot);
-      for (int te = lane; te < Te; te += 32) ds[te] = al[te] * (ds[te] - dot);
-    }
-    __syncthreads();
-
-    // tanh backward per column d, recomputing comb from ep and m
-    for (int d = threadIdx.x; d < D; d += blockDim.x) {
-      const float md = m[d], vd = v[d];
-      float dsum = 0.0f, dvs = 0.0f;
-      for (int te = 0; te < Te; ++te) {
-        const float cmb = tanhf(ep[te * ep_st + b * ep_sb + d] + md);
-        const float dt = (1.0f - cmb * cmb) * ds[te] * vd;
-        dep_acc[te * D + d] += dt;
-        dsum += dt;
-        dvs = fmaf(cmb, ds[te], dvs);
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int k = k0 + kk + r, d = c0 + dd + c;
+        if (k < D && d < D) dwa[static_cast<long long>(k) * D + d] = acc[r][c];
       }
-      dmv[d] = dsum;
-      dvacc[d] += dvs;
-      dm_rows[row * D + d] = dsum;
-    }
-    __syncthreads();
-
-    // DH[k] = dh'[k] u[k] + drh[k] r[k] + dg . wg[k, :2D] + d_m . wa[k, :] + (1 - dm) DH[k]
-    for (int k = warp; k < D; k += nwarps) {
-      const float* wgk = wg + k * D3;
-      const float* wak = wa + static_cast<long long>(k) * D;
-      float part = 0.0f;
-      for (int j = lane; j < 2 * D; j += 32) part = fmaf(ddin[j], wgk[j], part);
-      for (int j = lane; j < D; j += 32) part = fmaf(dmv[j], wak[j], part);
-      part = warp_sum(part);
-      if (lane == 0) {
-        DH[k] = dhn[k] * a[k] + drh[k] * a[D + k] + part + (1.0f - dm) * DH[k];
-      }
-    }
-    __syncthreads();
-  }
-
-  for (int j = threadIdx.x; j < D; j += blockDim.x) {
-    dh0[static_cast<long long>(b) * D + j] = DH[j];
-    dv_part[static_cast<long long>(b) * D + j] = dvacc[j];
-  }
-  for (int i = threadIdx.x; i < Te * D; i += blockDim.x) {
-    const int te = i / D, d = i % D;
-    dep[te * dep_st + b * dep_sb + d] = dep_acc[i];
   }
 }
 
@@ -208,54 +399,58 @@ attention_gru_bwd_kernel(const float* __restrict__ dy, long long dy_st, long lon
 // dy [Td, B, D], ep [Te, B, D], ev [Te, B, E] and the output dep [Te, B, D]
 // are addressed through their time and batch strides (in elements; the last
 // dimension is contiguous). dmask [Td, B], the residuals hprev [Td, B, D],
-// acts [Td, B, 3D] and alpha [Td, B, Te], the weights wa [D, D], ba [D],
-// v [D], wctx [E, 3D], wg [D, 3D], the outputs dxw [Td, B, 3D],
+// acts [Td, B, 3D], alpha [Td, B, Te] and m_all [Td, B, D], the weights
+// wa [D, D], v [D], wctx [E, 3D], wg [D, 3D], the outputs dxw [Td, B, 3D],
 // dctx [Td, B, E], dh0 [B, D], dwa [D, D], dba [D], dv [D] and the scratch
-// dm_rows [Td, B, D] and dv_part [B, D] are contiguous. Launches the
-// reversed-time recurrence and then the dWa / dba / dv reductions on
-// `stream`; returns cudaGetLastError().
+// dm_rows [Td, B, D] and dv_part [2, B, D] are contiguous;
+// counter is one unsigned of scratch; num_sms is the card's SM count.
+// Launches the reversed-time recurrence with dWa (cooperatively) and then
+// the dba / dv sums over the rows on `stream`; returns the first error, as
+// attention_gru_fwd_train does.
 extern "C" int attention_gru_bwd(const void* dy, long long dy_st, long long dy_sb,
                                  const void* ep, long long ep_st, long long ep_sb,
                                  const void* ev, long long ev_st, long long ev_sb,
                                  const void* dmask, const void* hprev, const void* acts,
-                                 const void* alpha,
-                                 const void* wa, const void* ba, const void* v,
+                                 const void* alpha, const void* m_all,
+                                 const void* wa, const void* v,
                                  const void* wctx, const void* wg,
                                  void* dxw, void* dctx, void* dh0,
                                  void* dep, long long dep_st, long long dep_sb,
                                  void* dwa, void* dba, void* dv,
-                                 void* dm_rows, void* dv_part,
-                                 int Td, int B, int Te, int D, int E, void* stream) {
+                                 void* dm_rows, void* dv_part, void* counter,
+                                 int Td, int B, int Te, int D, int E, int num_sms,
+                                 void* stream) {
+  if (Td <= 0 || B <= 0 || Te <= 0 || D <= 0 || E <= 0) return static_cast<int>(cudaSuccess);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = (static_cast<size_t>(Te) * D + 10 * static_cast<size_t>(D) + E + Te)
-                      * sizeof(float);
-  cudaError_t err = allow_smem(attention_gru_bwd_kernel, smem);
+  const Plan p = make_plan(B, D, E, num_sms, true);
+  const bool dep_smem = bwd_smem_floats(B, Te, D, E, p, true) * sizeof(float) <= kSmemLimit;
+  const size_t smem = bwd_smem_floats(B, Te, D, E, p, dep_smem) * sizeof(float);
+  if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaMemsetAsync(counter, 0, sizeof(unsigned), st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (B > 0 && D > 0) {
-    attention_gru_bwd_kernel<<<B, kThreads, smem, st>>>(
-        static_cast<const float*>(dy), dy_st, dy_sb,
-        static_cast<const float*>(ep), ep_st, ep_sb,
-        static_cast<const float*>(ev), ev_st, ev_sb,
-        static_cast<const float*>(dmask), static_cast<const float*>(hprev),
-        static_cast<const float*>(acts), static_cast<const float*>(alpha),
-        static_cast<const float*>(wa), static_cast<const float*>(ba),
-        static_cast<const float*>(v), static_cast<const float*>(wctx),
-        static_cast<const float*>(wg),
-        static_cast<float*>(dxw), static_cast<float*>(dctx), static_cast<float*>(dh0),
-        static_cast<float*>(dep), dep_st, dep_sb,
-        static_cast<float*>(dm_rows), static_cast<float*>(dv_part),
-        Td, B, Te, D, E);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const float* hp = static_cast<const float*>(hprev);
-  const float* dmr = static_cast<const float*>(dm_rows);
-  const int N = Td * B;
-  // dWa = h_prev^T . d_m; dba = column sums of d_m; dv = column sums of the partials
-  err = atb(hp, D, nullptr, 0, dmr, D, static_cast<float*>(dwa), D, N, D, D, st);
+  err = launch_cooperative(
+      attention_gru_bwd_kernel, p.blocks, smem, st,
+      static_cast<const float*>(dy), dy_st, dy_sb,
+      static_cast<const float*>(ep), ep_st, ep_sb,
+      static_cast<const float*>(ev), ev_st, ev_sb,
+      static_cast<const float*>(dmask), static_cast<const float*>(hprev),
+      static_cast<const float*>(acts), static_cast<const float*>(alpha),
+      static_cast<const float*>(m_all), static_cast<const float*>(wa),
+      static_cast<const float*>(v), static_cast<const float*>(wctx),
+      static_cast<const float*>(wg),
+      static_cast<float*>(dxw), static_cast<float*>(dctx), static_cast<float*>(dh0),
+      static_cast<float*>(dep), dep_st, dep_sb,
+      static_cast<float*>(dwa), static_cast<float*>(dm_rows), static_cast<float*>(dv_part),
+      static_cast<unsigned*>(counter),
+      Td, B, Te, D, E, p.gpb, p.epb, p.parts, p.plen, p.ipb, dep_smem ? 1 : 0);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = atb(nullptr, 0, nullptr, 0, dmr, D, static_cast<float*>(dba), D, N, 1, D, st);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(atb(nullptr, 0, nullptr, 0, static_cast<const float*>(dv_part), D,
-                              static_cast<float*>(dv), D, B, 1, D, st));
+  // dba = column sums of the dba partials, dv = column sums of the dv partials
+  const float* parts = static_cast<const float*>(dv_part);
+  err = atb(nullptr, 0, nullptr, 0, parts + static_cast<long long>(B) * D, D,
+            static_cast<float*>(dba), D, B, 1, D, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(atb(nullptr, 0, nullptr, 0, parts, D, static_cast<float*>(dv), D, B,
+                              1, D, st));
 }

@@ -1,14 +1,11 @@
-// attention_gru_fwd / attention_gru_fwd_train — the fused attention-GRU
-// decoder loop in one launch.
+// attention_gru_fwd — the fused attention-GRU decoder loop in one launch,
+// inference form.
 //
 // Replaces: paddle_tpu/ops/pallas_attention_gru.py _fwd_kernel_light
-// (attention_gru_fwd: the inference variant launched by pl.pallas_call in
-// _run_fwd, entry fused_attention_gru; attention_gru_step is its one-step
-// form; serving launches it with Td = 1 once per decode micro-step) and
-// _fwd_kernel with residuals (attention_gru_fwd_train: the custom-VJP
-// forward of fused_attention_gru, one launch per training step). As in the
-// JAX package the two differ only in the residual stores, here a template
-// parameter.
+// (the inference variant launched by pl.pallas_call in _run_fwd, entry
+// fused_attention_gru; attention_gru_step is its one-step form; serving
+// launches it with Td = 1 once per decode micro-step). The training
+// forward, which also saves the residuals, is attention_gru_fwd_train.cu.
 //
 // Per decoder step t, for batch row b, from h = h0[b]:
 //   m     = h . wa + ba                                   [D]
@@ -18,8 +15,6 @@
 //   din   = ctx . wctx + xw[t, b]                         [3D]
 //   h'    = GRU(h, din) with wg = [update | reset | candidate]
 //   ys[t, b] = h' (raw);   carry h = dm * h' + (1 - dm) * h   (dm = dmask[t, b])
-// Training residuals per step: hprev = h [Td, B, D], acts = [u | r | c]
-// [Td, B, 3D], alpha [Td, B, Te], ctx [Td, B, E].
 //
 // What bounds it on an H100: at Td = 1 the function must read about 24 MB
 // (the encoder projection and values of every row, wctx, wg and wa) for
@@ -34,7 +29,7 @@
 // the encoder rows are read through their strides, so the slot state's
 // batch-major [B, Te, *] buffers need no transpose. Weight reads are
 // coalesced (threads own output columns); sharing them across rows is left
-// to a later change.
+// to a later change (the training kernels' persistent grid).
 
 #include "common.cuh"
 
@@ -42,7 +37,6 @@ namespace {
 
 constexpr int kThreads = 512;
 
-template <bool kResiduals>
 __global__ void __launch_bounds__(kThreads)
 attention_gru_fwd_kernel(const float* __restrict__ ep, long long ep_st, long long ep_sb,
                          const float* __restrict__ ev, long long ev_st, long long ev_sb,
@@ -52,8 +46,6 @@ attention_gru_fwd_kernel(const float* __restrict__ ep, long long ep_st, long lon
                          const float* __restrict__ wa, const float* __restrict__ ba,
                          const float* __restrict__ v, const float* __restrict__ wctx,
                          const float* __restrict__ wg, float* __restrict__ ys,
-                         float* __restrict__ hprev, float* __restrict__ acts,
-                         float* __restrict__ alpha, float* __restrict__ ctxs,
                          int Td, int B, int Te, int D, int E) {
   extern __shared__ float smem[];
   float* h = smem;              // [D]  carry
@@ -77,7 +69,6 @@ attention_gru_fwd_kernel(const float* __restrict__ ep, long long ep_st, long lon
 
     // attention transform m = h . wa + ba
     for (int j = threadIdx.x; j < D; j += blockDim.x) {
-      if (kResiduals) hprev[row * D + j] = h[j];
       float acc = 0.0f;
 #pragma unroll 8
       for (int k = 0; k < D; ++k) acc = fmaf(h[k], wa[static_cast<long long>(k) * D + j], acc);
@@ -110,7 +101,6 @@ attention_gru_fwd_kernel(const float* __restrict__ ep, long long ep_st, long lon
       sum = warp_sum(sum);
       for (int te = lane; te < Te; te += 32) {
         s[te] = em[te * em_st + b * em_sb] > 0.0f ? s[te] / sum : 0.0f;
-        if (kResiduals) alpha[row * Te + te] = s[te];
       }
     }
     __syncthreads();
@@ -120,7 +110,6 @@ attention_gru_fwd_kernel(const float* __restrict__ ep, long long ep_st, long lon
       float acc = 0.0f;
       for (int te = 0; te < Te; ++te) acc = fmaf(s[te], ev[te * ev_st + b * ev_sb + e], acc);
       ctx[e] = acc;
-      if (kResiduals) ctxs[row * E + e] = acc;
     }
     __syncthreads();
 
@@ -139,7 +128,6 @@ attention_gru_fwd_kernel(const float* __restrict__ ep, long long ep_st, long lon
 #pragma unroll 8
       for (int k = 0; k < D; ++k) acc = fmaf(h[k], wg[k * D3 + j], acc);
       const float g = sigmoid_f32(din[j] + acc);
-      if (kResiduals) acts[row * D3 + j] = g;
       if (j < D) {
         u[j] = g;
       } else {
@@ -158,7 +146,6 @@ attention_gru_fwd_kernel(const float* __restrict__ ep, long long ep_st, long lon
       const float c = tanhf(din[2 * D + j] + acc);
       const float hp = h[j];
       const float hn = u[j] * hp + (1.0f - u[j]) * c;
-      if (kResiduals) acts[row * D3 + 2 * D + j] = c;
       ys[row * D + j] = hn;
       h[j] = dm * hn + (1.0f - dm) * hp;
     }
@@ -166,21 +153,18 @@ attention_gru_fwd_kernel(const float* __restrict__ ep, long long ep_st, long lon
   }
 }
 
-template <bool kResiduals>
 int launch(const void* ep, long long ep_st, long long ep_sb,
            const void* ev, long long ev_st, long long ev_sb,
            const void* em, long long em_st, long long em_sb,
            const void* xw, const void* dmask, const void* h0,
            const void* wa, const void* ba, const void* v,
            const void* wctx, const void* wg, void* ys,
-           void* hprev, void* acts, void* alpha, void* ctxs,
            int Td, int B, int Te, int D, int E, void* stream) {
   const size_t smem = (7 * static_cast<size_t>(D) + E + Te) * sizeof(float);
-  cudaError_t err = allow_smem(attention_gru_fwd_kernel<kResiduals>, smem);
+  cudaError_t err = allow_smem(attention_gru_fwd_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (Td > 0 && B > 0 && D > 0) {
-    attention_gru_fwd_kernel<kResiduals>
-        <<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+    attention_gru_fwd_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(ep), ep_st, ep_sb,
         static_cast<const float*>(ev), ev_st, ev_sb,
         static_cast<const float*>(em), em_st, em_sb,
@@ -189,8 +173,6 @@ int launch(const void* ep, long long ep_st, long long ep_sb,
         static_cast<const float*>(wa), static_cast<const float*>(ba),
         static_cast<const float*>(v), static_cast<const float*>(wctx),
         static_cast<const float*>(wg), static_cast<float*>(ys),
-        static_cast<float*>(hprev), static_cast<float*>(acts),
-        static_cast<float*>(alpha), static_cast<float*>(ctxs),
         Td, B, Te, D, E);
   }
   return static_cast<int>(cudaGetLastError());
@@ -210,22 +192,6 @@ extern "C" int attention_gru_fwd(const void* ep, long long ep_st, long long ep_s
                                  const void* wa, const void* ba, const void* v,
                                  const void* wctx, const void* wg, void* ys,
                                  int Td, int B, int Te, int D, int E, void* stream) {
-  return launch<false>(ep, ep_st, ep_sb, ev, ev_st, ev_sb, em, em_st, em_sb,
-                       xw, dmask, h0, wa, ba, v, wctx, wg, ys,
-                       nullptr, nullptr, nullptr, nullptr, Td, B, Te, D, E, stream);
-}
-
-// As attention_gru_fwd, plus the residuals hprev [Td, B, D], acts
-// [Td, B, 3D], alpha [Td, B, Te] and ctxs [Td, B, E], all contiguous.
-extern "C" int attention_gru_fwd_train(const void* ep, long long ep_st, long long ep_sb,
-                                       const void* ev, long long ev_st, long long ev_sb,
-                                       const void* em, long long em_st, long long em_sb,
-                                       const void* xw, const void* dmask, const void* h0,
-                                       const void* wa, const void* ba, const void* v,
-                                       const void* wctx, const void* wg, void* ys,
-                                       void* hprev, void* acts, void* alpha, void* ctxs,
-                                       int Td, int B, int Te, int D, int E, void* stream) {
-  return launch<true>(ep, ep_st, ep_sb, ev, ev_st, ev_sb, em, em_st, em_sb,
-                      xw, dmask, h0, wa, ba, v, wctx, wg, ys,
-                      hprev, acts, alpha, ctxs, Td, B, Te, D, E, stream);
+  return launch(ep, ep_st, ep_sb, ev, ev_st, ev_sb, em, em_st, em_sb,
+                xw, dmask, h0, wa, ba, v, wctx, wg, ys, Td, B, Te, D, E, stream);
 }

@@ -1,0 +1,258 @@
+// persistent_grid.cuh — the pieces shared by the persistent, weight-
+// stationary attention-GRU training kernels (attention_gru_fwd_train.cu,
+// attention_gru_bwd.cu): a cooperative launch, a grid barrier, and the
+// block product of all B rows with a weight slice held in shared memory.
+//
+// Layout every kernel here keeps: 256 threads (8 warps) a block, one block
+// on each SM it uses. A block product walks the rows in tiles of 64, eight
+// rows to a warp; the lanes of a warp split the contraction axis k (lane,
+// lane + 32, ...), so each row of X is read from L2 as whole 128-byte
+// lines and the weight slice W [K][N] is read from shared memory, N
+// floats of one k a lane. The 32 lanes' partial sums of the warp's 8 x N
+// outputs are summed by a butterfly that halves the values each lane holds
+// at every shuffle (8N - 8N/32 shuffles, not 5 * 8N), in a fixed order:
+// two launches on the same inputs give the same bits. No atomics.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include "common.cuh"
+
+namespace pgrid {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kRowsPerWarp = 8;
+constexpr int kRowTile = kWarps * kRowsPerWarp;   // rows of one pass of a block product
+constexpr int kUnits = 4;                         // hidden units in a unit group
+constexpr int kERows = 8;                         // rows of wctx in an e-group (backward)
+// the shared memory a block may opt into on sm_90 (227 KB)
+constexpr size_t kSmemLimit = 232448;
+
+__device__ __forceinline__ unsigned ld_acquire_gpu(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// A barrier across every block of a cooperative launch. `counter` is zeroed
+// before the launch and only ever grows: the n-th barrier of a block waits
+// until it reads n * gridDim.x. Every write a block made before sync() is
+// visible to every block after it, if the reader reads through L2
+// (__ldcg): the L1 of an SM is not coherent with the other SMs' writes.
+struct GridBarrier {
+  unsigned* counter;
+  unsigned passed;
+
+  __device__ __forceinline__ void sync() {
+    __syncthreads();
+    ++passed;
+    if (threadIdx.x == 0) {
+      __threadfence();
+      atomicAdd(counter, 1u);
+      const unsigned target = passed * gridDim.x;
+      while (ld_acquire_gpu(counter) < target) {
+      }
+      __threadfence();
+    }
+    __syncthreads();
+  }
+};
+
+// One butterfly step after another: with V values a lane, the lanes whose
+// bit O is set keep the upper half, the others the lower half, each adding
+// the half its partner sends. After the steps for O = 16 .. 1 lane L holds
+// the full sums of the flattened indices (V / 32) * L + j, j < V / 32.
+template <int V, int O>
+struct Halve {
+  static __device__ __forceinline__ void run(float* v, int lane) {
+    constexpr int H = V / 2;
+    const bool upper = (lane & O) != 0;
+#pragma unroll
+    for (int i = 0; i < H; ++i) {
+      const float send = upper ? v[i] : v[i + H];
+      const float keep = upper ? v[i + H] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+    }
+    Halve<H, O / 2>::run(v, lane);
+  }
+};
+
+template <int V>
+struct Halve<V, 0> {
+  static __device__ __forceinline__ void run(float*, int) {}
+};
+
+// acc[r][c] += sum over this lane's k of X[row0 + r, k] * W[k][c]; rows at
+// or past nrows read as 0. X was written by other blocks of this launch,
+// so it is read through L2.
+template <int N>
+__device__ __forceinline__ void accumulate(float (&acc)[kRowsPerWarp][N], const float* X,
+                                           long long ldx, int row0, int nrows, int K,
+                                           const float* W) {
+  static_assert(N % 4 == 0, "W rows are read as float4");
+  const int lane = threadIdx.x & 31;
+  const float* xr[kRowsPerWarp];
+  bool ok[kRowsPerWarp];
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r) {
+    ok[r] = row0 + r < nrows;
+    xr[r] = X + static_cast<long long>(ok[r] ? row0 + r : 0) * ldx;
+  }
+#pragma unroll 8
+  for (int k = lane; k < K; k += 32) {
+    float x[kRowsPerWarp];
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) x[r] = ok[r] ? __ldcg(xr[r] + k) : 0.0f;
+    const float4* w4 = reinterpret_cast<const float4*>(W + static_cast<long long>(k) * N);
+    float w[N];
+#pragma unroll
+    for (int q = 0; q < N / 4; ++q) {
+      const float4 f = w4[q];
+      w[4 * q] = f.x;
+      w[4 * q + 1] = f.y;
+      w[4 * q + 2] = f.z;
+      w[4 * q + 3] = f.w;
+    }
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r)
+#pragma unroll
+      for (int c = 0; c < N; ++c) acc[r][c] = fmaf(x[r], w[c], acc[r][c]);
+  }
+}
+
+// out[b * ldo + c] = sum_k X[b, k] W[k][c] (+ sum_k X2[b, k] W2[k][c] when
+// X2 is given) for every b < nrows and c < N, out in shared memory. W and
+// W2 are [K][N] and [K2][N] slices in shared memory. The caller
+// synchronises the block before reading out.
+template <int N>
+__device__ __forceinline__ void block_product(float* out, int ldo, int nrows,
+                                              const float* X, long long ldx, int K,
+                                              const float* W,
+                                              const float* X2 = nullptr, long long ldx2 = 0,
+                                              int K2 = 0, const float* W2 = nullptr) {
+  constexpr int kPer = kRowsPerWarp * N / 32;
+  static_assert(kRowsPerWarp * N % 32 == 0, "the butterfly leaves whole values a lane");
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  for (int b0 = 0; b0 < nrows; b0 += kRowTile) {
+    const int row0 = b0 + warp * kRowsPerWarp;
+    if (row0 >= nrows) continue;                   // uniform over the warp
+    float acc[kRowsPerWarp][N];
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r)
+#pragma unroll
+      for (int c = 0; c < N; ++c) acc[r][c] = 0.0f;
+    accumulate<N>(acc, X, ldx, row0, nrows, K, W);
+    if (X2 != nullptr) accumulate<N>(acc, X2, ldx2, row0, nrows, K2, W2);
+    Halve<kRowsPerWarp * N, 16>::run(&acc[0][0], lane);
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int f = kPer * lane + j;
+      const int r = f / N, c = f % N;
+      if (row0 + r < nrows) out[(row0 + r) * ldo + c] = (&acc[0][0])[j];
+    }
+  }
+}
+
+// out[te] = sum over x < X of f(src[te * st + x], x) for every te < T: the
+// warps take te = warp, warp + 8, ... four at a time, the lanes x = lane,
+// lane + 32, ..., with 4 U loads a lane in flight (these rows come from L2
+// or device memory, and their latency, not their bytes, sets the time of a
+// row's attention when f is cheap). The sums run in a fixed order.
+template <int U, typename F>
+__device__ __forceinline__ void warp_dots(float* out, const float* src, long long st, int T,
+                                          int X, F f) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  for (int te0 = warp; te0 < T; te0 += 4 * kWarps) {
+    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    const float* p[4];
+    bool ok[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      ok[k] = te0 + k * kWarps < T;
+      p[k] = src + (ok[k] ? te0 + k * kWarps : 0) * st;
+    }
+    for (int x0 = lane; x0 < X; x0 += U * 32) {
+      float val[4][U];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int x = x0 + 32 * u;
+          val[k][u] = ok[k] && x < X ? p[k][x] : 0.0f;
+        }
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int x = x0 + 32 * u;
+          if (x < X) acc[k] += f(val[k][u], x);
+        }
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float sum = warp_sum(acc[k]);
+      if (lane == 0 && ok[k]) out[te0 + k * kWarps] = sum;
+    }
+  }
+}
+
+// Launch `kernel` cooperatively: every block of the grid is resident at
+// once, which the grid barrier needs. A grid the card cannot hold at once
+// is refused (cudaErrorCooperativeLaunchTooLarge), never run in waves.
+template <typename... KArgs, typename... Args>
+inline cudaError_t launch_cooperative(void (*kernel)(KArgs...), int blocks, size_t smem,
+                                      cudaStream_t stream, Args... args) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  int per_sm = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
+                                                                  smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+// How the persistent kernels cut the work (mirrored by
+// paddle_tpu_torch/ops/fused_attention_gru.py grid_plan): unit groups of
+// 4 hidden units, one block per SM up to one block per group, and each
+// block owning groups blockIdx.x, blockIdx.x + blocks, ...
+struct Plan {
+  int blocks;      // blocks launched
+  int gpb;         // unit groups a block owns, at most
+  int epb;         // e-groups (8 rows of wctx) a block owns, at most (backward)
+  int parts;       // blocks that share one batch row in the attention phase
+  int plen;        // columns of a part: of E (forward ctx) or D (backward d_enc_proj)
+  int ipb;         // (row, part) items a block owns, at most
+};
+
+inline Plan make_plan(int B, int D, int E, int num_sms, bool backward) {
+  Plan p;
+  const int groups = (D + kUnits - 1) / kUnits;
+  p.blocks = groups < num_sms ? groups : num_sms;
+  p.gpb = (groups + p.blocks - 1) / p.blocks;
+  const int egroups = (E + kERows - 1) / kERows;
+  p.epb = (egroups + p.blocks - 1) / p.blocks;
+  p.parts = p.blocks / B > 1 ? p.blocks / B : 1;
+  const int width = backward ? D : E;
+  p.plen = (width + p.parts - 1) / p.parts;
+  p.ipb = (B * p.parts + p.blocks - 1) / p.blocks;
+  return p;
+}
+
+}  // namespace pgrid

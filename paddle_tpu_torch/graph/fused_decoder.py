@@ -15,7 +15,11 @@ on the CPU. ``settings(pallas_decoder=...)`` is a TPU choice and chooses
 nothing here. A group that deviates (extra layers, other activations,
 dropout, error clipping, sequence memories, in-link consumers that are
 not hoisted) does not match and takes the loop, a different graph with the
-same semantics. Nothing falls back: a kernel that fails raises.
+same semantics. A group that matches takes the kernels only for the shapes
+``fused_attention_gru.supported`` accepts, as the JAX package asks
+``pallas_attention_gru.supported``; for any other it takes the loop too,
+counted in ``fused_attention_gru.EAGER_ROUTES``. The route is decided the
+same way on the CPU. Nothing falls back: a kernel that fails raises.
 """
 
 from __future__ import annotations
@@ -149,9 +153,9 @@ def run_fused_decoder(network, sub, ctx, statics, plan, pro_feeds,
                       boot_carry, mask_bt) -> Optional[torch.Tensor]:
     """Build the kernel operands from the matched plan and run it. Returns
     the RAW per-step GRU output stream [T, B, D], or None when the static
-    links do not carry the template's encoder sequences (the loop runs
-    the group then)."""
-    from paddle_tpu_torch.ops.fused_attention_gru import fused_attention_gru
+    links do not carry the template's encoder sequences or the kernels do
+    not take their shapes (the loop runs the group then)."""
+    from paddle_tpu_torch.ops import fused_attention_gru as fa
 
     D = plan["D"]
     gru, din = plan["gru"], plan["din"]
@@ -159,9 +163,13 @@ def run_fused_decoder(network, sub, ctx, statics, plan, pro_feeds,
     ev_arg = statics[plan["ev_link"]]
     if ep_arg.value is None or ev_arg.value is None or not ep_arg.is_seq:
         return None
+    B, Te = ep_arg.value.shape[0], ep_arg.value.shape[1]
     E = ev_arg.value.shape[2]
     xw = pro_feeds.get(din.name)
     if xw is None or ep_arg.value.shape[2] != D:
+        return None
+    if not fa.supported(B, Te, D, E):
+        fa.EAGER_ROUTES += 1
         return None
 
     wa = ctx.param(plan["tr_ic"].input_parameter_name).reshape(D, D)
@@ -183,5 +191,5 @@ def run_fused_decoder(network, sub, ctx, statics, plan, pro_feeds,
     ev = ev_arg.value.transpose(0, 1)                             # [Te, B, E]
     em = ep_arg.seq_mask(xw.dtype).transpose(0, 1)[:, :, None]
     dmask = mask_bt.transpose(0, 1)[:, :, None].to(xw.dtype).contiguous()
-    return fused_attention_gru(ep, ev, em, xw.contiguous(), dmask,
-                               boot_carry.contiguous(), wa, ba, v, wctx, wg)
+    return fa.fused_attention_gru(ep, ev, em, xw.contiguous(), dmask,
+                                  boot_carry.contiguous(), wa, ba, v, wctx, wg)

@@ -36,7 +36,8 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "paddle_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-HEADERS = ("common.cuh", "atb_gemm.cuh", "flash_attn.cuh", "flash_mma.cuh")
+HEADERS = ("common.cuh", "atb_gemm.cuh", "flash_attn.cuh", "flash_mma.cuh",
+           "persistent_grid.cuh")
 
 PTR = ctypes.c_void_p
 I64 = ctypes.c_longlong

@@ -3,7 +3,8 @@
 Port of ``paddle_tpu/ops/pallas_attention_gru.py``: ``fused_attention_gru``
 with its inference kernel (``_fwd_kernel_light`` ->
 ``csrc/attention_gru_fwd.cu::attention_gru_fwd``), its training forward
-that also saves the residuals (``_fwd_kernel`` -> ``attention_gru_fwd_train``)
+that also saves the residuals (``_fwd_kernel`` ->
+``csrc/attention_gru_fwd_train.cu``)
 and its backward (``_bwd_kernel`` -> ``csrc/attention_gru_bwd.cu``), and
 the one-step form ``attention_gru_step``, which is the serve decode step.
 Per decoder step:
@@ -28,11 +29,19 @@ The backward kernel computes the kernel's own outputs of the JAX package
 dW_gru and d_enc_vec are products of those streams, taken with
 ``torch.matmul`` / ``torch.einsum`` as the JAX package leaves them to XLA.
 The masks get no gradient.
+
+The training pair runs as persistent, cooperative grids (one block on each
+SM, its weight slices held in shared memory for the whole launch; see
+``csrc/persistent_grid.cuh``). :func:`supported` states the shapes they
+take. The decoder route (``graph/fused_decoder.py``) asks it before any
+launch and runs the recurrent group's loop for anything else, counted in
+``EAGER_ROUTES``; the wrappers raise on a shape it refuses.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -50,20 +59,114 @@ _FWD_ARGS = [PTR, I64, I64,            # ep, its time and batch strides
 _DIMS = [I32, I32, I32, I32, I32]      # Td, B, Te, D, E
 ATTENTION_GRU_FWD = CudaKernel("attention_gru_fwd.cu", "attention_gru_fwd", _FWD_ARGS + _DIMS)
 ATTENTION_GRU_FWD_TRAIN = CudaKernel(
-    "attention_gru_fwd.cu", "attention_gru_fwd_train",
-    _FWD_ARGS + [PTR, PTR, PTR, PTR] + _DIMS)  # hprev, acts, alpha, ctxs
+    "attention_gru_fwd_train.cu", "attention_gru_fwd_train",
+    _FWD_ARGS + [PTR, PTR, PTR, PTR, PTR]   # hprev, acts, alpha, ctxs, m
+    + [PTR, PTR]                            # scratch: r*h [B, D], the barrier counter
+    + _DIMS + [I32])                        # num_sms
 ATTENTION_GRU_BWD = CudaKernel(
     "attention_gru_bwd.cu", "attention_gru_bwd",
     [PTR, I64, I64,            # dy, its time and batch strides
      PTR, I64, I64,            # ep
      PTR, I64, I64,            # ev
-     PTR, PTR, PTR, PTR,       # dmask, hprev, acts, alpha
-     PTR, PTR, PTR, PTR, PTR,  # wa, ba, v, wctx, wg
+     PTR, PTR, PTR, PTR, PTR,  # dmask, hprev, acts, alpha, m
+     PTR, PTR, PTR, PTR,       # wa, v, wctx, wg
      PTR, PTR, PTR,            # dxw, dctx, dh0
      PTR, I64, I64,            # dep, its time and batch strides
      PTR, PTR, PTR,            # dwa, dba, dv
-     PTR, PTR] + _DIMS)        # scratch: d_m rows, dv partials
+     PTR, PTR, PTR]            # scratch: d_m rows, dv and dba partials, the barrier counter
+    + _DIMS + [I32])           # num_sms
 KERNELS = (ATTENTION_GRU_FWD, ATTENTION_GRU_FWD_TRAIN, ATTENTION_GRU_BWD)
+
+# Decoder groups that matched the template but ran the recurrent group's
+# loop because supported() refused their shapes (graph/fused_decoder.py).
+EAGER_ROUTES = 0
+
+# How kernels 5 and 6 cut the work: csrc/persistent_grid.cuh make_plan and
+# the shared-memory sums of attention_gru_fwd_train.cu and
+# attention_gru_bwd.cu, mirrored here.
+UNITS = 4               # hidden units in a unit group: a block's slice of D
+E_ROWS = 8              # rows of wctx in an e-group (the backward's d_ctx)
+SMEM_LIMIT = 232448     # bytes of shared memory a block may opt into on sm_90
+H100_SMS = 132          # the SM count taken where no card is present
+DWA_STAGE = 4 * 32 * (32 + 64)   # bytes: the backward's staged dWa operands
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms_of(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def card_sms(device: Optional[torch.device] = None) -> int:
+    """The card's SM count (the current card by default); the H100's
+    where no card is present."""
+    if not torch.cuda.is_available():
+        return H100_SMS
+    if device is None or device.index is None:
+        return _sms_of(torch.cuda.current_device())
+    return _sms_of(device.index)
+
+
+def grid_plan(B: int, Te: int, D: int, E: int, sms: int) -> Dict[str, int]:
+    """Blocks, shared memory per block and work split of kernels 5 and 6.
+
+    ceil(D / 4) unit groups of 4 hidden units go to min(sms, groups)
+    blocks, one to an SM, and each block keeps its groups' weight slices
+    (in the backward also ceil(E / 8) e-groups of wctx rows, spread over the
+    same blocks) for the whole launch. The attention phase splits each
+    batch row over ``parts`` blocks when there are more blocks than rows.
+    The backward keeps d_enc_proj in shared memory when it fits, else in
+    place in its output."""
+    groups = _cdiv(D, UNITS)
+    blocks = min(sms, groups)
+    gpb = _cdiv(groups, blocks)
+    epb = _cdiv(_cdiv(E, E_ROWS), blocks)
+    parts = max(1, blocks // B)
+    ipb = _cdiv(B * parts, blocks)
+    dlen = _cdiv(D, parts)
+    fwd = 4 * (gpb * (16 * D + 12 * E + 32 * B) + 2 * D + Te)
+    bwd = 4 * (gpb * (16 * D + 16 * B) + epb * 24 * D + 8 * B + D + E
+               + _cdiv(Te, 4) * 4 + 2 * ipb * dlen)
+    dep_in_smem = max(bwd + 4 * ipb * dlen * Te, DWA_STAGE) <= SMEM_LIMIT
+    if dep_in_smem:
+        bwd += 4 * ipb * dlen * Te
+    bwd = max(bwd, DWA_STAGE)
+    return dict(blocks=blocks, unit_groups_per_block=gpb, e_groups_per_block=epb,
+                parts=parts, fwd_smem_bytes=fwd, bwd_smem_bytes=bwd,
+                bwd_dep_in_smem=int(dep_in_smem))
+
+
+def grid_barriers(Td: int) -> Tuple[int, int]:
+    """The grid barriers one launch of kernel 5 and of kernel 6 passes."""
+    return 4 * Td - 1, 4 * Td
+
+
+def supported(B: int, Te: int, D: int, E: int, num_sms: Optional[int] = None) -> bool:
+    """Whether kernels 5 and 6 take a decoder of batch B over Te encoder
+    positions, width D and encoder width E.
+
+    Every dimension is at least 1 and the shared memory of a block of each
+    kernel is within SMEM_LIMIT; the grid is at most one block per SM, so
+    the card holds it at once. The route also launches the inference kernel
+    4 when no gradient is wanted, so its shared memory must fit too.
+    ``num_sms`` defaults to the current card's count (132 where there is no
+    card)."""
+    if min(B, Te, D, E) < 1:
+        return False
+    plan = grid_plan(B, Te, D, E, card_sms() if num_sms is None else num_sms)
+    light = 4 * (7 * D + E + Te)
+    return max(plan["fwd_smem_bytes"], plan["bwd_smem_bytes"], light) <= SMEM_LIMIT
+
+
+def _check_supported(B, Te, D, E, dev):
+    if not supported(B, Te, D, E, card_sms(dev)):
+        raise ValueError(
+            f"the attention-GRU training kernels do not take B={B}, Te={Te}, D={D}, "
+            f"E={E} (fused_attention_gru.supported: every dimension at least 1 and "
+            f"a block's shared memory within {SMEM_LIMIT} bytes)")
 
 
 def _step(h, ep, ev, em, xw_t, wa, ba, v, wctx, wg, acts, residuals=False):
@@ -90,7 +193,7 @@ def attention_gru_reference(ep, ev, em, xw, dmask, h0, wa, ba, v, wctx, wg,
 
     ``residuals=True`` also returns what ``attention_gru_fwd_train`` saves:
     (ys, hprev [Td, B, D], acts = [u | r | c] [Td, B, 3D], alpha
-    [Td, B, Te], ctx [Td, B, E])."""
+    [Td, B, Te], ctx [Td, B, E]); the kernel also saves m [Td, B, D]."""
     h = h0
     ys, saved = [], []
     for t in range(xw.shape[0]):
@@ -143,13 +246,17 @@ def _launch_fwd(ep, ev, em, xw, dmask, h0, wa, ba, v, wctx, wg, acts, residuals)
     if not residuals:
         ATTENTION_GRU_FWD.launch(dev, *args, Td, B, Te, D, E)
         return ys
+    _check_supported(B, Te, D, E, dev)
     saved = (torch.empty((Td, B, D), device=dev), torch.empty((Td, B, 3 * D), device=dev),
-             torch.empty((Td, B, Te), device=dev), torch.empty((Td, B, E), device=dev))
-    ATTENTION_GRU_FWD_TRAIN.launch(dev, *args, *[ptr(z) for z in saved], Td, B, Te, D, E)
+             torch.empty((Td, B, Te), device=dev), torch.empty((Td, B, E), device=dev),
+             torch.empty((Td, B, D), device=dev))
+    scratch = (torch.empty((B, D), device=dev), torch.empty(1, dtype=torch.int32, device=dev))
+    ATTENTION_GRU_FWD_TRAIN.launch(dev, *args, *[ptr(z) for z in saved + scratch],
+                                   Td, B, Te, D, E, card_sms(dev))
     return (ys,) + saved
 
 
-def _launch_bwd(dy, ep, ev, dmask, hprev, saved, alpha, wa, ba, v, wctx, wg):
+def _launch_bwd(dy, ep, ev, dmask, hprev, saved, alpha, m, wa, v, wctx, wg):
     """The backward kernel's outputs: dxw, dctx, dh0, dep, dwa, dba, dv."""
     Te, B, D = ep.shape
     E = ev.shape[2]
@@ -160,6 +267,8 @@ def _launch_bwd(dy, ep, ev, dmask, hprev, saved, alpha, wa, ba, v, wctx, wg):
     check(hprev, "hprev", (Td, B, D), dev)
     check(saved, "acts", (Td, B, 3 * D), dev)
     check(alpha, "alpha", (Td, B, Te), dev)
+    check(m, "m", (Td, B, D), dev)
+    _check_supported(B, Te, D, E, dev)
     dxw = torch.empty((Td, B, 3 * D), device=dev)
     dctx = torch.empty((Td, B, E), device=dev)
     dh0 = torch.empty((B, D), device=dev)
@@ -168,19 +277,20 @@ def _launch_bwd(dy, ep, ev, dmask, hprev, saved, alpha, wa, ba, v, wctx, wg):
     dba = torch.empty((1, D), device=dev)
     dv = torch.empty((1, D), device=dev)
     dm_rows = torch.empty((Td, B, D), device=dev)
-    dv_part = torch.empty((B, D), device=dev)
+    dv_part = torch.empty((2, B, D), device=dev)
+    counter = torch.empty(1, dtype=torch.int32, device=dev)
     ATTENTION_GRU_BWD.launch(
         dev,
         ptr(dy), dy.stride(0), dy.stride(1),
         ptr(ep), ep.stride(0), ep.stride(1),
         ptr(ev), ev.stride(0), ev.stride(1),
-        ptr(dmask), ptr(hprev), ptr(saved), ptr(alpha),
-        ptr(wa), ptr(ba), ptr(v), ptr(wctx), ptr(wg),
+        ptr(dmask), ptr(hprev), ptr(saved), ptr(alpha), ptr(m),
+        ptr(wa), ptr(v), ptr(wctx), ptr(wg),
         ptr(dxw), ptr(dctx), ptr(dh0),
         ptr(dep), dep.stride(0), dep.stride(1),
         ptr(dwa), ptr(dba), ptr(dv),
-        ptr(dm_rows), ptr(dv_part),
-        Td, B, Te, D, E,
+        ptr(dm_rows), ptr(dv_part), ptr(counter),
+        Td, B, Te, D, E, card_sms(dev),
     )
     return dxw, dctx, dh0, dep, dwa, dba, dv
 
@@ -191,17 +301,17 @@ class _FusedAttentionGRU(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, ep, ev, em, xw, dmask, h0, wa, ba, v, wctx, wg, acts):
-        ys, hprev, saved, alpha, ctxs = _launch_fwd(ep, ev, em, xw, dmask, h0, wa, ba, v,
-                                                    wctx, wg, acts, residuals=True)
-        ctx.save_for_backward(ep, ev, dmask, hprev, saved, alpha, ctxs, wa, ba, v, wctx, wg)
+        ys, hprev, saved, alpha, ctxs, m = _launch_fwd(ep, ev, em, xw, dmask, h0, wa, ba, v,
+                                                       wctx, wg, acts, residuals=True)
+        ctx.save_for_backward(ep, ev, dmask, hprev, saved, alpha, ctxs, m, wa, v, wctx, wg)
         return ys
 
     @staticmethod
     def backward(ctx, dy):
-        ep, ev, dmask, hprev, saved, alpha, ctxs, wa, ba, v, wctx, wg = ctx.saved_tensors
+        ep, ev, dmask, hprev, saved, alpha, ctxs, m, wa, v, wctx, wg = ctx.saved_tensors
         D, E = ep.shape[2], ev.shape[2]
         dxw, dctx, dh0, dep, dwa, dba, dv = _launch_bwd(
-            dy, ep, ev, dmask, hprev, saved, alpha, wa, ba, v, wctx, wg)
+            dy, ep, ev, dmask, hprev, saved, alpha, m, wa, v, wctx, wg)
         dxw2 = dxw.reshape(-1, 3 * D)
         hp2 = hprev.reshape(-1, D)
         r2 = saved.reshape(-1, 3 * D)[:, D: 2 * D]
