@@ -22,14 +22,21 @@ Phases, each printing one JSON object per line:
              Kernels 5 and 6 (the persistent attention-GRU training grids)
              also at Te = 128, m (a residual of 5) against h_prev . wa + ba,
              two launches of each bit-equal, and the grid barrier timed.
+             Kernel 4 (kernel 5's grid without residuals) at Td = 1 and 8,
+             two launches bit-equal, with an empty cooperative launch on
+             its grid and its weight-slice load timed apart; kernel 3 (the
+             persistent GRU backward, dW in the launch) two launches
+             bit-equal, with the barrier timed on its own grid.
 3. serve   — a main path: the seqToseq NMT generation model at full
              width (vocab 30000, dim 512, random weights from seed 1)
              behind build_engine(slots=64, prompt_tokens=32,
              fused_step=True), answering 128 seeded requests. The kernel
              launch counters are zeroed just before the requests and read
-             just after. The same requests then go through the unfused
+             just after (no decode step may take the plain step: 0 eager
+             routes). The same requests then go through the unfused
              decode step, and a small prefill is checked against the CPU;
-             one more serve runs under torch.profiler.
+             one more serve runs under torch.profiler, with kernel 4's
+             device ms per micro-step.
 4. train   — the other main path: Trainer(nmt_config(vocab=30000,
              dim=512, batch_size=64)) on the card, random weights from
              seed 1, 8 Adam steps on nmt_batch(B=64, T=32, seed=1), the
@@ -126,9 +133,9 @@ kernel.
 
 Then the per-kernel line ({"kernels": [...]}; rows 9-12, the kernels on
 the tensor cores, also carry bound_tc_ms, the bound of their design: three
-TF32 products per product at 495 TFLOP/s, or the bytes; rows 5 and 6
-carry design_bound_ms, bound_ms plus their grid barriers at the measured
-barrier time), the card's name
+TF32 products per product at 495 TFLOP/s, or the bytes; rows 3-6, the
+persistent grids, carry design_bound_ms, bound_ms plus their grid
+barriers at the measured barrier time, and their grid), the card's name
 and power
 limit as nvidia-smi reports them, and as the last line
 {"ok": true, "device": {...}}. Any failure raises, so the exit code is not
@@ -196,16 +203,22 @@ def bound_tc(nbytes: float, flops: float) -> float:
     return 1e3 * max(nbytes / PEAK_BYTES_PER_S, 3.0 * flops / PEAK_TF32_FLOPS)
 
 
-def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
+def time_ms(torch, fn, reps: int = 20, warmup: int = 3, hide_host: bool = False) -> float:
     """Median of per-call CUDA-event timings after warmup, each call
     starting from a cold L2: on the serve path the 61 MB output projection
-    runs between two decode steps and evicts the 50 MB L2."""
+    runs between two decode steps and evicts the 50 MB L2. The events
+    bracket the wrapper's host work too, which the card waits for where it
+    outlasts the flush; ``hide_host`` keeps the card busy ~0.6 ms longer
+    (torch.cuda._sleep) while the host enqueues, so that only device time
+    is counted."""
     flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         flush.zero_()
+        if hide_host:
+            torch.cuda._sleep(1_000_000)
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
         fn()
@@ -253,6 +266,7 @@ def phase_build(kernels):
 
 def phase_kernels(torch, dev):
     """Each kernel against its plain version at the serve path's widths."""
+    from paddle_tpu_torch.ops import fused_attention_gru as fa
     from paddle_tpu_torch.ops.fused_attention_gru import (
         attention_gru_reference, fused_attention_gru)
     from paddle_tpu_torch.ops.fused_gru import fused_gru, gru_forward_reference
@@ -288,32 +302,62 @@ def phase_kernels(torch, dev):
     results["gru_fwd"] = dict(cases=cases, shape=dict(T=T, B=B, H=H),
                               bytes=nbytes, flops=flops)
 
-    # kernel 2: the attention-GRU decode step, Td = 1 (serving) and Td = 8
-    ep, ev = t(rng.randn(Te, B, D) * 0.3), t(rng.randn(Te, B, E) * 0.3)
+    # kernel 4: the attention-GRU decode step, Td = 1 (serving) and Td = 8,
+    # ep and ev as transposed views of batch-major buffers, as the serve
+    # step passes its slot state
+    ep = t(rng.randn(B, Te, D) * 0.3).transpose(0, 1)
+    ev = t(rng.randn(B, Te, E) * 0.3).transpose(0, 1)
     em = t((np.arange(Te)[:, None] < lengths(Te)[None, :])[:, :, None])
     h0 = t(rng.randn(B, D) * 0.3)
     wa, ba, v = t(rng.randn(D, D) / np.sqrt(D)), t(rng.randn(1, D) * 0.1), t(rng.randn(1, D) * 0.1)
     wctx, wg = t(rng.randn(E, 3 * D) / np.sqrt(E)), t(rng.randn(D, 3 * D) / np.sqrt(D))
+    plan = fa.grid_plan(B, Te, D, E, fa.card_sms(dev))
     cases = []
     for Td in (1, 8):
         xw = t(rng.randn(Td, B, 3 * D) * 0.5)
         dmask = t(rng.rand(Td, B, 1) > 0.2)
         args = (ep, ev, em, xw, dmask, h0, wa, ba, v, wctx, wg)
         got = fused_attention_gru(*args)
+        again = fused_attention_gru(*args)
         ref = attention_gru_reference(*args)
         torch.cuda.synchronize()
         err = float((got - ref).abs().max())
         assert torch.isfinite(got).all() and err <= TOL, ("attention_gru_fwd", Td, err)
-        cases.append({"Td": Td, "max_abs_err": err,
-                      "ms": time_ms(torch, lambda: fused_attention_gru(*args)),
-                      "plain_ms": time_ms(torch, lambda: attention_gru_reference(*args))})
+        assert torch.equal(got, again), ("attention_gru_fwd", Td)
+        ms = time_ms(torch, lambda: fused_attention_gru(*args))
+        cases.append({"Td": Td, "max_abs_err": err, "ms": ms,
+                      "device_ms": time_ms(torch, lambda: fused_attention_gru(*args),
+                                           hide_host=True),
+                      "plain_ms": time_ms(torch, lambda: attention_gru_reference(*args)),
+                      "per_step_us": 1e3 * ms / Td, "grid_barriers": fa.grid_barriers(Td)[0],
+                      "blocks": plan["blocks"], "smem_bytes_per_block": plan["fwd_smem_bytes"]})
+        if Td == 1:
+            step_args = args
+    # what every launch pays: an empty cooperative launch on the same grid,
+    # and the same launch loading the weight slices and stopping
+    empty = barrier_bench(torch, dev, plan["blocks"], plan["fwd_smem_bytes"])
+    empty_ms = time_ms(torch, lambda: empty(0), hide_host=True)
+    slices_ms = time_ms(torch, lambda: fa._launch_fwd(
+        *step_args, fa.KERNEL_ACTS, False, kernel=fa.ATTENTION_GRU_FWD_SLICES), hide_host=True)
+    # the wrapper's host time a launch, back to back (the serve step pays it)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        fused_attention_gru(*step_args)
+    torch.cuda.synchronize()
+    back_to_back_ms = (time.perf_counter() - t0) * 10.0
+    barrier_us = grid_barrier_us(torch, dev, plan["blocks"], plan["fwd_smem_bytes"])
     Td = 1
     nbytes = 4.0 * (Te * B * (D + E + 1) + Td * B * (3 * D + 1 + D) + B * D
                     + D * D + 2 * D + E * 3 * D + D * 3 * D)
     flops = Td * (2.0 * B * D * D + 4.0 * B * Te * D + 2.0 * B * Te * E
                   + 2.0 * B * E * 3 * D + 6.0 * B * D * D)  # pallas_attention_gru._flops
-    results["attention_gru_fwd"] = dict(cases=cases, shape=dict(Td=1, Te=Te, B=B, D=D, E=E),
-                                        bytes=nbytes, flops=flops)
+    results["attention_gru_fwd"] = dict(
+        cases=cases, shape=dict(Td=1, Te=Te, B=B, D=D, E=E), bytes=nbytes, flops=flops,
+        barrier_us=barrier_us,
+        design_bound_ms=bound(nbytes, flops)[0] + fa.grid_barriers(Td)[0] * barrier_us * 1e-3,
+        empty_launch_ms=empty_ms, launch_and_slice_load_ms=slices_ms,
+        slice_load_ms=slices_ms - empty_ms, back_to_back_ms=back_to_back_ms)
     phase_train_kernels(torch, dev, rng, t, lengths, results)
     phase_gru_acts(torch, dev, rng, t, lengths, results)
     emit({"phase": "kernels", "cases": {k: r["cases"] for k, r in results.items()}})
@@ -372,10 +416,11 @@ def _grad_err(got, ref):
 def phase_train_kernels(torch, dev, rng, t, lengths, results):
     """Kernels 2, 3, 5 and 6 at the train path's full widths: GRU T = 32,
     B = 64, H = 512 (forward and reversed); attention-GRU Td = Te = 32,
-    B = 64, D = 512, E = 1024, and the same at Te = 128. Kernels 5 and 6
+    B = 64, D = 512, E = 1024, and the same at Te = 128. Kernels 3, 5 and 6
     also report their grid (blocks, shared memory a block, grid barriers a
-    launch), their time per decoder step and the grid barrier's own time,
-    and their design bound: the bound plus their barriers."""
+    launch), their time per step and the grid barrier's own time on their
+    grid, and their design bound: the bound plus their barriers; two of
+    their launches give the same bits."""
     from paddle_tpu_torch.ops import fused_attention_gru as fa
     from paddle_tpu_torch.ops import fused_gru as fg
 
@@ -384,6 +429,7 @@ def phase_train_kernels(torch, dev, rng, t, lengths, results):
     w = t(rng.randn(H, 3 * H) / np.sqrt(H))
     mask = t((np.arange(T)[:, None] < lengths(T)[None, :]))
     dy = t(rng.randn(T, B, H))
+    gplan = fg.grid_plan(B, H, fa.card_sms(dev))
     fwd_cases, bwd_cases = [], []
     for reverse in (False, True):
         got = fg._launch_fwd(x3, mask, w, reverse, fg.KERNEL_ACTS, residuals=True)
@@ -405,24 +451,45 @@ def phase_train_kernels(torch, dev, rng, t, lengths, results):
         torch.cuda.synchronize()
         err, rel = _err(kg, pg), _grad_err(kg, pg)
         assert all(torch.isfinite(g).all() for g in kg) and rel <= TOL, ("gru_bwd", reverse, rel)
+        one = fg._launch_bwd(dy, saved, hprev, mask, w, reverse, fg.KERNEL_ACTS)
+        two = fg._launch_bwd(dy, saved, hprev, mask, w, reverse, fg.KERNEL_ACTS)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(one, two)), ("gru_bwd", reverse)
+        run_bwd = lambda: fg._launch_bwd(dy, saved, hprev, mask, w, reverse, fg.KERNEL_ACTS)
+        ms = time_ms(torch, run_bwd)
         bwd_cases.append({"reverse": reverse, "max_abs_err": err, "err_over_scale": rel,
-                          "ms": time_ms(torch, lambda: fg._launch_bwd(
-                              dy, saved, hprev, mask, w, reverse, fg.KERNEL_ACTS)),
+                          "ms": ms, "device_ms": time_ms(torch, run_bwd, hide_host=True),
                           "plain_ms": time_ms(torch, lambda: torch.autograd.grad(
-                              ys_plain, plain, dy, retain_graph=True), reps=5)})
+                              ys_plain, plain, dy, retain_graph=True), reps=5),
+                          "per_step_us": 1e3 * ms / T, "grid_barriers": fg.grid_barriers(T),
+                          "blocks": gplan["blocks"], "smem_bytes_per_block": gplan["smem_bytes"],
+                          "w_in_smem": bool(gplan["w_in_smem"]),
+                          "dw_in_smem": bool(gplan["dw_in_smem"])})
     results["gru_fwd_train"] = dict(
         cases=fwd_cases, shape=dict(T=T, B=B, H=H),
         bytes=4.0 * (T * B * 3 * H + T * B + H * 3 * H + T * B * H      # x3, mask, w, ys
                      + T * B * 3 * H + T * B * H),                       # acts, hprev
         flops=T * (6.0 * B * H * H + 14.0 * B * H))        # kernel_flops.gru_fwd_flops
+    gru_bwd_bytes = 4.0 * (T * B * H + T * B * 3 * H + T * B * H + T * B + H * 3 * H  # dy, acts, hprev, mask, w
+                           + T * B * 3 * H + H * 3 * H)                              # dx3, dw
+    gru_bwd_flops = T * (12.0 * B * H * H + 25.0 * B * H)   # kernel_flops.gru_bwd_flops
+    gru_barrier_us = grid_barrier_us(torch, dev, gplan["blocks"], gplan["smem_bytes"])
+    # where a step of kernel 3 goes: block 0's clock at its phases' ends
+    clocks = torch.zeros((T, 4), dtype=torch.int64, device=dev)
+    fg._launch_bwd(dy, saved, hprev, mask, w, True, fg.KERNEL_ACTS, phase_ns=clocks)
+    torch.cuda.synchronize()
+    spans = (clocks[:, 1:] - clocks[:, :-1]).double().mean(0).cpu().tolist()
+    phase_us = dict(zip(("phase1_and_barrier", "phase2_and_barrier", "phase3"),
+                        (x / 1e3 for x in spans)))
     results["gru_bwd"] = dict(
-        cases=bwd_cases, shape=dict(T=T, B=B, H=H),
-        bytes=4.0 * (T * B * H + T * B * 3 * H + T * B * H + T * B + H * 3 * H  # dy, acts, hprev, mask, w
-                     + T * B * 3 * H + H * 3 * H),                              # dx3, dw
-        flops=T * (12.0 * B * H * H + 25.0 * B * H))       # kernel_flops.gru_bwd_flops
+        cases=bwd_cases, shape=dict(T=T, B=B, H=H), bytes=gru_bwd_bytes, flops=gru_bwd_flops,
+        barrier_us=gru_barrier_us, phase_us_per_step=phase_us,
+        design_bound_ms=(bound(gru_bwd_bytes, gru_bwd_flops)[0]
+                         + fg.grid_barriers(T) * gru_barrier_us * 1e-3))
 
     Td, Te, D, E = TRAIN["T"], FULL["prompt_tokens"], FULL["dim"], 2 * FULL["dim"]
-    barrier_us = grid_barrier_us(torch, dev, fa.grid_plan(B, Te, D, E, fa.card_sms(dev)))
+    plan5 = fa.grid_plan(B, Te, D, E, fa.card_sms(dev))
+    barrier_us = grid_barrier_us(torch, dev, plan5["blocks"], plan5["fwd_smem_bytes"])
     cases = [attention_train_case(torch, fa, rng, t, lengths, Td, te, B, D, E, barrier_us)
              for te in (Te, LONG_TE)]
     weights = D * D + 2 * D + E * 3 * D + D * 3 * D
@@ -456,16 +523,22 @@ def phase_train_kernels(torch, dev, rng, t, lengths, results):
 LONG_TE = 128
 
 
-def grid_barrier_us(torch, dev, plan) -> float:
-    """One grid barrier of kernels 5 and 6 in µs: the median over three
-    launches of 10,000 barriers, on the main path's grid (its blocks, one
-    to an SM, held there by the forward's shared memory)."""
+def barrier_bench(torch, dev, blocks, smem):
+    """``run(iters)``: one cooperative launch of ``iters`` grid barriers on
+    ``blocks`` blocks holding ``smem`` bytes of shared memory each (so that
+    they sit one to an SM, as the persistent kernels do); iters = 0 is an
+    empty cooperative launch."""
     from paddle_tpu_torch.ops._build import I32, PTR, CudaKernel
 
     bench = CudaKernel("attention_gru_fwd_train.cu", "grid_barrier_bench", [PTR, I32, I32, I32])
     counter = torch.empty(1, dtype=torch.int32, device=dev)
-    run = lambda iters: bench.launch(dev, counter.data_ptr(), iters, plan["blocks"],
-                                     plan["fwd_smem_bytes"])
+    return lambda iters: bench.launch(dev, counter.data_ptr(), iters, blocks, smem)
+
+
+def grid_barrier_us(torch, dev, blocks, smem) -> float:
+    """One grid barrier in µs on a persistent kernel's grid: the median over
+    three launches of 10,000 barriers."""
+    run = barrier_bench(torch, dev, blocks, smem)
     run(1000)
     times = []
     for _ in range(3):
@@ -573,6 +646,7 @@ def phase_serve(torch, dev, kernels):
         [(r.rid, r.outcome, r.error) for r in fused if r.outcome != "ok" or not r.tokens]
     assert prefills > 0 and launches["gru_fwd"] == 2 * prefills, (launches, prefills)
     assert launches["attention_gru_fwd"] >= microsteps > 0, (launches, microsteps)
+    assert routes["attention_decoder"] == 0, routes       # every decode step took kernel 4
     assert not any(launches[n] for n in TRAIN_KERNELS + LSTM_KERNELS), launches
     tokens = sum(len(r.tokens) for r in fused)
 
@@ -608,7 +682,8 @@ def phase_serve(torch, dev, kernels):
              "decode_microsteps": microsteps, "kernel_launches": launches, "eager_routes": routes,
              "unfused_identical": same, "unfused_wall_s": unfused_wall,
              "unfused_tokens_per_s": sum(len(r.tokens) for r in unfused) / unfused_wall,
-             "prefill_max_abs_err_vs_cpu": prefill_err}
+             "prefill_max_abs_err_vs_cpu": prefill_err,
+             "eager_decode_steps": routes["attention_decoder"]}
     emit(serve)
     phase_profile(torch, machine, params, prompts)
     return serve
@@ -616,12 +691,20 @@ def phase_serve(torch, dev, kernels):
 
 def phase_profile(torch, machine, params, prompts):
     """Where the serve time goes: the same requests once more under
-    torch.profiler."""
+    torch.profiler, with kernel 4's device time per decode micro-step."""
     from paddle_tpu_torch.serving.frontend import build_engine
 
     engine = build_engine(machine, params, slots=FULL["slots"],
                           prompt_tokens=FULL["prompt_tokens"], fused_step=True).start()
-    profiled(torch, "profile", lambda: run_requests(engine, prompts))
+    backend = engine._backend
+    backend.decode_microsteps = 0
+    rows, _ = profiled(torch, "profile", lambda: run_requests(engine, prompts))
+    k4 = [(ms, c) for n, ms, c in rows if "attention_gru_fwd_kernel" in n]
+    k4_ms = sum(ms for ms, _ in k4)
+    emit({"phase": "profile_kernel4", "decode_microsteps": backend.decode_microsteps,
+          "launches": sum(c for _, c in k4), "device_ms": k4_ms,
+          "device_ms_per_microstep": (k4_ms / backend.decode_microsteps
+                                      if k4 and backend.decode_microsteps else None)})
 
 
 def profiled(torch, phase, fn, top: int = 12):
@@ -1474,10 +1557,10 @@ def main() -> int:
                           "paddle_tpu/ops/pallas_gru.py:57 (_fwd_kernel; pallas_call :178)"),
         "gru_bwd": ("paddle_tpu_torch/csrc/gru_bwd.cu",
                     "paddle_tpu/ops/pallas_gru.py:91 (_bwd_kernel; pallas_call :206)"),
-        "attention_gru_fwd": ("paddle_tpu_torch/csrc/attention_gru_fwd.cu",
+        "attention_gru_fwd": ("paddle_tpu_torch/csrc/attention_gru_fwd.cuh",
                               "paddle_tpu/ops/pallas_attention_gru.py:285 "
                               "(_fwd_kernel_light; pallas_call :266)"),
-        "attention_gru_fwd_train": ("paddle_tpu_torch/csrc/attention_gru_fwd_train.cu",
+        "attention_gru_fwd_train": ("paddle_tpu_torch/csrc/attention_gru_fwd.cuh",
                                     "paddle_tpu/ops/pallas_attention_gru.py:199 "
                                     "(_fwd_kernel; pallas_call :266)"),
         "attention_gru_bwd": ("paddle_tpu_torch/csrc/attention_gru_bwd.cu",
@@ -1536,10 +1619,18 @@ def main() -> int:
         assert launches > 0, (name, path_of[name])
         if name in TC_KERNELS:
             extra = {"bound_tc_ms": times.get("bound_tc_ms", bound_tc(r["bytes"], r["flops"]))}
-        elif "design_bound_ms" in r:              # kernels 5 and 6: the bound plus their barriers
+        elif "design_bound_ms" in r:              # kernels 3-6: the bound plus their barriers
             extra = {"design_bound_ms": r["design_bound_ms"], "barrier_us": r["barrier_us"],
                      "grid_barriers": main_case["grid_barriers"], "blocks": main_case["blocks"],
                      "smem_bytes_per_block": main_case["smem_bytes_per_block"]}
+            if "device_ms" in main_case:          # kernels 3 and 4: the host's enqueue hidden
+                extra["device_ms"] = main_case["device_ms"]
+            if "phase_us_per_step" in r:
+                extra["phase_us_per_step"] = r["phase_us_per_step"]
+            if name == "attention_gru_fwd":       # what a Td = 1 launch pays besides the step
+                extra.update({key: r[key] for key in (
+                    "empty_launch_ms", "launch_and_slice_load_ms", "slice_load_ms",
+                    "back_to_back_ms")}, ms_at_Td8=r["cases"][1]["ms"])
         else:
             extra = {}
         rows.append({

@@ -1,15 +1,16 @@
 // gru_bwd — the backward of the masked GRU scan: dx3 and dW from the
-// residuals of gru_fwd_train.
+// residuals of gru_fwd_train, in one launch.
 //
 // Replaces: paddle_tpu/ops/pallas_gru.py _bwd_kernel (launched by
 // pl.pallas_call in _run_bwd, the custom-VJP backward of fused_gru), which
 // walks time backwards carrying dh in VMEM and accumulates dW there.
 //
 // Per step, walked in the opposite order of the forward (t = T-1 .. 0, or
-// 0 .. T-1 for a reversed sequence), with DH the gradient carried into the
-// step's output carry, m = mask[t, b], (u, r, c, h_prev) the residuals and
-// act' the derivative of an activation from its saved output (common.cuh
-// dact_f32: 1 - y^2 for tanh, y (1 - y) for sigmoid):
+// 0 .. T-1 for a reversed sequence), for every batch row at once, with DH
+// [B, H] the gradient carried into the step's output carry, m = mask[t],
+// (u, r, c, h_prev) the residuals and act' the derivative of an activation
+// from its saved output (common.cuh dact_f32: 1 - y^2 for tanh, y (1 - y)
+// for sigmoid):
 //   dh     = m * (DH + dy[t])                       (a padded step passes DH on)
 //   du     = dh * (h_prev - c)
 //   dcand  = dh * (1 - u) * act_in'(c)
@@ -17,117 +18,237 @@
 //   dg     = [du * act_gate'(u) | drh * h_prev * act_gate'(r)]
 //   dx3[t] = [dg | dcand]
 //   DH     = dh * u + drh * r + dg . Wg^T + (1 - m) * DH      Wg = w[:, :2H]
-// and, over every row n = (t, b):
-//   dW[:, :2H] = h_prev^T . dg        dW[:, 2H:] = (r * h_prev)^T . dcand
+// and, summed over every step and row:
+//   dW[:, :2H] += h_prev^T . dg        dW[:, 2H:] += (r * h_prev)^T . dcand
 //
-// What bounds it on an H100: as the forward, the time loop is sequential and
-// every step reads all of w (3 MB at H = 512) per batch row, now twice (by
-// rows, for the two transposed products), so the L2 read rate limits the
-// recurrence. The function's own cost (dy, the residuals, w, dx3, dW: about
-// 40 MB; 6.4 GFLOP at T = 32, B = 64, H = 512) is bounded by operations,
-// some 0.1 ms at the 67 TFLOP/s float32 rate.
+// What bounds it on an H100: its float32 operations (12 T B H^2: 6.4 GFLOP
+// at T = 32, B = 64, H = 512, some 0.1 ms at 67 TFLOP/s) over its bytes
+// (dy, the residuals, w, dx3, dW: about 40 MB). The reversed time loop is
+// sequential, and every step needs all B rows of the one after.
 //
-// What the design does about that: one thread block per batch row carries
-// DH in shared memory over the whole reversed loop; the two products with
-// w^T give each warp one row of w at a time, read as coalesced lines and
-// summed with shuffles. dW sums over all T*B rows, so instead of atomics
-// into one [H, 3H] buffer a second kernel (atb_gemm.cuh, a tiled
-// shared-memory product) contracts h_prev and r*h_prev (rebuilt from the
-// saved r and h_prev as it loads them) against dx3 — deterministic, and
-// the sequential loop carries no weight-gradient work. The two activations
+// What the design does about that: one persistent block on each SM (a
+// cooperative launch, persistent_grid.cuh). Both per-step products take w
+// transposed, so a block owns ROWS: unit group g (hidden units k = 4g ..
+// 4g+3) is rows k of w, all 3H columns, 24 KB at H = 512, held in shared
+// memory for the whole launch (the first design read a whole row of w per
+// warp from L2 for every batch row at every step, some 6 GB a launch).
+// The block that owns unit k also owns dW's rows k, accumulated over the
+// steps in shared memory and written once at the end, as the TPU kernel
+// accumulates dW in VMEM: its two sums use the rows that the products
+// already read (product_colsum4), so dW costs no second pass over dx3 and
+// no separate launch. Three
+// phases a step, the first two ending in a grid barrier; the gradients
+// other blocks read pass through L2 in dx3[t] itself, one row of steps
+// each, so no buffer is reused while a block may still read it:
+//   1  dh, du and dcand of the owned units: dx3[t]'s update and candidate
+//      columns;
+//   2  drh = dcand . w[k, 2H:]^T and the reset-gate column of dx3[t];
+//      dW[k, 2H:] += (r h_prev)^T dcand;
+//   3  DH = dh u + drh r + dg . w[k, :2H]^T + (1 - m) DH, kept in the
+//      owner's shared memory, which phase 1 of the next step reads on the
+//      same block: no barrier between them; dW[k, :2H] += h_prev^T dg.
+// That is 2 barriers a step, 2 T a launch. Where a block's rows of w and
+// dW do not fit in shared memory beside the state of its rows (wide H, or
+// many rows), dW's rows and then w's are kept in device memory the block
+// alone reads and writes, in the same layout (the wrapper chooses, by
+// fused_gru.grid_plan). Every sum runs in a fixed order and nothing is
+// summed by atomics: two launches give the same bits. The two activations
 // are template parameters, one instance for each of the 16 pairs: with the
-// codes read at run time this recurrence ran markedly slower on an H100 at
-// the train path's shape (chip_smoke.py), the forwards not.
+// codes read at run time the first design ran markedly slower on an H100
+// at the train path's shape (chip_smoke.py), the forwards not.
 
-#include "atb_gemm.cuh"
 #include "common.cuh"
+#include "persistent_grid.cuh"
 
 namespace {
 
-constexpr int kThreads = 512;
+using namespace pgrid;
+
+// Floats of state a unit group keeps per batch row: DH, dh, drh, h_prev
+// and r * h_prev of its 4 units.
+constexpr int kState = 20;
+// The cross-warp sums of one row tile of a product.
+constexpr int kRedFloats = kWarps * kRowTile * 4;
+
+// The shared memory of a block, in floats: per unit group its rows of w
+// ([3H][4], when w_smem), its rows of dW ([3H][4], when dw_smem) and the
+// state [5][B][4]; then the cross-warp sums.
+inline size_t bwd_smem_floats(int B, int H, int gpb, bool w_smem, bool dw_smem) {
+  const long long slice = 12LL * H;
+  return static_cast<size_t>(gpb) * ((w_smem ? slice : 0) + (dw_smem ? slice : 0)
+                                     + static_cast<long long>(kState) * B)
+         + kRedFloats;
+}
 
 template <int kActIn, int kActGate>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 gru_bwd_kernel(const float* __restrict__ dy, long long dy_st, long long dy_sb,
                const float* __restrict__ acts, const float* __restrict__ hprev,
                const float* __restrict__ mask, long long m_st, long long m_sb,
-               const float* __restrict__ w, float* __restrict__ dx3,
-               int T, int B, int H, int reverse) {
-  extern __shared__ float smem[];
-  float* DH = smem;              // [H]  gradient carried into the step's carry
-  float* dh = DH + H;            // [H]  gradient of the step's new state
-  float* dcand = dh + H;         // [H]  candidate pre-activation gradient
-  float* drh = dcand + H;        // [H]  gradient of r * h_prev
-  float* dg = drh + H;           // [2H] gate pre-activation gradients
-  const int b = blockIdx.x;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
+               const float* __restrict__ w, float* dx3, float* __restrict__ dw,
+               float* wslices, float* dwacc, unsigned* counter,
+               unsigned long long* phase_ns,
+               int T, int B, int H, int reverse, int gpb, int w_smem, int dw_smem) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int tid = threadIdx.x;
+  const int nblk = gridDim.x;
+  const int groups = (H + kUnits - 1) / kUnits;
   const long long H3 = 3LL * H;
+  const long long slice = 12LL * H;
+  const long long state = static_cast<long long>(kState) * B;
+  const long long per_group = (w_smem ? slice : 0) + (dw_smem ? slice : 0) + state;
+  float* red = smem + gpb * per_group;
+  GridBarrier bar{counter, 0};
+  // block 0's clock at each step's start and phases' ends, when asked
+  const bool clocked = phase_ns != nullptr && blockIdx.x == 0 && tid == 0;
+  // unit group gl's rows of w and dW ([3H][4]: W[j][c] = w[4g + c, j]) and
+  // its state: DH, dh, drh, h_prev and r * h_prev, each [B][4]
+  auto W = [&](int gl) {
+    return w_smem ? smem + gl * per_group : wslices + (blockIdx.x + gl * nblk) * slice;
+  };
+  auto DW = [&](int gl) {
+    return dw_smem ? smem + gl * per_group + (w_smem ? slice : 0)
+                   : dwacc + (blockIdx.x + gl * nblk) * slice;
+  };
+  auto DH = [&](int gl) { return smem + gl * per_group + (per_group - state); };
+  auto DHN = [&](int gl) { return DH(gl) + 4LL * B; };
+  auto DRH = [&](int gl) { return DH(gl) + 8LL * B; };
+  auto HP = [&](int gl) { return DH(gl) + 12LL * B; };
+  auto RHP = [&](int gl) { return DH(gl) + 16LL * B; };
 
-  for (int j = threadIdx.x; j < H; j += blockDim.x) DH[j] = 0.0f;
+  // the block's rows of w, zeroed dW rows and state; units past H are 0
+  for (int gl = 0; gl < gpb; ++gl) {
+    const int g = blockIdx.x + gl * nblk;
+    if (g >= groups) break;
+    float* wg = W(gl);
+    float* dwg = DW(gl);
+    for (long long i = tid; i < slice; i += kThreads) {
+      const int c = static_cast<int>(i / H3), k = kUnits * g + c;
+      const long long j = i % H3;
+      if (k >= H) {
+        wg[j * 4 + c] = 0.0f;
+      } else if (w_smem) {
+        cp_async4(wg + j * 4 + c, w + k * H3 + j);   // all of a thread's in flight at once
+      } else {
+        wg[j * 4 + c] = w[k * H3 + j];
+      }
+      dwg[j * 4 + c] = 0.0f;
+    }
+    float* st = DH(gl);
+    for (long long i = tid; i < state; i += kThreads) st[i] = 0.0f;
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
   __syncthreads();
 
   for (int s = 0; s < T; ++s) {
+    if (clocked) phase_ns[4 * s] = global_ns();
     const int t = reverse ? s : T - 1 - s;
-    const long long row = static_cast<long long>(t) * B + b;
-    const float m = mask[t * m_st + b * m_sb];
-    const float* a = acts + row * H3;          // [u | r | c]
-    const float* hp = hprev + row * H;
-    const float* dyt = dy + t * dy_st + b * dy_sb;
+    const long long tB = static_cast<long long>(t) * B;
+    float* dxt = dx3 + tB * H3;
 
-    for (int j = threadIdx.x; j < H; j += blockDim.x) {
-      const float d = m * (DH[j] + dyt[j]);
-      const float u = a[j], c = a[2 * H + j];
-      dh[j] = d;
-      dcand[j] = d * (1.0f - u) * dact_f32(kActIn, c);
-      dg[j] = d * (hp[j] - c) * dact_f32(kActGate, u);
+    // 1: dh, the update-gate and candidate gradients of the owned units
+    for (int gl = 0; gl < gpb; ++gl) {
+      const int g = blockIdx.x + gl * nblk;
+      if (g >= groups) break;
+      const float* dh_in = DH(gl);
+      float* dhn = DHN(gl);
+      float* hps = HP(gl);
+      float* rhps = RHP(gl);
+      for (int i = tid; i < 4 * B; i += kThreads) {
+        const int b = i / 4, k = kUnits * g + i % 4;
+        if (k >= H) continue;
+        const long long row = tB + b;
+        const float m = mask[t * m_st + b * m_sb];
+        const float* a = acts + row * H3;          // [u | r | c]
+        const float u = a[k], r = a[H + k], c = a[2 * H + k];
+        const float hp = hprev[row * H + k];
+        const float d = m * (dh_in[i] + dy[t * dy_st + b * dy_sb + k]);
+        dhn[i] = d;
+        hps[i] = hp;
+        rhps[i] = r * hp;
+        __stcg(dxt + b * H3 + k, d * (hp - c) * dact_f32(kActGate, u));
+        __stcg(dxt + b * H3 + 2 * H + k, d * (1.0f - u) * dact_f32(kActIn, c));
+      }
     }
-    __syncthreads();
+    bar.sync();
+    if (clocked) phase_ns[4 * s + 1] = global_ns();
 
-    // drh[k] = sum_j dcand[j] * w[k, 2H + j]: one warp per row k of w
-    for (int k = warp; k < H; k += nwarps) {
-      const float* wk = w + k * H3 + 2 * H;
-      float part = 0.0f;
-      for (int j = lane; j < H; j += 32) part = fmaf(dcand[j], wk[j], part);
-      part = warp_sum(part);
-      if (lane == 0) drh[k] = part;
+    // 2: drh = dcand . w[k, 2H:]^T and the reset-gate gradient;
+    //    dW[k, 2H:] += (r * h_prev)^T . dcand
+    for (int gl = 0; gl < gpb; ++gl) {
+      const int g = blockIdx.x + gl * nblk;
+      if (g >= groups) break;
+      float* drh = DRH(gl);
+      const float* hps = HP(gl);
+      product_colsum4<2, 16>(dxt + 2 * H, H3, B, H, W(gl) + 8LL * H, RHP(gl),
+                             DW(gl) + 8LL * H, red, [&](int b, int c, float v) {
+                               const int i = b * 4 + c, k = kUnits * g + c;
+                               drh[i] = v;
+                               if (k >= H) return;
+                               const float r = acts[(tB + b) * H3 + H + k];
+                               __stcg(dxt + b * H3 + H + k, v * hps[i] * dact_f32(kActGate, r));
+                             });
     }
-    __syncthreads();
+    bar.sync();
+    if (clocked) phase_ns[4 * s + 2] = global_ns();
 
-    float* dxt = dx3 + row * H3;
-    for (int j = threadIdx.x; j < H; j += blockDim.x) {
-      const float r = a[H + j];
-      const float dgr = drh[j] * hp[j] * dact_f32(kActGate, r);
-      dg[H + j] = dgr;
-      dxt[j] = dg[j];
-      dxt[H + j] = dgr;
-      dxt[2 * H + j] = dcand[j];
+    // 3: DH = dh u + drh r + dg . w[k, :2H]^T + (1 - m) DH;
+    //    dW[k, :2H] += h_prev^T . dg
+    for (int gl = 0; gl < gpb; ++gl) {
+      const int g = blockIdx.x + gl * nblk;
+      if (g >= groups) break;
+      float* dh = DH(gl);
+      const float* dhn = DHN(gl);
+      const float* drh = DRH(gl);
+      product_colsum4<4, 16>(dxt, H3, B, 2 * H, W(gl), HP(gl), DW(gl), red,
+                             [&](int b, int c, float v) {
+                               const int i = b * 4 + c, k = kUnits * g + c;
+                               if (k >= H) return;
+                               const float* a = acts + (tB + b) * H3;
+                               const float m = mask[t * m_st + b * m_sb];
+                               dh[i] = dhn[i] * a[k] + drh[i] * a[H + k] + v
+                                       + (1.0f - m) * dh[i];
+                             });
     }
-    __syncthreads();
+    if (clocked) phase_ns[4 * s + 3] = global_ns();
+  }
 
-    // DH[k] = dh[k] u[k] + drh[k] r[k] + sum_j dg[j] w[k, j] + (1 - m) DH[k]
-    for (int k = warp; k < H; k += nwarps) {
-      const float* wk = w + k * H3;
-      float part = 0.0f;
-      for (int j = lane; j < 2 * H; j += 32) part = fmaf(dg[j], wk[j], part);
-      part = warp_sum(part);
-      if (lane == 0) DH[k] = dh[k] * a[k] + drh[k] * a[H + k] + part + (1.0f - m) * DH[k];
+  // dW: the block's rows, written once
+  for (int gl = 0; gl < gpb; ++gl) {
+    const int g = blockIdx.x + gl * nblk;
+    if (g >= groups) break;
+    const float* dwg = DW(gl);
+    for (long long i = tid; i < slice; i += kThreads) {
+      const int c = static_cast<int>(i / H3), k = kUnits * g + c;
+      const long long j = i % H3;
+      if (k < H) dw[k * H3 + j] = dwg[j * 4 + c];
     }
-    __syncthreads();
   }
 }
 
 template <int kActIn, int kActGate>
 cudaError_t launch(const float* dy, long long dy_st, long long dy_sb, const float* acts,
                    const float* hprev, const float* mask, long long m_st, long long m_sb,
-                   const float* w, float* dx3, int T, int B, int H, int reverse,
-                   cudaStream_t st) {
-  const size_t smem = 6 * static_cast<size_t>(H) * sizeof(float);
-  cudaError_t err = allow_smem(gru_bwd_kernel<kActIn, kActGate>, smem);
-  if (err != cudaSuccess || T <= 0 || B <= 0 || H <= 0) return err;
-  gru_bwd_kernel<kActIn, kActGate><<<B, kThreads, smem, st>>>(
-      dy, dy_st, dy_sb, acts, hprev, mask, m_st, m_sb, w, dx3, T, B, H, reverse);
+                   const float* w, float* dx3, float* dw, float* wslices, float* dwacc,
+                   unsigned* counter, unsigned long long* phase_ns, int T, int B, int H,
+                   int reverse, int num_sms, int w_smem, int dw_smem, cudaStream_t st) {
+  // unit groups of 4 hidden units, one block per SM up to one per group
+  // (mirrored by paddle_tpu_torch/ops/fused_gru.py grid_plan)
+  const int groups = (H + kUnits - 1) / kUnits;
+  const int blocks = groups < num_sms ? groups : num_sms;
+  const int gpb = (groups + blocks - 1) / blocks;
+  const size_t smem = bwd_smem_floats(B, H, gpb, w_smem, dw_smem) * sizeof(float);
+  if (smem > kSmemLimit || (!w_smem && wslices == nullptr) || (!dw_smem && dwacc == nullptr))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaMemsetAsync(counter, 0, sizeof(unsigned), st);
+  if (err != cudaSuccess) return err;
+  err = launch_cooperative(gru_bwd_kernel<kActIn, kActGate>, blocks, smem, st,
+                           dy, dy_st, dy_sb, acts, hprev, mask, m_st, m_sb, w, dx3, dw,
+                           wslices, dwacc, counter, phase_ns, T, B, H, reverse, gpb, w_smem,
+                           dw_smem);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
@@ -136,8 +257,11 @@ template <int kActIn = -1>
 cudaError_t launch_acts(int act_in, int act_gate, const float* dy, long long dy_st,
                         long long dy_sb, const float* acts, const float* hprev,
                         const float* mask, long long m_st, long long m_sb, const float* w,
-                        float* dx3, int T, int B, int H, int reverse, cudaStream_t st) {
-#define GRU_BWD_ARGS dy, dy_st, dy_sb, acts, hprev, mask, m_st, m_sb, w, dx3, T, B, H, reverse, st
+                        float* dx3, float* dw, float* wslices, float* dwacc, unsigned* counter,
+                        unsigned long long* phase_ns, int T, int B, int H, int reverse,
+                        int num_sms, int w_smem, int dw_smem, cudaStream_t st) {
+#define GRU_BWD_ARGS dy, dy_st, dy_sb, acts, hprev, mask, m_st, m_sb, w, dx3, dw, wslices, \
+                     dwacc, counter, phase_ns, T, B, H, reverse, num_sms, w_smem, dw_smem, st
   if constexpr (kActIn < 0) {
     switch (act_in) {
       case 0: return launch_acts<0>(act_in, act_gate, GRU_BWD_ARGS);
@@ -162,30 +286,31 @@ cudaError_t launch_acts(int act_in, int act_gate, const float* dy, long long dy_
 // strides (in elements; the last dimension is contiguous). acts [T, B, 3H],
 // hprev [T, B, H] (the residuals of gru_fwd_train), w [H, 3H], and the
 // outputs dx3 [T, B, 3H] and dw [H, 3H] are contiguous. `reverse` is the
-// forward's, and so are act_in and act_gate (act_f32 codes). Launches the
-// reversed-time recurrence and then the dW contraction on `stream`; returns
-// cudaGetLastError().
+// forward's, and so are act_in and act_gate (act_f32 codes). num_sms is the
+// card's SM count; w_smem and dw_smem say whether a block keeps its rows of
+// w and of dW in shared memory, and where not, wslices and dwacc (each
+// ceil(H / 4) * 12 H floats) hold them in device memory; counter is one
+// unsigned of scratch. phase_ns, when not null ([T][4] unsigned 64-bit
+// integers), receives block 0's clock in ns at each step's start and at
+// the ends of its phases 1 and 2 (each with its barrier) and 3.
+// Launches the whole backward, dW included, on
+// `stream` (cooperatively); returns the launch's error,
+// cudaErrorCooperativeLaunchTooLarge, or cudaErrorInvalidValue for a
+// shared memory past what a block may hold.
 extern "C" int gru_bwd(const void* dy, long long dy_st, long long dy_sb,
                        const void* acts, const void* hprev,
                        const void* mask, long long m_st, long long m_sb,
-                       const void* w, void* dx3, void* dw,
-                       int T, int B, int H, int reverse, int act_in, int act_gate,
+                       const void* w, void* dx3, void* dw, void* wslices, void* dwacc,
+                       void* counter, void* phase_ns, int T, int B, int H, int reverse,
+                       int act_in, int act_gate, int num_sms, int w_smem, int dw_smem,
                        void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = launch_acts(
+  if (T < 0 || B < 0 || H <= 0) return static_cast<int>(cudaSuccess);
+  return static_cast<int>(launch_acts(
       act_in, act_gate, static_cast<const float*>(dy), dy_st, dy_sb,
       static_cast<const float*>(acts), static_cast<const float*>(hprev),
       static_cast<const float*>(mask), m_st, m_sb, static_cast<const float*>(w),
-      static_cast<float*>(dx3), T, B, H, reverse, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const float* hp = static_cast<const float*>(hprev);
-  const float* a = static_cast<const float*>(acts);
-  const float* dx = static_cast<const float*>(dx3);
-  float* dW = static_cast<float*>(dw);
-  const int N = T * B;
-  const long long H3 = 3LL * H;
-  // dWg = h_prev^T . dg (columns [0, 2H)); dWc = (r * h_prev)^T . dcand
-  err = atb(hp, H, nullptr, 0, dx, H3, dW, H3, N, H, 2 * H, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(atb(hp, H, a + H, H3, dx + 2 * H, H3, dW + 2 * H, H3, N, H, H, st));
+      static_cast<float*>(dx3), static_cast<float*>(dw), static_cast<float*>(wslices),
+      static_cast<float*>(dwacc), static_cast<unsigned*>(counter),
+      static_cast<unsigned long long*>(phase_ns), T, B, H, reverse, num_sms, w_smem, dw_smem,
+      static_cast<cudaStream_t>(stream)));
 }

@@ -1,7 +1,8 @@
 // persistent_grid.cuh — the pieces shared by the persistent, weight-
-// stationary attention-GRU training kernels (attention_gru_fwd_train.cu,
-// attention_gru_bwd.cu): a cooperative launch, a grid barrier, and the
-// block product of all B rows with a weight slice held in shared memory.
+// stationary recurrence kernels (the attention-GRU forward of
+// attention_gru_fwd.cuh, attention_gru_bwd.cu, gru_bwd.cu): a cooperative
+// launch, a grid barrier, and the block products of all B rows with a
+// weight slice held in shared memory.
 //
 // Layout every kernel here keeps: 256 threads (8 warps) a block, one block
 // on each SM it uses. A block product walks the rows in tiles of 64, eight
@@ -28,6 +29,13 @@ constexpr int kUnits = 4;                         // hidden units in a unit grou
 constexpr int kERows = 8;                         // rows of wctx in an e-group (backward)
 // the shared memory a block may opt into on sm_90 (227 KB)
 constexpr size_t kSmemLimit = 232448;
+
+// The card's nanosecond clock (for phase timings).
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
 
 __device__ __forceinline__ unsigned ld_acquire_gpu(const unsigned* p) {
   unsigned v;
@@ -152,6 +160,106 @@ __device__ __forceinline__ void block_product(float* out, int ldo, int nrows,
       const int r = f / N, c = f % N;
       if (row0 + r < nrows) out[(row0 + r) * ldo + c] = (&acc[0][0])[j];
     }
+  }
+}
+
+// For a slice of 4 output columns (a unit group), two contractions of the
+// same rows X [nrows, K] at once:
+//   out(b, c) = sum_k X[b, k] W[k][c]     handed to epi(b, c, value), once
+//                                         for every b < nrows, c < 4;
+//   DW[k][c] += sum_b S[b][c] X[b, k]      for every k < K.
+// X was written by other blocks of this launch, so it is read through L2;
+// W and DW ([K][4]) lie in shared memory or in device memory that only
+// this block touches, S ([nrows][4]) in shared memory. Thread tid takes
+// kCols columns k = kb + tid + 256 u of each batch of 256 kCols (a warp
+// reads 32 neighbouring floats of a row), holds their W and DW rows in
+// registers over all the rows, and adds the rows kRows at a time, in
+// order; every element of DW has one owner. All kCols x kRows loads of a
+// chunk are issued before any is used, and nothing is stored to device
+// memory inside the loop, so they stay in flight together: a chunk costs
+// one L2 round trip and its FMAs, so more rows a chunk mean fewer round
+// trips a phase (as many as the registers hold). The product's partial
+// sums are summed over the lanes by the butterfly and over the column
+// batches and the warps through `red` ([kWarps][kRowTile][4] floats), in
+// a fixed order: two launches give the same bits. Returns with the block
+// synchronised.
+template <int kCols, int kRows, typename Epi>
+__device__ __forceinline__ void product_colsum4(const float* X, long long ldx, int nrows, int K,
+                                                const float* W, const float* S, float* DW,
+                                                float* red, Epi epi) {
+  static_assert(kRowTile % kRows == 0 && kRows * 4 % 32 == 0, "whole chunks, whole lanes");
+  constexpr int kPer = kRows * 4 / 32;            // sums a lane holds after the butterfly
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const float4* W4 = reinterpret_cast<const float4*>(W);
+  const float4* S4 = reinterpret_cast<const float4*>(S);
+  float4* DW4 = reinterpret_cast<float4*>(DW);
+  for (int tile0 = 0; tile0 < nrows; tile0 += kRowTile) {
+    const int rows = min(kRowTile, nrows - tile0);
+    for (int kb = 0; kb < K; kb += kThreads * kCols) {
+      bool kok[kCols];
+      float w[kCols][4], d[kCols][4];
+#pragma unroll
+      for (int u = 0; u < kCols; ++u) {
+        const int k = kb + tid + kThreads * u;
+        kok[u] = k < K;
+        const float4 wv = kok[u] ? W4[k] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        const float4 dv = kok[u] ? DW4[k] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        w[u][0] = wv.x; w[u][1] = wv.y; w[u][2] = wv.z; w[u][3] = wv.w;
+        d[u][0] = dv.x; d[u][1] = dv.y; d[u][2] = dv.z; d[u][3] = dv.w;
+      }
+      const float* xk = X + kb + tid;
+      for (int r0 = 0; r0 < rows; r0 += kRows) {
+        const int b0 = tile0 + r0;
+        float x[kCols][kRows];
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          const bool ok = b0 + r < nrows;
+          const float* xr = xk + static_cast<long long>(ok ? b0 + r : 0) * ldx;
+#pragma unroll
+          for (int u = 0; u < kCols; ++u)
+            x[u][r] = ok && kok[u] ? __ldcg(xr + kThreads * u) : 0.0f;
+        }
+        float acc[kRows][4];
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          const float4 sv = b0 + r < nrows ? S4[b0 + r] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          const float sr[4] = {sv.x, sv.y, sv.z, sv.w};
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            float a = 0.0f;
+#pragma unroll
+            for (int u = 0; u < kCols; ++u) {
+              a = fmaf(x[u][r], w[u][c], a);
+              d[u][c] = fmaf(sr[c], x[u][r], d[u][c]);
+            }
+            acc[r][c] = a;
+          }
+        }
+        Halve<kRows * 4, 16>::run(&acc[0][0], lane);
+        // lane L now holds the warp's sums of rows r0 + f / 4, columns f % 4,
+        // for f = kPer L + j
+#pragma unroll
+        for (int j = 0; j < kPer; ++j) {
+          float* rp = red + (warp * kRowTile + r0) * 4 + kPer * lane + j;
+          *rp = kb == 0 ? (&acc[0][0])[j] : *rp + (&acc[0][0])[j];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kCols; ++u) {
+        const int k = kb + tid + kThreads * u;
+        if (kok[u]) DW4[k] = make_float4(d[u][0], d[u][1], d[u][2], d[u][3]);
+      }
+    }
+    __syncthreads();
+    for (int i = tid; i < rows * 4; i += kThreads) {
+      float v = 0.0f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) v += red[w * kRowTile * 4 + i];
+      epi(tile0 + i / 4, i % 4, v);
+    }
+    __syncthreads();
   }
 }
 

@@ -12,7 +12,8 @@ Layout contracts (from config_parser LstmLayer/GatedRecurrentLayer):
 ``lstmemory`` and ``gated_recurrent`` decide from the config and the
 shapes, before anything runs, as the JAX layers do with their kernels'
 ``supported()`` gates:
-- when the ops module's ``supported(acts, H)`` holds, the layer calls its
+- when the ops module's ``supported(acts, H)`` holds (the GRU's also takes
+  the batch B, which bounds its backward's grid), the layer calls its
   fused op (:func:`~paddle_tpu_torch.ops.fused_lstm.fused_lstm`,
   :func:`~paddle_tpu_torch.ops.fused_gru.fused_gru`): on the card that
   launches the kernels (the training forward and backward when a gradient
@@ -96,7 +97,7 @@ def gated_recurrent_layer(cfg: LayerConfig, inputs: List[Argument], ctx: LayerCo
     w, bias = _weights(cfg, ctx, 3)
     x = a.value if bias is None else a.value + bias             # [B, T, 3H]
     x3, mask, acts = x.transpose(0, 1), _time_major_mask(a, x), _gru_acts(cfg)
-    if fg.supported(acts, cfg.size):
+    if fg.supported(acts, cfg.size, x.shape[0]):
         ys = fused_gru(x3, mask, w, reverse=cfg.reversed, acts=acts)
     else:
         fg.EAGER_ROUTES += 1

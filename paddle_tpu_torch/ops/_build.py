@@ -21,13 +21,14 @@ and counts the launches that succeeded.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
@@ -37,7 +38,10 @@ BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "paddle_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 HEADERS = ("common.cuh", "atb_gemm.cuh", "flash_attn.cuh", "flash_mma.cuh",
-           "persistent_grid.cuh")
+           "persistent_grid.cuh", "attention_gru_fwd.cuh")
+# what the persistent grids (csrc/persistent_grid.cuh) are planned for
+SMEM_LIMIT = 232448     # bytes of shared memory a block may opt into on sm_90
+H100_SMS = 132          # the SM count taken where no card is present
 
 PTR = ctypes.c_void_p
 I64 = ctypes.c_longlong
@@ -147,6 +151,21 @@ def build(kernels: List[CudaKernel]) -> Dict[str, float]:
         if failed:
             raise RuntimeError("kernel build failed: " + "\n".join(failed))
         return seconds
+
+
+@functools.lru_cache(maxsize=None)
+def _sms_of(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def card_sms(device: Optional[torch.device] = None) -> int:
+    """The card's SM count (the current card by default); the H100's
+    where no card is present."""
+    if not torch.cuda.is_available():
+        return H100_SMS
+    if device is None or device.index is None:
+        return _sms_of(torch.cuda.current_device())
+    return _sms_of(device.index)
 
 
 def ptr(t: torch.Tensor) -> int:

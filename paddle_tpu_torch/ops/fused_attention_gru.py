@@ -4,7 +4,8 @@ Port of ``paddle_tpu/ops/pallas_attention_gru.py``: ``fused_attention_gru``
 with its inference kernel (``_fwd_kernel_light`` ->
 ``csrc/attention_gru_fwd.cu::attention_gru_fwd``), its training forward
 that also saves the residuals (``_fwd_kernel`` ->
-``csrc/attention_gru_fwd_train.cu``)
+``csrc/attention_gru_fwd_train.cu``; the two share one body,
+``csrc/attention_gru_fwd.cuh``)
 and its backward (``_bwd_kernel`` -> ``csrc/attention_gru_bwd.cu``), and
 the one-step form ``attention_gru_step``, which is the serve decode step.
 Per decoder step:
@@ -30,22 +31,24 @@ dW_gru and d_enc_vec are products of those streams, taken with
 ``torch.matmul`` / ``torch.einsum`` as the JAX package leaves them to XLA.
 The masks get no gradient.
 
-The training pair runs as persistent, cooperative grids (one block on each
+All three kernels run as persistent, cooperative grids (one block on each
 SM, its weight slices held in shared memory for the whole launch; see
 ``csrc/persistent_grid.cuh``). :func:`supported` states the shapes they
 take. The decoder route (``graph/fused_decoder.py``) asks it before any
-launch and runs the recurrent group's loop for anything else, counted in
-``EAGER_ROUTES``; the wrappers raise on a shape it refuses.
+launch and runs the recurrent group's loop for anything else, and the
+serve step (:func:`attention_gru_step`) asks it and runs the plain step;
+both count that in ``EAGER_ROUTES``. The wrappers raise on a shape it
+refuses.
 """
 
 from __future__ import annotations
 
-import functools
 from typing import Dict, Optional, Tuple
 
 import torch
 
-from paddle_tpu_torch.ops._build import I32, I64, PTR, CudaKernel, check, ptr
+from paddle_tpu_torch.ops._build import (
+    I32, I64, PTR, SMEM_LIMIT, CudaKernel, card_sms, check, ptr)
 from paddle_tpu_torch.ops.fused_gru import KERNEL_ACTS, _last_dim_contiguous, gru_cell
 
 Tensor = torch.Tensor
@@ -57,7 +60,12 @@ _FWD_ARGS = [PTR, I64, I64,            # ep, its time and batch strides
              PTR, PTR, PTR,            # wa, ba, v
              PTR, PTR, PTR]            # wctx, wg, ys
 _DIMS = [I32, I32, I32, I32, I32]      # Td, B, Te, D, E
-ATTENTION_GRU_FWD = CudaKernel("attention_gru_fwd.cu", "attention_gru_fwd", _FWD_ARGS + _DIMS)
+_LIGHT_ARGS = (_FWD_ARGS + [PTR, PTR, PTR, PTR, PTR]   # scratch: h, m, ctx, r*h, the counter
+               + _DIMS + [I32])                        # num_sms
+ATTENTION_GRU_FWD = CudaKernel("attention_gru_fwd.cu", "attention_gru_fwd", _LIGHT_ARGS)
+# kernel 4's launch with no step: its weight-slice load alone (chip_smoke.py)
+ATTENTION_GRU_FWD_SLICES = CudaKernel("attention_gru_fwd.cu", "attention_gru_fwd_slices",
+                                      _LIGHT_ARGS)
 ATTENTION_GRU_FWD_TRAIN = CudaKernel(
     "attention_gru_fwd_train.cu", "attention_gru_fwd_train",
     _FWD_ARGS + [PTR, PTR, PTR, PTR, PTR]   # hprev, acts, alpha, ctxs, m
@@ -77,17 +85,16 @@ ATTENTION_GRU_BWD = CudaKernel(
     + _DIMS + [I32])           # num_sms
 KERNELS = (ATTENTION_GRU_FWD, ATTENTION_GRU_FWD_TRAIN, ATTENTION_GRU_BWD)
 
-# Decoder groups that matched the template but ran the recurrent group's
-# loop because supported() refused their shapes (graph/fused_decoder.py).
+# Decoder groups that matched the template and serve steps that ran their
+# plain computation because supported() refused their shapes
+# (graph/fused_decoder.py, attention_gru_step).
 EAGER_ROUTES = 0
 
-# How kernels 5 and 6 cut the work: csrc/persistent_grid.cuh make_plan and
-# the shared-memory sums of attention_gru_fwd_train.cu and
-# attention_gru_bwd.cu, mirrored here.
+# How kernels 4-6 cut the work: csrc/persistent_grid.cuh make_plan and
+# the shared-memory sums of attention_gru_fwd.cuh and attention_gru_bwd.cu,
+# mirrored here.
 UNITS = 4               # hidden units in a unit group: a block's slice of D
 E_ROWS = 8              # rows of wctx in an e-group (the backward's d_ctx)
-SMEM_LIMIT = 232448     # bytes of shared memory a block may opt into on sm_90
-H100_SMS = 132          # the SM count taken where no card is present
 DWA_STAGE = 4 * 32 * (32 + 64)   # bytes: the backward's staged dWa operands
 
 
@@ -95,23 +102,10 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-@functools.lru_cache(maxsize=None)
-def _sms_of(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def card_sms(device: Optional[torch.device] = None) -> int:
-    """The card's SM count (the current card by default); the H100's
-    where no card is present."""
-    if not torch.cuda.is_available():
-        return H100_SMS
-    if device is None or device.index is None:
-        return _sms_of(torch.cuda.current_device())
-    return _sms_of(device.index)
-
-
 def grid_plan(B: int, Te: int, D: int, E: int, sms: int) -> Dict[str, int]:
-    """Blocks, shared memory per block and work split of kernels 5 and 6.
+    """Blocks, shared memory per block and work split of kernels 4-6
+    (kernel 4 is kernel 5's body without the residuals: the same grid and
+    ``fwd_smem_bytes``).
 
     ceil(D / 4) unit groups of 4 hidden units go to min(sms, groups)
     blocks, one to an SM, and each block keeps its groups' weight slices
@@ -140,31 +134,28 @@ def grid_plan(B: int, Te: int, D: int, E: int, sms: int) -> Dict[str, int]:
 
 
 def grid_barriers(Td: int) -> Tuple[int, int]:
-    """The grid barriers one launch of kernel 5 and of kernel 6 passes."""
+    """The grid barriers one launch of kernel 4 or 5, and of kernel 6, passes."""
     return 4 * Td - 1, 4 * Td
 
 
 def supported(B: int, Te: int, D: int, E: int, num_sms: Optional[int] = None) -> bool:
-    """Whether kernels 5 and 6 take a decoder of batch B over Te encoder
+    """Whether kernels 4-6 take a decoder of batch B over Te encoder
     positions, width D and encoder width E.
 
     Every dimension is at least 1 and the shared memory of a block of each
-    kernel is within SMEM_LIMIT; the grid is at most one block per SM, so
-    the card holds it at once. The route also launches the inference kernel
-    4 when no gradient is wanted, so its shared memory must fit too.
-    ``num_sms`` defaults to the current card's count (132 where there is no
-    card)."""
+    kernel is within SMEM_LIMIT (kernel 4's is kernel 5's); the grid is at
+    most one block per SM, so the card holds it at once. ``num_sms``
+    defaults to the current card's count (132 where there is no card)."""
     if min(B, Te, D, E) < 1:
         return False
     plan = grid_plan(B, Te, D, E, card_sms() if num_sms is None else num_sms)
-    light = 4 * (7 * D + E + Te)
-    return max(plan["fwd_smem_bytes"], plan["bwd_smem_bytes"], light) <= SMEM_LIMIT
+    return max(plan["fwd_smem_bytes"], plan["bwd_smem_bytes"]) <= SMEM_LIMIT
 
 
 def _check_supported(B, Te, D, E, dev):
     if not supported(B, Te, D, E, card_sms(dev)):
         raise ValueError(
-            f"the attention-GRU training kernels do not take B={B}, Te={Te}, D={D}, "
+            f"the attention-GRU kernels do not take B={B}, Te={Te}, D={D}, "
             f"E={E} (fused_attention_gru.supported: every dimension at least 1 and "
             f"a block's shared memory within {SMEM_LIMIT} bytes)")
 
@@ -233,9 +224,21 @@ def _check_operands(ep, ev, em, xw, dmask, h0, wa, ba, v, wctx, wg, acts):
     return Td, B, Te, D, E, dev
 
 
-def _launch_fwd(ep, ev, em, xw, dmask, h0, wa, ba, v, wctx, wg, acts, residuals):
+def _light_scratch(B, D, E, dev):
+    """Pointers to kernel 4's scratch: the carry [B, D], m [B, D], ctx
+    [B, E], r*h [B, D] and the barrier's counter (4 bytes, zeroed by the
+    launch), in one allocation (the serve step's host time counts)."""
+    flat = torch.empty(B * (3 * D + E) + 1, device=dev)
+    base, f = flat.data_ptr(), flat.element_size()
+    h, m, rh, ctx, counter = (base + f * B * o for o in (0, D, 2 * D, 3 * D, 3 * D + E))
+    return flat, (h, m, ctx, rh, counter)
+
+
+def _launch_fwd(ep, ev, em, xw, dmask, h0, wa, ba, v, wctx, wg, acts, residuals,
+                kernel=ATTENTION_GRU_FWD):
     Td, B, Te, D, E, dev = _check_operands(ep, ev, em, xw, dmask, h0, wa, ba, v,
                                            wctx, wg, acts)
+    _check_supported(B, Te, D, E, dev)
     ys = torch.empty((Td, B, D), device=dev)
     args = [ptr(ep), ep.stride(0), ep.stride(1),
             ptr(ev), ev.stride(0), ev.stride(1),
@@ -244,9 +247,9 @@ def _launch_fwd(ep, ev, em, xw, dmask, h0, wa, ba, v, wctx, wg, acts, residuals)
             ptr(wa), ptr(ba), ptr(v),
             ptr(wctx), ptr(wg), ptr(ys)]
     if not residuals:
-        ATTENTION_GRU_FWD.launch(dev, *args, Td, B, Te, D, E)
+        flat, scratch = _light_scratch(B, D, E, dev)    # flat: held until the launch is queued
+        kernel.launch(dev, *args, *scratch, Td, B, Te, D, E, card_sms(dev))
         return ys
-    _check_supported(B, Te, D, E, dev)
     saved = (torch.empty((Td, B, D), device=dev), torch.empty((Td, B, 3 * D), device=dev),
              torch.empty((Td, B, Te), device=dev), torch.empty((Td, B, E), device=dev),
              torch.empty((Td, B, D), device=dev))
@@ -347,7 +350,16 @@ def attention_gru_step(h_prev, ep, ev, em, xw_t, wa, ba, v, wctx, wg,
                        acts: Tuple[str, str] = KERNEL_ACTS) -> Tensor:
     """ONE decoder step, the JAX package's signature: h_prev [B, D],
     xw_t [B, 3D], the rest as :func:`fused_attention_gru`; returns h' [B, D].
-    On the card this is one launch of the kernel with Td = 1."""
+
+    The serve decode step. It asks :func:`supported` first, as the decoder
+    route does: a shape it refuses runs the plain step, counted in
+    ``EAGER_ROUTES``. Otherwise, on the card, this is one launch of kernel 4
+    with Td = 1 (on the CPU the kernel's plain version)."""
+    global EAGER_ROUTES
+    Te, B, D = ep.shape
+    if not supported(B, Te, D, ev.shape[2], card_sms(ep.device)):
+        EAGER_ROUTES += 1
+        return _step(h_prev, ep, ev, em, xw_t, wa, ba, v, wctx, wg, acts)
     if ep.device.type == "cpu":
         return _step(h_prev, ep, ev, em, xw_t, wa, ba, v, wctx, wg, acts)
     dmask = torch.ones((1, h_prev.shape[0], 1), device=h_prev.device)

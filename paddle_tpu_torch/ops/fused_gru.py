@@ -19,23 +19,37 @@ anything they do not take: the training pair when grad mode is on and an
 input requires a gradient (a ``torch.autograd.Function``), the light
 forward otherwise. For a CPU tensor it runs :func:`gru_forward_reference`,
 and autograd through it gives the gradients.
+
+The backward runs as a persistent, cooperative grid (one block on each SM,
+its rows of w and of dW in shared memory for the whole launch; see
+``csrc/gru_bwd.cu``), whose plan :func:`grid_plan` mirrors and
+:func:`supported` bounds.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
-from paddle_tpu_torch.ops._build import I32, I64, PTR, CudaKernel, check, ptr
+from paddle_tpu_torch.ops._build import (
+    I32, I64, PTR, SMEM_LIMIT, CudaKernel, card_sms, check, ptr)
 from paddle_tpu_torch.ops.activations import apply_activation
 
 Tensor = torch.Tensor
 KERNEL_ACTS = ("tanh", "sigmoid")    # the default (act_in, act_gate)
 # the activation codes of csrc/common.cuh act_f32
 ACT_CODES = {"tanh": 0, "sigmoid": 1, "relu": 2, "linear": 3}
-# the backward keeps 6 H floats in shared memory, at most 232,448 bytes
+# the widest GRU the gate takes (kernels 1 and 2 hold 3 H floats a block,
+# within it); kernel 3's grid bounds H and the batch together (grid_plan)
 MAX_H = 232448 // (6 * 4)
+# How kernel 3 cuts the work (csrc/gru_bwd.cu): unit groups of UNITS hidden
+# units, one block per SM up to one per group, each block owning its
+# groups' rows of w and dW ([3H][4] floats each) and, per batch row, STATE
+# floats of each group, beside the cross-warp sums of one 64-row tile.
+UNITS = 4
+STATE = 20
+RED_FLOATS = 8 * 64 * 4
 # layer calls that ran the eager time loop because supported() refused
 EAGER_ROUTES = 0
 
@@ -54,8 +68,10 @@ GRU_BWD = CudaKernel(
     [PTR, I64, I64,                  # dy, its time and batch strides
      PTR, PTR,                       # acts, hprev
      PTR, I64, I64,                  # mask
-     PTR, PTR, PTR]                  # w, dx3, dw
-    + _TAIL,
+     PTR, PTR, PTR,                  # w, dx3, dw
+     PTR, PTR, PTR,                  # scratch: w's and dW's rows where not in shared memory, the counter
+     PTR]                            # phase clocks [T][4] int64, or null
+    + _TAIL + [I32, I32, I32],       # num_sms, w_smem, dw_smem
 )
 KERNELS = (GRU_FWD, GRU_FWD_TRAIN, GRU_BWD)
 
@@ -98,10 +114,55 @@ def gru_forward_reference(x3: Tensor, mask: Tensor, w: Tensor, reverse: bool = F
     return ys, torch.stack(saved), torch.stack(hprev)
 
 
-def supported(acts, H: int) -> bool:
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def grid_plan(B: int, H: int, sms: int) -> Dict[str, int]:
+    """Blocks, shared memory per block and placement of kernel 3.
+
+    ceil(H / 4) unit groups go to min(sms, groups) blocks, one to an SM.
+    A block keeps the state of its groups' rows in shared memory, and its
+    rows of w, then of dW, there too where they fit (12 H floats each a
+    group); the rest in device memory it alone touches."""
+    groups = _cdiv(H, UNITS)
+    blocks = min(sms, groups)
+    gpb = _cdiv(groups, blocks)
+    state = 4 * (gpb * STATE * B + RED_FLOATS)
+    rows = 4 * gpb * 12 * H
+    w_in_smem = state + rows <= SMEM_LIMIT
+    dw_in_smem = state + 2 * rows <= SMEM_LIMIT
+    return dict(blocks=blocks, unit_groups_per_block=gpb,
+                smem_bytes=state + rows * (int(w_in_smem) + int(dw_in_smem)),
+                w_in_smem=int(w_in_smem), dw_in_smem=int(dw_in_smem))
+
+
+def grid_barriers(T: int) -> int:
+    """The grid barriers one launch of kernel 3 passes."""
+    return 2 * T
+
+
+def supported(acts, H: int, B: int, num_sms: Optional[int] = None) -> bool:
     """Whether kernels 1-3 take a GRU with activations ``acts`` = (act_in,
-    act_gate) and width ``H``."""
-    return len(acts) == 2 and all(a in ACT_CODES for a in acts) and 1 <= H <= MAX_H
+    act_gate), width ``H`` and batch ``B``.
+
+    Both at least 1, H at most MAX_H, and kernel 3's grid fits: the state
+    of a block's rows in shared memory (its rows of w and dW go to device
+    memory when they do not fit beside it). ``num_sms`` defaults to the
+    current card's count (132 where there is no card)."""
+    if not (len(acts) == 2 and all(a in ACT_CODES for a in acts)):
+        return False
+    if not (1 <= H <= MAX_H and B >= 1):
+        return False
+    plan = grid_plan(B, H, card_sms() if num_sms is None else num_sms)
+    return plan["smem_bytes"] <= SMEM_LIMIT
+
+
+def _check_supported(acts, B, H, dev):
+    if not supported(acts, H, B, card_sms(dev)):
+        raise ValueError(
+            f"the GRU kernels do not take B={B}, H={H} (fused_gru.supported: both at "
+            f"least 1, H <= {MAX_H}, and a block's state within {SMEM_LIMIT} bytes)")
 
 
 def _act_codes(acts) -> Tuple[int, int]:
@@ -149,7 +210,11 @@ def _last_dim_contiguous(t: Tensor) -> Tensor:
     return t if t.dim() == 0 or t.shape[-1] <= 1 or t.stride(-1) == 1 else t.contiguous()
 
 
-def _launch_bwd(dy, saved, hprev, mask, w, reverse, acts):
+def _launch_bwd(dy, saved, hprev, mask, w, reverse, acts, phase_ns=None):
+    """dx3 [T, B, 3H] and dW [H, 3H]. ``phase_ns`` (an int64 [T, 4] tensor
+    on the card, or None) receives block 0's clock in ns at each step's
+    start and at the ends of its three phases (the first two with their
+    grid barriers)."""
     T, B, H3 = saved.shape
     H = H3 // 3
     dev = saved.device
@@ -158,11 +223,28 @@ def _launch_bwd(dy, saved, hprev, mask, w, reverse, acts):
     check(dy, "dy", (T, B, H), dev, contiguous=False)
     check(saved, "acts", (T, B, H3), dev)
     check(hprev, "hprev", (T, B, H), dev)
+    check(mask, "mask", (T, B), dev, contiguous=False)
+    check(w, "w", (H, H3), dev)
+    _check_supported(acts, B, H, dev)
+    sms = card_sms(dev)
+    plan = grid_plan(B, H, sms)
     dx3 = torch.empty((T, B, H3), device=dev)
     dw = torch.empty((H, H3), device=dev)
+    rows = _cdiv(H, UNITS) * 12 * H          # every group's [3H][4] rows
+    wslices = None if plan["w_in_smem"] else torch.empty(rows, device=dev)
+    dwacc = None if plan["dw_in_smem"] else torch.empty(rows, device=dev)
+    counter = torch.empty(1, dtype=torch.int32, device=dev)
+    if phase_ns is not None and (phase_ns.device != dev or phase_ns.dtype != torch.int64
+                                 or tuple(phase_ns.shape) != (T, 4)
+                                 or not phase_ns.is_contiguous()):
+        raise ValueError(f"phase_ns must be a contiguous int64 [{T}, 4] tensor on {dev}")
     GRU_BWD.launch(dev, ptr(dy), dy.stride(0), dy.stride(1), ptr(saved), ptr(hprev),
                    ptr(mask), mask.stride(0), mask.stride(1), ptr(w), ptr(dx3), ptr(dw),
-                   T, B, H, int(bool(reverse)), *codes)
+                   None if wslices is None else ptr(wslices),
+                   None if dwacc is None else ptr(dwacc), ptr(counter),
+                   None if phase_ns is None else ptr(phase_ns),
+                   T, B, H, int(bool(reverse)), *codes, sms, plan["w_in_smem"],
+                   plan["dw_in_smem"])
     return dx3, dw
 
 
@@ -194,6 +276,7 @@ def fused_gru(x3: Tensor, mask: Tensor, w: Tensor, reverse: bool = False,
     if x3.device.type == "cpu":
         return gru_forward_reference(x3, mask, w, reverse, acts)
     if torch.is_grad_enabled() and (x3.requires_grad or w.requires_grad):
-        _check_operands(x3, mask, w, acts)
+        _, B, H, dev, _ = _check_operands(x3, mask, w, acts)
+        _check_supported(acts, B, H, dev)            # before the forward launches
         return _FusedGRU.apply(x3, mask.detach(), w, bool(reverse), tuple(acts))
     return _launch_fwd(x3, mask, w, reverse, acts, residuals=False)

@@ -27,6 +27,7 @@ import torch
 
 pytestmark = pytest.mark.gpu
 TOL = 1e-4
+GRU_ACTS = ("tanh", "sigmoid", "relu", "linear")
 
 
 @pytest.fixture
@@ -93,7 +94,9 @@ def _grad_tol(ref):
 @pytest.mark.parametrize("T,B,H", [(7, 5, 40), (1, 2, 8), (3, 2, 600), (2, 2, 2100)])
 @pytest.mark.parametrize("reverse", [False, True])
 def test_gru_training_kernels_match_plain_version(dev, T, B, H, reverse):
-    """H = 2100 puts the backward's shared memory (6 H floats) above 48 KB."""
+    """At H = 2100 a block's rows of w and of dW do not fit in its shared
+    memory (four unit groups a block): the backward keeps them in device
+    memory."""
     from paddle_tpu_torch.ops import fused_gru as fg
 
     rng = np.random.RandomState(T * 1000 + H + reverse)
@@ -120,6 +123,165 @@ def test_gru_training_kernels_match_plain_version(dev, T, B, H, reverse):
     for name, a, b in zip(("dx3", "dw"), leaves, plain):
         assert torch.isfinite(a.grad).all(), name
         assert float((a.grad - b.grad).abs().max()) <= _grad_tol(b.grad), name
+
+
+def _decode_inputs(dev, Td, Te, B, D, E, seed):
+    """Kernel 4's operands: ep and ev as transposed views of batch-major
+    [B, Te, *] buffers (as the serve step passes its slot state), ragged
+    encoder lengths with the last row all masked (B > 1), ragged dmask,
+    weights at 1/sqrt(fan_in)."""
+    rng = np.random.RandomState(seed)
+    r = lambda *s: _t(rng.randn(*s) * 0.3, dev)
+    w = lambda *s: _t(rng.randn(*s) / np.sqrt(s[0]), dev)
+    lens = rng.randint(1, Te + 1, B)
+    if B > 1:
+        lens[-1] = 0                                  # an all-masked row
+    em = _t((np.arange(Te)[:, None] < lens[None, :])[:, :, None], dev)
+    return [r(B, Te, D).transpose(0, 1), r(B, Te, E).transpose(0, 1), em, r(Td, B, 3 * D),
+            _t(rng.rand(Td, B, 1) > 0.3, dev), r(B, D), w(D, D), r(1, D), r(1, D),
+            w(E, 3 * D), w(D, 3 * D)]
+
+
+@pytest.mark.parametrize("Td", [1, 8, 32])
+@pytest.mark.parametrize("B", [1, 3, 64, 100])
+@pytest.mark.parametrize("Te", [1, 32, 128])
+def test_attention_decode_kernel_matches_plain_version(dev, Td, B, Te):
+    """Kernel 4 (the persistent grid without residuals) at the serve
+    path's widths, D = 512 and E = 1024: ys within 1e-4 of the plain
+    version, an all-masked row included; two launches give the same bits."""
+    from paddle_tpu_torch.ops import fused_attention_gru as fa
+
+    D, E = 512, 1024
+    args = _decode_inputs(dev, Td, Te, B, D, E, seed=Td * 1000 + B * 10 + Te)
+    before = fa.ATTENTION_GRU_FWD.launches
+    got = fa.fused_attention_gru(*args)
+    again = fa.fused_attention_gru(*args)
+    ref = fa.attention_gru_reference(*args)
+    torch.cuda.synchronize()
+    assert fa.ATTENTION_GRU_FWD.launches == before + 2
+    assert torch.isfinite(got).all()
+    assert float((got - ref).abs().max()) <= TOL
+    assert torch.equal(got, again)
+
+
+def test_attention_serve_step_matches_the_plain_step(dev):
+    """attention_gru_step at B = 64 (the serve path's slots): one launch of
+    kernel 4, no eager route, within 1e-4 of the plain step."""
+    from paddle_tpu_torch.ops import fused_attention_gru as fa
+
+    Te, B, D, E = 32, 64, 512, 1024
+    ep, ev, em, xw, _, h0, wa, ba, v, wctx, wg = _decode_inputs(dev, 1, Te, B, D, E, seed=9)
+    before = (fa.ATTENTION_GRU_FWD.launches, fa.EAGER_ROUTES)
+    got = fa.attention_gru_step(h0, ep, ev, em, xw[0], wa, ba, v, wctx, wg)
+    ref = fa._step(h0, ep, ev, em, xw[0], wa, ba, v, wctx, wg, fa.KERNEL_ACTS)
+    torch.cuda.synchronize()
+    assert (fa.ATTENTION_GRU_FWD.launches, fa.EAGER_ROUTES) == (before[0] + 1, before[1])
+    assert float((got - ref).abs().max()) <= TOL
+
+
+def test_attention_serve_step_takes_the_plain_step_where_refused(dev):
+    """A shape supported() refuses (B = 4096 rows of state) runs the plain
+    step on the card, counted as an eager route: no launch that raises."""
+    from paddle_tpu_torch.ops import fused_attention_gru as fa
+
+    Te, B, D, E = 2, 4096, 8, 8
+    assert not fa.supported(B, Te, D, E)
+    ep, ev, em, xw, _, h0, wa, ba, v, wctx, wg = _decode_inputs(dev, 1, Te, B, D, E, seed=3)
+    before = (fa.ATTENTION_GRU_FWD.launches, fa.EAGER_ROUTES)
+    got = fa.attention_gru_step(h0, ep, ev, em, xw[0], wa, ba, v, wctx, wg)
+    ref = fa._step(h0, ep, ev, em, xw[0], wa, ba, v, wctx, wg, fa.KERNEL_ACTS)
+    assert (fa.ATTENTION_GRU_FWD.launches, fa.EAGER_ROUTES) == (before[0], before[1] + 1)
+    assert torch.equal(got, ref)
+    with pytest.raises(ValueError, match="do not take"):
+        fa.fused_attention_gru(ep, ev, em, xw, _t(np.ones((1, B, 1)), dev), h0, wa, ba, v,
+                               wctx, wg)
+
+
+def _gru_bwd_case(dev, T, B, H, reverse, acts, seed, scale=0.5, wscale=1.0):
+    """Kernel 3 against autograd of the plain version: dx3 and dW within
+    1e-4 of max(1, max |plain|), with one length-0 row and padded steps;
+    two launches of the kernel give the same bits."""
+    from paddle_tpu_torch.ops import fused_gru as fg
+
+    rng = np.random.RandomState(seed)
+    x3 = _t(rng.randn(B, T, 3 * H) * scale, dev).transpose(0, 1)
+    w = _t(rng.randn(H, 3 * H) * wscale / np.sqrt(H), dev)
+    lens = rng.randint(1, T + 1, B)
+    lens[0] = T                                       # a full row
+    if B > 1:
+        lens[-1] = 0                                  # a length-0 row
+    mask = _t(np.arange(T)[:, None] < lens[None, :], dev)
+    dy = _t(rng.randn(T, B, H), dev)
+    _, saved, hprev = fg._launch_fwd(x3, mask, w, reverse, acts, residuals=True)
+    before = fg.GRU_BWD.launches
+    got = fg._launch_bwd(dy, saved, hprev, mask, w, reverse, acts)
+    again = fg._launch_bwd(dy, saved, hprev, mask, w, reverse, acts)
+    assert fg.GRU_BWD.launches == before + 2
+    plain = [x3.detach().requires_grad_(), w.detach().requires_grad_()]
+    ys = fg.gru_forward_reference(plain[0], mask, plain[1], reverse, acts)
+    want = torch.autograd.grad(ys, plain, dy)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dx3", "dw"), got, want):
+        assert torch.isfinite(a).all(), name
+        assert float((a - b).abs().max()) <= _grad_tol(b), name
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    if B > 1:
+        assert not got[0][:, -1].any()                # the length-0 row
+
+
+@pytest.mark.parametrize("T", [1, 5, 32])
+@pytest.mark.parametrize("B", [1, 3, 64, 100])
+@pytest.mark.parametrize("H", [37, 512, 1024])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_gru_backward_kernel_matches_autograd(dev, T, B, H, reverse):
+    """Kernel 3 (the persistent grid, dW in the launch): H = 37 is not a
+    multiple of the 4-unit group, B = 3 and 100 not of the 64-row tile, and
+    at H = 1024 each block owns two unit groups."""
+    from paddle_tpu_torch.ops import fused_gru as fg
+
+    _gru_bwd_case(dev, T, B, H, reverse, fg.KERNEL_ACTS, seed=T * 100000 + B * 1000 + H)
+
+
+@pytest.mark.parametrize("act_in", GRU_ACTS)
+@pytest.mark.parametrize("act_gate", GRU_ACTS)
+def test_gru_backward_kernel_takes_every_activation_at_full_width(dev, act_in, act_gate):
+    """Kernel 3 at H = 512, T = 8, B = 64 with each activation pair (inputs
+    and weights at a fifth of the default scale, as
+    test_gru_kernels_take_every_activation explains)."""
+    _gru_bwd_case(dev, 8, 64, 512, True, (act_in, act_gate),
+                  seed=GRU_ACTS.index(act_in) * 4 + GRU_ACTS.index(act_gate),
+                  scale=0.1, wscale=0.2)
+
+
+def test_gru_backward_phase_clocks_leave_the_result_alone(dev):
+    """Kernel 3 asked for its phase clocks: the same bits, and block 0's
+    clock rising through every step's phases."""
+    from paddle_tpu_torch.ops import fused_gru as fg
+
+    T, B, H = 5, 64, 512
+    rng = np.random.RandomState(11)
+    x3 = _t(rng.randn(T, B, 3 * H) * 0.5, dev)
+    w = _t(rng.randn(H, 3 * H) / np.sqrt(H), dev)
+    mask = _t(np.ones((T, B)), dev)
+    dy = _t(rng.randn(T, B, H), dev)
+    _, saved, hprev = fg._launch_fwd(x3, mask, w, False, fg.KERNEL_ACTS, residuals=True)
+    plain = fg._launch_bwd(dy, saved, hprev, mask, w, False, fg.KERNEL_ACTS)
+    clocks = torch.zeros((T, 4), dtype=torch.int64, device=dev)
+    clocked = fg._launch_bwd(dy, saved, hprev, mask, w, False, fg.KERNEL_ACTS, phase_ns=clocks)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(plain, clocked))
+    flat = clocks.flatten()
+    assert bool((flat[1:] >= flat[:-1]).all()) and int(flat[0]) > 0
+
+
+def test_gru_backward_kernel_with_dw_rows_in_device_memory(dev):
+    """H = 1024, B = 512: the rows' state leaves no room for dW's rows in
+    shared memory, which the block then accumulates in device memory."""
+    from paddle_tpu_torch.ops import fused_gru as fg
+
+    plan = fg.grid_plan(512, 1024, fg.card_sms(dev))
+    assert plan["w_in_smem"] and not plan["dw_in_smem"]
+    _gru_bwd_case(dev, 3, 512, 1024, False, fg.KERNEL_ACTS, seed=7)
 
 
 # The first design's cases keep their weights at 0.3 a draw. The others
@@ -620,9 +782,6 @@ def test_flash_wrapper_raises_on_what_the_kernels_do_not_take(dev):
     t = torch.zeros(2, 8, 16, 2, device=dev).transpose(2, 3)
     with pytest.raises(ValueError, match="last dimension"):
         fa.flash_attention(t, t, t)
-
-
-GRU_ACTS = ("tanh", "sigmoid", "relu", "linear")
 
 
 @pytest.mark.parametrize("act_in", GRU_ACTS)

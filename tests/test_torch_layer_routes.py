@@ -35,14 +35,83 @@ GRAD_TOL = 1e-4
 
 
 def test_gru_supported_at_its_edges():
+    B = 3                                   # the batch bounds the backward's grid
     for a in ("tanh", "sigmoid", "relu", "linear"):
-        assert fg.supported((a, "sigmoid"), 8) and fg.supported(("tanh", a), 8)
-    assert fg.supported(fg.KERNEL_ACTS, 1) and fg.supported(fg.KERNEL_ACTS, fg.MAX_H)
-    assert not fg.supported(fg.KERNEL_ACTS, fg.MAX_H + 1)
-    assert not fg.supported(fg.KERNEL_ACTS, 0)
-    assert not fg.supported(("softmax", "sigmoid"), 8)
-    assert not fg.supported(("tanh", "softmax"), 8)
-    assert not fg.supported(("tanh", "sigmoid", "sigmoid"), 8)
+        assert fg.supported((a, "sigmoid"), 8, B) and fg.supported(("tanh", a), 8, B)
+    assert fg.supported(fg.KERNEL_ACTS, 1, B) and fg.supported(fg.KERNEL_ACTS, fg.MAX_H, B)
+    assert not fg.supported(fg.KERNEL_ACTS, fg.MAX_H + 1, B)
+    assert not fg.supported(fg.KERNEL_ACTS, 0, B)
+    assert not fg.supported(("softmax", "sigmoid"), 8, B)
+    assert not fg.supported(("tanh", "softmax"), 8, B)
+    assert not fg.supported(("tanh", "sigmoid", "sigmoid"), 8, B)
+
+
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("H", [512, 1024])
+@pytest.mark.parametrize("B", [1, 64, 512])
+def test_gru_backward_grid_holds_at_the_demo_widths(H, B):
+    """Kernel 3's grid at 132 SMs takes H <= 1024 for every B <= 512, at
+    every activation pair: w's rows in shared memory, dW's too where they
+    fit beside the rows' state."""
+    for a in fg.ACT_CODES:
+        for b in fg.ACT_CODES:
+            assert fg.supported((a, b), H, B, num_sms=H100_SMS)
+    plan = fg.grid_plan(B, H, H100_SMS)
+    assert plan["w_in_smem"] and plan["smem_bytes"] <= fg.SMEM_LIMIT
+    assert plan["dw_in_smem"] == (not (H == 1024 and B == 512))
+
+
+def test_gru_backward_main_path_plan():
+    """T = 32, B = 64, H = 512: 128 blocks of 4 hidden units (one per SM),
+    each holding its rows of w and dW (24,576 B each), the rows' state
+    (5,120 B) and the cross-warp sums (8,192 B); two barriers a step."""
+    assert fg.grid_plan(64, 512, H100_SMS) == dict(
+        blocks=128, unit_groups_per_block=1, smem_bytes=62464, w_in_smem=1, dw_in_smem=1)
+    assert fg.grid_barriers(32) == 64
+    wide = fg.grid_plan(2, 2100, H100_SMS)           # four unit groups a block
+    assert wide["unit_groups_per_block"] == 4 and not wide["w_in_smem"]
+
+
+@pytest.mark.parametrize("H,B", [(0, 64), (512, 0), (fg.MAX_H + 1, 1), (1024, 4096),
+                                 (fg.MAX_H, 512)])
+def test_gru_gate_refuses_an_empty_dimension_or_what_cannot_fit(H, B):
+    """An empty dimension; a width past MAX_H; the rows' state of too many
+    rows (20 floats a row and unit group in shared memory)."""
+    assert not fg.supported(fg.KERNEL_ACTS, H, B, num_sms=H100_SMS)
+
+
+def test_nmt_encoder_takes_the_eager_route_where_the_gate_refuses(monkeypatch):
+    """With fused_gru.supported refusing, the seqToseq encoder's two
+    gated_recurrent layers (one per direction) run their eager loops,
+    counted once each, and the loss (1e-5 relative) and every gradient
+    (1e-4 of max(1, max |JAX|)) still match the JAX package."""
+    import paddle_tpu.graph  # noqa: F401  (break the layers<->graph import cycle)
+    from paddle_tpu.flagship import nmt_batch as jax_nmt_batch
+    from paddle_tpu.flagship import nmt_config as jax_nmt_config
+    from paddle_tpu_torch.flagship import nmt_batch, nmt_config
+
+    tc = jax_nmt_config(vocab=50, dim=16, batch_size=4)
+    jm = JaxMachine(tc.model_config)
+    jparams = jm.init_params(seed=11)
+    jloss, jgrads, _, _ = jm.grad_fn()(jparams, jax_nmt_batch(vocab=50, B=4, T=5),
+                                       jax.random.PRNGKey(0))
+    asked = []
+    monkeypatch.setattr(fg, "supported", lambda *a, **k: asked.append(a) or False)
+    calls = []
+    orig = port_recurrent.fused_gru
+    monkeypatch.setattr(port_recurrent, "fused_gru",
+                        lambda *a, **k: calls.append(1) or orig(*a, **k))
+    before = fg.EAGER_ROUTES
+    machine = GradientMachine(nmt_config(vocab=50, dim=16, batch_size=4).model_config,
+                              device="cpu")
+    loss, grads, _, _ = machine.grad_fn()(
+        params_from_numpy({k: np.asarray(v) for k, v in jparams.items()}, "cpu"),
+        nmt_batch(vocab=50, B=4, T=5, device="cpu"))
+    assert asked == [(("tanh", "sigmoid"), 16, 4)] * 2      # (acts, H, B), each direction
+    assert calls == [] and fg.EAGER_ROUTES == before + 2
+    _assert_same((loss, grads), (jloss, jgrads))
 
 
 def test_lstm_supported_at_its_edges():
