@@ -25,8 +25,9 @@ Phases, each printing one JSON object per line:
              Kernel 4 (kernel 5's grid without residuals) at Td = 1 and 8,
              two launches bit-equal, with an empty cooperative launch on
              its grid and its weight-slice load timed apart; kernel 3 (the
-             persistent GRU backward, dW in the launch) two launches
-             bit-equal, with the barrier timed on its own grid.
+             persistent GRU backward, dW in the launch) and kernel 2 (the
+             persistent GRU training forward) two launches bit-equal, each
+             with the barrier timed on its own grid.
 3. serve   — a main path: the seqToseq NMT generation model at full
              width (vocab 30000, dim 512, random weights from seed 1)
              behind build_engine(slots=64, prompt_tokens=32,
@@ -52,6 +53,10 @@ Phases, each printing one JSON object per line:
              width (T = 64, B = 256, H = 512), forward and reversed, with
              the default activations and with (relu, sigmoid, tanh), held
              to their plain versions as in phase 2 and timed the same way.
+             Kernel 8 (the persistent LSTM backward, dW and dpeep in the
+             launch) two launches bit-equal, also timed with one row group
+             and with its activation codes read at run time, with its
+             phase clocks and the barrier timed on its own grid.
 6. lstm_train — the third main path: Trainer(flagship_config(
              dict_dim=10000, emb_dim=256, hidden=512, classes=2)) with
              batch size 256, random weights from seed 1, 8 Adam steps on
@@ -133,8 +138,8 @@ kernel.
 
 Then the per-kernel line ({"kernels": [...]}; rows 9-12, the kernels on
 the tensor cores, also carry bound_tc_ms, the bound of their design: three
-TF32 products per product at 495 TFLOP/s, or the bytes; rows 3-6, the
-persistent grids, carry design_bound_ms, bound_ms plus their grid
+TF32 products per product at 495 TFLOP/s, or the bytes; rows 2-6 and
+8, the persistent grids, carry design_bound_ms, bound_ms plus their grid
 barriers at the measured barrier time, and their grid), the card's name
 and power
 limit as nvidia-smi reports them, and as the last line
@@ -430,18 +435,25 @@ def phase_train_kernels(torch, dev, rng, t, lengths, results):
     mask = t((np.arange(T)[:, None] < lengths(T)[None, :]))
     dy = t(rng.randn(T, B, H))
     gplan = fg.grid_plan(B, H, fa.card_sms(dev))
+    fplan = fg.fwd_train_plan(B, H, fa.card_sms(dev))
     fwd_cases, bwd_cases = [], []
     for reverse in (False, True):
         got = fg._launch_fwd(x3, mask, w, reverse, fg.KERNEL_ACTS, residuals=True)
+        again = fg._launch_fwd(x3, mask, w, reverse, fg.KERNEL_ACTS, residuals=True)
         ref = fg.gru_forward_reference(x3, mask, w, reverse, residuals=True)
         torch.cuda.synchronize()
         err = _err(got, ref)
         assert all(torch.isfinite(a).all() for a in got) and err <= TOL, ("gru_fwd_train", reverse, err)
-        fwd_cases.append({"reverse": reverse, "max_abs_err": err,
-                          "ms": time_ms(torch, lambda: fg._launch_fwd(
-                              x3, mask, w, reverse, fg.KERNEL_ACTS, residuals=True)),
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), ("gru_fwd_train", reverse)
+        run_fwd = lambda: fg._launch_fwd(x3, mask, w, reverse, fg.KERNEL_ACTS, residuals=True)
+        ms = time_ms(torch, run_fwd)
+        fwd_cases.append({"reverse": reverse, "max_abs_err": err, "ms": ms,
+                          "device_ms": time_ms(torch, run_fwd, hide_host=True),
                           "plain_ms": time_ms(torch, lambda: fg.gru_forward_reference(
-                              x3, mask, w, reverse, residuals=True), reps=5)})
+                              x3, mask, w, reverse, residuals=True), reps=5),
+                          "per_step_us": 1e3 * ms / T, "grid_barriers": fg.fwd_train_barriers(T),
+                          "blocks": fplan["blocks"], "smem_bytes_per_block": fplan["smem_bytes"],
+                          "w_in_smem": bool(fplan["w_in_smem"])})
         _, saved, hprev = got
         leaves = [x3.detach().requires_grad_(), w.detach().requires_grad_()]
         kg = torch.autograd.grad(fg.fused_gru(leaves[0], mask, leaves[1], reverse), leaves, dy)
@@ -465,11 +477,15 @@ def phase_train_kernels(torch, dev, rng, t, lengths, results):
                           "blocks": gplan["blocks"], "smem_bytes_per_block": gplan["smem_bytes"],
                           "w_in_smem": bool(gplan["w_in_smem"]),
                           "dw_in_smem": bool(gplan["dw_in_smem"])})
+    fwd_bytes = 4.0 * (T * B * 3 * H + T * B + H * 3 * H + T * B * H      # x3, mask, w, ys
+                       + T * B * 3 * H + T * B * H)                       # acts, hprev
+    fwd_flops = T * (6.0 * B * H * H + 14.0 * B * H)       # kernel_flops.gru_fwd_flops
+    fwd_barrier_us = grid_barrier_us(torch, dev, fplan["blocks"], fplan["smem_bytes"])
     results["gru_fwd_train"] = dict(
-        cases=fwd_cases, shape=dict(T=T, B=B, H=H),
-        bytes=4.0 * (T * B * 3 * H + T * B + H * 3 * H + T * B * H      # x3, mask, w, ys
-                     + T * B * 3 * H + T * B * H),                       # acts, hprev
-        flops=T * (6.0 * B * H * H + 14.0 * B * H))        # kernel_flops.gru_fwd_flops
+        cases=fwd_cases, shape=dict(T=T, B=B, H=H), bytes=fwd_bytes, flops=fwd_flops,
+        barrier_us=fwd_barrier_us,
+        design_bound_ms=(bound(fwd_bytes, fwd_flops)[0]
+                         + fg.fwd_train_barriers(T) * fwd_barrier_us * 1e-3))
     gru_bwd_bytes = 4.0 * (T * B * H + T * B * 3 * H + T * B * H + T * B + H * 3 * H  # dy, acts, hprev, mask, w
                            + T * B * 3 * H + H * 3 * H)                              # dx3, dw
     gru_bwd_flops = T * (12.0 * B * H * H + 25.0 * B * H)   # kernel_flops.gru_bwd_flops
@@ -847,6 +863,7 @@ def phase_lstm_kernels(torch, dev):
     lens[5] = 0                                               # one all-masked row
     mask = t(np.arange(T)[:, None] < lens[None, :])
     dy = t(rng.randn(T, B, H))
+    plan = fl.grid_plan(B, H, fl.card_sms(dev))
     cases = {name: [] for name in LSTM_KERNELS}
     for acts in (fl.DEFAULT_ACTS, ("relu", "sigmoid", "tanh")):
         for reverse in (False, True):
@@ -874,7 +891,8 @@ def phase_lstm_kernels(torch, dev):
             cases["lstm_bwd"].append({**key, "max_abs_err": err, "err_over_scale": rel})
             if acts != fl.DEFAULT_ACTS:
                 continue
-            # time the default activations, both directions, from a cold L2
+            # time the default activations, both directions, from a cold L2;
+            # two launches of kernel 8 give the same bits
             cases["lstm_fwd"][-1].update(
                 ms=time_ms(torch, lambda: fl._launch_fwd(x4, mask, w, peep, reverse, acts, False)),
                 plain_ms=time_ms(torch, lambda: fl.lstm_forward_reference(
@@ -883,15 +901,43 @@ def phase_lstm_kernels(torch, dev):
                 ms=time_ms(torch, lambda: fl._launch_fwd(x4, mask, w, peep, reverse, acts, True)),
                 plain_ms=time_ms(torch, lambda: fl.lstm_forward_reference(
                     x4, mask, w, peep, reverse, acts, residuals=True), reps=5))
+            bwd_args = (dy, saved, hprev, cprev, mask, w, peep, reverse, acts)
+            one, two = fl._launch_bwd(*bwd_args), fl._launch_bwd(*bwd_args)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(one, two)), ("lstm_bwd", key)
+            run_bwd = lambda **kw: fl._launch_bwd(*bwd_args, **kw)
+            ms = time_ms(torch, run_bwd)
             cases["lstm_bwd"][-1].update(
-                ms=time_ms(torch, lambda: fl._launch_bwd(dy, saved, hprev, cprev, mask, w, peep,
-                                                         reverse, acts)),
+                ms=ms, device_ms=time_ms(torch, run_bwd, hide_host=True),
                 plain_ms=time_ms(torch, lambda: torch.autograd.grad(
-                    ys_plain, plain, dy, retain_graph=True), reps=5))
+                    ys_plain, plain, dy, retain_graph=True), reps=5),
+                # the alternatives: one row group (128 blocks of 4 units, all
+                # 256 rows each), and the activation codes read at run time
+                ms_row_groups_1=time_ms(torch, lambda: run_bwd(row_groups=1), hide_host=True),
+                ms_runtime_acts=time_ms(torch, lambda: run_bwd(runtime_acts=True),
+                                        hide_host=True),
+                per_step_us=1e3 * ms / T, grid_barriers=fl.grid_barriers(T, plan["row_groups"]),
+                blocks=plan["blocks"], row_groups=plan["row_groups"],
+                units_per_block=fl.UNITS * plan["unit_groups_per_block"],
+                smem_bytes_per_block=plan["smem_bytes"], w_in_smem=bool(plan["w_in_smem"]),
+                dw_in_smem=bool(plan["dw_in_smem"]))
     emit({"phase": "lstm_kernels", "cases": cases})
     sizes = lstm_bytes_flops(T, B, H)
-    return {name: dict(cases=cases[name], shape=dict(T=T, B=B, H=H),
-                       bytes=sizes[name][0], flops=sizes[name][1]) for name in LSTM_KERNELS}
+    out = {name: dict(cases=cases[name], shape=dict(T=T, B=B, H=H),
+                      bytes=sizes[name][0], flops=sizes[name][1]) for name in LSTM_KERNELS}
+    # where a step of kernel 8 goes: block 0's clock at its phases' ends
+    clocks = torch.zeros((T, 3), dtype=torch.int64, device=dev)
+    fl._launch_bwd(dy, saved, hprev, cprev, mask, w, peep, True, fl.DEFAULT_ACTS,
+                   phase_ns=clocks)
+    torch.cuda.synchronize()
+    spans = (clocks[:, 1:] - clocks[:, :-1]).double().mean(0).cpu().tolist()
+    barrier_us = grid_barrier_us(torch, dev, plan["blocks"], plan["smem_bytes"])
+    n_bar = fl.grid_barriers(T, plan["row_groups"])
+    out["lstm_bwd"].update(
+        barrier_us=barrier_us,
+        phase_us_per_step=dict(zip(("phase1_and_barrier", "phase2"), (x / 1e3 for x in spans))),
+        design_bound_ms=bound(*sizes["lstm_bwd"])[0] + n_bar * barrier_us * 1e-3)
+    return out
 
 
 def phase_lstm_train(torch, dev, kernels):
@@ -1553,7 +1599,7 @@ def main() -> int:
     meta = {
         "gru_fwd": ("paddle_tpu_torch/csrc/gru_fwd.cu",
                     "paddle_tpu/ops/pallas_gru.py:75 (_fwd_kernel_light; pallas_call :178)"),
-        "gru_fwd_train": ("paddle_tpu_torch/csrc/gru_fwd.cu",
+        "gru_fwd_train": ("paddle_tpu_torch/csrc/gru_fwd_train.cu",
                           "paddle_tpu/ops/pallas_gru.py:57 (_fwd_kernel; pallas_call :178)"),
         "gru_bwd": ("paddle_tpu_torch/csrc/gru_bwd.cu",
                     "paddle_tpu/ops/pallas_gru.py:91 (_bwd_kernel; pallas_call :206)"),
@@ -1619,12 +1665,16 @@ def main() -> int:
         assert launches > 0, (name, path_of[name])
         if name in TC_KERNELS:
             extra = {"bound_tc_ms": times.get("bound_tc_ms", bound_tc(r["bytes"], r["flops"]))}
-        elif "design_bound_ms" in r:              # kernels 3-6: the bound plus their barriers
+        elif "design_bound_ms" in r:              # kernels 2-6, 8: the bound plus their barriers
             extra = {"design_bound_ms": r["design_bound_ms"], "barrier_us": r["barrier_us"],
                      "grid_barriers": main_case["grid_barriers"], "blocks": main_case["blocks"],
-                     "smem_bytes_per_block": main_case["smem_bytes_per_block"]}
-            if "device_ms" in main_case:          # kernels 3 and 4: the host's enqueue hidden
+                     "smem_bytes_per_block": main_case["smem_bytes_per_block"],
+                     "per_step_us": main_case.get("per_step_us")}
+            if "device_ms" in main_case:          # kernels 2-4, 8: the host's enqueue hidden
                 extra["device_ms"] = main_case["device_ms"]
+            if name == "lstm_bwd":                # its row groups, and the alternatives timed
+                extra.update({key: main_case[key] for key in (
+                    "row_groups", "units_per_block", "ms_row_groups_1", "ms_runtime_acts")})
             if "phase_us_per_step" in r:
                 extra["phase_us_per_step"] = r["phase_us_per_step"]
             if name == "attention_gru_fwd":       # what a Td = 1 launch pays besides the step

@@ -58,6 +58,16 @@ __device__ __forceinline__ void cp_async4(float* smem_dst, const float* gmem_src
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(gmem_src) : "memory");
 }
 
+// The same for 16 bytes, bypassing L1 (data other SMs wrote); with
+// `valid` false nothing is read and the 16 bytes are zero-filled.
+__device__ __forceinline__ void cp_async16_cg(float* smem_dst, const float* gmem_src,
+                                              bool valid) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  const int n = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem_src),
+               "r"(n) : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

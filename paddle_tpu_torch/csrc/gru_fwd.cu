@@ -1,12 +1,11 @@
-// gru_fwd / gru_fwd_train — the masked GRU over a whole sequence in one launch.
+// gru_fwd — the masked GRU over a whole sequence in one launch, inference
+// (kernel 1).
 //
-// Replaces: paddle_tpu/ops/pallas_gru.py _fwd_kernel_light (gru_fwd, the
-// inference variant launched by pl.pallas_call in _run_fwd, entry
-// fused_gru), which runs the bidirectional GRU encoder of the seqToseq
-// model at prefill; and _fwd_kernel (gru_fwd_train, the training variant:
-// the same scan plus the residuals its backward reads, the custom-VJP
-// forward of fused_gru). As in the JAX package the two differ only in the
-// residual stores, here a template parameter.
+// Replaces: paddle_tpu/ops/pallas_gru.py _fwd_kernel_light (launched by
+// pl.pallas_call in _run_fwd, entry fused_gru), which runs the
+// bidirectional GRU encoder of the seqToseq model at prefill. The training
+// variant, which also saves the residuals its backward reads, is the
+// persistent grid of gru_fwd_train.cu (kernel 2).
 //
 // Per step t (time reversed when `reverse` is set), with h0 = 0, the
 // weight w [H, 3H] split [update | reset | candidate] and the bias already
@@ -16,24 +15,21 @@
 //   c   = act_in(x3[t, :, 2H:] + (r * h) . w[:, 2H:])
 //   h'  = u * h + (1 - u) * c
 //   ys[t] = m * h';   carry h = m * h' + (1 - m) * h    (m = mask[t, b])
-// Training residuals, at the step's own time index t:
-//   acts[t] = [u | r | c]   [T, B, 3H]       hprev[t] = h   [T, B, H]
 //
 // What bounds it on an H100: the time loop is sequential, and every step
 // reads the whole recurrent weight (3 MB at H = 512) once per batch row.
 // The bytes the function must move (x3, w, ys: about 20 MB at T = 32,
-// B = 64, H = 512; 37 MB with the residuals) take some 6-11 us at
-// 3.35 TB/s and its 3.2 GFLOP some 48 us at the 67 TFLOP/s float32 rate,
-// but this kernel re-reads w from L2 at every step of every row, so the
-// SM's L2 read rate is what limits it.
+// B = 64, H = 512) take some 6 us at 3.35 TB/s and its 3.2 GFLOP some
+// 48 us at the 67 TFLOP/s float32 rate, but this kernel re-reads w from
+// L2 at every step of every row, so the SM's L2 read rate is what limits
+// it.
 //
 // What the design does about that: one thread block per batch row keeps
 // its carry h, the update gate u and r*h in shared memory for the whole
-// sequence, so nothing but x3, w, ys (and the residuals) touches device
-// memory; threads own output columns, so each warp reads a row of w as one
-// coalesced 128-byte line. Sharing w across rows (several rows per block,
-// or w held in shared memory across a cluster) is the next step and is
-// left to a later change.
+// sequence, so nothing but x3, w and ys touches device memory; threads own
+// output columns, so each warp reads a row of w as one coalesced 128-byte
+// line. Sharing w across rows is kernel 2's design (gru_fwd_train.cu) and
+// is left to a later change here.
 
 #include "common.cuh"
 
@@ -41,13 +37,11 @@ namespace {
 
 constexpr int kThreads = 512;
 
-template <bool kResiduals>
 __global__ void __launch_bounds__(kThreads)
 gru_fwd_kernel(const float* __restrict__ x3, long long x_st, long long x_sb,
                const float* __restrict__ mask, long long m_st, long long m_sb,
                const float* __restrict__ w,
                float* __restrict__ ys, long long y_st, long long y_sb,
-               float* __restrict__ acts, float* __restrict__ hprev,
                int T, int B, int H, int reverse, int act_in, int act_gate) {
   extern __shared__ float smem[];
   float* h = smem;           // [H] carry
@@ -63,7 +57,6 @@ gru_fwd_kernel(const float* __restrict__ x3, long long x_st, long long x_sb,
     const int t = reverse ? T - 1 - s : s;
     const float* xt = x3 + t * x_st + b * x_sb;
     const float m = mask[t * m_st + b * m_sb];
-    const long long row = static_cast<long long>(t) * B + b;   // residual row
 
     // update and reset gates: columns [0, 2H) of w
     for (int j = threadIdx.x; j < 2 * H; j += blockDim.x) {
@@ -72,7 +65,6 @@ gru_fwd_kernel(const float* __restrict__ x3, long long x_st, long long x_sb,
 #pragma unroll 8
       for (int k = 0; k < H; ++k) acc = fmaf(h[k], wj[k * H3], acc);
       const float g = act_f32(act_gate, xt[j] + acc);
-      if (kResiduals) acts[row * H3 + j] = g;
       if (j < H) {
         u[j] = g;
       } else {
@@ -91,36 +83,11 @@ gru_fwd_kernel(const float* __restrict__ x3, long long x_st, long long x_sb,
       const float c = act_f32(act_in, xt[2 * H + j] + acc);
       const float hp = h[j];
       const float hn = u[j] * hp + (1.0f - u[j]) * c;
-      if (kResiduals) {
-        acts[row * H3 + 2 * H + j] = c;
-        hprev[row * H + j] = hp;
-      }
       ys[t * y_st + b * y_sb + j] = m * hn;
       h[j] = m * hn + (1.0f - m) * hp;
     }
     __syncthreads();
   }
-}
-
-template <bool kResiduals>
-int launch(const void* x3, long long x_st, long long x_sb,
-           const void* mask, long long m_st, long long m_sb,
-           const void* w, void* ys, long long y_st, long long y_sb,
-           void* acts, void* hprev, int T, int B, int H, int reverse, int act_in,
-           int act_gate, void* stream) {
-  const size_t smem = 3 * static_cast<size_t>(H) * sizeof(float);
-  cudaError_t err = allow_smem(gru_fwd_kernel<kResiduals>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (T > 0 && B > 0 && H > 0) {
-    gru_fwd_kernel<kResiduals><<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(x3), x_st, x_sb,
-        static_cast<const float*>(mask), m_st, m_sb,
-        static_cast<const float*>(w),
-        static_cast<float*>(ys), y_st, y_sb,
-        static_cast<float*>(acts), static_cast<float*>(hprev), T, B, H, reverse, act_in,
-        act_gate);
-  }
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -134,18 +101,15 @@ extern "C" int gru_fwd(const void* x3, long long x_st, long long x_sb,
                        const void* w, void* ys, long long y_st, long long y_sb,
                        int T, int B, int H, int reverse, int act_in, int act_gate,
                        void* stream) {
-  return launch<false>(x3, x_st, x_sb, mask, m_st, m_sb, w, ys, y_st, y_sb,
-                       nullptr, nullptr, T, B, H, reverse, act_in, act_gate, stream);
-}
-
-// As gru_fwd, plus the residuals: acts [T, B, 3H] and hprev [T, B, H],
-// both contiguous.
-extern "C" int gru_fwd_train(const void* x3, long long x_st, long long x_sb,
-                             const void* mask, long long m_st, long long m_sb,
-                             const void* w, void* ys, long long y_st, long long y_sb,
-                             void* acts, void* hprev,
-                             int T, int B, int H, int reverse, int act_in, int act_gate,
-                             void* stream) {
-  return launch<true>(x3, x_st, x_sb, mask, m_st, m_sb, w, ys, y_st, y_sb,
-                      acts, hprev, T, B, H, reverse, act_in, act_gate, stream);
+  const size_t smem = 3 * static_cast<size_t>(H) * sizeof(float);
+  cudaError_t err = allow_smem(gru_fwd_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (T > 0 && B > 0 && H > 0) {
+    gru_fwd_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(x3), x_st, x_sb,
+        static_cast<const float*>(mask), m_st, m_sb,
+        static_cast<const float*>(w),
+        static_cast<float*>(ys), y_st, y_sb, T, B, H, reverse, act_in, act_gate);
+  }
+  return static_cast<int>(cudaGetLastError());
 }

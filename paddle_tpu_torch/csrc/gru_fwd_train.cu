@@ -1,0 +1,243 @@
+// gru_fwd_train — the masked GRU over a whole sequence in one launch,
+// saving the residuals its backward (gru_bwd.cu) reads (kernel 2).
+//
+// Replaces: paddle_tpu/ops/pallas_gru.py _fwd_kernel (the custom-VJP
+// forward of fused_gru, launched by pl.pallas_call in _run_fwd, twice per
+// training step: the seqToseq encoder's two directions).
+//
+// Per step t (time reversed when `reverse` is set), with h0 = 0, the
+// weight w [H, 3H] split [update | reset | candidate] and the bias already
+// folded into x3, and act_gate, act_in each one of tanh, sigmoid, relu and
+// linear (common.cuh act_f32; the defaults are sigmoid and tanh):
+//   g   = act_gate(x3[t, :, :2H] + h . w[:, :2H])      u = g[:, :H], r = g[:, H:]
+//   c   = act_in(x3[t, :, 2H:] + (r * h) . w[:, 2H:])
+//   h'  = u * h + (1 - u) * c
+//   ys[t] = m * h';   carry h = m * h' + (1 - m) * h    (m = mask[t, b])
+// Residuals, at the step's own time index t:
+//   acts[t] = [u | r | c]   [T, B, 3H]       hprev[t] = h   [T, B, H]
+//
+// What bounds it on an H100: its float32 operations (T (6 B H^2 + 14 B H):
+// 3.2 GFLOP at T = 32, B = 64, H = 512, some 48 us at 67 TFLOP/s) over its
+// bytes (x3, w, ys and the residuals: about 37 MB, 11 us at 3.35 TB/s).
+// The time loop is sequential, and every step needs the whole carry of
+// the step before.
+//
+// What the design does about that: a persistent, cooperative grid
+// (persistent_grid.cuh), one block on each SM up to one per unit group of
+// 4 hidden units, each block owning groups blockIdx.x, blockIdx.x +
+// blocks, ... (the plan of kernel 3, fused_gru.grid_plan). Both per-step
+// products produce columns, so unit group g (units k = 4g .. 4g+3) is w's
+// COLUMNS of those units: update k, reset H + k ([H][8]) and candidate
+// 2H + k ([H][4]), 24 KB at H = 512, held in shared memory for the whole
+// launch (the first design, one block per batch row, read all of w from
+// L2 at every step of every row: some 6 GB a launch). Each product covers
+// all B rows at once (block_product). Two phases a step, each ending in a
+// grid barrier:
+//   A  u and r of the owned units from h . w[:, {k, H+k}], their residual
+//      columns, and r * h into the [B, H] buffer rh;
+//   B  c from (r h) . w[:, 2H+k], the blend, ys[t], the candidate's
+//      residual column and the masked carry.
+// The carry passes between blocks in the residual hprev at the next
+// step's own time index, which is exactly the carry, so it needs no
+// scratch (as kernel 5 passes h); the owner also keeps its units' carry
+// in shared memory. Every buffer's readers in a step are done a barrier
+// before its next writer (rh: written in A, read in B; the carry: written
+// in B, read in A of the next step, at another time index), so no buffer
+// needs a second copy. The first step's carry is 0 and is not read. Where
+// a block's columns of w do not fit in shared memory beside the state of
+// its rows (wide H, many rows), they are kept in device memory that only
+// the block touches, in the same layout. Every sum runs in a fixed order:
+// two launches give the same bits. The activation codes are read at run
+// time (the forwards ran as fast that way as with templates).
+
+#include "common.cuh"
+#include "persistent_grid.cuh"
+
+namespace {
+
+using namespace pgrid;
+
+// Floats of state a unit group keeps per batch row: h . w's update and
+// reset columns [8], the candidate's product [4], u [4] and the carry [4].
+constexpr int kState = 20;
+
+// The shared memory of a block, in floats: per unit group its columns of
+// w ([H][8] then [H][4], when w_smem) and the state [B][20].
+inline size_t fwd_train_smem_floats(int B, int H, int gpb, bool w_smem) {
+  return static_cast<size_t>(gpb) * ((w_smem ? 12LL * H : 0) + static_cast<long long>(kState) * B);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+gru_fwd_train_kernel(const float* __restrict__ x3, long long x_st, long long x_sb,
+                     const float* __restrict__ mask, long long m_st, long long m_sb,
+                     const float* __restrict__ w, float* __restrict__ ys, long long y_st,
+                     long long y_sb, float* __restrict__ acts, float* hprev, float* rh,
+                     float* wslices, unsigned* counter, int T, int B, int H, int reverse,
+                     int act_in, int act_gate, int gpb, int w_smem) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int tid = threadIdx.x;
+  const int nblk = gridDim.x;
+  const int groups = (H + kUnits - 1) / kUnits;
+  const long long H3 = 3LL * H;
+  const long long slice = 12LL * H;
+  const long long state = static_cast<long long>(kState) * B;
+  const long long per_group = (w_smem ? slice : 0) + state;
+  GridBarrier bar{counter, 0};
+  // unit group gl's columns of w (WG [H][8]: update then reset of its 4
+  // units; WC [H][4]: candidate) and its state: SG [B][8], SC [B][4],
+  // SU [B][4] and the carry HO [B][4]
+  auto WG = [&](int gl) {
+    return w_smem ? smem + gl * per_group : wslices + (blockIdx.x + gl * nblk) * slice;
+  };
+  auto WC = [&](int gl) { return WG(gl) + 8LL * H; };
+  auto SG = [&](int gl) { return smem + gl * per_group + (per_group - state); };
+  auto SC = [&](int gl) { return SG(gl) + 8LL * B; };
+  auto SU = [&](int gl) { return SG(gl) + 12LL * B; };
+  auto HO = [&](int gl) { return SG(gl) + 16LL * B; };
+
+  // the block's columns of w and a zero carry; units past H are 0
+  for (int gl = 0; gl < gpb; ++gl) {
+    const int g = blockIdx.x + gl * nblk;
+    if (g >= groups) break;
+    float* wg = WG(gl);
+    for (long long i = tid; i < slice; i += kThreads) {
+      long long src;
+      int j;
+      if (i < 8LL * H) {                      // WG[kk][c]: column q H + 4g + c % 4
+        const int kk = static_cast<int>(i / 8), c = static_cast<int>(i % 8);
+        j = kUnits * g + c % 4;
+        src = kk * H3 + (c / 4) * H + j;
+      } else {                                // WC[kk][c]: column 2H + 4g + c
+        const long long ii = i - 8LL * H;
+        const int kk = static_cast<int>(ii / 4), c = static_cast<int>(ii % 4);
+        j = kUnits * g + c;
+        src = kk * H3 + 2LL * H + j;
+      }
+      if (j >= H) {
+        wg[i] = 0.0f;
+      } else if (w_smem) {
+        cp_async4(wg + i, w + src);           // all of a thread's in flight at once
+      } else {
+        wg[i] = w[src];
+      }
+    }
+    float* ho = HO(gl);
+    for (int i = tid; i < 4 * B; i += kThreads) ho[i] = 0.0f;
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  for (int s = 0; s < T; ++s) {
+    const int t = reverse ? T - 1 - s : s;
+    const long long tB = static_cast<long long>(t) * B;
+
+    // A: u, r and r * h of the owned units (the first step's carry is 0)
+    if (s > 0) {
+      for (int gl = 0; gl < gpb; ++gl) {
+        if (blockIdx.x + gl * nblk >= groups) break;
+        block_product<8>(SG(gl), 8, B, hprev + tB * H, H, H, WG(gl));
+      }
+      __syncthreads();
+    }
+    for (int gl = 0; gl < gpb; ++gl) {
+      const int g = blockIdx.x + gl * nblk;
+      if (g >= groups) break;
+      const float* sg = SG(gl);
+      float* su = SU(gl);
+      const float* ho = HO(gl);
+      for (int i = tid; i < 4 * B; i += kThreads) {
+        const int b = i / 4, c = i % 4, k = kUnits * g + c;
+        if (k >= H) continue;
+        const long long row = tB + b;
+        const float* xr = x3 + t * x_st + b * x_sb;
+        const float pu = s > 0 ? sg[b * 8 + c] : 0.0f;
+        const float pr = s > 0 ? sg[b * 8 + 4 + c] : 0.0f;
+        const float u = act_f32(act_gate, xr[k] + pu);
+        const float r = act_f32(act_gate, xr[H + k] + pr);
+        acts[row * H3 + k] = u;
+        acts[row * H3 + H + k] = r;
+        su[i] = u;
+        __stcg(rh + static_cast<long long>(b) * H + k, r * ho[i]);
+        if (s == 0) hprev[row * H + k] = 0.0f;
+      }
+    }
+    bar.sync();
+
+    // B: the candidate, the blend, the masked output and the carry
+    for (int gl = 0; gl < gpb; ++gl) {
+      if (blockIdx.x + gl * nblk >= groups) break;
+      block_product<4>(SC(gl), 4, B, rh, H, H, WC(gl));
+    }
+    __syncthreads();
+    const bool next = s + 1 < T;
+    // the carry's residual row of the next step, which A reads there
+    float* hnext = hprev + static_cast<long long>(!next ? t : reverse ? t - 1 : t + 1) * B * H;
+    for (int gl = 0; gl < gpb; ++gl) {
+      const int g = blockIdx.x + gl * nblk;
+      if (g >= groups) break;
+      const float* sc = SC(gl);
+      const float* su = SU(gl);
+      float* ho = HO(gl);
+      for (int i = tid; i < 4 * B; i += kThreads) {
+        const int b = i / 4, k = kUnits * g + i % 4;
+        if (k >= H) continue;
+        const long long row = tB + b;
+        const float m = mask[t * m_st + b * m_sb];
+        const float c = act_f32(act_in, x3[t * x_st + b * x_sb + 2 * H + k] + sc[i]);
+        const float u = su[i];
+        const float hp = ho[i];
+        const float hn = u * hp + (1.0f - u) * c;
+        acts[row * H3 + 2 * H + k] = c;
+        ys[t * y_st + b * y_sb + k] = m * hn;
+        const float h = m * hn + (1.0f - m) * hp;
+        ho[i] = h;
+        if (next) __stcg(hnext + static_cast<long long>(b) * H + k, h);
+      }
+    }
+    if (next) bar.sync();
+  }
+}
+
+}  // namespace
+
+// x3 [T, B, 3H], mask [T, B] and ys [T, B, H] are addressed through their
+// time and batch strides (in elements; the last dimension is contiguous);
+// w [H, 3H] and the residuals acts [T, B, 3H] and hprev [T, B, H] are
+// contiguous; act_in and act_gate are act_f32 codes. Scratch: rh [B, H];
+// wslices (ceil(H / 4) * 12 H floats) where w_smem is 0, a block then
+// keeping its columns of w in device memory; counter, one unsigned.
+// num_sms is the card's SM count (the grid: fused_gru.grid_plan).
+// Launches on `stream` (cooperatively; nothing for T = 0 or B = 0); returns
+// the launch's error, cudaErrorCooperativeLaunchTooLarge, or
+// cudaErrorInvalidValue for a shared memory past what a block may hold.
+extern "C" int gru_fwd_train(const void* x3, long long x_st, long long x_sb,
+                             const void* mask, long long m_st, long long m_sb,
+                             const void* w, void* ys, long long y_st, long long y_sb,
+                             void* acts, void* hprev, void* rh, void* wslices, void* counter,
+                             int T, int B, int H, int reverse, int act_in, int act_gate,
+                             int num_sms, int w_smem, void* stream) {
+  if (T <= 0 || B <= 0 || H <= 0) return static_cast<int>(cudaSuccess);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // unit groups of 4 hidden units, one block per SM up to one per group
+  // (mirrored by paddle_tpu_torch/ops/fused_gru.py grid_plan)
+  const int groups = (H + kUnits - 1) / kUnits;
+  const int blocks = groups < num_sms ? groups : num_sms;
+  const int gpb = (groups + blocks - 1) / blocks;
+  const size_t smem = fwd_train_smem_floats(B, H, gpb, w_smem) * sizeof(float);
+  if (smem > kSmemLimit || (!w_smem && wslices == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaMemsetAsync(counter, 0, sizeof(unsigned), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = launch_cooperative(gru_fwd_train_kernel, blocks, smem, st,
+                           static_cast<const float*>(x3), x_st, x_sb,
+                           static_cast<const float*>(mask), m_st, m_sb,
+                           static_cast<const float*>(w), static_cast<float*>(ys), y_st, y_sb,
+                           static_cast<float*>(acts), static_cast<float*>(hprev),
+                           static_cast<float*>(rh), static_cast<float*>(wslices),
+                           static_cast<unsigned*>(counter), T, B, H, reverse, act_in, act_gate,
+                           gpb, w_smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,5 +1,5 @@
 // lstm_bwd — the backward of the masked peephole LSTM scan: dx4, dW and
-// dpeep from the residuals of lstm_fwd_train.
+// dpeep from the residuals of lstm_fwd_train, in one launch.
 //
 // Replaces: paddle_tpu/ops/pallas_lstm.py _bwd_kernel (launched by
 // pl.pallas_call in _run_bwd, the custom-VJP backward of fused_lstm), which
@@ -26,174 +26,343 @@
 // about 0.5 GB (dy, the residuals, w, dx4, dW), some 0.15 ms at 3.35 TB/s,
 // and does 69.1 GFLOP (kernel_flops.lstm_bwd_flops: the recurrent product
 // with w^T and the dW product), 1.03 ms at the 67 TFLOP/s float32 rate.
+// The reversed time loop is sequential, and every step needs all 4H
+// gradient columns of its rows from the step after.
 //
-// What the design does about that: the recurrence is the forward's shape
-// turned around. A cluster of C blocks shares one tile of 16 batch rows and
-// block c owns the hidden units [c U, (c+1) U): it computes its units' four
-// gate gradients for the 16 rows, then its share of the next DH for every
-// unit, P_c = dgates[:, own columns] . w[:, own columns]^T, reading only the
-// own rows of a transposed copy of w (made once per launch, so the loads
-// are coalesced). The shares are summed in a fixed rank order by the block
-// that owns each unit, reading its peers' shares through distributed shared
-// memory after one cluster barrier per step (the shares are double-
-// buffered). DH, DC and the peephole sums stay in shared memory; dx4 is
-// streamed to device memory. dW sums over all T * B rows, so the tiled
-// contraction of atb_gemm.cuh forms it after the recurrence, and the
-// per-tile peephole partials are summed there too in a fixed order:
-// deterministic, no atomics, and no weight-gradient work on the sequential
-// loop.
+// What the design does about that: a persistent, cooperative grid
+// (persistent_grid.cuh), in P row groups of G blocks, one block on each SM
+// (fused_lstm.grid_plan chooses P and mirrors the plan). Batch rows are
+// independent in this recurrence, so row group p owns rows
+// [p R, (p + 1) R) and waits only on its own blocks (a barrier counter of
+// its own); within a group, block q owns gpb unit groups of 4 hidden units,
+// contiguous, processed in bundles of N = 4 or 8 units. DH = dx4[t] . w^T
+// takes w transposed, so a block keeps w's ROWS k of its units, all 4H
+// columns ([4H][N] a bundle, 64 KB at N = 8, H = 512), in shared memory
+// for the whole launch: no transposed copy of w is made. One barrier a
+// step:
+//   1  for the owned units and rows: c', dh, the four gate gradients into
+//      dx4[t]'s owned columns (through L2), DC in shared memory, and the
+//      peephole sums (one accumulator a thread, in shared memory);
+//   2  DH[:, k] = dx4[t] . w[k, :]^T + (1 - m) DH for the owned units,
+//      reading the group's rows of dx4[t] once for all N units, staged
+//      through shared memory by cp.async a chunk ahead (a 64 KB ring),
+//      and in the same pass dW[k, :] += hprev[t, :, k]^T . dx4[t]
+//      (product_colsum_staged):
+//      dW costs no second pass over dx4 and no separate launch, as the TPU
+//      kernel accumulates dW in VMEM.
+// DH stays in the owner's shared memory, where the next step's phase 1
+// reads it on the same block: no barrier between them; the next step
+// writes dx4 at another time index, so no buffer is reused while a block
+// may still read it. With P row groups a block reads R = B / P rows of
+// dx4[t] a step (1 MB at P = 2 on the classifier's shape, against 2 MB
+// at P = 1) and its dW rows are partial sums over its group's rows: after
+// one barrier over the whole grid the owner in group 0 adds the other
+// groups' partials in group order and writes dW and dpeep once. Where a
+// block's rows of w or dW do not fit in shared memory beside the state of
+// its rows (wide H, many rows), they are kept in device memory that the
+// block alone reads and writes, in the same layout. Every sum runs in a
+// fixed order and nothing is summed by atomics: two launches give the
+// same bits. Two activation triples are template parameters: the kernel
+// wrapper's default (tanh, sigmoid, sigmoid) and the config DSL's
+// lstmemory default (tanh, sigmoid, tanh), which the LSTM classifier runs;
+// the other triples read their codes at run time, some 4% slower on an
+// H100 at the classifier's shape (three instances per bundle width
+// instead of 64).
 
-#include <cooperative_groups.h>
-
-#include "atb_gemm.cuh"
 #include "common.cuh"
-
-namespace cg = cooperative_groups;
+#include "persistent_grid.cuh"
 
 namespace {
 
-constexpr int kRows = 16;                    // batch rows per cluster
-constexpr int kThreads = 256;
-constexpr int kMaxCluster = 8;
+using namespace pgrid;
 
-__global__ void __launch_bounds__(kThreads)
+// Floats of state per batch row and unit: DH, DC and h_prev (the S of the
+// dW sums).
+constexpr int kState = 3;
+// phase 1's items a thread loads at once
+constexpr int kBatch = 4;
+// product_colsum_staged's columns a thread holds, rows a chunk and ring
+// slots, by bundle width: a ring of 64 KB either way. Eight columns a
+// thread at N = 8 take one column batch at H = 512 and halve the
+// butterfly's share of a step against four (PERF.md, kernel 8's findings).
+template <int N>
+struct Tile;
+template <>
+struct Tile<4> {
+  static constexpr int kCols = 4, kRows = 8, kStages = 2;
+};
+template <>
+struct Tile<8> {
+  static constexpr int kCols = 8, kRows = 4, kStages = 2;
+};
+template <int N>
+constexpr int ring_floats() {
+  return Tile<N>::kStages * Tile<N>::kRows * kThreads * Tile<N>::kCols;
+}
+constexpr int kRingFloats = 16384;                  // the ring's 64 KB
+static_assert(ring_floats<4>() <= kRingFloats && ring_floats<8>() <= kRingFloats,
+              "a tile's ring fits its 64 KB");
+
+// How the grid is cut (mirrored by paddle_tpu_torch/ops/fused_lstm.py
+// grid_plan): P row groups of R = ceil(B / P) rows; in each, G blocks of
+// gpb unit groups (4 hidden units each, contiguous), in bundles of N units.
+struct BwdPlan {
+  int P, G, gpb, N, bundles, R;
+};
+
+inline BwdPlan make_bwd_plan(int B, int H, int num_sms, int P) {
+  BwdPlan p;
+  const int groups = (H + kUnits - 1) / kUnits;
+  p.P = P;
+  int G = num_sms / P < groups ? num_sms / P : groups;
+  if (G < 1) G = 1;
+  p.gpb = (groups + G - 1) / G;
+  p.G = (groups + p.gpb - 1) / p.gpb;
+  p.N = p.gpb >= 2 ? 8 : 4;
+  p.bundles = (kUnits * p.gpb + p.N - 1) / p.N;
+  p.R = (B + P - 1) / P;
+  return p;
+}
+
+// The shared memory of a block, in floats: per bundle its rows of w
+// ([4H][N], when w_smem), its rows of dW ([4H][N], when dw_smem) and the
+// state [3][R][N]; then the cross-warp sums [kWarps][kRowTile][N], the
+// peephole accumulators [bundles][3][kThreads] and the ring of dx4 rows.
+inline size_t bwd_smem_floats(const BwdPlan& p, int H, bool w_smem, bool dw_smem) {
+  const long long slice = 4LL * H * p.N;
+  return static_cast<size_t>(p.bundles) * ((w_smem ? slice : 0) + (dw_smem ? slice : 0)
+                                           + static_cast<long long>(kState) * p.R * p.N)
+         + static_cast<size_t>(kWarps) * kRowTile * p.N + 3LL * kThreads * p.bundles
+         + kRingFloats;
+}
+
+// kActIn, kActGate, kActState: act_f32 codes, or -1 to read the run-time
+// codes act_in, act_gate and act_state.
+template <int N, int kActIn, int kActGate, int kActState>
+__global__ void __launch_bounds__(kThreads, 1)
 lstm_bwd_kernel(const float* __restrict__ dy, long long dy_st, long long dy_sb,
-                const float* __restrict__ acts, const float* __restrict__ cprev,
+                const float* __restrict__ acts, const float* __restrict__ hprev,
+                const float* __restrict__ cprev,
                 const float* __restrict__ mask, long long m_st, long long m_sb,
-                const float* __restrict__ wt, const float* __restrict__ peep,
-                float* __restrict__ dx4, float* __restrict__ peep_part,
-                int T, int B, int H, int U, int reverse,
-                int act_in, int act_gate, int act_state) {
-  cg::cluster_group cluster = cg::this_cluster();
-  const int C = static_cast<int>(cluster.num_blocks());
-  const int rank = static_cast<int>(cluster.block_rank());
-  const int k0 = rank * U;                               // first own unit
-  const int Uc = max(0, min(U, H - k0));                 // own units
-  const int UR = U * kRows;
-  const int HR = H * kRows;
+                const float* __restrict__ w, const float* __restrict__ peep,
+                float* dx4, float* __restrict__ dw, float* __restrict__ dpeep,
+                float* wslices, float* dwacc, float* dwpart, float* ppart,
+                unsigned* counters, unsigned long long* phase_ns,
+                int T, int B, int H, int reverse, int act_in_rt, int act_gate_rt,
+                int act_state_rt, int G, int gpb, int R, int w_smem, int dw_smem) {
   extern __shared__ float4 smem4[];
-  float* part = reinterpret_cast<float*>(smem4);         // [2][H][kRows] DH shares
-  float* dg = part + 2 * HR;                             // [4][U][kRows] own dgates
-  float* DH = dg + 4 * UR;                               // [U][kRows]
-  float* DC = DH + UR;                                   // [U][kRows]
-  float* DHm = DC + UR;                                  // [U][kRows] (1 - m) DH
-  float* pacc = DHm + UR;                                // [3][U][kRows] peephole sums
-  const int row0 = blockIdx.y * kRows;
-  const long long H4 = 4LL * H;
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int act_in = kActIn < 0 ? act_in_rt : kActIn;
+  const int act_gate = kActGate < 0 ? act_gate_rt : kActGate;
+  const int act_state = kActState < 0 ? act_state_rt : kActState;
+  const int tid = threadIdx.x;
+  const int P = gridDim.x / G;
+  const int p = blockIdx.x / G;                       // row group
+  const int row0 = p * R;                             // its first row
+  const int rows = max(0, min(B, row0 + R) - row0);   // and how many (0 when B < P R)
+  const int u0 = (blockIdx.x % G) * kUnits * gpb;     // the block's first unit
+  const int u1 = min(H, u0 + kUnits * gpb);           // and its end
+  const int bundles = (kUnits * gpb + N - 1) / N;
+  const long long K = 4LL * H;
+  const long long slice = K * N;
+  const long long state = static_cast<long long>(kState) * R * N;
+  const long long per_bundle = (w_smem ? slice : 0) + (dw_smem ? slice : 0) + state;
+  float* red = smem + bundles * per_bundle;
+  float* ps = red + kWarps * kRowTile * N;            // [bundles][3][kThreads]
+  float* ring = ps + 3 * kThreads * bundles;          // the staged rows of dx4[t]
+  GridBarrier bar{counters + p, 0, static_cast<unsigned>(G)};
+  // block 0's clock at each step's start and phases' ends, when asked
+  const bool clocked = phase_ns != nullptr && blockIdx.x == 0 && tid == 0;
+  // bundle nb's rows of w and dW ([4H][N]: W[j][c] = w[u0 + N nb + c, j])
+  // and its state DH, DC and h_prev, each [R][N]
+  auto W = [&](int nb) {
+    return w_smem ? smem + nb * per_bundle
+                  : wslices + (static_cast<long long>(blockIdx.x) * bundles + nb) * slice;
+  };
+  auto DW = [&](int nb) {
+    return dw_smem ? smem + nb * per_bundle + (w_smem ? slice : 0)
+                   : dwacc + (static_cast<long long>(blockIdx.x) * bundles + nb) * slice;
+  };
+  auto DH = [&](int nb) { return smem + nb * per_bundle + (per_bundle - state); };
+  auto DC = [&](int nb) { return DH(nb) + static_cast<long long>(R) * N; };
+  auto HP = [&](int nb) { return DH(nb) + 2LL * R * N; };
 
-  for (int e = threadIdx.x; e < 10 * UR; e += blockDim.x) dg[e] = 0.0f;   // dg .. pacc
-  cluster.sync();   // every block of the cluster runs and has zeroed its state
+  // the block's rows of w, zeroed dW rows, state and peephole sums; units
+  // past the block's own are 0
+  for (int nb = 0; nb < bundles; ++nb) {
+    float* wg = W(nb);
+    float* dwg = DW(nb);
+    for (long long i = tid; i < slice; i += kThreads) {
+      const int c = static_cast<int>(i / K), k = u0 + N * nb + c;
+      const long long j = i % K;
+      if (k >= u1) {
+        wg[j * N + c] = 0.0f;
+      } else if (w_smem) {
+        cp_async4(wg + j * N + c, w + k * K + j);   // all of a thread's in flight at once
+      } else {
+        wg[j * N + c] = w[k * K + j];
+      }
+      dwg[j * N + c] = 0.0f;
+    }
+    float* st = DH(nb);
+    for (long long i = tid; i < state; i += kThreads) st[i] = 0.0f;
+  }
+  for (int i = tid; i < 3 * kThreads * bundles; i += kThreads) ps[i] = 0.0f;
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
 
   for (int s = 0; s < T; ++s) {
+    if (clocked) phase_ns[3 * s] = global_ns();
     const int t = reverse ? s : T - 1 - s;
-    float* pcur = part + (s & 1) * HR;
+    const long long tB = static_cast<long long>(t) * B;
+    float* dxt = dx4 + tB * K;
 
-    // gate gradients of the own units, one (unit, row) item at a time
-    for (int it = threadIdx.x; it < UR; it += blockDim.x) {
-      const int u = it % U, r = it / U;
-      const int k = k0 + u, b = row0 + r;
-      if (u >= Uc) continue;
-      const int q = u * kRows + r;
-      if (b >= B) {
+    // 1: the gate gradients of the owned units and rows. Thread tid takes
+    //    items tid, tid + 256, ...: always unit c = tid % N (256 % N = 0),
+    //    so its peephole sums are one accumulator each. Every operand of a
+    //    batch of kBatch items is loaded before any is used, so that their
+    //    round trips to device memory overlap.
+    for (int nb = 0; nb < bundles; ++nb) {
+      float* dhs = DH(nb);
+      float* dcs = DC(nb);
+      float* hps = HP(nb);
+      float* psb = ps + nb * 3 * kThreads;
+      for (int i0 = tid; i0 < rows * N; i0 += kThreads * kBatch) {
+        bool ok[kBatch];
+        float m[kBatch], a[kBatch], ig[kBatch], fg[kBatch], og[kBatch], cp[kBatch],
+            hp[kBatch], dyv[kBatch];
 #pragma unroll
-        for (int g = 0; g < 4; ++g) dg[g * UR + q] = 0.0f;
-        continue;
-      }
-      const long long row = static_cast<long long>(t) * B + b;
-      const float m = mask[t * m_st + b * m_sb];
-      const float* ar = acts + row * H4 + k;
-      const float a = ar[0], ig = ar[H], fg = ar[2 * H], og = ar[3 * H];
-      const float cp = cprev[row * H + k];
-      const float cn = fg * cp + ig * a;
-      const float sc = act_f32(act_state, cn);
-      const float dhv = DH[q], dcv = DC[q];
-      const float dh = m * (dhv + dy[t * dy_st + b * dy_sb + k]);
-      const float dgo = dh * sc * dact_f32(act_gate, og);
-      const float dc = dh * og * dact_f32(act_state, sc) + m * dcv + dgo * peep[2 * H + k];
-      const float dgi = dc * a * dact_f32(act_gate, ig);
-      const float dgf = dc * cp * dact_f32(act_gate, fg);
-      const float dga = dc * ig * dact_f32(act_in, a);
-      float* dxr = dx4 + row * H4 + k;
-      dxr[0] = dga;
-      dxr[H] = dgi;
-      dxr[2 * H] = dgf;
-      dxr[3 * H] = dgo;
-      dg[q] = dga;
-      dg[UR + q] = dgi;
-      dg[2 * UR + q] = dgf;
-      dg[3 * UR + q] = dgo;
-      DC[q] = dc * fg + dgi * peep[k] + dgf * peep[H + k] + (1.0f - m) * dcv;
-      DHm[q] = (1.0f - m) * dhv;
-      pacc[q] += dgi * cp;
-      pacc[UR + q] += dgf * cp;
-      pacc[2 * UR + q] += dgo * cn;
-    }
-    __syncthreads();
-
-    // this block's share of the next DH for every unit kk:
-    //   pcur[kk][r] = sum over own columns j of dg[j][r] * w[kk, j]
-    for (int kk = threadIdx.x; kk < H; kk += blockDim.x) {
-      float acc[kRows];
+        for (int q = 0; q < kBatch; ++q) {
+          const int i = i0 + q * kThreads;
+          const int k = u0 + N * nb + i % N;
+          ok[q] = i < rows * N && k < u1;
+          const int b = row0 + (ok[q] ? i / N : 0);
+          const long long row = tB + b;
+          const int kk = ok[q] ? k : u0;
+          const float* ar = acts + row * K + kk;    // [a | i | f | o]
+          m[q] = ok[q] ? mask[t * m_st + b * m_sb] : 0.0f;
+          a[q] = ok[q] ? ar[0] : 0.0f;
+          ig[q] = ok[q] ? ar[H] : 0.0f;
+          fg[q] = ok[q] ? ar[2 * H] : 0.0f;
+          og[q] = ok[q] ? ar[3 * H] : 0.0f;
+          cp[q] = ok[q] ? cprev[row * H + kk] : 0.0f;
+          hp[q] = ok[q] ? hprev[row * H + kk] : 0.0f;
+          dyv[q] = ok[q] ? dy[t * dy_st + b * dy_sb + kk] : 0.0f;
+        }
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[r] = 0.0f;
-      for (int g = 0; g < 4; ++g) {
-        const float* wrow = wt + (g * H + k0) * static_cast<long long>(H) + kk;
-        const float* dgg = dg + g * UR;
-#pragma unroll 2
-        for (int u = 0; u < Uc; ++u) {
-          const float wv = wrow[u * static_cast<long long>(H)];
-          const float4* d = reinterpret_cast<const float4*>(dgg + u * kRows);
-#pragma unroll
-          for (int q4 = 0; q4 < kRows / 4; ++q4) {
-            const float4 dv = d[q4];
-            acc[4 * q4 + 0] = fmaf(dv.x, wv, acc[4 * q4 + 0]);
-            acc[4 * q4 + 1] = fmaf(dv.y, wv, acc[4 * q4 + 1]);
-            acc[4 * q4 + 2] = fmaf(dv.z, wv, acc[4 * q4 + 2]);
-            acc[4 * q4 + 3] = fmaf(dv.w, wv, acc[4 * q4 + 3]);
-          }
+        for (int q = 0; q < kBatch; ++q) {
+          if (!ok[q]) continue;
+          const int i = i0 + q * kThreads;
+          const int k = u0 + N * nb + i % N;
+          const int b = row0 + i / N;
+          const float cn = fg[q] * cp[q] + ig[q] * a[q];
+          const float sc = act_f32(act_state, cn);
+          const float dcv = dcs[i];
+          const float dh = m[q] * (dhs[i] + dyv[q]);
+          const float dgo = dh * sc * dact_f32(act_gate, og[q]);
+          const float dc = dh * og[q] * dact_f32(act_state, sc) + m[q] * dcv
+                           + dgo * peep[2 * H + k];
+          const float dgi = dc * a[q] * dact_f32(act_gate, ig[q]);
+          const float dgf = dc * cp[q] * dact_f32(act_gate, fg[q]);
+          const float dga = dc * ig[q] * dact_f32(act_in, a[q]);
+          float* dxr = dxt + static_cast<long long>(b) * K + k;
+          __stcg(dxr, dga);
+          __stcg(dxr + H, dgi);
+          __stcg(dxr + 2 * H, dgf);
+          __stcg(dxr + 3 * H, dgo);
+          dcs[i] = dc * fg[q] + dgi * peep[k] + dgf * peep[H + k] + (1.0f - m[q]) * dcv;
+          hps[i] = hp[q];
+          psb[tid] += dgi * cp[q];
+          psb[kThreads + tid] += dgf * cp[q];
+          psb[2 * kThreads + tid] += dgo * cn;
         }
       }
-      float4* out = reinterpret_cast<float4*>(pcur + kk * kRows);
-#pragma unroll
-      for (int q4 = 0; q4 < kRows / 4; ++q4)
-        out[q4] = make_float4(acc[4 * q4], acc[4 * q4 + 1], acc[4 * q4 + 2], acc[4 * q4 + 3]);
     }
-    cluster.sync();   // every share of this step is written
+    bar.sync();                                       // the group's dx4[t] is written
+    if (clocked) phase_ns[3 * s + 1] = global_ns();
 
-    // DH of the own units: the C shares in rank order, plus (1 - m) DH
-    for (int it = threadIdx.x; it < UR; it += blockDim.x) {
-      const int u = it % U, r = it / U;
-      if (u >= Uc) continue;
-      const int q = u * kRows + r;
-      float sum = 0.0f;
-      for (int p = 0; p < C; ++p) sum += cluster.map_shared_rank(pcur, p)[(k0 + u) * kRows + r];
-      DH[q] = sum + DHm[q];
+    // 2: DH = dx4[t] . w[k, :]^T + (1 - m) DH;  dW[k, :] += h_prev^T . dx4[t]
+    for (int nb = 0; nb < bundles; ++nb) {
+      float* dhs = DH(nb);
+      product_colsum_staged<N, Tile<N>::kCols, Tile<N>::kRows, Tile<N>::kStages>(
+          dxt + static_cast<long long>(row0) * K, K, rows, static_cast<int>(K), W(nb), HP(nb),
+          DW(nb), red, ring, [&](int bl, int c, float v) {
+            const int i = bl * N + c;
+            const float m = mask[t * m_st + (row0 + bl) * m_sb];
+            dhs[i] = v + (1.0f - m) * dhs[i];
+          });
+    }
+    if (clocked) phase_ns[3 * s + 2] = global_ns();
+  }
+
+  // dpeep: this block's sums for its units, one per unit over the threads
+  // that held it, in thread order; with one row group they are the result
+  __syncthreads();
+  for (int e = tid; e < 3 * bundles * N; e += kThreads) {
+    const int g = e / (bundles * N), nb = (e / N) % bundles, c = e % N;
+    const int k = u0 + N * nb + c;
+    if (k >= u1) continue;
+    const float* src = ps + (nb * 3 + g) * kThreads;
+    float sum = 0.0f;
+    for (int x = c; x < kThreads; x += N) sum += src[x];
+    if (P == 1) {
+      dpeep[g * H + k] = sum;
+    } else {
+      __stcg(ppart + (static_cast<long long>(p) * 3 + g) * H + k, sum);
     }
   }
-  cluster.sync();   // no peer still reads this block's shares when it exits
-
-  // this tile's peephole partials, each summed over its rows in order
-  for (int e = threadIdx.x; e < 3 * Uc; e += blockDim.x) {
-    const int g = e / Uc, u = e % Uc;
-    const float* src = pacc + g * UR + u * kRows;
-    float sum = 0.0f;
-    for (int r = 0; r < kRows; ++r) sum += src[r];
-    peep_part[blockIdx.y * 3LL * H + g * H + k0 + u] = sum;
+  if (P > 1) {
+    // the other groups' dW partials, then one barrier over the whole grid
+    if (p > 0) {
+      for (int nb = 0; nb < bundles; ++nb) {
+        const float* dwg = DW(nb);
+        float* part = dwpart + (p - 1) * static_cast<long long>(H) * K;
+        for (long long i = tid; i < slice; i += kThreads) {
+          const int c = static_cast<int>(i / K), k = u0 + N * nb + c;
+          const long long j = i % K;
+          if (k < u1) __stcg(part + k * K + j, dwg[j * N + c]);
+        }
+      }
+    }
+    GridBarrier all{counters + P, 0, static_cast<unsigned>(gridDim.x)};
+    all.sync();
+    if (p > 0) return;
+    for (int e = tid; e < 3 * (u1 - u0); e += kThreads) {
+      const int g = e / (u1 - u0), k = u0 + e % (u1 - u0);
+      float sum = 0.0f;
+      for (int q = 0; q < P; ++q) sum += __ldcg(ppart + (q * 3LL + g) * H + k);
+      dpeep[g * H + k] = sum;
+    }
+  }
+  // dW: group 0's rows, plus the other groups' in group order, written once
+  for (int nb = 0; nb < bundles; ++nb) {
+    const float* dwg = DW(nb);
+    for (long long i = tid; i < slice; i += kThreads) {
+      const int c = static_cast<int>(i / K), k = u0 + N * nb + c;
+      const long long j = i % K;
+      if (k >= u1) continue;
+      float v = dwg[j * N + c];
+      for (int q = 1; q < P; ++q)
+        v += __ldcg(dwpart + (q - 1) * static_cast<long long>(H) * K + k * K + j);
+      dw[k * K + j] = v;
+    }
   }
 }
 
-__global__ void transpose_kernel(const float* __restrict__ in, float* __restrict__ out,
-                                 int rows, int cols) {
-  __shared__ float tile[32][33];
-  int x = blockIdx.x * 32 + threadIdx.x;
-  int y = blockIdx.y * 32 + threadIdx.y;
-  for (int i = 0; i < 32; i += 8)
-    if (x < cols && y + i < rows) tile[threadIdx.y + i][threadIdx.x] = in[(y + i) * static_cast<long long>(cols) + x];
-  __syncthreads();
-  x = blockIdx.y * 32 + threadIdx.x;
-  y = blockIdx.x * 32 + threadIdx.y;
-  for (int i = 0; i < 32; i += 8)
-    if (x < rows && y + i < cols) out[(y + i) * static_cast<long long>(rows) + x] = tile[threadIdx.x][threadIdx.y + i];
+template <int N, int kActIn, int kActGate, int kActState>
+cudaError_t launch(const BwdPlan& plan, size_t smem, const float* dy, long long dy_st,
+                   long long dy_sb, const float* acts, const float* hprev, const float* cprev,
+                   const float* mask, long long m_st, long long m_sb, const float* w,
+                   const float* peep, float* dx4, float* dw, float* dpeep, float* wslices,
+                   float* dwacc, float* dwpart, float* ppart, unsigned* counters,
+                   unsigned long long* phase_ns, int T, int B, int H, int reverse, int act_in,
+                   int act_gate, int act_state, int w_smem, int dw_smem, cudaStream_t st) {
+  return launch_cooperative(lstm_bwd_kernel<N, kActIn, kActGate, kActState>,
+                            plan.P * plan.G, smem, st, dy, dy_st, dy_sb, acts, hprev, cprev,
+                            mask, m_st, m_sb, w, peep, dx4, dw, dpeep, wslices, dwacc, dwpart,
+                            ppart, counters, phase_ns, T, B, H, reverse, act_in, act_gate,
+                            act_state, plan.G, plan.gpb, plan.R, w_smem, dw_smem);
 }
 
 }  // namespace
@@ -202,51 +371,60 @@ __global__ void transpose_kernel(const float* __restrict__ in, float* __restrict
 // strides (in elements; the last dimension is contiguous). acts [T, B, 4H],
 // hprev, cprev [T, B, H] (the residuals of lstm_fwd_train), w [H, 4H], peep
 // [3, H], and the outputs dx4 [T, B, 4H], dw [H, 4H] and dpeep [3, H] are
-// contiguous. Scratch: wt [4H, H] and peep_part [ceil(B / 16), 3H] (any
-// buffer of at least that many rows). `reverse` and act_* are the
-// forward's. H <= 1024. Launches the transposed copy of w, the reversed-time
-// recurrence and the two contractions on `stream`; returns
-// cudaGetLastError() (or the first launch error).
+// contiguous. `reverse` and act_* (act_f32 codes) are the forward's. The
+// grid: num_sms (the card's SM count) and row_groups P (1 <= P <= num_sms;
+// fused_lstm.grid_plan); w_smem and dw_smem say whether a block keeps its
+// rows of w and of dW in shared memory. Scratch: where not, wslices and
+// dwacc (each blocks * bundles * 4H * N floats); dwpart ((P - 1) H 4H
+// floats) and ppart (3 P H floats) when P > 1; counters (P + 1 unsigned).
+// runtime_acts = 1 reads the activation codes at run time even for a
+// compiled-in triple (to time the two forms). phase_ns, when not null ([T][3]
+// unsigned 64-bit integers), receives block 0's clock in ns at each step's
+// start, at the end of its phase 1 (with its barrier) and of phase 2.
+// Launches the whole backward, dW and dpeep included, on `stream`
+// (cooperatively; T = 0 writes dW = 0 and dpeep = 0); returns the launch's
+// error, cudaErrorCooperativeLaunchTooLarge, or cudaErrorInvalidValue for a
+// plan past what a block may hold or a missing scratch buffer.
 extern "C" int lstm_bwd(const void* dy, long long dy_st, long long dy_sb,
                         const void* acts, const void* hprev, const void* cprev,
                         const void* mask, long long m_st, long long m_sb,
                         const void* w, const void* peep,
-                        void* dx4, void* dw, void* dpeep, void* wt, void* peep_part,
+                        void* dx4, void* dw, void* dpeep, void* wslices, void* dwacc,
+                        void* dwpart, void* ppart, void* counters, void* phase_ns,
                         int T, int B, int H, int reverse,
-                        int act_in, int act_gate, int act_state, void* stream) {
+                        int act_in, int act_gate, int act_state, int num_sms, int row_groups,
+                        int w_smem, int dw_smem, int runtime_acts, void* stream) {
+  if (T < 0 || B < 0 || H <= 0 || row_groups < 1 || row_groups > num_sms)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int C = (H + 63) / 64;
-  C = C < 1 ? 1 : (C > kMaxCluster ? kMaxCluster : C);
-  const int U = (H + C - 1) / C;
-  const size_t smem = (2 * static_cast<size_t>(H) + 10 * static_cast<size_t>(U)) * kRows * sizeof(float);
-  cudaError_t err = allow_smem(lstm_bwd_kernel, smem);
+  const BwdPlan plan = make_bwd_plan(B, H, num_sms, row_groups);
+  const size_t smem = bwd_smem_floats(plan, H, w_smem, dw_smem) * sizeof(float);
+  if (smem > kSmemLimit || (!w_smem && wslices == nullptr) || (!dw_smem && dwacc == nullptr)
+      || (plan.P > 1 && (dwpart == nullptr || ppart == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaMemsetAsync(counters, 0, (plan.P + 1) * sizeof(unsigned), st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (H <= 0) return static_cast<int>(cudaGetLastError());
-  const int tiles = (B + kRows - 1) / kRows;
-  float* wtp = static_cast<float*>(wt);
-  float* part = static_cast<float*>(peep_part);
-  if (T > 0 && B > 0) {
-    transpose_kernel<<<dim3((4 * H + 31) / 32, (H + 31) / 32), dim3(32, 8), 0, st>>>(
-        static_cast<const float*>(w), wtp, H, 4 * H);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    err = launch_cluster(lstm_bwd_kernel, dim3(C, tiles), dim3(kThreads), smem, st, C,
-                         static_cast<const float*>(dy), dy_st, dy_sb,
-                         static_cast<const float*>(acts), static_cast<const float*>(cprev),
-                         static_cast<const float*>(mask), m_st, m_sb,
-                         static_cast<const float*>(wtp), static_cast<const float*>(peep),
-                         static_cast<float*>(dx4), part, T, B, H, U, reverse,
-                         act_in, act_gate, act_state);
-    if (err != cudaSuccess) return static_cast<int>(err);
+#define LSTM_BWD_ARGS plan, smem, static_cast<const float*>(dy), dy_st, dy_sb, \
+    static_cast<const float*>(acts), static_cast<const float*>(hprev),          \
+    static_cast<const float*>(cprev), static_cast<const float*>(mask), m_st, m_sb, \
+    static_cast<const float*>(w), static_cast<const float*>(peep), static_cast<float*>(dx4), \
+    static_cast<float*>(dw), static_cast<float*>(dpeep), static_cast<float*>(wslices), \
+    static_cast<float*>(dwacc), static_cast<float*>(dwpart), static_cast<float*>(ppart), \
+    static_cast<unsigned*>(counters), static_cast<unsigned long long*>(phase_ns), T, B, H, \
+    reverse, act_in, act_gate, act_state, w_smem, dw_smem, st
+  // (tanh, sigmoid, sigmoid) and (tanh, sigmoid, tanh) compiled in, the rest at run time
+  const int fixed = runtime_acts || act_in != 0 || act_gate != 1 ? -1
+                    : act_state == 1 ? 1 : act_state == 0 ? 0 : -1;
+  if (plan.N == 8) {
+    err = fixed == 1   ? launch<8, 0, 1, 1>(LSTM_BWD_ARGS)
+          : fixed == 0 ? launch<8, 0, 1, 0>(LSTM_BWD_ARGS)
+                       : launch<8, -1, -1, -1>(LSTM_BWD_ARGS);
+  } else {
+    err = fixed == 1   ? launch<4, 0, 1, 1>(LSTM_BWD_ARGS)
+          : fixed == 0 ? launch<4, 0, 1, 0>(LSTM_BWD_ARGS)
+                       : launch<4, -1, -1, -1>(LSTM_BWD_ARGS);
   }
-  const int N = T * B;
-  // dW = hprev^T . dx4 over all N rows (zero when N = 0)
-  err = atb(static_cast<const float*>(hprev), H, nullptr, 0,
-            static_cast<const float*>(dx4), 4LL * H, static_cast<float*>(dw), 4LL * H,
-            N, H, 4 * H, st);
+#undef LSTM_BWD_ARGS
   if (err != cudaSuccess) return static_cast<int>(err);
-  // dpeep = the column sums of the tiles' partials
-  return static_cast<int>(atb(nullptr, 0, nullptr, 0, part, 3LL * H,
-                              static_cast<float*>(dpeep), 3LL * H,
-                              T > 0 ? tiles : 0, 1, 3 * H, st));
+  return static_cast<int>(cudaGetLastError());
 }

@@ -1,8 +1,8 @@
 // persistent_grid.cuh — the pieces shared by the persistent, weight-
 // stationary recurrence kernels (the attention-GRU forward of
-// attention_gru_fwd.cuh, attention_gru_bwd.cu, gru_bwd.cu): a cooperative
-// launch, a grid barrier, and the block products of all B rows with a
-// weight slice held in shared memory.
+// attention_gru_fwd.cuh, attention_gru_bwd.cu, gru_fwd_train.cu,
+// gru_bwd.cu, lstm_bwd.cu): a cooperative launch, a grid barrier, and the
+// block products of all B rows with a weight slice held in shared memory.
 //
 // Layout every kernel here keeps: 256 threads (8 warps) a block, one block
 // on each SM it uses. A block product walks the rows in tiles of 64, eight
@@ -43,14 +43,17 @@ __device__ __forceinline__ unsigned ld_acquire_gpu(const unsigned* p) {
   return v;
 }
 
-// A barrier across every block of a cooperative launch. `counter` is zeroed
-// before the launch and only ever grows: the n-th barrier of a block waits
-// until it reads n * gridDim.x. Every write a block made before sync() is
-// visible to every block after it, if the reader reads through L2
-// (__ldcg): the L1 of an SM is not coherent with the other SMs' writes.
+// A barrier across every block of a cooperative launch, or across the
+// `blocks` blocks that share `counter` when it is set (a part of the grid
+// that waits on no other part). `counter` is zeroed before the launch and
+// only ever grows: the n-th barrier of a block waits until it reads
+// n * blocks. Every write a block made before sync() is visible to every
+// block after it, if the reader reads through L2 (__ldcg): the L1 of an SM
+// is not coherent with the other SMs' writes.
 struct GridBarrier {
   unsigned* counter;
   unsigned passed;
+  unsigned blocks = 0;   // 0: every block of the grid
 
   __device__ __forceinline__ void sync() {
     __syncthreads();
@@ -58,7 +61,7 @@ struct GridBarrier {
     if (threadIdx.x == 0) {
       __threadfence();
       atomicAdd(counter, 1u);
-      const unsigned target = passed * gridDim.x;
+      const unsigned target = passed * (blocks != 0 ? blocks : gridDim.x);
       while (ld_acquire_gpu(counter) < target) {
       }
       __threadfence();
@@ -258,6 +261,139 @@ __device__ __forceinline__ void product_colsum4(const float* X, long long ldx, i
 #pragma unroll
       for (int w = 0; w < kWarps; ++w) v += red[w * kRowTile * 4 + i];
       epi(tile0 + i / 4, i % 4, v);
+    }
+    __syncthreads();
+  }
+}
+
+// product_colsum4 over N output columns (the units of one or more unit
+// groups, N a multiple of 4), with X staged through shared memory:
+//   out(b, c) = sum_k X[b, k] W[k][c] to epi(b, c, value), c < N;
+//   DW[k][c] += sum_b S[b][c] X[b, k],
+// W and DW [K][N], S [nrows][N]. X is read once for all N columns: the
+// rows of a chunk (kRows rows, the 256 kCols columns of a column batch)
+// are copied by cp.async into a ring of kStages slots ([kRows][256 kCols]
+// floats each, `ring`), kStages - 1 chunks ahead of the one the threads
+// multiply, so the L2 round trips of the next chunks overlap the FMAs and
+// the butterfly of this one (product_colsum4 issues a chunk's loads and
+// then waits on them, with nothing to do meanwhile). The sums run in the
+// same fixed order. X, ldx and K must allow 16-byte copies: X 16-byte
+// aligned, ldx and K multiples of 4. The cross-warp sums take
+// [kWarps][kRowTile][N] floats of `red`. Returns with the block
+// synchronised; with nrows = 0 it does nothing.
+template <int N, int kCols, int kRows, int kStages, typename Epi>
+__device__ __forceinline__ void product_colsum_staged(const float* X, long long ldx, int nrows,
+                                                      int K, const float* W, const float* S,
+                                                      float* DW, float* red, float* ring,
+                                                      Epi epi) {
+  static_assert(N % 4 == 0, "rows of W, S and DW are read as float4");
+  static_assert(kRowTile % kRows == 0 && kRows * N % 32 == 0, "whole chunks, whole lanes");
+  static_assert(kStages >= 2, "a chunk in flight while one is multiplied");
+  constexpr int kPer = kRows * N / 32;            // sums a lane holds after the butterfly
+  constexpr int kQ = N / 4;                       // float4s of a row of W, S or DW
+  constexpr int kWidth = kThreads * kCols;        // columns of a batch
+  constexpr int kSlot = kRows * kWidth;           // floats of a ring slot
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const float4* W4 = reinterpret_cast<const float4*>(W);
+  const float4* S4 = reinterpret_cast<const float4*>(S);
+  float4* DW4 = reinterpret_cast<float4*>(DW);
+  for (int tile0 = 0; tile0 < nrows; tile0 += kRowTile) {
+    const int rows = min(kRowTile, nrows - tile0);
+    const int chunks = (rows + kRows - 1) / kRows;
+    for (int kb = 0; kb < K; kb += kWidth) {
+      // chunk c's rows of this column batch into slot c % kStages, 16 bytes
+      // a copy; rows past nrows and columns past K read as 0
+      auto issue = [&](int c) {
+        const int b0 = tile0 + c * kRows;
+        float* dst = ring + (c % kStages) * kSlot;
+        for (int i = tid; i < kSlot / 4; i += kThreads) {
+          const int r = i / (kWidth / 4), col = 4 * (i % (kWidth / 4));
+          const bool ok = b0 + r < nrows && kb + col < K;
+          cp_async16_cg(dst + r * kWidth + col,
+                        ok ? X + static_cast<long long>(b0 + r) * ldx + kb + col : X, ok);
+        }
+      };
+      bool kok[kCols];
+      float w[kCols][N], d[kCols][N];
+#pragma unroll
+      for (int u = 0; u < kCols; ++u) {
+        const int k = kb + tid + kThreads * u;
+        kok[u] = k < K;
+#pragma unroll
+        for (int q = 0; q < kQ; ++q) {
+          const float4 wv = kok[u] ? W4[k * kQ + q] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          const float4 dv = kok[u] ? DW4[k * kQ + q] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          w[u][4 * q] = wv.x; w[u][4 * q + 1] = wv.y; w[u][4 * q + 2] = wv.z; w[u][4 * q + 3] = wv.w;
+          d[u][4 * q] = dv.x; d[u][4 * q + 1] = dv.y; d[u][4 * q + 2] = dv.z; d[u][4 * q + 3] = dv.w;
+        }
+      }
+      for (int c = 0; c < kStages - 1; ++c) {
+        if (c < chunks) issue(c);
+        cp_async_commit();
+      }
+      for (int c = 0; c < chunks; ++c) {
+        // chunk c has landed (kStages - 2 later ones may still be in
+        // flight), every thread sees it, and every thread is done with
+        // chunk c - 1, whose slot chunk c + kStages - 1 takes
+        cp_async_wait<kStages - 2>();
+        __syncthreads();
+        if (c + kStages - 1 < chunks) issue(c + kStages - 1);
+        cp_async_commit();
+        const float* xs = ring + (c % kStages) * kSlot + tid;
+        const int r0 = c * kRows;
+        const int b0 = tile0 + r0;
+        float x[kCols][kRows];
+#pragma unroll
+        for (int r = 0; r < kRows; ++r)
+#pragma unroll
+          for (int u = 0; u < kCols; ++u) x[u][r] = xs[r * kWidth + kThreads * u];
+        float acc[kRows][N];
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          float sr[N];
+#pragma unroll
+          for (int q = 0; q < kQ; ++q) {
+            const float4 sv = b0 + r < nrows ? S4[(b0 + r) * kQ + q]
+                                             : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+            sr[4 * q] = sv.x; sr[4 * q + 1] = sv.y; sr[4 * q + 2] = sv.z; sr[4 * q + 3] = sv.w;
+          }
+#pragma unroll
+          for (int c2 = 0; c2 < N; ++c2) {
+            float a = 0.0f;
+#pragma unroll
+            for (int u = 0; u < kCols; ++u) {
+              a = fmaf(x[u][r], w[u][c2], a);
+              d[u][c2] = fmaf(sr[c2], x[u][r], d[u][c2]);
+            }
+            acc[r][c2] = a;
+          }
+        }
+        Halve<kRows * N, 16>::run(&acc[0][0], lane);
+#pragma unroll
+        for (int j = 0; j < kPer; ++j) {
+          float* rp = red + (warp * kRowTile + r0) * N + kPer * lane + j;
+          *rp = kb == 0 ? (&acc[0][0])[j] : *rp + (&acc[0][0])[j];
+        }
+      }
+      __syncthreads();                            // the ring is free for the next batch
+#pragma unroll
+      for (int u = 0; u < kCols; ++u) {
+        const int k = kb + tid + kThreads * u;
+        if (kok[u]) {
+#pragma unroll
+          for (int q = 0; q < kQ; ++q)
+            DW4[k * kQ + q] = make_float4(d[u][4 * q], d[u][4 * q + 1], d[u][4 * q + 2],
+                                          d[u][4 * q + 3]);
+        }
+      }
+    }
+    for (int i = tid; i < rows * N; i += kThreads) {
+      float v = 0.0f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) v += red[w * kRowTile * N + i];
+      epi(tile0 + i / N, i % N, v);
     }
     __syncthreads();
   }

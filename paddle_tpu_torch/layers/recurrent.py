@@ -12,15 +12,16 @@ Layout contracts (from config_parser LstmLayer/GatedRecurrentLayer):
 ``lstmemory`` and ``gated_recurrent`` decide from the config and the
 shapes, before anything runs, as the JAX layers do with their kernels'
 ``supported()`` gates:
-- when the ops module's ``supported(acts, H)`` holds (the GRU's also takes
-  the batch B, which bounds its backward's grid), the layer calls its
+- when the ops module's ``supported(acts, H, B)`` holds (the batch B
+  bounds the persistent grids of the backward kernels), the layer calls its
   fused op (:func:`~paddle_tpu_torch.ops.fused_lstm.fused_lstm`,
   :func:`~paddle_tpu_torch.ops.fused_gru.fused_gru`): on the card that
   launches the kernels (the training forward and backward when a gradient
   is wanted, the light forward otherwise), on the CPU it runs the kernels'
   plain version and autograd through it gives the gradients;
 - otherwise (an activation outside the kernels' four, an LSTM wider than
-  1024) it runs its own eager time loop over the cell, the counterpart of
+  1024, a batch whose rows' state does not fit a block) it runs its own
+  eager time loop over the cell, the counterpart of
   the JAX layers' ``lax.scan``, and counts it in the ops module's
   ``EAGER_ROUTES``.
 A kernel that fails to build or launch still raises. The
@@ -71,7 +72,7 @@ def lstmemory_layer(cfg: LayerConfig, inputs: List[Argument], ctx: LayerContext)
     acts = (cfg.active_type or "tanh", cfg.active_gate_type or "sigmoid",
             cfg.active_state_type or "sigmoid")
     x4, mask = x.transpose(0, 1), _time_major_mask(a, x)
-    if fl.supported(acts, H):
+    if fl.supported(acts, H, x.shape[0]):
         ys = fused_lstm(x4, mask, w, peep, reverse=cfg.reversed, acts=acts)
     else:
         fl.EAGER_ROUTES += 1

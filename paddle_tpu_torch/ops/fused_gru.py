@@ -20,10 +20,12 @@ input requires a gradient (a ``torch.autograd.Function``), the light
 forward otherwise. For a CPU tensor it runs :func:`gru_forward_reference`,
 and autograd through it gives the gradients.
 
-The backward runs as a persistent, cooperative grid (one block on each SM,
-its rows of w and of dW in shared memory for the whole launch; see
-``csrc/gru_bwd.cu``), whose plan :func:`grid_plan` mirrors and
-:func:`supported` bounds.
+The training forward and the backward run as persistent, cooperative
+grids (one block on each SM, each owning unit groups of 4 hidden units:
+the forward their columns of w, the backward their rows of w and of dW, in
+shared memory for the whole launch; see ``csrc/gru_fwd_train.cu`` and
+``csrc/gru_bwd.cu``), whose plans :func:`fwd_train_plan` and
+:func:`grid_plan` mirror and :func:`supported` bounds.
 """
 
 from __future__ import annotations
@@ -61,8 +63,10 @@ _TAIL = [I32, I32, I32, I32,         # T, B, H, reverse
          I32, I32]                   # act_in, act_gate
 GRU_FWD = CudaKernel("gru_fwd.cu", "gru_fwd", _FWD_ARGS + _TAIL)
 GRU_FWD_TRAIN = CudaKernel(
-    "gru_fwd.cu", "gru_fwd_train",
-    _FWD_ARGS + [PTR, PTR] + _TAIL)  # acts, hprev
+    "gru_fwd_train.cu", "gru_fwd_train",
+    _FWD_ARGS + [PTR, PTR,           # acts, hprev
+                 PTR, PTR, PTR]      # scratch: r * h [B, H], w's columns where not in shared memory, the counter
+    + _TAIL + [I32, I32])            # num_sms, w_smem
 GRU_BWD = CudaKernel(
     "gru_bwd.cu", "gru_bwd",
     [PTR, I64, I64,                  # dy, its time and batch strides
@@ -142,6 +146,29 @@ def grid_barriers(T: int) -> int:
     return 2 * T
 
 
+def fwd_train_plan(B: int, H: int, sms: int) -> Dict[str, int]:
+    """Blocks, shared memory per block and placement of kernel 2.
+
+    Kernel 3's blocks and unit groups (:func:`grid_plan`); a block keeps
+    STATE floats a row and unit group in shared memory, and its groups'
+    columns of w there too where they fit (12 H floats a group), else in
+    device memory it alone touches. Its state is kernel 3's without the
+    cross-warp sums, so it fits wherever kernel 3's plan does."""
+    plan = grid_plan(B, H, sms)
+    gpb = plan["unit_groups_per_block"]
+    state = 4 * gpb * STATE * B
+    cols = 4 * gpb * 12 * H
+    w_in_smem = state + cols <= SMEM_LIMIT
+    return dict(blocks=plan["blocks"], unit_groups_per_block=gpb,
+                smem_bytes=state + cols * int(w_in_smem), w_in_smem=int(w_in_smem))
+
+
+def fwd_train_barriers(T: int) -> int:
+    """The grid barriers one launch of kernel 2 passes: two a step, but
+    after the last."""
+    return max(0, 2 * T - 1)
+
+
 def supported(acts, H: int, B: int, num_sms: Optional[int] = None) -> bool:
     """Whether kernels 1-3 take a GRU with activations ``acts`` = (act_in,
     act_gate), width ``H`` and batch ``B``.
@@ -198,9 +225,18 @@ def _launch_fwd(x3, mask, w, reverse, acts, residuals):
     if not residuals:
         GRU_FWD.launch(dev, *args, *tail)
         return ys
+    _check_supported(acts, B, H, dev)
+    sms = card_sms(dev)
+    plan = fwd_train_plan(B, H, sms)
     saved = torch.empty((T, B, 3 * H), device=dev)
     hprev = torch.empty((T, B, H), device=dev)
-    GRU_FWD_TRAIN.launch(dev, *args, ptr(saved), ptr(hprev), *tail)
+    rh = torch.empty((B, H), device=dev)
+    wslices = (None if plan["w_in_smem"] else
+               torch.empty(_cdiv(H, UNITS) * 12 * H, device=dev))
+    counter = torch.empty(1, dtype=torch.int32, device=dev)
+    GRU_FWD_TRAIN.launch(dev, *args, ptr(saved), ptr(hprev), ptr(rh),
+                         None if wslices is None else ptr(wslices), ptr(counter), *tail,
+                         sms, plan["w_in_smem"])
     return ys, saved, hprev
 
 

@@ -11,8 +11,12 @@ beforehand, peepholes peep [3, H] = (input, forget, output), and padded
 steps pass both carries through, so a reversed sequence stays at
 h0 = c0 = 0 until it starts. The kernels take tanh, sigmoid, relu and
 linear in each of the three activation slots (act_in, act_gate,
-act_state), as the Pallas kernels do, and H up to ``MAX_H``;
-:func:`supported` states that, and the ``lstmemory`` layer runs its eager
+act_state), as the Pallas kernels do, and H up to ``MAX_H``; the backward
+runs as a persistent, cooperative grid (row groups of blocks, each block
+owning unit groups of 4 hidden units, their rows of w and of dW in shared
+memory for the whole launch; see ``csrc/lstm_bwd.cu``), whose plan
+:func:`grid_plan` mirrors, and the batch bounds it. :func:`supported`
+states what the kernels take, and the ``lstmemory`` layer runs its eager
 time loop (counted in ``EAGER_ROUTES``) for anything else.
 
 :func:`fused_lstm` launches the kernels for a CUDA tensor and raises on
@@ -25,18 +29,29 @@ gives the gradients.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
-from paddle_tpu_torch.ops._build import I32, I64, PTR, CudaKernel, check, ptr
+from paddle_tpu_torch.ops._build import (
+    I32, I64, PTR, SMEM_LIMIT, CudaKernel, card_sms, check, ptr)
 from paddle_tpu_torch.ops.activations import apply_activation
-from paddle_tpu_torch.ops.fused_gru import ACT_CODES, _last_dim_contiguous
+from paddle_tpu_torch.ops.fused_gru import ACT_CODES, _cdiv, _last_dim_contiguous
 
 Tensor = torch.Tensor
 Acts = Tuple[str, str, str]
 DEFAULT_ACTS: Acts = ("tanh", "sigmoid", "sigmoid")
-MAX_H = 1024        # the kernels' limit: threads per block and shared memory
+MAX_H = 1024        # the forwards' limit: threads per block and shared memory
+# How kernel 8 cuts the work (csrc/lstm_bwd.cu): P row groups of blocks;
+# in each, blocks of unit groups of UNITS hidden units in bundles of 4 or
+# 8 units, each block keeping per bundle its rows of w and dW ([4H][N]
+# floats each) and STATE floats a row and unit of its group's rows, beside
+# the cross-warp sums of one 64-row tile (8 x 64 x N floats), the
+# peephole accumulators (3 x 256 floats a bundle) and the ring that stages
+# the rows of dx4 (RING_FLOATS).
+UNITS = 4
+STATE = 3
+RING_FLOATS = 16384     # 2 slots of 4 rows x 2048 columns (N = 8), or of 8 x 1024 (N = 4)
 # layer calls that ran the eager time loop because supported() refused
 EAGER_ROUTES = 0
 
@@ -55,8 +70,12 @@ LSTM_BWD = CudaKernel(
      PTR, PTR, PTR,                  # acts, hprev, cprev
      PTR, I64, I64,                  # mask
      PTR, PTR,                       # w, peep
-     PTR, PTR, PTR, PTR, PTR]        # dx4, dw, dpeep; scratch wt, peep partials
-    + _TAIL,
+     PTR, PTR, PTR,                  # dx4, dw, dpeep
+     PTR, PTR,                       # scratch: w's and dW's rows where not in shared memory
+     PTR, PTR, PTR,                  # the other row groups' dW and dpeep partials, the counters
+     PTR]                            # phase clocks [T][3] int64, or null
+    + _TAIL + [I32, I32,             # num_sms, row groups
+               I32, I32, I32],       # w_smem, dw_smem, runtime_acts
 )
 KERNELS = (LSTM_FWD, LSTM_FWD_TRAIN, LSTM_BWD)
 
@@ -109,10 +128,65 @@ def lstm_forward_reference(x4: Tensor, mask: Tensor, w: Tensor, peep: Tensor,
     return ys, torch.stack(saved), torch.stack(hprev), torch.stack(cprev)
 
 
-def supported(acts, H: int) -> bool:
+def grid_plan(B: int, H: int, sms: int, row_groups: Optional[int] = None) -> Dict[str, int]:
+    """Blocks, row groups, shared memory per block and placement of kernel 8.
+
+    ceil(H / 4) unit groups go to G blocks of each of P row groups, at
+    most sms blocks in all; a row group owns ceil(B / P) rows. By default
+    P = sms // ceil(groups / 2), at most B and at least 1: as many row
+    groups as the card holds with two unit groups a block. A block's
+    units are processed in bundles of N = 8 (4 when it owns one group),
+    each reading its group's rows once. A block keeps the state of its
+    rows in shared memory, and its rows of w, then of dW, there too where
+    they fit (4H N floats each a bundle); the rest in device memory it
+    alone touches."""
+    groups = _cdiv(H, UNITS)
+    if row_groups is None:
+        row_groups = max(1, min(B, sms // _cdiv(groups, 2)))
+    P = row_groups
+    G = max(1, min(groups, sms // P))
+    gpb = _cdiv(groups, G)
+    G = _cdiv(groups, gpb)
+    N = 8 if gpb >= 2 else 4
+    bundles = _cdiv(UNITS * gpb, N)
+    R = _cdiv(B, P)
+    state = 4 * (bundles * STATE * R * N + 8 * 64 * N + 3 * 256 * bundles + RING_FLOATS)
+    rows = 4 * bundles * 4 * H * N
+    w_in_smem = state + rows <= SMEM_LIMIT
+    dw_in_smem = state + 2 * rows <= SMEM_LIMIT
+    return dict(blocks=P * G, row_groups=P, blocks_per_group=G, unit_groups_per_block=gpb,
+                units_per_bundle=N, bundles=bundles, rows_per_group=R,
+                smem_bytes=state + rows * (int(w_in_smem) + int(dw_in_smem)),
+                w_in_smem=int(w_in_smem), dw_in_smem=int(dw_in_smem))
+
+
+def grid_barriers(T: int, row_groups: int) -> int:
+    """The barriers one launch of kernel 8 passes: one a step within its
+    row group, and one over the whole grid when there are several."""
+    return T + int(row_groups > 1)
+
+
+def supported(acts, H: int, B: int, num_sms: Optional[int] = None) -> bool:
     """Whether kernels 7a, 7b and 8 take an LSTM with activations ``acts`` =
-    (act_in, act_gate, act_state) and width ``H``."""
-    return len(acts) == 3 and all(a in ACT_CODES for a in acts) and 1 <= H <= MAX_H
+    (act_in, act_gate, act_state), width ``H`` and batch ``B``.
+
+    Both at least 1, H at most MAX_H, and kernel 8's grid fits: the state
+    of a block's rows in shared memory (its rows of w and dW go to device
+    memory when they do not fit beside it). ``num_sms`` defaults to the
+    current card's count (132 where there is no card)."""
+    if not (len(acts) == 3 and all(a in ACT_CODES for a in acts)):
+        return False
+    if not (1 <= H <= MAX_H and B >= 1):
+        return False
+    plan = grid_plan(B, H, card_sms() if num_sms is None else num_sms)
+    return plan["smem_bytes"] <= SMEM_LIMIT
+
+
+def _check_supported(acts, B, H, dev):
+    if not supported(acts, H, B, card_sms(dev)):
+        raise ValueError(
+            f"the LSTM kernels do not take B={B}, H={H} (fused_lstm.supported: both at "
+            f"least 1, H <= {MAX_H}, and a block's state within {SMEM_LIMIT} bytes)")
 
 
 def _act_codes(acts) -> Tuple[int, int, int]:
@@ -156,7 +230,14 @@ def _launch_fwd(x4, mask, w, peep, reverse, acts, residuals):
     return ys, saved, hprev, cprev
 
 
-def _launch_bwd(dy, saved, hprev, cprev, mask, w, peep, reverse, acts):
+def _launch_bwd(dy, saved, hprev, cprev, mask, w, peep, reverse, acts, phase_ns=None,
+                row_groups=None, runtime_acts=False):
+    """dx4 [T, B, 4H], dW [H, 4H] and dpeep [3, H]. ``phase_ns`` (an int64
+    [T, 3] tensor on the card, or None) receives block 0's clock in ns at
+    each step's start and at the ends of its two phases (the first with its
+    barrier). ``row_groups`` overrides the plan's P, and ``runtime_acts``
+    reads the activation codes at run time even for a triple compiled into
+    the kernel (both to time the alternatives)."""
     T, B, H4 = saved.shape
     H = H4 // 4
     dev = saved.device
@@ -166,16 +247,37 @@ def _launch_bwd(dy, saved, hprev, cprev, mask, w, peep, reverse, acts):
     check(saved, "acts", (T, B, H4), dev)
     check(hprev, "hprev", (T, B, H), dev)
     check(cprev, "cprev", (T, B, H), dev)
+    check(mask, "mask", (T, B), dev, contiguous=False)
+    check(w, "w", (H, H4), dev)
+    check(peep, "peep", (3, H), dev)
+    _check_supported(acts, max(B, 1), H, dev)
+    sms = card_sms(dev)
+    plan = grid_plan(B, H, sms, row_groups)
+    P = plan["row_groups"]
+    if not 1 <= P <= sms or plan["smem_bytes"] > SMEM_LIMIT:
+        raise ValueError(f"kernel 8 takes 1 <= row_groups <= {sms} within {SMEM_LIMIT} "
+                         f"bytes of shared memory a block, got {plan}")
+    if phase_ns is not None and (phase_ns.device != dev or phase_ns.dtype != torch.int64
+                                 or tuple(phase_ns.shape) != (T, 3)
+                                 or not phase_ns.is_contiguous()):
+        raise ValueError(f"phase_ns must be a contiguous int64 [{T}, 3] tensor on {dev}")
     dx4 = torch.empty((T, B, H4), device=dev)
     dw = torch.empty((H, H4), device=dev)
     dpeep = torch.empty((3, H), device=dev)
-    wt = torch.empty((H4, H), device=dev)                 # scratch: w transposed
-    part = torch.empty((max(B, 1), 3 * H), device=dev)    # scratch: per-tile peephole sums
+    rows = plan["blocks"] * plan["bundles"] * H4 * plan["units_per_bundle"]
+    wslices = None if plan["w_in_smem"] else torch.empty(rows, device=dev)
+    dwacc = None if plan["dw_in_smem"] else torch.empty(rows, device=dev)
+    dwpart = torch.empty(((P - 1) * H * H4,), device=dev) if P > 1 else None
+    ppart = torch.empty((P * 3 * H,), device=dev) if P > 1 else None
+    counters = torch.empty(P + 1, dtype=torch.int32, device=dev)
+    opt = lambda t: None if t is None else ptr(t)
     LSTM_BWD.launch(dev, ptr(dy), dy.stride(0), dy.stride(1),
                     ptr(saved), ptr(hprev), ptr(cprev),
                     ptr(mask), mask.stride(0), mask.stride(1), ptr(w), ptr(peep),
-                    ptr(dx4), ptr(dw), ptr(dpeep), ptr(wt), ptr(part),
-                    T, B, H, int(bool(reverse)), *codes)
+                    ptr(dx4), ptr(dw), ptr(dpeep), opt(wslices), opt(dwacc), opt(dwpart),
+                    opt(ppart), ptr(counters), opt(phase_ns),
+                    T, B, H, int(bool(reverse)), *codes, sms, P, plan["w_in_smem"],
+                    plan["dw_in_smem"], int(bool(runtime_acts)))
     return dx4, dw, dpeep
 
 
@@ -209,6 +311,7 @@ def fused_lstm(x4: Tensor, mask: Tensor, w: Tensor, peep: Tensor, reverse: bool 
     if x4.device.type == "cpu":
         return lstm_forward_reference(x4, mask, w, peep, reverse, acts)
     if torch.is_grad_enabled() and (x4.requires_grad or w.requires_grad or peep.requires_grad):
-        _check_operands(x4, mask, w, peep, acts)
+        _, B, H, dev, _ = _check_operands(x4, mask, w, peep, acts)
+        _check_supported(acts, B, H, dev)            # before the forward launches
         return _FusedLSTM.apply(x4, mask.detach(), w, peep, bool(reverse), tuple(acts))
     return _launch_fwd(x4, mask, w, peep, reverse, acts, residuals=False)

@@ -91,12 +91,16 @@ def _grad_tol(ref):
     return TOL * max(1.0, float(ref.abs().max()))
 
 
-@pytest.mark.parametrize("T,B,H", [(7, 5, 40), (1, 2, 8), (3, 2, 600), (2, 2, 2100)])
+@pytest.mark.parametrize("T,B,H", [(7, 5, 40), (1, 2, 8), (3, 2, 600), (2, 2, 2100),
+                                   (5, 1, 512), (5, 3, 512), (32, 64, 512), (5, 100, 512)])
 @pytest.mark.parametrize("reverse", [False, True])
 def test_gru_training_kernels_match_plain_version(dev, T, B, H, reverse):
-    """At H = 2100 a block's rows of w and of dW do not fit in its shared
-    memory (four unit groups a block): the backward keeps them in device
-    memory."""
+    """Kernel 2 (the persistent training forward) and kernel 3 fed from its
+    residuals. At H = 2100 a block's columns of w (kernel 2) and rows of w
+    and of dW (kernel 3) do not fit in its shared memory (four unit groups
+    a block): both keep them in device memory. B = 3 and 100 are not
+    multiples of the 64-row tile; two launches of kernel 2 give the same
+    bits; autograd launches kernels 2 and 3 once each and kernel 1 not."""
     from paddle_tpu_torch.ops import fused_gru as fg
 
     rng = np.random.RandomState(T * 1000 + H + reverse)
@@ -108,15 +112,18 @@ def test_gru_training_kernels_match_plain_version(dev, T, B, H, reverse):
     dy = _t(rng.randn(T, B, H), dev)
 
     got = fg._launch_fwd(x3, mask, w, reverse, fg.KERNEL_ACTS, residuals=True)
+    again = fg._launch_fwd(x3, mask, w, reverse, fg.KERNEL_ACTS, residuals=True)
     ref = fg.gru_forward_reference(x3, mask, w, reverse, residuals=True)
     torch.cuda.synchronize()
     for name, a, b in zip(("ys", "acts", "hprev"), got, ref):
+        assert torch.isfinite(a).all(), name
         assert float((a - b).abs().max()) <= TOL, name
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
-    before = (fg.GRU_FWD_TRAIN.launches, fg.GRU_BWD.launches)
+    before = [k.launches for k in fg.KERNELS]
     leaves = [x3.detach().requires_grad_(), w.detach().requires_grad_()]
     (fg.fused_gru(leaves[0], mask, leaves[1], reverse=reverse) * dy).sum().backward()
-    assert (fg.GRU_FWD_TRAIN.launches, fg.GRU_BWD.launches) == (before[0] + 1, before[1] + 1)
+    assert [k.launches for k in fg.KERNELS] == [before[0], before[1] + 1, before[2] + 1]
     plain = [x3.detach().requires_grad_(), w.detach().requires_grad_()]
     (fg.gru_forward_reference(plain[0], mask, plain[1], reverse) * dy).sum().backward()
     torch.cuda.synchronize()
@@ -397,16 +404,23 @@ def test_nmt_step_with_long_sources_takes_the_kernels(dev):
 
 LSTM_ACTS = [("tanh", "sigmoid", "sigmoid"), ("relu", "sigmoid", "tanh"),
              ("linear", "sigmoid", "linear")]
+# kernel 8's grid at every width and batch: T = 1 and 3, B not a multiple
+# of 64 or of the row groups (H = 37: ten unit groups, the last short)
+_LSTM_GRID_CASES = [(1 if B == 1 else 3, B, H) for B in (1, 3, 40, 100, 256)
+                    for H in (8, 37, 130, 512, 600, 1024)]
 
 
 @pytest.mark.parametrize("acts", LSTM_ACTS)
-@pytest.mark.parametrize("T,B,H", [(7, 5, 40), (1, 1, 8), (3, 2, 600), (4, 40, 130)])
+@pytest.mark.parametrize("T,B,H", [(7, 5, 40), (1, 1, 8), (3, 2, 600), (4, 40, 130)]
+                         + _LSTM_GRID_CASES)
 @pytest.mark.parametrize("reverse", [False, True])
 def test_lstm_kernels_match_plain_version(dev, T, B, H, reverse, acts):
-    """Kernels 7a, 7b and 8. H = 600 puts both kernels' shared memory
+    """Kernels 7a, 7b and 8. H = 600 puts the forwards' shared memory
     above 48 KB and the forward on its 16-row tiles (32 rows below); H =
-    130 runs clusters of three blocks, and B = 40 two row tiles of the
-    forward and three of the backward; the last row is all masked."""
+    130 runs the forward's clusters of three blocks. Kernel 8 runs as many
+    row groups as fused_lstm.grid_plan chooses (B of them at B <= 3, six
+    groups of no rows at B = 40, H = 37), with bundles of 4 or 8 units, and
+    at H = 1024 dW's rows in device memory; the last row is all masked."""
     from paddle_tpu_torch.ops import fused_lstm as fl
 
     rng = np.random.RandomState(T * 1000 + H + reverse)
@@ -444,6 +458,116 @@ def test_lstm_kernels_match_plain_version(dev, T, B, H, reverse, acts):
         assert torch.isfinite(a).all(), name
         assert float((a - b).abs().max()) <= _grad_tol(b), name
     assert not gk[0][:, -1].any()                     # the masked row gets nothing
+
+
+def _lstm_bwd_inputs(dev, T, B, H, seed, acts=None):
+    """Kernel 8's operands from kernel 7b's residuals: ragged lengths with
+    one full row and one of length 0, weights at 1/sqrt(H)."""
+    from paddle_tpu_torch.ops import fused_lstm as fl
+
+    acts = acts or fl.DEFAULT_ACTS
+    rng = np.random.RandomState(seed)
+    x4 = _t(rng.randn(B, T, 4 * H) * 0.5, dev).transpose(0, 1)
+    w = _t(rng.randn(H, 4 * H) / np.sqrt(H), dev)
+    peep = _t(rng.randn(3, H) * 0.1, dev)
+    lens = rng.randint(1, T + 1, B)
+    lens[0] = T
+    if B > 1:
+        lens[-1] = 0
+    mask = _t(np.arange(T)[:, None] < lens[None, :], dev)
+    dy = _t(rng.randn(T, B, H), dev)
+    _, saved, hprev, cprev = fl._launch_fwd(x4, mask, w, peep, False, acts, True)
+    return x4, w, peep, mask, dy, (dy, saved, hprev, cprev, mask, w, peep, False, acts)
+
+
+def _lstm_bwd_against_autograd(dev, x4, w, peep, mask, dy, got, acts=None):
+    from paddle_tpu_torch.ops import fused_lstm as fl
+
+    plain = [a.detach().requires_grad_() for a in (x4, w, peep)]
+    ys = fl.lstm_forward_reference(plain[0], mask, plain[1], plain[2], False,
+                                   acts or fl.DEFAULT_ACTS)
+    want = torch.autograd.grad(ys, plain, dy)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dx4", "dw", "dpeep"), got, want):
+        assert torch.isfinite(a).all(), name
+        assert float((a - b).abs().max()) <= _grad_tol(b), name
+
+
+def test_lstm_backward_is_deterministic_at_the_classifier_shape(dev):
+    """T = 64, B = 256, H = 512 (two row groups of 64 blocks, 8 units a
+    block): two launches of kernel 8 give the same bits, within 1e-4 of
+    scale of autograd through the plain version."""
+    from paddle_tpu_torch.ops import fused_lstm as fl
+
+    T, B, H = 64, 256, 512
+    assert fl.grid_plan(B, H, fl.card_sms(dev))["row_groups"] == 2
+    x4, w, peep, mask, dy, args = _lstm_bwd_inputs(dev, T, B, H, seed=17)
+    one = fl._launch_bwd(*args)
+    two = fl._launch_bwd(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+    _lstm_bwd_against_autograd(dev, x4, w, peep, mask, dy, one)
+
+
+@pytest.mark.parametrize("row_groups", [1, 3, 7])
+def test_lstm_backward_takes_any_row_groups(dev, row_groups):
+    """Kernel 8 with its row groups set by hand (7 leaves the last group
+    short) agrees with autograd; the runtime-code instance agrees with the
+    default activations' template."""
+    from paddle_tpu_torch.ops import fused_lstm as fl
+
+    x4, w, peep, mask, dy, args = _lstm_bwd_inputs(dev, 5, 40, 96, seed=row_groups)
+    got = fl._launch_bwd(*args, row_groups=row_groups)
+    _lstm_bwd_against_autograd(dev, x4, w, peep, mask, dy, got)
+    generic = fl._launch_bwd(*args, row_groups=row_groups, runtime_acts=True)
+    torch.cuda.synchronize()
+    for a, b in zip(got, generic):
+        assert float((a - b).abs().max()) <= _grad_tol(b)
+
+
+def test_lstm_backward_with_w_and_dw_rows_in_device_memory(dev):
+    """H = 1024, B = 1024: the rows' state leaves no room for w's or dW's
+    rows in shared memory, which the block then keeps in device memory."""
+    from paddle_tpu_torch.ops import fused_lstm as fl
+
+    plan = fl.grid_plan(1024, 1024, fl.card_sms(dev))
+    assert not plan["w_in_smem"] and not plan["dw_in_smem"]
+    x4, w, peep, mask, dy, args = _lstm_bwd_inputs(dev, 2, 1024, 1024, seed=23)
+    got = fl._launch_bwd(*args)
+    _lstm_bwd_against_autograd(dev, x4, w, peep, mask, dy, got)
+
+
+def test_lstm_backward_of_an_empty_sequence_is_zero(dev):
+    """T = 0: kernel 8 still launches and writes dW = 0 and dpeep = 0."""
+    from paddle_tpu_torch.ops import fused_lstm as fl
+
+    H, B = 40, 3
+    w = torch.randn(H, 4 * H, device=dev)
+    peep = torch.randn(3, H, device=dev)
+    empty = torch.zeros(0, B, H, device=dev)
+    before = fl.LSTM_BWD.launches
+    dx4, dw, dpeep = fl._launch_bwd(empty, torch.zeros(0, B, 4 * H, device=dev), empty, empty,
+                                    torch.zeros(0, B, device=dev), w, peep, False,
+                                    fl.DEFAULT_ACTS)
+    torch.cuda.synchronize()
+    assert fl.LSTM_BWD.launches == before + 1
+    assert dx4.shape == (0, B, 4 * H) and not dw.any() and not dpeep.any()
+
+
+def test_lstm_backward_phase_clocks_leave_the_result_alone(dev):
+    """Kernel 8 asked for its phase clocks: the same bits, and block 0's
+    clock rising through every step's phases."""
+    from paddle_tpu_torch.ops import fused_lstm as fl
+
+    T = 5
+    _, _, _, _, _, args = _lstm_bwd_inputs(dev, T, 64, 512, seed=29)
+    plain = fl._launch_bwd(*args)
+    clocks = torch.zeros((T, 3), dtype=torch.int64, device=dev)
+    clocked = fl._launch_bwd(*args, phase_ns=clocks)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(plain, clocked))
+    flat = clocks.flatten()
+    assert bool((flat[1:] >= flat[:-1]).all()) and int(flat[0]) > 0
 
 
 def test_lstm_kernels_are_deterministic(dev):

@@ -12,6 +12,8 @@ a config it accepts goes to the fused op. Tolerances: loss 1e-5 relative,
 gradients 1e-4 of max(1, max |JAX|) (float32 sums in another order).
 """
 
+import itertools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -115,12 +117,100 @@ def test_nmt_encoder_takes_the_eager_route_where_the_gate_refuses(monkeypatch):
 
 
 def test_lstm_supported_at_its_edges():
-    assert fl.supported(fl.DEFAULT_ACTS, 1) and fl.supported(fl.DEFAULT_ACTS, fl.MAX_H)
-    assert fl.MAX_H == 1024 and not fl.supported(fl.DEFAULT_ACTS, fl.MAX_H + 1)
-    assert not fl.supported(fl.DEFAULT_ACTS, 0)
-    assert fl.supported(("relu", "linear", "tanh"), 16)
-    assert not fl.supported(("tanh", "softmax", "tanh"), 16)
-    assert not fl.supported(("tanh", "sigmoid"), 16)
+    B = 3                                   # the batch bounds the backward's grid
+    assert fl.supported(fl.DEFAULT_ACTS, 1, B) and fl.supported(fl.DEFAULT_ACTS, fl.MAX_H, B)
+    assert fl.MAX_H == 1024 and not fl.supported(fl.DEFAULT_ACTS, fl.MAX_H + 1, B)
+    assert not fl.supported(fl.DEFAULT_ACTS, 0, B)
+    assert fl.supported(("relu", "linear", "tanh"), 16, B)
+    assert not fl.supported(("tanh", "softmax", "tanh"), 16, B)
+    assert not fl.supported(("tanh", "sigmoid"), 16, B)
+
+
+@pytest.mark.parametrize("H", [512, 1024])
+@pytest.mark.parametrize("B", [1, 256, 512])
+def test_lstm_backward_grid_holds_at_the_demo_widths(H, B):
+    """Kernel 8's grid at 132 SMs takes H <= 1024 for every B <= 512, at
+    every activation triple: the rows' state in shared memory, w's and dW's
+    rows there too where they fit (at H = 512 w's always do and dW's up to
+    256 rows; at H = 1024 dW's never do, and w's only beside a few rows'
+    state)."""
+    for acts in itertools.product(fl.ACT_CODES, repeat=3):
+        assert fl.supported(acts, H, B, num_sms=H100_SMS)
+    plan = fl.grid_plan(B, H, H100_SMS)
+    assert plan["smem_bytes"] <= fl.SMEM_LIMIT and plan["blocks"] <= H100_SMS
+    assert plan["dw_in_smem"] == (H == 512 and B <= 256)
+    assert plan["w_in_smem"] == (H == 512 or B == 1)
+
+
+@pytest.mark.parametrize("H,B", [(0, 64), (512, 0), (fl.MAX_H + 1, 1), (1032, 256),
+                                 (1024, 4096)])
+def test_lstm_gate_refuses_an_empty_dimension_or_what_cannot_fit(H, B):
+    """An empty dimension; a width past the forwards' MAX_H; the rows'
+    state of too many rows (3 floats a row and unit in shared memory)."""
+    assert not fl.supported(fl.DEFAULT_ACTS, H, B, num_sms=H100_SMS)
+
+
+def test_lstm_backward_main_path_plan():
+    """T = 64, B = 256, H = 512: two row groups of 64 blocks (128 in all),
+    each block owning 8 units, 128 rows, its rows of w and dW (65,536 B
+    each), the rows' state (12,288 B), the cross-warp sums (16,384 B), the
+    peephole sums (3,072 B) and the ring that stages dx4's rows (65,536 B);
+    one barrier a step and one over the grid. With one row group: 128
+    blocks of 4 units and all 256 rows."""
+    assert fl.grid_plan(256, 512, H100_SMS) == dict(
+        blocks=128, row_groups=2, blocks_per_group=64, unit_groups_per_block=2,
+        units_per_bundle=8, bundles=1, rows_per_group=128, smem_bytes=228352, w_in_smem=1,
+        dw_in_smem=1)
+    one = fl.grid_plan(256, 512, H100_SMS, row_groups=1)
+    assert (one["blocks"], one["units_per_bundle"], one["rows_per_group"]) == (128, 4, 256)
+    assert fl.grid_barriers(64, 2) == 65 and fl.grid_barriers(64, 1) == 64
+    few = fl.grid_plan(3, 37, H100_SMS)               # a row group a row
+    assert (few["row_groups"], few["rows_per_group"]) == (3, 1)
+
+
+@pytest.mark.parametrize("H,B_max", [(1024, 1401), (2100, 700), (9685, 147)])
+def test_gru_gate_keeps_its_edges_with_the_persistent_forward(H, B_max):
+    """fused_gru.supported does not narrow with kernel 2's grid: kernel 3's
+    edges at 132 SMs hold, one row past them is refused, and kernel 2's
+    plan fits wherever the gate holds (w's columns in device memory where
+    they do not fit beside the rows' state)."""
+    assert fg.supported(fg.KERNEL_ACTS, H, B_max, num_sms=H100_SMS)
+    assert not fg.supported(fg.KERNEL_ACTS, H, B_max + 1, num_sms=H100_SMS)
+    for B in (1, B_max // 2, B_max):
+        plan = fg.fwd_train_plan(B, H, H100_SMS)
+        assert plan["smem_bytes"] <= fg.SMEM_LIMIT
+        assert plan["blocks"] == fg.grid_plan(B, H, H100_SMS)["blocks"]
+    assert fg.fwd_train_plan(64, 512, H100_SMS) == dict(
+        blocks=128, unit_groups_per_block=1, smem_bytes=29696, w_in_smem=1)
+    assert fg.fwd_train_barriers(32) == 63 and fg.fwd_train_barriers(0) == 0
+
+
+def test_lstmemory_asks_the_gate_with_the_batch(monkeypatch):
+    """lstmemory asks fused_lstm.supported(acts, H, B) before anything
+    runs, with the batch of its input."""
+    asked = []
+    orig = fl.supported
+    monkeypatch.setattr(fl, "supported", lambda *a, **k: asked.append(a) or orig(*a, **k))
+    cfg = _recurrent_net("paddle_tpu_torch", "lstm", 8, "relu", 5)
+    rng = np.random.RandomState(4)
+    ids = rng.randint(0, 20, (3, 5)).astype(np.int32)
+    batch = {"words": make_seq(None, np.array([5, 3, 1], np.int32), ids=ids, device="cpu"),
+             "label": make_ids(rng.randint(0, 2, (3,)).astype(np.int32), device="cpu")}
+    m = GradientMachine(cfg.model_config, device="cpu")
+    m.grad_fn()(m.init_params(seed=5), batch)
+    assert asked == [(("relu", "sigmoid", "tanh"), 8, 3)]          # (acts, H, B)
+
+
+def test_lstm_classifier_takes_the_eager_route_where_the_gate_refuses(monkeypatch):
+    """With fused_lstm.supported refusing, the small LSTM classifier's
+    lstmemory runs its eager loop, counted once, and the loss (1e-5
+    relative) and every gradient (1e-4 of max(1, max |JAX|)) still match
+    the JAX package."""
+    monkeypatch.setattr(fl, "supported", lambda *a, **k: False)
+    before = fl.EAGER_ROUTES
+    jax_, port, fused_calls = _loss_and_grads("lstm", 8, "tanh", 5, monkeypatch)
+    assert (fl.EAGER_ROUTES - before, fused_calls) == (1, 0)
+    _assert_same(port, jax_)
 
 
 def test_flash_supported_at_its_edges():
