@@ -18,7 +18,10 @@ Phases, each printing one JSON object per line:
              CUDA events from a cold L2. GRU kernels 1-3 also run with
              (act_in, act_gate) = (relu, sigmoid), (linear, tanh),
              (tanh, relu) and (sigmoid, linear), each of the four
-             activations in each slot, held to 1e-4 of max(1, max |plain|).
+             activations in each slot, held to 1e-4 of max(1, max |plain|)
+             (with a ReLU candidate activation, LSTM kernel 8's gradients
+             against the plain version's at kernel 7b's own ReLU gates: a
+             gate that opens on one side only lies within GATE_EPS of 0).
              Kernels 5 and 6 (the persistent attention-GRU training grids)
              also at Te = 128, m (a residual of 5) against h_prev . wa + ba,
              two launches of each bit-equal, and the grid barrier timed.
@@ -52,11 +55,13 @@ Phases, each printing one JSON object per line:
 5. lstm_kernels — kernels 7a, 7b and 8 at the LSTM classifier's full
              width (T = 64, B = 256, H = 512), forward and reversed, with
              the default activations and with (relu, sigmoid, tanh), held
-             to their plain versions as in phase 2 and timed the same way.
-             Kernel 8 (the persistent LSTM backward, dW and dpeep in the
-             launch) two launches bit-equal, also timed with one row group
-             and with its activation codes read at run time, with its
-             phase clocks and the barrier timed on its own grid.
+             to their plain versions as in phase 2 and timed the same way;
+             two launches of each bit-equal. The forwards 7a and 7b (one
+             persistent body in row groups, w's columns resident) also
+             timed with 1, 2 and 4 row groups; kernel 8 (the persistent LSTM backward, dW
+             and dpeep in the launch) with one row group and with its
+             activation codes read at run time; both with their phase
+             clocks and the barrier timed on their own grid.
 6. lstm_train — the third main path: Trainer(flagship_config(
              dict_dim=10000, emb_dim=256, hidden=512, classes=2)) with
              batch size 256, random weights from seed 1, 8 Adam steps on
@@ -65,7 +70,8 @@ Phases, each printing one JSON object per line:
              per step, no lstm_fwd); the loss must fall. Then a B = 4 step
              against the CPU and one step under torch.profiler.
 7. lstm_test — the fourth: Trainer.test over 4 seeded batches of 256
-             between zeroed counters (4 lstm_fwd, no training kernel); the
+             between zeroed counters (4 lstm_fwd, no training kernel), one
+             batch more under torch.profiler (its device time); the
              test cost and classification_error of a B = 4 batch against
              the CPU's, and classification_error on the training batch no
              higher after the 8 steps than before them.
@@ -132,14 +138,14 @@ Phases, each printing one JSON object per line:
 
 Every main path (3, 4, 6, 7, 9, 10, 12, 13) runs between zeroed counts of
 the layers' eager routes too (gated_recurrent, lstmemory, full_attention,
-and the attention decoder group's loop: the EAGER_ROUTES of the ops
-modules) and fails if any layer took its eager computation instead of a
-kernel.
+the attention decoder group's loop, and the 1x1 convs whose shape kernel 9
+refuses: the EAGER_ROUTES of the ops modules) and fails if any layer took
+its eager computation instead of a kernel.
 
 Then the per-kernel line ({"kernels": [...]}; rows 9-12, the kernels on
 the tensor cores, also carry bound_tc_ms, the bound of their design: three
-TF32 products per product at 495 TFLOP/s, or the bytes; rows 2-6 and
-8, the persistent grids, carry design_bound_ms, bound_ms plus their grid
+TF32 products per product at 495 TFLOP/s, or the bytes; rows 2-8, the
+persistent grids, carry design_bound_ms, bound_ms plus their grid
 barriers at the measured barrier time, and their grid), the card's name
 and power
 limit as nvidia-smi reports them, and as the last line
@@ -236,11 +242,13 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 3, hide_host: bool = False)
 def zero_counts(kernels):
     """Set every kernel's launch count and every layer family's eager-route
     count to 0: just before a main path runs."""
-    from paddle_tpu_torch.ops import flash_attention, fused_attention_gru, fused_gru, fused_lstm
+    from paddle_tpu_torch.ops import (
+        flash_attention, fused_attention_gru, fused_conv1x1_bn, fused_gru, fused_lstm)
 
     for k in kernels:
         k.launches = 0
-    for family in (fused_gru, fused_lstm, flash_attention, fused_attention_gru):
+    for family in (fused_gru, fused_lstm, flash_attention, fused_attention_gru,
+                   fused_conv1x1_bn):
         family.EAGER_ROUTES = 0
 
 
@@ -248,11 +256,13 @@ def read_counts(kernels):
     """Launches by kernel and eager routes by layer family, just after a main
     path ran: every path of this script runs configs the kernels take, so a
     layer that took its eager computation fails the run."""
-    from paddle_tpu_torch.ops import flash_attention, fused_attention_gru, fused_gru, fused_lstm
+    from paddle_tpu_torch.ops import (
+        flash_attention, fused_attention_gru, fused_conv1x1_bn, fused_gru, fused_lstm)
 
     routes = {"gated_recurrent": fused_gru.EAGER_ROUTES, "lstmemory": fused_lstm.EAGER_ROUTES,
               "full_attention": flash_attention.EAGER_ROUTES,
-              "attention_decoder": fused_attention_gru.EAGER_ROUTES}
+              "attention_decoder": fused_attention_gru.EAGER_ROUTES,
+              "conv1x1_stats": fused_conv1x1_bn.EAGER_ROUTES}
     assert not any(routes.values()), ("eager routes on a main path", routes)
     return {k.symbol: k.launches for k in kernels}, routes
 
@@ -848,9 +858,57 @@ def lstm_bytes_flops(T, B, H):
             "lstm_bwd": (bwd_bytes, T * (16.0 * B * H * H + 40.0 * B * H))}
 
 
+def relu_gate_flips(kernel_acts, plain_acts, H):
+    """Where a forward kernel's candidate gate a = relu(ga) opened and the
+    plain version's did not, or the other way round (acts [T, B, 4H], a
+    first): there ga lies within float32 rounding of 0, |ga| being the
+    side's a that opened. Returns their count, that largest |ga| and the
+    scale GATE_EPS applies to, the largest a of the plain version."""
+    a_k, a_p = kernel_acts[..., :H], plain_acts[..., :H]
+    differ = (a_k > 0) != (a_p > 0)
+    return {"count": int(differ.sum()),
+            "max_abs_pre": float((a_k + a_p)[differ].max()) if differ.any() else 0.0,
+            "pre_scale": float(a_p.max())}
+
+
+def lstm_plain_at_gates(torch, x4, mask, w, peep, reverse, acts, gate):
+    """ys of fused_lstm.lstm_forward_reference (the same cell) with the
+    candidate's relu(ga) taken as ga * gate[t], the gates a kernel found
+    open: autograd through it is the plain version's gradient at the
+    kernel's ReLU gates (act_in = relu). The time loop and cell are
+    written out here because the gate sits between the candidate's
+    pre-activation and c' inside fused_lstm.lstm_cell, which takes the
+    activation by name and returns only what follows it; a hook in the
+    port's cell for this check alone would be code the port never runs."""
+    from paddle_tpu_torch.ops.activations import apply_activation
+
+    T, B, H4 = x4.shape
+    H = H4 // 4
+    h, c, ys = x4.new_zeros(B, H), x4.new_zeros(B, H), [None] * T
+    for t in (range(T - 1, -1, -1) if reverse else range(T)):
+        g = x4[t] + h @ w
+        ga, gi, gf, go = g[:, :H], g[:, H:2 * H], g[:, 2 * H:3 * H], g[:, 3 * H:]
+        i = apply_activation(acts[1], gi + peep[0] * c)
+        f = apply_activation(acts[1], gf + peep[1] * c)
+        c_new = f * c + i * (ga * gate[t])
+        o = apply_activation(acts[1], go + peep[2] * c_new)
+        h_new = o * apply_activation(acts[2], c_new)
+        m = mask[t][:, None]
+        ys[t] = m * h_new
+        h = m * h_new + (1.0 - m) * h
+        c = m * c_new + (1.0 - m) * c
+    return torch.stack(ys)
+
+
 def phase_lstm_kernels(torch, dev):
     """Kernels 7a, 7b and 8 at the classifier's full width, forward and
-    reversed, default activations and (relu, sigmoid, tanh)."""
+    reversed, default activations and (relu, sigmoid, tanh). With the
+    default activations all three are timed (also with the host's enqueue
+    hidden) and two launches of each give the same bits; the forwards also
+    report their grid and their time with 1, 2 and 4 row groups, and
+    kernel 8 with one row group and with run-time activation codes; the forwards and kernel 8 report
+    their phase clocks, the barrier timed on their grid and their design
+    bound (the bound plus their barriers)."""
     from paddle_tpu_torch.ops import fused_lstm as fl
 
     rng = np.random.RandomState(3)
@@ -864,6 +922,7 @@ def phase_lstm_kernels(torch, dev):
     mask = t(np.arange(T)[:, None] < lens[None, :])
     dy = t(rng.randn(T, B, H))
     plan = fl.grid_plan(B, H, fl.card_sms(dev))
+    fplan = fl.fwd_plan(B, H, fl.card_sms(dev))
     cases = {name: [] for name in LSTM_KERNELS}
     for acts in (fl.DEFAULT_ACTS, ("relu", "sigmoid", "tanh")):
         for reverse in (False, True):
@@ -885,22 +944,51 @@ def phase_lstm_kernels(torch, dev):
             plain = [a.detach().requires_grad_() for a in (x4, w, peep)]
             ys_plain = fl.lstm_forward_reference(plain[0], mask, plain[1], plain[2], reverse, acts)
             pg = torch.autograd.grad(ys_plain, plain, dy, retain_graph=True)
+            flips = None
+            if acts[0] == "relu":
+                # a candidate gate within float32 rounding of 0 may open in
+                # the kernel and not in the plain version (or the other way
+                # round): those must lie within GATE_EPS of 0, and the
+                # gradients are then held to the plain version's at the
+                # kernel's gates
+                flips = relu_gate_flips(saved, ref[1], H)
+                assert flips["max_abs_pre"] <= GATE_EPS * flips["pre_scale"], ("lstm_fwd_train", key, flips)
+                if flips["count"]:
+                    gated = [a.detach().requires_grad_() for a in (x4, w, peep)]
+                    pg = torch.autograd.grad(lstm_plain_at_gates(
+                        torch, gated[0], mask, gated[1], gated[2], reverse, acts,
+                        (saved[..., :H] > 0).float()), gated, dy)
             torch.cuda.synchronize()
             err, rel = _err(kg, pg), _grad_err(kg, pg)
             assert all(torch.isfinite(g).all() for g in kg) and rel <= TOL, ("lstm_bwd", key, rel)
-            cases["lstm_bwd"].append({**key, "max_abs_err": err, "err_over_scale": rel})
+            cases["lstm_bwd"].append({**key, "max_abs_err": err, "err_over_scale": rel,
+                                      **({"relu_gate_flips": flips} if flips else {})})
             if acts != fl.DEFAULT_ACTS:
                 continue
             # time the default activations, both directions, from a cold L2;
-            # two launches of kernel 8 give the same bits
-            cases["lstm_fwd"][-1].update(
-                ms=time_ms(torch, lambda: fl._launch_fwd(x4, mask, w, peep, reverse, acts, False)),
-                plain_ms=time_ms(torch, lambda: fl.lstm_forward_reference(
-                    x4, mask, w, peep, reverse, acts), reps=5))
-            cases["lstm_fwd_train"][-1].update(
-                ms=time_ms(torch, lambda: fl._launch_fwd(x4, mask, w, peep, reverse, acts, True)),
-                plain_ms=time_ms(torch, lambda: fl.lstm_forward_reference(
-                    x4, mask, w, peep, reverse, acts, residuals=True), reps=5))
+            # two launches of each kernel give the same bits
+            for name, res in (("lstm_fwd", False), ("lstm_fwd_train", True)):
+                run_fwd = lambda **kw: fl._launch_fwd(x4, mask, w, peep, reverse, acts, res, **kw)
+                one, two = run_fwd(), run_fwd()
+                torch.cuda.synchronize()
+                one, two = (one, two) if res else ((one,), (two,))
+                assert all(torch.equal(a, b) for a, b in zip(one, two)), (name, key)
+                ms = time_ms(torch, run_fwd)
+                cases[name][-1].update(
+                    ms=ms, device_ms=time_ms(torch, run_fwd, hide_host=True),
+                    plain_ms=time_ms(torch, lambda: fl.lstm_forward_reference(
+                        x4, mask, w, peep, reverse, acts, residuals=res), reps=5),
+                    per_step_us=1e3 * ms / T, grid_barriers=fl.fwd_barriers(T),
+                    blocks=fplan["blocks"], row_groups=fplan["row_groups"],
+                    units_per_block=fplan["units_per_block"],
+                    smem_bytes_per_block=fplan["smem_bytes"], w_in_smem=bool(fplan["w_in_smem"]))
+                if reverse:
+                    continue
+                # the alternatives, device time: 1, 2 and 4 row groups (128
+                # blocks of 4, 8 and 16 units)
+                cases[name][-1].update(
+                    ms_row_groups={P: time_ms(torch, lambda: run_fwd(row_groups=P),
+                                              hide_host=True) for P in (1, 2, 4)})
             bwd_args = (dy, saved, hprev, cprev, mask, w, peep, reverse, acts)
             one, two = fl._launch_bwd(*bwd_args), fl._launch_bwd(*bwd_args)
             torch.cuda.synchronize()
@@ -925,6 +1013,19 @@ def phase_lstm_kernels(torch, dev):
     sizes = lstm_bytes_flops(T, B, H)
     out = {name: dict(cases=cases[name], shape=dict(T=T, B=B, H=H),
                       bytes=sizes[name][0], flops=sizes[name][1]) for name in LSTM_KERNELS}
+    # where a step of 7b goes: block 0's clock at its product's and cells' ends
+    clocks = torch.zeros((T, 3), dtype=torch.int64, device=dev)
+    fl._launch_fwd(x4, mask, w, peep, False, fl.DEFAULT_ACTS, True, phase_ns=clocks)
+    torch.cuda.synchronize()
+    c = clocks.double().cpu()
+    fwd_phases = {"product": float((c[1:, 1] - c[1:, 0]).mean()) / 1e3,
+                  "cells": float((c[:, 2] - c[:, 1]).mean()) / 1e3,
+                  "barrier": float((c[1:, 0] - c[:-1, 2]).mean()) / 1e3}
+    barrier_us = grid_barrier_us(torch, dev, fplan["blocks"], fplan["smem_bytes"])
+    for name in ("lstm_fwd", "lstm_fwd_train"):
+        out[name].update(barrier_us=barrier_us, phase_us_per_step=fwd_phases,
+                         design_bound_ms=bound(*sizes[name])[0]
+                         + fl.fwd_barriers(T) * barrier_us * 1e-3)
     # where a step of kernel 8 goes: block 0's clock at its phases' ends
     clocks = torch.zeros((T, 3), dtype=torch.int64, device=dev)
     fl._launch_bwd(dy, saved, hprev, cprev, mask, w, peep, True, fl.DEFAULT_ACTS,
@@ -1020,6 +1121,7 @@ def phase_lstm_test(torch, dev, kernels, trainer, batch, err_key, err_before):
     want.update(lstm_fwd=LSTM["test_batches"])
     assert launches == want, (launches, want)
     assert np.isfinite(results["cost"]), results
+    _, batch_profile = profiled(torch, "lstm_test_profile", lambda: trainer.test(batches[:1]))
 
     small = dict(dict_dim=LSTM["dict_dim"], B=LSTM["cpu_batch"], T=LSTM["T"], seed=3)
     on_card = trainer.test([example_batch(device=dev, **small)])
@@ -1033,6 +1135,7 @@ def phase_lstm_test(torch, dev, kernels, trainer, batch, err_key, err_before):
     assert err_after <= err_before, (err_before, err_after)
     test = {"phase": "lstm_test", "batches": LSTM["test_batches"], "batch": LSTM["batch"],
             "wall_s": wall, "results": results, "kernel_launches": launches, "eager_routes": routes,
+            "batch_device_ms": batch_profile["device_ms"],
             "cpu_cost_rel_err": cost_err, "cpu_classification_error": on_cpu[err_key],
             "train_batch_error_before": err_before, "train_batch_error_after": err_after}
     emit(test)
@@ -1665,16 +1768,19 @@ def main() -> int:
         assert launches > 0, (name, path_of[name])
         if name in TC_KERNELS:
             extra = {"bound_tc_ms": times.get("bound_tc_ms", bound_tc(r["bytes"], r["flops"]))}
-        elif "design_bound_ms" in r:              # kernels 2-6, 8: the bound plus their barriers
+        elif "design_bound_ms" in r:              # kernels 2-8: the bound plus their barriers
             extra = {"design_bound_ms": r["design_bound_ms"], "barrier_us": r["barrier_us"],
                      "grid_barriers": main_case["grid_barriers"], "blocks": main_case["blocks"],
                      "smem_bytes_per_block": main_case["smem_bytes_per_block"],
                      "per_step_us": main_case.get("per_step_us")}
-            if "device_ms" in main_case:          # kernels 2-4, 8: the host's enqueue hidden
+            if "device_ms" in main_case:          # kernels 2-4, 7a, 7b, 8: the host's enqueue hidden
                 extra["device_ms"] = main_case["device_ms"]
             if name == "lstm_bwd":                # its row groups, and the alternatives timed
                 extra.update({key: main_case[key] for key in (
                     "row_groups", "units_per_block", "ms_row_groups_1", "ms_runtime_acts")})
+            if name in ("lstm_fwd", "lstm_fwd_train"):
+                extra.update({key: main_case[key] for key in (
+                    "row_groups", "units_per_block", "w_in_smem", "ms_row_groups")})
             if "phase_us_per_step" in r:
                 extra["phase_us_per_step"] = r["phase_us_per_step"]
             if name == "attention_gru_fwd":       # what a Td = 1 launch pays besides the step

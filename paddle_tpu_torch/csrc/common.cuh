@@ -58,14 +58,19 @@ __device__ __forceinline__ void cp_async4(float* smem_dst, const float* gmem_src
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(gmem_src) : "memory");
 }
 
-// The same for 16 bytes, bypassing L1 (data other SMs wrote); with
-// `valid` false nothing is read and the 16 bytes are zero-filled.
+// The same for 16 bytes, bypassing L1 (data other SMs wrote): the first
+// `bytes` (0 to 16) are read and the rest of the 16 zero-filled.
+__device__ __forceinline__ void cp_async16_cg_part(float* smem_dst, const float* gmem_src,
+                                                   int bytes) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem_src),
+               "r"(bytes) : "memory");
+}
+
+// All 16 bytes, or with `valid` false none read and all zero-filled.
 __device__ __forceinline__ void cp_async16_cg(float* smem_dst, const float* gmem_src,
                                               bool valid) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem_src),
-               "r"(n) : "memory");
+  cp_async16_cg_part(smem_dst, gmem_src, valid ? 16 : 0);
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -75,25 +80,4 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Launch `kernel` on a grid whose x dimension is one thread-block cluster of
-// `cluster_x` blocks (the blocks of a cluster share their shared memory).
-template <typename... KArgs, typename... Args>
-inline cudaError_t launch_cluster(void (*kernel)(KArgs...), dim3 grid, dim3 block,
-                                  size_t smem, cudaStream_t stream, int cluster_x,
-                                  Args... args) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = block;
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster_x;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kernel, args...);
 }

@@ -531,9 +531,13 @@ int launch_tile(const float* x, const float* wsplit, const float* b, float* y, f
 
 }  // namespace
 
-// Launch the three kernels on `stream`. part is scratch of ceil(M / 128) *
-// 2 * N floats, wsplit of 2 * N * Kp (Kp = K rounded up to a multiple of
-// 32); vec != 0 promises K % 4 == 0 and a 16-byte aligned x (TMA reads it).
+// Launch the three kernels on `stream`. part is scratch of min(ceil(M /
+// 128), SMs) * 2 * N floats (one row per persistent block), wsplit of 2 *
+// N * Kp (Kp = K rounded up to a multiple of 32); vec != 0 promises K % 4
+// == 0 and a 16-byte aligned x (TMA reads it). The shapes it takes are
+// fused_conv1x1_bn.supported's: M + 127 and Kp within an int, every
+// block's stage count (at most ceil(M / 128) * Kp / 32) within an int,
+// ceil(N / 128) <= 65535, N * Kp * 4 < 2^40 (the tensor maps' strides).
 // Returns cudaGetLastError(), or the error of a step that failed.
 extern "C" int conv1x1_stats(const void* x, const void* w, const void* b, void* y,
                              void* s, void* q, void* part, void* wsplit, int M, int K, int N,

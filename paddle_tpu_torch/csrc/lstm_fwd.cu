@@ -1,5 +1,5 @@
 // lstm_fwd / lstm_fwd_train — the masked peephole LSTM over a whole sequence
-// in one launch.
+// in one launch (kernels 7a and 7b).
 //
 // Replaces: paddle_tpu/ops/pallas_lstm.py _fwd_kernel_light (lstm_fwd, the
 // inference variant launched by pl.pallas_call in _run_fwd, entry
@@ -7,7 +7,8 @@
 // in test and eval passes; and _fwd_kernel (lstm_fwd_train, the training
 // variant: the same scan plus the residuals its backward reads, the
 // custom-VJP forward of fused_lstm). As in the JAX package the two differ
-// only in the residual stores, here a template parameter.
+// only in the residual stores: here one body, with kResiduals a template
+// parameter.
 //
 // Per step t (time reversed when `reverse` is set), with h0 = c0 = 0, the
 // weight w [H, 4H] split [candidate | input | forget | output], the gate
@@ -24,235 +25,410 @@
 // 3.35 TB/s, and does 34.5 GFLOP (kernel_flops.lstm_fwd_flops), 0.52 ms at
 // the 67 TFLOP/s float32 rate: operations bound it. The time loop is
 // sequential and every step needs all of w (4 MB at H = 512) against every
-// row's h, so how often w is read from L2 decides how near the kernel gets.
+// row's h. The first design (thread-block clusters of 8 blocks on tiles of
+// 32 rows) streamed each block's columns of w from L2 again at every step,
+// 32 MB of L2 reads a step on 64 SMs, ~51 us a step.
 //
-// What the design does about that: a thread-block cluster of C blocks (up
-// to 8) shares one tile of 32 batch rows (16 when H > 512); block c owns
-// the hidden units [c U, (c+1) U) and reads only their four gate columns of
-// w, once per step for all rows of the tile (one block per row would read
-// the whole w per row and step, 32x the L2 traffic). The slice streams
-// through shared memory in chunks of KC rows of w, kStages of them in
-// flight with cp.async, so the copies of the next chunks overlap the
-// products of this one; w does not change between steps, so the stream runs
-// on across step boundaries. A thread owns one unit and 4 rows: its 16 gate
-// sums stay in registers, so the cell update needs no exchange of gates and
-// c stays in registers for the whole sequence. h is double-buffered in each
-// block's shared memory as [H][rows]; after a step every block writes its
-// units' new h into all blocks of its cluster (distributed shared memory),
-// and one cluster barrier per step separates the steps.
+// What the design does about that: a persistent, cooperative grid
+// (persistent_grid.cuh), one 256-thread block on each SM it uses, in P row
+// groups of G blocks (fused_lstm.fwd_plan chooses P and mirrors the plan).
+// Batch rows are independent in this recurrence, so row group p owns rows
+// [p R, (p + 1) R) and waits only on its own blocks (a barrier counter of
+// its own): one barrier a step, none over the whole grid. Within a group,
+// block q owns gpb unit groups of 4 hidden units, contiguous (U = 4 gpb
+// units), and keeps their four gate columns of w ([H][4 U] floats, 128 KB
+// at U = 16, H = 512) in shared memory for the whole launch, loaded once by
+// cp.async: w is never read again inside the time loop. Where they do not
+// fit beside the state of the block's rows they stay in device memory that
+// only the block touches, in the same layout: quads of 4 units, each
+// [H][16] (the columns in the order the mma's n-tiles take them, below).
 //
-// Measured on an H100 (chip_smoke.py, PERF.md): reading w straight from L2
-// in the product loop ran ~100 us a step, bound by load latency; staging
-// it with 16-row tiles was 1.6x faster; 32-row tiles (half the L2 traffic,
-// 16 warps a block, more work between a copy and its use) faster again.
-// At one block per SM an H100 does not place at once all 16 clusters of 8
-// that 16-row tiles of a 256-row batch make, so those would run in two
-// waves; the 8 clusters of 32-row tiles run in one.
+// A step's product is [R rows x H] . [H x 4 U], on the tensor cores:
+// mma.sync m16n8k8 TF32 with the float32-accurate 3-pass split of
+// flash_mma.cuh (w and h split into TF32 big and small halves as their
+// fragments load), each chunk's products summed apart (the big one and the
+// two small ones in accumulators of their own) and added to the
+// accumulator in float32. On the CUDA cores the same product ran slower at
+// this shape (PERF.md, PR 11), bound by the shared memory that feeds the
+// FMAs (each FMA lane needs its operands through 16-byte loads); an mma
+// takes 1024 products for 6 operands a lane. A warp owns an M tile of 16 rows
+// and a pair of unit quads (8 units): 4 n-tiles of 8 columns, the gates 0
+// and 1, then 2 and 3, of each quad, so that lane (g, t) ends up holding
+// all four gates of units t and 4 + t of its pair for rows g and g + 8:
+// no partial sum crosses lanes, and the cell runs in the lane that holds
+// its sums. QP (a power of 2 at least ceil(U / 8)) warps share an M tile,
+// so a pass covers RT = 16 * 8 / QP rows. The cell: x4 and the mask are
+// loaded before the product and used after it (loading them a step ahead,
+// before the barrier, measured slower), c and the carried h stay
+// in the block's shared memory for the whole launch, the peepholes in
+// registers, and the activation codes are read at run time. The group's
+// rows of h (written by the group's other blocks) are staged by
+// cp.async.cg (through L2: an SM's L1 is not coherent with the other SMs'
+// writes) in chunks of KC columns of a pass, kStages - 1 chunks ahead of
+// the products. Banks: a staged row is KC + 4 = 4 (mod 32) floats, so an A
+// fragment's 32 words fall in 32 banks; w's quads are [k][16] with the
+// column XORed with 8 on rows k = 2, 3 (mod 4), so a B fragment's too.
+//
+// The carry between blocks: for 7b it is the hprev residual at the next
+// step's own time index (t + 1, or t - 1 reversed), which is exactly the
+// next step's carry: no scratch, as kernel 2 passes it. 7a has no
+// residual, and with one barrier a step a single [B, H] buffer would be
+// overwritten by a fast block while a slow one still reads it: it carries
+// h through a ping-pong scratch [2][B][Hp] (Hp = H rounded up to 4, so
+// that every row starts on 16 bytes; 7b too where H % 4 != 0). The first
+// step's carry is 0 and is not read; 7b writes hprev[t0] = 0. Every sum
+// runs in a fixed order and nothing is summed by atomics: two launches
+// give the same bits.
 
-#include <cooperative_groups.h>
+#include <cstdint>
 
 #include "common.cuh"
-
-namespace cg = cooperative_groups;
+#include "flash_mma.cuh"
+#include "persistent_grid.cuh"
 
 namespace {
 
-constexpr int kRpt = 4;                      // rows per thread
-constexpr int kMaxThreads = 512;
-constexpr int kMaxCluster = 8;
-constexpr int kStages = 3;                   // chunks of w in flight
-constexpr int kChunk = 32;                   // rows of w per chunk (fewer for large H)
-constexpr size_t kMaxSmem = 227 * 1024;
+using namespace pgrid;
 
-// kRowGroups groups of kRpt rows: a tile of 32 rows where 8 U threads fit
-// in a block, else 16.
-template <bool kResiduals, int kRowGroups>
-__global__ void __launch_bounds__(kMaxThreads)
+constexpr int kStages = 2;          // ring slots of staged h chunks
+constexpr int kSlotFloats = 12800;  // floats of a ring slot, at most
+constexpr int kPad = 4;             // floats after each staged row
+constexpr int kWarpsPerPass = kThreads / 32;
+
+// How the grid is cut (mirrored by paddle_tpu_torch/ops/fused_lstm.py
+// fwd_plan): P row groups of R = ceil(B / P) rows; in each, G blocks of
+// gpb unit groups (U = 4 gpb units, contiguous, U <= 64). QP warps (a
+// power of 2 at least ceil(U / 8)) share an M tile of 16 rows, so a pass
+// covers RT = 16 * 8 / QP rows; h is staged in chunks of KC columns (the
+// largest power of 2 from 32 with RT (KC + 4) <= kSlotFloats).
+struct FwdPlan {
+  int P, G, gpb, U, R, QP, RT, KC;
+};
+
+inline FwdPlan make_fwd_plan(int B, int H, int num_sms, int P) {
+  FwdPlan p;
+  const int groups = (H + kUnits - 1) / kUnits;
+  p.P = P;
+  int G = num_sms / P < groups ? num_sms / P : groups;
+  if (G < 1) G = 1;
+  p.gpb = (groups + G - 1) / G;
+  p.G = (groups + p.gpb - 1) / p.gpb;
+  p.U = kUnits * p.gpb;
+  p.R = (B + P - 1) / P;
+  p.QP = 1;
+  while (8 * p.QP < p.U) p.QP *= 2;
+  p.RT = p.QP <= kWarpsPerPass ? 16 * (kWarpsPerPass / p.QP) : 0;   // 0: U > 64, refused
+  p.KC = 32;
+  while (p.RT > 0 && p.RT * (2 * p.KC + kPad) <= kSlotFloats) p.KC *= 2;
+  return p;
+}
+
+// Floats of a quad (4 units) of w's columns: [H8][16], H rounded up to 8
+// (the mma's k steps), and 16 of padding: 16 ceil(H / 8) 8 + 16.
+__host__ __device__ inline long long quad_floats(int H) { return 16LL * ((H + 7) / 8 * 8) + 16; }
+
+// The shared memory of a block, in floats: its columns of w (when w_smem),
+// c and the carried h of its rows ([R][U] each), then the ring of staged
+// h chunks [kStages][RT][KC + kPad].
+inline size_t fwd_smem_floats(const FwdPlan& p, int H, bool w_smem) {
+  const long long w = w_smem ? (p.U / 4) * quad_floats(H) : 0;
+  const long long state = 2LL * p.R * p.U;
+  const long long ring = static_cast<long long>(kStages) * p.RT * (p.KC + kPad);
+  return static_cast<size_t>(w + state + ring);
+}
+
+template <bool kResiduals>
+__global__ void __launch_bounds__(kThreads, 1)
 lstm_fwd_kernel(const float* __restrict__ x4, long long x_st, long long x_sb,
                 const float* __restrict__ mask, long long m_st, long long m_sb,
                 const float* __restrict__ w, const float* __restrict__ peep,
                 float* __restrict__ ys, long long y_st, long long y_sb,
-                float* __restrict__ acts, float* __restrict__ hprev,
-                float* __restrict__ cprev,
-                int T, int B, int H, int U, int KC, int reverse,
-                int act_in, int act_gate, int act_state) {
-  constexpr int kRows = kRpt * kRowGroups;   // batch rows per cluster
-  cg::cluster_group cluster = cg::this_cluster();
-  const int C = static_cast<int>(cluster.num_blocks());
-  const int rank = static_cast<int>(cluster.block_rank());
+                float* __restrict__ acts, float* hprev, float* __restrict__ cprev,
+                float* hbuf, float* wslices, unsigned* counters,
+                unsigned long long* phase_ns, int T, int B, int H, int reverse,
+                int act_in, int act_gate, int act_state, int G, int gpb, int R, int QP, int KC,
+                int w_smem) {
   extern __shared__ float4 smem4[];
-  const int HR = H * kRows;
-  const int W4 = 4 * U;
-  float* hbuf = reinterpret_cast<float*>(smem4);          // [2][H][kRows]
-  float* wbuf = hbuf + 2 * HR;                            // [kStages][KC][4 U]
-  const int row0 = blockIdx.y * kRows;
-  const int u = threadIdx.x % U;
-  const int rg = threadIdx.x / U;
-  const int j = rank * U + u;                             // this thread's unit
-  const bool active = rg < kRowGroups && j < H;
-  const bool stager = rg < 4 && j < H;
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;              // the mma fragments' lane coordinates
+  const int p = blockIdx.x / G;                       // row group
+  const int row0 = p * R;                             // its first row
+  const int rows = max(0, min(B, row0 + R) - row0);   // and how many (0 when B < P R)
+  const int U = kUnits * gpb;
+  const int u0 = (blockIdx.x % G) * U;                // the block's first unit
+  const int u1 = min(H, u0 + U);                      // and its end
+  const int nq = U / 4;                               // quads
+  const int RT = 16 * (kWarpsPerPass / QP);           // rows of a pass
+  const int S = KC + kPad;                            // floats of a staged row
+  const long long Hp = (H + 3) / 4 * 4;
+  const long long WQ = quad_floats(H);
   const long long H4 = 4LL * H;
+  float* W = w_smem ? smem : wslices + static_cast<long long>(blockIdx.x) * nq * WQ;
+  float* CS = smem + (w_smem ? nq * WQ : 0);          // c of the owned cells [R][U]
+  float* HS = CS + static_cast<long long>(R) * U;     // the carried h [R][U]
+  float* ring = HS + static_cast<long long>(R) * U;   // the staged h chunks
+  // 7b carries h in its hprev residual when every row starts on 16 bytes
+  const bool hres = kResiduals && hbuf == nullptr;
+  const long long ldh = hres ? H : Hp;
+  GridBarrier bar{counters + p, 0, static_cast<unsigned>(G)};
+  const bool clocked = phase_ns != nullptr && blockIdx.x == 0 && tid == 0;
 
-  // Thread (rg < 4, u) also stages column rg * U + u of the chunks: gate rg
-  // of unit j, w[k, rg H + j] to wbuf[stage][k][rg U + u].
-  const int NC = (H + KC - 1) / KC;                       // chunks per step
-  const int total = T * NC;
-  const float* wsrc = w + rg * H + j;
-  auto issue = [&](int q) {
-    if (!stager) return;
-    const int k0 = (q % NC) * KC;
-    const int kc = min(KC, H - k0);
-    float* dst = wbuf + (q % kStages) * KC * W4 + threadIdx.x;
-    for (int k = 0; k < kc; ++k) cp_async4(dst + k * W4, wsrc + (k0 + k) * H4);
-  };
-
-  for (int e = threadIdx.x; e < HR; e += blockDim.x) hbuf[e] = 0.0f;
-  float c[kRpt];
+  // this warp's M tile of each pass (rows mt 16 ..) and quad pair (quads
+  // 2 qp, 2 qp + 1); this lane's cells: rows mt 16 + g + 8 hh, units
+  // 4 (2 qp + qq) + t, for hh, qq < 2 (cell 2 hh + qq)
+  const int mt = warp / QP, qp = warp % QP;
+  int jc[2];                                          // the lane's units, or -1
 #pragma unroll
-  for (int i = 0; i < kRpt; ++i) c[i] = 0.0f;
-  float pi = 0.0f, pf = 0.0f, po = 0.0f;
-  if (active) {
-    pi = peep[j];
-    pf = peep[H + j];
-    po = peep[2 * H + j];
+  for (int qq = 0; qq < 2; ++qq) {
+    const int j = u0 + 4 * (2 * qp + qq) + t;
+    jc[qq] = 2 * qp + qq < nq && j < u1 ? j : -1;
   }
-  for (int q = 0; q < kStages - 1; ++q) {
-    if (q < total) issue(q);
-    cp_async_commit();
-  }
-  cluster.sync();   // every block of the cluster runs and has zeroed h
 
-  int q = 0;                                              // chunks consumed
-  for (int s = 0; s < T; ++s) {
-    const int t = reverse ? T - 1 - s : s;
-    const float* hc = hbuf + (s & 1) * HR;
-    float* hn = hbuf + ((s + 1) & 1) * HR;
-    // this step's x4 and mask, loaded now and used after the product
-    float xv[kRpt][4], mv[kRpt];
-#pragma unroll
-    for (int i = 0; i < kRpt; ++i) {
-      const int b = row0 + rg * kRpt + i;
-      const bool ok = active && b < B;
-      const float* xr = x4 + t * x_st + b * x_sb + j;
-#pragma unroll
-      for (int g = 0; g < 4; ++g) xv[i][g] = ok ? xr[g * H] : 0.0f;
-      mv[i] = ok ? mask[t * m_st + b * m_sb] : 0.0f;
+  // the block's columns of w: quad q's column c (of 16) holds unit
+  // (c % 8) / 2 of the quad, gate 2 (c / 8) + c % 2 (n-tile 0 of a quad is
+  // gates 0 and 1 of its 4 units, n-tile 1 gates 2 and 3), stored on row k
+  // at c ^ swz(k) (swz(k) = 8 on rows k = 2, 3 mod 4); units past the
+  // block's own and rows past H are 0
+  for (long long i = tid; i < nq * WQ; i += kThreads) {
+    const int q = static_cast<int>(i / WQ);
+    const long long e = i % WQ;
+    const int k = static_cast<int>(e / 16);
+    const int c = static_cast<int>(e % 16) ^ (8 * ((k >> 1) & 1));
+    const int jj = u0 + 4 * q + (c % 8) / 2, gate = 2 * (c / 8) + c % 2;
+    if (k >= H || jj >= u1) {
+      W[i] = 0.0f;
+    } else if (w_smem) {
+      cp_async4(W + i, w + k * H4 + gate * static_cast<long long>(H) + jj);
+    } else {
+      W[i] = w[k * H4 + gate * static_cast<long long>(H) + jj];
     }
-    float acc[kRpt][4];
+  }
+  for (long long i = tid; i < 2LL * R * U; i += kThreads) CS[i] = 0.0f;
+  float pi[2], pf[2], po[2];
 #pragma unroll
-    for (int i = 0; i < kRpt; ++i)
+  for (int qq = 0; qq < 2; ++qq) {
+    const int j = jc[qq] < 0 ? 0 : jc[qq];
+    pi[qq] = peep[j];
+    pf[qq] = peep[H + j];
+    po[qq] = peep[2 * H + j];
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int passes = (rows + RT - 1) / RT;
+  const int NC = (H + KC - 1) / KC;                   // chunks of a pass
+  // this thread's copies of a chunk: its column group c4 (of KC / 4, a
+  // power of 2 that divides 256) of rows rs, rs + rstep, ...
+  const int c4 = tid % (KC / 4), rs = tid / (KC / 4), rstep = kThreads / (KC / 4);
+  const float* Wq[2] = {W + (2 * qp) * WQ, W + (2 * qp + 1) * WQ};
+  const bool quad_ok[2] = {2 * qp < nq, 2 * qp + 1 < nq};
+  // the x4 and mask of this lane's cells at time index tt, rows r0 + g
+  // (+ 8) of the group
+  float xv[4][4], mv[2];
+  auto load_x = [&](int tt, int r0) {
 #pragma unroll
-      for (int g = 0; g < 4; ++g) acc[i][g] = 0.0f;
-    for (int ch = 0; ch < NC; ++ch, ++q) {
-      cp_async_wait<kStages - 2>();   // this thread's copies of chunk q landed
-      __syncthreads();                // everyone's; and chunk q - 1 is consumed
-      if (q + kStages - 1 < total) issue(q + kStages - 1);
-      cp_async_commit();
-      if (!active) continue;
-      const int k0 = ch * KC;
-      const int kc = min(KC, H - k0);
-      const float* ws = wbuf + (q % kStages) * KC * W4 + u;
-      const float* hk = hc + k0 * kRows + rg * kRpt;
-#pragma unroll 4
-      for (int k = 0; k < kc; ++k) {
-        const float4 hv = *reinterpret_cast<const float4*>(hk + k * kRows);
-        const float* wk = ws + k * W4;
-        const float wv[4] = {wk[0], wk[U], wk[2 * U], wk[3 * U]};
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = r0 + g + 8 * hh;
+      mv[hh] = r < rows ? mask[tt * m_st + (row0 + r) * m_sb] : 0.0f;
 #pragma unroll
-        for (int g = 0; g < 4; ++g) {
-          acc[0][g] = fmaf(hv.x, wv[g], acc[0][g]);
-          acc[1][g] = fmaf(hv.y, wv[g], acc[1][g]);
-          acc[2][g] = fmaf(hv.z, wv[g], acc[2][g]);
-          acc[3][g] = fmaf(hv.w, wv[g], acc[3][g]);
-        }
+      for (int qq = 0; qq < 2; ++qq) {
+        const bool ok = jc[qq] >= 0 && r < rows;
+        const float* xr = x4 + tt * x_st + (row0 + (ok ? r : 0)) * x_sb + (ok ? jc[qq] : 0);
+#pragma unroll
+        for (int gate = 0; gate < 4; ++gate) xv[2 * hh + qq][gate] = ok ? xr[gate * H] : 0.0f;
       }
     }
-    if (active) {
-      float hnext[kRpt];
+  };
+  for (int s = 0; s < T; ++s) {
+    if (clocked) phase_ns[3 * s] = global_ns();
+    const int tt = reverse ? T - 1 - s : s;
+    const long long tB = static_cast<long long>(tt) * B;
+    const bool next = s + 1 < T;
+    const int tn = reverse ? tt - 1 : tt + 1;
+    // the carry into this step (none at the first) and out of it
+    const float* hin = s == 0 ? nullptr
+                       : hres ? hprev + tB * H
+                              : hbuf + static_cast<long long>(s & 1) * B * Hp;
+    float* hout = !next ? nullptr
+                  : hres ? hprev + static_cast<long long>(tn) * B * H
+                         : hbuf + static_cast<long long>((s + 1) & 1) * B * Hp;
+
+    // the staged chunks of this step: pass q / NC, columns (q % NC) KC ..,
+    // 16 bytes a copy, zero past H and past the group's rows
+    const int total = s > 0 ? passes * NC : 0;
+    auto issue = [&](int q) {
+      const int r0 = (q / NC) * RT, k = (q % NC) * KC + 4 * c4;
+      const int n = k < H ? 4 * min(4, H - k) : 0;    // bytes of this column group
+      float* dst = ring + (q % kStages) * RT * S + 4 * c4;
+      const float* src = hin + static_cast<long long>(row0 + r0) * ldh + k;
+      for (int r = rs; r < RT; r += rstep) {
+        const bool ok = n > 0 && r0 + r < rows;
+        cp_async16_cg_part(dst + r * S, ok ? src + r * ldh : hin, ok ? n : 0);
+      }
+    };
+    for (int c = 0; c < kStages - 1; ++c) {
+      if (c < total) issue(c);
+      cp_async_commit();
+    }
+
+    int q = 0;                                        // chunks consumed this step
+    for (int pass = 0; pass < passes; ++pass) {
+      const int r0 = pass * RT + 16 * mt;             // this warp's M tile
+      // the x4 and mask of this lane's cells, loaded now and used after
+      // the product
+      load_x(tt, r0);
+      // acc[qq][n-tile][fragment]: C fragment c0 (g, 2t), c1 (g, 2t + 1),
+      // c2 (g + 8, 2t), c3 (g + 8, 2t + 1) of n-tile 2 qq + j
+      float acc[2][2][4];
 #pragma unroll
-      for (int i = 0; i < kRpt; ++i) {
-        const int b = row0 + rg * kRpt + i;
-        const float m = mv[i];
-        const float hp = hc[j * kRows + rg * kRpt + i];
-        const float cp = c[i];
-        const float ig = act_f32(act_gate, xv[i][1] + acc[i][1] + pi * cp);
-        const float fg = act_f32(act_gate, xv[i][2] + acc[i][2] + pf * cp);
-        const float a = act_f32(act_in, xv[i][0] + acc[i][0]);
-        const float cn = fg * cp + ig * a;
-        const float og = act_f32(act_gate, xv[i][3] + acc[i][3] + po * cn);
-        const float hnew = og * act_f32(act_state, cn);
-        if (b < B) {
-          ys[t * y_st + b * y_sb + j] = m * hnew;
+      for (int qq = 0; qq < 2; ++qq)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[qq][j][e] = 0.0f;
+      if (s > 0) {
+        for (int ch = 0; ch < NC; ++ch, ++q) {
+          // chunk q has landed (kStages - 2 later ones may be in flight),
+          // every thread sees it, and every thread is done with chunk
+          // q - 1, whose slot chunk q + kStages - 1 takes
+          cp_async_wait<kStages - 2>();
+          __syncthreads();
+          if (q + kStages - 1 < total) issue(q + kStages - 1);
+          cp_async_commit();
+          const int k0 = ch * KC;
+          const int steps = (min(KC, H - k0) + 7) / 8;
+          const float* hs = ring + (q % kStages) * RT * S + (16 * mt + g) * S + t;
+          // the chunk's sums apart, the big TF32 product and the two
+          // small ones in accumulators of their own (independent mmas)
+          float pb[2][2][4], ps[2][2][4];
+#pragma unroll
+          for (int qq = 0; qq < 2; ++qq)
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) pb[qq][j][e] = ps[qq][j][e] = 0.0f;
+          for (int kk = 0; kk < steps; ++kk) {
+            flash_mma::FragA a;
+            const float* ap = hs + 8 * kk;
+            a.set(ap[0], ap[8 * S], ap[4], ap[8 * S + 4]);
+            // B (k, n) of n-tile j of a quad: w row k0 + 8 kk + k, column
+            // 8 j + n, XOR 8 on rows 2, 3 (mod 4): t >> 1 for k = t, t + 4
+            const int krow = (k0 + 8 * kk + t) * 16;
+#pragma unroll
+            for (int qq = 0; qq < 2; ++qq) {
+              if (!quad_ok[qq]) continue;             // uniform over the warp
+#pragma unroll
+              for (int j = 0; j < 2; ++j) {
+                const int col = (8 * j + g) ^ (8 * (t >> 1));
+                flash_mma::FragB b;
+                b.set(Wq[qq][krow + col], Wq[qq][krow + 64 + col]);
+                flash_mma::mma_tf32(ps[qq][j], a.small, b.big);
+                flash_mma::mma_tf32(ps[qq][j], a.big, b.small);
+                flash_mma::mma_tf32(pb[qq][j], a.big, b.big);
+              }
+            }
+          }
+#pragma unroll
+          for (int qq = 0; qq < 2; ++qq)
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) acc[qq][j][e] += ps[qq][j][e] + pb[qq][j][e];
+        }
+      }
+      if (clocked && pass + 1 == passes) phase_ns[3 * s + 1] = global_ns();
+
+      // the cells this lane holds: gates 0 and 1 in n-tile 0, 2 and 3 in 1
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = r0 + g + 8 * hh;
+#pragma unroll
+        for (int qq = 0; qq < 2; ++qq) {
+          const int j = jc[qq];
+          if (j < 0 || r >= rows) continue;
+          const float* xg = xv[2 * hh + qq];
+          const float ga = acc[qq][0][2 * hh], gi = acc[qq][0][2 * hh + 1];
+          const float gf = acc[qq][1][2 * hh], go = acc[qq][1][2 * hh + 1];
+          const int b = row0 + r;
+          const long long row = tB + b;
+          float* cs = CS + r * U + (j - u0);
+          float* hs = HS + r * U + (j - u0);
+          const float cp = *cs, hp = *hs, m = mv[hh];
+          const float ig = act_f32(act_gate, xg[1] + gi + pi[qq] * cp);
+          const float fg = act_f32(act_gate, xg[2] + gf + pf[qq] * cp);
+          const float a = act_f32(act_in, xg[0] + ga);
+          const float cn = fg * cp + ig * a;
+          const float og = act_f32(act_gate, xg[3] + go + po[qq] * cn);
+          const float hnew = og * act_f32(act_state, cn);
+          const float h = m * hnew + (1.0f - m) * hp;
+          if (next) __stcg(hout + b * ldh + j, h);
+          *hs = h;
+          *cs = m * cn + (1.0f - m) * cp;
+          ys[tt * y_st + b * y_sb + j] = m * hnew;
           if (kResiduals) {
-            const long long row = static_cast<long long>(t) * B + b;
             float* ar = acts + row * H4 + j;
             ar[0] = a;
             ar[H] = ig;
             ar[2 * H] = fg;
             ar[3 * H] = og;
-            hprev[row * H + j] = hp;
             cprev[row * H + j] = cp;
+            // with hres the previous step wrote hprev[tt] as its carry
+            if (!hres || s == 0) hprev[row * H + j] = hp;
           }
         }
-        hnext[i] = m * hnew + (1.0f - m) * hp;
-        c[i] = m * cn + (1.0f - m) * cp;
-      }
-      const float4 hv = make_float4(hnext[0], hnext[1], hnext[2], hnext[3]);
-      for (int p = 0; p < C; ++p) {
-        float* dst = cluster.map_shared_rank(hn, p);
-        *reinterpret_cast<float4*>(dst + j * kRows + rg * kRpt) = hv;
       }
     }
-    cluster.sync();   // the new h is everywhere; nobody reads the old one
+    if (clocked) phase_ns[3 * s + 2] = global_ns();
+    if (next) bar.sync();                             // the group's carry is written
   }
-}
-
-template <bool kResiduals, int kRowGroups>
-int launch_tiles(const void* x4, long long x_st, long long x_sb,
-                 const void* mask, long long m_st, long long m_sb,
-                 const void* w, const void* peep, void* ys, long long y_st, long long y_sb,
-                 void* acts, void* hprev, void* cprev, int T, int B, int H, int C, int U,
-                 int reverse, int act_in, int act_gate, int act_state, void* stream) {
-  constexpr int kRows = kRpt * kRowGroups;
-  const int threads = ((U * kRowGroups + 31) / 32) * 32;
-  if (threads > kMaxThreads) return static_cast<int>(cudaErrorInvalidConfiguration);
-  auto smem_for = [&](int kc) {
-    return (2 * static_cast<size_t>(H) * kRows + kStages * static_cast<size_t>(kc) * 4 * U) *
-           sizeof(float);
-  };
-  int KC = kChunk;
-  while (KC > 1 && smem_for(KC) > kMaxSmem) KC /= 2;
-  const size_t smem = smem_for(KC);
-  cudaError_t err = allow_smem(lstm_fwd_kernel<kResiduals, kRowGroups>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (T > 0 && B > 0 && H > 0) {
-    const dim3 grid(C, (B + kRows - 1) / kRows);
-    err = launch_cluster(lstm_fwd_kernel<kResiduals, kRowGroups>, grid, dim3(threads), smem,
-                         static_cast<cudaStream_t>(stream), C,
-                         static_cast<const float*>(x4), x_st, x_sb,
-                         static_cast<const float*>(mask), m_st, m_sb,
-                         static_cast<const float*>(w), static_cast<const float*>(peep),
-                         static_cast<float*>(ys), y_st, y_sb,
-                         static_cast<float*>(acts), static_cast<float*>(hprev),
-                         static_cast<float*>(cprev), T, B, H, U, KC, reverse,
-                         act_in, act_gate, act_state);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return static_cast<int>(cudaGetLastError());
 }
 
 template <bool kResiduals>
-int launch(const void* x4, long long x_st, long long x_sb,
-           const void* mask, long long m_st, long long m_sb,
-           const void* w, const void* peep, void* ys, long long y_st, long long y_sb,
-           void* acts, void* hprev, void* cprev, int T, int B, int H, int reverse,
-           int act_in, int act_gate, int act_state, void* stream) {
-  int C = (H + 63) / 64;
-  C = C < 1 ? 1 : (C > kMaxCluster ? kMaxCluster : C);
-  const int U = (H + C - 1) / C;
-  auto tiles = U * 8 <= kMaxThreads ? launch_tiles<kResiduals, 8> : launch_tiles<kResiduals, 4>;
-  return tiles(x4, x_st, x_sb, mask, m_st, m_sb, w, peep, ys, y_st, y_sb, acts, hprev, cprev,
-               T, B, H, C, U, reverse, act_in, act_gate, act_state, stream);
+cudaError_t launch(const FwdPlan& plan, size_t smem, const float* x4, long long x_st,
+                   long long x_sb, const float* mask, long long m_st, long long m_sb,
+                   const float* w, const float* peep, float* ys, long long y_st, long long y_sb,
+                   float* acts, float* hprev, float* cprev, float* hbuf, float* wslices,
+                   unsigned* counters, unsigned long long* phase_ns, int T, int B, int H,
+                   int reverse, int act_in, int act_gate, int act_state, int w_smem,
+                   cudaStream_t st) {
+  return launch_cooperative(lstm_fwd_kernel<kResiduals>, plan.P * plan.G, smem, st,
+                            x4, x_st, x_sb, mask, m_st, m_sb, w, peep, ys, y_st, y_sb, acts,
+                            hprev, cprev, hbuf, wslices, counters, phase_ns, T, B, H, reverse,
+                            act_in, act_gate, act_state, plan.G, plan.gpb, plan.R, plan.QP,
+                            plan.KC, w_smem);
+}
+
+template <bool kResiduals>
+int run(const void* x4, long long x_st, long long x_sb, const void* mask, long long m_st,
+        long long m_sb, const void* w, const void* peep, void* ys, long long y_st,
+        long long y_sb, void* acts, void* hprev, void* cprev, void* hbuf, void* wslices,
+        void* counters, void* phase_ns, int T, int B, int H, int reverse, int act_in,
+        int act_gate, int act_state, int num_sms, int row_groups, int w_smem, void* stream) {
+  if (T < 0 || B < 0 || H <= 0 || row_groups < 1 || row_groups > num_sms)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (T == 0 || B == 0) return static_cast<int>(cudaSuccess);
+  const FwdPlan plan = make_fwd_plan(B, H, num_sms, row_groups);
+  const size_t smem = fwd_smem_floats(plan, H, w_smem) * sizeof(float);
+  // 7b without the scratch carries h in hprev: rows of 16 bytes
+  const bool hres_ok = kResiduals && H % 4 == 0 && reinterpret_cast<uintptr_t>(hprev) % 16 == 0;
+  if (plan.RT < 1 || smem > kSmemLimit || (!w_smem && wslices == nullptr)
+      || (hbuf == nullptr && !hres_ok) || reinterpret_cast<uintptr_t>(hbuf) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(counters, 0, plan.P * sizeof(unsigned), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = launch<kResiduals>(
+      plan, smem, static_cast<const float*>(x4), x_st, x_sb, static_cast<const float*>(mask),
+      m_st, m_sb, static_cast<const float*>(w), static_cast<const float*>(peep),
+      static_cast<float*>(ys), y_st, y_sb, static_cast<float*>(acts), static_cast<float*>(hprev),
+      static_cast<float*>(cprev), static_cast<float*>(hbuf), static_cast<float*>(wslices),
+      static_cast<unsigned*>(counters), static_cast<unsigned long long*>(phase_ns), T, B, H,
+      reverse, act_in, act_gate, act_state, w_smem, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -260,29 +436,44 @@ int launch(const void* x4, long long x_st, long long x_sb,
 // x4 [T, B, 4H], mask [T, B] and ys [T, B, H] are addressed through their
 // time and batch strides (in elements; the last dimension is contiguous);
 // w [H, 4H] and peep [3, H] are contiguous. act_* are the activation codes
-// of common.cuh (0 tanh, 1 sigmoid, 2 relu, 3 linear). H <= 1024. Launches
-// on `stream`, returns cudaGetLastError() (or the launch's own error).
+// of common.cuh (0 tanh, 1 sigmoid, 2 relu, 3 linear). The grid: num_sms
+// (the card's SM count) and row_groups P (1 <= P <= num_sms;
+// fused_lstm.fwd_plan); w_smem says whether a block keeps its columns of w
+// in shared memory. Scratch: hbuf, the carry [2][B][Hp] (Hp = H rounded up
+// to a multiple of 4; 16-byte aligned); wslices (blocks * U / 4 quads of
+// 16 ceil(H / 8) 8 + 16 floats each) where w_smem is 0; counters (P
+// unsigned). phase_ns, when not null ([T][3] unsigned 64-bit integers),
+// receives block 0's clock in ns at each step's start, at the end of its
+// product and at the end of its cells (before the barrier). Launches on `stream`
+// (cooperatively; nothing for T = 0 or B = 0); returns the launch's error,
+// cudaErrorCooperativeLaunchTooLarge, or cudaErrorInvalidValue for a plan
+// past what a block may hold or a missing scratch buffer.
 extern "C" int lstm_fwd(const void* x4, long long x_st, long long x_sb,
                         const void* mask, long long m_st, long long m_sb,
                         const void* w, const void* peep,
                         void* ys, long long y_st, long long y_sb,
+                        void* hbuf, void* wslices, void* counters, void* phase_ns,
                         int T, int B, int H, int reverse,
-                        int act_in, int act_gate, int act_state, void* stream) {
-  return launch<false>(x4, x_st, x_sb, mask, m_st, m_sb, w, peep, ys, y_st, y_sb,
-                       nullptr, nullptr, nullptr, T, B, H, reverse,
-                       act_in, act_gate, act_state, stream);
+                        int act_in, int act_gate, int act_state, int num_sms, int row_groups,
+                        int w_smem, void* stream) {
+  return run<false>(x4, x_st, x_sb, mask, m_st, m_sb, w, peep, ys, y_st, y_sb, nullptr,
+                    nullptr, nullptr, hbuf, wslices, counters, phase_ns, T, B, H, reverse,
+                    act_in, act_gate, act_state, num_sms, row_groups, w_smem, stream);
 }
 
 // As lstm_fwd, plus the residuals: acts [T, B, 4H] (post-activation a, i, f,
-// o), hprev and cprev [T, B, H], all contiguous.
+// o), hprev and cprev [T, B, H], all contiguous. hbuf may be null where H %
+// 4 == 0: the carry then passes through hprev.
 extern "C" int lstm_fwd_train(const void* x4, long long x_st, long long x_sb,
                               const void* mask, long long m_st, long long m_sb,
                               const void* w, const void* peep,
                               void* ys, long long y_st, long long y_sb,
                               void* acts, void* hprev, void* cprev,
+                              void* hbuf, void* wslices, void* counters, void* phase_ns,
                               int T, int B, int H, int reverse,
-                              int act_in, int act_gate, int act_state, void* stream) {
-  return launch<true>(x4, x_st, x_sb, mask, m_st, m_sb, w, peep, ys, y_st, y_sb,
-                      acts, hprev, cprev, T, B, H, reverse,
-                      act_in, act_gate, act_state, stream);
+                              int act_in, int act_gate, int act_state, int num_sms,
+                              int row_groups, int w_smem, void* stream) {
+  return run<true>(x4, x_st, x_sb, mask, m_st, m_sb, w, peep, ys, y_st, y_sb, acts, hprev,
+                   cprev, hbuf, wslices, counters, phase_ns, T, B, H, reverse, act_in,
+                   act_gate, act_state, num_sms, row_groups, w_smem, stream);
 }

@@ -1,8 +1,9 @@
 // persistent_grid.cuh — the pieces shared by the persistent, weight-
 // stationary recurrence kernels (the attention-GRU forward of
 // attention_gru_fwd.cuh, attention_gru_bwd.cu, gru_fwd_train.cu,
-// gru_bwd.cu, lstm_bwd.cu): a cooperative launch, a grid barrier, and the
-// block products of all B rows with a weight slice held in shared memory.
+// gru_bwd.cu, lstm_fwd.cu, lstm_bwd.cu): a cooperative launch, a grid
+// barrier, and the block products of all B rows with a weight slice held
+// in shared memory.
 //
 // Layout every kernel here keeps: 256 threads (8 warps) a block, one block
 // on each SM it uses. A block product walks the rows in tiles of 64, eight

@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from paddle_tpu_torch.graph.argument import Argument
 from paddle_tpu_torch.layers.base import LayerContext, apply_dropout, register_layer
 from paddle_tpu_torch.ops.activations import apply_activation, is_elementwise
+from paddle_tpu_torch.ops import fused_conv1x1_bn
 from paddle_tpu_torch.ops.fused_conv1x1_bn import conv1x1_stats
 from paddle_tpu_torch.proto import LayerConfig
 
@@ -161,9 +162,12 @@ def _fused_stats_gates(cfg: LayerConfig, ctx: LayerContext, allow_stride: bool =
 
 def _conv1x1_stats_forward(cfg: LayerConfig, inputs: List[Argument], ctx: LayerContext):
     """A 1x1/s1 conv through kernel 9: publishes (sum, sumsq, rows) of its
-    output into ctx.conv_stats. None when the gate refuses the layer. Unlike
-    the JAX package there is no device, mesh or shape gate: on the card the
-    kernel runs or its wrapper raises."""
+    output into ctx.conv_stats. None when the layer gate refuses the layer,
+    or when ``fused_conv1x1_bn.supported(M, K, N)`` refuses its shape (then
+    counted in ``fused_conv1x1_bn.EAGER_ROUTES``): the caller runs the plain
+    conv and the batch norm reduces its output, as the JAX package does for
+    a shape ``pcb.supported`` refuses. Unlike the JAX package there is no
+    device or mesh gate: the CPU runs the kernel's plain version."""
     in_cfg = _fused_stats_gates(cfg, ctx)
     if in_cfg is None:
         return None
@@ -172,6 +176,9 @@ def _conv1x1_stats_forward(cfg: LayerConfig, inputs: List[Argument], ctx: LayerC
     x = _take_nhwc(ctx, in_cfg.input_layer_name, inputs[0], cc.channels, h, w)
     B = x.shape[0]
     M, K, N = B * h * w, cc.channels, cfg.num_filters
+    if not fused_conv1x1_bn.supported(M, K, N):
+        fused_conv1x1_bn.EAGER_ROUTES += 1
+        return None
     wf = ctx.param(in_cfg.input_parameter_name).reshape(N, K)
     b = ctx.param(cfg.bias_parameter_name).reshape(N) if cfg.bias_parameter_name else None
     # view, not reshape: a non-contiguous activation raises here instead of

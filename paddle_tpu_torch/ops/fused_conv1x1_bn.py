@@ -15,10 +15,14 @@ w is the conv parameter as stored, [N, K] (OIHW flattened), where the JAX
 function takes its transpose [K, N].
 
 :func:`conv1x1_stats` checks its operands on every device: float32, x
-contiguous [M, K], w contiguous [N, K], b absent or [N]; it raises on
-anything else and never copies. It launches the kernel for a CUDA tensor
-and runs :func:`conv1x1_stats_reference` for a CPU tensor; under autograd
-both go through the same backward.
+contiguous [M, K], w contiguous [N, K], b absent or [N], and M, K, N at
+least 1; it raises on anything else and never copies. For a CPU tensor it
+runs :func:`conv1x1_stats_reference`, which takes any such shape; for a
+CUDA tensor it launches the kernel, and raises on a shape that
+:func:`supported` refuses. Under autograd both go through the same
+backward. The conv layer asks :func:`supported` before any launch and
+runs the plain conv and batch norm for a shape it refuses, counted in
+``EAGER_ROUTES``.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from paddle_tpu_torch.ops._build import I32, PTR, CudaKernel, check, ptr
+from paddle_tpu_torch.ops._build import I32, PTR, CudaKernel, card_sms, check, ptr
 
 Tensor = torch.Tensor
 
@@ -38,9 +42,36 @@ CONV1X1_STATS = CudaKernel(
      PTR, PTR,                       # scratch: per-block partial sums, w's TF32 halves
      I32, I32, I32, I32])            # M, K, N, vec
 KERNELS = (CONV1X1_STATS,)
-TILE_M = 128                         # rows of y per tile: at most one partial row per tile
+TILE_M = 128                         # rows of y per tile
 TILE_K = 32                          # the kernel pads w's halves to a multiple of this
-MAX_M = 65535 * TILE_M
+# What csrc/conv1x1_bn.cu takes. M, K and N are ints there: the row tiles
+# (M + 127) / 128, so M + 127 within the int range; K padded to Kp, a
+# multiple of 32. Each block counts the stages it consumes (its row tiles
+# times ceil(K / 32)) in an int, every row tile in one block at worst.
+# The column tiles of 128 are the grid's y dimension (at most 65535). The
+# tensor maps' outer strides (bytes) stay below 2^40: w's halves are
+# [2][N][Kp] floats. M's limit is the int range; what bounded it before
+# (65535 row tiles, a grid dimension) went with PR 7's persistent blocks.
+INT_MAX = 2 ** 31 - 1
+MAX_M = INT_MAX - (TILE_M - 1)
+MAX_K = INT_MAX - (TILE_K - 1)
+MAX_N = 65535 * 128
+MAX_STAGES = INT_MAX - 8             # the stage counter plus the ring's look-ahead
+# layer calls that ran the plain conv and batch norm because supported() refused
+EAGER_ROUTES = 0
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def supported(M: int, K: int, N: int) -> bool:
+    """Whether kernel 9 takes x [M, K] and w [N, K] on the card (the limits
+    above); the plain version takes any M, K, N >= 1."""
+    if not (1 <= M <= MAX_M and 1 <= K <= MAX_K and 1 <= N <= MAX_N):
+        return False
+    Kp = _cdiv(K, TILE_K) * TILE_K
+    return _cdiv(M, TILE_M) * (Kp // TILE_K) <= MAX_STAGES and 4 * N * Kp < 2 ** 40
 
 
 def conv1x1_stats_reference(x: Tensor, w: Tensor, b: Optional[Tensor] = None):
@@ -62,19 +93,22 @@ def _check_operands(x: Tensor, w: Tensor, b: Optional[Tensor]) -> Tuple[int, int
     check(w, "w", (N, K), dev)
     if b is not None:
         check(b, "b", (N,), dev)
-    if min(M, K, N) == 0 or M > MAX_M:
-        raise ValueError(f"conv1x1_stats takes 1 <= M <= {MAX_M} and K, N >= 1, "
-                         f"got M={M}, K={K}, N={N}")
+    if min(M, K, N) == 0:
+        raise ValueError(f"conv1x1_stats takes M, K, N >= 1, got M={M}, K={K}, N={N}")
     return M, K, N
 
 
 def _launch(x: Tensor, w: Tensor, b: Optional[Tensor], M: int, K: int, N: int):
+    if not supported(M, K, N):
+        raise ValueError(f"kernel 9 does not take M={M}, K={K}, N={N} "
+                         f"(fused_conv1x1_bn.supported: M <= {MAX_M}, N <= {MAX_N}, ...)")
     dev = x.device
     y = torch.empty((M, N), device=dev)
     s = torch.empty((N,), device=dev)
     q = torch.empty((N,), device=dev)
-    part = torch.empty((-(-M // TILE_M), 2, N), device=dev)
-    wsplit = torch.empty((2, N, -(-K // TILE_K) * TILE_K), device=dev)
+    # one partial row per persistent block: at most one per row tile and per SM
+    part = torch.empty((min(_cdiv(M, TILE_M), card_sms(dev)), 2, N), device=dev)
+    wsplit = torch.empty((2, N, _cdiv(K, TILE_K) * TILE_K), device=dev)
     vec = int(K % 4 == 0 and ptr(x) % 16 == 0)       # TMA reads x; else 4-byte copies
     CONV1X1_STATS.launch(dev, ptr(x), ptr(w), None if b is None else ptr(b),
                          ptr(y), ptr(s), ptr(q), ptr(part), ptr(wsplit), M, K, N, vec)

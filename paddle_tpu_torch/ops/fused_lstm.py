@@ -11,13 +11,16 @@ beforehand, peepholes peep [3, H] = (input, forget, output), and padded
 steps pass both carries through, so a reversed sequence stays at
 h0 = c0 = 0 until it starts. The kernels take tanh, sigmoid, relu and
 linear in each of the three activation slots (act_in, act_gate,
-act_state), as the Pallas kernels do, and H up to ``MAX_H``; the backward
-runs as a persistent, cooperative grid (row groups of blocks, each block
-owning unit groups of 4 hidden units, their rows of w and of dW in shared
-memory for the whole launch; see ``csrc/lstm_bwd.cu``), whose plan
-:func:`grid_plan` mirrors, and the batch bounds it. :func:`supported`
-states what the kernels take, and the ``lstmemory`` layer runs its eager
-time loop (counted in ``EAGER_ROUTES``) for anything else.
+act_state), as the Pallas kernels do, and H up to ``MAX_H``. All three
+run as persistent, cooperative grids in row groups of blocks, each block
+owning unit groups of 4 hidden units for the whole launch: the forwards
+their columns of w (one body, ``csrc/lstm_fwd.cu``, plan
+:func:`fwd_plan`), the backward their rows of w and of dW
+(``csrc/lstm_bwd.cu``, plan :func:`grid_plan`), in shared memory where
+they fit beside the state of the block's rows; the batch bounds them.
+:func:`supported` states what the kernels take, and the ``lstmemory``
+layer runs its eager time loop (counted in ``EAGER_ROUTES``) for anything
+else.
 
 :func:`fused_lstm` launches the kernels for a CUDA tensor and raises on
 anything they do not take: the training pair when grad mode is on and an
@@ -52,6 +55,21 @@ MAX_H = 1024        # the forwards' limit: threads per block and shared memory
 UNITS = 4
 STATE = 3
 RING_FLOATS = 16384     # 2 slots of 4 rows x 2048 columns (N = 8), or of 8 x 1024 (N = 4)
+# How kernels 7a and 7b cut the work (csrc/lstm_fwd.cu): kernel 8's row
+# groups and unit groups; a block of 8 warps owns U <= 64 units, their
+# four gate columns of w in quads of 4 units ([H rounded up to 8][16]
+# floats and 16 of padding each) and FWD_STATE floats a row and unit (c
+# and the carried h). A warp takes 16 rows and two quads (tensor-core
+# tiles), QP warps (a power of 2) a pass's 16 rows, so a pass covers
+# 16 * 8 // QP rows; a ring of FWD_STAGES slots stages at most FWD_SLOT
+# floats of h a slot (a pass's rows by a chunk of columns, a power of 2
+# from 32, each row padded by FWD_PAD floats).
+FWD_WARPS = 8
+FWD_UNIT_GROUPS = 4     # unit groups a block of the forwards' default plan, where they fit
+FWD_STATE = 2
+FWD_STAGES = 2
+FWD_SLOT = 12800
+FWD_PAD = 4
 # layer calls that ran the eager time loop because supported() refused
 EAGER_ROUTES = 0
 
@@ -61,9 +79,13 @@ _FWD_ARGS = [PTR, I64, I64,          # x4, its time and batch strides
              PTR, I64, I64]          # ys
 _TAIL = [I32, I32, I32, I32,         # T, B, H, reverse
          I32, I32, I32]              # act_in, act_gate, act_state
-LSTM_FWD = CudaKernel("lstm_fwd.cu", "lstm_fwd", _FWD_ARGS + _TAIL)
+_FWD_SCRATCH = [PTR, PTR, PTR,       # the carry [2][B][Hp], w's columns where not in shared memory, the counters
+                PTR]                 # phase clocks [T][3] int64, or null
+_FWD_GRID = [I32, I32, I32]          # num_sms, row groups, w_smem
+LSTM_FWD = CudaKernel("lstm_fwd.cu", "lstm_fwd", _FWD_ARGS + _FWD_SCRATCH + _TAIL + _FWD_GRID)
 LSTM_FWD_TRAIN = CudaKernel("lstm_fwd.cu", "lstm_fwd_train",
-                            _FWD_ARGS + [PTR, PTR, PTR] + _TAIL)   # acts, hprev, cprev
+                            _FWD_ARGS + [PTR, PTR, PTR]      # acts, hprev, cprev
+                            + _FWD_SCRATCH + _TAIL + _FWD_GRID)
 LSTM_BWD = CudaKernel(
     "lstm_bwd.cu", "lstm_bwd",
     [PTR, I64, I64,                  # dy, its time and batch strides
@@ -160,6 +182,70 @@ def grid_plan(B: int, H: int, sms: int, row_groups: Optional[int] = None) -> Dic
                 w_in_smem=int(w_in_smem), dw_in_smem=int(dw_in_smem))
 
 
+def fwd_plan(B: int, H: int, sms: int, row_groups: Optional[int] = None) -> Dict[str, int]:
+    """Blocks, row groups, shared memory per block and placement of
+    kernels 7a and 7b.
+
+    Kernel 8's cut (:func:`grid_plan`: P row groups of G blocks, a block
+    owning gpb unit groups, U = 4 gpb units). By default as many row
+    groups (at most B) as give blocks of FWD_UNIT_GROUPS unit groups,
+    where their columns of w then fit in shared memory (at the
+    classifier's shape a block then reads half the rows of h a step that
+    it reads with kernel 8's P), else kernel 8's P. QP, the least power
+    of 2 at least U / 8, warps share each 16 rows, so a pass covers
+    16 * 8 // QP rows (none past 64 units), and h is staged in chunks of
+    the most columns, a power of 2 from 32, that keep a slot within
+    FWD_SLOT floats. A block keeps c and the carried h of its
+    rows (FWD_STATE floats a row and unit) and the ring in shared
+    memory, and its columns of w there too where they fit, else in device
+    memory it alone touches. Without w that is at most kernel 8's state:
+    2 floats a row and unit against its 3, and a ring of at most 17,408
+    floats (two slots of 128 rows x 68) against its ring, cross-warp sums
+    and peephole sums (at least 19,200 floats), so this plan fits wherever
+    kernel 8's does."""
+    groups = _cdiv(H, UNITS)
+    if row_groups is None:
+        wide = fwd_plan(B, H, sms, max(1, min(B, sms // _cdiv(groups, FWD_UNIT_GROUPS))))
+        if wide["w_in_smem"]:
+            return wide
+        row_groups = grid_plan(B, H, sms)["row_groups"]
+    P = row_groups
+    G = max(1, min(groups, sms // P))
+    gpb = _cdiv(groups, G)
+    G = _cdiv(groups, gpb)
+    U = UNITS * gpb
+    R = _cdiv(B, P)
+    QP = 1
+    while 8 * QP < U:
+        QP *= 2
+    rows_per_pass = 16 * (FWD_WARPS // QP) if QP <= FWD_WARPS else 0
+    chunk = 32
+    while rows_per_pass and rows_per_pass * (2 * chunk + FWD_PAD) <= FWD_SLOT:
+        chunk *= 2
+    ring = FWD_STAGES * rows_per_pass * (chunk + FWD_PAD)
+    state = 4 * (FWD_STATE * R * U + ring)
+    cols = 4 * (U // 4) * (16 * _cdiv(H, 8) * 8 + 16)
+    w_in_smem = state + cols <= SMEM_LIMIT
+    return dict(blocks=P * G, row_groups=P, blocks_per_group=G, unit_groups_per_block=gpb,
+                units_per_block=U, rows_per_group=R, rows_per_pass=rows_per_pass,
+                chunk=chunk, smem_bytes=state + cols * int(w_in_smem),
+                w_in_smem=int(w_in_smem), wslice_floats=cols // 4)
+
+
+def _fwd_fits(plan: Dict[str, int], sms: int) -> bool:
+    """Whether kernels 7a and 7b take ``plan`` (:func:`fwd_plan`) on a card
+    of ``sms`` SMs: 1 <= P <= sms, at most 8 * FWD_WARPS units a block (a
+    pass then has rows), and a block's shared memory within SMEM_LIMIT."""
+    return (1 <= plan["row_groups"] <= sms and plan["rows_per_pass"] > 0
+            and plan["smem_bytes"] <= SMEM_LIMIT)
+
+
+def fwd_barriers(T: int) -> int:
+    """The barriers one launch of kernels 7a and 7b passes: one a step
+    within its row group, but after the last."""
+    return max(0, T - 1)
+
+
 def grid_barriers(T: int, row_groups: int) -> int:
     """The barriers one launch of kernel 8 passes: one a step within its
     row group, and one over the whole grid when there are several."""
@@ -170,16 +256,18 @@ def supported(acts, H: int, B: int, num_sms: Optional[int] = None) -> bool:
     """Whether kernels 7a, 7b and 8 take an LSTM with activations ``acts`` =
     (act_in, act_gate, act_state), width ``H`` and batch ``B``.
 
-    Both at least 1, H at most MAX_H, and kernel 8's grid fits: the state
-    of a block's rows in shared memory (its rows of w and dW go to device
-    memory when they do not fit beside it). ``num_sms`` defaults to the
-    current card's count (132 where there is no card)."""
+    Both at least 1, H at most MAX_H, and both grids fit, kernel 8's and
+    the forwards': the state of a block's rows in shared memory (the
+    blocks' slices of w and dW go to device memory when they do not fit
+    beside it). ``num_sms`` defaults to the current card's count (132
+    where there is no card)."""
     if not (len(acts) == 3 and all(a in ACT_CODES for a in acts)):
         return False
     if not (1 <= H <= MAX_H and B >= 1):
         return False
-    plan = grid_plan(B, H, card_sms() if num_sms is None else num_sms)
-    return plan["smem_bytes"] <= SMEM_LIMIT
+    sms = card_sms() if num_sms is None else num_sms
+    return (grid_plan(B, H, sms)["smem_bytes"] <= SMEM_LIMIT
+            and _fwd_fits(fwd_plan(B, H, sms), sms))
 
 
 def _check_supported(acts, B, H, dev):
@@ -213,13 +301,38 @@ def _check_operands(x4, mask, w, peep, acts):
     return T, B, H, dev, codes
 
 
-def _launch_fwd(x4, mask, w, peep, reverse, acts, residuals):
+def _launch_fwd(x4, mask, w, peep, reverse, acts, residuals, row_groups=None,
+                phase_ns=None):
+    """ys [T, B, H] (kernel 7a), or with ``residuals`` also acts, hprev and
+    cprev (kernel 7b). ``row_groups`` overrides the plan's P (to time the
+    alternatives); ``phase_ns`` (an int64 [T, 3] tensor on the card, or
+    None) receives block 0's clock in ns at each step's start and at the
+    ends of its product and of its cells."""
     T, B, H, dev, codes = _check_operands(x4, mask, w, peep, acts)
+    sms = card_sms(dev)
+    plan = fwd_plan(B, H, sms, row_groups)
+    P = plan["row_groups"]
+    if not _fwd_fits(plan, sms):
+        raise ValueError(f"kernels 7a and 7b take 1 <= row_groups <= {sms}, at most "
+                         f"{8 * FWD_WARPS} units a block and {SMEM_LIMIT} bytes of shared "
+                         f"memory, got {plan}")
+    if phase_ns is not None and (phase_ns.device != dev or phase_ns.dtype != torch.int64
+                                 or tuple(phase_ns.shape) != (T, 3)
+                                 or not phase_ns.is_contiguous()):
+        raise ValueError(f"phase_ns must be a contiguous int64 [{T}, 3] tensor on {dev}")
     ys = torch.empty((B, T, H), device=dev).transpose(0, 1)
+    # the carry between steps: 7b's own hprev where its rows start on 16 bytes
+    hbuf = (torch.empty(2 * B * _cdiv(H, 4) * 4, device=dev)
+            if not residuals or H % 4 else None)
+    wslices = None if plan["w_in_smem"] else torch.empty(
+        plan["blocks"] * plan["wslice_floats"], device=dev)
+    counters = torch.empty(P, dtype=torch.int32, device=dev)
+    opt = lambda t: None if t is None else ptr(t)
     args = [ptr(x4), x4.stride(0), x4.stride(1),
             ptr(mask), mask.stride(0), mask.stride(1),
             ptr(w), ptr(peep), ptr(ys), ys.stride(0), ys.stride(1)]
-    tail = [T, B, H, int(bool(reverse)), *codes]
+    tail = [opt(hbuf), opt(wslices), ptr(counters), opt(phase_ns),
+            T, B, H, int(bool(reverse)), *codes, sms, P, plan["w_in_smem"]]
     if not residuals:
         LSTM_FWD.launch(dev, *args, *tail)
         return ys

@@ -55,13 +55,14 @@ VARIANTS = {
 }
 
 
-def build(root):
-    """One nvcc per variant, all at once; {name: (library, ptxas lines)}."""
+def build(root, variants=VARIANTS, kernel=KERNEL):
+    """One nvcc per variant of csrc/``kernel``, all at once; {name:
+    (library, ptxas lines)}."""
     from paddle_tpu_torch.ops import _build
 
     nvcc = _build.nvcc_path()
     procs = {}
-    for name, edits in VARIANTS.items():
+    for name, edits in variants.items():
         src = os.path.join(root, name)
         shutil.rmtree(src, ignore_errors=True)
         shutil.copytree(_build.CSRC_DIR, src)
@@ -73,9 +74,9 @@ def build(root):
                 raise RuntimeError(f"{name}: {old!r} is not in {fname} exactly once")
             with open(path, "w") as f:
                 f.write(text.replace(old, new))
-        lib = os.path.join(src, "lstm_bwd.so")
+        lib = os.path.join(src, os.path.splitext(kernel)[0] + ".so")
         procs[name] = (lib, subprocess.Popen(
-            [nvcc, *_build.NVCC_FLAGS, "-I", src, "-o", lib, os.path.join(src, KERNEL)],
+            [nvcc, *_build.NVCC_FLAGS, "-I", src, "-o", lib, os.path.join(src, kernel)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     built = {}
     for name, (lib, proc) in procs.items():

@@ -125,3 +125,50 @@ def test_the_autograd_path_is_the_kernels_backward(monkeypatch):
     with torch.no_grad():
         fc.conv1x1_stats(x, w)
     assert seen == [1]
+
+
+# (M, K, N, taken): kernel 9's limits (fused_conv1x1_bn.supported), each at
+# its edge and one past it, and ResNet-50's largest 1x1 conv at B = 64
+_EDGES = [
+    (1, 1, 1, True),
+    (207936, 64, 256, True),                        # ResNet-50 stage 2, 57² at B = 64
+    (8388480 + 1, 1, 1, True),                      # past PR 4's 65535 row tiles
+    (fc.MAX_M, 1, 1, True), (fc.MAX_M + 1, 1, 1, False),   # M + 127 within an int
+    (fc.MAX_M, 4096, 1, True), (fc.MAX_M, 4097, 1, False),  # a block's stage count
+    (1, 1, fc.MAX_N, True), (1, 1, fc.MAX_N + 1, False),     # 65535 column tiles
+    (1, 32768, fc.MAX_N, True), (1, 32769, fc.MAX_N, False),  # w's halves' stride < 2^40
+    (1, fc.MAX_K, 1, True), (1, fc.MAX_K + 1, 1, False),     # Kp within an int
+    (0, 64, 64, False), (64, 0, 64, False), (64, 64, 0, False),
+]
+
+
+@pytest.mark.parametrize("M,K,N,taken", _EDGES)
+def test_supported_at_its_edges(M, K, N, taken):
+    """What kernel 9 takes on the card: M up to the int range (2^31 - 128,
+    so that the row tile count M + 127 fits), ceil(M / 128) * ceil(K / 32)
+    stages a block within an int, N up to 65535 column tiles of 128, and
+    the stride of w's TF32 halves ([2][N][Kp] floats) below 2^40 bytes."""
+    assert fc.MAX_M == 2 ** 31 - 128 and fc.MAX_N == 8388480
+    assert fc.supported(M, K, N) is taken
+
+
+def test_plain_version_takes_m_past_the_old_limit(monkeypatch):
+    """On the CPU the wrapper runs the plain version at any M: 8,388,481
+    rows (one past PR 4's 65535 tiles of 128) at K = N = 1, against numpy
+    in float64, and asks no gate (here refusing everything)."""
+    monkeypatch.setattr(fc, "supported", lambda *a: False)
+    M = 8388481
+    rng = np.random.RandomState(5)
+    x = rng.randn(M, 1).astype(np.float32)
+    w, b = np.float32([[0.5]]), np.float32([0.25])
+    y, s, q = fc.conv1x1_stats(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(b))
+    y64 = x.astype(np.float64) * 0.5 + 0.25
+    assert y.shape == (M, 1) and torch.equal(y, torch.from_numpy(x * w[0, 0] + b[0]))
+    assert abs(float(s[0]) - y64.sum()) <= 1e-5 * np.abs(y64).sum()
+    assert abs(float(q[0]) - (y64 ** 2).sum()) <= 1e-5 * (y64 ** 2).sum()
+
+
+def test_the_wrapper_refuses_an_empty_dimension_on_every_device():
+    x, w, b = _port(*_inputs(4, 3, 2, seed=6))
+    with pytest.raises(ValueError, match="M, K, N >= 1"):
+        fc.conv1x1_stats(x[:0], w, b)

@@ -208,7 +208,7 @@ def test_conv1x1_stats_refuses_what_the_kernel_does_not_take():
         conv1x1_stats(x, w, torch.randn(4))
     with pytest.raises(ValueError, match=r"x \[M, K\]"):
         conv1x1_stats(x.reshape(2, 2, 2, 4), w)
-    with pytest.raises(ValueError, match="M <="):
+    with pytest.raises(ValueError, match="M, K, N >= 1"):
         conv1x1_stats(torch.randn(0, 4), w)
     with pytest.raises(ValueError, match="contiguous"):
         conv1x1_stats(torch.randn(4, 8).t().requires_grad_(), w)

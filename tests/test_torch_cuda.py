@@ -415,12 +415,13 @@ _LSTM_GRID_CASES = [(1 if B == 1 else 3, B, H) for B in (1, 3, 40, 100, 256)
                          + _LSTM_GRID_CASES)
 @pytest.mark.parametrize("reverse", [False, True])
 def test_lstm_kernels_match_plain_version(dev, T, B, H, reverse, acts):
-    """Kernels 7a, 7b and 8. H = 600 puts the forwards' shared memory
-    above 48 KB and the forward on its 16-row tiles (32 rows below); H =
-    130 runs the forward's clusters of three blocks. Kernel 8 runs as many
-    row groups as fused_lstm.grid_plan chooses (B of them at B <= 3, six
-    groups of no rows at B = 40, H = 37), with bundles of 4 or 8 units, and
-    at H = 1024 dW's rows in device memory; the last row is all masked."""
+    """Kernels 7a, 7b and 8. All three run as many row groups as
+    fused_lstm.grid_plan chooses (B of them at B <= 3, six groups of no
+    rows at B = 40, H = 37), the forwards with 4 or 8 units a block (their
+    last unit group short at H = 37, 130 and 600, and 7b then carrying h
+    in its scratch: H % 4 != 0 at H = 37), kernel 8 with bundles of 4 or 8
+    units and at H = 1024 dW's rows in device memory; the last row is all
+    masked."""
     from paddle_tpu_torch.ops import fused_lstm as fl
 
     rng = np.random.RandomState(T * 1000 + H + reverse)
@@ -458,6 +459,133 @@ def test_lstm_kernels_match_plain_version(dev, T, B, H, reverse, acts):
         assert torch.isfinite(a).all(), name
         assert float((a - b).abs().max()) <= _grad_tol(b), name
     assert not gk[0][:, -1].any()                     # the masked row gets nothing
+
+
+def _lstm_fwd_inputs(dev, T, B, H, seed):
+    """Kernels 7a and 7b's operands as the layer passes them (x4 a
+    time-major view of batch-major storage), ragged lengths with one full
+    row and one of length 0, weights at 1/sqrt(H); and the plain version's
+    ys, acts, hprev and cprev, forward and reversed."""
+    from paddle_tpu_torch.ops import fused_lstm as fl
+
+    rng = np.random.RandomState(seed)
+    x4 = _t(rng.randn(B, T, 4 * H) * 0.5, dev).transpose(0, 1)
+    w = _t(rng.randn(H, 4 * H) / np.sqrt(H), dev)
+    peep = _t(rng.randn(3, H) * 0.1, dev)
+    lens = rng.randint(1, T + 1, B) if T else np.zeros(B, np.int64)
+    lens[0] = T
+    if B > 1:
+        lens[-1] = 0
+    mask = _t(np.arange(T)[:, None] < lens[None, :], dev)
+    refs = {rev: fl.lstm_forward_reference(x4, mask, w, peep, rev, residuals=True)
+            for rev in (False, True)}
+    return x4, w, peep, mask, refs
+
+
+def _assert_fwd(got, ref, names=("ys", "acts", "hprev", "cprev")):
+    torch.cuda.synchronize()
+    for name, a, b in zip(names, got, ref):
+        assert a.shape == b.shape and torch.isfinite(a).all(), name
+        assert a.numel() == 0 or float((a - b).abs().max()) <= TOL, name
+
+
+def test_lstm_forwards_are_deterministic_at_the_classifier_shape(dev):
+    """T = 64, B = 256, H = 512 (four row groups of 32 blocks, 16 units and
+    64 rows a block, w's columns in shared memory): two launches of 7a and
+    of 7b give the same bits, within 1e-4 of the plain version, forward and
+    reversed; 7a equals 7b's ys (one body)."""
+    from paddle_tpu_torch.ops import fused_lstm as fl
+
+    T, B, H = 64, 256, 512
+    plan = fl.fwd_plan(B, H, fl.card_sms(dev))
+    assert (plan["row_groups"], plan["units_per_block"], plan["w_in_smem"]) == (4, 16, 1)
+    x4, w, peep, mask, refs = _lstm_fwd_inputs(dev, T, B, H, seed=31)
+    for reverse in (False, True):
+        for residuals in (False, True):
+            one = fl._launch_fwd(x4, mask, w, peep, reverse, fl.DEFAULT_ACTS, residuals)
+            two = fl._launch_fwd(x4, mask, w, peep, reverse, fl.DEFAULT_ACTS, residuals)
+            one, two = (one, two) if residuals else ((one,), (two,))
+            _assert_fwd(one, refs[reverse])
+            assert all(torch.equal(a, b) for a, b in zip(one, two)), (reverse, residuals)
+        light = fl._launch_fwd(x4, mask, w, peep, reverse, fl.DEFAULT_ACTS, False)
+        assert torch.equal(light, one[0])
+
+
+def test_lstm_forwards_take_every_row_groups_that_fits(dev):
+    """T = 4, B = 6, H = 20 (five unit groups): every P from 1 to the SM
+    count (most row groups then hold no row, some blocks several unit
+    groups), 7a and 7b against the plain version, forward and reversed."""
+    from paddle_tpu_torch.ops import fused_lstm as fl
+
+    T, B, H = 4, 6, 20
+    x4, w, peep, mask, refs = _lstm_fwd_inputs(dev, T, B, H, seed=37)
+    sms = fl.card_sms(dev)
+    for P in range(1, sms + 1):
+        assert fl.fwd_plan(B, H, sms, P)["smem_bytes"] <= fl.SMEM_LIMIT
+        reverse = bool(P % 2)
+        _assert_fwd(fl._launch_fwd(x4, mask, w, peep, reverse, fl.DEFAULT_ACTS, True,
+                                   row_groups=P), refs[reverse])
+        _assert_fwd((fl._launch_fwd(x4, mask, w, peep, reverse, fl.DEFAULT_ACTS, False,
+                                    row_groups=P),), refs[reverse])
+
+
+def test_lstm_forwards_with_w_columns_in_device_memory(dev):
+    """H = 1024, B = 1536 (the gate's edge at 132 SMs): the rows' state
+    leaves no room for a block's columns of w in shared memory, which it
+    then keeps in device memory; 7a and 7b against the plain version."""
+    from paddle_tpu_torch.ops import fused_lstm as fl
+
+    T, B, H = 2, 1536, 1024
+    assert fl.supported(fl.DEFAULT_ACTS, H, B, fl.card_sms(dev))
+    assert not fl.fwd_plan(B, H, fl.card_sms(dev))["w_in_smem"]
+    x4, w, peep, mask, refs = _lstm_fwd_inputs(dev, T, B, H, seed=43)
+    for reverse in (False, True):
+        _assert_fwd(fl._launch_fwd(x4, mask, w, peep, reverse, fl.DEFAULT_ACTS, True),
+                    refs[reverse])
+        _assert_fwd((fl._launch_fwd(x4, mask, w, peep, reverse, fl.DEFAULT_ACTS, False),),
+                    refs[reverse])
+
+
+@pytest.mark.parametrize("acts", LSTM_ACTS)
+@pytest.mark.parametrize("T", [0, 1])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_lstm_forwards_of_zero_and_one_steps(dev, T, reverse, acts):
+    """T = 0 (no step: an empty result, a launch counted) and T = 1 (no
+    carry read, 7b's hprev all 0), with each activation triple, at B = 5,
+    H = 37 (7b's carry in its scratch) and B = 3, H = 64 (in hprev)."""
+    from paddle_tpu_torch.ops import fused_lstm as fl
+
+    for B, H in ((5, 37), (3, 64)):
+        rng = np.random.RandomState(T * 100 + H)
+        # dense strides also where T = 0 (numpy's empty arrays have others)
+        x4 = torch.empty((T, B, 4 * H), device=dev).copy_(_t(rng.randn(T, B, 4 * H) * 0.5, dev))
+        w = _t(rng.randn(H, 4 * H) / np.sqrt(H), dev)
+        peep = _t(rng.randn(3, H) * 0.1, dev)
+        mask = torch.ones((T, B), device=dev)
+        ref = fl.lstm_forward_reference(x4, mask, w, peep, reverse, acts, residuals=True)
+        before = (fl.LSTM_FWD.launches, fl.LSTM_FWD_TRAIN.launches)
+        got = fl._launch_fwd(x4, mask, w, peep, reverse, acts, True)
+        light = fl._launch_fwd(x4, mask, w, peep, reverse, acts, False)
+        assert (fl.LSTM_FWD.launches, fl.LSTM_FWD_TRAIN.launches) == (before[0] + 1, before[1] + 1)
+        _assert_fwd(got, ref)
+        _assert_fwd((light,), ref)
+        assert not got[2].any()                      # hprev: the first carry is 0
+
+
+def test_lstm_forward_phase_clocks_leave_the_result_alone(dev):
+    """Kernel 7b asked for its phase clocks: the same bits, and block 0's
+    clock rising through every step's product and cells."""
+    from paddle_tpu_torch.ops import fused_lstm as fl
+
+    T = 5
+    x4, w, peep, mask, _ = _lstm_fwd_inputs(dev, T, 64, 512, seed=47)
+    plain = fl._launch_fwd(x4, mask, w, peep, False, fl.DEFAULT_ACTS, True)
+    clocks = torch.zeros((T, 3), dtype=torch.int64, device=dev)
+    clocked = fl._launch_fwd(x4, mask, w, peep, False, fl.DEFAULT_ACTS, True, phase_ns=clocks)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(plain, clocked))
+    flat = clocks.flatten()
+    assert bool((flat[1:] >= flat[:-1]).all()) and int(flat[0]) > 0
 
 
 def _lstm_bwd_inputs(dev, T, B, H, seed, acts=None):
@@ -770,6 +898,29 @@ def test_conv1x1_stats_wrapper_raises_on_what_the_kernel_does_not_take(dev):
         conv1x1_stats(x, w.cpu(), b)
     with pytest.raises(ValueError, match="shape"):
         conv1x1_stats(x, w[:, :4].contiguous(), b)
+
+
+def test_conv1x1_stats_kernel_takes_m_past_65535_row_tiles(dev):
+    """M = 8,388,481 rows, one past PR 4's grid of 65535 row tiles of 128
+    (the old MAX_M): the persistent blocks walk every tile; y, s and q
+    against the plain version. On the card the wrapper raises for a shape
+    fused_conv1x1_bn.supported refuses (N past 65535 column tiles)."""
+    from paddle_tpu_torch.ops import fused_conv1x1_bn as fc
+
+    M, K, N = 8388481, 8, 16
+    assert fc.supported(M, K, N)
+    x, w, b = _conv_inputs(M, K, N, dev, seed=7)
+    y, s, q = fc.conv1x1_stats(x, w, b)
+    yr, sr, qr = fc.conv1x1_stats_reference(x, w, b)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all()
+    assert float((y - yr).abs().max()) <= TOL * max(1.0, float(yr.abs().max()))
+    assert ((s - sr).abs() <= 1e-5 * yr.abs().sum(0) + 1e-30).all()
+    assert ((q - qr).abs() <= 1e-5 * qr + 1e-30).all()
+    del x, y, yr
+    assert not fc.supported(1, 1, fc.MAX_N + 1)
+    with pytest.raises(ValueError, match="does not take"):
+        fc.conv1x1_stats(torch.ones(1, 1, device=dev), torch.ones(fc.MAX_N + 1, 1, device=dev))
 
 
 def test_resnet_step_launches_kernel9_for_every_1x1_stride1_conv(dev):

@@ -168,6 +168,87 @@ def test_lstm_backward_main_path_plan():
     assert (few["row_groups"], few["rows_per_group"]) == (3, 1)
 
 
+def test_lstm_forward_main_path_plan():
+    """T = 64, B = 256, H = 512: four row groups of 32 blocks (128 in all),
+    each block owning 4 unit groups (16 units, 4 quads) and 64 rows. QP = 2
+    warps share each 16 rows (a warp: 16 rows x 2 quads on the tensor
+    cores), so a pass covers 16 * 8 / 2 = 64 rows, and h is staged in
+    chunks of 128 columns (64 x (2 x 128 + 4) > 12,800 floats). Shared
+    memory: w's columns, 4 quads x (16 x 512 + 16) floats = 131,328 B; c
+    and the carried h, 2 x 64 x 16 floats = 8,192 B; the ring, 2 slots of
+    64 rows x (128 + 4) floats = 67,584 B; 207,104 B in all. 63 barriers a
+    launch (one a step but after the last). With kernel 8's two row groups:
+    8 units, 128 rows and 64 columns a chunk; with one: 4 units, 256 rows
+    in two passes of 128."""
+    assert fl.fwd_plan(256, 512, H100_SMS) == dict(
+        blocks=128, row_groups=4, blocks_per_group=32, unit_groups_per_block=4,
+        units_per_block=16, rows_per_group=64, rows_per_pass=64, chunk=128,
+        smem_bytes=207104, w_in_smem=1, wslice_floats=32832)
+    two = fl.fwd_plan(256, 512, H100_SMS, row_groups=2)
+    assert (two["blocks"], two["units_per_block"], two["rows_per_group"], two["chunk"],
+            two["smem_bytes"]) == (128, 8, 128, 64, 143488)
+    one = fl.fwd_plan(256, 512, H100_SMS, row_groups=1)
+    assert (one["blocks"], one["units_per_block"], one["rows_per_group"],
+            one["rows_per_pass"], one["smem_bytes"]) == (128, 4, 256, 128, 110656)
+    assert fl.fwd_barriers(64) == 63 and fl.fwd_barriers(1) == 0 and fl.fwd_barriers(0) == 0
+    # the gate's edge at H = 1024: four unit groups a block leave no room for
+    # w's columns, so kernel 8's single row group, w's columns in device memory
+    wide = fl.fwd_plan(1536, 1024, H100_SMS)
+    assert (wide["row_groups"], wide["units_per_block"], wide["w_in_smem"]) == (1, 8, 0)
+    assert wide["smem_bytes"] == 4 * (2 * 1536 * 8 + 2 * 128 * 68)
+
+
+def _lstm_grid_edge(H):
+    """The largest B at which kernel 8's plan fits at 132 SMs (bisection)."""
+    lo, hi = 1, 1 << 20
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if fl.grid_plan(mid, H, H100_SMS)["smem_bytes"] <= fl.SMEM_LIMIT:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
+@pytest.mark.parametrize("H", [1, 8, 37, 130, 512, 600, 1024])
+def test_lstm_forward_plan_fits_wherever_the_backward_plan_does(H):
+    """Every B up to kernel 8's edge at 132 SMs (or 8192 where it has none
+    so low) and one past it: wherever grid_plan fits, fwd_plan fits (w's
+    columns in device memory where they do not fit beside the rows' state),
+    so supported() takes every (H, B) it took with kernel 8's plan alone."""
+    edge = min(_lstm_grid_edge(H), 8192)
+    for B in range(1, edge + 2):
+        back = fl.grid_plan(B, H, H100_SMS)["smem_bytes"] <= fl.SMEM_LIMIT
+        fwd = fl.fwd_plan(B, H, H100_SMS)
+        assert fwd["smem_bytes"] <= fl.SMEM_LIMIT or not back, (H, B, fwd)
+        assert fl.supported(fl.DEFAULT_ACTS, H, B, num_sms=H100_SMS) == back, (H, B)
+    assert fl.supported(fl.DEFAULT_ACTS, H, edge, num_sms=H100_SMS)
+
+
+@pytest.mark.parametrize("H,B_max", [(1024, 1536), (512, 3072), (256, 6144)])
+def test_lstm_gate_keeps_its_edges_with_the_persistent_forwards(H, B_max):
+    """fused_lstm.supported does not narrow with the forwards' grid: kernel
+    8's edges at 132 SMs (PR 10) hold and one row past them is refused."""
+    assert fl.supported(fl.DEFAULT_ACTS, H, B_max, num_sms=H100_SMS)
+    assert not fl.supported(fl.DEFAULT_ACTS, H, B_max + 1, num_sms=H100_SMS)
+    assert fl.fwd_plan(B_max, H, H100_SMS)["smem_bytes"] <= fl.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("sms,H", [(4, 256), (8, 512), (12, 768), (16, 1024)])
+def test_lstm_gate_refuses_a_forward_block_past_64_units(sms, H):
+    """On a card of few SMs a block of the forwards owns ceil(H / 4) /
+    sms unit groups; past 16 of them (64 units, H > 64 * sms) a pass has
+    no rows. supported() asks what _launch_fwd asks (fused_lstm._fwd_fits),
+    so it refuses there although kernel 8's plan fits, and takes H = 64 *
+    sms."""
+    for B in (1, 64):
+        assert fl.supported(fl.DEFAULT_ACTS, H, B, num_sms=sms)
+        wider = fl.fwd_plan(B, H + 4, sms)
+        assert wider["units_per_block"] > 64 and not fl._fwd_fits(wider, sms)
+        assert fl.grid_plan(B, H + 4, sms)["smem_bytes"] <= fl.SMEM_LIMIT
+        assert not fl.supported(fl.DEFAULT_ACTS, H + 4, B, num_sms=sms)
+
+
 @pytest.mark.parametrize("H,B_max", [(1024, 1401), (2100, 700), (9685, 147)])
 def test_gru_gate_keeps_its_edges_with_the_persistent_forward(H, B_max):
     """fused_gru.supported does not narrow with kernel 2's grid: kernel 3's

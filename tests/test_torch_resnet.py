@@ -187,6 +187,50 @@ def test_layers_match_the_jax_package(tmp_path, monkeypatch, mode, s2d):
             _close(outs[layer.name].value, jouts[layer.name].value, 1e-5, layer.name)
 
 
+def test_a_shape_kernel9_refuses_takes_the_plain_conv_and_batch_norm(tmp_path, monkeypatch):
+    """With ``fused_conv1x1_bn.supported`` refusing the "reduce" conv's
+    shape (K = 128, N = 16), that layer runs the plain conv and its batch
+    norm reduces the output, counted once in ``EAGER_ROUTES``; "expand" and
+    "proj" still take the kernel's plain version. Every output, the loss,
+    every gradient (``jax.grad`` through the JAX machine's ``grad_fn``
+    against autograd) and the state updates match the JAX package in
+    "pallas" mode, whose own gate refuses the same layer (N = 16 is not a
+    multiple of 128), at the tolerances of the test above."""
+    from paddle_tpu_torch.ops import fused_conv1x1_bn as fc
+
+    monkeypatch.setenv("PADDLE_TPU_PALLAS_INTERPRET", "1")
+    jtc, tc = _parse_both(tmp_path)
+    jm = JaxMachine(jtc.model_config, conv_stats_mode="pallas")
+    jparams = jm.init_params(seed=4)
+    jbatch, batch = _batches(seed=5)
+    j_kernel = _spy(monkeypatch, pcb, "conv1x1_stats")
+    jloss, jgrads, jouts, jsu = jm.grad_fn()(jparams, jbatch, None)
+
+    asked = []
+    monkeypatch.setattr(fc, "supported", lambda M, K, N: asked.append((M, K, N)) or N != 16)
+    kernel = _spy(monkeypatch, vision, "conv1x1_stats")
+    before = fc.EAGER_ROUTES
+    m = GradientMachine(tc.model_config, device="cpu", conv_stats_mode="pallas")
+    loss, grads, outs, su = m.grad_fn()(params_from_numpy(_np(jparams), "cpu"), batch)
+
+    M = B * 3 * 3                      # 8² -> the s2 stem's 4² -> the ceil-mode pool's 3²
+    assert sorted(asked) == sorted([(M, 8, 128)] * 2 + [(M, 128, 16)])
+    assert fc.EAGER_ROUTES == before + 1
+    assert len(kernel) == len(j_kernel) == len(JAX_KERNEL_LAYERS)
+    for layer in tc.model_config.layers:
+        if layer.name not in ("image", "label"):
+            _close(outs[layer.name].value, jouts[layer.name].value, 1e-5, layer.name)
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
+    assert sorted(grads) == sorted(jgrads)
+    for name in sorted(jgrads):
+        want = np.asarray(jgrads[name])
+        np.testing.assert_allclose(grads[name].numpy(), want, rtol=1e-4,
+                                   atol=1e-5 * _scale(want), err_msg=name)
+    assert sorted(su) == sorted(jsu)
+    for name in jsu:
+        _close(su[name], jsu[name], 1e-5, name)
+
+
 def test_use_global_stats_and_sequence_batch_norm_match_the_jax_package(tmp_path):
     """A batch norm with use_global_stats in a training pass (moving
     statistics, no state updates), and one over a padded sequence (the
