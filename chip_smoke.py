@@ -30,7 +30,12 @@ Phases, each printing one JSON object per line:
              its grid and its weight-slice load timed apart; kernel 3 (the
              persistent GRU backward, dW in the launch) and kernel 2 (the
              persistent GRU training forward) two launches bit-equal, each
-             with the barrier timed on its own grid.
+             with the barrier timed on its own grid. Kernel 1 (kernel 2's
+             body without residuals) at the prefill's T = 32, H = 512 for
+             B = 64, 8 and 1 (the first rows of the full admission), two
+             launches bit-equal and its ys bit-equal to kernel 2's, timed
+             with and without the wrapper's host work, its grid, barrier
+             and design bound, and the wrapper's host time back to back.
 3. serve   — a main path: the seqToseq NMT generation model at full
              width (vocab 30000, dim 512, random weights from seed 1)
              behind build_engine(slots=64, prompt_tokens=32,
@@ -40,7 +45,7 @@ Phases, each printing one JSON object per line:
              routes). The same requests then go through the unfused
              decode step, and a small prefill is checked against the CPU;
              one more serve runs under torch.profiler, with kernel 4's
-             device ms per micro-step.
+             device ms per micro-step and kernel 1's per prefill.
 4. train   — the other main path: Trainer(nmt_config(vocab=30000,
              dim=512, batch_size=64)) on the card, random weights from
              seed 1, 8 Adam steps on nmt_batch(B=64, T=32, seed=1), the
@@ -144,7 +149,7 @@ its eager computation instead of a kernel.
 
 Then the per-kernel line ({"kernels": [...]}; rows 9-12, the kernels on
 the tensor cores, also carry bound_tc_ms, the bound of their design: three
-TF32 products per product at 495 TFLOP/s, or the bytes; rows 2-8, the
+TF32 products per product at 495 TFLOP/s, or the bytes; rows 1-8, the
 persistent grids, carry design_bound_ms, bound_ms plus their grid
 barriers at the measured barrier time, and their grid), the card's name
 and power
@@ -158,6 +163,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -284,7 +290,6 @@ def phase_kernels(torch, dev):
     from paddle_tpu_torch.ops import fused_attention_gru as fa
     from paddle_tpu_torch.ops.fused_attention_gru import (
         attention_gru_reference, fused_attention_gru)
-    from paddle_tpu_torch.ops.fused_gru import fused_gru, gru_forward_reference
 
     rng = np.random.RandomState(0)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
@@ -296,26 +301,12 @@ def phase_kernels(torch, dev):
         return lens
 
     results = {}
-    # kernel 1: the encoder GRU, T = prompt_tokens, H = dim
+    # kernel 1: the encoder GRU at prefill, T = prompt_tokens, H = dim
     T, H = Te, D
     x3 = t(rng.randn(T, B, 3 * H) * 0.5)
     w = t(rng.randn(H, 3 * H) / np.sqrt(H))
     mask = t((np.arange(T)[:, None] < lengths(T)[None, :]))
-    cases = []
-    for reverse in (False, True):
-        got = fused_gru(x3, mask, w, reverse=reverse)
-        ref = gru_forward_reference(x3, mask, w, reverse=reverse)
-        torch.cuda.synchronize()
-        err = float((got - ref).abs().max())
-        assert torch.isfinite(got).all() and err <= TOL, ("gru_fwd", reverse, err)
-        cases.append({"reverse": reverse, "max_abs_err": err,
-                      "ms": time_ms(torch, lambda: fused_gru(x3, mask, w, reverse=reverse)),
-                      "plain_ms": time_ms(torch, lambda: gru_forward_reference(
-                          x3, mask, w, reverse=reverse), reps=5)})
-    nbytes = 4.0 * (T * B * 3 * H + T * B + H * 3 * H + T * B * H)
-    flops = T * (6.0 * B * H * H + 14.0 * B * H)     # kernel_flops.gru_fwd_flops
-    results["gru_fwd"] = dict(cases=cases, shape=dict(T=T, B=B, H=H),
-                              bytes=nbytes, flops=flops)
+    results["gru_fwd"] = kernel1_cases(torch, dev, x3, mask, w)
 
     # kernel 4: the attention-GRU decode step, Td = 1 (serving) and Td = 8,
     # ep and ev as transposed views of batch-major buffers, as the serve
@@ -377,6 +368,78 @@ def phase_kernels(torch, dev):
     phase_gru_acts(torch, dev, rng, t, lengths, results)
     emit({"phase": "kernels", "cases": {k: r["cases"] for k, r in results.items()}})
     return results
+
+
+# the batches kernel 1 runs at: the full admission (and the serve's
+# warm-up), and two smaller ones (a serve admits whatever is waiting, and
+# the first design used only B SMs); the first is the main path's
+KERNEL1_BATCHES = (FULL["slots"], 8, 1)
+# kernel 1's symbol as the profiler names it: the body's instance without
+# residuals (kernel 2 is gru_fwd_kernel<true>, kernel 4
+# attention_gru_fwd_kernel<false>)
+KERNEL1_SYMBOL = re.compile(r"(?<!\w)gru_fwd_kernel<false>")
+
+
+def gru_fwd_work(T, B, H):
+    """Bytes (x3, mask, w, ys, each once) and float32 operations
+    (kernel_flops.gru_fwd_flops) of kernel 1."""
+    return (4.0 * (T * B * 3 * H + T * B + H * 3 * H + T * B * H),
+            T * (6.0 * B * H * H + 14.0 * B * H))
+
+
+def kernel1_cases(torch, dev, x3, mask, w):
+    """Kernel 1 against its plain version on the full admission's first B
+    rows, for each B of KERNEL1_BATCHES, forward and reversed: ys within
+    TOL, two launches bit-equal, and equal bit for bit to kernel 2's ys on
+    the same inputs (one body). Each case is timed with the wrapper (ms)
+    and without its host work (device_ms, which also gives the µs a step),
+    with its grid (blocks, shared memory a block, w_in_smem, 2 T - 1
+    barriers), its bound and its design bound (the bound plus its barriers
+    at the barrier's time on the full admission's grid). The wrapper's
+    host time a launch, back to back, at the full admission."""
+    from paddle_tpu_torch.ops import fused_gru as fg
+
+    T, _, H3 = x3.shape
+    H = H3 // 3
+    sms = fg.card_sms(dev)
+    cases = []
+    for B in KERNEL1_BATCHES:
+        xb, mb = x3[:, :B], mask[:, :B]
+        plan = fg.fwd_plan(B, H, sms)
+        for reverse in (False, True):
+            run = lambda: fg.fused_gru(xb, mb, w, reverse=reverse)
+            got, again = run(), run()
+            ys2 = fg._launch_fwd(xb, mb, w, reverse, fg.KERNEL_ACTS, residuals=True)[0]
+            ref = fg.gru_forward_reference(xb, mb, w, reverse=reverse)
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max())
+            key = ("gru_fwd", B, reverse)
+            assert torch.isfinite(got).all() and err <= TOL, (key, err)
+            assert torch.equal(got, again), (key, "two launches differ")
+            assert torch.equal(got, ys2), (key, "ys differ from gru_fwd_train's")
+            device_ms = time_ms(torch, run, hide_host=True)
+            cases.append({"B": B, "reverse": reverse, "max_abs_err": err,
+                          "ms": time_ms(torch, run), "device_ms": device_ms,
+                          "plain_ms": time_ms(torch, lambda: fg.gru_forward_reference(
+                              xb, mb, w, reverse=reverse), reps=5),
+                          "per_step_us": 1e3 * device_ms / T, "grid_barriers": fg.fwd_barriers(T),
+                          "blocks": plan["blocks"], "smem_bytes_per_block": plan["smem_bytes"],
+                          "w_in_smem": bool(plan["w_in_smem"]),
+                          "bound_ms": bound(*gru_fwd_work(T, B, H))[0]})
+    main = fg.fwd_plan(KERNEL1_BATCHES[0], H, sms)
+    barrier_us = grid_barrier_us(torch, dev, main["blocks"], main["smem_bytes"])
+    for c in cases:
+        c["design_bound_ms"] = c["bound_ms"] + c["grid_barriers"] * barrier_us * 1e-3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        fg.fused_gru(x3, mask, w)
+    torch.cuda.synchronize()
+    back_to_back_ms = (time.perf_counter() - t0) * 10.0
+    nbytes, flops = gru_fwd_work(T, KERNEL1_BATCHES[0], H)
+    return dict(cases=cases, shape=dict(T=T, B=KERNEL1_BATCHES[0], H=H), bytes=nbytes,
+                flops=flops, barrier_us=barrier_us, design_bound_ms=cases[0]["design_bound_ms"],
+                back_to_back_ms=back_to_back_ms)
 
 
 # (act_in, act_gate) beyond the default: each of the four activations in
@@ -445,7 +508,7 @@ def phase_train_kernels(torch, dev, rng, t, lengths, results):
     mask = t((np.arange(T)[:, None] < lengths(T)[None, :]))
     dy = t(rng.randn(T, B, H))
     gplan = fg.grid_plan(B, H, fa.card_sms(dev))
-    fplan = fg.fwd_train_plan(B, H, fa.card_sms(dev))
+    fplan = fg.fwd_plan(B, H, fa.card_sms(dev))
     fwd_cases, bwd_cases = [], []
     for reverse in (False, True):
         got = fg._launch_fwd(x3, mask, w, reverse, fg.KERNEL_ACTS, residuals=True)
@@ -461,7 +524,7 @@ def phase_train_kernels(torch, dev, rng, t, lengths, results):
                           "device_ms": time_ms(torch, run_fwd, hide_host=True),
                           "plain_ms": time_ms(torch, lambda: fg.gru_forward_reference(
                               x3, mask, w, reverse, residuals=True), reps=5),
-                          "per_step_us": 1e3 * ms / T, "grid_barriers": fg.fwd_train_barriers(T),
+                          "per_step_us": 1e3 * ms / T, "grid_barriers": fg.fwd_barriers(T),
                           "blocks": fplan["blocks"], "smem_bytes_per_block": fplan["smem_bytes"],
                           "w_in_smem": bool(fplan["w_in_smem"])})
         _, saved, hprev = got
@@ -487,15 +550,14 @@ def phase_train_kernels(torch, dev, rng, t, lengths, results):
                           "blocks": gplan["blocks"], "smem_bytes_per_block": gplan["smem_bytes"],
                           "w_in_smem": bool(gplan["w_in_smem"]),
                           "dw_in_smem": bool(gplan["dw_in_smem"])})
-    fwd_bytes = 4.0 * (T * B * 3 * H + T * B + H * 3 * H + T * B * H      # x3, mask, w, ys
-                       + T * B * 3 * H + T * B * H)                       # acts, hprev
-    fwd_flops = T * (6.0 * B * H * H + 14.0 * B * H)       # kernel_flops.gru_fwd_flops
+    fwd_bytes, fwd_flops = gru_fwd_work(T, B, H)
+    fwd_bytes += 4.0 * (T * B * 3 * H + T * B * H)                      # acts, hprev
     fwd_barrier_us = grid_barrier_us(torch, dev, fplan["blocks"], fplan["smem_bytes"])
     results["gru_fwd_train"] = dict(
         cases=fwd_cases, shape=dict(T=T, B=B, H=H), bytes=fwd_bytes, flops=fwd_flops,
         barrier_us=fwd_barrier_us,
         design_bound_ms=(bound(fwd_bytes, fwd_flops)[0]
-                         + fg.fwd_train_barriers(T) * fwd_barrier_us * 1e-3))
+                         + fg.fwd_barriers(T) * fwd_barrier_us * 1e-3))
     gru_bwd_bytes = 4.0 * (T * B * H + T * B * 3 * H + T * B * H + T * B + H * 3 * H  # dy, acts, hprev, mask, w
                            + T * B * 3 * H + H * 3 * H)                              # dx3, dw
     gru_bwd_flops = T * (12.0 * B * H * H + 25.0 * B * H)   # kernel_flops.gru_bwd_flops
@@ -717,20 +779,29 @@ def phase_serve(torch, dev, kernels):
 
 def phase_profile(torch, machine, params, prompts):
     """Where the serve time goes: the same requests once more under
-    torch.profiler, with kernel 4's device time per decode micro-step."""
+    torch.profiler, with kernel 4's device time per decode micro-step and
+    kernel 1's per prefill (two launches, the encoder's two directions),
+    each kernel found by its own symbol."""
     from paddle_tpu_torch.serving.frontend import build_engine
 
     engine = build_engine(machine, params, slots=FULL["slots"],
                           prompt_tokens=FULL["prompt_tokens"], fused_step=True).start()
     backend = engine._backend
-    backend.decode_microsteps = 0
-    rows, _ = profiled(torch, "profile", lambda: run_requests(engine, prompts))
+    backend.decode_microsteps = backend.prefill_launches = 0
+    rows, summary = profiled(torch, "profile", lambda: run_requests(engine, prompts))
     k4 = [(ms, c) for n, ms, c in rows if "attention_gru_fwd_kernel" in n]
-    k4_ms = sum(ms for ms, _ in k4)
-    emit({"phase": "profile_kernel4", "decode_microsteps": backend.decode_microsteps,
+    k1 = [(ms, c) for n, ms, c in rows if KERNEL1_SYMBOL.search(n)]
+    k4_ms, k1_ms = sum(ms for ms, _ in k4), sum(ms for ms, _ in k1)
+    prefills = backend.prefill_launches
+    assert sum(c for _, c in k1) == 2 * prefills > 0, (k1, prefills)
+    emit({"phase": "profile_serve_kernels", "decode_microsteps": backend.decode_microsteps,
           "launches": sum(c for _, c in k4), "device_ms": k4_ms,
           "device_ms_per_microstep": (k4_ms / backend.decode_microsteps
-                                      if k4 and backend.decode_microsteps else None)})
+                                      if k4 and backend.decode_microsteps else None),
+          "prefills": prefills, "kernel1_launches": sum(c for _, c in k1),
+          "kernel1_device_ms": k1_ms, "kernel1_device_ms_per_prefill": k1_ms / prefills,
+          "kernel1_share_of_device_ms": k1_ms / summary["device_ms"],
+          "kernel4_share_of_device_ms": k4_ms / summary["device_ms"]})
 
 
 def profiled(torch, phase, fn, top: int = 12):
@@ -1702,7 +1773,7 @@ def main() -> int:
     meta = {
         "gru_fwd": ("paddle_tpu_torch/csrc/gru_fwd.cu",
                     "paddle_tpu/ops/pallas_gru.py:75 (_fwd_kernel_light; pallas_call :178)"),
-        "gru_fwd_train": ("paddle_tpu_torch/csrc/gru_fwd_train.cu",
+        "gru_fwd_train": ("paddle_tpu_torch/csrc/gru_fwd.cu",
                           "paddle_tpu/ops/pallas_gru.py:57 (_fwd_kernel; pallas_call :178)"),
         "gru_bwd": ("paddle_tpu_torch/csrc/gru_bwd.cu",
                     "paddle_tpu/ops/pallas_gru.py:91 (_bwd_kernel; pallas_call :206)"),
@@ -1768,12 +1839,12 @@ def main() -> int:
         assert launches > 0, (name, path_of[name])
         if name in TC_KERNELS:
             extra = {"bound_tc_ms": times.get("bound_tc_ms", bound_tc(r["bytes"], r["flops"]))}
-        elif "design_bound_ms" in r:              # kernels 2-8: the bound plus their barriers
+        elif "design_bound_ms" in r:              # kernels 1-8: the bound plus their barriers
             extra = {"design_bound_ms": r["design_bound_ms"], "barrier_us": r["barrier_us"],
                      "grid_barriers": main_case["grid_barriers"], "blocks": main_case["blocks"],
                      "smem_bytes_per_block": main_case["smem_bytes_per_block"],
                      "per_step_us": main_case.get("per_step_us")}
-            if "device_ms" in main_case:          # kernels 2-4, 7a, 7b, 8: the host's enqueue hidden
+            if "device_ms" in main_case:          # kernels 1-4, 7a, 7b, 8: the host's enqueue hidden
                 extra["device_ms"] = main_case["device_ms"]
             if name == "lstm_bwd":                # its row groups, and the alternatives timed
                 extra.update({key: main_case[key] for key in (
@@ -1783,6 +1854,11 @@ def main() -> int:
                     "row_groups", "units_per_block", "w_in_smem", "ms_row_groups")})
             if "phase_us_per_step" in r:
                 extra["phase_us_per_step"] = r["phase_us_per_step"]
+            if name == "gru_fwd":                 # each admission size, and the wrapper's host time
+                extra["by_batch"] = [{key: c[key] for key in (
+                    "B", "reverse", "ms", "device_ms", "per_step_us", "smem_bytes_per_block",
+                    "w_in_smem", "bound_ms", "design_bound_ms")} for c in r["cases"] if "B" in c]
+                extra["back_to_back_ms"] = r["back_to_back_ms"]
             if name == "attention_gru_fwd":       # what a Td = 1 launch pays besides the step
                 extra.update({key: r[key] for key in (
                     "empty_launch_ms", "launch_and_slice_load_ms", "slice_load_ms",

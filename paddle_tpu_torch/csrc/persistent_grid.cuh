@@ -1,7 +1,7 @@
 // persistent_grid.cuh — the pieces shared by the persistent, weight-
 // stationary recurrence kernels (the attention-GRU forward of
-// attention_gru_fwd.cuh, attention_gru_bwd.cu, gru_fwd_train.cu,
-// gru_bwd.cu, lstm_fwd.cu, lstm_bwd.cu): a cooperative launch, a grid
+// attention_gru_fwd.cuh, attention_gru_bwd.cu, gru_fwd.cu, gru_bwd.cu,
+// lstm_fwd.cu, lstm_bwd.cu): a cooperative launch, a grid
 // barrier, and the block products of all B rows with a weight slice held
 // in shared memory.
 //

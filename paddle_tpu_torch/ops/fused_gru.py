@@ -3,7 +3,7 @@
 Port of ``paddle_tpu/ops/pallas_gru.py::fused_gru``: the inference forward
 (``_fwd_kernel_light`` -> ``csrc/gru_fwd.cu::gru_fwd``), the training
 forward that also saves the residuals (``_fwd_kernel`` ->
-``gru_fwd_train``) and its backward (``_bwd_kernel`` ->
+``gru_fwd.cu::gru_fwd_train``) and its backward (``_bwd_kernel`` ->
 ``csrc/gru_bwd.cu::gru_bwd``). Cell semantics are exactly
 ``gru_cell_step``: the weight [H, 3H] is split [update, reset | candidate],
 the bias is folded into x3 beforehand, and h' = u * h + (1 - u) * c.
@@ -15,17 +15,19 @@ layer runs its eager time loop (counted in ``EAGER_ROUTES``) for anything
 else.
 
 :func:`fused_gru` launches the kernels for a CUDA tensor and raises on
-anything they do not take: the training pair when grad mode is on and an
-input requires a gradient (a ``torch.autograd.Function``), the light
-forward otherwise. For a CPU tensor it runs :func:`gru_forward_reference`,
-and autograd through it gives the gradients.
+anything they do not take (a shape :func:`supported` refuses included):
+the training pair when grad mode is on and an input requires a gradient
+(a ``torch.autograd.Function``), the light forward otherwise. For a CPU
+tensor it runs :func:`gru_forward_reference`, and autograd through it
+gives the gradients.
 
-The training forward and the backward run as persistent, cooperative
-grids (one block on each SM, each owning unit groups of 4 hidden units:
-the forward their columns of w, the backward their rows of w and of dW, in
-shared memory for the whole launch; see ``csrc/gru_fwd_train.cu`` and
-``csrc/gru_bwd.cu``), whose plans :func:`fwd_train_plan` and
-:func:`grid_plan` mirror and :func:`supported` bounds.
+All three kernels run as persistent, cooperative grids (one block on each
+SM, each owning unit groups of 4 hidden units: the forwards their columns
+of w, the backward their rows of w and of dW, in shared memory for the
+whole launch; see ``csrc/gru_fwd.cu`` and ``csrc/gru_bwd.cu``). The two
+forwards are one body, with and without the residual stores, on one plan
+(:func:`fwd_plan`); :func:`grid_plan` is the backward's, and
+:func:`supported` bounds both.
 """
 
 from __future__ import annotations
@@ -42,8 +44,10 @@ Tensor = torch.Tensor
 KERNEL_ACTS = ("tanh", "sigmoid")    # the default (act_in, act_gate)
 # the activation codes of csrc/common.cuh act_f32
 ACT_CODES = {"tanh": 0, "sigmoid": 1, "relu": 2, "linear": 3}
-# the widest GRU the gate takes (kernels 1 and 2 hold 3 H floats a block,
-# within it); kernel 3's grid bounds H and the batch together (grid_plan)
+# the widest GRU the gate takes, kept from the first designs of kernels 1
+# and 2 (which held 3 H floats a block); within it kernel 3's grid bounds H
+# and the batch together (grid_plan), and the forwards keep w's columns in
+# device memory where they do not fit beside the rows' state (fwd_plan)
 MAX_H = 232448 // (6 * 4)
 # How kernel 3 cuts the work (csrc/gru_bwd.cu): unit groups of UNITS hidden
 # units, one block per SM up to one per group, each block owning its
@@ -61,12 +65,14 @@ _FWD_ARGS = [PTR, I64, I64,          # x3, its time and batch strides
              PTR, I64, I64]          # ys
 _TAIL = [I32, I32, I32, I32,         # T, B, H, reverse
          I32, I32]                   # act_in, act_gate
-GRU_FWD = CudaKernel("gru_fwd.cu", "gru_fwd", _FWD_ARGS + _TAIL)
-GRU_FWD_TRAIN = CudaKernel(
-    "gru_fwd_train.cu", "gru_fwd_train",
-    _FWD_ARGS + [PTR, PTR,           # acts, hprev
-                 PTR, PTR, PTR]      # scratch: r * h [B, H], w's columns where not in shared memory, the counter
-    + _TAIL + [I32, I32])            # num_sms, w_smem
+_FWD_SCRATCH = [PTR, PTR, PTR]      # r * h [B, H], w's columns where not in shared memory, the counter
+_FWD_GRID = [I32, I32]               # num_sms, w_smem
+GRU_FWD = CudaKernel("gru_fwd.cu", "gru_fwd",
+                     _FWD_ARGS + [PTR]                  # the carry [B, H]
+                     + _FWD_SCRATCH + _TAIL + _FWD_GRID)
+GRU_FWD_TRAIN = CudaKernel("gru_fwd.cu", "gru_fwd_train",
+                           _FWD_ARGS + [PTR, PTR]       # acts, hprev (the carry)
+                           + _FWD_SCRATCH + _TAIL + _FWD_GRID)
 GRU_BWD = CudaKernel(
     "gru_bwd.cu", "gru_bwd",
     [PTR, I64, I64,                  # dy, its time and batch strides
@@ -146,8 +152,8 @@ def grid_barriers(T: int) -> int:
     return 2 * T
 
 
-def fwd_train_plan(B: int, H: int, sms: int) -> Dict[str, int]:
-    """Blocks, shared memory per block and placement of kernel 2.
+def fwd_plan(B: int, H: int, sms: int) -> Dict[str, int]:
+    """Blocks, shared memory per block and placement of kernels 1 and 2.
 
     Kernel 3's blocks and unit groups (:func:`grid_plan`); a block keeps
     STATE floats a row and unit group in shared memory, and its groups'
@@ -163,9 +169,9 @@ def fwd_train_plan(B: int, H: int, sms: int) -> Dict[str, int]:
                 smem_bytes=state + cols * int(w_in_smem), w_in_smem=int(w_in_smem))
 
 
-def fwd_train_barriers(T: int) -> int:
-    """The grid barriers one launch of kernel 2 passes: two a step, but
-    after the last."""
+def fwd_barriers(T: int) -> int:
+    """The grid barriers one launch of kernel 1 or 2 passes: two a step,
+    but after the last."""
     return max(0, 2 * T - 1)
 
 
@@ -175,8 +181,9 @@ def supported(acts, H: int, B: int, num_sms: Optional[int] = None) -> bool:
 
     Both at least 1, H at most MAX_H, and kernel 3's grid fits: the state
     of a block's rows in shared memory (its rows of w and dW go to device
-    memory when they do not fit beside it). ``num_sms`` defaults to the
-    current card's count (132 where there is no card)."""
+    memory when they do not fit beside it); the forwards' plan
+    (:func:`fwd_plan`) then fits too. ``num_sms`` defaults to the current
+    card's count (132 where there is no card)."""
     if not (len(acts) == 2 and all(a in ACT_CODES for a in acts)):
         return False
     if not (1 <= H <= MAX_H and B >= 1):
@@ -216,27 +223,29 @@ def _check_operands(x3, mask, w, acts):
 
 
 def _launch_fwd(x3, mask, w, reverse, acts, residuals):
+    """Kernel 1 (ys) or, with ``residuals``, kernel 2 (ys, acts, hprev):
+    one persistent grid, on :func:`fwd_plan`."""
     T, B, H, dev, codes = _check_operands(x3, mask, w, acts)
-    ys = torch.empty((B, T, H), device=dev).transpose(0, 1)
-    args = [ptr(x3), x3.stride(0), x3.stride(1),
-            ptr(mask), mask.stride(0), mask.stride(1),
-            ptr(w), ptr(ys), ys.stride(0), ys.stride(1)]
-    tail = [T, B, H, int(bool(reverse)), *codes]
-    if not residuals:
-        GRU_FWD.launch(dev, *args, *tail)
-        return ys
     _check_supported(acts, B, H, dev)
     sms = card_sms(dev)
-    plan = fwd_train_plan(B, H, sms)
-    saved = torch.empty((T, B, 3 * H), device=dev)
-    hprev = torch.empty((T, B, H), device=dev)
+    plan = fwd_plan(B, H, sms)
+    ys = torch.empty((B, T, H), device=dev).transpose(0, 1)
     rh = torch.empty((B, H), device=dev)
     wslices = (None if plan["w_in_smem"] else
                torch.empty(_cdiv(H, UNITS) * 12 * H, device=dev))
     counter = torch.empty(1, dtype=torch.int32, device=dev)
-    GRU_FWD_TRAIN.launch(dev, *args, ptr(saved), ptr(hprev), ptr(rh),
-                         None if wslices is None else ptr(wslices), ptr(counter), *tail,
-                         sms, plan["w_in_smem"])
+    args = [ptr(x3), x3.stride(0), x3.stride(1),
+            ptr(mask), mask.stride(0), mask.stride(1),
+            ptr(w), ptr(ys), ys.stride(0), ys.stride(1)]
+    scratch = [ptr(rh), None if wslices is None else ptr(wslices), ptr(counter),
+               T, B, H, int(bool(reverse)), *codes, sms, plan["w_in_smem"]]
+    if not residuals:
+        carry = torch.empty((B, H), device=dev)
+        GRU_FWD.launch(dev, *args, ptr(carry), *scratch)
+        return ys
+    saved = torch.empty((T, B, 3 * H), device=dev)
+    hprev = torch.empty((T, B, H), device=dev)
+    GRU_FWD_TRAIN.launch(dev, *args, ptr(saved), ptr(hprev), *scratch)
     return ys, saved, hprev
 
 
@@ -312,7 +321,5 @@ def fused_gru(x3: Tensor, mask: Tensor, w: Tensor, reverse: bool = False,
     if x3.device.type == "cpu":
         return gru_forward_reference(x3, mask, w, reverse, acts)
     if torch.is_grad_enabled() and (x3.requires_grad or w.requires_grad):
-        _, B, H, dev, _ = _check_operands(x3, mask, w, acts)
-        _check_supported(acts, B, H, dev)            # before the forward launches
         return _FusedGRU.apply(x3, mask.detach(), w, bool(reverse), tuple(acts))
     return _launch_fwd(x3, mask, w, reverse, acts, residuals=False)

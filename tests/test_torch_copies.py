@@ -137,15 +137,15 @@ def test_kernel_builds_are_keyed_by_their_sources():
     kernels = fg.KERNELS + fa.KERNELS + fl.KERNELS + fc.KERNELS + fl_attn.KERNELS
     assert len({k.symbol for k in kernels}) == 13
     # a kernel and its training variant share one source and its library,
-    # but for the GRU's and the attention GRU's: their training forwards are
-    # persistent grids of their own sources
+    # but for the attention GRU's: its two forwards are entries of their own
+    # sources over one header (attention_gru_fwd.cuh)
     paths = {k.library_path() for k in kernels}
     assert {os.path.basename(p).split("-")[0] for p in paths} == {
-        "gru_fwd", "gru_fwd_train", "gru_bwd", "attention_gru_fwd", "attention_gru_fwd_train",
+        "gru_fwd", "gru_bwd", "attention_gru_fwd", "attention_gru_fwd_train",
         "attention_gru_bwd", "lstm_fwd", "lstm_bwd", "conv1x1_bn", "flash_attn_fwd",
         "flash_attn_bwd"}
     assert fa.ATTENTION_GRU_FWD.library_path() != fa.ATTENTION_GRU_FWD_TRAIN.library_path()
-    assert fg.GRU_FWD.library_path() != fg.GRU_FWD_TRAIN.library_path()
+    assert fg.GRU_FWD.library_path() == fg.GRU_FWD_TRAIN.library_path()
     assert fl.LSTM_FWD.library_path() == fl.LSTM_FWD_TRAIN.library_path()
     assert fl_attn.FLASH_ATTN_DQ.library_path() == fl_attn.FLASH_ATTN_DKV.library_path()
     for p in paths:

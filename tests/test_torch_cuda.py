@@ -43,23 +43,41 @@ def _t(a, dev):
     return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
 
 
-@pytest.mark.parametrize("T,B,H", [(7, 5, 40), (1, 1, 8), (3, 2, 600)])
+@pytest.mark.parametrize("T,B,H", [(7, 5, 40), (1, 1, 8), (3, 2, 600), (32, 64, 512),
+                                   (32, 8, 512), (32, 1, 512), (2, 2, 2100), (2, 2700, 512)])
 @pytest.mark.parametrize("reverse", [False, True])
 def test_gru_kernel_matches_plain_version(dev, T, B, H, reverse):
-    from paddle_tpu_torch.ops.fused_gru import GRU_FWD, fused_gru, gru_forward_reference
+    """Kernel 1 (the persistent forward without residuals) against its plain
+    version, with ragged lengths and one all-masked row: at H = 600, 150
+    unit groups over 132 SMs (two a block); the serve's prefill shape at
+    B = 64, 8 and 1; at H = 2100 (four unit groups a block) and at B = 2700
+    a block's columns of w do not fit beside the rows' state and stay in
+    device memory. Two launches give the same bits, and ys equal kernel 2's
+    bit for bit (one body, one order of sums)."""
+    from paddle_tpu_torch.ops import fused_gru as fg
 
-    rng = np.random.RandomState(T * 100 + H)
+    rng = np.random.RandomState(T * 100 + H + B)
     # batch-major storage read through a time-major view, as the layer does
     x3 = _t(rng.randn(B, T, 3 * H) * 0.5, dev).transpose(0, 1)
     w = _t(rng.randn(H, 3 * H) / np.sqrt(H), dev)
-    lens = rng.randint(0, T + 1, B)
+    lens = rng.randint(1, T + 1, B)
+    if B > 1:
+        lens[-1] = 0                                  # an all-masked row
     mask = _t(np.arange(T)[:, None] < lens[None, :], dev)
-    before = GRU_FWD.launches
-    got = fused_gru(x3, mask, w, reverse=reverse)
-    assert GRU_FWD.launches == before + 1
-    ref = gru_forward_reference(x3, mask, w, reverse=reverse)
+    plan = fg.fwd_plan(B, H, fg.card_sms(dev))
+    assert plan["w_in_smem"] == (H < 2100 and B < 2700)
+    before = (fg.GRU_FWD.launches, fg.GRU_FWD_TRAIN.launches)
+    got = fg.fused_gru(x3, mask, w, reverse=reverse)
+    again = fg.fused_gru(x3, mask, w, reverse=reverse)
+    assert (fg.GRU_FWD.launches, fg.GRU_FWD_TRAIN.launches) == (before[0] + 2, before[1])
+    ys2, _, _ = fg._launch_fwd(x3, mask, w, reverse, fg.KERNEL_ACTS, residuals=True)
+    ref = fg.gru_forward_reference(x3, mask, w, reverse=reverse)
     torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
     assert float((got - ref).abs().max()) <= TOL
+    assert torch.equal(got, again) and torch.equal(got, ys2)
+    if B > 1:
+        assert not got[:, -1].any()
 
 
 @pytest.mark.parametrize("Td,Te,B,D,E", [(3, 37, 4, 24, 40), (1, 1, 1, 8, 8), (2, 5, 3, 520, 1040)])
@@ -85,6 +103,23 @@ def test_attention_kernel_matches_plain_version(dev, Td, Te, B, D, E):
     assert torch.isfinite(got).all()
     assert float((got - ref).abs().max()) <= TOL
     assert float((step - ref[0]).abs().max()) <= TOL
+
+
+def test_gru_kernel_raises_on_a_refused_shape(dev):
+    """A batch whose rows' state no block can hold (fused_gru.supported
+    refuses it): the light forward raises on the card and launches
+    nothing; there is no other route inside the wrapper."""
+    from paddle_tpu_torch.ops import fused_gru as fg
+
+    T, B, H = 1, 4096, 1024
+    assert not fg.supported(fg.KERNEL_ACTS, H, B, fg.card_sms(dev))
+    x3 = torch.zeros(T, B, 3 * H, device=dev)
+    mask = torch.ones(T, B, device=dev)
+    w = torch.zeros(H, 3 * H, device=dev)
+    before = [k.launches for k in fg.KERNELS]
+    with torch.no_grad(), pytest.raises(ValueError, match="do not take"):
+        fg.fused_gru(x3, mask, w)
+    assert [k.launches for k in fg.KERNELS] == before
 
 
 def _grad_tol(ref):

@@ -215,3 +215,40 @@ def test_the_wrapper_takes_the_four_activations_in_each_slot():
     with pytest.raises(ValueError, match="H <="):
         tg._check_operands(torch.zeros(1, 1, 3 * (tg.MAX_H + 1)), torch.ones(1, 1),
                            torch.zeros(1), tg.KERNEL_ACTS)      # refused before w is read
+
+
+# ------------------------------------------------ the light path's launch
+
+
+@pytest.mark.parametrize("residuals", [False, True])
+def test_forward_launch_asks_the_gate_before_the_plan_and_the_launch(monkeypatch, residuals):
+    """Kernels 1 and 2 go through one wrapper path: _launch_fwd asks
+    supported() first, then takes fwd_plan, then launches with one argument
+    for each of the entry point's C parameters. Where the gate refuses it
+    raises before the plan and launches nothing. Shown without a card: the
+    gate, the plan and the launch are recorded in order."""
+    order = []
+    gate, plan = tg.supported, tg.fwd_plan
+    monkeypatch.setattr(tg, "supported", lambda *a, **k: order.append("supported") or gate(*a, **k))
+    monkeypatch.setattr(tg, "fwd_plan", lambda *a: order.append("fwd_plan") or plan(*a))
+    kernel = tg.GRU_FWD_TRAIN if residuals else tg.GRU_FWD
+    launched = []
+    monkeypatch.setattr(kernel, "launch", lambda dev, *args: order.append("launch")
+                        or launched.append(args))
+    x, w, bias, mask = _inputs(10, T=3, B=2, H=8)
+    args = (torch.from_numpy(x + bias), torch.from_numpy(mask), torch.from_numpy(w), True,
+            tg.KERNEL_ACTS, residuals)
+    out = tg._launch_fwd(*args)
+    assert order == ["supported", "fwd_plan", "launch"]
+    (got,) = launched
+    assert len(got) + 1 == len(kernel.argtypes)              # the stream comes last
+    assert got[-2:] == (tg.card_sms(torch.device("cpu")), 1)  # num_sms, w_smem
+    assert got.count(None) == 1        # w's columns in shared memory: no wslices, all else given
+    shapes = [(3, 2, 8)] + ([(3, 2, 24), (3, 2, 8)] if residuals else [])
+    assert [tuple(o.shape) for o in (out if residuals else [out])] == shapes
+
+    order.clear()
+    monkeypatch.setattr(tg, "supported", lambda *a, **k: order.append("supported") or False)
+    with pytest.raises(ValueError, match="do not take"):
+        tg._launch_fwd(*args)
+    assert order == ["supported"] and len(launched) == 1

@@ -258,12 +258,33 @@ def test_gru_gate_keeps_its_edges_with_the_persistent_forward(H, B_max):
     assert fg.supported(fg.KERNEL_ACTS, H, B_max, num_sms=H100_SMS)
     assert not fg.supported(fg.KERNEL_ACTS, H, B_max + 1, num_sms=H100_SMS)
     for B in (1, B_max // 2, B_max):
-        plan = fg.fwd_train_plan(B, H, H100_SMS)
+        plan = fg.fwd_plan(B, H, H100_SMS)
         assert plan["smem_bytes"] <= fg.SMEM_LIMIT
         assert plan["blocks"] == fg.grid_plan(B, H, H100_SMS)["blocks"]
-    assert fg.fwd_train_plan(64, 512, H100_SMS) == dict(
+    assert fg.fwd_plan(64, 512, H100_SMS) == dict(
         blocks=128, unit_groups_per_block=1, smem_bytes=29696, w_in_smem=1)
-    assert fg.fwd_train_barriers(32) == 63 and fg.fwd_train_barriers(0) == 0
+    assert fg.fwd_barriers(32) == 63 and fg.fwd_barriers(0) == 0
+
+
+@pytest.mark.parametrize("sms", [132, 114])              # H100 SXM and PCIe
+@pytest.mark.parametrize("H", [256, 512, 1024, 2100, 9685])
+def test_gru_forward_plan_fits_to_the_gate_edge(H, sms):
+    """Kernels 1 and 2 run one plan (fwd_plan): for every B the gate takes,
+    up to its edge, it fits a block (kernel 3's blocks and unit groups, the
+    rows' state [B][20] of each group, w's columns [H][12] beside it where
+    they fit, as gru_fwd.cu's fwd_smem_floats counts them); one row past
+    the edge the gate refuses."""
+    B = 1
+    while fg.supported(fg.KERNEL_ACTS, H, B, num_sms=sms):
+        plan, back = fg.fwd_plan(B, H, sms), fg.grid_plan(B, H, sms)
+        gpb = plan["unit_groups_per_block"]
+        assert (plan["blocks"], gpb) == (back["blocks"], back["unit_groups_per_block"])
+        assert plan["smem_bytes"] == 4 * gpb * (12 * H * plan["w_in_smem"] + 20 * B)
+        assert plan["smem_bytes"] <= fg.SMEM_LIMIT
+        assert plan["w_in_smem"] == (4 * gpb * (12 * H + 20 * B) <= fg.SMEM_LIMIT)
+        B += 1
+    assert B > 64                                          # a full serve admission
+    assert fg.grid_plan(B, H, sms)["smem_bytes"] > fg.SMEM_LIMIT
 
 
 def test_lstmemory_asks_the_gate_with_the_batch(monkeypatch):
