@@ -32,8 +32,10 @@ Phases, each printing one JSON object per line:
              persistent GRU training forward) two launches bit-equal, each
              with the barrier timed on its own grid. Kernel 1 (kernel 2's
              body without residuals) at the prefill's T = 32, H = 512 for
-             B = 64, 8 and 1 (the first rows of the full admission), two
-             launches bit-equal and its ys bit-equal to kernel 2's, timed
+             B = 64, 512 (the beam path's), 8 and 1 (the first rows of
+             the full admission, extended past 64 with rows of the same
+             law), two launches bit-equal and its ys bit-equal to kernel
+             2's, timed
              with and without the wrapper's host work, its grid, barrier
              and design bound, and the wrapper's host time back to back.
 3. serve   — a main path: the seqToseq NMT generation model at full
@@ -46,6 +48,27 @@ Phases, each printing one JSON object per line:
              decode step, and a small prefill is checked against the CPU;
              one more serve runs under torch.profiler, with kernel 4's
              device ms per micro-step and kernel 1's per prefill.
+3b. beam   — the third: beam search at the generation model's full width
+             (vocab 30000, dim 512, beam_size 3, max_length 32: bench.py's
+             bench_nmt_gen), random weights from seed 1, through
+             api.GradientMachine(...).asSequenceGenerator().generate on
+             nmt_gen_batch(B=64, T=32, seed=1) and at B = 512, each timed
+             over 3 calls between zeroed counts (exactly 2 kernel-1
+             launches a forward, no other kernel, 0 eager routes): best-beam
+             tokens per wall second, decode steps, peak memory; one call
+             more at each B under torch.profiler (kernel 1's, the top-K's
+             and the products' device ms and shares);
+             Trainer.generate on the same batch into a result file, read
+             back against the generator's beams. Then, at the same weights
+             with the embeddings at unit scale and the output layer's
+             weights times 8 (nmt_gen_spread_params: log-probabilities
+             that spread as a trained model's, where at init_params' scale
+             any choice of tokens scores alike), B = 8 against the CPU
+             (every beam's ids equal and its score within 1e-4 relative,
+             or at the first step where the two devices' beams differ a
+             near tie: the chosen candidates within 1e-4 of each other),
+             and beam_size=1 over the 64 prompts against the fused and
+             unfused greedy engines: >= 95% of the streams identical.
 4. train   — the other main path: Trainer(nmt_config(vocab=30000,
              dim=512, batch_size=64)) on the card, random weights from
              seed 1, 8 Adam steps on nmt_batch(B=64, T=32, seed=1), the
@@ -141,7 +164,7 @@ Phases, each printing one JSON object per line:
              or 12); a B = 2, T = 256 batch's cost (1e-4 relative) and
              classification_error (equal) against the CPU.
 
-Every main path (3, 4, 6, 7, 9, 10, 12, 13) runs between zeroed counts of
+Every main path (3, 3b, 4, 6, 7, 9, 10, 12, 13) runs between zeroed counts of
 the layers' eager routes too (gated_recurrent, lstmemory, full_attention,
 the attention decoder group's loop, and the 1x1 convs whose shape kernel 9
 refuses: the EAGER_ROUTES of the ops modules) and fails if any layer took
@@ -200,6 +223,11 @@ GATE_EPS = 1e-6            # a ReLU gate within float32 rounding of 0 may flip (
 LM = dict(vocab=500, seq_len=2048, dim=512, heads=8, blocks=2, batch=8, steps=8,
           cpu_batch=2, cpu_T=256, test_batches=2)
 N_REQUESTS = 128
+# beam search as bench.py's bench_nmt_gen runs it (the seqToseq gen.conf
+# workload: beam_size=3), at its 64 and its leading 512 sources of 32 tokens
+BEAM = dict(vocab=30000, dim=512, beam_size=3, max_length=32, T=32, batches=(64, 512),
+            reps=3, cpu_batch=8)
+BEAM_TOL = 1e-4            # scores, relative: sums of 32 log-probabilities on two devices
 # the JAX package's allowance for argmax near-ties between two decode
 # paths (SLOT_PARITY_TOL in paddle_tpu/graph/decode_step.py)
 PARITY_TOL = 0.05
@@ -371,9 +399,10 @@ def phase_kernels(torch, dev):
 
 
 # the batches kernel 1 runs at: the full admission (and the serve's
-# warm-up), and two smaller ones (a serve admits whatever is waiting, and
-# the first design used only B SMs); the first is the main path's
-KERNEL1_BATCHES = (FULL["slots"], 8, 1)
+# warm-up), the beam path's larger batch, and two smaller ones (a serve
+# admits whatever is waiting, and the first design used only B SMs); the
+# first is the serve's main path
+KERNEL1_BATCHES = (FULL["slots"], BEAM["batches"][1], 8, 1)
 # kernel 1's symbol as the profiler names it: the body's instance without
 # residuals (kernel 2 is gru_fwd_kernel<true>, kernel 4
 # attention_gru_fwd_kernel<false>)
@@ -389,7 +418,8 @@ def gru_fwd_work(T, B, H):
 
 def kernel1_cases(torch, dev, x3, mask, w):
     """Kernel 1 against its plain version on the full admission's first B
-    rows, for each B of KERNEL1_BATCHES, forward and reversed: ys within
+    rows (past them, rows of the same law from seed 5), for each B of
+    KERNEL1_BATCHES, forward and reversed: ys within
     TOL, two launches bit-equal, and equal bit for bit to kernel 2's ys on
     the same inputs (one body). Each case is timed with the wrapper (ms)
     and without its host work (device_ms, which also gives the µs a step),
@@ -402,9 +432,16 @@ def kernel1_cases(torch, dev, x3, mask, w):
     T, _, H3 = x3.shape
     H = H3 // 3
     sms = fg.card_sms(dev)
+    more = max(KERNEL1_BATCHES) - x3.shape[1]
+    rng = np.random.RandomState(5)
+    x3_all = torch.cat([x3, torch.from_numpy(
+        rng.randn(T, more, H3).astype(np.float32) * 0.5).to(dev)], dim=1)
+    lens = rng.randint(1, T + 1, more)
+    mask_all = torch.cat([mask, torch.from_numpy(
+        (np.arange(T)[:, None] < lens[None, :]).astype(np.float32)).to(dev)], dim=1)
     cases = []
     for B in KERNEL1_BATCHES:
-        xb, mb = x3[:, :B], mask[:, :B]
+        xb, mb = x3_all[:, :B], mask_all[:, :B]
         plan = fg.fwd_plan(B, H, sms)
         for reverse in (False, True):
             run = lambda: fg.fused_gru(xb, mb, w, reverse=reverse)
@@ -833,6 +870,139 @@ def profiled(torch, phase, fn, top: int = 12):
     emit({**summary,
           "top": [{"name": n[:80], "ms": ms, "count": c} for n, ms, c in rows[:top]]})
     return rows, summary
+
+
+def beam_config(batch_size):
+    from paddle_tpu_torch.flagship import nmt_gen_config
+
+    return nmt_gen_config(vocab=BEAM["vocab"], dim=BEAM["dim"], beam_size=BEAM["beam_size"],
+                          max_length=BEAM["max_length"], batch_size=batch_size)
+
+
+def phase_beam(torch, dev, kernels):
+    """Beam search, the main path of seqToseq's gen.conf: the generation
+    model at full width (random weights from seed 1) through
+    api.GradientMachine(...).asSequenceGenerator() and Trainer.generate on
+    the card, at B = 64 and 512 sources of 32 tokens (nmt_gen_batch seed
+    1), each timed over BEAM["reps"] calls between zeroed counts (kernel 1
+    twice a forward: the encoder's two directions, at B rows before the
+    beams' expansion; no other kernel, no eager route) and one call more
+    under torch.profiler. Then, at the same weights with their
+    log-probabilities spread (nmt_gen_spread_params; at init_params' scale
+    every word is about as likely as any other, and any choice of tokens
+    scores alike), B = 8 against the CPU (beam_parity) and beam 1 against
+    the fused and unfused greedy engines over the same 64 prompts, at
+    least 1 - PARITY_TOL of the streams identical."""
+    import tempfile
+
+    from paddle_tpu_torch import api
+    from paddle_tpu_torch.flagship import nmt_gen_batch, nmt_gen_spread_params
+    from paddle_tpu_torch.graph import recurrent_group as rg
+    from paddle_tpu_torch.serving.frontend import build_engine
+    from paddle_tpu_torch.tools.beam_parity import beam_parity
+    from paddle_tpu_torch.trainer import Trainer
+    from paddle_tpu_torch.trainer.trainer import read_result_file
+
+    machine = api.GradientMachine(beam_config(BEAM["batches"][0]).model_config)  # the card
+    gen = machine.asSequenceGenerator()
+    reps = BEAM["reps"]
+    runs = {}
+    for B in BEAM["batches"]:
+        feed = nmt_gen_batch(vocab=BEAM["vocab"], B=B, T=BEAM["T"], seed=1, device=dev)
+        gen.generate(feed)                               # first call: allocator, cuBLAS
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_counts(kernels)
+        rg.BEAM_STEPS = 0
+        t0 = time.perf_counter()
+        tokens = 0
+        for _ in range(reps):
+            results = gen.generate(feed)
+            tokens += sum(len(sample[0]["ids"]) for sample in results)
+        wall = time.perf_counter() - t0
+        launches, routes = read_counts(kernels)
+        steps = rg.BEAM_STEPS
+        assert launches["gru_fwd"] == 2 * reps, launches
+        assert not any(n for name, n in launches.items() if name != "gru_fwd"), launches
+        assert all(len(sample) == BEAM["beam_size"] for sample in results)
+        assert 0 < steps <= reps * BEAM["max_length"] and tokens > 0, (steps, tokens)
+        runs[B] = {"B": B, "forwards": reps, "best_beam_tokens": tokens, "wall_s": wall,
+                   "tokens_per_s": tokens / wall, "ms_per_forward": 1e3 * wall / reps,
+                   "decode_steps": steps, "decode_steps_per_forward": steps / reps,
+                   "ms_per_decode_step": 1e3 * wall / steps,
+                   "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
+                   "kernel_launches": launches, "eager_routes": routes}
+        emit({"phase": "beam", **runs[B]})
+        # one forward under the profiler: where its device time goes
+        rg.BEAM_STEPS = 0
+        rows, summary = profiled(torch, f"profile_beam_B{B}", lambda: gen.generate(feed))
+        k1 = [(ms, c) for n, ms, c in rows if KERNEL1_SYMBOL.search(n)]
+        k1_ms = sum(ms for ms, _ in k1)
+        topk_ms = sum(ms for n, ms, _ in rows if "topk" in n.lower())
+        gemm_ms = sum(ms for n, ms, _ in rows if "gemm" in n.lower())
+        assert sum(c for _, c in k1) == 2, k1
+        emit({"phase": "profile_beam_kernels", "B": B, "decode_steps": rg.BEAM_STEPS,
+              "device_ms_per_decode_step": summary["device_ms"] / rg.BEAM_STEPS,
+              "kernel1_launches": 2, "kernel1_device_ms": k1_ms,
+              "kernel1_share_of_device_ms": k1_ms / summary["device_ms"],
+              "top_k_device_ms": topk_ms, "top_k_share_of_device_ms": topk_ms / summary["device_ms"],
+              "gemm_device_ms": gemm_ms, "gemm_share_of_device_ms": gemm_ms / summary["device_ms"]})
+        if B == BEAM["batches"][0]:
+            feed64 = feed
+            best64 = [[e["ids"] for e in sample] for sample in results]
+
+    # Trainer.generate on the same batch into a result file
+    trainer = Trainer(beam_config(BEAM["batches"][0]))
+    trainer.params = machine.params
+    zero_counts(kernels)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "gen_result.txt")
+        batches = trainer.generate([feed64], result_file=path)
+        blocks = read_result_file(path)
+    launches, _ = read_counts(kernels)
+    assert launches["gru_fwd"] == 2, launches
+    n_keep = min(max(int(gen.sub.generator.num_results_per_sample), 1), BEAM["beam_size"])
+    assert [idx for idx, _ in blocks] == [str(b) for b in range(len(best64))], blocks[:2]
+    assert all([ids for _, ids in beams] == best64[b][:n_keep]
+               for b, (_, beams) in enumerate(blocks)), "Trainer.generate != SequenceGenerator"
+    assert batches[0][1].shape == (len(best64), BEAM["beam_size"], BEAM["max_length"])
+    del trainer
+
+    # B = 8 against the CPU's plain versions, at spread log-probabilities
+    spread = api.GradientMachine(
+        machine.model_config, params=nmt_gen_spread_params(machine.params, machine.model_config))
+    cpu = api.GradientMachine(machine.model_config, device="cpu",
+                              params={n: p.cpu() for n, p in spread.params.items()})
+    Bc = BEAM["cpu_batch"]
+    differ, ties, worst = beam_parity(
+        spread, cpu, nmt_gen_batch(vocab=BEAM["vocab"], B=Bc, T=BEAM["T"], seed=2, device=dev),
+        nmt_gen_batch(vocab=BEAM["vocab"], B=Bc, T=BEAM["T"], seed=2, device="cpu"),
+        BEAM["max_length"], BEAM_TOL)
+    del cpu
+
+    # beam 1 against the greedy engines, over the same 64 prompts
+    ids, lens = feed64["source_language_word"].ids.cpu(), feed64["source_language_word"].seq_lengths
+    prompts = [ids[i, : int(n)].tolist() for i, n in enumerate(lens.cpu())]
+    greedy = [sample[0]["ids"] for sample in
+              spread.asSequenceGenerator(beam_size=1).generate(feed64)]
+    engines = {}
+    for fused in (True, False):
+        engine = build_engine(spread._core, spread.params, slots=FULL["slots"],
+                              prompt_tokens=FULL["prompt_tokens"], fused_step=fused).start()
+        streams = [r.tokens for r in run_requests(engine, prompts)]
+        same = sum(a == b for a, b in zip(streams, greedy))
+        assert same >= (1.0 - PARITY_TOL) * len(prompts), (fused, same)
+        engines["fused" if fused else "unfused"] = {
+            "identical": same, "tokens": sum(len(x) for x in streams)}
+    beam = {"phase": "beam_checks", "result_file_samples": len(blocks),
+            "result_file_beams_per_sample": n_keep,
+            "parity_weights": "nmt_gen_spread_params",
+            "cpu_batch": Bc, "cpu_samples_differ": len(differ), "cpu_near_ties": ties,
+            "cpu_worst_score_gap_where_equal": worst,
+            "beam1_streams": len(prompts), "beam1_vs_engine": engines,
+            "parity_tol": PARITY_TOL}
+    emit(beam)
+    return {"kernel_launches": runs[BEAM["batches"][0]]["kernel_launches"], "runs": runs}
 
 
 def phase_train(torch, dev, kernels):
@@ -1759,6 +1929,7 @@ def main() -> int:
     k.update(phase_conv_kernels(torch, dev))
     k.update(phase_attn_kernels(torch, dev))
     serve = phase_serve(torch, dev, kernels)
+    beam = phase_beam(torch, dev, kernels)
     train = phase_train(torch, dev, kernels)
     lstm_train, trainer, batch, err_key, err_before = phase_lstm_train(torch, dev, kernels)
     lstm_test = phase_lstm_test(torch, dev, kernels, trainer, batch, err_key, err_before)
@@ -1855,6 +2026,10 @@ def main() -> int:
             if "phase_us_per_step" in r:
                 extra["phase_us_per_step"] = r["phase_us_per_step"]
             if name == "gru_fwd":                 # each admission size, and the wrapper's host time
+                extra["launches_by_path"] = {
+                    "serve": launches,
+                    **{f"beam_B{B}": run["kernel_launches"]["gru_fwd"]
+                       for B, run in beam["runs"].items()}}
                 extra["by_batch"] = [{key: c[key] for key in (
                     "B", "reverse", "ms", "device_ms", "per_step_us", "smem_bytes_per_block",
                     "w_in_smem", "bound_ms", "design_bound_ms")} for c in r["cases"] if "B" in c]

@@ -154,6 +154,25 @@ def nmt_gen_batch(vocab=30000, B=8, T=32, seed=0, device: DeviceLike = None):
                                              device=resolve_device(device))}
 
 
+def nmt_gen_spread_params(params, model_config, out_scale=8.0):
+    """A copy of a generation model's parameters whose next-word
+    distribution is spread as a trained model's: both embedding tables
+    scaled to unit variance (smart init draws them at 1/sqrt(vocab)) and
+    the output layer's weights times ``out_scale``. At vocab 30000 and
+    dim 512 the log-probabilities then spread by ~3 (std), where at
+    ``init_params``' scale each lies within ~2e-5 of -ln(vocab), so that
+    any choice of tokens scores alike."""
+    out = dict(params)
+    for name in ("_source_language_embedding", "_target_language_embedding"):
+        out[name] = params[name] * float(np.sqrt(params[name].shape[0]))
+    sub = next(s for s in model_config.sub_models if s.generator is not None)
+    score = next(l for l in model_config.layers if l.name == sub.out_links[0].layer_name)
+    for inp in score.inputs:
+        if inp.input_parameter_name:
+            out[inp.input_parameter_name] = params[inp.input_parameter_name] * out_scale
+    return out
+
+
 def nmt_batch(vocab=30000, B=8, T=32, seed=0, device: DeviceLike = None):
     """A training batch for :func:`nmt_config`: source words, target words
     and the next-word labels, from ``seed`` with the JAX package's numpy

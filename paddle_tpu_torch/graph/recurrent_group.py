@@ -13,17 +13,21 @@ template runs as the fused decoder kernels (:mod:`~paddle_tpu_torch.graph.
 fused_decoder`). Nested groups and sequence-valued memories are a later
 slice and raise.
 
-A generator group runs in gen-capture mode only: the serving engine's
-prefill runs the graph up to the group (encoder outputs as static links,
-memory boots per sample), and the decode loop is the engine's, one
-slot-batched step at a time (:mod:`paddle_tpu_torch.graph.decode_step`).
-Beam search (a generator forward without ``gen_capture``) is a later slice
-and raises.
+A generator group runs the JAX package's batched beam search
+(``_generate``): statics and memory boots tiled K-fold, one walk of the
+step sub-network per generated token over [B*K] rows, top-K over the
+[B, K*V] candidates, the carries reindexed by the chosen beams, until
+every beam of every sample has finished or ``max_length`` steps ran.
+In gen-capture mode the serving engine's prefill runs the graph up to the
+group instead (encoder outputs as static links, memory boots per sample),
+and the decode loop is the engine's, one slot-batched step at a time
+(:mod:`paddle_tpu_torch.graph.decode_step`). Generation with nested
+in-links or sequence-valued memories is a later slice and raises.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -316,8 +320,7 @@ def _forward_scan(network, cfg: LayerConfig, sub: SubModelConfig, ctx: LayerCont
             new_carries = []
             for mem, old in zip(memories, carries):
                 out_arg = outs[mem.layer_name]
-                is_int = old.dtype in (torch.int32, torch.int64)
-                new = out_arg.ids if is_int else out_arg.value
+                new = out_arg.ids if _is_int_carry(old) else out_arg.value
                 keep = (m > 0) if new.dim() == 2 else (mask_tb[t] > 0)
                 new_carries.append(torch.where(keep, new.to(old.dtype), old))
             carries = new_carries
@@ -389,35 +392,210 @@ def _memory_feed_arg(mem, carry: Tensor) -> Argument:
     """Turn a flat carry back into the Argument fed to the step."""
     if mem.is_sequence:
         raise NotImplementedError("sequence-valued memories are not ported yet")
-    if carry.dtype in (torch.int32, torch.int64):
+    if _is_int_carry(carry):
         return Argument(ids=carry)
     return Argument(value=carry)
 
 
+def _is_int_carry(carry: Tensor) -> bool:
+    return carry.dtype in (torch.int32, torch.int64)
+
+
+# ------------------------------------------------------------ generation
+
+# beam-search steps run by generator groups in this process: the loop's trip
+# count depends on the data (it stops once every beam has finished), so
+# chip_smoke.py zeroes this just before a generation run and reads it after
+BEAM_STEPS = 0
+
+_NEG_INF = -1e30
+
+
+def _expand_beams(arg: Argument, K: int) -> Argument:
+    """Tile an Argument's batch dim by the beam width: [B, ...] -> [B*K, ...],
+    each row repeated K times in place (``jnp.repeat``, not a tiling of the
+    whole batch)."""
+
+    def rep(x):
+        return None if x is None else torch.repeat_interleave(x, K, dim=0)
+
+    return Argument(value=rep(arg.value), ids=rep(arg.ids), seq_lengths=rep(arg.seq_lengths),
+                    sub_seq_lengths=rep(arg.sub_seq_lengths), weight=rep(arg.weight))
+
+
+def _top_k_lower_index_first(flat: Tensor, k: int) -> Tuple[Tensor, Tensor]:
+    """``jax.lax.top_k`` over the last axis: the k largest values, in
+    descending order, the lower index first among equal values.
+
+    ``torch.topk`` promises no order among equal values, so each float is
+    mapped to an int32 in the same total order as XLA's (-0.0 below +0.0)
+    and packed above its reversed index into one int64 key. The keys are
+    unique, and their top k are the reference's picks."""
+    n = flat.shape[-1]
+    bits = flat.contiguous().view(torch.int32)
+    ordered = bits ^ ((bits >> 31) & 0x7FFFFFFF)  # negative floats: flip the magnitude
+    rev = (n - 1) - torch.arange(n, device=flat.device)
+    key = ordered.to(torch.int64) * (1 << 32) + rev
+    idx = (n - 1) - (torch.topk(key, k, dim=-1).values & 0xFFFFFFFF)
+    return torch.gather(flat, -1, idx), idx
+
+
 def _generate(network, cfg: LayerConfig, sub: SubModelConfig, ctx: LayerContext) -> None:
-    """The gen-capture seam of the JAX package's ``_generate``."""
-    if ctx.gen_capture is None:
+    """Batched beam search, the JAX package's ``_generate`` (ref:
+    RecurrentGradientMachine::beamSearch and oneWaySearch; greedy is
+    beam_size=1). Outputs: ``cfg.name`` (the best beam's ids and length),
+    ``cfg.name@beams`` (ids [B, K, L], scores [B, K], lengths [B, K]) and
+    the score layer's name as an alias of the first."""
+    global BEAM_STEPS
+    gen = sub.generator
+    K = max(int(cfg.beam_size or gen.beam_size), 1)
+    L = int(gen.max_num_frames)
+    if L <= 0:
+        raise ValueError("generator needs max_num_frames (beam_search max_length)")
+    bos, eos = int(cfg.bos_id), int(cfg.eos_id)
+    if any(link.has_subseq for link in sub.in_links):
         raise NotImplementedError(
-            f"generator group {cfg.name!r}: beam search is not ported yet (a "
-            "later slice of paddle_tpu_torch); serve greedy decode through "
-            "paddle_tpu_torch.serving.frontend.build_engine")
-    if sub.in_links:
-        raise NotImplementedError("generation with sequence in-links is not ported yet")
+            f"generator group {cfg.name!r}: nested (sub-sequence) in-links are not "
+            "ported yet (the hierarchical-RNN slice of paddle_tpu_torch)")
+    if any(mem.is_sequence for mem in sub.memories):
+        raise NotImplementedError(
+            f"generator group {cfg.name!r}: sequence-valued memories are not "
+            "ported yet (the hierarchical-RNN slice of paddle_tpu_torch)")
+
     B: Optional[int] = None
     statics: Dict[str, Argument] = {}
     for link in sub.static_links:
         arg = _scope_lookup(ctx, link.layer_name)
         statics[link.link_name] = arg
         B = arg.batch_size if B is None else B
-    for mem in sub.memories:
+    # flat sequence in-links: generation consumes one input frame per step
+    # (per-step conditioning) and ends with the shortest in-link of a sample
+    in_args: Dict[str, Argument] = {}
+    in_lengths: Optional[Tensor] = None
+    for link in sub.in_links:
+        arg = _scope_lookup(ctx, link.layer_name)
+        if not arg.is_seq:
+            raise ValueError(
+                f"generation in-link {link.layer_name!r} must be a sequence (wrap "
+                "whole-sequence conditions in StaticInput(..., is_seq=True))")
+        in_args[link.link_name] = arg
+        B = arg.batch_size if B is None else B
+        L = min(L, arg.max_len)
+        in_lengths = (arg.seq_lengths if in_lengths is None
+                      else torch.minimum(in_lengths, arg.seq_lengths))
+    memories = list(sub.memories)
+    for mem in memories:
         if mem.boot_layer_name and B is None:
             B = _scope_lookup(ctx, mem.boot_layer_name).batch_size
     if B is None:
         raise ValueError(f"generation group {cfg.name}: cannot infer batch size")
-    values = [a.value for a in statics.values() if a.value is not None]
+    given = list(statics.values()) + list(in_args.values())
+    values = [a.value for a in given if a.value is not None]
     dtype = values[0].dtype if values else torch.float32
-    device = values[0].device if values else None
-    boots: List[Any] = [_memory_boot(network, mem, ctx, B, dtype, sub, device)
-                        for mem in sub.memories]
-    ctx.gen_capture.update(group=cfg.name, statics=statics, boots=boots,
-                           batch=B, dtype=dtype)
+    tensors = values + [a.ids for a in given if a.ids is not None]
+    device = tensors[0].device if tensors else next(iter(ctx.params.values())).device
+    boots: List[Tensor] = [_memory_boot(network, mem, ctx, B, dtype, sub, device)
+                           for mem in memories]
+
+    predict_agent = f"__generated_id@{cfg.name}"
+    if predict_agent not in network.layer_map:
+        raise ValueError(f"generation group {cfg.name}: missing the generated-id agent")
+    score_layer = sub.out_links[0].layer_name
+
+    if ctx.gen_capture is not None:
+        # the serving engine's prefill: it takes over the decode loop itself,
+        # one slot-batched step at a time (graph/decode_step.py)
+        ctx.gen_capture.update(group=cfg.name, statics=statics, boots=boots,
+                               batch=B, dtype=dtype)
+        return
+
+    statics = {name: _expand_beams(arg, K) for name, arg in statics.items()}
+    in_v: Dict[str, Tensor] = {}                                # [T, B*K, ...]
+    in_i: Dict[str, Tensor] = {}
+    for name, arg in in_args.items():
+        ex = _expand_beams(arg, K)
+        if ex.value is not None:
+            in_v[name] = ex.value.transpose(0, 1)
+        if ex.ids is not None:
+            in_i[name] = ex.ids.transpose(0, 1)
+    carries = [torch.repeat_interleave(boot, K, dim=0) for boot in boots]
+    prev_tok = torch.full((B * K,), bos, dtype=torch.int32, device=device)
+    cum = torch.zeros((B, K), dtype=dtype, device=device)      # cumulative log prob
+    cum[:, 1:] = _NEG_INF
+    # an empty in-link sequence is finished before step 0: it generates
+    # length 0, not one token conditioned on padding
+    finished = (torch.zeros((B, K), dtype=torch.bool, device=device) if in_lengths is None
+                else (in_lengths <= 0)[:, None].expand(B, K).clone())
+    history = torch.zeros((B, K, L), dtype=torch.int32, device=device)
+    lens = torch.zeros((B, K), dtype=torch.int32, device=device)
+    first_row = torch.arange(B, device=device)[:, None] * K
+
+    # the reference's while_loop: stop once every beam of every sample has
+    # finished, so history past that step stays 0. The condition is read on
+    # the host, one device sync a step.
+    t = 0
+    while t < L and not bool(finished.all()):
+        fed: Dict[str, Argument] = {predict_agent: Argument(ids=prev_tok)}
+        for name in in_args:
+            fed[name] = Argument(value=in_v[name][t] if name in in_v else None,
+                                 ids=in_i[name][t] if name in in_i else None)
+        fed.update(statics)
+        for mem, carry in zip(memories, carries):
+            fed[mem.link_name] = _memory_feed_arg(mem, carry)
+        outs = _run_submodel_step(network, sub, ctx, fed)
+        probs = outs[score_layer].value                           # [B*K, V]
+        V = probs.shape[-1]
+        logp = torch.log(torch.clamp(probs, min=1e-20)).reshape(B, K, V)
+        # a finished beam may only "emit" eos, at no cost; every other
+        # candidate of it is dead (-1e30, not the clip floor, else its V-1
+        # ghosts could outrank live continuations)
+        eos_row = torch.where(torch.arange(V, device=device) == eos, 0.0, _NEG_INF)
+        logp = torch.where(finished[:, :, None], eos_row.to(logp.dtype), logp)
+        total = cum[:, :, None] + logp                            # [B, K, V]
+        top_scores, top_idx = _top_k_lower_index_first(total.reshape(B, K * V), K)
+        beam_idx = top_idx // V                                   # [B, K]
+        token = (top_idx % V).to(torch.int32)
+        # advance the carries with this step's outputs (finished beams keep
+        # theirs), then reindex them by the chosen beams
+        flat_sel = (first_row + beam_idx).reshape(-1)
+        keep = finished.reshape(-1)
+        new_carries = []
+        for mem, old in zip(memories, carries):
+            out_arg = outs[mem.layer_name]
+            new = out_arg.ids if _is_int_carry(old) else out_arg.value
+            frozen = torch.where(keep.reshape((-1,) + (1,) * (old.dim() - 1)), old,
+                                 new.to(old.dtype))
+            new_carries.append(frozen.index_select(0, flat_sel))
+        carries = new_carries
+        finished = torch.gather(finished, 1, beam_idx)
+        lens = torch.gather(lens, 1, beam_idx)
+        history = torch.gather(history, 1, beam_idx[:, :, None].expand(B, K, L))
+        history[:, :, t] = torch.where(finished, eos, token)
+        lens = torch.where(finished, lens, lens + 1)
+        finished = finished | (token == eos)
+        if in_lengths is not None:
+            # an in-link bounds the generation: a sample ends with its last
+            # input frame even without eos
+            finished = finished | ((t + 1) >= in_lengths[:, None])
+        prev_tok, cum = token.reshape(-1), top_scores
+        t += 1
+        BEAM_STEPS += 1
+
+    # best beam per sample (top-K keeps the beams sorted; the pick is by
+    # score all the same, the first maximum as jnp.argmax)
+    best = torch.argmax(cum, dim=1)
+    best_tokens = torch.gather(history, 1, best[:, None, None].expand(B, 1, L))[:, 0]
+    best_lens = torch.gather(lens, 1, best[:, None])[:, 0]
+    ctx.outputs[cfg.name] = Argument(ids=best_tokens, seq_lengths=best_lens)
+    ctx.outputs[f"{cfg.name}@beams"] = Argument(
+        ids=history, value=cum, sub_seq_lengths=lens,
+        seq_lengths=torch.full((B,), K, dtype=torch.int32, device=device))
+    ctx.outputs[score_layer] = ctx.outputs[cfg.name]
+
+
+def beams_of(outputs: Dict[str, Argument], group: str):
+    """A generator group's beams from its ``@beams`` output, as numpy: ids
+    [B, K, L], scores [B, K] and lengths [B, K]."""
+    beams = outputs[f"{group}@beams"]
+    return (beams.ids.cpu().numpy(), beams.value.cpu().numpy(),
+            beams.sub_seq_lengths.cpu().numpy())

@@ -151,9 +151,25 @@ def _rotate(save_dir: str, keep: int) -> None:
             shutil.rmtree(os.path.join(save_dir, d), ignore_errors=True)
     if keep <= 0:
         return
-    passes = sorted(int(d[5:]) for d in names if _is_pass_dir_name(d))
-    for p in passes[:-keep]:
+    for p in _passes(names)[:-keep]:
         shutil.rmtree(os.path.join(save_dir, PASS_FMT % p), ignore_errors=True)
+
+
+def has_params_tree(path: str) -> bool:
+    """True if a pass dir holds a params tree in either format."""
+    return (os.path.exists(os.path.join(path, "params.npz"))
+            or os.path.exists(os.path.join(path, "params.index.json")))
+
+
+def _passes(names: List[str]) -> List[int]:
+    """The pass ids of the complete pass dirs among ``names``, ascending."""
+    return sorted(int(d[5:]) for d in names if _is_pass_dir_name(d))
+
+
+def latest_pass(save_dir: str) -> Optional[int]:
+    """The newest complete pass in ``save_dir``; None if there is none."""
+    passes = _passes(os.listdir(save_dir)) if os.path.isdir(save_dir) else []
+    return passes[-1] if passes else None
 
 
 def verify_checkpoint(path: str) -> List[str]:

@@ -2,10 +2,11 @@
 
 Port of the core of ``paddle_tpu/trainer/trainer.py``: a train step is
 ``_one_batch_step`` (gradients from the machine, then the optimizer
-update, then the state updates), run eagerly, and a test pass is
-``test()`` (the averaged parameters, a forward without gradients, the mean
-per-sample cost and the configured evaluators). Batches come from the
-caller as dicts of :class:`~paddle_tpu_torch.graph.Argument` (for the
+update, then the state updates), run eagerly; a test pass is ``test()``
+(the averaged parameters, a forward without gradients, the mean
+per-sample cost and the configured evaluators); generation is
+``generate()`` (beam search over a generation config's batches, into the
+JAX package's result file). Batches come from the caller as dicts of :class:`~paddle_tpu_torch.graph.Argument` (for the
 NMT model :func:`paddle_tpu_torch.flagship.nmt_batch`, for the LSTM text
 classifier :func:`~paddle_tpu_torch.flagship.example_batch`, for ResNet
 :func:`~paddle_tpu_torch.flagship.make_image_batch`); data
@@ -20,6 +21,7 @@ sharded checkpoints are later slices.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, Iterable, List, Optional
 
 import torch
@@ -27,6 +29,7 @@ import torch
 from paddle_tpu_torch.device import DeviceLike
 from paddle_tpu_torch.graph.argument import Argument
 from paddle_tpu_torch.graph.machine import GradientMachine
+from paddle_tpu_torch.graph.recurrent_group import beams_of
 from paddle_tpu_torch.optimizer.updater import Updater
 from paddle_tpu_torch.trainer import checkpoint as ckpt
 from paddle_tpu_torch.trainer.evaluators import EvaluatorChain
@@ -119,6 +122,61 @@ class Trainer:
         logger.info("Test: AvgCost %f  %s", results["cost"], evaluators.summary())
         return results
 
+    def generate(self, batches: Iterable[Batch], result_file: Optional[str] = None):
+        """Sequence generation over ``batches`` with the averaged parameters
+        (the JAX package's ``generate``; ref: RecurrentGradientMachine
+        generateSequence and demo/seqToseq gen.conf), beam search on the
+        machine's device.
+
+        Writes to ``result_file`` (default: the generator's
+        ``result_file``), per sample, an index line (the sample's id from
+        ``gen.id_input_layer`` when set, else its running index), then
+        ``score\ttok tok ...`` for each of the first
+        ``num_results_per_sample`` beams, words from ``dict_file`` when it
+        exists. Returns the (best_ids, beam_ids, beam_scores, beam_lens)
+        numpy arrays of each batch."""
+        gen_sub = next((s for s in self.config.model_config.sub_models
+                        if s.generator is not None), None)
+        if gen_sub is None:
+            raise ValueError("config has no generator (use beam_search in the config)")
+        gen = gen_sub.generator
+        group = gen_sub.name
+        result_file = result_file or gen.result_file
+        words = None
+        if gen.dict_file and os.path.exists(gen.dict_file):
+            with open(gen.dict_file) as f:
+                words = [line.rstrip("\n") for line in f]
+        params = self.updater.averaged_params(self.params, self.opt_state)
+        n_keep = max(int(gen.num_results_per_sample), 1)
+        results = []
+        sample_idx = 0
+        out_f = open(result_file, "w") if result_file else None
+        try:
+            for batch in batches:
+                id_arg = batch.get(gen.id_input_layer) if gen.id_input_layer else None
+                sample_ids = (id_arg.ids.reshape(-1).cpu().numpy()
+                              if id_arg is not None else None)
+                outputs, _ = self.gm.forward(params, batch, pass_type="gen")
+                ids = outputs[group].ids.cpu().numpy()
+                beam_ids, scores, lens = beams_of(outputs, group)
+                results.append((ids, beam_ids, scores, lens))
+                if out_f is None:
+                    continue
+                for b in range(ids.shape[0]):
+                    tag = sample_ids[b] if sample_ids is not None else sample_idx
+                    out_f.write(f"{tag}\n")
+                    for k in range(min(n_keep, beam_ids.shape[1])):
+                        toks = beam_ids[b, k, : lens[b, k]].tolist()
+                        text = " ".join(words[t] if words and t < len(words) else str(t)
+                                        for t in toks)
+                        out_f.write(f"{scores[b, k]:.6f}\t{text}\n")
+                    sample_idx += 1
+        finally:
+            if out_f is not None:
+                out_f.close()
+                logger.info("generation results written to %s", result_file)
+        return results
+
     def save(self, pass_id: int) -> str:
         if not self.save_dir:
             raise ValueError("Trainer.save needs save_dir")
@@ -133,6 +191,22 @@ class Trainer:
         if opt_state is not None:
             self.opt_state = opt_state
         return meta
+
+
+def read_result_file(path: str):
+    """A result file of :meth:`Trainer.generate` back as
+    [(index line, [(score, [ids])])], in file order (a dict file's words
+    do not parse back)."""
+    blocks = []
+    with open(path) as f:
+        for line in f:
+            line = line.rstrip("\n")
+            if "\t" in line:
+                score, text = line.split("\t")
+                blocks[-1][1].append((float(score), [int(t) for t in text.split()]))
+            else:
+                blocks.append((line, []))
+    return blocks
 
 
 def _on_host(a: Argument) -> Argument:

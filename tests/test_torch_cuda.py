@@ -1266,3 +1266,117 @@ def test_flash_forward_kernel_across_shapes(dev, D, T, causal):
     seen = lengths > 0
     assert float((lse - ref_lse)[seen].abs().max()) <= TOL
     assert (lse[~seen] == -1e30).all() and not out[~seen].any()
+
+
+# ------------------------------------------------------------ beam search
+
+BEAM_W = dict(vocab=300, dim=64, beam_size=3, max_length=12, batch_size=8)
+
+
+def _beam_machines(dev, spread=False):
+    """The generation model on the card and on the CPU with the same
+    parameters: init_params', or (``spread``) nmt_gen_spread_params' of
+    them, whose log-probabilities spread as a trained model's."""
+    from paddle_tpu_torch import api
+    from paddle_tpu_torch.flagship import nmt_gen_config, nmt_gen_spread_params
+
+    tc = nmt_gen_config(**BEAM_W)
+    card = api.GradientMachine(tc.model_config, device=dev)
+    if spread:
+        card.params = nmt_gen_spread_params(card.params, tc.model_config)
+    cpu = api.GradientMachine(tc.model_config, device="cpu",
+                              params={n: p.cpu() for n, p in card.params.items()})
+    return tc, card, cpu
+
+
+def test_beam_search_on_the_card_matches_the_cpu(dev):
+    """Beam 3 at a small width on the card (kernel 1 for the encoder, twice
+    a forward; no other kernel, no eager route) against the CPU's plain
+    versions, at parameters whose log-probabilities spread: every beam's
+    ids equal and its score within 1e-4 relative, or a near tie at the
+    first step where the two devices' beams differ (beam_parity)."""
+    from paddle_tpu_torch.flagship import nmt_gen_batch
+    from paddle_tpu_torch.ops import fused_attention_gru as fa
+    from paddle_tpu_torch.ops import fused_gru as fg
+    from paddle_tpu_torch.tools.beam_parity import beam_parity
+
+    _, card, cpu = _beam_machines(dev, spread=True)
+    feeds = [nmt_gen_batch(vocab=BEAM_W["vocab"], B=8, T=10, seed=3, device=d)
+             for d in (dev, "cpu")]
+    before = (fg.GRU_FWD.launches, fg.GRU_FWD_TRAIN.launches, fa.ATTENTION_GRU_FWD.launches,
+              fg.EAGER_ROUTES, fa.EAGER_ROUTES)
+    results = card.asSequenceGenerator().generate(feeds[0])
+    after = (fg.GRU_FWD.launches, fg.GRU_FWD_TRAIN.launches, fa.ATTENTION_GRU_FWD.launches,
+             fg.EAGER_ROUTES, fa.EAGER_ROUTES)
+    assert after == (before[0] + 2,) + before[1:]
+    assert all(len(sample) == 3 for sample in results)
+    differ, ties, worst = beam_parity(card, cpu, *feeds, BEAM_W["max_length"], 1e-4)
+    assert len(ties) == len(differ) and worst <= 1e-4
+
+
+def test_beam_search_exact_ties_on_the_card(dev, tmp_path):
+    """Four vocabulary columns with zero weights and bias give bit-equal
+    probabilities on the card too: the beams are the lower indices first,
+    as on the CPU (tests/test_torch_generation.py holds the CPU to the JAX
+    package)."""
+    import textwrap
+
+    from paddle_tpu_torch import api
+    from paddle_tpu_torch.config import parse_config
+    from paddle_tpu_torch.graph import make_dense
+
+    path = tmp_path / "tie.py"
+    path.write_text(textwrap.dedent("""
+        from paddle.trainer_config_helpers import *
+        settings(batch_size=4, learning_rate=1e-3)
+        boot = data_layer(name="boot", size=4)
+        def gen_step(b, cur_emb):
+            h = mixed_layer(size=4, name="h", bias_attr=False,
+                            input=[full_matrix_projection(cur_emb, param_attr=ParamAttr(name="wx"))])
+            comb = addto_layer(input=[h, b], act=TanhActivation(), bias_attr=False)
+            return fc_layer(input=comb, size=6, act=SoftmaxActivation(), name="scores")
+        gen = beam_search(step=gen_step,
+                          input=[StaticInput(boot),
+                                 GeneratedInput(size=6, embedding_name="Tg", embedding_size=4)],
+                          bos_id=0, eos_id=5, beam_size=3, max_length=4, name="generator")
+        """))
+    tc = parse_config(str(path))
+    card = api.GradientMachine(tc.model_config, device=dev, seed=5)
+    w, bias = card.params["_scores.w0"], card.params["_scores.wbias"]
+    w.mul_(0.25)[:, 1:5] = 0.0
+    bias.fill_(-3.0).view(-1)[1:5] = 0.0
+    bias.view(-1)[5] = -6.0
+    cpu = api.GradientMachine(tc.model_config, device="cpu",
+                              params={n: p.cpu() for n, p in card.params.items()})
+    boot = np.random.RandomState(3).randn(3, 4).astype(np.float32)
+    out = [m._core.forward(m.params, {"boot": make_dense(boot, device=m.device)}, "gen")[0]
+           ["generator@beams"] for m in (card, cpu)]
+    ids, scores = out[0].ids.cpu().numpy(), out[0].value.cpu().numpy()
+    np.testing.assert_array_equal(ids, out[1].ids.numpy())
+    np.testing.assert_array_equal(ids[:, :, -1], np.tile([1, 2, 3], (3, 1)))
+    assert (scores[:, 0] == scores[:, 1]).all() and (scores[:, 1] == scores[:, 2]).all()
+
+
+def test_trainer_generate_on_the_card_writes_its_result_file(dev, tmp_path):
+    """Trainer.generate on the card: one index line and the kept beams per
+    sample, the beams the card's SequenceGenerator returns for the same
+    parameters and batch."""
+    from paddle_tpu_torch.flagship import nmt_gen_batch
+    from paddle_tpu_torch.trainer import Trainer
+    from paddle_tpu_torch.trainer.trainer import read_result_file
+
+    tc, card, _ = _beam_machines(dev)
+    trainer = Trainer(tc)
+    assert trainer.device.type == "cuda"
+    trainer.params = card.params
+    feed = nmt_gen_batch(vocab=BEAM_W["vocab"], B=5, T=10, seed=4, device=dev)
+    path = str(tmp_path / "gen_result.txt")
+    batches = trainer.generate([feed], result_file=path)
+    blocks = read_result_file(path)
+    want = card.asSequenceGenerator().generate(feed)
+    assert [idx for idx, _ in blocks] == [str(b) for b in range(5)]
+    for (_, beams), sample in zip(blocks, want):
+        assert [ids for _, ids in beams] == [e["ids"] for e in sample]
+        np.testing.assert_allclose([s for s, _ in beams], [e["score"] for e in sample],
+                                   rtol=0, atol=1e-5)
+    assert batches[0][1].shape == (5, 3, BEAM_W["max_length"])

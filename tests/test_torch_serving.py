@@ -8,6 +8,8 @@ capture, one decode step's probabilities (1e-5) and the engines' greedy
 token streams (exactly) must agree.
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -160,9 +162,13 @@ def test_refusals_name_what_is_not_ported(tiny):
         TorchDecodeBackend(tm, tp, slots=2, prompt_tokens=T, spec_tokens="2")
     with pytest.raises(NotImplementedError, match="not ported yet"):
         GradientMachine(tiny["ttc"].model_config, device="cpu", compute_dtype="bfloat16")
+    # beam search runs (tests/test_torch_generation.py); a generator group
+    # with a sequence-valued memory is the hierarchical-RNN slice's
     _, feed = _feeds(tiny["prompts"][:2])
-    with pytest.raises(NotImplementedError, match="beam search"):
-        tm.forward(tp, feed, pass_type="gen")
+    seq_mem = copy.deepcopy(tiny["ttc"].model_config)
+    next(s for s in seq_mem.sub_models if s.generator).memories[0].is_sequence = True
+    with pytest.raises(NotImplementedError, match="sequence-valued memories are not ported yet"):
+        GradientMachine(seq_mem, device="cpu").forward(tp, feed, pass_type="gen")
     # a step graph off the attention-GRU template is refused with the reason
     machine = GradientMachine(tiny["ttc"].model_config, device="cpu")
     plan, _ = plan_of(machine)
