@@ -69,6 +69,29 @@ Phases, each printing one JSON object per line:
              near tie: the chosen candidates within 1e-4 of each other),
              and beam_size=1 over the 64 prompts against the fused and
              unfused greedy engines: >= 95% of the streams identical.
+3c. cli    — the fourth: the seqToseq demo through the port's command
+             line (paddle_tpu_torch.cli.main, in this process, on the
+             card): demo/seqToseq/{dataprovider,seqToseq_net}.py and its
+             train.conf and gen.conf at width 512 (vocab 30000) and
+             batch_size 64, in the provider's real mode over a 30,000-word
+             dict and corpora from numpy seed 1 (2,048 train and 500 test
+             pairs, lengths uniform in 5-50, words Zipf(1.1)): `train` for
+             2 passes from a checkpoint of init_params(seed=1) with a log
+             line a batch, a test pass and a save each pass; `test` of the
+             saved passes; `gen` (beam 3, 32 steps) over 128 sources from
+             the last pass. Between zeroed counters: no eager route,
+             kernels 2 and 3 twice a step and 5 and 6 once (kernel 1 of the
+             test passes and of gen as counted; their decoders run the
+             group's loop, as the JAX package's: its decoder template
+             matches in training only); every cost finite, pass
+             1's test cost below pass 0's, the test job's costs the train
+             run's, both checkpoints verified, 128 blocks of 3 beams whose
+             words are the dict's; the first batch's cost within 1e-3 of the
+             CPU's at the same parameters. Reports target tokens/s
+             (valid tokens, the first step left out), the median and p90
+             wall ms a batch, the host ms a batch in the feeder (provider
+             and pool; packers) and in the transfer to the card, peak
+             device memory, and the test and gen walls.
 4. train   — the other main path: Trainer(nmt_config(vocab=30000,
              dim=512, batch_size=64)) on the card, random weights from
              seed 1, 8 Adam steps on nmt_batch(B=64, T=32, seed=1), the
@@ -164,7 +187,7 @@ Phases, each printing one JSON object per line:
              or 12); a B = 2, T = 256 batch's cost (1e-4 relative) and
              classification_error (equal) against the CPU.
 
-Every main path (3, 3b, 4, 6, 7, 9, 10, 12, 13) runs between zeroed counts of
+Every main path (3, 3b, 3c, 4, 6, 7, 9, 10, 12, 13) runs between zeroed counts of
 the layers' eager routes too (gated_recurrent, lstmemory, full_attention,
 the attention decoder group's loop, and the 1x1 convs whose shape kernel 9
 refuses: the EAGER_ROUTES of the ops modules) and fails if any layer took
@@ -957,7 +980,7 @@ def phase_beam(torch, dev, kernels):
     zero_counts(kernels)
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "gen_result.txt")
-        batches = trainer.generate([feed64], result_file=path)
+        batches = trainer.generate_batches([feed64], result_file=path)
         blocks = read_result_file(path)
     launches, _ = read_counts(kernels)
     assert launches["gru_fwd"] == 2, launches
@@ -1005,6 +1028,350 @@ def phase_beam(torch, dev, kernels):
     return {"kernel_launches": runs[BEAM["batches"][0]]["kernel_launches"], "runs": runs}
 
 
+# the seqToseq demo through the port's command line (the cli phase), at the
+# train phase's full width: demo/seqToseq/{train,gen}.conf with their widths
+# (32) set to 512 and batch_size 64, in the provider's real mode over a
+# 30,000-word dict and corpora drawn from numpy seed 1
+CLI = dict(vocab=30000, dim=512, batch=64, train_pairs=2048, test_pairs=500, gen_sources=128,
+           min_len=5, max_len=50, zipf=1.1, passes=2, beam_size=3, max_length=32)
+CLI_WIDTHS = ("word_vector_dim=32,\n    encoder_size=32,\n    decoder_size=32,",
+              "word_vector_dim={dim},\n    encoder_size={dim},\n    decoder_size={dim},")
+
+
+def cli_workspace(ws):
+    """The demo's provider and net, the two configs at full width, the dict
+    and corpora; returns --config_args."""
+    import shutil
+
+    demo = os.path.join(os.path.dirname(os.path.abspath(__file__)), "demo", "seqToseq")
+    for name in ("dataprovider.py", "seqToseq_net.py"):
+        shutil.copy(os.path.join(demo, name), ws)
+    edits = {"train": [CLI_WIDTHS, ("batch_size=16", f"batch_size={CLI['batch']}")],
+             "gen": [CLI_WIDTHS, ("batch_size=16", f"batch_size={CLI['batch']}"),
+                     ("max_length=12", f"max_length={CLI['max_length']}"),
+                     ('test_list="test.list"', 'test_list="gen.list"')]}
+    for conf, pairs in edits.items():
+        with open(os.path.join(demo, f"{conf}.conf")) as f:
+            text = f.read()
+        assert f"beam_size={CLI['beam_size']}" in text or conf == "train"
+        for old, new in pairs:
+            assert text.count(old) == 1, (conf, old)
+            text = text.replace(old, new.format(dim=CLI["dim"]))
+        with open(os.path.join(ws, f"{conf}_full.conf"), "w") as f:
+            f.write(text)
+    rng = np.random.RandomState(1)
+    words = ["<s>", "<e>", "<unk>"] + [f"w{i}" for i in range(3, CLI["vocab"])]
+    with open(os.path.join(ws, "dict.txt"), "w") as f:
+        f.write("\n".join(words) + "\n")
+
+    def sentence():
+        n = rng.randint(CLI["min_len"], CLI["max_len"] + 1)
+        ids = np.minimum(rng.zipf(CLI["zipf"], size=n) + 2, CLI["vocab"] - 1)
+        return " ".join(words[i] for i in ids)
+
+    for name, n in (("train", CLI["train_pairs"]), ("test", CLI["test_pairs"])):
+        with open(os.path.join(ws, f"{name}.txt"), "w") as f:
+            f.writelines(f"{sentence()}\t{sentence()}\n" for _ in range(n))
+        with open(os.path.join(ws, f"{name}.list"), "w") as f:
+            f.write(f"{name}.txt\n")
+    with open(os.path.join(ws, "test.txt")) as src, open(os.path.join(ws, "gen.txt"), "w") as f:
+        f.writelines(line for _, line in zip(range(CLI["gen_sources"]), src))
+    with open(os.path.join(ws, "gen.list"), "w") as f:
+        f.write("gen.txt\n")
+    return "--config_args=src_dict=dict.txt,trg_dict=dict.txt", words
+
+
+def run_cli(argv):
+    """One call of the port's command line, from the flags' defaults as a
+    new process would start; the flags are put back afterwards. Returns
+    its wall seconds."""
+    from paddle_tpu_torch import cli
+    from paddle_tpu_torch.utils.flags import FLAGS, _Flags
+
+    saved = dict(vars(FLAGS))
+    vars(FLAGS).update(vars(_Flags()))
+    t0 = time.perf_counter()
+    try:
+        assert cli.main(argv) == 0, argv
+    finally:
+        vars(FLAGS).update(saved)
+    return time.perf_counter() - t0
+
+
+class CliProbe:
+    """Watches the command line's run from outside: the losses and the
+    start and end of every train step's enqueue (Trainer._step), the end of
+    every pass, each test pass's results and wall time, the host seconds of
+    the feeder's provider and pool (DataProvider._batch_lists_from, its
+    dispatcher thread), of its packers (BatchAssembler.assemble) and of the
+    pinned transfer to the card (Trainer._to_device), train and test apart,
+    and in training the evaluators' copy of their layers off the card
+    (Trainer._host_outputs, which waits for the step first: float(loss)
+    already did) and their host work (EvaluatorChain.eval_batch). It adds
+    no synchronisation: the losses are read after the run."""
+
+    def __init__(self):
+        from paddle_tpu_torch.data.feeder import BatchAssembler, DataProvider
+        from paddle_tpu_torch.trainer import Trainer
+        from paddle_tpu_torch.trainer.evaluators import EvaluatorChain
+
+        self.patches = []
+        self.losses, self.step_t, self.pass_end, self.tests = [], [], [], []
+        # per train step: enqueue end, copy-off start and end, evaluator seconds
+        self.step_end, self.copy_t, self.eval_s = [], [], []
+        self.host = {k: {"provider_s": 0.0, "assemble_s": 0.0, "transfer_s": 0.0, "batches": 0}
+                     for k in ("train", "test")}
+        owner, probe = {}, self
+        in_train = [False]
+
+        def patch(cls, name, fn):
+            self.patches.append((cls, name, getattr(cls, name)))
+            setattr(cls, name, fn)
+
+        step, one_pass, test = Trainer._step, Trainer.train_one_pass, Trainer.test
+        to_device, lists, assemble = (Trainer._to_device, DataProvider._batch_lists_from,
+                                      BatchAssembler.assemble)
+        host_outputs, eval_batch = Trainer._host_outputs, EvaluatorChain.eval_batch
+
+        def _step(trainer, batch):
+            probe.step_t.append(time.perf_counter())
+            loss, outputs = step(trainer, batch)
+            probe.losses.append(loss.detach())
+            probe.step_end.append(time.perf_counter())
+            return loss, outputs
+
+        def _host_outputs(trainer, outputs, evaluators):
+            t0 = time.perf_counter()
+            out = host_outputs(trainer, outputs, evaluators)
+            if in_train[0]:
+                probe.copy_t.append((t0, time.perf_counter()))
+            return out
+
+        def _eval_batch(chain, outputs, only=None):
+            t0 = time.perf_counter()
+            eval_batch(chain, outputs, only)
+            if in_train[0]:
+                probe.eval_s.append(time.perf_counter() - t0)
+
+        def train_one_pass(trainer, pass_id, provider):
+            in_train[0] = True
+            try:
+                one_pass(trainer, pass_id, provider)
+            finally:
+                in_train[0] = False
+            probe.pass_end.append(time.perf_counter())
+
+        def _test(trainer, pass_id=-1):
+            t0 = time.perf_counter()
+            results = test(trainer, pass_id=pass_id)
+            probe.tests.append(dict(results, pass_id=pass_id, wall_s=time.perf_counter() - t0))
+            return results
+
+        def _to_device(trainer, batch):
+            t0 = time.perf_counter()
+            out = to_device(trainer, batch)
+            probe.host["train" if in_train[0] else "test"]["transfer_s"] += \
+                time.perf_counter() - t0
+            return out
+
+        def _batch_lists_from(dp, samples):
+            key = "train" if dp.shuffle else "test"
+            owner[id(dp.assembler)] = key
+            it = lists(dp, samples)
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    item = next(it)
+                except StopIteration:
+                    return
+                probe.host[key]["provider_s"] += time.perf_counter() - t0
+                probe.host[key]["batches"] += 1
+                yield item
+
+        def _assemble(assembler, samples):
+            t0 = time.perf_counter()
+            out = assemble(assembler, samples)
+            key = owner.get(id(assembler))
+            if key is not None:
+                probe.host[key]["assemble_s"] += time.perf_counter() - t0
+            return out
+
+        patch(Trainer, "_step", _step)
+        patch(Trainer, "train_one_pass", train_one_pass)
+        patch(Trainer, "test", _test)
+        patch(Trainer, "_to_device", _to_device)
+        patch(DataProvider, "_batch_lists_from", _batch_lists_from)
+        patch(BatchAssembler, "assemble", _assemble)
+        patch(Trainer, "_host_outputs", _host_outputs)
+        patch(EvaluatorChain, "eval_batch", _eval_batch)
+
+    def close(self):
+        for cls, name, fn in reversed(self.patches):
+            setattr(cls, name, fn)
+
+
+def phase_cli(torch, dev, kernels):
+    """The seqToseq demo through the port's command line on the card, in
+    the provider's real mode: train 2 passes from init_params(seed=1),
+    test the saved passes, generate from the last; checked and timed."""
+    import tempfile
+
+    from paddle_tpu_torch.config import parse_config
+    from paddle_tpu_torch.data.feeder import create_data_provider
+    from paddle_tpu_torch.graph import GradientMachine
+    from paddle_tpu_torch.trainer import checkpoint as ckpt
+
+    t_phase = time.perf_counter()
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as ws:
+        os.chdir(ws)
+        try:
+            args, words = cli_workspace(ws)
+            cfg = parse_config("train_full.conf", args[len("--config_args="):])
+            # the parameters both devices start from: init_params(seed=1),
+            # drawn on the CPU, as a checkpoint of parameters only
+            cpu = GradientMachine(cfg.model_config, device="cpu")
+            params0 = cpu.init_params(seed=1)
+            init = ckpt.save_checkpoint(os.path.join(ws, "init"), 0, params0)
+            # the train provider's batches, replayed on the host from the same
+            # seed: the first batch for the CPU, the target tokens of each
+            replay = create_data_provider(cfg.data_config, cfg.opt_config.batch_size,
+                                          cfg.model_config.input_layer_names, seed=1)
+            replayed = [list(replay.batches()) for _ in range(CLI["passes"])]
+            tokens = [[int(b["target_language_next_word"].seq_lengths.sum()) for b in p]
+                      for p in replayed]
+            shapes = sorted({(b["source_language_word"].batch_size,
+                              b["source_language_word"].max_len,
+                              b["target_language_word"].max_len) for p in replayed for b in p})
+            first = replayed[0][0]
+            del replayed
+
+            probe = CliProbe()
+            try:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                zero_counts(kernels)
+                train_s = run_cli(["train", "--config=train_full.conf", args, "--save_dir=out",
+                                   f"--num_passes={CLI['passes']}", "--log_period=1",
+                                   "--saving_period=1", f"--init_model_path={init}"])
+                torch.cuda.synchronize()
+                train_launches, routes = read_counts(kernels)
+                peak = torch.cuda.max_memory_allocated(dev)
+                losses = [float(x) for x in probe.losses]
+                train_tests = list(probe.tests)
+                host = {k: dict(v) for k, v in probe.host.items()}
+                step_t, pass_end = list(probe.step_t), list(probe.pass_end)
+                step_end, copy_t, eval_s = (list(probe.step_end), list(probe.copy_t),
+                                            list(probe.eval_s))
+
+                probe.tests.clear()
+                zero_counts(kernels)
+                test_s = run_cli(["test", "--config=train_full.conf", args, "--save_dir=out",
+                                  "--test_pass=0", f"--num_passes={CLI['passes']}"])
+                test_launches, _ = read_counts(kernels)
+                tests = list(probe.tests)
+
+                zero_counts(kernels)
+                last = os.path.join("out", ckpt.PASS_FMT % (CLI["passes"] - 1))
+                gen_s = run_cli(["gen", "--config=gen_full.conf", args,
+                                 f"--init_model_path={last}", "--gen_result=gen_result.txt"])
+                gen_launches, _ = read_counts(kernels)
+            finally:
+                probe.close()
+            blocks = read_result_file_words("gen_result.txt")
+            problems = {p: ckpt.verify_checkpoint(os.path.join("out", ckpt.PASS_FMT % p))
+                        for p in range(CLI["passes"])}
+
+            # the first batch on the CPU, at the same parameters
+            with torch.no_grad():
+                cpu_loss = float(cpu.loss_fn(params0, first)[0])
+        finally:
+            os.chdir(cwd)
+
+    n_batches = CLI["train_pairs"] // CLI["batch"]
+    steps = CLI["passes"] * n_batches
+    assert len(losses) == steps and all(np.isfinite(losses)), losses
+    # the training kernels once or twice a step; the in-train test passes'
+    # kernel 1 (and 4, which the test pass's decoder loop does not reach) as
+    # counted; no other kernel
+    want = {k.symbol: 0 for k in kernels}
+    want.update(gru_fwd_train=2 * steps, gru_bwd=2 * steps, attention_gru_fwd_train=steps,
+                attention_gru_bwd=steps, gru_fwd=train_launches["gru_fwd"],
+                attention_gru_fwd=train_launches["attention_gru_fwd"])
+    assert train_launches == want, (train_launches, want)
+    costs = [t["cost"] for t in train_tests]
+    assert len(costs) == CLI["passes"] and all(np.isfinite(costs)) and costs[1] < costs[0], costs
+    # the test job over the saved passes: the costs the train run's test passes saw
+    assert len(tests) == CLI["passes"] and all(
+        abs(t["cost"] - c) <= 1e-5 * abs(c) for t, c in zip(tests, costs)), (tests, costs)
+    assert problems == {p: [] for p in range(CLI["passes"])}, problems
+    assert len(blocks) == CLI["gen_sources"], len(blocks)
+    assert all(len(beams) == CLI["beam_size"] and all(w in words for _, ws_ in beams for w in ws_)
+               for _, beams in blocks), blocks[:2]
+    first_err = abs(losses[0] - cpu_loss) / abs(cpu_loss)
+    assert first_err <= TRAIN_TOL, (losses[0], cpu_loss)
+
+    # per batch: from one step's start to the next's (the last to its
+    # pass's end), all but the first step of the run
+    walls, tok_s = [], []
+    for p in range(CLI["passes"]):
+        t = step_t[p * n_batches:(p + 1) * n_batches] + [pass_end[p]]
+        walls += [b - a for a, b in zip(t, t[1:])][1 if p == 0 else 0:]
+        skip = 1 if p == 0 else 0
+        tok_s.append(sum(tokens[p][skip:]) / (pass_end[p] - t[skip]))
+    train_batches = host["train"]["batches"]
+    # where a batch's wall goes, medians over the steps: the step's enqueue;
+    # the wait for the card (float(loss)) to the evaluators' copy; the copy
+    # of their layers off the card; their host work
+    med = lambda xs: 1e3 * statistics.median(xs)       # noqa: E731
+    breakdown = {"step_enqueue": med([e - s for s, e in zip(step_t, step_end)]),
+                 "wait_for_card": med([c[0] - e for e, c in zip(step_end, copy_t)]),
+                 "evaluator_copy_off_card": med([b - a for a, b in copy_t]),
+                 "evaluator_host": med(eval_s)}
+    cli_line = {
+        "phase": "cli", "config": "demo/seqToseq train.conf/gen.conf at width "
+        f"{CLI['dim']}, batch {CLI['batch']}, real mode", "vocab": CLI["vocab"],
+        "train_pairs": CLI["train_pairs"], "test_pairs": CLI["test_pairs"],
+        "passes": CLI["passes"], "batch_shapes_B_Ts_Tt": shapes,
+        "target_tokens_per_pass": [sum(p) for p in tokens],
+        "train_target_tokens_per_s_by_pass": tok_s,
+        "train_target_tokens_per_s": (sum(tokens[0][1:]) + sum(sum(p) for p in tokens[1:]))
+        / sum(walls),
+        "batch_wall_ms_median": 1e3 * statistics.median(walls),
+        "batch_wall_ms_p90": 1e3 * float(np.percentile(walls, 90)),
+        "batch_wall_ms_median_by_part": breakdown,
+        "host_ms_per_train_batch": {
+            "provider_and_pool": 1e3 * host["train"]["provider_s"] / max(train_batches, 1),
+            "assembly": 1e3 * host["train"]["assemble_s"] / max(train_batches, 1),
+            "transfer": 1e3 * host["train"]["transfer_s"] / steps},
+        "host_test": host["test"],
+        "peak_memory_bytes": peak, "losses_first_last": [losses[0], losses[-1]],
+        "test_costs_in_train": costs, "train_cli_s": train_s,
+        "test_cli_s": test_s, "test_pass_wall_s": [t["wall_s"] for t in tests],
+        "test_results": tests, "gen_cli_s": gen_s, "gen_blocks": len(blocks),
+        "first_batch_cost": {"card": losses[0], "cpu": cpu_loss, "rel_err": first_err},
+        "kernel_launches": {"train": train_launches, "test": test_launches, "gen": gen_launches},
+        "eager_routes": routes, "checkpoints_verified": sorted(problems),
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    emit(cli_line)
+    return cli_line
+
+
+def read_result_file_words(path):
+    """A result file with words (gen_dict): [(index line, [(score, [words])])]."""
+    blocks = []
+    with open(path) as f:
+        for line in f:
+            line = line.rstrip("\n")
+            if "\t" in line:
+                score, text = line.split("\t")
+                blocks[-1][1].append((float(score), text.split()))
+            else:
+                blocks.append((line, []))
+    return blocks
+
+
 def phase_train(torch, dev, kernels):
     """The NMT train step on the card: 8 Adam steps through Trainer, the
     launch counts of that run, a B = 4 step against the CPU, a checkpoint
@@ -1014,9 +1381,10 @@ def phase_train(torch, dev, kernels):
     from paddle_tpu_torch.flagship import nmt_batch, nmt_config
     from paddle_tpu_torch.graph import GradientMachine
     from paddle_tpu_torch.trainer import Trainer
+    from paddle_tpu_torch.utils.flags import _Flags
 
     tc = nmt_config(vocab=FULL["vocab"], dim=FULL["dim"], batch_size=TRAIN["batch"])
-    trainer = Trainer(tc, seed=1)                           # device=None: the card
+    trainer = Trainer(tc)                             # the card (--use_tpu)
     batch = nmt_batch(vocab=FULL["vocab"], B=TRAIN["batch"], T=TRAIN["T"], seed=1, device=dev)
     target_tokens = int(batch["target_language_word"].seq_lengths.sum())
     torch.cuda.synchronize()
@@ -1055,7 +1423,7 @@ def phase_train(torch, dev, kernels):
     shutil.rmtree(save_dir, ignore_errors=True)
     trainer.save_dir = save_dir
     path = trainer.save(0)
-    fresh = Trainer(tc, seed=2)
+    fresh = Trainer(tc, _Flags(seed=2))
     fresh.restore(path)
     assert fresh.opt_state.step == trainer.opt_state.step == n
     for name, p in trainer.params.items():
@@ -1295,10 +1663,10 @@ def phase_lstm_train(torch, dev, kernels):
     widths = {k: LSTM[k] for k in ("dict_dim", "emb_dim", "hidden", "classes")}
     tc = flagship_config(**widths)
     tc.opt_config.batch_size = LSTM["batch"]
-    trainer = Trainer(tc, seed=1)                           # device=None: the card
+    trainer = Trainer(tc)                             # the card (--use_tpu)
     batch = example_batch(LSTM["dict_dim"], B=LSTM["batch"], T=LSTM["T"], seed=1, device=dev)
     err_key = next(e.name for e in tc.model_config.evaluators) + ".classification_error"
-    err_before = trainer.test([batch])[err_key]
+    err_before = trainer.test_batches([batch])[err_key]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     zero_counts(kernels)
@@ -1354,7 +1722,7 @@ def phase_lstm_test(torch, dev, kernels, trainer, batch, err_key, err_before):
     torch.cuda.synchronize()
     zero_counts(kernels)
     t0 = time.perf_counter()
-    results = trainer.test(batches)
+    results = trainer.test_batches(batches)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, routes = read_counts(kernels)
@@ -1362,17 +1730,17 @@ def phase_lstm_test(torch, dev, kernels, trainer, batch, err_key, err_before):
     want.update(lstm_fwd=LSTM["test_batches"])
     assert launches == want, (launches, want)
     assert np.isfinite(results["cost"]), results
-    _, batch_profile = profiled(torch, "lstm_test_profile", lambda: trainer.test(batches[:1]))
+    _, batch_profile = profiled(torch, "lstm_test_profile", lambda: trainer.test_batches(batches[:1]))
 
     small = dict(dict_dim=LSTM["dict_dim"], B=LSTM["cpu_batch"], T=LSTM["T"], seed=3)
-    on_card = trainer.test([example_batch(device=dev, **small)])
+    on_card = trainer.test_batches([example_batch(device=dev, **small)])
     cpu = Trainer(trainer.config, device="cpu")
     cpu.params = {k: v.cpu() for k, v in trainer.params.items()}
-    on_cpu = cpu.test([example_batch(device="cpu", **small)])
+    on_cpu = cpu.test_batches([example_batch(device="cpu", **small)])
     cost_err = abs(on_card["cost"] - on_cpu["cost"]) / abs(on_cpu["cost"])
     assert cost_err <= TOL and on_card[err_key] == on_cpu[err_key], (on_card, on_cpu)
 
-    err_after = trainer.test([batch])[err_key]
+    err_after = trainer.test_batches([batch])[err_key]
     assert err_after <= err_before, (err_before, err_after)
     test = {"phase": "lstm_test", "batches": LSTM["test_batches"], "batch": LSTM["batch"],
             "wall_s": wall, "results": results, "kernel_launches": launches, "eager_routes": routes,
@@ -1480,7 +1848,7 @@ def resnet_steps(torch, dev, kernels, mode):
 
     tc = resnet_config(RESNET["layer_num"], RESNET["img_size"], RESNET["classes"])
     tc.opt_config.conv_stats_mode = mode
-    trainer = Trainer(tc, seed=1)                           # device=None: the card
+    trainer = Trainer(tc)                             # the card (--use_tpu)
     batch = make_image_batch(RESNET["batch"], RESNET["img_size"], RESNET["classes"], seed=1,
                              device=dev)
     torch.cuda.synchronize()
@@ -1601,7 +1969,7 @@ def phase_resnet_test(torch, dev, kernels, params_cpu):
 
     tc = resnet_config(RESNET["layer_num"], RESNET["img_size"], RESNET["classes"])
     tc.opt_config.conv_stats_mode = "pallas"
-    trainer = Trainer(tc, seed=1)
+    trainer = Trainer(tc)
     trainer.params = {k: v.to(dev) for k, v in params_cpu.items()}
     shape = dict(img_size=RESNET["img_size"], classes=RESNET["classes"])
     batches = [make_image_batch(RESNET["batch"], seed=20 + i, device=dev, **shape)
@@ -1609,7 +1977,7 @@ def phase_resnet_test(torch, dev, kernels, params_cpu):
     torch.cuda.synchronize()
     zero_counts(kernels)
     t0 = time.perf_counter()
-    results = trainer.test(batches)
+    results = trainer.test_batches(batches)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, routes = read_counts(kernels)
@@ -1617,10 +1985,10 @@ def phase_resnet_test(torch, dev, kernels, params_cpu):
     assert np.isfinite(results["cost"]), results
 
     small = dict(B=RESNET["cpu_batch"], seed=3, **shape)
-    on_card = trainer.test([make_image_batch(device=dev, **small)])
+    on_card = trainer.test_batches([make_image_batch(device=dev, **small)])
     cpu = Trainer(tc, device="cpu")
     cpu.params = params_cpu
-    on_cpu = cpu.test([make_image_batch(device="cpu", **small)])
+    on_cpu = cpu.test_batches([make_image_batch(device="cpu", **small)])
     err_key = next(e.name for e in tc.model_config.evaluators) + ".classification_error"
     cost_err = abs(on_card["cost"] - on_cpu["cost"]) / abs(on_cpu["cost"])
     assert cost_err <= TOL and on_card[err_key] == on_cpu[err_key], (on_card, on_cpu)
@@ -1832,7 +2200,7 @@ def phase_lm_train(torch, dev, kernels):
 
     tc = long_context_config(vocab=LM["vocab"], seq_len=LM["seq_len"], dim=LM["dim"],
                              heads=LM["heads"], blocks=LM["blocks"], batch_size=LM["batch"])
-    trainer = Trainer(tc, seed=1)                           # device=None: the card
+    trainer = Trainer(tc)                             # the card (--use_tpu)
     batch = lm_batch(LM["vocab"], B=LM["batch"], T=LM["seq_len"], seed=1, device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1882,7 +2250,7 @@ def phase_lm_test(torch, dev, kernels, trainer):
     torch.cuda.synchronize()
     zero_counts(kernels)
     t0 = time.perf_counter()
-    results = trainer.test(batches)
+    results = trainer.test_batches(batches)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, routes = read_counts(kernels)
@@ -1892,10 +2260,10 @@ def phase_lm_test(torch, dev, kernels, trainer):
     assert np.isfinite(results["cost"]), results
 
     small = dict(vocab=LM["vocab"], B=LM["cpu_batch"], T=LM["cpu_T"], seed=3)
-    on_card = trainer.test([lm_batch(device=dev, **small)])
+    on_card = trainer.test_batches([lm_batch(device=dev, **small)])
     cpu = Trainer(trainer.config, device="cpu")
     cpu.params = {k: v.cpu() for k, v in trainer.params.items()}
-    on_cpu = cpu.test([lm_batch(device="cpu", **small)])
+    on_cpu = cpu.test_batches([lm_batch(device="cpu", **small)])
     err_key = next(e.name for e in trainer.config.model_config.evaluators) + \
         ".classification_error"
     cost_err = abs(on_card["cost"] - on_cpu["cost"]) / abs(on_cpu["cost"])
@@ -1930,6 +2298,7 @@ def main() -> int:
     k.update(phase_attn_kernels(torch, dev))
     serve = phase_serve(torch, dev, kernels)
     beam = phase_beam(torch, dev, kernels)
+    phase_cli(torch, dev, kernels)
     train = phase_train(torch, dev, kernels)
     lstm_train, trainer, batch, err_key, err_before = phase_lstm_train(torch, dev, kernels)
     lstm_test = phase_lstm_test(torch, dev, kernels, trainer, batch, err_key, err_before)

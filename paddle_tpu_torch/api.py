@@ -14,9 +14,10 @@ the card unless ``device="cpu"`` is asked for.
         nmt_gen_batch(vocab=30000, B=64, T=32, device=machine.device))
     best = results[0][0]          # {"ids": [...], "score": ..., "words"?: [...]}
 
-``initPaddle`` (the flags) and ``DataProviderConverter`` (samples to a
-feed) need ``utils/flags.py`` and ``data/feeder.py``, which come with the
-data-path slice; they raise until then.
+``initPaddle`` parses flags into the port's ``FLAGS`` (``--use_tpu=false``
+puts the machines made afterwards without a ``device`` on the CPU), and
+``DataProviderConverter`` packs samples into a feed with the data path's
+``BatchAssembler``, as the command line's providers do.
 """
 
 from __future__ import annotations
@@ -24,17 +25,19 @@ from __future__ import annotations
 import copy
 import os
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from paddle_tpu_torch.data.feeder import BatchAssembler
 from paddle_tpu_torch.device import DeviceLike
 from paddle_tpu_torch.graph.argument import Argument
 from paddle_tpu_torch.graph.machine import GradientMachine as _CoreMachine
-from paddle_tpu_torch.graph.recurrent_group import beams_of
 from paddle_tpu_torch.proto import ModelConfig
 from paddle_tpu_torch.trainer import checkpoint as ckpt
+from paddle_tpu_torch.trainer.trainer import beam_lists
+from paddle_tpu_torch.utils.flags import FLAGS
 
 __all__ = [
     "initPaddle",
@@ -43,21 +46,26 @@ __all__ = [
     "SequenceGenerator",
 ]
 
-_DATA_PATH = ("is not ported yet: it comes with the data-path slice of paddle_tpu_torch "
-              "(utils/flags.py, data/feeder.py and the command line)")
-
-
 def initPaddle(*args: str) -> None:
-    """Process-level flags (ref: swig_paddle.initPaddle)."""
-    raise NotImplementedError(f"initPaddle {_DATA_PATH}")
+    """Process-level init (ref: swig_paddle.initPaddle). Flags in
+    ``--name=value`` form; unknown names are ignored."""
+    FLAGS.parse(list(args))
 
 
 class DataProviderConverter:
-    """samples -> feed dict of Arguments (ref: py_paddle
-    DataProviderWrapperConverter)."""
+    """samples -> feed dict of Arguments, on the host (ref: py_paddle
+    DataProviderWrapperConverter / dataprovider_converter.py:22-56).
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"DataProviderConverter {_DATA_PATH}")
+    ``input_types`` are the @provider slot declarations; ``slot_names``
+    the data-layer names in config input order. A machine's ``_feed``
+    moves the feed to its device.
+    """
+
+    def __init__(self, input_types: Sequence, slot_names: Sequence[str]):
+        self.assembler = BatchAssembler(input_types, slot_names)
+
+    def __call__(self, samples: List[Sequence[Any]]) -> Dict[str, Argument]:
+        return self.assembler.assemble(samples)
 
 
 def _on(arg: Argument, device: torch.device) -> Argument:
@@ -67,11 +75,13 @@ def _on(arg: Argument, device: torch.device) -> Argument:
 
 class GradientMachine:
     """Machine wrapper with numpy-faced parameters (ref: PaddleAPI.h:626
-    GradientMachine). ``device=None`` means the card; ``"cpu"`` must be
-    asked for."""
+    GradientMachine). ``device=None`` means the card, unless
+    ``initPaddle("--use_tpu=false")`` asked for the CPU."""
 
     def __init__(self, model_config: ModelConfig, params=None, seed: int = 1,
                  device: DeviceLike = None):
+        if device is None and not FLAGS.use_tpu:
+            device = "cpu"
         self._core = _CoreMachine(model_config, device)
         self.device = self._core.device
         self.model_config = model_config
@@ -320,13 +330,11 @@ class SequenceGenerator:
         service_s = time.perf_counter() - t0
         if telemetry:
             self._seen_sigs.add(sig)
-        beam_ids, scores, lens = beams_of(outputs, self.sub.name)
         results = []
-        for b in range(beam_ids.shape[0]):
+        for beams in beam_lists(outputs, self.sub.name):
             sample = []
-            for k in range(beam_ids.shape[1]):
-                ids = [int(i) for i in beam_ids[b, k, : lens[b, k]]]
-                entry: Dict[str, Any] = {"ids": ids, "score": float(scores[b, k])}
+            for score, ids in beams:
+                entry: Dict[str, Any] = {"ids": ids, "score": score}
                 if self.words is not None:
                     entry["words"] = [self.words[i] if 0 <= i < len(self.words) else "<unk>"
                                       for i in ids]

@@ -1,0 +1,145 @@
+"""`paddle` command line of the port — train / test / gen / dump_config /
+version.
+
+Port of ``paddle_tpu/cli.py`` (the role of the reference's TrainerMain and
+its `paddle` shell dispatcher, paddle/trainer/TrainerMain.cpp:35-110): the
+same subcommands, flags (``utils/flags.py``) and log lines. Run it as ``python -m paddle_tpu_torch <cmd> --config=...``;
+``--use_tpu=true`` (the default) trains on the card and fails without one,
+``--use_tpu=false`` on the CPU. The JAX package's other subcommands are
+not ported yet: each exits with code 2, naming the ROADMAP Queue 1 item
+that ports it.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+
+# subcommand -> the ROADMAP Queue 1 item that ports it
+NOT_PORTED = {
+    "serve": 3, "serve-fleet": 3, "serve_fleet": 3, "serve-status": 3, "serve_status": 3,
+    "serve-report": 3, "serve_report": 3,
+    "checkgrad": 7, "merge_model": 7, "check-checkpoint": 7, "check_checkpoint": 7,
+    "metrics": 8, "memory": 8, "roofline": 8, "compare": 8, "trace": 8, "lint": 8, "race": 8,
+    "supervise": 9, "faults": 9,
+}
+
+
+def main(argv=None) -> int:
+    # die quietly when stdout is a closed pipe (`paddle dump_config | head`)
+    import signal
+
+    if hasattr(signal, "SIGPIPE"):
+        signal.signal(signal.SIGPIPE, signal.SIG_DFL)
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if not argv or argv[0] in ("-h", "--help", "help"):
+        print(__doc__)
+        print("usage: python -m paddle_tpu_torch <train|test|gen|dump_config|version> [--flags]")
+        return 0
+    cmd, rest = argv[0], argv[1:]
+    if cmd == "version":
+        return _version()
+    if cmd in ("train", "test", "gen"):
+        return _run_trainer_job(cmd, rest)
+    if cmd == "dump_config":
+        _, config = _setup(rest)
+        print(config.to_json(indent=2))
+        return 0
+    if cmd in NOT_PORTED:
+        print(f"paddle {cmd} is not ported to paddle_tpu_torch yet "
+              f"(ROADMAP Queue 1 item {NOT_PORTED[cmd]})", file=sys.stderr)
+        return 2
+    print(f"unknown command {cmd!r}", file=sys.stderr)
+    return 2
+
+
+def _version() -> int:
+    import torch
+
+    from paddle_tpu_torch.version import __version__
+
+    print(f"paddle_tpu_torch {__version__} (torch {torch.__version__}, CUDA {torch.version.cuda})")
+    names = [torch.cuda.get_device_name(i) for i in range(torch.cuda.device_count())]
+    print(f"devices: {names}" if names else "devices: no CUDA device")
+    return 0
+
+
+def _setup(rest):
+    from paddle_tpu_torch.utils.flags import FLAGS
+
+    leftover = FLAGS.parse(rest)
+    if leftover:
+        print(f"warning: unrecognized flags {leftover}", file=sys.stderr)
+    if FLAGS.fault_spec:
+        # chaos drills: deterministic fault injection at the named sites
+        from paddle_tpu_torch.resilience import faultinject
+
+        faultinject.configure(FLAGS.fault_spec, FLAGS.fault_seed)
+    if FLAGS.coordinator_address:
+        print("error: multi-process training is not ported to paddle_tpu_torch yet "
+              "(ROADMAP Queue 1 item 8)", file=sys.stderr)
+        raise SystemExit(2)
+    from paddle_tpu_torch.config import parse_config
+
+    if not FLAGS.config:
+        print("error: --config is required", file=sys.stderr)
+        raise SystemExit(2)
+    if not os.path.exists(FLAGS.config):
+        print(f"error: config file {FLAGS.config!r} not found", file=sys.stderr)
+        raise SystemExit(2)
+    config = parse_config(FLAGS.config, FLAGS.config_args)
+    return FLAGS, config
+
+
+def _run_trainer_job(cmd, rest) -> int:
+    flags, config = _setup(rest)
+    from paddle_tpu_torch.trainer import Trainer
+
+    trainer = Trainer(config, flags)
+    if cmd == "train":
+        trainer.train()
+    elif cmd == "test":
+        if flags.test_pass >= 0:
+            _test_saved_passes(trainer, flags)
+        else:
+            trainer.test()
+    else:
+        trainer.generate()
+    return 0
+
+
+def _test_saved_passes(trainer, flags) -> None:
+    """Evaluate saved checkpoints pass by pass (ref: Tester; --test_pass
+    with --test_wait polls for passes still being written by a concurrent
+    trainer)."""
+    import time
+
+    from paddle_tpu_torch.trainer import checkpoint as ckpt
+    from paddle_tpu_torch.utils.logging import logger
+
+    save_dir = flags.save_dir or trainer.config.save_dir
+    pass_id = flags.test_pass
+    while pass_id < flags.num_passes:
+        path = os.path.join(save_dir, ckpt.PASS_FMT % pass_id)
+        # a checkpoint is complete once meta.json exists (written last by
+        # save_checkpoint): guards against racing a concurrent trainer
+        if not os.path.exists(os.path.join(path, "meta.json")):
+            newest = ckpt.latest_pass(save_dir)
+            if newest is not None and newest > pass_id:
+                # rotated away by rolling deletion: skip forward
+                logger.warning("pass %d checkpoint rotated away; skipping to %d",
+                               pass_id, newest)
+                pass_id = newest
+                continue
+            if flags.test_wait:
+                time.sleep(5)
+                continue
+            break
+        # a read-side job: load_checkpoint only reads (it never quarantines)
+        trainer.restore(path)
+        trainer.test(pass_id=pass_id)
+        pass_id += 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -13,8 +13,10 @@ records the manifest, and only then renames the directory into place; an
 earlier save of the same pass is removed only after the rename, and old
 passes beyond ``keep`` are rotated away. A load verifies the manifest
 first and raises :class:`~paddle_tpu_torch.resilience.CheckpointCorruptError`
-on a mismatch. The multi-host sharded format (``<tree>.index.json``) and
-the fallback chain to earlier passes are a later slice.
+on a mismatch. :func:`find_restorable_checkpoint` backs
+``--init_model_path=auto``. The multi-host sharded format
+(``<tree>.index.json``) and the fallback chain to earlier passes are a
+later slice.
 """
 
 from __future__ import annotations
@@ -88,7 +90,8 @@ def _is_pass_dir_name(d: str) -> bool:
     return d.startswith("pass-") and d[5:].isdigit()
 
 
-def _save_trees(pass_id: int, params: Params, opt_state: Optional[UpdaterState]):
+def _save_trees(pass_id: int, params: Params, opt_state: Optional[UpdaterState],
+                extra_meta: Optional[Dict[str, Any]] = None):
     """(trees, meta) of one save, in the JAX package's single-host layout."""
     trees: Dict[str, Dict[str, np.ndarray]] = {"params": _flatten(params)}
     meta: Dict[str, Any] = {"pass_id": pass_id, "format_version": 1}
@@ -104,25 +107,31 @@ def _save_trees(pass_id: int, params: Params, opt_state: Optional[UpdaterState])
             "avg_count": float(opt_state.avg_count),
             "avg_old_count": float(opt_state.avg_old_count or 0.0),
         }
+    if extra_meta:
+        meta.update(extra_meta)
     return trees, meta
 
 
 def save_checkpoint(save_dir: str, pass_id: int, params: Params,
-                    opt_state: Optional[UpdaterState] = None, keep: int = 3) -> str:
-    """Save one pass directory atomically; returns its path."""
+                    opt_state: Optional[UpdaterState] = None, keep: int = 3,
+                    extra_meta: Optional[Dict[str, Any]] = None,
+                    protect_pass: Optional[int] = None) -> str:
+    """Save one pass directory atomically; returns its path. ``extra_meta``
+    goes into ``meta.json``; ``protect_pass`` (the pass a run restored
+    from) is never rotated away."""
     final = os.path.join(save_dir, PASS_FMT % pass_id)
     tmp = final + TMP_SUFFIX
     os.makedirs(save_dir, exist_ok=True)
     # a stale .tmp is a crashed earlier attempt at this pass
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
-    trees, meta = _save_trees(pass_id, params, opt_state)
+    trees, meta = _save_trees(pass_id, params, opt_state, extra_meta)
     for base, flat in trees.items():
         _write_file(os.path.join(tmp, f"{base}.npz"), lambda f, _flat=flat: np.savez(f, **_flat))
     _write_file(os.path.join(tmp, "meta.json"), lambda f: json.dump(meta, f, indent=2), mode="w")
     ckpt_manifest.write_manifest(tmp)
     _commit(tmp, final)
-    _rotate(save_dir, keep)
+    _rotate(save_dir, keep, protect_pass)
     logger.info("saved checkpoint %s", final)
     return final
 
@@ -143,16 +152,20 @@ def _commit(tmp: str, final: str) -> None:
         shutil.rmtree(old, ignore_errors=True)
 
 
-def _rotate(save_dir: str, keep: int) -> None:
-    """Rolling deletion of old pass dirs; stale .tmp / .old dirs are swept."""
+def _rotate(save_dir: str, keep: int, protect: Optional[int] = None) -> None:
+    """Rolling deletion of old pass dirs; stale .tmp / .old dirs are swept,
+    but for the .old of ``protect``, which is never rolled away either."""
     names = os.listdir(save_dir)
     for d in names:
         if d.startswith("pass-") and (d.endswith(TMP_SUFFIX) or d.endswith(".old")):
+            if protect is not None and d == (PASS_FMT % protect) + ".old":
+                continue
             shutil.rmtree(os.path.join(save_dir, d), ignore_errors=True)
     if keep <= 0:
         return
     for p in _passes(names)[:-keep]:
-        shutil.rmtree(os.path.join(save_dir, PASS_FMT % p), ignore_errors=True)
+        if p != protect:
+            shutil.rmtree(os.path.join(save_dir, PASS_FMT % p), ignore_errors=True)
 
 
 def has_params_tree(path: str) -> bool:
@@ -182,11 +195,39 @@ def verify_checkpoint(path: str) -> List[str]:
     return problems + ckpt_manifest.verify_dir(path)
 
 
+def find_restorable_checkpoint(save_dir: str) -> Optional[str]:
+    """Newest pass dir under ``save_dir`` that verifies clean, or None.
+    Read-only: corrupt candidates are logged and skipped. The last resort
+    is a ``pass-NNNNN.old`` that a crash between ``_commit``'s two renames
+    left behind (once published, so complete); never a ``.tmp``."""
+    if not os.path.isdir(save_dir):
+        return None
+    names = os.listdir(save_dir)
+    for p in reversed(_passes(names)):
+        path = os.path.join(save_dir, PASS_FMT % p)
+        problems = verify_checkpoint(path)
+        if not problems:
+            return path
+        logger.warning("find_restorable_checkpoint: skipping %s: %s", path, "; ".join(problems))
+    for d in sorted((d for d in names if d.endswith(".old") and _is_pass_dir_name(d[:-4])),
+                    reverse=True):
+        path = os.path.join(save_dir, d)
+        if not verify_checkpoint(path):
+            logger.warning("find_restorable_checkpoint: recovering from torn commit "
+                           "leftover %s", path)
+            return path
+    return None
+
+
 def load_checkpoint(path: str, opt_template: Optional[UpdaterState] = None,
                     device: DeviceLike = None, expected_params: Optional[Params] = None,
+                    missing: str = "fail",
                     ) -> Tuple[Params, Optional[UpdaterState], Dict[str, Any]]:
     """Load params (and the optimizer state, rebuilt onto ``opt_template``)
-    onto ``device`` after verifying the manifest."""
+    onto ``device`` after verifying the manifest. ``missing`` is the
+    reference's --load_missing_parameter_strategy for a parameter of
+    ``expected_params`` the checkpoint lacks: ``fail`` raises, ``rand``
+    keeps the expected (freshly initialised) value, ``zero`` zeros it."""
     path = os.path.normpath(path)
     if not os.path.isdir(path):
         raise FileNotFoundError(f"checkpoint {path} does not exist")
@@ -207,9 +248,12 @@ def load_checkpoint(path: str, opt_template: Optional[UpdaterState] = None,
 
     params = load_tree("params")
     if expected_params is not None:
-        missing = sorted(set(expected_params) - set(params))
-        if missing:
-            raise KeyError(f"parameters {missing} missing from checkpoint {path}")
+        absent = sorted(set(expected_params) - set(params))
+        if absent and missing == "fail":
+            raise KeyError(f"parameters {absent} missing from checkpoint {path}")
+        for name in absent:
+            val = expected_params[name].to(dev)
+            params[name] = torch.zeros_like(val) if missing == "zero" else val
     meta: Dict[str, Any] = {}
     meta_path = os.path.join(path, "meta.json")
     if os.path.exists(meta_path):

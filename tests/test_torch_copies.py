@@ -5,7 +5,9 @@
   exceptions: ``config/config_parser.py`` runs a config under the port's
   own ``paddle`` shim (``paddle_tpu_torch.compat.paddle_shim``) where the
   JAX package puts ``compat/`` on ``sys.path`` (that ``paddle`` resolves to
-  the JAX package), and ``utils/__init__.py`` is the port's own.
+  the JAX package), ``data/binary.py`` keeps the shard format's magic
+  string (``paddle_tpu.bin.v1``, which the rename would change), and
+  ``utils/__init__.py`` is the port's own.
 - No module of the port, and not ``chip_smoke.py``, imports ``jax`` or
   ``paddle_tpu``.
 - The entry points run on the card unless the caller passes
@@ -35,10 +37,14 @@ COPIES = (
     "resilience/__init__.py", "resilience/faultinject.py", "resilience/manifest.py",
     "trainer/evaluators.py",
     "utils/concurrency.py", "utils/logging.py", "utils/error.py", "utils/registry.py",
+    "utils/flags.py", "utils/retry.py", "version.py", "native/__init__.py", "native/datapath.cc",
+    "data/provider.py", "data/datasets.py", "data/binary.py",
 )
-# the one deliberate change to a copy: the port never puts compat/ on
-# sys.path, it binds ``paddle`` to its own shim while a config runs
-CHANGED = {"config/config_parser.py": (
+# the deliberate changes to copies: the port never puts compat/ on
+# sys.path, it binds ``paddle`` to its own shim while a config runs; the
+# binary shards the two packages write are one format
+CHANGED = {"data/binary.py": (('MAGIC = "paddle_tpu_torch.bin.v1"', 'MAGIC = "paddle_tpu.bin.v1"'),),
+           "config/config_parser.py": (
     ("from paddle_tpu_torch.config.builder import",
      "from paddle_tpu_torch.compat import paddle_shim\nfrom paddle_tpu_torch.config.builder import"),
     ('''def _ensure_compat_path() -> None:

@@ -425,7 +425,7 @@ def test_nmt_step_with_long_sources_takes_the_kernels(dev):
     from paddle_tpu_torch.ops import fused_attention_gru as fa
     from paddle_tpu_torch.trainer import Trainer
 
-    trainer = Trainer(nmt_config(vocab=1000, dim=512, batch_size=64), seed=1)
+    trainer = Trainer(nmt_config(vocab=1000, dim=512, batch_size=64))
     batch = nmt_batch(vocab=1000, B=64, T=128, seed=1, device=dev)
     assert batch["source_language_word"].ids.shape[1] == 128
     before = (fa.ATTENTION_GRU_FWD_TRAIN.launches, fa.ATTENTION_GRU_BWD.launches,
@@ -779,9 +779,9 @@ def test_lstm_test_pass_launches_only_the_light_kernel(dev):
     from paddle_tpu_torch.ops import fused_lstm as fl
     from paddle_tpu_torch.trainer import Trainer
 
-    trainer = Trainer(flagship_config(dict_dim=50, emb_dim=8, hidden=16), seed=1)
+    trainer = Trainer(flagship_config(dict_dim=50, emb_dim=8, hidden=16))
     before = [k.launches for k in fl.KERNELS]
-    out = trainer.test([example_batch(50, B=4, T=6, seed=s, device=dev) for s in range(3)])
+    out = trainer.test_batches([example_batch(50, B=4, T=6, seed=s, device=dev) for s in range(3)])
     assert np.isfinite(out["cost"])
     assert [k.launches for k in fl.KERNELS] == [before[0] + 3, before[1], before[2]]
 
@@ -967,12 +967,12 @@ def test_resnet_step_launches_kernel9_for_every_1x1_stride1_conv(dev):
 
     tc = resnet_config(50, 32, 16)
     tc.opt_config.conv_stats_mode = "pallas"
-    trainer = Trainer(tc, seed=1)
+    trainer = Trainer(tc)
     batch = make_image_batch(4, 32, 16, seed=1, device=dev)
     before = fc.CONV1X1_STATS.launches
     loss = trainer.train_one_batch(batch)
     assert fc.CONV1X1_STATS.launches == before + 30 and torch.isfinite(loss)
-    out = trainer.test([batch])
+    out = trainer.test_batches([batch])
     assert fc.CONV1X1_STATS.launches == before + 30 and np.isfinite(out["cost"])
 
 
@@ -1371,7 +1371,7 @@ def test_trainer_generate_on_the_card_writes_its_result_file(dev, tmp_path):
     trainer.params = card.params
     feed = nmt_gen_batch(vocab=BEAM_W["vocab"], B=5, T=10, seed=4, device=dev)
     path = str(tmp_path / "gen_result.txt")
-    batches = trainer.generate([feed], result_file=path)
+    batches = trainer.generate_batches([feed], result_file=path)
     blocks = read_result_file(path)
     want = card.asSequenceGenerator().generate(feed)
     assert [idx for idx, _ in blocks] == [str(b) for b in range(5)]
@@ -1380,3 +1380,65 @@ def test_trainer_generate_on_the_card_writes_its_result_file(dev, tmp_path):
         np.testing.assert_allclose([s for s, _ in beams], [e["score"] for e in sample],
                                    rtol=0, atol=1e-5)
     assert batches[0][1].shape == (5, 3, BEAM_W["max_length"])
+
+
+def test_seqToseq_demo_trains_through_the_command_line_on_the_card(dev, tmp_path):
+    """The seqToseq demo (synthetic mode, width 32) trains pass 1 through
+    the port's command line on the card and on the CPU, both from the
+    pass-00000 that the JAX package's command line wrote
+    (tests/data/seqToseq_w32: `paddle train --config=train.conf
+    --num_passes=1 --use_tpu=false` in demo/seqToseq, train.list ``seed1``,
+    test.list ``seed2``): the pass's test costs within 1e-3 relative, and
+    on the card the training kernels launched with no eager route."""
+    import os
+    import shutil
+
+    from paddle_tpu_torch import cli
+    from paddle_tpu_torch.ops import fused_attention_gru as fa
+    from paddle_tpu_torch.ops import fused_gru as fg
+    from paddle_tpu_torch.trainer import Trainer
+    from paddle_tpu_torch.utils.flags import FLAGS, _Flags
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    for name in ("dataprovider.py", "seqToseq_net.py", "train.conf"):
+        shutil.copy(os.path.join(repo, "demo", "seqToseq", name), tmp_path)
+    (tmp_path / "train.list").write_text("seed1\n")
+    (tmp_path / "test.list").write_text("seed2\n")
+    start = os.path.join(repo, "tests", "data", "seqToseq_w32", "pass-00000")
+    results, test = {}, Trainer.test
+    cwd, saved = os.getcwd(), dict(vars(FLAGS))
+    os.chdir(tmp_path)
+    try:
+        for use_tpu in ("true", "false"):
+            def spy(self, *a, **k):
+                results[use_tpu] = test(self, *a, **k)
+                return results[use_tpu]
+
+            Trainer.test = spy
+            vars(FLAGS).update(vars(_Flags()))
+            kernels = fg.KERNELS + fa.KERNELS
+            for k in kernels:
+                k.launches = 0
+            fg.EAGER_ROUTES = fa.EAGER_ROUTES = 0
+            assert cli.main(["train", "--config=train.conf", "--num_passes=2", "--start_pass=1",
+                             f"--init_model_path={start}", f"--save_dir=out_{use_tpu}",
+                             f"--use_tpu={use_tpu}", "--log_period=0", "--dot_period=0"]) == 0
+            launches = {k.symbol: k.launches for k in kernels}
+            if use_tpu == "true":
+                assert fg.EAGER_ROUTES == fa.EAGER_ROUTES == 0
+                # 300 samples in 19 batches of 16; the test pass 19 more, its
+                # decoder on the group's loop as in the JAX package, whose
+                # decoder template matches in training only
+                # (paddle_tpu/graph/fused_decoder.py:54)
+                assert launches["gru_fwd_train"] == launches["gru_bwd"] == 2 * 19, launches
+                assert launches["attention_gru_fwd_train"] == 19, launches
+                assert launches["gru_fwd"] == 2 * 19 and launches["attention_gru_fwd"] == 0
+            else:
+                assert not any(launches.values()), launches
+    finally:
+        Trainer.test = test
+        vars(FLAGS).update(saved)
+        os.chdir(cwd)
+    card, cpu = results["true"], results["false"]
+    assert np.isfinite(card["cost"])
+    assert abs(card["cost"] - cpu["cost"]) <= 1e-3 * abs(cpu["cost"]), (card, cpu)

@@ -577,7 +577,7 @@ def test_trainer_generate_writes_the_reference_result_file(tmp_path):
     trainer.params = params_from_numpy({k: np.asarray(v) for k, v in jm.params.items()}, "cpu")
     feeds = [_prompt_feeds(n=3, seed=s) for s in (15, 16)]
     path = str(tmp_path / "gen_result.txt")
-    returned = trainer.generate([t for _, t in feeds], result_file=path)
+    returned = trainer.generate_batches([t for _, t in feeds], result_file=path)
     blocks = read_result_file(path)
     jres = [s for j, _ in feeds for s in jm.asSequenceGenerator().generate(j)]
     assert [idx for idx, _ in blocks] == [str(i) for i in range(6)]
@@ -690,10 +690,37 @@ def test_generation_refuses_what_is_not_ported(tmp_path, text, feed, what):
 
 
 def test_the_data_path_pieces_of_the_api_raise():
-    with pytest.raises(NotImplementedError, match="data-path slice"):
-        api.initPaddle("--use_gpu=0")
-    with pytest.raises(NotImplementedError, match="data-path slice"):
-        api.DataProviderConverter([], [])
+    """The API's data-path pieces, refused until the data path was ported,
+    now work as the JAX package's: ``initPaddle`` parses flags (ignoring a
+    name it does not know; ``--use_tpu=false`` puts machines made without
+    a device on the CPU), and ``DataProviderConverter`` packs samples into
+    the JAX package's feed. The converter raises only when the slots do
+    not match the data layers."""
+    from paddle_tpu.data.provider import integer_value as jax_integer_value
+    from paddle_tpu.data.provider import integer_value_sequence as jax_integer_value_sequence
+    from paddle_tpu_torch.data.provider import integer_value, integer_value_sequence
+    from paddle_tpu_torch.utils.flags import FLAGS
+
+    samples = [([3, 4, 5], 1), ([6], 0), ([7, 8], 1)]
+    want = jax_api.DataProviderConverter(
+        [jax_integer_value_sequence(10), jax_integer_value(2)], ["src", "label"])(samples)
+    got = api.DataProviderConverter([integer_value_sequence(10), integer_value(2)],
+                                    ["src", "label"])(samples)
+    for name in ("src", "label"):
+        for field in ("ids", "seq_lengths"):
+            w, g = getattr(want[name], field), getattr(got[name], field)
+            assert (w is None) == (g is None)
+            if w is not None:
+                np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    with pytest.raises(AssertionError, match="slots"):
+        api.DataProviderConverter([integer_value(2)], ["src", "label"])
+    _, ttc = _nmt_configs(3)
+    use_tpu = FLAGS.use_tpu
+    try:
+        api.initPaddle("--use_tpu=false", "--use_gpu=0")
+        assert api.GradientMachine(ttc.model_config).device == torch.device("cpu")
+    finally:
+        FLAGS.use_tpu = use_tpu
 
 
 def test_api_machine_parameters_round_trip(tmp_path):

@@ -186,7 +186,7 @@ def test_test_pass_matches_the_jax_evaluators(monkeypatch):
     monkeypatch.setattr(port_attention, "full_attention", spy)
     trainer = Trainer(long_context_config(), device="cpu")
     trainer.params = params_from_numpy(_np(jparams), "cpu")
-    got = trainer.test([batch for _, batch in pairs])
+    got = trainer.test_batches([batch for _, batch in pairs])
     assert grad_mode == [False] * 4
     assert sorted(got) == sorted(want) == [ERR_KEY, "cost"]
     np.testing.assert_allclose(got["cost"], want["cost"], rtol=1e-5)

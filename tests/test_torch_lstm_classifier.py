@@ -24,6 +24,7 @@ from paddle_tpu_torch.flagship import example_batch, flagship_config
 from paddle_tpu_torch.graph import Argument, GradientMachine
 from paddle_tpu_torch.layers import recurrent as port_recurrent
 from paddle_tpu_torch.trainer import Trainer
+from paddle_tpu_torch.utils.flags import _Flags
 
 torch.set_num_threads(1)
 GRAD_TOL = dict(rtol=5e-4, atol=5e-5)
@@ -152,7 +153,7 @@ def test_test_pass_matches_the_jax_evaluators():
 
     trainer = Trainer(flagship_config(**SMALL), device="cpu")
     trainer.params = params_from_numpy(_np(jparams), "cpu")
-    got = trainer.test([example_batch(50, B=8, T=6, seed=s, device="cpu") for s in range(3)])
+    got = trainer.test_batches([example_batch(50, B=8, T=6, seed=s, device="cpu") for s in range(3)])
     assert sorted(got) == sorted(want) == ["__cost_0__.classification_error.classification_error",
                                            "cost"]
     np.testing.assert_allclose(got["cost"], want["cost"], rtol=1e-5)
@@ -172,7 +173,7 @@ def test_the_test_pass_runs_without_gradients(monkeypatch):
 
     monkeypatch.setattr(port_recurrent, "fused_lstm", spy)
     trainer = Trainer(flagship_config(**SMALL), device="cpu")
-    trainer.test([example_batch(50, B=4, T=6, seed=s, device="cpu") for s in range(2)])
+    trainer.test_batches([example_batch(50, B=4, T=6, seed=s, device="cpu") for s in range(2)])
     assert seen == [False, False]
     trainer.train_one_batch(example_batch(50, B=4, T=6, device="cpu"))
     assert seen == [False, False, True]
@@ -241,17 +242,17 @@ def test_max_pooling_refuses_what_is_not_ported():
 def test_checkpoint_round_trip(tmp_path):
     """pass-00000 saved after two steps and restored into a fresh Trainer:
     parameters and Adam slots equal, and the same test results."""
-    trainer = Trainer(flagship_config(**SMALL), device="cpu", save_dir=str(tmp_path))
+    trainer = Trainer(flagship_config(**SMALL), _Flags(save_dir=str(tmp_path)), device="cpu")
     batch = example_batch(50, B=4, T=6, seed=1, device="cpu")
     for _ in range(2):
         trainer.train_one_batch(batch)
     path = trainer.save(0)
     assert path.endswith("pass-00000")
-    fresh = Trainer(flagship_config(**SMALL), device="cpu", seed=2)
+    fresh = Trainer(flagship_config(**SMALL), _Flags(seed=2), device="cpu")
     fresh.restore(path)
     assert fresh.opt_state.step == trainer.opt_state.step == 2
     for name, p in trainer.params.items():
         assert torch.equal(fresh.params[name], p), name
         for slot, v in trainer.opt_state.slots[name].items():
             assert torch.equal(fresh.opt_state.slots[name][slot], v), (name, slot)
-    assert fresh.test([batch]) == trainer.test([batch])
+    assert fresh.test_batches([batch]) == trainer.test_batches([batch])

@@ -49,6 +49,7 @@ from paddle_tpu_torch.flagship import make_image_batch, resnet_config
 from paddle_tpu_torch.graph import Argument, GradientMachine, make_dense, make_ids, make_seq
 from paddle_tpu_torch.layers import vision
 from paddle_tpu_torch.trainer import Trainer
+from paddle_tpu_torch.utils.flags import _Flags
 
 torch.set_num_threads(1)
 
@@ -441,7 +442,7 @@ def test_test_pass_matches_the_jax_evaluators(tmp_path, monkeypatch):
     trainer = Trainer(tc, device="cpu")
     trainer.params = params_from_numpy(_np(jparams), "cpu")
     kernel = _spy(monkeypatch, vision, "conv1x1_stats")
-    got = trainer.test([_batches(seed)[1] for seed in range(3)])
+    got = trainer.test_batches([_batches(seed)[1] for seed in range(3)])
     assert kernel == []
     assert sorted(got) == sorted(want) == [ERR_KEY, "cost"]
     np.testing.assert_allclose(got["cost"], want["cost"], rtol=1e-5)
@@ -454,7 +455,7 @@ def test_checkpoint_round_trip_keeps_the_moving_statistics(tmp_path):
     included) and every Momentum slot equal, and the same test results."""
     _, tc = _parse_both(tmp_path)
     tc.opt_config.conv_stats_mode = "pallas"
-    trainer = Trainer(tc, device="cpu", save_dir=str(tmp_path / "out"))
+    trainer = Trainer(tc, _Flags(save_dir=str(tmp_path / "out")), device="cpu")
     fresh_stats = {k: v.clone() for k, v in trainer.params.items() if k.endswith((".w1", ".w2"))}
     assert len(fresh_stats) == 10
     batch = _batches(seed=1)[1]
@@ -464,14 +465,14 @@ def test_checkpoint_round_trip_keeps_the_moving_statistics(tmp_path):
         assert not torch.equal(trainer.params[name], v), name
     path = trainer.save(0)
     assert path.endswith("pass-00000")
-    fresh = Trainer(tc, device="cpu", seed=2)
+    fresh = Trainer(tc, _Flags(seed=2), device="cpu")
     fresh.restore(path)
     assert fresh.opt_state.step == trainer.opt_state.step == 2
     for name, p in trainer.params.items():
         assert torch.equal(fresh.params[name], p), name
         for slot, v in trainer.opt_state.slots[name].items():
             assert torch.equal(fresh.opt_state.slots[name][slot], v), (name, slot)
-    assert fresh.test([batch]) == trainer.test([batch])
+    assert fresh.test_batches([batch]) == trainer.test_batches([batch])
 
 
 def test_nhwc_chain_builds_no_flat_values(tmp_path, monkeypatch):

@@ -233,19 +233,31 @@ def test_three_adam_steps_follow_the_jax_loss_curve():
 
 
 def test_train_logs_avg_cost_and_saves_each_pass(tmp_path, caplog):
+    """The pass loop over a provider of 4 batches (a stand-in for the
+    config's, which test_torch_cli.py drives through files): a log line
+    every 2 batches and one at each pass end, a save each pass."""
     from paddle_tpu_torch.trainer import Trainer
+    from paddle_tpu_torch.utils.flags import _Flags
 
-    trainer = Trainer(nmt_config(vocab=30, dim=8, batch_size=2), device="cpu",
-                      save_dir=str(tmp_path), log_period=2)
+    trainer = Trainer(nmt_config(vocab=30, dim=8, batch_size=2),
+                      _Flags(save_dir=str(tmp_path), log_period=2, dot_period=0), device="cpu")
     batches = [nmt_batch(vocab=30, B=2, T=4, seed=s, device="cpu") for s in range(4)]
+
+    class Listed:
+        def batches(self):
+            return iter(batches)
+
+    trainer._provider = lambda for_test, ordered=None: None if for_test else Listed()
     import logging
 
     logger = logging.getLogger("paddle_tpu")
     logger.addHandler(caplog.handler)
     try:
-        costs = trainer.train(2, batches)
+        trainer.train(2)
     finally:
         logger.removeHandler(caplog.handler)
+    done = [r.getMessage() for r in caplog.records if " done: " in r.getMessage()]
+    costs = [float(m.split("AvgCost=")[1].split()[0]) for m in done]
     assert len(costs) == 2 and all(np.isfinite(costs))
     assert sum("AvgCost" in r.getMessage() for r in caplog.records) == 2 * 2 + 2
     assert sorted(p.name for p in tmp_path.iterdir()) == ["pass-00000", "pass-00001"]
