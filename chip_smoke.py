@@ -48,6 +48,31 @@ Phases, each printing one JSON object per line:
              decode step, and a small prefill is checked against the CPU;
              one more serve runs under torch.profiler, with kernel 4's
              device ms per micro-step and kernel 1's per prefill.
+3a. serve_surface — the rest of the serving surface at the serve phase's
+             width, --serve_fused_step on throughout: the JAX chaos tests'
+             seqToseq config (gru_encoder_decoder, is_generating, beam 1)
+             at vocab 30000, dim 512, max length 32, parsed by the port,
+             init_params(seed=1) saved as pass-00000 and seed 2 as
+             pass-00001. In this process, the same 128 requests: plain
+             decode (the reference); speculation ("2,4") equal to it on
+             128 of 128; bf16 slot state within parity_tol (0.05) of it
+             and its stored slot bytes under 0.62x, speculation ("2") over
+             bf16 equal to bf16 plain on 128 of 128, peak memory of f32 at
+             64 slots, bf16 at 64 and at 128; a WeightReloader that swaps
+             in pass-00001 once it lands in the watched dir, the next 16
+             requests equal to a fresh engine's on it and no request
+             dropped. Kernel 1 twice a prefill, kernel 4 at least once a
+             micro-step, 0 eager routes in every run. Then through the
+             command line (python -m paddle_tpu_torch, subprocesses on the
+             card): serve with a journal, a health file and telemetry
+             (answers in order, equal to the in-process reference, 128
+             accepts and 128 done marks, serve-status and serve-report
+             exit 0, TTFT and request latency p50/p99 from the request
+             records), serve-fleet over 2 replicas (the same answers), and
+             supervise --supervise_job=serve with a stall injected into
+             the last cohort (the first 80 requests, so that it holds 16):
+             the hangwatch exits 19, the restart answers the journal, rc 0
+             after exactly two attempts.
 3b. beam   — the third: beam search at the generation model's full width
              (vocab 30000, dim 512, beam_size 3, max_length 32: bench.py's
              bench_nmt_gen), random weights from seed 1, through
@@ -862,6 +887,469 @@ def phase_profile(torch, machine, params, prompts):
           "kernel1_device_ms": k1_ms, "kernel1_device_ms_per_prefill": k1_ms / prefills,
           "kernel1_share_of_device_ms": k1_ms / summary["device_ms"],
           "kernel4_share_of_device_ms": k4_ms / summary["device_ms"]})
+
+
+# the rest of the serving surface (the serve_surface phase): the JAX chaos
+# tests' seqToseq config (tests/test_serve_resilience.py SERVE_CONFIG) at
+# the serve phase's full width
+SURFACE_CONFIG = """
+import sys
+sys.path.insert(0, {demo!r})
+from paddle.trainer_config_helpers import *
+from seqToseq_net import gru_encoder_decoder
+
+settings(batch_size=2, learning_rate=1e-3, learning_method=AdamOptimizer())
+gru_encoder_decoder(source_dict_dim={vocab}, target_dict_dim={vocab},
+                    is_generating=True, word_vector_dim={dim},
+                    encoder_size={dim}, decoder_size={dim}, beam_size=1,
+                    max_length={max_length})
+"""
+SURFACE = dict(spec="2,4", spec_bf16="2", reload_requests=16, reload_poll_s=0.05,
+               hang_timeout=3, supervised_requests=80, stall_at=56, cli_timeout=300)
+
+
+def surface_engine(torch, dev, kernels, machine, params, prompts, name, slots=None, **kw):
+    """One in-process serve of ``prompts`` between zeroed counts: every
+    request ok, kernel 1 twice a prefill, kernel 4 at least once a
+    micro-step, 0 eager routes. Returns the streams, the run's line and
+    the engine."""
+    from paddle_tpu_torch.serving.frontend import build_engine
+
+    engine = build_engine(machine, params, slots=slots or FULL["slots"],
+                          prompt_tokens=FULL["prompt_tokens"], fused_step=True, **kw).start()
+    backend = engine._backend
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts(kernels)
+    backend.prefill_launches = backend.decode_microsteps = backend.verify_launches = 0
+    t0 = time.perf_counter()
+    out = run_requests(engine, prompts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, routes = read_counts(kernels)
+    assert all(r.outcome == "ok" and r.tokens for r in out), \
+        [(r.rid, r.outcome, r.error) for r in out if r.outcome != "ok" or not r.tokens]
+    prefills, microsteps = backend.prefill_launches, backend.decode_microsteps
+    assert prefills > 0 and launches["gru_fwd"] == 2 * prefills, (name, launches, prefills)
+    assert launches["attention_gru_fwd"] >= microsteps > 0, (name, launches, microsteps)
+    assert not any(launches[n] for n in TRAIN_KERNELS + LSTM_KERNELS), launches
+    tokens = sum(len(r.tokens) for r in out)
+    line = {"run": name, "slots": backend.slots, "slot_dtype": backend.slot_dtype,
+            "spec": ",".join(map(str, backend.spec_blocks)) or "0", "wall_s": wall,
+            "tokens": tokens, "tokens_per_s": tokens / wall,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
+            "slot_state_bytes": backend.slot_state_bytes(), "prefill_launches": prefills,
+            "decode_microsteps": microsteps, "verify_launches": backend.verify_launches,
+            "kernel1_launches": launches["gru_fwd"],
+            "kernel4_launches": launches["attention_gru_fwd"], "spec_ema": engine._spec_ema}
+    window = engine.window_roll()                      # the run's serve_window record
+    line.update({k: window.get(k) for k in ("spec_proposed", "spec_accepted", "accept_rate",
+                                            "queue_wait_share")})
+    line.update({f"{k}_ms": {q: 1e3 * window[k][q] for q in ("p50", "p99")}
+                 for k in ("ttft", "latency")})
+    return [r.tokens for r in out], line, engine
+
+
+def verify_drive(torch, dev, kernels, machine, params, prompts, ref, slot_dtype, k=4):
+    """The verify launch over one full admission of the first ``slots``
+    prompts: each launch, every live slot drafts the next ``k`` tokens of
+    its reference stream ``ref``, wrong at position (slot + launch) mod
+    (k + 1) (k: nowhere), until every slot has finished. Every slot's
+    emitted stream must equal its reference; kernel 4 at least once a
+    micro-step, 0 eager routes."""
+    from paddle_tpu_torch.observability.serving import Request
+    from paddle_tpu_torch.serving.torch_backend import TorchDecodeBackend
+
+    S, vocab = FULL["slots"], FULL["vocab"]
+    backend = TorchDecodeBackend(machine, params, slots=S, prompt_tokens=FULL["prompt_tokens"],
+                                 fused_step=True, spec_tokens=str(k), slot_dtype=slot_dtype)
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    backend.admit(list(range(S)), [Request(rid=f"v{b}", t_enqueue=0.0, prompt=prompts[b])
+                                   for b in range(S)], [FULL["max_length"]] * S)
+    got, done = [[] for _ in range(S)], [False] * S
+    proposed = accepted = 0
+    while not all(done):
+        draft = {}
+        for b in range(S):
+            want = ref[b][len(got[b]):len(got[b]) + k]
+            if done[b] or not want:
+                continue
+            d = list(want)
+            wrong = (b + backend.verify_launches) % (k + 1)
+            if wrong < len(d):
+                d[wrong] = (d[wrong] + 1) % vocab
+            draft[b] = d
+        out = backend.step(draft=draft)
+        for b in range(S):
+            emitted = [int(out.tokens[u, b]) for u in range(out.tokens.shape[0])
+                       if out.live[u, b]]
+            if b in draft:
+                proposed += len(draft[b])
+                accepted += next((i for i, (x, y) in enumerate(zip(emitted, draft[b])) if x != y),
+                                 min(len(emitted), len(draft[b])))
+            got[b] += emitted
+            done[b] = done[b] or bool(out.finished[b])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, _ = read_counts(kernels)
+    assert launches["attention_gru_fwd"] >= backend.decode_microsteps > 0, launches
+    assert launches["gru_fwd"] == 2, launches
+    return {"run": f"verify_drive_{slot_dtype}", "slots": S, "k": k, "wall_s": wall,
+            "verify_launches": backend.verify_launches,
+            "decode_microsteps": backend.decode_microsteps,
+            "kernel4_launches": launches["attention_gru_fwd"], "drafted": proposed,
+            "accepted": accepted, "tokens": sum(map(len, got)),
+            "identical": sum(g == r for g, r in zip(got, ref)),
+            "first_difference": first_difference(got, ref[:S])}
+
+
+def first_difference(a, b):
+    """(request, token) of the first place two sets of streams part, or None."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i, next((j for j, (u, v) in enumerate(zip(x, y)) if u != v), min(len(x), len(y)))
+    return None
+
+
+def cli_child(argv, cwd, stdin="", timeout=None):
+    """One ``python -m paddle_tpu_torch`` process on the card; returns
+    (completed process, wall seconds)."""
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "paddle_tpu_torch", *argv], input=stdin,
+                         capture_output=True, text=True, cwd=cwd, env=env,
+                         timeout=timeout or SURFACE["cli_timeout"])
+    return out, time.perf_counter() - t0
+
+
+def cli_answers(stdout):
+    return [d for d in (json.loads(l) for l in stdout.splitlines() if l.strip().startswith("{"))
+            if "outcome" in d]
+
+
+def cli_serve(argv, cwd, stdin, ids, ref):
+    """A serve or serve-fleet process over ``stdin``: rc 0, one ok answer per
+    id in submission order. Returns its line, with how many streams equal
+    ``ref``, the in-process reference."""
+    out, wall = cli_child(argv, cwd, stdin)
+    assert out.returncode == 0, (argv[0], out.returncode, out.stderr[-3000:])
+    got = cli_answers(out.stdout)
+    assert [d["id"] for d in got] == ids, [d["id"] for d in got][:8]
+    assert all(d["outcome"] == "ok" for d in got), got[:2]
+    streams = [d["tokens"] for d in got]
+    tokens = sum(map(len, streams))
+    return {"wall_s": wall, "tokens": tokens, "tokens_per_s": tokens / wall,
+            "identical_to_in_process": sum(a == b for a, b in zip(streams, ref)),
+            "first_difference": first_difference(streams, ref)}
+
+
+def request_latency_ms(run_dir):
+    """TTFT and request latency, p50 and p99 in ms, over a run's ok
+    ``kind=request`` records."""
+    from paddle_tpu_torch.observability.analyze import load_run
+
+    recs = [r for rs in load_run(run_dir).values() for r in rs
+            if r.get("kind") == "request" and r.get("outcome") == "ok"]
+
+    def ms(key):
+        v = 1e3 * np.asarray([r[key] for r in recs], dtype=np.float64)
+        return {"p50": float(np.percentile(v, 50)), "p99": float(np.percentile(v, 99))}
+
+    return {"requests_recorded": len(recs), "ttft_ms": ms("ttft_s"), "latency_ms": ms("e2e_s")}
+
+
+def phase_serve_surface(torch, dev, kernels):
+    """The rest of the serving surface at full width: speculation, bf16
+    slot state and hot reload in this process, then serve, serve-fleet,
+    serve-status, serve-report and a supervised stall through the
+    command line, each held to the in-process reference."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch.config import parse_config
+    from paddle_tpu_torch.flagship import nmt_gen_spread_params
+    from paddle_tpu_torch.graph import GradientMachine
+    from paddle_tpu_torch.observability import metrics as obsm
+    from paddle_tpu_torch.observability import serving as slog
+    from paddle_tpu_torch.observability.analyze import load_run
+    from paddle_tpu_torch.serving.frontend import build_engine
+    from paddle_tpu_torch.serving.resilience import SERVE_HANG_REPORT, WeightReloader
+    from paddle_tpu_torch.trainer import checkpoint as ckpt
+
+    t_phase = time.perf_counter()
+    ws = tempfile.mkdtemp(prefix="serve_surface_")
+    demo = os.path.join(os.path.dirname(os.path.abspath(__file__)), "demo", "seqToseq")
+    conf = os.path.join(ws, "serve_full.conf")
+    with open(conf, "w") as f:
+        f.write(SURFACE_CONFIG.format(demo=demo, vocab=FULL["vocab"], dim=FULL["dim"],
+                                      max_length=FULL["max_length"]))
+    config = parse_config(conf)
+    machine = GradientMachine(config.model_config)                 # the card
+    params0 = machine.init_params(seed=1)
+    params1 = machine.init_params(seed=2)
+    pass0 = ckpt.save_checkpoint(os.path.join(ws, "ckpt0"), 0, params0)
+    pass1 = ckpt.save_checkpoint(os.path.join(ws, "ckpt1"), 1, params1)
+    rng = np.random.RandomState(1)
+    prompts = [rng.randint(2, FULL["vocab"], size=rng.randint(8, 33)).tolist()
+               for _ in range(N_REQUESTS)]
+    runs = {}
+
+    # ---- in process: the reference, speculation, bf16 slot state
+    ref, runs["plain_f32"], _ = surface_engine(torch, dev, kernels, machine, params0, prompts,
+                                               "plain_f32")
+    # the same serve with the request telemetry on (a record appended to
+    # the run dir per request): what the command line's --metrics_path costs
+    tel_dir = os.path.join(ws, "telemetry_run")
+    obsm.configure(tel_dir)
+    try:
+        tel, runs["plain_f32_telemetry"], _ = surface_engine(torch, dev, kernels, machine,
+                                                             params0, prompts,
+                                                             "plain_f32_telemetry")
+    finally:
+        obsm.flush()
+        obsm.configure("")
+    runs["plain_f32_telemetry"]["identical"] = sum(a == b for a, b in zip(tel, ref))
+    # speculation as a server starts it, with its draft table cold; its
+    # telemetry feeds serve-report
+    run_dir = os.path.join(ws, "spec_run")
+    obsm.configure(run_dir)
+    try:
+        spec, runs["spec_f32"], _ = surface_engine(torch, dev, kernels, machine, params0,
+                                                   prompts, "spec_f32",
+                                                   spec_tokens=SURFACE["spec"])
+    finally:
+        obsm.flush()
+        obsm.configure("")
+    runs["spec_f32"]["serve_report"] = [
+        l for l in slog.format_report(slog.serve_doc(load_run(run_dir))).splitlines()
+        if "accept" in l or l.strip().startswith("0 ")]
+    bf16, runs["plain_bf16"], _ = surface_engine(torch, dev, kernels, machine, params0, prompts,
+                                                 "plain_bf16", slot_dtype="bf16")
+    spec16, runs["spec_bf16"], _ = surface_engine(torch, dev, kernels, machine, params0, prompts,
+                                                  "spec_bf16", slot_dtype="bf16",
+                                                  spec_tokens=SURFACE["spec_bf16"])
+    # the engine turns speculation off once its drafts miss (at these
+    # weights after one verify launch), so the verify launch is also driven
+    # directly over a full admission: every slot drafts its own reference
+    # continuation, wrong at a position that moves from slot to slot and
+    # launch to launch
+    runs["verify_drive_f32"] = verify_drive(torch, dev, kernels, machine, params0, prompts, ref,
+                                            "f32")
+    runs["verify_drive_bf16"] = verify_drive(torch, dev, kernels, machine, params0, prompts,
+                                             bf16, "bf16")
+    _, runs["plain_bf16_128_slots"], _ = surface_engine(torch, dev, kernels, machine, params0,
+                                                        prompts, "plain_bf16_128_slots",
+                                                        slots=2 * FULL["slots"],
+                                                        slot_dtype="bf16")
+    for name, got, want in (("spec_f32", spec, ref), ("spec_bf16", spec16, bf16)):
+        runs[name].update(identical=sum(a == b for a, b in zip(got, want)),
+                          first_difference=first_difference(got, want))
+
+    def differing(a, b):
+        """Tokens of ``a`` that differ from ``b``, stream by stream: the
+        positions that differ, and the tokens one stream has past the
+        other's end (eos can end two streams at other lengths)."""
+        return sum(sum(x != y for x, y in zip(u, v)) + abs(len(u) - len(v))
+                   for u, v in zip(a, b))
+
+    # bf16 against f32 storage: at init_params' scale every log-probability
+    # lies within ~2e-5 of -ln(vocab), so the carry's rounding flips argmax
+    # near-ties and a flipped stream parts for good (as for beam search,
+    # phase 3b); measured here, and held to parity_tol at
+    # nmt_gen_spread_params' weights, whose log-probabilities spread as a
+    # trained model's
+    spread = nmt_gen_spread_params(params0, config.model_config)
+    ref_s, runs["plain_f32_spread"], _ = surface_engine(torch, dev, kernels, machine, spread,
+                                                        prompts, "plain_f32_spread")
+    bf16_s, runs["plain_bf16_spread"], _ = surface_engine(torch, dev, kernels, machine, spread,
+                                                          prompts, "plain_bf16_spread",
+                                                          slot_dtype="bf16")
+    n_tokens = runs["plain_f32"]["tokens"]
+    bf16_check = {"parity_tol": PARITY_TOL,
+                  "init_params": {"tokens_differing": differing(bf16, ref), "tokens": n_tokens,
+                                  "share": differing(bf16, ref) / n_tokens,
+                                  "streams_identical": sum(a == b for a, b in zip(bf16, ref))},
+                  "spread_params": {"tokens_differing": differing(bf16_s, ref_s),
+                                    "tokens": runs["plain_f32_spread"]["tokens"],
+                                    "share": (differing(bf16_s, ref_s)
+                                              / runs["plain_f32_spread"]["tokens"]),
+                                    "streams_identical": sum(a == b for a, b in
+                                                             zip(bf16_s, ref_s))},
+                  "slot_state_bytes_f32": runs["plain_f32"]["slot_state_bytes"],
+                  "slot_state_bytes_bf16": runs["plain_bf16"]["slot_state_bytes"],
+                  "slot_bytes_ratio": (runs["plain_bf16"]["slot_state_bytes"]
+                                       / runs["plain_f32"]["slot_state_bytes"]),
+                  "peak_memory_bytes": {"f32_64_slots": runs["plain_f32"]["peak_memory_bytes"],
+                                        "bf16_64_slots": runs["plain_bf16"]["peak_memory_bytes"],
+                                        "bf16_128_slots":
+                                            runs["plain_bf16_128_slots"]["peak_memory_bytes"]}}
+    emit({"phase": "serve_surface_engine", "runs": runs, "bf16": bf16_check})
+    assert runs["plain_f32_telemetry"]["identical"] == N_REQUESTS, runs["plain_f32_telemetry"]
+    for name in ("spec_f32", "spec_bf16"):
+        assert runs[name]["identical"] == N_REQUESTS, (name, runs[name]["first_difference"])
+        assert runs[name]["verify_launches"] > 0, name
+    for name in ("verify_drive_f32", "verify_drive_bf16"):
+        assert runs[name]["identical"] == FULL["slots"], (name, runs[name]["first_difference"])
+    assert bf16_check["spread_params"]["share"] <= PARITY_TOL, bf16_check
+    assert bf16_check["slot_bytes_ratio"] < 0.62, bf16_check
+    same_spec, same_spec16 = runs["spec_f32"]["identical"], runs["spec_bf16"]["identical"]
+    bf16_diff = bf16_check["init_params"]["tokens_differing"]
+
+    # ---- in process: hot reload of pass-00001 from a watched dir
+    from paddle_tpu_torch import api
+
+    n_new = SURFACE["reload_requests"]
+    fresh, runs["fresh_pass1"], _ = surface_engine(torch, dev, kernels, machine, params1,
+                                                   prompts[:n_new], "fresh_pass1")
+    engine = build_engine(machine, params0, slots=FULL["slots"],
+                          prompt_tokens=FULL["prompt_tokens"], fused_step=True).start()
+    loader = api.GradientMachine(config.model_config, device=dev)
+
+    def load(path):
+        loader.loadParameters(path)
+        return loader.params
+
+    watch = os.path.join(ws, "watch")
+    os.makedirs(watch)
+    reloader = WeightReloader(watch, engine, load, interval_s=SURFACE["reload_poll_s"]).start()
+    backend = engine._backend
+    zero_counts(kernels)
+    backend.prefill_launches = backend.decode_microsteps = 0
+    t0 = time.perf_counter()
+    staged = os.path.join(ws, "staged")
+    shutil.copytree(pass1, staged)
+    os.rename(staged, os.path.join(watch, os.path.basename(pass1)))   # lands at once
+    # requests keep arriving until the swap has landed, topped up to two
+    # waves of slots in flight, so that some are in flight across it
+    before, deadline = [], time.perf_counter() + 120.0
+    while engine.status()["reloads"] < 1:
+        assert time.perf_counter() < deadline, "the reload never landed"
+        waiting = sum(not f.done() for f in before[-4 * FULL["slots"]:])
+        before += [engine.submit(prompts[(len(before) + j) % N_REQUESTS],
+                                 rid=f"pre{len(before) + j}")
+                   for j in range(max(2 * FULL["slots"] - waiting, 0))]
+        time.sleep(0.005)
+    t_swap = time.perf_counter() - t0
+    in_flight_at_swap = sum(not f.done() for f in before)
+    after = [engine.submit(p, rid=f"post{i}") for i, p in enumerate(prompts[:n_new])]
+    pre = [f.result(timeout=600.0) for f in before]
+    post = [f.result(timeout=600.0) for f in after]
+    reloader.stop()
+    assert engine.drain(timeout=120.0)
+    launches, routes = read_counts(kernels)
+    assert launches["gru_fwd"] == 2 * backend.prefill_launches > 0, launches
+    assert launches["attention_gru_fwd"] >= backend.decode_microsteps > 0, launches
+    reload_line = {"swap_s": t_swap, "submitted_before_swap": len(before),
+                   "in_flight_at_swap": in_flight_at_swap,
+                   "pre_ok": sum(r.outcome == "ok" and bool(r.tokens) for r in pre),
+                   "post_identical_to_fresh": sum(r.tokens == t for r, t in zip(post, fresh)),
+                   "reloads": engine.status()["reloads"], "reload_tag": engine.status()["reload_tag"],
+                   "kernel1_launches": launches["gru_fwd"],
+                   "kernel4_launches": launches["attention_gru_fwd"]}
+    emit({"phase": "serve_surface_reload", **reload_line})
+    assert reload_line["pre_ok"] == len(before) and in_flight_at_swap > 0, reload_line
+    assert all(r.outcome == "ok" for r in post), [r.outcome for r in post]
+    assert reload_line["post_identical_to_fresh"] == n_new, reload_line
+    assert reload_line["reloads"] == 1, reload_line
+
+    # ---- through the command line, on the card
+    stdin = "".join(json.dumps({"id": f"r{i}", "prompt": p}) + "\n"
+                    for i, p in enumerate(prompts))
+    ids = [f"r{i}" for i in range(N_REQUESTS)]
+    model = ["--use_tpu=true", "--config=serve_full.conf", f"--init_model_path={pass0}",
+             f"--serve_slots={FULL['slots']}", f"--serve_prompt_tokens={FULL['prompt_tokens']}",
+             "--serve_fused_step=true"]
+    journal = os.path.join(ws, "journal.jsonl")
+    status = os.path.join(ws, "status.json")
+    metrics = os.path.join(ws, "serve_run")
+    serve_line = cli_serve(["serve", *model, f"--serve_journal_path={journal}",
+                            f"--status_path={status}", f"--metrics_path={metrics}"],
+                           ws, stdin, ids, ref)
+    recs = [json.loads(l) for l in open(journal) if l.strip()]
+    st_out, _ = cli_child(["serve-status", status], ws)
+    rep_out, _ = cli_child(["serve-report", metrics], ws)
+    serve_line.update(journal_accepts=sum(r.get("op") == "accept" for r in recs),
+                      journal_done=sum(r.get("op") == "done" for r in recs),
+                      serve_status_rc=st_out.returncode, serve_report_rc=rep_out.returncode,
+                      serve_report=rep_out.stdout.splitlines()[:4], **request_latency_ms(metrics))
+    emit({"phase": "serve_surface_cli_serve", **serve_line})
+    assert serve_line["identical_to_in_process"] == N_REQUESTS, serve_line
+    assert serve_line["journal_accepts"] == serve_line["journal_done"] == N_REQUESTS, serve_line
+    assert st_out.returncode == 0 and rep_out.returncode == 0, (st_out.stderr[-2000:],
+                                                               rep_out.stderr[-2000:])
+    assert serve_line["requests_recorded"] == N_REQUESTS, serve_line
+
+    # the same serve with the telemetry alone (no journal, no health file):
+    # what the journal's durable appends cost the latency
+    metrics_nj = os.path.join(ws, "serve_run_no_journal")
+    nj_line = cli_serve(["serve", *model, f"--metrics_path={metrics_nj}"], ws, stdin, ids, ref)
+    nj_line.update(request_latency_ms(metrics_nj))
+    emit({"phase": "serve_surface_cli_serve_no_journal", **nj_line})
+    assert nj_line["identical_to_in_process"] == N_REQUESTS, nj_line
+
+    fleet_line = cli_serve(["serve-fleet", *model, "--fleet_replicas=2",
+                            f"--fleet_status_dir={os.path.join(ws, 'fleet')}"],
+                           ws, stdin, ids, ref)
+    fleet_line.update(replicas=2, serve_wall_s=serve_line["wall_s"])
+    emit({"phase": "serve_surface_cli_fleet", **fleet_line})
+    assert fleet_line["identical_to_in_process"] == N_REQUESTS, fleet_line
+
+    n_sup = SURFACE["supervised_requests"]
+    sup_ids = ids[:n_sup]
+    save_dir, sup_dir = os.path.join(ws, "sup_out"), os.path.join(ws, "sup")
+    out, sup_wall = cli_child(
+        ["supervise", "--supervise_job=serve", *model, f"--save_dir={save_dir}",
+         f"--supervise_dir={sup_dir}",
+         f"--serve_journal_path={os.path.join(ws, 'sup_journal.jsonl')}",
+         f"--serve_hang_timeout={SURFACE['hang_timeout']}", "--restart_base_delay=0.01",
+         f"--fault_spec=serve.stall=sleep:3600@{SURFACE['stall_at']}"],
+        ws, "".join(stdin.splitlines(keepends=True)[:n_sup]))
+    assert out.returncode == 0, ("supervise", out.returncode, out.stderr[-3000:])
+    report = json.load(open(os.path.join(save_dir, SERVE_HANG_REPORT)))
+    wedged = [s["rid"] for s in report["inflight"]["slots"] if s]
+    logs = sorted(n for n in os.listdir(sup_dir) if n.startswith("attempt-"))
+    by_attempt = []
+    for name in logs:
+        answered = {}
+        for d in cli_answers(open(os.path.join(sup_dir, name)).read()):
+            if d["id"] in sup_ids:
+                assert d["id"] not in answered, (d["id"], "answered twice in", name)
+                answered[d["id"]] = d["outcome"]
+        by_attempt.append(answered)
+    first = by_attempt[0]
+    second = by_attempt[1] if len(by_attempt) > 1 else {}
+    unanswered = set(sup_ids) - set(first)
+    sup_line = {"wall_s": sup_wall, "attempts": len(logs), "requests": n_sup,
+                "stall_at_boundary": SURFACE["stall_at"], "hang_reason": report["reason"],
+                "wedged": len(wedged), "wedged_in_last_cohort": set(wedged) <= set(sup_ids[-16:]),
+                "first_attempt": {o: list(first.values()).count(o) for o in set(first.values())},
+                "left_unanswered": len(unanswered),
+                "second_attempt": {o: list(second.values()).count(o) for o in set(second.values())}}
+    emit({"phase": "serve_surface_cli_supervise", **sup_line})
+    assert logs == ["attempt-000.log", "attempt-001.log"], logs
+    assert report["reason"] == "serve_hang" and wedged, report.get("inflight")
+    assert set(wedged) <= set(sup_ids), wedged
+    assert set(first) | set(second) == set(sup_ids), (len(first), len(second))
+    assert unanswered <= set(second) and all(second[r] == "ok" for r in unanswered), sup_line
+    assert all(o in ("ok", "error") for o in first.values()), sup_line
+    assert all(first[r] == "error" for r in wedged if r in first), sup_line
+
+    shutil.rmtree(ws, ignore_errors=True)
+    surface = {"phase": "serve_surface", "phase_s": time.perf_counter() - t_phase,
+               "spec_identical": same_spec, "spec_bf16_identical": same_spec16,
+               "verify_drive_launches": [runs["verify_drive_f32"]["verify_launches"],
+                                         runs["verify_drive_bf16"]["verify_launches"]],
+               "bf16_tokens_differing_at_init_params": bf16_diff,
+               "bf16_tokens_differing_at_spread_params":
+                   bf16_check["spread_params"]["tokens_differing"], "reload": reload_line,
+               "cli_serve_wall_s": serve_line["wall_s"], "cli_fleet_wall_s": fleet_line["wall_s"],
+               "cli_supervise_wall_s": sup_wall, "ttft_ms": serve_line["ttft_ms"],
+               "latency_ms": serve_line["latency_ms"],
+               "ttft_ms_without_journal": nj_line["ttft_ms"],
+               "latency_ms_without_journal": nj_line["latency_ms"]}
+    emit(surface)
+    return surface
 
 
 def profiled(torch, phase, fn, top: int = 12):
@@ -2297,6 +2785,7 @@ def main() -> int:
     k.update(phase_conv_kernels(torch, dev))
     k.update(phase_attn_kernels(torch, dev))
     serve = phase_serve(torch, dev, kernels)
+    phase_serve_surface(torch, dev, kernels)
     beam = phase_beam(torch, dev, kernels)
     phase_cli(torch, dev, kernels)
     train = phase_train(torch, dev, kernels)

@@ -1,4 +1,4 @@
-"""``python -m paddle_tpu_torch <train|test|gen|dump_config|version> --flags``."""
+"""``python -m paddle_tpu_torch <command> --flags`` (see ``paddle_tpu_torch/cli.py``)."""
 
 import sys
 

@@ -1,10 +1,12 @@
-"""`paddle` command line of the port — train / test / gen / dump_config /
+"""`paddle` command line of the port — train / test / gen / serve /
+serve-fleet / serve-status / serve-report / supervise / dump_config /
 version.
 
 Port of ``paddle_tpu/cli.py`` (the role of the reference's TrainerMain and
 its `paddle` shell dispatcher, paddle/trainer/TrainerMain.cpp:35-110): the
-same subcommands, flags (``utils/flags.py``) and log lines. Run it as ``python -m paddle_tpu_torch <cmd> --config=...``;
-``--use_tpu=true`` (the default) trains on the card and fails without one,
+same subcommands, flags (``utils/flags.py``), log lines, JSONL lines and
+exit codes. Run it as ``python -m paddle_tpu_torch <cmd> --config=...``;
+``--use_tpu=true`` (the default) runs on the card and fails without one,
 ``--use_tpu=false`` on the CPU. The JAX package's other subcommands are
 not ported yet: each exits with code 2, naming the ROADMAP Queue 1 item
 that ports it.
@@ -17,11 +19,9 @@ import sys
 
 # subcommand -> the ROADMAP Queue 1 item that ports it
 NOT_PORTED = {
-    "serve": 3, "serve-fleet": 3, "serve_fleet": 3, "serve-status": 3, "serve_status": 3,
-    "serve-report": 3, "serve_report": 3,
     "checkgrad": 7, "merge_model": 7, "check-checkpoint": 7, "check_checkpoint": 7,
     "metrics": 8, "memory": 8, "roofline": 8, "compare": 8, "trace": 8, "lint": 8, "race": 8,
-    "supervise": 9, "faults": 9,
+    "faults": 9,
 }
 
 
@@ -34,17 +34,43 @@ def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] in ("-h", "--help", "help"):
         print(__doc__)
-        print("usage: python -m paddle_tpu_torch <train|test|gen|dump_config|version> [--flags]")
+        print("usage: python -m paddle_tpu_torch <train|supervise|test|gen|serve|serve-fleet|"
+              "serve-status|serve-report|dump_config|version> [--flags]")
         return 0
     cmd, rest = argv[0], argv[1:]
     if cmd == "version":
         return _version()
     if cmd in ("train", "test", "gen"):
         return _run_trainer_job(cmd, rest)
+    if cmd == "supervise":
+        return _supervise(rest)
     if cmd == "dump_config":
         _, config = _setup(rest)
         print(config.to_json(indent=2))
         return 0
+    if cmd == "serve":
+        # continuous-batching generation server: stdin JSONL (or
+        # --listen), SIGTERM = graceful drain
+        from paddle_tpu_torch.serving.frontend import main as serve_main
+
+        return serve_main(rest)
+    if cmd in ("serve-fleet", "serve_fleet"):
+        # the router over --fleet_replicas `paddle serve` children; it
+        # never touches the card, the replicas own it
+        from paddle_tpu_torch.serving.fleet import main as fleet_main
+
+        return fleet_main(rest)
+    if cmd in ("serve-status", "serve_status"):
+        # render a `paddle serve --status_path` health snapshot
+        from paddle_tpu_torch.serving.resilience import status_main
+
+        return status_main(rest)
+    if cmd in ("serve-report", "serve_report"):
+        # the per-offered-load serving report over a run's request and
+        # serve_window records
+        from paddle_tpu_torch.observability.serving import main as serve_report_main
+
+        return serve_report_main(rest)
     if cmd in NOT_PORTED:
         print(f"paddle {cmd} is not ported to paddle_tpu_torch yet "
               f"(ROADMAP Queue 1 item {NOT_PORTED[cmd]})", file=sys.stderr)
@@ -62,6 +88,29 @@ def _version() -> int:
     names = [torch.cuda.get_device_name(i) for i in range(torch.cuda.device_count())]
     print(f"devices: {names}" if names else "devices: no CUDA device")
     return 0
+
+
+def _supervise(rest) -> int:
+    """`paddle supervise <flags>` — run `paddle train` (or, with
+    `--supervise_job=serve`, `paddle serve`) as a supervised child:
+    restart with backoff on a nonzero exit (bounded by --restart_budget;
+    train children resume via `--init_model_path=auto`, serve children
+    re-offer their `--serve_journal_path` queue themselves), stop with a
+    JSON crash report on a crash loop, forward SIGTERM. The supervisor
+    never touches the card, so it parses the flags without `_setup` and
+    forwards `rest` verbatim to the child."""
+    from paddle_tpu_torch.utils.flags import FLAGS
+
+    leftover = FLAGS.parse(list(rest))
+    if leftover:
+        print(f"warning: unrecognized flags {leftover}", file=sys.stderr)
+    if FLAGS.supervise_job not in ("train", "serve"):
+        print(f"error: --supervise_job={FLAGS.supervise_job!r} (expected "
+              "train or serve)", file=sys.stderr)
+        return 2
+    from paddle_tpu_torch.resilience.supervisor import Supervisor
+
+    return Supervisor(rest, FLAGS).run()
 
 
 def _setup(rest):

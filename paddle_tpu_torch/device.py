@@ -35,9 +35,11 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 
 
 def float32_only(dtype: Optional[object], what: str) -> None:
-    """Refuse any model or slot dtype other than float32 for now."""
+    """Refuse a model compute dtype other than float32 for now. (The serve
+    slot state may be stored in bfloat16: its steps still compute in
+    float32, ``graph/decode_step.py::plan_slot_dtype``.)"""
     if dtype in (None, torch.float32, "float32", "fp32", "f32", ""):
         return
     raise NotImplementedError(
-        f"{what} {dtype!r} is not ported yet: this slice of paddle_tpu_torch "
-        "computes and stores in float32 only")
+        f"{what} {dtype!r} is not ported yet: paddle_tpu_torch computes in "
+        "float32 only (bf16 compute is ROADMAP Queue 1 item 7)")

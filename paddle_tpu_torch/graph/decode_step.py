@@ -109,11 +109,42 @@ def capture_prefill(machine, plan: GenPlan, params, in_args):
 _AGENT_TYPES = ("agent", "sequence_agent", "scatter_agent", "gather_agent")
 
 
-def plan_fused_step(machine, plan: GenPlan):
+# Reduced-precision slot state: ``slot_dtype="bf16"`` STORES the slot state
+# (GRU carries and captured statics) in bfloat16 while every step still
+# COMPUTES in float32: the backend upcasts the statics once a launch and the
+# carries before every micro-step, and downcasts only what it stores back.
+# This is a storage plan; the model's compute dtype stays float32 (the
+# machine refuses any other).
+SLOT_STORE_DTYPES: Dict[str, Optional[str]] = {"f32": None, "bf16": "bfloat16"}
+
+# The parity gate per slot dtype: the largest share of emitted tokens that
+# may differ from the float32-stored stream. float32 storage is exact; the
+# bf16 carry's rounding may flip argmax near-ties.
+SLOT_PARITY_TOL: Dict[str, float] = {"f32": 0.0, "bf16": 0.05}
+
+
+def plan_slot_dtype(slot_dtype: str) -> Tuple[Optional[Dict[str, Any]], str]:
+    """(storage plan, "") for a slot dtype spelling, else (None, reason).
+    The plan names the storage dtype (None: the model's own) and the
+    parity tolerance."""
+    if slot_dtype not in SLOT_STORE_DTYPES:
+        return None, (f"unknown slot dtype {slot_dtype!r} "
+                      f"(supported: {tuple(SLOT_STORE_DTYPES)})")
+    return {"store_dtype": SLOT_STORE_DTYPES[slot_dtype],
+            "parity_tol": SLOT_PARITY_TOL[slot_dtype]}, ""
+
+
+def plan_fused_step(machine, plan: GenPlan, slot_dtype: str = "f32"):
     """(extraction dict, "") when the generation step graph is EXACTLY the
     attention-GRU decoder template (simple_attention + gru_step + softmax
     out, the seqToseq shape), else (None, reason). The dict carries every
-    parameter name and static-link key the fused step needs."""
+    parameter name and static-link key the fused step needs, and the
+    :func:`plan_slot_dtype` storage plan for ``slot_dtype``. The fused
+    step computes in float32 (the machine refuses any other compute
+    dtype)."""
+    slot_plan, why = plan_slot_dtype(slot_dtype)
+    if slot_plan is None:
+        return None, why
     sub = plan.sub
     lm = machine.network.layer_map
     if len(plan.memories) != 1:
@@ -218,6 +249,7 @@ def plan_fused_step(machine, plan: GenPlan):
                                combine.bias_parameter_name) if p],
         xw_bias_params=[p for p in (din.bias_parameter_name,
                                     gru.bias_parameter_name) if p],
+        **slot_plan,
     ), ""
 
 

@@ -184,10 +184,14 @@ def test_version_and_the_subcommands_not_ported(capsys):
     assert cli.main(["version"]) == 0
     out = capsys.readouterr().out
     assert out.startswith("paddle_tpu_torch ") and f"torch {torch.__version__}" in out
-    for cmd in ("checkgrad", "supervise", "serve", "merge_model", "check-checkpoint", "metrics",
+    for cmd in ("checkgrad", "faults", "merge_model", "check-checkpoint", "metrics",
                 "memory"):
         assert cli.main([cmd]) == 2
         assert f"ROADMAP Queue 1 item {cli.NOT_PORTED[cmd]}" in capsys.readouterr().err
+    # the serving surface and the supervisor are ported
+    # (tests/test_torch_serve_cli.py, tests/test_torch_serve_fleet.py)
+    assert not {"serve", "serve-fleet", "serve_fleet", "serve-status", "serve_status",
+                "serve-report", "serve_report", "supervise"} & set(cli.NOT_PORTED)
     assert cli.main(["no-such-command"]) == 2
 
 

@@ -39,6 +39,9 @@ COPIES = (
     "utils/concurrency.py", "utils/logging.py", "utils/error.py", "utils/registry.py",
     "utils/flags.py", "utils/retry.py", "version.py", "native/__init__.py", "native/datapath.cc",
     "data/provider.py", "data/datasets.py", "data/binary.py",
+    "resilience/hangwatch.py", "resilience/heartbeat.py", "resilience/supervisor.py",
+    "serving/resilience.py", "serving/transport.py", "serving/fleet.py",
+    "observability/costs.py",
 )
 # the deliberate changes to copies: the port never puts compat/ on
 # sys.path, it binds ``paddle`` to its own shim while a config runs; the
