@@ -117,6 +117,28 @@ Phases, each printing one JSON object per line:
              wall ms a batch, the host ms a batch in the feeder (provider
              and pool; packers) and in the transfer to the card, peak
              device memory, and the test and gen walls.
+3d. layers — the layer library's tail on the card against the port on
+             the CPU (the same code, float32, TF32 off), one line a part:
+             quick_start's text CNN (demo/quick_start/trainer_config.cnn.py
+             at its own widths: embedding 32, context 3, hidden 64, batch
+             128) through the port's command line on the demo's synthetic
+             provider, 2 passes from a checkpoint of init_params(seed=1):
+             the first batch's cost within 1e-3 of the CPU's, pass 1's test
+             cost below pass 0's, samples/s and the median and p90 ms a
+             batch; then its is_predict=1 config (maxid) on the first test
+             batch at the trained pass: the card's ids the CPU's wherever
+             the CPU's top-2 margin exceeds 1e-5. The model_zoo embedding
+             demo (hsigmoid, dim 32, batch 256) for 2 passes: every cost
+             finite and the test cost falling, then its test's own check on
+             the trained table (within-cluster cosine above across-cluster)
+             and samples/s. The layer zoo (paddle_tpu_torch/tools/layer_zoo.py):
+             every layer type, projection, operator and activation of the
+             tail at public sizes, forward and gradients by autograd on
+             both devices (values 1e-5 of scale, gradients 1e-4 of scale,
+             ids equal off ties), each output on the card, forward +
+             backward timed with CUDA events (median of 20); the nce
+             layer's own draws on the card, and sampling_id's 10^5 draws
+             on the card against its distribution (chi-square, p > 1e-3).
 4. train   — the other main path: Trainer(nmt_config(vocab=30000,
              dim=512, batch_size=64)) on the card, random weights from
              seed 1, 8 Adam steps on nmt_batch(B=64, T=32, seed=1), the
@@ -279,6 +301,9 @@ BEAM_TOL = 1e-4            # scores, relative: sums of 32 log-probabilities on t
 # the JAX package's allowance for argmax near-ties between two decode
 # paths (SLOT_PARITY_TOL in paddle_tpu/graph/decode_step.py)
 PARITY_TOL = 0.05
+# the layers phase: passes of each demo, and sampling_id's draws on the card
+LAYERS_PASSES = 2
+SAMPLING_DRAWS = 100_000
 
 
 def emit(obj) -> None:
@@ -1621,9 +1646,9 @@ class CliProbe:
                                       BatchAssembler.assemble)
         host_outputs, eval_batch = Trainer._host_outputs, EvaluatorChain.eval_batch
 
-        def _step(trainer, batch):
+        def _step(trainer, batch, seed):
             probe.step_t.append(time.perf_counter())
-            loss, outputs = step(trainer, batch)
+            loss, outputs = step(trainer, batch, seed)
             probe.losses.append(loss.detach())
             probe.step_end.append(time.perf_counter())
             return loss, outputs
@@ -1801,12 +1826,11 @@ def phase_cli(torch, dev, kernels):
 
     # per batch: from one step's start to the next's (the last to its
     # pass's end), all but the first step of the run
-    walls, tok_s = [], []
+    walls = host_step_walls(step_t, pass_end, n_batches)
+    tok_s = []
     for p in range(CLI["passes"]):
-        t = step_t[p * n_batches:(p + 1) * n_batches] + [pass_end[p]]
-        walls += [b - a for a, b in zip(t, t[1:])][1 if p == 0 else 0:]
         skip = 1 if p == 0 else 0
-        tok_s.append(sum(tokens[p][skip:]) / (pass_end[p] - t[skip]))
+        tok_s.append(sum(tokens[p][skip:]) / (pass_end[p] - step_t[p * n_batches + skip]))
     train_batches = host["train"]["batches"]
     # where a batch's wall goes, medians over the steps: the step's enqueue;
     # the wait for the card (float(loss)) to the evaluators' copy; the copy
@@ -1844,6 +1868,253 @@ def phase_cli(torch, dev, kernels):
     }
     emit(cli_line)
     return cli_line
+
+
+def host_step_walls(step_t, pass_end, n_batches):
+    """Per batch, from one step's start to the next's (the last to its
+    pass's end), the first step of the run left out."""
+    walls = []
+    for p, end in enumerate(pass_end):
+        t = step_t[p * n_batches:(p + 1) * n_batches] + [end]
+        walls += [b - a for a, b in zip(t, t[1:])][1 if p == 0 else 0:]
+    return walls
+
+
+def demo_workspace(ws, demo, names, train, test):
+    import shutil
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "demo", demo)
+    for name in names:
+        shutil.copy(os.path.join(root, name), ws)
+    with open(os.path.join(ws, "train.list"), "w") as f:
+        f.write(f"{train}\n")
+    with open(os.path.join(ws, "test.list"), "w") as f:
+        f.write(f"{test}\n")
+
+
+def cli_train_probed(argv, passes):
+    """`train` through the port's command line, watched by a CliProbe:
+    (losses, per-pass test results, per-batch walls, wall seconds)."""
+    probe = CliProbe()
+    try:
+        wall = run_cli(argv)
+        losses = [float(x) for x in probe.losses]
+        walls = host_step_walls(probe.step_t, probe.pass_end, len(losses) // passes)
+        return losses, list(probe.tests), walls, wall
+    finally:
+        probe.close()
+
+
+def replay_batches(cfg):
+    """The train provider's first batch and every batch's rows, replayed on
+    the host from the command line's seed (1)."""
+    from paddle_tpu_torch.data.feeder import create_data_provider
+
+    replay = create_data_provider(cfg.data_config, cfg.opt_config.batch_size,
+                                  cfg.model_config.input_layer_names, seed=1)
+    batches = list(replay.batches())
+    return batches[0], [next(iter(b.values())).batch_size for b in batches]
+
+
+def wall_stats(walls, samples, passes):
+    """Samples/s over every step but the run's first, and ms a batch."""
+    return {"train_samples_per_s": (sum(samples) * passes - samples[0]) / sum(walls),
+            "batch_wall_ms_median": 1e3 * statistics.median(walls),
+            "batch_wall_ms_p90": 1e3 * float(np.percentile(walls, 90))}
+
+
+def layers_cnn(torch, dev, ws):
+    """quick_start's text CNN: train through the command line, then the
+    is_predict=1 (maxid) forward on the card against the CPU."""
+    from paddle_tpu_torch.config import parse_config
+    from paddle_tpu_torch.data.feeder import create_data_provider
+    from paddle_tpu_torch.graph import GradientMachine
+    from paddle_tpu_torch.graph.argument import Argument
+    from paddle_tpu_torch.trainer import checkpoint as ckpt
+
+    conf = "trainer_config.cnn.py"
+    demo_workspace(ws, "quick_start", ("common.py", "dataprovider_emb.py", conf),
+                   "train-seed-1", "test-seed-1")
+    cfg = parse_config(conf)
+    cpu = GradientMachine(cfg.model_config, device="cpu")
+    params0 = cpu.init_params(seed=1)
+    init = ckpt.save_checkpoint(os.path.join(ws, "init"), 0, params0)
+    first, samples = replay_batches(cfg)
+    with torch.no_grad():
+        cpu_loss = float(cpu.loss_fn(params0, first, seed=1)[0])
+    passes = LAYERS_PASSES
+    losses, tests, walls, wall = cli_train_probed(
+        ["train", f"--config={conf}", "--save_dir=out", f"--num_passes={passes}",
+         f"--init_model_path={init}", "--log_period=0"], passes)
+    assert len(losses) == passes * len(samples) and all(np.isfinite(losses)), losses
+    costs = [t["cost"] for t in tests]
+    assert len(costs) == passes and costs[1] < costs[0], costs
+    first_err = abs(losses[0] - cpu_loss) / abs(cpu_loss)
+    assert first_err <= TRAIN_TOL, (losses[0], cpu_loss)
+
+    pred = parse_config(conf, "is_predict=1")
+    last = os.path.join(ws, "out", ckpt.PASS_FMT % (passes - 1), "params.npz")
+    with np.load(last) as z:
+        trained = {k: z[k] for k in z.files}
+    test_dp = create_data_provider(cfg.test_data_config, cfg.opt_config.batch_size,
+                                   cfg.model_config.input_layer_names, seed=1, for_test=True)
+    word = next(iter(test_dp.batches()))["word"]
+    (name,) = pred.model_config.output_layer_names
+    probs_name = [l for l in pred.model_config.layers if l.name == name][0] \
+        .inputs[0].input_layer_name
+    got = {}
+    for where in ("cpu", dev):
+        machine = GradientMachine(pred.model_config, device=where)
+        params = {k: torch.as_tensor(v, device=machine.device) for k, v in trained.items()}
+        batch = {"word": Argument(ids=word.ids.to(machine.device),
+                                  seq_lengths=word.seq_lengths.to(machine.device))}
+        outs, _ = machine.forward(params, batch, seed=1)
+        assert outs[name].ids.device.type == machine.device.type
+        got[machine.device.type] = (outs[name].ids.cpu().numpy(),
+                                    outs[probs_name].value.cpu().numpy())
+    ids_cpu, probs = got["cpu"]
+    top2 = np.sort(probs, axis=-1)[:, -2:]
+    clear = top2[:, 1] - top2[:, 0] > 1e-5
+    differ = int((got[dev.type][0] != ids_cpu)[clear].sum())
+    assert differ == 0 and clear.sum() > 0, (differ, int(clear.sum()))
+    return {"part": "quick_start_cnn",
+            "config": "demo/quick_start/trainer_config.cnn.py (embedding 32, context_len 3, "
+                      "hidden 64, batch 128), train-seed-1 / test-seed-1",
+            "passes": passes, "steps": len(losses), "samples_per_pass": sum(samples),
+            "first_batch_cost": {"card": losses[0], "cpu": cpu_loss, "rel_err": first_err},
+            "test_costs": costs, "test_results": tests, "losses_first_last": [losses[0],
+                                                                              losses[-1]],
+            **wall_stats(walls, samples, passes), "train_cli_s": wall,
+            "predict": {"rows": int(len(ids_cpu)), "clear_margin_rows": int(clear.sum()),
+                        "ids_differ_where_clear": differ,
+                        "ids_differ_anywhere": int((got[dev.type][0] != ids_cpu).sum()),
+                        "class_1_share": float(ids_cpu.mean())}}
+
+
+def layers_embedding(torch, dev, ws):
+    """model_zoo embedding (hsigmoid) through the command line, and the
+    JAX test's check on the trained table."""
+    import importlib.util
+
+    from paddle_tpu_torch.config import parse_config
+
+    demo_workspace(ws, "model_zoo/embedding", ("common.py", "dataprovider.py",
+                                               "trainer_config.py"),
+                   "corpus-seed-1", "corpus-seed-2")
+    _, samples = replay_batches(parse_config("trainer_config.py"))
+    passes = LAYERS_PASSES
+    losses, tests, walls, wall = cli_train_probed(
+        ["train", "--config=trainer_config.py", "--save_dir=out", f"--num_passes={passes}",
+         "--log_period=0"], passes)
+    costs = [t["cost"] for t in tests]
+    assert losses and all(np.isfinite(losses)), losses[:4]
+    assert len(costs) == passes and all(np.isfinite(costs)) and costs[1] < costs[0], costs
+    from paddle_tpu_torch.trainer import checkpoint as ckpt
+
+    with np.load(os.path.join(ws, "out", ckpt.PASS_FMT % (passes - 1), "params.npz")) as z:
+        emb = z["_emb"]
+    spec = importlib.util.spec_from_file_location("embedding_common",
+                                                  os.path.join(ws, "common.py"))
+    common = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(common)
+    # tests/test_embedding_demo.py's check: 400 seeded pairs of rows
+    norm = emb / (np.linalg.norm(emb, axis=1, keepdims=True) + 1e-8)
+    within, across = [], []
+    rng = np.random.RandomState(0)
+    for _ in range(400):
+        a, b = rng.randint(0, emb.shape[0], 2)
+        sim = float(norm[a] @ norm[b])
+        (within if common.cluster_of(a) == common.cluster_of(b) else across).append(sim)
+    assert np.mean(within) > np.mean(across) + 0.05, (np.mean(within), np.mean(across))
+    return {"part": "embedding",
+            "config": "demo/model_zoo/embedding/trainer_config.py (dim 32, batch 256, "
+                      "hsigmoid over 200 words), corpus-seed-1 / corpus-seed-2",
+            "passes": passes, "steps": len(losses), "test_costs": costs,
+            "losses_first_last": [losses[0], losses[-1]], "samples_per_pass": sum(samples),
+            **wall_stats(walls, samples, passes), "train_cli_s": wall, "cosine_within": float(np.mean(within)),
+            "cosine_across": float(np.mean(across))}
+
+
+def layers_zoo(torch, dev):
+    """Every entry of the layer zoo on the card against the CPU, timed;
+    nce's own draws and sampling_id's draws on the card."""
+    import scipy.stats
+
+    from paddle_tpu_torch.graph.argument import Argument
+    from paddle_tpu_torch.layers import misc
+    from paddle_tpu_torch.layers.base import LayerContext, forward_layer
+    from paddle_tpu_torch.proto import LayerConfig, LayerInputConfig, ModelConfig
+    from paddle_tpu_torch.tools import layer_zoo
+
+    rows = []
+    entries = layer_zoo.build()
+    for e in entries:
+        card, step = layer_zoo.run(e, dev)
+        cpu, _ = layer_zoo.run(e, "cpu")
+        rep = layer_zoo.compare(e, card, cpu)
+        rows.append({"name": e.name, "type": e.cfg.type, "size": e.size,
+                     "fwd_bwd_ms": time_ms(torch, step, reps=20), **rep})
+    # the nce layer drawing its own negatives on the card
+    nce = [e for e in entries if e.cfg.type == "nce"][0]
+    ctx = LayerContext(params={k: torch.as_tensor(v, device=dev) for k, v in nce.params.items()},
+                       model=ModelConfig(), pass_type="train", seed=7)
+    args = [Argument(value=torch.as_tensor(nce.inputs[0]["value"], device=dev)),
+            Argument(ids=torch.as_tensor(nce.inputs[1]["ids"], device=dev))]
+    neg = misc.nce_negatives(nce.cfg, args[0].value.shape[0], ctx, dev)
+    cost = forward_layer(nce.cfg, args, ctx).value
+    assert neg.device.type == cost.device.type == dev.type
+    assert bool(torch.isfinite(cost).all()) and 0 <= int(neg.min()) and \
+        int(neg.max()) < nce.cfg.num_classes
+    # sampling_id: 10^5 draws on the card against the rows' distribution
+    p = np.array([0.05, 0.4, 0.0, 0.25, 0.2, 0.1], np.float32)
+    cfg = LayerConfig(name="sid", type="sampling_id", size=1)
+    cfg.inputs.append(LayerInputConfig(input_layer_name="p"))
+    draws = SAMPLING_DRAWS
+    ids = forward_layer(cfg, [Argument(value=torch.as_tensor(np.tile(p, (draws, 1)),
+                                                             device=dev))],
+                        LayerContext(params={}, model=ModelConfig(), pass_type="gen",
+                                     seed=5)).ids
+    assert ids.device.type == dev.type
+    counts = np.bincount(ids.cpu().numpy(), minlength=len(p))
+    keep = p > 0
+    chi2 = scipy.stats.chisquare(counts[keep], draws * p[keep].astype(np.float64) /
+                                 p[keep].sum())
+    assert counts[~keep].sum() == 0 and chi2.pvalue > 1e-3, (counts, chi2.pvalue)
+    return {"part": "zoo", "entries": rows, "n_entries": len(rows),
+            "types": sorted({r["type"] for r in rows}),
+            "sampling_id": {"draws": draws, "counts": counts.tolist(), "p": p.tolist(),
+                            "chi2_pvalue": float(chi2.pvalue)},
+            "nce_own_draws": {"negatives": list(neg.shape), "cost_mean": float(cost.mean())}}
+
+
+def phase_layers(torch, dev):
+    """The layers phase: the quick_start CNN, the embedding demo, the zoo."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60).stdout.strip()
+    cwd = os.getcwd()
+    lines = []
+    for part in (layers_cnn, layers_embedding):
+        with tempfile.TemporaryDirectory() as ws:
+            os.chdir(ws)
+            try:
+                t0 = time.perf_counter()
+                line = part(torch, dev, ws)
+                line.update(phase="layers", part_s=time.perf_counter() - t0, card=smi)
+            finally:
+                os.chdir(cwd)
+        emit(line)
+        lines.append(line)
+    t0 = time.perf_counter()
+    line = layers_zoo(torch, dev)
+    line.update(phase="layers", part_s=time.perf_counter() - t0, card=smi,
+                phase_s=time.perf_counter() - t_phase)
+    emit(line)
+    lines.append(line)
+    return lines
 
 
 def read_result_file_words(path):
@@ -2788,6 +3059,7 @@ def main() -> int:
     phase_serve_surface(torch, dev, kernels)
     beam = phase_beam(torch, dev, kernels)
     phase_cli(torch, dev, kernels)
+    phase_layers(torch, dev)
     train = phase_train(torch, dev, kernels)
     lstm_train, trainer, batch, err_key, err_before = phase_lstm_train(torch, dev, kernels)
     lstm_test = phase_lstm_test(torch, dev, kernels, trainer, batch, err_key, err_before)

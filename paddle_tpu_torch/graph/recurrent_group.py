@@ -32,8 +32,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from paddle_tpu_torch.graph.argument import Argument
-from paddle_tpu_torch.layers.base import (LayerContext, TimeMajorLogits, forward_layer,
-                                         register_layer)
+from paddle_tpu_torch.layers.base import (LayerContext, TimeMajorLogits, fold_seed,
+                                         forward_layer, register_layer)
 from paddle_tpu_torch.ops.activations import apply_activation
 from paddle_tpu_torch.proto import LayerConfig, SubModelConfig
 
@@ -104,22 +104,24 @@ def _memory_boot(network, mem, ctx: LayerContext, batch: int, dtype,
 
 def _run_submodel_step(network, sub: SubModelConfig, ctx: LayerContext,
                        fed: Dict[str, Argument], skip: frozenset = frozenset(),
-                       mixed_prologue: Optional[Dict[str, Any]] = None,
+                       mixed_prologue: Optional[Dict[str, Any]] = None, t: int = 0,
                        ) -> Dict[str, Argument]:
-    """Run the sub-model's layers once with pre-fed agent outputs.
-    ``skip`` names epilogue layers hoisted out of the loop;
+    """Run the sub-model's layers once, step ``t``, with pre-fed agent
+    outputs. ``skip`` names epilogue layers hoisted out of the loop;
     ``mixed_prologue`` maps a mixed layer to (skipped input indices,
     precomputed [B, out] slice) for projections hoisted before it."""
     step_ctx = LayerContext(params=ctx.params, model=ctx.model,
                             pass_type=ctx.pass_type, generator=ctx.generator,
-                            parent=ctx, mixed_prologue=mixed_prologue)
+                            seed=fold_seed(ctx.seed, t), parent=ctx,
+                            mixed_prologue=mixed_prologue)
     step_ctx.outputs.update(fed)
     for name in sub.layer_names:
         lcfg = network.layer_map[name]
         if lcfg.name in step_ctx.outputs or lcfg.name in skip:
             continue
         if lcfg.type == "recurrent_layer_group":
-            raise NotImplementedError("nested recurrent groups are not ported yet")
+            raise NotImplementedError(
+                "nested recurrent groups are not ported yet (ROADMAP Queue 1 item 5)")
         ins = [network._lookup_input(step_ctx, ic.input_layer_name, ic.input_layer_argument)
                for ic in lcfg.inputs]
         forward_layer(lcfg, ins, step_ctx)
@@ -222,11 +224,11 @@ def _forward_scan(network, cfg: LayerConfig, sub: SubModelConfig, ctx: LayerCont
     if any(link.has_subseq for link in sub.in_links):
         raise NotImplementedError(
             f"recurrent group {cfg.name!r}: nested (sub-sequence) groups are not "
-            "ported yet (the hierarchical-RNN slice of paddle_tpu_torch)")
+            "ported yet (ROADMAP Queue 1 item 5)")
     if any(mem.is_sequence for mem in sub.memories):
         raise NotImplementedError(
             f"recurrent group {cfg.name!r}: sequence-valued memories are not "
-            "ported yet (the hierarchical-RNN slice of paddle_tpu_torch)")
+            "ported yet (ROADMAP Queue 1 item 5)")
     first = _scope_lookup(ctx, sub.in_links[0].layer_name)
     if not first.is_seq:
         raise ValueError(f"in-link {sub.in_links[0].layer_name!r} is not a sequence")
@@ -315,7 +317,7 @@ def _forward_scan(network, cfg: LayerConfig, sub: SubModelConfig, ctx: LayerCont
                 fed[mem.link_name] = _memory_feed_arg(mem, carry)
             mixed_pro = {lname: (pro_plan[lname], x[t]) for lname, x in pro_feeds.items()}
             outs = _run_submodel_step(network, sub, ctx, fed, skip=skip,
-                                      mixed_prologue=mixed_pro)
+                                      mixed_prologue=mixed_pro, t=t)
             m = mask_tb[t][:, None]
             new_carries = []
             for mem, old in zip(memories, carries):
@@ -391,7 +393,8 @@ def _run_epilogue(network, ctx, epilogue, dyn_frontier, frs, statics,
 def _memory_feed_arg(mem, carry: Tensor) -> Argument:
     """Turn a flat carry back into the Argument fed to the step."""
     if mem.is_sequence:
-        raise NotImplementedError("sequence-valued memories are not ported yet")
+        raise NotImplementedError(
+            "sequence-valued memories are not ported yet (ROADMAP Queue 1 item 5)")
     if _is_int_carry(carry):
         return Argument(ids=carry)
     return Argument(value=carry)
@@ -456,11 +459,11 @@ def _generate(network, cfg: LayerConfig, sub: SubModelConfig, ctx: LayerContext)
     if any(link.has_subseq for link in sub.in_links):
         raise NotImplementedError(
             f"generator group {cfg.name!r}: nested (sub-sequence) in-links are not "
-            "ported yet (the hierarchical-RNN slice of paddle_tpu_torch)")
+            "ported yet (ROADMAP Queue 1 item 5)")
     if any(mem.is_sequence for mem in sub.memories):
         raise NotImplementedError(
             f"generator group {cfg.name!r}: sequence-valued memories are not "
-            "ported yet (the hierarchical-RNN slice of paddle_tpu_torch)")
+            "ported yet (ROADMAP Queue 1 item 5)")
 
     B: Optional[int] = None
     statics: Dict[str, Argument] = {}
@@ -542,7 +545,7 @@ def _generate(network, cfg: LayerConfig, sub: SubModelConfig, ctx: LayerContext)
         fed.update(statics)
         for mem, carry in zip(memories, carries):
             fed[mem.link_name] = _memory_feed_arg(mem, carry)
-        outs = _run_submodel_step(network, sub, ctx, fed)
+        outs = _run_submodel_step(network, sub, ctx, fed, t=t)
         probs = outs[score_layer].value                           # [B*K, V]
         V = probs.shape[-1]
         logp = torch.log(torch.clamp(probs, min=1e-20)).reshape(B, K, V)

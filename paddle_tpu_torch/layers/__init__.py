@@ -1,6 +1,6 @@
 """Layer library of the port. Importing this package registers every
-layer type of the ported slices (the seqToseq serve and train graphs, the
-LSTM text classifier, ResNet and the long-context LM)."""
+layer type of the JAX package's library but ``mdlstmemory``, which takes
+only a nested argument (ROADMAP Queue 1 item 5; ``base.NOT_PORTED``)."""
 
 from paddle_tpu_torch.layers.base import LayerContext, forward_layer, layer_registry, register_layer
 import paddle_tpu_torch.layers.core  # noqa: F401
@@ -9,6 +9,7 @@ import paddle_tpu_torch.layers.recurrent  # noqa: F401
 import paddle_tpu_torch.layers.misc  # noqa: F401
 import paddle_tpu_torch.layers.cost  # noqa: F401
 import paddle_tpu_torch.layers.vision  # noqa: F401
+import paddle_tpu_torch.layers.structured  # noqa: F401
 import paddle_tpu_torch.layers.attention  # noqa: F401
 
 __all__ = ["LayerContext", "layer_registry", "register_layer", "forward_layer"]

@@ -11,6 +11,7 @@ signal (identity in the forward).
 from __future__ import annotations
 
 import dataclasses
+import zlib
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
@@ -43,6 +44,28 @@ def register_layer(*type_names: str):
     return layer_registry.register(*type_names)
 
 
+_M64 = (1 << 64) - 1
+
+
+def fold_seed(seed: Optional[int], *salts: int) -> Optional[int]:
+    """``seed`` with each of ``salts`` folded in turn (a splitmix64 round
+    each), as a 31-bit seed; None stays None. Every seed that reaches a
+    draw comes from here: a training step's from --seed, the pass and the
+    batch (``Trainer``), a recurrent step's from its forward's and t
+    (``graph/recurrent_group.py``), and a layer's generator from its
+    pass's and crc32 of "{layer}/{salt}" (``LayerContext.layer_generator``).
+    31 bits, because the CPU's generator reads only the low 32 of a seed."""
+    if seed is None:
+        return None
+    x = int(seed) & _M64
+    for s in salts:
+        x = (x + (int(s) + 1) * 0x9E3779B97F4A7C15) & _M64
+        x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+        x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _M64
+        x ^= x >> 31
+    return x & ((1 << 31) - 1)
+
+
 @dataclass
 class LayerContext:
     """Mutable context threaded through one network forward pass."""
@@ -53,6 +76,10 @@ class LayerContext:
     # random bits of the pass (dropout): an explicit generator on the
     # parameters' device; None outside training
     generator: Optional[torch.Generator] = None
+    # the pass's seed for layers that draw (sampling_id, nce): each such
+    # layer seeds its own generator from it (layer_generator); None where
+    # the caller gave none
+    seed: Optional[int] = None
     outputs: Dict[str, Argument] = field(default_factory=dict)
     # static parameter name -> its new value (batch norm's moving mean and
     # variance in a training pass); GradientMachine.forward returns them
@@ -99,6 +126,17 @@ class LayerContext:
     def is_training(self) -> bool:
         return self.pass_type == "train"
 
+    def layer_generator(self, layer_name: str, salt: str, device) -> torch.Generator:
+        """A generator of its own for one layer's draws, seeded from the
+        pass's seed and crc32 of "{layer_name}/{salt}", the string the JAX
+        package folds into its key (``LayerContext.layer_rng``)."""
+        if self.seed is None:
+            raise ValueError(f"layer {layer_name!r} draws random ids but the pass was "
+                             "given no seed")
+        gen = torch.Generator(device=device)
+        gen.manual_seed(fold_seed(self.seed, zlib.crc32(f"{layer_name}/{salt}".encode())))
+        return gen
+
     def param(self, name: str) -> Tensor:
         try:
             return self.params[name]
@@ -110,7 +148,8 @@ class LayerContext:
 def input_mask(arg: Argument) -> Optional[Tensor]:
     """[B, T] float validity mask if arg is a sequence, else None."""
     if arg.is_nested_seq:
-        raise NotImplementedError("nested sequences are not ported yet")
+        raise NotImplementedError(
+            "nested sequences are not ported yet (ROADMAP Queue 1 item 5)")
     return arg.seq_mask() if arg.is_seq else None
 
 
@@ -156,7 +195,16 @@ class _ClipError(torch.autograd.Function):
         return g.clamp(-ctx.t, ctx.t), None
 
 
+# JAX layer types the port does not have yet -> the ROADMAP Queue 1 item
+# that brings them (mdlstmemory takes only a nested argument)
+NOT_PORTED = {"mdlstmemory": 5}
+
+
 def forward_layer(cfg: LayerConfig, inputs: List[Argument], ctx: LayerContext) -> Argument:
+    if cfg.type in NOT_PORTED:
+        raise NotImplementedError(
+            f"layer {cfg.name!r}: type {cfg.type!r} is not ported yet "
+            f"(ROADMAP Queue 1 item {NOT_PORTED[cfg.type]})")
     fn = layer_registry.get(cfg.type)
     with layer_scope(f"{cfg.name}({cfg.type})"):
         out = fn(cfg, inputs, ctx)

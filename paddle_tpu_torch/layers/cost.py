@@ -1,4 +1,6 @@
-"""Cost layers of this slice: multi-class cross-entropy.
+"""Cost layers: multi-class cross-entropy (with and without self
+normalisation), square error, binary and soft binary cross-entropy, rank
+cost, huber, the validation layers and classification_error.
 
 Port of ``paddle_tpu/layers/cost.py``. A cost layer outputs the
 per-sample cost [B, 1] (sequences: summed over the valid timesteps),
@@ -24,7 +26,8 @@ def _finish_cost(cfg: LayerConfig, per_step: Tensor, arg: Argument,
                  weight_arg: Optional[Argument]) -> Argument:
     """Reduce the per-step cost over time (masked) and apply coeff and weight."""
     if arg.is_nested_seq:
-        raise NotImplementedError("costs over nested sequences are not ported yet")
+        raise NotImplementedError(
+            "costs over nested sequences are not ported yet (ROADMAP Queue 1 item 5)")
     if arg.is_seq:
         cost = torch.sum(per_step * arg.seq_mask(per_step.dtype), dim=1)
     else:
@@ -77,3 +80,88 @@ def multi_class_cross_entropy(cfg: LayerConfig, inputs: List[Argument],
          if not cfg.inputs[0].input_layer_argument else None)
     per_step = _fused_or_plain_ce(z, out, ids)
     return _finish_cost(cfg, per_step, out, weight)
+
+
+@register_layer("multi_class_cross_entropy_with_selfnorm")
+def selfnorm_cross_entropy(cfg: LayerConfig, inputs: List[Argument],
+                           ctx: LayerContext) -> Argument:
+    # CE on the unnormalised output plus alpha * log(Z)^2, which keeps Z near 1
+    out, label = inputs[0], inputs[1]
+    v = out.value
+    z = torch.sum(v, dim=-1)
+    p = torch.gather(v, -1, _label_ids(label)[..., None])[..., 0]
+    per_step = -torch.log(torch.clamp(p / torch.clamp(z, min=_EPS), min=_EPS))
+    per_step = per_step + cfg.softmax_selfnorm_alpha * torch.log(torch.clamp(z, min=_EPS)) ** 2
+    return _finish_cost(cfg, per_step, out, None)
+
+
+@register_layer("square_error")
+def square_error(cfg: LayerConfig, inputs: List[Argument], ctx: LayerContext) -> Argument:
+    out, label = inputs[0], inputs[1]
+    weight = inputs[2] if len(inputs) > 2 else None
+    v = out.value
+    target = label.value if label.value is not None else label.ids.to(v.dtype)
+    if target.dim() < v.dim():
+        target = target[..., None]
+    return _finish_cost(cfg, torch.sum((v - target) ** 2, dim=-1), out, weight)
+
+
+@register_layer("multi_binary_label_cross_entropy")
+def multi_binary_label_cross_entropy(cfg: LayerConfig, inputs: List[Argument],
+                                     ctx: LayerContext) -> Argument:
+    out, label = inputs[0], inputs[1]
+    p = torch.clamp(out.value, _EPS, 1.0 - _EPS)
+    y = label.value
+    per_step = -torch.sum(y * torch.log(p) + (1.0 - y) * torch.log(1.0 - p), dim=-1)
+    return _finish_cost(cfg, per_step, out, None)
+
+
+@register_layer("soft_binary_class_cross_entropy")
+def soft_binary_class_cross_entropy(cfg: LayerConfig, inputs: List[Argument],
+                                    ctx: LayerContext) -> Argument:
+    return multi_binary_label_cross_entropy(cfg, inputs, ctx)
+
+
+@register_layer("rank-cost")
+def rank_cost(cfg: LayerConfig, inputs: List[Argument], ctx: LayerContext) -> Argument:
+    # inputs: left score, right score, label (1 when left should rank
+    # higher, 0.5 for a tie), optional weight
+    left, right, label = inputs[0], inputs[1], inputs[2]
+    weight = inputs[3] if len(inputs) > 3 else None
+    o = (left.value - right.value)[..., 0]
+    t = label.value[..., 0] if label.value is not None else label.ids.to(o.dtype)
+    per_step = torch.logaddexp(torch.zeros_like(o), o) - t * o
+    return _finish_cost(cfg, per_step, left, weight)
+
+
+@register_layer("huber")
+def huber_two_class(cfg: LayerConfig, inputs: List[Argument], ctx: LayerContext) -> Argument:
+    # HuberTwoClass: labels {0, 1} -> y in {-1, +1}; a = y f is quadratic
+    # in (-1, 1), linear below, zero from 1 on
+    out, label = inputs[0], inputs[1]
+    f = out.value[..., 0]
+    a = (2.0 * _label_ids(label).to(f.dtype) - 1.0) * f
+    per_step = torch.where(a < -1.0, -4.0 * a,
+                           torch.where(a < 1.0, (1.0 - a) ** 2, torch.zeros_like(a)))
+    return _finish_cost(cfg, per_step, out, None)
+
+
+@register_layer("auc-validation", "pnpair-validation")
+def validation_layer(cfg: LayerConfig, inputs: List[Argument], ctx: LayerContext) -> Argument:
+    # metric-only nodes: zero cost, no gradient; the metric accumulates in
+    # the evaluator the DSL registers beside them (trainer/evaluators.py)
+    out = inputs[0]
+    ref = out.value if out.value is not None else out.ids
+    shape = ref.shape[:-1] if out.value is not None else ref.shape
+    return _finish_cost(cfg, torch.zeros(shape, dtype=torch.float32, device=ref.device),
+                        out, None)
+
+
+@register_layer("classification_error")
+def classification_error_layer(cfg: LayerConfig, inputs: List[Argument],
+                               ctx: LayerContext) -> Argument:
+    # 1.0 where argmax(output) != label
+    out, label = inputs[0], inputs[1]
+    err = (torch.argmax(out.value, dim=-1) != _label_ids(label)).to(
+        torch.promote_types(out.value.dtype, torch.float32))
+    return _finish_cost(cfg, err, out, inputs[2] if len(inputs) > 2 else None)

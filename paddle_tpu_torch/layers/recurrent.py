@@ -1,5 +1,5 @@
-"""Recurrent layers: lstmemory and gated_recurrent (the whole sequence),
-gru_step (one step).
+"""Recurrent layers: recurrent, lstmemory and gated_recurrent (the whole
+sequence), lstm_step and gru_step (one step of a recurrent group).
 
 Layout contracts (from config_parser LstmLayer/GatedRecurrentLayer):
 - lstmemory: the input is the 4*size x-projection, the recurrent weight
@@ -39,6 +39,7 @@ from paddle_tpu_torch.layers.base import LayerContext, register_layer
 from paddle_tpu_torch.ops import fused_gru as fg
 from paddle_tpu_torch.ops import fused_lstm as fl
 from paddle_tpu_torch.ops.fused_gru import fused_gru, gru_cell
+from paddle_tpu_torch.ops.activations import apply_activation
 from paddle_tpu_torch.ops.fused_lstm import fused_lstm
 from paddle_tpu_torch.proto import LayerConfig
 
@@ -111,4 +112,49 @@ def gru_step_layer(cfg: LayerConfig, inputs: List[Argument], ctx: LayerContext) 
     # inputs: [x-projection 3*size, previous output]
     w, bias = _weights(cfg, ctx, 3)
     h = gru_cell_step(cfg, inputs[0].value, inputs[1].value, w, bias)
+    return Argument(value=h, seq_lengths=inputs[0].seq_lengths)
+
+
+@register_layer("recurrent")
+def recurrent_layer(cfg: LayerConfig, inputs: List[Argument], ctx: LayerContext) -> Argument:
+    """The simple RNN, h_t = act(x_t + h_{t-1} w + b), as an eager loop over
+    time (the JAX package's ``lax.scan``): a padded step passes the state
+    through and outputs zeros."""
+    a = inputs[0]
+    x = a.value.transpose(0, 1)                                 # [T, B, size]
+    mask = _time_major_mask(a, a.value)[..., None]              # [T, B, 1]
+    w = ctx.param(cfg.inputs[0].input_parameter_name).reshape(cfg.size, cfg.size)
+    if cfg.bias_parameter_name:
+        x = x + ctx.param(cfg.bias_parameter_name).reshape(-1)
+    T = x.shape[0]
+    h = x.new_zeros(x.shape[1], cfg.size)
+    ys = [None] * T
+    for t in (range(T - 1, -1, -1) if cfg.reversed else range(T)):
+        h_new = apply_activation(cfg.active_type, x[t] + h @ w)
+        ys[t] = h_new * mask[t]
+        h = mask[t] * h_new + (1.0 - mask[t]) * h
+    return Argument(value=torch.stack(ys).transpose(0, 1), seq_lengths=a.seq_lengths)
+
+
+@register_layer("lstm_step")
+def lstm_step_layer(cfg: LayerConfig, inputs: List[Argument], ctx: LayerContext) -> Argument:
+    """One LSTM step inside a recurrent group: inputs [x-projection 4*size,
+    previous cell state]. The output is the hidden state; the new cell
+    state is published as "<name>@state" for get_output(arg_name='state').
+    A step layer has no recurrent weight: the gates are x (+ bias)."""
+    x4, c_prev = inputs[0].value, inputs[1].value
+    H = cfg.size
+    if cfg.bias_parameter_name:
+        bias = ctx.param(cfg.bias_parameter_name).reshape(-1)
+        x4 = x4 + bias[:4 * H]
+        peep_i, peep_f, peep_o = bias[4 * H:5 * H], bias[5 * H:6 * H], bias[6 * H:7 * H]
+    else:
+        peep_i = peep_f = peep_o = x4.new_zeros(H)
+    gate = cfg.active_gate_type or "sigmoid"
+    i = apply_activation(gate, x4[..., H:2 * H] + peep_i * c_prev)
+    f = apply_activation(gate, x4[..., 2 * H:3 * H] + peep_f * c_prev)
+    c = f * c_prev + i * apply_activation(cfg.active_type or "tanh", x4[..., :H])
+    o = apply_activation(gate, x4[..., 3 * H:] + peep_o * c)
+    h = o * apply_activation(cfg.active_state_type or "sigmoid", c)
+    ctx.outputs[f"{cfg.name}@state"] = Argument(value=c, seq_lengths=inputs[0].seq_lengths)
     return Argument(value=h, seq_lengths=inputs[0].seq_lengths)

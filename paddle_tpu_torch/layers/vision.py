@@ -1,8 +1,8 @@
-"""Vision layers: conv, pool and batch norm, over NHWC tensors.
+"""Vision layers: conv, pool, batch norm and cross-map norm over NHWC
+tensors, blockexpand, featmap_expand, resize, and the mixed layer's conv
+operator.
 
-Port of ``paddle_tpu/layers/vision.py`` (conv, pool, batch_norm; ``norm``,
-``blockexpand``, ``featmap_expand``, ``resize`` and the mixed layer's conv
-operator are later slices). The data contract is the JAX package's: images
+Port of ``paddle_tpu/layers/vision.py``. The data contract is the JAX package's: images
 flow between layers as flat NCHW rows [B, C*H*W], and the conv family
 publishes its output's contiguous NHWC tensor in ``LayerContext.nhwc`` and
 prefers consuming it. Where XLA drops a flat value that nobody reads, eager
@@ -396,3 +396,61 @@ def batch_norm_layer(cfg: LayerConfig, inputs: List[Argument], ctx: LayerContext
         return Argument(value=apply_activation(cfg.active_type, y),
                         seq_lengths=a.seq_lengths)
     return Argument(value=apply_activation(cfg.active_type, y))
+
+
+def conv_operator_forward(op, inputs: List[Argument]) -> Tensor:
+    """ConvOperator in a mixed layer: conv(image, filters), where the second
+    input's row *is* each sample's filter bank [F, C/groups, k, k]. One
+    grouped conv over the batch folded into the channels: B * groups
+    groups. Returns the flat NCHW output [B, F*Ho*Wo]."""
+    cc = op.conv_conf
+    x = inputs[0].value
+    B = x.shape[0]
+    k, F_ = cc.filter_size, op.num_filters
+    xs = x.reshape(1, B * cc.channels, cc.img_size, cc.img_size)
+    wf = inputs[1].value.reshape(B * F_, cc.filter_channels, k, k)
+    y = F.conv2d(xs, wf, stride=cc.stride, padding=cc.padding, groups=B * cc.groups)
+    return y.reshape(B, -1)
+
+
+@register_layer("norm", "norm-projection")
+def norm_layer(cfg: LayerConfig, inputs: List[Argument], ctx: LayerContext) -> Argument:
+    # cmrnorm-projection, cross-map local response normalisation:
+    # y = x / (1 + scale * sum_window x^2)^pow over `size` channels around
+    # each one (NormConfig.scale already holds scale / size)
+    nc = cfg.inputs[0].norm_conf
+    x = _take_nhwc(ctx, cfg.inputs[0].input_layer_name, inputs[0],
+                   nc.channels, nc.img_size, nc.img_size)
+    half = nc.size // 2
+    sq = F.pad(x * x, (half, nc.size - 1 - half))                       # channels padded
+    acc = sq.unfold(-1, nc.size, 1).sum(-1)                             # [B, H, W, C]
+    return _publish_nhwc(ctx, cfg, x / torch.pow(1.0 + nc.scale * acc, nc.pow))
+
+
+@register_layer("blockexpand")
+def block_expand_layer(cfg: LayerConfig, inputs: List[Argument], ctx: LayerContext) -> Argument:
+    # sliding blocks as a sequence of flattened patches, output_x * output_y
+    # steps an image, each step C*by*bx wide in (channel, y, x) order
+    bc = cfg.inputs[0].block_expand_conf
+    x = _take_nhwc(ctx, cfg.inputs[0].input_layer_name, inputs[0],
+                   bc.channels, bc.img_size_y, bc.img_size_x)
+    patches = F.unfold(x.permute(0, 3, 1, 2), (bc.block_y, bc.block_x),
+                       padding=(bc.padding_y, bc.padding_x),
+                       stride=(bc.stride_y, bc.stride_x))                # [B, C*by*bx, L]
+    B, _, L = patches.shape
+    return Argument(value=patches.transpose(1, 2),
+                    seq_lengths=torch.full((B,), L, dtype=torch.int32, device=x.device))
+
+
+@register_layer("featmap_expand")
+def featmap_expand_layer(cfg: LayerConfig, inputs: List[Argument], ctx: LayerContext) -> Argument:
+    # the features tiled num_filters times
+    a = inputs[0]
+    out = a.value.repeat(*([1] * (a.value.dim() - 1)), cfg.num_filters)
+    return Argument(value=out, seq_lengths=a.seq_lengths)
+
+
+@register_layer("resize")
+def resize_layer(cfg: LayerConfig, inputs: List[Argument], ctx: LayerContext) -> Argument:
+    # the rows read with a new feature width
+    return Argument(value=inputs[0].value.reshape(-1, cfg.size))

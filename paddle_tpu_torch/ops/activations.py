@@ -1,9 +1,9 @@
 """Activation functions, registered by the names the config DSL emits.
 
-The port has the seqToseq graphs' five and ``relu``, which the LSTM
-kernels take in each of their activation slots. ``sequence_softmax``
-normalizes over the *time* axis of a padded sequence using the validity
-mask, as the JAX package's does.
+Every activation of the JAX package, each a plain PyTorch function
+(autograd gives the backward). ``sequence_softmax`` normalizes over the
+*time* axis of a padded sequence using the validity mask, as the JAX
+package's does.
 """
 
 from __future__ import annotations
@@ -33,9 +33,26 @@ def is_elementwise(name: str) -> bool:
     return name in ELEMENTWISE_ACTS
 
 
+def stanh(x: Tensor) -> Tensor:
+    # scaled tanh, 1.7159 * tanh(2/3 x) (LeCun), the reference's STanh
+    return 1.7159 * torch.tanh((2.0 / 3.0) * x)
+
+
+def brelu(x: Tensor) -> Tensor:
+    # bounded relu: clipped to [0, 24], the reference's BRelu bound
+    return torch.clamp(x, 0.0, 24.0)
+
+
+def softrelu(x: Tensor) -> Tensor:
+    # log(1 + e^x) with the reference's +-40 input clamp
+    return torch.log1p(torch.exp(torch.clamp(x, -40.0, 40.0)))
+
+
 for _name, _fn in (("", identity), ("linear", identity),
                    ("sigmoid", torch.sigmoid), ("tanh", torch.tanh),
-                   ("relu", torch.relu)):
+                   ("stanh", stanh), ("relu", torch.relu), ("brelu", brelu),
+                   ("softrelu", softrelu), ("abs", torch.abs),
+                   ("square", lambda x: x * x), ("exponential", torch.exp)):
     activation_registry.register_obj(_name, lambda x, mask=None, _f=_fn: _f(x))
     ELEMENTWISE_ACTS.add(_name)
 

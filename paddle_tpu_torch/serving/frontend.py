@@ -306,6 +306,16 @@ def main(rest: List[str]) -> int:
     # the result line so the router can re-correlate the echo
     pending: List[Tuple[str, Any, str]] = []
     plock = cc.Lock()
+    # one printer at a time: the main loop, the reader's error lines and
+    # the hang's answer flush (the hangwatch thread) all print results. A
+    # line is one write, and a flush holds the lock from the pop to the
+    # print, so lines never run together and keep submission order
+    olock = cc.RLock()
+
+    def _answer(doc: Dict[str, Any]) -> None:
+        with olock:
+            sys.stdout.write(json.dumps(doc) + "\n")
+            sys.stdout.flush()
     eof = cc.Event()
     n_lines = [0]   # reader progress — the drain path waits for it to
     # go quiet before the final flush (lines the client already piped
@@ -344,9 +354,8 @@ def main(rest: List[str]) -> int:
                 doc, err, rid = _parse_line(line, n)
                 n += 1
                 if doc is None:
-                    print(json.dumps({"id": rid,
-                                      "outcome": "error", "tokens": [],
-                                      "error": err}), flush=True)
+                    _answer({"id": rid, "outcome": "error", "tokens": [],
+                             "error": err})
                 else:
                     trace = str(doc.get("trace_id") or "")
                     accepted = True
@@ -388,28 +397,29 @@ def main(rest: List[str]) -> int:
 
     def _flush_pending(block: bool) -> None:
         while True:
-            with plock:
-                if not pending:
-                    return
-                rid, fut, trace = pending[0]
-                if not block and not fut.done():
-                    return
-                pending.pop(0)
-            res = fut.result(timeout=600.0)
-            out = {"id": rid, "outcome": res.outcome, "tokens": res.tokens}
-            if trace:
-                # echoed verbatim — the propagation contract
-                out["trace_id"] = trace
-            if res.error:
-                out["error"] = res.error
-            if res.retry_after_s is not None:
-                # shed answers hint when capacity is expected back
-                out["retry_after_s"] = res.retry_after_s
-            print(json.dumps(out), flush=True)
-            if journal is not None:
-                # done-mark AFTER the print: a crash in between re-
-                # answers this request on restart (at-least-once)
-                journal.answer(rid, res.outcome)
+            with olock:
+                with plock:
+                    if not pending:
+                        return
+                    rid, fut, trace = pending[0]
+                    if not block and not fut.done():
+                        return
+                    pending.pop(0)
+                res = fut.result(timeout=600.0)
+                out = {"id": rid, "outcome": res.outcome, "tokens": res.tokens}
+                if trace:
+                    # echoed verbatim — the propagation contract
+                    out["trace_id"] = trace
+                if res.error:
+                    out["error"] = res.error
+                if res.retry_after_s is not None:
+                    # shed answers hint when capacity is expected back
+                    out["retry_after_s"] = res.retry_after_s
+                _answer(out)
+                if journal is not None:
+                    # done-mark AFTER the print: a crash in between re-
+                    # answers this request on restart (at-least-once)
+                    journal.answer(rid, res.outcome)
 
     if hangwatch is not None:
         # the hang exit (monitor thread) resolves every future

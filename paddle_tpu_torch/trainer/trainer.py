@@ -56,6 +56,7 @@ from paddle_tpu_torch.device import DeviceLike
 from paddle_tpu_torch.graph.argument import Argument
 from paddle_tpu_torch.graph.machine import GradientMachine
 from paddle_tpu_torch.graph.recurrent_group import beams_of
+from paddle_tpu_torch.layers.base import fold_seed
 from paddle_tpu_torch.optimizer.updater import Updater
 from paddle_tpu_torch.resilience import NonFiniteLossError
 from paddle_tpu_torch.trainer import checkpoint as ckpt
@@ -139,6 +140,9 @@ class Trainer:
         # dropout draws from a generator of the trainer's seed
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(int(flags.seed))
+        # steps taken by train_one_batch, outside a pass: each is seeded
+        # from its own count, as a pass's batches are from their ids
+        self._loose_steps = 0
         self.start_pass = flags.start_pass or config.start_pass
         self.save_dir = flags.save_dir or config.save_dir
         # per-pass held-out results appended by train(): [(pass_id, {...})]
@@ -206,10 +210,13 @@ class Trainer:
     def batch_size(batch: Batch) -> int:
         return next(iter(batch.values())).batch_size
 
-    def _step(self, batch: Batch):
+    def _step(self, batch: Batch, seed: int):
         """One step: gradients, then the update, then the state updates.
-        Returns the batch's loss (a device scalar) and the layer outputs."""
-        loss, grads, outputs, state_updates = self._grad_fn(self.params, batch, self.generator)
+        ``seed`` is the step's, for the layers that draw ids (sampling_id,
+        nce). Returns the batch's loss (a device scalar) and the layer
+        outputs."""
+        loss, grads, outputs, state_updates = self._grad_fn(self.params, batch, self.generator,
+                                                            seed)
         self.params, self.opt_state = self.updater(self.params, grads, self.opt_state,
                                                    self.batch_size(batch))
         self.params.update(state_updates)
@@ -218,7 +225,8 @@ class Trainer:
     def train_one_batch(self, batch: Batch) -> torch.Tensor:
         """One step on a batch on the trainer's device; returns its loss as
         a (device) scalar tensor."""
-        return self._step(batch)[0]
+        self._loose_steps += 1
+        return self._step(batch, fold_seed(self.flags.seed, -1, self._loose_steps))[0]
 
     # ------------------------------------------------------------- data
 
@@ -305,7 +313,7 @@ class Trainer:
         batch_id = 0
         for batch in self._device_batches(provider.batches()):
             n = self.batch_size(batch)
-            loss, outputs = self._step(batch)
+            loss, outputs = self._step(batch, fold_seed(flags.seed, pass_id, batch_id))
             loss_f = float(loss)
             if not np.isfinite(loss_f):
                 # the reference's FP trap (TrainerMain.cpp:96); the JAX

@@ -228,14 +228,16 @@ def test_max_pooling_refuses_what_is_not_ported():
     from paddle_tpu_torch.proto import ModelConfig
 
     ctx = LayerContext(params={}, model=ModelConfig())
-    a = Argument(value=torch.zeros(2, 3, 4), seq_lengths=torch.tensor([3, 1], dtype=torch.int32))
+    # output_max_index gives each feature's step of its
+    # maximum over the valid steps
+    x = torch.tensor([[[0., 5.], [2., 1.], [1., 9.]], [[3., 0.], [7., 8.], [9., 9.]]])
+    a = Argument(value=x, seq_lengths=torch.tensor([3, 1], dtype=torch.int32))
     cfg = _max_cfg()
     cfg.output_max_index = True
-    with pytest.raises(NotImplementedError, match="output_max_index"):
-        max_layer(cfg, [a], ctx)
+    assert max_layer(cfg, [a], ctx).ids.tolist() == [[1, 2], [0, 0]]
     nested = Argument(value=torch.zeros(2, 2, 3, 4), seq_lengths=torch.tensor([2, 1]),
                       sub_seq_lengths=torch.ones(2, 2, dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="nested"):
+    with pytest.raises(NotImplementedError, match="nested.*ROADMAP Queue 1 item 5"):
         max_layer(_max_cfg(), [nested], ctx)
 
 
