@@ -117,6 +117,41 @@ Phases, each printing one JSON object per line:
              wall ms a batch, the host ms a batch in the feeder (provider
              and pool; packers) and in the transfer to the card, peak
              device memory, and the test and gen walls.
+3c'. pass_loop — the pass loop's resilience and telemetry on the cli
+             phase's workspace and width, through paddle_tpu_torch.cli.main
+             in this process and `python -m paddle_tpu_torch` children,
+             from the same checkpoint of init_params(seed=1). Launch groups:
+             `train` 1 pass at batches_per_launch=4 against 1, over 2,048
+             pairs of 32 source and 32 target words (32 batches of 64, so
+             8 groups): every batch's cost within 1e-6 relative, the
+             parameters within 1e-5 of scale, 8 loss reads a pass against
+             32, the mean batch walls, and the groups that form on the
+             cli phase's variable-length corpus. Accumulation through
+             Trainer: nmt_batch(B=64, T=32, seed=1) as 4 batches of 16 with
+             num_batches_per_send_parameter=4 against the 64 rows at once,
+             momentum-SGD parameters within rtol 2e-4 / atol 2e-5 and
+             kernels 2, 3, 5 and 6 launched 8, 8, 4 and 4 times; Adam's
+             parameters and the mean gradient by parameter reported (Adam's
+             first step and a cancelling gradient amplify float32 sum
+             order). Non-finite, on the first 256 pairs: a poisoned loss
+             under skip finishes; a NaN planted in the first encoder GRU
+             layer is blamed (params phase) under skip (which cannot undo
+             a poisoned weight: the run dies after --max_nonfinite_steps),
+             under abort (the error names it) and under rollback with
+             --saving_period_by_batches (restored, learning rate tempered,
+             fast-forwarded, completed). Exit codes, as children: a
+             supervised child stalled in pass 1 exits 19 with
+             hang_report.json and its restart from --init_model_path=auto
+             completes (rc 0); a child SIGTERM'd mid-run exits 18 with a
+             checkpoint that verifies; trainer.oom=raise@2 returns 20 with
+             oom_report.json. Telemetry: the single-launch run again with
+             the records, --numerics_log_period=8 and a profiler window
+             over batches 2-3 (every record validates, pass_end carries
+             model TFLOP/s and MFU, the first step's FLOP count equals the
+             CPU's for the same batch within 1e-6, the Chrome trace names
+             kernels 2, 3, 5 and 6, `paddle metrics` renders one row a
+             pass, one StatSet dump a pass), the numerics' ms a batch
+             against the run without them; one line with every number.
 3d. layers — the layer library's tail on the card against the port on
              the CPU (the same code, float32, TF32 off), one line a part:
              quick_start's text CNN (demo/quick_start/trainer_config.cnn.py
@@ -234,7 +269,7 @@ Phases, each printing one JSON object per line:
              or 12); a B = 2, T = 256 batch's cost (1e-4 relative) and
              classification_error (equal) against the CPU.
 
-Every main path (3, 3b, 3c, 4, 6, 7, 9, 10, 12, 13) runs between zeroed counts of
+Every main path (3, 3b, 3c, 3c', 4, 6, 7, 9, 10, 12, 13) runs between zeroed counts of
 the layers' eager routes too (gated_recurrent, lstmemory, full_attention,
 the attention decoder group's loop, and the 1x1 convs whose shape kernel 9
 refuses: the EAGER_ROUTES of the ops modules) and fails if any layer took
@@ -254,6 +289,7 @@ package beside this script, it fails the same way.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -1880,6 +1916,511 @@ def host_step_walls(step_t, pass_end, n_batches):
     return walls
 
 
+
+# the pass_loop phase: the cli phase's workspace and width; the corpora it
+# cuts (each listed in the phase's line) keep its budget
+PASS_LOOP = dict(fixed_len=32, fixed_pairs=2048, fuse=4, cut_pairs=256, test_pairs=64,
+                 numerics_period=8, profile_start=2, profile_batches=2, hang_timeout=8,
+                 child_timeout=300)
+# kernels 2, 3, 5 and 6 by their symbols in a profiler trace
+TRAIN_SYMBOLS = {"gru_fwd_train": r"(?<!\w)gru_fwd_kernel<true>",
+                 "gru_bwd": r"(?<!\w)gru_bwd_kernel(?!\w)",
+                 "attention_gru_fwd_train": r"(?<!\w)attention_gru_fwd_kernel<true>",
+                 "attention_gru_bwd": r"(?<!\w)attention_gru_bwd_kernel(?!\w)"}
+
+
+def loop_workspace(ws, name, train_lines, test_lines, settings=""):
+    """A directory of its own with the demo's provider and net, the train
+    config at full width (``settings`` added to its settings()), and the
+    given corpus lines."""
+    import shutil
+
+    d = os.path.join(ws, name)
+    os.makedirs(d)
+    for f in ("dataprovider.py", "seqToseq_net.py"):
+        shutil.copy(os.path.join(ws, f), d)
+    with open(os.path.join(ws, "train_full.conf")) as f:
+        text = f.read()
+    if settings:
+        old = "gradient_clipping_threshold=10.0,"
+        assert text.count(old) == 1
+        text = text.replace(old, f"{old}\n    {settings},")
+    with open(os.path.join(d, "train_full.conf"), "w") as f:
+        f.write(text)
+    for split, lines in (("train", train_lines), ("test", test_lines)):
+        with open(os.path.join(d, f"{split}.txt"), "w") as f:
+            f.writelines(lines)
+        with open(os.path.join(d, f"{split}.list"), "w") as f:
+            f.write(f"{split}.txt\n")
+    return d
+
+
+@contextlib.contextmanager
+def in_dir(path):
+    old = os.getcwd()
+    os.chdir(path)
+    try:
+        yield
+    finally:
+        os.chdir(old)
+
+
+def cli_rc(argv, cwd):
+    """One in-process call of the port's command line from ``cwd``, from the
+    flags' defaults; the flags and the fault injector are put back after.
+    Returns (exit code, the error it raised or None, wall seconds)."""
+    from paddle_tpu_torch import cli
+    from paddle_tpu_torch.observability import metrics as obs
+    from paddle_tpu_torch.resilience import faultinject
+    from paddle_tpu_torch.utils.flags import FLAGS, _Flags
+
+    saved = dict(vars(FLAGS))
+    vars(FLAGS).update(vars(_Flags()))
+    obs.registry().reset()           # the counters a new process starts from
+    t0 = time.perf_counter()
+    rc, err = None, None
+    with in_dir(cwd):
+        try:
+            rc = cli.main(argv)
+        except Exception as e:  # noqa: BLE001 — the caller asserts on it
+            err = e
+        finally:
+            vars(FLAGS).update(saved)
+            faultinject.configure("")
+            # an error leaves its records buffered; the writer's path is
+            # relative to this directory
+            obs.flush()
+    return rc, err, time.perf_counter() - t0
+
+
+def run_records(run_dir):
+    from paddle_tpu_torch.observability import metrics as obs
+
+    return [r for path in obs.metrics_files(run_dir) for r in obs.read_records(path)]
+
+
+def loop_child(argv, cwd, log):
+    """A ``python -m paddle_tpu_torch`` child on the card, started now, its
+    output into the file ``log`` (a pipe nobody reads yet would fill)."""
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    with open(log, "w") as f:
+        # a session of its own: stop_children ends the child's own children too
+        return subprocess.Popen([sys.executable, "-m", "paddle_tpu_torch", *argv], cwd=cwd,
+                                env=env, stdout=f, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+
+
+def stop_children(*procs):
+    """Kill what is left of each child's session (after a failed check)."""
+    import signal
+
+    for proc in procs:
+        if proc is not None and proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+
+
+def child_end(proc, log, timeout):
+    """Wait for a child; returns its exit code and output."""
+    proc.wait(timeout=timeout)
+    with open(log) as f:
+        return proc.returncode, f.read()
+
+
+class LogLines:
+    """The port's log lines while it is attached."""
+
+    def __init__(self):
+        import logging
+
+        self.lines = []
+        self.handler = logging.Handler()
+        self.handler.emit = lambda record: self.lines.append(record.getMessage())
+        self.logger = logging.getLogger("paddle_tpu")
+        self.logger.addHandler(self.handler)
+
+    def close(self):
+        self.logger.removeHandler(self.handler)
+
+
+def split_rows(batch, parts):
+    """A batch cut into ``parts`` batches of consecutive rows."""
+    import dataclasses
+
+    from paddle_tpu_torch.graph import Argument
+
+    B = next(iter(batch.values())).batch_size
+    n = B // parts
+    return [{name: Argument(**{f.name: None if getattr(a, f.name) is None
+                               else getattr(a, f.name)[i * n:(i + 1) * n]
+                               for f in dataclasses.fields(a)})
+             for name, a in batch.items()} for i in range(parts)]
+
+
+def params0_nmt(gm):
+    """init_params(seed=1) of an nmt_config machine, drawn on the CPU."""
+    from paddle_tpu_torch.graph import GradientMachine
+
+    return GradientMachine(gm.model, device="cpu").init_params(seed=1)
+
+
+def accumulate(torch, dev, kernels, big, method):
+    """nmt_config with ``method``, from init_params(seed=1): ``big``'s rows
+    as 4 batches of 16 at num_batches_per_send_parameter=4, and as one
+    batch. Returns both parameter sets (numpy) and the first run's kernel
+    launches."""
+    from paddle_tpu_torch.flagship import nmt_config
+    from paddle_tpu_torch.trainer import Trainer
+    from paddle_tpu_torch.utils.flags import _Flags
+
+    out = []
+    for parts in (4, 1):
+        tc = nmt_config(vocab=CLI["vocab"], dim=CLI["dim"], batch_size=64 // parts)
+        tc.opt_config.learning_method = method
+        tc.opt_config.num_batches_per_send_parameter = parts
+        t = Trainer(tc, _Flags())
+        t.params = {k: v.to(dev) for k, v in params0_nmt(t.gm).items()}
+        t.opt_state = t.updater.init_state(t.params)
+        for part in split_rows(big, parts):
+            t.train_one_batch(part)
+        torch.cuda.synchronize()
+        if parts == 4:
+            launches, _ = read_counts(kernels)
+        out.append({k: v.cpu().numpy() for k, v in t.params.items()})
+    return out, launches
+
+
+def phase_pass_loop(torch, dev, kernels):
+    """The pass loop's launch groups, accumulation, non-finite policies,
+    exit codes and telemetry on the card (see the module docstring, 3c')."""
+    import io
+    import signal
+    import tempfile
+
+    from paddle_tpu_torch import cli
+    from paddle_tpu_torch.config import parse_config
+    from paddle_tpu_torch.data.feeder import create_data_provider
+    from paddle_tpu_torch.flagship import nmt_batch, nmt_config
+    from paddle_tpu_torch.graph import GradientMachine
+    from paddle_tpu_torch.observability import metrics as obs
+    from paddle_tpu_torch.ops import kernel_flops
+    from paddle_tpu_torch.resilience import EXIT_HANG, EXIT_OOM, EXIT_PREEMPTED
+    from paddle_tpu_torch.trainer import Trainer
+    from paddle_tpu_torch.trainer import checkpoint as ckpt
+    from paddle_tpu_torch.utils.flags import _Flags
+
+    t_phase = time.perf_counter()
+    PL = PASS_LOOP
+    with tempfile.TemporaryDirectory() as ws:
+        args, words = cli_workspace(ws)
+        dict_path = os.path.join(ws, "dict.txt")
+        args = f"--config_args=src_dict={dict_path},trg_dict={dict_path}"
+        with open(os.path.join(ws, "train.txt")) as f:
+            train_lines = f.readlines()
+        with open(os.path.join(ws, "test.txt")) as f:
+            test_lines = f.readlines()[:PL["test_pairs"]]
+        cut = loop_workspace(ws, "cut", train_lines[:PL["cut_pairs"]], test_lines)
+        cfg = parse_config(os.path.join(cut, "train_full.conf"), args[len("--config_args="):])
+        layer = next(l.name for l in cfg.model_config.layers if l.type == "gated_recurrent")
+        cpu = GradientMachine(cfg.model_config, device="cpu")
+        params0 = cpu.init_params(seed=1)
+        init = ckpt.save_checkpoint(os.path.join(ws, "init"), 0, params0)
+        base = ["--config=train_full.conf", args, f"--init_model_path={init}",
+                "--log_period=0", "--dot_period=0"]
+        n_cut = PL["cut_pairs"] // CLI["batch"]
+        runs = {}
+
+        # the exit-code drills run as children while this process works on
+        # the checks that time nothing
+        hang_argv = ["supervise", "--supervise_job=train", *base, "--save_dir=hang",
+                     "--supervise_dir=hang_sup", "--num_passes=2", "--restart_base_delay=0.01",
+                     f"--step_hang_timeout={PL['hang_timeout']}",
+                     f"--fault_spec=trainer.stall=sleep:3600@{n_cut + 1}"]
+        t_children = time.perf_counter()
+        hang_log, pre_log = os.path.join(ws, "hang.log"), os.path.join(ws, "pre.log")
+        hang = loop_child(hang_argv, cut, hang_log)
+        pre = loop_child(["train", *base, "--save_dir=pre", "--num_passes=1000"], cut, pre_log)
+        try:
+            # accumulation through Trainer: 4 x 16 rows against the 64 at once
+            big = nmt_batch(vocab=CLI["vocab"], B=64, T=TRAIN["T"], seed=1, device=dev)
+            accumulation = {}
+            for method in ("momentum", "adam"):
+                zero_counts(kernels)
+                acc, launches = accumulate(torch, dev, kernels, big, method)
+                # the largest |difference| over rtol 2e-4 * |p| + atol 2e-5, and
+                # the share of elements past it
+                ratio = {k: np.abs(acc[0][k] - acc[1][k]) / (2e-5 + 2e-4 * np.abs(acc[1][k]))
+                         for k in acc[1]}
+                accumulation[method] = {
+                    "max_err_over_tolerance": max(float(r.max()) for r in ratio.values()),
+                    "elements_past_tolerance": int(sum((r > 1).sum() for r in ratio.values())),
+                    "elements": int(sum(r.size for r in ratio.values())),
+                    "kernel_launches": {k: v for k, v in launches.items() if v}}
+                del acc
+            # the accumulated mean gradient against the batch's at one point,
+            # by parameter: the worst one, and the worst of the others
+            gm = GradientMachine(nmt_config(vocab=CLI["vocab"], dim=CLI["dim"]).model_config, dev)
+            p = {k: v.to(dev) for k, v in params0_nmt(gm).items()}
+            g_big = gm.grad_fn()(p, big)[1]
+            g_acc = None
+            for part in split_rows(big, 4):
+                g = gm.grad_fn()(p, part)[1]
+                g_acc = {k: v / 4 for k, v in g.items()} if g_acc is None else {
+                    k: g_acc[k] + v / 4 for k, v in g.items()}
+            errs = {k: float((g_acc[k] - g_big[k]).abs().max())
+                    / max(float(g_big[k].abs().max()), 1e-30) for k in g_big}
+            ranked = sorted(errs, key=errs.get, reverse=True)
+            accumulation["mean_gradient_max_err_over_scale"] = {
+                ranked[0]: errs[ranked[0]], "the other parameters": errs[ranked[1]]}
+            del gm, p, g_big, g_acc, big
+            assert accumulation["momentum"]["max_err_over_tolerance"] <= 1.0, accumulation
+            want = {k.symbol: 0 for k in kernels}
+            want.update(gru_fwd_train=8, gru_bwd=8, attention_gru_fwd_train=4, attention_gru_bwd=4)
+            assert accumulation["momentum"]["kernel_launches"] == {
+                k: v for k, v in want.items() if v}, accumulation
+
+            # the preemption, once the child saved a pass
+            deadline = time.monotonic() + PL["child_timeout"]
+            while time.monotonic() < deadline and pre.poll() is None and \
+                    ckpt.latest_pass(os.path.join(cut, "pre")) is None:
+                time.sleep(0.2)
+            assert pre.poll() is None, child_end(pre, pre_log, 1)
+            pre.send_signal(signal.SIGTERM)
+            pre_rc, pre_out = child_end(pre, pre_log, PL["child_timeout"])
+            pre_s = time.perf_counter() - t_children
+            assert pre_rc == EXIT_PREEMPTED, (pre_rc, pre_out[-3000:])
+            assert "preemption: checkpoint saved" in pre_out, pre_out[-3000:]
+            newest = ckpt.find_restorable_checkpoint(os.path.join(cut, "pre"))
+            assert newest is not None and ckpt.verify_checkpoint(newest) == []
+
+            # the OOM drill
+            logs = LogLines()
+            try:
+                rc, err, s = cli_rc(["train", *base, "--save_dir=oom", "--num_passes=1",
+                                     "--fault_spec=trainer.oom=raise@2"], cut)
+                assert rc == EXIT_OOM and err is None, (rc, err)
+                oom = json.load(open(os.path.join(cut, "oom", "oom_report.json")))
+                assert oom["reason"] == "oom" and oom["where"] == {"pass": 0, "step": 1}, oom
+                runs["oom"] = {"rc": rc, "s": s, "live": oom["live"]}
+
+                # the non-finite policies, blamed
+                nonfinite = {}
+                for name, policy, spec, extra, passes in (
+                        ("skip_loss", "skip", "trainer.nonfinite=raise@3", [], 1),
+                        ("skip_layer", "skip", f"trainer.nonfinite_layer=raise:{layer}@3",
+                         ["--max_nonfinite_steps=1"], 1),
+                        ("abort_layer", "abort", f"trainer.nonfinite_layer=raise:{layer}@3", [], 1),
+                        ("rollback_layer", "rollback",
+                         f"trainer.nonfinite_layer=raise:{layer}@{n_cut + 2}",
+                         ["--saving_period_by_batches=4"], 2)):
+                    save = f"nf_{name}"
+                    rc, err, s = cli_rc(["train", *base, f"--save_dir={save}",
+                                         f"--num_passes={passes}", f"--nonfinite_policy={policy}",
+                                         f"--fault_spec={spec}", *extra], cut)
+                    recs = [r for r in run_records(os.path.join(cut, save)) if r["kind"] == "nonfinite"]
+                    nonfinite[name] = {
+                        "rc": rc, "s": s, "error": None if err is None else str(err)[:200],
+                        "events": [(r["pass"], r["step"], r.get("blame_layer"), r.get("blame_phase"))
+                                   for r in recs]}
+                lines = list(logs.lines)
+            finally:
+                logs.close()
+            assert nonfinite["skip_loss"]["rc"] == 0, nonfinite["skip_loss"]
+            assert nonfinite["skip_loss"]["events"] == [(0, 2, None, None)], nonfinite
+            blamed = (layer, "params")
+            assert nonfinite["skip_layer"]["rc"] is None and all(
+                e[2:] == blamed for e in nonfinite["skip_layer"]["events"]), nonfinite
+            assert len(nonfinite["skip_layer"]["events"]) == 2, nonfinite
+            assert nonfinite["abort_layer"]["rc"] is None and f"layer {layer!r}" in \
+                nonfinite["abort_layer"]["error"], nonfinite
+            assert nonfinite["abort_layer"]["events"] == [(0, 2, *blamed)], nonfinite
+            assert nonfinite["rollback_layer"]["rc"] == 0 and \
+                nonfinite["rollback_layer"]["events"] == [(1, 1, *blamed)], nonfinite
+            assert any("rollback: non-finite loss at pass 1 batch 1" in l and "x0.5" in l
+                       for l in lines), "no rollback line"
+            assert any("fast-forwarding past the poison region (skipping batches < 2)" in l
+                       for l in lines)
+
+            # the hang drill
+            hang_rc, hang_out = child_end(hang, hang_log, PL["child_timeout"])
+            hang_s = time.perf_counter() - t_children
+            assert hang_rc == 0, (hang_rc, hang_out[-3000:])
+            assert f"rc={EXIT_HANG}" in hang_out, hang_out[-3000:]
+            hang_report = json.load(open(os.path.join(cut, "hang", "hang_report.json")))
+            assert hang_report["reason"] == "step_hang" and \
+                hang_report["last_progress"] == {"pass": 1, "step": 0}, hang_report
+            assert ckpt.verify_checkpoint(os.path.join(cut, "hang", "pass-00001")) == []
+            runs["hang_supervised"] = {"rc": hang_rc, "s": hang_s, "age_s": hang_report["age_s"]}
+            runs["preempt"] = {"rc": pre_rc, "s": pre_s, "checkpoint": os.path.basename(newest)}
+        finally:
+            stop_children(hang, pre)
+
+        # three runs of 1 pass over 32 batches of 32 + 32 words: launch groups
+        # of k = 4, single launches, and single launches with the records,
+        # the numerics table and a profiler window
+        rng = np.random.RandomState(2)
+
+        def fixed_sentence():
+            ids = np.minimum(rng.zipf(CLI["zipf"], size=PL["fixed_len"]) + 2, CLI["vocab"] - 1)
+            return " ".join(words[i] for i in ids)
+
+        fixed_lines = [f"{fixed_sentence()}\t{fixed_sentence()}\n"
+                       for _ in range(PL["fixed_pairs"])]
+        n_fixed = PL["fixed_pairs"] // CLI["batch"]
+        window = set(range(PL["profile_start"], PL["profile_start"] + PL["profile_batches"]))
+        fixed, first_flops = {}, []
+        counted = Trainer._counted_step
+
+        def counted_spy(trainer, batch, seed):
+            out = counted(trainer, batch, seed)
+            if not first_flops:
+                first_flops.append(next(iter(trainer._flops_cache.values())))
+            return out
+
+        Trainer._counted_step = counted_spy
+        try:
+            for name, k, extra in (
+                    ("fused", PL["fuse"], []), ("unfused", 1, []),
+                    ("telemetry", 1, [f"--numerics_log_period={PL['numerics_period']}",
+                                      "--profile_dir=prof", "--log_period=8",
+                                      f"--profile_start_batch={PL['profile_start']}",
+                                      f"--profile_num_batches={PL['profile_batches']}"])):
+                d = loop_workspace(ws, name, fixed_lines, test_lines,
+                                   settings=f"batches_per_launch={k}")
+                probe, logs = CliProbe(), LogLines()
+                try:
+                    zero_counts(kernels)
+                    rc, err, s = cli_rc(["train", *base, "--save_dir=out", "--num_passes=1",
+                                         *extra], d)
+                    torch.cuda.synchronize()
+                    launches, _ = read_counts(kernels)
+                    losses = [float(x) for x in probe.losses]
+                    walls = host_step_walls(list(probe.step_t), list(probe.pass_end), n_fixed)
+                    copies = len(probe.copy_t)
+                    stat_dumps = sum("=== StatSet global ===" in l for l in logs.lines)
+                finally:
+                    probe.close()
+                    logs.close()
+                assert rc == 0 and err is None, (name, rc, err)
+                recs = run_records(os.path.join(d, "out"))
+                params = ckpt.load_checkpoint(os.path.join(d, "out", "pass-00000"),
+                                              device="cpu")[0]
+                fixed[name] = {"rc": rc, "s": s, "losses": losses, "walls": walls,
+                               "end": [r for r in recs if r["kind"] == "pass_end"][0],
+                               "records": recs, "dir": d, "stat_dumps": stat_dumps,
+                               "params": {n: v.numpy() for n, v in params.items()},
+                               "launches": launches, "evaluator_copies": copies}
+        finally:
+            Trainer._counted_step = counted
+        fk, f1, tel = fixed["fused"], fixed["unfused"], fixed["telemetry"]
+        assert (fk["end"]["launches_fused"], fk["end"]["launches_single"]) == (
+            n_fixed // PL["fuse"], 0), fk["end"]
+        assert (f1["end"]["launches_fused"], f1["end"]["launches_single"]) == (0, n_fixed)
+        assert len(fk["losses"]) == len(f1["losses"]) == n_fixed
+        cost_err = max(abs(a - b) / abs(b) for a, b in zip(fk["losses"], f1["losses"]))
+        assert cost_err <= 1e-6, cost_err
+        param_err = max(float(np.max(np.abs(fk["params"][n] - f1["params"][n]))
+                              / max(float(np.max(np.abs(f1["params"][n]))), 1e-30))
+                        for n in f1["params"])
+        assert param_err <= 1e-5, param_err
+        assert fk["launches"] == f1["launches"], (fk["launches"], f1["launches"])
+        # the groups of 4 the variable-length corpus forms: its batches'
+        # shape signatures, replayed on the host
+        with in_dir(ws):
+            replay = create_data_provider(cfg.data_config, CLI["batch"],
+                                          cfg.model_config.input_layer_names, seed=1)
+            sigs = [Trainer._shape_sig(b) for b in replay.batches()]
+        variable_groups, run = 0, 0
+        for i, sig in enumerate(sigs):
+            run = run + 1 if i and sig == sigs[i - 1] and run < PL["fuse"] else 1
+            variable_groups += run == PL["fuse"]
+
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            metrics_rc = cli.main(["metrics", os.path.join(tel["dir"], "out")])
+        # the pass table: the rows under its header, to the first blank line
+        table = out.getvalue().splitlines()
+        head = next(i for i, l in enumerate(table) if l.split()[:2] == ["pass", "samples"])
+        metrics_rows = []
+        for l in table[head + 1:]:
+            if not l.strip():
+                break
+            metrics_rows.append(l.split())
+        with open(os.path.join(tel["dir"], "prof", "trace-pass00000.json")) as f:
+            trace = json.load(f)
+        names = [e.get("name", "") for e in trace.get("traceEvents", [])
+                 if e.get("cat") == "kernel"]
+        traced = {k: sum(1 for n in names if re.search(sym, n))
+                  for k, sym in TRAIN_SYMBOLS.items()}
+
+        # the first step's FLOPs on the CPU, the same batch
+        with in_dir(tel["dir"]):
+            replay = create_data_provider(cfg.data_config, CLI["batch"],
+                                          cfg.model_config.input_layer_names, seed=1)
+            first = next(iter(replay.batches()))
+        cpu_flops = kernel_flops.train_step_flops(cpu.grad_fn(), params0, first)
+
+    recs = tel["records"]
+    for r in recs:
+        assert obs.validate_record(r) == [], r
+    kinds = [r["kind"] for r in recs]
+    assert kinds[-1] == "run_end" and recs[-1]["status"] == "completed", kinds[-3:]
+    for kind in ("restart", "train_window", "numerics", "test", "pass_end"):
+        assert kind in kinds, kind
+    end = tel["end"]
+    assert "model_tflops_per_sec" in end and "mfu" in end, end
+    flops_err = abs(first_flops[0] - cpu_flops) / cpu_flops
+    assert flops_err <= 1e-6, (first_flops, cpu_flops)
+    assert all(traced.values()), traced
+    assert metrics_rc == 0 and [r[0] for r in metrics_rows] == ["0"], out.getvalue()
+    assert tel["stat_dumps"] == 1, tel["stat_dumps"]
+    # the batch walls, the profiled batches and the first left out of both
+    keep = [i for i in range(len(tel["walls"])) if i + 1 not in window]
+    med = {name: 1e3 * statistics.median([fixed[name]["walls"][i] for i in keep])
+           for name in ("unfused", "telemetry")}
+    mean = {name: 1e3 * statistics.mean(fixed[name]["walls"]) for name in ("fused", "unfused")}
+    line = {
+        "phase": "pass_loop",
+        "config": f"demo/seqToseq train.conf at width {CLI['dim']}, batch {CLI['batch']}, "
+                  "real mode, the cli phase's workspace",
+        "cuts": {"launch_groups_and_telemetry": f"{PL['fixed_pairs']} pairs of "
+                 f"{PL['fixed_len']} + {PL['fixed_len']} words, 1 pass a run",
+                 "nonfinite_exit_codes": f"the first {PL['cut_pairs']} train pairs",
+                 "test_passes": f"the first {PL['test_pairs']} test pairs"},
+        "launch_groups": {
+            "batches": n_fixed, "groups": fk["end"]["launches_fused"],
+            "loss_reads_per_pass": {"fused": fk["end"]["launches_fused"]
+                                    + fk["end"]["launches_single"],
+                                    "unfused": f1["end"]["launches_single"]},
+            "evaluator_copies_per_pass": fk["evaluator_copies"],
+            "cost_max_rel_err": cost_err, "param_max_err_over_scale": param_err,
+            # a group's 4 steps are enqueued back to back: its batches' walls
+            # are 3 short ones and one long, so the mean compares
+            "batch_wall_ms_mean": mean,
+            "batch_wall_ms_median_unfused": 1e3 * statistics.median(f1["walls"]),
+            "rc_s": {"fused": [fk["rc"], fk["s"]], "unfused": [f1["rc"], f1["s"]]},
+            "groups_on_the_variable_length_corpus": variable_groups,
+            "variable_length_batches": len(sigs)},
+        "accumulation": accumulation,
+        "nonfinite": nonfinite, "runs": runs,
+        "telemetry": {
+            "rc_s": [tel["rc"], tel["s"]], "mfu": end["mfu"],
+            "model_tflops_per_sec": end["model_tflops_per_sec"],
+            "flops_counted_steps": end.get("flops_counted_steps"),
+            "flops_count_ms": end.get("flops_count_ms"),
+            "first_step_flops": {"card": first_flops[0], "cpu": cpu_flops, "rel_err": flops_err},
+            "batch_wall_ms_median": {"with_numerics": med["telemetry"],
+                                     "without": med["unfused"]},
+            "numerics_cost_ms_per_batch": med["telemetry"] - med["unfused"],
+            "records": len(recs), "kinds": sorted(set(kinds)),
+            "numerics_records": kinds.count("numerics"),
+            "trace_kernel_events": traced, "metrics_rows": len(metrics_rows),
+            "stat_dumps": tel["stat_dumps"], "kernel_launches": tel["launches"]},
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    emit(line)
+    return line
+
 def demo_workspace(ws, demo, names, train, test):
     import shutil
 
@@ -3059,6 +3600,7 @@ def main() -> int:
     phase_serve_surface(torch, dev, kernels)
     beam = phase_beam(torch, dev, kernels)
     phase_cli(torch, dev, kernels)
+    phase_pass_loop(torch, dev, kernels)
     phase_layers(torch, dev)
     train = phase_train(torch, dev, kernels)
     lstm_train, trainer, batch, err_key, err_before = phase_lstm_train(torch, dev, kernels)

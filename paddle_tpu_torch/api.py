@@ -176,10 +176,11 @@ class GradientMachine:
             result.append(entry)
         return result
 
-    def forwardBackward(self, in_args, generator: Optional[torch.Generator] = None):
-        """One loss and gradient evaluation (custom training loops). Returns
-        (loss: float, grads: dict name -> numpy)."""
-        loss, grads, _, _ = self._core.grad_fn()(self.params, self._feed(in_args), generator)
+    def forwardBackward(self, in_args, seed: Optional[int] = None):
+        """One loss and gradient evaluation (custom training loops); ``seed``
+        draws the layers' random bits (dropout). Returns (loss: float,
+        grads: dict name -> numpy)."""
+        loss, grads, _, _ = self._core.grad_fn()(self.params, self._feed(in_args), seed)
         return float(loss), {k: v.detach().cpu().numpy() for k, v in grads.items()}
 
     # -- generation ------------------------------------------------------

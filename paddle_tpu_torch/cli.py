@@ -1,6 +1,6 @@
 """`paddle` command line of the port — train / test / gen / serve /
-serve-fleet / serve-status / serve-report / supervise / dump_config /
-version.
+serve-fleet / serve-status / serve-report / supervise / metrics / faults /
+dump_config / version.
 
 Port of ``paddle_tpu/cli.py`` (the role of the reference's TrainerMain and
 its `paddle` shell dispatcher, paddle/trainer/TrainerMain.cpp:35-110): the
@@ -20,8 +20,7 @@ import sys
 # subcommand -> the ROADMAP Queue 1 item that ports it
 NOT_PORTED = {
     "checkgrad": 7, "merge_model": 7, "check-checkpoint": 7, "check_checkpoint": 7,
-    "metrics": 8, "memory": 8, "roofline": 8, "compare": 8, "trace": 8, "lint": 8, "race": 8,
-    "faults": 9,
+    "memory": 8, "roofline": 8, "compare": 8, "trace": 8, "lint": 8, "race": 8,
 }
 
 
@@ -35,7 +34,7 @@ def main(argv=None) -> int:
     if not argv or argv[0] in ("-h", "--help", "help"):
         print(__doc__)
         print("usage: python -m paddle_tpu_torch <train|supervise|test|gen|serve|serve-fleet|"
-              "serve-status|serve-report|dump_config|version> [--flags]")
+              "serve-status|serve-report|metrics|faults|dump_config|version> [--flags]")
         return 0
     cmd, rest = argv[0], argv[1:]
     if cmd == "version":
@@ -71,6 +70,13 @@ def main(argv=None) -> int:
         from paddle_tpu_torch.observability.serving import main as serve_report_main
 
         return serve_report_main(rest)
+    if cmd == "metrics":
+        # the telemetry analyzer over a run dir's records; it needs no card
+        from paddle_tpu_torch.observability.analyze import main as metrics_main
+
+        return metrics_main(rest)
+    if cmd == "faults":
+        return _faults()
     if cmd in NOT_PORTED:
         print(f"paddle {cmd} is not ported to paddle_tpu_torch yet "
               f"(ROADMAP Queue 1 item {NOT_PORTED[cmd]})", file=sys.stderr)
@@ -87,6 +93,20 @@ def _version() -> int:
     print(f"paddle_tpu_torch {__version__} (torch {torch.__version__}, CUDA {torch.version.cuda})")
     names = [torch.cuda.get_device_name(i) for i in range(torch.cuda.device_count())]
     print(f"devices: {names}" if names else "devices: no CUDA device")
+    return 0
+
+
+def _faults() -> int:
+    """`paddle faults` — the fault-injection sites with their one-line
+    descriptions, for writing `--fault_spec` chaos specs."""
+    from paddle_tpu_torch.resilience.faultinject import SITE_DOCS
+
+    print("fault-injection sites (--fault_spec='site=action[:arg][@trigger]"
+          "[;...]', actions: raise | oserror | exit[:code] | sleep[:secs];"
+          " see doc/resilience.md):")
+    width = max(len(s) for s in SITE_DOCS)
+    for site, desc in SITE_DOCS.items():
+        print(f"  {site:<{width}}  {desc}")
     return 0
 
 
@@ -146,7 +166,25 @@ def _run_trainer_job(cmd, rest) -> int:
 
     trainer = Trainer(config, flags)
     if cmd == "train":
-        trainer.train()
+        try:
+            trainer.train()
+        except Exception as e:
+            from paddle_tpu_torch.observability.memory import OOM_REPORT, is_oom_error
+
+            if is_oom_error(e):
+                # the trainer wrote oom_report.json and flushed the oom
+                # record; the distinct code tells a supervisor what died
+                from paddle_tpu_torch.resilience import EXIT_OOM
+
+                print(f"OOM: {e} (forensics: {OOM_REPORT} in the run dir)", file=sys.stderr)
+                return EXIT_OOM
+            raise
+        if trainer.preempted:
+            # supervisors and launchers restart a preempted run without
+            # spending restart budget
+            from paddle_tpu_torch.resilience import EXIT_PREEMPTED
+
+            return EXIT_PREEMPTED
     elif cmd == "test":
         if flags.test_pass >= 0:
             _test_saved_passes(trainer, flags)

@@ -320,6 +320,12 @@ class MultiDataProvider:
         else:
             yield from self._base._batches_from(mixed_samples())
 
+    def shuffle_state(self):
+        return self._base.shuffle_state()
+
+    def set_shuffle_state(self, state) -> None:
+        self._base.set_shuffle_state(state)
+
 
 class DataProvider:
     """Pass-oriented batch iterator over a @provider object.
@@ -480,6 +486,15 @@ class DataProvider:
                     self._bad_samples, self.max_bad_samples, fname, e,
                 )
             return False
+
+    def shuffle_state(self):
+        """The shuffle's generator state. Taken at a pass's start, it lets
+        the pass run again over the same batches in the same order (a
+        rollback's replay)."""
+        return self.rng.getstate()
+
+    def set_shuffle_state(self, state) -> None:
+        self.rng.setstate(state)
 
     def batches(self) -> Iterator[Dict[str, Argument]]:
         """One pass of batches (shuffled within the pool)."""

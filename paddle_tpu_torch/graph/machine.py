@@ -80,7 +80,6 @@ class GradientMachine:
     def forward(self, params: Params, in_args: Dict[str, Argument],
                 pass_type: str = "test",
                 gen_capture: Optional[dict] = None,
-                generator: Optional[torch.Generator] = None,
                 seed: Optional[int] = None,
                 ) -> Tuple[Dict[str, Argument], Dict]:
         """Run the graph; returns (all layer outputs, state updates).
@@ -89,12 +88,11 @@ class GradientMachine:
         records the autograd graph. ``gen_capture``: a dict sink making
         generator groups capture their prepared decode inputs instead of
         running the beam loop — the serving engine's prefill seam
-        (graph/decode_step.py). ``generator``: the random bits of a train
-        pass (dropout). ``seed``: the pass's seed, from which each layer
-        that draws ids (sampling_id, nce) seeds a generator of its own
-        (``LayerContext.layer_generator``)."""
+        (graph/decode_step.py). ``seed``: the pass's seed, from which each
+        layer that draws (dropout, sampling_id, nce) seeds a generator of
+        its own (``LayerContext.layer_generator``)."""
         ctx = LayerContext(params=params, model=self.model, pass_type=pass_type,
-                           generator=generator, seed=seed, gen_capture=gen_capture,
+                           seed=seed, gen_capture=gen_capture,
                            conv_s2d=self.conv_s2d, conv_stats_mode=self.conv_stats_mode)
         if pass_type == "train":
             self.network.forward(ctx, in_args)
@@ -126,25 +124,21 @@ class GradientMachine:
         return total
 
     def loss_fn(self, params: Params, in_args: Dict[str, Argument],
-                generator: Optional[torch.Generator] = None, pass_type: str = "train",
-                seed: Optional[int] = None):
-        outputs, state_updates = self.forward(params, in_args, pass_type,
-                                              generator=generator, seed=seed)
+                seed: Optional[int] = None, pass_type: str = "train"):
+        outputs, state_updates = self.forward(params, in_args, pass_type, seed=seed)
         return self.total_cost(outputs), (outputs, state_updates)
 
     def grad_fn(self) -> Callable:
-        """Returns f(params, in_args, generator=None, seed=None) -> (loss,
+        """Returns f(params, in_args, seed=None) -> (loss,
         grads, outputs, state_updates). The loss is a detached scalar
         tensor; gradients are dense, keyed like ``params``."""
 
-        def f(params: Params, in_args: Dict[str, Argument],
-              generator: Optional[torch.Generator] = None, seed: Optional[int] = None):
+        def f(params: Params, in_args: Dict[str, Argument], seed: Optional[int] = None):
             leaves = {}
             for n, p in params.items():
                 cfg = self.param_configs.get(n)
                 leaves[n] = p.detach().requires_grad_(cfg is None or not cfg.is_static)
-            loss, (outputs, state_updates) = self.loss_fn(leaves, in_args, generator,
-                                                          seed=seed)
+            loss, (outputs, state_updates) = self.loss_fn(leaves, in_args, seed)
             names = [n for n, p in leaves.items() if p.requires_grad]
             got = torch.autograd.grad(loss, [leaves[n] for n in names], allow_unused=True)
             got = dict(zip(names, got))

@@ -111,7 +111,7 @@ def _run_submodel_step(network, sub: SubModelConfig, ctx: LayerContext,
     ``mixed_prologue`` maps a mixed layer to (skipped input indices,
     precomputed [B, out] slice) for projections hoisted before it."""
     step_ctx = LayerContext(params=ctx.params, model=ctx.model,
-                            pass_type=ctx.pass_type, generator=ctx.generator,
+                            pass_type=ctx.pass_type,
                             seed=fold_seed(ctx.seed, t), parent=ctx,
                             mixed_prologue=mixed_prologue)
     step_ctx.outputs.update(fed)

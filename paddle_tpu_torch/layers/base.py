@@ -52,8 +52,9 @@ def fold_seed(seed: Optional[int], *salts: int) -> Optional[int]:
     each), as a 31-bit seed; None stays None. Every seed that reaches a
     draw comes from here: a training step's from --seed, the pass and the
     batch (``Trainer``), a recurrent step's from its forward's and t
-    (``graph/recurrent_group.py``), and a layer's generator from its
-    pass's and crc32 of "{layer}/{salt}" (``LayerContext.layer_generator``).
+    (``graph/recurrent_group.py``), and a layer's generator (dropout's,
+    sampling_id's, nce's) from its pass's and crc32 of "{layer}/{salt}"
+    (``LayerContext.layer_generator``).
     31 bits, because the CPU's generator reads only the low 32 of a seed."""
     if seed is None:
         return None
@@ -73,12 +74,9 @@ class LayerContext:
     params: Dict[str, Tensor]
     model: ModelConfig
     pass_type: str = "test"                     # train | test | gen
-    # random bits of the pass (dropout): an explicit generator on the
-    # parameters' device; None outside training
-    generator: Optional[torch.Generator] = None
-    # the pass's seed for layers that draw (sampling_id, nce): each such
-    # layer seeds its own generator from it (layer_generator); None where
-    # the caller gave none
+    # the pass's seed, the one channel of randomness: each layer that
+    # draws (dropout, sampling_id, nce) seeds a generator of its own from
+    # it (layer_generator); None where the caller gave none
     seed: Optional[int] = None
     outputs: Dict[str, Argument] = field(default_factory=dict)
     # static parameter name -> its new value (batch norm's moving mean and
@@ -131,7 +129,7 @@ class LayerContext:
         pass's seed and crc32 of "{layer_name}/{salt}", the string the JAX
         package folds into its key (``LayerContext.layer_rng``)."""
         if self.seed is None:
-            raise ValueError(f"layer {layer_name!r} draws random ids but the pass was "
+            raise ValueError(f"layer {layer_name!r} draws random bits but the pass was "
                              "given no seed")
         gen = torch.Generator(device=device)
         gen.manual_seed(fold_seed(self.seed, zlib.crc32(f"{layer_name}/{salt}".encode())))
@@ -169,12 +167,9 @@ def finalize_output(cfg: LayerConfig, value: Tensor, ctx: LayerContext,
 def apply_dropout(cfg: LayerConfig, value: Tensor, ctx: LayerContext) -> Tensor:
     """The layer's dropout in a training pass; identity otherwise."""
     if cfg.drop_rate > 0.0 and ctx.is_training:
-        if ctx.generator is None:
-            raise ValueError(f"layer {cfg.name!r} has dropout but the training "
-                             "pass was given no torch.Generator")
         keep = 1.0 - cfg.drop_rate
-        draw = torch.rand(value.shape, generator=ctx.generator, device=value.device,
-                          dtype=value.dtype)
+        gen = ctx.layer_generator(cfg.name, "dropout", value.device)
+        draw = torch.rand(value.shape, generator=gen, device=value.device, dtype=value.dtype)
         # inverted dropout: scale at train time, as the reference does
         # (Layer.cpp forwardDropOut divides by 1 - drop_rate)
         value = torch.where(draw < keep, value / keep, torch.zeros_like(value))

@@ -34,6 +34,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from paddle_tpu_torch.ops import kernel_flops
 from paddle_tpu_torch.ops._build import I32, I64, PTR, CudaKernel, check, ptr
 from paddle_tpu_torch.ops.fused_gru import _last_dim_contiguous
 
@@ -145,6 +146,7 @@ def _launch_fwd(q, k, v, lengths, causal, with_lse):
     B, T, H, D = _check_operands(q, k, v, lengths)
     out = torch.empty((B, T, H, D), device=q.device)
     lse = torch.empty((B, H, T), device=q.device) if with_lse else None
+    kernel_flops.record(kernel_flops.flash_fwd_flops(B, T, H, D))
     FLASH_ATTN_FWD.launch(q.device, *_strided(q), *_strided(k), *_strided(v), ptr(lengths),
                           *_strided(out), None if lse is None else ptr(lse),
                           B, T, H, D, int(bool(causal)))
@@ -163,6 +165,7 @@ def _check_backward(q, k, v, dout, lse, delta, lengths):
 def _launch_dq(q, k, v, dout, lse, delta, lengths, causal):
     args, (B, T, H, D) = _check_backward(q, k, v, dout, lse, delta, lengths)
     dq = torch.empty((B, T, H, D), device=q.device)
+    kernel_flops.record(kernel_flops.flash_dq_flops(B, T, H, D))
     FLASH_ATTN_DQ.launch(q.device, *args, *_strided(dq), B, T, H, D, int(bool(causal)))
     return dq
 
@@ -170,6 +173,7 @@ def _launch_dq(q, k, v, dout, lse, delta, lengths, causal):
 def _launch_dkv(q, k, v, dout, lse, delta, lengths, causal):
     args, (B, T, H, D) = _check_backward(q, k, v, dout, lse, delta, lengths)
     dk, dv = (torch.empty((B, T, H, D), device=q.device) for _ in range(2))
+    kernel_flops.record(kernel_flops.flash_dkv_flops(B, T, H, D))
     FLASH_ATTN_DKV.launch(q.device, *args, *_strided(dk), *_strided(dv),
                           B, T, H, D, int(bool(causal)))
     return dk, dv

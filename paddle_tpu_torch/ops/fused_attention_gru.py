@@ -47,6 +47,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from paddle_tpu_torch.ops import kernel_flops
 from paddle_tpu_torch.ops._build import (
     I32, I64, PTR, SMEM_LIMIT, CudaKernel, card_sms, check, ptr)
 from paddle_tpu_torch.ops.fused_gru import KERNEL_ACTS, _last_dim_contiguous, gru_cell
@@ -165,13 +166,13 @@ def _step(h, ep, ev, em, xw_t, wa, ba, v, wctx, wg, acts, residuals=False):
     (h', u, r, c, alpha [Te, B], ctx [B, E]) with ``residuals``."""
     D = h.shape[-1]
     m = h @ wa + ba.reshape(1, D)                               # [B, D]
-    s = torch.sum(torch.tanh(ep + m[None]) * v.reshape(1, 1, D), dim=-1)
+    s = (torch.tanh(ep + m[None]) @ v.reshape(D, 1))[..., 0]     # [Te, B]
     valid = em[:, :, 0] > 0                                     # [Te, B]
     s = torch.where(valid, s, torch.full_like(s, -1e30))
     e = torch.exp(s - torch.max(s, dim=0, keepdim=True).values)
     alpha = e / torch.sum(e, dim=0, keepdim=True)
     alpha = torch.where(valid, alpha, torch.zeros_like(alpha))
-    ctx = torch.sum(alpha[:, :, None] * ev, dim=0)              # [B, E]
+    ctx = torch.einsum("tb,tbe->be", alpha, ev)                 # [B, E]
     din = ctx @ wctx + xw_t                                     # [B, 3D]
     if not residuals:
         return gru_cell(din, h, wg, acts)
@@ -239,6 +240,7 @@ def _launch_fwd(ep, ev, em, xw, dmask, h0, wa, ba, v, wctx, wg, acts, residuals,
     Td, B, Te, D, E, dev = _check_operands(ep, ev, em, xw, dmask, h0, wa, ba, v,
                                            wctx, wg, acts)
     _check_supported(B, Te, D, E, dev)
+    kernel_flops.record(kernel_flops.attention_gru_fwd_flops(Td, B, Te, D, E))
     ys = torch.empty((Td, B, D), device=dev)
     args = [ptr(ep), ep.stride(0), ep.stride(1),
             ptr(ev), ev.stride(0), ev.stride(1),
@@ -259,8 +261,9 @@ def _launch_fwd(ep, ev, em, xw, dmask, h0, wa, ba, v, wctx, wg, acts, residuals,
     return (ys,) + saved
 
 
-def _launch_bwd(dy, ep, ev, dmask, hprev, saved, alpha, m, wa, v, wctx, wg):
-    """The backward kernel's outputs: dxw, dctx, dh0, dep, dwa, dba, dv."""
+def _launch_bwd(dy, ep, ev, dmask, hprev, saved, alpha, m, wa, v, wctx, wg, h0_grad=True):
+    """The backward kernel's outputs: dxw, dctx, dh0, dep, dwa, dba, dv.
+    ``h0_grad``: whether h0 takes a gradient, for the FLOPs recorded."""
     Te, B, D = ep.shape
     E = ev.shape[2]
     Td = dy.shape[0]
@@ -282,6 +285,7 @@ def _launch_bwd(dy, ep, ev, dmask, hprev, saved, alpha, m, wa, v, wctx, wg):
     dm_rows = torch.empty((Td, B, D), device=dev)
     dv_part = torch.empty((2, B, D), device=dev)
     counter = torch.empty(1, dtype=torch.int32, device=dev)
+    kernel_flops.record(kernel_flops.attention_gru_bwd_flops(Td, B, Te, D, E, h0_grad))
     ATTENTION_GRU_BWD.launch(
         dev,
         ptr(dy), dy.stride(0), dy.stride(1),
@@ -314,7 +318,8 @@ class _FusedAttentionGRU(torch.autograd.Function):
         ep, ev, dmask, hprev, saved, alpha, ctxs, m, wa, v, wctx, wg = ctx.saved_tensors
         D, E = ep.shape[2], ev.shape[2]
         dxw, dctx, dh0, dep, dwa, dba, dv = _launch_bwd(
-            dy, ep, ev, dmask, hprev, saved, alpha, m, wa, v, wctx, wg)
+            dy, ep, ev, dmask, hprev, saved, alpha, m, wa, v, wctx, wg,
+            h0_grad=ctx.needs_input_grad[5])
         dxw2 = dxw.reshape(-1, 3 * D)
         hp2 = hprev.reshape(-1, D)
         r2 = saved.reshape(-1, 3 * D)[:, D: 2 * D]

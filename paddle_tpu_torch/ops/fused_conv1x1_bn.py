@@ -31,6 +31,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from paddle_tpu_torch.ops import kernel_flops
 from paddle_tpu_torch.ops._build import I32, PTR, CudaKernel, card_sms, check, ptr
 
 Tensor = torch.Tensor
@@ -110,6 +111,7 @@ def _launch(x: Tensor, w: Tensor, b: Optional[Tensor], M: int, K: int, N: int):
     part = torch.empty((min(_cdiv(M, TILE_M), card_sms(dev)), 2, N), device=dev)
     wsplit = torch.empty((2, N, _cdiv(K, TILE_K) * TILE_K), device=dev)
     vec = int(K % 4 == 0 and ptr(x) % 16 == 0)       # TMA reads x; else 4-byte copies
+    kernel_flops.record(kernel_flops.conv1x1_flops(M, K, N))
     CONV1X1_STATS.launch(dev, ptr(x), ptr(w), None if b is None else ptr(b),
                          ptr(y), ptr(s), ptr(q), ptr(part), ptr(wsplit), M, K, N, vec)
     return y, s, q

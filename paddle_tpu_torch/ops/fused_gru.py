@@ -36,6 +36,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from paddle_tpu_torch.ops import kernel_flops
 from paddle_tpu_torch.ops._build import (
     I32, I64, PTR, SMEM_LIMIT, CudaKernel, card_sms, check, ptr)
 from paddle_tpu_torch.ops.activations import apply_activation
@@ -239,6 +240,7 @@ def _launch_fwd(x3, mask, w, reverse, acts, residuals):
             ptr(w), ptr(ys), ys.stride(0), ys.stride(1)]
     scratch = [ptr(rh), None if wslices is None else ptr(wslices), ptr(counter),
                T, B, H, int(bool(reverse)), *codes, sms, plan["w_in_smem"]]
+    kernel_flops.record(kernel_flops.gru_fwd_flops(T, B, H))
     if not residuals:
         carry = torch.empty((B, H), device=dev)
         GRU_FWD.launch(dev, *args, ptr(carry), *scratch)
@@ -283,6 +285,7 @@ def _launch_bwd(dy, saved, hprev, mask, w, reverse, acts, phase_ns=None):
                                  or tuple(phase_ns.shape) != (T, 4)
                                  or not phase_ns.is_contiguous()):
         raise ValueError(f"phase_ns must be a contiguous int64 [{T}, 4] tensor on {dev}")
+    kernel_flops.record(kernel_flops.gru_bwd_flops(T, B, H))
     GRU_BWD.launch(dev, ptr(dy), dy.stride(0), dy.stride(1), ptr(saved), ptr(hprev),
                    ptr(mask), mask.stride(0), mask.stride(1), ptr(w), ptr(dx3), ptr(dw),
                    None if wslices is None else ptr(wslices),

@@ -36,6 +36,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from paddle_tpu_torch.ops import kernel_flops
 from paddle_tpu_torch.ops._build import (
     I32, I64, PTR, SMEM_LIMIT, CudaKernel, card_sms, check, ptr)
 from paddle_tpu_torch.ops.activations import apply_activation
@@ -334,11 +335,13 @@ def _launch_fwd(x4, mask, w, peep, reverse, acts, residuals, row_groups=None,
     tail = [opt(hbuf), opt(wslices), ptr(counters), opt(phase_ns),
             T, B, H, int(bool(reverse)), *codes, sms, P, plan["w_in_smem"]]
     if not residuals:
+        kernel_flops.record(kernel_flops.lstm_fwd_flops(T, B, H))
         LSTM_FWD.launch(dev, *args, *tail)
         return ys
     saved = torch.empty((T, B, 4 * H), device=dev)
     hprev = torch.empty((T, B, H), device=dev)
     cprev = torch.empty((T, B, H), device=dev)
+    kernel_flops.record(kernel_flops.lstm_fwd_flops(T, B, H))
     LSTM_FWD_TRAIN.launch(dev, *args, ptr(saved), ptr(hprev), ptr(cprev), *tail)
     return ys, saved, hprev, cprev
 
@@ -384,6 +387,7 @@ def _launch_bwd(dy, saved, hprev, cprev, mask, w, peep, reverse, acts, phase_ns=
     ppart = torch.empty((P * 3 * H,), device=dev) if P > 1 else None
     counters = torch.empty(P + 1, dtype=torch.int32, device=dev)
     opt = lambda t: None if t is None else ptr(t)
+    kernel_flops.record(kernel_flops.lstm_bwd_flops(T, B, H))
     LSTM_BWD.launch(dev, ptr(dy), dy.stride(0), dy.stride(1),
                     ptr(saved), ptr(hprev), ptr(cprev),
                     ptr(mask), mask.stride(0), mask.stride(1), ptr(w), ptr(peep),

@@ -33,10 +33,12 @@ import pytest
 import torch
 
 from paddle_tpu import cli as jax_cli
+from paddle_tpu.observability import metrics as jax_obs
 from paddle_tpu.trainer import Trainer as JaxTrainer
 from paddle_tpu.utils.flags import FLAGS as JAX_FLAGS
 from paddle_tpu_torch import cli
 from paddle_tpu_torch.config import parse_config
+from paddle_tpu_torch.observability import metrics as port_obs
 from paddle_tpu_torch.trainer import Trainer
 from paddle_tpu_torch.trainer import checkpoint as ckpt
 from paddle_tpu_torch.trainer.trainer import read_result_file
@@ -83,6 +85,10 @@ def _run(who, argv, cwd):
             assert main(argv) == 0
         finally:
             vars(flags).update(saved)
+            # close the run's telemetry writer here: left open, a relative
+            # --save_dir's stream would take later tests' records into
+            # whatever directory they run from
+            (jax_obs if who == "jax" else port_obs).configure("")
     return tests
 
 
@@ -184,14 +190,20 @@ def test_version_and_the_subcommands_not_ported(capsys):
     assert cli.main(["version"]) == 0
     out = capsys.readouterr().out
     assert out.startswith("paddle_tpu_torch ") and f"torch {torch.__version__}" in out
-    for cmd in ("checkgrad", "faults", "merge_model", "check-checkpoint", "metrics",
-                "memory"):
+    for cmd in ("checkgrad", "merge_model", "check-checkpoint", "memory"):
         assert cli.main([cmd]) == 2
         assert f"ROADMAP Queue 1 item {cli.NOT_PORTED[cmd]}" in capsys.readouterr().err
-    # the serving surface and the supervisor are ported
-    # (tests/test_torch_serve_cli.py, tests/test_torch_serve_fleet.py)
+    # the serving surface, the supervisor, `faults` and `metrics` are ported
+    # (tests/test_torch_serve_cli.py, tests/test_torch_serve_fleet.py,
+    # tests/test_torch_pass_loop.py): both dispatch
     assert not {"serve", "serve-fleet", "serve_fleet", "serve-status", "serve_status",
-                "serve-report", "serve_report", "supervise"} & set(cli.NOT_PORTED)
+                "serve-report", "serve_report", "supervise", "faults",
+                "metrics"} & set(cli.NOT_PORTED)
+    assert cli.main(["faults"]) == 0
+    assert "trainer.nonfinite_layer" in capsys.readouterr().out
+    with pytest.raises(SystemExit) as done:      # argparse's --help
+        cli.main(["metrics", "--help"])
+    assert done.value.code == 0 and "paddle metrics" in capsys.readouterr().out
     assert cli.main(["no-such-command"]) == 2
 
 
@@ -247,8 +259,9 @@ def test_start_pass_and_auto_resume(tmp_path):
     tests = _run("port", ["train", "--config=lr_config.py", "--save_dir=out", "--num_passes=3",
                           "--init_model_path=auto"] + QUIET, ws)
     assert len(tests) == 1 and tests[0][ERR_KEY] < 0.1
-    assert sorted(os.listdir(os.path.join(ws, "out"))) == ["pass-00000", "pass-00001",
-                                                           "pass-00002"]
+    # (the save_dir is the run dir of the telemetry records too)
+    assert sorted(os.listdir(os.path.join(ws, "out"))) == ["metrics.jsonl", "pass-00000",
+                                                           "pass-00001", "pass-00002"]
 
 
 def _log_lines(who, argv, cwd):

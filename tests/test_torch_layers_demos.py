@@ -136,7 +136,7 @@ def _first_batch_parity(ws, config, config_args="", seed=1):
     pm = GradientMachine(cfg.model_config, device="cpu")
     loss, grads, _, _ = pm.grad_fn()(
         params_from_numpy({k: np.asarray(v) for k, v in jparams.items()}, "cpu"), batch,
-        None, seed=1)
+        seed=1)
     np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
     assert sorted(grads) == sorted(jgrads)
     for name in jgrads:

@@ -160,7 +160,7 @@ def run_config(tmp_path, body, feed, seed=7):
     pm = GradientMachine(ModelConfig.from_json(jtc.model_config.to_json()), device="cpu")
     pparams = params_from_numpy({k: np.asarray(v) for k, v in jparams.items()}, "cpu")
     ploss, pgrads, pouts, _ = pm.grad_fn()(pparams, {k: _port_arg(s) for k, s in feed.items()},
-                                           None, seed=1)
+                                           seed=1)
     _close(float(ploss), float(jloss), OUT_TOL * max(1.0, abs(float(jloss))), "loss")
     assert compare_outputs(jouts, pouts) >= 2
     assert sorted(pgrads) == sorted(jgrads)

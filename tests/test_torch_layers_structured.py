@@ -230,9 +230,9 @@ def test_trainer_seeds_steps_by_pass_and_batch_and_tests_with_none(monkeypatch):
     seen = {"train": [], "test": []}
     grad_fn, forward = trainer._grad_fn, trainer.gm.forward
 
-    def spy_grad(params, batch, generator, seed):
+    def spy_grad(params, batch, seed):
         seen["train"].append(seed)
-        return grad_fn(params, batch, generator, seed)
+        return grad_fn(params, batch, seed)
 
     def spy_forward(*a, **kw):
         if kw.get("pass_type") == "test":

@@ -260,27 +260,30 @@ def test_train_logs_avg_cost_and_saves_each_pass(tmp_path, caplog):
     costs = [float(m.split("AvgCost=")[1].split()[0]) for m in done]
     assert len(costs) == 2 and all(np.isfinite(costs))
     assert sum("AvgCost" in r.getMessage() for r in caplog.records) == 2 * 2 + 2
-    assert sorted(p.name for p in tmp_path.iterdir()) == ["pass-00000", "pass-00001"]
+    # and, with no --metrics_path, the save_dir doubles as the run dir of
+    # the telemetry records, as in the JAX package
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["metrics.jsonl", "pass-00000",
+                                                         "pass-00001"]
     assert trainer.opt_state.step == 8
 
 
 # ---------------------------------------------------------------- dropout
 
 
-def _dropout_out(drop_rate, pass_type, generator, shape=(400, 500)):
+def _dropout_out(drop_rate, pass_type, seed, shape=(400, 500), name="d"):
     from paddle_tpu_torch.layers.base import LayerContext, finalize_output
     from paddle_tpu_torch.proto import LayerConfig, ModelConfig
 
-    cfg = LayerConfig(name="d", type="fc", size=shape[-1], drop_rate=drop_rate)
-    ctx = LayerContext(params={}, model=ModelConfig(), pass_type=pass_type,
-                       generator=generator)
+    cfg = LayerConfig(name=name, type="fc", size=shape[-1], drop_rate=drop_rate)
+    ctx = LayerContext(params={}, model=ModelConfig(), pass_type=pass_type, seed=seed)
     return finalize_output(cfg, torch.ones(shape), ctx)
 
 
 def test_dropout_keeps_one_minus_p_from_an_explicit_generator():
+    """Dropout draws from the layer's own generator, seeded from the
+    pass's seed and the layer's name (LayerContext.layer_generator)."""
     p = 0.3
-    g = torch.Generator().manual_seed(7)
-    out = _dropout_out(p, "train", g)
+    out = _dropout_out(p, "train", 7)
     kept = out != 0
     # 200,000 Bernoulli(0.7) draws: the kept share is within 0.005 of 0.7
     # (more than 7 standard deviations)
@@ -288,11 +291,13 @@ def test_dropout_keeps_one_minus_p_from_an_explicit_generator():
     np.testing.assert_allclose(out[kept].numpy(), 1.0 / (1 - p), rtol=1e-6)
     # inverted dropout keeps the expectation
     assert abs(float(out.mean()) - 1.0) < 1e-2
-    same = _dropout_out(p, "train", torch.Generator().manual_seed(7))
+    same = _dropout_out(p, "train", 7)
     assert torch.equal(same, out)
-    other = _dropout_out(p, "train", torch.Generator().manual_seed(8))
+    other = _dropout_out(p, "train", 8)
     assert not torch.equal(other, out)
+    # another layer of the same pass draws other bits
+    assert not torch.equal(_dropout_out(p, "train", 7, name="e"), out)
     # no dropout outside training
     assert torch.equal(_dropout_out(p, "test", None), torch.ones(400, 500))
-    with pytest.raises(ValueError, match="Generator"):
+    with pytest.raises(ValueError, match="no seed"):
         _dropout_out(p, "train", None)
