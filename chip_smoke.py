@@ -268,8 +268,39 @@ Phases, each printing one JSON object per line:
              zeroed counters (2 launches of kernel 10 a batch, none of 11
              or 12); a B = 2, T = 256 batch's cost (1e-4 relative) and
              classification_error (equal) against the CPU.
+14. nested — the ninth and tenth: the hierarchical document classifier
+             over nested sequences (flagship.hierarchical_config(vocab=30000,
+             emb_dim=128, hidden=512, lstm_size=128): an outer recurrent
+             group over each document's sentences whose step runs
+             gru_group(size=512) over the sentence's words, the group form,
+             inside the nested loop, and keeps the last; then an fc of 512
+             and a ReLU lstmemory of 128 over the sentences), random
+             weights: a B = 4 batch (an empty sentence in it) against the
+             CPU at the CPU's init_params(seed=1) (cost 1e-4 relative, every
+             gradient 1e-3 of scale); 8 Adam steps on nested_doc_batch(B=64,
+             seed=1) (1-8 sentences of 3-32 Zipf(1.1) words) between zeroed
+             counts (exactly one launch of kernels 7b and 8 a step, no
+             other kernel; the loss must fall), the median step, documents
+             and words a second, one step under torch.profiler; then
+             Trainer.test over 4 batches (one kernel 7a each).
+15. demos  — the eleventh to thirteenth: the last demos through
+             paddle_tpu_torch.cli.main on the card, each in a workspace of
+             its own, from a checkpoint of the CPU's init_params(seed=1):
+             demo/sentiment at its own widths on its band's corpus (1,600 /
+             800 reviews, 3 passes; 3 launches of 7b and 8 a step, 3 of 7a
+             a test batch), demo/image_classification/vgg_16_cifar.py
+             small=1 on its lists through image_provider.py and the port's
+             image_util (3 passes, no kernel), demo/long_context at the
+             lm phases' widths (2 passes over 64 samples of 2048 tokens;
+             10, 11 and 12 twice a step, 10 twice a test batch; then `test`
+             of the last pass, 10 only). Each: the first batch's cost
+             within 1e-3 of the CPU's, pass 1's test cost below pass 0's,
+             samples (tokens) a second with the first step left out; the
+             test costs beside the JAX package's pinned CPU bands
+             (reported, not asserted: the port draws other initial
+             parameters than the JAX package for the same seed).
 
-Every main path (3, 3b, 3c, 3c', 4, 6, 7, 9, 10, 12, 13) runs between zeroed counts of
+Every main path (3, 3b, 3c, 3c', 4, 6, 7, 9, 10, 12, 13, 14, 15) runs between zeroed counts of
 the layers' eager routes too (gated_recurrent, lstmemory, full_attention,
 the attention decoder group's loop, and the 1x1 convs whose shape kernel 9
 refuses: the EAGER_ROUTES of the ops modules) and fails if any layer took
@@ -290,6 +321,7 @@ package beside this script, it fails the same way.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import re
@@ -340,6 +372,23 @@ PARITY_TOL = 0.05
 # the layers phase: passes of each demo, and sampling_id's draws on the card
 LAYERS_PASSES = 2
 SAMPLING_DRAWS = 100_000
+# the nested phase: the hierarchical document classifier at the sentiment
+# demo's widths (embedding 128, its first stacked ReLU LSTM of 128) with a
+# GRU of 512 over each sentence, over documents of 1-8 sentences of 3-32
+# Zipf(1.1) words
+NESTED = dict(vocab=30000, emb_dim=128, hidden=512, lstm_size=128, batch=64, max_sents=8,
+              min_words=3, max_words=32, zipf=1.1, steps=8, test_batches=4, cpu_batch=4)
+NESTED_LOSS_TOL = 1e-4     # the B = 4 batch's cost, card against CPU, relative
+# the demos phase: the last demos through the command line. sentiment on
+# its band's corpus (tests/test_quality_curves.py: 1,600 / 800 reviews, 3
+# passes), vgg_16_cifar small=1 on its own lists, long_context at the lm
+# phases' widths over one list entry (64 samples, 8 batches) each way
+DEMOS = dict(sentiment_train=("seed-train-1", "seed-train-2"), sentiment_test=("seed-test-1",),
+             sentiment_passes=3, vgg_passes=3, lm_train=("seed-train-1",),
+             lm_test=("seed-test-1",), lm_passes=2)
+# the CPU bands the JAX package pins (tests/test_quality_curves.py), reported beside the card's
+PINNED_SENTIMENT_COST = [0.29417, 0.14709, 0.10738]
+PINNED_VGG_COST = [0.04350, 0.00809, 0.00707]
 
 
 def emit(obj) -> None:
@@ -2593,6 +2642,14 @@ def layers_zoo(torch, dev):
         card, step = layer_zoo.run(e, dev)
         cpu, _ = layer_zoo.run(e, "cpu")
         rep = layer_zoo.compare(e, card, cpu)
+        if e.dtype == torch.float64:
+            # the float32 readings behind the float64 check, not asserted:
+            # the card against the CPU, and the CPU against its float64 result
+            e32 = dataclasses.replace(e, dtype=torch.float32)
+            cpu32 = layer_zoo.run(e32, "cpu")[0]
+            rep["float32_unasserted"] = {
+                "card_vs_cpu": layer_zoo.errors(layer_zoo.run(e32, dev)[0], cpu32),
+                "cpu_vs_cpu_float64": layer_zoo.errors(cpu32, cpu)}
         rows.append({"name": e.name, "type": e.cfg.type, "size": e.size,
                      "fwd_bwd_ms": time_ms(torch, step, reps=20), **rep})
     # the nce layer drawing its own negatives on the card
@@ -3575,6 +3632,255 @@ def phase_lm_test(torch, dev, kernels, trainer):
     return test
 
 
+def phase_nested(torch, dev, kernels):
+    """The hierarchical document classifier over nested sequences
+    (flagship.hierarchical_config) on the card: a B = 4 batch against the
+    CPU, 8 Adam steps through Trainer between zeroed counts (one launch of
+    kernels 7b and 8 a step, the sentence GRU's gru_step layers in the
+    nested group's loop, no other kernel), then Trainer.test over 4
+    batches (one launch of kernel 7a a batch)."""
+    from paddle_tpu_torch.flagship import hierarchical_config, nested_doc_batch
+    from paddle_tpu_torch.graph import GradientMachine
+    from paddle_tpu_torch.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    tc = hierarchical_config(vocab=NESTED["vocab"], emb_dim=NESTED["emb_dim"],
+                             hidden=NESTED["hidden"], lstm_size=NESTED["lstm_size"])
+    tc.opt_config.batch_size = NESTED["batch"]
+    docs = {k: NESTED[k] for k in ("vocab", "max_sents", "min_words", "max_words", "zipf")}
+
+    # a B = 4 batch (an empty sentence in it) on the card against the CPU,
+    # at the CPU's init_params(seed=1)
+    cpu = GradientMachine(tc.model_config, device="cpu")
+    params_cpu = cpu.init_params(seed=1)
+    card = GradientMachine(tc.model_config, device=dev)
+    small = dict(docs, B=NESTED["cpu_batch"], seed=2)
+    loss_c, grads_c, _, _ = cpu.grad_fn()(params_cpu, nested_doc_batch(device="cpu", **small))
+    loss_g, grads_g, _, _ = card.grad_fn()({k: v.to(dev) for k, v in params_cpu.items()},
+                                           nested_doc_batch(device=dev, **small))
+    loss_err = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
+    grad_err = {n: float((grads_g[n].cpu() - g).abs().max()) / max(1.0, float(g.abs().max()))
+                for n, g in grads_c.items()}
+    assert loss_err <= NESTED_LOSS_TOL and max(grad_err.values()) <= TRAIN_TOL, \
+        (loss_err, grad_err)
+
+    trainer = Trainer(tc)                             # the card (--use_tpu)
+    batch = nested_doc_batch(device=dev, B=NESTED["batch"], seed=1, **docs)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts(kernels)
+    losses, step_s = [], []
+    for _ in range(NESTED["steps"]):
+        t0 = time.perf_counter()
+        loss = trainer.train_one_batch(batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    launches, routes = read_counts(kernels)
+    peak = torch.cuda.max_memory_allocated(dev)
+    n = NESTED["steps"]
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    want = {k.symbol: 0 for k in kernels}
+    want.update(lstm_fwd_train=n, lstm_bwd=n)
+    assert launches == want, (launches, want)
+    step_ms = 1e3 * statistics.median(step_s[1:])
+    _, prof = profiled(torch, "nested_train_profile", lambda: trainer.train_one_batch(batch))
+    words = int(batch["words"].sub_seq_lengths.sum())
+    train = {"phase": "nested_train", "config": "flagship.hierarchical_config(vocab=30000, "
+             "emb_dim=128, hidden=512, lstm_size=128)", "batch": NESTED["batch"],
+             "sentences": int(batch["words"].seq_lengths.sum()), "words": words,
+             "padded_grid": list(batch["words"].ids.shape),
+             "empty_sentences": int(((batch["words"].sub_seq_lengths == 0)
+                                     & (torch.arange(NESTED["max_sents"], device=dev)[None, :]
+                                        < batch["words"].seq_lengths[:, None])).sum()),
+             "steps": n, "losses": losses, "step_ms": step_ms,
+             "step_ms_all": [1e3 * x for x in step_s],
+             "docs_per_s": NESTED["batch"] / (step_ms / 1e3),
+             "words_per_s": words / (step_ms / 1e3), "peak_memory_bytes": peak,
+             "profiled_step": {k: prof[k] for k in ("wall_s", "device_ms", "device_busy_share",
+                                                    "device_events")},
+             "kernel_launches": launches, "eager_routes": routes,
+             "cpu_batch": NESTED["cpu_batch"], "cpu_loss_rel_err": loss_err,
+             "cpu_grad_max_err_over_scale": max(grad_err.values())}
+    emit(train)
+
+    batches = [nested_doc_batch(device=dev, B=NESTED["batch"], seed=10 + i, **docs)
+               for i in range(NESTED["test_batches"])]
+    torch.cuda.synchronize()
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    results = trainer.test_batches(batches)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, routes = read_counts(kernels)
+    want = {k.symbol: 0 for k in kernels}
+    want.update(lstm_fwd=NESTED["test_batches"])
+    assert launches == want, (launches, want)
+    assert np.isfinite(results["cost"]), results
+    test = {"phase": "nested_test", "batches": NESTED["test_batches"], "wall_s": wall,
+            "docs_per_s": NESTED["test_batches"] * NESTED["batch"] / wall, "results": results,
+            "kernel_launches": launches, "eager_routes": routes,
+            "phase_s": time.perf_counter() - t_phase}
+    emit(test)
+    return {"train": train, "test": test}
+
+
+def test_batch_count(cfg):
+    """The batches of one test pass, replayed on the host."""
+    from paddle_tpu_torch.data.feeder import create_data_provider
+
+    dp = create_data_provider(cfg.test_data_config, cfg.opt_config.batch_size,
+                              cfg.model_config.input_layer_names, seed=1, for_test=True)
+    return sum(1 for _ in dp.batches())
+
+
+def demo_train(torch, dev, kernels, ws, demo, names, conf, config_args, train, test, passes):
+    """One demo through the port's command line on the card from a
+    checkpoint of the CPU's init_params(seed=1): `train` for ``passes``
+    between zeroed counts, its first batch's cost against the CPU's."""
+    from paddle_tpu_torch.config import parse_config
+    from paddle_tpu_torch.graph import GradientMachine
+    from paddle_tpu_torch.trainer import checkpoint as ckpt
+
+    demo_workspace(ws, demo, names, "\n".join(train), "\n".join(test))
+    cfg = parse_config(conf, config_args)
+    cpu = GradientMachine(cfg.model_config, device="cpu")
+    params0 = cpu.init_params(seed=1)
+    init = ckpt.save_checkpoint(os.path.join(ws, "init"), 0, params0)
+    first, samples = replay_batches(cfg)
+    with torch.no_grad():
+        cpu_loss = float(cpu.loss_fn(params0, first, seed=1)[0])
+    del cpu, params0, first
+    args = [f"--config_args={config_args}"] if config_args else []
+    zero_counts(kernels)
+    losses, tests, walls, wall = cli_train_probed(
+        ["train", f"--config={conf}", "--save_dir=out", f"--num_passes={passes}",
+         f"--init_model_path={init}", "--log_period=0"] + args, passes)
+    launches, routes = read_counts(kernels)
+    assert len(losses) == passes * len(samples) and all(np.isfinite(losses)), losses
+    costs = [t["cost"] for t in tests]
+    assert len(costs) == passes and all(np.isfinite(costs)) and costs[1] < costs[0], costs
+    first_err = abs(losses[0] - cpu_loss) / abs(cpu_loss)
+    assert first_err <= TRAIN_TOL, (losses[0], cpu_loss)
+    return cfg, {"part": demo, "passes": passes, "steps": len(losses),
+                 "samples_per_pass": sum(samples), "test_batches": test_batch_count(cfg),
+                 "first_batch_cost": {"card": losses[0], "cpu": cpu_loss, "rel_err": first_err},
+                 "test_costs": costs, "test_results": tests,
+                 "losses_first_last": [losses[0], losses[-1]],
+                 **wall_stats(walls, samples, passes), "train_cli_s": wall,
+                 "kernel_launches": launches, "eager_routes": routes}
+
+
+def in_band(costs, pinned):
+    return all(abs(c - p) <= 0.03 * p for c, p in zip(costs, pinned))
+
+
+def demos_sentiment(torch, dev, kernels, ws):
+    """demo/sentiment (stacked_lstm_net at its own widths: emb 128, hid_dim
+    512, three ReLU lstmemory of 128, batch 128, sort_by_length) on its
+    band's corpus: each step one launch of kernels 7b and 8 for each of
+    the three LSTMs, each test batch one of kernel 7a for each."""
+    cfg, line = demo_train(torch, dev, kernels, ws, "sentiment",
+                           ("common.py", "dataprovider.py", "sentiment_net.py",
+                            "trainer_config.py"), "trainer_config.py", "",
+                           DEMOS["sentiment_train"], DEMOS["sentiment_test"],
+                           DEMOS["sentiment_passes"])
+    want = {k.symbol: 0 for k in kernels}
+    want.update(lstm_fwd_train=3 * line["steps"], lstm_bwd=3 * line["steps"],
+                lstm_fwd=3 * line["test_batches"] * line["passes"])
+    assert line["kernel_launches"] == want, (line["kernel_launches"], want)
+    err_key = next(e.name for e in cfg.model_config.evaluators) + ".classification_error"
+    err = line["test_results"][-1][err_key]
+    line.update(config="demo/sentiment/trainer_config.py (stacked_lstm_net: emb 128, "
+                "hid_dim 512, 3 ReLU lstmemory of 128, batch 128, sort_by_length), "
+                "seed-train-1,2 / seed-test-1 (1,600 / 800 reviews)",
+                pinned_cpu_band=PINNED_SENTIMENT_COST,
+                in_pinned_band=in_band(line["test_costs"], PINNED_SENTIMENT_COST),
+                final_error=err, final_error_under_0_08=err < 0.08)
+    return line
+
+
+def demos_vgg(torch, dev, kernels, ws):
+    """demo/image_classification/vgg_16_cifar.py small=1 through
+    image_provider.py and the port's image_util: 3x3 convs only, so no
+    kernel of this repository runs."""
+    lists = os.path.join(os.path.dirname(os.path.abspath(__file__)), "demo",
+                         "image_classification")
+    train, test = (open(os.path.join(lists, f"{n}.list")).read().split()
+                   for n in ("train", "test"))
+    _, line = demo_train(torch, dev, kernels, ws, "image_classification",
+                         ("image_provider.py", "vgg_16_cifar.py"), "vgg_16_cifar.py",
+                         "small=1", train, test, DEMOS["vgg_passes"])
+    assert not any(line["kernel_launches"].values()), line["kernel_launches"]
+    line.update(config="demo/image_classification/vgg_16_cifar.py small=1 (two conv "
+                "groups of 16 and 32 3x3 filters, batch 32), the demo's lists",
+                pinned_cpu_band=PINNED_VGG_COST,
+                in_pinned_band=in_band(line["test_costs"], PINNED_VGG_COST))
+    return line
+
+
+def demos_long_context(torch, dev, kernels, ws):
+    """demo/long_context at the lm phases' widths: `train` 2 passes (two
+    launches of each of kernels 10, 11 and 12 a step, two of kernel 10 a
+    test batch), then `test` of the last pass (kernel 10 only)."""
+    args = "vocab={vocab},seq_len={seq_len},dim={dim},heads={heads},blocks={blocks}," \
+           "batch_size={batch}".format(**LM)
+    cfg, line = demo_train(torch, dev, kernels, ws, "long_context",
+                           ("dataprovider.py", "trainer_config.py"), "trainer_config.py", args,
+                           DEMOS["lm_train"], DEMOS["lm_test"], DEMOS["lm_passes"])
+    want = {k.symbol: 0 for k in kernels}
+    steps, tb = line["steps"], line["test_batches"]
+    want.update(flash_attn_fwd=2 * steps + 2 * tb * line["passes"], flash_attn_dq=2 * steps,
+                flash_attn_dkv=2 * steps)
+    assert line["kernel_launches"] == want, (line["kernel_launches"], want)
+    probe = CliProbe()
+    zero_counts(kernels)
+    try:
+        test_wall = run_cli(["test", "--config=trainer_config.py", f"--config_args={args}",
+                             f"--init_model_path=out/pass-{line['passes'] - 1:05d}"])
+        job = list(probe.tests)
+    finally:
+        probe.close()
+    launches, routes = read_counts(kernels)
+    want = {k.symbol: 0 for k in kernels}
+    want.update(flash_attn_fwd=2 * tb)
+    assert launches == want, (launches, want)
+    assert len(job) == 1 and abs(job[0]["cost"] - line["test_costs"][-1]) <= \
+        1e-4 * line["test_costs"][-1], (job, line["test_costs"])
+    line.update(config=f"demo/long_context/trainer_config.py --config_args={args}",
+                tokens_per_s=line["train_samples_per_s"] * LM["seq_len"],
+                test_job={"wall_s": test_wall, "results": job[0], "kernel_launches": launches,
+                          "eager_routes": routes})
+    return line
+
+
+def phase_demos(torch, dev, kernels):
+    """The demos phase: sentiment, vgg_16_cifar and long_context through
+    the port's command line on the card, each in a workspace of its own."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60).stdout.strip()
+    cwd = os.getcwd()
+    lines = {}
+    for name, part in (("sentiment", demos_sentiment), ("vgg_16_cifar", demos_vgg),
+                       ("long_context", demos_long_context)):
+        with tempfile.TemporaryDirectory() as ws:
+            os.chdir(ws)
+            try:
+                t0 = time.perf_counter()
+                line = part(torch, dev, kernels, ws)
+                line.update(phase="demos", part_s=time.perf_counter() - t0, card=smi)
+            finally:
+                os.chdir(cwd)
+        emit(line)
+        lines[name] = line
+    emit({"phase": "demos", "phase_s": time.perf_counter() - t_phase, "card": smi})
+    return lines
+
+
 def main() -> int:
     import torch
 
@@ -3612,6 +3918,8 @@ def main() -> int:
     lm_train, lm_trainer = phase_lm_train(torch, dev, kernels)
     lm_test = phase_lm_test(torch, dev, kernels, lm_trainer)
     del lm_trainer
+    nested = phase_nested(torch, dev, kernels)
+    demos = phase_demos(torch, dev, kernels)
 
     meta = {
         "gru_fwd": ("paddle_tpu_torch/csrc/gru_fwd.cu",
@@ -3668,6 +3976,11 @@ def main() -> int:
                       "lstm_train" if name in LSTM_KERNELS else
                       "resnet_train" if name == "conv1x1_stats" else
                       "lm_train" if name in ATTN_KERNELS else "serve") for name in k}
+    by_path = {"lstm_train": lstm_train, "lstm_test": lstm_test, "lm_train": lm_train,
+               "lm_test": lm_test, "nested_train": nested["train"],
+               "nested_test": nested["test"], "sentiment_cli": demos["sentiment"],
+               "long_context_cli": demos["long_context"],
+               "long_context_test_job": demos["long_context"]["test_job"]}
     rows = []
     for name, r in k.items():
         # forward / Td = 1 (serve); not reversed (train); default acts; the LM's shape
@@ -3712,6 +4025,10 @@ def main() -> int:
                     "back_to_back_ms")}, ms_at_Td8=r["cases"][1]["ms"])
         else:
             extra = {}
+        if name in LSTM_KERNELS + ATTN_KERNELS:   # every path that launches it
+            extra["launches_by_path"] = {
+                path: run["kernel_launches"][name] for path, run in by_path.items()
+                if run["kernel_launches"][name]}
         rows.append({
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1], "launches": launches,

@@ -1,5 +1,6 @@
 """The model builders of the port: the seqToseq NMT model, the LSTM text
-classifier, ResNet and the long-context causal LM.
+classifier, ResNet, the long-context causal LM and the hierarchical
+document classifier over nested sequences.
 
 :func:`gru_encoder_decoder` is this package's copy of
 ``demo/seqToseq/seqToseq_net.py`` (bidirectional GRU encoder, Bahdanau
@@ -31,6 +32,7 @@ from paddle_tpu_torch.trainer_config_helpers import (
     ReluActivation,
     SoftmaxActivation,
     StaticInput,
+    SubsequenceInput,
     TanhActivation,
     addto_layer,
     batch_norm_layer,
@@ -42,9 +44,12 @@ from paddle_tpu_torch.trainer_config_helpers import (
     fc_layer,
     first_seq,
     full_matrix_projection,
+    gru_group,
     gru_step_layer,
     img_conv_layer,
     img_pool_layer,
+    last_seq,
+    lstmemory,
     memory,
     mixed_layer,
     multi_head_attention_layer,
@@ -357,4 +362,70 @@ def lm_batch(vocab=500, B=8, T=256, seed=0, device: DeviceLike = None):
     return {
         "words": make_seq(None, lengths, ids=toks[:, :-1].astype(np.int32), device=dev),
         "next_words": make_seq(None, lengths, ids=toks[:, 1:].astype(np.int32), device=dev),
+    }
+
+
+def hierarchical_config(vocab=30000, emb_dim=128, hidden=512, lstm_size=128, classes=2):
+    """The hierarchical document classifier over nested sequences (a
+    document of sentences of words): a word embedding (the sentiment
+    demo's ``emb_dim``), an outer ``recurrent_group`` over the sentences
+    (``SubsequenceInput``) whose step projects a sentence's words to
+    3 * ``hidden``, runs ``gru_group`` over them (its group form: a
+    ``gru_step`` a word) and takes the last word's state, one vector a
+    sentence; then an fc of 4 * ``lstm_size`` and a ReLU ``lstmemory``
+    over the sentences (the sentiment demo's first stacked layer), the
+    last sentence's state, a softmax fc and ``classification_cost``. Adam
+    at lr 1e-3, batch size 4 (set ``opt_config.batch_size`` for another).
+    Batches come from :func:`nested_doc_batch`."""
+    with fresh_context() as ctx:
+        settings(batch_size=4, learning_rate=1e-3, learning_method=AdamOptimizer())
+        words = data_layer(name="words", size=vocab)
+        emb = embedding_layer(input=words, size=emb_dim, name="emb",
+                              param_attr=ParamAttr(name="_emb"))
+
+        def sentence(sub):
+            proj = mixed_layer(size=3 * hidden, name="sent_proj", input=[
+                full_matrix_projection(sub, param_attr=ParamAttr(name="_sent_proj.w"))])
+            gru = gru_group(input=proj, size=hidden, name="sent_gru")
+            return last_seq(input=gru, name="sent_vec")
+
+        sents = recurrent_group(step=sentence, input=SubsequenceInput(emb), name="doc")
+        fc = fc_layer(input=sents, size=4 * lstm_size, act=LinearActivation(), name="doc_fc")
+        lstm = lstmemory(input=fc, act=ReluActivation(), name="doc_lstm")
+        last = last_seq(input=lstm, name="doc_last")
+        out = fc_layer(input=last, size=classes, act=SoftmaxActivation(), name="output")
+        outputs(classification_cost(input=out, label=data_layer(name="label", size=classes)))
+        return ctx.finalize()
+
+
+def nested_doc_batch(vocab=30000, B=64, max_sents=8, max_words=32, min_words=3, classes=2,
+                     zipf=1.1, seed=0, device: DeviceLike = None):
+    """A nested batch of documents for :func:`hierarchical_config`, drawn
+    with numpy from ``seed``: each document has 1..``max_sents`` sentences
+    of ``min_words``..``max_words`` words, the words Zipf(``zipf``) over
+    the vocabulary; the first document's last sentence is empty (a
+    sub-sequence of length 0 inside a sample's count). ``words`` is
+    ids [B, S, T] with ``seq_lengths`` the sentence counts and
+    ``sub_seq_lengths`` [B, S]; ``label`` one class a document."""
+    import torch
+
+    from paddle_tpu_torch.device import resolve_device
+    from paddle_tpu_torch.graph import Argument, make_ids
+    from paddle_tpu_torch.graph.argument import _tensor
+
+    dev = resolve_device(device)
+    rng = np.random.RandomState(seed)
+    n_sents = rng.randint(1, max_sents + 1, B).astype(np.int32)
+    n_sents[0] = max(n_sents[0], 2)
+    sub_lens = np.zeros((B, max_sents), np.int32)
+    for b in range(B):
+        sub_lens[b, :n_sents[b]] = rng.randint(min_words, max_words + 1, n_sents[b])
+    sub_lens[0, n_sents[0] - 1] = 0
+    ids = np.minimum(rng.zipf(zipf, size=(B, max_sents, max_words)) - 1, vocab - 1)
+    ids = np.where(np.arange(max_words)[None, None, :] < sub_lens[:, :, None], ids, 0)
+    return {
+        "words": Argument(ids=_tensor(ids, torch.int32, dev),
+                          seq_lengths=_tensor(n_sents, torch.int32, dev),
+                          sub_seq_lengths=_tensor(sub_lens, torch.int32, dev)),
+        "label": make_ids(rng.randint(0, classes, B).astype(np.int32), device=dev),
     }

@@ -62,6 +62,12 @@ class Argument:
         pos = torch.arange(ref.shape[1], device=ref.device)[None, :]
         return (pos < self.seq_lengths[:, None]).to(dtype)
 
+    def sub_seq_mask(self, dtype=torch.float32) -> Tensor:
+        """[B, S, T] mask of the valid steps of each sub-sequence."""
+        ref = self._ref()
+        pos = torch.arange(ref.shape[2], device=ref.device)[None, None, :]
+        return (pos < self.sub_seq_lengths[:, :, None]).to(dtype)
+
 
 def _tensor(x, dtype=None, device: DeviceLike = None) -> Tensor:
     if isinstance(x, np.ndarray):
@@ -83,3 +89,11 @@ def make_seq(value, lengths, ids=None, device: DeviceLike = None) -> Argument:
         ids=None if ids is None else _tensor(ids, torch.int32, device),
         seq_lengths=_tensor(lengths, torch.int32, device),
     )
+
+
+def degrade_sequence(arg: Argument) -> Argument:
+    """A nested argument with its nesting stripped: the same value or ids,
+    read as a plain sequence over its sub-sequences (the reference's
+    ``Argument::degradeSequence``)."""
+    return Argument(value=arg.value, ids=arg.ids, seq_lengths=arg.seq_lengths,
+                    weight=arg.weight)

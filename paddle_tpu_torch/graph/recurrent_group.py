@@ -10,8 +10,17 @@ projection) run once after the loop on the stacked rows (the epilogue),
 time-parallel projections of plain in-links run once before it (the
 prologue), and a training group that is exactly the attention-GRU decoder
 template runs as the fused decoder kernels (:mod:`~paddle_tpu_torch.graph.
-fused_decoder`). Nested groups and sequence-valued memories are a later
-slice and raise.
+fused_decoder`).
+
+Nested (sub-sequence) groups, as in the JAX package: an in-link marked
+``has_subseq`` ([B, S, T, D]) makes the loop step over sub-sequences, each
+step fed one whole [B, T, D] sub-sequence with its inner lengths; a
+recurrent group inside the step loops over that sub-sequence's tokens, and
+an out-link that gives a sequence frame each step becomes a nested
+[B, S, T, D] result. A nested group hoists nothing and takes no fused
+decoder. A sequence-valued memory (``memory(is_seq=True)``) carries a
+whole padded sequence (value, lengths) from step to step, booted from a
+sequence layer and clamped to the boot's padded length.
 
 A generator group runs the JAX package's batched beam search
 (``_generate``): statics and memory boots tiled K-fold, one walk of the
@@ -21,8 +30,10 @@ every beam of every sample has finished or ``max_length`` steps ran.
 In gen-capture mode the serving engine's prefill runs the graph up to the
 group instead (encoder outputs as static links, memory boots per sample),
 and the decode loop is the engine's, one slot-batched step at a time
-(:mod:`paddle_tpu_torch.graph.decode_step`). Generation with nested
-in-links or sequence-valued memories is a later slice and raises.
+(:mod:`paddle_tpu_torch.graph.decode_step`, which refuses a group with
+in-links or a sequence-valued memory). A nested in-link feeds one whole
+sub-sequence per generated step; sequence-valued memories are carried per
+beam, frozen and reordered as flat carries are.
 """
 
 from __future__ import annotations
@@ -75,9 +86,10 @@ def _resolve_outer(sub: SubModelConfig, name: str) -> str:
 def _scope_lookup(ctx: LayerContext, name: str) -> Argument:
     """Group-entry name resolution: this scope, then enclosing scopes.
 
-    Used ONLY for static links and memory boot layers; ordinary layer-input
-    lookup cannot walk up, so a step referencing an outer sequence without
-    StaticInput still fails loudly."""
+    Used ONLY for in-links, static links and memory boot layers (the
+    references a nested group may make to layers outside its enclosing
+    group); ordinary layer-input lookup cannot walk up, so a step
+    referencing an outer sequence without StaticInput still fails loudly."""
     c = ctx
     while c is not None:
         if name in c.outputs:
@@ -120,12 +132,64 @@ def _run_submodel_step(network, sub: SubModelConfig, ctx: LayerContext,
         if lcfg.name in step_ctx.outputs or lcfg.name in skip:
             continue
         if lcfg.type == "recurrent_layer_group":
-            raise NotImplementedError(
-                "nested recurrent groups are not ported yet (ROADMAP Queue 1 item 5)")
+            # a nested group loops over the tokens of this step's sub-sequence
+            forward_recurrent_group(network, lcfg, step_ctx)
+            continue
         ins = [network._lookup_input(step_ctx, ic.input_layer_name, ic.input_layer_argument)
                for ic in lcfg.inputs]
         forward_layer(lcfg, ins, step_ctx)
     return step_ctx.outputs
+
+
+def _memory_boot_seq(network, mem, ctx: LayerContext, sub: SubModelConfig):
+    """The (value or ids, lengths) carry of a sequence-valued memory, from
+    its boot layer, which must be a sequence (the reference's
+    createMemoryFrameInfo seqFlag branch)."""
+    if not mem.boot_layer_name:
+        raise ValueError(f"sequence memory for {mem.layer_name!r} needs a sequence boot layer "
+                         "(reference: 'boot layer must be a sequence when is_sequence = true')")
+    boot = _scope_lookup(ctx, _resolve_outer(sub, mem.boot_layer_name))
+    if not boot.is_seq:
+        raise ValueError(f"boot layer {mem.boot_layer_name!r} of sequence memory is not a "
+                         "sequence")
+    return (boot.value if boot.value is not None else boot.ids), boot.seq_lengths
+
+
+def _pad_time(x: Tensor, T: int) -> Tensor:
+    """x with axis 1 padded with zeros or cut to exactly T."""
+    if x.shape[1] >= T:
+        return x[:, :T]
+    return torch.cat([x, x.new_zeros((x.shape[0], T - x.shape[1]) + tuple(x.shape[2:]))], 1)
+
+
+def _advance_seq_memory(mem, old, out_arg: Argument):
+    """The new (value, lengths) of a sequence memory from its layer's step
+    output, padded or cut to the carry's capacity, the boot's padded
+    length, as the JAX package's fixed-shape carries are
+    (doc/divergences.md). The caller applies its keep-mask."""
+    old_v, _ = old
+    n_rows, Tm = old_v.shape[:2]
+    new_v = out_arg.ids if _is_int_carry(old_v) else out_arg.value
+    if new_v.dim() != old_v.dim():
+        raise ValueError(f"sequence memory {mem.layer_name!r}: linked layer must produce a "
+                         "sequence frame")
+    new_v = _pad_time(new_v, Tm).to(old_v.dtype)
+    if out_arg.seq_lengths is not None:
+        new_l = torch.clamp(out_arg.seq_lengths, max=Tm).to(torch.int32)
+    else:
+        new_l = torch.full((n_rows,), Tm, dtype=torch.int32, device=new_v.device)
+    return new_v, new_l
+
+
+def _boot_carries(network, memories, ctx, sub, B, dtype, device) -> list:
+    """Each memory's first carry."""
+    return [_memory_boot_seq(network, mem, ctx, sub) if mem.is_sequence
+            else _memory_boot(network, mem, ctx, B, dtype, sub, device) for mem in memories]
+
+
+def _keep(mask: Tensor, x: Tensor) -> Tensor:
+    """A per-row mask [N] shaped to broadcast over x [N, ...]."""
+    return mask.reshape((-1,) + (1,) * (x.dim() - 1))
 
 
 # layer types that are pure per-row functions of their inputs (no
@@ -218,45 +282,53 @@ def _plan_prologue(network, sub: SubModelConfig, epilogue: frozenset):
 
 
 def _forward_scan(network, cfg: LayerConfig, sub: SubModelConfig, ctx: LayerContext) -> None:
-    """The training/evaluation loop of a flat recurrent group."""
+    """The training/evaluation loop of a recurrent group: over the time
+    steps of a flat group, over the sub-sequences of a nested one."""
     if not sub.in_links:
         raise ValueError(f"recurrent group {cfg.name} has no sequence inputs")
-    if any(link.has_subseq for link in sub.in_links):
-        raise NotImplementedError(
-            f"recurrent group {cfg.name!r}: nested (sub-sequence) groups are not "
-            "ported yet (ROADMAP Queue 1 item 5)")
-    if any(mem.is_sequence for mem in sub.memories):
-        raise NotImplementedError(
-            f"recurrent group {cfg.name!r}: sequence-valued memories are not "
-            "ported yet (ROADMAP Queue 1 item 5)")
-    first = _scope_lookup(ctx, sub.in_links[0].layer_name)
-    if not first.is_seq:
-        raise ValueError(f"in-link {sub.in_links[0].layer_name!r} is not a sequence")
-    lengths = first.seq_lengths
+    nested = any(link.has_subseq for link in sub.in_links)
+    if nested:
+        ref_link = next(l for l in sub.in_links if l.has_subseq)
+        first = _scope_lookup(ctx, ref_link.layer_name)
+        if not first.is_nested_seq:
+            raise ValueError(f"in-link {ref_link.layer_name!r} marked has_subseq but is not "
+                             "nested")
+    else:
+        first = _scope_lookup(ctx, sub.in_links[0].layer_name)
+        if not first.is_seq:
+            raise ValueError(f"in-link {sub.in_links[0].layer_name!r} is not a sequence")
+    lengths = first.seq_lengths            # [B]: valid steps, or sub-sequences
     B, T = first.batch_size, first.max_len
-    mask_bt = first.seq_mask()
+    mask_bt = first.seq_mask()             # [B, T] (T = S for a nested group)
 
+    # time-major in-links; a nested link also gives each step's inner
+    # lengths, so that every step is fed a real sequence
     xs_vals: Dict[str, Tensor] = {}
     xs_ids: Dict[str, Tensor] = {}
+    xs_sublens: Dict[str, Tensor] = {}
     for link in sub.in_links:
         arg = _scope_lookup(ctx, link.layer_name)
         if arg.value is not None:
             xs_vals[link.link_name] = arg.value.transpose(0, 1)      # [T, B, ...]
         if arg.ids is not None:
             xs_ids[link.link_name] = arg.ids.transpose(0, 1)
+        if link.has_subseq:
+            xs_sublens[link.link_name] = arg.sub_seq_lengths.transpose(0, 1)  # [S, B]
     statics: Dict[str, Argument] = {
         link.link_name: _scope_lookup(ctx, link.layer_name) for link in sub.static_links}
 
     memories = list(sub.memories)
     ref = first.value if first.value is not None else first.ids
     carry_dtype = first.value.dtype if first.value is not None else torch.float32
-    carries = [_memory_boot(network, mem, ctx, B, carry_dtype, sub, ref.device)
-               for mem in memories]
+    carries = _boot_carries(network, memories, ctx, sub, B, carry_dtype, ref.device)
     out_links = list(sub.out_links)
 
-    plan = _plan_epilogue(network, sub)
+    # a nested group hoists nothing; a flat one hoists no layer that reads
+    # a sequence-valued feed
+    plan = None if nested else _plan_epilogue(network, sub)
     if plan is not None:
-        seq_feeds = {l.link_name for l in sub.static_links if l.has_subseq}
+        seq_feeds = {m.link_name for m in memories if m.is_sequence}
+        seq_feeds |= {l.link_name for l in sub.static_links if l.has_subseq}
         if any(f in seq_feeds for f in plan[1]):
             plan = None
     epilogue, frontier = plan if plan is not None else ([], [])
@@ -265,7 +337,7 @@ def _forward_scan(network, cfg: LayerConfig, sub: SubModelConfig, ctx: LayerCont
     skip = frozenset(epilogue)
     inside_out_links = [l for l in out_links if l.layer_name not in skip]
 
-    pro_plan = _plan_prologue(network, sub, skip)
+    pro_plan = {} if nested else _plan_prologue(network, sub, skip)
     pro_feeds: Dict[str, Tensor] = {}
     if pro_plan:
         from paddle_tpu_torch.layers.core import apply_projection
@@ -284,7 +356,7 @@ def _forward_scan(network, cfg: LayerConfig, sub: SubModelConfig, ctx: LayerCont
     # runs as the fused decoder kernels; any other group takes the loop
     # below, which is a different graph, not a fallback
     fused_ys = None
-    if ctx.is_training:
+    if ctx.is_training and not nested:
         from paddle_tpu_torch.graph import fused_decoder
 
         fplan = fused_decoder.match_decoder(network, sub, ctx, statics, skip, pro_plan)
@@ -299,10 +371,11 @@ def _forward_scan(network, cfg: LayerConfig, sub: SubModelConfig, ctx: LayerCont
         # the (ys, frontier) the loop would give: masked out-link streams,
         # raw frontier values for the epilogue
         m3 = mask_bt.transpose(0, 1)[:, :, None].to(fused_ys.dtype)
-        ys = [fused_ys * m3 for _ in inside_out_links]
+        ys = [(fused_ys * m3, None) for _ in inside_out_links]
         frs = [(fused_ys, None) for _ in dyn_frontier]
     else:
-        ys_t: List[List[Tensor]] = [[None] * T for _ in inside_out_links]
+        ys_t: List[List[Tuple[Tensor, Optional[Tensor]]]] = [[None] * T
+                                                               for _ in inside_out_links]
         fr_t = [([None] * T, [None] * T) for _ in dyn_frontier]
         mask_tb = mask_bt.transpose(0, 1)
         for t in (range(T - 1, -1, -1) if sub.reversed else range(T)):
@@ -311,34 +384,51 @@ def _forward_scan(network, cfg: LayerConfig, sub: SubModelConfig, ctx: LayerCont
                 name = link.link_name
                 fed[name] = Argument(
                     value=xs_vals[name][t] if name in xs_vals else None,
-                    ids=xs_ids[name][t] if name in xs_ids else None)
+                    ids=xs_ids[name][t] if name in xs_ids else None,
+                    seq_lengths=xs_sublens[name][t] if name in xs_sublens else None)
             fed.update(statics)
             for mem, carry in zip(memories, carries):
                 fed[mem.link_name] = _memory_feed_arg(mem, carry)
             mixed_pro = {lname: (pro_plan[lname], x[t]) for lname, x in pro_feeds.items()}
             outs = _run_submodel_step(network, sub, ctx, fed, skip=skip,
                                       mixed_prologue=mixed_pro, t=t)
-            m = mask_tb[t][:, None]
+            m_t = mask_tb[t]
+            keep = m_t > 0
             new_carries = []
             for mem, old in zip(memories, carries):
                 out_arg = outs[mem.layer_name]
+                if mem.is_sequence:
+                    new_v, new_l = _advance_seq_memory(mem, old, out_arg)
+                    new_carries.append((torch.where(_keep(keep, new_v), new_v, old[0]),
+                                        torch.where(keep, new_l, old[1])))
+                    continue
                 new = out_arg.ids if _is_int_carry(old) else out_arg.value
-                keep = (m > 0) if new.dim() == 2 else (mask_tb[t] > 0)
-                new_carries.append(torch.where(keep, new.to(old.dtype), old))
+                new_carries.append(torch.where(_keep(keep, new), new.to(old.dtype), old))
             carries = new_carries
             for i, l in enumerate(inside_out_links):
-                v = outs[l.layer_name].value
-                ys_t[i][t] = v * m.to(v.dtype)
+                out_arg = outs[l.layer_name]
+                v = out_arg.value
+                if v.dim() >= 3 and out_arg.seq_lengths is not None:
+                    # a sequence frame (an inner group's output): one row of
+                    # a nested result, with its lengths
+                    ys_t[i][t] = (v * _keep(m_t, v).to(v.dtype),
+                                  out_arg.seq_lengths * m_t.to(torch.int32))
+                else:
+                    ys_t[i][t] = (v * m_t[:, None].to(v.dtype), None)
             # frontier values for the epilogue stay UNMASKED (the out-link
             # mask is applied after the epilogue)
             for i, f in enumerate(dyn_frontier):
                 fr_t[i][0][t], fr_t[i][1][t] = outs[f].value, outs[f].ids
-        ys = [torch.stack(y) for y in ys_t]
+        ys = [(torch.stack([v for v, _ in y]),
+               None if y[0][1] is None else torch.stack([l for _, l in y])) for y in ys_t]
         frs = [(None if vs[0] is None else torch.stack(vs),
                 None if ids[0] is None else torch.stack(ids)) for vs, ids in fr_t]
 
-    for link, y in zip(inside_out_links, ys):
-        ctx.outputs[link.link_name] = Argument(value=y.transpose(0, 1), seq_lengths=lengths)
+    for link, (y, y_lens) in zip(inside_out_links, ys):
+        # [S, B, T, D] -> a nested [B, S, T, D] with per-sub-sequence lengths
+        ctx.outputs[link.link_name] = Argument(
+            value=y.transpose(0, 1), seq_lengths=lengths,
+            sub_seq_lengths=None if y_lens is None else y_lens.transpose(0, 1))
     if epilogue:
         _run_epilogue(network, ctx, epilogue, dyn_frontier, frs, statics, out_links,
                       B, T, mask_bt, lengths)
@@ -390,11 +480,14 @@ def _run_epilogue(network, ctx, epilogue, dyn_frontier, frs, statics,
             ctx.logits[link.link_name] = TimeMajorLogits(z, T, B)
 
 
-def _memory_feed_arg(mem, carry: Tensor) -> Argument:
-    """Turn a flat carry back into the Argument fed to the step."""
+def _memory_feed_arg(mem, carry) -> Argument:
+    """Turn a carry back into the Argument fed to the step (a sequence
+    memory's carry is its (value or ids, lengths) pair)."""
     if mem.is_sequence:
-        raise NotImplementedError(
-            "sequence-valued memories are not ported yet (ROADMAP Queue 1 item 5)")
+        v, sl = carry
+        if _is_int_carry(v):
+            return Argument(ids=v, seq_lengths=sl)
+        return Argument(value=v, seq_lengths=sl)
     if _is_int_carry(carry):
         return Argument(ids=carry)
     return Argument(value=carry)
@@ -456,14 +549,6 @@ def _generate(network, cfg: LayerConfig, sub: SubModelConfig, ctx: LayerContext)
     if L <= 0:
         raise ValueError("generator needs max_num_frames (beam_search max_length)")
     bos, eos = int(cfg.bos_id), int(cfg.eos_id)
-    if any(link.has_subseq for link in sub.in_links):
-        raise NotImplementedError(
-            f"generator group {cfg.name!r}: nested (sub-sequence) in-links are not "
-            "ported yet (ROADMAP Queue 1 item 5)")
-    if any(mem.is_sequence for mem in sub.memories):
-        raise NotImplementedError(
-            f"generator group {cfg.name!r}: sequence-valued memories are not "
-            "ported yet (ROADMAP Queue 1 item 5)")
 
     B: Optional[int] = None
     statics: Dict[str, Argument] = {}
@@ -471,12 +556,17 @@ def _generate(network, cfg: LayerConfig, sub: SubModelConfig, ctx: LayerContext)
         arg = _scope_lookup(ctx, link.layer_name)
         statics[link.link_name] = arg
         B = arg.batch_size if B is None else B
-    # flat sequence in-links: generation consumes one input frame per step
-    # (per-step conditioning) and ends with the shortest in-link of a sample
+    # sequence in-links: generation consumes one input frame per step
+    # (per-step conditioning), or one whole sub-sequence of a nested
+    # in-link, and ends with the shortest in-link of a sample
     in_args: Dict[str, Argument] = {}
     in_lengths: Optional[Tensor] = None
     for link in sub.in_links:
         arg = _scope_lookup(ctx, link.layer_name)
+        if link.has_subseq and not (arg.is_nested_seq and arg.is_seq):
+            raise ValueError(
+                f"generation in-link {link.layer_name!r} marked has_subseq needs a nested "
+                "sequence with outer lengths (seq_lengths = sub-sequence count per sample)")
         if not arg.is_seq:
             raise ValueError(
                 f"generation in-link {link.layer_name!r} must be a sequence (wrap "
@@ -497,8 +587,7 @@ def _generate(network, cfg: LayerConfig, sub: SubModelConfig, ctx: LayerContext)
     dtype = values[0].dtype if values else torch.float32
     tensors = values + [a.ids for a in given if a.ids is not None]
     device = tensors[0].device if tensors else next(iter(ctx.params.values())).device
-    boots: List[Tensor] = [_memory_boot(network, mem, ctx, B, dtype, sub, device)
-                           for mem in memories]
+    boots = _boot_carries(network, memories, ctx, sub, B, dtype, device)
 
     predict_agent = f"__generated_id@{cfg.name}"
     if predict_agent not in network.layer_map:
@@ -515,13 +604,18 @@ def _generate(network, cfg: LayerConfig, sub: SubModelConfig, ctx: LayerContext)
     statics = {name: _expand_beams(arg, K) for name, arg in statics.items()}
     in_v: Dict[str, Tensor] = {}                                # [T, B*K, ...]
     in_i: Dict[str, Tensor] = {}
+    in_l: Dict[str, Tensor] = {}                                # nested: [S, B*K]
     for name, arg in in_args.items():
         ex = _expand_beams(arg, K)
         if ex.value is not None:
             in_v[name] = ex.value.transpose(0, 1)
         if ex.ids is not None:
             in_i[name] = ex.ids.transpose(0, 1)
-    carries = [torch.repeat_interleave(boot, K, dim=0) for boot in boots]
+        if ex.sub_seq_lengths is not None:
+            in_l[name] = ex.sub_seq_lengths.transpose(0, 1)
+    carries = [tuple(torch.repeat_interleave(x, K, dim=0) for x in boot) if mem.is_sequence
+               else torch.repeat_interleave(boot, K, dim=0)
+               for mem, boot in zip(memories, boots)]
     prev_tok = torch.full((B * K,), bos, dtype=torch.int32, device=device)
     cum = torch.zeros((B, K), dtype=dtype, device=device)      # cumulative log prob
     cum[:, 1:] = _NEG_INF
@@ -541,7 +635,8 @@ def _generate(network, cfg: LayerConfig, sub: SubModelConfig, ctx: LayerContext)
         fed: Dict[str, Argument] = {predict_agent: Argument(ids=prev_tok)}
         for name in in_args:
             fed[name] = Argument(value=in_v[name][t] if name in in_v else None,
-                                 ids=in_i[name][t] if name in in_i else None)
+                                 ids=in_i[name][t] if name in in_i else None,
+                                 seq_lengths=in_l[name][t] if name in in_l else None)
         fed.update(statics)
         for mem, carry in zip(memories, carries):
             fed[mem.link_name] = _memory_feed_arg(mem, carry)
@@ -565,9 +660,14 @@ def _generate(network, cfg: LayerConfig, sub: SubModelConfig, ctx: LayerContext)
         new_carries = []
         for mem, old in zip(memories, carries):
             out_arg = outs[mem.layer_name]
+            if mem.is_sequence:
+                new = _advance_seq_memory(mem, old, out_arg)
+                new_carries.append(tuple(
+                    torch.where(_keep(keep, o), o, n).index_select(0, flat_sel)
+                    for o, n in zip(old, new)))
+                continue
             new = out_arg.ids if _is_int_carry(old) else out_arg.value
-            frozen = torch.where(keep.reshape((-1,) + (1,) * (old.dim() - 1)), old,
-                                 new.to(old.dtype))
+            frozen = torch.where(_keep(keep, old), old, new.to(old.dtype))
             new_carries.append(frozen.index_select(0, flat_sel))
         carries = new_carries
         finished = torch.gather(finished, 1, beam_idx)

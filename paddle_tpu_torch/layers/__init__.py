@@ -1,6 +1,5 @@
 """Layer library of the port. Importing this package registers every
-layer type of the JAX package's library but ``mdlstmemory``, which takes
-only a nested argument (ROADMAP Queue 1 item 5; ``base.NOT_PORTED``)."""
+layer type of the JAX package's library."""
 
 from paddle_tpu_torch.layers.base import LayerContext, forward_layer, layer_registry, register_layer
 import paddle_tpu_torch.layers.core  # noqa: F401

@@ -144,10 +144,10 @@ class LayerContext:
 
 
 def input_mask(arg: Argument) -> Optional[Tensor]:
-    """[B, T] float validity mask if arg is a sequence, else None."""
+    """The float validity mask: [B, S, T] of a nested argument, [B, T] of a
+    sequence, None otherwise."""
     if arg.is_nested_seq:
-        raise NotImplementedError(
-            "nested sequences are not ported yet (ROADMAP Queue 1 item 5)")
+        return arg.sub_seq_mask()
     return arg.seq_mask() if arg.is_seq else None
 
 
@@ -191,8 +191,8 @@ class _ClipError(torch.autograd.Function):
 
 
 # JAX layer types the port does not have yet -> the ROADMAP Queue 1 item
-# that brings them (mdlstmemory takes only a nested argument)
-NOT_PORTED = {"mdlstmemory": 5}
+# that brings them (none: every type of the JAX package is registered)
+NOT_PORTED: Dict[str, int] = {}
 
 
 def forward_layer(cfg: LayerConfig, inputs: List[Argument], ctx: LayerContext) -> Argument:

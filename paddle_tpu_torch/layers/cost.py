@@ -3,7 +3,8 @@ normalisation), square error, binary and soft binary cross-entropy, rank
 cost, huber, the validation layers and classification_error.
 
 Port of ``paddle_tpu/layers/cost.py``. A cost layer outputs the
-per-sample cost [B, 1] (sequences: summed over the valid timesteps),
+per-sample cost [B, 1] (sequences: summed over the valid timesteps;
+nested sequences: over every valid step of every sub-sequence),
 scaled by ``coeff`` and the optional per-sample weight; the gradient
 machine averages it over the batch into the loss.
 """
@@ -26,9 +27,8 @@ def _finish_cost(cfg: LayerConfig, per_step: Tensor, arg: Argument,
                  weight_arg: Optional[Argument]) -> Argument:
     """Reduce the per-step cost over time (masked) and apply coeff and weight."""
     if arg.is_nested_seq:
-        raise NotImplementedError(
-            "costs over nested sequences are not ported yet (ROADMAP Queue 1 item 5)")
-    if arg.is_seq:
+        cost = torch.sum(per_step * arg.sub_seq_mask(per_step.dtype), dim=(1, 2))
+    elif arg.is_seq:
         cost = torch.sum(per_step * arg.seq_mask(per_step.dtype), dim=1)
     else:
         cost = per_step

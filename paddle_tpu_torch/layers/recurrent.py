@@ -158,3 +158,85 @@ def lstm_step_layer(cfg: LayerConfig, inputs: List[Argument], ctx: LayerContext)
     h = o * apply_activation(cfg.active_state_type or "sigmoid", c)
     ctx.outputs[f"{cfg.name}@state"] = Argument(value=c, seq_lengths=inputs[0].seq_lengths)
     return Argument(value=h, seq_lengths=inputs[0].seq_lengths)
+
+
+@register_layer("mdlstmemory")
+def mdlstm_layer(cfg: LayerConfig, inputs: List[Argument], ctx: LayerContext) -> Argument:
+    """The 2-D multi-dimensional LSTM (the reference's MDLstmLayer, Graves'
+    MDLSTM) over a nested [B, H, W, (3+D)*size] input of x-projections for
+    the blocks [input node, input gate, forget gate x D, output gate]. The
+    recurrent weight [size, (3+D)*size] is shared by the D = 2 predecessors
+    (top and left); the bias packs the (3+D) gate biases and the peepholes
+    checkIg, checkFg x D, checkOg. ``directions[d]`` False runs dimension d
+    backwards. Each cell sums its predecessors' outputs through the weight
+    and their states through the peepholes, with one forget gate each; a
+    predecessor outside the grid contributes zeros.
+
+    The cells of one anti-diagonal i + j = d depend only on diagonal d - 1,
+    so the loop runs over the H + W - 1 diagonals, each one batched
+    product over its cells. Ragged grids (per-sample sub_seq_lengths) zero
+    the outputs and states of the cells outside a sample's grid, which
+    makes them absent to their neighbours, as in the JAX layer."""
+    a = inputs[0]
+    x = a.value
+    if x is None or x.dim() != 4:
+        raise ValueError("mdlstmemory expects a nested [B, H, W, (3+D)*size] input "
+                         "(dense_vector_sub_sequence grid)")
+    dirs = list(cfg.directions) or [True, True]
+    D = len(dirs)
+    if D != 2:
+        raise ValueError("mdlstmemory: 2-D grids supported (directions must have 2 entries)")
+    nb = cfg.size
+    w = ctx.param(cfg.inputs[0].input_parameter_name).reshape(nb, (3 + D) * nb)
+    bias = ctx.param(cfg.bias_parameter_name).reshape(-1)
+    gate_bias = bias[:(3 + D) * nb]
+    check_ig = bias[(3 + D) * nb:(4 + D) * nb]
+    check_fg = bias[(4 + D) * nb:(4 + 2 * D) * nb].reshape(D, nb)
+    check_og = bias[(4 + 2 * D) * nb:(5 + 2 * D) * nb]
+
+    if a.sub_seq_lengths is not None:
+        grid_mask = a.sub_seq_mask(x.dtype)[..., None]            # [B, H, W, 1]
+    else:
+        grid_mask = x.new_ones(x.shape[:3] + (1,))
+    flip = [d + 1 for d in range(D) if not dirs[d]]
+    if flip:
+        x, grid_mask = torch.flip(x, flip), torch.flip(grid_mask, flip)
+    B, H, W, _ = x.shape
+    g_all = (x + gate_bias).permute(1, 2, 0, 3)                  # [H, W, B, (3+D)nb]
+    m_all = grid_mask.permute(1, 2, 0, 3)                        # [H, W, B, 1]
+
+    act_gate = cfg.active_gate_type or "sigmoid"
+    act_in = cfg.active_type or "tanh"
+    act_state = cfg.active_state_type or "sigmoid"
+    zeros = x.new_zeros(1, B, nb)
+    prev_out = prev_st = None        # diagonal d - 1 by row, padded: [H + 1, B, nb]
+    ys = x.new_zeros(H, W, B, nb)
+    for d in range(H + W - 1):
+        lo, hi = max(0, d - W + 1), min(H - 1, d)
+        rows = torch.arange(lo, hi + 1, device=x.device)
+        g, m = g_all[rows, d - rows], m_all[rows, d - rows]      # [n, B, ...]
+        if prev_out is None:
+            out_t = out_l = st_t = st_l = zeros
+        else:
+            # row i's top neighbour is diagonal d - 1's row i - 1, its left
+            # neighbour that diagonal's row i
+            out_t, out_l = prev_out[lo:hi + 1], prev_out[lo + 1:hi + 2]
+            st_t, st_l = prev_st[lo:hi + 1], prev_st[lo + 1:hi + 2]
+        g = g + (out_t + out_l) @ w
+        ig = apply_activation(act_gate, g[..., nb:2 * nb] + (st_t + st_l) * check_ig)
+        fg = apply_activation(act_gate, g[..., 2 * nb:(2 + D) * nb]
+                              + torch.cat([st_t * check_fg[0], st_l * check_fg[1]], -1))
+        state = (fg[..., :nb] * st_t + fg[..., nb:] * st_l
+                 + apply_activation(act_in, g[..., :nb]) * ig)
+        og = apply_activation(act_gate, g[..., (2 + D) * nb:] + state * check_og)
+        # a cell outside the grid emits zeros, so its neighbours see it absent
+        out = og * apply_activation(act_state, state) * m
+        state = state * m
+        ys[rows, d - rows] = out
+        pad = lambda v: torch.cat([zeros.expand(lo + 1, B, nb), v,  # noqa: E731
+                                   zeros.expand(H - 1 - hi, B, nb)])
+        prev_out, prev_st = pad(out), pad(state)
+    out = ys.permute(2, 0, 1, 3)                                  # [B, H, W, nb]
+    if flip:
+        out = torch.flip(out, flip)
+    return Argument(value=out, seq_lengths=a.seq_lengths, sub_seq_lengths=a.sub_seq_lengths)

@@ -41,7 +41,7 @@ COPIES = (
     "data/provider.py", "data/datasets.py", "data/binary.py",
     "resilience/hangwatch.py", "resilience/heartbeat.py", "resilience/supervisor.py",
     "serving/resilience.py", "serving/transport.py", "serving/fleet.py",
-    "observability/costs.py",
+    "observability/costs.py", "utils/image_util.py",
 )
 # the deliberate changes to copies: the port never puts compat/ on
 # sys.path, it binds ``paddle`` to its own shim while a config runs; the

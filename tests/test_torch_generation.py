@@ -6,7 +6,9 @@ same feed: the batched beam loop of ``graph/recurrent_group.py`` on the
 tiny seqToseq model (``nmt_gen_config(vocab=50, dim=16, max_length=8)``)
 at beam 1 and 3, on the generation configs of
 ``tests/test_recurrent_group.py`` and ``tests/test_nested_recurrent.py``
-with their seeds, on probabilities that tie bit for bit, and on a batch
+with their seeds, on those of ``tests/test_gen_seq_memory.py`` (a
+sequence-valued memory) and ``tests/test_gen_nested_inlink.py`` (a nested
+in-link) greedy and at beam 3, on probabilities that tie bit for bit, and on a batch
 that finishes before ``max_length``; then ``api.SequenceGenerator``,
 the greedy engines against it, and ``Trainer.generate``'s result file.
 Ids and lengths must be equal; scores agree within 1e-5 (relative and
@@ -637,8 +639,11 @@ def test_beam_parity_catches_a_loop_that_skips_the_best_candidate(monkeypatch):
     assert err.value.args[0][2] == 3                # the first step it skipped
 
 
-# ------------------------------------------------------------- refusals
+# ------------------------------- nested in-links and sequence memories
 
+# tests/test_gen_seq_memory.py's config: the step adds the fed-back word's
+# embedding to a carried SEQUENCE (memory(is_seq=True)) and scores the
+# next word from its average
 GEN_SEQ_MEM = """
 from paddle.trainer_config_helpers import *
 settings(batch_size=4, learning_rate=1e-3)
@@ -656,6 +661,8 @@ out = beam_search(step=gen_step,
                   bos_id=0, eos_id=8, beam_size=1, max_length=7, name="gen")
 """
 
+# tests/test_gen_nested_inlink.py's config: each generated step reads one
+# whole sub-sequence of a nested in-link
 GEN_NESTED = """
 from paddle.trainer_config_helpers import *
 settings(batch_size=4, learning_rate=1e-3)
@@ -673,20 +680,57 @@ out = beam_search(step=gen_step,
 """
 
 
+def _seq_mem_feeds(B, T, lens, data_seed):
+    boot = np.random.RandomState(data_seed).randn(B, T, 6).astype(np.float32)
+    lens = np.array(lens, np.int32)
+    return ({"boot": jax_make_seq(boot, lens)}, {"boot": make_seq(boot, lens, device="cpu")})
+
+
+def _nested_feeds(n_subs, sub_lens, data_seed, T=3):
+    from paddle_tpu.graph.argument import Argument as JArg
+
+    n_subs, sub_lens = np.array(n_subs, np.int32), np.array(sub_lens, np.int32)
+    x = np.random.RandomState(data_seed).randn(len(n_subs), sub_lens.shape[1], T, 5)
+    x = (x * 2.0).astype(np.float32)
+    return ({"ctxt": JArg(value=jnp.asarray(x), seq_lengths=jnp.asarray(n_subs),
+                          sub_seq_lengths=jnp.asarray(sub_lens))},
+            {"ctxt": Argument(value=torch.from_numpy(x), seq_lengths=torch.from_numpy(n_subs),
+                              sub_seq_lengths=torch.from_numpy(sub_lens))})
+
+
 @pytest.mark.parametrize("text,feed,what", [
-    (GEN_SEQ_MEM, lambda: {"boot": make_seq(np.ones((2, 3, 6), np.float32), [3, 2],
-                                            device="cpu")},
-     "sequence-valued memories are not ported yet"),
-    (GEN_NESTED, lambda: {"ctxt": Argument(
-        value=torch.ones((2, 2, 3, 5)), seq_lengths=torch.tensor([2, 1], dtype=torch.int32),
-        sub_seq_lengths=torch.tensor([[3, 1], [2, 0]], dtype=torch.int32))},
-     "nested .* in-links are not ported yet"),
+    (GEN_SEQ_MEM, lambda: _seq_mem_feeds(3, 4, [4, 2, 3], 3), 9),
+    (GEN_NESTED, lambda: _nested_feeds([4, 2, 3], [[3, 1, 2, 3], [2, 3, 0, 0], [1, 1, 2, 0]],
+                                       11), 4),
 ], ids=["sequence_memory", "nested_in_link"])
 def test_generation_refuses_what_is_not_ported(tmp_path, text, feed, what):
-    ttc = parse_config(_write(tmp_path, text))
-    tm = GradientMachine(ttc.model_config, device="cpu")
-    with pytest.raises(NotImplementedError, match=what):
-        tm.forward(tm.init_params(seed=1), feed(), "gen")
+    """Generation with a sequence-valued memory and with a nested in-link,
+    once refused, now runs: greedy, on the data and parameter seed
+    (``what``) of tests/test_gen_seq_memory.py and
+    tests/test_gen_nested_inlink.py, the ids, lengths and scores are the
+    JAX package's."""
+    jtc, ttc = _parse_both(tmp_path, text)
+    jfeed, tfeed = feed()
+    jout, tout, _ = _generate_both(jtc, ttc, what, jfeed, tfeed)
+    _assert_same_generation(jout, tout, "gen")
+    assert (tout["gen"].seq_lengths.numpy() > 0).all()
+
+
+@pytest.mark.parametrize("text,feed,seed", [
+    (GEN_SEQ_MEM, lambda: _seq_mem_feeds(2, 3, [3, 2], 5), 2),
+    (GEN_NESTED, lambda: _nested_feeds([3, 1, 2], [[3, 2, 1], [3, 0, 0], [0, 2, 0]], 12), 4),
+], ids=["sequence_memory", "nested_in_link"])
+def test_beam_search_carries_sequence_memories_and_nested_in_links(tmp_path, text, feed, seed):
+    """Beam 3 (tests/test_gen_seq_memory.py:165's case, and a nested in-link
+    with an empty sub-sequence): each beam's sequence memory is frozen once
+    it finishes and reordered with its beam; ids, lengths and scores are
+    the JAX package's."""
+    jtc, ttc = _parse_both(tmp_path, text.replace("beam_size=1", "beam_size=3"))
+    jfeed, tfeed = feed()
+    jout, tout, _ = _generate_both(jtc, ttc, seed, jfeed, tfeed)
+    _assert_same_generation(jout, tout, "gen")
+    scores = tout["gen@beams"].value.numpy()
+    assert np.isfinite(scores[:, 0]).all() and (scores[:, 0] >= scores[:, 1:].max(1) - 1e-6).all()
 
 
 def test_the_data_path_pieces_of_the_api_raise():

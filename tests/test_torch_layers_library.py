@@ -12,8 +12,8 @@ each package on the same config and inputs, with the gradient of a fixed
 random projection of the output. ``jax.grad`` is compared directly: the
 JAX package's ``check_gradient`` is broken on jax 0.9.0.
 
-Also: the port's layer and activation registries are the JAX package's but
-``mdlstmemory``, which raises naming its ROADMAP item.
+Also: the port's layer and activation registries are the JAX package's,
+``mdlstmemory`` included (its cases are in ``tests/test_torch_nested.py``).
 """
 
 import textwrap
@@ -38,7 +38,7 @@ from paddle_tpu_torch.graph import GradientMachine
 from paddle_tpu_torch.graph.argument import Argument
 from paddle_tpu_torch.layers.base import NOT_PORTED, LayerContext, forward_layer, layer_registry
 from paddle_tpu_torch.ops.activations import activation_registry
-from paddle_tpu_torch.proto import LayerConfig, ModelConfig
+from paddle_tpu_torch.proto import LayerConfig, LayerInputConfig, ModelConfig
 
 torch.set_num_threads(1)
 OUT_TOL, GRAD_TOL = 1e-5, 1e-4
@@ -587,12 +587,27 @@ def test_norm_projection_is_the_norm_layer():
 
 
 def test_registries_are_the_jax_packages_but_mdlstmemory():
-    assert set(layer_registry.names()) == set(jax_layers.names()) - {"mdlstmemory"}
+    """Once every type but mdlstmemory; now every type, mdlstmemory
+    included: NOT_PORTED is empty and mdlstmemory's registry function runs
+    a nested grid as the JAX package's does."""
+    assert set(layer_registry.names()) == set(jax_layers.names())
     assert set(activation_registry.names()) == set(jax_acts.names())
-    assert NOT_PORTED == {"mdlstmemory": 5}
-    cfg = LayerConfig(name="md", type="mdlstmemory", size=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
-        forward_layer(cfg, [Argument()], LayerContext(params={}, model=ModelConfig()))
+    assert NOT_PORTED == {}
+    cfg = LayerConfig(name="md", type="mdlstmemory", size=2, bias_parameter_name="_b")
+    cfg.inputs.append(LayerInputConfig(input_layer_name="x", input_parameter_name="_w"))
+    params = {"_w": _rand((2, 10), 1), "_b": _rand((18,), 2)}
+    x = _rand((2, 3, 4, 10), 3)
+    lens, sub = np.array([3, 2], np.int32), np.array([[4, 4, 4], [2, 1, 0]], np.int32)
+    jcfg = JLayerConfig.from_json(cfg.to_json())
+    want = jax_layers.get("mdlstmemory")(
+        jcfg, [JArg(value=jnp.asarray(x), seq_lengths=jnp.asarray(lens),
+                    sub_seq_lengths=jnp.asarray(sub))],
+        JCtx(params={k: jnp.asarray(v) for k, v in params.items()}, model=JModelConfig()))
+    got = forward_layer(cfg, [Argument(value=torch.from_numpy(x), seq_lengths=torch.from_numpy(lens),
+                                       sub_seq_lengths=torch.from_numpy(sub))],
+                        LayerContext(params={k: torch.from_numpy(v) for k, v in params.items()},
+                                     model=ModelConfig()))
+    _close(got.value.numpy(), np.asarray(want.value), OUT_TOL, "mdlstmemory")
 
 
 @pytest.mark.parametrize("act", sorted(ACTIVATIONS) + ["", "linear", "sigmoid", "tanh", "relu"])
@@ -630,7 +645,9 @@ def test_ported_types_are_the_registry_less_the_earlier_slices():
                "sequence_agent", "scatter_agent", "sequence_scatter_agent", "gather_agent",
                "sequence_gather_agent"}
     assert len(PORTED) == 46
-    assert PORTED | earlier >= set(layer_registry.names()) - {"recurrent_layer_group"}
+    # mdlstmemory, the one type ported after this slice (the nested slice)
+    assert PORTED | earlier | {"mdlstmemory"} >= set(layer_registry.names()) - {
+        "recurrent_layer_group"}
 
 
 def test_layer_zoo_covers_the_slice_and_runs_at_small_sizes():

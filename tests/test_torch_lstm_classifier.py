@@ -12,7 +12,6 @@ prove which path each side took.
 """
 
 import numpy as np
-import pytest
 import torch
 
 import paddle_tpu.graph  # noqa: F401  (break the layers<->graph import cycle)
@@ -223,22 +222,48 @@ def test_max_pooling_ties_and_empty_sequence_match_jax():
 
 
 def test_max_pooling_refuses_what_is_not_ported():
+    """Once refused, a nested input now pools: output_max_index gives each
+    feature's step of its maximum over the valid steps, and max over a
+    nested input at both trans_type levels (ties, an empty sub-sequence)
+    gives the JAX layer's values and gradients."""
+    import jax
+    import jax.numpy as jnp
+    from paddle_tpu.graph.argument import Argument as JaxArgument
+    from paddle_tpu.layers.sequence import max_layer as jax_max_layer
+    from paddle_tpu.proto import LayerConfig as JaxLayerConfig
     from paddle_tpu_torch.layers.base import LayerContext
     from paddle_tpu_torch.layers.sequence import max_layer
     from paddle_tpu_torch.proto import ModelConfig
 
     ctx = LayerContext(params={}, model=ModelConfig())
-    # output_max_index gives each feature's step of its
-    # maximum over the valid steps
     x = torch.tensor([[[0., 5.], [2., 1.], [1., 9.]], [[3., 0.], [7., 8.], [9., 9.]]])
     a = Argument(value=x, seq_lengths=torch.tensor([3, 1], dtype=torch.int32))
     cfg = _max_cfg()
     cfg.output_max_index = True
     assert max_layer(cfg, [a], ctx).ids.tolist() == [[1, 2], [0, 0]]
-    nested = Argument(value=torch.zeros(2, 2, 3, 4), seq_lengths=torch.tensor([2, 1]),
-                      sub_seq_lengths=torch.ones(2, 2, dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="nested.*ROADMAP Queue 1 item 5"):
-        max_layer(_max_cfg(), [nested], ctx)
+    xn = np.random.RandomState(4).randint(-2, 3, (2, 3, 4, 3)).astype(np.float32)
+    n_subs, sub_lens = np.array([3, 2], np.int32), np.array([[4, 2, 1], [3, 0, 0]], np.int32)
+    cot = np.random.RandomState(5).randn(2, 3, 3).astype(np.float32)
+    for level in ("seq", "non-seq"):
+        jcfg = JaxLayerConfig(name="pool", type="max", size=3, trans_type=level)
+        c = cot if level == "seq" else cot[:, 0]
+
+        def jloss(v):
+            out = jax_max_layer(jcfg, [JaxArgument(value=v, seq_lengths=jnp.asarray(n_subs),
+                                                   sub_seq_lengths=jnp.asarray(sub_lens))],
+                                None).value
+            return jnp.sum(out * c), out
+
+        (_, jout), jgrad = jax.value_and_grad(jloss, has_aux=True)(jnp.asarray(xn))
+        xt = torch.from_numpy(xn).requires_grad_()
+        pcfg = _max_cfg()
+        pcfg.trans_type = level
+        out = max_layer(pcfg, [Argument(value=xt, seq_lengths=torch.from_numpy(n_subs),
+                                        sub_seq_lengths=torch.from_numpy(sub_lens))], ctx)
+        (out.value * torch.from_numpy(c)).sum().backward()
+        np.testing.assert_array_equal(out.value.detach().numpy(), np.asarray(jout))
+        np.testing.assert_allclose(xt.grad.numpy(), np.asarray(jgrad), rtol=1e-6, atol=1e-7)
+        assert (out.seq_lengths is not None) == (level == "seq")
 
 
 def test_checkpoint_round_trip(tmp_path):

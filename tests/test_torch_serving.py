@@ -8,7 +8,6 @@ capture, one decode step's probabilities (1e-5) and the engines' greedy
 token streams (exactly) must agree.
 """
 
-import copy
 
 import numpy as np
 import pytest
@@ -149,8 +148,27 @@ def test_decode_block_and_budgets(tiny):
     assert outs[1] == outs[3]
 
 
-def test_refusals_name_what_is_not_ported(tiny):
-    from paddle_tpu_torch.graph import GradientMachine
+SEQ_MEM_GEN = """
+from paddle.trainer_config_helpers import *
+settings(batch_size=4, learning_rate=1e-3)
+boot = data_layer(name="boot", size=6)
+def gen_step(prev_word):
+    mem = memory(name="accseq", size=6, is_seq=True, boot_layer=boot)
+    exp = expand_layer(input=prev_word, expand_as=mem)
+    acc = addto_layer(input=[exp, mem], name="accseq", act=LinearActivation(),
+                      bias_attr=False)
+    pooled = pooling_layer(input=acc, pooling_type=AvgPooling())
+    return fc_layer(input=pooled, size=9, act=SoftmaxActivation(), name="scorer")
+out = beam_search(step=gen_step,
+                  input=[GeneratedInput(size=9, embedding_name="Tgen",
+                                        embedding_size=6)],
+                  bos_id=0, eos_id=8, beam_size=1, max_length=7, name="gen")
+"""
+
+
+def test_refusals_name_what_is_not_ported(tiny, tmp_path):
+    from paddle_tpu_torch.config import parse_config
+    from paddle_tpu_torch.graph import GradientMachine, make_seq
     from paddle_tpu_torch.graph.decode_step import plan_fused_step, plan_of
     from paddle_tpu_torch.serving.torch_backend import (TorchDecodeBackend,
                                                         UnsupportedModelError)
@@ -160,13 +178,20 @@ def test_refusals_name_what_is_not_ported(tiny):
     # a model that computes in another dtype than float32 is not
     with pytest.raises(NotImplementedError, match="not ported yet"):
         GradientMachine(tiny["ttc"].model_config, device="cpu", compute_dtype="bfloat16")
-    # beam search runs (tests/test_torch_generation.py); a generator group
-    # with a sequence-valued memory is the hierarchical-RNN slice's
-    _, feed = _feeds(tiny["prompts"][:2])
-    seq_mem = copy.deepcopy(tiny["ttc"].model_config)
-    next(s for s in seq_mem.sub_models if s.generator).memories[0].is_sequence = True
-    with pytest.raises(NotImplementedError, match="sequence-valued memories are not ported yet"):
-        GradientMachine(seq_mem, device="cpu").forward(tp, feed, pass_type="gen")
+    # a generator group with a sequence-valued memory generates
+    # (tests/test_torch_generation.py holds it to the JAX package), but the
+    # slot-batched decode step refuses it, naming why, as the JAX plan does
+    conf = tmp_path / "seq_mem_gen.py"
+    conf.write_text(SEQ_MEM_GEN)
+    seq_mem = GradientMachine(parse_config(str(conf)).model_config, device="cpu")
+    boot = np.random.RandomState(3).randn(2, 4, 6).astype(np.float32)
+    out, _ = seq_mem.forward(seq_mem.init_params(seed=9),
+                             {"boot": make_seq(boot, [4, 2], device="cpu")}, pass_type="gen")
+    assert out["gen"].ids.shape == (2, 7) and (out["gen"].seq_lengths > 0).all()
+    plan, why = plan_of(seq_mem)
+    assert plan is None and "sequence-valued memory" in why
+    with pytest.raises(UnsupportedModelError, match="sequence-valued memory"):
+        TorchDecodeBackend(seq_mem, seq_mem.init_params(seed=9), slots=2, prompt_tokens=T)
     # a step graph off the attention-GRU template is refused with the reason
     machine = GradientMachine(tiny["ttc"].model_config, device="cpu")
     plan, _ = plan_of(machine)
