@@ -299,8 +299,38 @@ Phases, each printing one JSON object per line:
              test costs beside the JAX package's pinned CPU bands
              (reported, not asserted: the port draws other initial
              parameters than the JAX package for the same seed).
+16. sparse — sparse training, which launches none of the kernels (0 of
+             each asserted): demo/ctr through paddle_tpu_torch.cli.main at
+             num_users=10,000,000 and num_ads=1,000,000 (its emb_dim 16,
+             batch 32, AdaGrad) over 4 list entries (128 batches a pass), 2
+             passes with --save_dir: samples a wall second (the first step
+             left out), the bytes of the tables and slots, the allocator's
+             peak over the steps after the first < 8 MB above what was
+             allocated after it (a [V] int32 t_last copy would be 40 MB, a
+             [V, 16] gradient 640 MB), both checkpoints verified, one
+             kind=sparse record a pass with rows_touched = 2 x samples. The
+             step in this process at 10 M and at 100 k users (32 steps under
+             torch.profiler each): device ms a step, the ratio 10 M / 100 k
+             <= 1.25; the row scan (the dense gradient, as accumulation takes
+             it) at 10 M over 4 steps: device ms and peak bytes. At the
+             demo's default size (120 users) with decay_rate 0.01 and
+             decay_rate_l1 0.001 on the tables, 32 AdaGrad steps from one set
+             of parameters: the indexed path against the row scan on the
+             card (every parameter and slot <= 1e-5 of scale, t_last
+             equal), and the card against the CPU from the CPU's
+             init_params(seed=1): the first batch's cost <= 1e-5 relative,
+             t_last equal, every parameter and slot <= 1e-5 of scale or
+             within the CPU's own float32 distance from the same steps in
+             float64 (AdaGrad's epsilon of 1e-6 at lr 0.1 passes a gradient
+             element's absolute rounding on x1e5 where |g| < 1e-6). A 50%
+             pruning mask on ctr's first fc weight: every pruned weight 0
+             after a pass. sparse.gather_fault=raise@3 ends a `train` child
+             with the named fault and a nonzero exit code. demo/recommendation
+             through the command line at its widths on seed1 / seed2, 2
+             passes: the first batch's cost within 1e-3 of the CPU's, pass 1's
+             test cost below pass 0's, samples a second.
 
-Every main path (3, 3b, 3c, 3c', 4, 6, 7, 9, 10, 12, 13, 14, 15) runs between zeroed counts of
+Every main path (3, 3b, 3c, 3c', 4, 6, 7, 9, 10, 12, 13, 14, 15, 16) runs between zeroed counts of
 the layers' eager routes too (gated_recurrent, lstmemory, full_attention,
 the attention decoder group's loop, and the 1x1 convs whose shape kernel 9
 refuses: the EAGER_ROUTES of the ops modules) and fails if any layer took
@@ -325,6 +355,7 @@ import dataclasses
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -3881,6 +3912,324 @@ def phase_demos(torch, dev, kernels):
     return lines
 
 
+# the sparse phase: demo/ctr at 10 M users and 1 M ads (the demo's own
+# emb_dim 16, batch 32, AdaGrad) over 4 list entries of 1,024 impressions
+# (128 batches a pass), and demo/recommendation at its widths
+SPARSE = dict(users=10_000_000, ads=1_000_000, small_users=100_000,
+              lists=("impressions-seed-1", "impressions-seed-2", "impressions-seed-3",
+                     "impressions-seed-4"), passes=2, mem_limit=8 << 20, ratio_limit=1.25,
+              profile_steps=32, scan_steps=4, agree_steps=32, agree_tol=1e-5,
+              decay_rate=0.01, decay_rate_l1=0.001, rec_passes=2, prune_share=0.5)
+CTR_FILES = ("dataprovider.py", "trainer_config.py")
+REC_FILES = ("common.py", "dataprovider.py", "trainer_config.py")
+
+
+class StepMemory:
+    """The allocator's peak over every train step but the run's first: at
+    the first step's end the peak is reset and the bytes then allocated
+    kept as the base (the tables, their slots, the batch in flight)."""
+
+    def __init__(self, torch):
+        from paddle_tpu_torch.trainer import Trainer
+
+        self.torch, self.base = torch, None
+        self.step = step = Trainer._step
+        probe = self
+
+        def _step(trainer, batch, seed):
+            out = step(trainer, batch, seed)
+            if probe.base is None:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                probe.base = torch.cuda.memory_allocated()
+            return out
+
+        Trainer._step = _step
+
+    def close(self):
+        from paddle_tpu_torch.trainer import Trainer
+
+        Trainer._step = self.step
+        return self.torch.cuda.max_memory_allocated() - self.base
+
+
+def host_batches(cfg, n):
+    """The train provider's first ``n`` batches on the host, from seed 1."""
+    from paddle_tpu_torch.data.feeder import create_data_provider
+
+    dp = create_data_provider(cfg.data_config, cfg.opt_config.batch_size,
+                              cfg.model_config.input_layer_names, seed=1)
+    out = []
+    for b in dp.batches():
+        out.append(b)
+        if len(out) == n:
+            break
+    return out
+
+
+def sparse_trainer(cfg, device=None):
+    from paddle_tpu_torch.trainer import Trainer
+    from paddle_tpu_torch.utils.flags import _Flags
+
+    return Trainer(cfg, _Flags(log_period=0), device=device)
+
+
+def sparse_steps_profiled(torch, ws, users, indexed, steps):
+    """ctr at ``users`` users in this process: 2 warm steps, then ``steps``
+    steps under torch.profiler on the indexed path or the row scan (the
+    dense gradient, as accumulation takes it); device and wall ms a step,
+    the peak bytes over the profiled steps above the state before them."""
+    from paddle_tpu_torch.config import parse_config
+
+    cfg = parse_config("trainer_config.py", f"num_users={users},num_ads={SPARSE['ads']}")
+    trainer = sparse_trainer(cfg)
+    trainer._sparse_launch = indexed
+    batches = [trainer._to_device(b) for b in host_batches(cfg, 8)]
+    for b in batches[:2]:
+        trainer.train_one_batch(b)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+
+    def run():
+        for i in range(steps):
+            trainer.train_one_batch(batches[i % len(batches)])
+
+    tag = f"sparse_{'indexed' if indexed else 'row_scan'}_{users}"
+    rows, summary = profiled(torch, tag, run, top=8)
+    assert summary["device_ms"] is not None, "the profiler saw no device time"
+    line = {"users": users, "path": "indexed" if indexed else "row_scan", "steps": steps,
+            "device_ms_per_step": summary["device_ms"] / steps,
+            "wall_ms_per_step": 1e3 * summary["wall_s"] / steps,
+            "device_events_per_step": summary["device_events"] / steps,
+            "device_busy_share": summary["device_busy_share"],
+            "peak_bytes_above_state": torch.cuda.max_memory_allocated() - base,
+            "table_and_slot_bytes": sum(
+                t.numel() * t.element_size() for pn in {pn for pn, _ in trainer._sparse_plan}
+                for t in [trainer.params[pn], *trainer.opt_state.slots[pn].values()])}
+    del trainer, batches
+    torch.cuda.empty_cache()
+    return line
+
+
+def state_err(a, b):
+    """|a - b| over max(1, max |b|) for every parameter and float slot of
+    two trainers, the worst first; whether every t_last is equal."""
+    errs, t_equal = {}, True
+    pairs = [(k, a.params[k], b.params[k]) for k in b.params]
+    for pn, slots in b.opt_state.slots.items():
+        for k, v in slots.items():
+            if k == "t_last":
+                t_equal &= bool((a.opt_state.slots[pn][k].cpu() == v.cpu()).all())
+            else:
+                pairs.append((f"{pn}/{k}", a.opt_state.slots[pn][k], v))
+    for name, x, y in pairs:
+        x, y = x.detach().cpu().double(), y.detach().cpu().double()
+        errs[name] = float((x - y).abs().max()) / max(1.0, float(y.abs().max()))
+    return dict(sorted(errs.items(), key=lambda kv: -kv[1])), t_equal
+
+
+def sparse_agreement(torch, dev):
+    """At the demo's default size (120 users, 48 ads) with L2 and L1 decay
+    on the tables: the indexed path against the row scan on the card, 32
+    AdaGrad steps from one set of parameters; then the card against the
+    CPU from the CPU's init_params(seed=1): the first batch's cost and the
+    state after 32 steps."""
+    from paddle_tpu_torch.config import parse_config
+
+    cfg = parse_config("trainer_config.py")
+    for p in cfg.model_config.parameters:
+        if p.sparse_update:
+            p.decay_rate, p.decay_rate_l1 = SPARSE["decay_rate"], SPARSE["decay_rate_l1"]
+    host = host_batches(cfg, SPARSE["agree_steps"])
+    cpu, cpu64 = sparse_trainer(cfg, "cpu"), sparse_trainer(cfg, "cpu")
+    indexed, scan = sparse_trainer(cfg), sparse_trainer(cfg)
+    for t, dtype in ((indexed, torch.float32), (scan, torch.float32), (cpu64, torch.float64)):
+        # copies: the sparse tables update in place
+        t.params = {k: v.to(t.device, dtype, copy=True) for k, v in cpu.params.items()}
+        t.opt_state = t.updater.init_state(t.params)
+    scan._sparse_launch = False
+    losses = {"cpu": [], "card": []}
+    for b in host:
+        losses["cpu"].append(float(cpu.train_one_batch(b)))
+        cpu64.train_one_batch(b)
+        d = indexed._to_device(b)
+        losses["card"].append(float(indexed.train_one_batch(d)))
+        scan.train_one_batch(d)
+    path_errs, path_t = state_err(indexed, scan)
+    card_errs, card_t = state_err(indexed, cpu)
+    # the CPU's own float32 steps against the same steps in float64: with
+    # AdaGrad's epsilon at 1e-6 and lr 0.1, a gradient element below the
+    # epsilon passes its absolute rounding on x1e5 into the update
+    gap64, _ = state_err(cpu, cpu64)
+    first_err = abs(losses["card"][0] - losses["cpu"][0]) / abs(losses["cpu"][0])
+    line = {"part": "agreement", "steps": len(host),
+            "decay": {"decay_rate": SPARSE["decay_rate"], "decay_rate_l1": SPARSE["decay_rate_l1"]},
+            "indexed_vs_row_scan_err": max(path_errs.values()), "t_last_equal": path_t,
+            "indexed_vs_row_scan_by_tensor": path_errs,
+            "card_vs_cpu_first_cost": {"card": losses["card"][0], "cpu": losses["cpu"][0],
+                                       "rel_err": first_err},
+            "card_vs_cpu_state_err": max(card_errs.values()), "card_vs_cpu_t_last_equal": card_t,
+            "card_vs_cpu_by_tensor": card_errs,
+            "cpu_f32_vs_f64_by_tensor": gap64,
+            "losses_first_last": [losses["card"][0], losses["card"][-1]]}
+    tol = SPARSE["agree_tol"]
+    line["card_vs_cpu_within_tol"] = line["card_vs_cpu_state_err"] <= tol
+    # each tensor within tol, or within the CPU's own float32 gap to float64
+    line["card_vs_cpu_over_cpu_gap"] = {k: e for k, e in card_errs.items()
+                                        if e > max(tol, gap64[k])}
+    assert line["indexed_vs_row_scan_err"] <= tol and path_t, line
+    assert first_err <= tol and not line["card_vs_cpu_over_cpu_gap"] and card_t, line
+    return line
+
+
+def sparse_ctr_cli(torch, ws):
+    """ctr at 10 M users through the command line, 2 passes: samples a
+    wall second, the peak bytes above the state over the steps after the
+    first, one kind=sparse record a pass, both checkpoints verified."""
+    from paddle_tpu_torch.trainer import checkpoint as ckpt
+
+    args = f"num_users={SPARSE['users']},num_ads={SPARSE['ads']}"
+    mem = StepMemory(torch)
+    try:
+        losses, _, walls, wall = cli_train_probed(
+            ["train", "--config=trainer_config.py", f"--config_args={args}", "--save_dir=out",
+             f"--num_passes={SPARSE['passes']}", "--log_period=0", "--metrics_path=run"],
+            SPARSE["passes"])
+    finally:
+        peak_above = mem.close()
+    per_pass = len(losses) // SPARSE["passes"]
+    samples = [32] * per_pass
+    assert per_pass == 128 and all(np.isfinite(losses)), (len(losses), losses[:4])
+    assert peak_above < SPARSE["mem_limit"], peak_above
+    recs = [r for r in run_records("run") if r.get("kind") == "sparse"]
+    assert [r["pass"] for r in recs] == list(range(SPARSE["passes"])), recs
+    assert all(r["rows_touched"] == 2 * sum(samples) for r in recs), recs
+    for p in range(SPARSE["passes"]):
+        problems = ckpt.verify_checkpoint(os.path.join("out", ckpt.PASS_FMT % p))
+        assert not problems, problems
+    return {"part": "ctr_cli", "config": "demo/ctr/trainer_config.py --config_args=" + args
+            + " (emb_dim 16, batch 32, AdaGrad)", "lists": list(SPARSE["lists"]),
+            "passes": SPARSE["passes"], "steps": len(losses),
+            **wall_stats(walls, samples, SPARSE["passes"]), "train_cli_s": wall,
+            "peak_bytes_above_state": peak_above, "mem_limit": SPARSE["mem_limit"],
+            "sparse_records": recs, "losses_first_last": [losses[0], losses[-1]]}
+
+
+def sparse_pruning(torch, ws):
+    """A 50% mask on ctr's first fc weight (hooks.write_mask_file): after a
+    pass through Trainer.train on the card, every pruned weight is 0."""
+    from paddle_tpu_torch.config import parse_config
+    from paddle_tpu_torch.optimizer import hooks
+    from paddle_tpu_torch.proto import ParameterUpdaterHookConfig
+    from paddle_tpu_torch.trainer import Trainer
+    from paddle_tpu_torch.utils.flags import _Flags
+
+    cfg = parse_config("trainer_config.py")
+    fc = next(l for l in cfg.model_config.layers if l.type == "fc")
+    name = fc.inputs[0].input_parameter_name
+    pc = next(p for p in cfg.model_config.parameters if p.name == name)
+    mask = np.random.RandomState(1).rand(*pc.dims) >= SPARSE["prune_share"]
+    hooks.write_mask_file(os.path.join(ws, "prune.mask"), mask)
+    pc.update_hooks.append(ParameterUpdaterHookConfig(
+        type="pruning", purning_mask_filename=os.path.join(ws, "prune.mask")))
+    trainer = Trainer(cfg, _Flags(log_period=0, num_passes=1))
+    before = trainer.params[name].cpu().numpy()
+    assert (before[~mask] == 0).all()
+    trainer.train()
+    after = trainer.params[name].cpu().numpy()
+    moved = after[mask] != before[mask]
+    assert (after[~mask] == 0).all() and moved.any(), moved.mean()
+    return {"part": "pruning", "param": name, "shape": list(mask.shape),
+            "pruned": int((~mask).sum()), "pruned_nonzero_after_pass": int((after[~mask] != 0).sum()),
+            "kept_weights_moved_share": float(moved.mean())}
+
+
+def sparse_gather_fault(ws):
+    """`sparse.gather_fault=raise@3` ends `train` (a child on the card) with
+    the named fault and a nonzero exit code."""
+    log = os.path.join(ws, "fault.log")
+    t0 = time.perf_counter()
+    proc = loop_child(["train", "--config=trainer_config.py", "--num_passes=1",
+                       "--log_period=0", "--fault_spec=sparse.gather_fault=raise@3"], ws, log)
+    try:
+        rc, out = child_end(proc, log, timeout=120)
+    finally:
+        stop_children(proc)
+    assert rc != 0 and "sparse.gather_fault" in out, (rc, out[-2000:])
+    return {"part": "gather_fault", "rc": rc, "child_s": time.perf_counter() - t0,
+            "last_line": out.strip().splitlines()[-1][:200]}
+
+
+def phase_sparse(torch, dev, kernels):
+    """The sparse phase: demo/ctr at 10 M users through the command line,
+    its step at 10 M and 100 k users and the row scan at 10 M profiled, the
+    two paths and the card against the CPU at the demo's size, pruning, the
+    gather fault, and demo/recommendation through the command line; none of
+    the kernels may launch."""
+    import tempfile
+
+    from paddle_tpu_torch.sparse import clear_tables
+
+    t_phase = time.perf_counter()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60).stdout.strip()
+    cwd = os.getcwd()
+    lines = []
+
+    def done(line):
+        emit({"phase": "sparse", **line, "card": smi})
+        lines.append(line)
+    try:
+        with tempfile.TemporaryDirectory() as ws:
+            demo_workspace(ws, "ctr", CTR_FILES, "\n".join(SPARSE["lists"]), "")
+            os.chdir(ws)
+            zero_counts(kernels)
+            t0 = time.perf_counter()
+            ctr = sparse_ctr_cli(torch, ws)
+            ctr["part_s"] = time.perf_counter() - t0
+            # the two passes' 1.45 GB checkpoints are checked: the disk back
+            shutil.rmtree(os.path.join(ws, "out"))
+            big = sparse_steps_profiled(torch, ws, SPARSE["users"], True, SPARSE["profile_steps"])
+            small = sparse_steps_profiled(torch, ws, SPARSE["small_users"], True,
+                                          SPARSE["profile_steps"])
+            scan = sparse_steps_profiled(torch, ws, SPARSE["users"], False, SPARSE["scan_steps"])
+            ratio = big["device_ms_per_step"] / small["device_ms_per_step"]
+            assert ratio <= SPARSE["ratio_limit"], (big, small)
+            assert big["peak_bytes_above_state"] < SPARSE["mem_limit"], big
+            ctr.update(indexed_10M=big, indexed_100k=small, device_ms_ratio_10M_to_100k=ratio,
+                       row_scan_10M=scan,
+                       row_scan_over_indexed=scan["device_ms_per_step"] / big["device_ms_per_step"])
+            done(ctr)
+            # the default sizes from here on
+            with open("train.list", "w") as f:
+                f.write("impressions-seed-1\n")
+            done(sparse_agreement(torch, dev))
+            done(sparse_pruning(torch, ws))
+            done(sparse_gather_fault(ws))
+            launches, routes = read_counts(kernels)
+            assert not any(launches.values()), launches
+        with tempfile.TemporaryDirectory() as ws:
+            os.chdir(ws)
+            zero_counts(kernels)
+            t0 = time.perf_counter()
+            _, rec = demo_train(torch, dev, kernels, ws, "recommendation", REC_FILES,
+                                "trainer_config.py", "", ("seed1",), ("seed2",),
+                                SPARSE["rec_passes"])
+            assert not any(rec["kernel_launches"].values()), rec["kernel_launches"]
+            rec.update(config="demo/recommendation/trainer_config.py (its widths: embeddings "
+                       "of 64 and 8, fc 64, batch 64, RMSProp, six sparse_update tables), "
+                       "seed1 / seed2 (2,000 samples each)", part_s=time.perf_counter() - t0)
+            done(rec)
+    finally:
+        os.chdir(cwd)
+        clear_tables()
+    emit({"phase": "sparse", "phase_s": time.perf_counter() - t_phase, "card": smi})
+    return lines
+
+
+
 def main() -> int:
     import torch
 
@@ -3920,6 +4269,7 @@ def main() -> int:
     del lm_trainer
     nested = phase_nested(torch, dev, kernels)
     demos = phase_demos(torch, dev, kernels)
+    phase_sparse(torch, dev, kernels)
 
     meta = {
         "gru_fwd": ("paddle_tpu_torch/csrc/gru_fwd.cu",

@@ -181,7 +181,10 @@ class GradientMachine:
         draws the layers' random bits (dropout). Returns (loss: float,
         grads: dict name -> numpy)."""
         loss, grads, _, _ = self._core.grad_fn()(self.params, self._feed(in_args), seed)
-        return float(loss), {k: v.detach().cpu().numpy() for k, v in grads.items()}
+        # row-sparse embedding gradients densify for this numpy API (small
+        # models only; training never materializes them)
+        return float(loss), {k: (v.to_dense() if hasattr(v, "to_dense") else v).detach().cpu()
+                             .numpy() for k, v in grads.items()}
 
     # -- generation ------------------------------------------------------
 

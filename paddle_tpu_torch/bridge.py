@@ -32,16 +32,23 @@ def params_to_numpy(params: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
 
 def opt_state_from_numpy(state: Any, device: DeviceLike = None):
     """The port's :class:`~paddle_tpu_torch.optimizer.UpdaterState` from
-    numpy (or array-like) fields; tensors land on ``device``."""
+    numpy (or array-like) fields; tensors land on ``device``, float32 but
+    for an integer slot (``t_last``), which keeps its dtype."""
     from paddle_tpu_torch.optimizer.updater import UpdaterState
 
     get = state.get if isinstance(state, dict) else (lambda k: getattr(state, k, None))
+    dev = resolve_device(device)
+
+    def leaf(v):
+        a = np.asarray(v)
+        # an integer slot (a sparse table's t_last, int32) keeps its dtype
+        return torch.from_numpy(np.array(a if a.dtype.kind in "iu" else a.astype(np.float32))
+                                ).to(dev)
 
     def tree(d):
         if d is None:
             return None
-        return {k: tree(v) if isinstance(v, dict) else
-                params_from_numpy({"x": np.asarray(v)}, device)["x"] for k, v in d.items()}
+        return {k: tree(v) if isinstance(v, dict) else leaf(v) for k, v in d.items()}
 
     old_count = get("avg_old_count")
     return UpdaterState(

@@ -3,14 +3,18 @@ on one device.
 
 Port of ``paddle_tpu/graph/machine.py``: ``forward`` walks the layer graph,
 ``loss_fn`` sums the cost layers' batch means, and ``grad_fn`` returns
-dense gradients of every parameter from ``torch.autograd`` (static
-parameters get zeros). Sparse row gradients, bf16 compute and meshes are
+the gradients of every parameter from ``torch.autograd`` (static
+parameters get zeros). A ``sparse_update`` table that only data-fed table
+projections read (``sparse_prefetch_plan``) gets a
+:class:`~paddle_tpu_torch.optimizer.sparse.RowSparseGrad`: its occurrence
+rows are gathered outside autograd and are the leaves, so the table is
+never one and no [V, D] gradient is built. bf16 compute and meshes are
 later slices.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -19,6 +23,7 @@ from paddle_tpu_torch.graph.argument import Argument
 from paddle_tpu_torch.graph.network import Network
 from paddle_tpu_torch.layers.base import LayerContext
 from paddle_tpu_torch.ops.init import init_parameter
+from paddle_tpu_torch.optimizer.sparse import RowSparseGrad
 from paddle_tpu_torch.proto import ModelConfig, ParameterConfig
 
 Tensor = torch.Tensor
@@ -81,6 +86,7 @@ class GradientMachine:
                 pass_type: str = "test",
                 gen_capture: Optional[dict] = None,
                 seed: Optional[int] = None,
+                table_overrides: Optional[Dict] = None,
                 ) -> Tuple[Dict[str, Argument], Dict]:
         """Run the graph; returns (all layer outputs, state updates).
 
@@ -90,9 +96,11 @@ class GradientMachine:
         running the beam loop — the serving engine's prefill seam
         (graph/decode_step.py). ``seed``: the pass's seed, from which each
         layer that draws (dropout, sampling_id, nce) seeds a generator of
-        its own (``LayerContext.layer_generator``)."""
+        its own (``LayerContext.layer_generator``). ``table_overrides``:
+        prefetched table rows by (param, data layer), which the table
+        projections return instead of gathering (``grad_fn``)."""
         ctx = LayerContext(params=params, model=self.model, pass_type=pass_type,
-                           seed=seed, gen_capture=gen_capture,
+                           seed=seed, gen_capture=gen_capture, table_overrides=table_overrides,
                            conv_s2d=self.conv_s2d, conv_stats_mode=self.conv_stats_mode)
         if pass_type == "train":
             self.network.forward(ctx, in_args)
@@ -124,27 +132,89 @@ class GradientMachine:
         return total
 
     def loss_fn(self, params: Params, in_args: Dict[str, Argument],
-                seed: Optional[int] = None, pass_type: str = "train"):
-        outputs, state_updates = self.forward(params, in_args, pass_type, seed=seed)
+                seed: Optional[int] = None, pass_type: str = "train",
+                table_overrides: Optional[Dict] = None):
+        outputs, state_updates = self.forward(params, in_args, pass_type, seed=seed,
+                                              table_overrides=table_overrides)
         return self.total_cost(outputs), (outputs, state_updates)
 
-    def grad_fn(self) -> Callable:
-        """Returns f(params, in_args, seed=None) -> (loss,
-        grads, outputs, state_updates). The loss is a detached scalar
-        tensor; gradients are dense, keyed like ``params``."""
+    # ------------------------------------------------------ sparse prefetch
+
+    def sparse_prefetch_plan(self) -> List[Tuple[str, str]]:
+        """The sparse_update tables that take the row-sparse gradient path,
+        as [(param_name, data_layer_name)]: those whose every use is a table
+        projection reading ids straight from a data layer (the reach of the
+        reference's prefetch from the input arguments). A table used any
+        other way keeps the dense gradient and the updater's row scan."""
+        sparse_names = {n for n, c in self.param_configs.items()
+                        if c.sparse_update and not c.is_static}
+        if not sparse_names:
+            return []
+        layer_map = self.network.layer_map
+        uses: Dict[str, list] = {n: [] for n in sparse_names}
+        for layer in self.model.layers:
+            for ic in layer.inputs:
+                pn = ic.input_parameter_name
+                if pn not in sparse_names:
+                    continue
+                src = layer_map.get(ic.input_layer_name)
+                ok = (ic.proj_conf is not None and ic.proj_conf.type == "table"
+                      and src is not None and src.type == "data")
+                uses[pn].append((ic.input_layer_name, ok))
+            if layer.bias_parameter_name in sparse_names:
+                uses[layer.bias_parameter_name].append(("", False))
+        plan = []
+        for pn, sites in sorted(uses.items()):
+            if sites and all(ok for _, ok in sites):
+                plan.extend((pn, ln) for ln, _ in sites)
+        return plan
+
+    def grad_fn(self, sparse: bool = True) -> Callable:
+        """Returns f(params, in_args, seed=None) -> (loss, grads, outputs,
+        state_updates). The loss is a detached scalar tensor; gradients are
+        keyed like ``params``: a RowSparseGrad for each table of
+        ``sparse_prefetch_plan()``, dense tensors for the rest.
+        ``sparse=False`` gives dense gradients everywhere (accumulation
+        sums them over batches whose row sets differ)."""
+        plan = self.sparse_prefetch_plan() if sparse else []
+        sparse_names = {pn for pn, _ in plan}
 
         def f(params: Params, in_args: Dict[str, Argument], seed: Optional[int] = None):
             leaves = {}
             for n, p in params.items():
                 cfg = self.param_configs.get(n)
-                leaves[n] = p.detach().requires_grad_(cfg is None or not cfg.is_static)
-            loss, (outputs, state_updates) = self.loss_fn(leaves, in_args, seed)
+                leaves[n] = p.detach().requires_grad_(
+                    n not in sparse_names and (cfg is None or not cfg.is_static))
+            # the prefetch: each (table, data layer)'s occurrence rows,
+            # gathered outside autograd, are the leaves
+            rows: Dict[Tuple[str, str], Tensor] = {}
+            with torch.no_grad():
+                for key in plan:
+                    if key not in rows:
+                        rows[key] = params[key[0]][in_args[key[1]].ids.long()]
+            for r in rows.values():
+                r.requires_grad_(True)
+            loss, (outputs, state_updates) = self.loss_fn(leaves, in_args, seed,
+                                                          table_overrides=rows or None)
             names = [n for n, p in leaves.items() if p.requires_grad]
-            got = torch.autograd.grad(loss, [leaves[n] for n in names], allow_unused=True)
-            got = dict(zip(names, got))
-            # static and unused parameters get zeros
-            grads = {n: got[n] if got.get(n) is not None else torch.zeros_like(p)
-                     for n, p in params.items()}
+            got = torch.autograd.grad(loss, [leaves[n] for n in names] + list(rows.values()),
+                                      allow_unused=True)
+            dense = dict(zip(names, got))
+            pieces: Dict[str, list] = {}
+            for ((pn, dname), r), g in zip(rows.items(), got[len(names):]):
+                ids = in_args[dname].ids.reshape(-1)
+                g = torch.zeros_like(r) if g is None else g
+                pieces.setdefault(pn, []).append((ids, g.reshape(ids.shape[0], -1)))
+            grads = {}
+            for n, p in params.items():
+                if n in pieces:
+                    ps = pieces[n]
+                    grads[n] = RowSparseGrad(torch.cat([i for i, _ in ps]),
+                                             torch.cat([g for _, g in ps]), p.shape[0])
+                else:
+                    # static and unused parameters get zeros
+                    g = dense.get(n)
+                    grads[n] = g if g is not None else torch.zeros_like(p)
             return loss.detach(), grads, outputs, state_updates
 
         return f

@@ -110,6 +110,11 @@ class LayerContext:
     # _plan_prologue): mixed layer name -> (skipped input indices,
     # precomputed [B, out] slice); set only on per-step contexts
     mixed_prologue: Optional[Dict[str, Any]] = None
+    # sparse-embedding prefetch (GradientMachine::prefetch's role): rows
+    # gathered outside autograd, keyed by (param_name, input_layer); the
+    # table projection returns these instead of gathering, so autograd
+    # gives row gradients, never a dense [V, D] one
+    table_overrides: Optional[Dict[Any, Tensor]] = None
     # enclosing scope for recurrent-group steps: group-ENTRY resolution
     # (static links, memory boot layers) may walk up this chain; ordinary
     # layer-input lookup deliberately cannot

@@ -57,6 +57,10 @@ def apply_projection(p: ProjectionConfig, in_cfg: LayerInputConfig,
     if t == "identity":
         return arg.value
     if t == "table":
+        if ctx.table_overrides is not None:
+            ov = ctx.table_overrides.get((pname, in_cfg.input_layer_name))
+            if ov is not None:                             # prefetched rows
+                return ov
         table = ctx.param(pname)                           # [vocab, dim]
         return table[arg.ids.long()]
     if t == "fc":                                          # FullMatrixProjection

@@ -95,7 +95,8 @@ def step_health(params, new_params, grads, groups):
                 cols[UPDATE_SS].append(torch.sum(d * d))
             g = grads.get(pn)
             if g is not None:
-                gf = g.detach().float()
+                # a RowSparseGrad's occurrence rows: the only part that exists
+                gf = getattr(g, "rows", g).detach().float()
                 cols[GRAD_SS].append(torch.sum(gf * gf))
                 cols[NONFINITE].append(torch.sum(~torch.isfinite(gf)).float())
         dev = next(iter(params.values())).device
@@ -183,7 +184,8 @@ def blame_nonfinite(gm, model, params, in_args, seed=None) -> Optional[Dict[str,
             bad = _nonfinite_count(getattr(arg, "value", None))
             if bad:
                 return {"layer": layer.name, "phase": "forward", "nonfinite": bad}
-        _loss, grads, _outs, _updates = gm.grad_fn()(params, in_args, seed)
+        # dense: a row set does not matter for blame
+        _loss, grads, _outs, _updates = gm.grad_fn(sparse=False)(params, in_args, seed)
         worst: Optional[Tuple[int, str, str, int]] = None
         for pn, g in grads.items():
             bad = _nonfinite_count(g)

@@ -37,6 +37,15 @@ The pass loop carries the JAX package's resilience and telemetry:
   records (``--metrics_path``, else ``--save_dir``), the StatSet dump
   after each pass, and a ``torch.profiler`` window (``--profile_dir``).
 
+Sparse training: the tables of the machine's prefetch plan get row-sparse
+gradients, which the updater applies to the touched rows in place; the
+launch's undo log (``_nf_snapshot``) hands their old rows back under skip
+and rollback. Accumulation and fused launch groups take dense gradients
+and the row scan, as the JAX package's do. ``--sparse_row_budget`` refuses
+a table one host cannot hold before any step, each pass ends with a
+``kind=sparse`` record of the rows it touched, counted from the host
+batches, and pruning hooks mask their weights after init or restore.
+
 The constructor reads the command line's flags (``utils/flags.py``), as
 the JAX package's does: ``--use_tpu`` (the reference's ``-use_gpu``, "run
 on the accelerator") puts it on the card, where it raises without one;
@@ -89,6 +98,8 @@ from paddle_tpu_torch.observability import spans as obs_spans
 from paddle_tpu_torch.ops import kernel_flops
 from paddle_tpu_torch.optimizer.updater import Updater
 from paddle_tpu_torch.resilience import NonFiniteLossError, faultinject
+from paddle_tpu_torch.sparse import rowshard as sparse_rows
+from paddle_tpu_torch.sparse import runtime as sparse_rt
 from paddle_tpu_torch.trainer import checkpoint as ckpt
 from paddle_tpu_torch.trainer.evaluators import EvaluatorChain
 from paddle_tpu_torch.utils import concurrency as cc
@@ -181,7 +192,8 @@ class Trainer:
         self.gm = GradientMachine(config.model_config, device,
                                   conv_s2d=opt.conv_s2d, conv_stats_mode=opt.conv_stats_mode)
         self.device = self.gm.device
-        self.updater = Updater(opt, config.model_config)
+        self.updater = Updater(opt, config.model_config,
+                               init_model_path=flags.init_model_path or config.init_model_path)
         self.params = self.gm.init_params(flags.seed)
         self.opt_state = self.updater.init_state(self.params)
         # steps taken by train_one_batch, outside a pass: each is seeded
@@ -192,6 +204,13 @@ class Trainer:
         # per-pass held-out results appended by train(): [(pass_id, {...})]
         self.test_history: List[Tuple[int, Dict[str, float]]] = []
         self._grad_fn = self.gm.grad_fn()
+        # sparse training: the tables whose gradients are row-sparse. Their
+        # row sets vary per batch, so accumulation sums dense gradients and
+        # a fused launch group takes them (as the JAX package's fixed-shape
+        # scan does): the updater's row scan, not its indexed path
+        self._sparse_plan = self.gm.sparse_prefetch_plan()
+        self._dense_grad_fn = self.gm.grad_fn(sparse=False) if self._sparse_plan else self._grad_fn
+        self._sparse_launch = True
         self._dots_pending = False
         # gradient accumulation: n forward/backwards per update (the
         # reference's num_batches_per_send_parameter). Under async_sgd the
@@ -245,6 +264,24 @@ class Trainer:
             else:
                 self._numerics_groups = obs_num.layer_groups(config.model_config,
                                                              list(self.params))
+                # the health table reads each update as new minus old
+                # tensors: the sparse tables update functionally
+                self.updater.sparse_in_place = False
+        # the sparse tables' row counts, registered for the checkpoint's
+        # meta; refused before any step when one host cannot hold a table
+        # within --sparse_row_budget; their touched rows accounted per pass
+        # for the kind=sparse record
+        self._sparse_stats = None
+        if self._sparse_plan:
+            tables = {pn: int(self.params[pn].shape[0]) for pn, _ in self._sparse_plan
+                      if pn in self.params}
+            err = sparse_rows.row_budget_error(tables, 1, int(flags.sparse_row_budget or 0))
+            if err:
+                raise ValueError(err)
+            sparse_rt.register_tables(tables)
+            self._sparse_stats = sparse_rt.SparseStats({
+                pn: int(np.prod(self.params[pn].shape[1:]) or 1) * self.params[pn].element_size()
+                for pn in tables})
         # model FLOPs per batch signature (counted on the signature's first
         # step), summed over the pass with the steps' windows for MFU
         self._flops_cache: Dict[Any, Optional[float]] = {}
@@ -293,6 +330,8 @@ class Trainer:
         t_restore = time.perf_counter()
         self._maybe_restore()
         self._restore_s = time.perf_counter() - t_restore
+        # StaticPruningHook::init: the masked weights start at zero
+        self.params = self.updater.apply_init_hooks(self.params)
 
     # ------------------------------------------------------------ restore
 
@@ -342,6 +381,11 @@ class Trainer:
             missing=missing)
         if opt_state is not None:
             self.opt_state = opt_state
+        hosts = meta.get("sparse_hosts")
+        if self._sparse_stats is not None and isinstance(hosts, int) and hosts != 1:
+            # written by another host set: its tables were resharded
+            self._sparse_stats.note_reshard(hosts, 1)
+            logger.info("sparse tables resharded across relaunch: %d -> 1 host(s)", hosts)
         return meta
 
     # ------------------------------------------------------------- steps
@@ -356,7 +400,9 @@ class Trainer:
         which the layers draw (dropout, sampling_id, nce). Returns the
         batch's loss (a device scalar) and the layer outputs. Enqueues
         device work only; nothing here waits for the card."""
-        loss, grads, outputs, state_updates = self._grad_fn(self.params, batch, seed)
+        grad_fn = (self._grad_fn if self._sparse_launch and self._accum_n <= 1
+                   else self._dense_grad_fn)
+        loss, grads, outputs, state_updates = grad_fn(self.params, batch, seed)
         n = self.batch_size(batch)
         if self._accum_n > 1:
             # sample-weighted gradient sums, as new tensors: a skip's
@@ -714,6 +760,12 @@ class Trainer:
                 profiler = self._start_profiler()
             pairs = group if kind == "fused" else [group]
             kf = len(pairs)
+            if self._sparse_stats is not None:
+                # the touched rows, from the host batches' ids: no copy
+                # off the card
+                for host, _dev in pairs:
+                    self._sparse_stats.note_batch(self._sparse_plan, host)
+            self._sparse_launch = kind != "fused"
             counted_before = self._pass_counted
             snap = self._nf_snapshot()
             t_step = time.perf_counter()
@@ -735,6 +787,7 @@ class Trainer:
                 # the launch's one read of its losses: the non-finite gate
                 losses_host = torch.stack(losses).cpu().numpy()
             step_dt = time.perf_counter() - t_step
+            self._sparse_launch = True
             (counted_s if self._pass_counted > counted_before else uncounted_s).append(step_dt)
             if faultinject.is_active():
                 losses_host = np.asarray([self._poisoned_loss(float(l), pass_id, batch_id + i)
@@ -758,6 +811,7 @@ class Trainer:
                     batch_id += kf
                     continue
             del snap
+            self.updater.undo = None
             self._pass_train_s += step_dt
             if self._restart_pending:
                 # the run's first completed launch: restore, build and the
@@ -865,6 +919,9 @@ class Trainer:
         if obs.enabled():
             record["counters"] = obs.registry().snapshot()
         obs.emit("pass_end", pass_id=pass_id, step=batch_id, **record)
+        if self._sparse_stats is not None:
+            obs.emit("sparse", pass_id=pass_id, step=batch_id,
+                     **self._sparse_stats.pass_record(duration_s=dt))
         obs_spans.record_perf("trainer/pass", pass_t0, time.perf_counter() - pass_t0)
 
     def _fault_sites(self, pass_id: int, batch_id: int) -> None:
@@ -872,7 +929,8 @@ class Trainer:
         (a mid-run death), ``trainer.stall`` (a wedged loop, for the
         hangwatch), ``trainer.oom`` (a synthetic device OOM) and
         ``trainer.nonfinite_layer=raise:LAYER`` (a NaN planted in the
-        layer's parameters)."""
+        layer's parameters); with sparse tables, ``sparse.gather_fault``
+        (the launch whose rows are about to be gathered fails loudly)."""
         info = f"pass={pass_id} batch={batch_id}"
         faultinject.fault_point("trainer.crash", info=info)
         faultinject.fault_point("trainer.stall", info=info)
@@ -884,6 +942,8 @@ class Trainer:
             faultinject.fault_point("trainer.nonfinite_layer", info=info)
         except faultinject.FaultInjected as e:
             self._poison_layer(e.arg, pass_id, batch_id)
+        if self._sparse_stats is not None:
+            faultinject.fault_point("sparse.gather_fault", info=info)
 
     def _start_profiler(self):
         """The profiler window: whole launches of the first pass, from
@@ -925,15 +985,18 @@ class Trainer:
 
     def _nf_snapshot(self):
         """The pre-launch state: what skip hands back, and what every
-        policy's blame re-runs. The updater is functional (it returns new
-        tensors and changes none in place) and the step replaces
+        policy's blame re-runs. The updater is functional but for the sparse
+        tables (it returns new tensors) and the step replaces
         ``self.params``' entries, never a tensor's values, so references are
         a true copy of the state, on the card. They keep the pre-launch
         tensors alive until the launch's loss gate, under abort too, so that
         its blame re-runs the exact poisoned step (the JAX package's abort
-        donates those buffers and blames the updated parameters)."""
+        donates those buffers and blames the updated parameters). The sparse
+        tables and their slots are updated in place: the updater's ``undo``
+        log keeps the old values of the rows the launch writes, O(N·D)."""
+        self.updater.undo = [] if self._sparse_plan else None
         return (dict(self.params), self.opt_state, self._acc, self._acc_batches,
-                self._acc_samples)
+                self._acc_samples, self.updater.undo)
 
     def _poisoned_loss(self, loss_f: float, pass_id: int, batch_id: int) -> float:
         """The ``trainer.nonfinite`` site, one hit per batch: a firing
@@ -954,6 +1017,10 @@ class Trainer:
         layer with a non-finite value rides the ``nonfinite`` record and the
         error."""
         base = f"non-finite loss ({value}) at pass {pass_id} batch {batch_id} {launch_note}"
+        # the sparse tables' rows back to their pre-launch values, before
+        # the blame re-runs the step on the snapshot (under abort too)
+        self.updater.undo_sparse(snap[5])
+        self.updater.undo = None
         blame = None
         if batch is not None:
             blame = obs_num.blame_nonfinite(self.gm, self.config.model_config, snap[0], batch,
@@ -985,7 +1052,7 @@ class Trainer:
                 base + blame_note + f"— non-finite budget exhausted (--max_nonfinite_steps="
                 f"{self._nf_budget}, {self._nf_count - 1} poisoned event(s) already recovered)",
                 value=value, pass_id=pass_id, batch_id=batch_id)
-        (self.params, self.opt_state, self._acc, self._acc_batches, self._acc_samples) = snap
+        (self.params, self.opt_state, self._acc, self._acc_batches, self._acc_samples) = snap[:5]
         if self._nf_policy == "skip":
             logger.warning("%s— update discarded (%d/%d non-finite budget used)", base,
                            self._nf_count, self._nf_budget)
@@ -1232,6 +1299,11 @@ class Trainer:
         extra = {"config_json": self.config.to_json()}
         if batch_id is not None:
             extra["batch_id"] = batch_id
+        if self._sparse_stats is not None:
+            # which parameters are sparse tables and how many hosts wrote
+            # them: a restore on another host set counts its reshard
+            extra["sparse_tables"] = sparse_rt.registered_tables()
+            extra["sparse_hosts"] = 1
         path = ckpt.save_checkpoint(self.save_dir, pass_id, self.params, self.opt_state,
                                     keep=0 if final else 3, extra_meta=extra,
                                     protect_pass=self._restored_pass)

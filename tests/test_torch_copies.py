@@ -42,6 +42,8 @@ COPIES = (
     "resilience/hangwatch.py", "resilience/heartbeat.py", "resilience/supervisor.py",
     "serving/resilience.py", "serving/transport.py", "serving/fleet.py",
     "observability/costs.py", "utils/image_util.py",
+    "optimizer/hooks.py", "sparse/__init__.py", "sparse/rowshard.py", "sparse/runtime.py",
+    "sparse/reshard.py", "sparse/ckpt.py",
 )
 # the deliberate changes to copies: the port never puts compat/ on
 # sys.path, it binds ``paddle`` to its own shim while a config runs; the

@@ -134,7 +134,7 @@ def _first_batch_parity(ws, config, config_args="", seed=1):
     jloss, jgrads, _, _ = jax.jit(jm.grad_fn(sparse=False))(
         jparams, {k: _jax_arg(a) for k, a in batch.items()}, jax.random.PRNGKey(0))
     pm = GradientMachine(cfg.model_config, device="cpu")
-    loss, grads, _, _ = pm.grad_fn()(
+    loss, grads, _, _ = pm.grad_fn(sparse=False)(
         params_from_numpy({k: np.asarray(v) for k, v in jparams.items()}, "cpu"), batch,
         seed=1)
     np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)

@@ -122,15 +122,41 @@ def test_learning_rate_schedules_match(sched, args):
                                    float(jax_lr(jopt, jnp.float32(n))), rtol=1e-6)
 
 
-def test_what_is_not_ported_raises():
+def test_what_is_not_ported_raises(tmp_path):
+    """The two refusals this test once held, a ``sparse_update`` table and
+    a pruning hook, are ported: the same table and hook take one update as
+    the JAX updater does (the table's row scan, its t_last slot; the
+    masked weight's values and gradient)."""
+    from paddle_tpu.proto import ParameterUpdaterHookConfig as JaxHook
+    from paddle_tpu_torch.optimizer.hooks import write_mask_file
     from paddle_tpu_torch.proto import ParameterUpdaterHookConfig
 
-    m = ModelConfig()
-    m.parameters.append(ParameterConfig(name="t", size=6, dims=[3, 2], sparse_update=True))
-    upd = Updater(OptimizationConfig(learning_method="adam"), m)
-    p = {"t": torch.zeros(3, 2)}
-    with pytest.raises(NotImplementedError, match="sparse_update"):
-        upd(p, {"t": torch.ones(3, 2)}, upd.init_state(p), 1)
-    m.parameters[0].update_hooks.append(ParameterUpdaterHookConfig(type="pruning"))
-    with pytest.raises(NotImplementedError, match="pruning"):
-        Updater(OptimizationConfig(learning_method="adam"), m)
+    mask = np.array([[1, 0], [0, 1], [1, 1]], np.float32)
+    write_mask_file(str(tmp_path / "w.mask"), mask)
+
+    def configs(model_cls, opt_cls, param_cls, hook_cls):
+        m = model_cls()
+        m.parameters.append(param_cls(name="t", size=6, dims=[3, 2], sparse_update=True,
+                                      decay_rate=0.01))
+        m.parameters.append(param_cls(name="w", size=6, dims=[3, 2], update_hooks=[
+            hook_cls(type="pruning", purning_mask_filename="w.mask")]))
+        return opt_cls(learning_method="adam", learning_rate=0.1), m
+
+    rng = np.random.RandomState(4)
+    p = {k: rng.randn(3, 2).astype(np.float32) for k in ("t", "w")}
+    g = {k: rng.randn(3, 2).astype(np.float32) for k in ("t", "w")}
+    g["t"][1] = 0.0                                 # an untouched row
+    jupd = JaxUpdater(*configs(JaxModelConfig, JaxOptimizationConfig, JaxParameterConfig,
+                               JaxHook), init_model_path=str(tmp_path))
+    upd = Updater(*configs(ModelConfig, OptimizationConfig, ParameterConfig,
+                           ParameterUpdaterHookConfig), init_model_path=str(tmp_path))
+    jp = jupd.apply_init_hooks({k: jnp.asarray(v) for k, v in p.items()})
+    tp = upd.apply_init_hooks({k: torch.from_numpy(v.copy()) for k, v in p.items()})
+    jp, js = jupd(jp, {k: jnp.asarray(v) for k, v in g.items()}, jupd.init_state(jp), 1)
+    tp, ts = upd(tp, {k: torch.from_numpy(v) for k, v in g.items()}, upd.init_state(tp), 1)
+    for k in p:
+        np.testing.assert_allclose(tp[k].numpy(), np.asarray(jp[k]), err_msg=k, **TOL)
+    assert ts.slots["t"]["t_last"].dtype == torch.int32
+    np.testing.assert_array_equal(ts.slots["t"]["t_last"].numpy(),
+                                  np.asarray(js.slots["t"]["t_last"]))
+    assert (tp["w"].numpy()[mask == 0] == 0).all()
