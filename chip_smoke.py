@@ -185,6 +185,23 @@ Phases, each printing one JSON object per line:
              (parameters and Adam slots equal), one step on a batch of
              sources and targets 128 long (Te = 128, through kernels 5 and 6),
              and one step under torch.profiler.
+4a. bf16   — the train path in bf16 mixed precision: Trainer(nmt_config(
+             vocab=30000, dim=512, dtype="bfloat16", batch_size=64)) from
+             the train phase's seed (so its parameters), 8 Adam steps on
+             the same batch between zeroed counts: 16, 16, 8 and 8
+             launches of the bf16 instances of kernels 2, 3, 5 and 6, none
+             of the float32 ones, 0 eager routes; the master parameters,
+             the Adam slots and a step's gradients float32, every embedding
+             output bf16; the losses finite, falling, and within rtol 0.05
+             / atol 0.02 of the train phase's float32 losses. One test pass
+             (2 launches of kernel 1's bf16 instance). Kernels 1, 2, 3, 5
+             and 6 in bf16 at the path's shapes against their bf16 plain
+             versions (the same rounding points): every output within
+             1e-2 of the plain output's max |.|, the worst error of each
+             printed; each timed as in phase 2, with its bound at 2-byte
+             operands and the bf16 tensor-core rate (bound_ms) and at the
+             float32 FMA rate its design multiplies at (design_bound_ms). The step's median wall time, a profiled step's
+             device time and the peak memory, beside the float32 step's.
 5. lstm_kernels — kernels 7a, 7b and 8 at the LSTM classifier's full
              width (T = 64, B = 256, H = 512), forward and reversed, with
              the default activations and with (relu, sigmoid, tanh), held
@@ -330,7 +347,7 @@ Phases, each printing one JSON object per line:
              passes: the first batch's cost within 1e-3 of the CPU's, pass 1's
              test cost below pass 0's, samples a second.
 
-Every main path (3, 3b, 3c, 3c', 4, 6, 7, 9, 10, 12, 13, 14, 15, 16) runs between zeroed counts of
+Every main path (3, 3b, 3c, 3c', 4, 4a, 6, 7, 9, 10, 12, 13, 14, 15, 16) runs between zeroed counts of
 the layers' eager routes too (gated_recurrent, lstmemory, full_attention,
 the attention decoder group's loop, and the 1x1 convs whose shape kernel 9
 refuses: the EAGER_ROUTES of the ops modules) and fails if any layer took
@@ -370,6 +387,9 @@ PEAK_F32_FLOPS = 67e12
 # the dense TF32 tensor-core rate: kernels 9-12 run each product as three
 # TF32 products (the float32-accurate split)
 PEAK_TF32_FLOPS = 495e12
+# the dense bf16 tensor-core rate (float32 accumulation): the least time of
+# the bf16 instances' products, whatever units their design runs them on
+PEAK_BF16_FLOPS = 989e12
 TOL = 1e-4                 # f32, sums over K of 512..1536 terms in another order
 TRAIN_TOL = 1e-3           # a whole train step: the card against the CPU plain versions
 FULL = dict(vocab=30000, dim=512, max_length=32, slots=64, prompt_tokens=32)
@@ -428,6 +448,13 @@ def emit(obj) -> None:
 
 def bound(nbytes: float, flops: float):
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def bound_bf16(nbytes: float, flops: float):
+    """The bound of bf16 work: the bytes, or the products at the card's bf16
+    tensor-core rate (the bf16 instances of kernels 1, 2, 3, 5 and 6)."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -593,9 +620,10 @@ def phase_kernels(torch, dev):
 # first is the serve's main path
 KERNEL1_BATCHES = (FULL["slots"], BEAM["batches"][1], 8, 1)
 # kernel 1's symbol as the profiler names it: the body's instance without
-# residuals (kernel 2 is gru_fwd_kernel<true>, kernel 4
-# attention_gru_fwd_kernel<false>)
-KERNEL1_SYMBOL = re.compile(r"(?<!\w)gru_fwd_kernel<false>")
+# residuals, in float32 (kernel 2 is gru_fwd_kernel<true, float>, kernel
+# 4 attention_gru_fwd_kernel<false, float>; the bf16 instances end in
+# __nv_bfloat16)
+KERNEL1_SYMBOL = re.compile(r"(?<!\w)gru_fwd_kernel<false,\s*float>")
 
 
 def gru_fwd_work(T, B, H):
@@ -2003,10 +2031,10 @@ PASS_LOOP = dict(fixed_len=32, fixed_pairs=2048, fuse=4, cut_pairs=256, test_pai
                  numerics_period=8, profile_start=2, profile_batches=2, hang_timeout=8,
                  child_timeout=300)
 # kernels 2, 3, 5 and 6 by their symbols in a profiler trace
-TRAIN_SYMBOLS = {"gru_fwd_train": r"(?<!\w)gru_fwd_kernel<true>",
-                 "gru_bwd": r"(?<!\w)gru_bwd_kernel(?!\w)",
-                 "attention_gru_fwd_train": r"(?<!\w)attention_gru_fwd_kernel<true>",
-                 "attention_gru_bwd": r"(?<!\w)attention_gru_bwd_kernel(?!\w)"}
+TRAIN_SYMBOLS = {"gru_fwd_train": r"(?<!\w)gru_fwd_kernel<true,\s*float>",
+                 "gru_bwd": r"(?<!\w)gru_bwd_kernel<\d,\s*\d,\s*float>",
+                 "attention_gru_fwd_train": r"(?<!\w)attention_gru_fwd_kernel<true,\s*float>",
+                 "attention_gru_bwd": r"(?<!\w)attention_gru_bwd_kernel<float>"}
 
 
 def loop_workspace(ws, name, train_lines, test_lines, settings=""):
@@ -2839,8 +2867,265 @@ def phase_train(torch, dev, kernels):
              max(grad_err.values()), "checkpoint_roundtrip": "equal",
              "long_source_step": {"T": LONG_TE, "loss": long_loss}}
     emit(train)
-    profiled(torch, "train_profile", lambda: trainer.train_one_batch(batch))
+    train["profile"] = profiled(torch, "train_profile", lambda: trainer.train_one_batch(batch))[1]
     return train
+
+
+BF16_TOL = 1e-2            # of max |plain|: a bf16 ulp at the largest magnitude is 2^-8
+BF16_LOSS_TOL = dict(rtol=0.05, atol=0.02)   # bf16 against float32 losses (tests/test_bf16.py:74)
+BF16_KERNELS = ("gru_fwd_bf16", "gru_fwd_train_bf16", "gru_bwd_bf16",
+                "attention_gru_fwd_train_bf16", "attention_gru_bwd_bf16")
+
+
+def _scale_errs(names, got, want):
+    """{output: (max abs error, over max |plain|)} of bf16 results."""
+    out = {}
+    for name, a, b in zip(names, got, want):
+        a, b = a.float(), b.float()
+        assert bool(a.isfinite().all()), name
+        err = float((a - b).abs().max())
+        out[name] = (err, err / max(1e-30, float(b.abs().max())))
+    return out
+
+
+def bf16_kernel_cases(torch, dev):
+    """Kernels 1, 2, 3, 5 and 6 in bf16 at the bf16 train and test paths'
+    shapes (GRU T = 32, B = 64, H = 512 both ways; attention-GRU Td = Te =
+    32, B = 64, D = 512, E = 1024) against their bf16 plain versions, each
+    output within BF16_TOL of scale; timed as in phase 2. Bytes count every
+    bf16 operand at 2 bytes (the masks of kernels 1-3, m and the float32
+    sums of kernel 6 at 4); operations as the float32 rows'."""
+    from paddle_tpu_torch.ops import fused_attention_gru as fa
+    from paddle_tpu_torch.ops import fused_gru as fg
+
+    rng = np.random.RandomState(20)
+    bf = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev).to(
+        torch.bfloat16)
+    T, B, H = TRAIN["T"], TRAIN["batch"], FULL["dim"]
+    x3 = bf(rng.randn(B, T, 3 * H) * 0.5).transpose(0, 1)
+    w = bf(rng.randn(H, 3 * H) / np.sqrt(H))
+    lens = rng.randint(1, T + 1, B)
+    lens[3] = 0
+    mask = torch.from_numpy((np.arange(T)[:, None] < lens[None, :]).astype(np.float32)).to(dev)
+    dy = bf(rng.randn(T, B, H))
+    cases = {k: {"errors": {}, "timed": []} for k in BF16_KERNELS}
+    for reverse in (False, True):
+        light = fg.fused_gru(x3, mask, w, reverse=reverse)
+        got = fg._launch_fwd(x3, mask, w, reverse, fg.KERNEL_ACTS, residuals=True)
+        ref = fg.gru_forward_reference(x3, mask, w, reverse, residuals=True)
+        bwd = fg._launch_bwd(dy, got[1], got[2], mask, w, reverse, fg.KERNEL_ACTS)
+        pb = fg.gru_backward_reference(dy, got[1], got[2], mask, w, reverse)
+        torch.cuda.synchronize()
+        assert torch.equal(light, got[0]), ("gru_fwd_bf16", reverse)
+        for name, errs in (("gru_fwd_bf16", _scale_errs(["ys"], [light], ref[:1])),
+                           ("gru_fwd_train_bf16", _scale_errs(["ys", "acts", "hprev"], got, ref)),
+                           ("gru_bwd_bf16", _scale_errs(["dx3", "dw"], bwd, pb))):
+            for out, e in errs.items():
+                assert e[1] <= BF16_TOL, (name, reverse, out, e)
+                key = f"{out}{'_reversed' if reverse else ''}"
+                cases[name]["errors"][key] = {"max_abs_err": e[0], "err_over_scale": e[1]}
+        runs = {"gru_fwd_bf16": (lambda: fg.fused_gru(x3, mask, w, reverse=reverse),
+                                 lambda: fg.gru_forward_reference(x3, mask, w, reverse)),
+                "gru_fwd_train_bf16": (lambda: fg._launch_fwd(x3, mask, w, reverse,
+                                                              fg.KERNEL_ACTS, residuals=True),
+                                       lambda: fg.gru_forward_reference(
+                                           x3, mask, w, reverse, residuals=True)),
+                "gru_bwd_bf16": (lambda: fg._launch_bwd(dy, got[1], got[2], mask, w, reverse,
+                                                        fg.KERNEL_ACTS),
+                                 lambda: fg.gru_backward_reference(dy, got[1], got[2], mask,
+                                                                   w, reverse))}
+        for name, (run, plain) in runs.items():
+            cases[name]["timed"].append({"reverse": reverse, "ms": time_ms(torch, run),
+                                         "device_ms": time_ms(torch, run, hide_host=True),
+                                         "plain_ms": time_ms(torch, plain, reps=5)})
+    fwd_bytes = 2.0 * (T * B * 3 * H + H * 3 * H + T * B * H) + 4.0 * T * B
+    gru_flops = T * (6.0 * B * H * H + 14.0 * B * H)
+    work = {"gru_fwd_bf16": (fwd_bytes, gru_flops),
+            "gru_fwd_train_bf16": (fwd_bytes + 2.0 * T * B * 4 * H, gru_flops),
+            "gru_bwd_bf16": (2.0 * (T * B * H + T * B * 3 * H + T * B * H + H * 3 * H
+                                    + T * B * 3 * H + H * 3 * H) + 4.0 * T * B,
+                             T * (12.0 * B * H * H + 25.0 * B * H))}
+    shape = {k: dict(T=T, B=B, H=H) for k in work}
+
+    Td, Te, D, E = TRAIN["T"], FULL["prompt_tokens"], FULL["dim"], 2 * FULL["dim"]
+    r = lambda *s_: bf(rng.randn(*s_) * 0.3)
+    elens = rng.randint(1, Te + 1, B)
+    elens[3] = 0
+    args = [r(B, Te, D).transpose(0, 1), r(B, Te, E).transpose(0, 1),
+            bf((np.arange(Te)[:, None] < elens[None, :])[:, :, None]), r(Td, B, 3 * D),
+            bf((np.arange(Td)[:, None] < rng.randint(1, Td + 1, B)[None, :])[:, :, None]),
+            r(B, D), bf(rng.randn(D, D) / np.sqrt(D)), r(1, D), r(1, D),
+            bf(rng.randn(E, 3 * D) / np.sqrt(E)), bf(rng.randn(D, 3 * D) / np.sqrt(D))]
+    ady = bf(rng.randn(Td, B, D))
+    ep, ev, _, _, dmask, _, wa, ba, v, wctx, wg = args
+    got = fa._launch_fwd(*args, fa.KERNEL_ACTS, residuals=True)
+    ref = fa.attention_gru_reference(*args, residuals=True)
+    ys, hprev, saved, alpha, ctxs, m = got
+    kb = fa._launch_bwd(ady, ep, ev, dmask, hprev, saved, alpha, m, wa, v, wctx, wg)
+    pb = fa.attention_gru_backward_reference(ady, ep, ev, dmask, hprev, saved, alpha, wa, ba, v,
+                                             wctx, wg)
+    torch.cuda.synchronize()
+    m_err = float((m - (hprev.float() @ wa.float() + ba.float())).abs().max())
+    for name, errs in (("attention_gru_fwd_train_bf16", _scale_errs(
+            ["ys", "hprev", "acts", "alpha", "ctx"], got[:5], ref)),
+            ("attention_gru_bwd_bf16", _scale_errs(
+                ["dxw", "dctx", "dh0", "dep", "dwa", "dba", "dv"], kb, pb))):
+        for out, e in errs.items():
+            assert e[1] <= BF16_TOL, (name, out, e)
+            cases[name]["errors"][out] = {"max_abs_err": e[0], "err_over_scale": e[1]}
+    assert m_err <= TOL, ("attention_gru_fwd_train_bf16 m", m_err)
+    cases["attention_gru_fwd_train_bf16"]["errors"]["m"] = {"max_abs_err": m_err}
+    runs = {"attention_gru_fwd_train_bf16": (
+                lambda: fa._launch_fwd(*args, fa.KERNEL_ACTS, residuals=True),
+                lambda: fa.attention_gru_reference(*args, residuals=True)),
+            "attention_gru_bwd_bf16": (
+                lambda: fa._launch_bwd(ady, ep, ev, dmask, hprev, saved, alpha, m, wa, v,
+                                       wctx, wg),
+                lambda: fa.attention_gru_backward_reference(ady, ep, ev, dmask, hprev, saved,
+                                                            alpha, wa, ba, v, wctx, wg))}
+    for name, (run, plain) in runs.items():
+        cases[name]["timed"].append({"ms": time_ms(torch, run),
+                                     "plain_ms": time_ms(torch, plain, reps=5)})
+    weights = D * D + 2 * D + E * 3 * D + D * 3 * D
+    att = 2.0 * B * D * D + 4.0 * B * Te * D + 2.0 * B * Te * E
+    step_fwd = att + 2.0 * B * E * 3 * D + 6.0 * B * D * D
+    step_bwd = B * (10.0 * D * D + 6.0 * D * E + 2.0 * Te * E + 8.0 * Te * D)
+    work["attention_gru_fwd_train_bf16"] = (
+        2.0 * (Te * B * (D + E + 1) + Td * B * (3 * D + 1) + B * D + weights
+               + Td * B * (D + D + 3 * D + Te + E)) + 4.0 * Td * B * D,   # ... and m in float32
+        Td * step_fwd)
+    work["attention_gru_bwd_bf16"] = (
+        2.0 * (Td * B * D + Te * B * (D + E) + Td * B + weights - D       # dy, ep, ev, dmask, weights
+               + Td * B * (D + 3 * D + Te)                                # hprev, acts, alpha
+               + Td * B * (3 * D + E) + B * D)                            # dxw, dctx, dh0
+        + 4.0 * (Td * B * D + Te * B * D + D * D + 2 * D),                # m; dep, dwa, dba, dv
+        Td * step_bwd)
+    for k in ("attention_gru_fwd_train_bf16", "attention_gru_bwd_bf16"):
+        shape[k] = dict(Td=Td, Te=Te, B=B, D=D, E=E)
+    for k, (nbytes, flops) in work.items():
+        cases[k].update(bytes=nbytes, flops=flops, shape=shape[k])
+    return cases
+
+
+def phase_bf16(torch, dev, kernels, f32_train):
+    """The train path in bf16 mixed precision (docstring, 4a): launch counts
+    of the bf16 instances, the dtypes of the master state and the islands,
+    the losses against the float32 run from the same parameters, a test
+    pass, the bf16 kernels against their plain versions, and the step's
+    time, device time and memory beside the float32 step's. Returns the
+    kernel rows of the bf16 instances."""
+    from paddle_tpu_torch.flagship import nmt_batch, nmt_config
+    from paddle_tpu_torch.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    tc = nmt_config(vocab=FULL["vocab"], dim=FULL["dim"], dtype="bfloat16",
+                    batch_size=TRAIN["batch"])
+    trainer = Trainer(tc)                             # the train phase's seed: its parameters
+    assert trainer.gm.compute_dtype == torch.bfloat16
+    batch = nmt_batch(vocab=FULL["vocab"], B=TRAIN["batch"], T=TRAIN["T"], seed=1, device=dev)
+    target_tokens = int(batch["target_language_word"].seq_lengths.sum())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts(kernels)
+    losses, step_s = [], []
+    for _ in range(TRAIN["steps"]):
+        t0 = time.perf_counter()
+        loss = trainer.train_one_batch(batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    launches, routes = read_counts(kernels)
+    peak = torch.cuda.max_memory_allocated(dev)
+    n = TRAIN["steps"]
+    want = {k.symbol: 0 for k in kernels}
+    want.update(gru_fwd_train_bf16=2 * n, gru_bwd_bf16=2 * n, attention_gru_fwd_train_bf16=n,
+                attention_gru_bwd_bf16=n)
+    assert launches == want, (launches, want)
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    np.testing.assert_allclose(losses, f32_train["losses"], **BF16_LOSS_TOL)
+    # the master state float32; a step's gradients float32, its embeddings bf16
+    assert all(p.dtype == torch.float32 for p in trainer.params.values())
+    slots = [v for s in trainer.opt_state.slots.values() for v in s.values()
+             if torch.is_tensor(v) and v.is_floating_point()]
+    assert slots and all(v.dtype == torch.float32 for v in slots)
+    _, grads, outs, _ = trainer.gm.grad_fn()(trainer.params, batch)
+    assert all(g.dtype == torch.float32 for g in grads.values())
+    emb = [k for k in outs if "embedding" in k and outs[k].value is not None]
+    assert emb and all(outs[k].value.dtype == torch.bfloat16 for k in emb), emb
+    del grads, outs
+    step_ms = 1e3 * statistics.median(step_s[1:])
+
+    # one test pass: the encoder through kernel 1's bf16 instance
+    zero_counts(kernels)
+    result = trainer.test_batches([batch])
+    torch.cuda.synchronize()
+    test_launches, test_routes = read_counts(kernels)
+    want_test = {k.symbol: 0 for k in kernels}
+    want_test["gru_fwd_bf16"] = 2
+    assert test_launches == want_test, (test_launches, want_test)
+    assert not any(test_routes.values()), ("eager routes in the bf16 test pass", test_routes)
+    assert np.isfinite(result["cost"]), result
+
+    summary = profiled(torch, "bf16_train_profile", lambda: trainer.train_one_batch(batch))[1]
+    del trainer
+    cases = bf16_kernel_cases(torch, dev)
+    f32_ms = f32_train["step_ms"]
+    emit({"phase": "bf16", "batch": TRAIN["batch"], "T": TRAIN["T"], "steps": n,
+          "losses": losses, "f32_losses": f32_train["losses"],
+          "loss_max_rel_diff_vs_f32": max(abs(a - b) / abs(b) for a, b in
+                                          zip(losses, f32_train["losses"])),
+          "step_ms": step_ms, "f32_step_ms": f32_ms, "step_ms_all": [1e3 * x for x in step_s],
+          "target_tokens_per_s": target_tokens / (step_ms / 1e3),
+          "f32_target_tokens_per_s": f32_train["target_tokens_per_s"],
+          "profile_device_ms": summary["device_ms"],
+          "f32_profile_device_ms": f32_train["profile"]["device_ms"],
+          "peak_memory_bytes": peak, "f32_peak_memory_bytes": f32_train["peak_memory_bytes"],
+          "kernel_launches": {k: v for k, v in launches.items() if v},
+          "eager_routes": routes, "test_cost": result["cost"],
+          "test_kernel_launches": {k: v for k, v in test_launches.items() if v},
+          "test_eager_routes": test_routes,
+          "kernel_errors": {k: c["errors"] for k, c in cases.items()},
+          "seconds": time.perf_counter() - t_phase})
+    meta = {"gru_fwd_bf16": ("paddle_tpu_torch/csrc/gru_fwd.cu",
+                             "paddle_tpu/ops/pallas_gru.py:75 (_fwd_kernel_light in bf16; "
+                             "pallas_call :178)", test_launches),
+            "gru_fwd_train_bf16": ("paddle_tpu_torch/csrc/gru_fwd.cu",
+                                   "paddle_tpu/ops/pallas_gru.py:57 (_fwd_kernel in bf16; "
+                                   "pallas_call :178)", launches),
+            "gru_bwd_bf16": ("paddle_tpu_torch/csrc/gru_bwd.cu",
+                             "paddle_tpu/ops/pallas_gru.py:91 (_bwd_kernel in bf16; "
+                             "pallas_call :206)", launches),
+            "attention_gru_fwd_train_bf16": (
+                "paddle_tpu_torch/csrc/attention_gru_fwd.cuh",
+                "paddle_tpu/ops/pallas_attention_gru.py:199 (_fwd_kernel in bf16; "
+                "pallas_call :266)", launches),
+            "attention_gru_bwd_bf16": ("paddle_tpu_torch/csrc/attention_gru_bwd.cu",
+                                       "paddle_tpu/ops/pallas_attention_gru.py:298 "
+                                       "(_bwd_kernel in bf16; pallas_call :415)", launches)}
+    rows = []
+    for name, c in cases.items():
+        main_case = c["timed"][0]
+        b_ms, b_by = bound_bf16(c["bytes"], c["flops"])
+        launched = meta[name][2][name]
+        assert launched > 0, name
+        rows.append({
+            "name": name, "route": "cuda", "source": meta[name][0], "replaces": meta[name][1],
+            "launches": launched,
+            "max_abs_err": max(e["max_abs_err"] for e in c["errors"].values()),
+            "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+            "bound_ms": b_ms, "bound_by": b_by,
+            # the design's bound: it widens bf16 on load and multiplies in
+            # float32 FMA on the CUDA cores
+            "design_bound_ms": bound(c["bytes"], c["flops"])[0], "library_ms": None,
+            "library_note": ("no single PyTorch call computes this function (torch.nn.GRU "
+                             "applies the reset gate after the recurrent product, a different "
+                             "cell)"),
+            "main_path": "bf16_test" if name == "gru_fwd_bf16" else "bf16_train",
+            "operand_dtype": "bfloat16",
+            "max_err_over_scale": max(e.get("err_over_scale", 0.0) for e in c["errors"].values()),
+            "errors_by_output": c["errors"], "timed": c["timed"],
+            "bytes": c["bytes"], "flops": c["flops"], "shape": c["shape"]})
+    return rows
 
 
 def lstm_bytes_flops(T, B, H):
@@ -4258,6 +4543,7 @@ def main() -> int:
     phase_pass_loop(torch, dev, kernels)
     phase_layers(torch, dev)
     train = phase_train(torch, dev, kernels)
+    bf16_rows = phase_bf16(torch, dev, kernels, train)
     lstm_train, trainer, batch, err_key, err_before = phase_lstm_train(torch, dev, kernels)
     lstm_test = phase_lstm_test(torch, dev, kernels, trainer, batch, err_key, err_before)
     del trainer, batch
@@ -4393,7 +4679,7 @@ def main() -> int:
             **({"timed_over": "one train step (30 launches)",
                 "launches_per_step": launches / RESNET["steps"]} if "per_step" in r else {}),
         })
-    emit({"kernels": rows})
+    emit({"kernels": rows + bf16_rows})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip().splitlines()[0]

@@ -56,6 +56,20 @@
 // dba and dv collect per-row partials in the attention phase's items, and
 // atb sums those over the B rows after the launch. Every sum runs in a
 // fixed order; two launches give the same bits.
+//
+// bf16 instance (attention_gru_bwd_bf16; the storage type S is a template
+// parameter), the Pallas kernel's bf16 contract (pallas_attention_gru.py
+// _bwd_kernel): dy, ep, ev, dmask, the residuals and the weights are bf16,
+// widened on load; DH and every gradient are float32 until stored. d_din is
+// stored bf16 in dxw, and that rounded value is what its three products
+// read (drh, d_ctx, the dg part of DH), as Pallas rounds d_din for them.
+// d_ctx is stored bf16 in dctx, but the attention's backward reads it
+// unrounded from a float32 row buffer [B, E] (written in phase 3, read in
+// phase 4, one barrier between: a single buffer serves every step). d_m's
+// product with wa^T takes it rounded (block_product's kRound2); dWa sums it
+// unrounded. d_enc_proj, dWa, dba and dv stay float32 outputs, which the
+// caller rounds (as the JAX package rounds them after its kernel), and dh0
+// is stored bf16. m stays the forward's float32 m.
 
 #include "atb_gemm.cuh"
 #include "common.cuh"
@@ -85,21 +99,24 @@ inline size_t bwd_smem_floats(int B, int Te, int D, int E, const Plan& p, bool d
   return static_cast<size_t>(n > kDwaStage ? n : kDwaStage);
 }
 
+template <typename S>
 __global__ void __launch_bounds__(kThreads, 1)
-attention_gru_bwd_kernel(const float* __restrict__ dy, long long dy_st, long long dy_sb,
-                         const float* __restrict__ ep, long long ep_st, long long ep_sb,
-                         const float* __restrict__ ev, long long ev_st, long long ev_sb,
-                         const float* __restrict__ dmask,
-                         const float* __restrict__ hprev, const float* __restrict__ acts,
-                         const float* __restrict__ alpha, const float* __restrict__ m_all,
-                         const float* __restrict__ wa,
-                         const float* __restrict__ v, const float* __restrict__ wctx,
-                         const float* __restrict__ wg,
-                         float* dxw, float* dctx, float* dh0,
+attention_gru_bwd_kernel(const S* __restrict__ dy, long long dy_st, long long dy_sb,
+                         const S* __restrict__ ep, long long ep_st, long long ep_sb,
+                         const S* __restrict__ ev, long long ev_st, long long ev_sb,
+                         const S* __restrict__ dmask,
+                         const S* __restrict__ hprev, const S* __restrict__ acts,
+                         const S* __restrict__ alpha, const float* __restrict__ m_all,
+                         const S* __restrict__ wa,
+                         const S* __restrict__ v, const S* __restrict__ wctx,
+                         const S* __restrict__ wg,
+                         S* dxw, S* dctx, S* dh0,
                          float* dep, long long dep_st, long long dep_sb,
                          float* dwa, float* dm_rows, float* dv_part, unsigned* counter,
+                         float* dctx32,
                          int Td, int B, int Te, int D, int E, int gpb, int epb, int parts,
                          int plen, int ipb, int dep_smem) {
+  constexpr bool kF32 = IsF32<S>::value;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int tid = threadIdx.x;
@@ -136,13 +153,13 @@ attention_gru_bwd_kernel(const float* __restrict__ dy, long long dy_st, long lon
     float* w5 = W5(gl);
     for (int i = tid; i < 4 * D; i += kThreads) {
       const int j = i / 4, k = k0 + i % 4;
-      w2[i] = k < D ? wg[k * D3 + 2 * D + j] : 0.0f;
+      w2[i] = k < D ? to_f32(wg[k * D3 + 2 * D + j]) : 0.0f;
     }
     for (int i = tid; i < 12 * D; i += kThreads) {
       const int j = i / 4, k = k0 + i % 4;
       w5[i] = k >= D ? 0.0f
-              : j < 2 * D ? wg[k * D3 + j]
-                          : wa[static_cast<long long>(k) * D + j - 2 * D];
+              : j < 2 * D ? to_f32(wg[k * D3 + j])
+                          : to_f32(wa[static_cast<long long>(k) * D + j - 2 * D]);
     }
     for (int i = tid; i < 4 * B; i += kThreads) DH(gl)[i] = 0.0f;
   }
@@ -152,10 +169,10 @@ attention_gru_bwd_kernel(const float* __restrict__ dy, long long dy_st, long lon
     float* w3 = W3base + el * 24LL * D;
     for (int i = tid; i < 24 * D; i += kThreads) {
       const int j = i / 8, e = kERows * eg + i % 8;
-      w3[i] = e < E ? wctx[static_cast<long long>(e) * D3 + j] : 0.0f;
+      w3[i] = e < E ? to_f32(wctx[static_cast<long long>(e) * D3 + j]) : 0.0f;
     }
   }
-  for (int d = tid; d < D; d += kThreads) v_s[d] = v[d];
+  for (int d = tid; d < D; d += kThreads) v_s[d] = to_f32(v[d]);
   for (int il = 0; il < ipb; ++il) {
     const int item = blockIdx.x + il * nblk;
     if (item >= B * parts) break;
@@ -177,7 +194,15 @@ attention_gru_bwd_kernel(const float* __restrict__ dy, long long dy_st, long lon
 
   for (int t = Td - 1; t >= 0; --t) {
     const long long tB = static_cast<long long>(t) * B;
-    float* dxw_t = dxw + tB * D3;
+    S* dxw_t = dxw + tB * D3;
+    // the d_ctx rows the attention phase reads: the stream itself, or in
+    // bf16 the float32 row buffer
+    float* dcx;
+    if constexpr (kF32) {
+      dcx = dctx + tB * E;
+    } else {
+      dcx = dctx32;
+    }
 
     // 1: dh', the update-gate and candidate gradients of the owned units
     for (int gl = 0; gl < gpb; ++gl) {
@@ -189,13 +214,13 @@ attention_gru_bwd_kernel(const float* __restrict__ dy, long long dy_st, long lon
         const int b = i / 4, k = kUnits * g + i % 4;
         if (k >= D) continue;
         const long long row = tB + b;
-        const float dm = dmask[row];
-        const float h = hprev[row * D + k];
-        const float u = acts[row * D3 + k], c = acts[row * D3 + 2 * D + k];
-        const float d = dy[t * dy_st + b * dy_sb + k] + dm * dh[i];
+        const float dm = to_f32(dmask[row]);
+        const float h = to_f32(hprev[row * D + k]);
+        const float u = to_f32(acts[row * D3 + k]), c = to_f32(acts[row * D3 + 2 * D + k]);
+        const float d = to_f32(dy[t * dy_st + b * dy_sb + k]) + dm * dh[i];
         dhn[i] = d;
-        __stcg(dxw + row * D3 + k, d * (h - c) * u * (1.0f - u));
-        __stcg(dxw + row * D3 + 2 * D + k, d * (1.0f - u) * (1.0f - c * c));
+        stcg_as(dxw + row * D3 + k, d * (h - c) * u * (1.0f - u));
+        stcg_as(dxw + row * D3 + 2 * D + k, d * (1.0f - u) * (1.0f - c * c));
       }
     }
     bar.sync();
@@ -215,8 +240,8 @@ attention_gru_bwd_kernel(const float* __restrict__ dy, long long dy_st, long lon
         const int b = i / 4, k = kUnits * g + i % 4;
         if (k >= D) continue;
         const long long row = tB + b;
-        const float r = acts[row * D3 + D + k];
-        __stcg(dxw + row * D3 + D + k, drh[i] * hprev[row * D + k] * r * (1.0f - r));
+        const float r = to_f32(acts[row * D3 + D + k]);
+        stcg_as(dxw + row * D3 + D + k, drh[i] * to_f32(hprev[row * D + k]) * r * (1.0f - r));
       }
     }
     bar.sync();
@@ -229,7 +254,10 @@ attention_gru_bwd_kernel(const float* __restrict__ dy, long long dy_st, long lon
       __syncthreads();
       for (int i = tid; i < 8 * B; i += kThreads) {
         const int b = i / 8, e = kERows * eg + i % 8;
-        if (e < E) __stcg(dctx + (tB + b) * E + e, out3[i]);
+        if (e < E) {
+          if constexpr (!kF32) __stcg(dcx + static_cast<long long>(b) * E + e, out3[i]);
+          stcg_as(dctx + (tB + b) * E + e, out3[i]);
+        }
       }
       __syncthreads();
     }
@@ -242,23 +270,24 @@ attention_gru_bwd_kernel(const float* __restrict__ dy, long long dy_st, long lon
       const int b = item / parts, d0 = (item % parts) * plen;
       const int d1 = min(D, d0 + plen);
       const long long row = tB + b;
-      for (int e = tid; e < E; e += kThreads) dc_s[e] = __ldcg(dctx + row * E + e);
+      for (int e = tid; e < E; e += kThreads)
+        dc_s[e] = __ldcg(dcx + static_cast<long long>(b) * E + e);
       __syncthreads();
       warp_dots<8>(ds_s, ev + b * ev_sb, ev_st, Te, E,
                 [&](float x, int e) { return x * dc_s[e]; });
       __syncthreads();
       // masked softmax backward; padded positions have alpha = 0
       if (warp == 0) {
-        const float* al = alpha + row * Te;
+        const S* al = alpha + row * Te;
         float dot = 0.0f;
-        for (int te = lane; te < Te; te += 32) dot += al[te] * ds_s[te];
+        for (int te = lane; te < Te; te += 32) dot += to_f32(al[te]) * ds_s[te];
         dot = warp_sum(dot);
-        for (int te = lane; te < Te; te += 32) ds_s[te] = al[te] * (ds_s[te] - dot);
+        for (int te = lane; te < Te; te += 32) ds_s[te] = to_f32(al[te]) * (ds_s[te] - dot);
       }
       __syncthreads();
       for (int d = d0 + tid; d < d1; d += kThreads) {
         const float md = m_all[row * D + d], vd = v_s[d];
-        const float* epb = ep + b * ep_sb + d;
+        const S* epb = ep + b * ep_sb + d;
         float* acc = dep_smem ? dep_s + static_cast<long long>(il) * Te * plen + d - d0
                               : dep + b * dep_sb + d;
         const long long acc_st = dep_smem ? plen : dep_st;
@@ -266,7 +295,7 @@ attention_gru_bwd_kernel(const float* __restrict__ dy, long long dy_st, long lon
         for (int te0 = 0; te0 < Te; te0 += 16) {   // sixteen loads in flight
           float x[16];
 #pragma unroll
-          for (int u = 0; u < 16; ++u) x[u] = te0 + u < Te ? epb[(te0 + u) * ep_st] : 0.0f;
+          for (int u = 0; u < 16; ++u) x[u] = te0 + u < Te ? to_f32(epb[(te0 + u) * ep_st]) : 0.0f;
 #pragma unroll
           for (int u = 0; u < 16; ++u) {
             const int te = te0 + u;
@@ -290,8 +319,8 @@ attention_gru_bwd_kernel(const float* __restrict__ dy, long long dy_st, long lon
     for (int gl = 0; gl < gpb; ++gl) {
       const int g = blockIdx.x + gl * nblk;
       if (g >= groups) break;
-      block_product<4>(OUT(gl), 4, B, dxw_t, D3, 2 * D, W5(gl),
-                       dm_rows + tB * D, D, D, W5(gl) + 8LL * D);
+      block_product<4, !kF32>(OUT(gl), 4, B, dxw_t, D3, 2 * D, W5(gl),
+                              dm_rows + tB * D, D, D, W5(gl) + 8LL * D);
     }
     __syncthreads();
     for (int gl = 0; gl < gpb; ++gl) {
@@ -305,9 +334,9 @@ attention_gru_bwd_kernel(const float* __restrict__ dy, long long dy_st, long lon
         const int b = i / 4, k = kUnits * g + i % 4;
         if (k >= D) continue;
         const long long row = tB + b;
-        const float dm = dmask[row];
-        dh[i] = dhn[i] * acts[row * D3 + k] + drh[i] * acts[row * D3 + D + k] + out[i]
-                + (1.0f - dm) * dh[i];
+        const float dm = to_f32(dmask[row]);
+        dh[i] = dhn[i] * to_f32(acts[row * D3 + k]) + drh[i] * to_f32(acts[row * D3 + D + k])
+                + out[i] + (1.0f - dm) * dh[i];
       }
     }
     __syncthreads();
@@ -319,7 +348,7 @@ attention_gru_bwd_kernel(const float* __restrict__ dy, long long dy_st, long lon
     const float* dh = DH(gl);
     for (int i = tid; i < 4 * B; i += kThreads) {
       const int b = i / 4, k = kUnits * g + i % 4;
-      if (k < D) dh0[static_cast<long long>(b) * D + k] = dh[i];
+      if (k < D) dh0[static_cast<long long>(b) * D + k] = from_f32<S>(dh[i]);
     }
   }
   for (int il = 0; il < ipb; ++il) {
@@ -355,7 +384,7 @@ attention_gru_bwd_kernel(const float* __restrict__ dy, long long dy_st, long lon
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         const int i = tid + q * kThreads, n = n0 + i / kTk, k = k0 + i % kTk;
-        ph[q] = n < N && k < D ? hprev[static_cast<long long>(n) * D + k] : 0.0f;
+        ph[q] = n < N && k < D ? to_f32(hprev[static_cast<long long>(n) * D + k]) : 0.0f;
       }
 #pragma unroll
       for (int q = 0; q < 8; ++q) {
@@ -394,6 +423,52 @@ attention_gru_bwd_kernel(const float* __restrict__ dy, long long dy_st, long lon
   }
 }
 
+// The entries' shared launch (see attention_gru_bwd below).
+template <typename S>
+int launch_bwd(const void* dy, long long dy_st, long long dy_sb, const void* ep, long long ep_st,
+               long long ep_sb, const void* ev, long long ev_st, long long ev_sb,
+               const void* dmask, const void* hprev, const void* acts, const void* alpha,
+               const void* m_all, const void* wa, const void* v, const void* wctx,
+               const void* wg, void* dxw, void* dctx, void* dh0, void* dep, long long dep_st,
+               long long dep_sb, void* dwa, void* dba, void* dv, void* dm_rows, void* dv_part,
+               void* counter, void* dctx32, int Td, int B, int Te, int D, int E, int num_sms,
+               void* stream) {
+  if (Td <= 0 || B <= 0 || Te <= 0 || D <= 0 || E <= 0) return static_cast<int>(cudaSuccess);
+  if (!IsF32<S>::value && dctx32 == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Plan p = make_plan(B, D, E, num_sms, true);
+  const bool dep_smem = bwd_smem_floats(B, Te, D, E, p, true) * sizeof(float) <= kSmemLimit;
+  const size_t smem = bwd_smem_floats(B, Te, D, E, p, dep_smem) * sizeof(float);
+  if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaMemsetAsync(counter, 0, sizeof(unsigned), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = launch_cooperative(
+      attention_gru_bwd_kernel<S>, p.blocks, smem, st,
+      static_cast<const S*>(dy), dy_st, dy_sb,
+      static_cast<const S*>(ep), ep_st, ep_sb,
+      static_cast<const S*>(ev), ev_st, ev_sb,
+      static_cast<const S*>(dmask), static_cast<const S*>(hprev),
+      static_cast<const S*>(acts), static_cast<const S*>(alpha),
+      static_cast<const float*>(m_all), static_cast<const S*>(wa),
+      static_cast<const S*>(v), static_cast<const S*>(wctx),
+      static_cast<const S*>(wg),
+      static_cast<S*>(dxw), static_cast<S*>(dctx), static_cast<S*>(dh0),
+      static_cast<float*>(dep), dep_st, dep_sb,
+      static_cast<float*>(dwa), static_cast<float*>(dm_rows), static_cast<float*>(dv_part),
+      static_cast<unsigned*>(counter), static_cast<float*>(dctx32),
+      Td, B, Te, D, E, p.gpb, p.epb, p.parts, p.plen, p.ipb, dep_smem ? 1 : 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // dba = column sums of the dba partials, dv = column sums of the dv partials
+  const float* parts = static_cast<const float*>(dv_part);
+  err = atb(nullptr, 0, nullptr, 0, parts + static_cast<long long>(B) * D, D,
+            static_cast<float*>(dba), D, B, 1, D, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(atb(nullptr, 0, nullptr, 0, parts, D, static_cast<float*>(dv), D, B,
+                              1, D, st));
+}
+
 }  // namespace
 
 // dy [Td, B, D], ep [Te, B, D], ev [Te, B, E] and the output dep [Te, B, D]
@@ -420,37 +495,30 @@ extern "C" int attention_gru_bwd(const void* dy, long long dy_st, long long dy_s
                                  void* dm_rows, void* dv_part, void* counter,
                                  int Td, int B, int Te, int D, int E, int num_sms,
                                  void* stream) {
-  if (Td <= 0 || B <= 0 || Te <= 0 || D <= 0 || E <= 0) return static_cast<int>(cudaSuccess);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Plan p = make_plan(B, D, E, num_sms, true);
-  const bool dep_smem = bwd_smem_floats(B, Te, D, E, p, true) * sizeof(float) <= kSmemLimit;
-  const size_t smem = bwd_smem_floats(B, Te, D, E, p, dep_smem) * sizeof(float);
-  if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaMemsetAsync(counter, 0, sizeof(unsigned), st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_cooperative(
-      attention_gru_bwd_kernel, p.blocks, smem, st,
-      static_cast<const float*>(dy), dy_st, dy_sb,
-      static_cast<const float*>(ep), ep_st, ep_sb,
-      static_cast<const float*>(ev), ev_st, ev_sb,
-      static_cast<const float*>(dmask), static_cast<const float*>(hprev),
-      static_cast<const float*>(acts), static_cast<const float*>(alpha),
-      static_cast<const float*>(m_all), static_cast<const float*>(wa),
-      static_cast<const float*>(v), static_cast<const float*>(wctx),
-      static_cast<const float*>(wg),
-      static_cast<float*>(dxw), static_cast<float*>(dctx), static_cast<float*>(dh0),
-      static_cast<float*>(dep), dep_st, dep_sb,
-      static_cast<float*>(dwa), static_cast<float*>(dm_rows), static_cast<float*>(dv_part),
-      static_cast<unsigned*>(counter),
-      Td, B, Te, D, E, p.gpb, p.epb, p.parts, p.plen, p.ipb, dep_smem ? 1 : 0);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // dba = column sums of the dba partials, dv = column sums of the dv partials
-  const float* parts = static_cast<const float*>(dv_part);
-  err = atb(nullptr, 0, nullptr, 0, parts + static_cast<long long>(B) * D, D,
-            static_cast<float*>(dba), D, B, 1, D, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(atb(nullptr, 0, nullptr, 0, parts, D, static_cast<float*>(dv), D, B,
-                              1, D, st));
+  return launch_bwd<float>(dy, dy_st, dy_sb, ep, ep_st, ep_sb, ev, ev_st, ev_sb, dmask, hprev,
+                           acts, alpha, m_all, wa, v, wctx, wg, dxw, dctx, dh0, dep, dep_st,
+                           dep_sb, dwa, dba, dv, dm_rows, dv_part, counter, nullptr, Td, B, Te,
+                           D, E, num_sms, stream);
+}
+
+// attention_gru_bwd's bf16 instance: dy, ep, ev, dmask, hprev, acts, alpha,
+// the weights, dxw, dctx and dh0 are bf16 (__nv_bfloat16); m_all, dep, dwa,
+// dba, dv and the scratch float32; dctx32 is float32 scratch [B, E].
+extern "C" int attention_gru_bwd_bf16(const void* dy, long long dy_st, long long dy_sb,
+                                      const void* ep, long long ep_st, long long ep_sb,
+                                      const void* ev, long long ev_st, long long ev_sb,
+                                      const void* dmask, const void* hprev, const void* acts,
+                                      const void* alpha, const void* m_all,
+                                      const void* wa, const void* v,
+                                      const void* wctx, const void* wg,
+                                      void* dxw, void* dctx, void* dh0,
+                                      void* dep, long long dep_st, long long dep_sb,
+                                      void* dwa, void* dba, void* dv,
+                                      void* dm_rows, void* dv_part, void* counter, void* dctx32,
+                                      int Td, int B, int Te, int D, int E, int num_sms,
+                                      void* stream) {
+  return launch_bwd<__nv_bfloat16>(dy, dy_st, dy_sb, ep, ep_st, ep_sb, ev, ev_st, ev_sb, dmask,
+                                   hprev, acts, alpha, m_all, wa, v, wctx, wg, dxw, dctx, dh0,
+                                   dep, dep_st, dep_sb, dwa, dba, dv, dm_rows, dv_part, counter,
+                                   dctx32, Td, B, Te, D, E, num_sms, stream);
 }

@@ -46,6 +46,16 @@
 // written in A, read in B; ctx: B, C; r*h: C, D), so no buffer needs a
 // second copy. The first step reads h0 itself. Every sum runs in a fixed
 // order; two launches give the same bits.
+//
+// bf16 instance of kernel 5 (attention_gru_fwd_train_bf16; the storage type
+// S is a template parameter), the Pallas kernel's bf16 contract
+// (pallas_attention_gru.py _fwd_kernel): ep, ev, xw, the masks, h0 and the
+// weights are bf16, widened on load (the weights into the same float32
+// slices); the scores, the softmax, ctx's sums and the carry are float32;
+// the vectors that pass between blocks are the products' operands rounded
+// to bf16 (h in hprev, ctx in ctxs, r * h in rhbuf), exactly the residuals
+// Pallas stores; ys, hprev, acts, alpha and ctxs are stored bf16, m stays
+// float32. Kernel 4 has no bf16 instance (serving computes in float32).
 #pragma once
 
 #include "common.cuh"
@@ -68,18 +78,18 @@ inline size_t fwd_smem_floats(int B, int Te, int D, int E, int gpb) {
 // With kResiduals, hprev, acts, alpha, ctxs and m_all are the residuals
 // ([Td, B, *]). Without, acts and alpha are unused and hprev (the carry),
 // ctxs and m_all are [B, *] scratch. rhbuf [B, D] is scratch either way.
-template <bool kResiduals>
+template <bool kResiduals, typename S>
 __global__ void __launch_bounds__(kThreads, 1)
-attention_gru_fwd_kernel(const float* __restrict__ ep, long long ep_st, long long ep_sb,
-                         const float* __restrict__ ev, long long ev_st, long long ev_sb,
-                         const float* __restrict__ em, long long em_st, long long em_sb,
-                         const float* __restrict__ xw, const float* __restrict__ dmask,
-                         const float* __restrict__ h0,
-                         const float* __restrict__ wa, const float* __restrict__ ba,
-                         const float* __restrict__ v, const float* __restrict__ wctx,
-                         const float* __restrict__ wg, float* ys,
-                         float* hprev, float* acts, float* alpha, float* ctxs,
-                         float* m_all, float* rhbuf, unsigned* counter,
+attention_gru_fwd_kernel(const S* __restrict__ ep, long long ep_st, long long ep_sb,
+                         const S* __restrict__ ev, long long ev_st, long long ev_sb,
+                         const S* __restrict__ em, long long em_st, long long em_sb,
+                         const S* __restrict__ xw, const S* __restrict__ dmask,
+                         const S* __restrict__ h0,
+                         const S* __restrict__ wa, const S* __restrict__ ba,
+                         const S* __restrict__ v, const S* __restrict__ wctx,
+                         const S* __restrict__ wg, S* ys,
+                         S* hprev, S* acts, S* alpha, S* ctxs,
+                         float* m_all, S* rhbuf, unsigned* counter,
                          int Td, int B, int Te, int D, int E, int gpb, int parts,
                          int plen) {
   extern __shared__ float4 smem4[];
@@ -112,7 +122,7 @@ attention_gru_fwd_kernel(const float* __restrict__ ep, long long ep_st, long lon
       if (j >= D) {
         WA[i] = 0.0f;
       } else {
-        cp_async4(WA + i, q == 0 ? wa + static_cast<long long>(k) * D + j
+        stage_f32(WA + i, q == 0 ? wa + static_cast<long long>(k) * D + j
                                  : wg + k * D3 + (q - 1) * D + j);
       }
     }
@@ -121,7 +131,7 @@ attention_gru_fwd_kernel(const float* __restrict__ ep, long long ep_st, long lon
       if (j >= D) {
         WC[i] = 0.0f;
       } else {
-        cp_async4(WC + i, wctx + k * D3 + (c / 4) * D + j);
+        stage_f32(WC + i, wctx + k * D3 + (c / 4) * D + j);
       }
     }
     for (int i = tid; i < 4 * D; i += kThreads) {
@@ -129,18 +139,18 @@ attention_gru_fwd_kernel(const float* __restrict__ ep, long long ep_st, long lon
       if (j >= D) {
         WD[i] = 0.0f;
       } else {
-        cp_async4(WD + i, wg + k * D3 + 2 * D + j);
+        stage_f32(WD + i, wg + k * D3 + 2 * D + j);
       }
     }
     for (int i = tid; i < 4 * B; i += kThreads) {
       const int b = i / 4, j = j0 + i % 4;
       if (j >= D) continue;
-      const float h = h0[static_cast<long long>(b) * D + j];
+      const float h = to_f32(h0[static_cast<long long>(b) * D + j]);
       hown[i] = h;
-      if constexpr (kResiduals) __stcg(hprev + static_cast<long long>(b) * D + j, h);
+      if constexpr (kResiduals) stcg_as(hprev + static_cast<long long>(b) * D + j, h);
     }
   }
-  for (int d = tid; d < D; d += kThreads) v_s[d] = v[d];
+  for (int d = tid; d < D; d += kThreads) v_s[d] = to_f32(v[d]);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
@@ -150,7 +160,7 @@ attention_gru_fwd_kernel(const float* __restrict__ ep, long long ep_st, long lon
     // the first row of this step in the buffers that pass h, m and ctx
     const long long tS = kResiduals ? tB : 0;
     // the carry every block reads: h0 at t = 0 (an input), else hprev
-    const float* hcur = t == 0 ? h0 : hprev + tS * D;
+    const S* hcur = t == 0 ? h0 : hprev + tS * D;
 
     // A: m = h . wa + ba and the gate products h . wg[:, :2D]
     for (int gl = 0; gl < gpb; ++gl) {
@@ -167,7 +177,7 @@ attention_gru_fwd_kernel(const float* __restrict__ ep, long long ep_st, long lon
       const float* sA = smem + gl * per_group + 16LL * D + 12LL * E;
       for (int i = tid; i < 4 * B; i += kThreads) {
         const int b = i / 4, j = kUnits * g + i % 4;
-        if (j < D) __stcg(m_all + (tS + b) * D + j, sA[b * 12 + i % 4] + ba[j]);
+        if (j < D) __stcg(m_all + (tS + b) * D + j, sA[b * 12 + i % 4] + to_f32(ba[j]));
       }
     }
     bar.sync();
@@ -183,7 +193,7 @@ attention_gru_fwd_kernel(const float* __restrict__ ep, long long ep_st, long lon
                 [&](float x, int d) { return tanhf(x + m_s[d]) * v_s[d]; });
       __syncthreads();
       for (int te = tid; te < Te; te += kThreads) {
-        if (!(em[te * em_st + b * em_sb] > 0.0f)) s_s[te] = -1e30f;
+        if (!(to_f32(em[te * em_st + b * em_sb]) > 0.0f)) s_s[te] = -1e30f;
       }
       __syncthreads();
       // with every position masked the scores are all -1e30, exp gives
@@ -200,27 +210,27 @@ attention_gru_fwd_kernel(const float* __restrict__ ep, long long ep_st, long lon
         }
         sum = warp_sum(sum);
         for (int te = lane; te < Te; te += 32) {
-          s_s[te] = em[te * em_st + b * em_sb] > 0.0f ? s_s[te] / sum : 0.0f;
+          s_s[te] = to_f32(em[te * em_st + b * em_sb]) > 0.0f ? s_s[te] / sum : 0.0f;
           if constexpr (kResiduals) {
-            if (p == 0) alpha[row * Te + te] = s_s[te];
+            if (p == 0) alpha[row * Te + te] = from_f32<S>(s_s[te]);
           }
         }
       }
       __syncthreads();
       const int e1 = min(E, (p + 1) * plen);
       for (int e = p * plen + tid; e < e1; e += kThreads) {
-        const float* evb = ev + b * ev_sb + e;
+        const S* evb = ev + b * ev_sb + e;
         float acc = 0.0f;
         int te = 0;
         for (; te + 8 <= Te; te += 8) {          // eight loads in flight
           float x[8];
 #pragma unroll
-          for (int u = 0; u < 8; ++u) x[u] = evb[(te + u) * ev_st];
+          for (int u = 0; u < 8; ++u) x[u] = to_f32(evb[(te + u) * ev_st]);
 #pragma unroll
           for (int u = 0; u < 8; ++u) acc = fmaf(s_s[te + u], x[u], acc);
         }
-        for (; te < Te; ++te) acc = fmaf(s_s[te], evb[te * ev_st], acc);
-        __stcg(ctxs + srow * E + e, acc);
+        for (; te < Te; ++te) acc = fmaf(s_s[te], to_f32(evb[te * ev_st]), acc);
+        stcg_as(ctxs + srow * E + e, acc);
       }
       __syncthreads();
     }
@@ -245,16 +255,17 @@ attention_gru_fwd_kernel(const float* __restrict__ ep, long long ep_st, long lon
         const int b = i / 4, jl = i % 4, j = kUnits * g + jl;
         if (j >= D) continue;
         const long long row = tB + b;
-        const float* xr = xw + row * D3;
-        const float u = sigmoid_f32(sC[b * 12 + jl] + xr[j] + sA[b * 12 + 4 + jl]);
-        const float r = sigmoid_f32(sC[b * 12 + 4 + jl] + xr[D + j] + sA[b * 12 + 8 + jl]);
+        const S* xr = xw + row * D3;
+        const float u = sigmoid_f32(sC[b * 12 + jl] + to_f32(xr[j]) + sA[b * 12 + 4 + jl]);
+        const float r =
+            sigmoid_f32(sC[b * 12 + 4 + jl] + to_f32(xr[D + j]) + sA[b * 12 + 8 + jl]);
         if constexpr (kResiduals) {
-          acts[row * D3 + j] = u;
-          acts[row * D3 + D + j] = r;
+          acts[row * D3 + j] = from_f32<S>(u);
+          acts[row * D3 + D + j] = from_f32<S>(r);
         }
-        __stcg(rhbuf + static_cast<long long>(b) * D + j, r * hown[i]);
+        stcg_as(rhbuf + static_cast<long long>(b) * D + j, r * hown[i]);
         sC[b * 12 + jl] = u;
-        sC[b * 12 + 8 + jl] += xr[2 * D + j];
+        sC[b * 12 + 8 + jl] += to_f32(xr[2 * D + j]);
       }
     }
     bar.sync();
@@ -269,7 +280,7 @@ attention_gru_fwd_kernel(const float* __restrict__ ep, long long ep_st, long lon
     }
     __syncthreads();
     // the carry of the next step: its residual row, or the one carry buffer
-    float* hnext = hprev + (kResiduals ? tB + B : 0) * D;
+    S* hnext = hprev + (kResiduals ? tB + B : 0) * D;
     for (int gl = 0; gl < gpb; ++gl) {
       const int g = blockIdx.x + gl * nblk;
       if (g >= groups) break;
@@ -280,16 +291,16 @@ attention_gru_fwd_kernel(const float* __restrict__ ep, long long ep_st, long lon
         const int b = i / 4, jl = i % 4, j = kUnits * g + jl;
         if (j >= D) continue;
         const long long row = tB + b;
-        const float dm = dmask[row];
+        const float dm = to_f32(dmask[row]);
         const float c = tanhf(sC[b * 12 + 8 + jl] + sD[i]);
         const float u = sC[b * 12 + jl];
         const float hp = hown[i];
         const float hn = u * hp + (1.0f - u) * c;
-        if constexpr (kResiduals) acts[row * D3 + 2 * D + j] = c;
-        ys[row * D + j] = hn;
+        if constexpr (kResiduals) acts[row * D3 + 2 * D + j] = from_f32<S>(c);
+        ys[row * D + j] = from_f32<S>(hn);
         const float h = dm * hn + (1.0f - dm) * hp;
         hown[i] = h;
-        if (t + 1 < Td) __stcg(hnext + static_cast<long long>(b) * D + j, h);
+        if (t + 1 < Td) stcg_as(hnext + static_cast<long long>(b) * D + j, h);
       }
     }
     if (t + 1 < Td) bar.sync();
@@ -302,7 +313,7 @@ attention_gru_fwd_kernel(const float* __restrict__ ep, long long ep_st, long lon
 // (cudaErrorCooperativeLaunchTooLarge when the card cannot hold the grid).
 // Td = 0 launches the grid all the same: it loads the weight slices and
 // ends (the slice load timed alone).
-template <bool kResiduals>
+template <bool kResiduals, typename S = float>
 inline int launch_fwd(const void* ep, long long ep_st, long long ep_sb,
                       const void* ev, long long ev_st, long long ev_sb,
                       const void* em, long long em_st, long long em_sb,
@@ -319,18 +330,18 @@ inline int launch_fwd(const void* ep, long long ep_st, long long ep_sb,
   cudaError_t err = cudaMemsetAsync(counter, 0, sizeof(unsigned), st);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = launch_cooperative(
-      attention_gru_fwd_kernel<kResiduals>, p.blocks, smem, st,
-      static_cast<const float*>(ep), ep_st, ep_sb,
-      static_cast<const float*>(ev), ev_st, ev_sb,
-      static_cast<const float*>(em), em_st, em_sb,
-      static_cast<const float*>(xw), static_cast<const float*>(dmask),
-      static_cast<const float*>(h0),
-      static_cast<const float*>(wa), static_cast<const float*>(ba),
-      static_cast<const float*>(v), static_cast<const float*>(wctx),
-      static_cast<const float*>(wg), static_cast<float*>(ys),
-      static_cast<float*>(hprev), static_cast<float*>(acts),
-      static_cast<float*>(alpha), static_cast<float*>(ctxs),
-      static_cast<float*>(m_all), static_cast<float*>(rhbuf), static_cast<unsigned*>(counter),
+      attention_gru_fwd_kernel<kResiduals, S>, p.blocks, smem, st,
+      static_cast<const S*>(ep), ep_st, ep_sb,
+      static_cast<const S*>(ev), ev_st, ev_sb,
+      static_cast<const S*>(em), em_st, em_sb,
+      static_cast<const S*>(xw), static_cast<const S*>(dmask),
+      static_cast<const S*>(h0),
+      static_cast<const S*>(wa), static_cast<const S*>(ba),
+      static_cast<const S*>(v), static_cast<const S*>(wctx),
+      static_cast<const S*>(wg), static_cast<S*>(ys),
+      static_cast<S*>(hprev), static_cast<S*>(acts),
+      static_cast<S*>(alpha), static_cast<S*>(ctxs),
+      static_cast<float*>(m_all), static_cast<S*>(rhbuf), static_cast<unsigned*>(counter),
       Td, B, Te, D, E, p.gpb, p.parts, p.plen);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

@@ -51,6 +51,22 @@ extern "C" int attention_gru_fwd_train(const void* ep, long long ep_st, long lon
                           counter, Td, B, Te, D, E, num_sms, stream);
 }
 
+// attention_gru_fwd_train's bf16 instance: every pointer argument but
+// m_all (float32) and counter is bf16 (__nv_bfloat16), em and dmask too.
+extern "C" int attention_gru_fwd_train_bf16(
+    const void* ep, long long ep_st, long long ep_sb, const void* ev, long long ev_st,
+    long long ev_sb, const void* em, long long em_st, long long em_sb, const void* xw,
+    const void* dmask, const void* h0, const void* wa, const void* ba, const void* v,
+    const void* wctx, const void* wg, void* ys, void* hprev, void* acts, void* alpha,
+    void* ctxs, void* m_all, void* rhbuf, void* counter, int Td, int B, int Te, int D, int E,
+    int num_sms, void* stream) {
+  if (Td <= 0 || B <= 0 || Te <= 0 || D <= 0 || E <= 0) return static_cast<int>(cudaSuccess);
+  return launch_fwd<true, __nv_bfloat16>(ep, ep_st, ep_sb, ev, ev_st, ev_sb, em, em_st, em_sb,
+                                         xw, dmask, h0, wa, ba, v, wctx, wg, ys, hprev, acts,
+                                         alpha, ctxs, m_all, rhbuf, counter, Td, B, Te, D, E,
+                                         num_sms, stream);
+}
+
 // `iters` grid barriers of `blocks` blocks with `smem` bytes of shared
 // memory each, cooperatively on `stream` (counter: one unsigned of scratch).
 extern "C" int grid_barrier_bench(void* counter, int iters, int blocks, int smem,

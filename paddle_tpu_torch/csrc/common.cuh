@@ -2,7 +2,53 @@
 // PyTorch headers, so each source builds with nvcc in seconds.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+// The operand types of the kernels with a bf16 instance (the GRU and
+// attention-GRU bodies): S is float or __nv_bfloat16. Operands are widened
+// to float on load and every sum runs in float32; a value stored in S is
+// rounded to the nearest (ties to even), as the JAX package's astype rounds.
+template <typename S>
+struct IsF32 {
+  static constexpr bool value = false;
+};
+template <>
+struct IsF32<float> {
+  static constexpr bool value = true;
+};
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename S>
+__device__ __forceinline__ S from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// x rounded to bf16 and widened again: the value a bf16 operand of a
+// product holds (the Pallas kernels' astype(bf16) before their dots).
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// Loads and stores through L2 (data other blocks of the launch wrote or
+// read), in either operand type.
+__device__ __forceinline__ float ldcg_f32(const float* p) { return __ldcg(p); }
+__device__ __forceinline__ float ldcg_f32(const __nv_bfloat16* p) {
+  return __bfloat162float(
+      __ushort_as_bfloat16(__ldcg(reinterpret_cast<const unsigned short*>(p))));
+}
+__device__ __forceinline__ void stcg_as(float* p, float v) { __stcg(p, v); }
+__device__ __forceinline__ void stcg_as(__nv_bfloat16* p, float v) {
+  __stcg(reinterpret_cast<unsigned short*>(p), __bfloat16_as_ushort(__float2bfloat16_rn(v)));
+}
 
 // The sigmoid of act_f32, and the gate activation of the attention-GRU
 // kernels (which take only the DSL's defaults: sigmoid gates, tanh input).
@@ -71,6 +117,16 @@ __device__ __forceinline__ void cp_async16_cg_part(float* smem_dst, const float*
 __device__ __forceinline__ void cp_async16_cg(float* smem_dst, const float* gmem_src,
                                               bool valid) {
   cp_async16_cg_part(smem_dst, gmem_src, valid ? 16 : 0);
+}
+
+// One element of a weight slice into shared memory as float: a float by
+// cp.async (wait with cp_async_commit / cp_async_wait as above), a bf16
+// widened through a register.
+__device__ __forceinline__ void stage_f32(float* smem_dst, const float* gmem_src) {
+  cp_async4(smem_dst, gmem_src);
+}
+__device__ __forceinline__ void stage_f32(float* smem_dst, const __nv_bfloat16* gmem_src) {
+  *smem_dst = __bfloat162float(*gmem_src);
 }
 
 __device__ __forceinline__ void cp_async_commit() {

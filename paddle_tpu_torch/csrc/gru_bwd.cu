@@ -56,6 +56,17 @@
 // are template parameters, one instance for each of the 16 pairs: with the
 // codes read at run time the first design ran markedly slower on an H100
 // at the train path's shape (chip_smoke.py), the forwards not.
+//
+// bf16 instance (gru_bwd_bf16; the storage type S is a template
+// parameter): the Pallas kernel's bf16 contract (pallas_gru.py _bwd_kernel).
+// dy, the residuals and w are bf16, widened on load; dh, DH and every
+// gradient are float32; dx3 is stored bf16; the products with w
+// transposed take dcand and dg rounded to bf16, while dW sums them
+// unrounded in float32 and is rounded to bf16 once, at the end. So the
+// gradients other blocks read pass through a float32 exchange buffer
+// [2][B][3H] (one buffer for even steps, one for odd: phase 3 of a step
+// reads it with no barrier before phase 1 of the next, which writes the
+// other), and product_colsum4 rounds them for the product alone.
 
 #include "common.cuh"
 #include "persistent_grid.cuh"
@@ -80,15 +91,16 @@ inline size_t bwd_smem_floats(int B, int H, int gpb, bool w_smem, bool dw_smem) 
          + kRedFloats;
 }
 
-template <int kActIn, int kActGate>
+template <int kActIn, int kActGate, typename S>
 __global__ void __launch_bounds__(kThreads, 1)
-gru_bwd_kernel(const float* __restrict__ dy, long long dy_st, long long dy_sb,
-               const float* __restrict__ acts, const float* __restrict__ hprev,
+gru_bwd_kernel(const S* __restrict__ dy, long long dy_st, long long dy_sb,
+               const S* __restrict__ acts, const S* __restrict__ hprev,
                const float* __restrict__ mask, long long m_st, long long m_sb,
-               const float* __restrict__ w, float* dx3, float* __restrict__ dw,
+               const S* __restrict__ w, S* dx3, S* __restrict__ dw,
                float* wslices, float* dwacc, unsigned* counter,
-               unsigned long long* phase_ns,
+               unsigned long long* phase_ns, float* xch,
                int T, int B, int H, int reverse, int gpb, int w_smem, int dw_smem) {
+  constexpr bool kF32 = IsF32<S>::value;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int tid = threadIdx.x;
@@ -129,9 +141,9 @@ gru_bwd_kernel(const float* __restrict__ dy, long long dy_st, long long dy_sb,
       if (k >= H) {
         wg[j * 4 + c] = 0.0f;
       } else if (w_smem) {
-        cp_async4(wg + j * 4 + c, w + k * H3 + j);   // all of a thread's in flight at once
+        stage_f32(wg + j * 4 + c, w + k * H3 + j);   // all of a thread's in flight at once
       } else {
-        wg[j * 4 + c] = w[k * H3 + j];
+        wg[j * 4 + c] = to_f32(w[k * H3 + j]);
       }
       dwg[j * 4 + c] = 0.0f;
     }
@@ -146,7 +158,19 @@ gru_bwd_kernel(const float* __restrict__ dy, long long dy_st, long long dy_sb,
     if (clocked) phase_ns[4 * s] = global_ns();
     const int t = reverse ? s : T - 1 - s;
     const long long tB = static_cast<long long>(t) * B;
-    float* dxt = dx3 + tB * H3;
+    // the gradients the products read: dx3[t] itself, or in bf16 the
+    // float32 exchange buffer of the step's parity (dx3[t] stored beside)
+    float* xt;
+    if constexpr (kF32) {
+      xt = dx3 + tB * H3;
+    } else {
+      xt = xch + static_cast<long long>(s & 1) * B * H3;
+    }
+    S* dxt = dx3 + tB * H3;
+    auto put = [&](long long off, float v) {
+      __stcg(xt + off, v);
+      if constexpr (!kF32) dxt[off] = from_f32<S>(v);
+    };
 
     // 1: dh, the update-gate and candidate gradients of the owned units
     for (int gl = 0; gl < gpb; ++gl) {
@@ -161,15 +185,15 @@ gru_bwd_kernel(const float* __restrict__ dy, long long dy_st, long long dy_sb,
         if (k >= H) continue;
         const long long row = tB + b;
         const float m = mask[t * m_st + b * m_sb];
-        const float* a = acts + row * H3;          // [u | r | c]
-        const float u = a[k], r = a[H + k], c = a[2 * H + k];
-        const float hp = hprev[row * H + k];
-        const float d = m * (dh_in[i] + dy[t * dy_st + b * dy_sb + k]);
+        const S* a = acts + row * H3;              // [u | r | c]
+        const float u = to_f32(a[k]), r = to_f32(a[H + k]), c = to_f32(a[2 * H + k]);
+        const float hp = to_f32(hprev[row * H + k]);
+        const float d = m * (dh_in[i] + to_f32(dy[t * dy_st + b * dy_sb + k]));
         dhn[i] = d;
         hps[i] = hp;
         rhps[i] = r * hp;
-        __stcg(dxt + b * H3 + k, d * (hp - c) * dact_f32(kActGate, u));
-        __stcg(dxt + b * H3 + 2 * H + k, d * (1.0f - u) * dact_f32(kActIn, c));
+        put(b * H3 + k, d * (hp - c) * dact_f32(kActGate, u));
+        put(b * H3 + 2 * H + k, d * (1.0f - u) * dact_f32(kActIn, c));
       }
     }
     bar.sync();
@@ -182,14 +206,14 @@ gru_bwd_kernel(const float* __restrict__ dy, long long dy_st, long long dy_sb,
       if (g >= groups) break;
       float* drh = DRH(gl);
       const float* hps = HP(gl);
-      product_colsum4<2, 16>(dxt + 2 * H, H3, B, H, W(gl) + 8LL * H, RHP(gl),
-                             DW(gl) + 8LL * H, red, [&](int b, int c, float v) {
-                               const int i = b * 4 + c, k = kUnits * g + c;
-                               drh[i] = v;
-                               if (k >= H) return;
-                               const float r = acts[(tB + b) * H3 + H + k];
-                               __stcg(dxt + b * H3 + H + k, v * hps[i] * dact_f32(kActGate, r));
-                             });
+      product_colsum4<2, 16, !kF32>(xt + 2 * H, H3, B, H, W(gl) + 8LL * H, RHP(gl),
+                                    DW(gl) + 8LL * H, red, [&](int b, int c, float v) {
+                                      const int i = b * 4 + c, k = kUnits * g + c;
+                                      drh[i] = v;
+                                      if (k >= H) return;
+                                      const float r = to_f32(acts[(tB + b) * H3 + H + k]);
+                                      put(b * H3 + H + k, v * hps[i] * dact_f32(kActGate, r));
+                                    });
     }
     bar.sync();
     if (clocked) phase_ns[4 * s + 2] = global_ns();
@@ -202,15 +226,15 @@ gru_bwd_kernel(const float* __restrict__ dy, long long dy_st, long long dy_sb,
       float* dh = DH(gl);
       const float* dhn = DHN(gl);
       const float* drh = DRH(gl);
-      product_colsum4<4, 16>(dxt, H3, B, 2 * H, W(gl), HP(gl), DW(gl), red,
-                             [&](int b, int c, float v) {
-                               const int i = b * 4 + c, k = kUnits * g + c;
-                               if (k >= H) return;
-                               const float* a = acts + (tB + b) * H3;
-                               const float m = mask[t * m_st + b * m_sb];
-                               dh[i] = dhn[i] * a[k] + drh[i] * a[H + k] + v
-                                       + (1.0f - m) * dh[i];
-                             });
+      product_colsum4<4, 16, !kF32>(xt, H3, B, 2 * H, W(gl), HP(gl), DW(gl), red,
+                                    [&](int b, int c, float v) {
+                                      const int i = b * 4 + c, k = kUnits * g + c;
+                                      if (k >= H) return;
+                                      const S* a = acts + (tB + b) * H3;
+                                      const float m = mask[t * m_st + b * m_sb];
+                                      dh[i] = dhn[i] * to_f32(a[k]) + drh[i] * to_f32(a[H + k])
+                                              + v + (1.0f - m) * dh[i];
+                                    });
     }
     if (clocked) phase_ns[4 * s + 3] = global_ns();
   }
@@ -223,61 +247,80 @@ gru_bwd_kernel(const float* __restrict__ dy, long long dy_st, long long dy_sb,
     for (long long i = tid; i < slice; i += kThreads) {
       const int c = static_cast<int>(i / H3), k = kUnits * g + c;
       const long long j = i % H3;
-      if (k < H) dw[k * H3 + j] = dwg[j * 4 + c];
+      if (k < H) dw[k * H3 + j] = from_f32<S>(dwg[j * 4 + c]);
     }
   }
 }
 
-template <int kActIn, int kActGate>
-cudaError_t launch(const float* dy, long long dy_st, long long dy_sb, const float* acts,
-                   const float* hprev, const float* mask, long long m_st, long long m_sb,
-                   const float* w, float* dx3, float* dw, float* wslices, float* dwacc,
-                   unsigned* counter, unsigned long long* phase_ns, int T, int B, int H,
-                   int reverse, int num_sms, int w_smem, int dw_smem, cudaStream_t st) {
+template <int kActIn, int kActGate, typename S>
+cudaError_t launch(const S* dy, long long dy_st, long long dy_sb, const S* acts,
+                   const S* hprev, const float* mask, long long m_st, long long m_sb,
+                   const S* w, S* dx3, S* dw, float* wslices, float* dwacc,
+                   unsigned* counter, unsigned long long* phase_ns, float* xch, int T, int B,
+                   int H, int reverse, int num_sms, int w_smem, int dw_smem, cudaStream_t st) {
   // unit groups of 4 hidden units, one block per SM up to one per group
   // (mirrored by paddle_tpu_torch/ops/fused_gru.py grid_plan)
   const int groups = (H + kUnits - 1) / kUnits;
   const int blocks = groups < num_sms ? groups : num_sms;
   const int gpb = (groups + blocks - 1) / blocks;
   const size_t smem = bwd_smem_floats(B, H, gpb, w_smem, dw_smem) * sizeof(float);
-  if (smem > kSmemLimit || (!w_smem && wslices == nullptr) || (!dw_smem && dwacc == nullptr))
+  if (smem > kSmemLimit || (!w_smem && wslices == nullptr) || (!dw_smem && dwacc == nullptr)
+      || (!IsF32<S>::value && xch == nullptr))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaMemsetAsync(counter, 0, sizeof(unsigned), st);
   if (err != cudaSuccess) return err;
-  err = launch_cooperative(gru_bwd_kernel<kActIn, kActGate>, blocks, smem, st,
+  err = launch_cooperative(gru_bwd_kernel<kActIn, kActGate, S>, blocks, smem, st,
                            dy, dy_st, dy_sb, acts, hprev, mask, m_st, m_sb, w, dx3, dw,
-                           wslices, dwacc, counter, phase_ns, T, B, H, reverse, gpb, w_smem,
-                           dw_smem);
+                           wslices, dwacc, counter, phase_ns, xch, T, B, H, reverse, gpb,
+                           w_smem, dw_smem);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
 // launch<act_in, act_gate> for the act_f32 codes, each in 0..3
-template <int kActIn = -1>
-cudaError_t launch_acts(int act_in, int act_gate, const float* dy, long long dy_st,
-                        long long dy_sb, const float* acts, const float* hprev,
-                        const float* mask, long long m_st, long long m_sb, const float* w,
-                        float* dx3, float* dw, float* wslices, float* dwacc, unsigned* counter,
-                        unsigned long long* phase_ns, int T, int B, int H, int reverse,
-                        int num_sms, int w_smem, int dw_smem, cudaStream_t st) {
+template <typename S, int kActIn = -1>
+cudaError_t launch_acts(int act_in, int act_gate, const S* dy, long long dy_st,
+                        long long dy_sb, const S* acts, const S* hprev,
+                        const float* mask, long long m_st, long long m_sb, const S* w,
+                        S* dx3, S* dw, float* wslices, float* dwacc, unsigned* counter,
+                        unsigned long long* phase_ns, float* xch, int T, int B, int H,
+                        int reverse, int num_sms, int w_smem, int dw_smem, cudaStream_t st) {
 #define GRU_BWD_ARGS dy, dy_st, dy_sb, acts, hprev, mask, m_st, m_sb, w, dx3, dw, wslices, \
-                     dwacc, counter, phase_ns, T, B, H, reverse, num_sms, w_smem, dw_smem, st
+                     dwacc, counter, phase_ns, xch, T, B, H, reverse, num_sms, w_smem, dw_smem, \
+                     st
   if constexpr (kActIn < 0) {
     switch (act_in) {
-      case 0: return launch_acts<0>(act_in, act_gate, GRU_BWD_ARGS);
-      case 1: return launch_acts<1>(act_in, act_gate, GRU_BWD_ARGS);
-      case 2: return launch_acts<2>(act_in, act_gate, GRU_BWD_ARGS);
-      default: return launch_acts<3>(act_in, act_gate, GRU_BWD_ARGS);
+      case 0: return launch_acts<S, 0>(act_in, act_gate, GRU_BWD_ARGS);
+      case 1: return launch_acts<S, 1>(act_in, act_gate, GRU_BWD_ARGS);
+      case 2: return launch_acts<S, 2>(act_in, act_gate, GRU_BWD_ARGS);
+      default: return launch_acts<S, 3>(act_in, act_gate, GRU_BWD_ARGS);
     }
   } else {
     switch (act_gate) {
-      case 0: return launch<kActIn, 0>(GRU_BWD_ARGS);
-      case 1: return launch<kActIn, 1>(GRU_BWD_ARGS);
-      case 2: return launch<kActIn, 2>(GRU_BWD_ARGS);
-      default: return launch<kActIn, 3>(GRU_BWD_ARGS);
+      case 0: return launch<kActIn, 0, S>(GRU_BWD_ARGS);
+      case 1: return launch<kActIn, 1, S>(GRU_BWD_ARGS);
+      case 2: return launch<kActIn, 2, S>(GRU_BWD_ARGS);
+      default: return launch<kActIn, 3, S>(GRU_BWD_ARGS);
     }
   }
 #undef GRU_BWD_ARGS
+}
+
+template <typename S>
+int gru_bwd_entry(const void* dy, long long dy_st, long long dy_sb, const void* acts,
+                  const void* hprev, const void* mask, long long m_st, long long m_sb,
+                  const void* w, void* dx3, void* dw, void* wslices, void* dwacc, void* counter,
+                  void* phase_ns, void* xch, int T, int B, int H, int reverse, int act_in,
+                  int act_gate, int num_sms, int w_smem, int dw_smem, void* stream) {
+  if (T < 0 || B < 0 || H <= 0) return static_cast<int>(cudaSuccess);
+  return static_cast<int>(launch_acts<S>(
+      act_in, act_gate, static_cast<const S*>(dy), dy_st, dy_sb,
+      static_cast<const S*>(acts), static_cast<const S*>(hprev),
+      static_cast<const float*>(mask), m_st, m_sb, static_cast<const S*>(w),
+      static_cast<S*>(dx3), static_cast<S*>(dw), static_cast<float*>(wslices),
+      static_cast<float*>(dwacc), static_cast<unsigned*>(counter),
+      static_cast<unsigned long long*>(phase_ns), static_cast<float*>(xch), T, B, H, reverse,
+      num_sms, w_smem, dw_smem, static_cast<cudaStream_t>(stream)));
 }
 
 }  // namespace
@@ -304,13 +347,23 @@ extern "C" int gru_bwd(const void* dy, long long dy_st, long long dy_sb,
                        void* counter, void* phase_ns, int T, int B, int H, int reverse,
                        int act_in, int act_gate, int num_sms, int w_smem, int dw_smem,
                        void* stream) {
-  if (T < 0 || B < 0 || H <= 0) return static_cast<int>(cudaSuccess);
-  return static_cast<int>(launch_acts(
-      act_in, act_gate, static_cast<const float*>(dy), dy_st, dy_sb,
-      static_cast<const float*>(acts), static_cast<const float*>(hprev),
-      static_cast<const float*>(mask), m_st, m_sb, static_cast<const float*>(w),
-      static_cast<float*>(dx3), static_cast<float*>(dw), static_cast<float*>(wslices),
-      static_cast<float*>(dwacc), static_cast<unsigned*>(counter),
-      static_cast<unsigned long long*>(phase_ns), T, B, H, reverse, num_sms, w_smem, dw_smem,
-      static_cast<cudaStream_t>(stream)));
+  return gru_bwd_entry<float>(dy, dy_st, dy_sb, acts, hprev, mask, m_st, m_sb, w, dx3, dw,
+                              wslices, dwacc, counter, phase_ns, nullptr, T, B, H, reverse,
+                              act_in, act_gate, num_sms, w_smem, dw_smem, stream);
+}
+
+// gru_bwd's bf16 instance: dy, acts, hprev, w, dx3 and dw are bf16
+// (__nv_bfloat16); xch is float32 scratch [2, B, 3H] (the unrounded
+// gradients the blocks exchange).
+extern "C" int gru_bwd_bf16(const void* dy, long long dy_st, long long dy_sb,
+                            const void* acts, const void* hprev,
+                            const void* mask, long long m_st, long long m_sb,
+                            const void* w, void* dx3, void* dw, void* wslices, void* dwacc,
+                            void* counter, void* phase_ns, void* xch, int T, int B, int H,
+                            int reverse, int act_in, int act_gate, int num_sms, int w_smem,
+                            int dw_smem, void* stream) {
+  return gru_bwd_entry<__nv_bfloat16>(dy, dy_st, dy_sb, acts, hprev, mask, m_st, m_sb, w, dx3,
+                                      dw, wslices, dwacc, counter, phase_ns, xch, T, B, H,
+                                      reverse, act_in, act_gate, num_sms, w_smem, dw_smem,
+                                      stream);
 }

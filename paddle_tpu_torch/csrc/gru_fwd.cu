@@ -59,6 +59,17 @@
 // fixed order, the same in both instances: two launches give the same
 // bits, and kernel 1's ys equal kernel 2's. The activation codes are read
 // at run time (the forwards ran as fast that way as with templates).
+//
+// bf16 instances (gru_fwd_bf16, gru_fwd_train_bf16; the storage type S is a
+// template parameter) keep the Pallas kernels' bf16 contract
+// (pallas_gru.py _cell_fwd, _fwd_kernel): x3 and w are bf16, widened on
+// load (w into the same float32 slices in shared memory), the carry stays
+// float32 in the owner's shared memory, and the vectors that pass between
+// blocks are the products' operands rounded to bf16: the carry buffer holds
+// round(h) (kernel 2's residual hprev, which is exactly Pallas's
+// h_prev.astype(bf16)) and rh holds round(r * h). Products multiply those
+// bf16 values widened in float32 FMA, which is exact, and accumulate in
+// float32. ys and acts are stored bf16. The mask is float32 in both.
 
 #include "common.cuh"
 #include "persistent_grid.cuh"
@@ -80,12 +91,12 @@ inline size_t fwd_smem_floats(int B, int H, int gpb, bool w_smem) {
 // `carry` is kernel 2's residual hprev [T, B, H], the carry of step s at
 // its own time index; kernel 1's [B, H] scratch, one copy for every step.
 // acts is unused (null) without residuals.
-template <bool kResiduals>
+template <bool kResiduals, typename S>
 __global__ void __launch_bounds__(kThreads, 1)
-gru_fwd_kernel(const float* __restrict__ x3, long long x_st, long long x_sb,
+gru_fwd_kernel(const S* __restrict__ x3, long long x_st, long long x_sb,
                const float* __restrict__ mask, long long m_st, long long m_sb,
-               const float* __restrict__ w, float* __restrict__ ys, long long y_st,
-               long long y_sb, float* __restrict__ acts, float* carry, float* rh,
+               const S* __restrict__ w, S* __restrict__ ys, long long y_st,
+               long long y_sb, S* __restrict__ acts, S* carry, S* rh,
                float* wslices, unsigned* counter, int T, int B, int H, int reverse,
                int act_in, int act_gate, int gpb, int w_smem) {
   extern __shared__ float4 smem4[];
@@ -135,9 +146,9 @@ gru_fwd_kernel(const float* __restrict__ x3, long long x_st, long long x_sb,
       if (j >= H) {
         wg[i] = 0.0f;
       } else if (w_smem) {
-        cp_async4(wg + i, w + src);           // all of a thread's in flight at once
+        stage_f32(wg + i, w + src);           // all of a thread's in flight at once
       } else {
-        wg[i] = w[src];
+        wg[i] = to_f32(w[src]);
       }
     }
     float* ho = HO(gl);
@@ -168,19 +179,19 @@ gru_fwd_kernel(const float* __restrict__ x3, long long x_st, long long x_sb,
       for (int i = tid; i < 4 * B; i += kThreads) {
         const int b = i / 4, c = i % 4, k = kUnits * g + c;
         if (k >= H) continue;
-        const float* xr = x3 + t * x_st + b * x_sb;
+        const S* xr = x3 + t * x_st + b * x_sb;
         const float pu = s > 0 ? sg[b * 8 + c] : 0.0f;
         const float pr = s > 0 ? sg[b * 8 + 4 + c] : 0.0f;
-        const float u = act_f32(act_gate, xr[k] + pu);
-        const float r = act_f32(act_gate, xr[H + k] + pr);
+        const float u = act_f32(act_gate, to_f32(xr[k]) + pu);
+        const float r = act_f32(act_gate, to_f32(xr[H + k]) + pr);
         if (kResiduals) {
           const long long row = tB + b;
-          acts[row * H3 + k] = u;
-          acts[row * H3 + H + k] = r;
-          if (s == 0) carry[row * H + k] = 0.0f;
+          acts[row * H3 + k] = from_f32<S>(u);
+          acts[row * H3 + H + k] = from_f32<S>(r);
+          if (s == 0) carry[row * H + k] = from_f32<S>(0.0f);
         }
         su[i] = u;
-        __stcg(rh + static_cast<long long>(b) * H + k, r * ho[i]);
+        stcg_as(rh + static_cast<long long>(b) * H + k, r * ho[i]);
       }
     }
     bar.sync();
@@ -193,7 +204,7 @@ gru_fwd_kernel(const float* __restrict__ x3, long long x_st, long long x_sb,
     __syncthreads();
     const bool next = s + 1 < T;
     // the carry that A of the next step reads
-    float* hnext = carry_at(!next ? t : reverse ? t - 1 : t + 1);
+    S* hnext = carry_at(!next ? t : reverse ? t - 1 : t + 1);
     for (int gl = 0; gl < gpb; ++gl) {
       const int g = blockIdx.x + gl * nblk;
       if (g >= groups) break;
@@ -204,15 +215,15 @@ gru_fwd_kernel(const float* __restrict__ x3, long long x_st, long long x_sb,
         const int b = i / 4, k = kUnits * g + i % 4;
         if (k >= H) continue;
         const float m = mask[t * m_st + b * m_sb];
-        const float c = act_f32(act_in, x3[t * x_st + b * x_sb + 2 * H + k] + sc[i]);
+        const float c = act_f32(act_in, to_f32(x3[t * x_st + b * x_sb + 2 * H + k]) + sc[i]);
         const float u = su[i];
         const float hp = ho[i];
         const float hn = u * hp + (1.0f - u) * c;
-        if (kResiduals) acts[(tB + b) * H3 + 2 * H + k] = c;
-        ys[t * y_st + b * y_sb + k] = m * hn;
+        if (kResiduals) acts[(tB + b) * H3 + 2 * H + k] = from_f32<S>(c);
+        ys[t * y_st + b * y_sb + k] = from_f32<S>(m * hn);
         const float h = m * hn + (1.0f - m) * hp;
         ho[i] = h;
-        if (next) __stcg(hnext + static_cast<long long>(b) * H + k, h);
+        if (next) stcg_as(hnext + static_cast<long long>(b) * H + k, h);
       }
     }
     if (next) bar.sync();
@@ -221,7 +232,7 @@ gru_fwd_kernel(const float* __restrict__ x3, long long x_st, long long x_sb,
 
 // The launch both entries share: zero the barrier's counter, then the grid
 // cooperatively (nothing for T = 0 or B = 0).
-template <bool kResiduals>
+template <bool kResiduals, typename S>
 int launch_fwd(const void* x3, long long x_st, long long x_sb, const void* mask, long long m_st,
                long long m_sb, const void* w, void* ys, long long y_st, long long y_sb,
                void* acts, void* carry, void* rh, void* wslices, void* counter, int T, int B,
@@ -239,12 +250,12 @@ int launch_fwd(const void* x3, long long x_st, long long x_sb, const void* mask,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaMemsetAsync(counter, 0, sizeof(unsigned), st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_cooperative(gru_fwd_kernel<kResiduals>, blocks, smem, st,
-                           static_cast<const float*>(x3), x_st, x_sb,
+  err = launch_cooperative(gru_fwd_kernel<kResiduals, S>, blocks, smem, st,
+                           static_cast<const S*>(x3), x_st, x_sb,
                            static_cast<const float*>(mask), m_st, m_sb,
-                           static_cast<const float*>(w), static_cast<float*>(ys), y_st, y_sb,
-                           static_cast<float*>(acts), static_cast<float*>(carry),
-                           static_cast<float*>(rh), static_cast<float*>(wslices),
+                           static_cast<const S*>(w), static_cast<S*>(ys), y_st, y_sb,
+                           static_cast<S*>(acts), static_cast<S*>(carry),
+                           static_cast<S*>(rh), static_cast<float*>(wslices),
                            static_cast<unsigned*>(counter), T, B, H, reverse, act_in, act_gate,
                            gpb, w_smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -269,9 +280,9 @@ extern "C" int gru_fwd(const void* x3, long long x_st, long long x_sb,
                        void* carry, void* rh, void* wslices, void* counter,
                        int T, int B, int H, int reverse, int act_in, int act_gate,
                        int num_sms, int w_smem, void* stream) {
-  return launch_fwd<false>(x3, x_st, x_sb, mask, m_st, m_sb, w, ys, y_st, y_sb, nullptr, carry,
-                           rh, wslices, counter, T, B, H, reverse, act_in, act_gate, num_sms,
-                           w_smem, stream);
+  return launch_fwd<false, float>(x3, x_st, x_sb, mask, m_st, m_sb, w, ys, y_st, y_sb, nullptr,
+                                  carry, rh, wslices, counter, T, B, H, reverse, act_in, act_gate,
+                                  num_sms, w_smem, stream);
 }
 
 // As gru_fwd, and the residuals acts [T, B, 3H] and hprev [T, B, H]
@@ -282,7 +293,32 @@ extern "C" int gru_fwd_train(const void* x3, long long x_st, long long x_sb,
                              void* acts, void* hprev, void* rh, void* wslices, void* counter,
                              int T, int B, int H, int reverse, int act_in, int act_gate,
                              int num_sms, int w_smem, void* stream) {
-  return launch_fwd<true>(x3, x_st, x_sb, mask, m_st, m_sb, w, ys, y_st, y_sb, acts, hprev, rh,
-                          wslices, counter, T, B, H, reverse, act_in, act_gate, num_sms, w_smem,
-                          stream);
+  return launch_fwd<true, float>(x3, x_st, x_sb, mask, m_st, m_sb, w, ys, y_st, y_sb, acts,
+                                 hprev, rh, wslices, counter, T, B, H, reverse, act_in, act_gate,
+                                 num_sms, w_smem, stream);
+}
+
+// gru_fwd's bf16 instance: x3, w, ys and the scratch carry and rh are
+// bf16 (__nv_bfloat16); mask, wslices and counter as gru_fwd's.
+extern "C" int gru_fwd_bf16(const void* x3, long long x_st, long long x_sb,
+                            const void* mask, long long m_st, long long m_sb,
+                            const void* w, void* ys, long long y_st, long long y_sb,
+                            void* carry, void* rh, void* wslices, void* counter,
+                            int T, int B, int H, int reverse, int act_in, int act_gate,
+                            int num_sms, int w_smem, void* stream) {
+  return launch_fwd<false, __nv_bfloat16>(x3, x_st, x_sb, mask, m_st, m_sb, w, ys, y_st, y_sb,
+                                          nullptr, carry, rh, wslices, counter, T, B, H, reverse,
+                                          act_in, act_gate, num_sms, w_smem, stream);
+}
+
+// gru_fwd_train's bf16 instance: also acts and hprev in bf16.
+extern "C" int gru_fwd_train_bf16(const void* x3, long long x_st, long long x_sb,
+                                  const void* mask, long long m_st, long long m_sb,
+                                  const void* w, void* ys, long long y_st, long long y_sb,
+                                  void* acts, void* hprev, void* rh, void* wslices, void* counter,
+                                  int T, int B, int H, int reverse, int act_in, int act_gate,
+                                  int num_sms, int w_smem, void* stream) {
+  return launch_fwd<true, __nv_bfloat16>(x3, x_st, x_sb, mask, m_st, m_sb, w, ys, y_st, y_sb,
+                                         acts, hprev, rh, wslices, counter, T, B, H, reverse,
+                                         act_in, act_gate, num_sms, w_smem, stream);
 }

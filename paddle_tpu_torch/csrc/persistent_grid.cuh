@@ -97,14 +97,16 @@ struct Halve<V, 0> {
 
 // acc[r][c] += sum over this lane's k of X[row0 + r, k] * W[k][c]; rows at
 // or past nrows read as 0. X was written by other blocks of this launch,
-// so it is read through L2.
-template <int N>
-__device__ __forceinline__ void accumulate(float (&acc)[kRowsPerWarp][N], const float* X,
+// so it is read through L2. X is float or bf16 (widened on load); with
+// kRound a float X is rounded to bf16 first (a bf16 product operand kept
+// unrounded for another use).
+template <int N, bool kRound = false, typename TX>
+__device__ __forceinline__ void accumulate(float (&acc)[kRowsPerWarp][N], const TX* X,
                                            long long ldx, int row0, int nrows, int K,
                                            const float* W) {
   static_assert(N % 4 == 0, "W rows are read as float4");
   const int lane = threadIdx.x & 31;
-  const float* xr[kRowsPerWarp];
+  const TX* xr[kRowsPerWarp];
   bool ok[kRowsPerWarp];
 #pragma unroll
   for (int r = 0; r < kRowsPerWarp; ++r) {
@@ -115,7 +117,10 @@ __device__ __forceinline__ void accumulate(float (&acc)[kRowsPerWarp][N], const 
   for (int k = lane; k < K; k += 32) {
     float x[kRowsPerWarp];
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) x[r] = ok[r] ? __ldcg(xr[r] + k) : 0.0f;
+    for (int r = 0; r < kRowsPerWarp; ++r) {
+      const float v = ok[r] ? ldcg_f32(xr[r] + k) : 0.0f;
+      x[r] = kRound ? round_bf16(v) : v;
+    }
     const float4* w4 = reinterpret_cast<const float4*>(W + static_cast<long long>(k) * N);
     float w[N];
 #pragma unroll
@@ -135,13 +140,14 @@ __device__ __forceinline__ void accumulate(float (&acc)[kRowsPerWarp][N], const 
 
 // out[b * ldo + c] = sum_k X[b, k] W[k][c] (+ sum_k X2[b, k] W2[k][c] when
 // X2 is given) for every b < nrows and c < N, out in shared memory. W and
-// W2 are [K][N] and [K2][N] slices in shared memory. The caller
+// W2 are [K][N] and [K2][N] slices in shared memory. X and X2 are float or
+// bf16; kRound2 rounds a float X2 to bf16 as it is read. The caller
 // synchronises the block before reading out.
-template <int N>
+template <int N, bool kRound2 = false, typename TX = float, typename TX2 = float>
 __device__ __forceinline__ void block_product(float* out, int ldo, int nrows,
-                                              const float* X, long long ldx, int K,
+                                              const TX* X, long long ldx, int K,
                                               const float* W,
-                                              const float* X2 = nullptr, long long ldx2 = 0,
+                                              const TX2* X2 = nullptr, long long ldx2 = 0,
                                               int K2 = 0, const float* W2 = nullptr) {
   constexpr int kPer = kRowsPerWarp * N / 32;
   static_assert(kRowsPerWarp * N % 32 == 0, "the butterfly leaves whole values a lane");
@@ -156,7 +162,7 @@ __device__ __forceinline__ void block_product(float* out, int ldo, int nrows,
 #pragma unroll
       for (int c = 0; c < N; ++c) acc[r][c] = 0.0f;
     accumulate<N>(acc, X, ldx, row0, nrows, K, W);
-    if (X2 != nullptr) accumulate<N>(acc, X2, ldx2, row0, nrows, K2, W2);
+    if (X2 != nullptr) accumulate<N, kRound2>(acc, X2, ldx2, row0, nrows, K2, W2);
     Halve<kRowsPerWarp * N, 16>::run(&acc[0][0], lane);
 #pragma unroll
     for (int j = 0; j < kPer; ++j) {
@@ -185,9 +191,11 @@ __device__ __forceinline__ void block_product(float* out, int ldo, int nrows,
 // trips a phase (as many as the registers hold). The product's partial
 // sums are summed over the lanes by the butterfly and over the column
 // batches and the warps through `red` ([kWarps][kRowTile][4] floats), in
-// a fixed order: two launches give the same bits. Returns with the block
-// synchronised.
-template <int kCols, int kRows, typename Epi>
+// a fixed order: two launches give the same bits. With kRoundX the
+// product takes X rounded to bf16 and DW's sums take it unrounded (the
+// bf16 GRU backward: its products read dg and dcand in bf16, its dW sums
+// them in float32). Returns with the block synchronised.
+template <int kCols, int kRows, bool kRoundX = false, typename Epi>
 __device__ __forceinline__ void product_colsum4(const float* X, long long ldx, int nrows, int K,
                                                 const float* W, const float* S, float* DW,
                                                 float* red, Epi epi) {
@@ -230,12 +238,15 @@ __device__ __forceinline__ void product_colsum4(const float* X, long long ldx, i
         for (int r = 0; r < kRows; ++r) {
           const float4 sv = b0 + r < nrows ? S4[b0 + r] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
           const float sr[4] = {sv.x, sv.y, sv.z, sv.w};
+          float xa[kCols];
+#pragma unroll
+          for (int u = 0; u < kCols; ++u) xa[u] = kRoundX ? round_bf16(x[u][r]) : x[u][r];
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
             float a = 0.0f;
 #pragma unroll
             for (int u = 0; u < kCols; ++u) {
-              a = fmaf(x[u][r], w[u][c], a);
+              a = fmaf(xa[u], w[u][c], a);
               d[u][c] = fmaf(sr[c], x[u][r], d[u][c]);
             }
             acc[r][c] = a;
@@ -405,14 +416,14 @@ __device__ __forceinline__ void product_colsum_staged(const float* X, long long 
 // lane + 32, ..., with 4 U loads a lane in flight (these rows come from L2
 // or device memory, and their latency, not their bytes, sets the time of a
 // row's attention when f is cheap). The sums run in a fixed order.
-template <int U, typename F>
-__device__ __forceinline__ void warp_dots(float* out, const float* src, long long st, int T,
+template <int U, typename TS, typename F>
+__device__ __forceinline__ void warp_dots(float* out, const TS* src, long long st, int T,
                                           int X, F f) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   for (int te0 = warp; te0 < T; te0 += 4 * kWarps) {
     float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    const float* p[4];
+    const TS* p[4];
     bool ok[4];
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
@@ -426,7 +437,7 @@ __device__ __forceinline__ void warp_dots(float* out, const float* src, long lon
 #pragma unroll
         for (int u = 0; u < U; ++u) {
           const int x = x0 + 32 * u;
-          val[k][u] = ok[k] && x < X ? p[k][x] : 0.0f;
+          val[k][u] = ok[k] && x < X ? to_f32(p[k][x]) : 0.0f;
         }
 #pragma unroll
       for (int k = 0; k < 4; ++k)

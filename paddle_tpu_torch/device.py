@@ -29,17 +29,25 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     # flip greedy argmax near-ties, so both TF32 switches stay off.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # A bf16 model's products accumulate in float32, as the JAX package's
+    # bf16 dots (preferred_element_type=float32) and the kernels do; the
+    # default lets cuBLAS reduce split-K partial sums in bf16.
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 
-def float32_only(dtype: Optional[object], what: str) -> None:
-    """Refuse a model compute dtype other than float32 for now. (The serve
-    slot state may be stored in bfloat16: its steps still compute in
-    float32, ``graph/decode_step.py::plan_slot_dtype``.)"""
+def compute_dtype(dtype: Optional[object], what: str = "compute dtype") -> Optional[torch.dtype]:
+    """The model compute dtype a caller names: ``None`` for float32 (every
+    tensor in the master dtype), ``torch.bfloat16`` for bf16 mixed
+    precision. Anything else raises ``NotImplementedError``. (The serve
+    slot state may be stored in bfloat16 whatever this is:
+    ``graph/decode_step.py::plan_slot_dtype``.)"""
     if dtype in (None, torch.float32, "float32", "fp32", "f32", ""):
-        return
+        return None
+    if dtype in (torch.bfloat16, "bfloat16", "bf16"):
+        return torch.bfloat16
     raise NotImplementedError(
-        f"{what} {dtype!r} is not ported yet: paddle_tpu_torch computes in "
-        "float32 only (bf16 compute is ROADMAP Queue 1 item 7)")
+        f"{what} {dtype!r} is not ported: paddle_tpu_torch computes in float32 or "
+        "in bf16 mixed precision")

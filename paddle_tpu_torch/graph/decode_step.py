@@ -113,8 +113,8 @@ _AGENT_TYPES = ("agent", "sequence_agent", "scatter_agent", "gather_agent")
 # (GRU carries and captured statics) in bfloat16 while every step still
 # COMPUTES in float32: the backend upcasts the statics once a launch and the
 # carries before every micro-step, and downcasts only what it stores back.
-# This is a storage plan; the model's compute dtype stays float32 (the
-# machine refuses any other).
+# This is a storage plan; the model's compute dtype stays float32
+# (plan_fused_step refuses any other).
 SLOT_STORE_DTYPES: Dict[str, Optional[str]] = {"f32": None, "bf16": "bfloat16"}
 
 # The parity gate per slot dtype: the largest share of emitted tokens that
@@ -140,13 +140,20 @@ def plan_fused_step(machine, plan: GenPlan, slot_dtype: str = "f32"):
     out, the seqToseq shape), else (None, reason). The dict carries every
     parameter name and static-link key the fused step needs, and the
     :func:`plan_slot_dtype` storage plan for ``slot_dtype``. The fused
-    step computes in float32 (the machine refuses any other compute
-    dtype)."""
+    step computes in float32 and refuses a machine with any other compute
+    dtype, as the JAX plan does."""
     slot_plan, why = plan_slot_dtype(slot_dtype)
     if slot_plan is None:
         return None, why
     sub = plan.sub
     lm = machine.network.layer_map
+    # under a reduced compute dtype the unfused graph walk rounds
+    # differently per layer and near-tie argmax tokens could silently
+    # diverge from the parity contract: refuse instead
+    eff = machine.compute_dtype if machine.compute_dtype is not None else machine.dtype
+    if eff != torch.float32:
+        return None, ("fused step supports float32 compute only (model computes "
+                      f"in {str(eff).replace('torch.', '')})")
     if len(plan.memories) != 1:
         return None, "fused step needs exactly one flat memory carry"
     mem = plan.memories[0]

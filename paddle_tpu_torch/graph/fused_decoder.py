@@ -168,6 +168,9 @@ def run_fused_decoder(network, sub, ctx, statics, plan, pro_feeds,
     xw = pro_feeds.get(din.name)
     if xw is None or ep_arg.value.shape[2] != D:
         return None
+    dtype = xw.dtype
+    if dtype not in fa.OPERAND_DTYPES:
+        return None
     if not fa.supported(B, Te, D, E):
         fa.EAGER_ROUTES += 1
         return None
@@ -177,19 +180,22 @@ def run_fused_decoder(network, sub, ctx, statics, plan, pro_feeds,
     wctx = ctx.param(plan["ctx_ic"].input_parameter_name).reshape(E, 3 * D)
     wg = ctx.param(gru.inputs[0].input_parameter_name).reshape(D, 3 * D)
 
-    ba = torch.zeros((1, D), dtype=xw.dtype, device=xw.device)
+    # the operands in xw's dtype, as the JAX package builds them: ba is
+    # zeros in that dtype plus the biases, and xw, the masks and h0 are cast
+    ba = torch.zeros((1, D), dtype=dtype, device=xw.device)
     if plan["transform"].bias_parameter_name:
         ba = ba + ctx.param(plan["transform"].bias_parameter_name).reshape(1, D)
     if plan["combine"].bias_parameter_name:
         ba = ba + ctx.param(plan["combine"].bias_parameter_name).reshape(1, D)
     if din.bias_parameter_name:
-        xw = xw + ctx.param(din.bias_parameter_name).reshape(1, 1, 3 * D)
+        xw = xw + ctx.param(din.bias_parameter_name).reshape(1, 1, 3 * D).to(dtype)
     if gru.bias_parameter_name:
-        xw = xw + ctx.param(gru.bias_parameter_name).reshape(1, 1, 3 * D)
+        xw = xw + ctx.param(gru.bias_parameter_name).reshape(1, 1, 3 * D).to(dtype)
 
     ep = ep_arg.value.transpose(0, 1)                             # [Te, B, D]
     ev = ev_arg.value.transpose(0, 1)                             # [Te, B, E]
-    em = ep_arg.seq_mask(xw.dtype).transpose(0, 1)[:, :, None]
-    dmask = mask_bt.transpose(0, 1)[:, :, None].to(xw.dtype).contiguous()
-    return fa.fused_attention_gru(ep, ev, em, xw.contiguous(), dmask,
-                                  boot_carry.contiguous(), wa, ba, v, wctx, wg)
+    em = ep_arg.seq_mask(dtype).transpose(0, 1)[:, :, None]
+    dmask = mask_bt.transpose(0, 1)[:, :, None].to(dtype).contiguous()
+    return fa.fused_attention_gru(ep, ev, em, xw.to(dtype).contiguous(), dmask,
+                                  boot_carry.to(dtype).contiguous(), wa, ba.to(wa.dtype), v,
+                                  wctx, wg)

@@ -8,8 +8,11 @@ parameters get zeros). A ``sparse_update`` table that only data-fed table
 projections read (``sparse_prefetch_plan``) gets a
 :class:`~paddle_tpu_torch.optimizer.sparse.RowSparseGrad`: its occurrence
 rows are gathered outside autograd and are the leaves, so the table is
-never one and no [V, D] gradient is built. bf16 compute and meshes are
-later slices.
+never one and no [V, D] gradient is built. ``compute_dtype=bfloat16``
+trains in mixed precision: master parameters, their gradients and the
+optimizer state stay float32, activations and products run in bf16, and
+the float32 islands (softmax, losses, batch-norm statistics, CRF/CTC)
+upcast (``layers/base.py::LayerContext``). Meshes are a later slice.
 """
 
 from __future__ import annotations
@@ -18,7 +21,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from paddle_tpu_torch.device import DeviceLike, float32_only, resolve_device
+from paddle_tpu_torch.device import DeviceLike, compute_dtype as resolve_compute_dtype
+from paddle_tpu_torch.device import resolve_device
 from paddle_tpu_torch.graph.argument import Argument
 from paddle_tpu_torch.graph.network import Network
 from paddle_tpu_torch.layers.base import LayerContext
@@ -30,10 +34,23 @@ Tensor = torch.Tensor
 Params = Dict[str, Tensor]
 
 
+def compute_dtype_of(opt_config) -> Optional[torch.dtype]:
+    """Resolve OptimizationConfig.dtype ('float32' | 'bfloat16') to the
+    narrow compute dtype, or None for plain float32 training; any other
+    name raises ``ValueError``. The names are those of
+    :func:`paddle_tpu_torch.device.compute_dtype`."""
+    name = getattr(opt_config, "dtype", None)
+    try:
+        return resolve_compute_dtype(name, "OptimizationConfig.dtype")
+    except NotImplementedError as e:
+        raise ValueError(str(e)) from None
+
+
 class GradientMachine:
     """``device=None`` means the CUDA card (``RuntimeError`` without one);
-    ``device="cpu"`` runs every kernel's plain version. ``compute_dtype``
-    other than float32 (a bf16 model) is not ported yet and raises.
+    ``device="cpu"`` runs every kernel's plain version. ``compute_dtype``:
+    None or float32 trains in float32, bfloat16 in mixed precision (master
+    parameters stay float32, :func:`compute_dtype_of`); any other raises.
     ``conv_s2d`` and ``conv_stats_mode`` are the OptimizationConfig fields
     of the same names (layers/vision.py)."""
 
@@ -57,10 +74,12 @@ class GradientMachine:
     def __init__(self, model: ModelConfig, device: DeviceLike = None,
                  compute_dtype=None, conv_s2d: bool = False,
                  conv_stats_mode: str = ""):
-        float32_only(compute_dtype, "compute dtype")
         self.model = model
         self.device = resolve_device(device)
         self.dtype = torch.float32
+        # mixed precision: master params stay `dtype`; activations and
+        # products run in `compute_dtype` (None: everything in `dtype`)
+        self.compute_dtype = resolve_compute_dtype(compute_dtype)
         # stem conv space-to-depth rewrite (layers/vision.py)
         self.conv_s2d = bool(conv_s2d)
         # fused 1x1-conv + BN-statistics mode ("gram" | "pallas" | "")
@@ -73,6 +92,18 @@ class GradientMachine:
                 f"got {conv_stats_mode!r}")
         self.network = Network(model)
         self.param_configs: Dict[str, ParameterConfig] = {p.name: p for p in model.parameters}
+        # data layers whose every consumer is a cost layer carry targets,
+        # labels or weights, not features: they skip the bf16 input cast,
+        # so the float32 loss island sees un-rounded values
+        data_names = {l.name for l in model.layers if l.type == "data"}
+        consumers: Dict[str, set] = {}
+        for layer in model.layers:
+            for ic in layer.inputs:
+                if ic.input_layer_name in data_names:
+                    consumers.setdefault(ic.input_layer_name, set()).add(layer.type)
+        costish = self.COST_TYPES | {"classification_error", "lambda_cost"}
+        self.no_cast_inputs = frozenset(
+            n for n, types in consumers.items() if types and types <= costish)
 
     def init_params(self, seed: int = 1) -> Params:
         """Fresh parameters on the machine's device, drawn in sorted-name
@@ -101,6 +132,7 @@ class GradientMachine:
         projections return instead of gathering (``grad_fn``)."""
         ctx = LayerContext(params=params, model=self.model, pass_type=pass_type,
                            seed=seed, gen_capture=gen_capture, table_overrides=table_overrides,
+                           compute_dtype=self.compute_dtype, no_cast_inputs=self.no_cast_inputs,
                            conv_s2d=self.conv_s2d, conv_stats_mode=self.conv_stats_mode)
         if pass_type == "train":
             self.network.forward(ctx, in_args)

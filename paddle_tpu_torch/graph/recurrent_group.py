@@ -125,6 +125,8 @@ def _run_submodel_step(network, sub: SubModelConfig, ctx: LayerContext,
     step_ctx = LayerContext(params=ctx.params, model=ctx.model,
                             pass_type=ctx.pass_type,
                             seed=fold_seed(ctx.seed, t), parent=ctx,
+                            compute_dtype=ctx.compute_dtype,
+                            no_cast_inputs=ctx.no_cast_inputs,
                             mixed_prologue=mixed_prologue)
     step_ctx.outputs.update(fed)
     for name in sub.layer_names:
@@ -443,7 +445,8 @@ def _forward_scan(network, cfg: LayerConfig, sub: SubModelConfig, ctx: LayerCont
 def _run_epilogue(network, ctx, epilogue, dyn_frontier, frs, statics,
                   out_links, B, T, mask_bt, lengths):
     """Apply the hoisted per-row layers once to the stacked loop outputs."""
-    epi_ctx = LayerContext(params=ctx.params, model=ctx.model, pass_type=ctx.pass_type)
+    epi_ctx = LayerContext(params=ctx.params, model=ctx.model, pass_type=ctx.pass_type,
+                           compute_dtype=ctx.compute_dtype, no_cast_inputs=ctx.no_cast_inputs)
     for name, (v, ids) in zip(dyn_frontier, frs):
         # [T, B, ...] -> rows [T*B, ...]
         epi_ctx.outputs[name] = Argument(

@@ -79,6 +79,18 @@ class LayerContext:
     # it (layer_generator); None where the caller gave none
     seed: Optional[int] = None
     outputs: Dict[str, Argument] = field(default_factory=dict)
+    # mixed precision (OptimizationConfig.dtype="bfloat16"): master params
+    # stay float32; activations and product operands are cast to
+    # `compute_dtype` (param, cast_compute). Softmax, losses, batch-norm
+    # statistics and the CRF/CTC recursions stay float32 (upcast at their
+    # entry points, ops/precision.py::hp). Autograd through the cast gives
+    # the master parameter a float32 gradient. None: no cast anywhere.
+    compute_dtype: Optional[torch.dtype] = None
+    # data layers feeding ONLY cost layers (regression targets, soft
+    # labels, per-sample weights): their dense values are not narrowed, or
+    # the float32 loss island would see pre-rounded targets
+    # (GradientMachine computes this set from the graph)
+    no_cast_inputs: frozenset = frozenset()
     # static parameter name -> its new value (batch norm's moving mean and
     # variance in a training pass); GradientMachine.forward returns them
     # and the trainer assigns them after the update
@@ -140,12 +152,24 @@ class LayerContext:
         gen.manual_seed(fold_seed(self.seed, zlib.crc32(f"{layer_name}/{salt}".encode())))
         return gen
 
-    def param(self, name: str) -> Tensor:
+    def param(self, name: str, cast: bool = True) -> Tensor:
+        """The parameter ``name``, cast to the compute dtype unless ``cast``
+        is False (a table read before its gather, batch-norm's gamma, beta
+        and running statistics, the CRF transitions, the hsigmoid and nce
+        weights: master-dtype reads)."""
         try:
-            return self.params[name]
+            v = self.params[name]
         except KeyError:
             known = ", ".join(sorted(self.params))
             raise KeyError(f"parameter {name!r} not found (have: {known})") from None
+        return self.cast_compute(v) if cast else v
+
+    def cast_compute(self, x: Optional[Tensor]) -> Optional[Tensor]:
+        """Cast a float tensor to the compute dtype (a no-op otherwise)."""
+        if (x is not None and self.compute_dtype is not None and x.is_floating_point()
+                and x.dtype != self.compute_dtype):
+            return x.to(self.compute_dtype)
+        return x
 
 
 def input_mask(arg: Argument) -> Optional[Tensor]:

@@ -9,6 +9,7 @@ in the JAX package; a projection applies as well to a time-major stacked
 
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Optional
 
 import torch
@@ -37,6 +38,12 @@ def data_layer(cfg: LayerConfig, inputs: List[Argument], ctx: LayerContext) -> A
         raise ValueError(
             f"data layer {cfg.name!r} declares size={cfg.size} but was fed "
             f"width {a.value.shape[-1]} (shape {tuple(a.value.shape)})")
+    # under mixed precision float FEATURES enter the graph in the compute
+    # dtype; pure cost inputs (targets, labels, weights) stay float32
+    if a.value is not None and cfg.name not in ctx.no_cast_inputs:
+        cast = ctx.cast_compute(a.value)
+        if cast is not a.value:
+            a = dataclasses.replace(a, value=cast)
     return a
 
 
@@ -60,9 +67,11 @@ def apply_projection(p: ProjectionConfig, in_cfg: LayerInputConfig,
         if ctx.table_overrides is not None:
             ov = ctx.table_overrides.get((pname, in_cfg.input_layer_name))
             if ov is not None:                             # prefetched rows
-                return ov
-        table = ctx.param(pname)                           # [vocab, dim]
-        return table[arg.ids.long()]
+                return ctx.cast_compute(ov)
+        # gather from the master-dtype table, THEN cast: casting the whole
+        # [V, D] table each step would be a pass over the full vocabulary
+        table = ctx.param(pname, cast=False)               # [vocab, dim]
+        return ctx.cast_compute(table[arg.ids.long()])
     if t == "fc":                                          # FullMatrixProjection
         return arg.value @ ctx.param(pname)
     if t == "trans_fc":                                    # TransposedFullMatrixProjection

@@ -17,6 +17,7 @@ import torch
 
 from paddle_tpu_torch.graph.argument import Argument
 from paddle_tpu_torch.layers.base import LayerContext, TimeMajorLogits, register_layer
+from paddle_tpu_torch.ops.precision import hp
 from paddle_tpu_torch.proto import LayerConfig
 
 Tensor = torch.Tensor
@@ -44,10 +45,13 @@ def _label_ids(label: Argument) -> Tensor:
 
 
 def _fused_softmax_ce(z: Tensor, ids: Tensor) -> Tensor:
-    """-log softmax(z)[ids] from the logits, without the probabilities."""
+    """-log softmax(z)[ids] from the logits, without the probabilities. The
+    max is exact in any float dtype and exp runs in the logits' dtype; only
+    the sum accumulates in (at least) float32, as the JAX package's does."""
     m = torch.amax(z, dim=-1, keepdim=True).detach()
-    lse = m[..., 0] + torch.log(torch.sum(torch.exp(z - m), dim=-1))
-    return lse - torch.gather(z, -1, ids[..., None])[..., 0]
+    se = torch.sum(torch.exp(z - m), dim=-1, dtype=torch.promote_types(z.dtype, torch.float32))
+    lse = hp(m[..., 0]) + torch.log(se)
+    return lse - hp(torch.gather(z, -1, ids[..., None])[..., 0])
 
 
 def _fused_or_plain_ce(z, out: Argument, ids: Tensor) -> Tensor:
@@ -65,7 +69,7 @@ def _fused_or_plain_ce(z, out: Argument, ids: Tensor) -> Tensor:
         z = None
     if z is not None and z.shape == out.value.shape:
         return _fused_softmax_ce(z, ids)
-    p = torch.gather(out.value, -1, ids[..., None])[..., 0]
+    p = torch.gather(hp(out.value), -1, ids[..., None])[..., 0]
     return -torch.log(torch.clamp(p, min=_EPS))
 
 
@@ -87,7 +91,7 @@ def selfnorm_cross_entropy(cfg: LayerConfig, inputs: List[Argument],
                            ctx: LayerContext) -> Argument:
     # CE on the unnormalised output plus alpha * log(Z)^2, which keeps Z near 1
     out, label = inputs[0], inputs[1]
-    v = out.value
+    v = hp(out.value)
     z = torch.sum(v, dim=-1)
     p = torch.gather(v, -1, _label_ids(label)[..., None])[..., 0]
     per_step = -torch.log(torch.clamp(p / torch.clamp(z, min=_EPS), min=_EPS))
@@ -99,8 +103,8 @@ def selfnorm_cross_entropy(cfg: LayerConfig, inputs: List[Argument],
 def square_error(cfg: LayerConfig, inputs: List[Argument], ctx: LayerContext) -> Argument:
     out, label = inputs[0], inputs[1]
     weight = inputs[2] if len(inputs) > 2 else None
-    v = out.value
-    target = label.value if label.value is not None else label.ids.to(v.dtype)
+    v = hp(out.value)
+    target = hp(label.value) if label.value is not None else label.ids.to(v.dtype)
     if target.dim() < v.dim():
         target = target[..., None]
     return _finish_cost(cfg, torch.sum((v - target) ** 2, dim=-1), out, weight)
@@ -110,8 +114,8 @@ def square_error(cfg: LayerConfig, inputs: List[Argument], ctx: LayerContext) ->
 def multi_binary_label_cross_entropy(cfg: LayerConfig, inputs: List[Argument],
                                      ctx: LayerContext) -> Argument:
     out, label = inputs[0], inputs[1]
-    p = torch.clamp(out.value, _EPS, 1.0 - _EPS)
-    y = label.value
+    p = torch.clamp(hp(out.value), _EPS, 1.0 - _EPS)
+    y = hp(label.value)
     per_step = -torch.sum(y * torch.log(p) + (1.0 - y) * torch.log(1.0 - p), dim=-1)
     return _finish_cost(cfg, per_step, out, None)
 
@@ -128,7 +132,7 @@ def rank_cost(cfg: LayerConfig, inputs: List[Argument], ctx: LayerContext) -> Ar
     # higher, 0.5 for a tie), optional weight
     left, right, label = inputs[0], inputs[1], inputs[2]
     weight = inputs[3] if len(inputs) > 3 else None
-    o = (left.value - right.value)[..., 0]
+    o = (hp(left.value) - hp(right.value))[..., 0]
     t = label.value[..., 0] if label.value is not None else label.ids.to(o.dtype)
     per_step = torch.logaddexp(torch.zeros_like(o), o) - t * o
     return _finish_cost(cfg, per_step, left, weight)
@@ -139,7 +143,7 @@ def huber_two_class(cfg: LayerConfig, inputs: List[Argument], ctx: LayerContext)
     # HuberTwoClass: labels {0, 1} -> y in {-1, +1}; a = y f is quadratic
     # in (-1, 1), linear below, zero from 1 on
     out, label = inputs[0], inputs[1]
-    f = out.value[..., 0]
+    f = hp(out.value)[..., 0]
     a = (2.0 * _label_ids(label).to(f.dtype) - 1.0) * f
     per_step = torch.where(a < -1.0, -4.0 * a,
                            torch.where(a < 1.0, (1.0 - a) ** 2, torch.zeros_like(a)))

@@ -20,6 +20,7 @@ from paddle_tpu_torch.layers.base import (
     register_layer,
     with_seq_meta,
 )
+from paddle_tpu_torch.ops.precision import hp
 from paddle_tpu_torch.proto import LayerConfig
 
 Tensor = torch.Tensor
@@ -152,11 +153,13 @@ def hsigmoid_layer(cfg: LayerConfig, inputs: List[Argument], ctx: LayerContext) 
     node_c = torch.clamp(node, 0, n - 2)
     acc = None
     for in_cfg, f in zip(cfg.inputs[:-1], feats):
-        w = ctx.param(in_cfg.input_parameter_name)
-        y = torch.einsum("bd,bld->bl", f.value, w[node_c])
+        # the path rows gathered from the master-dtype table (casting the
+        # whole table would be a full pass); the cost is a float32 island
+        w = ctx.param(in_cfg.input_parameter_name, cast=False)
+        y = torch.einsum("bd,bld->bl", hp(f.value), w[node_c])
         acc = y if acc is None else acc + y
     if cfg.bias_parameter_name:
-        acc = acc + ctx.param(cfg.bias_parameter_name).reshape(-1)[node_c]
+        acc = acc + ctx.param(cfg.bias_parameter_name, cast=False).reshape(-1)[node_c]
     per_node = torch.logaddexp(torch.zeros_like(acc), acc) - bit * acc
     cost = torch.sum(torch.where(node >= 0, per_node, torch.zeros_like(per_node)), dim=1)
     return Argument(value=cost[:, None])
@@ -183,11 +186,13 @@ def nce_cost(cfg: LayerConfig, feats: List[Argument], pos: Tensor, neg: Tensor,
     samples = torch.cat([pos[:, None], neg], dim=1)                    # [B, 1+k]
     acc = None
     for in_cfg, f in zip(cfg.inputs[:len(feats)], feats):
-        w = ctx.param(in_cfg.input_parameter_name)
-        y = torch.einsum("bd,bkd->bk", f.value, w[samples])
+        # sampled rows from the master-dtype table: nce's point is to avoid
+        # O(vocab) work, so the table is never cast whole
+        w = ctx.param(in_cfg.input_parameter_name, cast=False)
+        y = torch.einsum("bd,bkd->bk", hp(f.value), w[samples])
         acc = y if acc is None else acc + y
     if cfg.bias_parameter_name:
-        acc = acc + ctx.param(cfg.bias_parameter_name).reshape(-1)[samples]
+        acc = acc + ctx.param(cfg.bias_parameter_name, cast=False).reshape(-1)[samples]
     if cfg.neg_sampling_dist:
         p_noise = torch.tensor(list(cfg.neg_sampling_dist), dtype=acc.dtype,
                                device=acc.device)[samples]

@@ -99,11 +99,13 @@ def gated_recurrent_layer(cfg: LayerConfig, inputs: List[Argument], ctx: LayerCo
     w, bias = _weights(cfg, ctx, 3)
     x = a.value if bias is None else a.value + bias             # [B, T, 3H]
     x3, mask, acts = x.transpose(0, 1), _time_major_mask(a, x), _gru_acts(cfg)
+    # bf16 operands (a bf16 model) take the kernels' bf16 instances
     if fg.supported(acts, cfg.size, x.shape[0]):
         ys = fused_gru(x3, mask, w, reverse=cfg.reversed, acts=acts)
     else:
         fg.EAGER_ROUTES += 1
-        ys = fg.gru_forward_reference(x3, mask, w, reverse=cfg.reversed, acts=acts)
+        # the eager loop runs in x's dtype, as the JAX layer's lax.scan does
+        ys = fg.gru_loop(x3, mask, w, reverse=cfg.reversed, acts=acts)
     return Argument(value=ys.transpose(0, 1), seq_lengths=a.seq_lengths)
 
 

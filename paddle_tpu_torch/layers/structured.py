@@ -28,6 +28,7 @@ from paddle_tpu_torch.graph.argument import Argument
 from paddle_tpu_torch.layers.base import LayerContext, register_layer
 from paddle_tpu_torch.layers.cost import _finish_cost
 from paddle_tpu_torch.ops.activations import apply_activation
+from paddle_tpu_torch.ops.precision import hp
 from paddle_tpu_torch.proto import LayerConfig
 
 Tensor = torch.Tensor
@@ -98,8 +99,10 @@ def crf_decode(x: Tensor, lengths: Tensor, param: Tensor) -> Tensor:
 def crf_layer(cfg: LayerConfig, inputs: List[Argument], ctx: LayerContext) -> Argument:
     feats, label = inputs[0], inputs[1]
     weight = inputs[2] if len(inputs) > 2 else None
-    nll = crf_log_likelihood(feats.value, label.ids, feats.seq_lengths,
-                             ctx.param(cfg.inputs[0].input_parameter_name))
+    # the recursions are logsumexp chains: float32 even for bf16 features,
+    # and the transitions are read in the master dtype
+    nll = crf_log_likelihood(hp(feats.value), label.ids, feats.seq_lengths,
+                             ctx.param(cfg.inputs[0].input_parameter_name, cast=False))
     # already reduced over time: a non-sequence view takes only coeff and weight
     return _finish_cost(cfg, nll, Argument(value=nll), weight)
 
@@ -107,8 +110,8 @@ def crf_layer(cfg: LayerConfig, inputs: List[Argument], ctx: LayerContext) -> Ar
 @register_layer("crf_decoding")
 def crf_decoding_layer(cfg: LayerConfig, inputs: List[Argument], ctx: LayerContext) -> Argument:
     feats = inputs[0]
-    path = crf_decode(feats.value, feats.seq_lengths,
-                      ctx.param(cfg.inputs[0].input_parameter_name))
+    path = crf_decode(hp(feats.value), feats.seq_lengths,
+                      ctx.param(cfg.inputs[0].input_parameter_name, cast=False))
     if len(inputs) == 1:
         return Argument(ids=path, seq_lengths=feats.seq_lengths)
     # with a label: each step's 0/1 mismatch
@@ -157,7 +160,7 @@ def ctc_layer(cfg: LayerConfig, inputs: List[Argument], ctx: LayerContext) -> Ar
     # input 0: softmax probabilities [B, T, C]; input 1: the label ids;
     # blank = size - 1
     probs, label = inputs[0], inputs[1]
-    log_p = torch.log(torch.clamp(probs.value, min=1e-10))
+    log_p = torch.log(torch.clamp(hp(probs.value), min=1e-10))
     cost = ctc_loss(log_p, probs.seq_lengths, label.ids, label.seq_lengths, blank=cfg.size - 1)
     if cfg.norm_by_times:
         cost = cost / torch.clamp(probs.seq_lengths.to(cost.dtype), min=1.0)
@@ -192,7 +195,7 @@ def _ndcg_at_k(scores: Tensor, rels: Tensor, mask: Tensor, k: int):
 def lambda_cost_layer(cfg: LayerConfig, inputs: List[Argument], ctx: LayerContext) -> Argument:
     # inputs: model scores and relevance scores, sequences of width 1
     out, score = inputs[0], inputs[1]
-    s, r = out.value[..., 0], score.value[..., 0].detach()               # [B, T]
+    s, r = hp(out.value)[..., 0], hp(score.value)[..., 0].detach()       # [B, T]
     mask = out.seq_mask() > 0
     ndcg, disc, idcg = _ndcg_at_k(s.detach(), r, mask, cfg.NDCG_num or 5)
     pair = (mask[:, :, None] & mask[:, None, :]).to(s.dtype)

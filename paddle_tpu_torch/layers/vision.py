@@ -36,6 +36,7 @@ from paddle_tpu_torch.graph.argument import Argument
 from paddle_tpu_torch.layers.base import LayerContext, apply_dropout, register_layer
 from paddle_tpu_torch.ops.activations import apply_activation, is_elementwise
 from paddle_tpu_torch.ops import fused_conv1x1_bn
+from paddle_tpu_torch.ops.precision import hp
 from paddle_tpu_torch.ops.fused_conv1x1_bn import conv1x1_stats
 from paddle_tpu_torch.proto import LayerConfig
 
@@ -353,8 +354,16 @@ def batch_norm_layer(cfg: LayerConfig, inputs: List[Argument], ctx: LayerContext
             seq_shape = x.shape
             x = x.reshape(-1, seq_shape[-1])
         xr = x
-    gamma = ctx.param(cfg.inputs[0].input_parameter_name).reshape(C)
-    beta = ctx.param(cfg.bias_parameter_name).reshape(C) if cfg.bias_parameter_name else None
+    # the statistics and the centering run in float32 even for bf16
+    # activations, on one float32 copy of the activation (x32; the JAX
+    # package's XLA fuses the widening into its reductions, eager PyTorch
+    # cannot), and the normalisation applies as a per-channel scale in the
+    # activation's dtype. gamma, beta and the running statistics are
+    # master-dtype reads.
+    x32 = hp(xr)
+    gamma = ctx.param(cfg.inputs[0].input_parameter_name, cast=False).reshape(C)
+    beta = (ctx.param(cfg.bias_parameter_name, cast=False).reshape(C)
+            if cfg.bias_parameter_name else None)
     mean_name = cfg.inputs[1].input_parameter_name
     var_name = cfg.inputs[2].input_parameter_name
     eps = 1e-5
@@ -363,14 +372,14 @@ def batch_norm_layer(cfg: LayerConfig, inputs: List[Argument], ctx: LayerContext
         var = ctx.params[var_name].reshape(C)
     else:
         pub = (ctx.conv_stats.get(cfg.inputs[0].input_layer_name)
-               if x_nhwc is not None and xr.dtype == torch.float32 else None)
+               if x_nhwc is not None and x32.dtype == torch.float32 else None)
         if pub is not None and pub[2] == xr.shape[0] and tuple(pub[0].shape) == (C,):
             s_pub, q_pub, rows = pub
             mean = s_pub / rows
             msq = q_pub / rows
         else:
-            mean = xr.mean(0)
-            msq = (xr * xr).mean(0)
+            mean = x32.mean(0)
+            msq = (x32 * x32).mean(0)
         var = torch.clamp(msq - mean * mean, min=0.0)
         f = cfg.moving_average_fraction
         for name, batch in ((mean_name, mean), (var_name, var)):
@@ -379,9 +388,10 @@ def batch_norm_layer(cfg: LayerConfig, inputs: List[Argument], ctx: LayerContext
                 old.shape)
     # center against the exact mean, then scale (folding the mean into an
     # offset would cancel for channels whose mean is large against their std)
-    yn = (xr - mean) * (gamma * torch.rsqrt(var + eps))
+    centered = (x32 - mean).to(xr.dtype)
+    yn = centered * (hp(gamma) * torch.rsqrt(hp(var) + eps)).to(xr.dtype)
     if beta is not None:
-        yn = yn + beta
+        yn = yn + beta.to(xr.dtype)
     if x_nhwc is not None and is_elementwise(cfg.active_type):
         return _publish_nhwc(ctx, cfg, apply_activation(cfg.active_type,
                                                         yn.reshape(x_nhwc.shape)))

@@ -173,15 +173,21 @@ def ptr(t: torch.Tensor) -> int:
 
 
 def check(t: torch.Tensor, name: str, shape: Sequence[int], device: torch.device,
-          contiguous: bool = True) -> None:
-    """Raise unless ``t`` is a float32 tensor of ``shape`` on ``device``.
+          contiguous: bool = True, dtype: torch.dtype = torch.float32) -> None:
+    """Raise unless ``t`` is a ``dtype`` tensor of ``shape`` on ``device``.
 
     ``contiguous=False`` accepts any strides whose last one is 1 (the
-    kernels take the outer strides as arguments)."""
+    kernels take the outer strides as arguments). A kernel that has only a
+    float32 instance names, for bf16 operands, the ROADMAP item that brings
+    its bf16 instance: a bf16 model on the card fails there, loudly, and
+    never widens to float32 or takes an eager route."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name} is {t.dtype}, the kernel takes float32")
+    if t.dtype != dtype:
+        later = (" (bf16 operands in this kernel are ROADMAP Queue 1 item 7: bf16 "
+                 "compute reaches kernels 1-3, 5 and 6 so far)"
+                 if t.dtype == torch.bfloat16 and dtype == torch.float32 else "")
+        raise ValueError(f"{name} is {t.dtype}, the kernel takes {dtype}{later}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if contiguous and not t.is_contiguous():

@@ -12,6 +12,7 @@ from typing import Callable, Optional
 
 import torch
 
+from paddle_tpu_torch.ops.precision import hp
 from paddle_tpu_torch.utils.registry import Registry
 
 Tensor = torch.Tensor
@@ -58,8 +59,10 @@ for _name, _fn in (("", identity), ("linear", identity),
 
 
 def softmax(x: Tensor, mask: Optional[Tensor] = None) -> Tensor:
-    """Feature-axis softmax (last dim)."""
-    return torch.softmax(x, dim=-1)
+    """Feature-axis softmax (last dim): the exp and the sum run in float32
+    even for bf16 activations (a mixed-precision island), and the result
+    returns in x's dtype."""
+    return torch.softmax(hp(x), dim=-1).to(x.dtype)
 
 
 activation_registry.register_obj("softmax", softmax)
@@ -71,12 +74,13 @@ def sequence_softmax(x: Tensor, mask: Optional[Tensor] = None) -> Tensor:
     x: [B, T, 1] (or [B, T]) scores; mask: [B, T] validity. Padded steps
     get probability 0."""
     squeeze = x.dim() == 3
-    s = x[..., 0] if squeeze else x
+    s = hp(x[..., 0] if squeeze else x)              # float32 island
     if mask is not None:
         s = torch.where(mask > 0, s, torch.full_like(s, -torch.inf))
     out = torch.softmax(s, dim=-1)
     if mask is not None:
         out = torch.where(mask > 0, out, torch.zeros_like(out))
+    out = out.to(x.dtype)
     return out[..., None] if squeeze else out
 
 

@@ -31,6 +31,22 @@ dW_gru and d_enc_vec are products of those streams, taken with
 ``torch.matmul`` / ``torch.einsum`` as the JAX package leaves them to XLA.
 The masks get no gradient.
 
+bf16 operands (a bf16 model's decoder, ``graph/fused_decoder.py``) take the
+bf16 instances of kernels 5 and 6 (``attention_gru_fwd_train_bf16``,
+``attention_gru_bwd_bf16``), which keep the Pallas kernels' bf16 contract:
+ep, ev, xw, the masks, h0 and the weights bf16, widened on load; the
+scores, the softmax, the context sums and the carry in float32; h, r * h
+and ctx rounded to bf16 before their products; ys and the residuals
+(hprev, acts, alpha, ctx) stored bf16; in the backward d_din, d_ctx and dh0
+in bf16, d_din, dg and d_m rounded before their products, d_enc_proj, dWa,
+dba and dv summed in float32 and rounded at the end, and the stream
+products (dW_ctx, dW_gru, d_enc_vec) taken on bf16 operands with float32
+accumulation. :func:`attention_gru_reference` and
+:func:`attention_gru_backward_reference` are their plain versions, with
+the same rounding points; on the CPU a bf16 decoder runs them as an
+autograd Function. Kernel 4 (serving) has no bf16 instance: the serve path
+computes in float32 (``graph/decode_step.py::plan_fused_step``).
+
 All three kernels run as persistent, cooperative grids (one block on each
 SM, its weight slices held in shared memory for the whole launch; see
 ``csrc/persistent_grid.cuh``). :func:`supported` states the shapes they
@@ -51,6 +67,7 @@ from paddle_tpu_torch.ops import kernel_flops
 from paddle_tpu_torch.ops._build import (
     I32, I64, PTR, SMEM_LIMIT, CudaKernel, card_sms, check, ptr)
 from paddle_tpu_torch.ops.fused_gru import KERNEL_ACTS, _last_dim_contiguous, gru_cell
+from paddle_tpu_torch.ops.precision import round_to
 
 Tensor = torch.Tensor
 
@@ -84,7 +101,20 @@ ATTENTION_GRU_BWD = CudaKernel(
      PTR, PTR, PTR,            # dwa, dba, dv
      PTR, PTR, PTR]            # scratch: d_m rows, dv and dba partials, the barrier counter
     + _DIMS + [I32])           # num_sms
-KERNELS = (ATTENTION_GRU_FWD, ATTENTION_GRU_FWD_TRAIN, ATTENTION_GRU_BWD)
+# the bf16 instances of kernels 5 and 6: the same arguments, bf16 operands
+# and residuals (m stays float32), and kernel 6 a float32 d_ctx row buffer
+ATTENTION_GRU_FWD_TRAIN_BF16 = CudaKernel(
+    "attention_gru_fwd_train.cu", "attention_gru_fwd_train_bf16",
+    ATTENTION_GRU_FWD_TRAIN.argtypes[:-1])
+ATTENTION_GRU_BWD_BF16 = CudaKernel(
+    "attention_gru_bwd.cu", "attention_gru_bwd_bf16",
+    ATTENTION_GRU_BWD.argtypes[:30] + [PTR]      # + d_ctx in float32 [B, E]
+    + ATTENTION_GRU_BWD.argtypes[30:-1])
+KERNELS = (ATTENTION_GRU_FWD, ATTENTION_GRU_FWD_TRAIN, ATTENTION_GRU_BWD,
+           ATTENTION_GRU_FWD_TRAIN_BF16, ATTENTION_GRU_BWD_BF16)
+OPERAND_DTYPES = (torch.float32, torch.bfloat16)
+_FWD_TRAIN = {torch.float32: ATTENTION_GRU_FWD_TRAIN, torch.bfloat16: ATTENTION_GRU_FWD_TRAIN_BF16}
+_BWD = {torch.float32: ATTENTION_GRU_BWD, torch.bfloat16: ATTENTION_GRU_BWD_BF16}
 
 # Decoder groups that matched the template and serve steps that ran their
 # plain computation because supported() refused their shapes
@@ -141,12 +171,17 @@ def grid_barriers(Td: int) -> Tuple[int, int]:
 
 def supported(B: int, Te: int, D: int, E: int, num_sms: Optional[int] = None) -> bool:
     """Whether kernels 4-6 take a decoder of batch B over Te encoder
-    positions, width D and encoder width E.
+    positions, width D and encoder width E, in float32 operands (or bf16,
+    which kernels 5 and 6 take).
 
     Every dimension is at least 1 and the shared memory of a block of each
     kernel is within SMEM_LIMIT (kernel 4's is kernel 5's); the grid is at
-    most one block per SM, so the card holds it at once. ``num_sms``
-    defaults to the current card's count (132 where there is no card)."""
+    most one block per SM, so the card holds it at once. Both instances
+    hold the weight slices and the state in float32 in shared memory, so
+    the plan is the same for either operand type
+    (``pallas_attention_gru.supported`` takes the operand size for its VMEM
+    budget; here it decides nothing). ``num_sms`` defaults to the current
+    card's count (132 where there is no card)."""
     if min(B, Te, D, E) < 1:
         return False
     plan = grid_plan(B, Te, D, E, card_sms() if num_sms is None else num_sms)
@@ -179,13 +214,63 @@ def _step(h, ep, ev, em, xw_t, wa, ba, v, wctx, wg, acts, residuals=False):
     return gru_cell(din, h, wg, acts, gates=True) + (alpha, ctx)
 
 
+def _step_mixed(h, ep, ev, valid, xw_t, wa, ba, v, wctx, wg, od):
+    """One decoder step of the bf16 plain version (``pallas_attention_gru
+    ._fwd_kernel`` in bf16): every operand widened to float32 (ep, ev and
+    the weights by the caller), h the float32 carry, h, ctx and r * h
+    rounded to ``od`` before their products. Returns (h', u, r, c, alpha
+    [Te, B], ctx [B, E]), all float32."""
+    D = h.shape[-1]
+    m = round_to(h, od) @ wa + ba                                # [B, D]
+    s = (torch.tanh(ep + m[None]) @ v.reshape(D, 1))[..., 0]     # [Te, B]
+    s = torch.where(valid, s, torch.full_like(s, -1e30))
+    e = torch.exp(s - torch.max(s, dim=0, keepdim=True).values)
+    alpha = e / torch.sum(e, dim=0, keepdim=True)
+    alpha = torch.where(valid, alpha, torch.zeros_like(alpha))
+    ctx = torch.einsum("tb,tbe->be", alpha, ev)                 # [B, E]
+    din = round_to(ctx, od) @ wctx + xw_t.float()               # [B, 3D]
+    g = torch.sigmoid(din[:, :2 * D] + round_to(h, od) @ wg[:, :2 * D])
+    u, r = g[:, :D], g[:, D:]
+    c = torch.tanh(din[:, 2 * D:] + round_to(r * h, od) @ wg[:, 2 * D:])
+    return u * h + (1.0 - u) * c, u, r, c, alpha, ctx
+
+
+def _attention_gru_mixed(ep, ev, em, xw, dmask, h0, wa, ba, v, wctx, wg, residuals):
+    od = ep.dtype
+    f = lambda t: t.float()
+    epf, evf, waf, baf, vf, wctxf, wgf = map(f, (ep, ev, wa, ba.reshape(1, -1), v, wctx, wg))
+    valid = em[:, :, 0] > 0
+    h = h0.float()
+    ys, saved = [], []
+    for t in range(xw.shape[0]):
+        h_new, u, r, c, alpha, ctx = _step_mixed(h, epf, evf, valid, xw[t], waf, baf, vf,
+                                                 wctxf, wgf, od)
+        ys.append(h_new.to(od))
+        if residuals:
+            saved.append((h.to(od), torch.cat([u, r, c], dim=-1).to(od),
+                          alpha.transpose(0, 1).to(od), ctx.to(od)))
+        dm = dmask[t].float()
+        h = dm * h_new + (1.0 - dm) * h
+    ys = torch.stack(ys)
+    if not residuals:
+        return ys
+    return (ys,) + tuple(torch.stack(z) for z in zip(*saved))
+
+
 def attention_gru_reference(ep, ev, em, xw, dmask, h0, wa, ba, v, wctx, wg,
                             acts: Tuple[str, str] = KERNEL_ACTS, residuals: bool = False):
     """Plain PyTorch version of the kernels (shapes as :func:`fused_attention_gru`).
 
     ``residuals=True`` also returns what ``attention_gru_fwd_train`` saves:
     (ys, hprev [Td, B, D], acts = [u | r | c] [Td, B, 3D], alpha
-    [Td, B, Te], ctx [Td, B, E]); the kernel also saves m [Td, B, D]."""
+    [Td, B, Te], ctx [Td, B, E]); the kernel also saves m [Td, B, D]. bf16
+    operands follow the kernels' bf16 contract (carry, scores, softmax and
+    sums in float32; h, ctx and r * h rounded before their products; the
+    outputs in bf16)."""
+    if ep.dtype == torch.bfloat16:
+        if tuple(acts) != KERNEL_ACTS:
+            raise ValueError(f"the bf16 attention-GRU takes activations {KERNEL_ACTS}")
+        return _attention_gru_mixed(ep, ev, em, xw, dmask, h0, wa, ba, v, wctx, wg, residuals)
     h = h0
     ys, saved = [], []
     for t in range(xw.shape[0]):
@@ -203,25 +288,133 @@ def attention_gru_reference(ep, ev, em, xw, dmask, h0, wa, ba, v, wctx, wg,
     return (ys,) + tuple(torch.stack(z) for z in zip(*saved))
 
 
-def _check_operands(ep, ev, em, xw, dmask, h0, wa, ba, v, wctx, wg, acts):
+def attention_gru_backward_reference(dy, ep, ev, dmask, hprev, saved, alpha, wa, ba, v,
+                                     wctx, wg):
+    """Plain PyTorch version of kernel 6 (``pallas_attention_gru._bwd_kernel``):
+    from dy [Td, B, D] and the residuals of :func:`attention_gru_reference`,
+    its outputs (dxw [Td, B, 3D], dctx [Td, B, E] and dh0 [B, D] in dy's
+    dtype; d_enc_proj [Te, B, D], dWa, dba [1, D] and dv [1, D] in float32).
+    Per step, walked Td-1 .. 0, in float32: the GRU backward (drh from
+    dcand rounded), d_din = [dg | dcand], d_ctx from d_din rounded, the
+    attention's backward from the unrounded d_ctx, and DH from dg and d_m
+    rounded. The roundings are to the residuals' dtype (none in float32)."""
+    Td, B, D = hprev.shape
+    od = saved.dtype
+    f = lambda t: t.float()
+    epf, evf, waf, vf, wctxf, wgf = map(f, (ep, ev, wa, v.reshape(1, 1, D), wctx, wg))
+    baf = ba.float().reshape(1, D)
+    DH = hprev.new_zeros(B, D, dtype=torch.float32)
+    dep = torch.zeros_like(epf)
+    dwa = torch.zeros_like(waf)
+    dba = hprev.new_zeros(1, D, dtype=torch.float32)
+    dv = hprev.new_zeros(1, D, dtype=torch.float32)
+    dxw, dctx = [None] * Td, [None] * Td
+    for t in range(Td - 1, -1, -1):
+        hp, a = hprev[t].float(), saved[t].float()
+        u, r, c = a[:, :D], a[:, D:2 * D], a[:, 2 * D:]
+        al = alpha[t].float().t()                                  # [Te, B]
+        dm = dmask[t].float()                                      # [B, 1]
+        dhn = dy[t].float() + dm * DH
+        dcand = dhn * (1.0 - u) * (1.0 - c * c)
+        drh = round_to(dcand, od) @ wgf[:, 2 * D:].t()
+        dg = torch.cat([dhn * (hp - c) * u * (1.0 - u), drh * hp * r * (1.0 - r)], dim=1)
+        d_din = torch.cat([dg, dcand], dim=1)
+        dxw[t] = d_din.to(dy.dtype)
+        d_ctx = round_to(d_din, od) @ wctxf.t()                    # [B, E]
+        dctx[t] = d_ctx.to(dy.dtype)
+        comb = torch.tanh(epf + (round_to(hp, od) @ waf + baf)[None])
+        dalpha = torch.sum(evf * d_ctx[None], dim=-1)              # [Te, B]
+        ds = al * (dalpha - torch.sum(al * dalpha, dim=0, keepdim=True))
+        dv = dv + torch.sum(comb * ds[:, :, None], dim=(0, 1))[None]
+        dtanh = (1.0 - comb * comb) * ds[:, :, None] * vf
+        dep = dep + dtanh
+        d_m = torch.sum(dtanh, dim=0)                              # [B, D]
+        dba = dba + torch.sum(d_m, dim=0)[None]
+        dwa = dwa + hp.t() @ d_m
+        DH = (dhn * u + drh * r + round_to(dg, od) @ wgf[:, :2 * D].t()
+              + round_to(d_m, od) @ waf.t() + (1.0 - dm) * DH)
+    return torch.stack(dxw), torch.stack(dctx), DH.to(dy.dtype), dep, dwa, dba, dv
+
+
+def _mm(a: Tensor, b: Tensor) -> Tensor:
+    """a @ b with float32 accumulation and the result in a's dtype: on the
+    card a bf16 product is cuBLAS's (float32 accumulation, the reduced-
+    precision reduction switched off by ``resolve_device``); on the CPU
+    a bf16 product is taken in float32 and rounded."""
+    if a.device.type == "cpu" and a.dtype == torch.bfloat16:
+        return (a.float() @ b.float()).to(a.dtype)
+    return a @ b
+
+
+def _input_grads(dxw, dctx, dh0, dep, dwa, dba, dv, ep, ev, hprev, saved, alpha, ctxs,
+                 wa, ba, v, wctx, wg):
+    """The gradients of fused_attention_gru's inputs from kernel 6's
+    outputs: dW_ctx, dW_gru and d_enc_vec as products of the streams (the
+    JAX package leaves them to XLA), d_enc_proj, dWa, dba and dv rounded to
+    their inputs' dtypes. Returns (dep, dev, dxw, dh0, dwa, dba, dv, dwctx,
+    dwg)."""
+    D, E = ep.shape[2], ev.shape[2]
+    dxw2 = dxw.reshape(-1, 3 * D)
+    hp2 = hprev.reshape(-1, D)
+    r2 = saved.reshape(-1, 3 * D)[:, D: 2 * D]
+    dwctx = _mm(ctxs.reshape(-1, E).t(), dxw2)
+    dwg = torch.cat([_mm(hp2.t(), dxw2[:, : 2 * D]), _mm((r2 * hp2).t(), dxw2[:, 2 * D:])], dim=1)
+    # d_ev[te, b, :] = sum_td alpha[td, b, te] * d_ctx[td, b, :]
+    if alpha.device.type == "cpu" and alpha.dtype == torch.bfloat16:
+        dev_ = torch.einsum("tbe,tbd->ebd", alpha.float(), dctx.float()).to(ev.dtype)
+    else:
+        dev_ = torch.einsum("tbe,tbd->ebd", alpha, dctx)
+    return (dep.to(ep.dtype), dev_, dxw, dh0, dwa.to(wa.dtype), dba.to(ba.dtype),
+            dv.to(v.dtype), dwctx.to(wctx.dtype), dwg.to(wg.dtype))
+
+
+class _PlainAttentionGRU(torch.autograd.Function):
+    """The bf16 decoder on the CPU: the kernels' plain forward with residuals
+    and their plain backward, rounding where the kernels (and the Pallas
+    custom VJP) round."""
+
+    @staticmethod
+    def forward(ctx, ep, ev, em, xw, dmask, h0, wa, ba, v, wctx, wg):
+        ys, hprev, saved, alpha, ctxs = attention_gru_reference(
+            ep, ev, em, xw, dmask, h0, wa, ba, v, wctx, wg, residuals=True)
+        ctx.save_for_backward(ep, ev, dmask, hprev, saved, alpha, ctxs, wa, ba, v, wctx, wg)
+        return ys
+
+    @staticmethod
+    def backward(ctx, dy):
+        ep, ev, dmask, hprev, saved, alpha, ctxs, wa, ba, v, wctx, wg = ctx.saved_tensors
+        outs = attention_gru_backward_reference(dy, ep, ev, dmask, hprev, saved, alpha,
+                                                wa, ba, v, wctx, wg)
+        dep, dev_, dxw, dh0, dwa, dba, dv, dwctx, dwg = _input_grads(
+            *outs, ep, ev, hprev, saved, alpha, ctxs, wa, ba, v, wctx, wg)
+        return dep, dev_, None, dxw, None, dh0, dwa, dba, dv, dwctx, dwg
+
+
+def _check_operands(ep, ev, em, xw, dmask, h0, wa, ba, v, wctx, wg, acts, residuals=True):
+    """Every operand in the operand dtype (float32, or bf16 for kernels 5 and
+    6: ``residuals``), of its shape, on ep's device."""
     Te, B, D = ep.shape
     E = ev.shape[2]
     Td = xw.shape[0]
     dev = ep.device
+    od = ep.dtype
     if tuple(acts) != KERNEL_ACTS:
         raise ValueError(
             f"attention_gru_fwd takes activations {KERNEL_ACTS}, got {tuple(acts)}")
-    check(ep, "ep", (Te, B, D), dev, contiguous=False)
-    check(ev, "ev", (Te, B, E), dev, contiguous=False)
-    check(em, "em", (Te, B, 1), dev, contiguous=False)
-    check(xw, "xw", (Td, B, 3 * D), dev)
-    check(dmask, "dmask", (Td, B, 1), dev)
-    check(h0, "h0", (B, D), dev)
-    check(wa, "wa", (D, D), dev)
-    check(ba, "ba", (1, D), dev)
-    check(v, "v", (1, D), dev)
-    check(wctx, "wctx", (E, 3 * D), dev)
-    check(wg, "wg", (D, 3 * D), dev)
+    if od not in (OPERAND_DTYPES if residuals else (torch.float32,)):
+        raise ValueError(f"the attention-GRU {'training ' if residuals else ''}kernels do "
+                         f"not take {od} operands")
+    check(ep, "ep", (Te, B, D), dev, contiguous=False, dtype=od)
+    check(ev, "ev", (Te, B, E), dev, contiguous=False, dtype=od)
+    check(em, "em", (Te, B, 1), dev, contiguous=False, dtype=od)
+    check(xw, "xw", (Td, B, 3 * D), dev, dtype=od)
+    check(dmask, "dmask", (Td, B, 1), dev, dtype=od)
+    check(h0, "h0", (B, D), dev, dtype=od)
+    check(wa, "wa", (D, D), dev, dtype=od)
+    check(ba, "ba", (1, D), dev, dtype=od)
+    check(v, "v", (1, D), dev, dtype=od)
+    check(wctx, "wctx", (E, 3 * D), dev, dtype=od)
+    check(wg, "wg", (D, 3 * D), dev, dtype=od)
     return Td, B, Te, D, E, dev
 
 
@@ -238,10 +431,11 @@ def _light_scratch(B, D, E, dev):
 def _launch_fwd(ep, ev, em, xw, dmask, h0, wa, ba, v, wctx, wg, acts, residuals,
                 kernel=ATTENTION_GRU_FWD):
     Td, B, Te, D, E, dev = _check_operands(ep, ev, em, xw, dmask, h0, wa, ba, v,
-                                           wctx, wg, acts)
+                                           wctx, wg, acts, residuals)
+    od = ep.dtype
     _check_supported(B, Te, D, E, dev)
     kernel_flops.record(kernel_flops.attention_gru_fwd_flops(Td, B, Te, D, E))
-    ys = torch.empty((Td, B, D), device=dev)
+    ys = torch.empty((Td, B, D), device=dev, dtype=od)
     args = [ptr(ep), ep.stride(0), ep.stride(1),
             ptr(ev), ev.stride(0), ev.stride(1),
             ptr(em), em.stride(0), em.stride(1),
@@ -252,12 +446,16 @@ def _launch_fwd(ep, ev, em, xw, dmask, h0, wa, ba, v, wctx, wg, acts, residuals,
         flat, scratch = _light_scratch(B, D, E, dev)    # flat: held until the launch is queued
         kernel.launch(dev, *args, *scratch, Td, B, Te, D, E, card_sms(dev))
         return ys
-    saved = (torch.empty((Td, B, D), device=dev), torch.empty((Td, B, 3 * D), device=dev),
-             torch.empty((Td, B, Te), device=dev), torch.empty((Td, B, E), device=dev),
+    # hprev, acts, alpha and ctx in the operand dtype; m in float32
+    saved = (torch.empty((Td, B, D), device=dev, dtype=od),
+             torch.empty((Td, B, 3 * D), device=dev, dtype=od),
+             torch.empty((Td, B, Te), device=dev, dtype=od),
+             torch.empty((Td, B, E), device=dev, dtype=od),
              torch.empty((Td, B, D), device=dev))
-    scratch = (torch.empty((B, D), device=dev), torch.empty(1, dtype=torch.int32, device=dev))
-    ATTENTION_GRU_FWD_TRAIN.launch(dev, *args, *[ptr(z) for z in saved + scratch],
-                                   Td, B, Te, D, E, card_sms(dev))
+    scratch = (torch.empty((B, D), device=dev, dtype=od),
+               torch.empty(1, dtype=torch.int32, device=dev))
+    _FWD_TRAIN[od].launch(dev, *args, *[ptr(z) for z in saved + scratch],
+                          Td, B, Te, D, E, card_sms(dev))
     return (ys,) + saved
 
 
@@ -268,16 +466,21 @@ def _launch_bwd(dy, ep, ev, dmask, hprev, saved, alpha, m, wa, v, wctx, wg, h0_g
     E = ev.shape[2]
     Td = dy.shape[0]
     dev = ep.device
+    od = saved.dtype
+    if od not in OPERAND_DTYPES:
+        raise ValueError(f"the attention-GRU backward does not take {od} residuals")
     dy = _last_dim_contiguous(dy)
-    check(dy, "dy", (Td, B, D), dev, contiguous=False)
-    check(hprev, "hprev", (Td, B, D), dev)
-    check(saved, "acts", (Td, B, 3 * D), dev)
-    check(alpha, "alpha", (Td, B, Te), dev)
+    check(dy, "dy", (Td, B, D), dev, contiguous=False, dtype=od)
+    check(hprev, "hprev", (Td, B, D), dev, dtype=od)
+    check(saved, "acts", (Td, B, 3 * D), dev, dtype=od)
+    check(alpha, "alpha", (Td, B, Te), dev, dtype=od)
     check(m, "m", (Td, B, D), dev)
     _check_supported(B, Te, D, E, dev)
-    dxw = torch.empty((Td, B, 3 * D), device=dev)
-    dctx = torch.empty((Td, B, E), device=dev)
-    dh0 = torch.empty((B, D), device=dev)
+    # d_din, the d_ctx stream and dh0 in the operand dtype; d_enc_proj, dWa,
+    # dba and dv summed in float32 (the caller rounds them)
+    dxw = torch.empty((Td, B, 3 * D), device=dev, dtype=od)
+    dctx = torch.empty((Td, B, E), device=dev, dtype=od)
+    dh0 = torch.empty((B, D), device=dev, dtype=od)
     dep = torch.empty((B, Te, D), device=dev).transpose(0, 1)
     dwa = torch.empty((D, D), device=dev)
     dba = torch.empty((1, D), device=dev)
@@ -285,8 +488,10 @@ def _launch_bwd(dy, ep, ev, dmask, hprev, saved, alpha, m, wa, v, wctx, wg, h0_g
     dm_rows = torch.empty((Td, B, D), device=dev)
     dv_part = torch.empty((2, B, D), device=dev)
     counter = torch.empty(1, dtype=torch.int32, device=dev)
+    # bf16: the attention phase reads d_ctx unrounded, from a float32 row buffer
+    dctx32 = [] if od == torch.float32 else [ptr(torch.empty((B, E), device=dev))]
     kernel_flops.record(kernel_flops.attention_gru_bwd_flops(Td, B, Te, D, E, h0_grad))
-    ATTENTION_GRU_BWD.launch(
+    _BWD[od].launch(
         dev,
         ptr(dy), dy.stride(0), dy.stride(1),
         ptr(ep), ep.stride(0), ep.stride(1),
@@ -296,7 +501,7 @@ def _launch_bwd(dy, ep, ev, dmask, hprev, saved, alpha, m, wa, v, wctx, wg, h0_g
         ptr(dxw), ptr(dctx), ptr(dh0),
         ptr(dep), dep.stride(0), dep.stride(1),
         ptr(dwa), ptr(dba), ptr(dv),
-        ptr(dm_rows), ptr(dv_part), ptr(counter),
+        ptr(dm_rows), ptr(dv_part), ptr(counter), *dctx32,
         Td, B, Te, D, E, card_sms(dev),
     )
     return dxw, dctx, dh0, dep, dwa, dba, dv
@@ -310,23 +515,16 @@ class _FusedAttentionGRU(torch.autograd.Function):
     def forward(ctx, ep, ev, em, xw, dmask, h0, wa, ba, v, wctx, wg, acts):
         ys, hprev, saved, alpha, ctxs, m = _launch_fwd(ep, ev, em, xw, dmask, h0, wa, ba, v,
                                                        wctx, wg, acts, residuals=True)
-        ctx.save_for_backward(ep, ev, dmask, hprev, saved, alpha, ctxs, m, wa, v, wctx, wg)
+        ctx.save_for_backward(ep, ev, dmask, hprev, saved, alpha, ctxs, m, wa, ba, v, wctx, wg)
         return ys
 
     @staticmethod
     def backward(ctx, dy):
-        ep, ev, dmask, hprev, saved, alpha, ctxs, m, wa, v, wctx, wg = ctx.saved_tensors
-        D, E = ep.shape[2], ev.shape[2]
-        dxw, dctx, dh0, dep, dwa, dba, dv = _launch_bwd(
-            dy, ep, ev, dmask, hprev, saved, alpha, m, wa, v, wctx, wg,
-            h0_grad=ctx.needs_input_grad[5])
-        dxw2 = dxw.reshape(-1, 3 * D)
-        hp2 = hprev.reshape(-1, D)
-        r2 = saved.reshape(-1, 3 * D)[:, D: 2 * D]
-        dwctx = ctxs.reshape(-1, E).t() @ dxw2
-        dwg = torch.cat([hp2.t() @ dxw2[:, : 2 * D], (r2 * hp2).t() @ dxw2[:, 2 * D:]], dim=1)
-        # d_ev[te, b, :] = sum_td alpha[td, b, te] * d_ctx[td, b, :]
-        dev_ = torch.einsum("tbe,tbd->ebd", alpha, dctx)
+        ep, ev, dmask, hprev, saved, alpha, ctxs, m, wa, ba, v, wctx, wg = ctx.saved_tensors
+        outs = _launch_bwd(dy, ep, ev, dmask, hprev, saved, alpha, m, wa, v, wctx, wg,
+                           h0_grad=ctx.needs_input_grad[5])
+        dep, dev_, dxw, dh0, dwa, dba, dv, dwctx, dwg = _input_grads(
+            *outs, ep, ev, hprev, saved, alpha, ctxs, wa, ba, v, wctx, wg)
         return dep, dev_, None, dxw, None, dh0, dwa, dba, dv, dwctx, dwg, None
 
 
@@ -340,10 +538,13 @@ def fused_attention_gru(ep, ev, em, xw, dmask, h0, wa, ba, v, wctx, wg,
     [Td, B, 3D] word-side inputs with every bias folded in; dmask
     [Td, B, 1]; h0 [B, D]; wa [D, D]; ba [1, D]; v [1, D]; wctx [E, 3D];
     wg [D, 3D]."""
-    if ep.device.type == "cpu":
-        return attention_gru_reference(ep, ev, em, xw, dmask, h0, wa, ba, v,
-                                       wctx, wg, acts)
     operands = (ep, ev, em, xw, dmask, h0, wa, ba, v, wctx, wg)
+    if ep.device.type == "cpu":
+        if (ep.dtype == torch.bfloat16 and torch.is_grad_enabled()
+                and any(t.requires_grad for t in operands)):
+            return _PlainAttentionGRU.apply(ep, ev, em.detach(), xw, dmask.detach(), h0,
+                                            wa, ba, v, wctx, wg)
+        return attention_gru_reference(*operands, acts)
     if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
         _check_operands(*operands, acts)
         return _FusedAttentionGRU.apply(ep, ev, em.detach(), xw, dmask.detach(), h0,

@@ -21,6 +21,18 @@ the training pair when grad mode is on and an input requires a gradient
 tensor it runs :func:`gru_forward_reference`, and autograd through it
 gives the gradients.
 
+bf16 operands (a bf16 model, ``GradientMachine(compute_dtype=bfloat16)``)
+take the kernels' bf16 instances (``gru_fwd_bf16``, ``gru_fwd_train_bf16``,
+``gru_bwd_bf16``), which keep the Pallas kernels' bf16 contract: x3 and w
+are bf16, widened on load; the carry is float32; h and r * h are rounded
+to bf16 before their products, which accumulate in float32; ys, the
+residuals and dx3 are stored bf16; the backward rounds dcand and dg before
+the products with w transposed, sums dW from the unrounded float32 values
+and rounds it once at the end. :func:`gru_forward_reference` and
+:func:`gru_backward_reference` are their plain versions, with the same
+rounding points; on the CPU a bf16 GRU runs them as an autograd Function
+(``_PlainGRU``), as the Pallas function's custom VJP does.
+
 All three kernels run as persistent, cooperative grids (one block on each
 SM, each owning unit groups of 4 hidden units: the forwards their columns
 of w, the backward their rows of w and of dW, in shared memory for the
@@ -40,6 +52,7 @@ from paddle_tpu_torch.ops import kernel_flops
 from paddle_tpu_torch.ops._build import (
     I32, I64, PTR, SMEM_LIMIT, CudaKernel, card_sms, check, ptr)
 from paddle_tpu_torch.ops.activations import apply_activation
+from paddle_tpu_torch.ops.precision import round_to
 
 Tensor = torch.Tensor
 KERNEL_ACTS = ("tanh", "sigmoid")    # the default (act_in, act_gate)
@@ -84,7 +97,20 @@ GRU_BWD = CudaKernel(
      PTR]                            # phase clocks [T][4] int64, or null
     + _TAIL + [I32, I32, I32],       # num_sms, w_smem, dw_smem
 )
-KERNELS = (GRU_FWD, GRU_FWD_TRAIN, GRU_BWD)
+# the bf16 instances of the same bodies: the same arguments, bf16 x3, w,
+# ys and residuals (kernel 3 also a float32 exchange buffer)
+GRU_FWD_BF16 = CudaKernel("gru_fwd.cu", "gru_fwd_bf16", GRU_FWD.argtypes[:-1])
+GRU_FWD_TRAIN_BF16 = CudaKernel("gru_fwd.cu", "gru_fwd_train_bf16",
+                                GRU_FWD_TRAIN.argtypes[:-1])
+GRU_BWD_BF16 = CudaKernel("gru_bwd.cu", "gru_bwd_bf16",
+                          GRU_BWD.argtypes[:15] + [PTR]   # + dg | dcand in float32 [2, B, 3H]
+                          + GRU_BWD.argtypes[15:-1])
+KERNELS = (GRU_FWD, GRU_FWD_TRAIN, GRU_BWD, GRU_FWD_BF16, GRU_FWD_TRAIN_BF16, GRU_BWD_BF16)
+# the operand dtypes the kernels take, and each entry by operand dtype
+OPERAND_DTYPES = (torch.float32, torch.bfloat16)
+_FWD = {torch.float32: GRU_FWD, torch.bfloat16: GRU_FWD_BF16}
+_FWD_TRAIN = {torch.float32: GRU_FWD_TRAIN, torch.bfloat16: GRU_FWD_TRAIN_BF16}
+_BWD = {torch.float32: GRU_BWD, torch.bfloat16: GRU_BWD_BF16}
 
 
 def gru_cell(x3: Tensor, h: Tensor, w: Tensor,
@@ -100,6 +126,20 @@ def gru_cell(x3: Tensor, h: Tensor, w: Tensor,
     return (h_new, u, r, c) if gates else h_new
 
 
+def dact(name: str, y: Tensor) -> Tensor:
+    """The derivative of activation ``name`` from its output y = act(x), as
+    the kernels take it (csrc/common.cuh dact_f32)."""
+    if name == "tanh":
+        return 1.0 - y * y
+    if name == "sigmoid":
+        return y * (1.0 - y)
+    if name == "relu":
+        return (y > 0).to(y.dtype)
+    if name == "linear":
+        return torch.ones_like(y)
+    raise ValueError(f"no kernel derivative for activation {name!r}")
+
+
 def gru_forward_reference(x3: Tensor, mask: Tensor, w: Tensor, reverse: bool = False,
                           acts: Tuple[str, str] = KERNEL_ACTS, residuals: bool = False):
     """Plain PyTorch version of the kernels: x3 [T, B, 3H], mask [T, B],
@@ -107,7 +147,19 @@ def gru_forward_reference(x3: Tensor, mask: Tensor, w: Tensor, reverse: bool = F
 
     ``residuals=True`` also returns what ``gru_fwd_train`` saves, each at
     its step's own time index: acts = [u | r | c] [T, B, 3H] and h_prev
-    [T, B, H]."""
+    [T, B, H]. bf16 operands follow the kernels' bf16 contract
+    (:func:`_gru_forward_mixed`); float32 runs :func:`gru_loop`."""
+    if x3.dtype == torch.bfloat16:
+        return _gru_forward_mixed(x3, mask, w, reverse, acts, residuals)
+    return gru_loop(x3, mask, w, reverse, acts, residuals)
+
+
+def gru_loop(x3: Tensor, mask: Tensor, w: Tensor, reverse: bool = False,
+             acts: Tuple[str, str] = KERNEL_ACTS, residuals: bool = False):
+    """The GRU as a time loop with every operation in x3's dtype: the
+    float32 kernels' plain version, and the ``gated_recurrent`` layer's
+    eager route (in bf16 it runs as the JAX layer's ``lax.scan`` does, the
+    carry bf16 too). Arguments and results as :func:`gru_forward_reference`."""
     T, B, H3 = x3.shape
     h = x3.new_zeros(B, H3 // 3)
     ys, saved, hprev = [None] * T, [None] * T, [None] * T
@@ -123,6 +175,91 @@ def gru_forward_reference(x3: Tensor, mask: Tensor, w: Tensor, reverse: bool = F
     if not T:
         return ys, x3.new_zeros(0, B, H3), x3.new_zeros(0, B, H3 // 3)
     return ys, torch.stack(saved), torch.stack(hprev)
+
+
+def _gru_forward_mixed(x3, mask, w, reverse, acts, residuals):
+    """The bf16 kernels' plain version (``pallas_gru._cell_fwd`` in bf16):
+    the carry h in float32, x3 and w widened, h and r * h rounded to bf16
+    before their products (exact in float32), ys, the gates and h_prev
+    stored bf16."""
+    T, B, H3 = x3.shape
+    H, od = H3 // 3, x3.dtype
+    act_in, act_gate = acts
+    wf = w.float()
+    h = x3.new_zeros(B, H, dtype=torch.float32)
+    ys, saved, hprev = [None] * T, [None] * T, [None] * T
+    for t in (range(T - 1, -1, -1) if reverse else range(T)):
+        x = x3[t].float()
+        g = apply_activation(act_gate, x[:, :2 * H] + round_to(h, od) @ wf[:, :2 * H])
+        u, r = g[:, :H], g[:, H:]
+        c = apply_activation(act_in, x[:, 2 * H:] + round_to(r * h, od) @ wf[:, 2 * H:])
+        h_new = u * h + (1.0 - u) * c
+        m = mask[t][:, None].float()
+        ys[t] = (m * h_new).to(od)
+        saved[t], hprev[t] = torch.cat([u, r, c], dim=-1).to(od), h.to(od)
+        h = m * h_new + (1.0 - m) * h
+    ys = torch.stack(ys) if T else x3.new_zeros(0, B, H)
+    if not residuals:
+        return ys
+    if not T:
+        return ys, x3.new_zeros(0, B, H3), x3.new_zeros(0, B, H)
+    return ys, torch.stack(saved), torch.stack(hprev)
+
+
+def gru_backward_reference(dy: Tensor, saved: Tensor, hprev: Tensor, mask: Tensor,
+                           w: Tensor, reverse: bool = False,
+                           acts: Tuple[str, str] = KERNEL_ACTS) -> Tuple[Tensor, Tensor]:
+    """Plain PyTorch version of kernel 3 (``pallas_gru._bwd_kernel``): dx3
+    [T, B, 3H] in dy's dtype and dW [H, 3H] in w's, from dy [T, B, H] and
+    the residuals of :func:`gru_forward_reference`. Per step, walked
+    against the forward's order, in float32: dh = m (DH + dy), the update
+    and candidate gradients, drh = round(dcand) . Wc^T, dg, dx3[t] =
+    [dg | dcand], DH = dh u + drh r + round(dg) . Wg^T + (1 - m) DH; dW sums
+    h_prev^T dg and (r h_prev)^T dcand unrounded and is rounded once. The
+    roundings are to the residuals' dtype (none in float32)."""
+    T, B, H3 = saved.shape
+    H, od = H3 // 3, saved.dtype
+    act_in, act_gate = acts
+    wf = w.float()
+    wg_t, wc_t = wf[:, :2 * H].t(), wf[:, 2 * H:].t()
+    DH = saved.new_zeros(B, H, dtype=torch.float32)
+    dwg = saved.new_zeros(H, 2 * H, dtype=torch.float32)
+    dwc = saved.new_zeros(H, H, dtype=torch.float32)
+    dx3 = [None] * T
+    for t in (range(T) if reverse else range(T - 1, -1, -1)):
+        a = saved[t].float()
+        u, r, c = a[:, :H], a[:, H:2 * H], a[:, 2 * H:]
+        hp = hprev[t].float()
+        m = mask[t][:, None].float()
+        dh = m * (DH + dy[t].float())
+        dcand = dh * (1.0 - u) * dact(act_in, c)
+        drh = round_to(dcand, od) @ wc_t
+        dg = torch.cat([dh * (hp - c) * dact(act_gate, u), drh * hp * dact(act_gate, r)], 1)
+        dx3[t] = torch.cat([dg, dcand], dim=1).to(dy.dtype)
+        DH = dh * u + drh * r + round_to(dg, od) @ wg_t + (1.0 - m) * DH
+        dwg = dwg + hp.t() @ dg
+        dwc = dwc + (r * hp).t() @ dcand
+    dx3 = torch.stack(dx3) if T else dy.new_zeros(0, B, H3)
+    return dx3, torch.cat([dwg, dwc], dim=1).to(w.dtype)
+
+
+class _PlainGRU(torch.autograd.Function):
+    """The bf16 GRU on the CPU: the kernels' plain forward with residuals
+    and their plain backward, so that the gradients round where the
+    kernels' (and the Pallas custom VJP's) do."""
+
+    @staticmethod
+    def forward(ctx, x3, mask, w, reverse, acts):
+        ys, saved, hprev = gru_forward_reference(x3, mask, w, reverse, acts, residuals=True)
+        ctx.save_for_backward(saved, hprev, mask, w)
+        ctx.reverse, ctx.acts = reverse, acts
+        return ys
+
+    @staticmethod
+    def backward(ctx, dy):
+        saved, hprev, mask, w = ctx.saved_tensors
+        dx3, dw = gru_backward_reference(dy, saved, hprev, mask, w, ctx.reverse, ctx.acts)
+        return dx3, None, dw, None, None
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -178,13 +315,16 @@ def fwd_barriers(T: int) -> int:
 
 def supported(acts, H: int, B: int, num_sms: Optional[int] = None) -> bool:
     """Whether kernels 1-3 take a GRU with activations ``acts`` = (act_in,
-    act_gate), width ``H`` and batch ``B``.
+    act_gate), width ``H`` and batch ``B``, in float32 or bf16 operands.
 
     Both at least 1, H at most MAX_H, and kernel 3's grid fits: the state
     of a block's rows in shared memory (its rows of w and dW go to device
     memory when they do not fit beside it); the forwards' plan
-    (:func:`fwd_plan`) then fits too. ``num_sms`` defaults to the current
-    card's count (132 where there is no card)."""
+    (:func:`fwd_plan`) then fits too. Both instances hold w and the state
+    in float32 in shared memory, so the plan is the same for either
+    operand type (``pallas_gru.supported`` takes the operand size for its
+    VMEM budget; here it decides nothing). ``num_sms`` defaults to the
+    current card's count (132 where there is no card)."""
     if not (len(acts) == 2 and all(a in ACT_CODES for a in acts)):
         return False
     if not (1 <= H <= MAX_H and B >= 1):
@@ -208,30 +348,46 @@ def _act_codes(acts) -> Tuple[int, int]:
     return tuple(ACT_CODES[a] for a in acts)
 
 
+def _operand_dtype(t: Tensor) -> torch.dtype:
+    if t.dtype not in OPERAND_DTYPES:
+        raise ValueError(f"the GRU kernels take float32 or bf16 operands, got {t.dtype}")
+    return t.dtype
+
+
 def _check_operands(x3, mask, w, acts):
     T, B, H3 = x3.shape
     H = H3 // 3
     dev = x3.device
     codes = _act_codes(acts)
+    od = _operand_dtype(x3)
     if H3 != 3 * H:
         raise ValueError(f"x3 width {H3} is not 3 * H")
     if H > MAX_H:
         raise ValueError(f"H = {H}: the GRU kernels take H <= {MAX_H}")
-    check(x3, "x3", (T, B, H3), dev, contiguous=False)
+    check(x3, "x3", (T, B, H3), dev, contiguous=False, dtype=od)
     check(mask, "mask", (T, B), dev, contiguous=False)
-    check(w, "w", (H, H3), dev)
+    check(w, "w", (H, H3), dev, dtype=od)
     return T, B, H, dev, codes
+
+
+def _float_mask(mask: Tensor) -> Tensor:
+    """The kernels read the mask in float32 (a bf16 layer passes it in bf16:
+    0 and 1 are exact in both)."""
+    return mask if mask.dtype == torch.float32 else mask.float()
 
 
 def _launch_fwd(x3, mask, w, reverse, acts, residuals):
     """Kernel 1 (ys) or, with ``residuals``, kernel 2 (ys, acts, hprev):
-    one persistent grid, on :func:`fwd_plan`."""
+    one persistent grid, on :func:`fwd_plan`; the instance of x3's dtype,
+    whose outputs are in that dtype."""
+    mask = _float_mask(mask)
     T, B, H, dev, codes = _check_operands(x3, mask, w, acts)
+    od = x3.dtype
     _check_supported(acts, B, H, dev)
     sms = card_sms(dev)
     plan = fwd_plan(B, H, sms)
-    ys = torch.empty((B, T, H), device=dev).transpose(0, 1)
-    rh = torch.empty((B, H), device=dev)
+    ys = torch.empty((B, T, H), device=dev, dtype=od).transpose(0, 1)
+    rh = torch.empty((B, H), device=dev, dtype=od)
     wslices = (None if plan["w_in_smem"] else
                torch.empty(_cdiv(H, UNITS) * 12 * H, device=dev))
     counter = torch.empty(1, dtype=torch.int32, device=dev)
@@ -242,12 +398,12 @@ def _launch_fwd(x3, mask, w, reverse, acts, residuals):
                T, B, H, int(bool(reverse)), *codes, sms, plan["w_in_smem"]]
     kernel_flops.record(kernel_flops.gru_fwd_flops(T, B, H))
     if not residuals:
-        carry = torch.empty((B, H), device=dev)
-        GRU_FWD.launch(dev, *args, ptr(carry), *scratch)
+        carry = torch.empty((B, H), device=dev, dtype=od)
+        _FWD[od].launch(dev, *args, ptr(carry), *scratch)
         return ys
-    saved = torch.empty((T, B, 3 * H), device=dev)
-    hprev = torch.empty((T, B, H), device=dev)
-    GRU_FWD_TRAIN.launch(dev, *args, ptr(saved), ptr(hprev), *scratch)
+    saved = torch.empty((T, B, 3 * H), device=dev, dtype=od)
+    hprev = torch.empty((T, B, H), device=dev, dtype=od)
+    _FWD_TRAIN[od].launch(dev, *args, ptr(saved), ptr(hprev), *scratch)
     return ys, saved, hprev
 
 
@@ -266,17 +422,22 @@ def _launch_bwd(dy, saved, hprev, mask, w, reverse, acts, phase_ns=None):
     H = H3 // 3
     dev = saved.device
     codes = _act_codes(acts)
+    od = _operand_dtype(saved)
     dy = _last_dim_contiguous(dy)
-    check(dy, "dy", (T, B, H), dev, contiguous=False)
-    check(saved, "acts", (T, B, H3), dev)
-    check(hprev, "hprev", (T, B, H), dev)
+    mask = _float_mask(mask)
+    check(dy, "dy", (T, B, H), dev, contiguous=False, dtype=od)
+    check(saved, "acts", (T, B, H3), dev, dtype=od)
+    check(hprev, "hprev", (T, B, H), dev, dtype=od)
     check(mask, "mask", (T, B), dev, contiguous=False)
-    check(w, "w", (H, H3), dev)
+    check(w, "w", (H, H3), dev, dtype=od)
     _check_supported(acts, B, H, dev)
     sms = card_sms(dev)
     plan = grid_plan(B, H, sms)
-    dx3 = torch.empty((T, B, H3), device=dev)
-    dw = torch.empty((H, H3), device=dev)
+    dx3 = torch.empty((T, B, H3), device=dev, dtype=od)
+    dw = torch.empty((H, H3), device=dev, dtype=od)
+    # bf16: the products read dg | dcand rounded (dx3 itself), dW sums them
+    # unrounded from a float32 copy, one buffer each for even and odd steps
+    xch = None if od == torch.float32 else torch.empty((2, B, H3), device=dev)
     rows = _cdiv(H, UNITS) * 12 * H          # every group's [3H][4] rows
     wslices = None if plan["w_in_smem"] else torch.empty(rows, device=dev)
     dwacc = None if plan["dw_in_smem"] else torch.empty(rows, device=dev)
@@ -286,13 +447,15 @@ def _launch_bwd(dy, saved, hprev, mask, w, reverse, acts, phase_ns=None):
                                  or not phase_ns.is_contiguous()):
         raise ValueError(f"phase_ns must be a contiguous int64 [{T}, 4] tensor on {dev}")
     kernel_flops.record(kernel_flops.gru_bwd_flops(T, B, H))
-    GRU_BWD.launch(dev, ptr(dy), dy.stride(0), dy.stride(1), ptr(saved), ptr(hprev),
-                   ptr(mask), mask.stride(0), mask.stride(1), ptr(w), ptr(dx3), ptr(dw),
-                   None if wslices is None else ptr(wslices),
-                   None if dwacc is None else ptr(dwacc), ptr(counter),
-                   None if phase_ns is None else ptr(phase_ns),
-                   T, B, H, int(bool(reverse)), *codes, sms, plan["w_in_smem"],
-                   plan["dw_in_smem"])
+    args = [ptr(dy), dy.stride(0), dy.stride(1), ptr(saved), ptr(hprev),
+            ptr(mask), mask.stride(0), mask.stride(1), ptr(w), ptr(dx3), ptr(dw),
+            None if wslices is None else ptr(wslices),
+            None if dwacc is None else ptr(dwacc), ptr(counter),
+            None if phase_ns is None else ptr(phase_ns)]
+    if xch is not None:
+        args.append(ptr(xch))
+    _BWD[od].launch(dev, *args, T, B, H, int(bool(reverse)), *codes, sms, plan["w_in_smem"],
+                    plan["dw_in_smem"])
     return dx3, dw
 
 
@@ -320,8 +483,11 @@ def fused_gru(x3: Tensor, mask: Tensor, w: Tensor, reverse: bool = False,
 
     On the card ys is a time-major view of batch-major storage, so
     ``ys.transpose(0, 1)`` is a contiguous [B, T, H] tensor. The mask gets
-    no gradient."""
+    no gradient. ys is in x3's dtype (float32 or bf16; w in the same)."""
     if x3.device.type == "cpu":
+        if (x3.dtype == torch.bfloat16 and torch.is_grad_enabled()
+                and (x3.requires_grad or w.requires_grad)):
+            return _PlainGRU.apply(x3, mask.detach(), w, bool(reverse), tuple(acts))
         return gru_forward_reference(x3, mask, w, reverse, acts)
     if torch.is_grad_enabled() and (x3.requires_grad or w.requires_grad):
         return _FusedGRU.apply(x3, mask.detach(), w, bool(reverse), tuple(acts))

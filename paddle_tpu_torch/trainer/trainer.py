@@ -88,7 +88,7 @@ import torch
 from paddle_tpu_torch.data.feeder import DataProvider, create_data_provider
 from paddle_tpu_torch.device import DeviceLike
 from paddle_tpu_torch.graph.argument import Argument
-from paddle_tpu_torch.graph.machine import GradientMachine
+from paddle_tpu_torch.graph.machine import GradientMachine, compute_dtype_of
 from paddle_tpu_torch.graph.recurrent_group import beams_of
 from paddle_tpu_torch.layers.base import fold_seed
 from paddle_tpu_torch.observability import memory as obs_mem
@@ -189,7 +189,10 @@ class Trainer:
         opt = config.opt_config
         if device is None and not flags.use_tpu:
             device = "cpu"
+        # OptimizationConfig.dtype="bfloat16": bf16 activations and products,
+        # float32 master weights and optimizer state
         self.gm = GradientMachine(config.model_config, device,
+                                  compute_dtype=compute_dtype_of(opt),
                                   conv_s2d=opt.conv_s2d, conv_stats_mode=opt.conv_stats_mode)
         self.device = self.gm.device
         self.updater = Updater(opt, config.model_config,
@@ -1338,7 +1341,14 @@ def read_result_file(path: str):
     return blocks
 
 
+def _host_tensor(t: torch.Tensor) -> torch.Tensor:
+    """On the host, a bf16 tensor (a bf16 model's activation) widened to
+    float32, exactly: the evaluators read numpy, which has no bf16."""
+    t = t.detach().cpu()
+    return t.float() if t.dtype == torch.bfloat16 else t
+
+
 def _on_host(a: Argument) -> Argument:
     return Argument(**{f.name: None if getattr(a, f.name) is None
-                       else getattr(a, f.name).detach().cpu()
+                       else _host_tensor(getattr(a, f.name))
                        for f in dataclasses.fields(a)})

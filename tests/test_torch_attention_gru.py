@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from paddle_tpu.ops import pallas_attention_gru as jag
+from torch_bf16_checks import assert_within_one_ulp, assert_within_scale, f32
 from paddle_tpu_torch.ops import fused_attention_gru as tag
 
 torch.set_num_threads(1)
@@ -96,3 +97,82 @@ def test_gradients_match_pallas_backward(Td):
     for name, i, b in zip(names, diff, jg):
         np.testing.assert_allclose(leaves[i].grad.numpy(), np.asarray(b),
                                    rtol=1e-4, atol=1e-4, err_msg=name)
+
+
+# ------------------------------------------------------------ bf16 operands
+
+def _bf16_args(args):
+    """The same float32 inputs rounded to bf16 on both sides (the decoder
+    casts every operand, the masks and h0 included, to the operand dtype)."""
+    return ([jnp.asarray(a).astype(jnp.bfloat16) for a in args],
+            [torch.from_numpy(a).to(torch.bfloat16) for a in args])
+
+
+def test_bf16_plain_versions_match_pallas_at_one_step():
+    """At Td = 1 (from a nonzero h0) the bf16 plain forward and backward
+    round where the Pallas kernels do in bf16 (h, ctx and r*h before their
+    products; d_din, dcand, dg and d_m before theirs; d_ctx unrounded in the
+    attention's backward), so every output, residual and gradient is within
+    one bf16 ulp of the interpreted kernels."""
+    args = _inputs(31, 1)
+    args[4][:] = 1.0
+    jargs, targs = _bf16_args(args)
+    ref = jag._run_fwd(*jargs, ACTS, True, residuals=True)
+    got = tag.attention_gru_reference(*targs, residuals=True)
+    for name, a, b in zip(("ys", "hprev", "acts", "alpha", "ctx"), got, ref):
+        assert a.dtype == torch.bfloat16, name
+        assert_within_one_ulp(a, b, name)
+    dy = (np.random.RandomState(32).randn(1, 3, 8)).astype(np.float32)
+    jdy, tdy = jnp.asarray(dy).astype(jnp.bfloat16), torch.from_numpy(dy).to(torch.bfloat16)
+    ep, ev, em, _, dmask, _, wa, ba, v, wctx, wg = jargs
+    jout = jag._run_bwd(jdy, ep, ev, em, dmask, *ref[1:4], wa, ba, v, wctx, wg, ACTS, True)
+    to_t = lambda a: torch.from_numpy(f32(a)).to(torch.bfloat16)
+    tep, tev, _, _, tdm, _, twa, tba, tv, twctx, twg = targs
+    tout = tag.attention_gru_backward_reference(tdy, tep, tev, tdm, *[to_t(a) for a in ref[1:4]],
+                                                twa, tba, tv, twctx, twg)
+    for name, a, b in zip(("dxw", "dctx", "dh0", "dep", "dwa", "dba", "dv"), tout, jout):
+        assert a.dtype == (torch.bfloat16 if name in ("dxw", "dctx", "dh0") else torch.float32)
+        assert_within_one_ulp(a, b, name)
+
+
+def test_bf16_sequence_matches_pallas_within_scale():
+    """Over Td = 4: ys, the residuals and all nine gradients (the CPU's bf16
+    autograd Function: the plain forward and backward and the stream
+    products) within 1e-2 of scale of the Pallas function in interpret
+    mode in bf16."""
+    import jax
+
+    args = _inputs(33, 4)
+    jargs, targs = _bf16_args(args)
+    ref = jag._run_fwd(*jargs, ACTS, True, residuals=True)
+    got = tag.attention_gru_reference(*targs, residuals=True)
+    for name, a, b in zip(("ys", "hprev", "acts", "alpha", "ctx"), got, ref):
+        assert_within_scale(a, b, name)
+    cot = np.random.RandomState(34).randn(4, 3, 8).astype(np.float32)
+    diff = (0, 1, 3, 5, 6, 7, 8, 9, 10)
+    jg = jax.grad(lambda *a: jnp.sum(jag.fused_attention_gru(*a, ACTS, True)
+                                     .astype(jnp.float32) * cot), diff)(*jargs)
+    leaves = [a.clone().requires_grad_(i in diff) for i, a in enumerate(targs)]
+    ys = tag.fused_attention_gru(*leaves)
+    assert ys.dtype == torch.bfloat16
+    (ys.float() * torch.from_numpy(cot)).sum().backward()
+    names = ("dep", "dev", "dxw", "dh0", "dwa", "dba", "dv", "dwctx", "dwg")
+    for name, i, b in zip(names, diff, jg):
+        assert leaves[i].grad.dtype == torch.bfloat16, name
+        assert_within_scale(leaves[i].grad, b, name)
+
+
+@pytest.mark.parametrize("residuals", [True, False])
+def test_the_kernels_take_bf16_where_a_path_launches_them(residuals):
+    """Kernels 5 and 6 (training) take float32 and bf16 operands; kernel 4
+    (the serve step, which stays float32) takes float32 alone. float16 is
+    refused by both before any launch."""
+    args = [torch.from_numpy(a) for a in _inputs(9, 2)]
+    cast = lambda dt: [a.to(dt) for a in args]
+    tag._check_operands(*cast(torch.float32), ACTS, residuals=residuals)
+    refused = [torch.float16] + ([] if residuals else [torch.bfloat16])
+    if residuals:
+        tag._check_operands(*cast(torch.bfloat16), ACTS, residuals=True)
+    for dt in refused:
+        with pytest.raises(ValueError, match="do not take"):
+            tag._check_operands(*cast(dt), ACTS, residuals=residuals)

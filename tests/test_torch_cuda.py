@@ -1442,3 +1442,154 @@ def test_seqToseq_demo_trains_through_the_command_line_on_the_card(dev, tmp_path
     card, cpu = results["true"], results["false"]
     assert np.isfinite(card["cost"])
     assert abs(card["cost"] - cpu["cost"]) <= 1e-3 * abs(cpu["cost"]), (card, cpu)
+
+
+# ------------------------------------------------------------ bf16 operands
+# The bf16 instances of kernels 1-3, 5 and 6 against their bf16 plain
+# versions (the same rounding points): within 1e-2 of the plain result's
+# largest magnitude, about one bf16 ulp there (2^-8), since a sum taken in
+# another order may round the other way and the step after carries it.
+
+BF16_TOL = 1e-2
+
+
+def _bf(a, dev):
+    return _t(a, dev).to(torch.bfloat16)
+
+
+def _scale_err(got, want):
+    return float((got.float() - want.float()).abs().max()) / max(
+        1e-30, float(want.float().abs().max()))
+
+
+@pytest.mark.parametrize("T,B,H", [(7, 5, 40), (1, 1, 8), (3, 2, 600), (32, 64, 512),
+                                   (2, 2700, 512)])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_gru_bf16_kernels_match_plain_versions(dev, T, B, H, reverse):
+    """Kernels 1, 2 and 3 in bf16: ys, the residuals, dx3 and dW within
+    1e-2 of scale of gru_forward_reference / gru_backward_reference in bf16
+    (at H = 600 two unit groups a block, at B = 2700 w's columns in device
+    memory); every output bf16; two launches bit-equal; kernel 1's ys equal
+    kernel 2's."""
+    from paddle_tpu_torch.ops import fused_gru as fg
+
+    rng = np.random.RandomState(T * 7 + H + B)
+    x3 = _bf(rng.randn(B, T, 3 * H) * 0.5, dev).transpose(0, 1)
+    w = _bf(rng.randn(H, 3 * H) / np.sqrt(H), dev)
+    lens = rng.randint(1, T + 1, B)
+    lens[-1] = 0
+    mask = _t(np.arange(T)[:, None] < lens[None, :], dev)
+    dy = _bf(rng.randn(T, B, H), dev)
+    light = fg.fused_gru(x3, mask, w, reverse=reverse)
+    got = fg._launch_fwd(x3, mask, w, reverse, fg.KERNEL_ACTS, residuals=True)
+    again = fg._launch_fwd(x3, mask, w, reverse, fg.KERNEL_ACTS, residuals=True)
+    ref = fg.gru_forward_reference(x3, mask, w, reverse, residuals=True)
+    bwd = fg._launch_bwd(dy, got[1], got[2], mask, w, reverse, fg.KERNEL_ACTS)
+    bwd2 = fg._launch_bwd(dy, got[1], got[2], mask, w, reverse, fg.KERNEL_ACTS)
+    pb = fg.gru_backward_reference(dy, got[1], got[2], mask, w, reverse)
+    torch.cuda.synchronize()
+    assert all(a.dtype == torch.bfloat16 for a in (light, *got, *bwd))
+    assert torch.equal(light, got[0])
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert all(torch.equal(a, b) for a, b in zip(bwd, bwd2))
+    for name, a, b in zip(("ys", "acts", "hprev", "dx3", "dw"), (*got, *bwd), (*ref, *pb)):
+        assert torch.isfinite(a.float()).all(), name
+        assert _scale_err(a, b) <= BF16_TOL, (name, _scale_err(a, b))
+
+
+@pytest.mark.parametrize("Td,Te,B,D,E", [(4, 8, 8, 128, 256), (3, 5, 3, 40, 24),
+                                         (32, 32, 64, 512, 1024), (8, 128, 64, 512, 1024)])
+def test_attention_bf16_kernels_match_plain_versions(dev, Td, Te, B, D, E):
+    """Kernels 5 and 6 in bf16: ys, the residuals and the backward's seven
+    outputs within 1e-2 of scale of attention_gru_reference /
+    attention_gru_backward_reference in bf16; the forward's m (float32)
+    against round(hprev) . wa + ba; two launches bit-equal."""
+    from paddle_tpu_torch.ops import fused_attention_gru as fa
+
+    rng = np.random.RandomState(Td + Te + D)
+    r = lambda *s: rng.randn(*s) * 0.3
+    lens = rng.randint(1, Te + 1, B)
+    lens[0] = 0
+    em = (np.arange(Te)[:, None] < lens[None, :])[:, :, None]
+    dm = (np.arange(Td)[:, None] < rng.randint(1, Td + 1, B)[None, :])[:, :, None]
+    args = [_bf(r(B, Te, D), dev).transpose(0, 1), _bf(r(B, Te, E), dev).transpose(0, 1),
+            _bf(em, dev), _bf(r(Td, B, 3 * D), dev), _bf(dm, dev), _bf(r(B, D), dev),
+            _bf(rng.randn(D, D) / np.sqrt(D), dev), _bf(r(1, D), dev), _bf(r(1, D), dev),
+            _bf(rng.randn(E, 3 * D) / np.sqrt(E), dev), _bf(rng.randn(D, 3 * D) / np.sqrt(D), dev)]
+    dy = _bf(rng.randn(Td, B, D), dev)
+    got = fa._launch_fwd(*args, fa.KERNEL_ACTS, residuals=True)
+    again = fa._launch_fwd(*args, fa.KERNEL_ACTS, residuals=True)
+    ref = fa.attention_gru_reference(*args, residuals=True)
+    ep, ev, _, _, dmask, _, wa, ba, v, wctx, wg = args
+    ys, hprev, saved, alpha, ctxs, m = got
+    kb = fa._launch_bwd(dy, ep, ev, dmask, hprev, saved, alpha, m, wa, v, wctx, wg)
+    kb2 = fa._launch_bwd(dy, ep, ev, dmask, hprev, saved, alpha, m, wa, v, wctx, wg)
+    pb = fa.attention_gru_backward_reference(dy, ep, ev, dmask, hprev, saved, alpha, wa, ba, v,
+                                             wctx, wg)
+    torch.cuda.synchronize()
+    assert all(a.dtype == torch.bfloat16 for a in got[:5]) and m.dtype == torch.float32
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert all(torch.equal(a, b) for a, b in zip(kb, kb2))
+    m_ref = hprev.float() @ wa.float() + ba.float()
+    assert _scale_err(m, m_ref) <= 1e-5
+    for name, a, b in zip(("ys", "hprev", "acts", "alpha", "ctx", "dxw", "dctx", "dh0", "dep",
+                           "dwa", "dba", "dv"), (*got[:5], *kb), (*ref, *pb)):
+        assert torch.isfinite(a.float()).all(), name
+        assert _scale_err(a, b) <= BF16_TOL, (name, _scale_err(a, b))
+
+
+def test_nmt_bf16_step_takes_the_bf16_kernels(dev):
+    """One Adam step of the seqToseq model in bf16 at dim 128, B = 8: the
+    bf16 instances launch (2, 2, 1, 1 of kernels 2, 3, 5 and 6), the float32
+    ones and the eager routes not at all; the master parameters stay
+    float32; the loss within 1e-2 of the same step's on the CPU."""
+    from paddle_tpu_torch.flagship import nmt_batch, nmt_config
+    from paddle_tpu_torch.ops import fused_attention_gru as fa
+    from paddle_tpu_torch.ops import fused_gru as fg
+    from paddle_tpu_torch.trainer import Trainer
+
+    ks = (fg.GRU_FWD_TRAIN_BF16, fg.GRU_BWD_BF16, fa.ATTENTION_GRU_FWD_TRAIN_BF16,
+          fa.ATTENTION_GRU_BWD_BF16, fg.GRU_FWD_TRAIN, fg.GRU_BWD,
+          fa.ATTENTION_GRU_FWD_TRAIN, fa.ATTENTION_GRU_BWD)
+    tc = nmt_config(vocab=300, dim=128, batch_size=8, dtype="bfloat16")
+    trainer = Trainer(tc)
+    cpu = Trainer(tc, device="cpu")
+    cpu.params = {k: v.cpu() for k, v in trainer.params.items()}
+    cpu.opt_state = cpu.updater.init_state(cpu.params)
+    before = [k.launches for k in ks] + [fg.EAGER_ROUTES, fa.EAGER_ROUTES]
+    loss = float(trainer.train_one_batch(nmt_batch(vocab=300, B=8, T=12, seed=2, device=dev)))
+    torch.cuda.synchronize()
+    after = [k.launches for k in ks] + [fg.EAGER_ROUTES, fa.EAGER_ROUTES]
+    assert [a - b for a, b in zip(after, before)] == [2, 2, 1, 1, 0, 0, 0, 0, 0, 0]
+    assert all(v.dtype == torch.float32 for v in trainer.params.values())
+    want = float(cpu.train_one_batch(nmt_batch(vocab=300, B=8, T=12, seed=2, device="cpu")))
+    assert abs(loss - want) <= 1e-2 * abs(want), (loss, want)
+
+
+def test_bf16_models_past_the_nmt_kernels_raise_naming_roadmap_item_7(dev):
+    """A bf16 model that reaches kernels 7a-12 on the card raises, naming
+    ROADMAP Queue 1 item 7: no float32 widening and no eager route."""
+    from paddle_tpu_torch.flagship import (example_batch, flagship_config, lm_batch,
+                                           long_context_config, make_image_batch,
+                                           resnet_config)
+    from paddle_tpu_torch.ops import flash_attention, fused_conv1x1_bn, fused_lstm
+    from paddle_tpu_torch.trainer import Trainer
+
+    def bf16(tc):
+        tc.opt_config.dtype = "bfloat16"
+        return tc
+
+    resnet = bf16(resnet_config(layer_num=50, img_size=32, classes=16))
+    resnet.opt_config.conv_stats_mode = "pallas"
+    cases = [(bf16(flagship_config(dict_dim=100, emb_dim=16, hidden=32)),
+              lambda d: example_batch(100, B=4, T=6, device=d)),
+             (bf16(long_context_config()), lambda d: lm_batch(500, B=2, T=64, seed=1, device=d)),
+             (resnet, lambda d: make_image_batch(2, 32, 16, seed=1, device=d))]
+    eager = (fused_lstm.EAGER_ROUTES, flash_attention.EAGER_ROUTES,
+             fused_conv1x1_bn.EAGER_ROUTES)
+    for tc, batch in cases:
+        trainer = Trainer(tc)
+        with pytest.raises(ValueError, match="ROADMAP Queue 1 item 7"):
+            trainer.train_one_batch(batch(dev))
+    assert (fused_lstm.EAGER_ROUTES, flash_attention.EAGER_ROUTES,
+            fused_conv1x1_bn.EAGER_ROUTES) == eager

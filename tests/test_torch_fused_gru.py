@@ -16,6 +16,7 @@ import pytest
 import torch
 
 import paddle_tpu.graph  # noqa: F401  (break the layers<->graph import cycle)
+from torch_bf16_checks import assert_within_one_ulp, assert_within_scale, bf16, f32
 from paddle_tpu.ops import pallas_gru as pg
 from paddle_tpu_torch.ops import fused_gru as tg
 
@@ -252,3 +253,82 @@ def test_forward_launch_asks_the_gate_before_the_plan_and_the_launch(monkeypatch
     with pytest.raises(ValueError, match="do not take"):
         tg._launch_fwd(*args)
     assert order == ["supported"] and len(launched) == 1
+
+
+# ------------------------------------------------------------ bf16 operands
+
+@pytest.mark.parametrize("T", [1, 2])
+def test_bf16_plain_versions_match_pallas_at_one_step(T):
+    """At T = 1 the bf16 plain forward and backward round where the Pallas
+    kernels do in bf16 (h and r*h before the products, dcand and dg before
+    the products with w transposed, dW rounded once), so every output,
+    residual and gradient is within one bf16 ulp of the interpreted kernel.
+    The carry starts at 0, so T = 2 is the first step whose products and
+    dW see a rounded h: it holds to the same bound."""
+    x, w, _, mask = _inputs(21, T=T, B=4)
+    mask[:, -1] = 1.0
+    (jx, tx), (jw, tw) = bf16(x), bf16(w)
+    jys, jacts, jhp = pg._run_fwd(jx, jnp.asarray(mask)[:, :, None], jw, tg.KERNEL_ACTS, True,
+                                  residuals=True)
+    got = tg.gru_forward_reference(tx, torch.from_numpy(mask), tw, residuals=True)
+    for name, a, b in zip(("ys", "acts", "hprev"), got, (jys, jacts, jhp)):
+        assert a.dtype == torch.bfloat16, name
+        assert_within_one_ulp(a, b, name)
+    dy = np.random.RandomState(22).randn(T, 4, 16).astype(np.float32)
+    jdy, tdy = bf16(dy)
+    jdx, jdw = pg._run_bwd(jdy, jacts, jhp, jnp.asarray(mask)[:, :, None], jw, tg.KERNEL_ACTS,
+                           True)
+    to_t = lambda a: torch.from_numpy(f32(a)).to(torch.bfloat16)
+    dx, dw = tg.gru_backward_reference(tdy, to_t(jacts), to_t(jhp), torch.from_numpy(mask), tw)
+    assert dx.dtype == dw.dtype == torch.bfloat16
+    assert_within_one_ulp(dx, jdx, "dx3")
+    assert_within_one_ulp(dw, jdw, "dw")
+
+
+@pytest.mark.parametrize("reversed_", [False, True])
+def test_bf16_sequence_matches_pallas_within_scale(reversed_):
+    """Over a sequence: ys, the residuals and both gradients (the CPU's
+    bf16 autograd Function: the plain forward and backward) within 1e-2 of
+    scale of the Pallas function in interpret mode in bf16."""
+    import jax
+
+    x, w, bias, mask = _inputs(23, T=6, B=4)
+    x3 = x + bias
+    (jx, tx), (jw, tw) = bf16(x3), bf16(w)
+    flip = (lambda a: a[::-1]) if reversed_ else (lambda a: a)
+    ref = pg._run_fwd(jnp.asarray(flip(f32(jx)).copy()).astype(jnp.bfloat16),
+                      jnp.asarray(flip(mask).copy())[:, :, None], jw, tg.KERNEL_ACTS, True,
+                      residuals=True)
+    got = tg.gru_forward_reference(tx, torch.from_numpy(mask), tw, reverse=reversed_,
+                                   residuals=True)
+    for name, a, b in zip(("ys", "acts", "hprev"), got, ref):
+        assert_within_scale(a, flip(f32(b)), name)
+    cot = np.random.RandomState(24).randn(6, 4, 16).astype(np.float32)
+    cfg = types.SimpleNamespace(size=16, reversed=reversed_,
+                                active_type="tanh", active_gate_type="sigmoid")
+
+    def jloss(x3_, w_):
+        ys = pg.gru_layer_forward(cfg, x3_, jnp.asarray(mask), w_, None, interpret=True)
+        return jnp.sum(ys.astype(jnp.float32) * cot)
+
+    jdx, jdw = jax.grad(jloss, (0, 1))(jx, jw)
+    xl, wl = tx.clone().requires_grad_(), tw.clone().requires_grad_()
+    ys = tg.fused_gru(xl, torch.from_numpy(mask), wl, reverse=reversed_)
+    assert ys.dtype == torch.bfloat16
+    (ys.float() * torch.from_numpy(cot)).sum().backward()
+    assert xl.grad.dtype == wl.grad.dtype == torch.bfloat16
+    assert_within_scale(xl.grad, jdx, "dx3")
+    assert_within_scale(wl.grad, jdw, "dw")
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
+def test_the_kernels_refuse_other_operand_types(dtype):
+    """Kernels 1-3 have a float32 and a bf16 instance: operands of another
+    type are refused before any launch, whatever supported() says of the
+    shape (it decides no operand type)."""
+    x, w, _, mask = _inputs(5, with_bias=False)
+    x3, tw, tm = torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(mask)
+    for od in tg.OPERAND_DTYPES:
+        tg._check_operands(x3.to(od), tm, tw.to(od), tg.KERNEL_ACTS)
+    with pytest.raises(ValueError, match="float32 or bf16"):
+        tg._check_operands(x3.to(dtype), tm, tw.to(dtype), tg.KERNEL_ACTS)

@@ -175,9 +175,15 @@ def test_refusals_name_what_is_not_ported(tiny, tmp_path):
 
     tm, tp = tiny["tm"], tiny["tp"]
     # speculation and bf16 slot state are ported (tests/test_torch_speculative.py);
-    # a model that computes in another dtype than float32 is not
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        GradientMachine(tiny["ttc"].model_config, device="cpu", compute_dtype="bfloat16")
+    # a model that computes in bf16 builds and trains, but the fused decode
+    # step refuses it with the JAX package's reason, and so does the backend
+    bf16 = GradientMachine(tiny["ttc"].model_config, device="cpu", compute_dtype="bfloat16")
+    assert bf16.compute_dtype == torch.bfloat16
+    fp, why = plan_fused_step(bf16, plan_of(bf16)[0])
+    assert fp is None and why == ("fused step supports float32 compute only "
+                                  "(model computes in bfloat16)")
+    with pytest.raises(UnsupportedModelError, match="float32 compute only"):
+        TorchDecodeBackend(bf16, tp, slots=2, prompt_tokens=T, fused_step=True)
     # a generator group with a sequence-valued memory generates
     # (tests/test_torch_generation.py holds it to the JAX package), but the
     # slot-batched decode step refuses it, naming why, as the JAX plan does

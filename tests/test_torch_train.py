@@ -301,3 +301,47 @@ def test_dropout_keeps_one_minus_p_from_an_explicit_generator():
     assert torch.equal(_dropout_out(p, "test", None), torch.ones(400, 500))
     with pytest.raises(ValueError, match="no seed"):
         _dropout_out(p, "train", None)
+
+
+# --------------------------------------------------------------- bf16 compute
+
+
+def test_nmt_bf16_step_matches_the_jax_kernels(monkeypatch):
+    """The whole NMT step in bf16 mixed precision at dim 16: the port on the
+    CPU (its bf16 plain versions, as autograd Functions) against the JAX
+    GradientMachine(compute_dtype=bf16, pallas_rnn=True, pallas_decoder=True)
+    with the Pallas kernels in interpret mode. The loss within rtol 5e-3 /
+    atol 1e-3 and each gradient, over its max |.|, within atol 0.05: the
+    JAX package's own bound for its bf16 decoder kernel against its scan
+    (tests/test_fused_decoder.py::test_machine_parity_seqtoseq_bf16). The
+    master gradients are float32 on both sides."""
+    import jax.numpy as jnp
+
+    from paddle_tpu.graph import fused_decoder as jax_fd
+
+    monkeypatch.setenv("PADDLE_TPU_PALLAS_INTERPRET", "1")
+    tc = jax_nmt_config(vocab=50, dim=16, batch_size=4, dtype="bfloat16")
+    jm = JaxMachine(tc.model_config, compute_dtype=jnp.bfloat16, pallas_rnn=True,
+                    pallas_decoder=True)
+    jparams = jm.init_params(seed=11)
+    dec_calls = _spy(monkeypatch, jax_fd, "run_fused_decoder")
+    jloss, jgrads, _, _ = jm.grad_fn()(jparams, jax_nmt_batch(vocab=50, B=4, T=5),
+                                       jax.random.PRNGKey(0))
+    assert dec_calls == [True], "the JAX fused decoder kernel did not engage"
+    fused = _spy(monkeypatch, port_fd, "run_fused_decoder")
+    machine = GradientMachine(nmt_config(vocab=50, dim=16, batch_size=4,
+                                         dtype="bfloat16").model_config,
+                              device="cpu", compute_dtype="bfloat16")
+    loss, grads, outs, _ = machine.grad_fn()(params_from_numpy(_np(jparams), "cpu"),
+                                             nmt_batch(vocab=50, B=4, T=5, device="cpu"))
+    assert fused == [True]
+    assert outs["__embedding_0__"].value.dtype == torch.bfloat16
+    assert loss.dtype == torch.float32
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=5e-3, atol=1e-3)
+    assert sorted(grads) == sorted(jgrads)
+    for name in sorted(jgrads):
+        assert grads[name].dtype == torch.float32, name
+        b = np.asarray(jgrads[name], np.float32)
+        scale = max(1e-3, float(np.abs(b).max()))
+        np.testing.assert_allclose(grads[name].numpy() / scale, b / scale, rtol=0.0,
+                                   atol=0.05, err_msg=name)
