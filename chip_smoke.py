@@ -225,6 +225,29 @@ Phases, each printing one JSON object per line:
              test cost and classification_error of a B = 4 batch against
              the CPU's, and classification_error on the training batch no
              higher after the 8 steps than before them.
+7a. lstm_bf16 — the LSTM classifier in bf16 mixed precision: the same
+             Trainer with dtype="bfloat16" from the same seed (so the
+             float32 phase's initial parameters), 8 Adam steps on its batch
+             between zeroed counts (8 launches each of lstm_fwd_train_bf16
+             and lstm_bwd_bf16, no other kernel, 0 eager routes), the
+             losses finite, falling and within rtol 0.05 / atol 0.02 of
+             the float32 phase's, the master parameters and Adam slots
+             float32; Trainer.test over the 4 test batches (4 launches of
+             lstm_fwd_bf16, nothing else); a B = 4 bf16 step against the
+             CPU's bf16 plain versions (loss and every gradient within 1e-2
+             of scale). Kernels 7a, 7b and 8 in bf16 at the path's shape
+             against their bf16 plain versions (every output within 1e-2
+             of scale, two launches bit-equal), timed as in phase 5, with
+             their bound at 2-byte operands and the bf16 tensor-core rate
+             and their design's bound. The step's median wall time, a
+             profiled step's device time, tokens/s and the peak memory,
+             beside the float32 step's.
+7b. lstm_remat — 3 float32 steps of the classifier with remat="full" from
+             the float32 phase's parameters and batch: losses equal to its
+             first three (1e-6 relative), exactly 2 lstm_fwd_train and 1
+             lstm_bwd a step (the backward's recompute launches the
+             training forward again), the peak memory beside the plain
+             steps'.
 
 8. conv_kernels — kernel 9 at the nine distinct (M, K, N) of ResNet-50's
              1x1 stride-1 convs at B = 64, 224² (taken from the model
@@ -398,7 +421,9 @@ TRAIN_KERNELS = ("gru_fwd_train", "gru_bwd", "attention_gru_fwd_train", "attenti
 LSTM_KERNELS = ("lstm_fwd", "lstm_fwd_train", "lstm_bwd")
 # the LSTM classifier as bench.py trains it (bench_lstm_classifier)
 LSTM = dict(dict_dim=10000, emb_dim=256, hidden=512, classes=2, batch=256, T=64,
-            steps=8, cpu_batch=4, test_batches=4)
+            steps=8, cpu_batch=4, test_batches=4, remat_steps=3)
+LSTM_BF16_KERNELS = ("lstm_fwd_bf16", "lstm_fwd_train_bf16", "lstm_bwd_bf16")
+REMAT_TOL = 1e-6           # relative: remat recomputes the same forward
 # ResNet-50 as bench.py trains it (bench_resnet50), with the demo's batch
 RESNET = dict(layer_num=50, img_size=224, classes=1000, batch=64, steps=8, cpu_batch=2,
               test_batches=2, launches_per_step=30)
@@ -3323,36 +3348,55 @@ def phase_lstm_kernels(torch, dev):
     return out
 
 
-def phase_lstm_train(torch, dev, kernels):
-    """The LSTM classifier's train step on the card: 8 Adam steps through
-    Trainer with the launch counts of that run, a B = 4 step against the
-    CPU, and one profiled step. Returns the trainer and its batch for the
-    test phase, with the training batch's classification_error before the
-    steps."""
+def lstm_classifier(torch, dev, **opt):
+    """Trainer(flagship_config(...)) on the card at LSTM's widths and batch
+    size, with the OptimizationConfig fields ``opt``, from the flags' seed
+    (so every call starts from the same parameters), and the training batch
+    (seed 1)."""
     from paddle_tpu_torch.flagship import example_batch, flagship_config
-    from paddle_tpu_torch.graph import GradientMachine
     from paddle_tpu_torch.trainer import Trainer
 
-    widths = {k: LSTM[k] for k in ("dict_dim", "emb_dim", "hidden", "classes")}
-    tc = flagship_config(**widths)
+    tc = flagship_config(**{k: LSTM[k] for k in ("dict_dim", "emb_dim", "hidden", "classes")})
     tc.opt_config.batch_size = LSTM["batch"]
-    trainer = Trainer(tc)                             # the card (--use_tpu)
-    batch = example_batch(LSTM["dict_dim"], B=LSTM["batch"], T=LSTM["T"], seed=1, device=dev)
-    err_key = next(e.name for e in tc.model_config.evaluators) + ".classification_error"
-    err_before = trainer.test_batches([batch])[err_key]
+    for key, value in opt.items():
+        setattr(tc.opt_config, key, value)
+    trainer = Trainer(tc)
+    return trainer, example_batch(LSTM["dict_dim"], B=LSTM["batch"], T=LSTM["T"], seed=1,
+                                  device=dev)
+
+
+def train_steps(torch, dev, kernels, trainer, batch, n):
+    """n steps between zeroed counts: (losses, wall seconds a step, launches,
+    eager routes, peak bytes from just before the first step)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     zero_counts(kernels)
     losses, step_s = [], []
-    for _ in range(LSTM["steps"]):
+    for _ in range(n):
         t0 = time.perf_counter()
         loss = trainer.train_one_batch(batch)
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
         losses.append(float(loss))
     launches, routes = read_counts(kernels)
-    peak = torch.cuda.max_memory_allocated(dev)
+    return losses, step_s, launches, routes, torch.cuda.max_memory_allocated(dev)
+
+
+def phase_lstm_train(torch, dev, kernels):
+    """The LSTM classifier's train step on the card: 8 Adam steps through
+    Trainer with the launch counts of that run, a B = 4 step against the
+    CPU, and one profiled step. Returns the trainer and its batch for the
+    test phase, with the training batch's classification_error before the
+    steps."""
+    from paddle_tpu_torch.flagship import example_batch
+    from paddle_tpu_torch.graph import GradientMachine
+
+    trainer, batch = lstm_classifier(torch, dev)      # the card (--use_tpu)
+    tc = trainer.config
+    err_key = next(e.name for e in tc.model_config.evaluators) + ".classification_error"
+    err_before = trainer.test_batches([batch])[err_key]
     n = LSTM["steps"]
+    losses, step_s, launches, routes, peak = train_steps(torch, dev, kernels, trainer, batch, n)
     assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
     want = {k.symbol: 0 for k in kernels}
     want.update(lstm_fwd_train=n, lstm_bwd=n)
@@ -3380,8 +3424,226 @@ def phase_lstm_train(torch, dev, kernels):
              "cpu_step_loss_rel_err": loss_err,
              "cpu_step_grad_max_err_over_scale": max(grad_err.values())}
     emit(train)
-    profiled(torch, "lstm_train_profile", lambda: trainer.train_one_batch(batch))
+    train["profile_device_ms"] = profiled(
+        torch, "lstm_train_profile", lambda: trainer.train_one_batch(batch))[1]["device_ms"]
     return train, trainer, batch, err_key, err_before
+
+
+def lstm_bf16_bytes(T, B, H):
+    """Bytes of kernels 7a, 7b and 8's bf16 instances, each input read and
+    each output written once: every bf16 operand at 2 bytes, the mask and
+    cprev at 4."""
+    light = 2.0 * (T * B * 4 * H + H * 4 * H + 3 * H + T * B * H) + 4.0 * T * B
+    residuals = 2.0 * (T * B * 4 * H + T * B * H) + 4.0 * T * B * H      # acts, hprev; cprev
+    bwd = (2.0 * (T * B * H + T * B * 4 * H + T * B * H + H * 4 * H + 3 * H    # dy, acts, hprev, w, peep
+                  + T * B * 4 * H + H * 4 * H + 3 * H)                       # dx4, dw, dpeep
+           + 4.0 * (T * B * H + T * B))                                     # cprev, mask
+    return {"lstm_fwd_bf16": light, "lstm_fwd_train_bf16": light + residuals,
+            "lstm_bwd_bf16": bwd}
+
+
+def lstm_bf16_kernel_cases(torch, dev, barrier_us):
+    """Kernels 7a, 7b and 8 in bf16 at the bf16 classifier's shape (T = 64,
+    B = 256, H = 512, its activations tanh, sigmoid, tanh), both ways,
+    against their bf16 plain versions, each output within BF16_TOL of
+    scale, two launches of each bit-equal, 7a's ys equal to 7b's; timed as
+    in phase 5. The bound at 2-byte operands and the bf16 tensor-core rate
+    (bound_ms); the design's bound (design_bound_ms): the forwards' product
+    as one TF32 mma.sync pass (bf16 operands are exact in TF32), kernel 8's
+    on the CUDA cores' float32 FMAs, each plus its barriers at the float32
+    grids' measured barrier time (the same plans)."""
+    from paddle_tpu_torch.ops import fused_lstm as fl
+
+    rng = np.random.RandomState(21)
+    bf = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev).to(
+        torch.bfloat16)
+    T, B, H = LSTM["T"], LSTM["batch"], LSTM["hidden"]
+    acts = ("tanh", "sigmoid", "tanh")
+    x4 = bf(rng.randn(B, T, 4 * H) * 0.5).transpose(0, 1)
+    w = bf(rng.randn(H, 4 * H) / np.sqrt(H))
+    peep = bf(rng.randn(3, H) * 0.1)
+    lens = rng.randint(T // 2, T + 1, B)
+    lens[5] = 0
+    mask = torch.from_numpy((np.arange(T)[:, None] < lens[None, :]).astype(np.float32)).to(dev)
+    dy = bf(rng.randn(T, B, H))
+    cases = {k: {"errors": {}, "timed": []} for k in LSTM_BF16_KERNELS}
+    for reverse in (False, True):
+        light = fl.fused_lstm(x4, mask, w, peep, reverse, acts)
+        got = fl._launch_fwd(x4, mask, w, peep, reverse, acts, residuals=True)
+        again = fl._launch_fwd(x4, mask, w, peep, reverse, acts, residuals=True)
+        ref = fl.lstm_forward_reference(x4, mask, w, peep, reverse, acts, residuals=True)
+        bwd = fl._launch_bwd(dy, *got[1:], mask, w, peep, reverse, acts)
+        bwd2 = fl._launch_bwd(dy, *got[1:], mask, w, peep, reverse, acts)
+        pb = fl.lstm_backward_reference(dy, *got[1:], mask, w, peep, reverse, acts)
+        torch.cuda.synchronize()
+        assert torch.equal(light, got[0]), ("lstm_fwd_bf16", reverse)
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), ("lstm_fwd_train_bf16", reverse)
+        assert all(torch.equal(a, b) for a, b in zip(bwd, bwd2)), ("lstm_bwd_bf16", reverse)
+        assert got[3].dtype == torch.float32 and all(
+            a.dtype == torch.bfloat16 for a in (light, *got[:3], *bwd))
+        for name, errs in (
+                ("lstm_fwd_bf16", _scale_errs(["ys"], [light], ref[:1])),
+                ("lstm_fwd_train_bf16", _scale_errs(["ys", "acts", "hprev", "cprev"], got, ref)),
+                ("lstm_bwd_bf16", _scale_errs(["dx4", "dw", "dpeep"], bwd, pb))):
+            for out, e in errs.items():
+                assert e[1] <= BF16_TOL, (name, reverse, out, e)
+                key = f"{out}{'_reversed' if reverse else ''}"
+                cases[name]["errors"][key] = {"max_abs_err": e[0], "err_over_scale": e[1]}
+        saved = got[1:]
+        runs = {"lstm_fwd_bf16": (lambda: fl._launch_fwd(x4, mask, w, peep, reverse, acts, False),
+                                  lambda: fl.lstm_forward_reference(x4, mask, w, peep, reverse,
+                                                                    acts)),
+                "lstm_fwd_train_bf16": (
+                    lambda: fl._launch_fwd(x4, mask, w, peep, reverse, acts, True),
+                    lambda: fl.lstm_forward_reference(x4, mask, w, peep, reverse, acts,
+                                                      residuals=True)),
+                "lstm_bwd_bf16": (
+                    lambda: fl._launch_bwd(dy, *saved, mask, w, peep, reverse, acts),
+                    lambda: fl.lstm_backward_reference(dy, *saved, mask, w, peep, reverse,
+                                                       acts))}
+        for name, (run, plain) in runs.items():
+            cases[name]["timed"].append({"reverse": reverse, "ms": time_ms(torch, run),
+                                         "device_ms": time_ms(torch, run, hide_host=True),
+                                         "plain_ms": time_ms(torch, plain, reps=5)})
+    sizes = lstm_bytes_flops(T, B, H)
+    nbytes = lstm_bf16_bytes(T, B, H)
+    P = fl.grid_plan(B, H, fl.card_sms(dev))["row_groups"]
+    for name, f32 in (("lstm_fwd_bf16", "lstm_fwd"), ("lstm_fwd_train_bf16", "lstm_fwd_train"),
+                      ("lstm_bwd_bf16", "lstm_bwd")):
+        flops = sizes[f32][1]
+        if f32 == "lstm_bwd":
+            design = (bound(nbytes[name], flops)[0]
+                      + fl.grid_barriers(T, P) * barrier_us[f32] * 1e-3)
+        else:
+            design = (1e3 * max(nbytes[name] / PEAK_BYTES_PER_S, flops / PEAK_TF32_FLOPS)
+                      + fl.fwd_barriers(T) * barrier_us[f32] * 1e-3)
+        cases[name].update(bytes=nbytes[name], flops=flops, design_bound_ms=design,
+                           shape=dict(T=T, B=B, H=H, acts=list(acts)))
+    return cases
+
+
+def phase_lstm_bf16(torch, dev, kernels, f32_train, barrier_us):
+    """The LSTM classifier in bf16 mixed precision (docstring, 7a): the
+    launches of kernels 7a, 7b and 8's bf16 instances in 8 steps and a test
+    pass, the master state float32, the losses against the float32 run
+    from the same parameters, a B = 4 step against the CPU's bf16 plain
+    versions, the kernels against their plain versions, and the step's
+    time, device time, tokens/s and memory beside the float32 step's.
+    Returns the kernel rows of the bf16 instances."""
+    from paddle_tpu_torch.flagship import example_batch
+    from paddle_tpu_torch.graph import GradientMachine
+
+    t_phase = time.perf_counter()
+    trainer, batch = lstm_classifier(torch, dev, dtype="bfloat16")
+    assert trainer.gm.compute_dtype == torch.bfloat16
+    n = LSTM["steps"]
+    losses, step_s, launches, routes, peak = train_steps(torch, dev, kernels, trainer, batch, n)
+    want = {k.symbol: 0 for k in kernels}
+    want.update(lstm_fwd_train_bf16=n, lstm_bwd_bf16=n)
+    assert launches == want, (launches, want)
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    np.testing.assert_allclose(losses, f32_train["losses"], **BF16_LOSS_TOL)
+    assert all(p.dtype == torch.float32 for p in trainer.params.values())
+    slots = [v for s_ in trainer.opt_state.slots.values() for v in s_.values()
+             if torch.is_tensor(v) and v.is_floating_point()]
+    assert slots and all(v.dtype == torch.float32 for v in slots)
+    step_ms = 1e3 * statistics.median(step_s[1:])
+
+    # the test pass: kernel 7a's bf16 instance once a batch
+    batches = [example_batch(LSTM["dict_dim"], B=LSTM["batch"], T=LSTM["T"], seed=10 + i,
+                             device=dev) for i in range(LSTM["test_batches"])]
+    torch.cuda.synchronize()
+    zero_counts(kernels)
+    result = trainer.test_batches(batches)
+    torch.cuda.synchronize()
+    test_launches, test_routes = read_counts(kernels)
+    want_test = {k.symbol: 0 for k in kernels}
+    want_test["lstm_fwd_bf16"] = LSTM["test_batches"]
+    assert test_launches == want_test, (test_launches, want_test)
+    assert np.isfinite(result["cost"]), result
+
+    # one B = 4 bf16 step on the card against the CPU's bf16 plain versions
+    small = dict(dict_dim=LSTM["dict_dim"], B=LSTM["cpu_batch"], T=LSTM["T"], seed=2)
+    loss_g, grads_g, _, _ = trainer.gm.grad_fn()(trainer.params,
+                                                 example_batch(device=dev, **small))
+    cpu = GradientMachine(trainer.config.model_config, device="cpu", compute_dtype="bfloat16")
+    loss_c, grads_c, _, _ = cpu.grad_fn()({k: v.cpu() for k, v in trainer.params.items()},
+                                          example_batch(device="cpu", **small))
+    loss_err = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
+    grad_err = {k: float((grads_g[k].cpu() - g).abs().max()) / max(1e-30, float(g.abs().max()))
+                for k, g in grads_c.items()}
+    assert loss_err <= BF16_TOL and max(grad_err.values()) <= BF16_TOL, (loss_err, grad_err)
+
+    summary = profiled(torch, "lstm_bf16_train_profile",
+                       lambda: trainer.train_one_batch(batch))[1]
+    del trainer, batch, batches
+    cases = lstm_bf16_kernel_cases(torch, dev, barrier_us)
+    tokens = LSTM["batch"] * LSTM["T"]
+    emit({"phase": "lstm_bf16", "batch": LSTM["batch"], "T": LSTM["T"], "steps": n,
+          "losses": losses, "f32_losses": f32_train["losses"],
+          "loss_max_rel_diff_vs_f32": max(abs(a - b) / abs(b) for a, b in
+                                          zip(losses, f32_train["losses"])),
+          "step_ms": step_ms, "f32_step_ms": f32_train["step_ms"],
+          "step_ms_all": [1e3 * x for x in step_s],
+          "tokens_per_s": tokens / (step_ms / 1e3), "f32_tokens_per_s": f32_train["tokens_per_s"],
+          "profile_device_ms": summary["device_ms"],
+          "f32_profile_device_ms": f32_train["profile_device_ms"],
+          "peak_memory_bytes": peak, "f32_peak_memory_bytes": f32_train["peak_memory_bytes"],
+          "kernel_launches": {k: v for k, v in launches.items() if v}, "eager_routes": routes,
+          "test_cost": result["cost"],
+          "test_kernel_launches": {k: v for k, v in test_launches.items() if v},
+          "test_eager_routes": test_routes,
+          "cpu_step_loss_rel_err": loss_err, "cpu_step_grad_err_over_scale": grad_err,
+          "kernel_errors": {k: c["errors"] for k, c in cases.items()},
+          "seconds": time.perf_counter() - t_phase})
+    meta = {"lstm_fwd_bf16": ("paddle_tpu/ops/pallas_lstm.py:179 (_fwd_kernel_light in bf16; "
+                              "pallas_call :307)", test_launches, "lstm_bf16_test"),
+            "lstm_fwd_train_bf16": ("paddle_tpu/ops/pallas_lstm.py:155 (_fwd_kernel in bf16; "
+                                    "pallas_call :307)", launches, "lstm_bf16_train"),
+            "lstm_bwd_bf16": ("paddle_tpu/ops/pallas_lstm.py:201 (_bwd_kernel in bf16; "
+                              "pallas_call :341)", launches, "lstm_bf16_train")}
+    rows = []
+    for name, c in cases.items():
+        main_case = c["timed"][0]
+        b_ms, b_by = bound_bf16(c["bytes"], c["flops"])
+        launched = meta[name][1][name]
+        assert launched > 0, name
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/" + ("lstm_bwd.cu" if "bwd" in name else "lstm_fwd.cu"),
+            "replaces": meta[name][0], "launches": launched,
+            "max_abs_err": max(e["max_abs_err"] for e in c["errors"].values()),
+            "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+            "bound_ms": b_ms, "bound_by": b_by, "design_bound_ms": c["design_bound_ms"],
+            "device_ms": main_case["device_ms"], "library_ms": None,
+            "library_note": ("no single PyTorch call computes this function (torch.nn.LSTM has "
+                             "no peepholes and fixes the activations)"),
+            "main_path": meta[name][2], "operand_dtype": "bfloat16",
+            "max_err_over_scale": max(e["err_over_scale"] for e in c["errors"].values()),
+            "errors_by_output": c["errors"], "timed": c["timed"],
+            "bytes": c["bytes"], "flops": c["flops"], "shape": c["shape"]})
+    return rows
+
+
+def phase_lstm_remat(torch, dev, kernels, f32_train):
+    """remat="full" on the float32 classifier (docstring, 7b): 3 steps from
+    the float32 phase's parameters and batch, their losses equal to its
+    first three (the recompute is the same forward), kernel 7b twice a step
+    and kernel 8 once, and the peak memory beside the plain steps'."""
+    trainer, batch = lstm_classifier(torch, dev, remat="full")
+    n = LSTM["remat_steps"]
+    losses, step_s, launches, routes, peak = train_steps(torch, dev, kernels, trainer, batch, n)
+    want = {k.symbol: 0 for k in kernels}
+    want.update(lstm_fwd_train=2 * n, lstm_bwd=n)
+    assert launches == want, (launches, want)
+    plain = f32_train["losses"][:n]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, plain))
+    assert rel <= REMAT_TOL, (losses, plain)
+    emit({"phase": "lstm_remat", "steps": n, "losses": losses, "plain_losses": plain,
+          "loss_max_rel_diff": rel, "step_ms": 1e3 * statistics.median(step_s[1:]),
+          "plain_step_ms": f32_train["step_ms"], "step_ms_all": [1e3 * x for x in step_s],
+          "peak_memory_bytes": peak, "plain_peak_memory_bytes": f32_train["peak_memory_bytes"],
+          "kernel_launches": {k: v for k, v in launches.items() if v}, "eager_routes": routes})
 
 
 def phase_lstm_test(torch, dev, kernels, trainer, batch, err_key, err_before):
@@ -4547,6 +4809,9 @@ def main() -> int:
     lstm_train, trainer, batch, err_key, err_before = phase_lstm_train(torch, dev, kernels)
     lstm_test = phase_lstm_test(torch, dev, kernels, trainer, batch, err_key, err_before)
     del trainer, batch
+    bf16_rows += phase_lstm_bf16(torch, dev, kernels, lstm_train,
+                                 {name: k[name]["barrier_us"] for name in LSTM_KERNELS})
+    phase_lstm_remat(torch, dev, kernels, lstm_train)
     resnet_train, resnet_params = phase_resnet_train(torch, dev, kernels)
     resnet_test = phase_resnet_test(torch, dev, kernels, resnet_params)
     del resnet_params

@@ -68,6 +68,22 @@
 // the other triples read their codes at run time, some 4% slower on an
 // H100 at the classifier's shape (three instances per bundle width
 // instead of 64).
+//
+// The bf16 instance (lstm_bwd_bf16; the storage type S is a template
+// parameter) keeps the Pallas kernel's bf16 contract (pallas_lstm.py
+// _bwd_kernel): dy, acts, hprev, w and peep are bf16, widened on load (w
+// into the same float32 rows in shared memory, so the plan and the shared
+// memory are the float32 instance's), cprev is float32, and every sum runs
+// in float32. Phase 2 needs the gate gradients twice: rounded to bf16 for
+// DH = dgates . w^T, unrounded for dW += hprev^T . dgates. So phase 1
+// stores dx4[t] in bf16 (the output) and the unrounded values into a
+// float32 exchange buffer xch [2][B][4H], by step parity (a block may still
+// read step s's rows in its phase 2 while a faster one writes step s + 1's;
+// step s + 2 writes after the barrier every block passes only once its
+// phase 2 of step s is done), and phase 2 reads xch, rounding the rows for
+// the product alone (product_colsum_staged's kRoundX). dW and dpeep are
+// summed in float32 in the same fixed order and rounded once to bf16 as
+// they are written.
 
 #include "common.cuh"
 #include "persistent_grid.cuh"
@@ -137,17 +153,18 @@ inline size_t bwd_smem_floats(const BwdPlan& p, int H, bool w_smem, bool dw_smem
 }
 
 // kActIn, kActGate, kActState: act_f32 codes, or -1 to read the run-time
-// codes act_in, act_gate and act_state.
-template <int N, int kActIn, int kActGate, int kActState>
+// codes act_in, act_gate and act_state. xch: the bf16 instance's exchange
+// buffer (null for float).
+template <int N, int kActIn, int kActGate, int kActState, typename S>
 __global__ void __launch_bounds__(kThreads, 1)
-lstm_bwd_kernel(const float* __restrict__ dy, long long dy_st, long long dy_sb,
-                const float* __restrict__ acts, const float* __restrict__ hprev,
+lstm_bwd_kernel(const S* __restrict__ dy, long long dy_st, long long dy_sb,
+                const S* __restrict__ acts, const S* __restrict__ hprev,
                 const float* __restrict__ cprev,
                 const float* __restrict__ mask, long long m_st, long long m_sb,
-                const float* __restrict__ w, const float* __restrict__ peep,
-                float* dx4, float* __restrict__ dw, float* __restrict__ dpeep,
+                const S* __restrict__ w, const S* __restrict__ peep,
+                S* dx4, S* __restrict__ dw, S* __restrict__ dpeep,
                 float* wslices, float* dwacc, float* dwpart, float* ppart,
-                unsigned* counters, unsigned long long* phase_ns,
+                unsigned* counters, unsigned long long* phase_ns, float* xch,
                 int T, int B, int H, int reverse, int act_in_rt, int act_gate_rt,
                 int act_state_rt, int G, int gpb, int R, int w_smem, int dw_smem) {
   extern __shared__ float4 smem4[];
@@ -198,9 +215,9 @@ lstm_bwd_kernel(const float* __restrict__ dy, long long dy_st, long long dy_sb,
       if (k >= u1) {
         wg[j * N + c] = 0.0f;
       } else if (w_smem) {
-        cp_async4(wg + j * N + c, w + k * K + j);   // all of a thread's in flight at once
+        stage_f32(wg + j * N + c, w + k * K + j);   // all of a thread's in flight at once
       } else {
-        wg[j * N + c] = w[k * K + j];
+        wg[j * N + c] = to_f32(w[k * K + j]);
       }
       dwg[j * N + c] = 0.0f;
     }
@@ -216,7 +233,14 @@ lstm_bwd_kernel(const float* __restrict__ dy, long long dy_st, long long dy_sb,
     if (clocked) phase_ns[3 * s] = global_ns();
     const int t = reverse ? s : T - 1 - s;
     const long long tB = static_cast<long long>(t) * B;
-    float* dxt = dx4 + tB * K;
+    // the step's gate gradients as phase 2 reads them: dx4[t] itself in
+    // float32, the exchange buffer of the step's parity in bf16
+    float* dxt;
+    if constexpr (IsF32<S>::value) {
+      dxt = dx4 + tB * K;
+    } else {
+      dxt = xch + static_cast<long long>(s & 1) * B * K;
+    }
 
     // 1: the gate gradients of the owned units and rows. Thread tid takes
     //    items tid, tid + 256, ...: always unit c = tid % N (256 % N = 0),
@@ -240,15 +264,15 @@ lstm_bwd_kernel(const float* __restrict__ dy, long long dy_st, long long dy_sb,
           const int b = row0 + (ok[q] ? i / N : 0);
           const long long row = tB + b;
           const int kk = ok[q] ? k : u0;
-          const float* ar = acts + row * K + kk;    // [a | i | f | o]
+          const S* ar = acts + row * K + kk;        // [a | i | f | o]
           m[q] = ok[q] ? mask[t * m_st + b * m_sb] : 0.0f;
-          a[q] = ok[q] ? ar[0] : 0.0f;
-          ig[q] = ok[q] ? ar[H] : 0.0f;
-          fg[q] = ok[q] ? ar[2 * H] : 0.0f;
-          og[q] = ok[q] ? ar[3 * H] : 0.0f;
+          a[q] = ok[q] ? to_f32(ar[0]) : 0.0f;
+          ig[q] = ok[q] ? to_f32(ar[H]) : 0.0f;
+          fg[q] = ok[q] ? to_f32(ar[2 * H]) : 0.0f;
+          og[q] = ok[q] ? to_f32(ar[3 * H]) : 0.0f;
           cp[q] = ok[q] ? cprev[row * H + kk] : 0.0f;
-          hp[q] = ok[q] ? hprev[row * H + kk] : 0.0f;
-          dyv[q] = ok[q] ? dy[t * dy_st + b * dy_sb + kk] : 0.0f;
+          hp[q] = ok[q] ? to_f32(hprev[row * H + kk]) : 0.0f;
+          dyv[q] = ok[q] ? to_f32(dy[t * dy_st + b * dy_sb + kk]) : 0.0f;
         }
 #pragma unroll
         for (int q = 0; q < kBatch; ++q) {
@@ -262,7 +286,7 @@ lstm_bwd_kernel(const float* __restrict__ dy, long long dy_st, long long dy_sb,
           const float dh = m[q] * (dhs[i] + dyv[q]);
           const float dgo = dh * sc * dact_f32(act_gate, og[q]);
           const float dc = dh * og[q] * dact_f32(act_state, sc) + m[q] * dcv
-                           + dgo * peep[2 * H + k];
+                           + dgo * to_f32(peep[2 * H + k]);
           const float dgi = dc * a[q] * dact_f32(act_gate, ig[q]);
           const float dgf = dc * cp[q] * dact_f32(act_gate, fg[q]);
           const float dga = dc * ig[q] * dact_f32(act_in, a[q]);
@@ -271,7 +295,15 @@ lstm_bwd_kernel(const float* __restrict__ dy, long long dy_st, long long dy_sb,
           __stcg(dxr + H, dgi);
           __stcg(dxr + 2 * H, dgf);
           __stcg(dxr + 3 * H, dgo);
-          dcs[i] = dc * fg[q] + dgi * peep[k] + dgf * peep[H + k] + (1.0f - m[q]) * dcv;
+          if constexpr (!IsF32<S>::value) {        // the output, rounded
+            S* out = dx4 + (tB + b) * K + k;
+            out[0] = from_f32<S>(dga);
+            out[H] = from_f32<S>(dgi);
+            out[2 * H] = from_f32<S>(dgf);
+            out[3 * H] = from_f32<S>(dgo);
+          }
+          dcs[i] = dc * fg[q] + dgi * to_f32(peep[k]) + dgf * to_f32(peep[H + k])
+                   + (1.0f - m[q]) * dcv;
           hps[i] = hp[q];
           psb[tid] += dgi * cp[q];
           psb[kThreads + tid] += dgf * cp[q];
@@ -285,7 +317,8 @@ lstm_bwd_kernel(const float* __restrict__ dy, long long dy_st, long long dy_sb,
     // 2: DH = dx4[t] . w[k, :]^T + (1 - m) DH;  dW[k, :] += h_prev^T . dx4[t]
     for (int nb = 0; nb < bundles; ++nb) {
       float* dhs = DH(nb);
-      product_colsum_staged<N, Tile<N>::kCols, Tile<N>::kRows, Tile<N>::kStages>(
+      product_colsum_staged<N, Tile<N>::kCols, Tile<N>::kRows, Tile<N>::kStages,
+                            !IsF32<S>::value>(
           dxt + static_cast<long long>(row0) * K, K, rows, static_cast<int>(K), W(nb), HP(nb),
           DW(nb), red, ring, [&](int bl, int c, float v) {
             const int i = bl * N + c;
@@ -307,7 +340,7 @@ lstm_bwd_kernel(const float* __restrict__ dy, long long dy_st, long long dy_sb,
     float sum = 0.0f;
     for (int x = c; x < kThreads; x += N) sum += src[x];
     if (P == 1) {
-      dpeep[g * H + k] = sum;
+      dpeep[g * H + k] = from_f32<S>(sum);
     } else {
       __stcg(ppart + (static_cast<long long>(p) * 3 + g) * H + k, sum);
     }
@@ -332,7 +365,7 @@ lstm_bwd_kernel(const float* __restrict__ dy, long long dy_st, long long dy_sb,
       const int g = e / (u1 - u0), k = u0 + e % (u1 - u0);
       float sum = 0.0f;
       for (int q = 0; q < P; ++q) sum += __ldcg(ppart + (q * 3LL + g) * H + k);
-      dpeep[g * H + k] = sum;
+      dpeep[g * H + k] = from_f32<S>(sum);
     }
   }
   // dW: group 0's rows, plus the other groups' in group order, written once
@@ -345,24 +378,71 @@ lstm_bwd_kernel(const float* __restrict__ dy, long long dy_st, long long dy_sb,
       float v = dwg[j * N + c];
       for (int q = 1; q < P; ++q)
         v += __ldcg(dwpart + (q - 1) * static_cast<long long>(H) * K + k * K + j);
-      dw[k * K + j] = v;
+      dw[k * K + j] = from_f32<S>(v);
     }
   }
 }
 
-template <int N, int kActIn, int kActGate, int kActState>
-cudaError_t launch(const BwdPlan& plan, size_t smem, const float* dy, long long dy_st,
-                   long long dy_sb, const float* acts, const float* hprev, const float* cprev,
-                   const float* mask, long long m_st, long long m_sb, const float* w,
-                   const float* peep, float* dx4, float* dw, float* dpeep, float* wslices,
+template <int N, int kActIn, int kActGate, int kActState, typename S>
+cudaError_t launch(const BwdPlan& plan, size_t smem, const S* dy, long long dy_st,
+                   long long dy_sb, const S* acts, const S* hprev, const float* cprev,
+                   const float* mask, long long m_st, long long m_sb, const S* w,
+                   const S* peep, S* dx4, S* dw, S* dpeep, float* wslices,
                    float* dwacc, float* dwpart, float* ppart, unsigned* counters,
-                   unsigned long long* phase_ns, int T, int B, int H, int reverse, int act_in,
-                   int act_gate, int act_state, int w_smem, int dw_smem, cudaStream_t st) {
-  return launch_cooperative(lstm_bwd_kernel<N, kActIn, kActGate, kActState>,
+                   unsigned long long* phase_ns, float* xch, int T, int B, int H, int reverse,
+                   int act_in, int act_gate, int act_state, int w_smem, int dw_smem,
+                   cudaStream_t st) {
+  return launch_cooperative(lstm_bwd_kernel<N, kActIn, kActGate, kActState, S>,
                             plan.P * plan.G, smem, st, dy, dy_st, dy_sb, acts, hprev, cprev,
                             mask, m_st, m_sb, w, peep, dx4, dw, dpeep, wslices, dwacc, dwpart,
-                            ppart, counters, phase_ns, T, B, H, reverse, act_in, act_gate,
+                            ppart, counters, phase_ns, xch, T, B, H, reverse, act_in, act_gate,
                             act_state, plan.G, plan.gpb, plan.R, w_smem, dw_smem);
+}
+
+// The launch both entries share: check the plan and the scratch, zero the
+// barriers' counters, then the instance of the bundle width and the
+// activation triple.
+template <typename S>
+int run(const void* dy, long long dy_st, long long dy_sb, const void* acts, const void* hprev,
+        const void* cprev, const void* mask, long long m_st, long long m_sb, const void* w,
+        const void* peep, void* dx4, void* dw, void* dpeep, void* wslices, void* dwacc,
+        void* dwpart, void* ppart, void* counters, void* phase_ns, void* xch, int T, int B,
+        int H, int reverse, int act_in, int act_gate, int act_state, int num_sms,
+        int row_groups, int w_smem, int dw_smem, int runtime_acts, void* stream) {
+  if (T < 0 || B < 0 || H <= 0 || row_groups < 1 || row_groups > num_sms)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const BwdPlan plan = make_bwd_plan(B, H, num_sms, row_groups);
+  const size_t smem = bwd_smem_floats(plan, H, w_smem, dw_smem) * sizeof(float);
+  if (smem > kSmemLimit || (!w_smem && wslices == nullptr) || (!dw_smem && dwacc == nullptr)
+      || (plan.P > 1 && (dwpart == nullptr || ppart == nullptr))
+      || (!IsF32<S>::value && xch == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaMemsetAsync(counters, 0, (plan.P + 1) * sizeof(unsigned), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+#define LSTM_BWD_ARGS plan, smem, static_cast<const S*>(dy), dy_st, dy_sb, \
+    static_cast<const S*>(acts), static_cast<const S*>(hprev),              \
+    static_cast<const float*>(cprev), static_cast<const float*>(mask), m_st, m_sb, \
+    static_cast<const S*>(w), static_cast<const S*>(peep), static_cast<S*>(dx4), \
+    static_cast<S*>(dw), static_cast<S*>(dpeep), static_cast<float*>(wslices), \
+    static_cast<float*>(dwacc), static_cast<float*>(dwpart), static_cast<float*>(ppart), \
+    static_cast<unsigned*>(counters), static_cast<unsigned long long*>(phase_ns), \
+    static_cast<float*>(xch), T, B, H, reverse, act_in, act_gate, act_state, w_smem, dw_smem, st
+  // (tanh, sigmoid, sigmoid) and (tanh, sigmoid, tanh) compiled in, the rest at run time
+  const int fixed = runtime_acts || act_in != 0 || act_gate != 1 ? -1
+                    : act_state == 1 ? 1 : act_state == 0 ? 0 : -1;
+  if (plan.N == 8) {
+    err = fixed == 1   ? launch<8, 0, 1, 1, S>(LSTM_BWD_ARGS)
+          : fixed == 0 ? launch<8, 0, 1, 0, S>(LSTM_BWD_ARGS)
+                       : launch<8, -1, -1, -1, S>(LSTM_BWD_ARGS);
+  } else {
+    err = fixed == 1   ? launch<4, 0, 1, 1, S>(LSTM_BWD_ARGS)
+          : fixed == 0 ? launch<4, 0, 1, 0, S>(LSTM_BWD_ARGS)
+                       : launch<4, -1, -1, -1, S>(LSTM_BWD_ARGS);
+  }
+#undef LSTM_BWD_ARGS
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -394,37 +474,28 @@ extern "C" int lstm_bwd(const void* dy, long long dy_st, long long dy_sb,
                         int T, int B, int H, int reverse,
                         int act_in, int act_gate, int act_state, int num_sms, int row_groups,
                         int w_smem, int dw_smem, int runtime_acts, void* stream) {
-  if (T < 0 || B < 0 || H <= 0 || row_groups < 1 || row_groups > num_sms)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const BwdPlan plan = make_bwd_plan(B, H, num_sms, row_groups);
-  const size_t smem = bwd_smem_floats(plan, H, w_smem, dw_smem) * sizeof(float);
-  if (smem > kSmemLimit || (!w_smem && wslices == nullptr) || (!dw_smem && dwacc == nullptr)
-      || (plan.P > 1 && (dwpart == nullptr || ppart == nullptr)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaMemsetAsync(counters, 0, (plan.P + 1) * sizeof(unsigned), st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-#define LSTM_BWD_ARGS plan, smem, static_cast<const float*>(dy), dy_st, dy_sb, \
-    static_cast<const float*>(acts), static_cast<const float*>(hprev),          \
-    static_cast<const float*>(cprev), static_cast<const float*>(mask), m_st, m_sb, \
-    static_cast<const float*>(w), static_cast<const float*>(peep), static_cast<float*>(dx4), \
-    static_cast<float*>(dw), static_cast<float*>(dpeep), static_cast<float*>(wslices), \
-    static_cast<float*>(dwacc), static_cast<float*>(dwpart), static_cast<float*>(ppart), \
-    static_cast<unsigned*>(counters), static_cast<unsigned long long*>(phase_ns), T, B, H, \
-    reverse, act_in, act_gate, act_state, w_smem, dw_smem, st
-  // (tanh, sigmoid, sigmoid) and (tanh, sigmoid, tanh) compiled in, the rest at run time
-  const int fixed = runtime_acts || act_in != 0 || act_gate != 1 ? -1
-                    : act_state == 1 ? 1 : act_state == 0 ? 0 : -1;
-  if (plan.N == 8) {
-    err = fixed == 1   ? launch<8, 0, 1, 1>(LSTM_BWD_ARGS)
-          : fixed == 0 ? launch<8, 0, 1, 0>(LSTM_BWD_ARGS)
-                       : launch<8, -1, -1, -1>(LSTM_BWD_ARGS);
-  } else {
-    err = fixed == 1   ? launch<4, 0, 1, 1>(LSTM_BWD_ARGS)
-          : fixed == 0 ? launch<4, 0, 1, 0>(LSTM_BWD_ARGS)
-                       : launch<4, -1, -1, -1>(LSTM_BWD_ARGS);
-  }
-#undef LSTM_BWD_ARGS
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return run<float>(dy, dy_st, dy_sb, acts, hprev, cprev, mask, m_st, m_sb, w, peep, dx4, dw,
+                    dpeep, wslices, dwacc, dwpart, ppart, counters, phase_ns, nullptr, T, B, H,
+                    reverse, act_in, act_gate, act_state, num_sms, row_groups, w_smem, dw_smem,
+                    runtime_acts, stream);
+}
+
+// lstm_bwd's bf16 instance: dy, acts, hprev, w, peep and the outputs dx4,
+// dw and dpeep are bf16 (__nv_bfloat16); cprev and mask float32, the
+// scratch as lstm_bwd's, and xch, the unrounded gate gradients of the even
+// and odd steps, [2][B][4H] floats (16-byte aligned).
+extern "C" int lstm_bwd_bf16(const void* dy, long long dy_st, long long dy_sb,
+                             const void* acts, const void* hprev, const void* cprev,
+                             const void* mask, long long m_st, long long m_sb,
+                             const void* w, const void* peep,
+                             void* dx4, void* dw, void* dpeep, void* wslices, void* dwacc,
+                             void* dwpart, void* ppart, void* counters, void* phase_ns,
+                             void* xch, int T, int B, int H, int reverse,
+                             int act_in, int act_gate, int act_state, int num_sms,
+                             int row_groups, int w_smem, int dw_smem, int runtime_acts,
+                             void* stream) {
+  return run<__nv_bfloat16>(dy, dy_st, dy_sb, acts, hprev, cprev, mask, m_st, m_sb, w, peep,
+                            dx4, dw, dpeep, wslices, dwacc, dwpart, ppart, counters, phase_ns,
+                            xch, T, B, H, reverse, act_in, act_gate, act_state, num_sms,
+                            row_groups, w_smem, dw_smem, runtime_acts, stream);
 }

@@ -79,6 +79,22 @@
 // step's carry is 0 and is not read; 7b writes hprev[t0] = 0. Every sum
 // runs in a fixed order and nothing is summed by atomics: two launches
 // give the same bits.
+//
+// bf16 instances (lstm_fwd_bf16, lstm_fwd_train_bf16; the storage type S is
+// a template parameter) keep the Pallas kernels' bf16 contract
+// (pallas_lstm.py _cell_fwd, _fwd_kernel): x4, w and peep are bf16,
+// widened on load (w into the same float32 quads in shared memory, so the
+// plan and the shared memory are the float32 instances'); c and the
+// block's h stay float32 in its shared memory; every consumer of h reads
+// it rounded to bf16 (the product, the hprev residual, which is exactly
+// Pallas's h_prev.astype(bf16), and the masked pass-through that only
+// feeds those two), so the carry between blocks passes as bf16, through
+// hprev or a bf16 hbuf ([2][B][Hp], Hp = H rounded up to 8: rows of 16
+// bytes), staged as bf16 rows of KC + 8 values (16 bytes of padding) in
+// the float ring's carve. The product: a bf16 value is exact in TF32, so
+// the split's small halves are 0 and one TF32 mma.sync pass (big . big)
+// gives the exact products, summed in float32. ys, acts and hprev are
+// stored bf16, cprev float32. The mask is float32 in both.
 
 #include <cstdint>
 
@@ -137,14 +153,14 @@ inline size_t fwd_smem_floats(const FwdPlan& p, int H, bool w_smem) {
   return static_cast<size_t>(w + state + ring);
 }
 
-template <bool kResiduals>
+template <bool kResiduals, typename S>
 __global__ void __launch_bounds__(kThreads, 1)
-lstm_fwd_kernel(const float* __restrict__ x4, long long x_st, long long x_sb,
+lstm_fwd_kernel(const S* __restrict__ x4, long long x_st, long long x_sb,
                 const float* __restrict__ mask, long long m_st, long long m_sb,
-                const float* __restrict__ w, const float* __restrict__ peep,
-                float* __restrict__ ys, long long y_st, long long y_sb,
-                float* __restrict__ acts, float* hprev, float* __restrict__ cprev,
-                float* hbuf, float* wslices, unsigned* counters,
+                const S* __restrict__ w, const S* __restrict__ peep,
+                S* __restrict__ ys, long long y_st, long long y_sb,
+                S* __restrict__ acts, S* hprev, float* __restrict__ cprev,
+                S* hbuf, float* wslices, unsigned* counters,
                 unsigned long long* phase_ns, int T, int B, int H, int reverse,
                 int act_in, int act_gate, int act_state, int G, int gpb, int R, int QP, int KC,
                 int w_smem) {
@@ -161,14 +177,16 @@ lstm_fwd_kernel(const float* __restrict__ x4, long long x_st, long long x_sb,
   const int u1 = min(H, u0 + U);                      // and its end
   const int nq = U / 4;                               // quads
   const int RT = 16 * (kWarpsPerPass / QP);           // rows of a pass
-  const int S = KC + kPad;                            // floats of a staged row
-  const long long Hp = (H + 3) / 4 * 4;
+  constexpr int kV = 16 / static_cast<int>(sizeof(S));  // values in 16 bytes
+  const int SR = KC + kV;                             // values of a staged row
+  const long long Hp = (H + kV - 1) / kV * kV;
   const long long WQ = quad_floats(H);
   const long long H4 = 4LL * H;
   float* W = w_smem ? smem : wslices + static_cast<long long>(blockIdx.x) * nq * WQ;
   float* CS = smem + (w_smem ? nq * WQ : 0);          // c of the owned cells [R][U]
   float* HS = CS + static_cast<long long>(R) * U;     // the carried h [R][U]
-  float* ring = HS + static_cast<long long>(R) * U;   // the staged h chunks
+  // the staged h chunks, in S
+  S* ring = reinterpret_cast<S*>(HS + static_cast<long long>(R) * U);
   // 7b carries h in its hprev residual when every row starts on 16 bytes
   const bool hres = kResiduals && hbuf == nullptr;
   const long long ldh = hres ? H : Hp;
@@ -200,9 +218,9 @@ lstm_fwd_kernel(const float* __restrict__ x4, long long x_st, long long x_sb,
     if (k >= H || jj >= u1) {
       W[i] = 0.0f;
     } else if (w_smem) {
-      cp_async4(W + i, w + k * H4 + gate * static_cast<long long>(H) + jj);
+      stage_f32(W + i, w + k * H4 + gate * static_cast<long long>(H) + jj);
     } else {
-      W[i] = w[k * H4 + gate * static_cast<long long>(H) + jj];
+      W[i] = to_f32(w[k * H4 + gate * static_cast<long long>(H) + jj]);
     }
   }
   for (long long i = tid; i < 2LL * R * U; i += kThreads) CS[i] = 0.0f;
@@ -210,9 +228,9 @@ lstm_fwd_kernel(const float* __restrict__ x4, long long x_st, long long x_sb,
 #pragma unroll
   for (int qq = 0; qq < 2; ++qq) {
     const int j = jc[qq] < 0 ? 0 : jc[qq];
-    pi[qq] = peep[j];
-    pf[qq] = peep[H + j];
-    po[qq] = peep[2 * H + j];
+    pi[qq] = to_f32(peep[j]);
+    pf[qq] = to_f32(peep[H + j]);
+    po[qq] = to_f32(peep[2 * H + j]);
   }
   cp_async_commit();
   cp_async_wait<0>();
@@ -220,9 +238,9 @@ lstm_fwd_kernel(const float* __restrict__ x4, long long x_st, long long x_sb,
 
   const int passes = (rows + RT - 1) / RT;
   const int NC = (H + KC - 1) / KC;                   // chunks of a pass
-  // this thread's copies of a chunk: its column group c4 (of KC / 4, a
+  // this thread's copies of a chunk: its column group c4 (of KC / kV, a
   // power of 2 that divides 256) of rows rs, rs + rstep, ...
-  const int c4 = tid % (KC / 4), rs = tid / (KC / 4), rstep = kThreads / (KC / 4);
+  const int c4 = tid % (KC / kV), rs = tid / (KC / kV), rstep = kThreads / (KC / kV);
   const float* Wq[2] = {W + (2 * qp) * WQ, W + (2 * qp + 1) * WQ};
   const bool quad_ok[2] = {2 * qp < nq, 2 * qp + 1 < nq};
   // the x4 and mask of this lane's cells at time index tt, rows r0 + g
@@ -236,9 +254,10 @@ lstm_fwd_kernel(const float* __restrict__ x4, long long x_st, long long x_sb,
 #pragma unroll
       for (int qq = 0; qq < 2; ++qq) {
         const bool ok = jc[qq] >= 0 && r < rows;
-        const float* xr = x4 + tt * x_st + (row0 + (ok ? r : 0)) * x_sb + (ok ? jc[qq] : 0);
+        const S* xr = x4 + tt * x_st + (row0 + (ok ? r : 0)) * x_sb + (ok ? jc[qq] : 0);
 #pragma unroll
-        for (int gate = 0; gate < 4; ++gate) xv[2 * hh + qq][gate] = ok ? xr[gate * H] : 0.0f;
+        for (int gate = 0; gate < 4; ++gate)
+          xv[2 * hh + qq][gate] = ok ? to_f32(xr[gate * H]) : 0.0f;
       }
     }
   };
@@ -249,10 +268,10 @@ lstm_fwd_kernel(const float* __restrict__ x4, long long x_st, long long x_sb,
     const bool next = s + 1 < T;
     const int tn = reverse ? tt - 1 : tt + 1;
     // the carry into this step (none at the first) and out of it
-    const float* hin = s == 0 ? nullptr
-                       : hres ? hprev + tB * H
-                              : hbuf + static_cast<long long>(s & 1) * B * Hp;
-    float* hout = !next ? nullptr
+    const S* hin = s == 0 ? nullptr
+                   : hres ? hprev + tB * H
+                          : hbuf + static_cast<long long>(s & 1) * B * Hp;
+    S* hout = !next ? nullptr
                   : hres ? hprev + static_cast<long long>(tn) * B * H
                          : hbuf + static_cast<long long>((s + 1) & 1) * B * Hp;
 
@@ -260,13 +279,15 @@ lstm_fwd_kernel(const float* __restrict__ x4, long long x_st, long long x_sb,
     // 16 bytes a copy, zero past H and past the group's rows
     const int total = s > 0 ? passes * NC : 0;
     auto issue = [&](int q) {
-      const int r0 = (q / NC) * RT, k = (q % NC) * KC + 4 * c4;
-      const int n = k < H ? 4 * min(4, H - k) : 0;    // bytes of this column group
-      float* dst = ring + (q % kStages) * RT * S + 4 * c4;
-      const float* src = hin + static_cast<long long>(row0 + r0) * ldh + k;
+      const int r0 = (q / NC) * RT, k = (q % NC) * KC + kV * c4;
+      // bytes of this column group
+      const int n = k < H ? static_cast<int>(sizeof(S)) * min(kV, H - k) : 0;
+      S* dst = ring + (q % kStages) * RT * SR + kV * c4;
+      const S* src = hin + static_cast<long long>(row0 + r0) * ldh + k;
       for (int r = rs; r < RT; r += rstep) {
         const bool ok = n > 0 && r0 + r < rows;
-        cp_async16_cg_part(dst + r * S, ok ? src + r * ldh : hin, ok ? n : 0);
+        cp_async16_cg_part(reinterpret_cast<float*>(dst + r * SR),
+                           reinterpret_cast<const float*>(ok ? src + r * ldh : hin), ok ? n : 0);
       }
     };
     for (int c = 0; c < kStages - 1; ++c) {
@@ -300,9 +321,10 @@ lstm_fwd_kernel(const float* __restrict__ x4, long long x_st, long long x_sb,
           cp_async_commit();
           const int k0 = ch * KC;
           const int steps = (min(KC, H - k0) + 7) / 8;
-          const float* hs = ring + (q % kStages) * RT * S + (16 * mt + g) * S + t;
+          const S* hs = ring + (q % kStages) * RT * SR + (16 * mt + g) * SR + t;
           // the chunk's sums apart, the big TF32 product and the two
-          // small ones in accumulators of their own (independent mmas)
+          // small ones in accumulators of their own (independent mmas;
+          // bf16 operands have no small halves: one pass)
           float pb[2][2][4], ps[2][2][4];
 #pragma unroll
           for (int qq = 0; qq < 2; ++qq)
@@ -312,8 +334,8 @@ lstm_fwd_kernel(const float* __restrict__ x4, long long x_st, long long x_sb,
               for (int e = 0; e < 4; ++e) pb[qq][j][e] = ps[qq][j][e] = 0.0f;
           for (int kk = 0; kk < steps; ++kk) {
             flash_mma::FragA a;
-            const float* ap = hs + 8 * kk;
-            a.set(ap[0], ap[8 * S], ap[4], ap[8 * S + 4]);
+            const S* ap = hs + 8 * kk;
+            a.set(to_f32(ap[0]), to_f32(ap[8 * SR]), to_f32(ap[4]), to_f32(ap[8 * SR + 4]));
             // B (k, n) of n-tile j of a quad: w row k0 + 8 kk + k, column
             // 8 j + n, XOR 8 on rows 2, 3 (mod 4): t >> 1 for k = t, t + 4
             const int krow = (k0 + 8 * kk + t) * 16;
@@ -325,8 +347,10 @@ lstm_fwd_kernel(const float* __restrict__ x4, long long x_st, long long x_sb,
                 const int col = (8 * j + g) ^ (8 * (t >> 1));
                 flash_mma::FragB b;
                 b.set(Wq[qq][krow + col], Wq[qq][krow + 64 + col]);
-                flash_mma::mma_tf32(ps[qq][j], a.small, b.big);
-                flash_mma::mma_tf32(ps[qq][j], a.big, b.small);
+                if constexpr (IsF32<S>::value) {
+                  flash_mma::mma_tf32(ps[qq][j], a.small, b.big);
+                  flash_mma::mma_tf32(ps[qq][j], a.big, b.small);
+                }
                 flash_mma::mma_tf32(pb[qq][j], a.big, b.big);
               }
             }
@@ -364,19 +388,19 @@ lstm_fwd_kernel(const float* __restrict__ x4, long long x_st, long long x_sb,
           const float og = act_f32(act_gate, xg[3] + go + po[qq] * cn);
           const float hnew = og * act_f32(act_state, cn);
           const float h = m * hnew + (1.0f - m) * hp;
-          if (next) __stcg(hout + b * ldh + j, h);
+          if (next) stcg_as(hout + b * ldh + j, h);
           *hs = h;
           *cs = m * cn + (1.0f - m) * cp;
-          ys[tt * y_st + b * y_sb + j] = m * hnew;
+          ys[tt * y_st + b * y_sb + j] = from_f32<S>(m * hnew);
           if (kResiduals) {
-            float* ar = acts + row * H4 + j;
-            ar[0] = a;
-            ar[H] = ig;
-            ar[2 * H] = fg;
-            ar[3 * H] = og;
+            S* ar = acts + row * H4 + j;
+            ar[0] = from_f32<S>(a);
+            ar[H] = from_f32<S>(ig);
+            ar[2 * H] = from_f32<S>(fg);
+            ar[3 * H] = from_f32<S>(og);
             cprev[row * H + j] = cp;
             // with hres the previous step wrote hprev[tt] as its carry
-            if (!hres || s == 0) hprev[row * H + j] = hp;
+            if (!hres || s == 0) hprev[row * H + j] = from_f32<S>(hp);
           }
         }
       }
@@ -386,22 +410,22 @@ lstm_fwd_kernel(const float* __restrict__ x4, long long x_st, long long x_sb,
   }
 }
 
-template <bool kResiduals>
-cudaError_t launch(const FwdPlan& plan, size_t smem, const float* x4, long long x_st,
+template <bool kResiduals, typename S>
+cudaError_t launch(const FwdPlan& plan, size_t smem, const S* x4, long long x_st,
                    long long x_sb, const float* mask, long long m_st, long long m_sb,
-                   const float* w, const float* peep, float* ys, long long y_st, long long y_sb,
-                   float* acts, float* hprev, float* cprev, float* hbuf, float* wslices,
+                   const S* w, const S* peep, S* ys, long long y_st, long long y_sb,
+                   S* acts, S* hprev, float* cprev, S* hbuf, float* wslices,
                    unsigned* counters, unsigned long long* phase_ns, int T, int B, int H,
                    int reverse, int act_in, int act_gate, int act_state, int w_smem,
                    cudaStream_t st) {
-  return launch_cooperative(lstm_fwd_kernel<kResiduals>, plan.P * plan.G, smem, st,
+  return launch_cooperative(lstm_fwd_kernel<kResiduals, S>, plan.P * plan.G, smem, st,
                             x4, x_st, x_sb, mask, m_st, m_sb, w, peep, ys, y_st, y_sb, acts,
                             hprev, cprev, hbuf, wslices, counters, phase_ns, T, B, H, reverse,
                             act_in, act_gate, act_state, plan.G, plan.gpb, plan.R, plan.QP,
                             plan.KC, w_smem);
 }
 
-template <bool kResiduals>
+template <bool kResiduals, typename S>
 int run(const void* x4, long long x_st, long long x_sb, const void* mask, long long m_st,
         long long m_sb, const void* w, const void* peep, void* ys, long long y_st,
         long long y_sb, void* acts, void* hprev, void* cprev, void* hbuf, void* wslices,
@@ -412,19 +436,21 @@ int run(const void* x4, long long x_st, long long x_sb, const void* mask, long l
   if (T == 0 || B == 0) return static_cast<int>(cudaSuccess);
   const FwdPlan plan = make_fwd_plan(B, H, num_sms, row_groups);
   const size_t smem = fwd_smem_floats(plan, H, w_smem) * sizeof(float);
-  // 7b without the scratch carries h in hprev: rows of 16 bytes
-  const bool hres_ok = kResiduals && H % 4 == 0 && reinterpret_cast<uintptr_t>(hprev) % 16 == 0;
+  // 7b without the scratch carries h in hprev: rows of 16 bytes (H a
+  // multiple of 4 floats or 8 bf16)
+  const bool hres_ok = kResiduals && (H * sizeof(S)) % 16 == 0
+                       && reinterpret_cast<uintptr_t>(hprev) % 16 == 0;
   if (plan.RT < 1 || smem > kSmemLimit || (!w_smem && wslices == nullptr)
       || (hbuf == nullptr && !hres_ok) || reinterpret_cast<uintptr_t>(hbuf) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemsetAsync(counters, 0, plan.P * sizeof(unsigned), st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch<kResiduals>(
-      plan, smem, static_cast<const float*>(x4), x_st, x_sb, static_cast<const float*>(mask),
-      m_st, m_sb, static_cast<const float*>(w), static_cast<const float*>(peep),
-      static_cast<float*>(ys), y_st, y_sb, static_cast<float*>(acts), static_cast<float*>(hprev),
-      static_cast<float*>(cprev), static_cast<float*>(hbuf), static_cast<float*>(wslices),
+  err = launch<kResiduals, S>(
+      plan, smem, static_cast<const S*>(x4), x_st, x_sb, static_cast<const float*>(mask),
+      m_st, m_sb, static_cast<const S*>(w), static_cast<const S*>(peep),
+      static_cast<S*>(ys), y_st, y_sb, static_cast<S*>(acts), static_cast<S*>(hprev),
+      static_cast<float*>(cprev), static_cast<S*>(hbuf), static_cast<float*>(wslices),
       static_cast<unsigned*>(counters), static_cast<unsigned long long*>(phase_ns), T, B, H,
       reverse, act_in, act_gate, act_state, w_smem, st);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -456,7 +482,7 @@ extern "C" int lstm_fwd(const void* x4, long long x_st, long long x_sb,
                         int T, int B, int H, int reverse,
                         int act_in, int act_gate, int act_state, int num_sms, int row_groups,
                         int w_smem, void* stream) {
-  return run<false>(x4, x_st, x_sb, mask, m_st, m_sb, w, peep, ys, y_st, y_sb, nullptr,
+  return run<false, float>(x4, x_st, x_sb, mask, m_st, m_sb, w, peep, ys, y_st, y_sb, nullptr,
                     nullptr, nullptr, hbuf, wslices, counters, phase_ns, T, B, H, reverse,
                     act_in, act_gate, act_state, num_sms, row_groups, w_smem, stream);
 }
@@ -473,7 +499,42 @@ extern "C" int lstm_fwd_train(const void* x4, long long x_st, long long x_sb,
                               int T, int B, int H, int reverse,
                               int act_in, int act_gate, int act_state, int num_sms,
                               int row_groups, int w_smem, void* stream) {
-  return run<true>(x4, x_st, x_sb, mask, m_st, m_sb, w, peep, ys, y_st, y_sb, acts, hprev,
+  return run<true, float>(x4, x_st, x_sb, mask, m_st, m_sb, w, peep, ys, y_st, y_sb, acts, hprev,
                    cprev, hbuf, wslices, counters, phase_ns, T, B, H, reverse, act_in,
                    act_gate, act_state, num_sms, row_groups, w_smem, stream);
+}
+
+// lstm_fwd's bf16 instance: x4, w, peep, ys and the scratch carry hbuf
+// ([2][B][Hp], Hp = H rounded up to a multiple of 8) are bf16
+// (__nv_bfloat16); mask, wslices and counters as lstm_fwd's.
+extern "C" int lstm_fwd_bf16(const void* x4, long long x_st, long long x_sb,
+                             const void* mask, long long m_st, long long m_sb,
+                             const void* w, const void* peep,
+                             void* ys, long long y_st, long long y_sb,
+                             void* hbuf, void* wslices, void* counters, void* phase_ns,
+                             int T, int B, int H, int reverse,
+                             int act_in, int act_gate, int act_state, int num_sms,
+                             int row_groups, int w_smem, void* stream) {
+  return run<false, __nv_bfloat16>(x4, x_st, x_sb, mask, m_st, m_sb, w, peep, ys, y_st, y_sb,
+                                   nullptr, nullptr, nullptr, hbuf, wslices, counters, phase_ns,
+                                   T, B, H, reverse, act_in, act_gate, act_state, num_sms,
+                                   row_groups, w_smem, stream);
+}
+
+// lstm_fwd_train's bf16 instance: also acts and hprev in bf16, cprev in
+// float32. hbuf may be null where H % 8 == 0: the carry then passes
+// through hprev.
+extern "C" int lstm_fwd_train_bf16(const void* x4, long long x_st, long long x_sb,
+                                   const void* mask, long long m_st, long long m_sb,
+                                   const void* w, const void* peep,
+                                   void* ys, long long y_st, long long y_sb,
+                                   void* acts, void* hprev, void* cprev,
+                                   void* hbuf, void* wslices, void* counters, void* phase_ns,
+                                   int T, int B, int H, int reverse,
+                                   int act_in, int act_gate, int act_state, int num_sms,
+                                   int row_groups, int w_smem, void* stream) {
+  return run<true, __nv_bfloat16>(x4, x_st, x_sb, mask, m_st, m_sb, w, peep, ys, y_st, y_sb,
+                                  acts, hprev, cprev, hbuf, wslices, counters, phase_ns, T, B,
+                                  H, reverse, act_in, act_gate, act_state, num_sms, row_groups,
+                                  w_smem, stream);
 }

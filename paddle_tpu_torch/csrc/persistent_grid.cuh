@@ -291,9 +291,12 @@ __device__ __forceinline__ void product_colsum4(const float* X, long long ldx, i
 // then waits on them, with nothing to do meanwhile). The sums run in the
 // same fixed order. X, ldx and K must allow 16-byte copies: X 16-byte
 // aligned, ldx and K multiples of 4. The cross-warp sums take
-// [kWarps][kRowTile][N] floats of `red`. Returns with the block
-// synchronised; with nrows = 0 it does nothing.
-template <int N, int kCols, int kRows, int kStages, typename Epi>
+// [kWarps][kRowTile][N] floats of `red`. With kRoundX the product takes X
+// rounded to bf16 and DW's sums take it unrounded (the bf16 LSTM backward:
+// its product with w transposed reads the gate gradients in bf16, its dW
+// sums them in float32). Returns with the block synchronised; with
+// nrows = 0 it does nothing.
+template <int N, int kCols, int kRows, int kStages, bool kRoundX = false, typename Epi>
 __device__ __forceinline__ void product_colsum_staged(const float* X, long long ldx, int nrows,
                                                       int K, const float* W, const float* S,
                                                       float* DW, float* red, float* ring,
@@ -371,12 +374,15 @@ __device__ __forceinline__ void product_colsum_staged(const float* X, long long 
                                              : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
             sr[4 * q] = sv.x; sr[4 * q + 1] = sv.y; sr[4 * q + 2] = sv.z; sr[4 * q + 3] = sv.w;
           }
+          float xa[kCols];
+#pragma unroll
+          for (int u = 0; u < kCols; ++u) xa[u] = kRoundX ? round_bf16(x[u][r]) : x[u][r];
 #pragma unroll
           for (int c2 = 0; c2 < N; ++c2) {
             float a = 0.0f;
 #pragma unroll
             for (int u = 0; u < kCols; ++u) {
-              a = fmaf(x[u][r], w[u][c2], a);
+              a = fmaf(xa[u], w[u][c2], a);
               d[u][c2] = fmaf(sr[c2], x[u][r], d[u][c2]);
             }
             acc[r][c2] = a;

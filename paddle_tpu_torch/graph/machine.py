@@ -20,6 +20,7 @@ from __future__ import annotations
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from paddle_tpu_torch.device import DeviceLike, compute_dtype as resolve_compute_dtype
 from paddle_tpu_torch.device import resolve_device
@@ -201,15 +202,33 @@ class GradientMachine:
                 plan.extend((pn, ln) for ln, _ in sites)
         return plan
 
-    def grad_fn(self, sparse: bool = True) -> Callable:
+    def grad_fn(self, remat: str = "none", sparse: bool = True) -> Callable:
         """Returns f(params, in_args, seed=None) -> (loss, grads, outputs,
         state_updates). The loss is a detached scalar tensor; gradients are
         keyed like ``params``: a RowSparseGrad for each table of
         ``sparse_prefetch_plan()``, dense tensors for the rest.
         ``sparse=False`` gives dense gradients everywhere (accumulation
-        sums them over batches whose row sets differ)."""
+        sums them over batches whose row sets differ).
+
+        ``remat="full"`` (OptimizationConfig.remat) runs the loss under
+        ``torch.utils.checkpoint``: the backward recomputes the forward
+        instead of keeping its activations, as the JAX package's
+        ``jax.checkpoint`` does, on the dense path and on the sparse one
+        (the prefetched rows are leaves too). The recompute takes the same
+        routes and draws the same dropout masks (each layer seeds a
+        generator of its own from the step's seed), and its state updates
+        are returned, not applied. A kernel's training forward then
+        launches twice a step. Any mode but ``""``, ``"none"`` and
+        ``"full"`` raises ``ValueError`` here."""
+        if remat not in ("", "none", "full"):
+            raise ValueError(f"unsupported remat mode {remat!r}")
         plan = self.sparse_prefetch_plan() if sparse else []
         sparse_names = {pn for pn, _ in plan}
+        loss_fn = self.loss_fn
+        if remat == "full":
+            def loss_fn(leaves, in_args, seed, table_overrides=None):
+                return checkpoint(self.loss_fn, leaves, in_args, seed,
+                                  table_overrides=table_overrides, use_reentrant=False)
 
         def f(params: Params, in_args: Dict[str, Argument], seed: Optional[int] = None):
             leaves = {}
@@ -226,8 +245,8 @@ class GradientMachine:
                         rows[key] = params[key[0]][in_args[key[1]].ids.long()]
             for r in rows.values():
                 r.requires_grad_(True)
-            loss, (outputs, state_updates) = self.loss_fn(leaves, in_args, seed,
-                                                          table_overrides=rows or None)
+            loss, (outputs, state_updates) = loss_fn(leaves, in_args, seed,
+                                                     table_overrides=rows or None)
             names = [n for n, p in leaves.items() if p.requires_grad]
             got = torch.autograd.grad(loss, [leaves[n] for n in names] + list(rows.values()),
                                       allow_unused=True)

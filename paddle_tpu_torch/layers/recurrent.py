@@ -73,11 +73,13 @@ def lstmemory_layer(cfg: LayerConfig, inputs: List[Argument], ctx: LayerContext)
     acts = (cfg.active_type or "tanh", cfg.active_gate_type or "sigmoid",
             cfg.active_state_type or "sigmoid")
     x4, mask = x.transpose(0, 1), _time_major_mask(a, x)
+    # bf16 operands (a bf16 model) take the kernels' bf16 instances
     if fl.supported(acts, H, x.shape[0]):
         ys = fused_lstm(x4, mask, w, peep, reverse=cfg.reversed, acts=acts)
     else:
         fl.EAGER_ROUTES += 1
-        ys = fl.lstm_forward_reference(x4, mask, w, peep, reverse=cfg.reversed, acts=acts)
+        # the eager loop runs in x's dtype, as the JAX layer's lax.scan does
+        ys = fl.lstm_loop(x4, mask, w, peep, reverse=cfg.reversed, acts=acts)
     return Argument(value=ys.transpose(0, 1), seq_lengths=a.seq_lengths)
 
 

@@ -185,7 +185,7 @@ def check(t: torch.Tensor, name: str, shape: Sequence[int], device: torch.device
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
         later = (" (bf16 operands in this kernel are ROADMAP Queue 1 item 7: bf16 "
-                 "compute reaches kernels 1-3, 5 and 6 so far)"
+                 "compute reaches kernels 1-3 and 5-8 so far, kernels 9-12 not yet)"
                  if t.dtype == torch.bfloat16 and dtype == torch.float32 else "")
         raise ValueError(f"{name} is {t.dtype}, the kernel takes {dtype}{later}")
     if tuple(t.shape) != tuple(shape):

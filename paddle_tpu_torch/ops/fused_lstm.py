@@ -28,6 +28,19 @@ input requires a gradient (a ``torch.autograd.Function`` returning the
 gradients of x4, w and peep), the light forward otherwise. For a CPU
 tensor it runs :func:`lstm_forward_reference`, and autograd through it
 gives the gradients.
+
+bf16 operands (a bf16 model, ``GradientMachine(compute_dtype=bfloat16)``)
+take the kernels' bf16 instances (``lstm_fwd_bf16``, ``lstm_fwd_train_bf16``,
+``lstm_bwd_bf16``), which keep the Pallas kernels' bf16 contract: x4, w and
+peep are bf16, widened on load; the cell c is carried in float32; h is
+rounded to bf16 before its product with w, which accumulates in float32;
+ys, the gates and h_prev are stored bf16 and c_prev float32; the backward
+rounds the gate gradients before their product with w transposed, sums dW
+and dpeep from the unrounded float32 values and rounds them once at the
+end. :func:`lstm_forward_reference` and :func:`lstm_backward_reference`
+are their plain versions, with the same rounding points; on the CPU a
+bf16 LSTM under grad runs them as an autograd Function (``_PlainLSTM``),
+as the Pallas function's custom VJP does.
 """
 
 from __future__ import annotations
@@ -40,7 +53,9 @@ from paddle_tpu_torch.ops import kernel_flops
 from paddle_tpu_torch.ops._build import (
     I32, I64, PTR, SMEM_LIMIT, CudaKernel, card_sms, check, ptr)
 from paddle_tpu_torch.ops.activations import apply_activation
-from paddle_tpu_torch.ops.fused_gru import ACT_CODES, _cdiv, _last_dim_contiguous
+from paddle_tpu_torch.ops.fused_gru import (
+    ACT_CODES, OPERAND_DTYPES, _cdiv, _float_mask, _last_dim_contiguous, dact)
+from paddle_tpu_torch.ops.precision import round_to
 
 Tensor = torch.Tensor
 Acts = Tuple[str, str, str]
@@ -72,6 +87,8 @@ FWD_STAGES = 2
 FWD_SLOT = 12800
 FWD_PAD = 4
 # layer calls that ran the eager time loop because supported() refused
+# (under remat="full" the backward's recompute runs the layer again and
+# counts again, as it launches the training forward again)
 EAGER_ROUTES = 0
 
 _FWD_ARGS = [PTR, I64, I64,          # x4, its time and batch strides
@@ -100,7 +117,21 @@ LSTM_BWD = CudaKernel(
     + _TAIL + [I32, I32,             # num_sms, row groups
                I32, I32, I32],       # w_smem, dw_smem, runtime_acts
 )
-KERNELS = (LSTM_FWD, LSTM_FWD_TRAIN, LSTM_BWD)
+# the bf16 instances of the same bodies: the same arguments, bf16 x4, w,
+# peep, ys, acts, hprev (cprev float32), kernel 8 also a float32 exchange
+# buffer of the unrounded gate gradients
+LSTM_FWD_BF16 = CudaKernel("lstm_fwd.cu", "lstm_fwd_bf16", LSTM_FWD.argtypes[:-1])
+LSTM_FWD_TRAIN_BF16 = CudaKernel("lstm_fwd.cu", "lstm_fwd_train_bf16",
+                                 LSTM_FWD_TRAIN.argtypes[:-1])
+LSTM_BWD_BF16 = CudaKernel("lstm_bwd.cu", "lstm_bwd_bf16",
+                           LSTM_BWD.argtypes[:20] + [PTR]   # + dgates in float32 [2, B, 4H]
+                           + LSTM_BWD.argtypes[20:-1])
+KERNELS = (LSTM_FWD, LSTM_FWD_TRAIN, LSTM_BWD,
+           LSTM_FWD_BF16, LSTM_FWD_TRAIN_BF16, LSTM_BWD_BF16)
+# each entry by operand dtype (OPERAND_DTYPES: float32 and bf16)
+_FWD = {torch.float32: LSTM_FWD, torch.bfloat16: LSTM_FWD_BF16}
+_FWD_TRAIN = {torch.float32: LSTM_FWD_TRAIN, torch.bfloat16: LSTM_FWD_TRAIN_BF16}
+_BWD = {torch.float32: LSTM_BWD, torch.bfloat16: LSTM_BWD_BF16}
 
 
 def lstm_cell(x4: Tensor, h: Tensor, c: Tensor, w: Tensor, peep: Tensor,
@@ -129,7 +160,21 @@ def lstm_forward_reference(x4: Tensor, mask: Tensor, w: Tensor, peep: Tensor,
 
     ``residuals=True`` also returns what ``lstm_fwd_train`` saves, each at
     its step's own time index: acts = [a | i | f | o] [T, B, 4H] (after the
-    activations), h_prev and c_prev [T, B, H]."""
+    activations), h_prev and c_prev [T, B, H]. bf16 operands follow the
+    kernels' bf16 contract (:func:`_lstm_forward_mixed`); float32 runs
+    :func:`lstm_loop`."""
+    if x4.dtype == torch.bfloat16:
+        return _lstm_forward_mixed(x4, mask, w, peep, reverse, acts, residuals)
+    return lstm_loop(x4, mask, w, peep, reverse, acts, residuals)
+
+
+def lstm_loop(x4: Tensor, mask: Tensor, w: Tensor, peep: Tensor, reverse: bool = False,
+              acts: Acts = DEFAULT_ACTS, residuals: bool = False):
+    """The LSTM as a time loop with every operation in x4's dtype: the
+    float32 kernels' plain version, and the ``lstmemory`` layer's eager
+    route (in bf16 it runs as the JAX layer's ``lax.scan`` does, both
+    carries bf16 too). Arguments and results as
+    :func:`lstm_forward_reference`."""
     T, B, H4 = x4.shape
     H = H4 // 4
     h = x4.new_zeros(B, H)
@@ -142,13 +187,116 @@ def lstm_forward_reference(x4: Tensor, mask: Tensor, w: Tensor, peep: Tensor,
         saved[t], hprev[t], cprev[t] = torch.cat([a, i, f, o], dim=-1), h, c
         h = m * h_new + (1.0 - m) * h
         c = m * c_new + (1.0 - m) * c
+    return _stacked(x4, ys, saved, hprev, cprev, residuals, x4.dtype)
+
+
+def _stacked(x4, ys, saved, hprev, cprev, residuals, c_dtype):
+    """The per-step lists as [T, ...] tensors (empty ones of the right
+    shapes for T = 0), c_prev in ``c_dtype``."""
+    T, B, H4 = x4.shape
+    H = H4 // 4
     if not T:
         empty = x4.new_zeros(0, B, H)
-        return (empty, x4.new_zeros(0, B, H4), empty, empty) if residuals else empty
+        return ((empty, x4.new_zeros(0, B, H4), empty, x4.new_zeros(0, B, H, dtype=c_dtype))
+                if residuals else empty)
     ys = torch.stack(ys)
     if not residuals:
         return ys
     return ys, torch.stack(saved), torch.stack(hprev), torch.stack(cprev)
+
+
+def _lstm_forward_mixed(x4, mask, w, peep, reverse, acts, residuals):
+    """The bf16 kernels' plain version (``pallas_lstm._fwd_kernel`` in
+    bf16): both carries in float32, x4, w and peep widened, h rounded to
+    bf16 before its product with w (exact in float32, summed in float32),
+    ys, the gates and h_prev stored bf16, c_prev float32."""
+    T, B, H4 = x4.shape
+    H, od = H4 // 4, x4.dtype
+    act_in, act_gate, act_state = acts
+    wf, pf = w.float(), peep.float()
+    h = x4.new_zeros(B, H, dtype=torch.float32)
+    c = x4.new_zeros(B, H, dtype=torch.float32)
+    ys, saved, hprev, cprev = [None] * T, [None] * T, [None] * T, [None] * T
+    for t in (range(T - 1, -1, -1) if reverse else range(T)):
+        g = x4[t].float() + round_to(h, od) @ wf
+        i = apply_activation(act_gate, g[:, H:2 * H] + pf[0] * c)
+        f = apply_activation(act_gate, g[:, 2 * H:3 * H] + pf[1] * c)
+        a = apply_activation(act_in, g[:, :H])
+        c_new = f * c + i * a
+        o = apply_activation(act_gate, g[:, 3 * H:] + pf[2] * c_new)
+        h_new = o * apply_activation(act_state, c_new)
+        m = mask[t][:, None].float()
+        ys[t] = (m * h_new).to(od)
+        saved[t], hprev[t], cprev[t] = torch.cat([a, i, f, o], dim=-1).to(od), h.to(od), c
+        h = m * h_new + (1.0 - m) * h
+        c = m * c_new + (1.0 - m) * c
+    return _stacked(x4, ys, saved, hprev, cprev, residuals, torch.float32)
+
+
+def lstm_backward_reference(dy: Tensor, saved: Tensor, hprev: Tensor, cprev: Tensor,
+                            mask: Tensor, w: Tensor, peep: Tensor, reverse: bool = False,
+                            acts: Acts = DEFAULT_ACTS) -> Tuple[Tensor, Tensor, Tensor]:
+    """Plain PyTorch version of kernel 8 (``pallas_lstm._bwd_kernel``): dx4
+    [T, B, 4H] in dy's dtype, dW [H, 4H] in w's and dpeep [3, H] in peep's,
+    from dy [T, B, H] and the residuals of :func:`lstm_forward_reference`.
+    Per step, walked against the forward's order, in float32: c' = f c + i a
+    (from the saved gates and c_prev), dh = m (DH + dy), dgo, dc' =
+    dh o act_state'(s) + m DC + dgo po, dgi, dgf, dga, dx4[t] = [dga | dgi |
+    dgf | dgo], DH = round(dx4[t]) . w^T + (1 - m) DH, DC = dc' f + dgi pi +
+    dgf pf + (1 - m) DC; dW sums h_prev^T dx4[t] and dpeep the peephole
+    terms, unrounded, each rounded once. The rounding is to the residuals'
+    dtype (none in float32)."""
+    T, B, H4 = saved.shape
+    H, od = H4 // 4, saved.dtype
+    act_in, act_gate, act_state = acts
+    wt, pf = w.float().t(), peep.float()
+    DH = saved.new_zeros(B, H, dtype=torch.float32)
+    DC = saved.new_zeros(B, H, dtype=torch.float32)
+    dw = saved.new_zeros(H, H4, dtype=torch.float32)
+    dp = saved.new_zeros(3, H, dtype=torch.float32)
+    dx4 = [None] * T
+    for t in (range(T) if reverse else range(T - 1, -1, -1)):
+        g = saved[t].float()
+        a, i, f, o = g[:, :H], g[:, H:2 * H], g[:, 2 * H:3 * H], g[:, 3 * H:]
+        cp, hp = cprev[t].float(), hprev[t].float()
+        m = mask[t][:, None].float()
+        c_new = f * cp + i * a
+        sc = apply_activation(act_state, c_new)
+        dh = m * (DH + dy[t].float())
+        dgo = dh * sc * dact(act_gate, o)
+        dc = dh * o * dact(act_state, sc) + m * DC + dgo * pf[2]
+        dgi = dc * a * dact(act_gate, i)
+        dgf = dc * cp * dact(act_gate, f)
+        dga = dc * i * dact(act_in, a)
+        dg = torch.cat([dga, dgi, dgf, dgo], dim=1)
+        dx4[t] = dg.to(dy.dtype)
+        DH = round_to(dg, od) @ wt + (1.0 - m) * DH
+        DC = dc * f + dgi * pf[0] + dgf * pf[1] + (1.0 - m) * DC
+        dw = dw + hp.t() @ dg
+        dp = dp + torch.stack([(dgi * cp).sum(0), (dgf * cp).sum(0), (dgo * c_new).sum(0)])
+    dx4 = torch.stack(dx4) if T else dy.new_zeros(0, B, H4)
+    return dx4, dw.to(w.dtype), dp.to(peep.dtype)
+
+
+class _PlainLSTM(torch.autograd.Function):
+    """The bf16 LSTM on the CPU: the kernels' plain forward with residuals
+    and their plain backward, so that the gradients round where the
+    kernels' (and the Pallas custom VJP's) do."""
+
+    @staticmethod
+    def forward(ctx, x4, mask, w, peep, reverse, acts):
+        ys, saved, hprev, cprev = lstm_forward_reference(x4, mask, w, peep, reverse, acts,
+                                                         residuals=True)
+        ctx.save_for_backward(saved, hprev, cprev, mask, w, peep)
+        ctx.reverse, ctx.acts = reverse, acts
+        return ys
+
+    @staticmethod
+    def backward(ctx, dy):
+        saved, hprev, cprev, mask, w, peep = ctx.saved_tensors
+        dx4, dw, dpeep = lstm_backward_reference(dy, saved, hprev, cprev, mask, w, peep,
+                                                 ctx.reverse, ctx.acts)
+        return dx4, None, dw, dpeep, None, None
 
 
 def grid_plan(B: int, H: int, sms: int, row_groups: Optional[int] = None) -> Dict[str, int]:
@@ -260,8 +408,11 @@ def supported(acts, H: int, B: int, num_sms: Optional[int] = None) -> bool:
     Both at least 1, H at most MAX_H, and both grids fit, kernel 8's and
     the forwards': the state of a block's rows in shared memory (the
     blocks' slices of w and dW go to device memory when they do not fit
-    beside it). ``num_sms`` defaults to the current card's count (132
-    where there is no card)."""
+    beside it). The float32 and bf16 instances hold w, the state and the
+    ring in the same float32 carve of shared memory, so the plan is the
+    same for either operand type (``pallas_lstm.supported`` takes the
+    operand size for its VMEM budget; here it decides nothing). ``num_sms``
+    defaults to the current card's count (132 where there is no card)."""
     if not (len(acts) == 3 and all(a in ACT_CODES for a in acts)):
         return False
     if not (1 <= H <= MAX_H and B >= 1):
@@ -286,19 +437,28 @@ def _act_codes(acts) -> Tuple[int, int, int]:
     return tuple(ACT_CODES[a] for a in acts)
 
 
+def _operand_dtype(t: Tensor) -> torch.dtype:
+    if t.dtype not in OPERAND_DTYPES:
+        raise ValueError(f"the LSTM kernels take float32 or bf16 operands, got {t.dtype}")
+    return t.dtype
+
+
 def _check_operands(x4, mask, w, peep, acts):
+    """x4, w and peep in one operand dtype (float32 or bf16), the mask in
+    float32 (:func:`_float_mask` first)."""
     T, B, H4 = x4.shape
     H = H4 // 4
     dev = x4.device
     codes = _act_codes(acts)
+    od = _operand_dtype(x4)
     if H4 != 4 * H:
         raise ValueError(f"x4 width {H4} is not 4 * H")
     if H > MAX_H:
         raise ValueError(f"H = {H}: the LSTM kernels take H <= {MAX_H}")
-    check(x4, "x4", (T, B, H4), dev, contiguous=False)
+    check(x4, "x4", (T, B, H4), dev, contiguous=False, dtype=od)
     check(mask, "mask", (T, B), dev, contiguous=False)
-    check(w, "w", (H, H4), dev)
-    check(peep, "peep", (3, H), dev)
+    check(w, "w", (H, H4), dev, dtype=od)
+    check(peep, "peep", (3, H), dev, dtype=od)
     return T, B, H, dev, codes
 
 
@@ -308,8 +468,11 @@ def _launch_fwd(x4, mask, w, peep, reverse, acts, residuals, row_groups=None,
     cprev (kernel 7b). ``row_groups`` overrides the plan's P (to time the
     alternatives); ``phase_ns`` (an int64 [T, 3] tensor on the card, or
     None) receives block 0's clock in ns at each step's start and at the
-    ends of its product and of its cells."""
+    ends of its product and of its cells. The instance of x4's dtype, whose
+    outputs are in that dtype but cprev, float32 in both."""
+    mask = _float_mask(mask)
     T, B, H, dev, codes = _check_operands(x4, mask, w, peep, acts)
+    od = x4.dtype
     sms = card_sms(dev)
     plan = fwd_plan(B, H, sms, row_groups)
     P = plan["row_groups"]
@@ -321,10 +484,13 @@ def _launch_fwd(x4, mask, w, peep, reverse, acts, residuals, row_groups=None,
                                  or tuple(phase_ns.shape) != (T, 3)
                                  or not phase_ns.is_contiguous()):
         raise ValueError(f"phase_ns must be a contiguous int64 [{T}, 3] tensor on {dev}")
-    ys = torch.empty((B, T, H), device=dev).transpose(0, 1)
-    # the carry between steps: 7b's own hprev where its rows start on 16 bytes
-    hbuf = (torch.empty(2 * B * _cdiv(H, 4) * 4, device=dev)
-            if not residuals or H % 4 else None)
+    ys = torch.empty((B, T, H), device=dev, dtype=od).transpose(0, 1)
+    # the carry between steps: 7b's own hprev where its rows start on 16
+    # bytes (H a multiple of 4 floats or 8 bf16), else rows of Hp, H rounded
+    # up to that multiple
+    per16 = 16 // ys.element_size()
+    hbuf = (torch.empty(2 * B * _cdiv(H, per16) * per16, device=dev, dtype=od)
+            if not residuals or H % per16 else None)
     wslices = None if plan["w_in_smem"] else torch.empty(
         plan["blocks"] * plan["wslice_floats"], device=dev)
     counters = torch.empty(P, dtype=torch.int32, device=dev)
@@ -336,13 +502,13 @@ def _launch_fwd(x4, mask, w, peep, reverse, acts, residuals, row_groups=None,
             T, B, H, int(bool(reverse)), *codes, sms, P, plan["w_in_smem"]]
     if not residuals:
         kernel_flops.record(kernel_flops.lstm_fwd_flops(T, B, H))
-        LSTM_FWD.launch(dev, *args, *tail)
+        _FWD[od].launch(dev, *args, *tail)
         return ys
-    saved = torch.empty((T, B, 4 * H), device=dev)
-    hprev = torch.empty((T, B, H), device=dev)
+    saved = torch.empty((T, B, 4 * H), device=dev, dtype=od)
+    hprev = torch.empty((T, B, H), device=dev, dtype=od)
     cprev = torch.empty((T, B, H), device=dev)
     kernel_flops.record(kernel_flops.lstm_fwd_flops(T, B, H))
-    LSTM_FWD_TRAIN.launch(dev, *args, ptr(saved), ptr(hprev), ptr(cprev), *tail)
+    _FWD_TRAIN[od].launch(dev, *args, ptr(saved), ptr(hprev), ptr(cprev), *tail)
     return ys, saved, hprev, cprev
 
 
@@ -353,19 +519,23 @@ def _launch_bwd(dy, saved, hprev, cprev, mask, w, peep, reverse, acts, phase_ns=
     each step's start and at the ends of its two phases (the first with its
     barrier). ``row_groups`` overrides the plan's P, and ``runtime_acts``
     reads the activation codes at run time even for a triple compiled into
-    the kernel (both to time the alternatives)."""
+    the kernel (both to time the alternatives). The instance of the
+    residuals' dtype: dy, acts, hprev, w and peep in it, cprev float32;
+    dx4, dW and dpeep come back in it."""
     T, B, H4 = saved.shape
     H = H4 // 4
     dev = saved.device
     codes = _act_codes(acts)
+    od = _operand_dtype(saved)
     dy = _last_dim_contiguous(dy)
-    check(dy, "dy", (T, B, H), dev, contiguous=False)
-    check(saved, "acts", (T, B, H4), dev)
-    check(hprev, "hprev", (T, B, H), dev)
+    mask = _float_mask(mask)
+    check(dy, "dy", (T, B, H), dev, contiguous=False, dtype=od)
+    check(saved, "acts", (T, B, H4), dev, dtype=od)
+    check(hprev, "hprev", (T, B, H), dev, dtype=od)
     check(cprev, "cprev", (T, B, H), dev)
     check(mask, "mask", (T, B), dev, contiguous=False)
-    check(w, "w", (H, H4), dev)
-    check(peep, "peep", (3, H), dev)
+    check(w, "w", (H, H4), dev, dtype=od)
+    check(peep, "peep", (3, H), dev, dtype=od)
     _check_supported(acts, max(B, 1), H, dev)
     sms = card_sms(dev)
     plan = grid_plan(B, H, sms, row_groups)
@@ -377,9 +547,13 @@ def _launch_bwd(dy, saved, hprev, cprev, mask, w, peep, reverse, acts, phase_ns=
                                  or tuple(phase_ns.shape) != (T, 3)
                                  or not phase_ns.is_contiguous()):
         raise ValueError(f"phase_ns must be a contiguous int64 [{T}, 3] tensor on {dev}")
-    dx4 = torch.empty((T, B, H4), device=dev)
-    dw = torch.empty((H, H4), device=dev)
-    dpeep = torch.empty((3, H), device=dev)
+    dx4 = torch.empty((T, B, H4), device=dev, dtype=od)
+    dw = torch.empty((H, H4), device=dev, dtype=od)
+    dpeep = torch.empty((3, H), device=dev, dtype=od)
+    # bf16: DH's product reads the gate gradients rounded (dx4 itself), dW
+    # sums them unrounded from a float32 copy, one buffer each for even and
+    # odd steps
+    xch = None if od == torch.float32 else torch.empty((2, B, H4), device=dev)
     rows = plan["blocks"] * plan["bundles"] * H4 * plan["units_per_bundle"]
     wslices = None if plan["w_in_smem"] else torch.empty(rows, device=dev)
     dwacc = None if plan["dw_in_smem"] else torch.empty(rows, device=dev)
@@ -388,13 +562,14 @@ def _launch_bwd(dy, saved, hprev, cprev, mask, w, peep, reverse, acts, phase_ns=
     counters = torch.empty(P + 1, dtype=torch.int32, device=dev)
     opt = lambda t: None if t is None else ptr(t)
     kernel_flops.record(kernel_flops.lstm_bwd_flops(T, B, H))
-    LSTM_BWD.launch(dev, ptr(dy), dy.stride(0), dy.stride(1),
-                    ptr(saved), ptr(hprev), ptr(cprev),
-                    ptr(mask), mask.stride(0), mask.stride(1), ptr(w), ptr(peep),
-                    ptr(dx4), ptr(dw), ptr(dpeep), opt(wslices), opt(dwacc), opt(dwpart),
-                    opt(ppart), ptr(counters), opt(phase_ns),
-                    T, B, H, int(bool(reverse)), *codes, sms, P, plan["w_in_smem"],
-                    plan["dw_in_smem"], int(bool(runtime_acts)))
+    args = [ptr(dy), dy.stride(0), dy.stride(1), ptr(saved), ptr(hprev), ptr(cprev),
+            ptr(mask), mask.stride(0), mask.stride(1), ptr(w), ptr(peep),
+            ptr(dx4), ptr(dw), ptr(dpeep), opt(wslices), opt(dwacc), opt(dwpart),
+            opt(ppart), ptr(counters), opt(phase_ns)]
+    if xch is not None:
+        args.append(ptr(xch))
+    _BWD[od].launch(dev, *args, T, B, H, int(bool(reverse)), *codes, sms, P,
+                    plan["w_in_smem"], plan["dw_in_smem"], int(bool(runtime_acts)))
     return dx4, dw, dpeep
 
 
@@ -424,11 +599,17 @@ def fused_lstm(x4: Tensor, mask: Tensor, w: Tensor, peep: Tensor, reverse: bool 
 
     On the card ys is a time-major view of batch-major storage, so
     ``ys.transpose(0, 1)`` is a contiguous [B, T, H] tensor. The mask gets
-    no gradient."""
+    no gradient. ys is in x4's dtype (float32 or bf16; w and peep in the
+    same)."""
+    wants_grad = torch.is_grad_enabled() and (
+        x4.requires_grad or w.requires_grad or peep.requires_grad)
     if x4.device.type == "cpu":
+        if x4.dtype == torch.bfloat16 and wants_grad:
+            return _PlainLSTM.apply(x4, mask.detach(), w, peep, bool(reverse), tuple(acts))
         return lstm_forward_reference(x4, mask, w, peep, reverse, acts)
-    if torch.is_grad_enabled() and (x4.requires_grad or w.requires_grad or peep.requires_grad):
+    if wants_grad:
+        mask = _float_mask(mask.detach())
         _, B, H, dev, _ = _check_operands(x4, mask, w, peep, acts)
         _check_supported(acts, B, H, dev)            # before the forward launches
-        return _FusedLSTM.apply(x4, mask.detach(), w, peep, bool(reverse), tuple(acts))
+        return _FusedLSTM.apply(x4, mask, w, peep, bool(reverse), tuple(acts))
     return _launch_fwd(x4, mask, w, peep, reverse, acts, residuals=False)

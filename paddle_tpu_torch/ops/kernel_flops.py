@@ -116,7 +116,9 @@ _LOG: Optional[List[float]] = None
 
 def record(flops: float) -> None:
     """Called by a kernel wrapper where it launches its kernel on the card.
-    No-op outside :func:`capture`."""
+    No-op outside :func:`capture`. Under ``remat="full"`` the backward's
+    recompute launches a kernel's training forward again, and that launch
+    records too: the count is what the card ran, not the model's FLOPs."""
     if _LOG is not None:
         _LOG.append(float(flops))
 

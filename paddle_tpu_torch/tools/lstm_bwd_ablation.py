@@ -27,7 +27,7 @@ import sys
 
 TILE8 = "static constexpr int kCols = 8, kRows = 4, kStages = 2;"
 HALVE = "Halve<kRows * N, 16>::run(&acc[0][0], lane);"
-PRODUCT_FMA = "a = fmaf(x[u][r], w[u][c2], a);"
+PRODUCT_FMA = "a = fmaf(xa[u], w[u][c2], a);"
 DW_FMA = "d[u][c2] = fmaf(sr[c2], x[u][r], d[u][c2]);"
 ISSUES = ("if (c < chunks) issue(c);", "if (c + kStages - 1 < chunks) issue(c + kStages - 1);")
 GRID, KERNEL = "persistent_grid.cuh", "lstm_bwd.cu"

@@ -47,7 +47,7 @@ BLOCK_PRODUCT = [
      "const int total = 0;\n"
      "    if (s > 0) {\n"
      "      for (int qd = 0; qd < nq; ++qd)\n"
-     "        block_product<16>(ring + 16 * qd, 4 * U, rows,\n"
+     "        block_product<16>(reinterpret_cast<float*>(ring) + 16 * qd, 4 * U, rows,\n"
      "                          hin + static_cast<long long>(row0) * ldh, ldh, H, W + qd * WQ);\n"
      "      __syncthreads();\n"
      "    }"),
@@ -58,7 +58,8 @@ BLOCK_PRODUCT = [
      "        for (int qq = 0; qq < 2 && r < rows; ++qq)\n"
      "          for (int j = 0; j < 2; ++j)\n"
      "            for (int e = 0; e < 2; ++e)\n"
-     "              acc[qq][j][2 * hh + e] = ring[r * 4 * U + 16 * (2 * qp + qq) + 8 * j + 2 * t + e];\n"
+     "              acc[qq][j][2 * hh + e] = reinterpret_cast<const float*>(ring)[\n"
+     "                  r * 4 * U + 16 * (2 * qp + qq) + 8 * j + 2 * t + e];\n"
      "      }\n"
      "      if (clocked && pass + 1 == passes) phase_ns[3 * s + 1] = global_ns();"),
 ]

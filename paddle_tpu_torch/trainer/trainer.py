@@ -206,13 +206,16 @@ class Trainer:
         self.save_dir = flags.save_dir or config.save_dir
         # per-pass held-out results appended by train(): [(pass_id, {...})]
         self.test_history: List[Tuple[int, Dict[str, float]]] = []
-        self._grad_fn = self.gm.grad_fn()
+        # OptimizationConfig.remat: "full" recomputes the forward in the
+        # backward; an unknown mode raises here, as the JAX Trainer's does
+        self._grad_fn = self.gm.grad_fn(remat=opt.remat)
         # sparse training: the tables whose gradients are row-sparse. Their
         # row sets vary per batch, so accumulation sums dense gradients and
         # a fused launch group takes them (as the JAX package's fixed-shape
         # scan does): the updater's row scan, not its indexed path
         self._sparse_plan = self.gm.sparse_prefetch_plan()
-        self._dense_grad_fn = self.gm.grad_fn(sparse=False) if self._sparse_plan else self._grad_fn
+        self._dense_grad_fn = (self.gm.grad_fn(remat=opt.remat, sparse=False)
+                               if self._sparse_plan else self._grad_fn)
         self._sparse_launch = True
         self._dots_pending = False
         # gradient accumulation: n forward/backwards per update (the

@@ -146,11 +146,12 @@ def test_kernel_builds_are_keyed_by_their_sources():
 
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     kernels = fg.KERNELS + fa.KERNELS + fl.KERNELS + fc.KERNELS + fl_attn.KERNELS
-    # 13 float32 entry points and the bf16 instances of kernels 1-3, 5 and 6
-    assert len({k.symbol for k in kernels}) == 18
+    # 13 float32 entry points and the bf16 instances of kernels 1-3 and 5-8
+    assert len({k.symbol for k in kernels}) == 21
     assert {k.symbol for k in kernels if k.symbol.endswith("_bf16")} == {
         "gru_fwd_bf16", "gru_fwd_train_bf16", "gru_bwd_bf16",
-        "attention_gru_fwd_train_bf16", "attention_gru_bwd_bf16"}
+        "attention_gru_fwd_train_bf16", "attention_gru_bwd_bf16",
+        "lstm_fwd_bf16", "lstm_fwd_train_bf16", "lstm_bwd_bf16"}
     # a kernel and its training variant share one source and its library,
     # but for the attention GRU's: its two forwards are entries of their own
     # sources over one header (attention_gru_fwd.cuh)
@@ -165,7 +166,9 @@ def test_kernel_builds_are_keyed_by_their_sources():
     for f32, bf16 in ((fg.GRU_FWD, fg.GRU_FWD_BF16), (fg.GRU_FWD_TRAIN, fg.GRU_FWD_TRAIN_BF16),
                       (fg.GRU_BWD, fg.GRU_BWD_BF16),
                       (fa.ATTENTION_GRU_FWD_TRAIN, fa.ATTENTION_GRU_FWD_TRAIN_BF16),
-                      (fa.ATTENTION_GRU_BWD, fa.ATTENTION_GRU_BWD_BF16)):
+                      (fa.ATTENTION_GRU_BWD, fa.ATTENTION_GRU_BWD_BF16),
+                      (fl.LSTM_FWD, fl.LSTM_FWD_BF16), (fl.LSTM_FWD_TRAIN, fl.LSTM_FWD_TRAIN_BF16),
+                      (fl.LSTM_BWD, fl.LSTM_BWD_BF16)):
         assert f32.library_path() == bf16.library_path()
     assert fl.LSTM_FWD.library_path() == fl.LSTM_FWD_TRAIN.library_path()
     assert fl_attn.FLASH_ATTN_DQ.library_path() == fl_attn.FLASH_ATTN_DKV.library_path()

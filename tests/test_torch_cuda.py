@@ -158,7 +158,8 @@ def test_gru_training_kernels_match_plain_version(dev, T, B, H, reverse):
     before = [k.launches for k in fg.KERNELS]
     leaves = [x3.detach().requires_grad_(), w.detach().requires_grad_()]
     (fg.fused_gru(leaves[0], mask, leaves[1], reverse=reverse) * dy).sum().backward()
-    assert [k.launches for k in fg.KERNELS] == [before[0], before[1] + 1, before[2] + 1]
+    assert [k.launches for k in fg.KERNELS] == [before[0], before[1] + 1, before[2] + 1,
+                                                *before[3:]]
     plain = [x3.detach().requires_grad_(), w.detach().requires_grad_()]
     (fg.gru_forward_reference(plain[0], mask, plain[1], reverse) * dy).sum().backward()
     torch.cuda.synchronize()
@@ -770,7 +771,7 @@ def test_inference_keeps_the_light_kernels(dev):
     before = [k.launches for k in fl.KERNELS]
     with torch.no_grad():
         fl.fused_lstm(x4, mask, w4, peep)
-    assert [k.launches for k in fl.KERNELS] == [before[0] + 1, before[1], before[2]]
+    assert [k.launches for k in fl.KERNELS] == [before[0] + 1, *before[1:]]
 
 
 def test_lstm_test_pass_launches_only_the_light_kernel(dev):
@@ -783,7 +784,7 @@ def test_lstm_test_pass_launches_only_the_light_kernel(dev):
     before = [k.launches for k in fl.KERNELS]
     out = trainer.test_batches([example_batch(50, B=4, T=6, seed=s, device=dev) for s in range(3)])
     assert np.isfinite(out["cost"])
-    assert [k.launches for k in fl.KERNELS] == [before[0] + 3, before[1], before[2]]
+    assert [k.launches for k in fl.KERNELS] == [before[0] + 3, *before[1:]]
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
@@ -1125,7 +1126,8 @@ def test_gru_kernels_take_every_activation(dev, act_in, act_gate):
 
     leaves = [x3.detach().requires_grad_(), w.detach().requires_grad_()]
     (fg.fused_gru(leaves[0], mask, leaves[1], reverse=True, acts=acts) * dy).sum().backward()
-    assert [k.launches for k in fg.KERNELS] == [before[0] + 1, before[1] + 2, before[2] + 1]
+    assert [k.launches for k in fg.KERNELS] == [before[0] + 1, before[1] + 2, before[2] + 1,
+                                                *before[3:]]
     plain = [x3.detach().requires_grad_(), w.detach().requires_grad_()]
     (fg.gru_forward_reference(plain[0], mask, plain[1], True, acts=acts) * dy).sum().backward()
     torch.cuda.synchronize()
@@ -1187,8 +1189,9 @@ def test_recurrent_layer_routes_on_the_card(dev, kind, size, act, eager):
     loss, grads, _, _ = m.grad_fn()(params, batch)
     torch.cuda.synchronize()
     launches = [k.launches - b for k, b in zip(mod.KERNELS, before[0])]
-    assert (launches, mod.EAGER_ROUTES - before[1]) == (([0, 0, 0], 1) if eager
-                                                        else ([0, 1, 1], 0))
+    # the float32 instances (light, training, backward), then the bf16 ones
+    assert (launches, mod.EAGER_ROUTES - before[1]) == (([0, 0, 0, 0, 0, 0], 1) if eager
+                                                        else ([0, 1, 1, 0, 0, 0], 0))
     cpu, _, cpu_batch = run("cpu")
     cpu_loss, cpu_grads, _, _ = cpu.grad_fn()({k: p.cpu() for k, p in params.items()}, cpu_batch)
     assert abs(float(loss) - float(cpu_loss)) <= TOL * max(1.0, abs(float(cpu_loss)))
@@ -1445,7 +1448,7 @@ def test_seqToseq_demo_trains_through_the_command_line_on_the_card(dev, tmp_path
 
 
 # ------------------------------------------------------------ bf16 operands
-# The bf16 instances of kernels 1-3, 5 and 6 against their bf16 plain
+# The bf16 instances of kernels 1-3 and 5-8 against their bf16 plain
 # versions (the same rounding points): within 1e-2 of the plain result's
 # largest magnitude, about one bf16 ulp there (2^-8), since a sum taken in
 # another order may round the other way and the step after carries it.
@@ -1566,11 +1569,100 @@ def test_nmt_bf16_step_takes_the_bf16_kernels(dev):
     assert abs(loss - want) <= 1e-2 * abs(want), (loss, want)
 
 
+@pytest.mark.parametrize("T,B,H", [(64, 256, 512), (7, 5, 36), (3, 2, 600)])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_lstm_bf16_kernels_match_plain_versions(dev, T, B, H, reverse):
+    """Kernels 7a, 7b and 8 in bf16 at the classifier's shape (T = 64,
+    B = 256, H = 512, its activations) and two others (H = 36: the carry
+    through a bf16 scratch whose rows are padded to 16 bytes; H = 600: two
+    unit groups a block): ys, the residuals, dx4, dW and dpeep within 1e-2
+    of scale of lstm_forward_reference / lstm_backward_reference in bf16;
+    every output bf16 but cprev (float32); two launches bit-equal; kernel
+    7a's ys equal kernel 7b's."""
+    from paddle_tpu_torch.ops import fused_lstm as fl
+
+    rng = np.random.RandomState(T + B + H)
+    x4 = _bf(rng.randn(B, T, 4 * H) * 0.5, dev).transpose(0, 1)
+    w = _bf(rng.randn(H, 4 * H) / np.sqrt(H), dev)
+    peep = _bf(rng.randn(3, H) * 0.1, dev)
+    lens = rng.randint(1, T + 1, B)
+    lens[-1] = 0
+    mask = _t(np.arange(T)[:, None] < lens[None, :], dev)
+    dy = _bf(rng.randn(T, B, H), dev)
+    acts = ("tanh", "sigmoid", "tanh")
+    light = fl.fused_lstm(x4, mask, w, peep, reverse, acts)
+    got = fl._launch_fwd(x4, mask, w, peep, reverse, acts, residuals=True)
+    again = fl._launch_fwd(x4, mask, w, peep, reverse, acts, residuals=True)
+    ref = fl.lstm_forward_reference(x4, mask, w, peep, reverse, acts, residuals=True)
+    bwd = fl._launch_bwd(dy, *got[1:], mask, w, peep, reverse, acts)
+    bwd2 = fl._launch_bwd(dy, *got[1:], mask, w, peep, reverse, acts)
+    pb = fl.lstm_backward_reference(dy, *got[1:], mask, w, peep, reverse, acts)
+    torch.cuda.synchronize()
+    assert all(a.dtype == torch.bfloat16 for a in (light, *got[:3], *bwd))
+    assert got[3].dtype == torch.float32
+    assert torch.equal(light, got[0])
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert all(torch.equal(a, b) for a, b in zip(bwd, bwd2))
+    for name, a, b in zip(("ys", "acts", "hprev", "cprev", "dx4", "dw", "dpeep"), (*got, *bwd),
+                          (*ref, *pb)):
+        assert torch.isfinite(a.float()).all(), name
+        assert _scale_err(a, b) <= BF16_TOL, (name, _scale_err(a, b))
+
+
+def test_lstm_classifier_bf16_step_takes_the_bf16_kernels(dev):
+    """One Adam step of the LSTM classifier in bf16 at hidden 32, B = 4:
+    one launch each of kernels 7b and 8's bf16 instances, none of the
+    float32 ones and no eager route; the master parameters stay float32;
+    the loss within 1e-2 of the same step's on the CPU."""
+    from paddle_tpu_torch.flagship import example_batch, flagship_config
+    from paddle_tpu_torch.ops import fused_lstm as fl
+    from paddle_tpu_torch.trainer import Trainer
+
+    ks = (fl.LSTM_FWD_TRAIN_BF16, fl.LSTM_BWD_BF16, fl.LSTM_FWD_TRAIN, fl.LSTM_BWD)
+    tc = flagship_config(dict_dim=100, emb_dim=16, hidden=32)
+    tc.opt_config.dtype = "bfloat16"
+    trainer = Trainer(tc)
+    cpu = Trainer(tc, device="cpu")
+    cpu.params = {k: v.cpu() for k, v in trainer.params.items()}
+    cpu.opt_state = cpu.updater.init_state(cpu.params)
+    before = [k.launches for k in ks] + [fl.EAGER_ROUTES]
+    loss = float(trainer.train_one_batch(example_batch(100, B=4, T=6, seed=2, device=dev)))
+    torch.cuda.synchronize()
+    after = [k.launches for k in ks] + [fl.EAGER_ROUTES]
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 0, 0, 0]
+    assert all(v.dtype == torch.float32 for v in trainer.params.values())
+    want = float(cpu.train_one_batch(example_batch(100, B=4, T=6, seed=2, device="cpu")))
+    assert abs(loss - want) <= 1e-2 * abs(want), (loss, want)
+
+
+def test_full_remat_launches_the_training_forward_twice(dev):
+    """remat="full" on the card: the backward's recompute launches kernel 7b
+    again (two a step, one kernel 8), and the step's loss equals
+    remat="none"'s from the same parameters."""
+    from paddle_tpu_torch.flagship import example_batch, flagship_config
+    from paddle_tpu_torch.ops import fused_lstm as fl
+    from paddle_tpu_torch.trainer import Trainer
+
+    losses = {}
+    for mode in ("none", "full"):
+        tc = flagship_config(dict_dim=100, emb_dim=16, hidden=32)
+        tc.opt_config.remat = mode
+        trainer = Trainer(tc)
+        before = (fl.LSTM_FWD_TRAIN.launches, fl.LSTM_BWD.launches)
+        losses[mode] = float(trainer.train_one_batch(
+            example_batch(100, B=4, T=6, seed=2, device=dev)))
+        torch.cuda.synchronize()
+        got = (fl.LSTM_FWD_TRAIN.launches - before[0], fl.LSTM_BWD.launches - before[1])
+        assert got == ((2, 1) if mode == "full" else (1, 1)), (mode, got)
+    assert abs(losses["full"] - losses["none"]) <= 1e-6 * abs(losses["none"]), losses
+
+
 def test_bf16_models_past_the_nmt_kernels_raise_naming_roadmap_item_7(dev):
-    """A bf16 model that reaches kernels 7a-12 on the card raises, naming
-    ROADMAP Queue 1 item 7: no float32 widening and no eager route."""
-    from paddle_tpu_torch.flagship import (example_batch, flagship_config, lm_batch,
-                                           long_context_config, make_image_batch,
+    """A bf16 model that reaches kernels 9-12 on the card raises, naming
+    ROADMAP Queue 1 item 7: no float32 widening and no eager route. (The
+    LSTM classifier, kernels 7a-8, has its bf16 instances:
+    test_lstm_classifier_bf16_step_takes_the_bf16_kernels.)"""
+    from paddle_tpu_torch.flagship import (lm_batch, long_context_config, make_image_batch,
                                            resnet_config)
     from paddle_tpu_torch.ops import flash_attention, fused_conv1x1_bn, fused_lstm
     from paddle_tpu_torch.trainer import Trainer
@@ -1581,9 +1673,7 @@ def test_bf16_models_past_the_nmt_kernels_raise_naming_roadmap_item_7(dev):
 
     resnet = bf16(resnet_config(layer_num=50, img_size=32, classes=16))
     resnet.opt_config.conv_stats_mode = "pallas"
-    cases = [(bf16(flagship_config(dict_dim=100, emb_dim=16, hidden=32)),
-              lambda d: example_batch(100, B=4, T=6, device=d)),
-             (bf16(long_context_config()), lambda d: lm_batch(500, B=2, T=64, seed=1, device=d)),
+    cases = [(bf16(long_context_config()), lambda d: lm_batch(500, B=2, T=64, seed=1, device=d)),
              (resnet, lambda d: make_image_batch(2, 32, 16, seed=1, device=d))]
     eager = (fused_lstm.EAGER_ROUTES, flash_attention.EAGER_ROUTES,
              fused_conv1x1_bn.EAGER_ROUTES)

@@ -9,6 +9,11 @@ seeded numpy inputs. Tolerances: atol = rtol = 2e-5 forward, the JAX
 recurrent tests' own bound for float32 sums taken in another order;
 rtol 5e-4 / atol 5e-5 for the gradients, tests/test_pallas_lstm.py's bound
 for the machine-level gradients (dW sums over every step and row).
+
+The bf16 cases hold the bf16 plain versions (the kernels' bf16 contract) to
+the same Pallas functions run at ``itemsize=2`` on bf16 operands: one step's
+rounding points within one bf16 ulp, a sequence and its VJP within 1e-2 of
+scale (``torch_bf16_checks``).
 """
 
 import jax
@@ -20,6 +25,7 @@ import torch
 import paddle_tpu.graph  # noqa: F401  (break the layers<->graph import cycle)
 from paddle_tpu.ops import pallas_lstm as pk
 from paddle_tpu_torch.ops import fused_lstm as tl
+from torch_bf16_checks import assert_within_one_ulp, assert_within_scale, bf16, f32
 
 torch.set_num_threads(1)
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -143,3 +149,105 @@ def test_the_wrapper_refuses_unknown_activations():
     with pytest.raises(ValueError, match="activations"):
         tl._act_codes(("tanh", "sigmoid"))
     assert tl._act_codes(("relu", "sigmoid", "linear")) == (2, 1, 3)
+
+
+@pytest.mark.parametrize("reversed_", [False, True])
+def test_backward_reference_is_autograd_in_float32(reversed_):
+    """In float32 the plain kernel 8 (no rounding) gives the gradients of
+    autograd through the plain forward."""
+    x4, w, peep, mask = _inputs(6)
+    acts = ("tanh", "sigmoid", "tanh")
+    tx, tw, tp, tm = map(torch.from_numpy, (x4, w, peep, mask))
+    dy = torch.from_numpy(np.random.RandomState(7).randn(5, 4, 16).astype(np.float32))
+    leaves = [a.clone().requires_grad_() for a in (tx, tw, tp)]
+    ys = tl.lstm_loop(leaves[0], tm, leaves[1], leaves[2], reversed_, acts)
+    want = torch.autograd.grad(ys, leaves, dy)
+    _, saved, hprev, cprev = tl.lstm_forward_reference(tx, tm, tw, tp, reversed_, acts,
+                                                       residuals=True)
+    got = tl.lstm_backward_reference(dy, saved, hprev, cprev, tm, tw, tp, reversed_, acts)
+    for name, a, b in zip(("dx4", "dw", "dpeep"), got, want):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), err_msg=name, **TOL)
+
+
+# ------------------------------------------------------------ bf16 operands
+
+BF16_ACTS = ("tanh", "sigmoid", "tanh")         # the classifier's lstmemory
+
+
+@pytest.mark.parametrize("reversed_", [False, True])
+def test_bf16_plain_versions_match_pallas_at_two_steps(reversed_):
+    """At T = 2 (the first step whose product and dW see a rounded h) the
+    bf16 plain forward, its residuals (c_prev in float32) and the plain
+    backward's dx4, dW and dpeep from the same residuals are each within
+    one bf16 ulp of ``_run_fwd`` / ``_run_bwd`` in interpret mode on bf16
+    operands."""
+    x4, w, peep, mask = _inputs(21, T=2)
+    flip = _flip(reversed_)
+    (jw, tw), (jp, tp) = bf16(w), bf16(peep)
+    jm = jnp.asarray(flip(mask))[:, :, None]
+    want = pk._run_fwd(bf16(flip(x4))[0], jm, jw, jp, BF16_ACTS, True, residuals=True)
+    got = tl.lstm_forward_reference(bf16(x4)[1], torch.from_numpy(mask), tw, tp,
+                                    reverse=reversed_, acts=BF16_ACTS, residuals=True)
+    dtypes = (torch.bfloat16, torch.bfloat16, torch.bfloat16, torch.float32)
+    for name, a, b, dt in zip(("ys", "acts", "hprev", "cprev"), got, want, dtypes):
+        assert a.dtype == dt, name
+        assert_within_one_ulp(a, flip(f32(b)), name)
+    dy = np.random.RandomState(22).randn(2, 4, 16).astype(np.float32)
+    jdx, jdw, jdp = pk._run_bwd(bf16(flip(dy))[0], tuple(want[1:]), jm, jw, jp, BF16_ACTS, True)
+    to_t = lambda a, dt: torch.from_numpy(flip(f32(a))).to(dt)
+    dx, dw, dp = tl.lstm_backward_reference(
+        bf16(dy)[1], to_t(want[1], torch.bfloat16), to_t(want[2], torch.bfloat16),
+        to_t(want[3], torch.float32), torch.from_numpy(mask), tw, tp, reversed_, BF16_ACTS)
+    assert dx.dtype == dw.dtype == dp.dtype == torch.bfloat16
+    assert_within_one_ulp(dx, flip(f32(jdx)), "dx4")
+    assert_within_one_ulp(dw, jdw, "dw")
+    assert_within_one_ulp(dp, jdp, "dpeep")
+
+
+@pytest.mark.parametrize("reversed_", [False, True])
+def test_bf16_sequence_matches_pallas_within_scale(reversed_):
+    """At T = 8, B = 4, H = 16 a bf16 sequence through the CPU's autograd
+    Function (the plain forward and backward, the mask in bf16 as the layer
+    passes it) against ``pallas_lstm.fused_lstm(..., interpret=True)`` and
+    its VJP on the same bf16 operands: ys, dx4, dW and dpeep in bf16,
+    within 1e-2 of scale."""
+    x4, w, peep, mask = _inputs(23, T=8)
+    (jx, tx), (jw, tw), (jp, tp) = bf16(x4), bf16(w), bf16(peep)
+    jmask = jnp.asarray(mask)
+    cot = np.random.RandomState(24).randn(8, 4, 16).astype(np.float32)
+
+    def jys(x, w_, p):
+        if reversed_:
+            return jnp.flip(pk.fused_lstm(jnp.flip(x, 0), jnp.flip(jmask, 0), w_, p, BF16_ACTS,
+                                          True), 0)
+        return pk.fused_lstm(x, jmask, w_, p, BF16_ACTS, True)
+
+    jy, vjp = jax.vjp(jys, jx, jw, jp)
+    want = vjp(bf16(cot)[0])
+    leaves = [a.clone().requires_grad_() for a in (tx, tw, tp)]
+    ys = tl.fused_lstm(leaves[0], torch.from_numpy(mask).to(torch.bfloat16), leaves[1],
+                       leaves[2], reverse=reversed_, acts=BF16_ACTS)
+    assert ys.dtype == torch.bfloat16
+    assert_within_scale(ys, jy, "ys")
+    (ys.float() * torch.from_numpy(cot)).sum().backward()
+    for name, leaf, b in zip(("dx4", "dw", "dpeep"), leaves, want):
+        assert leaf.grad.dtype == torch.bfloat16, name
+        assert_within_scale(leaf.grad, b, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
+def test_the_kernels_refuse_other_operand_types(dtype):
+    """Kernels 7a, 7b and 8 have a float32 and a bf16 instance: operands of
+    another type, or of two types, are refused before any launch."""
+    x4, w, peep, mask = _inputs(5)
+    tx, tw, tp, tm = map(torch.from_numpy, (x4, w, peep, mask))
+    for od in tl.OPERAND_DTYPES:
+        tl._check_operands(tx.to(od), tm, tw.to(od), tp.to(od), tl.DEFAULT_ACTS)
+    with pytest.raises(ValueError, match="float32 or bf16"):
+        tl._check_operands(tx.to(dtype), tm, tw.to(dtype), tp.to(dtype), tl.DEFAULT_ACTS)
+    _, saved, hprev, cprev = tl.lstm_forward_reference(tx, tm, tw, tp, residuals=True)
+    with pytest.raises(ValueError, match="float32 or bf16"):
+        tl._launch_bwd(torch.zeros(5, 4, 16, dtype=dtype), saved.to(dtype), hprev.to(dtype),
+                       cprev, tm, tw.to(dtype), tp.to(dtype), False, tl.DEFAULT_ACTS)
+    with pytest.raises(ValueError, match="w is torch.float32"):
+        tl._check_operands(tx.bfloat16(), tm, tw, tp.bfloat16(), tl.DEFAULT_ACTS)
