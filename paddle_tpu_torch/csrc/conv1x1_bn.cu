@@ -51,6 +51,24 @@
 // in the epilogue; rows past M add nothing to the statistics. Where TMA
 // cannot read x (K % 4 != 0, or x not 16-byte aligned) warp 0 fills the
 // same swizzled stage with 4-byte cp.async copies instead.
+//
+// The bf16 instance (conv1x1_stats_bf16) keeps the Pallas kernel's bf16
+// contract: x, w and b bf16, the product accumulated in float32, b added
+// widened, y rounded to bf16 and stored, s and q float32 sums of the
+// rounded y. The same persistent tile body, templated on the storage type
+// S: a stage holds 64 bf16 features (one 128-byte swizzle row, as 32
+// floats do), x and w go through TMA as bf16 (w as stored, [N][K]: no
+// split launch and no scratch copy), and each 16 features are one
+// wgmma m64nBNk16 bf16 pass with both operands from shared memory. Its
+// products are exact in float32, so one pass meets the contract (the
+// float32 instance needs three). The accumulator runs as the float32
+// one's: each stage summed apart and added to the tile's sum. The epilogue
+// rounds y + b to bf16, stores it (8-byte stores) and sums the rounded
+// values. Where TMA cannot read x or w (K % 8 != 0, or a base not 16-byte
+// aligned) warp 0 fills the swizzled stages with 2-byte loads and a proxy
+// fence. At 2-byte operands a launch moves half the float32 bytes and its
+// products run at the bf16 rate (989 TFLOP/s): the bytes bound most of
+// ResNet-50's shapes.
 #include <cuda.h>
 #include <cuda_runtime.h>
 
@@ -61,7 +79,6 @@
 namespace {
 
 constexpr int kBM = 128;                 // rows of y per tile
-constexpr int kBK = 32;                  // features per stage: one 128-byte swizzle row
 // Two warpgroups of 64 rows each, and no warp of its own for the loads: a
 // wgmma kernel's registers are allotted per warpgroup, so a third one (even
 // for one producer warp) cut every thread to 168 registers and spilled the
@@ -69,12 +86,15 @@ constexpr int kBK = 32;                  // features per stage: one 128-byte swi
 constexpr int kThreads = 256;
 constexpr int kReduceWarps = 32;
 
-template <int BN>
+// S: the storage type of x, w, b and y (float or __nv_bfloat16).
+template <int BN, typename S>
 struct Geo {
-  static constexpr int STAGES = BN == 128 ? 3 : 5;
-  static constexpr int X_BYTES = kBM * kBK * 4;             // 16 KB
-  static constexpr int W_BYTES = BN * kBK * 4;              // one half of w
-  static constexpr int STAGE_BYTES = X_BYTES + 2 * W_BYTES;
+  static constexpr bool F32 = IsF32<S>::value;
+  static constexpr int BK = 128 / sizeof(S);                // features per stage: 128 bytes
+  static constexpr int STAGES = F32 ? (BN == 128 ? 3 : 5) : (BN == 128 ? 4 : 6);
+  static constexpr int X_BYTES = kBM * 128;                 // 16 KB
+  static constexpr int W_BYTES = BN * 128;                  // one half of w (float32), or w
+  static constexpr int STAGE_BYTES = X_BYTES + (F32 ? 2 : 1) * W_BYTES;
   static constexpr int LDY = BN + 8;                        // staged y rows, see epilogue
   static constexpr int Y_BYTES = 2 * 64 * LDY * 4;
   static constexpr int CPR = BN / 4;                        // 16-byte chunks in a row
@@ -229,6 +249,79 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[BN / 2], const unsigned (&
   }
 }
 
+// d (+)= a . b: wgmma m64nNk16 bf16 with float32 accumulation, A [64 x 16]
+// and B [16 x N] both K-major in shared memory (desc_a, desc_b); scale_d = 0
+// overwrites d. d's layout is wgmma_n64's.
+__device__ __forceinline__ void wgmma_bf16_n64(float (&d)[32], uint64_t desc_a,
+                                               uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_bf16_n128(float (&d)[64], uint64_t desc_a,
+                                                uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[BN / 2], uint64_t desc_a,
+                                           uint64_t desc_b, int scale_d) {
+  if constexpr (BN == 128) {
+    wgmma_bf16_n128(d, desc_a, desc_b, scale_d);
+  } else {
+    wgmma_bf16_n64(d, desc_a, desc_b, scale_d);
+  }
+}
+
+// Orders this thread's generic-proxy writes to shared memory before later
+// async-proxy reads of it (wgmma's operand reads), once the reader syncs.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Two bf16 values as one 32-bit word, the first in the low half (memory order).
+__device__ __forceinline__ unsigned bf16_pair(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  return static_cast<unsigned>(__bfloat16_as_ushort(lo)) |
+         (static_cast<unsigned>(__bfloat16_as_ushort(hi)) << 16);
+}
+
+// A bf16 element of a stage's swizzled image as TMA writes it: 16-byte
+// chunk c of row r at chunk c ^ (r % 8), 64 values a row.
+__device__ __forceinline__ void put_bf16(__nv_bfloat16* tile, int r, int c,
+                                         __nv_bfloat16 v) {
+  tile[r * 64 + (((c >> 3) ^ (r & 7)) << 3) + (c & 7)] = v;
+}
+
 // ---- the kernels ----
 
 __global__ void conv1x1_split_w(const float* __restrict__ w, float* __restrict__ ws, int N,
@@ -245,21 +338,24 @@ __global__ void conv1x1_split_w(const float* __restrict__ w, float* __restrict__
   }
 }
 
-template <int BN>
+template <int BN, typename S>
 __global__ void __launch_bounds__(kThreads, 1)
 conv1x1_stats_tile(const __grid_constant__ CUtensorMap x_map,
-                   const __grid_constant__ CUtensorMap w_map, const float* __restrict__ x,
-                   const float* __restrict__ b, float* __restrict__ y,
+                   const __grid_constant__ CUtensorMap w_map, const S* __restrict__ x,
+                   const S* __restrict__ w, const S* __restrict__ b, S* __restrict__ y,
                    float* __restrict__ part, int M, int K, int N, int vec) {
-  using G = Geo<BN>;
-  constexpr int S = G::STAGES;
+  using G = Geo<BN, S>;
+  constexpr bool F32 = G::F32;
+  constexpr int S_ = G::STAGES;
+  constexpr int BK = G::BK;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
-  float* ystage = reinterpret_cast<float*>(base + S * G::STAGE_BYTES);
-  uint64_t* full = reinterpret_cast<uint64_t*>(base + S * G::STAGE_BYTES + G::Y_BYTES);
-  uint64_t* empty = full + S;
-  auto xs = [&](int s) { return reinterpret_cast<float*>(base + s * G::STAGE_BYTES); };
+  float* ystage = reinterpret_cast<float*>(base + S_ * G::STAGE_BYTES);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + S_ * G::STAGE_BYTES + G::Y_BYTES);
+  uint64_t* empty = full + S_;
+  auto xs = [&](int s) { return reinterpret_cast<S*>(base + s * G::STAGE_BYTES); };
+  // float32: w's big half, then its small half; bf16: w
   auto wbig = [&](int s) { return base + s * G::STAGE_BYTES + G::X_BYTES; };
   auto wsmall = [&](int s) { return base + s * G::STAGE_BYTES + G::X_BYTES + G::W_BYTES; };
 
@@ -270,11 +366,14 @@ conv1x1_stats_tile(const __grid_constant__ CUtensorMap x_map,
   const int p = blockIdx.x;
   const int n0 = blockIdx.y * BN;
   const int m_tiles = (M + kBM - 1) / kBM;
-  const int KC = (K + kBK - 1) / kBK;
+  const int KC = (K + BK - 1) / BK;
 
   if (tid == 0) {
-    for (int s = 0; s < S; ++s) {
-      bar_init(&full[s], vec ? 1 : 33);   // the expect_tx arrival (+ 32 cp.async ones)
+    // the expect_tx arrival; without TMA for x, 32 more (cp.async or, for
+    // bf16, warp 0's copies of x and w, which arrive in place of TMA's)
+    const int arrivals = vec ? 1 : (F32 ? 33 : 32);
+    for (int s = 0; s < S_; ++s) {
+      bar_init(&full[s], arrivals);
       bar_init(&empty[s], kThreads);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -282,35 +381,61 @@ conv1x1_stats_tile(const __grid_constant__ CUtensorMap x_map,
   __syncthreads();
 
   // Fill the stage of slice j (the block's j-th slice in the consumers'
-  // order): TMA by thread 0, or x by warp 0's 4-byte copies.
+  // order): TMA by thread 0, or x (bf16: and w) by warp 0's copies.
   const int my_tiles = (m_tiles - p + P - 1) / P;
   const int total = my_tiles * KC;
   auto produce = [&](int j) {
-    const int s = j % S;
+    const int s = j % S_;
     const int mt = p + (j / KC) * P, kc = j % KC;
-    if (tid == 0) {
-      bar_expect(&full[s], vec ? G::STAGE_BYTES : 2 * G::W_BYTES);
-      if (vec) tma_load_2d(xs(s), &x_map, kc * kBK, mt * kBM, &full[s]);
-      tma_load_3d(wbig(s), &w_map, kc * kBK, n0, 0, &full[s]);
-      tma_load_3d(wsmall(s), &w_map, kc * kBK, n0, 1, &full[s]);
-    }
-    if (!vec) {
-      // the swizzled image TMA would write: 16-byte chunk c of row r at
-      // chunk c ^ (r % 8)
-      float* dst = xs(s);
-      for (int e = lane; e < kBM * kBK; e += 32) {
-        const int r = e / kBK, c = e % kBK;
-        const long long row = static_cast<long long>(mt) * kBM + r;
-        const int col = kc * kBK + c;
-        const bool ok = row < M && col < K;
-        flash_mma::cp_async4z(dst + r * kBK + (((c >> 2) ^ (r & 7)) << 2) + (c & 3),
-                              ok ? x + row * K + col : x, ok);
+    if constexpr (F32) {
+      if (tid == 0) {
+        bar_expect(&full[s], vec ? G::STAGE_BYTES : 2 * G::W_BYTES);
+        if (vec) tma_load_2d(xs(s), &x_map, kc * BK, mt * kBM, &full[s]);
+        tma_load_3d(wbig(s), &w_map, kc * BK, n0, 0, &full[s]);
+        tma_load_3d(wsmall(s), &w_map, kc * BK, n0, 1, &full[s]);
       }
-      bar_arrive_cp_async(&full[s]);
+      if (!vec) {
+        // the swizzled image TMA would write: 16-byte chunk c of row r at
+        // chunk c ^ (r % 8)
+        float* dst = xs(s);
+        for (int e = lane; e < kBM * BK; e += 32) {
+          const int r = e / BK, c = e % BK;
+          const long long row = static_cast<long long>(mt) * kBM + r;
+          const int col = kc * BK + c;
+          const bool ok = row < M && col < K;
+          flash_mma::cp_async4z(dst + r * BK + (((c >> 2) ^ (r & 7)) << 2) + (c & 3),
+                                ok ? x + row * K + col : x, ok);
+        }
+        bar_arrive_cp_async(&full[s]);
+      }
+    } else if (vec) {
+      if (tid == 0) {
+        bar_expect(&full[s], G::STAGE_BYTES);
+        tma_load_2d(xs(s), &x_map, kc * BK, mt * kBM, &full[s]);
+        tma_load_2d(wbig(s), &w_map, kc * BK, n0, &full[s]);
+      }
+    } else {
+      const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
+      S* xd = xs(s);
+      S* wd = reinterpret_cast<S*>(wbig(s));
+      for (int e = lane; e < kBM * BK; e += 32) {
+        const int r = e / BK, c = e % BK;
+        const long long row = static_cast<long long>(mt) * kBM + r;
+        const int col = kc * BK + c;
+        put_bf16(xd, r, c, row < M && col < K ? x[row * K + col] : zero);
+      }
+      for (int e = lane; e < BN * BK; e += 32) {
+        const int r = e / BK, c = e % BK;
+        const long long n = static_cast<long long>(n0) + r;
+        const int col = kc * BK + c;
+        put_bf16(wd, r, c, n < N && col < K ? w[n * K + col] : zero);
+      }
+      fence_proxy_async();
+      bar_arrive(&full[s]);
     }
   };
   if (warp == 0)
-    for (int j = 0; j < S - 1 && j < total; ++j) produce(j);
+    for (int j = 0; j < S_ - 1 && j < total; ++j) produce(j);
 
   const int wg = warp / 4;                // rows [64 wg, 64 wg + 64) of a tile
   const int wtid = tid % 128;
@@ -322,7 +447,7 @@ conv1x1_stats_tile(const __grid_constant__ CUtensorMap x_map,
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
     const int n = n0 + 4 * cc + e;
-    bias[e] = (b != nullptr && n < N) ? b[n] : 0.0f;
+    bias[e] = (b != nullptr && n < N) ? to_f32(b[n]) : 0.0f;
     cs[e] = 0.0f;
     cq[e] = 0.0f;
   }
@@ -338,31 +463,43 @@ conv1x1_stats_tile(const __grid_constant__ CUtensorMap x_map,
     for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
     for (int kc = 0; kc < KC; ++kc, ++it) {
       // refill the stage slice it - 1 used, once every thread released it
-      if (warp == 0 && it + S - 1 < total) {
-        if (it > 0) bar_wait(&empty[(it - 1) % S], ((it - 1) / S) & 1);
-        produce(it + S - 1);
+      if (warp == 0 && it + S_ - 1 < total) {
+        if (it > 0) bar_wait(&empty[(it - 1) % S_], ((it - 1) / S_) & 1);
+        produce(it + S_ - 1);
       }
-      const int s = it % S;
-      bar_wait(&full[s], (it / S) & 1);
-      const float* xt = xs(s);
-      flash_mma::FragA a[kBK / 8];
+      const int s = it % S_;
+      bar_wait(&full[s], (it / S_) & 1);
+      const uint64_t db = desc_sw128(wbig(s));
+      if constexpr (F32) {
+        const float* xt = xs(s);
+        flash_mma::FragA a[BK / 8];
 #pragma unroll
-      for (int ks = 0; ks < kBK / 8; ++ks) {
-        // columns 8 ks + t and 8 ks + t + 4: chunks 2 ks and 2 ks + 1
-        const float* lo = xt + ra * kBK + t;
-        const float* hi = lo + 8 * kBK;
-        const int c0 = ((2 * ks) ^ g) << 2, c1 = ((2 * ks + 1) ^ g) << 2;
-        a[ks].set(lo[c0], hi[c0], lo[c1], hi[c1]);
-      }
-      const uint64_t db = desc_sw128(wbig(s)), dsm = desc_sw128(wsmall(s));
+        for (int ks = 0; ks < BK / 8; ++ks) {
+          // columns 8 ks + t and 8 ks + t + 4: chunks 2 ks and 2 ks + 1
+          const float* lo = xt + ra * BK + t;
+          const float* hi = lo + 8 * BK;
+          const int c0 = ((2 * ks) ^ g) << 2, c1 = ((2 * ks + 1) ^ g) << 2;
+          a[ks].set(lo[c0], hi[c0], lo[c1], hi[c1]);
+        }
+        const uint64_t dsm = desc_sw128(wsmall(s));
 #pragma unroll
-      for (int i = 0; i < BN / 2; ++i) fence_operand(slice[i]);
-      wgmma_fence();
+        for (int i = 0; i < BN / 2; ++i) fence_operand(slice[i]);
+        wgmma_fence();
 #pragma unroll
-      for (int ks = 0; ks < kBK / 8; ++ks) {   // 8 features = 32 bytes = 2 descriptor units
-        wgmma_tf32<BN>(slice, a[ks].small, db + 2 * ks, ks > 0);
-        wgmma_tf32<BN>(slice, a[ks].big, dsm + 2 * ks, 1);
-        wgmma_tf32<BN>(slice, a[ks].big, db + 2 * ks, 1);
+        for (int ks = 0; ks < BK / 8; ++ks) {   // 8 features = 32 bytes = 2 descriptor units
+          wgmma_tf32<BN>(slice, a[ks].small, db + 2 * ks, ks > 0);
+          wgmma_tf32<BN>(slice, a[ks].big, dsm + 2 * ks, 1);
+          wgmma_tf32<BN>(slice, a[ks].big, db + 2 * ks, 1);
+        }
+      } else {
+        // the warpgroup's 64 rows of x: 8 KB into the stage, a swizzle atom multiple
+        const uint64_t da = desc_sw128(reinterpret_cast<const uint8_t*>(xs(s)) + wg * 64 * 128);
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) fence_operand(slice[i]);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < BK / 16; ++ks)    // 16 features = 32 bytes = 2 descriptor units
+          wgmma_bf16<BN>(slice, da + 2 * ks, db + 2 * ks, ks > 0);
       }
       wgmma_commit_and_wait();
 #pragma unroll
@@ -388,22 +525,30 @@ conv1x1_stats_tile(const __grid_constant__ CUtensorMap x_map,
     for (int r = r0; r < 64; r += G::RPP) {
       if (row0 + r >= M) break;
       const float4 v4 = *reinterpret_cast<const float4*>(st + r * G::LDY + 4 * cc);
-      const float v[4] = {v4.x + bias[0], v4.y + bias[1], v4.z + bias[2], v4.w + bias[3]};
-      float* dst = y + (row0 + r) * N + n0 + 4 * cc;
+      // y + b rounded to S, and the statistics of the rounded values
+      S v[4] = {from_f32<S>(v4.x + bias[0]), from_f32<S>(v4.y + bias[1]),
+                from_f32<S>(v4.z + bias[2]), from_f32<S>(v4.w + bias[3])};
+      S* dst = y + (row0 + r) * N + n0 + 4 * cc;
       if (vec_store) {
-        *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+        if constexpr (F32) {
+          *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+        } else {
+          *reinterpret_cast<uint2*>(dst) = make_uint2(bf16_pair(v[0], v[1]), bf16_pair(v[2], v[3]));
+        }
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          cs[e] += v[e];
-          cq[e] = fmaf(v[e], v[e], cq[e]);
+          const float f = to_f32(v[e]);
+          cs[e] += f;
+          cq[e] = fmaf(f, f, cq[e]);
         }
       } else {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           if (n0 + 4 * cc + e < N) {
+            const float f = to_f32(v[e]);
             dst[e] = v[e];
-            cs[e] += v[e];
-            cq[e] = fmaf(v[e], v[e], cq[e]);
+            cs[e] += f;
+            cq[e] = fmaf(f, f, cq[e]);
           }
         }
       }
@@ -482,37 +627,51 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// A float32 tensor map with the 128-byte swizzle and zero fill out of bounds:
-// dims innermost first, strides (bytes) of the outer dims, box per dim.
-bool tensor_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
-                const cuuint64_t* strides, const cuuint32_t* box) {
+// A tensor map of float32 or bf16 elements with the 128-byte swizzle and
+// zero fill out of bounds: dims innermost first, strides (bytes) of the
+// outer dims, box per dim.
+bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, int rank,
+                const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box) {
   const EncodeTiled encode = encoder();
   if (encode == nullptr) return false;
   const cuuint32_t ones[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rank, const_cast<void*>(ptr), dims,
-                strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  return encode(map, type, rank, const_cast<void*>(ptr), dims, strides, box, ones,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int BN>
-int launch_tile(const float* x, const float* wsplit, const float* b, float* y, float* part,
-                int M, int K, int N, int Kp, int vec, int* blocks, cudaStream_t st) {
-  using G = Geo<BN>;
+// The persistent tiles' launch. float32: w is wsplit, its TF32 halves
+// [2][N][Kp]; bf16: w as stored, [N][K] (read by TMA when vec).
+template <int BN, typename S>
+int launch_tile(const S* x, const S* w, const S* b, S* y, float* part, int M, int K, int N,
+                int Kp, int vec, int* blocks, cudaStream_t st) {
+  using G = Geo<BN, S>;
+  constexpr CUtensorMapDataType kType =
+      G::F32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  constexpr cuuint64_t kElem = sizeof(S);
   CUtensorMap x_map = {}, w_map = {};
   if (vec) {
     const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(M)};
-    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K) * 4};
-    const cuuint32_t box[2] = {kBK, kBM};
-    if (!tensor_map(&x_map, x, 2, dims, strides, box))
+    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K) * kElem};
+    const cuuint32_t box[2] = {G::BK, kBM};
+    if (!tensor_map(&x_map, kType, x, 2, dims, strides, box))
       return static_cast<int>(cudaErrorNotSupported);
   }
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(Kp), static_cast<cuuint64_t>(N), 2};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(Kp) * 4,
-                                 static_cast<cuuint64_t>(N) * Kp * 4};
-  const cuuint32_t box[3] = {kBK, BN, 1};
-  if (!tensor_map(&w_map, wsplit, 3, dims, strides, box))
-    return static_cast<int>(cudaErrorNotSupported);
+  if constexpr (G::F32) {
+    const cuuint64_t dims[3] = {static_cast<cuuint64_t>(Kp), static_cast<cuuint64_t>(N), 2};
+    const cuuint64_t strides[2] = {static_cast<cuuint64_t>(Kp) * 4,
+                                   static_cast<cuuint64_t>(N) * Kp * 4};
+    const cuuint32_t box[3] = {G::BK, BN, 1};
+    if (!tensor_map(&w_map, kType, w, 3, dims, strides, box))
+      return static_cast<int>(cudaErrorNotSupported);
+  } else if (vec) {
+    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(N)};
+    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K) * kElem};
+    const cuuint32_t box[2] = {G::BK, BN};
+    if (!tensor_map(&w_map, kType, w, 2, dims, strides, box))
+      return static_cast<int>(cudaErrorNotSupported);
+  }
 
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
@@ -522,10 +681,23 @@ int launch_tile(const float* x, const float* wsplit, const float* b, float* y, f
   int P = sms / n_tiles;
   P = P < 1 ? 1 : (P > m_tiles ? m_tiles : P);
   *blocks = P;
-  cudaError_t err = allow_smem(conv1x1_stats_tile<BN>, G::SMEM);
+  cudaError_t err = allow_smem(conv1x1_stats_tile<BN, S>, G::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  conv1x1_stats_tile<BN><<<dim3(P, n_tiles), kThreads, G::SMEM, st>>>(
-      x_map, w_map, x, b, y, part, M, K, N, vec);
+  conv1x1_stats_tile<BN, S><<<dim3(P, n_tiles), kThreads, G::SMEM, st>>>(
+      x_map, w_map, x, w, b, y, part, M, K, N, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The tiles, then s and q from their partial rows.
+template <typename S>
+int run(const S* x, const S* w, const S* b, S* y, float* s, float* q, float* part, int M,
+        int K, int N, int Kp, int vec, cudaStream_t st) {
+  int tiles = 0;
+  const int err = (N <= 64 ? launch_tile<64, S> : launch_tile<128, S>)(
+      x, w, b, y, part, M, K, N, Kp, vec, &tiles, st);
+  if (err != 0) return err;
+  const dim3 grid((2 * N + 31) / 32);
+  conv1x1_stats_reduce<<<grid, dim3(32, kReduceWarps), 0, st>>>(part, s, q, tiles, N);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -543,20 +715,27 @@ extern "C" int conv1x1_stats(const void* x, const void* w, const void* b, void* 
                              void* s, void* q, void* part, void* wsplit, int M, int K, int N,
                              int vec, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  constexpr int kBK = Geo<128, float>::BK;
   const int Kp = (K + kBK - 1) / kBK * kBK;
   float* ws = static_cast<float*>(wsplit);
   const long long nkp = static_cast<long long>(N) * Kp;
   const int split_blocks = static_cast<int>(nkp / 256 + 1 < 1024 ? nkp / 256 + 1 : 1024);
   conv1x1_split_w<<<split_blocks, 256, 0, st>>>(static_cast<const float*>(w), ws, N, K, Kp);
-  int tiles = 0;
-  const int err =
-      (N <= 64 ? launch_tile<64> : launch_tile<128>)(
-          static_cast<const float*>(x), ws, static_cast<const float*>(b),
-          static_cast<float*>(y), static_cast<float*>(part), M, K, N, Kp, vec, &tiles, st);
-  if (err != 0) return err;
-  const dim3 grid((2 * N + 31) / 32);
-  conv1x1_stats_reduce<<<grid, dim3(32, kReduceWarps), 0, st>>>(
-      static_cast<const float*>(part), static_cast<float*>(s), static_cast<float*>(q), tiles,
-      N);
-  return static_cast<int>(cudaGetLastError());
+  return run<float>(static_cast<const float*>(x), ws, static_cast<const float*>(b),
+                    static_cast<float*>(y), static_cast<float*>(s), static_cast<float*>(q),
+                    static_cast<float*>(part), M, K, N, Kp, vec, st);
+}
+
+// The bf16 instance: x, w, b and y __nv_bfloat16, s, q and part float32;
+// two kernels (the tiles and the reduction), no split of w. vec != 0
+// promises K % 8 == 0 and 16-byte aligned x and w (TMA reads both; rows of
+// 16-byte multiples). It takes every shape conv1x1_stats takes.
+extern "C" int conv1x1_stats_bf16(const void* x, const void* w, const void* b, void* y,
+                                  void* s, void* q, void* part, int M, int K, int N, int vec,
+                                  void* stream) {
+  using bf16 = __nv_bfloat16;
+  return run<bf16>(static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+                   static_cast<const bf16*>(b), static_cast<bf16*>(y), static_cast<float*>(s),
+                   static_cast<float*>(q), static_cast<float*>(part), M, K, N, 0, vec,
+                   static_cast<cudaStream_t>(stream));
 }

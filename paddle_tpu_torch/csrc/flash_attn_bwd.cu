@@ -65,6 +65,15 @@
 // wholly at or past the length gets dk = dv = 0 and reads nothing. Each
 // block writes only its own rows, summing over the streamed tiles in order:
 // no atomics, two launches give equal bits.
+//
+// The bf16 instances (flash_attn_dq_bf16, flash_attn_dkv_bf16) keep the
+// Pallas kernels' bf16 contract: q, k, v and dout bf16, widened to float32;
+// lse, delta, p, ds and every sum float32; dq, dk and dv rounded once to
+// bf16. The same bodies on the storage type S: tiles are widened into the
+// float32 tiles by plain 16-byte loads, and the products drop the passes of
+// an exact factor (flash_mma.cuh): the score products (q . k^T, dout . v^T)
+// multiply two bf16 values, one TF32 pass each; the accumulate products
+// (ds . k, p^T . dout, ds^T . q) split their float32 factor, two passes.
 
 #include "flash_attn.cuh"
 #include "flash_mma.cuh"
@@ -74,6 +83,7 @@ namespace {
 using flash::Operand;
 using flash::Output;
 using flash_mma::Cfg;
+using bf16 = __nv_bfloat16;
 using flash_mma::FragA;
 using flash_mma::FragB;
 using flash_mma::kThreads;
@@ -82,8 +92,9 @@ using flash_mma::kWarps;
 constexpr float kLog2e = 1.4426950408889634f;
 
 // s[j] = own[r0 .. r0 + 16) . x[8j .. 8j + 8)^T over the DMAX features
-// (zeros past D): the warp's score tile.
-template <class C>
+// (zeros past D): the warp's score tile. kExact: both factors exact in TF32
+// (bf16 operands; mma_passes).
+template <class C, bool kExact>
 __device__ __forceinline__ void score_tile(float (&s)[C::NS][4], const float* own,
                                            const float* x, int r0, int g, int t) {
 #pragma unroll
@@ -99,9 +110,9 @@ __device__ __forceinline__ void score_tile(float (&s)[C::NS][4], const float* ow
       FragB b;
       flash_mma::load_b_cols<C::LD>(b, x, 8 * j, 8 * ks, g, t);
       if constexpr (C::KS > 8) {
-        flash_mma::mma3_apart(s[j], a, b);
+        flash_mma::mma_passes_apart<kExact, kExact>(s[j], a, b);
       } else {
-        flash_mma::mma3(s[j], a, b);
+        flash_mma::mma_passes<kExact, kExact>(s[j], a, b);
       }
     }
   }
@@ -109,8 +120,9 @@ __device__ __forceinline__ void score_tile(float (&s)[C::NS][4], const float* ow
 
 // acc[n] += a . x over the BC streamed rows, x's features [f0, f0 + DACC);
 // `a` is a score tile in C layout (a_from_c). Each n-tile sums the streamed
-// tile apart and adds it to acc with rounded float32 adds.
-template <class C>
+// tile apart and adds it to acc with rounded float32 adds. kExactX: x exact
+// in TF32.
+template <class C, bool kExactX>
 __device__ __forceinline__ void accumulate(float (&acc)[C::NA][4], const float (&a)[C::NS][4],
                                            const float* x, int f0, int g, int t) {
   FragA fa[C::NS];
@@ -123,18 +135,21 @@ __device__ __forceinline__ void accumulate(float (&acc)[C::NA][4], const float (
     for (int j = 0; j < C::NS; ++j) {
       FragB b;
       flash_mma::load_b_rows<C::LD>(b, x, 8 * j, f0 + 8 * n, g, t);
-      flash_mma::mma3(part, fa[j], b);
+      flash_mma::mma_passes<false, kExactX>(part, fa[j], b);
     }
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] += part[e];
   }
 }
 
-template <class C>
+// S: the storage type of q, k, v, dout and dq.
+template <class C, typename S>
 __global__ void __launch_bounds__(kThreads)
-flash_dq_kernel(Operand q, Operand k, Operand v, Operand dout, const float* __restrict__ lse,
-                const float* __restrict__ delta, const int* __restrict__ lengths, Output dq,
-                int T, int H, int D, int causal, float scale, int vec) {
+flash_dq_kernel(Operand<S> q, Operand<S> k, Operand<S> v, Operand<S> dout,
+                const float* __restrict__ lse, const float* __restrict__ delta,
+                const int* __restrict__ lengths, Output<S> dq, int T, int H, int D, int causal,
+                float scale, int vec) {
+  constexpr bool kExact = !IsF32<S>::value;          // bf16 operands are exact in TF32
   constexpr int LD = C::LD, BR = C::BR, BC = C::BC;
   extern __shared__ __align__(16) float smem[];
   float* sq = smem;                       // [BR][LD]
@@ -153,8 +168,8 @@ flash_dq_kernel(Operand q, Operand k, Operand v, Operand dout, const float* __re
   const int r0 = (warp / C::WF) * 16;     // the warp's strip in the tile
   const int f0 = (warp % C::WF) * C::DACC;
   const long long stat = (static_cast<long long>(b) * H + h) * T;
-  const float* kh = k.head(b, h);
-  const float* vh = v.head(b, h);
+  const S* kh = k.head(b, h);
+  const S* vh = v.head(b, h);
 
   const int kend = causal ? min(len, q0 + BR) : len;
   const int tiles = kend > 0 ? (kend + BC - 1) / BC : 0;
@@ -194,8 +209,8 @@ flash_dq_kernel(Operand q, Operand k, Operand v, Operand dout, const float* __re
     const float* vs = sv + stage * BC * LD;
 
     float s[C::NS][4], dp[C::NS][4];
-    score_tile<C>(s, sq, ks, r0, g, t);                       // q . k^T
-    score_tile<C>(dp, sdo, vs, r0, g, t);                     // dout . v^T
+    score_tile<C, kExact>(s, sq, ks, r0, g, t);               // q . k^T
+    score_tile<C, kExact>(dp, sdo, vs, r0, g, t);             // dout . v^T
     // every key of the tile visible to every query of the strip
     const bool all = k0 + BC <= len && (!causal || k0 + BC - 1 <= q0 + r0);
 #pragma unroll
@@ -209,17 +224,20 @@ flash_dq_kernel(Operand q, Operand k, Operand v, Operand dout, const float* __re
         const float p = all || flash::visible(qp, kp, len, causal) ? e2 : 0.0f;
         s[j][e] = p * (dp[j][e] - row_delta[half]) * scale;   // ds
       }
-    accumulate<C>(acc, s, ks, f0, g, t);                  // dq += ds k
+    accumulate<C, kExact>(acc, s, ks, f0, g, t);          // dq += ds k
     __syncthreads();                      // the stage is refilled next iteration
   }
   flash_mma::store_acc<C>(dq.head(b, h), dq.st, acc, q0 + r0, f0, T, D, g, t);
 }
 
-template <class C>
+// S: the storage type of q, k, v, dout, dk and dv.
+template <class C, typename S>
 __global__ void __launch_bounds__(kThreads)
-flash_dkv_kernel(Operand q, Operand k, Operand v, Operand dout, const float* __restrict__ lse,
-                 const float* __restrict__ delta, const int* __restrict__ lengths, Output dk,
-                 Output dv, int T, int H, int D, int causal, float scale, int vec) {
+flash_dkv_kernel(Operand<S> q, Operand<S> k, Operand<S> v, Operand<S> dout,
+                 const float* __restrict__ lse, const float* __restrict__ delta,
+                 const int* __restrict__ lengths, Output<S> dk, Output<S> dv, int T, int H,
+                 int D, int causal, float scale, int vec) {
+  constexpr bool kExact = !IsF32<S>::value;          // bf16 operands are exact in TF32
   constexpr int LD = C::LD, BR = C::BR, BC = C::BC;
   extern __shared__ __align__(16) float smem[];
   float* sk = smem;                       // [BR][LD]
@@ -239,8 +257,8 @@ flash_dkv_kernel(Operand q, Operand k, Operand v, Operand dout, const float* __r
   const int r0 = (warp / C::WF) * 16;
   const int f0 = (warp % C::WF) * C::DACC;
   const long long stat = (static_cast<long long>(b) * H + h) * T;
-  const float* qh = q.head(b, h);
-  const float* doh = dout.head(b, h);
+  const S* qh = q.head(b, h);
+  const S* doh = dout.head(b, h);
   const float scale2 = scale * kLog2e;
 
   float acc_k[C::NA][4], acc_v[C::NA][4];
@@ -281,8 +299,8 @@ flash_dkv_kernel(Operand q, Operand k, Operand v, Operand dout, const float* __r
       const float* ds_ = sdelta + stage * BC;
 
       float s[C::NS][4], dp[C::NS][4];
-      score_tile<C>(s, sk, qs, r0, g, t);                     // (q . k)^T
-      score_tile<C>(dp, sv, dos, r0, g, t);                   // (dout . v)^T
+      score_tile<C, kExact>(s, sk, qs, r0, g, t);             // (q . k)^T
+      score_tile<C, kExact>(dp, sv, dos, r0, g, t);           // (dout . v)^T
       const int kr = k0 + r0;
       // every query of the tile (all before T) sees every key of the strip
       const bool all = q0 + BC <= T && kr + 16 <= len && (!causal || q0 >= kr + 15);
@@ -298,8 +316,8 @@ flash_dkv_kernel(Operand q, Operand k, Operand v, Operand dout, const float* __r
           s[j][e] = p;                                          // p^T
           dp[j][e] = p * (dp[j][e] - ds_[c]) * scale;           // ds^T
         }
-      accumulate<C>(acc_v, s, dos, f0, g, t);             // dv += p^T dout
-      accumulate<C>(acc_k, dp, qs, f0, g, t);             // dk += ds^T q
+      accumulate<C, kExact>(acc_v, s, dos, f0, g, t);     // dv += p^T dout
+      accumulate<C, kExact>(acc_k, dp, qs, f0, g, t);     // dk += ds^T q
       __syncthreads();
     }
   }
@@ -307,68 +325,72 @@ flash_dkv_kernel(Operand q, Operand k, Operand v, Operand dout, const float* __r
   flash_mma::store_acc<C>(dv.head(b, h), dv.st, acc_v, k0 + r0, f0, T, D, g, t);
 }
 
-template <class C>
-int launch_dq(Operand q, Operand k, Operand v, Operand dout, const float* lse,
-              const float* delta, const int* lengths, Output dq, int B, int T, int H, int D,
+template <class C, typename S>
+int launch_dq(Operand<S> q, Operand<S> k, Operand<S> v, Operand<S> dout, const float* lse,
+              const float* delta, const int* lengths, Output<S> dq, int B, int T, int H, int D,
               int causal, int vec, cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(2 * C::BR + 4 * C::BC) * C::LD * sizeof(float);
-  cudaError_t err = allow_smem(flash_dq_kernel<C>, smem);
+  cudaError_t err = allow_smem(flash_dq_kernel<C, S>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((T + C::BR - 1) / C::BR, H, B);
-  flash_dq_kernel<C><<<grid, kThreads, smem, stream>>>(
+  flash_dq_kernel<C, S><<<grid, kThreads, smem, stream>>>(
       q, k, v, dout, lse, delta, lengths, dq, T, H, D, causal, flash::softmax_scale(D), vec);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <class C>
-int launch_dkv(Operand q, Operand k, Operand v, Operand dout, const float* lse,
-               const float* delta, const int* lengths, Output dk, Output dv, int B, int T,
+template <class C, typename S>
+int launch_dkv(Operand<S> q, Operand<S> k, Operand<S> v, Operand<S> dout, const float* lse,
+               const float* delta, const int* lengths, Output<S> dk, Output<S> dv, int B, int T,
                int H, int D, int causal, int vec, cudaStream_t stream) {
   const size_t smem =
       (static_cast<size_t>(2 * C::BR + 4 * C::BC) * C::LD + 4 * C::BC) * sizeof(float);
-  cudaError_t err = allow_smem(flash_dkv_kernel<C>, smem);
+  cudaError_t err = allow_smem(flash_dkv_kernel<C, S>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((T + C::BR - 1) / C::BR, H, B);
-  flash_dkv_kernel<C><<<grid, kThreads, smem, stream>>>(
+  flash_dkv_kernel<C, S><<<grid, kThreads, smem, stream>>>(
       q, k, v, dout, lse, delta, lengths, dk, dv, T, H, D, causal, flash::softmax_scale(D),
       vec);
   return static_cast<int>(cudaGetLastError());
 }
 
-// 16-byte copies when every operand allows them.
-int rows_16b(const Operand& q, const Operand& k, const Operand& v, const Operand& g, int D) {
-  return flash_mma::rows_16b_aligned(q.ptr, q.sb, q.st, q.sh, D) &&
-         flash_mma::rows_16b_aligned(k.ptr, k.sb, k.st, k.sh, D) &&
-         flash_mma::rows_16b_aligned(v.ptr, v.sb, v.st, v.sh, D) &&
-         flash_mma::rows_16b_aligned(g.ptr, g.sb, g.st, g.sh, D);
+// 16-byte loads when every operand allows them.
+template <typename S>
+int rows_16b(const Operand<S>& q, const Operand<S>& k, const Operand<S>& v,
+             const Operand<S>& g, int D) {
+  constexpr int kElem = sizeof(S);
+  return flash_mma::rows_16b_aligned(q.ptr, q.sb, q.st, q.sh, D, kElem) &&
+         flash_mma::rows_16b_aligned(k.ptr, k.sb, k.st, k.sh, D, kElem) &&
+         flash_mma::rows_16b_aligned(v.ptr, v.sb, v.st, v.sh, D, kElem) &&
+         flash_mma::rows_16b_aligned(g.ptr, g.sb, g.st, g.sh, D, kElem);
 }
 
-}  // namespace
+// The strided operands of both kernels, in either storage type.
+template <typename S>
+struct Args {
+  Operand<S> q, k, v, dout;
+  Args(const void* q_, long long q_sb, long long q_st, long long q_sh, const void* k_,
+       long long k_sb, long long k_st, long long k_sh, const void* v_, long long v_sb,
+       long long v_st, long long v_sh, const void* g_, long long g_sb, long long g_st,
+       long long g_sh)
+      : q{static_cast<const S*>(q_), q_sb, q_st, q_sh},
+        k{static_cast<const S*>(k_), k_sb, k_st, k_sh},
+        v{static_cast<const S*>(v_), v_sb, v_st, v_sh},
+        dout{static_cast<const S*>(g_), g_sb, g_st, g_sh} {}
+};
 
-// q, k, v, dout, dq, dk and dv [B, T, H, D] through their batch, time and
-// head strides (in elements; the last dimension contiguous); lse and delta
-// [B, H, T] contiguous; lengths [B] int32. 1 <= D <= 256, T >= 1, H and
-// B <= 65535. Launch on `stream`, return cudaGetLastError() (or the launch's
-// own error).
-extern "C" int flash_attn_dq(const void* q, long long q_sb, long long q_st, long long q_sh,
-                             const void* k, long long k_sb, long long k_st, long long k_sh,
-                             const void* v, long long v_sb, long long v_st, long long v_sh,
-                             const void* dout, long long g_sb, long long g_st, long long g_sh,
-                             const void* lse, const void* delta, const void* lengths,
-                             void* dq, long long d_sb, long long d_st, long long d_sh,
-                             int B, int T, int H, int D, int causal, void* stream) {
-  const Operand oq{static_cast<const float*>(q), q_sb, q_st, q_sh};
-  const Operand okk{static_cast<const float*>(k), k_sb, k_st, k_sh};
-  const Operand ov{static_cast<const float*>(v), v_sb, v_st, v_sh};
-  const Operand og{static_cast<const float*>(dout), g_sb, g_st, g_sh};
-  const Output od{static_cast<float*>(dq), d_sb, d_st, d_sh};
+template <typename S>
+int run_dq(const Args<S>& a, const void* lse, const void* delta, const void* lengths, void* dq,
+           long long d_sb, long long d_st, long long d_sh, int B, int T, int H, int D,
+           int causal, void* stream) {
+  const Output<S> od{static_cast<S*>(dq), d_sb, d_st, d_sh};
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   const int* len = static_cast<const int*>(lengths);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int vec = rows_16b(oq, okk, ov, og, D);
+  const int vec = rows_16b(a.q, a.k, a.v, a.dout, D);
 #define FLASH_DQ(DMAX, WF, BC) \
-  launch_dq<Cfg<DMAX, WF, BC>>(oq, okk, ov, og, l, dl, len, od, B, T, H, D, causal, vec, s)
+  launch_dq<Cfg<DMAX, WF, BC>, S>(a.q, a.k, a.v, a.dout, l, dl, len, od, B, T, H, D, causal, \
+                                  vec, s)
   if (D <= 16) return FLASH_DQ(16, 1, 64);
   if (D <= 32) return FLASH_DQ(32, 1, 64);
   if (D <= 64) return FLASH_DQ(64, 1, 32);
@@ -378,28 +400,21 @@ extern "C" int flash_attn_dq(const void* q, long long q_sb, long long q_st, long
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-extern "C" int flash_attn_dkv(const void* q, long long q_sb, long long q_st, long long q_sh,
-                              const void* k, long long k_sb, long long k_st, long long k_sh,
-                              const void* v, long long v_sb, long long v_st, long long v_sh,
-                              const void* dout, long long g_sb, long long g_st, long long g_sh,
-                              const void* lse, const void* delta, const void* lengths,
-                              void* dk, long long dk_sb, long long dk_st, long long dk_sh,
-                              void* dv, long long dv_sb, long long dv_st, long long dv_sh,
-                              int B, int T, int H, int D, int causal, void* stream) {
-  const Operand oq{static_cast<const float*>(q), q_sb, q_st, q_sh};
-  const Operand okk{static_cast<const float*>(k), k_sb, k_st, k_sh};
-  const Operand ov{static_cast<const float*>(v), v_sb, v_st, v_sh};
-  const Operand og{static_cast<const float*>(dout), g_sb, g_st, g_sh};
-  const Output odk{static_cast<float*>(dk), dk_sb, dk_st, dk_sh};
-  const Output odv{static_cast<float*>(dv), dv_sb, dv_st, dv_sh};
+template <typename S>
+int run_dkv(const Args<S>& a, const void* lse, const void* delta, const void* lengths,
+            void* dk, long long dk_sb, long long dk_st, long long dk_sh, void* dv,
+            long long dv_sb, long long dv_st, long long dv_sh, int B, int T, int H, int D,
+            int causal, void* stream) {
+  const Output<S> odk{static_cast<S*>(dk), dk_sb, dk_st, dk_sh};
+  const Output<S> odv{static_cast<S*>(dv), dv_sb, dv_st, dv_sh};
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   const int* len = static_cast<const int*>(lengths);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int vec = rows_16b(oq, okk, ov, og, D);
+  const int vec = rows_16b(a.q, a.k, a.v, a.dout, D);
 #define FLASH_DKV(DMAX, WF, BC) \
-  launch_dkv<Cfg<DMAX, WF, BC>>(oq, okk, ov, og, l, dl, len, odk, odv, B, T, H, D, causal, \
-                                vec, s)
+  launch_dkv<Cfg<DMAX, WF, BC>, S>(a.q, a.k, a.v, a.dout, l, dl, len, odk, odv, B, T, H, D, \
+                                   causal, vec, s)
   if (D <= 16) return FLASH_DKV(16, 1, 64);
   if (D <= 32) return FLASH_DKV(32, 1, 64);
   if (D <= 64) return FLASH_DKV(64, 1, 32);
@@ -407,4 +422,54 @@ extern "C" int flash_attn_dkv(const void* q, long long q_sb, long long q_st, lon
   if (D <= 256) return FLASH_DKV(256, 4, 32);
 #undef FLASH_DKV
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+// q, k, v, dout, dq, dk and dv [B, T, H, D] through their batch, time and
+// head strides (in elements; the last dimension contiguous); lse and delta
+// [B, H, T] contiguous; lengths [B] int32. 1 <= D <= 256, T >= 1, H and
+// B <= 65535. Launch on `stream`, return cudaGetLastError() (or the launch's
+// own error). The _bf16 instances take the same arguments with q, k, v,
+// dout, dq, dk and dv __nv_bfloat16 (lse and delta float32).
+#define FLASH_BWD_QKVG                                                                    \
+  const void *q, long long q_sb, long long q_st, long long q_sh, const void *k,          \
+      long long k_sb, long long k_st, long long k_sh, const void *v, long long v_sb,     \
+      long long v_st, long long v_sh, const void *dout, long long g_sb, long long g_st,  \
+      long long g_sh
+#define FLASH_BWD_ARGS \
+  q, q_sb, q_st, q_sh, k, k_sb, k_st, k_sh, v, v_sb, v_st, v_sh, dout, g_sb, g_st, g_sh
+
+extern "C" int flash_attn_dq(FLASH_BWD_QKVG, const void* lse, const void* delta,
+                             const void* lengths, void* dq, long long d_sb, long long d_st,
+                             long long d_sh, int B, int T, int H, int D, int causal,
+                             void* stream) {
+  return run_dq(Args<float>(FLASH_BWD_ARGS), lse, delta, lengths, dq, d_sb, d_st, d_sh, B, T,
+                H, D, causal, stream);
+}
+
+extern "C" int flash_attn_dq_bf16(FLASH_BWD_QKVG, const void* lse, const void* delta,
+                                  const void* lengths, void* dq, long long d_sb,
+                                  long long d_st, long long d_sh, int B, int T, int H, int D,
+                                  int causal, void* stream) {
+  return run_dq(Args<bf16>(FLASH_BWD_ARGS), lse, delta, lengths, dq, d_sb, d_st, d_sh, B, T,
+                H, D, causal, stream);
+}
+
+extern "C" int flash_attn_dkv(FLASH_BWD_QKVG, const void* lse, const void* delta,
+                              const void* lengths, void* dk, long long dk_sb, long long dk_st,
+                              long long dk_sh, void* dv, long long dv_sb, long long dv_st,
+                              long long dv_sh, int B, int T, int H, int D, int causal,
+                              void* stream) {
+  return run_dkv(Args<float>(FLASH_BWD_ARGS), lse, delta, lengths, dk, dk_sb, dk_st, dk_sh,
+                 dv, dv_sb, dv_st, dv_sh, B, T, H, D, causal, stream);
+}
+
+extern "C" int flash_attn_dkv_bf16(FLASH_BWD_QKVG, const void* lse, const void* delta,
+                                   const void* lengths, void* dk, long long dk_sb,
+                                   long long dk_st, long long dk_sh, void* dv, long long dv_sb,
+                                   long long dv_st, long long dv_sh, int B, int T, int H, int D,
+                                   int causal, void* stream) {
+  return run_dkv(Args<bf16>(FLASH_BWD_ARGS), lse, delta, lengths, dk, dk_sb, dk_st, dk_sh,
+                 dv, dv_sb, dv_st, dv_sh, B, T, H, D, causal, stream);
 }

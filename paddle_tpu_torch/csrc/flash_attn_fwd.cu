@@ -47,6 +47,15 @@
 //   query: their p is 0 and alpha 1, so skipping them changes no bit.
 //   Blocks are launched heaviest first (the last query tiles see the most
 //   keys under a causal mask). No atomics: two launches give equal bits.
+//
+// The bf16 instance (flash_attn_fwd_bf16) keeps the Pallas kernel's bf16
+// contract: q, k and v bf16, widened to float32 (q scaled there), the online
+// softmax and o in float32, out rounded once to bf16, lse float32. The same
+// body on the storage type S: key and value tiles are widened into the
+// float32 tiles by plain 16-byte loads (cp.async cannot widen), and the
+// products drop the passes of an exact factor (flash_mma.cuh): k and v are
+// bf16, so P . V takes two passes, and Q . K^T two, or one where 1 / sqrt(D)
+// is a power of two (D = 16, 64, 256: q * scale is then bf16-exact too).
 
 #include "flash_attn.cuh"
 #include "flash_mma.cuh"
@@ -56,6 +65,7 @@ namespace {
 using flash::Operand;
 using flash::Output;
 using flash_mma::Cfg;
+using bf16 = __nv_bfloat16;
 using flash_mma::FragA;
 using flash_mma::FragB;
 using flash_mma::kThreads;
@@ -79,8 +89,9 @@ struct QStrip {
   }
 };
 
-// s[j] = q strip . k[8j .. 8j + 8)^T over the DMAX features (zeros past D).
-template <class C>
+// s[j] = q strip . k[8j .. 8j + 8)^T over the DMAX features (zeros past D);
+// kExactQ, kExactK: the factors exact in TF32 (mma_passes).
+template <class C, bool kExactQ, bool kExactK>
 __device__ __forceinline__ void score_tile(float (&s)[C::NS][4], const QStrip<C>& q,
                                            const float* kt, int g, int t) {
 #pragma unroll
@@ -96,9 +107,9 @@ __device__ __forceinline__ void score_tile(float (&s)[C::NS][4], const QStrip<C>
       FragB b;
       flash_mma::load_b_cols<C::LD>(b, kt, 8 * j, 8 * ks, g, t);
       if constexpr (C::KS > 8) {
-        flash_mma::mma3_apart(s[j], a, b);
+        flash_mma::mma_passes_apart<kExactQ, kExactK>(s[j], a, b);
       } else {
-        flash_mma::mma3(s[j], a, b);
+        flash_mma::mma_passes<kExactQ, kExactK>(s[j], a, b);
       }
     }
   }
@@ -108,8 +119,8 @@ __device__ __forceinline__ void score_tile(float (&s)[C::NS][4], const QStrip<C>
 // C layout (a_from_c), one A fragment at a time. The tile is summed apart
 // and added to o with rounded float32 adds, 8 n-tiles at a time: at
 // DACC = 128 a 32-float partial sum beside the 64-float o, which fits the
-// registers (a 64-float one spilled).
-template <class C>
+// registers (a 64-float one spilled). kExactV: v exact in TF32.
+template <class C, bool kExactV>
 __device__ __forceinline__ void accumulate(float (&o)[C::NA][4], const float (&p)[C::NS][4],
                                            const float* vt, int f0, int g, int t) {
   constexpr int NB = C::NA < 8 ? C::NA : 8;
@@ -128,7 +139,7 @@ __device__ __forceinline__ void accumulate(float (&o)[C::NA][4], const float (&p
       for (int n = 0; n < NB; ++n) {
         FragB b;
         flash_mma::load_b_rows<C::LD>(b, vt, 8 * j, f0 + 8 * (n0 + n), g, t);
-        flash_mma::mma3(part[n], a, b);
+        flash_mma::mma_passes<false, kExactV>(part[n], a, b);
       }
     }
 #pragma unroll
@@ -149,11 +160,13 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(flash::kFull, v, 2);
 }
 
-template <class C>
+// S: the storage type of q, k, v and out; kQExact: q * scale exact in TF32.
+template <class C, typename S, bool kQExact>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(Operand q, Operand k, Operand v, const int* __restrict__ lengths, Output out,
-                 float* __restrict__ lse, int T, int H, int D, int causal, float scale,
-                 int vec) {
+flash_fwd_kernel(Operand<S> q, Operand<S> k, Operand<S> v, const int* __restrict__ lengths,
+                 Output<S> out, float* __restrict__ lse, int T, int H, int D, int causal,
+                 float scale, int vec) {
+  constexpr bool kExactKV = !IsF32<S>::value;        // bf16 k and v are exact in TF32
   constexpr int LD = C::LD, BR = C::BR, BC = C::BC;
   constexpr bool kQReg = QStrip<C>::kInRegisters;
   extern __shared__ __align__(16) float smem[];
@@ -172,8 +185,8 @@ flash_fwd_kernel(Operand q, Operand k, Operand v, const int* __restrict__ length
   const int t = threadIdx.x % 4;
   const int r0 = (warp / C::WF) * 16;                  // the warp's strip in the tile
   const int f0 = (warp % C::WF) * C::DACC;
-  const float* kh = k.head(b, h);
-  const float* vh = v.head(b, h);
+  const S* kh = k.head(b, h);
+  const S* vh = v.head(b, h);
 
   QStrip<C> qs;
   qs.big = reinterpret_cast<const unsigned*>(sq);
@@ -229,7 +242,7 @@ flash_fwd_kernel(Operand q, Operand k, Operand v, const int* __restrict__ length
       const float* kt = sk + stage * BC * LD;
       const float* vt = sv + stage * BC * LD;
       float s[C::NS][4];
-      score_tile<C>(s, qs, kt, g, t);
+      score_tile<C, kQExact, kExactKV>(s, qs, kt, g, t);
       // every key of the tile visible to every query of the strip
       const bool all = k0 + BC <= len && (!causal || k0 + BC - 1 <= q0 + r0);
 #pragma unroll
@@ -265,7 +278,7 @@ flash_fwd_kernel(Operand q, Operand k, Operand v, const int* __restrict__ length
           o[n][2 * half + 1] *= alpha;
         }
       }
-      accumulate<C>(o, s, vt, f0, g, t);
+      accumulate<C, kExactKV>(o, s, vt, f0, g, t);
     }
     __syncthreads();                                   // the stage is refilled next
   }
@@ -286,17 +299,47 @@ flash_fwd_kernel(Operand q, Operand k, Operand v, const int* __restrict__ length
   flash_mma::store_acc<C>(out.head(b, h), out.st, o, q0 + r0, f0, T, D, g, t);
 }
 
-template <class C>
-int launch(Operand q, Operand k, Operand v, const int* lengths, Output out, float* lse, int B,
-           int T, int H, int D, int causal, int vec, cudaStream_t stream) {
+template <class C, typename S, bool kQExact>
+int launch(Operand<S> q, Operand<S> k, Operand<S> v, const int* lengths, Output<S> out,
+           float* lse, int B, int T, int H, int D, int causal, int vec, cudaStream_t stream) {
   const int q_tiles = QStrip<C>::kInRegisters ? 1 : 2;
   const size_t smem = static_cast<size_t>(q_tiles * C::BR + 4 * C::BC) * C::LD * sizeof(float);
-  cudaError_t err = allow_smem(flash_fwd_kernel<C>, smem);
+  cudaError_t err = allow_smem(flash_fwd_kernel<C, S, kQExact>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((T + C::BR - 1) / C::BR, H, B);
-  flash_fwd_kernel<C><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_kernel<C, S, kQExact><<<grid, kThreads, smem, stream>>>(
       q, k, v, lengths, out, lse, T, H, D, causal, flash::softmax_scale(D), vec);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Both instances' entry: the configuration by D (DMAX, warps per strip, key
+// tile rows), 16-byte loads where every operand allows them.
+template <typename S, bool kQExact>
+int run(const void* q, long long q_sb, long long q_st, long long q_sh, const void* k,
+        long long k_sb, long long k_st, long long k_sh, const void* v, long long v_sb,
+        long long v_st, long long v_sh, const void* lengths, void* out, long long o_sb,
+        long long o_st, long long o_sh, void* lse, int B, int T, int H, int D, int causal,
+        void* stream) {
+  const Operand<S> oq{static_cast<const S*>(q), q_sb, q_st, q_sh};
+  const Operand<S> okk{static_cast<const S*>(k), k_sb, k_st, k_sh};
+  const Operand<S> ov{static_cast<const S*>(v), v_sb, v_st, v_sh};
+  const Output<S> oo{static_cast<S*>(out), o_sb, o_st, o_sh};
+  const int* len = static_cast<const int*>(lengths);
+  float* l = static_cast<float*>(lse);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  constexpr int kElem = sizeof(S);
+  const int vec = flash_mma::rows_16b_aligned(q, q_sb, q_st, q_sh, D, kElem) &&
+                  flash_mma::rows_16b_aligned(k, k_sb, k_st, k_sh, D, kElem) &&
+                  flash_mma::rows_16b_aligned(v, v_sb, v_st, v_sh, D, kElem);
+#define FLASH_FWD(DMAX, WF, BC) \
+  launch<Cfg<DMAX, WF, BC>, S, kQExact>(oq, okk, ov, len, oo, l, B, T, H, D, causal, vec, s)
+  if (D <= 16) return FLASH_FWD(16, 1, 64);
+  if (D <= 32) return FLASH_FWD(32, 1, 64);
+  if (D <= 64) return FLASH_FWD(64, 1, 64);
+  if (D <= 128) return FLASH_FWD(128, 2, 32);
+  if (D <= 256) return FLASH_FWD(256, 2, 32);
+#undef FLASH_FWD
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -311,23 +354,20 @@ extern "C" int flash_attn_fwd(const void* q, long long q_sb, long long q_st, lon
                               const void* lengths, void* out, long long o_sb, long long o_st,
                               long long o_sh, void* lse, int B, int T, int H, int D, int causal,
                               void* stream) {
-  const Operand oq{static_cast<const float*>(q), q_sb, q_st, q_sh};
-  const Operand okk{static_cast<const float*>(k), k_sb, k_st, k_sh};
-  const Operand ov{static_cast<const float*>(v), v_sb, v_st, v_sh};
-  const Output oo{static_cast<float*>(out), o_sb, o_st, o_sh};
-  const int* len = static_cast<const int*>(lengths);
-  float* l = static_cast<float*>(lse);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int vec = flash_mma::rows_16b_aligned(q, q_sb, q_st, q_sh, D) &&
-                  flash_mma::rows_16b_aligned(k, k_sb, k_st, k_sh, D) &&
-                  flash_mma::rows_16b_aligned(v, v_sb, v_st, v_sh, D);
-#define FLASH_FWD(DMAX, WF, BC) \
-  launch<Cfg<DMAX, WF, BC>>(oq, okk, ov, len, oo, l, B, T, H, D, causal, vec, s)
-  if (D <= 16) return FLASH_FWD(16, 1, 64);
-  if (D <= 32) return FLASH_FWD(32, 1, 64);
-  if (D <= 64) return FLASH_FWD(64, 1, 64);
-  if (D <= 128) return FLASH_FWD(128, 2, 32);
-  if (D <= 256) return FLASH_FWD(256, 2, 32);
-#undef FLASH_FWD
-  return static_cast<int>(cudaErrorInvalidValue);
+  return run<float, false>(q, q_sb, q_st, q_sh, k, k_sb, k_st, k_sh, v, v_sb, v_st, v_sh,
+                           lengths, out, o_sb, o_st, o_sh, lse, B, T, H, D, causal, stream);
+}
+
+// The bf16 instance: q, k, v and out __nv_bfloat16, lse float32; the same
+// arguments and shapes as flash_attn_fwd.
+extern "C" int flash_attn_fwd_bf16(const void* q, long long q_sb, long long q_st,
+                                   long long q_sh, const void* k, long long k_sb,
+                                   long long k_st, long long k_sh, const void* v,
+                                   long long v_sb, long long v_st, long long v_sh,
+                                   const void* lengths, void* out, long long o_sb,
+                                   long long o_st, long long o_sh, void* lse, int B, int T,
+                                   int H, int D, int causal, void* stream) {
+  return (flash::scale_is_pow2(D) ? run<bf16, true> : run<bf16, false>)(
+      q, q_sb, q_st, q_sh, k, k_sb, k_st, k_sh, v, v_sb, v_st, v_sh, lengths, out, o_sb, o_st,
+      o_sh, lse, B, T, H, D, causal, stream);
 }

@@ -3,6 +3,13 @@
 // 3-pass split, the cp.async tile loads that feed them, and the geometry
 // and output stores the kernels share. conv1x1_bn.cu takes the split.
 //
+// bf16 operands (the kernels' bf16 instances): a tile of bf16 values is
+// widened into the same float32 shared-memory tile, and a widened bf16
+// value is exact in TF32 (8 significant bits of its 11): its small half is
+// 0, so a product drops the pass that multiplies it (mma_passes). A
+// product of two exact factors takes one pass, of one exact factor two,
+// and keeps float32 accuracy either way.
+//
 // The product. mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 takes
 // A [16 x 8] and B [8 x 8] as TF32 (10-bit mantissa; the tensor core
 // ignores the low 13 bits of a 32-bit operand) and accumulates in float32.
@@ -83,17 +90,22 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
 }
 
 // d += a . b to float32 accuracy: the small cross terms first, then the
-// big product.
-__device__ __forceinline__ void mma3(float (&d)[4], const FragA& a, const FragB& b) {
-  mma_tf32(d, a.small, b.big);
-  mma_tf32(d, a.big, b.small);
+// big product. A factor marked exact is exact in TF32 (its small half 0,
+// as a widened bf16 value's), and the pass that multiplies its small half
+// is dropped: with neither exact the three passes of the split.
+template <bool kExactA, bool kExactB>
+__device__ __forceinline__ void mma_passes(float (&d)[4], const FragA& a, const FragB& b) {
+  if constexpr (!kExactA) mma_tf32(d, a.small, b.big);
+  if constexpr (!kExactB) mma_tf32(d, a.big, b.small);
   mma_tf32(d, a.big, b.big);
 }
 
-// As mma3, the three products summed apart and added to d in float32.
-__device__ __forceinline__ void mma3_apart(float (&d)[4], const FragA& a, const FragB& b) {
+// As mma_passes, the passes summed apart and added to d in float32.
+template <bool kExactA, bool kExactB>
+__device__ __forceinline__ void mma_passes_apart(float (&d)[4], const FragA& a,
+                                                 const FragB& b) {
   float p[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  mma3(p, a, b);
+  mma_passes<kExactA, kExactB>(p, a, b);
 #pragma unroll
   for (int e = 0; e < 4; ++e) d[e] += p[e];
 }
@@ -199,6 +211,47 @@ __device__ __forceinline__ void load_tile_async(float* dst, const float* src, lo
   }
 }
 
+// The same tile from a bf16 operand, widened into the float32 tile: plain
+// loads (cp.async cannot widen), stored before the caller's barrier, so
+// they complete before it like the copies' wait. `vec`: rows start 16-byte
+// aligned and D % 8 == 0, so one 16-byte load of 8 values a thread, stored
+// as two float4; else one value at a time.
+template <int DMAX, int ROWS>
+__device__ __forceinline__ void load_tile_async(float* dst, const __nv_bfloat16* src,
+                                                long long st, int t0, int T, int D, bool vec) {
+  constexpr int LD = DMAX + 4;
+  if (vec) {
+    constexpr int kChunks = DMAX / 8;                 // 16-byte chunks in a row
+    constexpr int kRowsPerPass = kThreads / kChunks;
+    static_assert(kThreads % kChunks == 0 && ROWS % kRowsPerPass == 0, "tile geometry");
+    const int c = 8 * (threadIdx.x % kChunks);
+    const int r = threadIdx.x / kChunks;
+    const bool in_d = c < D;
+    const __nv_bfloat16* p = src + static_cast<long long>(t0 + r) * st + c;
+#pragma unroll
+    for (int i = 0; i < ROWS / kRowsPerPass; ++i) {
+      const int row = r + i * kRowsPerPass;
+      uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+      if (in_d && t0 + row < T) raw = *reinterpret_cast<const uint4*>(p);
+      // a bf16 is the high half of its float32: widen by shifting
+      const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
+      float4* out = reinterpret_cast<float4*>(dst + row * LD + c);
+      out[0] = make_float4(__uint_as_float(w[0] << 16), __uint_as_float(w[0] & 0xffff0000u),
+                           __uint_as_float(w[1] << 16), __uint_as_float(w[1] & 0xffff0000u));
+      out[1] = make_float4(__uint_as_float(w[2] << 16), __uint_as_float(w[2] & 0xffff0000u),
+                           __uint_as_float(w[3] << 16), __uint_as_float(w[3] & 0xffff0000u));
+      p += kRowsPerPass * st;
+    }
+  } else {
+    for (int e = threadIdx.x; e < ROWS * DMAX; e += kThreads) {
+      const int r = e / DMAX;
+      const int c = e % DMAX;
+      const int t = t0 + r;
+      dst[r * LD + c] = t < T && c < D ? __bfloat162float(src[t * st + c]) : 0.0f;
+    }
+  }
+}
+
 // [t0, t0 + rows) of a [T] row statistic (lse, delta) into dst; zeros past T.
 __device__ __forceinline__ void load_stat_async(float* dst, const float* src, int t0, int rows,
                                                 int T) {
@@ -209,10 +262,13 @@ __device__ __forceinline__ void load_stat_async(float* dst, const float* src, in
 }
 
 // Whether 16-byte copies can read every row of a strided [B, T, H, D]
-// operand: its base and all three strides 16-byte multiples, D % 4 == 0.
-inline bool rows_16b_aligned(const void* p, long long sb, long long st, long long sh, int D) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && sb % 4 == 0 && st % 4 == 0 &&
-         sh % 4 == 0 && D % 4 == 0;
+// operand of `elem`-byte values: its base and all three strides 16-byte
+// multiples, and D a multiple of a 16-byte chunk.
+inline bool rows_16b_aligned(const void* p, long long sb, long long st, long long sh, int D,
+                             int elem = 4) {
+  const int per = 16 / elem;
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && sb % per == 0 && st % per == 0 &&
+         sh % per == 0 && D % per == 0;
 }
 
 // The geometry of one instantiation: DMAX features (a multiple of 16), WF
@@ -240,21 +296,22 @@ __device__ __forceinline__ void zero(float (&acc)[C::NA][4]) {
 }
 
 // acc (C layout: rows r0 + g (+ 8), features f0 + 8n + 2t (+ 1)) into the
-// rows t < T and features d < D of one (batch, head) of dst.
-template <class C>
-__device__ __forceinline__ void store_acc(float* dst, long long st, const float (&acc)[C::NA][4],
+// rows t < T and features d < D of one (batch, head) of dst, rounded once
+// to dst's type S (float or __nv_bfloat16).
+template <class C, typename S>
+__device__ __forceinline__ void store_acc(S* dst, long long st, const float (&acc)[C::NA][4],
                                           int r0, int f0, int T, int D, int g, int t) {
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int row = r0 + g + 8 * half;
     if (row >= T) continue;
-    float* out = dst + row * st;
+    S* out = dst + row * st;
 #pragma unroll
     for (int n = 0; n < C::NA; ++n)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int d = f0 + 8 * n + 2 * t + e;
-        if (d < D) out[d] = acc[n][2 * half + e];
+        if (d < D) out[d] = from_f32<S>(acc[n][2 * half + e]);
       }
   }
 }

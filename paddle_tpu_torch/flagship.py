@@ -315,18 +315,20 @@ def make_image_batch(B, img_size, classes, seed=0, device: DeviceLike = None):
     }
 
 
-def long_context_config(vocab=500, seq_len=256, dim=64, heads=4, blocks=2, batch_size=8):
+def long_context_config(vocab=500, seq_len=256, dim=64, heads=4, blocks=2, batch_size=8,
+                        dtype="float32"):
     """The long-context causal LM: this package's copy of
     ``demo/long_context/trainer_config.py`` on one device (no mesh), with
     its ``get_config_arg`` knobs as arguments. A token embedding, then
     ``blocks`` norm-free blocks of causal multi-head attention and a ReLU
     FFN with ``addto`` residuals, a softmax head and
-    ``classification_cost``; Adam at lr 1e-3. ``seq_len`` is the demo
-    provider's, and shapes nothing here: batches come from
-    :func:`lm_batch`."""
+    ``classification_cost``; Adam at lr 1e-3; ``dtype`` the compute type
+    ("bfloat16": mixed precision, the flash kernels' bf16 instances on the
+    card). ``seq_len`` is the demo provider's, and shapes nothing here:
+    batches come from :func:`lm_batch`."""
     with fresh_context() as ctx:
         settings(batch_size=batch_size, learning_rate=1e-3,
-                 learning_method=AdamOptimizer(), mesh_shape=None, dtype="float32")
+                 learning_method=AdamOptimizer(), mesh_shape=None, dtype=dtype)
         words = data_layer(name="words", size=vocab)
         x = embedding_layer(input=words, size=dim, param_attr=ParamAttr(name="tok_emb"))
         for i in range(blocks):

@@ -181,7 +181,9 @@ def _conv1x1_stats_forward(cfg: LayerConfig, inputs: List[Argument], ctx: LayerC
         fused_conv1x1_bn.EAGER_ROUTES += 1
         return None
     wf = ctx.param(in_cfg.input_parameter_name).reshape(N, K)
-    b = ctx.param(cfg.bias_parameter_name).reshape(N) if cfg.bias_parameter_name else None
+    # b in x's dtype, as the JAX layer casts it (None: the kernel adds no bias)
+    b = (ctx.param(cfg.bias_parameter_name).reshape(N).to(x.dtype)
+         if cfg.bias_parameter_name else None)
     # view, not reshape: a non-contiguous activation raises here instead of
     # being copied behind the caller's back
     y2, s, q = conv1x1_stats(x.view(M, K), wf, b)

@@ -177,17 +177,12 @@ def check(t: torch.Tensor, name: str, shape: Sequence[int], device: torch.device
     """Raise unless ``t`` is a ``dtype`` tensor of ``shape`` on ``device``.
 
     ``contiguous=False`` accepts any strides whose last one is 1 (the
-    kernels take the outer strides as arguments). A kernel that has only a
-    float32 instance names, for bf16 operands, the ROADMAP item that brings
-    its bf16 instance: a bf16 model on the card fails there, loudly, and
-    never widens to float32 or takes an eager route."""
+    kernels take the outer strides as arguments). A wrong dtype raises: no
+    kernel widens an operand to float32 or falls back to an eager route."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
-        later = (" (bf16 operands in this kernel are ROADMAP Queue 1 item 7: bf16 "
-                 "compute reaches kernels 1-3 and 5-8 so far, kernels 9-12 not yet)"
-                 if t.dtype == torch.bfloat16 and dtype == torch.float32 else "")
-        raise ValueError(f"{name} is {t.dtype}, the kernel takes {dtype}{later}")
+        raise ValueError(f"{name} is {t.dtype}, the kernel takes {dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if contiguous and not t.is_contiguous():

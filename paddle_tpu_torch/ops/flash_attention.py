@@ -17,6 +17,13 @@ Layout: q, k, v, out and their gradients are [B, T, H, D] (the
 strides, so the multi-head layer's views of its fused qkv projection cost
 no copy); lse and delta are [B, H, T], as the Pallas kernels hold them.
 
+Operand types (``OPERAND_DTYPES``): q, k, v and dout float32 or bf16, all
+of one type, each with its own instance of the three kernels. The bf16
+contract is the Pallas kernels': every operand widened to float32 (q
+scaled there), the online softmax, p, ds, lse, delta and every sum in
+float32, and out, dq, dk and dv rounded once to their operand's type; lse
+and delta stay float32 in both.
+
 :func:`flash_attention` launches the kernels for a CUDA tensor and raises on
 anything they do not take: the forward with lse and the two backward
 kernels (a ``torch.autograd.Function``) when grad mode is on and an input
@@ -36,7 +43,7 @@ import torch
 
 from paddle_tpu_torch.ops import kernel_flops
 from paddle_tpu_torch.ops._build import I32, I64, PTR, CudaKernel, check, ptr
-from paddle_tpu_torch.ops.fused_gru import _last_dim_contiguous
+from paddle_tpu_torch.ops.fused_gru import OPERAND_DTYPES, _last_dim_contiguous
 
 Tensor = torch.Tensor
 
@@ -59,7 +66,18 @@ FLASH_ATTN_DQ = CudaKernel(
 FLASH_ATTN_DKV = CudaKernel(
     "flash_attn_bwd.cu", "flash_attn_dkv",
     _QKV + _STRIDED + [PTR, PTR, PTR] + _STRIDED * 2 + _SHAPE)   # ...; dk, dv
-KERNELS = (FLASH_ATTN_FWD, FLASH_ATTN_DQ, FLASH_ATTN_DKV)
+FLASH_ATTN_FWD_BF16 = CudaKernel("flash_attn_fwd.cu", "flash_attn_fwd_bf16",
+                                 FLASH_ATTN_FWD.argtypes[:-1])
+FLASH_ATTN_DQ_BF16 = CudaKernel("flash_attn_bwd.cu", "flash_attn_dq_bf16",
+                                FLASH_ATTN_DQ.argtypes[:-1])
+FLASH_ATTN_DKV_BF16 = CudaKernel("flash_attn_bwd.cu", "flash_attn_dkv_bf16",
+                                 FLASH_ATTN_DKV.argtypes[:-1])
+KERNELS = (FLASH_ATTN_FWD, FLASH_ATTN_DQ, FLASH_ATTN_DKV,
+           FLASH_ATTN_FWD_BF16, FLASH_ATTN_DQ_BF16, FLASH_ATTN_DKV_BF16)
+# each kernel by operand dtype
+_FWD = {torch.float32: FLASH_ATTN_FWD, torch.bfloat16: FLASH_ATTN_FWD_BF16}
+_DQ = {torch.float32: FLASH_ATTN_DQ, torch.bfloat16: FLASH_ATTN_DQ_BF16}
+_DKV = {torch.float32: FLASH_ATTN_DKV, torch.bfloat16: FLASH_ATTN_DKV_BF16}
 
 
 def _visible(lengths: Tensor, Tq: int, Tk: int, causal: bool) -> Tensor:
@@ -72,14 +90,23 @@ def _visible(lengths: Tensor, Tq: int, Tk: int, causal: bool) -> Tensor:
     return m
 
 
+def _widened(*ts: Tensor):
+    """The operands in at least float32, as the Pallas kernels widen them."""
+    acc = torch.promote_types(ts[0].dtype, torch.float32)
+    return [t.to(acc) for t in ts]
+
+
 def flash_forward_reference(q: Tensor, k: Tensor, v: Tensor, lengths: Tensor,
                             causal: bool) -> Tuple[Tensor, Tensor]:
     """Plain PyTorch version of kernel 10: q, k, v [B, T, H, D], lengths [B]
-    -> (out [B, T, H, D], lse [B, H, T]). The Pallas kernel's online softmax
-    over one tile of every key."""
+    -> (out [B, T, H, D] in q's dtype, lse [B, H, T] in at least float32).
+    The Pallas kernel's online softmax over one tile of every key, on the
+    widened operands, out rounded once."""
     T, D = q.shape[1], q.shape[3]
     scale = 1.0 / math.sqrt(D)
     msk = _visible(lengths, T, T, causal)
+    od = q.dtype
+    q, k, v = _widened(q, k, v)
     s = torch.einsum("bqhd,bkhd->bhqk", q * scale, k)
     s = torch.where(msk, s, torch.full_like(s, _NEG))
     m = torch.amax(s, dim=-1)
@@ -88,11 +115,13 @@ def flash_forward_reference(q: Tensor, k: Tensor, v: Tensor, lengths: Tensor,
     l_safe = torch.clamp(l, min=1e-20)
     out = torch.einsum("bhqk,bkhd->bqhd", p, v) / l_safe.transpose(1, 2)[..., None]
     lse = torch.where(l > 0, m + torch.log(l_safe), torch.full_like(m, _NEG))
-    return out, lse
+    return out.to(od), lse
 
 
 def _scores_backward(q, k, v, dout, lse, delta, lengths, causal):
-    """p and ds [B, H, T, T] of the Pallas backward kernels."""
+    """p and ds [B, H, T, T] of the Pallas backward kernels (q, k, v and
+    dout widened)."""
+    q, k, v, dout = _widened(q, k, v, dout)
     T, D = q.shape[1], q.shape[3]
     scale = 1.0 / math.sqrt(D)
     msk = _visible(lengths, T, T, causal)
@@ -104,17 +133,20 @@ def _scores_backward(q, k, v, dout, lse, delta, lengths, causal):
 
 def flash_dq_reference(q: Tensor, k: Tensor, v: Tensor, dout: Tensor, lse: Tensor,
                        delta: Tensor, lengths: Tensor, causal: bool) -> Tensor:
-    """Plain PyTorch version of kernel 11: dq [B, T, H, D] = sum_k ds k."""
+    """Plain PyTorch version of kernel 11: dq [B, T, H, D] = sum_k ds k, in
+    q's dtype."""
     _, ds = _scores_backward(q, k, v, dout, lse, delta, lengths, causal)
-    return torch.einsum("bhqk,bkhd->bqhd", ds, k)
+    return torch.einsum("bhqk,bkhd->bqhd", ds, _widened(k)[0]).to(q.dtype)
 
 
 def flash_dkv_reference(q: Tensor, k: Tensor, v: Tensor, dout: Tensor, lse: Tensor,
                         delta: Tensor, lengths: Tensor, causal: bool) -> Tuple[Tensor, Tensor]:
-    """Plain PyTorch version of kernel 12: dk = sum_q ds q, dv = sum_q p dout."""
+    """Plain PyTorch version of kernel 12: dk = sum_q ds q, dv = sum_q p dout,
+    in k's and v's dtype."""
     p, ds = _scores_backward(q, k, v, dout, lse, delta, lengths, causal)
-    return (torch.einsum("bhqk,bqhd->bkhd", ds, q),
-            torch.einsum("bhqk,bqhd->bkhd", p, dout))
+    qw, dw = _widened(q, dout)
+    return (torch.einsum("bhqk,bqhd->bkhd", ds, qw).to(k.dtype),
+            torch.einsum("bhqk,bqhd->bkhd", p, dw).to(v.dtype))
 
 
 def supported(B: int, T: int, H: int, D: int) -> bool:
@@ -127,8 +159,10 @@ def _check_operands(q: Tensor, k: Tensor, v: Tensor, lengths: Tensor) -> Tuple[i
         raise ValueError(f"flash attention takes q, k, v [B, T, H, D], got {tuple(q.shape)}")
     B, T, H, D = q.shape
     dev = q.device
+    if q.dtype not in OPERAND_DTYPES:
+        raise ValueError(f"the flash kernels take float32 or bf16 q, k, v; got {q.dtype}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        check(t, name, (B, T, H, D), dev, contiguous=False)
+        check(t, name, (B, T, H, D), dev, contiguous=False, dtype=q.dtype)
     if lengths.shape != (B,) or lengths.device != dev or lengths.dtype != torch.int32:
         raise ValueError(f"lengths must be int32 [{B}] on {dev}, got {lengths.dtype} "
                          f"{tuple(lengths.shape)} on {lengths.device}")
@@ -144,18 +178,18 @@ def _strided(t: Tensor):
 
 def _launch_fwd(q, k, v, lengths, causal, with_lse):
     B, T, H, D = _check_operands(q, k, v, lengths)
-    out = torch.empty((B, T, H, D), device=q.device)
+    out = torch.empty((B, T, H, D), device=q.device, dtype=q.dtype)
     lse = torch.empty((B, H, T), device=q.device) if with_lse else None
     kernel_flops.record(kernel_flops.flash_fwd_flops(B, T, H, D))
-    FLASH_ATTN_FWD.launch(q.device, *_strided(q), *_strided(k), *_strided(v), ptr(lengths),
-                          *_strided(out), None if lse is None else ptr(lse),
-                          B, T, H, D, int(bool(causal)))
+    _FWD[q.dtype].launch(q.device, *_strided(q), *_strided(k), *_strided(v), ptr(lengths),
+                         *_strided(out), None if lse is None else ptr(lse),
+                         B, T, H, D, int(bool(causal)))
     return out, lse
 
 
 def _check_backward(q, k, v, dout, lse, delta, lengths):
     B, T, H, D = _check_operands(q, k, v, lengths)
-    check(dout, "dout", (B, T, H, D), q.device, contiguous=False)
+    check(dout, "dout", (B, T, H, D), q.device, contiguous=False, dtype=q.dtype)
     check(lse, "lse", (B, H, T), q.device)
     check(delta, "delta", (B, H, T), q.device)
     return [*_strided(q), *_strided(k), *_strided(v), *_strided(dout),
@@ -164,18 +198,18 @@ def _check_backward(q, k, v, dout, lse, delta, lengths):
 
 def _launch_dq(q, k, v, dout, lse, delta, lengths, causal):
     args, (B, T, H, D) = _check_backward(q, k, v, dout, lse, delta, lengths)
-    dq = torch.empty((B, T, H, D), device=q.device)
+    dq = torch.empty((B, T, H, D), device=q.device, dtype=q.dtype)
     kernel_flops.record(kernel_flops.flash_dq_flops(B, T, H, D))
-    FLASH_ATTN_DQ.launch(q.device, *args, *_strided(dq), B, T, H, D, int(bool(causal)))
+    _DQ[q.dtype].launch(q.device, *args, *_strided(dq), B, T, H, D, int(bool(causal)))
     return dq
 
 
 def _launch_dkv(q, k, v, dout, lse, delta, lengths, causal):
     args, (B, T, H, D) = _check_backward(q, k, v, dout, lse, delta, lengths)
-    dk, dv = (torch.empty((B, T, H, D), device=q.device) for _ in range(2))
+    dk, dv = (torch.empty((B, T, H, D), device=q.device, dtype=q.dtype) for _ in range(2))
     kernel_flops.record(kernel_flops.flash_dkv_flops(B, T, H, D))
-    FLASH_ATTN_DKV.launch(q.device, *args, *_strided(dk), *_strided(dv),
-                          B, T, H, D, int(bool(causal)))
+    _DKV[q.dtype].launch(q.device, *args, *_strided(dk), *_strided(dv),
+                         B, T, H, D, int(bool(causal)))
     return dk, dv
 
 
@@ -188,8 +222,9 @@ def _forward(q, k, v, lengths, causal, with_lse):
 
 class _FlashAttention(torch.autograd.Function):
     """Kernel 10 with lse saved, then kernels 11 and 12 (the plain versions
-    on the CPU); delta = sum(dout * out) in plain torch between them, as the
-    JAX package computes it outside its kernels."""
+    on the CPU); delta = sum(dout * out) over the widened dout and out in
+    plain torch between them, as the JAX package computes it outside its
+    kernels."""
 
     @staticmethod
     def forward(ctx, q, k, v, lengths, causal):
@@ -202,7 +237,8 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, out, lse, lengths = ctx.saved_tensors
         dout = _last_dim_contiguous(dout)
-        delta = torch.sum(dout * out, dim=-1).transpose(1, 2).contiguous()   # [B, H, T]
+        dw, ow = _widened(dout, out)
+        delta = torch.sum(dw * ow, dim=-1).transpose(1, 2).contiguous()      # [B, H, T]
         if q.device.type == "cpu":
             dq = flash_dq_reference(q, k, v, dout, lse, delta, lengths, ctx.causal)
             dk, dv = flash_dkv_reference(q, k, v, dout, lse, delta, lengths, ctx.causal)
@@ -214,11 +250,12 @@ class _FlashAttention(torch.autograd.Function):
 
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, lengths: Optional[Tensor] = None,
                     causal: bool = False) -> Tensor:
-    """Attention over [B, T, H, D] q, k, v (any batch, time and head strides,
-    the last dimension contiguous) with keys masked at or past ``lengths``
-    [B] (full length when None) and, with ``causal``, past the query ->
-    out [B, T, H, D] (contiguous). Outputs at padded query rows attend to
-    the row's valid keys; a row of length 0 gives zeros."""
+    """Attention over [B, T, H, D] q, k, v (float32 or bf16, one dtype; any
+    batch, time and head strides, the last dimension contiguous) with keys
+    masked at or past ``lengths`` [B] (full length when None) and, with
+    ``causal``, past the query -> out [B, T, H, D] in q's dtype
+    (contiguous). Outputs at padded query rows attend to the row's valid
+    keys; a row of length 0 gives zeros."""
     B, T = q.shape[0], q.shape[1]
     if lengths is None:
         lengths = torch.full((B,), T, dtype=torch.int32, device=q.device)

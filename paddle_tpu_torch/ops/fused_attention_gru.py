@@ -402,8 +402,11 @@ def _check_operands(ep, ev, em, xw, dmask, h0, wa, ba, v, wctx, wg, acts, residu
         raise ValueError(
             f"attention_gru_fwd takes activations {KERNEL_ACTS}, got {tuple(acts)}")
     if od not in (OPERAND_DTYPES if residuals else (torch.float32,)):
+        # kernel 4 (the serve step) takes float32 only: serving stays float32
+        # in both packages
         raise ValueError(f"the attention-GRU {'training ' if residuals else ''}kernels do "
-                         f"not take {od} operands")
+                         f"not take {od} operands"
+                         + ("" if residuals else " (serving stays float32)"))
     check(ep, "ep", (Te, B, D), dev, contiguous=False, dtype=od)
     check(ev, "ev", (Te, B, E), dev, contiguous=False, dtype=od)
     check(em, "em", (Te, B, 1), dev, contiguous=False, dtype=od)

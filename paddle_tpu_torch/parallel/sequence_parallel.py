@@ -39,7 +39,11 @@ def full_attention(q: Tensor, k: Tensor, v: Tensor, lengths: Optional[Tensor] = 
         return flash_attention(q, k, v, lengths=lengths, causal=causal)
     fa.EAGER_ROUTES += 1
     D = q.shape[-1]
-    s = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(D)
+    # scores, softmax and the PV product in at least float32 (bf16 products
+    # are exact there, as the JAX package's preferred_element_type), out
+    # rounded once to q's dtype
+    acc = torch.promote_types(q.dtype, torch.float32)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(acc), k.to(acc)) / math.sqrt(D)
     Tq, Tk = q.shape[1], k.shape[1]
     q_pos = q_offset + torch.arange(Tq, device=q.device)
     kv_pos = kv_offset + torch.arange(Tk, device=q.device)
@@ -51,4 +55,4 @@ def full_attention(q: Tensor, k: Tensor, v: Tensor, lengths: Optional[Tensor] = 
         mask = mask & (kv_pos[None, None, None, :] < lengths.long()[:, None, None, None])
     s = torch.where(mask, s, torch.full_like(s, _NEG))
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", p, v)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.to(acc)).to(q.dtype)

@@ -23,6 +23,7 @@ import torch
 
 from paddle_tpu.ops import pallas_conv1x1_bn as pcb
 from paddle_tpu_torch.ops import fused_conv1x1_bn as fc
+from torch_bf16_checks import assert_within_one_ulp, bf16, f32
 
 torch.set_num_threads(1)
 
@@ -172,3 +173,67 @@ def test_the_wrapper_refuses_an_empty_dimension_on_every_device():
     x, w, b = _port(*_inputs(4, 3, 2, seed=6))
     with pytest.raises(ValueError, match="M, K, N >= 1"):
         fc.conv1x1_stats(x[:0], w, b)
+
+
+# bf16: one ulp of y, dx and dw taken at no less than this fraction of their
+# scale (a float32 sum that cancels far below its terms differs between two
+# summation orders by several of its own bf16 ulps)
+CANCEL_FLOOR = 2.0 ** -12
+
+
+def _bf16_inputs(M, K, N, seed):
+    x, w, b = (bf16(a) for a in _inputs(M, K, N, seed))
+    return x, w, b
+
+
+def test_bf16_plain_version_matches_the_interpreted_kernel():
+    """At bf16 x, w and b the plain version and ``_run`` in interpret mode
+    both accumulate the product in float32, add b widened and round y
+    once: y within one bf16 ulp; s and q, float32 sums of the rounded y,
+    within the float32 test's 1e-5 of Σ|y| and Σy² plus what the elements
+    of y that rounded to a neighbour add to the column's sum."""
+    M, K, N = 512, 128, 256
+    (jx, x), (jw, w), (jb, b) = _bf16_inputs(M, K, N, seed=7)
+    assert pcb.supported(M, K, N, 2)
+    jy, js, jq = pcb._run(jx, jw, jb, True)
+    y, s, q = fc.conv1x1_stats_reference(x, w.t().contiguous(), b)
+    assert y.dtype == torch.bfloat16 and s.dtype == q.dtype == torch.float32
+    assert_within_one_ulp(y, jy, "y", floor=CANCEL_FLOOR)
+    yr, yp = f32(jy).astype(np.float64), f32(y).astype(np.float64)
+    np.testing.assert_array_less(np.abs(s.numpy() - np.asarray(js)),
+                                 1e-5 * np.abs(yr).sum(0) + np.abs(yp - yr).sum(0))
+    np.testing.assert_array_less(np.abs(q.numpy() - np.asarray(jq)),
+                                 1e-5 * (yr ** 2).sum(0) + np.abs(yp ** 2 - yr ** 2).sum(0))
+
+
+def test_bf16_backward_matches_jax_vjp_of_the_interpreted_kernel():
+    """The backward at bf16 operands against ``jax.vjp`` of the interpreted
+    kernel: g = g32 rounded to bf16, dx and dw accumulated in float32 and
+    rounded once (one bf16 ulp); db = Σ g32 unrounded, then rounded to b's
+    bf16, at the float32 test's bound."""
+    M, K, N = 512, 64, 256
+    (jx, x), (jw, w), (jb, b) = _bf16_inputs(M, K, N, seed=8)
+    rng = np.random.RandomState(9)
+    jdy, dy = bf16(rng.randn(M, N).astype(np.float32))
+    ds = rng.randn(N).astype(np.float32)
+    dq = (rng.randn(N) * 0.1).astype(np.float32)
+    _, vjp = jax.vjp(lambda x_, w_, b_: pcb.conv1x1_stats(x_, w_, b_, True), jx, jw, jb)
+    jdx, jdw, jdb = vjp((jdy, jnp.asarray(ds), jnp.asarray(dq)))
+    leaves = [x.requires_grad_(), w.t().contiguous().requires_grad_(), b.requires_grad_()]
+    dx, dw, db = torch.autograd.grad(fc.conv1x1_stats(*leaves), leaves,
+                                     [dy, torch.from_numpy(ds), torch.from_numpy(dq)])
+    assert dx.dtype == dw.dtype == db.dtype == torch.bfloat16
+    assert_within_one_ulp(dx, jdx, "dx", floor=CANCEL_FLOOR)
+    assert_within_one_ulp(dw, f32(jdw).T, "dw", floor=CANCEL_FLOOR)
+    want = f32(jdb)
+    np.testing.assert_allclose(f32(db), want, rtol=1e-4, atol=1e-5 * _scale(want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
+def test_the_wrapper_refuses_other_operand_types(dtype):
+    """Only float32 and bf16, one type for x, w and b, on every device."""
+    x, w, b = _port(*_inputs(16, 8, 4, seed=10))
+    with pytest.raises(ValueError, match="float32 or bf16"):
+        fc.conv1x1_stats(x.to(dtype), w.to(dtype), b.to(dtype))
+    with pytest.raises(ValueError, match="w is torch.float32"):
+        fc.conv1x1_stats(x.to(torch.bfloat16), w, b)

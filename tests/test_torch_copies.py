@@ -146,12 +146,13 @@ def test_kernel_builds_are_keyed_by_their_sources():
 
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     kernels = fg.KERNELS + fa.KERNELS + fl.KERNELS + fc.KERNELS + fl_attn.KERNELS
-    # 13 float32 entry points and the bf16 instances of kernels 1-3 and 5-8
-    assert len({k.symbol for k in kernels}) == 21
+    # 13 float32 entry points and the bf16 instances of kernels 1-3 and 5-12
+    assert len({k.symbol for k in kernels}) == 25
     assert {k.symbol for k in kernels if k.symbol.endswith("_bf16")} == {
         "gru_fwd_bf16", "gru_fwd_train_bf16", "gru_bwd_bf16",
         "attention_gru_fwd_train_bf16", "attention_gru_bwd_bf16",
-        "lstm_fwd_bf16", "lstm_fwd_train_bf16", "lstm_bwd_bf16"}
+        "lstm_fwd_bf16", "lstm_fwd_train_bf16", "lstm_bwd_bf16", "conv1x1_stats_bf16",
+        "flash_attn_fwd_bf16", "flash_attn_dq_bf16", "flash_attn_dkv_bf16"}
     # a kernel and its training variant share one source and its library,
     # but for the attention GRU's: its two forwards are entries of their own
     # sources over one header (attention_gru_fwd.cuh)

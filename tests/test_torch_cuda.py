@@ -1042,7 +1042,8 @@ def test_flash_attention_autograd_launches_each_kernel_once(dev):
         return [a.grad for a in leaves]
 
     got = grads(lambda q_, k_, v_, l_, c_: fa.flash_attention(q_, k_, v_, lengths=l_, causal=c_))
-    assert [kern.launches for kern in fa.KERNELS] == [b + 1 for b in before]
+    # one launch of each float32 instance, none of the bf16 ones
+    assert [kern.launches for kern in fa.KERNELS] == [b + 1 for b in before[:3]] + before[3:]
     want = grads(lambda *a: fa.flash_forward_reference(*a)[0])
     torch.cuda.synchronize()
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
@@ -1211,8 +1212,8 @@ def test_full_attention_routes_on_the_card(dev):
         with torch.no_grad():
             out = full_attention(q, k, v, lengths=lengths, causal=True)
         launched = [kern.launches - b for kern, b in zip(fa.KERNELS, before[0])]
-        assert (launched, fa.EAGER_ROUTES - before[1]) == (([0, 0, 0], 1) if eager
-                                                           else ([1, 0, 0], 0))
+        assert (launched, fa.EAGER_ROUTES - before[1]) == (([0] * 6, 1) if eager
+                                                           else ([1] + [0] * 5, 0))
         plain = full_attention(q.cpu(), k.cpu(), v.cpu(), lengths=lengths.cpu(), causal=True)
         live = lengths.cpu() > 0
         assert float((out.cpu() - plain)[live].abs().max()) <= TOL
@@ -1448,7 +1449,7 @@ def test_seqToseq_demo_trains_through_the_command_line_on_the_card(dev, tmp_path
 
 
 # ------------------------------------------------------------ bf16 operands
-# The bf16 instances of kernels 1-3 and 5-8 against their bf16 plain
+# The bf16 instances of kernels 1-3 and 5-12 against their bf16 plain
 # versions (the same rounding points): within 1e-2 of the plain result's
 # largest magnitude, about one bf16 ulp there (2^-8), since a sum taken in
 # another order may round the other way and the step after carries it.
@@ -1657,29 +1658,129 @@ def test_full_remat_launches_the_training_forward_twice(dev):
     assert abs(losses["full"] - losses["none"]) <= 1e-6 * abs(losses["none"]), losses
 
 
-def test_bf16_models_past_the_nmt_kernels_raise_naming_roadmap_item_7(dev):
-    """A bf16 model that reaches kernels 9-12 on the card raises, naming
-    ROADMAP Queue 1 item 7: no float32 widening and no eager route. (The
-    LSTM classifier, kernels 7a-8, has its bf16 instances:
-    test_lstm_classifier_bf16_step_takes_the_bf16_kernels.)"""
+# ResNet-50's 1x1 convs at B = 64 (stage 2's M = 207,936 with K or N = 64;
+# stage 5 at K = 2048), and shapes TMA cannot read (K % 8 != 0, unaligned)
+@pytest.mark.parametrize("M,K,N", [(207936, 64, 256), (12544, 1024, 256), (3136, 2048, 512),
+                                   (1000, 64, 64), (37, 5, 3), (513, 130, 200)])
+@pytest.mark.parametrize("bias", [False, True])
+def test_conv1x1_stats_bf16_kernel_matches_plain_version(dev, M, K, N, bias):
+    """Kernel 9's bf16 instance against its bf16 plain version: y bf16
+    within 1e-2 of scale, s and q float32 within 1e-3 of Σ|y| and Σy²
+    (the kernel's y may round to a neighbour of the plain y's); two
+    launches bit-equal; the float32 instance not launched."""
+    from paddle_tpu_torch.ops import fused_conv1x1_bn as fc
+
+    x, w, b = (a.to(torch.bfloat16) for a in _conv_inputs(M, K, N, dev))
+    b = b if bias else None
+    before = (fc.CONV1X1_STATS_BF16.launches, fc.CONV1X1_STATS.launches)
+    y, s, q = fc.conv1x1_stats(x, w, b)
+    again = fc.conv1x1_stats(x, w, b)
+    assert (fc.CONV1X1_STATS_BF16.launches, fc.CONV1X1_STATS.launches) == (
+        before[0] + 2, before[1])
+    yr, sr, qr = fc.conv1x1_stats_reference(x, w, b)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16 and s.dtype == q.dtype == torch.float32
+    assert torch.isfinite(y.float()).all() and _scale_err(y, yr) <= BF16_TOL
+    yf = yr.float()
+    assert ((s - sr).abs() <= 1e-3 * yf.abs().sum(0) + 1e-30).all()
+    assert ((q - qr).abs() <= 1e-3 * (yf * yf).sum(0) + 1e-30).all()
+    assert all(torch.equal(a, r) for a, r in zip((y, s, q), again))
+
+
+def test_conv1x1_stats_bf16_kernel_takes_unaligned_operands(dev):
+    """x and w one bf16 past a 16-byte boundary: warp 0 fills the stages
+    in place of TMA, and the results equal the aligned launch's."""
+    from paddle_tpu_torch.ops import fused_conv1x1_bn as fc
+
+    x, w, b = (a.to(torch.bfloat16) for a in _conv_inputs(1000, 64, 64, dev))
+    xu = torch.empty(x.numel() + 1, device=dev, dtype=torch.bfloat16)[1:].view_as(x)
+    wu = torch.empty(w.numel() + 1, device=dev, dtype=torch.bfloat16)[1:].view_as(w)
+    xu.copy_(x)
+    wu.copy_(w)
+    got, want = fc.conv1x1_stats(xu, wu, b), fc.conv1x1_stats(x, w, b)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, r) for a, r in zip(got, want))
+
+
+@pytest.mark.parametrize("B,T,H,D,causal", [(8, 2048, 8, 64, True), (3, 257, 2, 64, False),
+                                            (2, 130, 2, 128, True), (2, 75, 2, 24, True),
+                                            (1, 70, 1, 256, True), (2, 100, 3, 16, False)])
+def test_flash_bf16_kernels_match_plain_versions(dev, B, T, H, D, causal):
+    """Kernels 10, 11 and 12's bf16 instances against their bf16 plain
+    versions, the LM's shape first: out, dq, dk and dv bf16 within 1e-2 of
+    scale, lse float32 within 1e-4; the light forward equal to the training
+    one; dq, dk and dv bit-equal over two launches, as in float32. D = 24
+    loads value by value (no 16-byte rows of bf16); D = 16, 64, 256 take
+    the one-pass Q . K^T, D = 24 and 128 the two-pass."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do, lengths = (a.to(torch.bfloat16) if a.is_floating_point() else a
+                            for a in _flash_inputs(dev, B, T, H, D, seed=T + D + causal))
+    before = [kern.launches for kern in fa.KERNELS]
+    out, lse = fa._launch_fwd(q, k, v, lengths, causal, True)
+    light, _ = fa._launch_fwd(q, k, v, lengths, causal, False)
+    ref_out, ref_lse = fa.flash_forward_reference(q, k, v, lengths, causal)
+    delta = torch.sum(do.float() * ref_out.float(), dim=-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, ref_lse, delta, lengths, causal)
+    dq, (dk, dv) = fa._launch_dq(*args), fa._launch_dkv(*args)
+    dq2, (dk2, dv2) = fa._launch_dq(*args), fa._launch_dkv(*args)
+    want = (fa.flash_dq_reference(*args),) + fa.flash_dkv_reference(*args)
+    torch.cuda.synchronize()
+    launched = [kern.launches - b for kern, b in zip(fa.KERNELS, before)]
+    assert launched == [0, 0, 0, 2, 2, 2], launched
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    assert torch.equal(light, out) and _scale_err(out, ref_out) <= BF16_TOL
+    seen = lengths > 0
+    assert float((lse - ref_lse)[seen].abs().max()) <= TOL
+    assert (lse[~seen] == -1e30).all() and not out[~seen].float().any()
+    assert torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    for name, a, r in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        assert a.dtype == torch.bfloat16 and torch.isfinite(a.float()).all(), name
+        assert _scale_err(a, r) <= BF16_TOL, name
+
+
+def test_flash_bf16_wrapper_refuses_mixed_dtypes(dev):
+    """q, k, v (and dout) share one dtype on the card: no widening."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    q = torch.zeros(2, 8, 2, 16, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="k is torch.float32"):
+        fa.flash_attention(q, q.float(), q)
+
+
+def test_bf16_resnet_and_lm_steps_take_the_bf16_kernels(dev):
+    """One bf16 step of ResNet-50 at 32² ("pallas") and of the long-context
+    LM (dim 64, T = 64) on the card: only the bf16 instances of kernels 9
+    and 10-12 launch (30, and 2 of each), no eager route, the master
+    parameters float32, the loss within 1e-2 of the same step's on the CPU
+    (the bf16 plain versions)."""
     from paddle_tpu_torch.flagship import (lm_batch, long_context_config, make_image_batch,
                                            resnet_config)
-    from paddle_tpu_torch.ops import flash_attention, fused_conv1x1_bn, fused_lstm
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused_conv1x1_bn as fc
     from paddle_tpu_torch.trainer import Trainer
 
-    def bf16(tc):
-        tc.opt_config.dtype = "bfloat16"
-        return tc
-
-    resnet = bf16(resnet_config(layer_num=50, img_size=32, classes=16))
+    resnet = resnet_config(layer_num=50, img_size=32, classes=16)
+    resnet.opt_config.dtype = "bfloat16"
     resnet.opt_config.conv_stats_mode = "pallas"
-    cases = [(bf16(long_context_config()), lambda d: lm_batch(500, B=2, T=64, seed=1, device=d)),
-             (resnet, lambda d: make_image_batch(2, 32, 16, seed=1, device=d))]
-    eager = (fused_lstm.EAGER_ROUTES, flash_attention.EAGER_ROUTES,
-             fused_conv1x1_bn.EAGER_ROUTES)
-    for tc, batch in cases:
+    cases = [(resnet, lambda d: make_image_batch(2, 32, 16, seed=1, device=d),
+              {fc.CONV1X1_STATS_BF16: 30}),
+             (long_context_config(dtype="bfloat16"),
+              lambda d: lm_batch(500, B=2, T=64, seed=1, device=d),
+              {fa.FLASH_ATTN_FWD_BF16: 2, fa.FLASH_ATTN_DQ_BF16: 2, fa.FLASH_ATTN_DKV_BF16: 2})]
+    kernels = list(fc.KERNELS) + list(fa.KERNELS)
+    for tc, batch, want in cases:
         trainer = Trainer(tc)
-        with pytest.raises(ValueError, match="ROADMAP Queue 1 item 7"):
-            trainer.train_one_batch(batch(dev))
-    assert (fused_lstm.EAGER_ROUTES, flash_attention.EAGER_ROUTES,
-            fused_conv1x1_bn.EAGER_ROUTES) == eager
+        assert trainer.gm.compute_dtype == torch.bfloat16
+        cpu = Trainer(tc, device="cpu")
+        cpu.params = {k: v.cpu() for k, v in trainer.params.items()}
+        cpu.opt_state = cpu.updater.init_state(cpu.params)
+        before = [k.launches for k in kernels] + [fc.EAGER_ROUTES, fa.EAGER_ROUTES]
+        loss = float(trainer.train_one_batch(batch(dev)))
+        torch.cuda.synchronize()
+        after = [k.launches for k in kernels] + [fc.EAGER_ROUTES, fa.EAGER_ROUTES]
+        assert [a - b for a, b in zip(after, before)] == \
+            [want.get(k, 0) for k in kernels] + [0, 0]
+        assert all(v.dtype == torch.float32 for v in trainer.params.values())
+        ref = float(cpu.train_one_batch(batch("cpu")))
+        assert abs(loss - ref) <= 1e-2 * abs(ref), (loss, ref)

@@ -23,6 +23,7 @@ from paddle_tpu.ops import pallas_attention as pa
 from paddle_tpu.parallel.sequence_parallel import full_attention as jax_full_attention
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.parallel import sequence_parallel as sp
+from torch_bf16_checks import assert_within_one_ulp, assert_within_scale, bf16, f32
 
 torch.set_num_threads(1)
 B, T, H, D = 3, 256, 2, 32
@@ -126,35 +127,61 @@ def test_without_gradients_the_forward_alone_runs():
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=OUT_ATOL, rtol=0)
 
 
-@pytest.mark.parametrize("Tq,Tk,q_offset,kv_offset,causal", [
-    (256, 256, 0, 0, False), (256, 256, 0, 0, True), (64, 256, 192, 0, True),
-    (128, 96, 0, 32, True), (100, 150, 50, 0, False), (96, 96, 64, 64, True)])
+def _full_case(Tq, Tk, q_offset, kv_offset, causal, dtype="float32"):
+    name = f"{Tq}-{Tk}-{q_offset}-{kv_offset}-{causal}"
+    return pytest.param(Tq, Tk, q_offset, kv_offset, causal, dtype,
+                        id=name if dtype == "float32" else f"{name}-{dtype}")
+
+
+@pytest.mark.parametrize("Tq,Tk,q_offset,kv_offset,causal,dtype", [
+    _full_case(256, 256, 0, 0, False), _full_case(256, 256, 0, 0, True),
+    _full_case(64, 256, 192, 0, True), _full_case(128, 96, 0, 32, True),
+    _full_case(100, 150, 50, 0, False), _full_case(96, 96, 64, 64, True),
+    _full_case(128, 128, 0, 0, True, "bfloat16")])
 def test_full_attention_matches_the_jax_package(monkeypatch, Tq, Tk, q_offset, kv_offset,
-                                                causal):
+                                                causal, dtype):
     """The plain path (the JAX XLA branch) with offsets, Tq != Tk and ragged
     lengths, forward and gradients; on the CPU it never reaches the flash
-    function."""
+    function. In bf16 (inputs x 3, so that the softmax is peaked) both keep
+    the scores, the softmax and the PV product in float32 and round out
+    once: out within one bf16 ulp, gradients within 1e-2 of scale."""
     rng = np.random.RandomState(Tq + Tk + q_offset)
     q = rng.randn(B, Tq, H, D).astype(np.float32)
     k, v = (rng.randn(B, Tk, H, D).astype(np.float32) for _ in range(2))
     cot = rng.randn(B, Tq, H, D).astype(np.float32)
+    if dtype == "bfloat16":
+        jq, q = bf16(3 * q)
+        jk, k = bf16(3 * k)
+        jv, v = bf16(3 * v)
+        _, cot_t = bf16(cot)
+        jcot = jnp.asarray(f32(cot_t))
+    else:
+        jq, jk, jv, jcot = (jnp.asarray(a) for a in (q, k, v, cot))
+        q, k, v = (_t(a) for a in (q, k, v))
+        cot_t = _t(cot)
     lens = np.array([Tk + kv_offset, kv_offset + Tk // 2, 0], np.int32)
     jlen = jnp.asarray(lens)
 
     def jloss(q_, k_, v_):
         o = jax_full_attention(q_, k_, v_, lengths=jlen, causal=causal,
                                q_offset=q_offset, kv_offset=kv_offset)
-        return jnp.sum(o * jnp.asarray(cot)), o
+        return jnp.sum(o.astype(jnp.float32) * jcot), o
 
-    (_, jout), jgrads = jax.value_and_grad(jloss, argnums=(0, 1, 2), has_aux=True)(
-        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
-    leaves = [_t(a).requires_grad_() for a in (q, k, v)]
+    (_, jout), jgrads = jax.value_and_grad(jloss, argnums=(0, 1, 2), has_aux=True)(jq, jk, jv)
+    leaves = [a.clone().requires_grad_() for a in (q, k, v)]
     calls = []
     monkeypatch.setattr(sp, "flash_attention", lambda *a, **kw: calls.append(1))
     out = sp.full_attention(*leaves, lengths=_t(lens), causal=causal,
                             q_offset=q_offset, kv_offset=kv_offset)
     assert calls == []
-    (out * _t(cot)).sum().backward()
+    (out.float() * cot_t.float()).sum().backward()
+    if dtype == "bfloat16":
+        assert out.dtype == torch.bfloat16 and jout.dtype == jnp.bfloat16
+        assert_within_one_ulp(out, jout, "out")
+        for leaf, g, name in zip(leaves, jgrads, ("dq", "dk", "dv")):
+            assert leaf.grad.dtype == torch.bfloat16
+            assert_within_scale(leaf.grad, g, name)
+        return
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout), atol=OUT_ATOL, rtol=0)
     for leaf, g, name in zip(leaves, jgrads, ("dq", "dk", "dv")):
         _close_to_scale(leaf.grad.numpy(), g, name)
@@ -197,3 +224,46 @@ def test_the_wrapper_refuses_what_the_kernels_do_not_take():
         fa._check_operands(wide, wide, wide, torch.ones(1, dtype=torch.int32))
     with pytest.raises(ValueError, match=r"\[B, T, H, D\]"):
         fa._check_operands(q[0], q[0], q[0], lens)
+
+
+# one bf16 ulp taken at no less than this fraction of the scale: an element
+# that float32 cancels to ~1e-6 of a scale of ~4 differs between two sum
+# orders by ~5e-8, several of its own bf16 ulps (one of 49,152 in the
+# forward; 32 of dq's in the causal backward, the first query rows)
+CANCEL_FLOOR = 2.0 ** -12
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_bf16_references_match_the_pallas_kernels(causal):
+    """At bf16 q, k, v (and dout), kernels 10, 11 and 12's plain versions
+    against ``_run_fwd`` and ``_run_bwd`` in interpret mode: both widen the
+    operands, keep the softmax, p, ds and every sum in float32 and round
+    out, dq, dk and dv once, so each lies within one bf16 ulp (taken at no
+    less than 2^-12 of the scale, where float32 sums cancel); lse is
+    float32 and held at the float32 test's bound."""
+    q, k, v, do = _inputs(5)
+    jq, tq = bf16(q)
+    jk, tk = bf16(k)
+    jv, tv = bf16(v)
+    jdo, tdo = bf16(do)
+    bhtd = lambda a: jnp.transpose(a, (0, 2, 1, 3))
+    btdh = lambda a: np.transpose(f32(a), (0, 2, 1, 3))
+    jlen = jnp.asarray(LENGTHS)
+    out, lse = pa._run_fwd(bhtd(jq), bhtd(jk), bhtd(jv), jlen, causal, pa.BLOCK_Q,
+                           pa.BLOCK_K, True)
+    assert out.dtype == jnp.bfloat16 and lse.dtype == jnp.float32
+    got_out, got_lse = fa.flash_forward_reference(tq, tk, tv, _t(LENGTHS), causal)
+    assert got_out.dtype == torch.bfloat16 and got_lse.dtype == torch.float32
+    assert_within_one_ulp(got_out, btdh(out), "out", floor=CANCEL_FLOOR)
+    np.testing.assert_allclose(got_lse.numpy()[:2], np.asarray(lse)[:2], rtol=1e-6, atol=1e-6)
+    assert (got_lse.numpy()[2] == np.float32(-1e30)).all()
+
+    want = pa._run_bwd(bhtd(jq), bhtd(jk), bhtd(jv), bhtd(jdo), out, lse, jlen, causal,
+                       pa.BLOCK_Q, pa.BLOCK_K, True)
+    out_t = torch.from_numpy(btdh(out)).to(torch.bfloat16)
+    delta = torch.sum(tdo.float() * out_t.float(), dim=-1).transpose(1, 2).contiguous()
+    args = (tq, tk, tv, tdo, _t(np.asarray(lse)), delta, _t(LENGTHS), causal)
+    got = (fa.flash_dq_reference(*args),) + fa.flash_dkv_reference(*args)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.bfloat16 and w.dtype == jnp.bfloat16, name
+        assert_within_one_ulp(g, btdh(w), name, floor=CANCEL_FLOOR)

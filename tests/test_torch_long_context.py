@@ -75,7 +75,8 @@ def _assert_same(loss, grads, jloss, jgrads):
 
 
 @pytest.mark.parametrize("args", [
-    {}, dict(vocab=500, seq_len=2048, dim=512, heads=8, blocks=2, batch_size=8)])
+    {}, dict(vocab=500, seq_len=2048, dim=512, heads=8, blocks=2, batch_size=8),
+    dict(dim=16, heads=2, blocks=1, dtype="bfloat16")])
 def test_config_matches_the_demo(args):
     """The demo's defaults and the chip's shape: the same layers, parameter
     names and dims, evaluators and optimizer settings."""
@@ -85,7 +86,7 @@ def test_config_matches_the_demo(args):
         assert repr(getattr(ours.model_config, field)) == \
             repr(getattr(theirs.model_config, field)), field
     assert repr(ours.opt_config) == repr(theirs.opt_config)
-    if args:
+    if "seq_len" in args:
         params = ours.model_config.parameters
         assert len(params) == 15
         assert sum(int(np.prod(p.dims)) for p in params) == 6809076
@@ -245,3 +246,41 @@ def test_attention_layer_matches_the_jax_layer(causal):
     assert not att[pad].any()
     _assert_same(loss, grads, jloss, jgrads)
     assert float(jnp.abs(jgrads["_att.wqkv"]).max()) > 0
+
+
+def test_bf16_adam_steps_follow_the_jax_bf16_loss_curve():
+    """``dtype="bfloat16"`` at a tiny width (one block, dim 16, 2 heads,
+    T = 32): 3 Adam steps of the port (bf16 activations, float32 master
+    state; on the CPU the attention takes the repaired eager path) against
+    the JAX package's bf16 machine from the same parameters, within the
+    JAX package's bf16 bound (rtol 0.05 / atol 0.02, tests/test_bf16.py)."""
+    import jax
+
+    from paddle_tpu.optimizer import Updater as JaxUpdater
+
+    widths = dict(dim=16, heads=2, blocks=1, dtype="bfloat16")
+    jtc = _jax_config(**widths)
+    assert jtc.opt_config.dtype == "bfloat16"
+    jm = JaxMachine(jtc.model_config, compute_dtype=jnp.bfloat16)
+    jparams = jm.init_params(seed=6)
+    upd = JaxUpdater(jtc.opt_config, jtc.model_config)
+    state = upd.init_state(jparams)
+    full = lm_batch(500, B=4, T=32, seed=8, device="cpu")
+    words, nxt = (full[n].ids.numpy() for n in ("words", "next_words"))
+    lens = np.full(4, 32, np.int32)
+    jbatch = {"words": jax_make_seq(None, lens, ids=words),
+              "next_words": jax_make_seq(None, lens, ids=nxt)}
+    trainer = Trainer(long_context_config(**widths), device="cpu")
+    assert trainer.gm.compute_dtype == torch.bfloat16
+    trainer.params = params_from_numpy(_np(jparams), "cpu")
+    trainer.opt_state = trainer.updater.init_state(trainer.params)
+    grad_fn = jax.jit(jm.grad_fn())
+    jcurve, curve = [], []
+    for _ in range(3):
+        loss, grads, _, _ = grad_fn(jparams, jbatch, None)
+        jparams, state = upd(jparams, grads, state, 4.0)
+        jcurve.append(float(loss))
+        curve.append(float(trainer.train_one_batch(full)))
+    np.testing.assert_allclose(curve, jcurve, rtol=0.05, atol=0.02)
+    assert curve[-1] < curve[0]
+    assert all(p.dtype == torch.float32 for p in trainer.params.values())

@@ -509,3 +509,67 @@ def test_error_clipping_drops_the_nhwc_view(tmp_path):
     assert not isinstance(outs["proj_bn"], vision.ImageArgument)
     assert isinstance(outs["expand_bn"], vision.ImageArgument)
     assert torch.isfinite(loss)
+
+
+BF16_NET = """
+settings(batch_size=8, learning_rate=0.01, learning_method=MomentumOptimizer(0.9),
+         regularization=L2Regularization(0.0001 * 8), dtype="bfloat16")
+img = data_layer(name="image", size=16 * 4 * 4)
+expand = img_conv_layer(name="expand", input=img, filter_size=1, num_filters=128,
+                        num_channels=16, act=LinearActivation(), bias_attr=False)
+expand_bn = batch_norm_layer(name="expand_bn", input=expand, act=ReluActivation())
+mix = img_conv_layer(name="mix", input=expand_bn, filter_size=1, num_filters=128,
+                     act=LinearActivation())
+mix_bn = batch_norm_layer(name="mix_bn", input=mix, act=ReluActivation())
+gpool = img_pool_layer(name="gpool", input=mix_bn, pool_size=4, stride=1,
+                       pool_type=AvgPooling())
+out = fc_layer(name="out", input=gpool, size=4, act=SoftmaxActivation())
+outputs(classification_cost(input=out, label=data_layer(name="label", size=4)))
+"""
+
+
+def test_bf16_conv_bn_net_follows_the_jax_bf16_momentum_steps(tmp_path, monkeypatch):
+    """A bf16 net of two 1x1 convs (one with a bias) into batch norms, in
+    "pallas" mode on both sides: the JAX package's interpreted kernel 9
+    (M = 128, N = 128, as its tiling takes) and the port's bf16 plain
+    version, from the same parameters over 3 Momentum steps. Losses and
+    the moving statistics within the JAX package's bf16 bound (rtol 0.05 /
+    atol 0.02, tests/test_bf16.py)."""
+    from paddle_tpu.optimizer import Updater as JaxUpdater
+
+    monkeypatch.setenv("PADDLE_TPU_PALLAS_INTERPRET", "1")
+    jtc, tc = _parse_both(tmp_path, BF16_NET)
+    assert jtc.opt_config.dtype == tc.opt_config.dtype == "bfloat16"
+    tc.opt_config.conv_stats_mode = "pallas"
+    jm = JaxMachine(jtc.model_config, conv_stats_mode="pallas", compute_dtype=jnp.bfloat16)
+    jparams = jm.init_params(seed=11)
+    upd = JaxUpdater(jtc.opt_config, jtc.model_config)
+    state = upd.init_state(jparams)
+    rng = np.random.RandomState(12)
+    img = rng.randn(B, 16 * 4 * 4).astype(np.float32)
+    lbl = rng.randint(0, CLASSES, B).astype(np.int32)
+    jbatch = {"image": jax_make_dense(img), "label": jax_make_ids(lbl)}
+    batch = {"image": make_dense(img, device="cpu"), "label": make_ids(lbl, device="cpu")}
+    j_kernel = _spy(monkeypatch, pcb, "conv1x1_stats")
+    kernel = _spy(monkeypatch, vision, "conv1x1_stats")
+    trainer = Trainer(tc, device="cpu")
+    assert trainer.gm.compute_dtype == torch.bfloat16
+    trainer.params = params_from_numpy(_np(jparams), "cpu")
+    trainer.opt_state = trainer.updater.init_state(trainer.params)
+    grad_fn = jax.jit(jm.grad_fn())
+    jcurve, curve = [], []
+    for _ in range(3):
+        loss, grads, _, jsu = grad_fn(jparams, jbatch, None)
+        jparams, state = upd(jparams, grads, state, B)
+        jparams = {**jparams, **jsu}
+        jcurve.append(float(loss))
+        curve.append(float(trainer.train_one_batch(batch)))
+    assert len(j_kernel) == 2 and len(kernel) == 2 * 3      # traced once under jit
+    assert all(a[0].dtype == torch.bfloat16 for a in kernel)
+    np.testing.assert_allclose(curve, jcurve, rtol=0.05, atol=0.02)
+    stats = sorted(jsu)
+    assert len(stats) == 4
+    for name in stats:
+        np.testing.assert_allclose(trainer.params[name].numpy(), np.asarray(jparams[name]),
+                                   rtol=0.05, atol=0.02, err_msg=name)
+    assert all(p.dtype == torch.float32 for p in trainer.params.values())

@@ -28,12 +28,17 @@ def bf16(a: np.ndarray):
     return jnp.asarray(a).astype(jnp.bfloat16), torch.from_numpy(a).to(torch.bfloat16)
 
 
-def assert_within_one_ulp(got, want, name=""):
+def assert_within_one_ulp(got, want, name="", floor=0.0):
     """Elementwise within one bf16 spacing of the larger magnitude: the same
     float32 value rounded at the same point, or a neighbour where the float32
-    sums, taken in another order, straddle a rounding boundary."""
+    sums, taken in another order, straddle a rounding boundary. With
+    ``floor``, the spacing is taken at no less than that fraction of the
+    tensor's scale: where a float32 sum cancels to far below its terms, two
+    summation orders differ by several of the result's own bf16 ulps."""
     got, want = f32(got), f32(want)
     big = np.maximum(np.abs(got), np.abs(want))
+    if want.size:
+        big = np.maximum(big, floor * np.abs(want).max())
     ulp = np.exp2(np.floor(np.log2(np.maximum(big, np.finfo(np.float32).tiny))) - 7)
     assert (np.abs(got - want) <= ulp).all(), (name, float(np.abs(got - want).max()))
 
