@@ -336,25 +336,42 @@ Phases, each printing one JSON object per line:
              classification_error (equal) against the CPU.
 13a. lm_bf16 — the LM in bf16 mixed precision: long_context_config(...,
              dtype="bfloat16") from the same seed, 8 Adam steps on its
-             batch between zeroed counts (16 launches each of the bf16
-             instances of kernels 10, 11 and 12, no other kernel, 0 eager
-             routes), the losses finite, falling and within rtol 0.05 /
-             atol 0.02 of the float32 phase's, the master parameters and
-             Adam slots float32; a test pass at the float32 test's
-             parameters (4 launches of flash_attn_fwd_bf16, nothing else;
-             the cost within the same bound); a B = 2, T = 256 bf16 step
-             against the CPU's bf16 plain versions: the loss within 1e-2,
-             every gradient within 5e-2 of scale of the CPU's step taken at
-             the card's ReLU gates (the gates that differ reported with
-             their largest |pre-activation|, see lm_bf16_cpu_step). The
-             bf16 kernels at the LM's shape (causal, full lengths; and
-             non-causal, ragged) against their bf16 plain versions (out
-             and gradients within 1e-2 of max |plain|, lse within 1e-4, 11
-             and 12 bit-equal over two launches), timed with bf16 SDPA
-             and its backward, their bound at 2-byte operands and the bf16
-             rate and their design's (TF32 passes, fewer for exact bf16
-             factors). The step's wall, device time by family, tokens/s
-             and peak memory, beside the float32 step's.
+             batch between zeroed counts (16 launches each of
+             flash_attn_fwd_bf16_sm90, flash_attn_dq_bf16 and
+             flash_attn_dkv_bf16_sm90, the Hopper bodies of 10 and 12 and
+             11's bf16 instance; no other kernel, 0 eager routes), the
+             losses finite, falling and within rtol 0.05 / atol 0.02 of the
+             float32 phase's, the master parameters and Adam slots float32;
+             2 steps of the same LM at head dim 40 (dim 320), which the
+             Hopper bodies do not take: 4 launches each of the float32
+             body's bf16 instances of 10, 11 and 12, nothing else, the
+             losses falling and within the same bound of the same 2 steps
+             in float32; a test
+             pass at the float32 test's parameters (4 launches of
+             flash_attn_fwd_bf16_sm90, nothing else; the cost within the
+             same bound); a B = 2, T = 256 bf16 step against the CPU's bf16
+             plain versions: the loss within 1e-2, every gradient within
+             5e-2 of scale of the CPU's step taken at the card's ReLU gates
+             (the gates that differ reported with their largest
+             |pre-activation|, see lm_bf16_cpu_step). The bf16 bodies
+             against their bf16 plain versions at the LM's shape (causal,
+             full lengths; non-causal, ragged), T = 1000, D = 128, the
+             D = 40 LM's shape (causal, full lengths) and a ragged D = 40
+             (each case launching the bodies the route picks: out and
+             gradients within 1e-2 of max |plain|, lse within 1e-4, 11 and
+             12 bit-equal over two launches; the Hopper bodies' out and dv
+             within 1 bf16 spacing and dk within 16, taken at no less than
+             2^-11 of max |plain|, where the plain versions with p and ds in
+             one bf16 piece must not be). Each body timed at its main path's
+             shape (D = 64 for the Hopper bodies and 11, D = 40 for the
+             float32 body's instances of 10 and 12) with bf16 SDPA and its
+             backward, their bound at 2-byte operands and the bf16 rate
+             and their design's (the float32 body's instances: TF32
+             passes, fewer for exact bf16 factors; the Hopper bodies: 1.5
+             bf16 passes a product); at the LM's shape the float32 body's
+             instances, launched by name, timed beside the Hopper bodies.
+             The step's wall, device time by family, tokens/s and peak
+             memory, beside the float32 step's.
 14. nested — the ninth and tenth: the hierarchical document classifier
              over nested sequences (flagship.hierarchical_config(vocab=30000,
              emb_dim=128, hidden=512, lstm_size=128): an outer recurrent
@@ -424,9 +441,10 @@ the attention decoder group's loop, and the 1x1 convs whose shape kernel 9
 refuses: the EAGER_ROUTES of the ops modules) and fails if any layer took
 its eager computation instead of a kernel.
 
-Then the per-kernel line ({"kernels": [...]}, 25 rows: 13 float32, the
-12 bf16 instances after them with bound_ms at 2-byte operands and the bf16
-rate and their design_bound_ms; rows 9-12, the kernels on
+Then the per-kernel line ({"kernels": [...]}, 27 rows: 13 float32, the
+12 bf16 instances and the Hopper bodies of 10 and 12 after them with
+bound_ms at 2-byte operands and the bf16 rate and their design_bound_ms;
+rows 9-12, the kernels on
 the tensor cores, also carry bound_tc_ms, the bound of their design: three
 TF32 products per product at 495 TFLOP/s, or the bytes; rows 1-8, the
 persistent grids, carry design_bound_ms, bound_ms plus their grid
@@ -4507,51 +4525,156 @@ def phase_lm_test(torch, dev, kernels, trainer):
 
 
 def attn_bf16_bytes(B, T, H, D):
-    """Bytes of kernels 10, 11 and 12's bf16 instances, each input read and
+    """Bytes of kernels 10, 11 and 12's bf16 bodies, each input read and
     each output written once: q, k, v, dout, out and the gradients at 2
     bytes, lse, delta and lengths at 4."""
     x, stat = 2.0 * B * T * H * D, 4.0 * B * H * T
-    return {"flash_attn_fwd_bf16": 4 * x + stat + 4 * B,
-            "flash_attn_dq_bf16": 5 * x + 2 * stat + 4 * B,
-            "flash_attn_dkv_bf16": 6 * x + 2 * stat + 4 * B}
+    fwd, dkv = 4 * x + stat + 4 * B, 6 * x + 2 * stat + 4 * B
+    return {"flash_attn_fwd_bf16": fwd, "flash_attn_dq_bf16": 5 * x + 2 * stat + 4 * B,
+            "flash_attn_dkv_bf16": dkv, "flash_attn_fwd_bf16_sm90": fwd,
+            "flash_attn_dkv_bf16_sm90": dkv}
 
 
-# TF32 passes a product of each bf16 instance's design takes, on average:
-# Q.K^T one (D = 64: q * scale exact) and P.V two; dq's two scores one each
-# and ds.K two; dkv's two scores one each, P^T.dO and dS^T.Q two each
-ATTN_BF16_PASSES = {"flash_attn_fwd_bf16": 1.5, "flash_attn_dq_bf16": 4.0 / 3.0,
-                    "flash_attn_dkv_bf16": 1.5}
+# the bf16 flash bodies: the float32 body's bf16 instances, and the bodies
+# for Hopper (bf16 wgmma over TMA tiles) that take D = 64 and 128
+ATTN_BF16_KERNELS = ("flash_attn_fwd_bf16", "flash_attn_dq_bf16", "flash_attn_dkv_bf16")
+ATTN_SM90_KERNELS = ("flash_attn_fwd_bf16_sm90", "flash_attn_dkv_bf16_sm90")
+# passes a product of each bf16 body's design takes, on average, and the
+# rate it takes them at: the float32 body's instances in TF32 (Q.K^T one
+# at D = 64, q * scale exact, and P.V two; dq's two scores one each and
+# dS.K two; dkv's two scores one each, P^T.dO and dS^T.Q two each); the
+# Hopper bodies in bf16 (the scores one, p and ds in two bf16 pieces)
+ATTN_BF16_PASSES = {"flash_attn_fwd_bf16": (1.5, PEAK_TF32_FLOPS),
+                    "flash_attn_dq_bf16": (4.0 / 3.0, PEAK_TF32_FLOPS),
+                    "flash_attn_dkv_bf16": (1.5, PEAK_TF32_FLOPS),
+                    "flash_attn_fwd_bf16_sm90": (1.5, PEAK_BF16_FLOPS),
+                    "flash_attn_dkv_bf16_sm90": (1.5, PEAK_BF16_FLOPS)}
+# the LM at a head dim the Hopper bodies do not take (dim 320 over 8 heads:
+# D = 40), a few bf16 steps: the main path of the float32 body's bf16 forward
+# and dK/dV instances
+LM_D40 = dict(dim=320, steps=2)
+# the Hopper bodies' out, dk and dv against their plain versions: within
+# SM90_ULPS bf16 spacings of the larger magnitude, the spacing taken at no
+# less than SM90_CANCEL_FLOOR of max |plain| (tests/test_torch_flash_attention.py's
+# floor, where sums cancel to far below their terms). p and ds in two bf16
+# pieces keep ~16 bits: out and dv lie within one spacing; dk, summed over up
+# to T queries in the wgmma accumulator (which truncates each step), lies
+# several spacings off where it cancels (non-causal, T = 1000-2048), a few
+# 1e-5 of its scale. The planted control, the plain versions with p and ds
+# rounded once to bf16 (one piece), lies tens to hundreds of spacings off in
+# out and dk, and a few in dv, and must fall outside each bound at every case.
+SM90_CANCEL_FLOOR = 2.0 ** -11
+SM90_ULPS = {"out": 1.0, "dk": 16.0, "dv": 1.0}
 
 
-def attn_bf16_kernel_cases(torch, dev):
-    """Kernels 10, 11 and 12's bf16 instances on strided views of a fused
-    bf16 [B, T, 3, H, D] qkv: the LM's shape causal with full lengths and
-    non-causal with ragged ones (one 1, one 0), against their bf16 plain
-    versions: out, dq, dk and dv within BF16_TOL of max |plain|, lse within
-    1e-4 on rows that see a key, the light forward equal to the training
-    one, two launches of 11 and of 12 bit-equal. At the LM's shape the
-    kernels, their plain versions and bf16 scaled_dot_product_attention
-    (forward, and its autograd backward against 11 + 12) timed from a cold
-    L2."""
+def bf16_ulps(torch, got, want, floor=SM90_CANCEL_FLOOR) -> float:
+    """The largest |got - want| in bf16 spacings of the larger magnitude,
+    the spacing taken at no less than ``floor`` of max |want|
+    (tests/torch_bf16_checks.assert_within_one_ulp holds it to 1)."""
+    got, want = got.float(), want.float()
+    big = torch.maximum(got.abs(), want.abs()).clamp(min=floor * float(want.abs().max()))
+    ulp = torch.exp2(torch.floor(torch.log2(big.clamp(min=2.0 ** -126))) - 7)
+    return float(((got - want).abs() / ulp).max())
+
+
+def one_piece_references(torch, q, k, v, do, lse, delta, lengths, causal):
+    """The planted control of the Hopper bodies' two-piece products: kernels
+    10 and 12's plain versions with p and ds rounded once to bf16 before
+    their products, everything else as theirs -> (out, dk, dv) in bf16."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    piece = lambda x: x.to(torch.bfloat16).float()
+    T, D = q.shape[1], q.shape[3]
+    msk = fa._visible(lengths, T, T, causal)
+    qw, kw, vw, dw = fa._widened(q, k, v, do)
+    s = torch.einsum("bqhd,bkhd->bhqk", qw * (1.0 / np.sqrt(D)), kw)
+    s = torch.where(msk, s, torch.full_like(s, -1e30))
+    m = torch.amax(s, dim=-1)
+    p = torch.where(msk, torch.exp(s - m[..., None]), torch.zeros_like(s))
+    l_safe = torch.clamp(torch.sum(p, dim=-1), min=1e-20)
+    out = torch.einsum("bhqk,bkhd->bqhd", piece(p), vw) / l_safe.transpose(1, 2)[..., None]
+    del s, p
+    p, ds = fa._scores_backward(q, k, v, do, lse, delta, lengths, causal)
+    return (out.to(q.dtype), torch.einsum("bhqk,bqhd->bkhd", piece(ds), qw).to(k.dtype),
+            torch.einsum("bhqk,bqhd->bkhd", piece(p), dw).to(v.dtype))
+
+
+def named_bf16_launchers(torch, q, k, v, do, lse, delta, lengths, causal):
+    """The float32 body's bf16 forward and dK/dV launched by name, with the
+    arguments flash_attention._launch_fwd and _launch_dkv give them, at a
+    shape their route gives the Hopper bodies: (fwd() -> out,
+    dkv() -> (dk, dv)), to time both bodies at the LM's shape."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    B, T, H, D = q.shape
+    cz = int(bool(causal))
+    new = lambda: torch.empty((B, T, H, D), device=q.device, dtype=q.dtype)
+    lse_out = torch.empty((B, H, T), device=q.device)
+
+    def fwd():
+        out = new()
+        fa.FLASH_ATTN_FWD_BF16.launch(q.device, *fa._strided(q), *fa._strided(k),
+                                      *fa._strided(v), fa.ptr(lengths), *fa._strided(out),
+                                      fa.ptr(lse_out), B, T, H, D, cz)
+        return out
+
+    def dkv():
+        args, _ = fa._check_backward(q, k, v, do, lse, delta, lengths)
+        dk, dv = new(), new()
+        fa.FLASH_ATTN_DKV_BF16.launch(q.device, *args, *fa._strided(dk), *fa._strided(dv),
+                                      B, T, H, D, cz)
+        return dk, dv
+
+    return fwd, dkv
+
+
+def attn_bf16_kernel_cases(torch, dev, kernels):
+    """Kernels 10, 11 and 12's bf16 bodies on strided views of a fused bf16
+    [B, T, 3, H, D] qkv against their bf16 plain versions: the LM's shape
+    causal with full lengths and non-causal with ragged ones (one 1, one 0);
+    T = 1000 (a ragged last tile), D = 128; and, for the float32 body's
+    bf16 instances, which alone take D = 40, the D = 40 LM's shape (their
+    main path) causal with full lengths and a ragged T = 512. Each case
+    launches the bodies the route (flash_attention.sm90_takes) picks and
+    none other: out, dq, dk and dv within BF16_TOL of max |plain|, lse
+    within 1e-4 on rows that see a key and -1e30 on the others, the light
+    forward equal to the training one, two launches of 11 and of 12
+    bit-equal. The Hopper bodies' out, dk and dv also within SM90_ULPS bf16
+    spacings (bf16_ulps), where the one-piece control must not be. Each body timed
+    at its main path's shape from a cold L2, with its plain version and
+    bf16 scaled_dot_product_attention at that shape (forward, and its
+    autograd backward against 11 + 12); at the LM's shape the float32
+    body's instances, launched by name, timed beside the Hopper bodies
+    (``at_lm_shape``)."""
     from paddle_tpu_torch.ops import flash_attention as fa
 
     rng = np.random.RandomState(23)
     B, T, H, D = LM["batch"], LM["seq_len"], LM["heads"], LM["dim"] // LM["heads"]
-    names = ("flash_attn_fwd_bf16", "flash_attn_dq_bf16", "flash_attn_dkv_bf16")
+    D40 = LM_D40["dim"] // LM["heads"]
+    names = ATTN_BF16_KERNELS + ATTN_SM90_KERNELS
+    by_name = {k.symbol: k for k in kernels}
     out_cases = {name: [] for name in names}
-    timed = {}
-    for causal, ragged in ((True, False), (False, True)):
-        qkv = torch.from_numpy(rng.randn(B, T, 3, H, D).astype(np.float32)).to(dev).to(
+    timed, shapes_of, at_lm = {}, {}, {}
+    shapes = [(B, T, H, D, True, False), (B, T, H, D, False, True), (4, 1000, 4, 64, True, True),
+              (4, 1024, 4, 128, True, True), (B, T, H, D40, True, False),
+              (4, 512, 4, D40, True, True)]
+    for b_, t_, h_, d_, causal, ragged in shapes:
+        qkv = torch.from_numpy(rng.randn(b_, t_, 3, h_, d_).astype(np.float32)).to(dev).to(
             torch.bfloat16)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-        do = torch.from_numpy(rng.randn(B, T, H, D).astype(np.float32)).to(dev).to(
+        do = torch.from_numpy(rng.randn(b_, t_, h_, d_).astype(np.float32)).to(dev).to(
             torch.bfloat16)
-        lens = rng.randint(2, T + 1, B) if ragged else np.full(B, T)
+        lens = rng.randint(2, t_ + 1, b_) if ragged else np.full(b_, t_)
         if ragged:
             lens[1], lens[-1] = 1, 0
         lengths = torch.from_numpy(lens.astype(np.int32)).to(dev)
-        key = {"B": B, "T": T, "H": H, "D": D, "causal": causal,
+        key = {"B": b_, "T": t_, "H": h_, "D": d_, "causal": causal,
                "lengths": lens.tolist() if ragged else "full"}
+        sm90 = fa.sm90_takes(q, k, v, do)
+        assert sm90 == (d_ in fa.SM90_D), key
+        fwd_name, dkv_name = ATTN_SM90_KERNELS if sm90 else (ATTN_BF16_KERNELS[0],
+                                                            ATTN_BF16_KERNELS[2])
+        before = {name: by_name[name].launches for name in names}
         out, lse = fa._launch_fwd(q, k, v, lengths, causal, True)
         light, _ = fa._launch_fwd(q, k, v, lengths, causal, False)
         ref, ref_lse = fa.flash_forward_reference(q, k, v, lengths, causal)
@@ -4562,15 +4685,17 @@ def attn_bf16_kernel_cases(torch, dev):
         assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32, key
         assert over <= BF16_TOL and torch.equal(light, out), (key, err, over)
         assert lse_err <= TOL and bool((lse[~seen] == -1e30).all()), (key, lse_err)
-        out_cases["flash_attn_fwd_bf16"].append({**key, "max_abs_err": err,
-                                                 "err_over_scale": over,
-                                                 "lse_max_abs_err": lse_err})
+        fwd_case = {**key, "max_abs_err": err, "err_over_scale": over, "lse_max_abs_err": lse_err}
+        out_cases[fwd_name].append(fwd_case)
         delta = torch.sum(do.float() * ref.float(), dim=-1).transpose(1, 2).contiguous()
         args = (q, k, v, do, ref_lse, delta, lengths, causal)
         dq, (dk, dv) = fa._launch_dq(*args), fa._launch_dkv(*args)
         dq2, (dk2, dv2) = fa._launch_dq(*args), fa._launch_dkv(*args)
         want = (fa.flash_dq_reference(*args),) + fa.flash_dkv_reference(*args)
         torch.cuda.synchronize()
+        launched = {name: by_name[name].launches - before[name] for name in names}
+        assert launched == {name: 2 if name in (fwd_name, "flash_attn_dq_bf16", dkv_name) else 0
+                            for name in names}, (key, launched)
         same = torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2)
         assert same, ("flash bf16 backward not deterministic", key)
         errs = _scale_errs(["dq", "dk", "dv"], (dq, dk, dv), want)
@@ -4579,45 +4704,88 @@ def attn_bf16_kernel_cases(torch, dev):
         out_cases["flash_attn_dq_bf16"].append({**key, "max_abs_err": errs["dq"][0],
                                                 "err_over_scale": errs["dq"][1],
                                                 "bit_equal_launches": same})
-        out_cases["flash_attn_dkv_bf16"].append({
-            **key, "max_abs_err": max(errs["dk"][0], errs["dv"][0]),
-            "err_over_scale": max(errs["dk"][1], errs["dv"][1]), "bit_equal_launches": same})
+        dkv_case = {**key, "max_abs_err": max(errs["dk"][0], errs["dv"][0]),
+                    "err_over_scale": max(errs["dk"][1], errs["dv"][1]),
+                    "bit_equal_launches": same}
+        out_cases[dkv_name].append(dkv_case)
+        if sm90:
+            # two bf16 pieces of p and ds: within SM90_ULPS, where one piece is not
+            control = one_piece_references(torch, *args)
+            got = {"out": (out, ref), "dk": (dk, want[1]), "dv": (dv, want[2])}
+            ulps = {n_: bf16_ulps(torch, g, w) for n_, (g, w) in got.items()}
+            one = {n_: bf16_ulps(torch, c, got[n_][1])
+                   for n_, c in zip(("out", "dk", "dv"), control)}
+            for case, names_ in ((fwd_case, ("out",)), (dkv_case, ("dk", "dv"))):
+                case.update(err_ulps={n_: ulps[n_] for n_ in names_},
+                            one_piece_err_ulps={n_: one[n_] for n_ in names_})
+            assert all(ulps[n_] <= SM90_ULPS[n_] for n_ in ulps), (key, ulps)
+            assert all(one[n_] > SM90_ULPS[n_] for n_ in one), ("one-piece control passed", key,
+                                                                 one)
+            del control
+        if (b_, t_, h_) == (B, T, H) and causal and not ragged:
+            # a main path's shape (D = 64: the LM; D = 40: the D = 40 LM):
+            # its bodies, their plain versions and SDPA timed
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            lib = [a.transpose(1, 2).contiguous().requires_grad_() for a in (q, k, v)]
+            lib_out = sdpa(*lib, is_causal=True)
+            lib_do = do.transpose(1, 2).contiguous()
+            lib_fwd_ms = time_ms(torch, lambda: sdpa(*lib, is_causal=True))
+            lib_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(lib_out, lib, lib_do,
+                                                                    retain_graph=True))
+            here = {
+                fwd_name: dict(
+                    ms=time_ms(torch, lambda: fa._launch_fwd(q, k, v, lengths, causal, True)),
+                    light_ms=time_ms(torch, lambda: fa._launch_fwd(q, k, v, lengths, causal,
+                                                                   False)),
+                    plain_ms=time_ms(torch, lambda: fa.flash_forward_reference(
+                        q, k, v, lengths, causal), reps=5), library_ms=lib_fwd_ms),
+                dkv_name: dict(ms=time_ms(torch, lambda: fa._launch_dkv(*args)),
+                               plain_ms=time_ms(torch, lambda: fa.flash_dkv_reference(*args),
+                                                reps=5), library_ms=lib_bwd_ms)}
+            if sm90:
+                here["flash_attn_dq_bf16"] = dict(
+                    ms=time_ms(torch, lambda: fa._launch_dq(*args)),
+                    plain_ms=time_ms(torch, lambda: fa.flash_dq_reference(*args), reps=5),
+                    library_ms=lib_bwd_ms)
+                # the float32 body's instances at the LM's shape, launched by
+                # name (their route gives it the Hopper bodies), then the
+                # Hopper bodies again: the old and new bodies in turns
+                old_fwd, old_dkv = named_bf16_launchers(torch, *args)
+                old_out, (old_dk, old_dv) = old_fwd(), old_dkv()
+                old_errs = _scale_errs(["out", "dk", "dv"], (old_out, old_dk, old_dv),
+                                       (ref,) + want[1:])
+                assert max(e[1] for e in old_errs.values()) <= BF16_TOL, (key, old_errs)
+                at_lm = {
+                    "flash_attn_fwd_bf16": dict(ms=time_ms(torch, old_fwd),
+                                                max_abs_err=old_errs["out"][0],
+                                                err_over_scale=old_errs["out"][1]),
+                    "flash_attn_dkv_bf16": dict(
+                        ms=time_ms(torch, old_dkv),
+                        max_abs_err=max(old_errs["dk"][0], old_errs["dv"][0]),
+                        err_over_scale=max(old_errs["dk"][1], old_errs["dv"][1]))}
+                for tm in at_lm.values():
+                    tm.update(key)
+                here[fwd_name]["ms_again"] = time_ms(
+                    torch, lambda: fa._launch_fwd(q, k, v, lengths, causal, True))
+                here[dkv_name]["ms_again"] = time_ms(torch, lambda: fa._launch_dkv(*args))
+                del old_out, old_dk, old_dv
+            sizes = attn_bytes_flops(b_, t_, h_, d_, visible_pairs(lens, t_, causal, h_))
+            nbytes = attn_bf16_bytes(b_, t_, h_, d_)
+            for name, tm in here.items():
+                flops = sizes["flash_attn_" + name.split("_")[2]][1]
+                b_ms, b_by = bound_bf16(nbytes[name], flops)
+                passes, rate = ATTN_BF16_PASSES[name]
+                tm.update(bytes=nbytes[name], flops=flops, bound_ms=b_ms, bound_by=b_by,
+                          design_bound_ms=1e3 * max(nbytes[name] / PEAK_BYTES_PER_S,
+                                                    passes * flops / rate))
+                timed[name] = tm
+                shapes_of[name] = {"B": b_, "T": t_, "H": h_, "D": d_, "causal": True}
+            del lib, lib_out, lib_do
         del ref, want, dq2, dk2, dv2, dq, dk, dv
-        if not causal:
-            continue
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        lib = [a.transpose(1, 2).contiguous().requires_grad_() for a in (q, k, v)]
-        lib_out = sdpa(*lib, is_causal=True)
-        lib_do = do.transpose(1, 2).contiguous()
-        lib_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(lib_out, lib, lib_do,
-                                                                retain_graph=True))
-        timed = {
-            "flash_attn_fwd_bf16": dict(
-                ms=time_ms(torch, lambda: fa._launch_fwd(q, k, v, lengths, causal, True)),
-                light_ms=time_ms(torch, lambda: fa._launch_fwd(q, k, v, lengths, causal, False)),
-                plain_ms=time_ms(torch, lambda: fa.flash_forward_reference(q, k, v, lengths,
-                                                                           causal), reps=5),
-                library_ms=time_ms(torch, lambda: sdpa(*lib, is_causal=True))),
-            "flash_attn_dq_bf16": dict(
-                ms=time_ms(torch, lambda: fa._launch_dq(*args)),
-                plain_ms=time_ms(torch, lambda: fa.flash_dq_reference(*args), reps=5),
-                library_ms=lib_bwd_ms),
-            "flash_attn_dkv_bf16": dict(
-                ms=time_ms(torch, lambda: fa._launch_dkv(*args)),
-                plain_ms=time_ms(torch, lambda: fa.flash_dkv_reference(*args), reps=5),
-                library_ms=lib_bwd_ms)}
-        sizes = attn_bytes_flops(B, T, H, D, visible_pairs(lens, T, causal, H))
-        nbytes = attn_bf16_bytes(B, T, H, D)
-        for name, f32 in zip(names, ATTN_KERNELS):
-            flops = sizes[f32][1]
-            b_ms, b_by = bound_bf16(nbytes[name], flops)
-            timed[name].update(bytes=nbytes[name], flops=flops, bound_ms=b_ms, bound_by=b_by,
-                               design_bound_ms=1e3 * max(
-                                   nbytes[name] / PEAK_BYTES_PER_S,
-                                   ATTN_BF16_PASSES[name] * flops / PEAK_TF32_FLOPS))
-        del lib, lib_out, lib_do
-    shape = {"B": B, "T": T, "H": H, "D": D, "causal": True}
-    return {name: dict(cases=out_cases[name], timed=timed[name], shape=shape) for name in names}
+    for name, tm in at_lm.items():
+        timed[name]["at_lm_shape"] = tm
+    return {name: dict(cases=out_cases[name], timed=timed[name], shape=shapes_of[name])
+            for name in names}
 
 
 def lm_bf16_cpu_step(trainer, params_cpu, tc):
@@ -4696,8 +4864,12 @@ def phase_lm_bf16(torch, dev, kernels, f32_train, f32_test, params_cpu):
     batch = lm_batch(LM["vocab"], B=LM["batch"], T=LM["seq_len"], seed=1, device=dev)
     n = LM["steps"]
     losses, step_s, launches, routes, peak = train_steps(torch, dev, kernels, trainer, batch, n)
+    # D = 64: the Hopper bodies of 10 and 12, the float32 body's instance of
+    # 11, and nothing of the float32 body's instances of 10 and 12
     want = {k.symbol: 0 for k in kernels}
-    want.update({f"{name}_bf16": LM["blocks"] * n for name in ATTN_KERNELS})
+    want.update({name: LM["blocks"] * n for name in ("flash_attn_fwd_bf16_sm90",
+                                                      "flash_attn_dq_bf16",
+                                                      "flash_attn_dkv_bf16_sm90")})
     assert launches == want, (launches, want)
     assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
     np.testing.assert_allclose(losses, f32_train["losses"], **BF16_LOSS_TOL)
@@ -4708,6 +4880,22 @@ def phase_lm_bf16(torch, dev, kernels, f32_train, f32_test, params_cpu):
     step_ms = 1e3 * statistics.median(step_s[1:])
     rows, prof = profiled(torch, "lm_bf16_train_profile", lambda: trainer.train_one_batch(batch),
                           top=24)
+
+    # the float32 body's bf16 forward and dK/dV on a main path: the LM at
+    # head dim 40, which the Hopper bodies do not take, held to the same
+    # steps in float32
+    d40 = lambda dtype: Trainer(long_context_config(
+        vocab=LM["vocab"], seq_len=LM["seq_len"], dim=LM_D40["dim"], heads=LM["heads"],
+        blocks=LM["blocks"], batch_size=LM["batch"], dtype=dtype))
+    n40 = LM_D40["steps"]
+    f32_losses40 = train_steps(torch, dev, kernels, d40("float32"), batch, n40)[0]
+    losses40, step40_s, launches40, routes40, _ = train_steps(torch, dev, kernels,
+                                                              d40("bfloat16"), batch, n40)
+    want40 = {k.symbol: 0 for k in kernels}
+    want40.update({name: LM["blocks"] * n40 for name in ATTN_BF16_KERNELS})
+    assert launches40 == want40, (launches40, want40)
+    assert all(np.isfinite(losses40)) and losses40[-1] < losses40[0], losses40
+    np.testing.assert_allclose(losses40, f32_losses40, **BF16_LOSS_TOL)
     del batch
 
     # the test pass at the float32 phase's trained parameters and batches:
@@ -4721,7 +4909,7 @@ def phase_lm_bf16(torch, dev, kernels, f32_train, f32_test, params_cpu):
     torch.cuda.synchronize()
     test_launches, test_routes = read_counts(kernels)
     want_test = {k.symbol: 0 for k in kernels}
-    want_test["flash_attn_fwd_bf16"] = LM["blocks"] * LM["test_batches"]
+    want_test["flash_attn_fwd_bf16_sm90"] = LM["blocks"] * LM["test_batches"]
     assert test_launches == want_test, (test_launches, want_test)
     assert np.isfinite(result["cost"]), result
     np.testing.assert_allclose(result["cost"], f32_test["results"]["cost"], **BF16_LOSS_TOL)
@@ -4729,7 +4917,7 @@ def phase_lm_bf16(torch, dev, kernels, f32_train, f32_test, params_cpu):
 
     cpu_step = lm_bf16_cpu_step(trainer, params_cpu, tc)
     del trainer
-    cases = attn_bf16_kernel_cases(torch, dev)
+    cases = attn_bf16_kernel_cases(torch, dev, kernels)
     tokens = LM["batch"] * LM["seq_len"]
     emit({"phase": "lm_bf16", "batch": LM["batch"], "T": LM["seq_len"], "steps": n,
           "losses": losses, "f32_losses": f32_train["losses"],
@@ -4748,19 +4936,40 @@ def phase_lm_bf16(torch, dev, kernels, f32_train, f32_test, params_cpu):
           "test_cost": result["cost"], "f32_test_cost": f32_test["results"]["cost"],
           "test_kernel_launches": {k: v for k, v in test_launches.items() if v},
           "test_eager_routes": test_routes, "cpu_step": cpu_step,
+          "d40": {"dim": LM_D40["dim"], "heads": LM["heads"], "steps": n40,
+                  "losses": losses40, "f32_losses": f32_losses40,
+                  "step_ms": [1e3 * x for x in step40_s],
+                  "kernel_launches": {k: v for k, v in launches40.items() if v},
+                  "eager_routes": routes40},
           "kernel_cases": {k: c["cases"] for k, c in cases.items()},
+          "timed": {k: c["timed"] for k, c in cases.items()},
           "seconds": time.perf_counter() - t_phase})
-    replaces = {"flash_attn_fwd_bf16": ("paddle_tpu/ops/pallas_attention.py:56 (_fwd_kernel in "
-                                        "bf16; pallas_call :173)", "flash_attn_fwd.cu"),
+    fwd_src = ("paddle_tpu/ops/pallas_attention.py:56 (_fwd_kernel in bf16; pallas_call :173)",
+               "flash_attn_fwd.cu")
+    dkv_src = ("paddle_tpu/ops/pallas_attention.py:121 (_dkv_kernel in bf16; pallas_call :215)",
+               "flash_attn_bwd.cu")
+    replaces = {"flash_attn_fwd_bf16": fwd_src, "flash_attn_fwd_bf16_sm90": fwd_src,
                 "flash_attn_dq_bf16": ("paddle_tpu/ops/pallas_attention.py:91 (_dq_kernel in "
                                        "bf16; pallas_call :202)", "flash_attn_bwd.cu"),
-                "flash_attn_dkv_bf16": ("paddle_tpu/ops/pallas_attention.py:121 (_dkv_kernel in "
-                                        "bf16; pallas_call :215)", "flash_attn_bwd.cu")}
+                "flash_attn_dkv_bf16": dkv_src, "flash_attn_dkv_bf16_sm90": dkv_src}
+    # each body's launches on its own main path: D = 64 (the LM) for the
+    # Hopper bodies and 11, D = 40 for the float32 body's bf16 instances
+    paths = {name: ("lm_bf16_train", launches) for name in
+             ("flash_attn_fwd_bf16_sm90", "flash_attn_dq_bf16", "flash_attn_dkv_bf16_sm90")}
+    paths.update({name: ("lm_bf16_d40_train", launches40)
+                  for name in ("flash_attn_fwd_bf16", "flash_attn_dkv_bf16")})
     out = []
     for name, c in cases.items():
         tm = c["timed"]
-        launched = launches[name]
+        main_path, counts = paths[name]
+        launched = counts[name]
         assert launched > 0, name
+        by_path = {main_path: launched}
+        if name == "flash_attn_dq_bf16":
+            by_path["lm_bf16_d40_train"] = launches40[name]
+        if test_launches[name]:
+            by_path["lm_bf16_test"] = test_launches[name]
+        is_fwd = name.startswith("flash_attn_fwd")
         out.append({
             "name": name, "route": "cuda", "source": "paddle_tpu_torch/csrc/" + replaces[name][1],
             "replaces": replaces[name][0], "launches": launched,
@@ -4770,19 +4979,29 @@ def phase_lm_bf16(torch, dev, kernels, f32_train, f32_test, params_cpu):
             "design_bound_ms": tm["design_bound_ms"], "library_ms": tm["library_ms"],
             "library_note": ("torch.nn.functional.scaled_dot_product_attention(q, k, v, "
                              "is_causal=True) in bf16 [B, H, T, D] at full lengths"
-                             if name == "flash_attn_fwd_bf16" else
+                             if is_fwd else
                              "the backward of bf16 scaled_dot_product_attention(q, k, v, "
                              "is_causal=True) by autograd (dq, dk and dv together), against "
                              "kernels 11 + 12"),
-            "main_path": "lm_bf16_train", "operand_dtype": "bfloat16",
-            "launches_by_path": {"lm_bf16_train": launched,
-                                 **({"lm_bf16_test": test_launches[name]}
-                                    if test_launches[name] else {})},
+            "body": ("Hopper: bf16 wgmma over TMA tiles, D = 64 and 128"
+                     if name in ATTN_SM90_KERNELS else
+                     "the float32 body's bf16 instance: mma.sync TF32 on widened tiles"),
+            "main_path": main_path, "operand_dtype": "bfloat16", "launches_by_path": by_path,
             "max_err_over_scale": max(e["err_over_scale"] for e in c["cases"]),
-            **({"light_ms": tm["light_ms"],
-                "lse_max_abs_err": max(e["lse_max_abs_err"] for e in c["cases"])}
-               if name == "flash_attn_fwd_bf16" else
-               {"bit_equal_launches": all(e["bit_equal_launches"] for e in c["cases"])}),
+            **({"light_ms": tm["light_ms"]} if "light_ms" in tm else {}),
+            **({"ms_again": tm["ms_again"]} if "ms_again" in tm else {}),
+            **({"at_lm_shape": tm["at_lm_shape"]} if "at_lm_shape" in tm else {}),
+            **({"max_err_ulps": {n_: max(e["err_ulps"][n_] for e in c["cases"])
+                                 for n_ in c["cases"][0]["err_ulps"]},
+                "one_piece_min_err_ulps": {n_: min(e["one_piece_err_ulps"][n_]
+                                                   for e in c["cases"])
+                                           for n_ in c["cases"][0]["err_ulps"]}}
+               if name in ATTN_SM90_KERNELS else {}),
+            **({"lse_max_abs_err": max(e["lse_max_abs_err"] for e in c["cases"]
+                                       if "lse_max_abs_err" in e)}
+               if is_fwd else
+               {"bit_equal_launches": all(e["bit_equal_launches"] for e in c["cases"]
+                                          if "bit_equal_launches" in e)}),
             "errors_by_case": c["cases"], "bytes": tm["bytes"], "flops": tm["flops"],
             "shape": c["shape"]})
     return out
@@ -5527,8 +5746,9 @@ def main() -> int:
             **({"timed_over": "one train step (30 launches)",
                 "launches_per_step": launches / RESNET["steps"]} if "per_step" in r else {}),
         })
-    # 13 float32 rows, the bf16 instances of 1-3 and 5-12 after them
-    assert len(rows) == 13 and len(bf16_rows) == 12, ([r["name"] for r in rows + bf16_rows])
+    # 13 float32 rows, the bf16 instances of 1-3 and 5-12 and the Hopper
+    # bodies of 10 and 12 after them
+    assert len(rows) == 13 and len(bf16_rows) == 14, ([r["name"] for r in rows + bf16_rows])
     emit({"kernels": rows + bf16_rows})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,

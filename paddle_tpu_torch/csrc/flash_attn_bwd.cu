@@ -74,9 +74,44 @@
 // an exact factor (flash_mma.cuh): the score products (q . k^T, dout . v^T)
 // multiply two bf16 values, one TF32 pass each; the accumulate products
 // (ds . k, p^T . dout, ds^T . q) split their float32 factor, two passes.
+// flash_attn_dkv_bf16 takes the bf16 shapes the Hopper body below does not
+// (D other than 64 and 128, an unaligned base, strides TMA cannot read);
+// flash_attn_dq_bf16 takes every bf16 shape.
+//
+// The bf16 dK/dV body for Hopper (flash_attn_dkv_bf16_sm90) takes D = 64
+// and 128 with q, k, v and dout as TMA reads them (flash_attention.py's
+// sm90_takes). What bounds it: at the LM's shape (B = 8, H = 8, T = 2048,
+// D = 64, causal) 68.8 GFLOP, 0.070 ms at the 989 TFLOP/s bf16 rate; with
+// p^T and ds^T in two bf16 pieces (the forward's note) 1.5 passes a
+// product, a design bound of 0.104 ms. What the design does about it:
+// - A block owns 128 keys, two warpgroups of 64; k and v stay in shared
+//   memory for the launch. One thread streams q and dout tiles of BQ
+//   queries (64 at D = 64, 32 at D = 128; TMA from the strided views, the
+//   128-byte swizzle) with their lse and delta rows (TMA through 1-d maps
+//   over all (b, h, t)) through a ring of 5 stages on mbarriers; causal
+//   blocks begin at the query tile that holds their first key, and a key
+//   tile wholly past the length reads nothing and writes dk = dv = 0.
+// - Per query tile: s^T = k . q^T and dp^T = v . dout^T as wgmma
+//   m64nBQk16, all operands K-major from shared memory, their steps
+//   interleaved (independent chains); p^T = 2^(s^T scale log2(e) - lse
+//   log2(e)), masked explicitly (at a query that sees no key s = lse =
+//   -1e30), and ds^T = p^T (dp^T - delta) scale in float32; then dv +=
+//   p^T . dout and dk += ds^T . q as wgmma m64n64k16 with the factors' two
+//   bf16 pieces as A from registers and dout and q read MN-major from their
+//   tiles, the four chains interleaved.
+// - dv and dk sum in the wgmma accumulators over every query tile, without
+//   the float32 body's rounded adds (a tile's partial sums would take 64
+//   more registers a thread at D = 64 and 128 at D = 128, past the 255 a
+//   thread may hold), so their truncation adds up: where dk cancels over a
+//   long sum (non-causal, T = 1000-2048) it lies several bf16 spacings, at
+//   2^-11 of its scale, from the plain version's; dv within one
+//   (chip_smoke.py's SM90_ULPS).
+// - dk and dv are rounded once to bf16; each block writes only its own
+//   rows: no atomics, two launches give equal bits.
 
 #include "flash_attn.cuh"
 #include "flash_mma.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -426,6 +461,316 @@ int run_dkv(const Args<S>& a, const void* lse, const void* delta, const void* le
 
 }  // namespace
 
+// ---- the bf16 dK/dV body for Hopper (flash_attn_dkv_bf16_sm90) ----
+
+namespace sm90 {
+
+using bf16 = __nv_bfloat16;
+using flash::Output;
+using namespace hopper;
+
+// Two warpgroups of 64 keys, and no warp of its own for the loads (as the
+// forward: a producer warp or warpgroup capped every thread at 168
+// registers, which serialized the wgmmas); one thread (kLoader) issues the
+// loads.
+constexpr int kConsumers = 2;
+constexpr int kThreads = 128 * kConsumers;
+constexpr int kLoader = 128;                     // thread 0 of warpgroup 1
+
+// D = 64 or 128; tiles are swizzled [rows][64] images, D / 64 of them.
+template <int D>
+struct DkvGeo {
+  static constexpr int BK = 64 * kConsumers;     // keys of a block
+  static constexpr int BQ = D == 64 ? 64 : 32;   // queries of a stage
+  static constexpr int HALVES = D / 64;
+  static constexpr int STAGES = 5;
+  static constexpr int K_BYTES = BK * D * 2;     // the block's K, and its V
+  static constexpr int T_BYTES = BQ * D * 2;     // a Q or a dO tile: 8 KB at both widths
+  static constexpr int STAT_ROW = BQ + 4;        // a stat row from its 16-byte boundary
+  static constexpr int DELTA_OFF = 512;          // bytes: delta's row after lse's
+  static constexpr int STAT_BYTES = 1024;        // the tile's lse and delta rows
+  static constexpr int STAGE_BYTES = 2 * T_BYTES + STAT_BYTES;
+  static constexpr int SMEM = 1024 + 2 * K_BYTES + STAGES * STAGE_BYTES + 8 * (1 + 2 * STAGES);
+  static constexpr int NS = BQ / 2;              // score accumulators a thread
+  static_assert(T_BYTES % 1024 == 0 && STAT_ROW * 4 <= DELTA_OFF &&
+                DELTA_OFF + STAT_ROW * 4 <= STAT_BYTES, "stage layout");
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_dkv_sm90(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+               const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap g_map,
+               const __grid_constant__ CUtensorMap lse_map,
+               const __grid_constant__ CUtensorMap delta_map, const int* __restrict__ lengths,
+               Output<bf16> dk, Output<bf16> dv, int T, int H, int causal, float scale,
+               float scale_log2) {
+  using G = DkvGeo<D>;
+  constexpr int BK = G::BK, BQ = G::BQ, HV = G::HALVES, ST = G::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint8_t* skk = base;                                             // [HV][BK][64]
+  uint8_t* svv = base + G::K_BYTES;
+  auto sq = [&](int s) { return base + 2 * G::K_BYTES + s * G::STAGE_BYTES; };   // [HV][BQ][64]
+  auto sdo = [&](int s) { return sq(s) + G::T_BYTES; };
+  auto slse = [&](int s) { return reinterpret_cast<float*>(sdo(s) + G::T_BYTES); };
+  auto sdelta = [&](int s) { return reinterpret_cast<float*>(sdo(s) + G::T_BYTES + G::DELTA_OFF); };
+  uint64_t* kvbar = reinterpret_cast<uint64_t*>(base + 2 * G::K_BYTES + ST * G::STAGE_BYTES);
+  uint64_t* full = kvbar + 1;
+  uint64_t* empty = full + ST;
+
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int k0 = blockIdx.x * BK;                // the first key tiles see the most queries
+  const int len = flash::clamp_length(lengths, b, T);
+  const int first = causal ? k0 / BQ : 0;        // the query tile holding the first key
+  const int n = k0 < len ? (T + BQ - 1) / BQ - first : 0;   // else every key is masked
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    bar_init(kvbar, 1);
+    for (int s = 0; s < ST; ++s) {
+      bar_init(&full[s], 1);
+      bar_init(&empty[s], 128 * kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // kLoader loads k and v once, then q and dout tiles with their lse and
+  // delta rows STAGES ahead: tile i + STAGES into tile i's stage once both
+  // warpgroups have released it (refill, called where warpgroup 1 releases
+  // tile i + 1, by when warpgroup 0 has long released tile i). The rows
+  // come from 1-d maps over all (b, h, t), each box from the 16-byte
+  // boundary at or below the tile's first query (TMA's rule; with T % 4 !=
+  // 0 a row starts between boundaries) and 4 values longer: past T they
+  // read the next row's values or zeros, where p is masked.
+  const long long stat = (static_cast<long long>(b) * H + h) * T;
+  auto stat_at = [&](int i) { return stat + static_cast<long long>(first + i) * BQ; };
+  auto load = [&](int i) {
+    const int s = i % ST;
+    const int q0 = (first + i) * BQ;
+    bar_expect(&full[s], 2 * G::T_BYTES + 2 * G::STAT_ROW * 4);
+    for (int hv = 0; hv < HV; ++hv) {
+      tma_load_4d(sq(s) + hv * BQ * 128, &q_map, 64 * hv, h, q0, b, &full[s]);
+      tma_load_4d(sdo(s) + hv * BQ * 128, &g_map, 64 * hv, h, q0, b, &full[s]);
+    }
+    const int c0 = static_cast<int>(stat_at(i) & ~3ll);
+    tma_load_1d(slse(s), &lse_map, c0, &full[s]);
+    tma_load_1d(sdelta(s), &delta_map, c0, &full[s]);
+  };
+  auto refill = [&](int i) {
+    if (threadIdx.x == kLoader && i + ST < n) {
+      bar_wait(&empty[i % ST], (i / ST) & 1);
+      load(i + ST);
+    }
+  };
+  if (threadIdx.x == kLoader && n > 0) {
+    bar_expect(kvbar, 2 * G::K_BYTES);
+    for (int hv = 0; hv < HV; ++hv) {
+      tma_load_4d(skk + hv * BK * 128, &k_map, 64 * hv, h, k0, b, kvbar);
+      tma_load_4d(svv + hv * BK * 128, &v_map, 64 * hv, h, k0, b, kvbar);
+    }
+    for (int i = 0; i < ST && i < n; ++i) load(i);
+  }
+
+  // keys [64 wg, 64 wg + 64) of the block; broadcast from lane 0, so that
+  // ptxas sees the branches around the wgmmas as warp-uniform (a divergent
+  // one makes it serialize them)
+  const int wg = __shfl_sync(flash::kFull, warp / 4, 0);
+  const int g = lane / 4, t = lane % 4;
+  const int kw0 = k0 + 64 * wg;                  // the warpgroup's first key
+  const int kr = kw0 + 16 * (warp % 4) + g;      // this thread's keys kr, kr + 8
+
+  float acc_k[HV][32], acc_v[HV][32];
+#pragma unroll
+  for (int hv = 0; hv < HV; ++hv)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      acc_k[hv][i] = 0.0f;
+      acc_v[hv][i] = 0.0f;
+    }
+
+  float sc[G::NS], dp[G::NS];
+  unsigned ahi[BQ / 16][4], alo[BQ / 16][4], dhi[BQ / 16][4], dlo[BQ / 16][4];
+
+  // The two stages of tile i's products, each straight-line code from the
+  // fence to the wait (a stage split across branches makes ptxas serialize
+  // the wgmmas), with independent chains of accumulation interleaved, so
+  // that one chain's latency does not stall the tensor cores (an m64n64k16
+  // step is 32 cycles of work): the scores (q . k)^T and (dout . v)^T, then
+  // dv += p^T . dout and dk += ds^T . q.
+  auto scores = [&](int i) {
+    const int s = i % ST;
+#pragma unroll
+    for (int e = 0; e < G::NS; ++e) {
+      fence_operand(sc[e]);
+      fence_operand(dp[e]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      wgmma_bf16_ss<BQ>(sc, desc_k_major<BK>(skk, 64 * wg, ks), desc_k_major<BQ>(sq(s), 0, ks),
+                        ks > 0);
+      wgmma_bf16_ss<BQ>(dp, desc_k_major<BK>(svv, 64 * wg, ks), desc_k_major<BQ>(sdo(s), 0, ks),
+                        ks > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int e = 0; e < G::NS; ++e) {
+      fence_operand(sc[e]);
+      fence_operand(dp[e]);
+    }
+  };
+  auto fence_acc = [&]() {
+#pragma unroll
+    for (int hv = 0; hv < HV; ++hv)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        fence_operand(acc_k[hv][e]);
+        fence_operand(acc_v[hv][e]);
+      }
+  };
+  auto accumulate = [&](int i) {
+    const int s = i % ST;
+    fence_acc();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        fence_operand(ahi[kk][e]);
+        fence_operand(alo[kk][e]);
+        fence_operand(dhi[kk][e]);
+        fence_operand(dlo[kk][e]);
+      }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+#pragma unroll
+      for (int hv = 0; hv < HV; ++hv) {          // dout and q MN-major as stored
+        const uint64_t dg = desc_sw128_mn(sdo(s) + hv * BQ * 128 + kk * 2048);
+        const uint64_t dq_ = desc_sw128_mn(sq(s) + hv * BQ * 128 + kk * 2048);
+        wgmma_bf16_rs_tb_n64(acc_v[hv], alo[kk], dg, 1);
+        wgmma_bf16_rs_tb_n64(acc_k[hv], dlo[kk], dq_, 1);
+        wgmma_bf16_rs_tb_n64(acc_v[hv], ahi[kk], dg, 1);
+        wgmma_bf16_rs_tb_n64(acc_k[hv], dhi[kk], dq_, 1);
+      }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc();
+  };
+  // tile i's p^T and ds^T from its scores, each in two bf16 pieces
+  auto grads = [&](int i) {
+    const int q0 = (first + i) * BQ;
+    const int off = static_cast<int>(stat_at(i) & 3);
+    const float* ls = slse(i % ST) + off;
+    const float* dl = sdelta(i % ST) + off;
+    // every query of the tile (all before T) sees every key of the warpgroup
+    const bool all = q0 + BQ <= T && kw0 + 64 <= len && (!causal || q0 >= kw0 + 63);
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * j + 2 * t + (e & 1);
+        const int qp = q0 + c;
+        const int kp = kr + 8 * (e / 2);
+        const float e2 = flash::exp2_ftz(fmaf(sc[4 * j + e], scale_log2, -ls[c] * kLog2e));
+        const bool vis = qp < T && flash::visible(qp, kp, len, causal);
+        const float p = all || vis ? e2 : 0.0f;
+        sc[4 * j + e] = p;                                       // p^T
+        dp[4 * j + e] = p * (dp[4 * j + e] - dl[c]) * scale;     // ds^T
+      }
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      a_from_acc(sc, kk, ahi[kk], alo[kk]);
+      a_from_acc(dp, kk, dhi[kk], dlo[kk]);
+    }
+  };
+  auto release = [&](int i) {
+    bar_arrive(&empty[i % ST]);
+    if (i > 0) refill(i - 1);
+  };
+  // The warpgroup's tiles: from the first whose last query reaches its first
+  // key (causal), none where every key is masked. Before them it only waits
+  // for the tiles and releases them.
+  int i0 = n;
+  if (kw0 < len) i0 = causal ? min(n, kw0 / BQ - first) : 0;
+  for (int i = 0; i < i0; ++i) {
+    bar_wait(&full[i % ST], (i / ST) & 1);
+    release(i);
+  }
+  if (i0 < n) bar_wait(kvbar, 0);
+  const bool probed = b == 0 && h == 0 && blockIdx.x == 0;   // FLASH_SM90_PHASE's block
+  (void)probed;
+  for (int i = i0; i < n; ++i) {
+    FLASH_SM90_PHASE(probed, wg, i, 0);
+    bar_wait(&full[i % ST], (i / ST) & 1);
+    FLASH_SM90_PHASE(probed, wg, i, 1);
+    scores(i);
+    FLASH_SM90_PHASE(probed, wg, i, 2);
+    grads(i);
+    FLASH_SM90_PHASE(probed, wg, i, 3);
+    accumulate(i);
+    FLASH_SM90_PHASE(probed, wg, i, 4);
+    release(i);
+    FLASH_SM90_PHASE(probed, wg, i, 5);
+  }
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int kp = kr + 8 * half;
+    if (kp >= T) continue;
+    bf16* rk = dk.head(b, h) + kp * dk.st;
+    bf16* rv = dv.head(b, h) + kp * dv.st;
+#pragma unroll
+    for (int hv = 0; hv < HV; ++hv)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int d = 64 * hv + 8 * j + 2 * t;
+        const int e = 4 * j + 2 * half;
+        *reinterpret_cast<__nv_bfloat162*>(rk + d) =
+            __floats2bfloat162_rn(acc_k[hv][e], acc_k[hv][e + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(rv + d) =
+            __floats2bfloat162_rn(acc_v[hv][e], acc_v[hv][e + 1]);
+      }
+  }
+}
+
+template <int D>
+int launch_dkv(const Args<bf16>& a, const float* lse, const float* delta, const int* lengths,
+               Output<bf16> dk, Output<bf16> dv, int B, int T, int H, int causal,
+               cudaStream_t stream) {
+  using G = DkvGeo<D>;
+  CUtensorMap qm, km, vm, gm;
+  // lse and delta [B, H, T] as one row of B H T floats (TMA's coordinates
+  // are 32-bit)
+  CUtensorMap lm, dm;
+  const cuuint64_t rows[1] = {static_cast<cuuint64_t>(B) * H * T};
+  const cuuint64_t unused[1] = {16};
+  const cuuint32_t box[1] = {G::STAT_ROW};
+  if (rows[0] >= (1ull << 31)) return static_cast<int>(cudaErrorNotSupported);
+  if (!tensor_map(&lm, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, lse, 1, rows, unused, box,
+                  CU_TENSOR_MAP_SWIZZLE_NONE) ||
+      !tensor_map(&dm, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, delta, 1, rows, unused, box,
+                  CU_TENSOR_MAP_SWIZZLE_NONE) ||
+      !flash::operand_map(&qm, a.q.ptr, a.q.sb, a.q.st, a.q.sh, B, T, H, D, G::BQ) ||
+      !flash::operand_map(&km, a.k.ptr, a.k.sb, a.k.st, a.k.sh, B, T, H, D, G::BK) ||
+      !flash::operand_map(&vm, a.v.ptr, a.v.sb, a.v.st, a.v.sh, B, T, H, D, G::BK) ||
+      !flash::operand_map(&gm, a.dout.ptr, a.dout.sb, a.dout.st, a.dout.sh, B, T, H, D, G::BQ))
+    return static_cast<int>(cudaErrorNotSupported);
+  cudaError_t err = allow_smem(flash_dkv_sm90<D>, G::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const float scale = flash::softmax_scale(D);
+  const dim3 grid((T + G::BK - 1) / G::BK, H, B);
+  flash_dkv_sm90<D><<<grid, kThreads, G::SMEM, stream>>>(
+      qm, km, vm, gm, lm, dm, lengths, dk, dv, T, H, causal, scale, scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace sm90
+
 // q, k, v, dout, dq, dk and dv [B, T, H, D] through their batch, time and
 // head strides (in elements; the last dimension contiguous); lse and delta
 // [B, H, T] contiguous; lengths [B] int32. 1 <= D <= 256, T >= 1, H and
@@ -472,4 +817,25 @@ extern "C" int flash_attn_dkv_bf16(FLASH_BWD_QKVG, const void* lse, const void* 
                                    int causal, void* stream) {
   return run_dkv(Args<bf16>(FLASH_BWD_ARGS), lse, delta, lengths, dk, dk_sb, dk_st, dk_sh,
                  dv, dv_sb, dv_st, dv_sh, B, T, H, D, causal, stream);
+}
+
+// The bf16 dK/dV body for Hopper: the arguments of flash_attn_dkv_bf16, D =
+// 64 or 128, and q, k, v and dout as TMA reads them (flash_attention.py's
+// sm90_takes): base 16-byte aligned, batch, time and head strides multiples
+// of 8 values. Returns cudaErrorInvalidValue for any other shape, and
+// cudaErrorNotSupported where a tensor map cannot be made.
+extern "C" int flash_attn_dkv_bf16_sm90(FLASH_BWD_QKVG, const void* lse, const void* delta,
+                                        const void* lengths, void* dk, long long dk_sb,
+                                        long long dk_st, long long dk_sh, void* dv,
+                                        long long dv_sb, long long dv_st, long long dv_sh, int B,
+                                        int T, int H, int D, int causal, void* stream) {
+  const Args<bf16> a(FLASH_BWD_ARGS);
+  if ((D != 64 && D != 128) || !rows_16b(a.q, a.k, a.v, a.dout, D))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Output<bf16> odk{static_cast<bf16*>(dk), dk_sb, dk_st, dk_sh};
+  const Output<bf16> odv{static_cast<bf16*>(dv), dv_sb, dv_st, dv_sh};
+  return (D == 64 ? sm90::launch_dkv<64> : sm90::launch_dkv<128>)(
+      a, static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const int*>(lengths), odk, odv, B, T, H, causal,
+      static_cast<cudaStream_t>(stream));
 }

@@ -56,9 +56,48 @@
 // products drop the passes of an exact factor (flash_mma.cuh): k and v are
 // bf16, so P . V takes two passes, and Q . K^T two, or one where 1 / sqrt(D)
 // is a power of two (D = 16, 64, 256: q * scale is then bf16-exact too).
+// It takes the bf16 shapes the Hopper body below does not: D other than 64
+// and 128, an unaligned base, strides TMA cannot read.
+//
+// The bf16 body for Hopper (flash_attn_fwd_bf16_sm90) takes D = 64 and 128
+// with every operand as TMA reads it (flash_attention.py's sm90_takes).
+// What bounds it: at the LM's shape (B = 8, H = 8, T = 2048, D = 64, causal)
+// 34.4 GFLOP, 0.035 ms at the 989 TFLOP/s bf16 rate. The contract keeps p in
+// float32 and bf16 tensor cores take bf16 operands, so p enters P . V as two
+// bf16 pieces, hi = bf16(p) and lo = bf16(p - hi) (~16 bits of p; one piece
+// alone does not hold the outputs within a bf16 ulp of the contract's,
+// tests/test_torch_flash_attention.py): 1.5 passes a product, a design bound
+// of 0.052 ms. Then the softmax: 2^x on
+// the MUFU unit (16 a cycle an SM) and ~8 other instructions per score.
+// What the design does about it:
+// - TMA reads bf16 q, k and v tiles straight from the strided [B, T, H, D]
+//   views (a 4-d tensor map, dims (D, H, T, B), the 128-byte swizzle, zeros
+//   past T); one thread keeps a ring of 4 k/v stages in flight on mbarriers.
+// - A block is two warpgroups of 64 query rows. Each runs s = q . k^T as
+//   wgmma m64nBCk16 (BC = 128 keys at D = 64, 64 at D = 128), both operands
+//   K-major from shared memory; the online softmax in float32 on the
+//   accumulators in base 2 (the max of the raw scores, p by one FFMA and
+//   ex2.approx.ftz, a masked p 0 by a select, a row on the 4 lanes of a
+//   quad; branch-free where the whole tile is visible); then o += p . v as
+//   wgmma m64n64k16 with p's pieces as A from registers (an accumulator's
+//   lanes hold an A fragment's: no shuffle) and v as B read MN-major from
+//   its tile (transposed by the instruction).
+// - p . v runs as two independent chains of steps (one chain of 16
+//   m64n64k16 steps, 32 cycles of work each, waits on every step's
+//   latency): at D = 64 one a piece, each summed apart and added to o,
+//   scaled by alpha first, with rounded float32 adds; at D = 128 one a half
+//   of o's features.
+// - scale log2(e) multiplies s in float32: at D = 64 1 / sqrt(D) is a power
+//   of two and s scale equals the contract's (q scale) . k exactly; at
+//   D = 128 that product takes one more float32 rounding.
+// - out is rounded once to bf16, lse is float32, the light launch gives the
+//   training launch's bits; key tiles past the length or (causal) the
+//   block's last query are not loaded, and a warpgroup skips a tile wholly
+//   after its last query. No atomics: two launches give equal bits.
 
 #include "flash_attn.cuh"
 #include "flash_mma.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -344,6 +383,309 @@ int run(const void* q, long long q_sb, long long q_st, long long q_sh, const voi
 
 }  // namespace
 
+// ---- the bf16 body for Hopper (flash_attn_fwd_bf16_sm90) ----
+
+namespace sm90 {
+
+using bf16 = __nv_bfloat16;
+using flash::Output;
+using namespace hopper;
+
+// Two warpgroups of 64 query rows, and no warp of its own for the loads:
+// ptxas allots a wgmma kernel's registers per warpgroup, so a producer warp
+// or warpgroup (setmaxnreg included) capped every thread at 168 registers,
+// which spilled and serialized the wgmmas; one thread (kLoader) issues the
+// loads.
+constexpr int kConsumers = 2;
+constexpr int kThreads = 128 * kConsumers;
+constexpr int kLoader = 128;                     // thread 0 of warpgroup 1
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// D = 64 or 128. An operand row is D / 64 rows of 128 bytes: a tile of R
+// rows is HALVES swizzled [R][64] images, each R x 128 bytes.
+template <int D>
+struct Geo {
+  static constexpr int BR = 64 * kConsumers;     // query rows of a block
+  static constexpr int BC = D == 64 ? 128 : 64;  // keys of a stage
+  static constexpr int HALVES = D / 64;
+  static constexpr int STAGES = 4;
+  static constexpr int Q_BYTES = BR * D * 2;
+  static constexpr int KV_BYTES = BC * D * 2;    // a K or a V tile: 16 KB at both widths
+  static constexpr int STAGE_BYTES = 2 * KV_BYTES;
+  static constexpr int SMEM = 1024 + Q_BYTES + STAGES * STAGE_BYTES + 8 * (1 + 2 * STAGES);
+  static constexpr int NS = BC / 2;              // score accumulators a thread
+  static constexpr int KK = BC / 16;             // k steps of p . v
+  static_assert(Q_BYTES % 1024 == 0 && KV_BYTES % 1024 == 0, "swizzle atoms");
+};
+
+// The online softmax of a score tile for the thread's rows rq and rq + 8:
+// sc (raw q . k) becomes p, m and l move on, alpha[half] is the factor o
+// must take before p . v is added. Every key of the tile visible to every
+// query of the warpgroup (`all`): no mask. The row max is taken of the raw
+// scores (scale_log2 > 0 keeps the order), p = 2^(s scale_log2 - m) by one
+// FFMA and a MUFU op; a masked key's p is 0 by a select, never by underflow.
+template <int BC>
+__device__ __forceinline__ void softmax_tile(float (&sc)[BC / 2], float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], bool all, int rq, int kc, int len,
+                                             int causal, float scale_log2) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int qp = rq + 8 * half;
+    float mx = flash::kNeg;
+    if (all) {
+#pragma unroll
+      for (int j = 0; j < BC / 8; ++j)
+        mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * half], sc[4 * j + 2 * half + 1]));
+    } else {
+#pragma unroll
+      for (int j = 0; j < BC / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = sc[4 * j + 2 * half + e];
+          x = flash::visible(qp, kc + 8 * j + e, len, causal) ? x : flash::kNeg;
+          mx = fmaxf(mx, x);
+        }
+    }
+    const float m_new = fmaxf(m[half], quad_max(mx) * scale_log2);
+    alpha[half] = flash::exp2_ftz(m[half] - m_new);
+    float ps = 0.0f;
+#pragma unroll
+    for (int j = 0; j < BC / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = sc[4 * j + 2 * half + e];
+        const float p = flash::exp2_ftz(fmaf(x, scale_log2, -m_new));
+        x = all || flash::visible(qp, kc + 8 * j + e, len, causal) ? p : 0.0f;
+        ps += x;
+      }
+    l[half] = l[half] * alpha[half] + quad_sum(ps);
+    m[half] = m_new;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_sm90(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+               const __grid_constant__ CUtensorMap v_map, const int* __restrict__ lengths,
+               Output<bf16> out, float* __restrict__ lse, int T, int H, int causal,
+               float scale_log2) {
+  using G = Geo<D>;
+  constexpr int BR = G::BR, BC = G::BC, HV = G::HALVES, ST = G::STAGES, KK = G::KK;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint8_t* sq = base;                                              // [HV][BR][64]
+  auto sk = [&](int s) { return base + G::Q_BYTES + s * G::STAGE_BYTES; };   // [HV][BC][64]
+  auto sv = [&](int s) { return sk(s) + G::KV_BYTES; };
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(base + G::Q_BYTES + ST * G::STAGE_BYTES);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + ST;
+
+  const int iq = gridDim.x - 1 - blockIdx.x;                       // heaviest tiles first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int q0 = iq * BR;
+  const int len = flash::clamp_length(lengths, b, T);
+  const int kend = causal ? min(len, q0 + BR) : len;               // keys [0, kend) can be visible
+  const int tiles = kend > 0 ? (kend + BC - 1) / BC : 0;           // else out = 0, lse = -1e30
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    bar_init(qbar, 1);
+    for (int s = 0; s < ST; ++s) {
+      bar_init(&full[s], 1);
+      bar_init(&empty[s], 128 * kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // kLoader loads q once and k and v tiles STAGES ahead: tile it + STAGES
+  // into tile it's stage once both warpgroups have released it (refill,
+  // called where warpgroup 1 releases tile it + 1, by when warpgroup 0 has
+  // long released tile it: the loader does not wait on it).
+  auto load = [&](int it) {
+    const int s = it % ST;
+    bar_expect(&full[s], G::STAGE_BYTES);
+    for (int hv = 0; hv < HV; ++hv) {
+      tma_load_4d(sk(s) + hv * BC * 128, &k_map, 64 * hv, h, it * BC, b, &full[s]);
+      tma_load_4d(sv(s) + hv * BC * 128, &v_map, 64 * hv, h, it * BC, b, &full[s]);
+    }
+  };
+  auto refill = [&](int it) {
+    if (threadIdx.x == kLoader && it + ST < tiles) {
+      bar_wait(&empty[it % ST], (it / ST) & 1);
+      load(it + ST);
+    }
+  };
+  if (threadIdx.x == kLoader && tiles > 0) {
+    bar_expect(qbar, G::Q_BYTES);
+    for (int hv = 0; hv < HV; ++hv)
+      tma_load_4d(sq + hv * BR * 128, &q_map, 64 * hv, h, q0, b, qbar);
+    for (int it = 0; it < ST && it < tiles; ++it) load(it);
+  }
+
+  // query rows [64 wg, 64 wg + 64) of the tile; broadcast from lane 0, so that
+  // ptxas sees the branches around the wgmmas as warp-uniform (a divergent
+  // one makes it serialize them)
+  const int wg = __shfl_sync(flash::kFull, warp / 4, 0);
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = q0 + 64 * wg;                   // the warpgroup's first query
+  const int rq = r0 + 16 * (warp % 4) + g;       // this thread's queries rq, rq + 8
+  // the warpgroup's tiles: (causal) none wholly after its last query, where
+  // p = 0 and alpha = 1
+  const int mine = causal ? min(tiles, (r0 + 63) / BC + 1) : tiles;
+
+  float o[HV][32];
+#pragma unroll
+  for (int hv = 0; hv < HV; ++hv)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[hv][i] = 0.0f;
+  float m[2] = {flash::kNeg, flash::kNeg}, l[2] = {0.0f, 0.0f};   // m: scaled by scale_log2
+
+  // Per tile two stages of products, each straight-line code from the
+  // fence to the wait (a stage split across branches makes ptxas serialize
+  // the wgmmas): s = q . k^T, the online softmax on it and p in two bf16
+  // pieces; then p . v. An m64n64k16 step is 32 cycles of work, less than a
+  // chain of accumulation's latency, so p . v runs as two independent
+  // chains of steps: at D = 64 one a piece, each summed apart (scale_d 0 at
+  // its first step) and added to o, scaled by alpha first, with rounded
+  // float32 adds; at D = 128 one a half of o's features, into o itself (the
+  // partial sums of two halves would cost 128 more registers and spill).
+  constexpr bool kApart = HV == 1;
+  const bool probed = b == 0 && h == 0 && iq == gridDim.x - 1;   // FLASH_SM90_PHASE's block
+  (void)probed;
+  if (tiles > 0) bar_wait(qbar, 0);
+  for (int r = 0; r < mine; ++r) {
+    FLASH_SM90_PHASE(probed, wg, r, 0);
+    const int s = r % ST;
+    bar_wait(&full[s], (r / ST) & 1);
+    FLASH_SM90_PHASE(probed, wg, r, 1);
+    float sc[G::NS];
+#pragma unroll
+    for (int i = 0; i < G::NS; ++i) fence_operand(sc[i]);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      wgmma_bf16_ss<BC>(sc, desc_k_major<BR>(sq, 64 * wg, ks), desc_k_major<BC>(sk(s), 0, ks),
+                        ks > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < G::NS; ++i) fence_operand(sc[i]);
+
+    FLASH_SM90_PHASE(probed, wg, r, 2);
+    const int k0 = r * BC;
+    const bool all = k0 + BC <= len && (!causal || k0 + BC - 1 <= r0);
+    float alpha[2];
+    softmax_tile<BC>(sc, m, l, alpha, all, rq, k0 + 2 * t, len, causal, scale_log2);
+    unsigned phi[KK][4], plo[KK][4];
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk) {
+      a_from_acc(sc, kk, phi[kk], plo[kk]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        fence_operand(phi[kk][e]);
+        fence_operand(plo[kk][e]);
+      }
+    }
+    FLASH_SM90_PHASE(probed, wg, r, 3);
+    float ph[HV][32], pl[HV][32];
+#pragma unroll
+    for (int hv = 0; hv < HV; ++hv)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        if constexpr (kApart) {
+          fence_operand(ph[hv][i]);
+          fence_operand(pl[hv][i]);
+        } else {
+          o[hv][i] *= alpha[(i % 4) / 2];
+          fence_operand(o[hv][i]);
+        }
+      }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk)
+#pragma unroll
+      for (int hv = 0; hv < HV; ++hv) {          // v MN-major as stored
+        const uint64_t dv = desc_sw128_mn(sv(s) + hv * BC * 128 + kk * 2048);
+        if constexpr (kApart) {
+          wgmma_bf16_rs_tb_n64(pl[hv], plo[kk], dv, kk > 0);
+          wgmma_bf16_rs_tb_n64(ph[hv], phi[kk], dv, kk > 0);
+        } else {
+          wgmma_bf16_rs_tb_n64(o[hv], plo[kk], dv, 1);
+          wgmma_bf16_rs_tb_n64(o[hv], phi[kk], dv, 1);
+        }
+      }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int hv = 0; hv < HV; ++hv)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        if constexpr (kApart) {
+          fence_operand(ph[hv][i]);
+          fence_operand(pl[hv][i]);
+          o[hv][i] = fmaf(o[hv][i], alpha[(i % 4) / 2], pl[hv][i] + ph[hv][i]);
+        } else {
+          fence_operand(o[hv][i]);
+        }
+      }
+    FLASH_SM90_PHASE(probed, wg, r, 4);
+    bar_arrive(&empty[s]);
+    if (r > 0) refill(r - 1);
+    FLASH_SM90_PHASE(probed, wg, r, 5);
+  }
+  for (int r = mine; r < tiles; ++r) {
+    bar_wait(&full[r % ST], (r / ST) & 1);
+    bar_arrive(&empty[r % ST]);
+    if (r > 0) refill(r - 1);
+  }
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int qp = rq + 8 * half;
+    if (qp >= T) continue;
+    // one reciprocal a row (an IEEE division per value compiles to a call,
+    // and ptxas serializes every wgmma of a function that calls)
+    const float l_safe = fmaxf(l[half], 1e-20f);
+    const float inv = __fdividef(1.0f, l_safe);
+    bf16* row = out.head(b, h) + qp * out.st;
+#pragma unroll
+    for (int hv = 0; hv < HV; ++hv)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(row + 64 * hv + 8 * j + 2 * t) = __floats2bfloat162_rn(
+            o[hv][4 * j + 2 * half] * inv, o[hv][4 * j + 2 * half + 1] * inv);
+    if (lse != nullptr && t == 0)
+      lse[(static_cast<long long>(b) * H + h) * T + qp] =
+          l[half] > 0.0f ? m[half] * kLn2 + logf(l_safe) : flash::kNeg;
+  }
+}
+
+template <int D>
+int launch(const void* q, long long q_sb, long long q_st, long long q_sh, const void* k,
+           long long k_sb, long long k_st, long long k_sh, const void* v, long long v_sb,
+           long long v_st, long long v_sh, const int* lengths, Output<bf16> out, float* lse,
+           int B, int T, int H, int causal, cudaStream_t stream) {
+  using G = Geo<D>;
+  CUtensorMap qm, km, vm;
+  if (!flash::operand_map(&qm, q, q_sb, q_st, q_sh, B, T, H, D, G::BR) ||
+      !flash::operand_map(&km, k, k_sb, k_st, k_sh, B, T, H, D, G::BC) ||
+      !flash::operand_map(&vm, v, v_sb, v_st, v_sh, B, T, H, D, G::BC))
+    return static_cast<int>(cudaErrorNotSupported);
+  cudaError_t err = allow_smem(flash_fwd_sm90<D>, G::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((T + G::BR - 1) / G::BR, H, B);
+  flash_fwd_sm90<D><<<grid, kThreads, G::SMEM, stream>>>(
+      qm, km, vm, lengths, out, lse, T, H, causal, flash::softmax_scale(D) * kLog2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace sm90
+
 // q, k, v and out [B, T, H, D] through their batch, time and head strides (in
 // elements; the last dimension contiguous), lengths [B] int32, lse [B, H, T]
 // contiguous or null. 1 <= D <= 256, T >= 1, H and B <= 65535. Launches on
@@ -370,4 +712,29 @@ extern "C" int flash_attn_fwd_bf16(const void* q, long long q_sb, long long q_st
   return (flash::scale_is_pow2(D) ? run<bf16, true> : run<bf16, false>)(
       q, q_sb, q_st, q_sh, k, k_sb, k_st, k_sh, v, v_sb, v_st, v_sh, lengths, out, o_sb, o_st,
       o_sh, lse, B, T, H, D, causal, stream);
+}
+
+// The bf16 body for Hopper: the arguments of flash_attn_fwd_bf16, D = 64 or
+// 128, and every operand as TMA reads it (flash_attention.py's sm90_takes):
+// base 16-byte aligned, batch, time and head strides multiples of 8
+// values. Returns cudaErrorInvalidValue for any other shape, and
+// cudaErrorNotSupported where a tensor map cannot be made.
+extern "C" int flash_attn_fwd_bf16_sm90(const void* q, long long q_sb, long long q_st,
+                                        long long q_sh, const void* k, long long k_sb,
+                                        long long k_st, long long k_sh, const void* v,
+                                        long long v_sb, long long v_st, long long v_sh,
+                                        const void* lengths, void* out, long long o_sb,
+                                        long long o_st, long long o_sh, void* lse, int B, int T,
+                                        int H, int D, int causal, void* stream) {
+  if ((D != 64 && D != 128) || !flash_mma::rows_16b_aligned(q, q_sb, q_st, q_sh, D, 2) ||
+      !flash_mma::rows_16b_aligned(k, k_sb, k_st, k_sh, D, 2) ||
+      !flash_mma::rows_16b_aligned(v, v_sb, v_st, v_sh, D, 2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const flash::Output<bf16> oo{static_cast<bf16*>(out), o_sb, o_st, o_sh};
+  const int* len = static_cast<const int*>(lengths);
+  float* l = static_cast<float*>(lse);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (D == 64 ? sm90::launch<64> : sm90::launch<128>)(
+      q, q_sb, q_st, q_sh, k, k_sb, k_st, k_sh, v, v_sb, v_st, v_sh, len, oo, l, B, T, H,
+      causal, s);
 }

@@ -24,6 +24,28 @@ scaled there), the online softmax, p, ds, lse, delta and every sum in
 float32, and out, dq, dk and dv rounded once to their operand's type; lse
 and delta stay float32 in both.
 
+Two bodies of the bf16 forward and dK/dV. :func:`sm90_takes` decides
+before the launch, from the dtype, D, the strides and the base addresses:
+
+- ``flash_attn_fwd_bf16_sm90`` and ``flash_attn_dkv_bf16_sm90`` take D = 64
+  and 128 with every operand as TMA reads it (base 16-byte aligned, batch,
+  time and head strides multiples of 8 values, nested outwards): the LM's
+  views of its fused qkv. bf16 ``wgmma`` over TMA tiles, two warpgroups
+  and one thread issuing the loads; p and ds enter their products as two bf16
+  pieces (hi = bf16(x), lo = bf16(x - hi), ~16 bits), so the products run
+  at the bf16 tensor-core rate (1.5 passes a product); out and dv stay
+  within a bf16 ulp of the float32 contract, dk within a few where it
+  cancels over a long sum of queries. What bounds them on an
+  H100 and what the design does about it: the notes of
+  ``csrc/flash_attn_fwd.cu`` and ``csrc/flash_attn_bwd.cu``.
+- ``flash_attn_fwd_bf16`` and ``flash_attn_dkv_bf16`` (the float32 body's
+  bf16 instances: tiles widened to float32, ``mma.sync`` TF32) take every
+  other shape: D other than 64 and 128, an unaligned base, a stride TMA
+  cannot read. ``flash_attn_dq_bf16`` takes every bf16 shape.
+
+A failed build or launch of either body raises: nothing falls back to the
+other body or to the plain version.
+
 :func:`flash_attention` launches the kernels for a CUDA tensor and raises on
 anything they do not take: the forward with lse and the two backward
 kernels (a ``torch.autograd.Function``) when grad mode is on and an input
@@ -72,8 +94,15 @@ FLASH_ATTN_DQ_BF16 = CudaKernel("flash_attn_bwd.cu", "flash_attn_dq_bf16",
                                 FLASH_ATTN_DQ.argtypes[:-1])
 FLASH_ATTN_DKV_BF16 = CudaKernel("flash_attn_bwd.cu", "flash_attn_dkv_bf16",
                                  FLASH_ATTN_DKV.argtypes[:-1])
+# the bf16 bodies for Hopper (bf16 wgmma over TMA tiles), where sm90_takes
+FLASH_ATTN_FWD_BF16_SM90 = CudaKernel("flash_attn_fwd.cu", "flash_attn_fwd_bf16_sm90",
+                                      FLASH_ATTN_FWD.argtypes[:-1])
+FLASH_ATTN_DKV_BF16_SM90 = CudaKernel("flash_attn_bwd.cu", "flash_attn_dkv_bf16_sm90",
+                                      FLASH_ATTN_DKV.argtypes[:-1])
 KERNELS = (FLASH_ATTN_FWD, FLASH_ATTN_DQ, FLASH_ATTN_DKV,
-           FLASH_ATTN_FWD_BF16, FLASH_ATTN_DQ_BF16, FLASH_ATTN_DKV_BF16)
+           FLASH_ATTN_FWD_BF16, FLASH_ATTN_DQ_BF16, FLASH_ATTN_DKV_BF16,
+           FLASH_ATTN_FWD_BF16_SM90, FLASH_ATTN_DKV_BF16_SM90)
+SM90_D = (64, 128)                   # the head dims of the Hopper bodies
 # each kernel by operand dtype
 _FWD = {torch.float32: FLASH_ATTN_FWD, torch.bfloat16: FLASH_ATTN_FWD_BF16}
 _DQ = {torch.float32: FLASH_ATTN_DQ, torch.bfloat16: FLASH_ATTN_DQ_BF16}
@@ -176,14 +205,42 @@ def _strided(t: Tensor):
     return [ptr(t), t.stride(0), t.stride(1), t.stride(2)]
 
 
+def sm90_takes(*operands: Tensor) -> bool:
+    """Whether the bf16 bodies for Hopper take these [B, T, H, D] operands
+    (q, k, v, and dout for dK/dV): bf16, D = 64 or 128, and each as TMA
+    reads it through a tensor map of dims (D, H, T, B): its base 16-byte
+    aligned, its head, time and batch strides positive multiples of 8
+    values, each at least the extent of the dims inside it (sh >= D,
+    st >= H sh, sb >= T st: the nested layout a tensor map describes; the
+    layer's views of its fused qkv and every contiguous tensor are such),
+    and B H T < 2^31 (TMA's 32-bit coordinates over the [B, H, T] rows).
+    Reads the dtypes, shapes, strides and base addresses, nothing a launch
+    returns."""
+    for t in operands:
+        if t.dtype != torch.bfloat16 or t.dim() != 4 or t.shape[3] not in SM90_D:
+            return False
+        B, T, H, D = t.shape
+        if B * H * T >= 2 ** 31:
+            return False
+        sb, st, sh = t.stride(0), t.stride(1), t.stride(2)
+        if t.data_ptr() % 16 or any(x <= 0 or x % 8 for x in (sb, st, sh)):
+            return False
+        if sh < D or st < H * sh or sb < T * st:
+            return False
+    return True
+
+
 def _launch_fwd(q, k, v, lengths, causal, with_lse):
+    """Kernel 10 -> (out, lse or None): the dtype's body, and for bf16
+    operands that :func:`sm90_takes` the Hopper body."""
     B, T, H, D = _check_operands(q, k, v, lengths)
+    kernel = FLASH_ATTN_FWD_BF16_SM90 if sm90_takes(q, k, v) else _FWD[q.dtype]
     out = torch.empty((B, T, H, D), device=q.device, dtype=q.dtype)
     lse = torch.empty((B, H, T), device=q.device) if with_lse else None
     kernel_flops.record(kernel_flops.flash_fwd_flops(B, T, H, D))
-    _FWD[q.dtype].launch(q.device, *_strided(q), *_strided(k), *_strided(v), ptr(lengths),
-                         *_strided(out), None if lse is None else ptr(lse),
-                         B, T, H, D, int(bool(causal)))
+    kernel.launch(q.device, *_strided(q), *_strided(k), *_strided(v), ptr(lengths),
+                  *_strided(out), None if lse is None else ptr(lse),
+                  B, T, H, D, int(bool(causal)))
     return out, lse
 
 
@@ -205,11 +262,15 @@ def _launch_dq(q, k, v, dout, lse, delta, lengths, causal):
 
 
 def _launch_dkv(q, k, v, dout, lse, delta, lengths, causal):
+    """Kernel 12 -> (dk, dv): the dtype's body, and the Hopper body where
+    :func:`sm90_takes` q, k, v and dout and TMA can read lse and delta
+    (their bases 16-byte aligned)."""
     args, (B, T, H, D) = _check_backward(q, k, v, dout, lse, delta, lengths)
+    tma = sm90_takes(q, k, v, dout) and lse.data_ptr() % 16 == 0 == delta.data_ptr() % 16
+    kernel = FLASH_ATTN_DKV_BF16_SM90 if tma else _DKV[q.dtype]
     dk, dv = (torch.empty((B, T, H, D), device=q.device, dtype=q.dtype) for _ in range(2))
     kernel_flops.record(kernel_flops.flash_dkv_flops(B, T, H, D))
-    _DKV[q.dtype].launch(q.device, *args, *_strided(dk), *_strided(dv),
-                         B, T, H, D, int(bool(causal)))
+    kernel.launch(q.device, *args, *_strided(dk), *_strided(dv), B, T, H, D, int(bool(causal)))
     return dk, dv
 
 

@@ -1212,8 +1212,9 @@ def test_full_attention_routes_on_the_card(dev):
         with torch.no_grad():
             out = full_attention(q, k, v, lengths=lengths, causal=True)
         launched = [kern.launches - b for kern, b in zip(fa.KERNELS, before[0])]
-        assert (launched, fa.EAGER_ROUTES - before[1]) == (([0] * 6, 1) if eager
-                                                           else ([1] + [0] * 5, 0))
+        n = len(fa.KERNELS)
+        assert (launched, fa.EAGER_ROUTES - before[1]) == (([0] * n, 1) if eager
+                                                           else ([1] + [0] * (n - 1), 0))
         plain = full_attention(q.cpu(), k.cpu(), v.cpu(), lengths=lengths.cpu(), causal=True)
         live = lengths.cpu() > 0
         assert float((out.cpu() - plain)[live].abs().max()) <= TOL
@@ -1706,16 +1707,20 @@ def test_conv1x1_stats_bf16_kernel_takes_unaligned_operands(dev):
                                             (2, 130, 2, 128, True), (2, 75, 2, 24, True),
                                             (1, 70, 1, 256, True), (2, 100, 3, 16, False)])
 def test_flash_bf16_kernels_match_plain_versions(dev, B, T, H, D, causal):
-    """Kernels 10, 11 and 12's bf16 instances against their bf16 plain
-    versions, the LM's shape first: out, dq, dk and dv bf16 within 1e-2 of
-    scale, lse float32 within 1e-4; the light forward equal to the training
-    one; dq, dk and dv bit-equal over two launches, as in float32. D = 24
-    loads value by value (no 16-byte rows of bf16); D = 16, 64, 256 take
-    the one-pass Q . K^T, D = 24 and 128 the two-pass."""
+    """Kernels 10, 11 and 12's bf16 bodies, as the route picks them, against
+    their bf16 plain versions, the LM's shape first: out, dq, dk and dv bf16
+    within 1e-2 of scale, lse float32 within 1e-4; the light forward equal
+    to the training one; dq, dk and dv bit-equal over two launches, as in
+    float32. D = 64 and 128 take the Hopper bodies of 10 and 12, the others
+    the float32 body's bf16 instances: D = 24 loads value by value (no
+    16-byte rows of bf16); D = 16 and 256 take their one-pass Q . K^T, D = 24
+    the two-pass."""
     from paddle_tpu_torch.ops import flash_attention as fa
 
     q, k, v, do, lengths = (a.to(torch.bfloat16) if a.is_floating_point() else a
                             for a in _flash_inputs(dev, B, T, H, D, seed=T + D + causal))
+    sm90 = fa.sm90_takes(q, k, v, do)
+    assert sm90 == (D in (64, 128))
     before = [kern.launches for kern in fa.KERNELS]
     out, lse = fa._launch_fwd(q, k, v, lengths, causal, True)
     light, _ = fa._launch_fwd(q, k, v, lengths, causal, False)
@@ -1727,7 +1732,8 @@ def test_flash_bf16_kernels_match_plain_versions(dev, B, T, H, D, causal):
     want = (fa.flash_dq_reference(*args),) + fa.flash_dkv_reference(*args)
     torch.cuda.synchronize()
     launched = [kern.launches - b for kern, b in zip(fa.KERNELS, before)]
-    assert launched == [0, 0, 0, 2, 2, 2], launched
+    old, new = (0, 2) if sm90 else (2, 0)
+    assert launched == [0, 0, 0, old, 2, old, new, new], launched
     assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
     assert torch.equal(light, out) and _scale_err(out, ref_out) <= BF16_TOL
     seen = lengths > 0
@@ -1737,6 +1743,122 @@ def test_flash_bf16_kernels_match_plain_versions(dev, B, T, H, D, causal):
     for name, a, r in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
         assert a.dtype == torch.bfloat16 and torch.isfinite(a.float()).all(), name
         assert _scale_err(a, r) <= BF16_TOL, name
+
+
+# The Hopper bodies' out, dk and dv against their plain versions: within
+# SM90_ULPS bf16 spacings of the larger magnitude, the spacing taken at no
+# less than SM90_CANCEL_FLOOR of max |plain| (test_torch_flash_attention.py's
+# floor). p and ds enter the products as two bf16 pieces: out and dv lie
+# within one spacing, dk (summed over up to T queries in the wgmma
+# accumulator, which truncates) several where it cancels. Rounded once to
+# bf16 (one piece), the plain versions lie tens of spacings off in out and
+# dk, a few in dv (chip_smoke.py's SM90_ULPS).
+SM90_CANCEL_FLOOR = 2.0 ** -11
+SM90_ULPS = {"out": 1.0, "dk": 16.0, "dv": 1.0}
+
+
+def _bf16_ulps(got, want):
+    got, want = got.float(), want.float()
+    big = torch.maximum(got.abs(), want.abs()).clamp(min=SM90_CANCEL_FLOOR * float(
+        want.abs().max()))
+    ulp = torch.exp2(torch.floor(torch.log2(big.clamp(min=2.0 ** -126))) - 7)
+    return float(((got - want).abs() / ulp).max())
+
+
+def _one_piece_references(q, k, v, do, lse, delta, lengths, causal):
+    """Kernels 10 and 12's plain versions with p and ds rounded once to bf16
+    before their products -> (out, dk, dv): the control of the two pieces."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    piece = lambda x: x.to(torch.bfloat16).float()
+    T, D = q.shape[1], q.shape[3]
+    msk = fa._visible(lengths, T, T, causal)
+    qw, kw, vw, dw = fa._widened(q, k, v, do)
+    s = torch.einsum("bqhd,bkhd->bhqk", qw * (1.0 / np.sqrt(D)), kw)
+    s = torch.where(msk, s, torch.full_like(s, -1e30))
+    p = torch.where(msk, torch.exp(s - torch.amax(s, dim=-1, keepdim=True)), torch.zeros_like(s))
+    l_safe = torch.clamp(torch.sum(p, dim=-1), min=1e-20)
+    out = torch.einsum("bhqk,bkhd->bqhd", piece(p), vw) / l_safe.transpose(1, 2)[..., None]
+    p, ds = fa._scores_backward(q, k, v, do, lse, delta, lengths, causal)
+    return (out.to(q.dtype), torch.einsum("bhqk,bqhd->bkhd", piece(ds), qw).to(k.dtype),
+            torch.einsum("bhqk,bqhd->bkhd", piece(p), dw).to(v.dtype))
+
+
+@pytest.mark.parametrize("D,T,causal", [(64, 2048, True), (64, 1000, False),
+                                         (128, 1000, True), (128, 2048, False)])
+def test_flash_sm90_bodies_match_plain_versions(dev, D, T, causal):
+    """The bf16 bodies for Hopper (flash_attn_fwd_bf16_sm90,
+    flash_attn_dkv_bf16_sm90: bf16 wgmma over TMA tiles) against their bf16
+    plain versions on strided views of one fused [B, T, 3, H, D] qkv, with
+    lengths that hold a 0 and a 1; T = 1000 leaves a ragged last tile. out,
+    dk and dv within SM90_ULPS bf16 spacings (at no less than
+    SM90_CANCEL_FLOOR of the scale), where the one-piece control is not;
+    lse within 1e-4 where a key is seen and -1e30 elsewhere, the light
+    forward equal to the training one, dk and dv bit-equal over two
+    launches; no other body launches."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do, lengths = _flash_inputs(dev, 3, T, 2, D, seed=D + T + causal)
+    qkv = torch.stack([q, k, v], dim=2).to(torch.bfloat16)          # [B, T, 3, H, D]
+    q, k, v, do = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], do.to(torch.bfloat16)
+    assert q.stride(1) == 3 * 2 * D and fa.sm90_takes(q, k, v, do)
+    before = [kern.launches for kern in fa.KERNELS]
+    out, lse = fa._launch_fwd(q, k, v, lengths, causal, True)
+    light, _ = fa._launch_fwd(q, k, v, lengths, causal, False)
+    ref_out, ref_lse = fa.flash_forward_reference(q, k, v, lengths, causal)
+    delta = torch.sum(do.float() * ref_out.float(), dim=-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, ref_lse, delta, lengths, causal)
+    dk, dv = fa._launch_dkv(*args)
+    dk2, dv2 = fa._launch_dkv(*args)
+    want_dk, want_dv = fa.flash_dkv_reference(*args)
+    torch.cuda.synchronize()
+    launched = {kern.symbol: kern.launches - b for kern, b in zip(fa.KERNELS, before)}
+    assert launched == {kern.symbol: 2 if kern in (fa.FLASH_ATTN_FWD_BF16_SM90,
+                                                    fa.FLASH_ATTN_DKV_BF16_SM90) else 0
+                        for kern in fa.KERNELS}, launched
+    assert torch.equal(light, out) and _scale_err(out, ref_out) <= BF16_TOL
+    seen = lengths > 0
+    assert float((lse - ref_lse)[seen].abs().max()) <= TOL
+    assert (lse[~seen] == -1e30).all() and not out[~seen].float().any()
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    control = _one_piece_references(*args)
+    for name, a, r, c in (("out", out, ref_out, control[0]), ("dk", dk, want_dk, control[1]),
+                          ("dv", dv, want_dv, control[2])):
+        assert a.dtype == torch.bfloat16 and torch.isfinite(a.float()).all(), name
+        assert _bf16_ulps(a, r) <= SM90_ULPS[name] < _bf16_ulps(c, r), (
+            name, _bf16_ulps(a, r), _bf16_ulps(c, r))
+
+
+@pytest.mark.parametrize("D", [64, 40])
+def test_flash_bf16_autograd_routes_by_head_dim(dev, D):
+    """One autograd step of bf16 flash attention on the LM's views (B = 2, T
+    = 2048, 8 heads, causal): at D = 64 one launch each of the Hopper
+    forward, 11's bf16 instance and the Hopper dK/dV, and never the float32
+    body's bf16 forward or dK/dV; at D = 40, which the Hopper bodies do not
+    take, one launch each of the float32 body's three bf16 instances. The
+    gradients within 1e-2 of scale of the plain versions' autograd."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    B, T, H = 2, 2048, 8
+    rng = np.random.RandomState(D)
+    qkv = _t(rng.randn(B, T, 3, H, D), dev).to(torch.bfloat16).requires_grad_()
+    cot = _t(rng.randn(B, T, H, D), dev).to(torch.bfloat16)
+    lengths = torch.full((B,), T, dtype=torch.int32, device=dev)
+    before = [kern.launches for kern in fa.KERNELS]
+    out = fa.flash_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], lengths=lengths,
+                             causal=True)
+    (grad,) = torch.autograd.grad(out, qkv, cot)
+    torch.cuda.synchronize()
+    launched = {kern.symbol: kern.launches - b for kern, b in zip(fa.KERNELS, before)}
+    names = (("flash_attn_fwd_bf16_sm90", "flash_attn_dq_bf16", "flash_attn_dkv_bf16_sm90")
+             if D == 64 else ("flash_attn_fwd_bf16", "flash_attn_dq_bf16", "flash_attn_dkv_bf16"))
+    assert launched == {kern.symbol: int(kern.symbol in names) for kern in fa.KERNELS}, launched
+    leaf = qkv.detach().requires_grad_()
+    plain = fa.flash_forward_reference(leaf[:, :, 0], leaf[:, :, 1], leaf[:, :, 2], lengths,
+                                       True)[0]
+    (want,) = torch.autograd.grad(plain, leaf, cot)
+    for i, name in enumerate(("dq", "dk", "dv")):
+        assert _scale_err(grad[:, :, i], want[:, :, i]) <= BF16_TOL, name
 
 
 def test_flash_bf16_wrapper_refuses_mixed_dtypes(dev):

@@ -267,3 +267,143 @@ def test_bf16_references_match_the_pallas_kernels(causal):
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.dtype == torch.bfloat16 and w.dtype == jnp.bfloat16, name
         assert_within_one_ulp(g, btdh(w), name, floor=CANCEL_FLOOR)
+
+
+# The arithmetic of the bf16 bodies for Hopper (csrc/flash_attn_fwd.cu and
+# csrc/flash_attn_bwd.cu, flash_attn_*_bf16_sm90), emulated in plain torch:
+# bf16 q, k, v and dout; scores as float32 sums of exact bf16 products; p
+# and ds in two bf16 pieces, hi = bf16(x) and lo = bf16(x - hi), each
+# multiplied exactly and summed in float32. The forward runs the kernel's
+# online softmax over tiles of 128 keys in base 2 (the row max of the raw
+# scores, then p = 2^(s scale log2(e) - m)), and adds each tile's two
+# partial sums to o after scaling o by alpha.
+SM90_SHAPE = (2, 256, 2, 64)
+SM90_LENGTHS = np.array([256, 131], np.int32)
+LOG2E = np.float32(1.4426950408889634)
+# one bf16 ulp taken at no less than this fraction of the scale for the
+# Hopper bodies: where dk, dv or out cancel to far below their terms, the
+# lo piece's rounding (2^-17 of each p or ds) adds up to ~2^-20 of the
+# scale, past one ulp at 2^-12 (CANCEL_FLOOR) for 1 element of 65,536 in
+# some seeds; one ulp at 2^-11 is 2^-19. One piece (p rounded to bf16)
+# puts ~10% of the outputs past this bound.
+SM90_CANCEL_FLOOR = 2.0 ** -11
+
+
+def _sm90_mask(lengths, T, causal):
+    return fa._visible(lengths, T, T, causal)            # [B, 1, Tq, Tk]
+
+
+def _pieces(x, n):
+    """x as n bf16 pieces (hi = bf16(x), lo = bf16(x - hi)), lo 0 for n = 1."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, ((x - hi).to(torch.bfloat16).float() if n == 2 else torch.zeros_like(x))
+
+
+def _sm90_forward(q, k, v, lengths, causal, block=128, pieces=2):
+    B, T, H, D = q.shape
+    scale_log2 = torch.tensor(1.0 / np.sqrt(D), dtype=torch.float32) * torch.tensor(LOG2E)
+    qf, kf, vf = (a.float().transpose(1, 2) for a in (q, k, v))     # [B, H, T, D]
+    msk = _sm90_mask(lengths, T, causal)
+    o = torch.zeros(B, H, T, D)
+    m = torch.full((B, H, T), -1e30)
+    l = torch.zeros(B, H, T)
+    for k0 in range(0, T, block):
+        vis = msk[..., k0:k0 + block]
+        s = torch.where(vis, qf @ kf[:, :, k0:k0 + block].transpose(-1, -2),
+                        torch.tensor(-1e30))
+        m_new = torch.maximum(m, s.amax(-1) * scale_log2)
+        alpha = torch.exp2(m - m_new)
+        p = torch.where(vis, torch.exp2(s * scale_log2 - m_new[..., None]), torch.tensor(0.0))
+        l = l * alpha + p.sum(-1)
+        hi, lo = _pieces(p, pieces)
+        vt = vf[:, :, k0:k0 + block]
+        o = o * alpha[..., None] + (lo @ vt + hi @ vt)
+        m = m_new
+    l_safe = torch.clamp(l, min=1e-20)
+    out = (o * (1.0 / l_safe)[..., None]).transpose(1, 2).to(torch.bfloat16)
+    lse = torch.where(l > 0, m * np.float32(np.log(2.0)) + torch.log(l_safe),
+                      torch.tensor(-1e30))
+    return out, lse
+
+
+def _sm90_dkv(q, k, v, dout, lse, delta, lengths, causal, pieces=2):
+    B, T, H, D = q.shape
+    scale = torch.tensor(1.0 / np.sqrt(D), dtype=torch.float32)
+    qf, kf, vf, df = (a.float().transpose(1, 2) for a in (q, k, v, dout))
+    vis = _sm90_mask(lengths, T, causal).transpose(-1, -2)          # [B, 1, Tk, Tq]
+    st = kf @ qf.transpose(-1, -2)                                   # (q . k)^T
+    pt = torch.where(vis, torch.exp2(st * (scale * torch.tensor(LOG2E))
+                                     - (lse * torch.tensor(LOG2E))[:, :, None, :]),
+                     torch.tensor(0.0))
+    dpt = vf @ df.transpose(-1, -2)                                  # (dout . v)^T
+    dst = pt * (dpt - delta[:, :, None, :]) * scale
+    phi, plo = _pieces(pt, pieces)
+    dhi, dlo = _pieces(dst, pieces)
+    dv = plo @ df + phi @ df
+    dk = dlo @ qf + dhi @ qf
+    return dk.transpose(1, 2).to(torch.bfloat16), dv.transpose(1, 2).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_sm90_rounding_design_matches_the_pallas_kernels(causal):
+    """The Hopper bodies' arithmetic (p and ds in two bf16 pieces, products
+    of bf16 operands summed in float32) against ``_run_fwd`` and
+    ``_run_bwd`` in interpret mode at bf16, on ragged lengths: out, dk and
+    dv within one bf16 ulp (taken at no less than SM90_CANCEL_FLOOR of the
+    scale), lse to float32 rounding. Two pieces keep ~16 bits of p and ds;
+    one piece alone (p and ds rounded to bf16) fails the same bound."""
+    Bs, Ts, Hs, Ds = SM90_SHAPE
+    rng = np.random.RandomState(11)
+    q, k, v, do = (rng.randn(Bs, Ts, Hs, Ds).astype(np.float32) for _ in range(4))
+    jq, tq = bf16(q)
+    jk, tk = bf16(k)
+    jv, tv = bf16(v)
+    jdo, tdo = bf16(do)
+    bhtd = lambda a: jnp.transpose(a, (0, 2, 1, 3))
+    btdh = lambda a: np.transpose(f32(a), (0, 2, 1, 3))
+    jlen = jnp.asarray(SM90_LENGTHS)
+    out, lse = pa._run_fwd(bhtd(jq), bhtd(jk), bhtd(jv), jlen, causal, pa.BLOCK_Q,
+                           pa.BLOCK_K, True)
+    got_out, got_lse = _sm90_forward(tq, tk, tv, _t(SM90_LENGTHS), causal)
+    assert_within_one_ulp(got_out, btdh(out), "out", floor=SM90_CANCEL_FLOOR)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(lse), rtol=1e-6, atol=1e-5)
+
+    want = pa._run_bwd(bhtd(jq), bhtd(jk), bhtd(jv), bhtd(jdo), out, lse, jlen, causal,
+                       pa.BLOCK_Q, pa.BLOCK_K, True)
+    out_t = torch.from_numpy(btdh(out)).to(torch.bfloat16)
+    delta = torch.sum(tdo.float() * out_t.float(), dim=-1).transpose(1, 2).contiguous()
+    args = (tq, tk, tv, tdo, _t(np.asarray(lse)), delta, _t(SM90_LENGTHS), causal)
+    dk, dv = _sm90_dkv(*args)
+    for name, g, w in (("dk", dk, want[1]), ("dv", dv, want[2])):
+        assert g.dtype == torch.bfloat16 and w.dtype == jnp.bfloat16, name
+        assert_within_one_ulp(g, btdh(w), name, floor=SM90_CANCEL_FLOOR)
+    one_out, _ = _sm90_forward(tq, tk, tv, _t(SM90_LENGTHS), causal, pieces=1)
+    one_dk, one_dv = _sm90_dkv(*args, pieces=1)
+    for name, g, w in (("out", one_out, out), ("dk", one_dk, want[1]), ("dv", one_dv, want[2])):
+        with pytest.raises(AssertionError):
+            assert_within_one_ulp(g, btdh(w), name, floor=SM90_CANCEL_FLOOR)
+
+
+def test_sm90_route_takes_the_lm_views_and_leaves_the_rest():
+    """The route of the bf16 forward and dK/dV (``flash_attention.sm90_takes``,
+    decided from the dtype, D, strides and base addresses alone): the
+    layer's strided views of a fused [B, T, 3, H, D] qkv at D = 64 and 128
+    take the Hopper bodies; D = 40, a view whose base is one element off,
+    float32, and a [B, H, T, D] tensor seen as [B, T, H, D] (strides not
+    nested outwards) take the float32 body's bf16 instances."""
+    for D_ in (64, 128):
+        qkv = torch.zeros(2, 100, 3, 4, D_, dtype=torch.bfloat16)
+        views = (qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
+        dout = torch.zeros(2, 100, 4, D_, dtype=torch.bfloat16)
+        assert fa.sm90_takes(*views) and fa.sm90_takes(*views, dout)
+        assert not fa.sm90_takes(*(t.float() for t in views))
+    narrow = torch.zeros(2, 100, 3, 4, 40, dtype=torch.bfloat16)
+    assert not fa.sm90_takes(narrow[:, :, 0], narrow[:, :, 1], narrow[:, :, 2])
+    flat = torch.zeros(2 * 100 * 4 * 64 + 1, dtype=torch.bfloat16)
+    shifted = flat[1:].view(2, 100, 4, 64)
+    assert shifted.data_ptr() % 16 == 2
+    assert not fa.sm90_takes(shifted) and fa.sm90_takes(flat[:-1].view(2, 100, 4, 64))
+    heads_first = torch.zeros(2, 4, 100, 64, dtype=torch.bfloat16).transpose(1, 2)
+    assert not fa.sm90_takes(heads_first)
+    ok = torch.zeros(2, 100, 4, 64, dtype=torch.bfloat16)
+    assert not fa.sm90_takes(ok, heads_first)              # one operand refused: all refused
