@@ -297,11 +297,12 @@ Phases, each printing one JSON object per line:
              bf16 step at those parameters against the CPU's bf16 plain
              versions: the loss within 1e-2, each gradient no further from
              the CPU's float64 one (phase 9's) than 3x the CPU's own bf16
-             gradient is, plus 1e-2 of scale. Kernel 9's bf16 instance at
+             gradient is, plus 1e-2 of scale. Kernel 9's bf16 body at
              the nine shapes against its bf16 plain version (y within 1e-2
              of max |plain|, s and q within 1e-3 of Σ|y| and Σy², two
              launches bit-equal), timed with bf16 addmm, its bound at
-             2-byte operands and the bf16 rate. The step's median wall
+             2-byte operands and the bf16 rate, per shape and over a
+             step's 30 launches. The step's median wall
              time, a profiled step's device time, images/s and the peak
              memory, beside the float32 step's.
 11. attn_kernels — kernels 10, 11 and 12 (flash attention, dQ, dK/dV) on
@@ -337,9 +338,9 @@ Phases, each printing one JSON object per line:
 13a. lm_bf16 — the LM in bf16 mixed precision: long_context_config(...,
              dtype="bfloat16") from the same seed, 8 Adam steps on its
              batch between zeroed counts (16 launches each of
-             flash_attn_fwd_bf16_sm90, flash_attn_dq_bf16 and
-             flash_attn_dkv_bf16_sm90, the Hopper bodies of 10 and 12 and
-             11's bf16 instance; no other kernel, 0 eager routes), the
+             flash_attn_fwd_bf16_sm90, flash_attn_dq_bf16_sm90 and
+             flash_attn_dkv_bf16_sm90, the Hopper bodies of 10, 11 and 12;
+             no other kernel, 0 eager routes), the
              losses finite, falling and within rtol 0.05 / atol 0.02 of the
              float32 phase's, the master parameters and Adam slots float32;
              2 steps of the same LM at head dim 40 (dim 320), which the
@@ -359,17 +360,18 @@ Phases, each printing one JSON object per line:
              D = 40 LM's shape (causal, full lengths) and a ragged D = 40
              (each case launching the bodies the route picks: out and
              gradients within 1e-2 of max |plain|, lse within 1e-4, 11 and
-             12 bit-equal over two launches; the Hopper bodies' out and dv
-             within 1 bf16 spacing and dk within 16, taken at no less than
-             2^-11 of max |plain|, where the plain versions with p and ds in
-             one bf16 piece must not be). Each body timed at its main path's
-             shape (D = 64 for the Hopper bodies and 11, D = 40 for the
-             float32 body's instances of 10 and 12) with bf16 SDPA and its
+             12 bit-equal over two launches; the Hopper bodies' out, dq and
+             dv within 1 bf16 spacing and dk within 16, taken at no less
+             than 2^-11 of max |plain|, where the plain versions with p and
+             ds in one bf16 piece must not be). Each body timed at its main
+             path's shape (D = 64 for the Hopper bodies, D = 40 for the
+             float32 body's instances) with bf16 SDPA and its
              backward, their bound at 2-byte operands and the bf16 rate
              and their design's (the float32 body's instances: TF32
              passes, fewer for exact bf16 factors; the Hopper bodies: 1.5
-             bf16 passes a product); at the LM's shape the float32 body's
-             instances, launched by name, timed beside the Hopper bodies.
+             bf16 passes a product, 4/3 for dQ); at the LM's shape the
+             float32 body's instances, launched by name, timed beside the
+             Hopper bodies.
              The step's wall, device time by family, tokens/s and peak
              memory, beside the float32 step's.
 14. nested — the ninth and tenth: the hierarchical document classifier
@@ -441,8 +443,8 @@ the attention decoder group's loop, and the 1x1 convs whose shape kernel 9
 refuses: the EAGER_ROUTES of the ops modules) and fails if any layer took
 its eager computation instead of a kernel.
 
-Then the per-kernel line ({"kernels": [...]}, 27 rows: 13 float32, the
-12 bf16 instances and the Hopper bodies of 10 and 12 after them with
+Then the per-kernel line ({"kernels": [...]}, 28 rows: 13 float32, the
+12 bf16 instances and the Hopper bodies of 10, 11 and 12 after them with
 bound_ms at 2-byte operands and the bf16 rate and their design_bound_ms;
 rows 9-12, the kernels on
 the tensor cores, also carry bound_tc_ms, the bound of their design: three
@@ -4047,13 +4049,15 @@ def conv_bf16_bytes(M, K, N, bias):
 
 
 def conv_bf16_kernel_cases(torch, dev):
-    """Kernel 9's bf16 instance at the nine shapes of the ResNet-50 train
+    """Kernel 9's bf16 body at the nine shapes of the ResNet-50 train
     step, with and without a bias, against its bf16 plain version: y within
     BF16_TOL of max |plain|, s and q within 1e-3 of Σ|y| and Σy² (the
     kernel's y may round to a neighbour of the plain y), two launches
     bit-equal. Without the bias (ResNet's convs have none): kernel, plain
     version and torch.addmm in bf16 (the product alone) timed from a cold
-    L2, each launch's bound at 2-byte operands and the bf16 rate, and all
+    L2, the kernel and addmm also as device time alone (time_ms's
+    hide_host: at 4,096 rows the wrapper's host work outlasts the kernel),
+    each launch's bound at 2-byte operands and the bf16 rate, and all
     summed over a step's 30 launches."""
     from paddle_tpu_torch.ops import fused_conv1x1_bn as fc
 
@@ -4087,21 +4091,26 @@ def conv_bf16_kernel_cases(torch, dev):
                 nbytes, flops = conv_bf16_bytes(M, K, N, False), conv_bytes_flops(M, K, N, False)[1]
                 case.update(
                     ms=time_ms(torch, lambda: fc.conv1x1_stats(x, w)),
+                    device_ms=time_ms(torch, lambda: fc.conv1x1_stats(x, w), hide_host=True),
                     plain_ms=time_ms(torch, lambda: fc.conv1x1_stats_reference(x, w)),
                     library_ms=time_ms(torch, lambda: torch.addmm(b, x, w.t())),
+                    library_device_ms=time_ms(torch, lambda: torch.addmm(b, x, w.t()),
+                                              hide_host=True),
                     bytes=nbytes, flops=flops, bound_ms=bound_bf16(nbytes, flops)[0],
                     bound_by=bound_bf16(nbytes, flops)[1])
                 case.update(over_library=case["ms"] / case["library_ms"],
-                            over_bound=case["ms"] / case["bound_ms"])
+                            over_bound=case["ms"] / case["bound_ms"],
+                            device_over_library=case["device_ms"] / case["library_device_ms"])
             cases.append(case)
             del got, again, yr, sr, qr, y, s, q, yf
         del x, w, b
     timed = [c for c in cases if "ms" in c]
     step = lambda k: sum(c[k] * c["per_step"] for c in timed)
-    per_step = {k: step(k) for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes",
-                                     "flops")}
+    per_step = {k: step(k) for k in ("ms", "device_ms", "plain_ms", "library_ms",
+                                     "library_device_ms", "bound_ms", "bytes", "flops")}
     per_step.update(over_library=per_step["ms"] / per_step["library_ms"],
-                    over_bound=per_step["ms"] / per_step["bound_ms"])
+                    over_bound=per_step["ms"] / per_step["bound_ms"],
+                    device_over_library=per_step["device_ms"] / per_step["library_device_ms"])
     return {"cases": cases, "per_step": per_step,
             "shape": {"per_step": {f"{c['M']}x{c['K']}x{c['N']}": c["per_step"] for c in timed}}}
 
@@ -4245,6 +4254,13 @@ def phase_resnet_bf16(torch, dev, kernels, f32_train, f32_test, params_cpu, cpu6
                                         for c in cases["cases"]),
         "bytes": ps["bytes"], "flops": ps["flops"], "shape": cases["shape"],
         "timed_over": "one train step (30 launches)",
+        "body": ("Hopper: one float32 wgmma accumulator over K with a group in flight, a "
+                 "loading warp, y staged in bf16 and stored by TMA"),
+        "device_ms": ps["device_ms"], "library_device_ms": ps["library_device_ms"],
+        "per_shape": {f"{c['M']}x{c['K']}x{c['N']}": {
+            k: c[k] for k in ("per_step", "ms", "device_ms", "library_ms", "library_device_ms",
+                              "bound_ms", "bound_by", "over_library", "over_bound")}
+            for c in cases["cases"] if "ms" in c},
         "launches_per_step": launches["conv1x1_stats_bf16"] / n}]
 
 
@@ -4530,24 +4546,28 @@ def attn_bf16_bytes(B, T, H, D):
     bytes, lse, delta and lengths at 4."""
     x, stat = 2.0 * B * T * H * D, 4.0 * B * H * T
     fwd, dkv = 4 * x + stat + 4 * B, 6 * x + 2 * stat + 4 * B
-    return {"flash_attn_fwd_bf16": fwd, "flash_attn_dq_bf16": 5 * x + 2 * stat + 4 * B,
+    dq = 5 * x + 2 * stat + 4 * B
+    return {"flash_attn_fwd_bf16": fwd, "flash_attn_dq_bf16": dq,
             "flash_attn_dkv_bf16": dkv, "flash_attn_fwd_bf16_sm90": fwd,
-            "flash_attn_dkv_bf16_sm90": dkv}
+            "flash_attn_dq_bf16_sm90": dq, "flash_attn_dkv_bf16_sm90": dkv}
 
 
 # the bf16 flash bodies: the float32 body's bf16 instances, and the bodies
 # for Hopper (bf16 wgmma over TMA tiles) that take D = 64 and 128
 ATTN_BF16_KERNELS = ("flash_attn_fwd_bf16", "flash_attn_dq_bf16", "flash_attn_dkv_bf16")
-ATTN_SM90_KERNELS = ("flash_attn_fwd_bf16_sm90", "flash_attn_dkv_bf16_sm90")
+ATTN_SM90_KERNELS = ("flash_attn_fwd_bf16_sm90", "flash_attn_dq_bf16_sm90",
+                     "flash_attn_dkv_bf16_sm90")
 # passes a product of each bf16 body's design takes, on average, and the
 # rate it takes them at: the float32 body's instances in TF32 (Q.K^T one
 # at D = 64, q * scale exact, and P.V two; dq's two scores one each and
 # dS.K two; dkv's two scores one each, P^T.dO and dS^T.Q two each); the
-# Hopper bodies in bf16 (the scores one, p and ds in two bf16 pieces)
+# Hopper bodies in bf16 (the scores one, p and ds in two bf16 pieces:
+# dQ's two scores and dS.K two)
 ATTN_BF16_PASSES = {"flash_attn_fwd_bf16": (1.5, PEAK_TF32_FLOPS),
                     "flash_attn_dq_bf16": (4.0 / 3.0, PEAK_TF32_FLOPS),
                     "flash_attn_dkv_bf16": (1.5, PEAK_TF32_FLOPS),
                     "flash_attn_fwd_bf16_sm90": (1.5, PEAK_BF16_FLOPS),
+                    "flash_attn_dq_bf16_sm90": (4.0 / 3.0, PEAK_BF16_FLOPS),
                     "flash_attn_dkv_bf16_sm90": (1.5, PEAK_BF16_FLOPS)}
 # the LM at a head dim the Hopper bodies do not take (dim 320 over 8 heads:
 # D = 40), a few bf16 steps: the main path of the float32 body's bf16 forward
@@ -4557,14 +4577,18 @@ LM_D40 = dict(dim=320, steps=2)
 # SM90_ULPS bf16 spacings of the larger magnitude, the spacing taken at no
 # less than SM90_CANCEL_FLOOR of max |plain| (tests/test_torch_flash_attention.py's
 # floor, where sums cancel to far below their terms). p and ds in two bf16
-# pieces keep ~16 bits: out and dv lie within one spacing; dk, summed over up
-# to T queries in the wgmma accumulator (which truncates each step), lies
-# several spacings off where it cancels (non-causal, T = 1000-2048), a few
-# 1e-5 of its scale. The planted control, the plain versions with p and ds
-# rounded once to bf16 (one piece), lies tens to hundreds of spacings off in
-# out and dk, and a few in dv, and must fall outside each bound at every case.
+# pieces keep ~16 bits: out and dv lie within one spacing, dq (each key tile
+# summed apart and added with rounded float32 adds) within one but where
+# ds = p (dp - delta) cancels and the tensor core's truncating sums of the
+# scores show (1.07 in a GPU test case; tests/test_torch_flash_attention.py
+# reproduces it on the CPU), so within two; dk, summed over up to T queries
+# in the wgmma accumulator (which truncates each step), lies several
+# spacings off where it cancels (non-causal, T = 1000-2048), a few 1e-5 of its
+# scale. The planted control, the plain versions with p and ds rounded once
+# to bf16 (one piece), lies tens to hundreds of spacings off in out, dq and
+# dk, and a few in dv, and must fall outside each bound at every case.
 SM90_CANCEL_FLOOR = 2.0 ** -11
-SM90_ULPS = {"out": 1.0, "dk": 16.0, "dv": 1.0}
+SM90_ULPS = {"out": 1.0, "dq": 2.0, "dk": 16.0, "dv": 1.0}
 
 
 def bf16_ulps(torch, got, want, floor=SM90_CANCEL_FLOOR) -> float:
@@ -4579,8 +4603,9 @@ def bf16_ulps(torch, got, want, floor=SM90_CANCEL_FLOOR) -> float:
 
 def one_piece_references(torch, q, k, v, do, lse, delta, lengths, causal):
     """The planted control of the Hopper bodies' two-piece products: kernels
-    10 and 12's plain versions with p and ds rounded once to bf16 before
-    their products, everything else as theirs -> (out, dk, dv) in bf16."""
+    10, 12 and 11's plain versions with p and ds rounded once to bf16 before
+    their products, everything else as theirs -> (out, dk, dv, dq) in
+    bf16."""
     from paddle_tpu_torch.ops import flash_attention as fa
 
     piece = lambda x: x.to(torch.bfloat16).float()
@@ -4596,14 +4621,16 @@ def one_piece_references(torch, q, k, v, do, lse, delta, lengths, causal):
     del s, p
     p, ds = fa._scores_backward(q, k, v, do, lse, delta, lengths, causal)
     return (out.to(q.dtype), torch.einsum("bhqk,bqhd->bkhd", piece(ds), qw).to(k.dtype),
-            torch.einsum("bhqk,bqhd->bkhd", piece(p), dw).to(v.dtype))
+            torch.einsum("bhqk,bqhd->bkhd", piece(p), dw).to(v.dtype),
+            torch.einsum("bhqk,bkhd->bqhd", piece(ds), kw).to(q.dtype))
 
 
 def named_bf16_launchers(torch, q, k, v, do, lse, delta, lengths, causal):
-    """The float32 body's bf16 forward and dK/dV launched by name, with the
-    arguments flash_attention._launch_fwd and _launch_dkv give them, at a
-    shape their route gives the Hopper bodies: (fwd() -> out,
-    dkv() -> (dk, dv)), to time both bodies at the LM's shape."""
+    """The float32 body's bf16 forward, dQ and dK/dV launched by name, with
+    the arguments flash_attention._launch_fwd, _launch_dq and _launch_dkv
+    give them, at a shape their route gives the Hopper bodies: (fwd() ->
+    out, dq() -> dq, dkv() -> (dk, dv)), to time both bodies at the LM's
+    shape."""
     from paddle_tpu_torch.ops import flash_attention as fa
 
     B, T, H, D = q.shape
@@ -4618,6 +4645,12 @@ def named_bf16_launchers(torch, q, k, v, do, lse, delta, lengths, causal):
                                       fa.ptr(lse_out), B, T, H, D, cz)
         return out
 
+    def dq():
+        args, _ = fa._check_backward(q, k, v, do, lse, delta, lengths)
+        out = new()
+        fa.FLASH_ATTN_DQ_BF16.launch(q.device, *args, *fa._strided(out), B, T, H, D, cz)
+        return out
+
     def dkv():
         args, _ = fa._check_backward(q, k, v, do, lse, delta, lengths)
         dk, dv = new(), new()
@@ -4625,7 +4658,7 @@ def named_bf16_launchers(torch, q, k, v, do, lse, delta, lengths, causal):
                                       B, T, H, D, cz)
         return dk, dv
 
-    return fwd, dkv
+    return fwd, dq, dkv
 
 
 def attn_bf16_kernel_cases(torch, dev, kernels):
@@ -4672,8 +4705,7 @@ def attn_bf16_kernel_cases(torch, dev, kernels):
                "lengths": lens.tolist() if ragged else "full"}
         sm90 = fa.sm90_takes(q, k, v, do)
         assert sm90 == (d_ in fa.SM90_D), key
-        fwd_name, dkv_name = ATTN_SM90_KERNELS if sm90 else (ATTN_BF16_KERNELS[0],
-                                                            ATTN_BF16_KERNELS[2])
+        fwd_name, dq_name, dkv_name = ATTN_SM90_KERNELS if sm90 else ATTN_BF16_KERNELS
         before = {name: by_name[name].launches for name in names}
         out, lse = fa._launch_fwd(q, k, v, lengths, causal, True)
         light, _ = fa._launch_fwd(q, k, v, lengths, causal, False)
@@ -4694,16 +4726,16 @@ def attn_bf16_kernel_cases(torch, dev, kernels):
         want = (fa.flash_dq_reference(*args),) + fa.flash_dkv_reference(*args)
         torch.cuda.synchronize()
         launched = {name: by_name[name].launches - before[name] for name in names}
-        assert launched == {name: 2 if name in (fwd_name, "flash_attn_dq_bf16", dkv_name) else 0
+        assert launched == {name: 2 if name in (fwd_name, dq_name, dkv_name) else 0
                             for name in names}, (key, launched)
         same = torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2)
         assert same, ("flash bf16 backward not deterministic", key)
         errs = _scale_errs(["dq", "dk", "dv"], (dq, dk, dv), want)
         assert all(a.dtype == torch.bfloat16 for a in (dq, dk, dv)), key
         assert max(e[1] for e in errs.values()) <= BF16_TOL, (key, errs)
-        out_cases["flash_attn_dq_bf16"].append({**key, "max_abs_err": errs["dq"][0],
-                                                "err_over_scale": errs["dq"][1],
-                                                "bit_equal_launches": same})
+        dq_case = {**key, "max_abs_err": errs["dq"][0], "err_over_scale": errs["dq"][1],
+                   "bit_equal_launches": same}
+        out_cases[dq_name].append(dq_case)
         dkv_case = {**key, "max_abs_err": max(errs["dk"][0], errs["dv"][0]),
                     "err_over_scale": max(errs["dk"][1], errs["dv"][1]),
                     "bit_equal_launches": same}
@@ -4711,11 +4743,13 @@ def attn_bf16_kernel_cases(torch, dev, kernels):
         if sm90:
             # two bf16 pieces of p and ds: within SM90_ULPS, where one piece is not
             control = one_piece_references(torch, *args)
-            got = {"out": (out, ref), "dk": (dk, want[1]), "dv": (dv, want[2])}
+            got = {"out": (out, ref), "dk": (dk, want[1]), "dv": (dv, want[2]),
+                   "dq": (dq, want[0])}
             ulps = {n_: bf16_ulps(torch, g, w) for n_, (g, w) in got.items()}
             one = {n_: bf16_ulps(torch, c, got[n_][1])
-                   for n_, c in zip(("out", "dk", "dv"), control)}
-            for case, names_ in ((fwd_case, ("out",)), (dkv_case, ("dk", "dv"))):
+                   for n_, c in zip(("out", "dk", "dv", "dq"), control)}
+            for case, names_ in ((fwd_case, ("out",)), (dq_case, ("dq",)),
+                                 (dkv_case, ("dk", "dv"))):
                 case.update(err_ulps={n_: ulps[n_] for n_ in names_},
                             one_piece_err_ulps={n_: one[n_] for n_ in names_})
             assert all(ulps[n_] <= SM90_ULPS[n_] for n_ in ulps), (key, ulps)
@@ -4739,26 +4773,28 @@ def attn_bf16_kernel_cases(torch, dev, kernels):
                                                                    False)),
                     plain_ms=time_ms(torch, lambda: fa.flash_forward_reference(
                         q, k, v, lengths, causal), reps=5), library_ms=lib_fwd_ms),
+                dq_name: dict(ms=time_ms(torch, lambda: fa._launch_dq(*args)),
+                              plain_ms=time_ms(torch, lambda: fa.flash_dq_reference(*args),
+                                               reps=5), library_ms=lib_bwd_ms),
                 dkv_name: dict(ms=time_ms(torch, lambda: fa._launch_dkv(*args)),
                                plain_ms=time_ms(torch, lambda: fa.flash_dkv_reference(*args),
                                                 reps=5), library_ms=lib_bwd_ms)}
             if sm90:
-                here["flash_attn_dq_bf16"] = dict(
-                    ms=time_ms(torch, lambda: fa._launch_dq(*args)),
-                    plain_ms=time_ms(torch, lambda: fa.flash_dq_reference(*args), reps=5),
-                    library_ms=lib_bwd_ms)
                 # the float32 body's instances at the LM's shape, launched by
                 # name (their route gives it the Hopper bodies), then the
                 # Hopper bodies again: the old and new bodies in turns
-                old_fwd, old_dkv = named_bf16_launchers(torch, *args)
-                old_out, (old_dk, old_dv) = old_fwd(), old_dkv()
-                old_errs = _scale_errs(["out", "dk", "dv"], (old_out, old_dk, old_dv),
-                                       (ref,) + want[1:])
+                old_fwd, old_dq, old_dkv = named_bf16_launchers(torch, *args)
+                old_out, old_dq_, (old_dk, old_dv) = old_fwd(), old_dq(), old_dkv()
+                old_errs = _scale_errs(["out", "dq", "dk", "dv"],
+                                       (old_out, old_dq_, old_dk, old_dv), (ref,) + want)
                 assert max(e[1] for e in old_errs.values()) <= BF16_TOL, (key, old_errs)
                 at_lm = {
                     "flash_attn_fwd_bf16": dict(ms=time_ms(torch, old_fwd),
                                                 max_abs_err=old_errs["out"][0],
                                                 err_over_scale=old_errs["out"][1]),
+                    "flash_attn_dq_bf16": dict(ms=time_ms(torch, old_dq),
+                                               max_abs_err=old_errs["dq"][0],
+                                               err_over_scale=old_errs["dq"][1]),
                     "flash_attn_dkv_bf16": dict(
                         ms=time_ms(torch, old_dkv),
                         max_abs_err=max(old_errs["dk"][0], old_errs["dv"][0]),
@@ -4767,8 +4803,9 @@ def attn_bf16_kernel_cases(torch, dev, kernels):
                     tm.update(key)
                 here[fwd_name]["ms_again"] = time_ms(
                     torch, lambda: fa._launch_fwd(q, k, v, lengths, causal, True))
+                here[dq_name]["ms_again"] = time_ms(torch, lambda: fa._launch_dq(*args))
                 here[dkv_name]["ms_again"] = time_ms(torch, lambda: fa._launch_dkv(*args))
-                del old_out, old_dk, old_dv
+                del old_out, old_dq_, old_dk, old_dv
             sizes = attn_bytes_flops(b_, t_, h_, d_, visible_pairs(lens, t_, causal, h_))
             nbytes = attn_bf16_bytes(b_, t_, h_, d_)
             for name, tm in here.items():
@@ -4864,12 +4901,10 @@ def phase_lm_bf16(torch, dev, kernels, f32_train, f32_test, params_cpu):
     batch = lm_batch(LM["vocab"], B=LM["batch"], T=LM["seq_len"], seed=1, device=dev)
     n = LM["steps"]
     losses, step_s, launches, routes, peak = train_steps(torch, dev, kernels, trainer, batch, n)
-    # D = 64: the Hopper bodies of 10 and 12, the float32 body's instance of
-    # 11, and nothing of the float32 body's instances of 10 and 12
+    # D = 64: the Hopper bodies of 10, 11 and 12, and nothing of the
+    # float32 body's bf16 instances
     want = {k.symbol: 0 for k in kernels}
-    want.update({name: LM["blocks"] * n for name in ("flash_attn_fwd_bf16_sm90",
-                                                      "flash_attn_dq_bf16",
-                                                      "flash_attn_dkv_bf16_sm90")})
+    want.update({name: LM["blocks"] * n for name in ATTN_SM90_KERNELS})
     assert launches == want, (launches, want)
     assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
     np.testing.assert_allclose(losses, f32_train["losses"], **BF16_LOSS_TOL)
@@ -4948,16 +4983,15 @@ def phase_lm_bf16(torch, dev, kernels, f32_train, f32_test, params_cpu):
                "flash_attn_fwd.cu")
     dkv_src = ("paddle_tpu/ops/pallas_attention.py:121 (_dkv_kernel in bf16; pallas_call :215)",
                "flash_attn_bwd.cu")
+    dq_src = ("paddle_tpu/ops/pallas_attention.py:91 (_dq_kernel in bf16; pallas_call :202)",
+              "flash_attn_bwd.cu")
     replaces = {"flash_attn_fwd_bf16": fwd_src, "flash_attn_fwd_bf16_sm90": fwd_src,
-                "flash_attn_dq_bf16": ("paddle_tpu/ops/pallas_attention.py:91 (_dq_kernel in "
-                                       "bf16; pallas_call :202)", "flash_attn_bwd.cu"),
+                "flash_attn_dq_bf16": dq_src, "flash_attn_dq_bf16_sm90": dq_src,
                 "flash_attn_dkv_bf16": dkv_src, "flash_attn_dkv_bf16_sm90": dkv_src}
     # each body's launches on its own main path: D = 64 (the LM) for the
-    # Hopper bodies and 11, D = 40 for the float32 body's bf16 instances
-    paths = {name: ("lm_bf16_train", launches) for name in
-             ("flash_attn_fwd_bf16_sm90", "flash_attn_dq_bf16", "flash_attn_dkv_bf16_sm90")}
-    paths.update({name: ("lm_bf16_d40_train", launches40)
-                  for name in ("flash_attn_fwd_bf16", "flash_attn_dkv_bf16")})
+    # Hopper bodies, D = 40 for the float32 body's bf16 instances
+    paths = {name: ("lm_bf16_train", launches) for name in ATTN_SM90_KERNELS}
+    paths.update({name: ("lm_bf16_d40_train", launches40) for name in ATTN_BF16_KERNELS})
     out = []
     for name, c in cases.items():
         tm = c["timed"]
@@ -4965,8 +4999,6 @@ def phase_lm_bf16(torch, dev, kernels, f32_train, f32_test, params_cpu):
         launched = counts[name]
         assert launched > 0, name
         by_path = {main_path: launched}
-        if name == "flash_attn_dq_bf16":
-            by_path["lm_bf16_d40_train"] = launches40[name]
         if test_launches[name]:
             by_path["lm_bf16_test"] = test_launches[name]
         is_fwd = name.startswith("flash_attn_fwd")
@@ -5747,8 +5779,8 @@ def main() -> int:
                 "launches_per_step": launches / RESNET["steps"]} if "per_step" in r else {}),
         })
     # 13 float32 rows, the bf16 instances of 1-3 and 5-12 and the Hopper
-    # bodies of 10 and 12 after them
-    assert len(rows) == 13 and len(bf16_rows) == 14, ([r["name"] for r in rows + bf16_rows])
+    # bodies of 10, 11 and 12 after them
+    assert len(rows) == 13 and len(bf16_rows) == 15, ([r["name"] for r in rows + bf16_rows])
     emit({"kernels": rows + bf16_rows})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,

@@ -105,4 +105,10 @@ extern "C" int phase_clocks(void* dst) {
   return static_cast<int>(
       cudaMemcpyFromSymbol(dst, flash::g_phase_clock, sizeof(flash::g_phase_clock)));
 }
+
+// Zero the clocks, so that the next body's read holds only its own tiles.
+extern "C" int phase_clocks_reset() {
+  static const long long zeros[2][64][8] = {};
+  return static_cast<int>(cudaMemcpyToSymbol(flash::g_phase_clock, zeros, sizeof(zeros)));
+}
 #endif

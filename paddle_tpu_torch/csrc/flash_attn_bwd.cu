@@ -74,9 +74,9 @@
 // an exact factor (flash_mma.cuh): the score products (q . k^T, dout . v^T)
 // multiply two bf16 values, one TF32 pass each; the accumulate products
 // (ds . k, p^T . dout, ds^T . q) split their float32 factor, two passes.
-// flash_attn_dkv_bf16 takes the bf16 shapes the Hopper body below does not
-// (D other than 64 and 128, an unaligned base, strides TMA cannot read);
-// flash_attn_dq_bf16 takes every bf16 shape.
+// flash_attn_dq_bf16 and flash_attn_dkv_bf16 take the bf16 shapes the Hopper
+// bodies below do not (D other than 64 and 128, an unaligned base, strides
+// TMA cannot read).
 //
 // The bf16 dK/dV body for Hopper (flash_attn_dkv_bf16_sm90) takes D = 64
 // and 128 with q, k, v and dout as TMA reads them (flash_attention.py's
@@ -108,6 +108,42 @@
 //   (chip_smoke.py's SM90_ULPS).
 // - dk and dv are rounded once to bf16; each block writes only its own
 //   rows: no atomics, two launches give equal bits.
+//
+// The bf16 dQ body for Hopper (flash_attn_dq_bf16_sm90) takes the same
+// shapes. What bounds it: at the LM's shape 3 products x 2 B H T^2 D / 2
+// (causal) = 51.5 GFLOP, 0.0521 ms at the bf16 rate; with ds in two bf16
+// pieces the products average 4/3 passes, a design bound of 0.0695 ms.
+// flash_attn_dq_bf16 (the float32 body's instance: tiles widened into float32
+// shared tiles, mma.sync TF32) ran 0.94-1.01 ms there, 1.4-1.8x the whole
+// bf16 SDPA backward. What the design does about it, mirroring dK/dV:
+// - A block owns 128 queries, two warpgroups of 64; q and dout stay in
+//   shared memory for the launch (TMA from the strided views, the 128-byte
+//   swizzle), each thread's two rows' lse and delta in registers (read once
+//   with plain loads: no ring, no alignment asked of them). One thread
+//   streams k and v tiles of BK keys (64 at D = 64, 32 at D = 128) through
+//   a ring of 6 stages on mbarriers; the key range ends at the block's last
+//   query (causal) and at the length, and a warpgroup skips a tile wholly
+//   after its last query.
+// - Per key tile: s = q . k^T and dp = dout . v^T as wgmma m64nBKk16, their
+//   chains interleaved; p = 2^(s scale log2(e) - lse log2(e)), masked
+//   explicitly, and ds = p (dp - delta) scale in float32, a copy of dK/dV's
+//   step in its own layout (one function for both moved ptxas's allocation
+//   of the dK/dV body, 194 and 220 registers against 192 and 218, and
+//   changed its SASS); then dq's tile partial ds . K as wgmma m64n64k16
+//   with ds's two bf16 pieces as A from registers and K read MN-major from
+//   its tile.
+// - dq's accumulation: each key tile's partial is summed apart in two
+//   independent chains (at D = 64 one a piece, at D = 128 one a half of the
+//   features) and added to dq with rounded float32 adds, as the float32
+//   body does: 148 registers at D = 64, 166 at 128, no spill. dq lies
+//   within one bf16 spacing of the plain version's, or two where ds
+//   cancels and the tensor core's truncating sums of the scores show
+//   (tests/test_torch_flash_attention.py emulates both).
+// - dq is rounded once to bf16; each block writes only its own rows: no
+//   atomics, two launches give equal bits.
+// Measured (tools/flash_sm90_phases.py, chip_smoke.py; PERF.md): ~3,100-
+// 3,500 cycles a tile, ~1,290-1,350 of them p, ds and the pieces, ~460-500
+// the scores, ~500-570 the dq product; 0.35-0.37 ms at the LM's shape.
 
 #include "flash_attn.cuh"
 #include "flash_mma.cuh"
@@ -769,6 +805,258 @@ int launch_dkv(const Args<bf16>& a, const float* lse, const float* delta, const 
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- the bf16 dQ body for Hopper (flash_attn_dq_bf16_sm90) ----
+
+// D = 64 or 128; a block owns 128 queries, two warpgroups of 64, and
+// streams key tiles of BK keys (K and V: 8 KB each at both widths).
+template <int D>
+struct DqGeo {
+  static constexpr int BQ = 64 * kConsumers;     // queries of a block
+  static constexpr int BK = D == 64 ? 64 : 32;   // keys of a stage
+  static constexpr int HALVES = D / 64;
+  static constexpr int STAGES = 6;
+  static constexpr int Q_BYTES = BQ * D * 2;     // the block's Q, and its dO
+  static constexpr int T_BYTES = BK * D * 2;     // a K or a V tile
+  static constexpr int STAGE_BYTES = 2 * T_BYTES;
+  static constexpr int SMEM = 1024 + 2 * Q_BYTES + STAGES * STAGE_BYTES + 8 * (1 + 2 * STAGES);
+  static constexpr int NS = BK / 2;              // score accumulators a thread
+  static constexpr int KK = BK / 16;             // k steps of ds . K
+  static_assert(Q_BYTES % 1024 == 0 && T_BYTES % 1024 == 0, "swizzle atoms");
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_dq_sm90(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+              const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap g_map,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              const int* __restrict__ lengths, Output<bf16> dq, int T, int H, int causal,
+              float scale, float scale_log2) {
+  using G = DqGeo<D>;
+  constexpr int BQ = G::BQ, BK = G::BK, HV = G::HALVES, ST = G::STAGES, KK = G::KK;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint8_t* sq = base;                                              // [HV][BQ][64]
+  uint8_t* sdo = base + G::Q_BYTES;
+  auto sk = [&](int s) { return base + 2 * G::Q_BYTES + s * G::STAGE_BYTES; };   // [HV][BK][64]
+  auto sv = [&](int s) { return sk(s) + G::T_BYTES; };
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(base + 2 * G::Q_BYTES + ST * G::STAGE_BYTES);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + ST;
+
+  const int iq = gridDim.x - 1 - blockIdx.x;                       // heaviest tiles first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int q0 = iq * BQ;
+  const int len = flash::clamp_length(lengths, b, T);
+  const int kend = causal ? min(len, q0 + BQ) : len;               // keys [0, kend) can be visible
+  const int tiles = kend > 0 ? (kend + BK - 1) / BK : 0;           // else dq = 0
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    bar_init(qbar, 1);
+    for (int s = 0; s < ST; ++s) {
+      bar_init(&full[s], 1);
+      bar_init(&empty[s], 128 * kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // kLoader loads q and dout once and k and v tiles STAGES ahead, as the
+  // forward's loader: tile it + STAGES into tile it's stage once both
+  // warpgroups have released it (refill, called where warpgroup 1 releases
+  // tile it + 1). Key tiles past the block's keys are not read.
+  auto load = [&](int it) {
+    const int s = it % ST;
+    bar_expect(&full[s], G::STAGE_BYTES);
+    for (int hv = 0; hv < HV; ++hv) {
+      tma_load_4d(sk(s) + hv * BK * 128, &k_map, 64 * hv, h, it * BK, b, &full[s]);
+      tma_load_4d(sv(s) + hv * BK * 128, &v_map, 64 * hv, h, it * BK, b, &full[s]);
+    }
+  };
+  auto refill = [&](int it) {
+    if (threadIdx.x == kLoader && it + ST < tiles) {
+      bar_wait(&empty[it % ST], (it / ST) & 1);
+      load(it + ST);
+    }
+  };
+  if (threadIdx.x == kLoader && tiles > 0) {
+    bar_expect(qbar, 2 * G::Q_BYTES);
+    for (int hv = 0; hv < HV; ++hv) {
+      tma_load_4d(sq + hv * BQ * 128, &q_map, 64 * hv, h, q0, b, qbar);
+      tma_load_4d(sdo + hv * BQ * 128, &g_map, 64 * hv, h, q0, b, qbar);
+    }
+    for (int it = 0; it < ST && it < tiles; ++it) load(it);
+  }
+
+  // query rows [64 wg, 64 wg + 64) of the block; broadcast from lane 0, so
+  // that ptxas sees the branches around the wgmmas as warp-uniform
+  const int wg = __shfl_sync(flash::kFull, warp / 4, 0);
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = q0 + 64 * wg;                   // the warpgroup's first query
+  const int rq = r0 + 16 * (warp % 4) + g;       // this thread's queries rq, rq + 8
+  // the warpgroup's tiles: (causal) none wholly after its last query, where
+  // p = 0 and ds = 0
+  const int mine = causal ? min(tiles, (r0 + 63) / BK + 1) : tiles;
+  // the rows' lse (base 2, negated) and delta, read once
+  const long long stat = (static_cast<long long>(b) * H + h) * T;
+  float neg_lse2[2], row_delta[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int qp = rq + 8 * half;
+    neg_lse2[half] = qp < T ? -lse[stat + qp] * kLog2e : 0.0f;
+    row_delta[half] = qp < T ? delta[stat + qp] : 0.0f;
+  }
+
+  float acc[HV][32];
+#pragma unroll
+  for (int hv = 0; hv < HV; ++hv)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[hv][i] = 0.0f;
+
+  // Per key tile two stages of products, each straight-line code from the
+  // fence to the wait: s = q . k^T and dp = dout . v^T (two independent
+  // chains, interleaved); p and ds on them and ds in two bf16 pieces; then
+  // a tile's dq partial ds . K with K read MN-major from its tile. The
+  // partial is summed apart (scale_d 0 at its first step) in two
+  // independent chains, at D = 64 one a piece, at D = 128 one a half of
+  // dq's features, and added to acc with rounded float32 adds, as the
+  // float32 body sums a streamed tile apart.
+  const bool probed = b == 0 && h == 0 && iq == gridDim.x - 1;   // FLASH_SM90_PHASE's block
+  (void)probed;
+  if (tiles > 0) bar_wait(qbar, 0);
+  for (int r = 0; r < mine; ++r) {
+    FLASH_SM90_PHASE(probed, wg, r, 0);
+    const int s = r % ST;
+    bar_wait(&full[s], (r / ST) & 1);
+    FLASH_SM90_PHASE(probed, wg, r, 1);
+    float sc[G::NS], dp[G::NS];
+#pragma unroll
+    for (int i = 0; i < G::NS; ++i) {
+      fence_operand(sc[i]);
+      fence_operand(dp[i]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      wgmma_bf16_ss<BK>(sc, desc_k_major<BQ>(sq, 64 * wg, ks), desc_k_major<BK>(sk(s), 0, ks),
+                        ks > 0);
+      wgmma_bf16_ss<BK>(dp, desc_k_major<BQ>(sdo, 64 * wg, ks), desc_k_major<BK>(sv(s), 0, ks),
+                        ks > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < G::NS; ++i) {
+      fence_operand(sc[i]);
+      fence_operand(dp[i]);
+    }
+
+    FLASH_SM90_PHASE(probed, wg, r, 2);
+    const int k0 = r * BK;
+    // every key of the tile visible to every query of the warpgroup
+    const bool all = k0 + BK <= len && (!causal || k0 + BK - 1 <= r0);
+    // p and ds as the dK/dV body's grads (transposed there); a copy, not a
+    // function both call: taking that step out of grads moved ptxas's
+    // allocation of the dK/dV body (194 and 220 registers against 192 and
+    // 218, its SASS changed)
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int half = e / 2;
+        const int kp = k0 + 8 * j + 2 * t + (e & 1);
+        const float e2 = flash::exp2_ftz(fmaf(sc[4 * j + e], scale_log2, neg_lse2[half]));
+        const float p = all || flash::visible(rq + 8 * half, kp, len, causal) ? e2 : 0.0f;
+        dp[4 * j + e] = p * (dp[4 * j + e] - row_delta[half]) * scale;   // ds
+      }
+    unsigned dhi[KK][4], dlo[KK][4];
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk) {
+      a_from_acc(dp, kk, dhi[kk], dlo[kk]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        fence_operand(dhi[kk][e]);
+        fence_operand(dlo[kk][e]);
+      }
+    }
+    FLASH_SM90_PHASE(probed, wg, r, 3);
+    float part[2][32];
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) fence_operand(part[c][i]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk)
+#pragma unroll
+      for (int hv = 0; hv < HV; ++hv) {          // K MN-major as stored
+        const uint64_t dk = desc_sw128_mn(sk(s) + hv * BK * 128 + kk * 2048);
+        if constexpr (HV == 1) {
+          wgmma_bf16_rs_tb_n64(part[0], dlo[kk], dk, kk > 0);
+          wgmma_bf16_rs_tb_n64(part[1], dhi[kk], dk, kk > 0);
+        } else {
+          wgmma_bf16_rs_tb_n64(part[hv], dlo[kk], dk, kk > 0);
+          wgmma_bf16_rs_tb_n64(part[hv], dhi[kk], dk, 1);
+        }
+      }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) fence_operand(part[c][i]);
+#pragma unroll
+    for (int hv = 0; hv < HV; ++hv)
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        acc[hv][i] += HV == 1 ? part[0][i] + part[1][i] : part[hv][i];
+    FLASH_SM90_PHASE(probed, wg, r, 4);
+    bar_arrive(&empty[s]);
+    if (r > 0) refill(r - 1);
+    FLASH_SM90_PHASE(probed, wg, r, 5);
+  }
+  for (int r = mine; r < tiles; ++r) {
+    bar_wait(&full[r % ST], (r / ST) & 1);
+    bar_arrive(&empty[r % ST]);
+    if (r > 0) refill(r - 1);
+  }
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int qp = rq + 8 * half;
+    if (qp >= T) continue;
+    bf16* row = dq.head(b, h) + qp * dq.st;
+#pragma unroll
+    for (int hv = 0; hv < HV; ++hv)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(row + 64 * hv + 8 * j + 2 * t) =
+            __floats2bfloat162_rn(acc[hv][4 * j + 2 * half], acc[hv][4 * j + 2 * half + 1]);
+  }
+}
+
+template <int D>
+int launch_dq(const Args<bf16>& a, const float* lse, const float* delta, const int* lengths,
+              Output<bf16> dq, int B, int T, int H, int causal, cudaStream_t stream) {
+  using G = DqGeo<D>;
+  CUtensorMap qm, km, vm, gm;
+  if (!flash::operand_map(&qm, a.q.ptr, a.q.sb, a.q.st, a.q.sh, B, T, H, D, G::BQ) ||
+      !flash::operand_map(&km, a.k.ptr, a.k.sb, a.k.st, a.k.sh, B, T, H, D, G::BK) ||
+      !flash::operand_map(&vm, a.v.ptr, a.v.sb, a.v.st, a.v.sh, B, T, H, D, G::BK) ||
+      !flash::operand_map(&gm, a.dout.ptr, a.dout.sb, a.dout.st, a.dout.sh, B, T, H, D, G::BQ))
+    return static_cast<int>(cudaErrorNotSupported);
+  cudaError_t err = allow_smem(flash_dq_sm90<D>, G::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const float scale = flash::softmax_scale(D);
+  const dim3 grid((T + G::BQ - 1) / G::BQ, H, B);
+  flash_dq_sm90<D><<<grid, kThreads, G::SMEM, stream>>>(
+      qm, km, vm, gm, lse, delta, lengths, dq, T, H, causal, scale, scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace sm90
 
 // q, k, v, dout, dq, dk and dv [B, T, H, D] through their batch, time and
@@ -838,4 +1126,22 @@ extern "C" int flash_attn_dkv_bf16_sm90(FLASH_BWD_QKVG, const void* lse, const v
       a, static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<const int*>(lengths), odk, odv, B, T, H, causal,
       static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 dQ body for Hopper: the arguments of flash_attn_dq_bf16, D = 64
+// or 128, and q, k, v and dout as TMA reads them (flash_attention.py's
+// sm90_takes); lse and delta are read with plain loads (no alignment asked).
+// Returns cudaErrorInvalidValue for any other shape, and
+// cudaErrorNotSupported where a tensor map cannot be made.
+extern "C" int flash_attn_dq_bf16_sm90(FLASH_BWD_QKVG, const void* lse, const void* delta,
+                                       const void* lengths, void* dq, long long d_sb,
+                                       long long d_st, long long d_sh, int B, int T, int H, int D,
+                                       int causal, void* stream) {
+  const Args<bf16> a(FLASH_BWD_ARGS);
+  if ((D != 64 && D != 128) || !rows_16b(a.q, a.k, a.v, a.dout, D))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Output<bf16> od{static_cast<bf16*>(dq), d_sb, d_st, d_sh};
+  return (D == 64 ? sm90::launch_dq<64> : sm90::launch_dq<128>)(
+      a, static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const int*>(lengths), od, B, T, H, causal, static_cast<cudaStream_t>(stream));
 }

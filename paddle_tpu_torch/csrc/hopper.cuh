@@ -1,9 +1,9 @@
 // Hopper (sm_90a) machinery of the kernels that run on wgmma and TMA:
 // conv1x1_bn.cu (kernel 9) and the bf16 flash bodies of flash_attn_fwd.cu
-// and flash_attn_bwd.cu (kernels 10 and 12). mbarriers, TMA tile loads, the
-// wgmma fences, commits and shared-memory descriptors, the TF32 and bf16
-// wgmma forms (PTX ISA 8.0), and on the host the tensor maps TMA reads
-// through.
+// and flash_attn_bwd.cu (kernels 10-12). mbarriers, TMA tile loads and
+// stores with their bulk groups, the wgmma fences, commits and
+// shared-memory descriptors, the TF32 and bf16 wgmma forms (PTX ISA 8.0),
+// and on the host the tensor maps TMA reads and writes through.
 //
 // Shared-memory tiles are what TMA writes with the 128-byte swizzle: rows
 // of 128 bytes (64 bf16 or 32 float32 values), 16-byte chunk c of row r at
@@ -13,8 +13,8 @@
 //              (Q, K, and the kernel-9 operands). A k step of 16 bf16 values
 //              is 32 bytes along the row: the descriptor's start address + 2.
 //   MN-major   the product's n runs along the row and k down the rows: B
-//              [k][n] as stored (V, dO and Q as P . V, P^T . dO and dS^T . Q
-//              read them). One 128-byte row holds 64 n, so an N = 64
+//              [k][n] as stored (V, dO, Q and K as P . V, P^T . dO, dS^T . Q
+//              and dS . K read them). One 128-byte row holds 64 n, so an N = 64
 //              product reads one atom column; a k step of 16 rows is 2048
 //              bytes down the tile.
 #pragma once
@@ -108,6 +108,35 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, i
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
       : "memory");
+}
+
+// TMA store of a swizzled shared tile (as tma_load_2d reads it back) to the
+// box of `map` at (c0, c1); elements past the map's dims are not written.
+// It joins the issuing thread's bulk group (bulk_commit): bulk_wait_read
+// before the tile is written again, bulk_wait before the block ends.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of the thread's bulk groups still read shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Wait until at most N of the thread's bulk groups are incomplete.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ void named_sync(int id, int threads) {
@@ -360,12 +389,6 @@ __device__ __forceinline__ void a_from_acc(const float (&acc)[NACC], int kk, uns
 // async-proxy reads of it (wgmma's operand reads), once the reader syncs.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// Two bf16 values as one 32-bit word, the first in the low half (memory order).
-__device__ __forceinline__ unsigned bf16_pair(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return static_cast<unsigned>(__bfloat16_as_ushort(lo)) |
-         (static_cast<unsigned>(__bfloat16_as_ushort(hi)) << 16);
 }
 
 // A bf16 element of a stage's swizzled image as TMA writes it: 16-byte

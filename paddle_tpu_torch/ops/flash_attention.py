@@ -24,24 +24,26 @@ scaled there), the online softmax, p, ds, lse, delta and every sum in
 float32, and out, dq, dk and dv rounded once to their operand's type; lse
 and delta stay float32 in both.
 
-Two bodies of the bf16 forward and dK/dV. :func:`sm90_takes` decides
-before the launch, from the dtype, D, the strides and the base addresses:
+Two bodies of each bf16 kernel. :func:`sm90_takes` decides before the
+launch, from the dtype, D, the strides and the base addresses:
 
-- ``flash_attn_fwd_bf16_sm90`` and ``flash_attn_dkv_bf16_sm90`` take D = 64
+- ``flash_attn_fwd_bf16_sm90``, ``flash_attn_dq_bf16_sm90`` and
+  ``flash_attn_dkv_bf16_sm90`` take D = 64
   and 128 with every operand as TMA reads it (base 16-byte aligned, batch,
   time and head strides multiples of 8 values, nested outwards): the LM's
   views of its fused qkv. bf16 ``wgmma`` over TMA tiles, two warpgroups
   and one thread issuing the loads; p and ds enter their products as two bf16
   pieces (hi = bf16(x), lo = bf16(x - hi), ~16 bits), so the products run
   at the bf16 tensor-core rate (1.5 passes a product); out and dv stay
-  within a bf16 ulp of the float32 contract, dk within a few where it
-  cancels over a long sum of queries. What bounds them on an
+  within a bf16 ulp of the float32 contract, dq (its key tiles summed apart
+  and added with rounded float32 adds) within one or two, dk within a few
+  where it cancels over a long sum of queries. What bounds them on an
   H100 and what the design does about it: the notes of
   ``csrc/flash_attn_fwd.cu`` and ``csrc/flash_attn_bwd.cu``.
-- ``flash_attn_fwd_bf16`` and ``flash_attn_dkv_bf16`` (the float32 body's
-  bf16 instances: tiles widened to float32, ``mma.sync`` TF32) take every
-  other shape: D other than 64 and 128, an unaligned base, a stride TMA
-  cannot read. ``flash_attn_dq_bf16`` takes every bf16 shape.
+- ``flash_attn_fwd_bf16``, ``flash_attn_dq_bf16`` and ``flash_attn_dkv_bf16``
+  (the float32 body's bf16 instances: tiles widened to float32,
+  ``mma.sync`` TF32) take every other shape: D other than 64 and 128, an
+  unaligned base, a stride TMA cannot read.
 
 A failed build or launch of either body raises: nothing falls back to the
 other body or to the plain version.
@@ -99,9 +101,11 @@ FLASH_ATTN_FWD_BF16_SM90 = CudaKernel("flash_attn_fwd.cu", "flash_attn_fwd_bf16_
                                       FLASH_ATTN_FWD.argtypes[:-1])
 FLASH_ATTN_DKV_BF16_SM90 = CudaKernel("flash_attn_bwd.cu", "flash_attn_dkv_bf16_sm90",
                                       FLASH_ATTN_DKV.argtypes[:-1])
+FLASH_ATTN_DQ_BF16_SM90 = CudaKernel("flash_attn_bwd.cu", "flash_attn_dq_bf16_sm90",
+                                     FLASH_ATTN_DQ.argtypes[:-1])
 KERNELS = (FLASH_ATTN_FWD, FLASH_ATTN_DQ, FLASH_ATTN_DKV,
            FLASH_ATTN_FWD_BF16, FLASH_ATTN_DQ_BF16, FLASH_ATTN_DKV_BF16,
-           FLASH_ATTN_FWD_BF16_SM90, FLASH_ATTN_DKV_BF16_SM90)
+           FLASH_ATTN_FWD_BF16_SM90, FLASH_ATTN_DKV_BF16_SM90, FLASH_ATTN_DQ_BF16_SM90)
 SM90_D = (64, 128)                   # the head dims of the Hopper bodies
 # each kernel by operand dtype
 _FWD = {torch.float32: FLASH_ATTN_FWD, torch.bfloat16: FLASH_ATTN_FWD_BF16}
@@ -207,7 +211,7 @@ def _strided(t: Tensor):
 
 def sm90_takes(*operands: Tensor) -> bool:
     """Whether the bf16 bodies for Hopper take these [B, T, H, D] operands
-    (q, k, v, and dout for dK/dV): bf16, D = 64 or 128, and each as TMA
+    (q, k, v, and dout for dQ and dK/dV): bf16, D = 64 or 128, and each as TMA
     reads it through a tensor map of dims (D, H, T, B): its base 16-byte
     aligned, its head, time and batch strides positive multiples of 8
     values, each at least the extent of the dims inside it (sh >= D,
@@ -254,10 +258,14 @@ def _check_backward(q, k, v, dout, lse, delta, lengths):
 
 
 def _launch_dq(q, k, v, dout, lse, delta, lengths, causal):
+    """Kernel 11 -> dq: the dtype's body, and the Hopper body where
+    :func:`sm90_takes` q, k, v and dout (it reads lse and delta with plain
+    loads, at any alignment)."""
     args, (B, T, H, D) = _check_backward(q, k, v, dout, lse, delta, lengths)
+    kernel = FLASH_ATTN_DQ_BF16_SM90 if sm90_takes(q, k, v, dout) else _DQ[q.dtype]
     dq = torch.empty((B, T, H, D), device=q.device, dtype=q.dtype)
     kernel_flops.record(kernel_flops.flash_dq_flops(B, T, H, D))
-    _DQ[q.dtype].launch(q.device, *args, *_strided(dq), B, T, H, D, int(bool(causal)))
+    kernel.launch(q.device, *args, *_strided(dq), B, T, H, D, int(bool(causal)))
     return dq
 
 

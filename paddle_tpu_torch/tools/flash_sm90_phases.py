@@ -1,6 +1,7 @@
 """Where a tile of the bf16 flash bodies for Hopper goes: the phase clocks
 of csrc/flash_attn_fwd.cu (flash_attn_fwd_bf16_sm90) and
-csrc/flash_attn_bwd.cu (flash_attn_dkv_bf16_sm90), read from one heavy block.
+csrc/flash_attn_bwd.cu (flash_attn_dq_bf16_sm90, flash_attn_dkv_bf16_sm90),
+read from one heavy block.
 
 Run from the root of a checkout, on a machine with the GPU and nvcc:
 
@@ -9,13 +10,13 @@ Run from the root of a checkout, on a machine with the GPU and nvcc:
 Both sources are built as they stand with -DFLASH_SM90_PHASES, which turns
 on their FLASH_SM90_PHASE probes (csrc/flash_attn.cuh): thread 0 of each
 warpgroup reads clock64() at the phase boundaries of every key tile
-(forward: the block of batch 0, head 0 and the last query tile, the
-heaviest under the causal mask) or query tile (dK/dV: the block of the
-first 128 keys). One nvcc per source, both at once, into
-build/flash_sm90_phases/; each is bound with ctypes and launched three
-times at the long-context LM's shape (B = 8, T = 2048, H = 8, D = 64,
-causal, full lengths) on strided views of a fused qkv; the last launch's
-clocks are read. Prints, per body and warpgroup, the median cycles of each
+(forward and dQ: the block of batch 0, head 0 and the last query tile,
+the heaviest under the causal mask) or query tile (dK/dV: the block of
+the first 128 keys). One nvcc per source, both at once, into
+build/flash_sm90_phases/; each body is bound with ctypes and launched
+three times at the long-context LM's shape (B = 8, T = 2048, H = 8,
+D = 64, causal, full lengths) on strided views of a fused qkv, its
+source's clocks zeroed first; the last launch's clocks are read. Prints, per body and warpgroup, the median cycles of each
 phase over the tiles, the median cycles a tile and the tile count, as one
 JSON object per body, with the card's name and power limit.
 """
@@ -30,14 +31,16 @@ import sys
 
 PHASES = {
     "fwd": ("full_wait", "scores", "softmax_and_pieces", "pv_and_add", "release"),
+    "dq": ("full_wait", "scores", "p_ds_and_pieces", "dq", "release"),
     "dkv": ("full_wait", "scores", "p_ds_and_pieces", "dv_dk", "release"),
 }
-SOURCES = {"fwd": "flash_attn_fwd.cu", "dkv": "flash_attn_bwd.cu"}
+SOURCES = {"fwd": "flash_attn_fwd.cu", "bwd": "flash_attn_bwd.cu"}
+SOURCE_OF = {"fwd": "fwd", "dq": "bwd", "dkv": "bwd"}
 
 
 def build(root):
     """One nvcc per source with its probes on, both at once:
-    {"fwd": path, "dkv": path}."""
+    {"fwd": path, "bwd": path}."""
     from paddle_tpu_torch.ops import _build
 
     out_dir = os.path.join(root, "build", "flash_sm90_phases")
@@ -100,20 +103,25 @@ def main() -> int:
     st = lambda t: [t.data_ptr(), t.stride(0), t.stride(1), t.stride(2)]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
-    for name, symbol, kernel in (("fwd", "flash_attn_fwd_bf16_sm90", fa.FLASH_ATTN_FWD_BF16_SM90),
-                                 ("dkv", "flash_attn_dkv_bf16_sm90", fa.FLASH_ATTN_DKV_BF16_SM90)):
-        lib = ctypes.CDLL(libs[name])
+    dq = torch.empty_like(out)
+    for name, kernel in (("fwd", fa.FLASH_ATTN_FWD_BF16_SM90), ("dq", fa.FLASH_ATTN_DQ_BF16_SM90),
+                         ("dkv", fa.FLASH_ATTN_DKV_BF16_SM90)):
+        symbol = kernel.symbol
+        lib = ctypes.CDLL(libs[SOURCE_OF[name]])
         fn = getattr(lib, symbol)
         fn.argtypes = kernel.argtypes
         fn.restype = ctypes.c_int
+        if lib.phase_clocks_reset():
+            raise RuntimeError("phase_clocks_reset failed")
         for _ in range(3):
             if name == "fwd":
                 err = fn(*st(q), *st(k), *st(v), lengths.data_ptr(), *st(out), lse.data_ptr(),
                          B, T, H, D, 1, stream)
             else:
                 delta = torch.sum(do.float() * out.float(), dim=-1).transpose(1, 2).contiguous()
+                grads = [*st(dq)] if name == "dq" else [*st(dk), *st(dv)]
                 err = fn(*st(q), *st(k), *st(v), *st(do), lse.data_ptr(), delta.data_ptr(),
-                         lengths.data_ptr(), *st(dk), *st(dv), B, T, H, D, 1, stream)
+                         lengths.data_ptr(), *grads, B, T, H, D, 1, stream)
             if err:
                 raise RuntimeError(f"{symbol}: CUDA error {err}")
         torch.cuda.synchronize()

@@ -229,6 +229,45 @@ def test_bf16_backward_matches_jax_vjp_of_the_interpreted_kernel():
     np.testing.assert_allclose(f32(db), want, rtol=1e-4, atol=1e-5 * _scale(want))
 
 
+# the card's bound on the bf16 body's s and q (chip_smoke.py's
+# CONV_STATS_BF16_TOL): of Σ|y| and Σy² per channel, where an element of y
+# may round to a neighbour of the other's
+CONV_STATS_BF16_TOL = 1e-3
+
+
+def _truncated_f32(v):
+    """float64 values rounded toward zero to float32: the tensor core's add
+    into its float32 accumulator."""
+    r = v.astype(np.float32)
+    over = np.abs(r.astype(np.float64)) > np.abs(v)
+    r[over] = np.nextafter(r[over], np.float32(0.0))
+    return r
+
+
+def test_bf16_one_accumulator_over_k_matches_the_interpreted_kernel():
+    """The bf16 body's arithmetic (csrc/conv1x1_bn.cu, conv1x1_bf16_tile)
+    emulated at K = 2048: one float32 accumulator over the whole K loop, to
+    which each 16-feature step's exact bf16 products are added rounding
+    toward zero, with no per-stage sum apart; then y = bf16(acc + b) and s,
+    q summed from the rounded y. Against ``_run`` in interpret mode at
+    bf16: y within one bf16 ulp (at no less than 2^-12 of its scale), s and
+    q within CONV_STATS_BF16_TOL of Σ|y| and Σy²."""
+    M, K, N = 256, 2048, 128
+    (jx, x), (jw, w), (jb, b) = _bf16_inputs(M, K, N, seed=11)
+    assert pcb.supported(M, K, N, 2)
+    jy, js, jq = pcb._run(jx, jw, jb, True)
+    xf, wf = f32(x).astype(np.float64), f32(w).astype(np.float64)     # w [K, N]
+    acc = np.zeros((M, N), np.float32)
+    for k0 in range(0, K, 16):
+        acc = _truncated_f32(acc.astype(np.float64) + xf[:, k0:k0 + 16] @ wf[k0:k0 + 16])
+    y = torch.from_numpy(acc + f32(b)).to(torch.bfloat16)
+    assert_within_one_ulp(y, jy, "y", floor=CANCEL_FLOOR)
+    yr = f32(jy).astype(np.float64)
+    yf = f32(y).astype(np.float64)
+    assert (np.abs(yf.sum(0) - np.asarray(js)) <= CONV_STATS_BF16_TOL * np.abs(yr).sum(0)).all()
+    assert (np.abs((yf * yf).sum(0) - np.asarray(jq)) <= CONV_STATS_BF16_TOL * (yr ** 2).sum(0)).all()
+
+
 @pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
 def test_the_wrapper_refuses_other_operand_types(dtype):
     """Only float32 and bf16, one type for x, w and b, on every device."""

@@ -147,10 +147,10 @@ def test_kernel_builds_are_keyed_by_their_sources():
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     kernels = fg.KERNELS + fa.KERNELS + fl.KERNELS + fc.KERNELS + fl_attn.KERNELS
     # 13 float32 entry points, the bf16 instances of kernels 1-3 and 5-12,
-    # and the bf16 bodies of 10 and 12 for Hopper
-    assert len({k.symbol for k in kernels}) == 27
+    # and the bf16 bodies of 10, 11 and 12 for Hopper
+    assert len({k.symbol for k in kernels}) == 28
     assert {k.symbol for k in kernels if k.symbol.endswith("_sm90")} == {
-        "flash_attn_fwd_bf16_sm90", "flash_attn_dkv_bf16_sm90"}
+        "flash_attn_fwd_bf16_sm90", "flash_attn_dq_bf16_sm90", "flash_attn_dkv_bf16_sm90"}
     assert {k.symbol for k in kernels if k.symbol.endswith("_bf16")} == {
         "gru_fwd_bf16", "gru_fwd_train_bf16", "gru_bwd_bf16",
         "attention_gru_fwd_train_bf16", "attention_gru_bwd_bf16",
@@ -174,6 +174,7 @@ def test_kernel_builds_are_keyed_by_their_sources():
                       (fl.LSTM_FWD, fl.LSTM_FWD_BF16), (fl.LSTM_FWD_TRAIN, fl.LSTM_FWD_TRAIN_BF16),
                       (fl.LSTM_BWD, fl.LSTM_BWD_BF16),
                       (fl_attn.FLASH_ATTN_FWD, fl_attn.FLASH_ATTN_FWD_BF16_SM90),
+                      (fl_attn.FLASH_ATTN_DQ, fl_attn.FLASH_ATTN_DQ_BF16_SM90),
                       (fl_attn.FLASH_ATTN_DKV, fl_attn.FLASH_ATTN_DKV_BF16_SM90)):
         assert f32.library_path() == bf16.library_path()
     assert fl.LSTM_FWD.library_path() == fl.LSTM_FWD_TRAIN.library_path()

@@ -1662,7 +1662,8 @@ def test_full_remat_launches_the_training_forward_twice(dev):
 # ResNet-50's 1x1 convs at B = 64 (stage 2's M = 207,936 with K or N = 64;
 # stage 5 at K = 2048), and shapes TMA cannot read (K % 8 != 0, unaligned)
 @pytest.mark.parametrize("M,K,N", [(207936, 64, 256), (12544, 1024, 256), (3136, 2048, 512),
-                                   (1000, 64, 64), (37, 5, 3), (513, 130, 200)])
+                                   (1000, 64, 64), (37, 5, 3), (513, 130, 200),
+                                   (1000, 72, 100), (130, 4104, 136)])
 @pytest.mark.parametrize("bias", [False, True])
 def test_conv1x1_stats_bf16_kernel_matches_plain_version(dev, M, K, N, bias):
     """Kernel 9's bf16 instance against its bf16 plain version: y bf16
@@ -1686,6 +1687,46 @@ def test_conv1x1_stats_bf16_kernel_matches_plain_version(dev, M, K, N, bias):
     assert ((s - sr).abs() <= 1e-3 * yf.abs().sum(0) + 1e-30).all()
     assert ((q - qr).abs() <= 1e-3 * (yf * yf).sum(0) + 1e-30).all()
     assert all(torch.equal(a, r) for a, r in zip((y, s, q), again))
+
+
+@pytest.mark.parametrize("M,K,N", RESNET_CONV_SHAPES)
+def test_conv1x1_stats_bf16_kernel_at_resnet_shapes(dev, M, K, N):
+    """Kernel 9's bf16 body at the nine shapes of the ResNet-50 train step,
+    with and without a bias, against its bf16 plain version (y within 1e-2
+    of scale, s and q within 1e-3 of Σ|y| and Σy²); two launches give equal
+    bits."""
+    from paddle_tpu_torch.ops import fused_conv1x1_bn as fc
+
+    x, w, b = (a.to(torch.bfloat16) for a in _conv_inputs(M, K, N, dev, seed=5))
+    for bias in (None, b):
+        y, s, q = fc.conv1x1_stats(x, w, bias)
+        yr, sr, qr = fc.conv1x1_stats_reference(x, w, bias)
+        torch.cuda.synchronize()
+        assert torch.isfinite(y.float()).all() and _scale_err(y, yr) <= BF16_TOL
+        yf = yr.float()
+        assert ((s - sr).abs() <= 1e-3 * yf.abs().sum(0) + 1e-30).all()
+        assert ((q - qr).abs() <= 1e-3 * (yf * yf).sum(0) + 1e-30).all()
+        del yr, sr, qr, yf
+        assert all(torch.equal(a, r) for a, r in zip((y, s, q), fc.conv1x1_stats(x, w, bias)))
+
+
+def test_conv1x1_stats_bf16_kernel_takes_m_past_65535_row_tiles(dev):
+    """M = 8,388,481 bf16 rows, one past 65535 row tiles of 128: the
+    persistent blocks walk every tile, and y, s and q match the bf16 plain
+    version; two launches give equal bits."""
+    from paddle_tpu_torch.ops import fused_conv1x1_bn as fc
+
+    M, K, N = 8388481, 8, 16
+    x, w, b = (a.to(torch.bfloat16) for a in _conv_inputs(M, K, N, dev, seed=7))
+    y, s, q = fc.conv1x1_stats(x, w, b)
+    yr, sr, qr = fc.conv1x1_stats_reference(x, w, b)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y.float()).all() and _scale_err(y, yr) <= BF16_TOL
+    yf = yr.float()
+    assert ((s - sr).abs() <= 1e-3 * yf.abs().sum(0) + 1e-30).all()
+    assert ((q - qr).abs() <= 1e-3 * (yf * yf).sum(0) + 1e-30).all()
+    del yr, yf
+    assert all(torch.equal(a, r) for a, r in zip((y, s, q), fc.conv1x1_stats(x, w, b)))
 
 
 def test_conv1x1_stats_bf16_kernel_takes_unaligned_operands(dev):
@@ -1733,7 +1774,7 @@ def test_flash_bf16_kernels_match_plain_versions(dev, B, T, H, D, causal):
     torch.cuda.synchronize()
     launched = [kern.launches - b for kern, b in zip(fa.KERNELS, before)]
     old, new = (0, 2) if sm90 else (2, 0)
-    assert launched == [0, 0, 0, old, 2, old, new, new], launched
+    assert launched == [0, 0, 0, old, old, old, new, new, new], launched
     assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
     assert torch.equal(light, out) and _scale_err(out, ref_out) <= BF16_TOL
     seen = lengths > 0
@@ -1749,12 +1790,15 @@ def test_flash_bf16_kernels_match_plain_versions(dev, B, T, H, D, causal):
 # SM90_ULPS bf16 spacings of the larger magnitude, the spacing taken at no
 # less than SM90_CANCEL_FLOOR of max |plain| (test_torch_flash_attention.py's
 # floor). p and ds enter the products as two bf16 pieces: out and dv lie
-# within one spacing, dk (summed over up to T queries in the wgmma
-# accumulator, which truncates) several where it cancels. Rounded once to
-# bf16 (one piece), the plain versions lie tens of spacings off in out and
-# dk, a few in dv (chip_smoke.py's SM90_ULPS).
+# within one spacing, dq (each key tile's partial summed apart and added
+# with rounded float32 adds) within two (one but where ds = p (dp - delta)
+# cancels over the tensor core's truncating score sums:
+# test_torch_flash_attention.py), dk (summed over up to T queries in the
+# wgmma accumulator, which truncates) several where it cancels. Rounded
+# once to bf16 (one piece), the plain versions lie tens of spacings off in
+# out, dq and dk, a few in dv (chip_smoke.py's SM90_ULPS).
 SM90_CANCEL_FLOOR = 2.0 ** -11
-SM90_ULPS = {"out": 1.0, "dk": 16.0, "dv": 1.0}
+SM90_ULPS = {"out": 1.0, "dq": 2.0, "dk": 16.0, "dv": 1.0}
 
 
 def _bf16_ulps(got, want):
@@ -1766,8 +1810,9 @@ def _bf16_ulps(got, want):
 
 
 def _one_piece_references(q, k, v, do, lse, delta, lengths, causal):
-    """Kernels 10 and 12's plain versions with p and ds rounded once to bf16
-    before their products -> (out, dk, dv): the control of the two pieces."""
+    """Kernels 10, 12 and 11's plain versions with p and ds rounded once to
+    bf16 before their products -> (out, dk, dv, dq): the control of the two
+    pieces."""
     from paddle_tpu_torch.ops import flash_attention as fa
 
     piece = lambda x: x.to(torch.bfloat16).float()
@@ -1781,21 +1826,23 @@ def _one_piece_references(q, k, v, do, lse, delta, lengths, causal):
     out = torch.einsum("bhqk,bkhd->bqhd", piece(p), vw) / l_safe.transpose(1, 2)[..., None]
     p, ds = fa._scores_backward(q, k, v, do, lse, delta, lengths, causal)
     return (out.to(q.dtype), torch.einsum("bhqk,bqhd->bkhd", piece(ds), qw).to(k.dtype),
-            torch.einsum("bhqk,bqhd->bkhd", piece(p), dw).to(v.dtype))
+            torch.einsum("bhqk,bqhd->bkhd", piece(p), dw).to(v.dtype),
+            torch.einsum("bhqk,bkhd->bqhd", piece(ds), kw).to(q.dtype))
 
 
 @pytest.mark.parametrize("D,T,causal", [(64, 2048, True), (64, 1000, False),
-                                         (128, 1000, True), (128, 2048, False)])
+                                         (128, 1000, True), (128, 2048, False),
+                                         (64, 257, False), (128, 257, True)])
 def test_flash_sm90_bodies_match_plain_versions(dev, D, T, causal):
     """The bf16 bodies for Hopper (flash_attn_fwd_bf16_sm90,
-    flash_attn_dkv_bf16_sm90: bf16 wgmma over TMA tiles) against their bf16
-    plain versions on strided views of one fused [B, T, 3, H, D] qkv, with
-    lengths that hold a 0 and a 1; T = 1000 leaves a ragged last tile. out,
-    dk and dv within SM90_ULPS bf16 spacings (at no less than
-    SM90_CANCEL_FLOOR of the scale), where the one-piece control is not;
-    lse within 1e-4 where a key is seen and -1e30 elsewhere, the light
-    forward equal to the training one, dk and dv bit-equal over two
-    launches; no other body launches."""
+    flash_attn_dq_bf16_sm90, flash_attn_dkv_bf16_sm90: bf16 wgmma over TMA
+    tiles) against their bf16 plain versions on strided views of one fused
+    [B, T, 3, H, D] qkv, with lengths that hold a 0 and a 1; T = 1000 and
+    257 leave a ragged last tile. out, dq, dk and dv within SM90_ULPS bf16
+    spacings (at no less than SM90_CANCEL_FLOOR of the scale), where the
+    one-piece control is not; lse within 1e-4 where a key is seen and -1e30
+    elsewhere, the light forward equal to the training one, dq, dk and dv
+    bit-equal over two launches; no other body launches."""
     from paddle_tpu_torch.ops import flash_attention as fa
 
     q, k, v, do, lengths = _flash_inputs(dev, 3, T, 2, D, seed=D + T + causal)
@@ -1810,20 +1857,23 @@ def test_flash_sm90_bodies_match_plain_versions(dev, D, T, causal):
     args = (q, k, v, do, ref_lse, delta, lengths, causal)
     dk, dv = fa._launch_dkv(*args)
     dk2, dv2 = fa._launch_dkv(*args)
+    dq, dq2 = fa._launch_dq(*args), fa._launch_dq(*args)
     want_dk, want_dv = fa.flash_dkv_reference(*args)
+    want_dq = fa.flash_dq_reference(*args)
     torch.cuda.synchronize()
     launched = {kern.symbol: kern.launches - b for kern, b in zip(fa.KERNELS, before)}
     assert launched == {kern.symbol: 2 if kern in (fa.FLASH_ATTN_FWD_BF16_SM90,
+                                                    fa.FLASH_ATTN_DQ_BF16_SM90,
                                                     fa.FLASH_ATTN_DKV_BF16_SM90) else 0
                         for kern in fa.KERNELS}, launched
     assert torch.equal(light, out) and _scale_err(out, ref_out) <= BF16_TOL
     seen = lengths > 0
     assert float((lse - ref_lse)[seen].abs().max()) <= TOL
     assert (lse[~seen] == -1e30).all() and not out[~seen].float().any()
-    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2) and torch.equal(dq, dq2)
     control = _one_piece_references(*args)
-    for name, a, r, c in (("out", out, ref_out, control[0]), ("dk", dk, want_dk, control[1]),
-                          ("dv", dv, want_dv, control[2])):
+    for name, a, r, c in (("out", out, ref_out, control[0]), ("dq", dq, want_dq, control[3]),
+                          ("dk", dk, want_dk, control[1]), ("dv", dv, want_dv, control[2])):
         assert a.dtype == torch.bfloat16 and torch.isfinite(a.float()).all(), name
         assert _bf16_ulps(a, r) <= SM90_ULPS[name] < _bf16_ulps(c, r), (
             name, _bf16_ulps(a, r), _bf16_ulps(c, r))
@@ -1833,8 +1883,8 @@ def test_flash_sm90_bodies_match_plain_versions(dev, D, T, causal):
 def test_flash_bf16_autograd_routes_by_head_dim(dev, D):
     """One autograd step of bf16 flash attention on the LM's views (B = 2, T
     = 2048, 8 heads, causal): at D = 64 one launch each of the Hopper
-    forward, 11's bf16 instance and the Hopper dK/dV, and never the float32
-    body's bf16 forward or dK/dV; at D = 40, which the Hopper bodies do not
+    forward, dQ and dK/dV, and never the float32 body's bf16 instances; at
+    D = 40, which the Hopper bodies do not
     take, one launch each of the float32 body's three bf16 instances. The
     gradients within 1e-2 of scale of the plain versions' autograd."""
     from paddle_tpu_torch.ops import flash_attention as fa
@@ -1850,7 +1900,7 @@ def test_flash_bf16_autograd_routes_by_head_dim(dev, D):
     (grad,) = torch.autograd.grad(out, qkv, cot)
     torch.cuda.synchronize()
     launched = {kern.symbol: kern.launches - b for kern, b in zip(fa.KERNELS, before)}
-    names = (("flash_attn_fwd_bf16_sm90", "flash_attn_dq_bf16", "flash_attn_dkv_bf16_sm90")
+    names = (("flash_attn_fwd_bf16_sm90", "flash_attn_dq_bf16_sm90", "flash_attn_dkv_bf16_sm90")
              if D == 64 else ("flash_attn_fwd_bf16", "flash_attn_dq_bf16", "flash_attn_dkv_bf16"))
     assert launched == {kern.symbol: int(kern.symbol in names) for kern in fa.KERNELS}, launched
     leaf = qkv.detach().requires_grad_()

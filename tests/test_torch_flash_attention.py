@@ -276,7 +276,8 @@ def test_bf16_references_match_the_pallas_kernels(causal):
 # multiplied exactly and summed in float32. The forward runs the kernel's
 # online softmax over tiles of 128 keys in base 2 (the row max of the raw
 # scores, then p = 2^(s scale log2(e) - m)), and adds each tile's two
-# partial sums to o after scaling o by alpha.
+# partial sums to o after scaling o by alpha; dQ sums each tile of 64 keys
+# apart and adds it to dq.
 SM90_SHAPE = (2, 256, 2, 64)
 SM90_LENGTHS = np.array([256, 131], np.int32)
 LOG2E = np.float32(1.4426950408889634)
@@ -344,14 +345,46 @@ def _sm90_dkv(q, k, v, dout, lse, delta, lengths, causal, pieces=2):
     return dk.transpose(1, 2).to(torch.bfloat16), dv.transpose(1, 2).to(torch.bfloat16)
 
 
+def _truncated_scores(a, b):
+    """a . b^T over [..., T, D] operands as the tensor core sums it: each
+    k-step's 16 exact products added to the float32 accumulator rounding
+    toward zero."""
+    acc = torch.zeros(a.shape[:-1] + (b.shape[-2],), dtype=torch.float64)
+    for d0 in range(0, a.shape[-1], 16):
+        v = acc + a[..., d0:d0 + 16].double() @ b[..., d0:d0 + 16].double().transpose(-1, -2)
+        r = v.float().double()
+        acc = torch.where(r.abs() > v.abs(), torch.nextafter(r.float(), torch.tensor(0.0)).double(),
+                          r)
+    return acc.float()
+
+
+def _sm90_dq(q, k, v, dout, lse, delta, lengths, causal, block=64, pieces=2, truncated=False):
+    B, T, H, D = q.shape
+    scale = torch.tensor(1.0 / np.sqrt(D), dtype=torch.float32)
+    qf, kf, vf, df = (a.float().transpose(1, 2) for a in (q, k, v, dout))
+    vis = _sm90_mask(lengths, T, causal)                             # [B, 1, Tq, Tk]
+    dot = _truncated_scores if truncated else (lambda a, b: a @ b.transpose(-1, -2))
+    p = torch.where(vis, torch.exp2(dot(qf, kf) * (scale * torch.tensor(LOG2E))
+                                    - (lse * torch.tensor(LOG2E))[..., None]),
+                    torch.tensor(0.0))
+    ds = p * (dot(df, vf) - delta[..., None]) * scale
+    dq = torch.zeros(B, H, T, D)
+    for k0 in range(0, T, block):                  # a tile's partial, added with a rounded add
+        hi, lo = _pieces(ds[..., k0:k0 + block], pieces)
+        kt = kf[:, :, k0:k0 + block]
+        dq = dq + (lo @ kt + hi @ kt)
+    return dq.transpose(1, 2).to(torch.bfloat16)
+
+
 @pytest.mark.parametrize("causal", [False, True])
 def test_sm90_rounding_design_matches_the_pallas_kernels(causal):
     """The Hopper bodies' arithmetic (p and ds in two bf16 pieces, products
-    of bf16 operands summed in float32) against ``_run_fwd`` and
-    ``_run_bwd`` in interpret mode at bf16, on ragged lengths: out, dk and
-    dv within one bf16 ulp (taken at no less than SM90_CANCEL_FLOOR of the
-    scale), lse to float32 rounding. Two pieces keep ~16 bits of p and ds;
-    one piece alone (p and ds rounded to bf16) fails the same bound."""
+    of bf16 operands summed in float32, dq's key tiles summed apart)
+    against ``_run_fwd`` and ``_run_bwd`` in interpret mode at bf16, on
+    ragged lengths: out, dq, dk and dv within one bf16 ulp (taken at no
+    less than SM90_CANCEL_FLOOR of the scale), lse to float32 rounding. Two
+    pieces keep ~16 bits of p and ds; one piece alone (p and ds rounded to
+    bf16) fails the same bound."""
     Bs, Ts, Hs, Ds = SM90_SHAPE
     rng = np.random.RandomState(11)
     q, k, v, do = (rng.randn(Bs, Ts, Hs, Ds).astype(np.float32) for _ in range(4))
@@ -374,23 +407,29 @@ def test_sm90_rounding_design_matches_the_pallas_kernels(causal):
     delta = torch.sum(tdo.float() * out_t.float(), dim=-1).transpose(1, 2).contiguous()
     args = (tq, tk, tv, tdo, _t(np.asarray(lse)), delta, _t(SM90_LENGTHS), causal)
     dk, dv = _sm90_dkv(*args)
-    for name, g, w in (("dk", dk, want[1]), ("dv", dv, want[2])):
+    dq = _sm90_dq(*args)
+    for name, g, w in (("dq", dq, want[0]), ("dk", dk, want[1]), ("dv", dv, want[2])):
         assert g.dtype == torch.bfloat16 and w.dtype == jnp.bfloat16, name
         assert_within_one_ulp(g, btdh(w), name, floor=SM90_CANCEL_FLOOR)
     one_out, _ = _sm90_forward(tq, tk, tv, _t(SM90_LENGTHS), causal, pieces=1)
     one_dk, one_dv = _sm90_dkv(*args, pieces=1)
-    for name, g, w in (("out", one_out, out), ("dk", one_dk, want[1]), ("dv", one_dv, want[2])):
+    one_dq = _sm90_dq(*args, pieces=1)
+    for name, g, w in (("out", one_out, out), ("dq", one_dq, want[0]), ("dk", one_dk, want[1]),
+                       ("dv", one_dv, want[2])):
         with pytest.raises(AssertionError):
             assert_within_one_ulp(g, btdh(w), name, floor=SM90_CANCEL_FLOOR)
 
 
-def test_sm90_route_takes_the_lm_views_and_leaves_the_rest():
-    """The route of the bf16 forward and dK/dV (``flash_attention.sm90_takes``,
+def test_sm90_route_takes_the_lm_views_and_leaves_the_rest(monkeypatch):
+    """The route of the bf16 forward, dQ and dK/dV (``flash_attention.sm90_takes``,
     decided from the dtype, D, strides and base addresses alone): the
     layer's strided views of a fused [B, T, 3, H, D] qkv at D = 64 and 128
     take the Hopper bodies; D = 40, a view whose base is one element off,
     float32, and a [B, H, T, D] tensor seen as [B, T, H, D] (strides not
-    nested outwards) take the float32 body's bf16 instances."""
+    nested outwards) take the float32 body's bf16 instances. ``_launch_dq``
+    and ``_launch_dkv`` pick their kernel by it (the launch recorded in
+    place of a build); dQ also where lse and delta are not 16-byte aligned,
+    which only dK/dV's TMA reads of them need."""
     for D_ in (64, 128):
         qkv = torch.zeros(2, 100, 3, 4, D_, dtype=torch.bfloat16)
         views = (qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
@@ -407,3 +446,63 @@ def test_sm90_route_takes_the_lm_views_and_leaves_the_rest():
     assert not fa.sm90_takes(heads_first)
     ok = torch.zeros(2, 100, 4, 64, dtype=torch.bfloat16)
     assert not fa.sm90_takes(ok, heads_first)              # one operand refused: all refused
+
+    picked = []
+    for kern in fa.KERNELS:
+        monkeypatch.setattr(kern, "launch", lambda device, *a, _k=kern: picked.append(_k.symbol))
+
+    def route(qkv, dout, stats_offset=0):
+        B_, T_, _, H_, _ = qkv.shape
+        stats = torch.zeros(2 * B_ * H_ * T_ + stats_offset)[stats_offset:]
+        lse, delta = stats[:B_ * H_ * T_].view(B_, H_, T_), stats[B_ * H_ * T_:].view(B_, H_, T_)
+        args = (qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], dout, lse, delta,
+                torch.full((B_,), T_, dtype=torch.int32), True)
+        picked.clear()
+        fa._launch_dq(*args)
+        fa._launch_dkv(*args)
+        return tuple(picked)
+
+    for D_ in (64, 128):
+        qkv = torch.zeros(2, 100, 3, 4, D_, dtype=torch.bfloat16)
+        dout = torch.zeros(2, 100, 4, D_, dtype=torch.bfloat16)
+        assert route(qkv, dout) == ("flash_attn_dq_bf16_sm90", "flash_attn_dkv_bf16_sm90")
+        assert route(qkv, dout, stats_offset=1) == ("flash_attn_dq_bf16_sm90",
+                                                    "flash_attn_dkv_bf16")
+        assert route(qkv.float(), dout.float()) == ("flash_attn_dq", "flash_attn_dkv")
+        flat = torch.zeros(2 * 100 * 4 * D_ + 1, dtype=torch.bfloat16)
+        assert route(qkv, flat[1:].view(2, 100, 4, D_)) == ("flash_attn_dq_bf16",
+                                                            "flash_attn_dkv_bf16")
+    assert route(narrow, torch.zeros(2, 100, 4, 40, dtype=torch.bfloat16)) == (
+        "flash_attn_dq_bf16", "flash_attn_dkv_bf16")
+
+
+def test_sm90_dq_past_one_spacing_only_by_the_truncating_score_sums():
+    """Why the card holds the dQ body to 2 bf16 spacings, not 1
+    (chip_smoke.py's SM90_ULPS): at the GPU test's non-causal T = 1000 case
+    (tests/test_torch_cuda.py::test_flash_sm90_bodies_match_plain_versions,
+    B = 3, H = 2, D = 64, lengths with a 1 and a 0) the emulated body with
+    round-to-nearest score sums lies within one spacing of the plain
+    version, and with the tensor core's truncating sums of q . k^T and
+    dout . v^T (ds = p (dp - delta) cancels, so dp's truncation shows) past
+    one and within two; one piece of ds lies far outside both."""
+    B_, T_, H_, D_ = 3, 1000, 2, 64
+    rng = np.random.RandomState(D_ + T_)
+    qkv = torch.from_numpy(rng.randn(B_, T_, 3, H_, D_).astype(np.float32)).to(torch.bfloat16)
+    lens = rng.randint(1, T_ + 1, B_)
+    lens[-1], lens[1] = 0, 1
+    lengths = torch.from_numpy(lens.astype(np.int32))
+    do = torch.from_numpy(rng.randn(B_, T_, H_, D_).astype(np.float32)).to(torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    ref, lse = fa.flash_forward_reference(q, k, v, lengths, False)
+    delta = torch.sum(do.float() * ref.float(), dim=-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, lse, delta, lengths, False)
+    want = fa.flash_dq_reference(*args)
+
+    def spacings(got):
+        got, w = got.float(), want.float()
+        big = torch.maximum(got.abs(), w.abs()).clamp(min=SM90_CANCEL_FLOOR * float(w.abs().max()))
+        return float(((got - w).abs() / torch.exp2(torch.floor(torch.log2(big)) - 7)).max())
+
+    assert spacings(_sm90_dq(*args)) <= 1.0
+    assert 1.0 < spacings(_sm90_dq(*args, truncated=True)) <= 2.0
+    assert spacings(_sm90_dq(*args, pieces=1)) > 2.0
