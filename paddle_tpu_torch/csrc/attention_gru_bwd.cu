@@ -113,7 +113,7 @@ attention_gru_bwd_kernel(const S* __restrict__ dy, long long dy_st, long long dy
                          S* dxw, S* dctx, S* dh0,
                          float* dep, long long dep_st, long long dep_sb,
                          float* dwa, float* dm_rows, float* dv_part, unsigned* counter,
-                         float* dctx32,
+                         float* dctx32, unsigned long long* phase_ns,
                          int Td, int B, int Te, int D, int E, int gpb, int epb, int parts,
                          int plen, int ipb, int dep_smem) {
   constexpr bool kF32 = IsF32<S>::value;
@@ -136,6 +136,8 @@ attention_gru_bwd_kernel(const S* __restrict__ dy, long long dy_st, long long dy
   float* dba_s = dv_s + static_cast<long long>(ipb) * plen;   // [ipb][plen]
   float* dep_s = dba_s + static_cast<long long>(ipb) * plen;  // [ipb][Te][plen]
   GridBarrier bar{counter, 0};
+  // block 0's clock at the end of each phase of each step, when asked
+  const bool clocked = phase_ns != nullptr && blockIdx.x == 0 && tid == 0;
   // unit group gl's regions
   auto W2 = [&](int gl) { return smem + gl * per_group; };
   auto W5 = [&](int gl) { return W2(gl) + 4LL * D; };
@@ -195,6 +197,7 @@ attention_gru_bwd_kernel(const S* __restrict__ dy, long long dy_st, long long dy
   for (int t = Td - 1; t >= 0; --t) {
     const long long tB = static_cast<long long>(t) * B;
     S* dxw_t = dxw + tB * D3;
+    unsigned long long* clk = clocked ? phase_ns + 5LL * (Td - 1 - t) : nullptr;
     // the d_ctx rows the attention phase reads: the stream itself, or in
     // bf16 the float32 row buffer
     float* dcx;
@@ -224,6 +227,7 @@ attention_gru_bwd_kernel(const S* __restrict__ dy, long long dy_st, long long dy
       }
     }
     bar.sync();
+    if (clk) clk[0] = global_ns();
 
     // 2: drh = dcand . wg[:, 2D:]^T and the reset-gate gradient
     for (int gl = 0; gl < gpb; ++gl) {
@@ -245,6 +249,7 @@ attention_gru_bwd_kernel(const S* __restrict__ dy, long long dy_st, long long dy
       }
     }
     bar.sync();
+    if (clk) clk[1] = global_ns();
 
     // 3: d_ctx = d_din . wctx^T for the owned rows of wctx
     for (int el = 0; el < epb; ++el) {
@@ -262,6 +267,7 @@ attention_gru_bwd_kernel(const S* __restrict__ dy, long long dy_st, long long dy
       __syncthreads();
     }
     bar.sync();
+    if (clk) clk[2] = global_ns();
 
     // 4: per (row, part of D): dalpha, the softmax and tanh backward
     for (int il = 0; il < ipb; ++il) {
@@ -314,6 +320,7 @@ attention_gru_bwd_kernel(const S* __restrict__ dy, long long dy_st, long long dy
       __syncthreads();
     }
     bar.sync();
+    if (clk) clk[3] = global_ns();
 
     // 5: DH = dh' u + drh r + d_din[:, :2D] . wg[k, :2D] + d_m . wa[k, :] + (1 - dm) DH
     for (int gl = 0; gl < gpb; ++gl) {
@@ -340,6 +347,7 @@ attention_gru_bwd_kernel(const S* __restrict__ dy, long long dy_st, long long dy
       }
     }
     __syncthreads();
+    if (clk) clk[4] = global_ns();
   }
 
   for (int gl = 0; gl < gpb; ++gl) {
@@ -431,8 +439,8 @@ int launch_bwd(const void* dy, long long dy_st, long long dy_sb, const void* ep,
                const void* m_all, const void* wa, const void* v, const void* wctx,
                const void* wg, void* dxw, void* dctx, void* dh0, void* dep, long long dep_st,
                long long dep_sb, void* dwa, void* dba, void* dv, void* dm_rows, void* dv_part,
-               void* counter, void* dctx32, int Td, int B, int Te, int D, int E, int num_sms,
-               void* stream) {
+               void* counter, void* dctx32, void* phase_ns, int Td, int B, int Te, int D, int E,
+               int num_sms, void* stream) {
   if (Td <= 0 || B <= 0 || Te <= 0 || D <= 0 || E <= 0) return static_cast<int>(cudaSuccess);
   if (!IsF32<S>::value && dctx32 == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -456,6 +464,7 @@ int launch_bwd(const void* dy, long long dy_st, long long dy_sb, const void* ep,
       static_cast<float*>(dep), dep_st, dep_sb,
       static_cast<float*>(dwa), static_cast<float*>(dm_rows), static_cast<float*>(dv_part),
       static_cast<unsigned*>(counter), static_cast<float*>(dctx32),
+      static_cast<unsigned long long*>(phase_ns),
       Td, B, Te, D, E, p.gpb, p.epb, p.parts, p.plen, p.ipb, dep_smem ? 1 : 0);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaGetLastError();
@@ -479,6 +488,9 @@ int launch_bwd(const void* dy, long long dy_st, long long dy_sb, const void* ep,
 // dctx [Td, B, E], dh0 [B, D], dwa [D, D], dba [D], dv [D] and the scratch
 // dm_rows [Td, B, D] and dv_part [2, B, D] are contiguous;
 // counter is one unsigned of scratch; num_sms is the card's SM count.
+// phase_ns, when not null ([Td][5] unsigned 64-bit integers), receives block
+// 0's clock in ns at the end of each phase of each step (the first four with
+// their barrier), in the loop's order.
 // Launches the reversed-time recurrence with dWa (cooperatively) and then
 // the dba / dv sums over the rows on `stream`; returns the first error, as
 // attention_gru_fwd_train does.
@@ -492,13 +504,13 @@ extern "C" int attention_gru_bwd(const void* dy, long long dy_st, long long dy_s
                                  void* dxw, void* dctx, void* dh0,
                                  void* dep, long long dep_st, long long dep_sb,
                                  void* dwa, void* dba, void* dv,
-                                 void* dm_rows, void* dv_part, void* counter,
+                                 void* dm_rows, void* dv_part, void* counter, void* phase_ns,
                                  int Td, int B, int Te, int D, int E, int num_sms,
                                  void* stream) {
   return launch_bwd<float>(dy, dy_st, dy_sb, ep, ep_st, ep_sb, ev, ev_st, ev_sb, dmask, hprev,
                            acts, alpha, m_all, wa, v, wctx, wg, dxw, dctx, dh0, dep, dep_st,
-                           dep_sb, dwa, dba, dv, dm_rows, dv_part, counter, nullptr, Td, B, Te,
-                           D, E, num_sms, stream);
+                           dep_sb, dwa, dba, dv, dm_rows, dv_part, counter, nullptr, phase_ns,
+                           Td, B, Te, D, E, num_sms, stream);
 }
 
 // attention_gru_bwd's bf16 instance: dy, ep, ev, dmask, hprev, acts, alpha,
@@ -515,10 +527,10 @@ extern "C" int attention_gru_bwd_bf16(const void* dy, long long dy_st, long long
                                       void* dep, long long dep_st, long long dep_sb,
                                       void* dwa, void* dba, void* dv,
                                       void* dm_rows, void* dv_part, void* counter, void* dctx32,
-                                      int Td, int B, int Te, int D, int E, int num_sms,
-                                      void* stream) {
+                                      void* phase_ns, int Td, int B, int Te, int D, int E,
+                                      int num_sms, void* stream) {
   return launch_bwd<__nv_bfloat16>(dy, dy_st, dy_sb, ep, ep_st, ep_sb, ev, ev_st, ev_sb, dmask,
                                    hprev, acts, alpha, m_all, wa, v, wctx, wg, dxw, dctx, dh0,
                                    dep, dep_st, dep_sb, dwa, dba, dv, dm_rows, dv_part, counter,
-                                   dctx32, Td, B, Te, D, E, num_sms, stream);
+                                   dctx32, phase_ns, Td, B, Te, D, E, num_sms, stream);
 }

@@ -38,6 +38,14 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
+// x as two bf16 pieces: hi = x rounded to bf16, lo = (x - hi) rounded to
+// bf16. x - hi is exact in float32, so hi + lo keeps ~16 significant bits of
+// x (bf16 has float32's exponent range: no scaling).
+__device__ __forceinline__ void split_bf16(float x, __nv_bfloat16& hi, __nv_bfloat16& lo) {
+  hi = __float2bfloat16_rn(x);
+  lo = __float2bfloat16_rn(x - __bfloat162float(hi));
+}
+
 // Loads and stores through L2 (data other blocks of the launch wrote or
 // read), in either operand type.
 __device__ __forceinline__ float ldcg_f32(const float* p) { return __ldcg(p); }

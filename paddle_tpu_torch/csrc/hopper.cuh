@@ -25,6 +25,8 @@
 
 #include <cstdint>
 
+#include "common.cuh"
+
 namespace hopper {
 
 // ---- mbarriers, TMA, wgmma (PTX ISA 8.0, sm_90a) ----
@@ -362,14 +364,12 @@ __device__ __forceinline__ void wgmma_bf16_ss(float (&d)[N / 2], uint64_t desc_a
   }
 }
 
-// x and y as two bf16 pieces each, packed in pairs (x in the low half):
-// hi = x rounded to bf16, lo = (x - hi) rounded to bf16. x - hi is exact in
-// float32, so hi + lo keeps ~16 significant bits of x (bf16 has float32's
-// exponent range: no scaling).
+// x and y as two bf16 pieces each (common.cuh split_bf16), packed in pairs
+// (x in the low half).
 __device__ __forceinline__ void split_bf16x2(float x, float y, unsigned& hi, unsigned& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 hf = __bfloat1622float2(h);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(x - hf.x, y - hf.y);
+  __nv_bfloat162 h, l;
+  split_bf16(x, h.x, l.x);
+  split_bf16(y, h.y, l.y);
   hi = *reinterpret_cast<const unsigned*>(&h);
   lo = *reinterpret_cast<const unsigned*>(&l);
 }

@@ -38,7 +38,7 @@ BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "paddle_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 HEADERS = ("common.cuh", "atb_gemm.cuh", "flash_attn.cuh", "flash_mma.cuh", "hopper.cuh",
-           "persistent_grid.cuh", "attention_gru_fwd.cuh")
+           "mma_bf16.cuh", "persistent_grid.cuh", "attention_gru_fwd.cuh", "rows_product.cuh")
 # what the persistent grids (csrc/persistent_grid.cuh) are planned for
 SMEM_LIMIT = 232448     # bytes of shared memory a block may opt into on sm_90
 H100_SMS = 132          # the SM count taken where no card is present

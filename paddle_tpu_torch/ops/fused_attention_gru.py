@@ -67,7 +67,7 @@ from paddle_tpu_torch.ops import kernel_flops
 from paddle_tpu_torch.ops._build import (
     I32, I64, PTR, SMEM_LIMIT, CudaKernel, card_sms, check, ptr)
 from paddle_tpu_torch.ops.fused_gru import KERNEL_ACTS, _last_dim_contiguous, gru_cell
-from paddle_tpu_torch.ops.precision import round_to
+from paddle_tpu_torch.ops.precision import bf16_pieces, round_to
 
 Tensor = torch.Tensor
 
@@ -99,7 +99,8 @@ ATTENTION_GRU_BWD = CudaKernel(
      PTR, PTR, PTR,            # dxw, dctx, dh0
      PTR, I64, I64,            # dep, its time and batch strides
      PTR, PTR, PTR,            # dwa, dba, dv
-     PTR, PTR, PTR]            # scratch: d_m rows, dv and dba partials, the barrier counter
+     PTR, PTR, PTR,            # scratch: d_m rows, dv and dba partials, the barrier counter
+     PTR]                      # phase clocks [Td, 5] int64, or null
     + _DIMS + [I32])           # num_sms
 # the bf16 instances of kernels 5 and 6: the same arguments, bf16 operands
 # and residuals (m stays float32), and kernel 6 a float32 d_ctx row buffer
@@ -110,8 +111,15 @@ ATTENTION_GRU_BWD_BF16 = CudaKernel(
     "attention_gru_bwd.cu", "attention_gru_bwd_bf16",
     ATTENTION_GRU_BWD.argtypes[:30] + [PTR]      # + d_ctx in float32 [B, E]
     + ATTENTION_GRU_BWD.argtypes[30:-1])
+# kernel 6's bf16 body for Hopper (csrc/attention_gru_bwd_sm90.cu), where
+# sm90_takes: the bf16 instance's arguments, but d_m's two bf16 pieces
+# [Td, B, D] in place of the d_m rows and before the clocks, and the
+# barrier counters one a row group
+ATTENTION_GRU_BWD_BF16_SM90 = CudaKernel(
+    "attention_gru_bwd_sm90.cu", "attention_gru_bwd_bf16_sm90",
+    ATTENTION_GRU_BWD_BF16.argtypes[:31] + [PTR] + ATTENTION_GRU_BWD_BF16.argtypes[31:-1])
 KERNELS = (ATTENTION_GRU_FWD, ATTENTION_GRU_FWD_TRAIN, ATTENTION_GRU_BWD,
-           ATTENTION_GRU_FWD_TRAIN_BF16, ATTENTION_GRU_BWD_BF16)
+           ATTENTION_GRU_FWD_TRAIN_BF16, ATTENTION_GRU_BWD_BF16, ATTENTION_GRU_BWD_BF16_SM90)
 OPERAND_DTYPES = (torch.float32, torch.bfloat16)
 _FWD_TRAIN = {torch.float32: ATTENTION_GRU_FWD_TRAIN, torch.bfloat16: ATTENTION_GRU_FWD_TRAIN_BF16}
 _BWD = {torch.float32: ATTENTION_GRU_BWD, torch.bfloat16: ATTENTION_GRU_BWD_BF16}
@@ -162,6 +170,60 @@ def grid_plan(B: int, Te: int, D: int, E: int, sms: int) -> Dict[str, int]:
     return dict(blocks=blocks, unit_groups_per_block=gpb, e_groups_per_block=epb,
                 parts=parts, fwd_smem_bytes=fwd, bwd_smem_bytes=bwd,
                 bwd_dep_in_smem=int(dep_in_smem))
+
+
+SM90_WARPS = 8          # kernel 6's Hopper body: warps a block, rows a product tile
+SM90_ROWS = 16
+SM90_ER = (8, 16, 32)   # the rows of wctx a block of it owns, compiled in
+
+
+def sm90_plan(B: int, Te: int, D: int, E: int, sms: int) -> Optional[Dict[str, int]]:
+    """The grid of kernel 6's bf16 body for Hopper
+    (``csrc/attention_gru_bwd_sm90.cu`` make_plan), or None where it does
+    not fit.
+
+    D a multiple of 256 (each warp's share of every contraction is whole
+    32-k chunks). The first of (P, U) = (4, 16), (2, 8), (1, 8) with P <= B
+    row groups of G = D / U blocks within sms, a block owning U hidden units
+    and ER = E / G rows of wctx (8, 16 or 32), R = ceil(B / P) rows a group,
+    the attention's (row, part of D) items spread over the group's blocks
+    as the persistent body spreads them over the grid, and a block's shared
+    memory within SMEM_LIMIT: the weights' rows in bf16, the warps' partial
+    tiles, the state of its rows and the items' d_enc_proj sums."""
+    if min(B, Te, E) < 1 or D <= 0 or D % 256:
+        return None
+    for P, U in ((4, 16), (2, 8), (1, 8)):
+        G = D // U
+        if P > B or P * G > sms or E % G or E // G not in SM90_ER:
+            continue
+        ER = E // G
+        R = _cdiv(B, P)
+        parts = max(1, G // R)
+        plen = _cdiv(D, parts)
+        ipb = _cdiv(R * parts, G)
+        items = ipb * plen
+        smem = (2 * (4 * U * D + 3 * ER * D)
+                + 4 * (SM90_WARPS * SM90_ROWS * max(U, ER) + 4 * R * U + R * ER + D + E
+                       + _cdiv(Te, 4) * 4 + 2 * items + items * Te))
+        if smem <= SMEM_LIMIT:
+            return dict(row_groups=P, blocks_per_group=G, units_per_block=U,
+                        wctx_rows_per_block=ER, rows_per_group=R, parts=parts,
+                        blocks=P * G, smem_bytes=smem)
+    return None
+
+
+def sm90_takes(B: int, Te: int, D: int, E: int, num_sms: Optional[int] = None,
+               *operands: Tensor) -> bool:
+    """Whether kernel 6's bf16 backward runs on its Hopper body
+    (``attention_gru_bwd_bf16_sm90``): :func:`sm90_plan` fits on a card of
+    ``num_sms`` SMs (the current card's by default), and each of
+    ``operands`` (the weights and ev, which it reads as 16-byte vectors)
+    starts on 16 bytes with every stride but the last a multiple of 8
+    values. Other bf16 shapes take ``attention_gru_bwd_bf16``; float32 takes
+    ``attention_gru_bwd``. Reads shapes, strides and base addresses only."""
+    sms = card_sms() if num_sms is None else num_sms
+    return sm90_plan(B, Te, D, E, sms) is not None and all(
+        t.data_ptr() % 16 == 0 and all(x % 8 == 0 for x in t.stride()[:-1]) for t in operands)
 
 
 def grid_barriers(Td: int) -> Tuple[int, int]:
@@ -288,8 +350,22 @@ def attention_gru_reference(ep, ev, em, xw, dmask, h0, wa, ba, v, wctx, wg,
     return (ys,) + tuple(torch.stack(z) for z in zip(*saved))
 
 
+def _sliced_mm(a: Tensor, b: Tensor, slices: int) -> Tensor:
+    """a @ b with the contraction cut into ``slices`` equal slices, each
+    product summed on its own and the slices added in order (one slice: the
+    plain product)."""
+    if slices <= 1:
+        return a @ b
+    step = a.shape[1] // slices
+    out = a[:, :step] @ b[:step]
+    for i in range(1, slices):
+        out = out + a[:, i * step:(i + 1) * step] @ b[i * step:(i + 1) * step]
+    return out
+
+
 def attention_gru_backward_reference(dy, ep, ev, dmask, hprev, saved, alpha, wa, ba, v,
-                                     wctx, wg):
+                                     wctx, wg, slices: int = 1, dwa_pieces: int = 0,
+                                     dxw_forced: Optional[Tensor] = None):
     """Plain PyTorch version of kernel 6 (``pallas_attention_gru._bwd_kernel``):
     from dy [Td, B, D] and the residuals of :func:`attention_gru_reference`,
     its outputs (dxw [Td, B, 3D], dctx [Td, B, E] and dh0 [B, D] in dy's
@@ -297,7 +373,16 @@ def attention_gru_backward_reference(dy, ep, ev, dmask, hprev, saved, alpha, wa,
     Per step, walked Td-1 .. 0, in float32: the GRU backward (drh from
     dcand rounded), d_din = [dg | dcand], d_ctx from d_din rounded, the
     attention's backward from the unrounded d_ctx, and DH from dg and d_m
-    rounded. The roundings are to the residuals' dtype (none in float32)."""
+    rounded. The roundings are to the residuals' dtype (none in float32).
+    ``slices`` = SM90_WARPS sums each per-step product as the Hopper body
+    (``attention_gru_bwd_bf16_sm90``) does: its contraction cut among the
+    warps, DH's as one product over [dg | d_m], the warps' sums added in
+    order. ``dwa_pieces`` = 2 sums dWa from d_m as two bf16 pieces (hi =
+    bf16(d_m), lo = bf16(d_m - hi)), as that body does; 1 from hi alone (the
+    one-piece control); 0 (the kernels' contract) from d_m unrounded.
+    ``dxw_forced`` (a kernel's dxw) replaces each step's rounded d_din in its
+    three products, so that the reference walks the kernel's own
+    recurrence (as ``lstm_backward_reference``'s ``dx4_forced``)."""
     Td, B, D = hprev.shape
     od = saved.dtype
     f = lambda t: t.float()
@@ -316,11 +401,14 @@ def attention_gru_backward_reference(dy, ep, ev, dmask, hprev, saved, alpha, wa,
         dm = dmask[t].float()                                      # [B, 1]
         dhn = dy[t].float() + dm * DH
         dcand = dhn * (1.0 - u) * (1.0 - c * c)
-        drh = round_to(dcand, od) @ wgf[:, 2 * D:].t()
+        forced = None if dxw_forced is None else dxw_forced[t].float()
+        dcand_r = round_to(dcand, od) if forced is None else forced[:, 2 * D:]
+        drh = _sliced_mm(dcand_r, wgf[:, 2 * D:].t(), slices)
         dg = torch.cat([dhn * (hp - c) * u * (1.0 - u), drh * hp * r * (1.0 - r)], dim=1)
         d_din = torch.cat([dg, dcand], dim=1)
         dxw[t] = d_din.to(dy.dtype)
-        d_ctx = round_to(d_din, od) @ wctxf.t()                    # [B, E]
+        d_din_r = round_to(d_din, od) if forced is None else forced
+        d_ctx = _sliced_mm(d_din_r, wctxf.t(), slices)             # [B, E]
         dctx[t] = d_ctx.to(dy.dtype)
         comb = torch.tanh(epf + (round_to(hp, od) @ waf + baf)[None])
         dalpha = torch.sum(evf * d_ctx[None], dim=-1)              # [Te, B]
@@ -330,9 +418,14 @@ def attention_gru_backward_reference(dy, ep, ev, dmask, hprev, saved, alpha, wa,
         dep = dep + dtanh
         d_m = torch.sum(dtanh, dim=0)                              # [B, D]
         dba = dba + torch.sum(d_m, dim=0)[None]
-        dwa = dwa + hp.t() @ d_m
-        DH = (dhn * u + drh * r + round_to(dg, od) @ wgf[:, :2 * D].t()
-              + round_to(d_m, od) @ waf.t() + (1.0 - dm) * DH)
+        dwa = dwa + hp.t() @ bf16_pieces(d_m, dwa_pieces)
+        dg_r = d_din_r[:, :2 * D]
+        if slices > 1:
+            prod = _sliced_mm(torch.cat([dg_r, round_to(d_m, od)], dim=1),
+                              torch.cat([wgf[:, :2 * D].t(), waf.t()], dim=0), slices)
+        else:
+            prod = dg_r @ wgf[:, :2 * D].t() + round_to(d_m, od) @ waf.t()
+        DH = dhn * u + drh * r + prod + (1.0 - dm) * DH
     return torch.stack(dxw), torch.stack(dctx), DH.to(dy.dtype), dep, dwa, dba, dv
 
 
@@ -462,9 +555,39 @@ def _launch_fwd(ep, ev, em, xw, dmask, h0, wa, ba, v, wctx, wg, acts, residuals,
     return (ys,) + saved
 
 
-def _launch_bwd(dy, ep, ev, dmask, hprev, saved, alpha, m, wa, v, wctx, wg, h0_grad=True):
+def _launch_bwd(dy, ep, ev, dmask, hprev, saved, alpha, m, wa, v, wctx, wg, h0_grad=True,
+                phase_ns=None):
     """The backward kernel's outputs: dxw, dctx, dh0, dep, dwa, dba, dv.
-    ``h0_grad``: whether h0 takes a gradient, for the FLOPs recorded."""
+    ``h0_grad``: whether h0 takes a gradient, for the FLOPs recorded.
+    ``phase_ns`` (an int64 [Td, 5] tensor on the card, or None) receives
+    block 0's clock in ns at the end of each phase of each step, in the
+    loop's order. bf16 residuals take the Hopper body
+    (:func:`_launch_bwd_sm90`) where :func:`sm90_takes`, every other shape
+    the persistent body (:func:`_launch_bwd_persistent`)."""
+    sm90 = saved.dtype == torch.bfloat16 and sm90_takes(
+        ep.shape[1], ep.shape[0], ep.shape[2], ev.shape[2], card_sms(ep.device), wa, wctx, wg,
+        ev)
+    return _launch_bwd_on(sm90, dy, ep, ev, dmask, hprev, saved, alpha, m, wa, v, wctx, wg,
+                          h0_grad, phase_ns)
+
+
+def _launch_bwd_persistent(*args, **kwargs):
+    """Kernel 6 on its persistent body (``attention_gru_bwd``, or
+    ``attention_gru_bwd_bf16`` for bf16 residuals), whatever the shape:
+    :func:`_launch_bwd`'s arguments and outputs."""
+    return _launch_bwd_on(False, *args, **kwargs)
+
+
+def _launch_bwd_sm90(*args, **kwargs):
+    """Kernel 6's bf16 backward on its Hopper body
+    (``attention_gru_bwd_bf16_sm90``): :func:`_launch_bwd`'s arguments and
+    outputs. A shape that :func:`sm90_takes` refuses raises."""
+    return _launch_bwd_on(True, *args, **kwargs)
+
+
+def _launch_bwd_on(sm90, dy, ep, ev, dmask, hprev, saved, alpha, m, wa, v, wctx, wg,
+                   h0_grad=True, phase_ns=None):
+    """Kernel 6 launched on the Hopper body (``sm90``) or the persistent one."""
     Te, B, D = ep.shape
     E = ev.shape[2]
     Td = dy.shape[0]
@@ -479,6 +602,15 @@ def _launch_bwd(dy, ep, ev, dmask, hprev, saved, alpha, m, wa, v, wctx, wg, h0_g
     check(alpha, "alpha", (Td, B, Te), dev, dtype=od)
     check(m, "m", (Td, B, D), dev)
     _check_supported(B, Te, D, E, dev)
+    if phase_ns is not None and (phase_ns.device != dev or phase_ns.dtype != torch.int64
+                                 or tuple(phase_ns.shape) != (Td, 5)
+                                 or not phase_ns.is_contiguous()):
+        raise ValueError(f"phase_ns must be a contiguous int64 [{Td}, 5] tensor on {dev}")
+    sms = card_sms(dev)
+    if sm90 and not (od == torch.bfloat16 and sm90_takes(B, Te, D, E, sms, wa, wctx, wg, ev)):
+        raise ValueError(f"attention_gru_bwd_bf16_sm90 takes bf16, D a multiple of 256 within "
+                         f"a block's {SMEM_LIMIT} bytes of shared memory and its weights and ev "
+                         f"on 16 bytes; got {od}, B={B}, Te={Te}, D={D}, E={E}")
     # d_din, the d_ctx stream and dh0 in the operand dtype; d_enc_proj, dWa,
     # dba and dv summed in float32 (the caller rounds them)
     dxw = torch.empty((Td, B, 3 * D), device=dev, dtype=od)
@@ -488,13 +620,19 @@ def _launch_bwd(dy, ep, ev, dmask, hprev, saved, alpha, m, wa, v, wctx, wg, h0_g
     dwa = torch.empty((D, D), device=dev)
     dba = torch.empty((1, D), device=dev)
     dv = torch.empty((1, D), device=dev)
-    dm_rows = torch.empty((Td, B, D), device=dev)
+    # d_m for dWa: float32 rows, or in the Hopper body two bf16 pieces (hi,
+    # which its DH product reads, and lo)
+    dm_rows = torch.empty((Td, B, D), device=dev, dtype=od if sm90 else torch.float32)
     dv_part = torch.empty((2, B, D), device=dev)
-    counter = torch.empty(1, dtype=torch.int32, device=dev)
-    # bf16: the attention phase reads d_ctx unrounded, from a float32 row buffer
-    dctx32 = [] if od == torch.float32 else [ptr(torch.empty((B, E), device=dev))]
+    P = sm90_plan(B, Te, D, E, sms)["row_groups"] if sm90 else 1
+    counter = torch.empty(P, dtype=torch.int32, device=dev)
+    # bf16: the attention phase reads d_ctx unrounded, from a float32 row
+    # buffer (each scratch tensor held until the launch is queued: one freed
+    # sooner could be handed out again as the next one)
+    dctx32 = [] if od == torch.float32 else [torch.empty((B, E), device=dev)]
+    dm_lo = [torch.empty((Td, B, D), device=dev, dtype=od)] if sm90 else []
     kernel_flops.record(kernel_flops.attention_gru_bwd_flops(Td, B, Te, D, E, h0_grad))
-    _BWD[od].launch(
+    (ATTENTION_GRU_BWD_BF16_SM90 if sm90 else _BWD[od]).launch(
         dev,
         ptr(dy), dy.stride(0), dy.stride(1),
         ptr(ep), ep.stride(0), ep.stride(1),
@@ -504,8 +642,8 @@ def _launch_bwd(dy, ep, ev, dmask, hprev, saved, alpha, m, wa, v, wctx, wg, h0_g
         ptr(dxw), ptr(dctx), ptr(dh0),
         ptr(dep), dep.stride(0), dep.stride(1),
         ptr(dwa), ptr(dba), ptr(dv),
-        ptr(dm_rows), ptr(dv_part), ptr(counter), *dctx32,
-        Td, B, Te, D, E, card_sms(dev),
+        ptr(dm_rows), ptr(dv_part), ptr(counter), *map(ptr, dctx32 + dm_lo),
+        None if phase_ns is None else ptr(phase_ns), Td, B, Te, D, E, sms,
     )
     return dxw, dctx, dh0, dep, dwa, dba, dv
 

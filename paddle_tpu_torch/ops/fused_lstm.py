@@ -55,7 +55,7 @@ from paddle_tpu_torch.ops._build import (
 from paddle_tpu_torch.ops.activations import apply_activation
 from paddle_tpu_torch.ops.fused_gru import (
     ACT_CODES, OPERAND_DTYPES, _cdiv, _float_mask, _last_dim_contiguous, dact)
-from paddle_tpu_torch.ops.precision import round_to
+from paddle_tpu_torch.ops.precision import bf16_pieces, round_to
 
 Tensor = torch.Tensor
 Acts = Tuple[str, str, str]
@@ -81,6 +81,10 @@ RING_FLOATS = 16384     # 2 slots of 4 rows x 2048 columns (N = 8), or of 8 x 10
 # floats of h a slot (a pass's rows by a chunk of columns, a power of 2
 # from 32, each row padded by FWD_PAD floats).
 FWD_WARPS = 8
+# kernel 8's bf16 Hopper body (csrc/lstm_bwd_sm90.cu): 8 warps split the
+# product's contraction; their partial tiles are SM90_ROWS rows
+SM90_WARPS = 8
+SM90_ROWS = 32
 FWD_UNIT_GROUPS = 4     # unit groups a block of the forwards' default plan, where they fit
 FWD_STATE = 2
 FWD_STAGES = 2
@@ -126,8 +130,15 @@ LSTM_FWD_TRAIN_BF16 = CudaKernel("lstm_fwd.cu", "lstm_fwd_train_bf16",
 LSTM_BWD_BF16 = CudaKernel("lstm_bwd.cu", "lstm_bwd_bf16",
                            LSTM_BWD.argtypes[:20] + [PTR]   # + dgates in float32 [2, B, 4H]
                            + LSTM_BWD.argtypes[20:-1])
+# kernel 8's bf16 body for Hopper (csrc/lstm_bwd_sm90.cu), where
+# sm90_takes: lstm_bwd_bf16's operands, lo and the dpeep partials as scratch
+LSTM_BWD_BF16_SM90 = CudaKernel(
+    "lstm_bwd_sm90.cu", "lstm_bwd_bf16_sm90",
+    LSTM_BWD.argtypes[:14]           # dy .. dpeep
+    + [PTR, PTR, PTR, PTR]           # lo [T, B, 4H], dpeep partials, counters, phase clocks
+    + _TAIL + [I32])                 # num_sms
 KERNELS = (LSTM_FWD, LSTM_FWD_TRAIN, LSTM_BWD,
-           LSTM_FWD_BF16, LSTM_FWD_TRAIN_BF16, LSTM_BWD_BF16)
+           LSTM_FWD_BF16, LSTM_FWD_TRAIN_BF16, LSTM_BWD_BF16, LSTM_BWD_BF16_SM90)
 # each entry by operand dtype (OPERAND_DTYPES: float32 and bf16)
 _FWD = {torch.float32: LSTM_FWD, torch.bfloat16: LSTM_FWD_BF16}
 _FWD_TRAIN = {torch.float32: LSTM_FWD_TRAIN, torch.bfloat16: LSTM_FWD_TRAIN_BF16}
@@ -235,7 +246,8 @@ def _lstm_forward_mixed(x4, mask, w, peep, reverse, acts, residuals):
 
 def lstm_backward_reference(dy: Tensor, saved: Tensor, hprev: Tensor, cprev: Tensor,
                             mask: Tensor, w: Tensor, peep: Tensor, reverse: bool = False,
-                            acts: Acts = DEFAULT_ACTS) -> Tuple[Tensor, Tensor, Tensor]:
+                            acts: Acts = DEFAULT_ACTS, dw_pieces: int = 0,
+                            dx4_forced: Optional[Tensor] = None) -> Tuple[Tensor, Tensor, Tensor]:
     """Plain PyTorch version of kernel 8 (``pallas_lstm._bwd_kernel``): dx4
     [T, B, 4H] in dy's dtype, dW [H, 4H] in w's and dpeep [3, H] in peep's,
     from dy [T, B, H] and the residuals of :func:`lstm_forward_reference`.
@@ -245,7 +257,15 @@ def lstm_backward_reference(dy: Tensor, saved: Tensor, hprev: Tensor, cprev: Ten
     dgf | dgo], DH = round(dx4[t]) . w^T + (1 - m) DH, DC = dc' f + dgi pi +
     dgf pf + (1 - m) DC; dW sums h_prev^T dx4[t] and dpeep the peephole
     terms, unrounded, each rounded once. The rounding is to the residuals'
-    dtype (none in float32)."""
+    dtype (none in float32). ``dw_pieces`` = 2 sums dW from the gate
+    gradients as two bf16 pieces, hi = bf16(g) and lo = bf16(g - hi), as the
+    Hopper body (``lstm_bwd_bf16_sm90``) does; 1 from hi alone (the one-piece
+    control); 0 (the kernels' contract) from g unrounded. ``dx4_forced`` (a
+    kernel's dx4) replaces each step's rounded gate gradients in the DH
+    product: the reference then walks the kernel's own recurrence, whose
+    bf16 roundings otherwise part from its own over the steps, so that a
+    kernel's dW can be held to the float32 sums of its own gate gradients
+    within bf16 spacings."""
     T, B, H4 = saved.shape
     H, od = H4 // 4, saved.dtype
     act_in, act_gate, act_state = acts
@@ -270,9 +290,10 @@ def lstm_backward_reference(dy: Tensor, saved: Tensor, hprev: Tensor, cprev: Ten
         dga = dc * i * dact(act_in, a)
         dg = torch.cat([dga, dgi, dgf, dgo], dim=1)
         dx4[t] = dg.to(dy.dtype)
-        DH = round_to(dg, od) @ wt + (1.0 - m) * DH
+        gr = round_to(dg, od) if dx4_forced is None else dx4_forced[t].float()
+        DH = gr @ wt + (1.0 - m) * DH
         DC = dc * f + dgi * pf[0] + dgf * pf[1] + (1.0 - m) * DC
-        dw = dw + hp.t() @ dg
+        dw = dw + hp.t() @ bf16_pieces(dg, dw_pieces)
         dp = dp + torch.stack([(dgi * cp).sum(0), (dgf * cp).sum(0), (dgo * c_new).sum(0)])
     dx4 = torch.stack(dx4) if T else dy.new_zeros(0, B, H4)
     return dx4, dw.to(w.dtype), dp.to(peep.dtype)
@@ -329,6 +350,42 @@ def grid_plan(B: int, H: int, sms: int, row_groups: Optional[int] = None) -> Dic
                 units_per_bundle=N, bundles=bundles, rows_per_group=R,
                 smem_bytes=state + rows * (int(w_in_smem) + int(dw_in_smem)),
                 w_in_smem=int(w_in_smem), dw_in_smem=int(dw_in_smem))
+
+
+def sm90_plan(B: int, H: int, sms: int) -> Optional[Dict[str, int]]:
+    """The grid of kernel 8's bf16 body for Hopper (``csrc/lstm_bwd_sm90.cu``
+    make_plan), or None where it does not fit.
+
+    H a multiple of 64 (a warp's share of the 4H contraction is whole 32-k
+    chunks); blocks of U = 32 hidden units, else 16, their rows of w in bf16
+    in shared memory beside SM90_WARPS partial product tiles of SM90_ROWS
+    rows and the float32 DH and DC of their group's rows; G = H / U blocks a
+    row group, P = sms // G row groups (at most B), R = ceil(B / P) rows
+    each; the first U whose block fits SMEM_LIMIT."""
+    if B < 1 or H <= 0 or H % 64:
+        return None
+    for U in (32, 16):
+        G = H // U
+        if G > sms:
+            continue
+        P = max(1, min(B, sms // G))
+        R = _cdiv(B, P)
+        smem = 2 * U * 4 * H + 4 * SM90_WARPS * SM90_ROWS * U + 8 * R * U + 12 * U
+        if smem <= SMEM_LIMIT:
+            return dict(units_per_block=U, blocks_per_group=G, row_groups=P,
+                        rows_per_group=R, blocks=P * G, smem_bytes=smem)
+    return None
+
+
+def sm90_takes(B: int, H: int, num_sms: Optional[int] = None, *operands: Tensor) -> bool:
+    """Whether kernel 8's bf16 backward runs on its Hopper body
+    (``lstm_bwd_bf16_sm90``) at batch B and width H: :func:`sm90_plan` fits
+    on a card of ``num_sms`` SMs (the current card's by default), and each of
+    ``operands`` (w and hprev, which it reads as 16-byte vectors) starts on
+    16 bytes. Other bf16 shapes take ``lstm_bwd_bf16`` (the persistent body); the
+    float32 instance is ``lstm_bwd``. Reads shapes and base addresses only."""
+    sms = card_sms() if num_sms is None else num_sms
+    return sm90_plan(B, H, sms) is not None and all(t.data_ptr() % 16 == 0 for t in operands)
 
 
 def fwd_plan(B: int, H: int, sms: int, row_groups: Optional[int] = None) -> Dict[str, int]:
@@ -512,16 +569,24 @@ def _launch_fwd(x4, mask, w, peep, reverse, acts, residuals, row_groups=None,
     return ys, saved, hprev, cprev
 
 
-def _launch_bwd(dy, saved, hprev, cprev, mask, w, peep, reverse, acts, phase_ns=None,
-                row_groups=None, runtime_acts=False):
-    """dx4 [T, B, 4H], dW [H, 4H] and dpeep [3, H]. ``phase_ns`` (an int64
-    [T, 3] tensor on the card, or None) receives block 0's clock in ns at
-    each step's start and at the ends of its two phases (the first with its
-    barrier). ``row_groups`` overrides the plan's P, and ``runtime_acts``
-    reads the activation codes at run time even for a triple compiled into
-    the kernel (both to time the alternatives). The instance of the
-    residuals' dtype: dy, acts, hprev, w and peep in it, cprev float32;
-    dx4, dW and dpeep come back in it."""
+def _launch_bwd(dy, saved, hprev, cprev, mask, w, peep, reverse, acts, phase_ns=None):
+    """dx4 [T, B, 4H], dW [H, 4H] and dpeep [3, H], in the residuals' dtype
+    (dy, acts, hprev, w and peep in it, cprev float32). ``phase_ns`` (an
+    int64 [T, 3] tensor on the card, or None) receives block 0's clock in
+    ns at each step's start and at the ends of its two phases (the first
+    with its barrier). bf16 residuals take the Hopper body
+    (:func:`_launch_bwd_sm90`) where :func:`sm90_takes`, every other shape
+    the persistent body (:func:`_launch_bwd_persistent`)."""
+    if saved.dtype == torch.bfloat16 and sm90_takes(
+            saved.shape[1], saved.shape[2] // 4, card_sms(saved.device), w, hprev):
+        return _launch_bwd_sm90(dy, saved, hprev, cprev, mask, w, peep, reverse, acts, phase_ns)
+    return _launch_bwd_persistent(dy, saved, hprev, cprev, mask, w, peep, reverse, acts,
+                                  phase_ns)
+
+
+def _check_bwd(dy, saved, hprev, cprev, mask, w, peep, acts, phase_ns):
+    """Kernel 8's operands checked: (dy, mask) as the bodies read them, the
+    operand dtype, the activation codes and the card's SMs."""
     T, B, H4 = saved.shape
     H = H4 // 4
     dev = saved.device
@@ -537,16 +602,30 @@ def _launch_bwd(dy, saved, hprev, cprev, mask, w, peep, reverse, acts, phase_ns=
     check(w, "w", (H, H4), dev, dtype=od)
     check(peep, "peep", (3, H), dev, dtype=od)
     _check_supported(acts, max(B, 1), H, dev)
-    sms = card_sms(dev)
+    if phase_ns is not None and (phase_ns.device != dev or phase_ns.dtype != torch.int64
+                                 or tuple(phase_ns.shape) != (T, 3)
+                                 or not phase_ns.is_contiguous()):
+        raise ValueError(f"phase_ns must be a contiguous int64 [{T}, 3] tensor on {dev}")
+    return dy, mask, od, codes, card_sms(dev)
+
+
+def _launch_bwd_persistent(dy, saved, hprev, cprev, mask, w, peep, reverse, acts,
+                           phase_ns=None, row_groups=None, runtime_acts=False):
+    """Kernel 8 on its persistent body (``lstm_bwd``, or ``lstm_bwd_bf16``
+    for bf16 residuals), whatever the shape: :func:`_launch_bwd`'s outputs.
+    ``row_groups`` overrides the plan's P, and ``runtime_acts`` reads the
+    activation codes at run time even for a triple compiled into the kernel
+    (both to time the alternatives)."""
+    dy, mask, od, codes, sms = _check_bwd(dy, saved, hprev, cprev, mask, w, peep, acts,
+                                          phase_ns)
+    T, B, H4 = saved.shape
+    H = H4 // 4
+    dev = saved.device
     plan = grid_plan(B, H, sms, row_groups)
     P = plan["row_groups"]
     if not 1 <= P <= sms or plan["smem_bytes"] > SMEM_LIMIT:
         raise ValueError(f"kernel 8 takes 1 <= row_groups <= {sms} within {SMEM_LIMIT} "
                          f"bytes of shared memory a block, got {plan}")
-    if phase_ns is not None and (phase_ns.device != dev or phase_ns.dtype != torch.int64
-                                 or tuple(phase_ns.shape) != (T, 3)
-                                 or not phase_ns.is_contiguous()):
-        raise ValueError(f"phase_ns must be a contiguous int64 [{T}, 3] tensor on {dev}")
     dx4 = torch.empty((T, B, H4), device=dev, dtype=od)
     dw = torch.empty((H, H4), device=dev, dtype=od)
     dpeep = torch.empty((3, H), device=dev, dtype=od)
@@ -570,6 +649,37 @@ def _launch_bwd(dy, saved, hprev, cprev, mask, w, peep, reverse, acts, phase_ns=
         args.append(ptr(xch))
     _BWD[od].launch(dev, *args, T, B, H, int(bool(reverse)), *codes, sms, P,
                     plan["w_in_smem"], plan["dw_in_smem"], int(bool(runtime_acts)))
+    return dx4, dw, dpeep
+
+
+def _launch_bwd_sm90(dy, saved, hprev, cprev, mask, w, peep, reverse, acts, phase_ns=None):
+    """Kernel 8's bf16 backward on its Hopper body (``lstm_bwd_bf16_sm90``):
+    :func:`_launch_bwd`'s outputs from the recurrence, then dW = hprev^T
+    (hi + lo) over every row, lo = the bf16 rest of each gate gradient in a
+    [T, B, 4H] scratch. A shape that :func:`sm90_takes` refuses raises."""
+    dy, mask, od, codes, sms = _check_bwd(dy, saved, hprev, cprev, mask, w, peep, acts,
+                                          phase_ns)
+    T, B, H4 = saved.shape
+    H = H4 // 4
+    dev = saved.device
+    if od != torch.bfloat16 or not sm90_takes(B, H, sms, w, hprev):
+        raise ValueError(f"lstm_bwd_bf16_sm90 takes bf16, H a multiple of 64 within a block's "
+                         f"{SMEM_LIMIT} bytes of shared memory and w, hprev on 16 bytes; got "
+                         f"{od}, B={B}, H={H}")
+    plan = sm90_plan(B, H, sms)
+    dx4 = torch.empty((T, B, H4), device=dev, dtype=torch.bfloat16)
+    dw = torch.empty((H, H4), device=dev, dtype=torch.bfloat16)
+    dpeep = torch.empty((3, H), device=dev, dtype=torch.bfloat16)
+    lo = torch.empty((T, B, H4), device=dev, dtype=torch.bfloat16)
+    ppart = torch.empty((plan["row_groups"] * 3 * H,), device=dev)
+    counters = torch.empty(plan["row_groups"], dtype=torch.int32, device=dev)
+    kernel_flops.record(kernel_flops.lstm_bwd_flops(T, B, H))
+    LSTM_BWD_BF16_SM90.launch(
+        dev, ptr(dy), dy.stride(0), dy.stride(1), ptr(saved), ptr(hprev), ptr(cprev),
+        ptr(mask), mask.stride(0), mask.stride(1), ptr(w), ptr(peep), ptr(dx4), ptr(dw),
+        ptr(dpeep), ptr(lo), ptr(ppart), ptr(counters),
+        None if phase_ns is None else ptr(phase_ns),
+        T, B, H, int(bool(reverse)), *codes, sms)
     return dx4, dw, dpeep
 
 

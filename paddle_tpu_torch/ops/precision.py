@@ -28,3 +28,14 @@ def round_to(x: Tensor, dtype: torch.dtype) -> Tensor:
     if torch.finfo(dtype).bits >= torch.finfo(x.dtype).bits:
         return x
     return x.to(dtype).to(x.dtype)
+
+
+def bf16_pieces(x: Tensor, n: int) -> Tensor:
+    """float32 ``x`` as the sum of its first ``n`` bf16 pieces: hi = bf16(x),
+    lo = bf16(x - hi) (x - hi is exact in float32, so hi + lo keeps ~16
+    significant bits). n = 0 leaves x whole. What a kernel that multiplies x
+    on the bf16 tensor cores in n pieces multiplies."""
+    if not n:
+        return x
+    hi = x.to(torch.bfloat16).float()
+    return hi if n == 1 else hi + (x - hi).to(torch.bfloat16).float()

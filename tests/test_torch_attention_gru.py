@@ -176,3 +176,116 @@ def test_the_kernels_take_bf16_where_a_path_launches_them(residuals):
     for dt in refused:
         with pytest.raises(ValueError, match="do not take"):
             tag._check_operands(*cast(dt), ACTS, residuals=residuals)
+
+
+# ------------------------------------------- kernel 6's bf16 body for Hopper
+
+SM90_CANCEL_FLOOR = 2.0 ** -11     # as tests/test_torch_flash_attention.py's
+
+
+def _ulps(got, want, floor=SM90_CANCEL_FLOOR):
+    """The largest |got - want| in bf16 spacings of the larger magnitude,
+    taken at no less than ``floor`` of the scale
+    (torch_bf16_checks.assert_within_one_ulp holds it to 1)."""
+    got, want = f32(got), f32(want)
+    big = np.maximum(np.maximum(np.abs(got), np.abs(want)), floor * np.abs(want).max())
+    ulp = np.exp2(np.floor(np.log2(np.maximum(big, np.finfo(np.float32).tiny))) - 7)
+    return float((np.abs(got - want) / ulp).max())
+
+@pytest.mark.parametrize("Td", [1, 4])
+def test_sm90_product_order_matches_pallas(Td):
+    """The Hopper body's arithmetic (``attention_gru_bwd_bf16_sm90``): every
+    per-step product of bf16 operands summed in float32 with its
+    contraction cut among eight warps and their sums added in order, DH's
+    as one product over [dg | d_m], dWa from d_m's two bf16 pieces
+    (``attention_gru_backward_reference(slices=8, dwa_pieces=2)``), against ``_run_bwd`` in interpret mode on bf16 operands
+    at D = 256 (a width the body takes), E = 512: at Td = 1 every output
+    within one bf16 ulp taken at no less than SM90_CANCEL_FLOOR of its
+    scale (dWa's sums over D = 256 cancel to 6e-7, where two float32 orders
+    differ by more than its own ulp), over Td = 4 within 1e-2 of scale;
+    dWa from one piece of d_m (the control) lies past one spacing (186 and
+    140 of them)."""
+    args = _inputs(35, Td, Te=5, B=3, D=256, E=512)
+    if Td == 1:
+        args[4][:] = 1.0
+    jargs, targs = _bf16_args(args)
+    ref = jag._run_fwd(*jargs, ACTS, True, residuals=True)
+    dy = (np.random.RandomState(36).randn(Td, 3, 256)).astype(np.float32)
+    jdy, tdy = jnp.asarray(dy).astype(jnp.bfloat16), torch.from_numpy(dy).to(torch.bfloat16)
+    ep, ev, em, _, dmask, _, wa, ba, v, wctx, wg = jargs
+    jout = jag._run_bwd(jdy, ep, ev, em, dmask, *ref[1:4], wa, ba, v, wctx, wg, ACTS, True)
+    to_t = lambda a: torch.from_numpy(f32(a)).to(torch.bfloat16)
+    tep, tev, _, _, tdm, _, twa, tba, tv, twctx, twg = targs
+    res = [to_t(a) for a in ref[1:4]]
+    tout = tag.attention_gru_backward_reference(tdy, tep, tev, tdm, *res, twa, tba, tv, twctx,
+                                                twg, slices=tag.SM90_WARPS, dwa_pieces=2)
+    for name, a, b in zip(("dxw", "dctx", "dh0", "dep", "dwa", "dba", "dv"), tout, jout):
+        if Td == 1:
+            assert_within_one_ulp(a, b, name, floor=SM90_CANCEL_FLOOR)
+        else:
+            assert_within_scale(a, b, name)
+    # dWa from d_m's two pieces against the one-piece control, in bf16
+    # spacings of the Pallas kernel's float32 dWa
+    one = tag.attention_gru_backward_reference(tdy, tep, tev, tdm, *res, twa, tba, tv, twctx,
+                                               twg, slices=tag.SM90_WARPS, dwa_pieces=1)[4]
+    two, one = _ulps(tout[4], jout[4]), _ulps(one, jout[4])
+    assert two <= 1.0 < one, (two, one)
+
+
+def test_sm90_plan_mirrors_the_kernel_at_132_and_114_sms():
+    """``sm90_plan`` (csrc/attention_gru_bwd_sm90.cu make_plan): at the NMT
+    decoder's B = 64, Te = 32, D = 512, E = 1024 four row groups of 32
+    blocks (16 units, 32 rows of wctx, 16 rows each) on 132 SMs, one group
+    of 64 blocks of 8 units on 114 (128 blocks do not fit); Te = 128 (its
+    d_enc_proj sums past a block's shared memory), D no multiple of 256 and
+    an E that leaves a block other than 8, 16 or 32 rows of wctx have no
+    plan: the persistent body keeps them."""
+    pick = lambda *a: {k: tag.sm90_plan(*a)[k] for k in
+                       ("row_groups", "blocks_per_group", "units_per_block",
+                        "wctx_rows_per_block", "rows_per_group")}
+    assert pick(64, 32, 512, 1024, 132) == dict(row_groups=4, blocks_per_group=32,
+                                                units_per_block=16, wctx_rows_per_block=32,
+                                                rows_per_group=16)
+    assert pick(64, 32, 512, 1024, 114) == dict(row_groups=1, blocks_per_group=64,
+                                                units_per_block=8, wctx_rows_per_block=16,
+                                                rows_per_group=64)
+    assert pick(19, 9, 256, 1024, 132)["row_groups"] == 2
+    for sms in (132, 114):
+        assert tag.sm90_plan(64, 32, 512, 1024, sms)["smem_bytes"] <= tag.SMEM_LIMIT
+        assert tag.sm90_plan(64, 128, 512, 1024, sms) is None
+        assert tag.sm90_plan(64, 32, 384, 768, sms) is None
+        assert tag.sm90_plan(3, 16, 512, 256, sms) is None
+        assert tag.supported(64, 128, 512, 1024, sms)         # the persistent body takes it
+
+
+def test_sm90_route_takes_the_nmt_width_and_leaves_the_rest(monkeypatch):
+    """``_launch_bwd`` picks the body by ``sm90_takes`` before any launch
+    (the launch recorded in place of a build): bf16 at D = 256 takes
+    ``attention_gru_bwd_bf16_sm90``; D = 8, a wg whose base is one element
+    off 16 bytes take ``attention_gru_bwd_bf16``; float32 takes
+    ``attention_gru_bwd``. The bodies launched by name:
+    ``_launch_bwd_persistent`` takes ``attention_gru_bwd_bf16`` at D = 256
+    too, and ``_launch_bwd_sm90`` on a shape it cannot take raises."""
+    picked = []
+    for kern in tag.KERNELS:
+        monkeypatch.setattr(kern, "launch", lambda device, *a, _k=kern: picked.append(_k.symbol))
+
+    def route(D, E, dtype=torch.bfloat16, wg_off=0, launch=tag._launch_bwd):
+        args = [torch.from_numpy(a).to(dtype) for a in _inputs(37, 2, Te=4, B=3, D=D, E=E)]
+        ys, hprev, saved, alpha, ctxs = tag.attention_gru_reference(*args, residuals=True)
+        ep, ev, _, _, dmask, _, wa, ba, v, wctx, wg = args
+        wg = torch.cat([torch.zeros(wg_off, dtype=dtype), wg.flatten()])[wg_off:].view(wg.shape)
+        m = torch.zeros(2, 3, D)
+        picked.clear()
+        launch(torch.zeros(2, 3, D, dtype=dtype), ep, ev, dmask, hprev, saved, alpha, m, wa, v,
+               wctx, wg)
+        return tuple(picked)
+
+    assert route(256, 512) == ("attention_gru_bwd_bf16_sm90",)
+    assert route(8, 16) == ("attention_gru_bwd_bf16",)
+    assert route(256, 512, wg_off=1) == ("attention_gru_bwd_bf16",)
+    assert route(256, 512, launch=tag._launch_bwd_sm90) == ("attention_gru_bwd_bf16_sm90",)
+    assert route(256, 512, launch=tag._launch_bwd_persistent) == ("attention_gru_bwd_bf16",)
+    assert route(256, 512, dtype=torch.float32) == ("attention_gru_bwd",)
+    with pytest.raises(ValueError, match="attention_gru_bwd_bf16_sm90 takes"):
+        route(8, 16, launch=tag._launch_bwd_sm90)

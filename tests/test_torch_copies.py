@@ -147,10 +147,11 @@ def test_kernel_builds_are_keyed_by_their_sources():
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     kernels = fg.KERNELS + fa.KERNELS + fl.KERNELS + fc.KERNELS + fl_attn.KERNELS
     # 13 float32 entry points, the bf16 instances of kernels 1-3 and 5-12,
-    # and the bf16 bodies of 10, 11 and 12 for Hopper
-    assert len({k.symbol for k in kernels}) == 28
+    # and the bf16 bodies of 6, 8, 10, 11 and 12 for Hopper
+    assert len({k.symbol for k in kernels}) == 30
     assert {k.symbol for k in kernels if k.symbol.endswith("_sm90")} == {
-        "flash_attn_fwd_bf16_sm90", "flash_attn_dq_bf16_sm90", "flash_attn_dkv_bf16_sm90"}
+        "flash_attn_fwd_bf16_sm90", "flash_attn_dq_bf16_sm90", "flash_attn_dkv_bf16_sm90",
+        "attention_gru_bwd_bf16_sm90", "lstm_bwd_bf16_sm90"}
     assert {k.symbol for k in kernels if k.symbol.endswith("_bf16")} == {
         "gru_fwd_bf16", "gru_fwd_train_bf16", "gru_bwd_bf16",
         "attention_gru_fwd_train_bf16", "attention_gru_bwd_bf16",
@@ -158,12 +159,13 @@ def test_kernel_builds_are_keyed_by_their_sources():
         "flash_attn_fwd_bf16", "flash_attn_dq_bf16", "flash_attn_dkv_bf16"}
     # a kernel and its training variant share one source and its library,
     # but for the attention GRU's: its two forwards are entries of their own
-    # sources over one header (attention_gru_fwd.cuh)
+    # sources over one header (attention_gru_fwd.cuh); the Hopper bodies of
+    # the recurrent backwards (6 and 8) are sources of their own
     paths = {k.library_path() for k in kernels}
     assert {os.path.basename(p).split("-")[0] for p in paths} == {
         "gru_fwd", "gru_bwd", "attention_gru_fwd", "attention_gru_fwd_train",
         "attention_gru_bwd", "lstm_fwd", "lstm_bwd", "conv1x1_bn", "flash_attn_fwd",
-        "flash_attn_bwd"}
+        "flash_attn_bwd", "attention_gru_bwd_sm90", "lstm_bwd_sm90"}
     assert fa.ATTENTION_GRU_FWD.library_path() != fa.ATTENTION_GRU_FWD_TRAIN.library_path()
     assert fg.GRU_FWD.library_path() == fg.GRU_FWD_TRAIN.library_path()
     # a bf16 instance is an entry of its float32 kernel's source and library

@@ -681,9 +681,9 @@ def test_lstm_backward_takes_any_row_groups(dev, row_groups):
     from paddle_tpu_torch.ops import fused_lstm as fl
 
     x4, w, peep, mask, dy, args = _lstm_bwd_inputs(dev, 5, 40, 96, seed=row_groups)
-    got = fl._launch_bwd(*args, row_groups=row_groups)
+    got = fl._launch_bwd_persistent(*args, row_groups=row_groups)
     _lstm_bwd_against_autograd(dev, x4, w, peep, mask, dy, got)
-    generic = fl._launch_bwd(*args, row_groups=row_groups, runtime_acts=True)
+    generic = fl._launch_bwd_persistent(*args, row_groups=row_groups, runtime_acts=True)
     torch.cuda.synchronize()
     for a, b in zip(got, generic):
         assert float((a - b).abs().max()) <= _grad_tol(b)
@@ -1191,8 +1191,10 @@ def test_recurrent_layer_routes_on_the_card(dev, kind, size, act, eager):
     torch.cuda.synchronize()
     launches = [k.launches - b for k, b in zip(mod.KERNELS, before[0])]
     # the float32 instances (light, training, backward), then the bf16 ones
-    assert (launches, mod.EAGER_ROUTES - before[1]) == (([0, 0, 0, 0, 0, 0], 1) if eager
-                                                        else ([0, 1, 1, 0, 0, 0], 0))
+    # (and, for the LSTM, kernel 8's bf16 body for Hopper)
+    n = len(mod.KERNELS)
+    assert (launches, mod.EAGER_ROUTES - before[1]) == (([0] * n, 1) if eager
+                                                        else ([0, 1, 1] + [0] * (n - 3), 0))
     cpu, _, cpu_batch = run("cpu")
     cpu_loss, cpu_grads, _, _ = cpu.grad_fn()({k: p.cpu() for k, p in params.items()}, cpu_batch)
     assert abs(float(loss) - float(cpu_loss)) <= TOL * max(1.0, abs(float(cpu_loss)))
@@ -1956,3 +1958,227 @@ def test_bf16_resnet_and_lm_steps_take_the_bf16_kernels(dev):
         assert all(v.dtype == torch.float32 for v in trainer.params.values())
         ref = float(cpu.train_one_batch(batch("cpu")))
         assert abs(loss - ref) <= 1e-2 * abs(ref), (loss, ref)
+
+
+# The Hopper bodies of kernels 8 and 6 sum dW (dWa) from the gate gradients
+# (d_m) as two bf16 pieces, held to 2 bf16 spacings (taken at no less than
+# SM90_CANCEL_FLOOR of the scale) of the plain version walked through the
+# kernel's own recurrence (``dx4_forced`` / ``dxw_forced``: over many steps
+# two float32 summation orders round some bf16 gradient the other way, and
+# the recurrences carry it on); the one-piece control (from the rounded
+# values alone) lies past that over a whole sequence.
+RECURRENT_SM90_ULPS = 2.0
+
+
+def _lstm_bf16_bwd_case(dev, T, B, H, seed, reverse=False):
+    """Kernel 8's bf16 operands from kernel 7b's bf16 residuals at the
+    classifier's activations: ragged lengths, one full row and one of
+    length 0."""
+    from paddle_tpu_torch.ops import fused_lstm as fl
+
+    rng = np.random.RandomState(seed)
+    acts = ("tanh", "sigmoid", "tanh")
+    x4 = (_bf(rng.randn(B, T, 4 * H) * 0.5, dev).transpose(0, 1) if T else
+          torch.zeros((0, B, 4 * H), dtype=torch.bfloat16, device=dev))
+    w = _bf(rng.randn(H, 4 * H) / np.sqrt(H), dev)
+    peep = _bf(rng.randn(3, H) * 0.1, dev)
+    lens = rng.randint(1, T + 1, B) if T else np.zeros(B, np.int64)
+    lens[0] = T
+    if B > 1:
+        lens[-1] = 0
+    mask = (_t(np.arange(T)[:, None] < lens[None, :], dev) if T else
+            torch.zeros((0, B), device=dev))
+    dy = _bf(rng.randn(T, B, H), dev) if T else torch.zeros((0, B, H), dtype=torch.bfloat16,
+                                                            device=dev)
+    _, saved, hprev, cprev = fl._launch_fwd(x4, mask, w, peep, reverse, acts, True)
+    return (dy, saved, hprev, cprev, mask, w, peep, reverse, acts)
+
+
+@pytest.mark.parametrize("T,B,H,reverse", [(64, 256, 512, False), (64, 256, 512, True),
+                                           (9, 37, 256, True), (5, 19, 1024, False),
+                                           (1, 16, 512, False), (0, 8, 64, False),
+                                           (3, 300, 128, True)])
+def test_lstm_bwd_sm90_matches_plain_version(dev, T, B, H, reverse):
+    """lstm_bwd_bf16_sm90 (the route's choice at these shapes) against the
+    bf16 plain version: dx4, dW and dpeep within 1e-2 of scale, dW within
+    RECURRENT_SM90_ULPS spacings of the plain version through the kernel's
+    own dx4, where over 8 steps or more the one-piece control is not; two
+    launches bit-equal; T = 0 gives zeros (T = 1's dW is 0: h_prev is). B = 37 and 19 are no multiple of
+    16, H = 1024 takes blocks of 16 units, B = 300 at H = 128 groups of 10
+    rows."""
+    from paddle_tpu_torch.ops import fused_lstm as fl
+
+    args = _lstm_bf16_bwd_case(dev, T, B, H, seed=T + B + H, reverse=reverse)
+    assert fl.sm90_takes(B, H, fl.card_sms(dev), args[5], args[2])
+    before = (fl.LSTM_BWD_BF16_SM90.launches, fl.LSTM_BWD_BF16.launches)
+    got = fl._launch_bwd(*args)
+    again = fl._launch_bwd(*args)
+    torch.cuda.synchronize()
+    assert (fl.LSTM_BWD_BF16_SM90.launches - before[0],
+            fl.LSTM_BWD_BF16.launches - before[1]) == (2, 0)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert all(a.dtype == torch.bfloat16 for a in got)
+    if T == 0:
+        assert got[0].shape == (0, B, 4 * H) and not got[1].any() and not got[2].any()
+        return
+    plain = fl.lstm_backward_reference(*args)
+    for name, a, b in zip(("dx4", "dw", "dpeep"), got, plain):
+        assert torch.isfinite(a.float()).all(), name
+        assert _scale_err(a, b) <= BF16_TOL, (name, _scale_err(a, b))
+    own = fl.lstm_backward_reference(*args, dx4_forced=got[0])[1]
+    one = fl.lstm_backward_reference(*args, dw_pieces=1, dx4_forced=got[0])[1]
+    two_ulps, one_ulps = _bf16_ulps(got[1], own), _bf16_ulps(one, own)
+    assert two_ulps <= RECURRENT_SM90_ULPS, (two_ulps, one_ulps)
+    if T >= 8:
+        assert one_ulps > RECURRENT_SM90_ULPS, (two_ulps, one_ulps)
+
+
+def test_lstm_bwd_sm90_phase_clocks_leave_the_result_alone(dev):
+    """The Hopper body asked for its phase clocks: the same bits, and block
+    0's clock rising through every step's phases."""
+    from paddle_tpu_torch.ops import fused_lstm as fl
+
+    T = 6
+    args = _lstm_bf16_bwd_case(dev, T, 64, 512, seed=41)
+    plain = fl._launch_bwd_sm90(*args)
+    clocks = torch.zeros((T, 3), dtype=torch.int64, device=dev)
+    clocked = fl._launch_bwd_sm90(*args, phase_ns=clocks)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(plain, clocked))
+    flat = clocks.flatten()
+    assert bool((flat[1:] >= flat[:-1]).all()) and int(flat[0]) > 0
+
+
+@pytest.mark.parametrize("T,B,H", [(4, 6, 600), (3, 5, 36), (2, 1400, 1024)])
+def test_lstm_bwd_bf16_keeps_the_persistent_body_where_sm90_refuses(dev, T, B, H):
+    """Where sm90_takes refuses (H no multiple of 64; at H = 1024 a batch
+    whose rows' state overflows a block: B = 1400 on 132 SMs) the persistent body runs, held to the
+    bf16 plain version within 1e-2 of scale; and on the classifier's shape
+    the persistent body launched by name (_launch_bwd_persistent) gives a
+    result within the same bound of the Hopper body's."""
+    from paddle_tpu_torch.ops import fused_lstm as fl
+
+    sms = fl.card_sms(dev)
+    assert not fl.sm90_takes(B, H, sms) and fl.supported(("tanh", "sigmoid", "tanh"), H, B, sms)
+    args = _lstm_bf16_bwd_case(dev, T, B, H, seed=T * B + H)
+    before = (fl.LSTM_BWD_BF16_SM90.launches, fl.LSTM_BWD_BF16.launches)
+    got = fl._launch_bwd(*args)
+    torch.cuda.synchronize()
+    assert (fl.LSTM_BWD_BF16_SM90.launches - before[0],
+            fl.LSTM_BWD_BF16.launches - before[1]) == (0, 1)
+    for name, a, b in zip(("dx4", "dw", "dpeep"), got, fl.lstm_backward_reference(*args)):
+        assert _scale_err(a, b) <= BF16_TOL, (name, _scale_err(a, b))
+    cls = _lstm_bf16_bwd_case(dev, 8, 256, 512, seed=43)
+    new, old = fl._launch_bwd(*cls), fl._launch_bwd_persistent(*cls)
+    for name, a, b in zip(("dx4", "dw", "dpeep"), new, old):
+        assert _scale_err(a, b) <= BF16_TOL, (name, _scale_err(a, b))
+
+
+def _agru_bf16_bwd_case(dev, Td, Te, B, D, E, seed):
+    """Kernel 6's bf16 operands from kernel 5's bf16 residuals: ragged
+    encoder and decoder lengths, a row with no encoder position."""
+    from paddle_tpu_torch.ops import fused_attention_gru as fa
+
+    rng = np.random.RandomState(seed)
+    r = lambda *s: rng.randn(*s) * 0.3
+    lens = rng.randint(1, Te + 1, B)
+    lens[0] = 0
+    em = (np.arange(Te)[:, None] < lens[None, :])[:, :, None]
+    dm = (np.arange(Td)[:, None] < rng.randint(0, Td + 1, B)[None, :])[:, :, None]
+    args = [_bf(r(B, Te, D), dev).transpose(0, 1), _bf(r(B, Te, E), dev).transpose(0, 1),
+            _bf(em, dev), _bf(r(Td, B, 3 * D), dev), _bf(dm, dev), _bf(r(B, D), dev),
+            _bf(rng.randn(D, D) / np.sqrt(D), dev), _bf(r(1, D), dev), _bf(r(1, D), dev),
+            _bf(rng.randn(E, 3 * D) / np.sqrt(E), dev), _bf(rng.randn(D, 3 * D) / np.sqrt(D), dev)]
+    dy = _bf(rng.randn(Td, B, D), dev)
+    ys, hprev, saved, alpha, ctxs, m = fa._launch_fwd(*args, fa.KERNEL_ACTS, residuals=True)
+    ep, ev, _, _, dmask, _, wa, ba, v, wctx, wg = args
+    return (dy, ep, ev, dmask, hprev, saved, alpha, m, wa, v, wctx, wg), ba
+
+
+@pytest.mark.parametrize("Td,Te,B,D,E", [(32, 32, 64, 512, 1024), (1, 32, 64, 512, 1024),
+                                         (5, 7, 37, 256, 512), (3, 9, 19, 256, 1024),
+                                         (4, 16, 3, 512, 512)])
+def test_attention_gru_bwd_sm90_matches_plain_version(dev, Td, Te, B, D, E):
+    """attention_gru_bwd_bf16_sm90 (the route's choice at these shapes)
+    against the bf16 plain version: dxw, dctx, dh0, d_enc_proj, dWa, dba and
+    dv within 1e-2 of scale, dWa (rounded to bf16) within RECURRENT_SM90_ULPS
+    spacings of the plain version through the kernel's own dxw, where at
+    the NMT shape the one-piece control is not; two launches bit-equal. B = 37 and 19 are no multiple of 16; B = 3 has
+    one row a group; D = 256 at E = 1024 takes two row groups of blocks of 8
+    units; rows with no decoder step and no encoder position."""
+    from paddle_tpu_torch.ops import fused_attention_gru as fa
+
+    args, ba = _agru_bf16_bwd_case(dev, Td, Te, B, D, E, seed=Td + Te + B + D)
+    ev, wa, wctx, wg = args[2], args[8], args[10], args[11]
+    assert fa.sm90_takes(B, Te, D, E, fa.card_sms(dev), wa, wctx, wg, ev)
+    before = (fa.ATTENTION_GRU_BWD_BF16_SM90.launches, fa.ATTENTION_GRU_BWD_BF16.launches)
+    got = fa._launch_bwd(*args)
+    again = fa._launch_bwd(*args)
+    torch.cuda.synchronize()
+    assert (fa.ATTENTION_GRU_BWD_BF16_SM90.launches - before[0],
+            fa.ATTENTION_GRU_BWD_BF16.launches - before[1]) == (2, 0)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    dy, ep, ev, dmask, hprev, saved, alpha, m, wa, v, wctx, wg = args
+    plain = fa.attention_gru_backward_reference(dy, ep, ev, dmask, hprev, saved, alpha, wa, ba,
+                                                v, wctx, wg)
+    for name, a, b in zip(("dxw", "dctx", "dh0", "dep", "dwa", "dba", "dv"), got, plain):
+        assert torch.isfinite(a.float()).all(), name
+        assert _scale_err(a, b) <= BF16_TOL, (name, _scale_err(a, b))
+    ref = lambda n: fa.attention_gru_backward_reference(
+        dy, ep, ev, dmask, hprev, saved, alpha, wa, ba, v, wctx, wg, dwa_pieces=n,
+        dxw_forced=got[0])[4]
+    ulps = lambda a, b: _bf16_ulps(a.to(torch.bfloat16), b.to(torch.bfloat16))
+    own = ref(0)
+    two_ulps, one_ulps = ulps(got[4], own), ulps(ref(1), own)
+    assert two_ulps <= RECURRENT_SM90_ULPS, (two_ulps, one_ulps)
+    if Td == 32:
+        assert one_ulps > RECURRENT_SM90_ULPS, (two_ulps, one_ulps)
+
+
+def test_attention_gru_bwd_phase_clocks_leave_the_result_alone(dev):
+    """Kernel 6's three bodies asked for their phase clocks ([Td, 5], the end
+    of each phase): the same bits, and block 0's clock rising through every
+    step's phases."""
+    from paddle_tpu_torch.ops import fused_attention_gru as fa
+
+    Td = 4
+    args, _ = _agru_bf16_bwd_case(dev, Td, 8, 16, 256, 512, seed=51)
+    f32 = tuple(a.float() if a.dtype == torch.bfloat16 else a for a in args)
+    for case, launch in ((f32, fa._launch_bwd), (args, fa._launch_bwd_persistent),
+                         (args, fa._launch_bwd_sm90)):
+        plain = launch(*case)
+        clocks = torch.zeros((Td, 5), dtype=torch.int64, device=dev)
+        clocked = launch(*case, phase_ns=clocks)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(plain, clocked)), launch.__name__
+        flat = clocks.flatten()
+        assert bool((flat[1:] >= flat[:-1]).all()) and int(flat[0]) > 0, launch.__name__
+
+
+@pytest.mark.parametrize("Td,Te,B,D,E", [(8, 128, 64, 512, 1024), (3, 5, 3, 40, 24),
+                                         (4, 8, 8, 384, 768)])
+def test_attention_gru_bwd_bf16_keeps_the_persistent_body_where_sm90_refuses(
+        dev, Td, Te, B, D, E):
+    """Where sm90_takes refuses (Te = 128's d_enc_proj sums past a block's
+    shared memory; D no multiple of 256) the persistent body runs, held to the bf16
+    plain version within 1e-2 of scale; at the NMT shape the persistent
+    body launched by name (_launch_bwd_persistent) gives a result within the
+    same bound of the Hopper body's."""
+    from paddle_tpu_torch.ops import fused_attention_gru as fa
+
+    assert not fa.sm90_takes(B, Te, D, E, fa.card_sms(dev))
+    args, ba = _agru_bf16_bwd_case(dev, Td, Te, B, D, E, seed=Td * Te + D)
+    before = (fa.ATTENTION_GRU_BWD_BF16_SM90.launches, fa.ATTENTION_GRU_BWD_BF16.launches)
+    got = fa._launch_bwd(*args)
+    torch.cuda.synchronize()
+    assert (fa.ATTENTION_GRU_BWD_BF16_SM90.launches - before[0],
+            fa.ATTENTION_GRU_BWD_BF16.launches - before[1]) == (0, 1)
+    dy, ep, ev, dmask, hprev, saved, alpha, m, wa, v, wctx, wg = args
+    plain = fa.attention_gru_backward_reference(dy, ep, ev, dmask, hprev, saved, alpha, wa, ba,
+                                                v, wctx, wg)
+    for name, a, b in zip(("dxw", "dctx", "dh0", "dep", "dwa", "dba", "dv"), got, plain):
+        assert _scale_err(a, b) <= BF16_TOL, (name, _scale_err(a, b))
+    nmt, _ = _agru_bf16_bwd_case(dev, 6, 32, 64, 512, 1024, seed=53)
+    new, old = fa._launch_bwd(*nmt), fa._launch_bwd_persistent(*nmt)
+    for name, a, b in zip(("dxw", "dctx", "dh0", "dep", "dwa", "dba", "dv"), new, old):
+        assert _scale_err(a, b) <= BF16_TOL, (name, _scale_err(a, b))

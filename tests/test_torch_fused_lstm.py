@@ -251,3 +251,115 @@ def test_the_kernels_refuse_other_operand_types(dtype):
                        cprev, tm, tw.to(dtype), tp.to(dtype), False, tl.DEFAULT_ACTS)
     with pytest.raises(ValueError, match="w is torch.float32"):
         tl._check_operands(tx.bfloat16(), tm, tw, tp.bfloat16(), tl.DEFAULT_ACTS)
+
+
+# ------------------------------------------- kernel 8's bf16 body for Hopper
+
+SM90_CANCEL_FLOOR = 2.0 ** -11     # as tests/test_torch_flash_attention.py's
+
+
+def _ulps(got, want, floor=SM90_CANCEL_FLOOR):
+    """The largest |got - want| in bf16 spacings of the larger magnitude,
+    taken at no less than ``floor`` of the scale
+    (torch_bf16_checks.assert_within_one_ulp holds it to 1)."""
+    got, want = f32(got), f32(want)
+    big = np.maximum(np.maximum(np.abs(got), np.abs(want)), floor * np.abs(want).max())
+    ulp = np.exp2(np.floor(np.log2(np.maximum(big, np.finfo(np.float32).tiny))) - 7)
+    return float((np.abs(got - want) / ulp).max())
+
+
+@pytest.mark.parametrize("reversed_", [False, True])
+def test_sm90_two_piece_dw_matches_pallas(reversed_):
+    """The Hopper body's arithmetic (``lstm_bwd_bf16_sm90``): dW summed from
+    the gate gradients as two bf16 pieces, hi = bf16(g) (dx4 itself) and
+    lo = bf16(g - hi), each product of bf16 operands summed in float32
+    (``lstm_backward_reference(dw_pieces=2)``), against ``_run_bwd`` in
+    interpret mode on bf16 operands at T = 8, B = 4, H = 64: dx4, dW and
+    dpeep within one bf16 ulp, dW's taken at no less than SM90_CANCEL_FLOOR
+    of its scale (a dW element that cancels far below its terms differs by
+    several of its own ulps between two float32 summation orders: 6 in the
+    reversed case, the plain float32 sums against Pallas'). The one-piece
+    form (dW from hi alone) lies 187+ spacings off at the same floor."""
+    T, B, H = 8, 4, 64
+    x4, w, peep, mask = _inputs(31, T=T, B=B, H=H)
+    flip = _flip(reversed_)
+    (jw, tw), (jp, tp) = bf16(w), bf16(peep)
+    jm = jnp.asarray(flip(mask))[:, :, None]
+    res = pk._run_fwd(bf16(flip(x4))[0], jm, jw, jp, BF16_ACTS, True, residuals=True)
+    dy = np.random.RandomState(32).randn(T, B, H).astype(np.float32)
+    jdx, jdw, jdp = pk._run_bwd(bf16(flip(dy))[0], tuple(res[1:]), jm, jw, jp, BF16_ACTS, True)
+    to_t = lambda a, dt: torch.from_numpy(flip(f32(a))).to(dt)
+    args = (bf16(dy)[1], to_t(res[1], torch.bfloat16), to_t(res[2], torch.bfloat16),
+            to_t(res[3], torch.float32), torch.from_numpy(mask), tw, tp, reversed_, BF16_ACTS)
+    dx, dw, dp = tl.lstm_backward_reference(*args, dw_pieces=2)
+    assert_within_one_ulp(dx, flip(f32(jdx)), "dx4")
+    assert_within_one_ulp(dw, jdw, "dw", floor=SM90_CANCEL_FLOOR)
+    assert_within_one_ulp(dp, jdp, "dpeep")
+    two = _ulps(dw, jdw)
+    one = _ulps(tl.lstm_backward_reference(*args, dw_pieces=1)[1], jdw)
+    assert two <= 1.0 < one, (two, one)
+
+
+def test_sm90_plan_mirrors_the_kernel_at_132_and_114_sms():
+    """``sm90_plan`` (csrc/lstm_bwd_sm90.cu make_plan): at the classifier's
+    B = 256, H = 512 blocks of 32 units, 16 a row group, 8 row groups of 32
+    rows on 132 SMs (7 of 37 on 114); H = 1024 takes blocks of 16 units (32
+    would hold 256 KB of w); H = 256 16 groups of 16 rows. H not a multiple
+    of 64, and a batch whose rows' state overflows a block, have no plan:
+    the persistent body keeps them."""
+    plan = lambda B, H, sms: {k: v for k, v in tl.sm90_plan(B, H, sms).items()
+                              if k in ("units_per_block", "blocks_per_group", "row_groups",
+                                       "rows_per_group")}
+    at = lambda U, G, P, R: dict(units_per_block=U, blocks_per_group=G, row_groups=P,
+                                 rows_per_group=R)
+    assert plan(256, 512, 132) == at(32, 16, 8, 32)
+    assert plan(256, 512, 114) == at(32, 16, 7, 37)
+    assert plan(256, 1024, 132) == at(16, 64, 2, 128)
+    assert plan(256, 1024, 114) == at(16, 64, 1, 256)
+    assert plan(256, 256, 132) == at(32, 8, 16, 16)
+    assert plan(5, 64, 132) == at(32, 2, 5, 1)
+    for sms in (132, 114):
+        assert tl.sm90_plan(256, 512, sms)["smem_bytes"] <= tl.SMEM_LIMIT
+        assert tl.sm90_plan(256, 520, sms) is None and tl.sm90_plan(256, 48, sms) is None
+        assert tl.sm90_plan(0, 512, sms) is None
+        assert tl.sm90_plan(8192, 1024, sms) is None
+
+
+def test_sm90_route_takes_the_classifier_and_leaves_the_rest(monkeypatch):
+    """``_launch_bwd`` picks the body by ``sm90_takes`` before any launch
+    (the launch recorded in place of a build): bf16 at H = 64 and 128 takes
+    ``lstm_bwd_bf16_sm90``; H = 48 and a w whose base is one element off 16
+    bytes take ``lstm_bwd_bf16``; float32 takes ``lstm_bwd``. The bodies
+    launched by name: ``_launch_bwd_persistent`` takes ``lstm_bwd_bf16``
+    at any shape, an explicit row-group count included, and
+    ``_launch_bwd_sm90`` on a shape it cannot take raises."""
+    picked = []
+    for kern in tl.KERNELS:
+        monkeypatch.setattr(kern, "launch", lambda device, *a, _k=kern: picked.append(_k.symbol))
+
+    def route(H, dtype=torch.bfloat16, w_off=0, launch=tl._launch_bwd, **kw):
+        T, B = 3, 5
+        x4, w, peep, mask = _inputs(33, T=T, B=B, H=H)
+        tm = torch.from_numpy(mask)
+        _, saved, hprev, cprev = tl.lstm_forward_reference(
+            torch.from_numpy(x4), tm, torch.from_numpy(w), torch.from_numpy(peep),
+            residuals=True)
+        flat = torch.zeros(H * 4 * H + w_off, dtype=dtype)[w_off:]
+        tw = flat.view(H, 4 * H)
+        picked.clear()
+        launch(torch.zeros(T, B, H, dtype=dtype), saved.to(dtype), hprev.to(dtype), cprev, tm,
+               tw, torch.from_numpy(peep).to(dtype), False, BF16_ACTS, **kw)
+        return tuple(picked)
+
+    assert route(64) == ("lstm_bwd_bf16_sm90",)
+    assert route(128) == ("lstm_bwd_bf16_sm90",)
+    assert route(128, launch=tl._launch_bwd_sm90) == ("lstm_bwd_bf16_sm90",)
+    assert route(48) == ("lstm_bwd_bf16",)
+    assert route(64, w_off=1) == ("lstm_bwd_bf16",)
+    assert route(64, launch=tl._launch_bwd_persistent, row_groups=1) == ("lstm_bwd_bf16",)
+    assert route(64, launch=tl._launch_bwd_persistent) == ("lstm_bwd_bf16",)
+    assert route(64, dtype=torch.float32) == ("lstm_bwd",)
+    with pytest.raises(ValueError, match="lstm_bwd_bf16_sm90 takes"):
+        route(48, launch=tl._launch_bwd_sm90)
+    with pytest.raises(ValueError, match="lstm_bwd_bf16_sm90 takes"):
+        route(64, dtype=torch.float32, launch=tl._launch_bwd_sm90)
